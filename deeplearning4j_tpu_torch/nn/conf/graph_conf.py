@@ -1,0 +1,128 @@
+"""Graph vertices and the GraphBuilder for DAG networks.
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``, with the
+two vertices the transformer needs: ``LayerVertex`` (a layer conf) and
+``ElementWiseVertex`` (the residual adds). Preprocessors and the other
+vertices port with the breadth modules (ROADMAP.md A1, A11).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+
+__all__ = ["ElementWiseVertex", "GraphBuilder", "GraphVertexConf",
+           "LayerVertex"]
+
+
+@dataclass
+class GraphVertexConf:
+    """Base vertex: a function of its input activation list."""
+
+    def output_type(self, its: List[InputType]) -> InputType:
+        return its[0]
+
+    def init(self, gen: torch.Generator, its: List[InputType], device):
+        return {}, {}
+
+    def apply(self, params, xs: List, state):
+        raise NotImplementedError
+
+
+@dataclass
+class LayerVertex(GraphVertexConf):
+    """Wraps a layer conf."""
+
+    layer: Any = None
+
+    def output_type(self, its):
+        return self.layer.output_type(its[0])
+
+    def init(self, gen, its, device):
+        return self.layer.init(gen, its[0], device)
+
+    @property
+    def supports_streaming(self):
+        return getattr(self.layer, "supports_streaming", False)
+
+    def apply(self, params, xs, state, **extra):
+        return self.layer.apply(params, xs[0], state, **extra)
+
+
+@dataclass
+class ElementWiseVertex(GraphVertexConf):
+    """Element-wise sum of the inputs (the residual adds). The other ops
+    port with the breadth modules (ROADMAP.md A11)."""
+
+    op: str = "add"
+
+    def __post_init__(self):
+        if self.op.lower() != "add":
+            raise NotImplementedError(
+                f"ElementWiseVertex op {self.op!r} is not ported yet "
+                f"(ROADMAP.md A11); ported: add")
+
+    def apply(self, params, xs, state):
+        y = xs[0]
+        for x in xs[1:]:
+            y = y + x
+        return y, state
+
+
+class GraphBuilder:
+    """Fluent DAG builder (add_inputs / add_layer / add_vertex /
+    set_outputs)."""
+
+    def __init__(self, parent=None):
+        from deeplearning4j_tpu_torch.nn.conf.network import (
+            ComputationGraphConfiguration, NeuralNetConfiguration)
+        if parent is None:
+            parent = NeuralNetConfiguration.Builder()
+        self._conf = ComputationGraphConfiguration(seed=parent._seed)
+        self._defaults = parent._defaults
+
+    def add_inputs(self, *names: str):
+        self._conf.network_inputs.extend(names)
+        return self
+
+    def set_input_types(self, *its: InputType):
+        for name, it in zip(self._conf.network_inputs, its):
+            self._conf.input_types[name] = it
+        return self
+
+    def add_layer(self, name: str, layer: LayerConf, *inputs: str):
+        from deeplearning4j_tpu_torch.nn.conf.network import (
+            apply_global_defaults)
+        apply_global_defaults(layer, self._defaults)
+        layer.name = name
+        self._conf.vertices[name] = LayerVertex(layer=layer)
+        self._conf.vertex_inputs[name] = list(inputs)
+        return self
+
+    def add_vertex(self, name: str, vertex: GraphVertexConf, *inputs: str):
+        self._conf.vertices[name] = vertex
+        self._conf.vertex_inputs[name] = list(inputs)
+        return self
+
+    def set_outputs(self, *names: str):
+        self._conf.network_outputs = list(names)
+        return self
+
+    def build(self):
+        conf = self._conf
+        if not conf.network_inputs:
+            raise ValueError("graph has no inputs")
+        if not conf.network_outputs:
+            raise ValueError("graph has no outputs")
+        for name in conf.vertices:
+            for i in conf.vertex_inputs.get(name, []):
+                if i not in conf.vertices and i not in conf.network_inputs:
+                    raise ValueError(
+                        f"vertex '{name}' input '{i}' is undefined")
+        conf.topological_order()  # validates acyclicity
+        return conf

@@ -1,0 +1,403 @@
+"""Layer configurations for the ported transformer.
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, restricted to
+the layers ``zoo/transformer.py`` builds with rope positions:
+``Convolution1DLayer`` (kernel 1: the token projection and the FFN),
+``LayerNormalization``, ``SelfAttentionLayer`` and ``RnnOutputLayer``.
+Each conf owns its ``init`` / ``apply`` as in the JAX package; ``apply``
+works on plain tensors with ``{name: tensor}`` parameter dicts.
+Parameter names and layouts are the JAX package's, so parameters copy
+across unchanged (``util/convert.py``).
+
+Streaming state (``rnn_time_step``): the attention layer carries a
+dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
+position ``kv_pos`` (a scalar, or ``[N]`` per row in the engine's slot
+arena), or, while the serving engine decodes on its page pool, the
+paged view (``kv_page_k`` / ``kv_page_v`` ``[P, Hkv, page_size, D]``
+and ``kv_page_table`` ``[N, n_max]``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn import activations as _act
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.weights import init_weights
+
+NEG_INF = -1e30   # finite: a fully masked row must stay finite
+
+__all__ = ["BATCHED_STREAM_KEYS", "Convolution1DLayer", "LayerConf",
+           "LayerNormalization", "RnnOutputLayer", "STREAM_STATE_KEYS",
+           "SelfAttentionLayer", "stream_capacity"]
+
+#: per-layer state keys carried only by the streaming rnn_time_step
+#: path (stripped on ordinary forwards, cleared by
+#: rnn_clear_previous_state): the attention KV cache and its position,
+#: and the paged view the serving engine installs around its decode
+#: dispatches. (LSTM h/c, masked-stream kv_mask and the rolling cache's
+#: kv_abs come with their layers: ROADMAP.md A6, A8.)
+STREAM_STATE_KEYS = frozenset(
+    {"kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v", "kv_page_table"})
+
+#: streaming-state keys whose LEADING axis is the batch dimension
+BATCHED_STREAM_KEYS = frozenset({"kv_k", "kv_v"})
+
+
+def stream_capacity(layers):
+    """Smallest streaming-position capacity over `layers` (None if
+    unbounded): max_length and cache_length both cap."""
+    limit = None
+    for l in layers:
+        if not getattr(l, "supports_streaming", False):
+            continue
+        for cap in (getattr(l, "max_length", 0),
+                    getattr(l, "cache_length", 0)):
+            if cap:
+                limit = cap if limit is None else min(limit, cap)
+    return limit
+
+
+@dataclass
+class LayerConf:
+    """Base for all layer configs."""
+
+    name: Optional[str] = None
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def init(self, gen: torch.Generator, it: InputType, device):
+        """Return (params, state) dicts for this layer."""
+        return {}, {}
+
+    def apply(self, params, x, state):
+        """Return (y, new_state)."""
+        raise NotImplementedError
+
+
+@dataclass
+class BaseLayerConf(LayerConf):
+    """Base for parameterized layers: activation and weight init (bias
+    init, regularization and per-layer updaters come with training,
+    ROADMAP.md A1). Biases start at zero."""
+
+    activation: str = "identity"
+    weight_init: str = "xavier"
+
+
+@dataclass
+class FeedForwardLayerConf(BaseLayerConf):
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+
+
+@dataclass
+class Convolution1DLayer(FeedForwardLayerConf):
+    """1-D convolution over ``[N, C, T]``, ported for kernel 1 (the
+    position-wise matmul the transformer uses; stride 1, any padding
+    mode gives the same result). W is ``[n_out, n_in, kernel]`` as in
+    the JAX package."""
+
+    kernel: int = 1
+
+    def __post_init__(self):
+        if self.kernel != 1:
+            raise NotImplementedError(
+                "Convolution1DLayer is ported for kernel=1 only (the "
+                "transformer's position-wise projections); general 1-D "
+                "convolution is ROADMAP.md A11")
+
+    def output_type(self, it):
+        return InputType.recurrent(self.n_out, it.timesteps)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.size
+        w = init_weights(gen, (self.n_out, self.n_in, 1), self.n_in,
+                         self.n_out, self.weight_init, device)
+        return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
+
+    def apply(self, params, x, state):
+        # one [N*T, C] x [C, O] product
+        y = x.transpose(1, 2) @ params["W"][:, :, 0].t() + params["b"]
+        return _act.get(self.activation)(y.transpose(1, 2)), state
+
+
+@dataclass
+class LayerNormalization(FeedForwardLayerConf):
+    """Layer normalization over the feature axis (axis 1 of ``[N, F]``
+    and ``[N, F, T]``), statistics in f32 whatever the compute dtype."""
+
+    eps: float = 1e-5
+
+    def init(self, gen, it, device):
+        nf = it.size
+        self.n_in = self.n_out = nf
+        return {"gamma": torch.ones(nf, device=device),
+                "beta": torch.zeros(nf, device=device)}, {}
+
+    def apply(self, params, x, state):
+        xf = x.float() if x.dtype != torch.float64 else x
+        mean = xf.mean(dim=1, keepdim=True)
+        var = ((xf * xf).mean(dim=1, keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        shape = [1] * x.dim()
+        shape[1] = -1
+        y = y * params["gamma"].to(x.dtype).reshape(shape) + \
+            params["beta"].to(x.dtype).reshape(shape)
+        return _act.get(self.activation)(y), state
+
+
+@dataclass
+class SelfAttentionLayer(FeedForwardLayerConf):
+    """Causal multi-head self-attention over ``[N, F, T]``.
+
+    Params Wq/Wk/Wv/Wo ``[n_in, n_out]`` (Wk/Wv ``[n_in, Hkv*D]`` under
+    grouped-query attention, ``n_kv_heads`` < ``n_heads``) and their
+    biases. ``rope=True`` rotates q/k by absolute position
+    (rotate-half convention). With ``cache_length`` set the layer
+    streams: ``apply(..., stream=True)`` appends the chunk's K/V to the
+    carried cache and attends against it (:meth:`_stream_attend`)."""
+
+    n_heads: int = 4
+    causal: bool = True
+    cache_length: int = 0
+    n_kv_heads: Optional[int] = None
+    rope: bool = False
+    rope_base: float = 10000.0
+    window: Optional[int] = None
+
+    supports_streaming = True
+
+    def output_type(self, it):
+        if it.kind != "rnn":
+            raise ValueError("SelfAttentionLayer needs RNN input [N,F,T]")
+        return InputType.recurrent(self.n_out or it.size, it.timesteps)
+
+    def init(self, gen, it, device):
+        if self.window is not None:
+            raise NotImplementedError(
+                "sliding-window attention (rolling KV cache) is not "
+                "ported yet (ROADMAP.md A6)")
+        if self.n_in is None:
+            self.n_in = it.size
+        if self.n_out is None:
+            self.n_out = self.n_in
+        if self.n_out % self.n_heads:
+            raise ValueError(f"n_out {self.n_out} not divisible by "
+                             f"n_heads {self.n_heads}")
+        if self.n_kv_heads is not None and self.n_kv_heads < 1:
+            raise ValueError(f"n_kv_heads must be >= 1, got "
+                             f"{self.n_kv_heads}")
+        hkv = self.n_kv_heads or self.n_heads
+        if self.n_heads % hkv:
+            raise ValueError(f"n_heads {self.n_heads} not divisible by "
+                             f"n_kv_heads {hkv}")
+        d = self.n_out // self.n_heads
+        if self.rope and d % 2:
+            raise ValueError(f"rope needs an even head dim, got {d}")
+        p = {}
+        for name in ("q", "k", "v", "o"):
+            n_in = self.n_in if name != "o" else self.n_out
+            n_out = hkv * d if name in ("k", "v") else self.n_out
+            p["W" + name] = init_weights(gen, (n_in, n_out), n_in, n_out,
+                                         self.weight_init, device)
+            p["b" + name] = torch.zeros(n_out, device=device)
+        return p, {}
+
+    def apply(self, params, x, state, stream=False):
+        n, _, t = x.shape
+        h = self.n_heads
+        hkv = self.n_kv_heads or h
+        d = self.n_out // h
+        xt = x.transpose(1, 2)                              # [N,T,F]
+
+        def proj(name, heads):
+            y = xt @ params["W" + name] + params["b" + name]
+            return y.reshape(n, t, heads, d).transpose(1, 2)
+
+        q = proj("q", h)                                    # [N,H,T,D]
+        k, v = proj("k", hkv), proj("v", hkv)               # [N,Hkv,T,D]
+        if stream:
+            o, state = self._stream_attend(q, k, v, state)
+        else:
+            if self.rope:
+                pos = torch.arange(t, device=x.device)
+                q, k = self._rope(q, pos), self._rope(k, pos)
+            o = self._full_attend(q, k, v)
+        o = o.transpose(1, 2).reshape(n, t, self.n_out)
+        o = o @ params["Wo"] + params["bo"]
+        return _act.get(self.activation)(o.transpose(1, 2)), state
+
+    def _full_attend(self, q, k, v):
+        """Whole-sequence attention, plainly: f32 scores and softmax
+        over the (GQA-expanded) keys, causal when configured. The JAX
+        package runs a blockwise online softmax here (or the flash
+        kernel on a TPU); the result is the same function."""
+        t, d = q.shape[2], q.shape[3]
+        reps = self.n_heads // k.shape[1]
+        if reps > 1:
+            k = k.repeat_interleave(reps, dim=1)
+            v = v.repeat_interleave(reps, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         k.float()) * (1.0 / math.sqrt(d))
+        if self.causal:
+            i = torch.arange(t, device=q.device)
+            s = s.masked_fill(i[None, :] > i[:, None], NEG_INF)
+        o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                         v.float())
+        return o.to(q.dtype)
+
+    def _stream_attend(self, q, k, v, state):
+        """Incremental decode against the dense cache: append the
+        chunk's K/V at its positions, attend q against the cache.
+
+        A scalar ``kv_pos`` (one stream, e.g. a batch-1 prime) writes
+        the chunk at ``pos .. pos + T``; the stream-budget guard in
+        ``ComputationGraph.rnn_time_step`` keeps that inside the cache.
+        A per-row ``kv_pos`` (the engine's slot arena) writes each row
+        at its own slots; rows past ``cache_length`` (free slots whose
+        position coasts) keep their cache unchanged. The cache is
+        updated in place."""
+        if self.cache_length <= 0:
+            raise ValueError(
+                "SelfAttentionLayer streaming needs cache_length > 0")
+        if not self.causal:
+            raise ValueError("streaming decode requires causal=True")
+        if state.get("kv_page_table") is not None:
+            return self._stream_attend_paged(q, k, v, state)
+        n, _, t, d = q.shape
+        hkv = k.shape[1]
+        L = self.cache_length
+        kc = state.get("kv_k")
+        if kc is None:
+            kc = q.new_zeros((n, hkv, L, d))
+            vc = q.new_zeros((n, hkv, L, d))
+            pos = torch.zeros((), dtype=torch.int32, device=q.device)
+        else:
+            vc, pos = state["kv_v"], state["kv_pos"]
+        steps = torch.arange(t, dtype=pos.dtype, device=q.device)
+        k_idx = torch.arange(L, device=q.device)
+        if pos.dim() >= 1:
+            q_pos = pos[:, None] + steps                    # [N, T]
+            if self.rope:
+                q, k = self._rope(q, q_pos), self._rope(k, q_pos)
+            inside = (q_pos < L)[..., None, None]
+            slot = q_pos.clamp(max=L - 1).long()
+            rows = torch.arange(n, device=q.device)[:, None]
+            for cache, new in ((kc, k), (vc, v)):
+                new = new.transpose(1, 2).to(cache.dtype)   # [N,T,Hkv,D]
+                cache[rows, :, slot] = torch.where(
+                    inside, new, cache[rows, :, slot])
+            valid = k_idx[None, None, :] <= q_pos[..., None]  # [N, T, L]
+        else:
+            q_pos = pos + steps                             # [T]
+            if self.rope:
+                q, k = self._rope(q, q_pos), self._rope(k, q_pos)
+            kc.index_copy_(2, q_pos.long(), k.to(kc.dtype))
+            vc.index_copy_(2, q_pos.long(), v.to(vc.dtype))
+            valid = (k_idx[None, :] <= q_pos[:, None])[None]  # [1, T, L]
+        o = self._grouped_attend(q, kc, vc, valid)
+        return o, {**state, "kv_k": kc, "kv_v": vc, "kv_pos": pos + t}
+
+    def _stream_attend_paged(self, q, k, v, state):
+        """Direct paged decode: K/V live in the engine's block-paged pool
+        (``kv_page_k`` / ``kv_page_v``) and the per-row page table
+        (``kv_page_table``, 0 = the null page). The chunk's tokens are
+        appended first, in place, at each row's ``(page, offset)``; then
+        the queries attend through the table with the paged-attention
+        kernel (``serving/paged_kernel.py``; its plain version on the
+        CPU).
+
+        Appends past a row's capacity, and those of free rows (whose
+        table rows are all 0), land on the null page 0. Duplicate writes
+        there are harmless: every row's length masks page 0 out of what
+        it reads. Prefix-shared pages are read-only by block alignment:
+        a row appends only at positions at or past its own fresh blocks.
+        """
+        from deeplearning4j_tpu_torch.serving.paged_kernel import (
+            paged_attention)
+        kp, vp = state["kv_page_k"], state["kv_page_v"]
+        table = state["kv_page_table"]
+        pos = state.get("kv_pos")
+        if pos is None or pos.dim() < 1:
+            raise ValueError(
+                "direct paged decode needs the per-row kv_pos vector "
+                "(the engine arena carries one)")
+        n, hkv, t, d = k.shape
+        L = self.cache_length
+        ps = kp.shape[2]
+        q_pos = pos[:, None] + torch.arange(t, dtype=pos.dtype,
+                                            device=q.device)
+        if self.rope:
+            q, k = self._rope(q, q_pos), self._rope(k, q_pos)
+        blk = (q_pos // ps).clamp(0, table.shape[1] - 1).long()
+        page = table.gather(1, blk)
+        page = torch.where(q_pos < L, page, torch.zeros_like(page)).long()
+        off = (q_pos % ps).long()
+        kp[page, :, off] = k.transpose(1, 2).to(kp.dtype)   # [N,T,Hkv,D]
+        vp[page, :, off] = v.transpose(1, 2).to(vp.dtype)
+        reps = self.n_heads // hkv
+        o = paged_attention(q.reshape(n, hkv, reps * t, d).contiguous(),
+                            kp, vp, table, (pos + t).to(torch.int32),
+                            query_width=t)
+        return o.reshape(n, self.n_heads, t, d), {**state,
+                                                   "kv_pos": pos + t}
+
+    def _grouped_attend(self, q, kc, vc, valid):
+        """Masked attention of ``[N,H,T,D]`` queries against the
+        un-expanded ``[N,Hkv,L,D]`` cache (GQA groups share KV heads);
+        valid: ``[N|1, T, L]``. f32 scores and softmax."""
+        n, _, t, d = q.shape
+        hkv = kc.shape[1]
+        qg = q.float().reshape(n, hkv, self.n_heads // hkv, t, d)
+        s = torch.einsum("ngrtd,ngld->ngrtl", qg,
+                         kc.float()) / math.sqrt(d)
+        s = s.masked_fill(~valid[:, None, None], NEG_INF)
+        o = torch.einsum("ngrtl,ngld->ngrtd", torch.softmax(s, dim=-1),
+                         vc.float())
+        return o.reshape(n, self.n_heads, t, d).to(q.dtype)
+
+    def _rope(self, x, positions):
+        """Rotary position embedding (RoFormer rotate-half convention):
+        x ``[N,H,T,D]``, positions ``[T]`` or per-row ``[N,T]``. Pairs
+        channel i with i + D/2 and rotates by positions * base^(-2i/D);
+        cos/sin are rounded to x's dtype, as in the JAX package."""
+        half = x.shape[-1] // 2
+        inv = self.rope_base ** (
+            -torch.arange(half, dtype=torch.float32, device=x.device) / half)
+        ang = positions.float()[..., None] * inv          # [...,T,half]
+        lead = (None, None) if ang.dim() == 2 else (slice(None), None)
+        cos = ang.cos()[lead].to(x.dtype)
+        sin = ang.sin()[lead].to(x.dtype)
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+@dataclass
+class RnnOutputLayer(FeedForwardLayerConf):
+    """Per-timestep dense output over ``[N, C, T]``: W ``[n_in, n_out]``.
+    Softmax runs over the class axis (the loss comes with training)."""
+
+    loss: str = "mcxent"
+    activation: str = "softmax"
+
+    def output_type(self, it):
+        return InputType.recurrent(self.n_out, it.timesteps)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.size
+        w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
+                         self.n_out, self.weight_init, device)
+        return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
+
+    def apply(self, params, x, state):
+        y = x.transpose(1, 2) @ params["W"] + params["b"]   # [N,T,O]
+        return _act.get(self.activation)(y.transpose(1, 2)), state

@@ -1,0 +1,95 @@
+"""Network-level configuration: the builder DSL for DAG networks.
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/network.py``:
+``NeuralNetConfiguration.Builder`` global defaults cascade into the
+layer confs, and ``graph_builder()`` yields a
+``ComputationGraphConfiguration``. The other global defaults
+(activation, bias init, updaters, gradient normalization), the
+sequential ``list()`` builder and JSON round trips come with training
+and the formats (ROADMAP.md A1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+
+__all__ = ["ComputationGraphConfiguration", "NeuralNetConfiguration",
+           "apply_global_defaults"]
+
+
+def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
+    """Cascade builder-level defaults into a layer conf, DL4J-style: a
+    global value applies unless the layer set the field explicitly
+    (detected as the field differing from its dataclass default)."""
+    cls_defaults = {f.name: f.default for f in dataclasses.fields(layer)
+                    if f.default is not dataclasses.MISSING}
+    for k, v in defaults.items():
+        if hasattr(layer, k) and getattr(layer, k) == cls_defaults.get(k):
+            setattr(layer, k, v)
+
+
+class NeuralNetConfiguration:
+    """Namespace matching the reference's entry point."""
+
+    class Builder:
+        def __init__(self):
+            self._seed = 12345
+            self._defaults: Dict[str, Any] = {}
+
+        def seed(self, s: int):
+            self._seed = int(s)
+            return self
+
+        def weight_init(self, w: str):
+            self._defaults["weight_init"] = w
+            return self
+
+        def graph_builder(self):
+            from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+                GraphBuilder)
+            return GraphBuilder(self)
+
+
+@dataclass
+class ComputationGraphConfiguration:
+    """DAG net config, built through
+    ``NeuralNetConfiguration.Builder().graph_builder()``. ``dtype``
+    selects the compute policy (``"float32"`` or ``"bfloat16"``,
+    ``nn/compute.py``)."""
+
+    vertices: Dict[str, Any] = field(default_factory=dict)
+    vertex_inputs: Dict[str, List[str]] = field(default_factory=dict)
+    network_inputs: List[str] = field(default_factory=list)
+    network_outputs: List[str] = field(default_factory=list)
+    input_types: Dict[str, InputType] = field(default_factory=dict)
+    seed: int = 12345
+    dtype: str = "float32"
+
+    def topological_order(self) -> List[str]:
+        """Kahn topological sort, ties broken by name."""
+        indeg = {name: 0 for name in self.vertices}
+        for name, ins in self.vertex_inputs.items():
+            indeg[name] = sum(1 for i in ins if i in self.vertices)
+        ready = sorted([n for n, d in indeg.items() if d == 0])
+        order: List[str] = []
+        children: Dict[str, List[str]] = {n: [] for n in self.vertices}
+        for name, ins in self.vertex_inputs.items():
+            for i in ins:
+                if i in children:
+                    children[i].append(name)
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for c in children[n]:
+                indeg[c] -= 1
+                if indeg[c] == 0:
+                    ready.append(c)
+        if len(order) != len(self.vertices):
+            raise ValueError("Graph has a cycle or disconnected vertex "
+                             "inputs")
+        return order

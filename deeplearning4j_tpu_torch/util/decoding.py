@@ -1,0 +1,180 @@
+"""Decoding over the streaming ``rnn_time_step`` machinery.
+
+Counterpart of ``deeplearning4j_tpu/util/decoding.py`` for what the
+serving path needs: the host-side sampling rules (``filter_probs`` /
+``draw``, numpy, so sampled streams compare token for token with the
+JAX package's wherever the probabilities agree), priming, the one-token
+decode step, the retirement rule and ``sample_stream``. Batched,
+speculative and beam decoding come later (ROADMAP.md A7).
+
+Priming feeds the whole prompt as ONE unpadded chunk. The JAX package
+primes in power-of-two chunks or one left-padded bucket to bound its
+jit shapes; packed (padded) priming equals unpadded priming by
+construction, and eager PyTorch has no shapes to bound.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["draw", "filter_probs", "prime_prompt", "sample_stream",
+           "step_tokens", "stop_reason"]
+
+
+def _one_hot(net, rows) -> torch.Tensor:
+    """One-hot ``[B, V, T]`` float32 on the net's device, built there
+    from the token ids (only the ids cross to the device)."""
+    ids = torch.as_tensor(np.asarray(rows, np.int64), device=net.device)
+    vocab = next(iter(net.conf.input_types.values())).size
+    x = torch.zeros((ids.shape[0], vocab, ids.shape[1]), device=net.device)
+    return x.scatter_(1, ids[:, None, :], 1.0)
+
+
+def _probs(out) -> np.ndarray:
+    out = out[0] if isinstance(out, (list, tuple)) else out
+    return out.float().cpu().numpy()
+
+
+def filter_probs(probs, temperature, top_k=None, top_p=None) -> np.ndarray:
+    """The sampling distribution actually drawn from: temperature
+    rescales first, then ``top_k`` keeps exactly the k most probable
+    tokens, then ``top_p`` keeps the smallest prefix of the sorted
+    distribution whose mass reaches p (at least one token); survivors
+    renormalize. One row ``[V]`` or a batch ``[B, V]`` (scalar
+    parameters)."""
+    probs = np.asarray(probs)
+    if probs.ndim == 1:
+        return _filter_rows(probs[None, :], temperature, top_k, top_p)[0]
+    if probs.ndim != 2:
+        raise ValueError(f"probs must be [V] or [B, V], got shape "
+                         f"{probs.shape}")
+    return _filter_rows(probs, temperature, top_k, top_p)
+
+
+def _filter_rows(p2, temperature, top_k, top_p):
+    B, V = p2.shape
+    logits = np.log(np.clip(p2, 1e-9, None))
+    logits = logits / np.asarray(temperature).astype(logits.dtype)
+    p = np.exp(logits - logits.max(axis=-1, keepdims=True))
+    p = p / p.sum(axis=-1, keepdims=True)
+    if top_k is not None:
+        k = int(top_k)
+        if k < 1:
+            raise ValueError(f"top_k must be >= 1, got {k}")
+        if k < V:
+            # exactly k indices per row: partition out the top k, then
+            # order only that slice
+            part = np.argpartition(p, V - k, axis=-1)[:, V - k:]
+            vals = np.take_along_axis(p, part, axis=-1)
+            order = np.take_along_axis(
+                part, np.argsort(vals, axis=-1)[:, ::-1], axis=-1)
+            keep = np.zeros((B, V), bool)
+            np.put_along_axis(keep, order, True, axis=-1)
+            p = np.where(keep, p, 0.0)
+            p = p / p.sum(axis=-1)[:, None]
+    if top_p is not None:
+        tp = float(top_p)
+        if not 0.0 < tp <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {tp}")
+        order = np.argsort(p, axis=-1)[:, ::-1]
+        csum = np.cumsum(np.take_along_axis(p, order, axis=-1), axis=-1)
+        # a sorted token survives iff the mass strictly before it is
+        # under top_p
+        before = np.concatenate([np.zeros((B, 1), csum.dtype),
+                                 csum[:, :-1]], axis=1)
+        keep = np.zeros((B, V), bool)
+        np.put_along_axis(keep, order, before < tp, axis=-1)
+        p = np.where(keep, p, 0.0)
+        p = p / p.sum(axis=-1)[:, None]
+    return p
+
+
+def draw(probs, temperature, rng, top_k=None, top_p=None) -> int:
+    """Sample one token id from a ``[V]`` distribution (see
+    filter_probs; top_k=1 is greedy regardless of temperature)."""
+    p = filter_probs(probs, temperature, top_k, top_p)
+    return int(rng.choice(len(p), p=p))
+
+
+def _check_seed(seed_ids, steps, max_length):
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if len(seed_ids) == 0:
+        raise ValueError("seed_ids must contain at least one token")
+    if max_length is not None and len(seed_ids) >= max_length:
+        raise ValueError(f"seed of {len(seed_ids)} tokens leaves no room "
+                         f"under max_length {max_length}")
+
+
+def _stream_layers(net):
+    """Every layer of a ComputationGraph that may carry streaming
+    state."""
+    for v in net.conf.vertices.values():
+        l = getattr(v, "layer", None)
+        if l is not None:
+            yield l
+
+
+def prime_prompt(net, ids) -> np.ndarray:
+    """Prefill: feed the whole prompt through the carried streaming state
+    in one chunk and return the next-token distribution ``[V]``. Does
+    NOT clear previous state: the caller owns the stream lifecycle."""
+    return _probs(net.rnn_time_step(_one_hot(net, [list(ids)])))[0, :, -1]
+
+
+def step_tokens(net, tokens) -> np.ndarray:
+    """One incremental decode step for a batch of rows: one token per
+    row in a single forward; returns the next-token distributions
+    ``[B, V]``."""
+    out = net.rnn_time_step(_one_hot(net, np.asarray(tokens)[:, None]))
+    return _probs(out)[:, :, -1]
+
+
+def stop_reason(token: int, n_ids: int, want: int,
+                stop_set) -> Optional[str]:
+    """Why generation ends after appending `token` as the n_ids-th id
+    (None = keep going). EOS wins over length when both hit."""
+    if token in stop_set:
+        return "stop"
+    if n_ids >= want:
+        return "length"
+    return None
+
+
+def sample_stream(net, seed_ids, steps: int, vocab_size: int,
+                  temperature: float = 1.0,
+                  rng: Optional[np.random.Generator] = None,
+                  max_length: Optional[int] = None,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None,
+                  stop_tokens=()) -> List[int]:
+    """Sampling with KV-cache incremental decoding: prime once with the
+    seed, then one single-position forward per generated token.
+    Generation ends early when a ``stop_tokens`` member is drawn (kept
+    as the final id)."""
+    _check_seed(seed_ids, steps, max_length)
+    vocab = next(iter(net.conf.input_types.values())).size
+    if vocab != vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} != the net's input "
+                         f"size {vocab}")
+    rng = rng or np.random.default_rng(0)
+    stop_tokens = set(stop_tokens)
+    ids = list(seed_ids)
+    want = len(ids) + steps
+    if max_length is not None:
+        want = min(want, max_length)
+    net.rnn_clear_previous_state()
+    p = prime_prompt(net, ids)
+    for i in range(steps):
+        if max_length is not None and len(ids) >= max_length:
+            break
+        nxt = draw(p, temperature, rng, top_k=top_k, top_p=top_p)
+        ids.append(nxt)
+        if stop_reason(nxt, len(ids), want, stop_tokens):
+            break
+        if i + 1 < steps:
+            p = step_tokens(net, [nxt])[0]
+    return ids

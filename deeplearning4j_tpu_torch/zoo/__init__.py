@@ -1,0 +1,5 @@
+"""Model zoo (the models ported so far)."""
+
+from deeplearning4j_tpu_torch.zoo.base import ZooModel  # noqa: F401
+from deeplearning4j_tpu_torch.zoo.transformer import (  # noqa: F401
+    TextGenerationTransformer)
