@@ -14,7 +14,10 @@ carrying on quietly on the CPU.
 Ported so far: the rope transformer served through the paged
 generation engine (``zoo.TextGenerationTransformer``,
 ``serving.GenerationEngine``) with the paged-decode kernel
-(``serving/csrc/paged_attention.cu``). ROADMAP.md lists the rest.
+(``serving/csrc/paged_attention.cu``), and the transformer trained
+through ``ComputationGraph.fit`` (losses, Sgd/Adam, learned positions)
+with the flash-attention forward and backward kernels
+(``nn/layers/csrc/flash_attention.cu``). ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,8 @@ sources and flags, so an edited source never loads a stale binary.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :meth:`CudaLibrary.check` raises on a nonzero code (a refused launch
-never runs, and a later synchronize would not report it).
+never runs, and a later synchronize would not report it). Each kernel
+of a library is a :class:`CudaKernel`, which counts its launches.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
-__all__ = ["BUILD_DIR", "CudaLibrary", "NVCC_FLAGS", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CudaKernel", "CudaLibrary", "NVCC_FLAGS",
+           "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
@@ -44,16 +46,14 @@ def nvcc_path() -> str:
 
 
 class CudaLibrary:
-    """One kernel library: its sources, its C functions (each returning
-    an ``int`` CUDA error code), and a plain integer count of launches
-    that the kernel's wrapper bumps where it launches."""
+    """One kernel library: its sources and its C functions (each
+    returning an ``int`` CUDA error code)."""
 
     def __init__(self, name: str, sources: Sequence[str],
                  functions: Dict[str, list]):
         self.name = name
         self.sources = tuple(_PKG / s for s in sources)
         self.functions = dict(functions)
-        self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -104,3 +104,24 @@ class CudaLibrary:
             raise RuntimeError(f"{self.name}.{symbol}: CUDA error {code} "
                                f"({msg})")
 
+
+class CudaKernel:
+    """One kernel of a :class:`CudaLibrary`: its C entry point for each
+    dtype and a plain integer count of its launches, bumped by
+    :meth:`launch` once the launch went through."""
+
+    def __init__(self, library: CudaLibrary, name: str,
+                 symbols: Dict[object, str]):
+        self.library = library
+        self.name = name
+        self.symbols = dict(symbols)
+        self.launches = 0
+
+    def launch(self, dtype, *args) -> None:
+        """Call the entry point for ``dtype`` with ``args`` (pointers,
+        sizes, the stream), raise on a nonzero CUDA error code, count
+        the launch."""
+        lib = self.library.load()
+        sym = self.symbols[dtype]
+        self.library.check(sym, getattr(lib, sym)(*args))
+        self.launches += 1

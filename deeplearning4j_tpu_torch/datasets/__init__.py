@@ -1,0 +1,6 @@
+"""Data pipeline: the DataSet container and the in-memory iterator (the
+fetchers, normalizers and record readers are ROADMAP.md A11)."""
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet  # noqa: F401
+from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
+    ArrayDataSetIterator, DataSetIterator)

@@ -3,8 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/nn/activations.py``: the same names
 resolve to the same functions. ``gelu`` is the tanh approximation, as
 ``jax.nn.gelu`` computes it by default; ``softmax`` runs over the
-feature axis (axis 1 of ``[N, F]`` / ``[N, F, T]``). The rest of the
-set ports with the breadth modules (ROADMAP.md A1).
+feature axis (axis 1 of ``[N, F]`` / ``[N, F, T]``); ``sigmoid`` is
+the output activation the losses pair with binary cross-entropy. The
+rest of the set ports with the breadth modules (ROADMAP.md A1).
 
 Both keep the JAX package's rounding points under the bf16 compute
 policy (``tests/test_torch_transformer.py`` pins them bit for bit), so
@@ -52,6 +53,7 @@ def _softmax(x):
 ACTIVATIONS = {
     "identity": _identity,
     "gelu": _gelu,
+    "sigmoid": torch.sigmoid,
     "softmax": _softmax,
 }
 

@@ -4,8 +4,9 @@ Counterpart of ``deeplearning4j_tpu/nn/compute.py``, with the same two
 rounding points:
 
 - ``bf16_cast``: under ``conf.dtype = "bfloat16"`` params and inputs are
-  cast to bf16 once before the forward; matrix products then run on
-  bf16 operands with f32 accumulation.
+  cast to bf16 before the forward (once per parameter tree for
+  inference, inside the differentiated loss on every training step);
+  matrix products then run on bf16 operands with f32 accumulation.
 - ``f32_head``: public outputs (``output`` / ``rnn_time_step``) promote
   sub-f32 floats back to f32; f32 and f64 pass through.
 """

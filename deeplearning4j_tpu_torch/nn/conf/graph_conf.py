@@ -83,7 +83,10 @@ class GraphBuilder:
             ComputationGraphConfiguration, NeuralNetConfiguration)
         if parent is None:
             parent = NeuralNetConfiguration.Builder()
-        self._conf = ComputationGraphConfiguration(seed=parent._seed)
+        self._conf = ComputationGraphConfiguration(
+            seed=parent._seed, updater=parent._updater,
+            gradient_normalization=parent._grad_norm,
+            gradient_normalization_threshold=parent._grad_norm_threshold)
         self._defaults = parent._defaults
 
     def add_inputs(self, *names: str):

@@ -1,20 +1,23 @@
 """Layer configurations for the ported transformer.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, restricted to
-the layers ``zoo/transformer.py`` builds with rope positions:
-``Convolution1DLayer`` (kernel 1: the token projection and the FFN),
-``LayerNormalization``, ``SelfAttentionLayer`` and ``RnnOutputLayer``.
-Each conf owns its ``init`` / ``apply`` as in the JAX package; ``apply``
-works on plain tensors with ``{name: tensor}`` parameter dicts.
-Parameter names and layouts are the JAX package's, so parameters copy
-across unchanged (``util/convert.py``).
+the layers ``zoo/transformer.py`` builds: ``Convolution1DLayer``
+(kernel 1: the token projection and the FFN), ``PositionalEmbeddingLayer``
+(learned positions), ``LayerNormalization``, ``SelfAttentionLayer`` and
+``RnnOutputLayer``. Each conf owns its ``init`` / ``apply`` as in the JAX
+package; ``apply`` works on plain tensors with ``{name: tensor}``
+parameter dicts and is differentiable by autograd (training differentiates
+the whole forward). Parameter names and layouts are the JAX package's, so
+parameters copy across unchanged (``util/convert.py``). The whole-sequence
+attention runs the flash-attention kernels (``nn/layers/flash_attention.py``).
 
 Streaming state (``rnn_time_step``): the attention layer carries a
 dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
 position ``kv_pos`` (a scalar, or ``[N]`` per row in the engine's slot
 arena), or, while the serving engine decodes on its page pool, the
 paged view (``kv_page_k`` / ``kv_page_v`` ``[P, Hkv, page_size, D]``
-and ``kv_page_table`` ``[N, n_max]``).
+and ``kv_page_table`` ``[N, n_max]``); the learned positional table
+carries its ``pos_offset``.
 """
 
 from __future__ import annotations
@@ -26,23 +29,28 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
+from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.flash_attention import (
+    flash_attention)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
 __all__ = ["BATCHED_STREAM_KEYS", "Convolution1DLayer", "LayerConf",
-           "LayerNormalization", "RnnOutputLayer", "STREAM_STATE_KEYS",
-           "SelfAttentionLayer", "stream_capacity"]
+           "LayerNormalization", "PositionalEmbeddingLayer", "RnnOutputLayer",
+           "STREAM_STATE_KEYS", "SelfAttentionLayer", "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path (stripped on ordinary forwards, cleared by
 #: rnn_clear_previous_state): the attention KV cache and its position,
-#: and the paged view the serving engine installs around its decode
-#: dispatches. (LSTM h/c, masked-stream kv_mask and the rolling cache's
-#: kv_abs come with their layers: ROADMAP.md A6, A8.)
+#: the paged view the serving engine installs around its decode
+#: dispatches, and the learned positional table's offset. (LSTM h/c,
+#: masked-stream kv_mask and the rolling cache's kv_abs come with their
+#: layers: ROADMAP.md A6, A8.)
 STREAM_STATE_KEYS = frozenset(
-    {"kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v", "kv_page_table"})
+    {"kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v", "kv_page_table",
+     "pos_offset"})
 
 #: streaming-state keys whose LEADING axis is the batch dimension
 BATCHED_STREAM_KEYS = frozenset({"kv_k", "kv_v"})
@@ -79,15 +87,43 @@ class LayerConf:
         """Return (y, new_state)."""
         raise NotImplementedError
 
+    # regularization coefficients collected by the network loss
+    def l1_coeffs(self):
+        return {}
+
+    def l2_coeffs(self):
+        return {}
+
 
 @dataclass
 class BaseLayerConf(LayerConf):
-    """Base for parameterized layers: activation and weight init (bias
-    init, regularization and per-layer updaters come with training,
-    ROADMAP.md A1). Biases start at zero."""
+    """Base for parameterized layers: activation, weight init and L1/L2
+    regularization. As in the JAX package the coefficients reach the
+    parameters named ``W``, ``RW`` (``l1``/``l2``) and ``b``
+    (``l1_bias``/``l2_bias``) only. Biases start at zero (bias init and
+    per-layer updaters: ROADMAP.md A1)."""
 
     activation: str = "identity"
     weight_init: str = "xavier"
+    l1: float = 0.0
+    l2: float = 0.0
+    l1_bias: float = 0.0
+    l2_bias: float = 0.0
+
+    def l1_coeffs(self):
+        return _coeffs(self.l1, self.l1_bias)
+
+    def l2_coeffs(self):
+        return _coeffs(self.l2, self.l2_bias)
+
+
+def _coeffs(weight, bias):
+    d = {}
+    if weight:
+        d["W"] = d["RW"] = weight
+    if bias:
+        d["b"] = bias
+    return d
 
 
 @dataclass
@@ -155,6 +191,48 @@ class LayerNormalization(FeedForwardLayerConf):
 
 
 @dataclass
+class PositionalEmbeddingLayer(FeedForwardLayerConf):
+    """Adds a learned positional embedding ``P [F, max_length]`` to
+    ``[N, F, T]`` input (initialised ``0.02 * N(0, 1)``). A whole-sequence
+    forward longer than ``max_length`` is refused.
+
+    Streaming (``rnn_time_step``) carries ``pos_offset``, so each chunk
+    gets the embeddings of its absolute positions; the network's stream
+    budget guard keeps ``pos_offset + T`` within ``max_length``. A
+    left-padded chunk never reaches the layer: ``rnn_time_step`` drops
+    the pads first, so they take no position (the JAX package's packed
+    accounting)."""
+
+    max_length: int = 1024
+
+    supports_streaming = True
+
+    def output_type(self, it):
+        if it.kind != "rnn":
+            raise ValueError("PositionalEmbeddingLayer needs RNN input")
+        return it
+
+    def init(self, gen, it, device):
+        self.n_in = self.n_out = it.size
+        p = 0.02 * torch.randn((it.size, self.max_length), generator=gen)
+        return {"P": p.to(device)}, {}
+
+    def apply(self, params, x, state, stream=False):
+        t = x.shape[2]
+        if t > self.max_length:
+            raise ValueError(f"sequence length {t} exceeds max_length "
+                             f"{self.max_length}")
+        if stream:
+            off = int(state.get("pos_offset", 0))
+            emb = params["P"][:, off:off + t]
+            state = {**state, "pos_offset": off + t}
+        else:
+            emb = params["P"][:, :t]
+        y = x + emb[None].to(x.dtype)
+        return _act.get(self.activation)(y), state
+
+
+@dataclass
 class SelfAttentionLayer(FeedForwardLayerConf):
     """Causal multi-head self-attention over ``[N, F, T]``.
 
@@ -163,10 +241,14 @@ class SelfAttentionLayer(FeedForwardLayerConf):
     biases. ``rope=True`` rotates q/k by absolute position
     (rotate-half convention). With ``cache_length`` set the layer
     streams: ``apply(..., stream=True)`` appends the chunk's K/V to the
-    carried cache and attends against it (:meth:`_stream_attend`)."""
+    carried cache and attends against it (:meth:`_stream_attend`).
+    ``block_size`` is kept for parity with the JAX conf; as on the JAX
+    package's kernel path, nothing reads it (the kernels pick their own
+    tiles)."""
 
     n_heads: int = 4
     causal: bool = True
+    block_size: int = 512
     cache_length: int = 0
     n_kv_heads: Optional[int] = None
     rope: bool = False
@@ -230,29 +312,21 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             if self.rope:
                 pos = torch.arange(t, device=x.device)
                 q, k = self._rope(q, pos), self._rope(k, pos)
-            o = self._full_attend(q, k, v)
+            k, v = self._expand_kv(k, v)
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=self.causal)
         o = o.transpose(1, 2).reshape(n, t, self.n_out)
         o = o @ params["Wo"] + params["bo"]
         return _act.get(self.activation)(o.transpose(1, 2)), state
 
-    def _full_attend(self, q, k, v):
-        """Whole-sequence attention, plainly: f32 scores and softmax
-        over the (GQA-expanded) keys, causal when configured. The JAX
-        package runs a blockwise online softmax here (or the flash
-        kernel on a TPU); the result is the same function."""
-        t, d = q.shape[2], q.shape[3]
+    def _expand_kv(self, k, v):
+        """Repeat K/V heads up to n_heads for grouped-query attention
+        (no-op for standard MHA)."""
         reps = self.n_heads // k.shape[1]
-        if reps > 1:
-            k = k.repeat_interleave(reps, dim=1)
-            v = v.repeat_interleave(reps, dim=1)
-        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                         k.float()) * (1.0 / math.sqrt(d))
-        if self.causal:
-            i = torch.arange(t, device=q.device)
-            s = s.masked_fill(i[None, :] > i[:, None], NEG_INF)
-        o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
-                         v.float())
-        return o.to(q.dtype)
+        if reps == 1:
+            return k, v
+        return (k.repeat_interleave(reps, dim=1),
+                v.repeat_interleave(reps, dim=1))
 
     def _stream_attend(self, q, k, v, state):
         """Incremental decode against the dense cache: append the
@@ -382,8 +456,9 @@ class SelfAttentionLayer(FeedForwardLayerConf):
 
 @dataclass
 class RnnOutputLayer(FeedForwardLayerConf):
-    """Per-timestep dense output over ``[N, C, T]``: W ``[n_in, n_out]``.
-    Softmax runs over the class axis (the loss comes with training)."""
+    """Per-timestep dense output over ``[N, C, T]``: W ``[n_in, n_out]``,
+    the activation over the class axis, and its loss
+    (:meth:`compute_score`)."""
 
     loss: str = "mcxent"
     activation: str = "softmax"
@@ -398,6 +473,19 @@ class RnnOutputLayer(FeedForwardLayerConf):
                          self.n_out, self.weight_init, device)
         return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
 
-    def apply(self, params, x, state):
+    def preout(self, params, x):
+        """The pre-activation output ``[N, O, T]``."""
         y = x.transpose(1, 2) @ params["W"] + params["b"]   # [N,T,O]
-        return _act.get(self.activation)(y.transpose(1, 2)), state
+        return y.transpose(1, 2)
+
+    def apply(self, params, x, state):
+        return _act.get(self.activation)(self.preout(params, x)), state
+
+    def compute_score(self, labels, preout, mask=None):
+        """Mean loss over the examples with time folded into the batch:
+        ``[N, C, T]`` to ``[N*T, C]``, a mask ``[N, T]`` to ``[N*T]``."""
+        n, c, t = preout.shape
+        p2 = preout.transpose(1, 2).reshape(n * t, c)
+        l2 = labels.transpose(1, 2).reshape(n * t, c)
+        m2 = mask.reshape(n * t) if mask is not None else None
+        return _losses.score(l2, p2, self.loss, self.activation, m2)

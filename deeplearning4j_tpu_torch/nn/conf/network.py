@@ -1,22 +1,23 @@
 """Network-level configuration: the builder DSL for DAG networks.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/network.py``:
-``NeuralNetConfiguration.Builder`` global defaults cascade into the
-layer confs, and ``graph_builder()`` yields a
+``NeuralNetConfiguration.Builder`` global defaults (weight init, L1/L2)
+cascade into the layer confs, the updater and gradient normalization
+go to the network, and ``graph_builder()`` yields a
 ``ComputationGraphConfiguration``. The other global defaults
-(activation, bias init, updaters, gradient normalization), the
-sequential ``list()`` builder and JSON round trips come with training
-and the formats (ROADMAP.md A1).
+(activation, bias init, dropout), the sequential ``list()`` builder and
+JSON round trips come with the formats (ROADMAP.md A1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+from deeplearning4j_tpu_torch.nn.updater import Sgd, Updater
 
 __all__ = ["ComputationGraphConfiguration", "NeuralNetConfiguration",
            "apply_global_defaults"]
@@ -29,7 +30,9 @@ def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
     cls_defaults = {f.name: f.default for f in dataclasses.fields(layer)
                     if f.default is not dataclasses.MISSING}
     for k, v in defaults.items():
-        if hasattr(layer, k) and getattr(layer, k) == cls_defaults.get(k):
+        if v is None or not hasattr(layer, k):
+            continue
+        if getattr(layer, k) == cls_defaults.get(k):
             setattr(layer, k, v)
 
 
@@ -39,14 +42,35 @@ class NeuralNetConfiguration:
     class Builder:
         def __init__(self):
             self._seed = 12345
+            self._updater: Updater = Sgd(0.1)
             self._defaults: Dict[str, Any] = {}
+            self._grad_norm: Optional[str] = None
+            self._grad_norm_threshold = 1.0
 
         def seed(self, s: int):
             self._seed = int(s)
             return self
 
+        def updater(self, u: Updater):
+            self._updater = u
+            return self
+
         def weight_init(self, w: str):
             self._defaults["weight_init"] = w
+            return self
+
+        def l1(self, v: float):
+            self._defaults["l1"] = v
+            return self
+
+        def l2(self, v: float):
+            self._defaults["l2"] = v
+            return self
+
+        def gradient_normalization(self, method: str,
+                                   threshold: float = 1.0):
+            self._grad_norm = method
+            self._grad_norm_threshold = threshold
             return self
 
         def graph_builder(self):
@@ -60,7 +84,8 @@ class ComputationGraphConfiguration:
     """DAG net config, built through
     ``NeuralNetConfiguration.Builder().graph_builder()``. ``dtype``
     selects the compute policy (``"float32"`` or ``"bfloat16"``,
-    ``nn/compute.py``)."""
+    ``nn/compute.py``); ``updater`` and the gradient normalization drive
+    ``ComputationGraph.fit``."""
 
     vertices: Dict[str, Any] = field(default_factory=dict)
     vertex_inputs: Dict[str, List[str]] = field(default_factory=dict)
@@ -68,6 +93,9 @@ class ComputationGraphConfiguration:
     network_outputs: List[str] = field(default_factory=list)
     input_types: Dict[str, InputType] = field(default_factory=dict)
     seed: int = 12345
+    updater: Updater = field(default_factory=lambda: Sgd(0.1))
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
     dtype: str = "float32"
 
     def topological_order(self) -> List[str]:

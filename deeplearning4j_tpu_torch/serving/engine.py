@@ -47,7 +47,7 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BATCHED_STREAM_KEYS, stream_capacity)
+    BATCHED_STREAM_KEYS, PositionalEmbeddingLayer, stream_capacity)
 from deeplearning4j_tpu_torch.serving.errors import (
     EngineShutdown, InferenceTimeout, RequestCancelled)
 from deeplearning4j_tpu_torch.serving.paging import (
@@ -114,6 +114,11 @@ class GenerationEngine:
             raise ValueError(f"vocab_size {vocab_size} != the net's input "
                              f"size {n_in}")
         layers = list(_stream_layers(net))
+        if any(isinstance(l, PositionalEmbeddingLayer) for l in layers):
+            raise ValueError(
+                "continuous batching needs per-slot positions: learned "
+                "positional tables carry a shared pos_offset (use a rope "
+                "or position-free model)")
         self.net = net
         self.V = int(vocab_size)
         self.slots = int(slots)

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.cuda_library import CudaLibrary
+from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 
 NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
@@ -43,14 +43,14 @@ __all__ = ["NEG_INF", "PAGED_ATTENTION", "paged_attention",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P]
 
-#: the kernel library; ``PAGED_ATTENTION.launches`` counts launches
-PAGED_ATTENTION = CudaLibrary(
-    "paged_attention", ["serving/csrc/paged_attention.cu"],
-    {"dl4j_paged_attention_f32": _ARGTYPES,
-     "dl4j_paged_attention_bf16": _ARGTYPES})
-
 _SYMBOL = {torch.float32: "dl4j_paged_attention_f32",
            torch.bfloat16: "dl4j_paged_attention_bf16"}
+
+#: the kernel; ``PAGED_ATTENTION.launches`` counts launches
+PAGED_ATTENTION = CudaKernel(
+    CudaLibrary("paged_attention", ["serving/csrc/paged_attention.cu"],
+                {sym: _ARGTYPES for sym in _SYMBOL.values()}),
+    "paged_attention", _SYMBOL)
 
 
 def paged_attention_smem_bytes(rows: int, head_dim: int,
@@ -128,16 +128,11 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
         raise ValueError(f"rows {rw} x head dim {d} x page size {ps} need "
                          f"{smem} B of shared memory (> {MAX_SMEM_BYTES})")
     out = torch.empty_like(q)
-    lib = PAGED_ATTENTION.load()
-    sym = _SYMBOL[q.dtype]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = getattr(lib, sym)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    PAGED_ATTENTION.launch(
+        q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw,
-        1.0 / math.sqrt(d), stream)
-    PAGED_ATTENTION.check(sym, code)
-    PAGED_ATTENTION.launches += 1
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 

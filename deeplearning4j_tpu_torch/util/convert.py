@@ -1,4 +1,5 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and updater state between the JAX package and the
+port.
 
 The port keeps every parameter layout of the JAX package: attention and
 output weights are ``[n_in, n_out]``, the kernel-1 ``Convolution1DLayer``
@@ -6,6 +7,11 @@ weight is ``[n_out, n_in, 1]``, biases and LayerNorm gains are 1-D. So
 a JAX graph's ``net.params``, taken to numpy, loads into the port's
 graph under the same vertex and parameter names with no transposes
 (``tests/test_torch_transformer.py`` pins that).
+
+The updater state carries across the same way: the JAX ``Adam`` state
+``{"m": tree, "v": tree, "t": step}`` taken to numpy becomes the port's
+(trees of f32 tensors, ``t`` a Python int), so a JAX run resumes in the
+port (``tests/test_torch_training.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy",
+           "updater_state_from_numpy", "updater_state_to_numpy"]
 
 
 def params_from_numpy(np_params, device=None) -> dict:
@@ -40,3 +47,32 @@ def params_to_numpy(params) -> dict:
     of :func:`params_from_numpy`)."""
     return {v: {k: t.detach().float().cpu().numpy() for k, t in p.items()}
             for v, p in params.items()}
+
+
+def updater_state_from_numpy(np_state, device=None) -> dict:
+    """An updater state of numpy arrays (nested dicts; floating arrays
+    are moment trees, integer scalars step counts) → the port's: f32
+    tensors on ``device`` (default ``"cuda"``) and Python ints."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        arr = np.asarray(x)
+        if np.issubdtype(arr.dtype, np.integer) and arr.ndim == 0:
+            return int(arr)
+        if not np.issubdtype(arr.dtype, np.floating):
+            raise TypeError(f"updater state leaf of dtype {arr.dtype}")
+        return torch.tensor(arr, dtype=torch.float32, device=dev)
+
+    return conv(np_state)
+
+
+def updater_state_to_numpy(state) -> dict:
+    """The inverse of :func:`updater_state_from_numpy` (step counts as
+    int32 scalars, as the JAX package keeps them)."""
+    if isinstance(state, dict):
+        return {k: updater_state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, int):
+        return np.asarray(state, np.int32)
+    return state.detach().float().cpu().numpy()

@@ -2,9 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/zoo/base.py``: ``conf()`` describes
 the network, ``init(device=None)`` builds it with seeded weights on the
-card (``"cuda"`` unless the caller passes ``device="cpu"``). Pretrained
-checkpoints, the model registry and execution plans come with the
-formats and the fused plans (ROADMAP.md A1, A4).
+card (``"cuda"`` unless the caller passes ``device="cpu"``). A model's
+own keywords (a transformer's ``updater=``) are its constructor's.
+Pretrained checkpoints, the model registry and execution plans come
+with the formats and the fused plans (ROADMAP.md A1, A4).
 """
 
 from __future__ import annotations

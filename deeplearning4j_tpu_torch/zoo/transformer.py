@@ -4,9 +4,10 @@ Counterpart of ``deeplearning4j_tpu/zoo/transformer.py``, the same
 graph with the same vertex names: pre-LN blocks
 (LN → causal multi-head SelfAttentionLayer → residual add →
 LN → position-wise FFN as two kernel-1 Convolution1D layers → residual
-add) over one-hot ``[N, V, T]`` input, an RnnOutputLayer softmax head.
-Positions are rope only in this port; learned positional tables and
-sliding windows come later (ROADMAP.md A6).
+add) over one-hot ``[N, V, T]`` input, an RnnOutputLayer softmax head,
+Adam(3e-4) by default. Positions are a learned table
+(``PositionalEmbeddingLayer``, the default) or rope; sliding windows
+come later (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -14,33 +15,31 @@ from __future__ import annotations
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    Convolution1DLayer, LayerNormalization, RnnOutputLayer,
-    SelfAttentionLayer)
+    Convolution1DLayer, LayerNormalization, PositionalEmbeddingLayer,
+    RnnOutputLayer, SelfAttentionLayer)
 from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.updater import Adam
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
 
 __all__ = ["TextGenerationTransformer"]
 
 
 class TextGenerationTransformer(ZooModel):
-    """The JAX zoo model's constructor, less ``block_size`` (the block of
-    the JAX package's blockwise attention; the port attends a whole
-    sequence at once)."""
+    """The JAX zoo model's constructor. ``block_size`` is kept in the
+    attention confs for parity; the flash-attention kernels pick their
+    own tiles, as the JAX package's kernel path does. ``updater``
+    defaults to ``Adam(3e-4)``."""
 
     def __init__(self, vocab_size: int = 128, seed: int = 12345,
                  embed_dim: int = 256, n_heads: int = 8, n_layers: int = 4,
                  ffn_mult: int = 4, max_length: int = 1024,
-                 positional: str = "learned", n_kv_heads=None, window=None,
-                 **kw):
+                 block_size: int = 512, positional: str = "learned",
+                 n_kv_heads=None, window=None, updater=None, **kw):
         super().__init__(vocab_size, seed, **kw)
         if embed_dim % n_heads:
             raise ValueError("embed_dim must divide by n_heads")
         if positional not in ("learned", "rope"):
             raise ValueError(f"unknown positional {positional!r}")
-        if positional == "learned":
-            raise NotImplementedError(
-                "learned positional tables are not ported yet "
-                "(ROADMAP.md A6); use positional='rope'")
         if window is not None:
             raise NotImplementedError(
                 "sliding-window attention is not ported yet "
@@ -51,7 +50,9 @@ class TextGenerationTransformer(ZooModel):
         self.n_layers = n_layers
         self.ffn_mult = ffn_mult
         self.max_length = max_length
+        self.block_size = block_size
         self.positional = positional
+        self.updater = updater if updater is not None else Adam(3e-4)
         self.n_kv_heads = n_kv_heads
         self.window = window
 
@@ -59,6 +60,7 @@ class TextGenerationTransformer(ZooModel):
         E = self.embed_dim
         g = (NeuralNetConfiguration.Builder()
              .seed(self.seed)
+             .updater(self.updater)
              .weight_init("xavier")
              .graph_builder()
              .add_inputs("in")
@@ -67,15 +69,20 @@ class TextGenerationTransformer(ZooModel):
         # token projection: one-hot [N,V,T] -> [N,E,T]
         g.add_layer("embed", Convolution1DLayer(
             n_out=E, kernel=1, activation="identity"), "in")
-        prev = "embed"   # rope: positions enter inside attention
+        if self.positional == "learned":
+            g.add_layer("pos", PositionalEmbeddingLayer(
+                max_length=self.max_length), "embed")
+            prev = "pos"
+        else:   # rope: positions enter inside attention, no table
+            prev = "embed"
         for i in range(self.n_layers):
             g.add_layer(f"ln{i}a", LayerNormalization(), prev)
             g.add_layer(f"attn{i}", SelfAttentionLayer(
                 n_out=E, n_heads=self.n_heads, causal=True,
-                activation="identity",
+                block_size=self.block_size, activation="identity",
                 cache_length=self.max_length,
                 n_kv_heads=self.n_kv_heads, window=self.window,
-                rope=True), f"ln{i}a")
+                rope=self.positional == "rope"), f"ln{i}a")
             g.add_vertex(f"res{i}a", ElementWiseVertex(op="add"),
                          prev, f"attn{i}")
             g.add_layer(f"ln{i}b", LayerNormalization(), f"res{i}a")

@@ -175,12 +175,34 @@ def _assert_vertices_match(tnet, acts, want_acts, state=None, cols=0):
                                    np.abs(want).max(), err_msg=name)
 
 
-def test_bf16_policy_keeps_f32_heads(nets):
+def _jax_flash_path(monkeypatch):
+    """Route the JAX layer's whole-sequence attention through the Pallas
+    flash kernel in interpret mode: the path a TPU takes, whose rounding
+    points the port's flash-attention kernels keep (p rounded to V's
+    dtype before P.V). On the CPU ``blockwise_attention`` would take its
+    scan, which keeps p in f32."""
+    from deeplearning4j_tpu.nn.layers.pallas_attention import (
+        flash_attention)
+    from deeplearning4j_tpu.parallel import sequence
+
+    def flash(q, k, v, causal=False, block_size=512, key_mask=None,
+              use_pallas=None, window=None):
+        return flash_attention(q, k, v, causal=causal, key_mask=key_mask,
+                               window=window, block_q=128, block_k=128,
+                               interpret=True)
+
+    monkeypatch.setattr(sequence, "blockwise_attention", flash)
+
+
+def test_bf16_policy_keeps_f32_heads(nets, monkeypatch):
     """conf.dtype bf16: params and inputs cast to bf16 once, bf16
     activations between vertices, f32 heads, and every rounding point
     inside a vertex kept: LayerNorm statistics in f32 and its affine in
     bf16, gelu and the output softmax op by op in bf16, residual adds in
-    bf16, attention scores and softmax in f32 over the bf16 cache.
+    bf16; whole-sequence attention as the flash kernels compute it (f32
+    scores and softmax, p rounded to bf16 before P.V; the JAX reference
+    runs its Pallas kernel in interpret mode), streamed attention's
+    scores and softmax in f32 over the bf16 cache.
 
     The reference is the JAX graph's forward run op by op, so that
     every op rounds to its dtype, and each port vertex is fed the JAX
@@ -193,6 +215,7 @@ def test_bf16_policy_keeps_f32_heads(nets):
     no reference for rounding; the engine test holds greedy streams
     against it."""
     jnet, tnet, _ = nets
+    _jax_flash_path(monkeypatch)
     saved = jnet.conf.dtype, tnet.conf.dtype
     jnet.conf.dtype = tnet.conf.dtype = "bfloat16"
     try:
@@ -257,16 +280,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_left_out_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        TextGenerationTransformer(vocab_size=V, positional="learned")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         TextGenerationTransformer(vocab_size=V, positional="rope",
                                   window=4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         TextGenerationTransformer(vocab_size=V, positional="rope",
                                   fuse=True)
-    with pytest.raises(TypeError, match="block_size"):
+    with pytest.raises(TypeError, match="kernel_size"):
         TextGenerationTransformer(vocab_size=V, positional="rope",
-                                  block_size=64)
+                                  kernel_size=64)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         Convolution1DLayer(n_out=4, kernel=3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
