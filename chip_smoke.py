@@ -44,7 +44,34 @@ Phases (any failure exits nonzero):
    two Adam steps with the kernels and two with their plain versions
    swapped in give the same parameters;
 9. train profile: one training step under ``torch.profiler`` (device
-   busy share, launches per step, the top kernels).
+   busy share, launches per step, the top kernels);
+10. cnn kernels: the four ResNet50 forward kernels (bottleneck conv1x1
+    and conv3x3, stem conv and stem pool) against their plain versions
+    at the inference path's shapes, bf16 at B=128 and f32 at B=16: each
+    output row and each 64-row tile held to limits relative to its own
+    size, the channel sums to 1e-5 of the sum of |output| (against the
+    kernel's own stored output), the pool exactly; in bf16 the check is
+    shown to fail a version that skips the rounding of the activated
+    input before the dot; a conv launcher given partial sums one row
+    tile short refuses. Times of the
+    kernel, the plain version and the nearest library call (a cuBLAS
+    matmul on the activated input, cuDNN's conv, ``F.max_pool2d``)
+    beside the bound;
+11. resnet: ResNet50 inference at full width (1000 classes, 224x224,
+    B=128, bf16, NHWC, the fused plan with the stem, random weights
+    from a seed, BN statistics calibrated on 16 seeded images) through
+    ``ComputationGraph.output``: the probabilities finite with rows
+    summing to 1; per forward the conv1x1 kernel launches 36 times,
+    conv3x3 16, the stem conv and pool once each; the logits against
+    the same forward's with the plain versions swapped in, each row's
+    largest difference over the row's spread, and the same limit shown
+    to fail two faults planted in one block (a conv_c prologue without
+    its relu; a 3x3 padded with relu(bb)); images/s of the fused and the
+    "xla" plan (cuDNN convolutions) in turns, peak memory, and one
+    forward under ``torch.profiler``;
+12. resnet reference: in f32 at B=8, the fused plan's (kernels) logits
+    against the "xla" plan's of the same graph, with the same two
+    planted faults.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -96,6 +123,43 @@ N_REQUESTS, NEW_TOKENS, SYSTEM_PREFIX = 16, 128, 64
 # the trained model (bench_all.py's transformer_train_T8192)
 TRAIN_VOCAB, TRAIN_T, TRAIN_B, TRAIN_STEPS = 256, 8192, 4, 5
 
+# ResNet50 inference (bench.py's BATCH, bench_all.py's bench_train_plan
+# configuration run forward)
+RESNET_B, RESNET_HW, RESNET_CLASSES, RESNET_REF_B = 128, 224, 1000, 8
+RESNET_TIMED = 5                 # timed output() calls per plan and turn
+#: launches per forward: 16 conv_a + 16 conv_c + 4 conv shortcuts; the 16
+#: 3x3 convs; the stem once
+RESNET_LAUNCHES = {"conv1x1": 36, "conv3x3": 16, "stem_conv": 1,
+                   "stem_pool": 1}
+# The conv kernels against their plain versions, by
+# flash_attention.agreement over output rows (one pixel's channels) and
+# 64-row tiles: bf16 rows within two ulps of their largest element and
+# tiles within CONV_TILE (the kernels round at the plain versions' points
+# and sum in another f32 order, so a few outputs flip one ulp; leaving
+# the rounding of the activated input out flips a third of them); f32
+# rows within 1e-4 and tiles within 1e-5. The sums within CONV_SUMS of
+# each channel's sum of |output| (sum of squares: of itself). The pool
+# compares the same f32 values, so exactly. The sums are held against
+# torch's sums of the kernel's own stored output.
+CONV_ROW = {torch.bfloat16: 2 ** -6, torch.float32: 1e-4}
+CONV_TILE = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+CONV_SUMS = 1e-5
+# ResNet50 logits (the output layer's values before the softmax), each
+# row's largest difference over that row's spread (its largest logit
+# less its smallest): the kernels' forward against the plain versions'
+# in bf16 (one-ulp flips, propagated through 53 layers), and the fused
+# plan against the xla plan in f32 (sums in other orders only). Each
+# phase also shows the limit failing two faults planted in one block,
+# through the kernels (PLANTED).
+RESNET_LOGIT = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+RESNET_ROW_SUM = 1e-2            # bf16 softmax probabilities, rounded
+#: fault: the index of its block among the 16 in topological order.
+#: "conv_c_no_relu": s3b1's conv_c reads its input without the relu of
+#: its prologue; "pad_relu_bb": s2b1's 3x3 pads with relu(bb), the
+#: prologue of a zero pixel, instead of 0 (the trap the kernel's padding
+#: of the activated image avoids), on 7% of the pixels at 56x56
+PLANTED = {"conv_c_no_relu": 4, "pad_relu_bb": 1}
+
 
 def log(*parts):
     print(*parts, flush=True)
@@ -119,12 +183,16 @@ def exp2_per_s(device) -> float:
 def kernel_counters():
     """Every kernel's launch counter, by the name the kernels line
     uses."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
     from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    from deeplearning4j_tpu_torch.nn.layers import stem
     from deeplearning4j_tpu_torch.serving.paged_kernel import (
         PAGED_ATTENTION)
     return {"paged_attention": PAGED_ATTENTION, "flash_fwd": fa.FLASH_FWD,
             "flash_bwd_dq": fa.FLASH_BWD_DQ,
-            "flash_bwd_dkv": fa.FLASH_BWD_DKV}
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV, "conv1x1": bn.CONV1X1,
+            "conv3x3": bn.CONV3X3, "stem_conv": stem.STEM_CONV,
+            "stem_pool": stem.STEM_POOL}
 
 
 def zero_counts():
@@ -872,14 +940,527 @@ def profile_train(net, batch):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phase 10: the ResNet50 forward kernels against their plain versions
+# ---------------------------------------------------------------------
+#: name: (kernel, geometry at the inference path's shapes)
+CNN_CASES = {
+    "s2_conv_c": ("conv1x1", dict(h=56, w=56, c=64, k=256, stride=1,
+                                  act="relu")),
+    "s3b0_conv_a": ("conv1x1", dict(h=56, w=56, c=256, k=128, stride=2,
+                                    act="identity")),
+    "s2_conv_b": ("conv3x3", dict(h=56, w=56, c=64, k=64, act="relu")),
+    "s5_conv_b": ("conv3x3", dict(h=7, w=7, c=512, k=512, act="relu")),
+    "stem_conv": ("stem_conv", dict(h=224, w=224, c=3, k=64)),
+    "stem_pool": ("stem_pool", dict(h=112, w=112, k=64)),
+}
+
+
+def cnn_inputs(kernel, geo, n, dtype, device, seed):
+    """Seeded inputs at a case's shape: x (NHWC), and the prologue's
+    (sc, bb) and the weight where the kernel takes them. A relu
+    prologue normalizes a raw conv output (per-channel mean and scale
+    drawn) and zeroes about half of it; an identity prologue reads a
+    post-relu block input; weights are He-normal."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    h, w = geo["h"], geo["w"]
+    if kernel == "stem_pool":
+        k = geo["k"]
+        y = randn(n, h, w, k).to(device, dtype)
+        sc = (0.5 + torch.rand(k, generator=g)).to(device)
+        bb = (0.3 * randn(k)).to(device)
+        return {"y": y, "sc": sc, "bb": bb}
+    c, k = geo["c"], geo["k"]
+    if kernel == "stem_conv":
+        w7 = randn(k, c, 7, 7) * (2.0 / (49 * c)) ** 0.5
+        return {"x": randn(n, h, w, c).to(device, dtype),
+                "w7": w7.to(device, dtype)}
+    taps = 9 if kernel == "conv3x3" else 1
+    if geo["act"] == "relu":
+        mean, std = 0.3 * randn(c), 0.5 + torch.rand(c, generator=g)
+        x = mean + std * randn(n, h, w, c)
+        sc = (0.5 + torch.rand(c, generator=g)) / std
+        bb = 0.2 * randn(c) - mean * sc
+    else:
+        x = torch.clamp_min(randn(n, h, w, c), 0.0)
+        sc, bb = torch.ones(c), torch.zeros(c)
+    wshape = (9, c, k) if taps == 9 else (c, k)
+    wt = randn(*wshape) * (2.0 / (taps * c)) ** 0.5
+    return {"x": x.to(device, dtype), "sc": sc.to(device),
+            "bb": bb.to(device), "w": wt.to(device, dtype)}
+
+
+def cnn_fns(kernel, geo, a):
+    """(kernel call, plain call, library call, the plain version without
+    the rounding of the activated input or None) on inputs ``a``; the
+    library call's operands are made here, outside its time."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    F = torch.nn.functional
+    if kernel == "stem_pool":
+        y, sc, bb = a["y"], a["sc"], a["bb"]
+        z = torch.clamp_min(y.float() * sc + bb, 0.0).to(y.dtype) \
+            .permute(0, 3, 1, 2)
+        return (lambda: stem.stem_pool(y, sc, bb),
+                lambda: stem.stem_pool_plain(y, sc, bb),
+                lambda: F.max_pool2d(z, 3, 2, 1), None)
+    if kernel == "stem_conv":
+        x, w7 = a["x"], a["w7"]
+        ws = stem.stem_weight_s2d(w7)
+        xn = x.permute(0, 3, 1, 2)
+        return (lambda: stem.stem_conv(x, ws),
+                lambda: stem.stem_conv_plain(x, ws),
+                lambda: F.conv2d(xn, w7, stride=2, padding=3), None)
+    x, sc, bb, w = a["x"], a["sc"], a["bb"], a["w"]
+    act = geo["act"]
+    z = bn._prologue(x, sc, bb, act, w.dtype).to(w.dtype)
+    if kernel == "conv3x3":
+        c, k = geo["c"], geo["k"]
+        w4 = w.reshape(3, 3, c, k).permute(3, 2, 0, 1).contiguous()
+        zn = z.permute(0, 3, 1, 2)
+        return (lambda: bn.conv3x3(x, sc, bb, w, act=act),
+                lambda: bn.conv3x3_plain(x, sc, bb, w, act=act),
+                lambda: F.conv2d(zn, w4, padding=1),
+                lambda: bn.conv3x3_plain(x, sc, bb, w.float(), act=act))
+    s = geo["stride"]
+    z2 = z[:, ::s, ::s, :].reshape(-1, geo["c"]).contiguous()
+    # an identity prologue rounds nothing (x is already in w's dtype)
+    return (lambda: bn.conv1x1(x, sc, bb, w, act=act, stride=s),
+            lambda: bn.conv1x1_plain(x, sc, bb, w, act=act, stride=s),
+            lambda: torch.matmul(z2, w),
+            (lambda: bn.conv1x1_plain(x, sc, bb, w.float(), act=act,
+                                      stride=s)) if act == "relu" else None)
+
+
+def cnn_bound(kernel, geo, n, dtype):
+    """Least time on this card: the bytes the function must move (the
+    inputs it needs once, the output and sums once) over the memory
+    rate, against its multiply-adds over the dtype's peak (for the stem
+    conv the 7x7 taps, not the zero-extended 8x8's). Returns (ms,
+    "bytes" | "operations")."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    h, w, k = geo["h"], geo["w"], geo["k"]
+    if kernel == "stem_pool":
+        po, pw = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        nbytes = (n * h * w * k + n * po * pw * k) * el + 2 * k * 4
+        ops = 2 * n * h * w * k + 9 * n * po * pw * k
+        peak = PEAK_FLOPS[torch.float32]
+    else:
+        c = geo["c"]
+        if kernel == "stem_conv":
+            ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            red, x_el, w_el = 49 * c, n * h * w * c, 49 * c * k
+        else:
+            s = geo.get("stride", 1)
+            ho, wo = h // s, w // s
+            red = 9 * c if kernel == "conv3x3" else c
+            x_el = n * ho * wo * c if kernel == "conv1x1" else n * h * w * c
+            w_el = red * k
+        m = n * ho * wo
+        nbytes = (x_el + w_el + m * k) * el + 2 * k * 4 + (
+            0 if kernel == "stem_conv" else 2 * c * 4)
+        ops = 2 * m * red * k
+        peak = PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_agreement(out, ref):
+    """flash_attention.agreement over output rows (one pixel's channels)
+    and 64-row tiles."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    k = out.shape[-1]
+    return fa.agreement(out.reshape(1, 1, -1, k), ref.reshape(1, 1, -1, k))
+
+
+def cnn_case(name, dtype, n, device, seed):
+    """One case: the kernel against its plain version on the same
+    inputs, and the kernel's, plain version's and library call's times
+    beside the bound."""
+    kernel, geo = CNN_CASES[name]
+    a = cnn_inputs(kernel, geo, n, dtype, device, seed)
+    kern, plain, library, unrounded = cnn_fns(kernel, geo, a)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    case = {"case": name, "kernel": kernel, "dtype": str(dtype).split(".")[-1],
+            "batch": n, **geo}
+    failures = []
+    if kernel == "stem_pool":
+        case["max_abs_err"] = float((got.float() - ref.float()).abs().max())
+        case["limits"] = {"max_abs_err": 0.0}
+        finite = bool(torch.isfinite(got).all())
+        if case["max_abs_err"] != 0.0:
+            failures.append("pool")
+    else:
+        (o, s1, s2), (ro, rs1, rs2) = got, ref
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, s1, s2))
+        row_rel, tile_rel = conv_agreement(o, ro)
+        # the epilogue's sums against torch's sums of the kernel's own
+        # stored output (the plain version's output differs by the
+        # flips, and so do its sums)
+        from deeplearning4j_tpu_torch.nn.layers.bottleneck import _stats
+        ts1, ts2 = _stats(o)
+        absum = o.float().reshape(-1, o.shape[-1]).abs().sum(0)
+        sums_rel = max(float(((s1 - ts1).abs() / absum.clamp_min(1e-30))
+                             .max()),
+                       float(((s2 - ts2).abs() / ts2.abs().clamp_min(1e-30))
+                             .max()))
+        case["sums_rel_vs_plain"] = float(
+            ((s1 - rs1).abs() / absum.clamp_min(1e-30)).max())
+        case.update(max_abs_err=float((o.float() - ro.float()).abs().max()),
+                    row_rel=row_rel, tile_rel=tile_rel, sums_rel=sums_rel,
+                    limits={"row_rel": CONV_ROW[dtype],
+                            "tile_rel": CONV_TILE[dtype],
+                            "sums_rel": CONV_SUMS})
+        if row_rel > CONV_ROW[dtype] or tile_rel > CONV_TILE[dtype]:
+            failures.append("output")
+        if sums_rel > CONV_SUMS:
+            failures.append("sums")
+        if dtype == torch.bfloat16 and unrounded is not None:
+            # the limits' power: the plain version without the rounding
+            # of the activated input (z in f32), its output rounded as
+            # the kernel stores it, fails the tile limit
+            u = unrounded()[0].to(dtype)
+            case["unrounded_tile_rel"] = conv_agreement(u, ro)[1]
+            if case["unrounded_tile_rel"] <= CONV_TILE[dtype]:
+                failures.append("the limit does not tell z unrounded")
+            del u
+    log("cnn check", json.dumps(case))
+    if not finite or failures:
+        raise AssertionError(f"{kernel} kernel disagrees with its plain "
+                             f"version ({failures}, finite {finite}): {case}")
+    del got, ref
+    bound_ms, bound_by = cnn_bound(kernel, geo, n, dtype)
+    case.update(ms=median_ms(kern, device),
+                plain_ms=median_ms(plain, device, iters=10),
+                library_ms=median_ms(library, device),
+                bound_ms=bound_ms, bound_by=bound_by)
+    log("cnn", json.dumps(case))
+    del a, kern, plain, library, unrounded
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_tile_guard(device):
+    """The conv launcher refuses partial sums one row tile short of the
+    grid (a CUDA error, no launch) instead of writing past them."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    x = torch.zeros((2, 16, 16, 64), dtype=torch.bfloat16, device=device)
+    w = torch.zeros((64, 64), dtype=torch.bfloat16, device=device)
+    one = torch.ones(64, device=device)
+    out, part, tiles, sums = bn._outputs(bn._LIBRARY, x, 2, 16, 16, 64)
+    before = bn.CONV1X1.launches
+    try:
+        bn.CONV1X1.launch(x.dtype, x.data_ptr(), one.data_ptr(),
+                          one.data_ptr(), w.data_ptr(), out.data_ptr(),
+                          part[0].data_ptr(), part[1].data_ptr(),
+                          sums[0].data_ptr(), sums[1].data_ptr(), 2, 16, 16,
+                          64, 64, 1, 0, tiles - 1, bn._stream(x))
+    except RuntimeError as e:
+        assert bn.CONV1X1.launches == before, "a refused launch counted"
+        log(f"cnn tile guard: {tiles - 1} of {tiles} tiles refused ({e})")
+        return
+    raise AssertionError("conv1x1 took partial sums one tile short")
+
+
+def check_cnn_kernels(device):
+    """Every case in bf16 at the main path's batch, then in f32 at 16."""
+    check_tile_guard(device)
+    return [cnn_case(name, dtype, n, device, seed=i)
+            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+            for i, name in enumerate(CNN_CASES)]
+
+
+# ---------------------------------------------------------------------
+# phases 11-12: ResNet50 inference through ComputationGraph.output
+# ---------------------------------------------------------------------
+def calibrate_bn(net, x):
+    """Set every BN's running statistics to the batch statistics of its
+    input over ``x`` (one f32 pass of the unfused graph, vertex by
+    vertex): random weights with the init's zeros and ones would blow
+    the activations up and saturate the softmax."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    acts = {net.conf.network_inputs[0]: x}
+    with torch.no_grad():
+        for name in net._topo:
+            v = net.conf.vertices[name]
+            xs = [acts[i] for i in net.conf.vertex_inputs[name]]
+            if isinstance(getattr(v, "layer", None), BatchNormalization):
+                dims = (0, 1, 2) if v.layer.data_format == "NHWC" \
+                    else (0, 2, 3)
+                net.state[name] = {"mean": xs[0].mean(dims),
+                                   "var": xs[0].var(dims, unbiased=False)}
+            acts[name], _ = v.apply(net.params[name], xs, net.state[name])
+
+
+def resnet_net(device, dtype):
+    """bench_all.py's bench_train_plan ResNet50 on the fused plan with
+    the stem: 1000 classes, 224x224, NHWC, Nesterovs(0.1, 0.9), random
+    weights from seed 7, BN statistics calibrated on 16 seeded images."""
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.tuning import apply_execution_plan
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW,
+                   width=RESNET_HW, seed=7,
+                   updater=Nesterovs(0.1, momentum=0.9), data_format="NHWC",
+                   execution_plan="fused").init(device=device)
+    net.set_fusion(False)
+    cal = np.random.default_rng(7).standard_normal(
+        (16, 3, RESNET_HW, RESNET_HW)).astype(np.float32)
+    calibrate_bn(net, torch.as_tensor(cal, device=device))
+    net.conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    apply_execution_plan(net, "fused")
+    net.set_fusion("bottleneck", stem=True)
+    return net
+
+
+def images(n, device, seed):
+    x = np.random.default_rng(seed).standard_normal(
+        (n, 3, RESNET_HW, RESNET_HW)).astype(np.float32)
+    return torch.as_tensor(x, device=device)
+
+
+def plain_swapped():
+    """The four kernels' wrappers swapped for their plain versions (as
+    (module dict, {name: function}) pairs for ``swap``)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    return [(vars(bn), {"conv1x1": bn.conv1x1_plain,
+                        "conv3x3": bn.conv3x3_plain}),
+            (vars(stem), {"stem_conv": stem.stem_conv_plain,
+                          "stem_pool": stem.stem_pool_plain})]
+
+
+def with_swaps(swaps, fn):
+    old = [(table, {k: table[k] for k in new}) for table, new in swaps]
+    for table, new in swaps:
+        table.update(new)
+    try:
+        return fn()
+    finally:
+        for table, saved in old:
+            table.update(saved)
+
+
+def output_s(net, x):
+    """Wall seconds of one output() that ends in a host read of the
+    probabilities, and the probabilities."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = net.output(x).cpu()
+    return time.perf_counter() - t0, probs
+
+
+def logits(net, x):
+    """The output layer's values before the softmax (f32, on the host),
+    of the inference forward under the selected plan."""
+    out = net.conf.network_outputs[0]
+    with torch.no_grad():
+        acts, _ = net._forward(net._compute_params(), net.state,
+                               net._as_input_dict([x]), preout_of={out})
+    return acts[out].float().cpu()
+
+
+def logit_rel(a, b):
+    """The worst row's largest |a - b| over that row's spread in b."""
+    a, b = a.double(), b.double()
+    spread = (b.max(dim=1).values - b.min(dim=1).values).clamp_min(1e-30)
+    return float(((a - b).abs().max(dim=1).values / spread).max())
+
+
+def planted(fault):
+    """Swaps (for ``with_swaps``) that plant ``fault`` (PLANTED) in one
+    block of the fused forward; the block still runs through the
+    kernels."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    conv1x1, conv3x3, target = bn.conv1x1, bn.conv3x3, PLANTED[fault]
+    seen = [0]
+
+    def no_relu(x, sc, bb, w, *, act="identity", stride=1):
+        if act == "relu":            # conv_c: a block's one relu 1x1
+            seen[0] += 1
+            if seen[0] - 1 == target:
+                act = "identity"
+        return conv1x1(x, sc, bb, w, act=act, stride=stride)
+
+    def pad_relu_bb(x, sc, bb, w, *, act="identity"):
+        seen[0] += 1
+        if seen[0] - 1 != target:
+            return conv3x3(x, sc, bb, w, act=act)
+        # zero pixels around the image, whose prologue is relu(bb); the
+        # interior of the output over them
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous()
+        o, s1, s2 = conv3x3(xp, sc, bb, w, act=act)
+        return o[:, 1:-1, 1:-1, :].contiguous(), s1, s2
+
+    if fault == "conv_c_no_relu":
+        return [(vars(bn), {"conv1x1": no_relu})]
+    return [(vars(bn), {"conv3x3": pad_relu_bb})]
+
+
+def logit_check(net, x, ref, dtype, rec, failures):
+    """The fused forward's logits against ``ref`` within
+    RESNET_LOGIT[dtype], and every planted fault's beyond it."""
+    limit = RESNET_LOGIT[dtype]
+    rec["logit_rel"] = logit_rel(logits(net, x), ref)
+    rec["logit_rel_limit"] = limit
+    rec["logit_rel_planted"] = {
+        f: logit_rel(with_swaps(planted(f), lambda: logits(net, x)), ref)
+        for f in PLANTED}
+    if rec["logit_rel"] > limit:
+        failures.append("logits disagree")
+    for f, v in rec["logit_rel_planted"].items():
+        if v <= limit:
+            failures.append(f"the limit does not tell the planted {f}")
+
+
+def resnet(device):
+    """The ResNet50 inference path at full width: counted forward,
+    agreement with the plain versions, images/s of the fused and xla
+    plans in turns, peak memory, one profiled forward."""
+    from torch.profiler import ProfilerActivity, profile
+    net = resnet_net(device, torch.bfloat16)
+    x = images(RESNET_B, device, seed=8)
+    t0 = time.perf_counter()
+    net.output(x)
+    warm_s = time.perf_counter() - t0
+    zero_counts()
+    _, probs = output_s(net, x)
+    counts = read_counts()
+    rec = {"config": {"model": "ResNet50", "classes": RESNET_CLASSES,
+                      "hw": RESNET_HW, "batch": RESNET_B,
+                      "dtype": "bfloat16", "data_format": "NHWC",
+                      "plan": "fused + stem",
+                      "fused_blocks": len(net._fusion()[1]),
+                      "stem": bool(net._fusion()[2])},
+           "warmup_s": warm_s, "launches": counts}
+    failures = []
+    if tuple(probs.shape) != (RESNET_B, RESNET_CLASSES) or \
+            not bool(torch.isfinite(probs).all()):
+        failures.append("probabilities not finite or misshapen")
+    rec["row_sum_max_dev"] = float((probs.double().sum(1) - 1).abs().max())
+    rec["max_probability"] = float(probs.max())
+    if rec["row_sum_max_dev"] > RESNET_ROW_SUM:
+        failures.append("rows do not sum to 1")
+    for name, want in RESNET_LAUNCHES.items():
+        if counts[name] != want:
+            failures.append(f"{name} launched {counts[name]}, want {want}")
+    zero_counts()
+    plain = with_swaps(plain_swapped(), lambda: logits(net, x))
+    rec["plain_launches"] = {n: c for n, c in read_counts().items()
+                             if n in RESNET_LAUNCHES}
+    if any(rec["plain_launches"].values()):
+        failures.append("the plain versions launched a kernel")
+    logit_check(net, x, plain, torch.bfloat16, rec, failures)
+    # images/s: the fused and xla plans in turns (fused, xla, fused, xla)
+    times = {"fused": [], "xla": []}
+    for _ in range(2):
+        for plan in ("fused", "xla"):
+            if plan == "fused":
+                net.set_fusion("bottleneck", stem=True)
+            else:
+                net.set_fusion(False)
+            net.output(x)
+            for _ in range(RESNET_TIMED):
+                times[plan].append(output_s(net, x)[0])
+    net.set_fusion(False)
+    rec["logit_rel_xla_vs_plain"] = logit_rel(logits(net, x), plain)
+    net.set_fusion("bottleneck", stem=True)
+    for plan, ts in times.items():
+        med = float(np.median(ts))
+        rec[plan] = {"output_ms": [1e3 * t for t in ts],
+                     "output_ms_median": 1e3 * med,
+                     "images_per_s": RESNET_B / med}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    net.output(x)
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+        device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = output_s(net, x)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+              for e in kernels}
+    busy_us = sum(dev_us.values())
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    rec["profile"] = {
+        "output_ms": 1e3 * wall, "device_busy_share": busy_us / (wall * 1e6),
+        "kernel_launches": sum(e.count for e in kernels),
+        "conv_kernels_share_of_device_time": (
+            sum(t for k, t in dev_us.items() if "conv_gemm" in k
+                or "stem_pool" in k or "reduce_partials" in k) / busy_us
+            if busy_us else None),
+        "top_kernels_us": [[k[:80], t] for k, t in top]}
+    log("resnet:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"resnet: {failures}: {rec}")
+    return rec
+
+
+def resnet_reference(device):
+    """f32 at B=8: the fused plan with the stem (the kernels) against the
+    xla plan (cuDNN convolutions, TF32 off) of the same graph, by their
+    logits; the planted faults fail the same limit."""
+    net = resnet_net(device, torch.float32)
+    x = images(RESNET_REF_B, device, seed=9)
+    zero_counts()
+    fused = net.output(x).cpu()
+    counts = read_counts()
+    net.set_fusion(False)
+    xla_logits, xla = logits(net, x), net.output(x).cpu()
+    net.set_fusion("bottleneck", stem=True)
+    rec = {"dtype": "float32", "batch": RESNET_REF_B,
+           "max_abs_err": float((fused - xla).abs().max()),
+           "max_probability": float(fused.max()),
+           "launches": {n: counts[n] for n in RESNET_LAUNCHES}}
+    failures = []
+    logit_check(net, x, xla_logits, torch.float32, rec, failures)
+    log("resnet reference:", json.dumps(rec))
+    if any(counts[n] != c for n, c in RESNET_LAUNCHES.items()) or \
+            not bool(torch.isfinite(fused).all()):
+        failures.append("launches or finite")
+    if failures:
+        raise AssertionError(f"resnet reference: {failures}: {rec}")
+    return rec
+
+
+def cnn_entry(name, replaces, launches, cases):
+    """A ResNet50 kernel's entry of the kernels line: its numbers at the
+    main path's shape (the first bf16 case of the kernel), and every
+    case's."""
+    mine = [c for c in cases if c["kernel"] == name]
+    main = mine[0]
+    keys = ("max_abs_err", "row_rel", "tile_rel", "sums_rel",
+            "unrounded_tile_rel")
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/nn/layers/csrc/" + (
+                "stem.cu" if name.startswith("stem") else "bottleneck.cu"),
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "case": main["case"], "dtype": main["dtype"],
+            "batch": main["batch"], "limits": main["limits"],
+            "max_abs_err_all": max(c["max_abs_err"] for c in mine),
+            "cases": [{k: c[k] for k in ("case", "dtype", "batch", "ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", *keys)
+                       if k in c} for c in mine]}
+
+
 def build_all():
     """Build every kernel library, one nvcc each, all started together;
     returns (seconds, {library: ptxas lines})."""
-    from deeplearning4j_tpu_torch.nn.layers.flash_attention import (
-        FLASH_FWD)
-    from deeplearning4j_tpu_torch.serving.paged_kernel import (
-        PAGED_ATTENTION)
-    libs = [PAGED_ATTENTION.library, FLASH_FWD.library]
+    libs = list({id(k.library): k.library
+                 for k in kernel_counters().values()}.values())
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load) for lib in libs]:
@@ -965,6 +1546,16 @@ def main(argv=None) -> int:
     del net, batch
     torch.cuda.empty_cache()
     train_ref = train_reference(device, rng)
+    torch.cuda.empty_cache()
+    cnn_cases = check_cnn_kernels(device)
+    resnet_rec = resnet(device)
+    log("resnet:", json.dumps({
+        "images_per_s_fused": resnet_rec["fused"]["images_per_s"],
+        "images_per_s_xla": resnet_rec["xla"]["images_per_s"],
+        "max_memory_allocated_bytes":
+            resnet_rec["max_memory_allocated_bytes"], "card": smi}))
+    torch.cuda.empty_cache()
+    resnet_ref = resnet_reference(device)
 
     main_case = next(c for c in paged_cases
                      if c["shape"] == "engine" and c["dtype"] == "bfloat16")
@@ -987,6 +1578,13 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(name, csrc, f"{pallas}:{line}",
                                     train_rec["launches"][name], flash_main,
                                     flash_cases))
+    for name, line in (("conv1x1", "bottleneck.py:168"),
+                       ("conv3x3", "bottleneck.py:208"),
+                       ("stem_conv", "stem.py:169"),
+                       ("stem_pool", "stem.py:199")):
+        kernels.append(cnn_entry(
+            name, f"deeplearning4j_tpu/nn/layers/{line}",
+            resnet_rec["launches"][name], cnn_cases))
     total_s = time.perf_counter() - t_start
     log(f"chip_smoke: all phases passed in {total_s:.1f} s")
     if args.json:
@@ -996,7 +1594,9 @@ def main(argv=None) -> int:
                        "serve": rec, "profile": prof,
                        "reference": ref, "train": train_rec,
                        "train_profile": train_prof,
-                       "train_reference": train_ref}, f, indent=1)
+                       "train_reference": train_ref,
+                       "cnn_cases": cnn_cases, "resnet": resnet_rec,
+                       "resnet_reference": resnet_ref}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 with a plain C interface and loaded with ``ctypes``. Nothing builds at
 import time: a library builds at its first use (:meth:`CudaLibrary.load`).
 The output goes to ``_build/`` beside this file, named by a digest of the
-sources and flags, so an edited source never loads a stale binary.
+sources, the headers they include and the flags, so an edited source
+never loads a stale binary.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :meth:`CudaLibrary.check` raises on a nonzero code (a refused launch
@@ -46,13 +47,15 @@ def nvcc_path() -> str:
 
 
 class CudaLibrary:
-    """One kernel library: its sources and its C functions (each
-    returning an ``int`` CUDA error code)."""
+    """One kernel library: its sources, the package headers they
+    include, and its C functions (each returning an ``int`` CUDA error
+    code)."""
 
     def __init__(self, name: str, sources: Sequence[str],
-                 functions: Dict[str, list]):
+                 functions: Dict[str, list], headers: Sequence[str] = ()):
         self.name = name
         self.sources = tuple(_PKG / s for s in sources)
+        self.headers = tuple(_PKG / s for s in headers)
         self.functions = dict(functions)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -61,7 +64,7 @@ class CudaLibrary:
     @property
     def path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources:
+        for src in self.sources + self.headers:
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 

@@ -1,4 +1,4 @@
-"""Activation functions (the subset the ported transformer uses).
+"""Activation functions (the subset the ported models use).
 
 Counterpart of ``deeplearning4j_tpu/nn/activations.py``: the same names
 resolve to the same functions. ``gelu`` is the tanh approximation, as
@@ -52,6 +52,7 @@ def _softmax(x):
 
 ACTIVATIONS = {
     "identity": _identity,
+    "relu": torch.relu,
     "gelu": _gelu,
     "sigmoid": torch.sigmoid,
     "softmax": _softmax,

@@ -1,9 +1,10 @@
 """Graph vertices and the GraphBuilder for DAG networks.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``, with the
-two vertices the transformer needs: ``LayerVertex`` (a layer conf) and
-``ElementWiseVertex`` (the residual adds). Preprocessors and the other
-vertices port with the breadth modules (ROADMAP.md A1, A11).
+two vertices the transformer and ResNet50 need: ``LayerVertex`` (a layer
+conf, with an optional input preprocessor) and ``ElementWiseVertex``
+(the residual adds, over RNN or CNN activations). The other vertices
+port with the breadth modules (ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -36,22 +37,32 @@ class GraphVertexConf:
 
 @dataclass
 class LayerVertex(GraphVertexConf):
-    """Wraps a layer conf."""
+    """Wraps a layer conf and an optional input preprocessor (for
+    example the entry transpose of ``use_cnn_data_format``)."""
 
     layer: Any = None
+    preprocessor: Any = None
+
+    def _input_type(self, its):
+        it = its[0]
+        return it if self.preprocessor is None else \
+            self.preprocessor.output_type(it)
 
     def output_type(self, its):
-        return self.layer.output_type(its[0])
+        return self.layer.output_type(self._input_type(its))
 
     def init(self, gen, its, device):
-        return self.layer.init(gen, its[0], device)
+        return self.layer.init(gen, self._input_type(its), device)
 
     @property
     def supports_streaming(self):
         return getattr(self.layer, "supports_streaming", False)
 
     def apply(self, params, xs, state, **extra):
-        return self.layer.apply(params, xs[0], state, **extra)
+        x = xs[0]
+        if self.preprocessor is not None:
+            x = self.preprocessor.apply(x)
+        return self.layer.apply(params, x, state, **extra)
 
 
 @dataclass
@@ -98,12 +109,14 @@ class GraphBuilder:
             self._conf.input_types[name] = it
         return self
 
-    def add_layer(self, name: str, layer: LayerConf, *inputs: str):
+    def add_layer(self, name: str, layer: LayerConf, *inputs: str,
+                  preprocessor=None):
         from deeplearning4j_tpu_torch.nn.conf.network import (
             apply_global_defaults)
         apply_global_defaults(layer, self._defaults)
         layer.name = name
-        self._conf.vertices[name] = LayerVertex(layer=layer)
+        self._conf.vertices[name] = LayerVertex(layer=layer,
+                                                preprocessor=preprocessor)
         self._conf.vertex_inputs[name] = list(inputs)
         return self
 

@@ -1,9 +1,13 @@
-"""Input type shape inference (the recurrent kind).
+"""Input type shape inference (the recurrent, feed-forward and
+convolutional kinds).
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``, same
-convention: recurrent activations are ``[batch, size,
-timeSeriesLength]`` (DL4J NCW). The feed-forward and convolutional
-kinds port with the slices that use them (ROADMAP.md A2, A3).
+conventions: feed-forward activations are ``[batch, size]``, recurrent
+``[batch, size, timeSeriesLength]`` (DL4J NCW), convolutional ``[batch,
+channels, height, width]`` (NCHW at the public boundary; the internal
+NHWC layout of ``use_cnn_data_format`` keeps the same type). The
+flattened-CNN and 3-D kinds port with the breadth modules (ROADMAP.md
+A11).
 """
 
 from __future__ import annotations
@@ -16,12 +20,32 @@ __all__ = ["InputType"]
 
 @dataclass(frozen=True)
 class InputType:
-    kind: str                        # "rnn"
-    size: Optional[int] = None       # feature size
+    kind: str                        # "ff" | "rnn" | "cnn"
+    size: Optional[int] = None       # ff/rnn feature size
     timesteps: Optional[int] = None  # rnn sequence length (None = variable)
+    channels: Optional[int] = None
+    height: Optional[int] = None
+    width: Optional[int] = None
+
+    @staticmethod
+    def feed_forward(size: int) -> "InputType":
+        return InputType(kind="ff", size=int(size))
 
     @staticmethod
     def recurrent(size: int, timesteps: Optional[int] = None) -> "InputType":
         return InputType(kind="rnn", size=int(size),
                          timesteps=None if timesteps is None
                          else int(timesteps))
+
+    @staticmethod
+    def convolutional(height: int, width: int,
+                      channels: int) -> "InputType":
+        return InputType(kind="cnn", channels=int(channels),
+                         height=int(height), width=int(width))
+
+    def flat_size(self) -> int:
+        if self.kind in ("ff", "rnn"):
+            return int(self.size)
+        if self.kind == "cnn":
+            return int(self.channels) * int(self.height) * int(self.width)
+        raise ValueError(f"no flat size for {self}")

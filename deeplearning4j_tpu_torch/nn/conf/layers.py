@@ -1,15 +1,30 @@
-"""Layer configurations for the ported transformer.
+"""Layer configurations for the ported transformer and ResNet50.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, restricted to
-the layers ``zoo/transformer.py`` builds: ``Convolution1DLayer``
-(kernel 1: the token projection and the FFN), ``PositionalEmbeddingLayer``
-(learned positions), ``LayerNormalization``, ``SelfAttentionLayer`` and
-``RnnOutputLayer``. Each conf owns its ``init`` / ``apply`` as in the JAX
+the layers the ported zoo models build. The transformer
+(``zoo/transformer.py``): ``Convolution1DLayer`` (kernel 1: the token
+projection and the FFN), ``PositionalEmbeddingLayer`` (learned
+positions), ``LayerNormalization``, ``SelfAttentionLayer`` and
+``RnnOutputLayer``. ResNet50 (``zoo/resnet.py``): ``ConvolutionLayer``,
+``BatchNormalization``, ``ActivationLayer``, ``SubsamplingLayer``,
+``ZeroPaddingLayer``, ``GlobalPoolingLayer``, ``DenseLayer`` and
+``OutputLayer``. Each conf owns its ``init`` / ``apply`` as in the JAX
 package; ``apply`` works on plain tensors with ``{name: tensor}``
-parameter dicts and is differentiable by autograd (training differentiates
-the whole forward). Parameter names and layouts are the JAX package's, so
-parameters copy across unchanged (``util/convert.py``). The whole-sequence
-attention runs the flash-attention kernels (``nn/layers/flash_attention.py``).
+parameter dicts and is differentiable by autograd (training
+differentiates the whole forward). Parameter names and layouts are the
+JAX package's (a conv ``W`` is ``[O, I, kH, kW]``, BN has ``gamma`` /
+``beta`` parameters and a ``mean`` / ``var`` state), so parameters and
+state copy across unchanged (``util/convert.py``). The whole-sequence
+attention runs the flash-attention kernels
+(``nn/layers/flash_attention.py``); the CNN layers run PyTorch's
+convolution and pooling (the JAX package's are XLA's too), and the
+fused execution plan replaces whole chains of them with the bottleneck
+and stem kernels (``nn/graph.py``).
+
+The CNN layers take ``data_format`` ``"NCHW"`` (the public layout) or
+``"NHWC"`` (the internal layout ``use_cnn_data_format`` selects). BN
+runs in inference mode: training a graph that holds one is ROADMAP.md's
+"ResNet50 training", and ``fit`` refuses it.
 
 Streaming state (``rnn_time_step``): the attention layer carries a
 dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
@@ -24,22 +39,27 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers import convolution as _conv
+from deeplearning4j_tpu_torch.nn.layers import normalization as _norm
 from deeplearning4j_tpu_torch.nn.layers.flash_attention import (
     flash_attention)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
-__all__ = ["BATCHED_STREAM_KEYS", "Convolution1DLayer", "LayerConf",
-           "LayerNormalization", "PositionalEmbeddingLayer", "RnnOutputLayer",
-           "STREAM_STATE_KEYS", "SelfAttentionLayer", "stream_capacity"]
+__all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
+           "Convolution1DLayer", "ConvolutionLayer", "DenseLayer",
+           "GlobalPoolingLayer", "LayerConf", "LayerNormalization",
+           "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
+           "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
+           "ZeroPaddingLayer", "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path (stripped on ordinary forwards, cleared by
@@ -130,6 +150,236 @@ def _coeffs(weight, bias):
 class FeedForwardLayerConf(BaseLayerConf):
     n_in: Optional[int] = None
     n_out: Optional[int] = None
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def _bias(n_out, has_bias, device):
+    return {"b": torch.zeros(n_out, device=device)} if has_bias else {}
+
+
+# ---------------------------------------------------------------------
+# feed-forward layers
+# ---------------------------------------------------------------------
+@dataclass
+class DenseLayer(FeedForwardLayerConf):
+    """Fully connected: ``x @ W + b``, W ``[n_in, n_out]``."""
+
+    has_bias: bool = True
+
+    def output_type(self, it):
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.flat_size()
+        w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
+                         self.n_out, self.weight_init, device)
+        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+
+    def preout(self, params, x):
+        y = x @ params["W"]
+        return y + params["b"] if self.has_bias else y
+
+    def apply(self, params, x, state):
+        return _act.get(self.activation)(self.preout(params, x)), state
+
+
+@dataclass
+class ActivationLayer(LayerConf):
+    """A standalone activation."""
+
+    activation: str = "relu"
+
+    def apply(self, params, x, state):
+        return _act.get(self.activation)(x), state
+
+
+# ---------------------------------------------------------------------
+# convolutional layers
+# ---------------------------------------------------------------------
+@dataclass
+class ConvolutionLayer(FeedForwardLayerConf):
+    """2-D convolution; W ``[O, I, kH, kW]`` whatever the activation
+    layout (``nn/layers/convolution.py``)."""
+
+    kernel: Sequence[int] = (3, 3)
+    stride: Sequence[int] = (1, 1)
+    padding: Sequence[int] = (0, 0)
+    dilation: Sequence[int] = (1, 1)
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+    data_format: str = "NCHW"
+
+    def output_type(self, it):
+        if it.kind != "cnn":
+            raise ValueError(f"ConvolutionLayer needs CNN input, got {it}")
+        (kh, kw), (sh, sw) = _pair(self.kernel), _pair(self.stride)
+        (ph, pw), (dh, dw) = _pair(self.padding), _pair(self.dilation)
+        oh = _conv.conv_out_size(it.height, kh, sh, ph, dh,
+                                 self.convolution_mode)
+        ow = _conv.conv_out_size(it.width, kw, sw, pw, dw,
+                                 self.convolution_mode)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.channels
+        kh, kw = _pair(self.kernel)
+        w = init_weights(gen, (self.n_out, self.n_in, kh, kw),
+                         self.n_in * kh * kw, self.n_out * kh * kw,
+                         self.weight_init, device)
+        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+
+    def apply(self, params, x, state):
+        y = _conv.conv2d(x, params["W"], params.get("b"),
+                         _pair(self.stride), _pair(self.padding),
+                         _pair(self.dilation), self.convolution_mode,
+                         self.data_format)
+        return _act.get(self.activation)(y), state
+
+
+@dataclass
+class SubsamplingLayer(LayerConf):
+    """2-D pooling: max, avg or sum (pnorm ports with the breadth layers,
+    ROADMAP.md A11)."""
+
+    pooling_type: str = "max"
+    kernel: Sequence[int] = (2, 2)
+    stride: Sequence[int] = (2, 2)
+    padding: Sequence[int] = (0, 0)
+    convolution_mode: str = "truncate"
+    data_format: str = "NCHW"
+
+    def output_type(self, it):
+        (kh, kw), (sh, sw) = _pair(self.kernel), _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        oh = _conv.conv_out_size(it.height, kh, sh, ph, 1,
+                                 self.convolution_mode)
+        ow = _conv.conv_out_size(it.width, kw, sw, pw, 1,
+                                 self.convolution_mode)
+        return InputType.convolutional(oh, ow, it.channels)
+
+    def apply(self, params, x, state):
+        k, s, p = _pair(self.kernel), _pair(self.stride), _pair(self.padding)
+        pt = self.pooling_type.lower()
+        args = (x, k, s, p, self.convolution_mode, self.data_format)
+        if pt == "max":
+            return _conv.max_pool2d(*args), state
+        if pt == "avg":
+            return _conv.avg_pool2d(*args), state
+        if pt == "sum":
+            return _conv.avg_pool2d(*args) * (k[0] * k[1]), state
+        if pt == "pnorm":
+            raise NotImplementedError("pnorm pooling is not ported yet "
+                                      "(ROADMAP.md A11)")
+        raise ValueError(f"unknown pooling type {self.pooling_type}")
+
+
+@dataclass
+class ZeroPaddingLayer(LayerConf):
+    """Zero padding ``[top, bottom, left, right]`` (two values: ``[top
+    and bottom, left and right]``)."""
+
+    padding: Sequence[int] = (0, 0, 0, 0)
+    data_format: str = "NCHW"
+
+    def _pads(self):
+        p = list(self.padding)
+        if len(p) == 2:
+            p = [p[0], p[0], p[1], p[1]]
+        return p
+
+    def output_type(self, it):
+        t, b, l, r = self._pads()
+        return InputType.convolutional(it.height + t + b, it.width + l + r,
+                                       it.channels)
+
+    def apply(self, params, x, state):
+        return _conv.zero_pad2d(x, self._pads(), self.data_format), state
+
+
+@dataclass
+class GlobalPoolingLayer(LayerConf):
+    """Global pooling over the spatial axes of CNN input (``[N, C, H,
+    W]``, or ``[N, H, W, C]`` under internal NHWC) or the time axis of
+    unmasked RNN input: max, avg, sum or pnorm. An avg in bf16
+    accumulates in f32 and rounds once, as ``jnp.mean`` does."""
+
+    pooling_type: str = "max"
+    pnorm: float = 2.0
+    data_format: str = "NCHW"
+
+    def output_type(self, it):
+        if it.kind == "rnn":
+            return InputType.feed_forward(it.size)
+        if it.kind == "cnn":
+            return InputType.feed_forward(it.channels)
+        return it
+
+    def apply(self, params, x, state):
+        if x.dim() == 4:
+            axes = (2, 3) if self.data_format == "NCHW" else (1, 2)
+        else:
+            axes = tuple(range(2, x.dim()))
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return x.amax(dim=axes), state
+        if pt == "avg":
+            return x.mean(dim=axes), state
+        if pt == "sum":
+            return x.sum(dim=axes), state
+        if pt == "pnorm":
+            return (x.abs() ** self.pnorm).sum(dim=axes) ** (
+                1.0 / self.pnorm), state
+        raise ValueError(f"unknown pooling type {self.pooling_type}")
+
+
+@dataclass
+class BatchNormalization(FeedForwardLayerConf):
+    """Batch norm with the running statistics as state (``mean``,
+    ``var``, f32): eps 1e-5, decay 0.9, gamma 1, beta 0 as in the JAX
+    package. ``apply`` is the inference form (running statistics; the
+    state stays as it is); its parameters and state are cast to x's
+    dtype first, as the JAX layer does."""
+
+    eps: float = 1e-5
+    decay: float = 0.9
+    lock_gamma_beta: bool = False
+    gamma: float = 1.0
+    beta: float = 0.0
+    data_format: str = "NCHW"
+
+    def _nf(self, it):
+        return it.channels if it.kind == "cnn" else it.flat_size()
+
+    def init(self, gen, it, device):
+        nf = self._nf(it)
+        self.n_in = self.n_out = nf
+        params = {}
+        if not self.lock_gamma_beta:
+            params = {"gamma": torch.full((nf,), self.gamma, device=device),
+                      "beta": torch.full((nf,), self.beta, device=device)}
+        return params, {"mean": torch.zeros(nf, device=device),
+                        "var": torch.ones(nf, device=device)}
+
+    def apply(self, params, x, state):
+        nf = state["mean"].shape[0]
+        gamma = params.get("gamma")
+        beta = params.get("beta")
+        if gamma is None:
+            gamma = torch.full((nf,), self.gamma, device=x.device)
+            beta = torch.full((nf,), self.beta, device=x.device)
+        ch_axis = 3 if (self.data_format == "NHWC" and x.dim() == 4) else 1
+        y, _, _ = _norm.batch_norm(
+            x, gamma.to(x.dtype), beta.to(x.dtype),
+            state["mean"].to(x.dtype), state["var"].to(x.dtype), False,
+            self.eps, self.decay, channel_axis=ch_axis)
+        return _act.get(self.activation)(y), state
 
 
 @dataclass
@@ -452,6 +702,37 @@ class SelfAttentionLayer(FeedForwardLayerConf):
         sin = ang.sin()[lead].to(x.dtype)
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+@dataclass
+class OutputLayer(FeedForwardLayerConf):
+    """Dense output layer ``x @ W + b`` (W ``[n_in, n_out]``), its
+    activation and its loss (:meth:`compute_score`)."""
+
+    loss: str = "mcxent"
+    activation: str = "softmax"
+    has_bias: bool = True
+
+    def output_type(self, it):
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.flat_size()
+        w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
+                         self.n_out, self.weight_init, device)
+        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+
+    def preout(self, params, x):
+        y = x @ params["W"]
+        return y + params["b"] if self.has_bias else y
+
+    def apply(self, params, x, state):
+        return _act.get(self.activation)(self.preout(params, x)), state
+
+    def compute_score(self, labels, preout, mask=None):
+        return _losses.score(labels, preout, self.loss, self.activation,
+                             mask)
 
 
 @dataclass

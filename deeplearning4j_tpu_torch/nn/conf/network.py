@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/network.py``:
 ``NeuralNetConfiguration.Builder`` global defaults (weight init, L1/L2)
 cascade into the layer confs, the updater and gradient normalization
 go to the network, and ``graph_builder()`` yields a
-``ComputationGraphConfiguration``. The other global defaults
+``ComputationGraphConfiguration``, whose ``use_cnn_data_format``
+switches the CNN stack's internal layout. The other global defaults
 (activation, bias init, dropout), the sequential ``list()`` builder and
 JSON round trips come with the formats (ROADMAP.md A1).
 """
@@ -17,6 +18,8 @@ from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
 from deeplearning4j_tpu_torch.nn.updater import Sgd, Updater
 
 __all__ = ["ComputationGraphConfiguration", "NeuralNetConfiguration",
@@ -121,3 +124,42 @@ class ComputationGraphConfiguration:
             raise ValueError("Graph has a cycle or disconnected vertex "
                              "inputs")
         return order
+
+    def use_cnn_data_format(self, fmt: str = "NHWC"
+                            ) -> "ComputationGraphConfiguration":
+        """Switch the INTERNAL activation layout of the CNN stack: every
+        layer and preprocessor with a ``data_format`` takes ``fmt``. Under
+        NHWC each layer vertex fed by a CNN network input gets a
+        FeedForwardToCnn preprocessor doing the one NCHW -> NHWC
+        transpose at the graph boundary (public inputs stay NCHW)."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import LayerVertex
+        for v in self.vertices.values():
+            objs = [v.layer, v.preprocessor] if isinstance(v, LayerVertex) \
+                else [v]
+            for obj in objs:
+                if obj is not None and hasattr(obj, "data_format"):
+                    obj.data_format = fmt
+        if fmt != "NHWC":
+            return self
+        cnn_inputs = {n for n in self.network_inputs
+                      if n in self.input_types
+                      and self.input_types[n].kind == "cnn"}
+        for name, ins in self.vertex_inputs.items():
+            hit = [i for i in ins if i in cnn_inputs]
+            if not hit:
+                continue
+            v = self.vertices[name]
+            if not isinstance(v, LayerVertex):
+                raise ValueError(
+                    f"use_cnn_data_format: vertex {name!r} consumes CNN "
+                    f"network input {hit[0]!r} directly; only layer "
+                    "vertices can host the entry transpose")
+            if v.preprocessor is None:
+                it = self.input_types[hit[0]]
+                v.preprocessor = FeedForwardToCnnPreProcessor(
+                    height=it.height, width=it.width, channels=it.channels,
+                    data_format=fmt)
+            elif isinstance(v.preprocessor, CnnToFeedForwardPreProcessor):
+                # an entry flatten reads the PUBLIC NCHW input directly
+                v.preprocessor.data_format = "NCHW"
+        return self

@@ -3,22 +3,36 @@
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, the
 topological-order forward, ``output``, the streaming ``rnn_time_step``
 / ``rnn_clear_previous_state`` pair the decoders and the serving engine
-drive, and training: ``fit`` over a DataSet, ``(features, labels)`` or
-an iterator, one optimizer step per batch, and ``score``. PyTorch runs
-eagerly, so there is no jit cache: each call runs the vertex loop
-directly, and a train step is one autograd pass over it. Fused
-multi-step dispatch, prefetch, execution plans, listeners and the
-non-finite sentinel (ROADMAP.md A4, A5) and masks (A6) are refused.
+drive, training (``fit`` over a DataSet, ``(features, labels)`` or an
+iterator, one optimizer step per batch, and ``score``), and the fused
+execution plan of the CNN stack. PyTorch runs eagerly, so there is no
+jit cache: each call runs the vertex loop directly, and a train step is
+one autograd pass over it. Fused multi-step dispatch, prefetch,
+listeners and the non-finite sentinel (ROADMAP.md A4, A5) and masks
+(A6) are refused, and so is training a graph that holds a convolution or
+batch-norm layer (ROADMAP.md, ResNet50 training).
+
+Execution plans (``set_fusion``, resolved by ``tuning/plan.py``): at
+level ``"bottleneck"`` each ResNet bottleneck chain (conv1x1 -> BN ->
+relu -> conv3x3 -> BN -> relu -> conv1x1 -> BN -> add -> relu, identity
+or downsample form, NHWC) runs through the bottleneck kernels
+(``nn/layers/bottleneck.py``), and with ``stem=True`` the [pad ->]
+7x7/2 conv -> BN -> relu -> 3x3/2 max-pool stem through the stem kernels
+(``nn/layers/stem.py``). The matchers are the JAX package's; only the
+gates are the port's own (they refuse what the kernels do not take, not
+the TPU's VMEM budget). Parameters and state stay keyed by the original
+vertex names, so a plan changes how a chain runs, not what it computes.
+Level ``True`` (the bn -> act -> conv1x1 plan) is ROADMAP.md B3.
 
 Parameters live in ``net.params`` as ``{vertex: {name: tensor}}`` (f32
-master weights) on ``net.device``; ``net.state`` carries the streaming
-state in the same shape; ``net.updater_state`` the updater's. Under
-``conf.dtype = "bfloat16"`` inference casts the parameters to bf16 once
-and reuses the cast copy until ``net.params`` is replaced; training
-casts them inside the differentiated loss on every step (the JAX
-package's ``_cast_compute`` inside ``value_and_grad``), so the
-gradients reach the f32 master weights, and takes the loss on the
-output promoted to f32.
+master weights) on ``net.device``; ``net.state`` carries the BN running
+statistics and the streaming state in the same shape;
+``net.updater_state`` the updater's. Under ``conf.dtype = "bfloat16"``
+inference casts the parameters to bf16 once and reuses the cast copy
+until ``net.params`` is replaced; training casts them inside the
+differentiated loss on every step (the JAX package's ``_cast_compute``
+inside ``value_and_grad``), so the gradients reach the f32 master
+weights, and takes the loss on the output promoted to f32.
 """
 
 from __future__ import annotations
@@ -31,9 +45,12 @@ from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.compute import (
     bf16_cast, bf16_cast_tree, f32_head)
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ElementWiseVertex, LayerVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    STREAM_STATE_KEYS, stream_capacity)
+    STREAM_STATE_KEYS, ActivationLayer, BatchNormalization,
+    ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer, stream_capacity)
 from deeplearning4j_tpu_torch.nn.conf.network import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.updater import normalize_gradients, tree_map
@@ -65,6 +82,17 @@ class ComputationGraph:
         #: streamed positions per streaming vertex (the budget guard)
         self._stream_pos_map: Dict[str, int] = {}
         self._compute = None       # (params, dtype, compute-dtype params)
+        #: the execution plan (set_fusion): False or "bottleneck", the
+        #: stem switch and the block subset; the matchers' gates read
+        #: conf.dtype, so both plan caches are dtype-stamped
+        self.fusion_level = False
+        self._fuse_stem = False
+        self._fusion_only = None
+        self._fusion_cache = None      # (dtype, skip, bplan, splan)
+        self._candidates_cache = None  # (dtype, bplan, splan)
+        #: the fused chains' conv weights in the kernels' layouts, by
+        #: vertex: (the weight tensor they were made from, the copy)
+        self._layouts: Dict[str, Any] = {}
 
     def _infer_types(self) -> Dict[str, InputType]:
         out_types: Dict[str, InputType] = dict(self.conf.input_types)
@@ -156,6 +184,420 @@ class ComputationGraph:
         self.updater_state = new
         return self
 
+    def load_numpy_state(self, np_state) -> "ComputationGraph":
+        """Replace the state with the JAX graph's ``net.state`` as numpy
+        (``util/convert.state_from_numpy``): the BN running mean and
+        variance, keyed by vertex; its tree must match this graph's."""
+        from deeplearning4j_tpu_torch.util.convert import state_from_numpy
+        if not self._initialized:
+            raise RuntimeError("init() the graph before loading state")
+        new = state_from_numpy(np_state, self.device)
+        if _shapes(new) != _shapes(self.state):
+            raise ValueError("state tree does not match this graph's")
+        self.state = new
+        return self
+
+    # ------------------------------------------------------------------
+    # execution plans: the fused bottleneck and stem chains
+    # ------------------------------------------------------------------
+    def set_fusion(self, enabled=True, *, stem=False, only=None):
+        """Select the execution plan: False (every vertex on its own, the
+        "xla" plan) or ``"bottleneck"`` (each matched bottleneck chain
+        through the bottleneck kernels; ``stem=True`` also the matched
+        stem through the stem kernels; ``only``, a set of block output
+        vertex names, restricts the blocks). Level True (the bn -> act ->
+        1x1-conv groups) is not ported yet."""
+        if enabled is True:
+            raise NotImplementedError(
+                "fusion level True (the bn -> act -> 1x1-conv plan, "
+                "nn/layers/fused.py) is not ported yet (ROADMAP.md B3)")
+        if enabled not in (False, "bottleneck"):
+            raise ValueError(f"unknown fusion level {enabled!r}: expected "
+                             "False or 'bottleneck'")
+        if stem and enabled != "bottleneck":
+            raise ValueError("stem=True rides the 'bottleneck' fusion level")
+        only = None if only is None else frozenset(only)
+        sig = (enabled, bool(stem), only)
+        if sig != (self.fusion_level, self._fuse_stem, self._fusion_only):
+            self.fusion_level, self._fuse_stem, self._fusion_only = sig
+            self._fusion_cache = None
+        return self
+
+    def _fusion(self):
+        """(skip, bplan, splan) of the selected plan: bplan maps each
+        fused block's output vertex to its group, splan the stem's pool
+        vertex to its group, skip every absorbed vertex to the output
+        vertex that runs it."""
+        if not self.fusion_level:
+            return {}, {}, {}
+        c = self._fusion_cache
+        if c is None or c[0] != self.conf.dtype:
+            skip, bplan = self._bottleneck_fusion(self._fusion_only)
+            splan = self._stem_fusion() if self._fuse_stem else {}
+            for out_name, group in splan.items():
+                for m in group["members"]:
+                    skip[m] = out_name
+            c = self._fusion_cache = (self.conf.dtype, skip, bplan, splan)
+        return c[1:]
+
+    def _fusion_graph_view(self):
+        """The matchers' scaffolding: (consumers map, layer_of). layer_of(n,
+        cls) is vertex n's layer iff n is a plain LayerVertex of exactly
+        ``cls`` with no preprocessor and not a network output."""
+        self._infer_types()
+        consumers: Dict[str, List[str]] = {}
+        for cname, srcs in self.conf.vertex_inputs.items():
+            for src in srcs:
+                consumers.setdefault(src, []).append(cname)
+        outputs = set(self.conf.network_outputs)
+
+        def layer_of(n, cls):
+            v = self.conf.vertices.get(n)
+            if (not isinstance(v, LayerVertex) or v.preprocessor is not None
+                    or n in outputs):
+                return None
+            return v.layer if type(v.layer) is cls else None
+
+        return consumers, layer_of
+
+    def _chain(self, consumers):
+        """(sole_consumer, chain_next): chain_next(n) is n's one consumer
+        if that consumer has n as its ONE input (a second input would make
+        the unfused vertex read another xs[0] than the fused chain)."""
+        def sole_consumer(n):
+            c = consumers.get(n, [])
+            return c[0] if len(c) == 1 else None
+
+        def chain_next(n):
+            c = sole_consumer(n)
+            if c is None or self.conf.vertex_inputs.get(c, []) != [n]:
+                return None
+            return c
+
+        return sole_consumer, chain_next
+
+    def _bottleneck_fusion(self, only=None):
+        """(skip, bplan) of the bottleneck level: bplan maps the final
+        relu vertex of each bottleneck (conv1x1 -> bn -> relu -> conv3x3
+        -> bn -> relu -> conv1x1 -> bn -> add -> relu, no biases, NHWC;
+        identity skip at stride 1, or a conv1x1 -> bn shortcut at the
+        block's stride) to its vertex group; skip maps every absorbed
+        vertex to that output. ``only`` keeps just the named blocks."""
+        from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
+            fused_bottleneck_supported)
+        consumers, layer_of = self._fusion_graph_view()
+        sole_consumer, chain_next = self._chain(consumers)
+        outputs = set(self.conf.network_outputs)
+
+        def conv_ok(l, kernel, padding, stride=(1, 1)):
+            return (l is not None and tuple(l.kernel) == kernel
+                    and tuple(l.stride) == stride
+                    and tuple(l.padding) == padding
+                    and tuple(l.dilation) == (1, 1)
+                    and not l.has_bias
+                    and l.activation in (None, "identity")
+                    and l.data_format == "NHWC")
+
+        def walk_bn_act(name):
+            """name is a conv; its one consumer must be a bn with a relu
+            (its own activation or an ActivationLayer vertex). Returns
+            (bn, act vertex, following vertex) or None."""
+            bn_name = chain_next(name)
+            bn = bn_name and layer_of(bn_name, BatchNormalization)
+            if bn is None or \
+                    len(self.conf.vertex_inputs.get(bn_name, [])) != 1:
+                return None
+            nxt = chain_next(bn_name)
+            if nxt is None:
+                return None
+            act = bn.activation or "identity"
+            act_vertex = None
+            al = layer_of(nxt, ActivationLayer)
+            if al is not None and act == "identity":
+                act_vertex, act = nxt, al.activation
+                nxt = chain_next(act_vertex)
+            if act != "relu" or nxt is None:
+                return None
+            return bn_name, act_vertex, nxt
+
+        bplan: Dict[str, Dict[str, Any]] = {}
+        skip: Dict[str, str] = {}
+        for ca_name in self._topo:
+            conv_a = layer_of(ca_name, ConvolutionLayer)
+            if conv_a is None:
+                continue
+            stride = tuple(conv_a.stride)
+            if stride not in ((1, 1), (2, 2)) or \
+                    not conv_ok(conv_a, (1, 1), (0, 0), stride):
+                continue
+            srcs = self.conf.vertex_inputs.get(ca_name, [])
+            if len(srcs) != 1:
+                continue
+            src = srcs[0]
+            it = self._vertex_input_types[ca_name][0]
+            if it.kind != "cnn":
+                continue
+            w1 = walk_bn_act(ca_name)
+            if w1 is None:
+                continue
+            bn_a, act_a, cb_name = w1
+            conv_b = layer_of(cb_name, ConvolutionLayer)
+            if not conv_ok(conv_b, (3, 3), (1, 1)):
+                continue
+            w2 = walk_bn_act(cb_name)
+            if w2 is None:
+                continue
+            bn_b, act_b, cc_name = w2
+            conv_c = layer_of(cc_name, ConvolutionLayer)
+            if not conv_ok(conv_c, (1, 1), (0, 0)):
+                continue
+            bn_c_name = chain_next(cc_name)
+            bn_c = bn_c_name and layer_of(bn_c_name, BatchNormalization)
+            if bn_c is None or (bn_c.activation or "identity") != "identity":
+                continue
+            add_name = sole_consumer(bn_c_name)
+            addv = add_name and self.conf.vertices.get(add_name)
+            if (not isinstance(addv, ElementWiseVertex)
+                    or addv.op.lower() != "add" or add_name in outputs):
+                continue
+            add_ins = self.conf.vertex_inputs.get(add_name, [])
+            skip_group = {}
+            if sorted(add_ins) == sorted([bn_c_name, src]):
+                if stride != (1, 1):
+                    continue          # a strided main path needs a conv skip
+            else:
+                # downsample form: the other add input is src -> conv_skip
+                # (1x1, the same stride) -> bn_skip (identity activation)
+                others = [i for i in add_ins if i != bn_c_name]
+                if len(add_ins) != 2 or len(others) != 1:
+                    continue
+                bn_s_name = others[0]
+                bn_s = layer_of(bn_s_name, BatchNormalization)
+                if bn_s is None or \
+                        (bn_s.activation or "identity") != "identity" or \
+                        sole_consumer(bn_s_name) != add_name:
+                    continue
+                cs_in = self.conf.vertex_inputs.get(bn_s_name, [])
+                if len(cs_in) != 1:
+                    continue
+                cs_name = cs_in[0]
+                conv_s = layer_of(cs_name, ConvolutionLayer)
+                if not conv_ok(conv_s, (1, 1), (0, 0), stride) or \
+                        chain_next(cs_name) != bn_s_name or \
+                        self.conf.vertex_inputs.get(cs_name, []) != [src]:
+                    continue
+                skip_group = {"conv_skip": cs_name, "bn_skip": bn_s_name}
+            out_name = chain_next(add_name)
+            out_act = out_name and layer_of(out_name, ActivationLayer)
+            if out_act is None or out_act.activation != "relu":
+                continue
+            bns = [self.conf.vertices[n].layer
+                   for n in ((bn_a, bn_b, bn_c_name)
+                             + ((skip_group["bn_skip"],)
+                                if skip_group else ()))]
+            if len({(b.eps, b.decay) for b in bns}) != 1:
+                continue
+            if len({b.data_format for b in bns} | {"NHWC"}) != 1:
+                continue
+            if not fused_bottleneck_supported(
+                    (1, it.height, it.width, it.channels),
+                    conv_a.n_out, conv_c.n_out,
+                    self.conf.dtype or "float32",
+                    stride=stride[0], has_skip=bool(skip_group)):
+                continue
+            if only is not None and out_name not in only:
+                continue
+            group = {"src": src, "conv_a": ca_name, "bn_a": bn_a,
+                     "conv_b": cb_name, "bn_b": bn_b, "conv_c": cc_name,
+                     "bn_c": bn_c_name, "add": add_name,
+                     "stride": stride[0],
+                     "h": it.height, "w": it.width, "cin": it.channels,
+                     "cmid": conv_a.n_out, "cout": conv_c.n_out,
+                     **skip_group}
+            members = [ca_name, bn_a, cb_name, bn_b, cc_name, bn_c_name,
+                       add_name] + list(skip_group.values())
+            members += [m for m in (act_a, act_b) if m]
+            if any(m in skip for m in members):
+                continue
+            bplan[out_name] = group
+            for m in members:
+                skip[m] = out_name
+        return skip, bplan
+
+    def _stem_fusion(self):
+        """splan of the stem: maps the max-pool vertex closing a
+        [ZeroPadding(3,3,3,3) ->] 7x7/2 conv (pad 3 in total, no bias) ->
+        BN -> relu -> 3x3/2 pad-1 max-pool chain (NHWC, single consumers)
+        to its group. The pad vertex may carry the graph's entry
+        preprocessor, which the group still applies."""
+        from deeplearning4j_tpu_torch.nn.layers.stem import (
+            fused_stem_supported)
+        consumers, layer_of = self._fusion_graph_view()
+        _, chain_next = self._chain(consumers)
+        outputs = set(self.conf.network_outputs)
+        splan: Dict[str, Dict[str, Any]] = {}
+        for cv_name in self._topo:
+            conv = layer_of(cv_name, ConvolutionLayer)
+            if (conv is None or tuple(conv.kernel) != (7, 7)
+                    or tuple(conv.stride) != (2, 2)
+                    or tuple(conv.dilation) != (1, 1)
+                    or conv.has_bias
+                    or conv.activation not in (None, "identity")
+                    or conv.data_format != "NHWC"
+                    or conv.convolution_mode != "truncate"):
+                continue
+            srcs = self.conf.vertex_inputs.get(cv_name, [])
+            if len(srcs) != 1:
+                continue
+            members = [cv_name]
+            pre_vertex = None
+            if tuple(conv.padding) == (0, 0):
+                # the ZeroPadding(3,3,3,3) form (the zoo ResNet50's),
+                # matched by hand: the pad vertex may carry the entry
+                # preprocessor, which the fused group absorbs
+                pad_name = srcs[0]
+                pv = self.conf.vertices.get(pad_name)
+                padl = pv.layer if (
+                    isinstance(pv, LayerVertex)
+                    and type(pv.layer) is ZeroPaddingLayer
+                    and pad_name not in outputs) else None
+                if (padl is None or tuple(padl._pads()) != (3, 3, 3, 3)
+                        or padl.data_format != "NHWC"
+                        or chain_next(pad_name) != cv_name):
+                    continue
+                if pv.preprocessor is not None:
+                    pre_vertex = pad_name
+                pin = self.conf.vertex_inputs.get(pad_name, [])
+                if len(pin) != 1:
+                    continue
+                src = pin[0]
+                it = self._vertex_input_types[pad_name][0]
+                members.append(pad_name)
+            elif tuple(conv.padding) == (3, 3):
+                src = srcs[0]
+                it = self._vertex_input_types[cv_name][0]
+            else:
+                continue
+            if it.kind != "cnn":
+                continue
+            bn_name = chain_next(cv_name)
+            bn = bn_name and layer_of(bn_name, BatchNormalization)
+            if bn is None or \
+                    len(self.conf.vertex_inputs.get(bn_name, [])) != 1:
+                continue
+            members.append(bn_name)
+            nxt = chain_next(bn_name)
+            act = bn.activation or "identity"
+            if nxt is not None:
+                al = layer_of(nxt, ActivationLayer)
+                if al is not None and act == "identity":
+                    members.append(nxt)
+                    act = al.activation
+                    nxt = chain_next(nxt)
+            if act != "relu" or nxt is None:
+                continue
+            pool = layer_of(nxt, SubsamplingLayer)
+            if (pool is None or pool.pooling_type.lower() != "max"
+                    or tuple(pool.kernel) != (3, 3)
+                    or tuple(pool.stride) != (2, 2)
+                    or tuple(pool.padding) != (1, 1)
+                    or pool.convolution_mode != "truncate"
+                    or pool.data_format != "NHWC"):
+                continue
+            if not fused_stem_supported(
+                    (1, it.height, it.width, it.channels), conv.n_out,
+                    self.conf.dtype or "float32"):
+                continue
+            splan[nxt] = {"src": src, "conv": cv_name, "bn": bn_name,
+                          "pre_vertex": pre_vertex,
+                          "h": it.height, "w": it.width,
+                          "cin": it.channels, "cout": conv.n_out,
+                          "members": members}
+        return splan
+
+    def fusion_candidates(self):
+        """Everything the fused plan COULD engage on this graph, whatever
+        plan is selected: (bottleneck block groups, stem groups), memoised
+        per conf.dtype (the gates read it)."""
+        c = self._candidates_cache
+        if c is None or c[0] != self.conf.dtype:
+            _, bplan = self._bottleneck_fusion(None)
+            c = self._candidates_cache = (self.conf.dtype, bplan,
+                                          self._stem_fusion())
+        return c[1:]
+
+    def _apply_fused_bottleneck(self, out_name, group, params, state,
+                                acts):
+        """Run one bottleneck group through the kernels: reads the block
+        input, writes the final relu output into ``acts[out_name]``."""
+        from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
+            fused_bottleneck)
+        x = acts[group["src"]].contiguous()
+        bn_a, pa = self._bn_params(group["bn_a"], params, state, x.dtype)
+        pb = self._bn_params(group["bn_b"], params, state, x.dtype)[1]
+        pc = self._bn_params(group["bn_c"], params, state, x.dtype)[1]
+        ws = ps = None
+        if "conv_skip" in group:                  # downsample (entry) form
+            ps = self._bn_params(group["bn_skip"], params, state,
+                                 x.dtype)[1]
+            ws = self._kernel_weight(params, group["conv_skip"], "1x1")
+        acts[out_name], _ = fused_bottleneck(
+            x, self._kernel_weight(params, group["conv_a"], "1x1"), pa,
+            self._kernel_weight(params, group["conv_b"], "3x3"), pb,
+            self._kernel_weight(params, group["conv_c"], "1x1"), pc,
+            w_skip=ws, bn_skip=ps, stride=group["stride"], train=False,
+            eps=bn_a.eps)
+
+    def _apply_fused_stem(self, out_name, group, params, state, acts):
+        """Run the stem group through the kernels: reads the network
+        input (through the absorbed pad vertex's preprocessor, the entry
+        transpose), writes the pooled output into ``acts[out_name]``."""
+        from deeplearning4j_tpu_torch.nn.layers.stem import fused_stem
+        x = acts[group["src"]]
+        if group["pre_vertex"]:
+            x = self.conf.vertices[group["pre_vertex"]].preprocessor.apply(x)
+        bn, p = self._bn_params(group["bn"], params, state, x.dtype)
+        acts[out_name], _ = fused_stem(
+            x.contiguous(), self._kernel_weight(params, group["conv"], "s2d"),
+            p, train=False, eps=bn.eps)
+
+    def _kernel_weight(self, params, name, layout):
+        """Conv vertex ``name``'s OIHW weight in a kernel's layout: "1x1"
+        ``[I, O]``; "3x3" tap-major ``[9, I, O]``, tap ``t = kh * 3 + kw``
+        (the kernel's order of shifted windows, cross-correlation like
+        F.conv2d); "s2d" the stem's space-to-depth ``[64 I, O]``. Made
+        once per weight tensor and kept until that tensor is replaced (a
+        new ``net.params``, or its compute-dtype copy), not per forward."""
+        from deeplearning4j_tpu_torch.nn.layers.stem import stem_weight_s2d
+        w4 = params[name]["W"]
+        hit = self._layouts.get(name)
+        if hit is not None and hit[0] is w4:
+            return hit[1]
+        o, i = w4.shape[0], w4.shape[1]
+        if layout == "1x1":
+            w = w4.reshape(o, i).t().contiguous()
+        elif layout == "3x3":
+            w = w4.permute(2, 3, 1, 0).reshape(9, i, o).contiguous()
+        else:
+            w = stem_weight_s2d(w4)
+        self._layouts[name] = (w4, w)
+        return w
+
+    def _bn_params(self, bn_name, params, state, dtype):
+        """(layer, BnParams) of a BN vertex for the fused chains, rounded
+        through the compute dtype as the unfused layer rounds them."""
+        from deeplearning4j_tpu_torch.nn.layers.bottleneck import BnParams
+        bn = self.conf.vertices[bn_name].layer
+        p, s = params.get(bn_name, {}), state[bn_name]
+        nf = s["mean"].shape[0]
+        dev = s["mean"].device
+        gamma = p.get("gamma", torch.full((nf,), bn.gamma, device=dev))
+        beta = p.get("beta", torch.full((nf,), bn.beta, device=dev))
+        return bn, BnParams(
+            gamma=gamma.to(dtype), beta=beta.to(dtype),
+            running_mean=s["mean"].to(dtype).float(),
+            running_var=s["var"].to(dtype).float())
+
     # ------------------------------------------------------------------
     def _compute_params(self):
         """The parameters in the compute dtype: the bf16 copy is made
@@ -199,10 +641,23 @@ class ComputationGraph:
         streaming vertices; other calls see no streaming state. The
         output layers named in ``preout_of`` yield their pre-activation
         output (the loss takes every output's preout in this one
-        pass)."""
+        pass). The chains of the selected execution plan run fused."""
+        skip, bplan, splan = self._fusion()
         acts: Dict[str, Any] = dict(inputs)
         new_state: Dict[str, Any] = {}
         for name in self._topo:
+            if name in skip:           # absorbed into a fused chain
+                new_state[name] = state.get(name, {})
+                continue
+            if name in bplan:
+                self._apply_fused_bottleneck(name, bplan[name], params,
+                                             state, acts)
+            elif name in splan:
+                self._apply_fused_stem(name, splan[name], params, state,
+                                       acts)
+            if name in bplan or name in splan:
+                new_state[name] = state.get(name, {})
+                continue
             v = self.conf.vertices[name]
             xs = [acts[i] for i in self.conf.vertex_inputs.get(name, [])]
             v_state = state.get(name, {})
@@ -309,8 +764,18 @@ class ComputationGraph:
                                       "(steps_per_dispatch > 1) is not "
                                       "ported yet (ROADMAP.md A4)")
         if execution_plan is not None:
-            raise NotImplementedError("execution plans are not ported yet "
-                                      "(ROADMAP.md A4)")
+            raise NotImplementedError(
+                "execution plans in fit are not ported yet (ROADMAP.md "
+                "A4; the fused plan's backward: ROADMAP.md, ResNet50 "
+                "training)")
+        for v in self.conf.vertices.values():
+            if isinstance(getattr(v, "layer", None),
+                          (ConvolutionLayer, BatchNormalization)):
+                raise NotImplementedError(
+                    "training a graph with convolution or batch-norm "
+                    "layers (batch statistics, the fused plan's backward "
+                    "kernels) is not ported yet (ROADMAP.md, ResNet50 "
+                    "training)")
         if prefetch or pad_tail:
             raise NotImplementedError("device prefetch and tail padding "
                                       "are not ported yet (ROADMAP.md A5)")
@@ -349,9 +814,14 @@ class ComputationGraph:
         return float(loss)
 
     # ------------------------------------------------------------------
-    def output(self, *inputs):
-        """Output activations (f32 heads): one tensor for a
-        single-output graph, else a list."""
+    def output(self, *inputs, train: bool = False):
+        """Output activations (f32 heads) of the inference forward, under
+        the selected execution plan: one tensor for a single-output
+        graph, else a list. CNN inputs are NCHW."""
+        if train:
+            raise NotImplementedError(
+                "output(train=True) (batch statistics) is not ported yet "
+                "(ROADMAP.md, ResNet50 training)")
         if not self._initialized:
             self.init()
         with torch.no_grad():

@@ -1,9 +1,9 @@
 """Updaters, learning-rate schedules and gradient normalization.
 
 Counterpart of ``deeplearning4j_tpu/nn/updater.py`` for the rules the
-ported training path uses: ``Sgd`` and ``Adam`` (the other updaters are
-ROADMAP.md A1), ``schedule_lr`` and ``normalize_gradients``. As in the
-JAX package the updater state is an explicit tree threaded through a
+ported models use: ``Sgd``, ``Adam`` and ``Nesterovs`` (ResNet50's; the
+other updaters are ROADMAP.md A1), ``schedule_lr`` and
+``normalize_gradients``. As in the JAX package the updater state is an explicit tree threaded through a
 pure ``update(grads, state, params) -> (steps, new_state)``; the caller
 subtracts the steps. Trees are nested dicts of tensors
 (``{vertex: {name: tensor}}``).
@@ -22,8 +22,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Adam", "Sgd", "Updater", "normalize_gradients", "schedule_lr",
-           "tree_leaves", "tree_map"]
+__all__ = ["Adam", "Nesterovs", "Sgd", "Updater", "normalize_gradients",
+           "schedule_lr", "tree_leaves", "tree_map"]
 
 
 def tree_map(fn, tree, *rest):
@@ -89,6 +89,25 @@ class Sgd(Updater):
     def update(self, grads, state, params, lr_scale=1.0):
         lr = self._lr(lr_scale)
         return tree_map(lambda g: lr * g, grads), state
+
+
+@dataclass
+class Nesterovs(Updater):
+    """Nesterov momentum as the JAX package computes it: ``v' = mu v -
+    lr g``, and the lookahead step ``-(mu v' - lr g)`` to subtract."""
+
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+
+    def init_state(self, params):
+        return {"v": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        lr = self._lr(lr_scale)
+        mu = self.momentum
+        v = tree_map(lambda v_, g: mu * v_ - lr * g, state["v"], grads)
+        steps = tree_map(lambda v_, g: -(mu * v_ - lr * g), v, grads)
+        return steps, {"v": v}
 
 
 @dataclass

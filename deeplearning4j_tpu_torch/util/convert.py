@@ -8,6 +8,11 @@ a JAX graph's ``net.params``, taken to numpy, loads into the port's
 graph under the same vertex and parameter names with no transposes
 (``tests/test_torch_transformer.py`` pins that).
 
+The graph state carries across too: the BN running mean and variance of
+``net.state`` (``{vertex: {"mean": array, "var": array}}``, empty dicts
+elsewhere) become f32 tensors under the same names
+(``ComputationGraph.load_numpy_state``; ``tests/test_torch_resnet.py``).
+
 The updater state carries across the same way: the JAX ``Adam`` state
 ``{"m": tree, "v": tree, "t": step}`` taken to numpy becomes the port's
 (trees of f32 tensors, ``t`` a Python int), so a JAX run resumes in the
@@ -21,8 +26,9 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "params_to_numpy",
-           "updater_state_from_numpy", "updater_state_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy",
+           "state_to_numpy", "updater_state_from_numpy",
+           "updater_state_to_numpy"]
 
 
 def params_from_numpy(np_params, device=None) -> dict:
@@ -47,6 +53,18 @@ def params_to_numpy(params) -> dict:
     of :func:`params_from_numpy`)."""
     return {v: {k: t.detach().float().cpu().numpy() for k, t in p.items()}
             for v, p in params.items()}
+
+
+def state_from_numpy(np_state, device=None) -> dict:
+    """A graph state ``{vertex: {name: array}}`` of floating arrays (the
+    BN running statistics) to the same tree of f32 tensors on
+    ``device`` (default ``"cuda"``)."""
+    return params_from_numpy(np_state, device)
+
+
+def state_to_numpy(state) -> dict:
+    """The inverse of :func:`state_from_numpy`."""
+    return params_to_numpy(state)
 
 
 def updater_state_from_numpy(np_state, device=None) -> dict:

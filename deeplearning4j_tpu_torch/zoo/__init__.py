@@ -1,5 +1,6 @@
 """Model zoo (the models ported so far)."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZooModel  # noqa: F401
+from deeplearning4j_tpu_torch.zoo.resnet import ResNet50  # noqa: F401
 from deeplearning4j_tpu_torch.zoo.transformer import (  # noqa: F401
     TextGenerationTransformer)

@@ -2,39 +2,57 @@
 
 Counterpart of ``deeplearning4j_tpu/zoo/base.py``: ``conf()`` describes
 the network, ``init(device=None)`` builds it with seeded weights on the
-card (``"cuda"`` unless the caller passes ``device="cpu"``). A model's
-own keywords (a transformer's ``updater=``) are its constructor's.
-Pretrained checkpoints, the model registry and execution plans come
-with the formats and the fused plans (ROADMAP.md A1, A4).
+card (``"cuda"`` unless the caller passes ``device="cpu"``). The JAX
+zoo's build options: ``data_format="NHWC"`` runs the CNN stack in the
+internal NHWC layout (the public input stays NCHW), and
+``execution_plan="fused" | "xla"`` resolves the execution plan at build
+time (``tuning/plan.py``). The JAX zoo's direct ``fuse=`` switches are
+not ported (``fuse=True``, the bn -> act -> 1x1-conv plan, is ROADMAP.md
+B3; its ``fuse="bottleneck"`` is ``execution_plan="fused"`` here).
+Pretrained checkpoints and the model registry come with the formats
+(ROADMAP.md A1).
 """
 
 from __future__ import annotations
 
 __all__ = ["ZooModel"]
 
-#: the JAX zoo's keyword options this port refuses until ROADMAP.md A4
-_NOT_PORTED = ("fuse", "execution_plan", "data_format")
+#: the JAX zoo's build options
+_OPTIONS = ("data_format", "execution_plan", "fuse")
 
 
 class ZooModel:
     """Base for zoo models."""
 
     def __init__(self, num_classes: int = 1000, seed: int = 12345,
-                 **not_ported):
-        for k, v in not_ported.items():
-            if k not in _NOT_PORTED:
+                 **options):
+        for k in options:
+            if k not in _OPTIONS:
                 raise TypeError(f"unexpected argument {k!r}")
-            if v:
-                raise NotImplementedError(
-                    f"{k}= is not ported yet (ROADMAP.md A4)")
+        if options.get("fuse"):
+            raise NotImplementedError(
+                "fuse= (fuse=True: the bn -> act -> 1x1-conv plan) is not "
+                "ported yet (ROADMAP.md B3, with the execution plans of "
+                "ROADMAP.md A4); execution_plan='fused' selects the fused "
+                "bottleneck plan")
+        if options.get("execution_plan") == "auto":
+            raise NotImplementedError(
+                "execution_plan='auto' is not ported yet (ROADMAP.md A4)")
         self.num_classes = num_classes
         self.seed = seed
+        self.options = options
 
     def conf(self):
         raise NotImplementedError
 
     def init(self, device=None):
         """Build and initialize the network on ``device`` (default
-        ``"cuda"``)."""
+        ``"cuda"``), in the chosen layout and execution plan."""
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-        return ComputationGraph(self.conf()).init(device)
+        from deeplearning4j_tpu_torch.tuning.plan import apply_execution_plan
+        conf = self.conf()
+        if self.options.get("data_format"):
+            conf.use_cnn_data_format(self.options["data_format"])
+        net = ComputationGraph(conf).init(device)
+        apply_execution_plan(net, self.options.get("execution_plan"))
+        return net
