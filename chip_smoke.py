@@ -71,7 +71,40 @@ Phases (any failure exits nonzero):
     forward under ``torch.profiler``;
 12. resnet reference: in f32 at B=8, the fused plan's (kernels) logits
     against the "xla" plan's of the same graph, with the same two
-    planted faults.
+    planted faults;
+13. cnn bwd kernels: the two ResNet50 backward kernels (a bottleneck
+    stage's 1x1 and 3x3 backward: dz0, dW and the BN sums in one entry
+    point) against their plain versions at the training path's shapes,
+    bf16 at B=128 and f32 at B=16: dz0 and dW by row and 64-row tile as
+    in phase 10, the sums within 1e-6 of each channel's sum of |terms|,
+    the rows a stride-2 conv never read exactly 0, the identity
+    prologue's sums exactly 0; in bf16 the limits are shown to fail
+    three faults planted through the kernels (a 3x3 padded with the
+    BN-backward affine of zero, a 1x1 without its relu' mask, sums over
+    the stored rounded dz0). Times of the kernel, the plain version and
+    cuDNN's ``aten.convolution_backward`` (dgrad and wgrad,
+    channels-last) beside the bound;
+14. resnet train: ResNet50 training at full width (bench_all.py's
+    bench_train_plan: 1000 classes, 224x224, B=128, bf16, NHWC,
+    Nesterovs(0.1, 0.9), the fused plan, random weights from the conf
+    seed, seeded images and labels) through ``net.fit``: one warm-up
+    step, then 5 timed steps on the same batch, each ending in a host
+    read of the loss; the loss finite; per step the conv1x1 kernel
+    launches 36 times, conv3x3 16, bwd1x1 36, bwd3x3 16, the stem
+    kernels never; ms per step, images/s and peak memory; the "xla"
+    plan's steps in turns with the fused plan's; one fused step under
+    ``torch.profiler``. Then a fresh net from the same seed takes the
+    same 6 steps on the "xla" plan (cuDNN convolutions under autograd):
+    both start from the same weights, the first losses agree, the first
+    step's parameters and velocity agree by ``update_err`` (leaf by
+    leaf) and a planted fault (s4b4's stage c backward without its
+    relu' mask) fails that limit, both losses fall at the first update,
+    and both trajectories are recorded;
+15. resnet train reference: in f32 at B=8, 224x224, Nesterovs(1e-6,
+    0.9), two fit steps with the kernels against two with the plain
+    versions swapped in, and against two on the "xla" plan (cuDNN, TF32
+    off), by parameters, BN state and Nesterovs velocity (``update_err``,
+    leaf by leaf); the same planted fault must fail the limit.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -160,6 +193,59 @@ RESNET_ROW_SUM = 1e-2            # bf16 softmax probabilities, rounded
 #: of the activated image avoids), on 7% of the pixels at 56x56
 PLANTED = {"conv_c_no_relu": 4, "pad_relu_bb": 1}
 
+# ResNet50 training (bench_all.py's bench_train_plan at its defaults)
+TRAIN_RESNET_STEPS, TRAIN_RESNET_TURNS = 5, 2
+#: launches per training step: the forward's 36 conv1x1 and 16 conv3x3;
+#: the backward's 16 stage c, 16 stage a and 4 conv shortcut 1x1 stages
+#: and 16 3x3 stages; the stem trains unfused
+RESNET_TRAIN_LAUNCHES = {"conv1x1": 36, "conv3x3": 16, "bwd1x1": 36,
+                         "bwd3x3": 16, "stem_conv": 0, "stem_pool": 0}
+# The backward kernels against their plain versions. dz0 (stored in the
+# compute dtype) by rows and 64-row tiles as the forward convs (CONV_ROW,
+# CONV_TILE: same rounding points, f32 sums in another order). dW is
+# f32 from both, a sum over up to 401,408 pixels in another order (the
+# kernel: per-split f32 partials merged in f64; the plain version:
+# cuBLAS): rows within BWD_DW_ROW of their largest entry, tiles within
+# BWD_DW_TILE. The sums within BWD_SUMS of each channel's sum of |terms|
+# (the kernel's f32 sums in another order: at most 3e-7; sums over the
+# stored, rounded dz0 instead: 1.4e-5 and more).
+BWD_DW_ROW = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
+BWD_DW_TILE = {torch.bfloat16: 1e-5, torch.float32: 1e-5}
+BWD_SUMS = 1e-6
+# Two training runs by update_err, leaf by leaf: each leaf's largest
+# difference over that leaf's own change since the start, the change
+# floored at UPDATE_ULP_FLOOR of the leaf's largest value (a change of a
+# few f32 ulps is rounding, not an update) and at UPDATE_REL_FLOOR of
+# the largest change of any leaf.
+UPDATE_ULP_FLOOR, UPDATE_REL_FLOOR = 2.0 ** -16, 1e-2
+# The full-width fused steps against a fresh net's on the xla plan from
+# the same seed, by their losses: the first TRAIN_LOSS_AGREED (the same
+# weights, then three updates) within TRAIN_LOSS_AGREE of the xla plan's,
+# relative (0.14-0.71% on the H100, the same in every call: both plans
+# are deterministic); later the two part, as any two bf16 runs at lr 0.1
+# do (6.7%, then 15.5%). The first step's gradient is no finer check in
+# bf16: its velocity differs from the xla plan's, and from the plain
+# versions' (the same rounding points), by about its own norm (1.27 and
+# 1.06), so it is recorded, not held; the f32 reference holds the
+# gradients leaf by leaf.
+TRAIN_LOSS_AGREE, TRAIN_LOSS_AGREED = 3e-2, 4
+# The f32 training reference: B=8 at 224x224, a learning rate at which
+# the loss falls about linearly (BN makes the loss scale-free in the
+# small He-init conv weights: the gradient is large) and the updates
+# stay far above the f32 spacing of the parameters (at 1e-7 one ulp of a
+# BN gain near 1 is 4% of the largest update), two steps. The kernels
+# against the plain versions and the fused plan against the xla plan
+# within TRAIN_REF_LIMIT in the parameters and the velocity (f32 sums in
+# other orders through 53 layers with batch statistics: at most 0.104,
+# the velocity of one s4 3x3 conv against the plain versions; the
+# planted fault reads 1.16 and more); the BN running statistics, a
+# forward quantity, within TRAIN_REF_STATE (1.3e-4 read).
+TRAIN_REF_B, TRAIN_REF_LR, TRAIN_REF_STEPS = 8, 1e-6, 2
+TRAIN_REF_LIMIT, TRAIN_REF_STATE = 0.3, 1e-2
+#: the planted fault's block, counted in the backward's order (from the
+#: output): s4b4, the fifth
+TRAIN_REF_PLANTED = 4
+
 
 def log(*parts):
     print(*parts, flush=True)
@@ -192,7 +278,8 @@ def kernel_counters():
             "flash_bwd_dq": fa.FLASH_BWD_DQ,
             "flash_bwd_dkv": fa.FLASH_BWD_DKV, "conv1x1": bn.CONV1X1,
             "conv3x3": bn.CONV3X3, "stem_conv": stem.STEM_CONV,
-            "stem_pool": stem.STEM_POOL}
+            "stem_pool": stem.STEM_POOL, "bwd1x1": bn.BWD1X1,
+            "bwd3x3": bn.BWD3X3}
 
 
 def zero_counts():
@@ -1432,6 +1519,527 @@ def resnet_reference(device):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phase 13: the ResNet50 backward kernels against their plain versions
+# ---------------------------------------------------------------------
+#: name: (kernel, geometry at the training path's shapes)
+BWD_CASES = {
+    "s2_c_bwd": ("bwd1x1", dict(h=56, w=56, c=64, k=256, stride=1,
+                                act="relu")),
+    "s3b0_a_bwd": ("bwd1x1", dict(h=56, w=56, c=256, k=128, stride=2,
+                                  act="identity")),
+    "s2_b_bwd": ("bwd3x3", dict(h=56, w=56, c=64, k=64, stride=1,
+                                act="relu")),
+    "s5_b_bwd": ("bwd3x3", dict(h=7, w=7, c=512, k=512, stride=1,
+                                act="relu")),
+}
+
+
+def bwd_inputs(kernel, geo, n, dtype, device, seed):
+    """Seeded inputs of a backward stage: y_k a raw conv output (a
+    per-channel mean and scale drawn) with its BN rows aff_k (sc, bb,
+    inv, mu of those statistics, m1, m2 drawn); g = dz0_k, a gradient
+    masked by a relu (about half zero); yprev a raw conv output with its
+    rows aff_p under a relu prologue, or a post-relu block input with
+    (1, 0, 1, 0) under the identity; He-normal weights."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g)
+
+    h, w, c, k, s = geo["h"], geo["w"], geo["c"], geo["k"], geo["stride"]
+    taps = 9 if kernel == "bwd3x3" else 1
+    mk, sk = 0.3 * randn(k), 0.5 + rand(k)
+    yk = mk + sk * randn(n, h // s, w // s, k)
+    sck = (0.5 + rand(k)) / sk
+    aff_k = torch.stack([sck, 0.2 * randn(k) - mk * sck, 1 / sk, mk,
+                         0.05 * randn(k), 0.05 * randn(k)])
+    gz = randn(n, h // s, w // s, k) * (rand(n, h // s, w // s, k) > 0.5)
+    if geo["act"] == "relu":
+        mp, sp = 0.3 * randn(c), 0.5 + rand(c)
+        yprev = mp + sp * randn(n, h, w, c)
+        scp = (0.5 + rand(c)) / sp
+        aff_p = torch.stack([scp, 0.2 * randn(c) - mp * scp, 1 / sp, mp])
+    else:
+        yprev = torch.clamp_min(randn(n, h, w, c), 0.0)
+        aff_p = torch.stack([torch.ones(c), torch.zeros(c), torch.ones(c),
+                             torch.zeros(c)])
+    wshape = (9, c, k) if taps == 9 else (c, k)
+    wt = randn(*wshape) * (2.0 / (taps * c)) ** 0.5
+    return {"yk": yk.to(device, dtype), "g": gz.to(device, dtype),
+            "yprev": yprev.to(device, dtype), "w": wt.to(device, dtype),
+            "aff_k": aff_k.to(device).contiguous(),
+            "aff_p": aff_p.to(device).contiguous()}
+
+
+def bwd_fns(kernel, geo, a):
+    """(kernel call, plain call, library call, {fault: call}) on inputs
+    ``a``: the library call is cuDNN's convolution backward (dgrad and
+    wgrad) on dy and the activated input, both rounded to the compute
+    dtype, channels-last, made here outside its time; the faults are
+    planted through the kernel."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    args = (a["yk"], a["g"], a["yprev"], a["w"], a["aff_k"], a["aff_p"])
+    c, k, s, act = geo["c"], geo["k"], geo["stride"], geo["act"]
+    dtype = a["yk"].dtype
+    cl = torch.channels_last
+    dy = bn._dy(a["yk"], a["g"], a["aff_k"]).to(dtype) \
+        .permute(0, 3, 1, 2)
+    z = bn._z_prev(a["yprev"], a["aff_p"], act == "relu")[1].to(dtype) \
+        .permute(0, 3, 1, 2)
+    if kernel == "bwd3x3":
+        w4 = a["w"].reshape(3, 3, c, k).permute(3, 2, 0, 1)
+        pad = 1
+    else:
+        w4 = a["w"].t().reshape(k, c, 1, 1)
+        pad = 0
+    w4 = w4.contiguous(memory_format=cl)
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            dy, z, w4, None, [s, s], [pad, pad], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+
+    faults = {}
+    if kernel == "bwd3x3":
+        kw = dict(act_prev=act)
+
+        def pad_affine():
+            # a ring of zero pixels around y_k and g: the kernel computes
+            # dy there as the BN-backward affine of zero, and the interior
+            # of dz0 takes it in through the transposed taps
+            def p(t):
+                return torch.nn.functional.pad(t, (0, 0, 1, 1, 1, 1))
+            dz, _, _ = bn.conv3x3_bwd(p(a["yk"]), p(a["g"]), p(a["yprev"]),
+                                      a["w"], a["aff_k"], a["aff_p"], **kw)
+            return dz[:, 1:-1, 1:-1, :].contiguous()
+
+        faults["pad_affine"] = pad_affine
+        return (lambda: bn.conv3x3_bwd(*args, **kw),
+                lambda: bn.conv3x3_bwd_plain(*args, **kw), library, faults)
+    kw = dict(act_prev=act, stride=s)
+    if act == "relu":
+        faults["no_mask"] = lambda: bn.conv1x1_bwd(
+            *args, act_prev="identity", stride=s)[0]
+    return (lambda: bn.conv1x1_bwd(*args, **kw),
+            lambda: bn.conv1x1_bwd_plain(*args, **kw), library, faults)
+
+
+def bwd_bound(kernel, geo, n, dtype):
+    """Least time on this card for one backward stage: the bytes it must
+    move (yk and g at the conv's output pixels, yprev at the pixels the
+    conv read, the weight and BN rows once; dz0 at full resolution, dW in
+    f32, the sums) over the memory rate, against its multiply-adds (dW
+    and dz0, 2 M R K each, R = 9C or C) over the dtype's peak."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    h, w, c, k, s = geo["h"], geo["w"], geo["c"], geo["k"], geo["stride"]
+    red = (9 if kernel == "bwd3x3" else 1) * c
+    m = n * (h // s) * (w // s)
+    read = (2 * m * k + m * c + red * k) * el + (6 * k + 4 * c) * 4
+    written = n * h * w * c * el + red * k * 4 + 2 * c * 4
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    t_ops = 4 * m * red * k / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_sums_rel(sums, ref_dz, yprev, aff_p, ref_sums):
+    """The sums' largest error per channel over that channel's sum of
+    |terms| (|dz0| and |dz0 yhat|, from the plain version's dz0)."""
+    c = yprev.shape[-1]
+    d = ref_dz.float().reshape(-1, c)
+    yhat = ((yprev.float() - aff_p[3]) * aff_p[2]).reshape(-1, c)
+    mag = torch.stack([d.abs().sum(0), (d * yhat).abs().sum(0)])
+    return float(((sums - ref_sums).abs() / mag.clamp_min(1e-30)).max())
+
+
+def bwd_case(name, dtype, n, device, seed):
+    """One backward case: the kernel against its plain version (dz0, dW,
+    sums), the zero rows of stride 2, the planted faults in bf16, then
+    the kernel's, plain version's and cuDNN's times beside the bound."""
+    kernel, geo = BWD_CASES[name]
+    a = bwd_inputs(kernel, geo, n, dtype, device, seed)
+    kern, plain, library, faults = bwd_fns(kernel, geo, a)
+    (dz, dw, sums), (rdz, rdw, rsums) = kern(), plain()
+    torch.cuda.synchronize()
+    case = {"case": name, "kernel": kernel,
+            "dtype": str(dtype).split(".")[-1], "batch": n, **geo}
+    failures = []
+    finite = all(bool(torch.isfinite(t).all()) for t in (dz, dw, sums))
+    row_rel, tile_rel = conv_agreement(dz, rdz)
+    dw_row, dw_tile = conv_agreement(dw.reshape(-1, geo["k"]),
+                                     rdw.reshape(-1, geo["k"]))
+    case.update(max_abs_err=float((dz.float() - rdz.float()).abs().max()),
+                dw_max_abs_err=float((dw - rdw).abs().max()),
+                row_rel=row_rel, tile_rel=tile_rel, dw_row_rel=dw_row,
+                dw_tile_rel=dw_tile,
+                limits={"row_rel": CONV_ROW[dtype],
+                        "tile_rel": CONV_TILE[dtype],
+                        "dw_row_rel": BWD_DW_ROW[dtype],
+                        "dw_tile_rel": BWD_DW_TILE[dtype],
+                        "sums_rel": BWD_SUMS})
+    if row_rel > CONV_ROW[dtype] or tile_rel > CONV_TILE[dtype]:
+        failures.append("dz0")
+    if dw_row > BWD_DW_ROW[dtype] or dw_tile > BWD_DW_TILE[dtype]:
+        failures.append("dW")
+    if geo["act"] == "relu":
+        case["sums_rel"] = bwd_sums_rel(sums, rdz, a["yprev"], a["aff_p"],
+                                        rsums)
+        if case["sums_rel"] > BWD_SUMS:
+            failures.append("sums")
+    elif bool(sums.any()):
+        failures.append("identity prologue's sums not zero")
+    if geo["stride"] == 2:
+        unread = dz.clone()
+        unread[:, ::2, ::2, :] = 0
+        case["unread_nonzero"] = int(torch.count_nonzero(unread))
+        if case["unread_nonzero"]:
+            failures.append("stride-2 rows the conv never read not zero")
+    if dtype == torch.bfloat16:
+        # the limits' power: each planted fault fails them
+        planted_rec = {}
+        for fault, fn in faults.items():
+            planted_rec[fault] = conv_agreement(fn(), rdz)
+            if planted_rec[fault][0] <= CONV_ROW[dtype] and \
+                    planted_rec[fault][1] <= CONV_TILE[dtype]:
+                failures.append(f"the limits do not tell {fault}")
+        if geo["act"] == "relu":
+            # sums over the stored, rounded dz0 (the forward's habit)
+            c = geo["c"]
+            d = dz.float().reshape(-1, c)
+            yhat = ((a["yprev"].float() - a["aff_p"][3]) * a["aff_p"][2]) \
+                .reshape(-1, c)
+            stored = torch.stack([d.sum(0), (d * yhat).sum(0)])
+            planted_rec["rounded_sums"] = bwd_sums_rel(
+                stored, rdz, a["yprev"], a["aff_p"], rsums)
+            if planted_rec["rounded_sums"] <= BWD_SUMS:
+                failures.append("the limit does not tell rounded sums")
+        case["planted"] = planted_rec
+    log("cnn bwd check", json.dumps(case))
+    if not finite or failures:
+        raise AssertionError(f"{kernel} kernel disagrees with its plain "
+                             f"version ({failures}, finite {finite}): "
+                             f"{case}")
+    del dz, dw, sums, rdz, rdw, rsums
+    bound_ms, bound_by = bwd_bound(kernel, geo, n, dtype)
+    case.update(ms=median_ms(kern, device),
+                plain_ms=median_ms(plain, device, iters=10),
+                library_ms=median_ms(library, device),
+                bound_ms=bound_ms, bound_by=bound_by)
+    log("cnn bwd", json.dumps(case))
+    del a, kern, plain, library, faults
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_cnn_bwd_kernels(device):
+    """Every backward case in bf16 at the main path's batch, then in f32
+    at 16."""
+    return [bwd_case(name, dtype, n, device, seed=20 + i)
+            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+            for i, name in enumerate(BWD_CASES)]
+
+
+# ---------------------------------------------------------------------
+# phases 14-15: ResNet50 training through ComputationGraph.fit
+# ---------------------------------------------------------------------
+def resnet_train_net(device, dtype, lr=0.1):
+    """bench_all.py's bench_train_plan ResNet50: 1000 classes, 224x224,
+    NHWC, Nesterovs(lr, 0.9), the fused plan resolved under the compute
+    dtype, random weights from the conf seed."""
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.tuning import apply_execution_plan
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW,
+                   width=RESNET_HW, updater=Nesterovs(lr, momentum=0.9),
+                   data_format="NHWC",
+                   execution_plan="fused").init(device=device)
+    net.conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    apply_execution_plan(net, "fused")
+    return net
+
+
+def train_images(n):
+    """bench_all.py's batch: standard-normal images and one-hot labels
+    drawn from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((n, 3, RESNET_HW, RESNET_HW)).astype(np.float32)
+    y = np.zeros((n, RESNET_CLASSES), np.float32)
+    y[np.arange(n), rng.integers(0, RESNET_CLASSES, n)] = 1.0
+    return x, y
+
+
+def fit_s(net, x, y, plan):
+    """Wall seconds of one fit step that ends in a host read of its
+    loss, and the loss."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=x.shape[0], execution_plan=plan)
+    loss = net.score_value
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, loss
+
+
+def resnet_train(device):
+    """The ResNet50 training path at full width: a warm-up step, the
+    counted timed steps, the xla plan in turns, peak memory, one
+    profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    net = resnet_train_net(device, torch.bfloat16)
+    x, y = train_images(RESNET_B)
+    start = tree_numpy(net.params)
+    warm_s, warm_loss = fit_s(net, x, y, "fused")
+    first = tree_numpy(net.updater_state)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_RESNET_STEPS):
+        t, loss = fit_s(net, x, y, "fused")
+        step_s.append(t)
+        losses.append(loss)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    med = float(np.median(step_s))
+    rec = {"config": {"model": "ResNet50", "classes": RESNET_CLASSES,
+                      "hw": RESNET_HW, "batch": RESNET_B,
+                      "dtype": "bfloat16", "data_format": "NHWC",
+                      "updater": "Nesterovs(0.1, 0.9)", "plan": "fused",
+                      "fused_blocks": len(net._fusion()[1]),
+                      "stem": bool(net._fusion()[2])},
+           "warmup_step_s": warm_s, "warmup_loss": warm_loss,
+           "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "step_ms_median": 1e3 * med, "images_per_s": RESNET_B / med,
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    failures = []
+    if not all(np.isfinite(losses + [warm_loss])):
+        failures.append("loss not finite")
+    for name, per_step in RESNET_TRAIN_LAUNCHES.items():
+        if counts[name] != per_step * TRAIN_RESNET_STEPS:
+            failures.append(f"{name} launched {counts[name]} in "
+                            f"{TRAIN_RESNET_STEPS} steps, want "
+                            f"{per_step} a step")
+    # the fused and xla plans' steps in turns (fused, xla, fused, xla)
+    times = {"fused": [], "xla": []}
+    for _ in range(TRAIN_RESNET_TURNS):
+        for plan in ("fused", "xla"):
+            fit_s(net, x, y, plan)
+            for _ in range(2):
+                times[plan].append(fit_s(net, x, y, plan)[0])
+    for plan, ts in times.items():
+        m = float(np.median(ts))
+        rec["turns_" + plan] = {"step_ms": [1e3 * t for t in ts],
+                                "step_ms_median": 1e3 * m,
+                                "images_per_s": RESNET_B / m}
+    fit_s(net, x, y, "fused")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = fit_s(net, x, y, "fused")
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+              for e in kernels}
+    busy_us = sum(dev_us.values())
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+
+    def share(*names):
+        return (sum(t for key, t in dev_us.items()
+                    if any(n in key for n in names)) / busy_us
+                if busy_us else None)
+
+    rec["profile"] = {
+        "step_ms": 1e3 * wall, "device_busy_share": busy_us / (wall * 1e6),
+        "kernel_launches": sum(e.count for e in kernels),
+        "conv_fwd_share": share("conv_gemm_kernel"),
+        "conv_bwd_share": share("dz_kernel", "dw_kernel", "reduce_splits"),
+        "top_kernels_us": [[key[:80], t] for key, t in top]}
+    del net
+    torch.cuda.empty_cache()
+    rec["against_xla"] = train_against_xla(device, x, y, start, first,
+                                           [warm_loss] + losses, failures)
+    log("resnet train:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"resnet train: {failures}: {rec}")
+    return rec
+
+
+def train_steps(device, x, y, plan, steps, swaps=()):
+    """A fresh full-width net from the conf seed trained ``steps`` fit
+    steps on ``plan``: its start parameters, its velocity after the
+    first step (the first gradient times -lr), and every step's loss."""
+    net = resnet_train_net(device, torch.bfloat16)
+    start = tree_numpy(net.params)
+    losses = [with_swaps(swaps, lambda: fit_s(net, x, y, plan)[1])]
+    first = tree_numpy(net.updater_state)
+    losses += [fit_s(net, x, y, plan)[1] for _ in range(steps - 1)]
+    del net
+    torch.cuda.empty_cache()
+    return start, first, losses
+
+
+def rel_l2(got, want):
+    """||got - want|| over ||want||, over every leaf of two trees."""
+    g, w = leaf_values(got), leaf_values(want)
+    return float(np.sqrt(sum(np.sum((a - b) ** 2) for a, b in zip(g, w))
+                         / sum(np.sum(b ** 2) for b in w)))
+
+
+def train_against_xla(device, x, y, start, first, losses, failures):
+    """The fused plan's full-width loss trajectory against a fresh net's
+    on the xla plan (cuDNN convolutions under autograd) from the same
+    seed: the first TRAIN_LOSS_AGREED losses within TRAIN_LOSS_AGREE
+    and moving the same way, the first falling; the first step's
+    velocity, against the xla plan's and against the plain versions'
+    (a reading: see TRAIN_LOSS_AGREE)."""
+    xstart, xfirst, xlosses = train_steps(device, x, y, "xla",
+                                          1 + TRAIN_RESNET_STEPS)
+    _, pfirst, _ = train_steps(device, x, y, "fused", 1, train_swapped())
+    n = TRAIN_LOSS_AGREED
+    same = all(np.array_equal(a, b) for a, b in zip(leaf_values(start),
+                                                    leaf_values(xstart)))
+    rec = {"same_start": same, "losses_fused": losses,
+           "losses_xla": xlosses,
+           "loss_rel": [abs(a - b) / b for a, b in zip(losses, xlosses)],
+           "first_velocity_rel_l2": {"xla": rel_l2(first, xfirst),
+                                     "plain": rel_l2(first, pfirst)},
+           "limits": {"loss_rel": TRAIN_LOSS_AGREE, "losses": n}}
+    if not same:
+        failures.append("the xla plan's net starts from other weights")
+    if not max(rec["loss_rel"][:n]) <= TRAIN_LOSS_AGREE:
+        failures.append("the losses part from the xla plan's")
+    moves = [np.sign(np.diff(t[:n])).tolist() for t in (losses, xlosses)]
+    if moves[0] != moves[1] or moves[0][0] >= 0:
+        failures.append(f"the losses move {moves[0]} and on the xla plan "
+                        f"{moves[1]}; both must fall at the first update "
+                        f"and move alike")
+    return rec
+
+
+def train_fault():
+    """Swaps (for ``with_swaps``) that plant the reference's fault:
+    block TRAIN_REF_PLANTED's stage c backward (its one relu 1x1 stage)
+    through the kernel with the identity prologue: no relu' mask, no
+    affine in the dW pass, no sums."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    bwd, seen = bn.conv1x1_bwd, [0]
+
+    def faulty(yk, g, yprev, w, aff_k, aff_p, *, act_prev, stride=1):
+        if act_prev == "relu":            # stage c, once per block
+            seen[0] += 1
+            if (seen[0] - 1) % 16 == TRAIN_REF_PLANTED:
+                act_prev = "identity"
+        return bwd(yk, g, yprev, w, aff_k, aff_p, act_prev=act_prev,
+                   stride=stride)
+
+    return [(vars(bn), {"conv1x1_bwd": faulty})]
+
+
+def train_swapped():
+    """The forward and backward kernels' wrappers swapped for their plain
+    versions (for ``with_swaps``)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    return [(vars(bn), {"conv1x1": bn.conv1x1_plain,
+                        "conv3x3": bn.conv3x3_plain,
+                        "conv1x1_bwd": bn.conv1x1_bwd_plain,
+                        "conv3x3_bwd": bn.conv3x3_bwd_plain})]
+
+
+def tree_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    return tree.detach().double().cpu().numpy()
+
+
+def leaf_items(tree, pre=()):
+    """(path, array) of a tree's leaves, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_items(tree[k], pre + (k,))
+    else:
+        yield pre, tree
+
+
+def leaf_values(tree):
+    return [a for _, a in leaf_items(tree)]
+
+
+def update_err(got, want, base):
+    """How far two runs part, leaf by leaf: the worst leaf's largest
+    |got - want| over that leaf's own change max|want - base| since
+    ``base``, the change floored at UPDATE_ULP_FLOOR of the leaf's
+    largest |base| and at UPDATE_REL_FLOOR of the largest change of any
+    leaf; ``(err, the worst leaf's path)``."""
+    g, w, b = (dict(leaf_items(t)) for t in (got, want, base))
+    keys = [k for k in w if w[k].size]
+    change = {k: float(np.abs(w[k] - b[k]).max()) for k in keys}
+    top = max(change.values())
+    return max((float(np.abs(g[k] - w[k]).max())
+                / max(change[k], UPDATE_ULP_FLOOR * float(np.abs(b[k]).max()),
+                      UPDATE_REL_FLOOR * top, 1e-30), "/".join(k))
+               for k in keys)
+
+
+def resnet_train_reference(device):
+    """f32 at B=8: two fit steps with the kernels (the fused plan), with
+    the plain versions swapped in, on the xla plan, and with a planted
+    fault; parameters, BN state and velocity by update_err."""
+    x, y = train_images(TRAIN_REF_B)
+    runs = {}
+    for label, plan, swaps in (("kernels", "fused", []),
+                               ("plain", "fused", train_swapped()),
+                               ("xla", "xla", []),
+                               ("planted", "fused", train_fault())):
+        net = resnet_train_net(device, torch.float32, lr=TRAIN_REF_LR)
+        if label == "kernels":
+            base = {"params": tree_numpy(net.params),
+                    "state": tree_numpy(net.state),
+                    "updater": tree_numpy(net.updater_state)}
+        zero_counts()
+
+        def steps():
+            return [fit_s(net, x, y, plan)[1]
+                    for _ in range(TRAIN_REF_STEPS)]
+
+        losses = with_swaps(swaps, steps)
+        runs[label] = {"losses": losses, "launches": read_counts(),
+                       "params": tree_numpy(net.params),
+                       "state": tree_numpy(net.state),
+                       "updater": tree_numpy(net.updater_state)}
+        del net
+        torch.cuda.empty_cache()
+    ref = runs["kernels"]
+    rec = {"dtype": "float32", "batch": TRAIN_REF_B, "hw": RESNET_HW,
+           "lr": TRAIN_REF_LR, "steps": TRAIN_REF_STEPS,
+           "limits": {"params": TRAIN_REF_LIMIT, "updater": TRAIN_REF_LIMIT,
+                      "state": TRAIN_REF_STATE}}
+    failures = []
+    for label in ("plain", "xla", "planted"):
+        errs = {key: update_err(runs[label][key], ref[key], base[key])
+                for key in ("params", "state", "updater")}
+        rec[label] = {"update_err": errs, "losses": runs[label]["losses"],
+                      "launches": runs[label]["launches"]}
+        within = all(v <= rec["limits"][key] for key, (v, _) in errs.items())
+        if label == "planted" and within:
+            failures.append("the limit does not tell the planted fault")
+        if label != "planted" and not within:
+            failures.append(f"{label} disagrees with the kernels")
+    rec["kernels"] = {"losses": ref["losses"], "launches": ref["launches"]}
+    if not all(np.isfinite(ref["losses"])) or \
+            not ref["losses"][1] < ref["losses"][0]:
+        failures.append("the reference's loss not finite or not falling")
+    want = {n: c * TRAIN_REF_STEPS for n, c in RESNET_TRAIN_LAUNCHES.items()}
+    if {n: ref["launches"][n] for n in want} != want or \
+            any(runs["plain"]["launches"][n] for n in want):
+        failures.append("launches")
+    log("resnet train reference:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"resnet train reference: {failures}: {rec}")
+    return rec
+
+
 def cnn_entry(name, replaces, launches, cases):
     """A ResNet50 kernel's entry of the kernels line: its numbers at the
     main path's shape (the first bf16 case of the kernel), and every
@@ -1447,6 +2055,31 @@ def cnn_entry(name, replaces, launches, cases):
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "case": main["case"], "dtype": main["dtype"],
+            "batch": main["batch"], "limits": main["limits"],
+            "max_abs_err_all": max(c["max_abs_err"] for c in mine),
+            "cases": [{k: c[k] for k in ("case", "dtype", "batch", "ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", *keys)
+                       if k in c} for c in mine]}
+
+
+def bwd_entry(name, replaces, launches, cases):
+    """A backward kernel's entry of the kernels line: its numbers at the
+    main path's shape (the first bf16 case of the kernel), and every
+    case's."""
+    mine = [c for c in cases if c["kernel"] == name]
+    main = mine[0]
+    keys = ("max_abs_err", "dw_max_abs_err", "row_rel", "tile_rel",
+            "dw_row_rel", "dw_tile_rel", "sums_rel", "planted")
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/nn/layers/csrc/"
+                      "bottleneck_bwd.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": "aten.convolution_backward (cuDNN dgrad + wgrad)",
             "case": main["case"], "dtype": main["dtype"],
             "batch": main["batch"], "limits": main["limits"],
             "max_abs_err_all": max(c["max_abs_err"] for c in mine),
@@ -1528,45 +2161,88 @@ def main(argv=None) -> int:
         for line in lines:
             log(f"  {name}: {line}")
 
-    rng = np.random.default_rng(0)
-    paged_cases = check_paged_kernel(device, rng)
-    flash_cases = check_flash_kernels(device, exp_rate)
-    rec, launches = serve(device, rng)
-    log("serve:", json.dumps({**rec, "card": smi}))
-    prof = profile_decode(device, rng)
-    log("profile:", json.dumps({**prof, "card": smi}))
-    ref = reference(device, rng)
-    train_rec, net, batch = train(device, rng)
-    log("train:", json.dumps({"tokens_per_s": train_rec["tokens_per_s"],
-                              "step_ms_median": train_rec["step_ms_median"],
-                              "max_memory_allocated_bytes":
-                                  train_rec["max_memory_allocated_bytes"],
-                              "card": smi}))
-    train_prof = profile_train(net, batch)
-    del net, batch
-    torch.cuda.empty_cache()
-    train_ref = train_reference(device, rng)
-    torch.cuda.empty_cache()
-    cnn_cases = check_cnn_kernels(device)
-    resnet_rec = resnet(device)
-    log("resnet:", json.dumps({
-        "images_per_s_fused": resnet_rec["fused"]["images_per_s"],
-        "images_per_s_xla": resnet_rec["xla"]["images_per_s"],
-        "max_memory_allocated_bytes":
-            resnet_rec["max_memory_allocated_bytes"], "card": smi}))
-    torch.cuda.empty_cache()
-    resnet_ref = resnet_reference(device)
+    out = {"card": smi, "build_s": build_s}
+    phase_s = {}
 
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return r
+
+    rng = np.random.default_rng(0)
+    out["paged_cases"] = phase("paged", check_paged_kernel, device, rng)
+    out["flash_cases"] = phase("flash", check_flash_kernels, device,
+                               exp_rate)
+    out["serve"], out["serve_launches"] = phase("serve", serve, device, rng)
+    log("serve:", json.dumps({**out["serve"], "card": smi}))
+    out["profile"] = phase("profile", profile_decode, device, rng)
+    log("profile:", json.dumps({**out["profile"], "card": smi}))
+    out["reference"] = phase("reference", reference, device, rng)
+    train_rec, net, batch = phase("train", train, device, rng)
+    log("train:", json.dumps({
+        "tokens_per_s": train_rec["tokens_per_s"],
+        "step_ms_median": train_rec["step_ms_median"],
+        "max_memory_allocated_bytes":
+            train_rec["max_memory_allocated_bytes"], "card": smi}))
+    out["train"] = train_rec
+    out["train_profile"] = phase("train_profile", profile_train, net, batch)
+    del net, batch
+    out["train_reference"] = phase("train_reference", train_reference,
+                                   device, rng)
+    out["cnn_cases"] = phase("cnn", check_cnn_kernels, device)
+    out["resnet"] = phase("resnet", resnet, device)
+    log("resnet:", json.dumps({
+        "images_per_s_fused": out["resnet"]["fused"]["images_per_s"],
+        "images_per_s_xla": out["resnet"]["xla"]["images_per_s"],
+        "max_memory_allocated_bytes":
+            out["resnet"]["max_memory_allocated_bytes"], "card": smi}))
+    out["resnet_reference"] = phase("resnet_reference", resnet_reference,
+                                    device)
+    out["cnn_bwd_cases"] = phase("cnn_bwd", check_cnn_bwd_kernels, device)
+    rt = out["resnet_train"] = phase("resnet_train", resnet_train, device)
+    log("resnet train:", json.dumps({
+        "images_per_s_fused": rt["images_per_s"],
+        "step_ms_median": rt["step_ms_median"],
+        "images_per_s_xla": rt["turns_xla"]["images_per_s"],
+        "max_memory_allocated_bytes": rt["max_memory_allocated_bytes"],
+        "card": smi}))
+    out["resnet_train_reference"] = phase(
+        "resnet_train_reference", resnet_train_reference, device)
+
+    total_s = time.perf_counter() - t_start
+    out.update(total_s=total_s, phase_s=phase_s)
+    log(f"chip_smoke: all phases passed in {total_s:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in phase_s.items()})})")
+    kernels = out["kernels"] = kernels_line(out)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_line(out):
+    """Every kernel's entry of the kernels line, from a run of every
+    phase: each kernel's numbers at its main path's shape and its
+    launches on that path (the serve, train, resnet and resnet train
+    phases)."""
+    paged_cases, flash_cases = out["paged_cases"], out["flash_cases"]
     main_case = next(c for c in paged_cases
                      if c["shape"] == "engine" and c["dtype"] == "bfloat16")
-    flash_main = flash_cases[0]
     csrc = "deeplearning4j_tpu_torch/nn/layers/csrc/flash_attention.cu"
     pallas = "deeplearning4j_tpu/nn/layers/pallas_attention.py"
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/serving/csrc/paged_attention.cu",
         "replaces": "deeplearning4j_tpu/serving/paged_kernel.py:71",
-        "launches": launches, "max_abs_err": main_case["max_abs_err"],
+        "launches": out["serve_launches"],
+        "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "kernel_ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
@@ -1576,33 +2252,20 @@ def main(argv=None) -> int:
     for name, line in (("flash_fwd", 121), ("flash_bwd_dq", 172),
                        ("flash_bwd_dkv", 213)):
         kernels.append(kernel_entry(name, csrc, f"{pallas}:{line}",
-                                    train_rec["launches"][name], flash_main,
-                                    flash_cases))
+                                    out["train"]["launches"][name],
+                                    flash_cases[0], flash_cases))
     for name, line in (("conv1x1", "bottleneck.py:168"),
                        ("conv3x3", "bottleneck.py:208"),
                        ("stem_conv", "stem.py:169"),
                        ("stem_pool", "stem.py:199")):
         kernels.append(cnn_entry(
             name, f"deeplearning4j_tpu/nn/layers/{line}",
-            resnet_rec["launches"][name], cnn_cases))
-    total_s = time.perf_counter() - t_start
-    log(f"chip_smoke: all phases passed in {total_s:.1f} s")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump({"card": smi, "build_s": build_s, "total_s": total_s,
-                       "kernels": kernels, "flash_cases": flash_cases,
-                       "serve": rec, "profile": prof,
-                       "reference": ref, "train": train_rec,
-                       "train_profile": train_prof,
-                       "train_reference": train_ref,
-                       "cnn_cases": cnn_cases, "resnet": resnet_rec,
-                       "resnet_reference": resnet_ref}, f, indent=1)
-    log(json.dumps({"kernels": kernels}))
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+            out["resnet"]["launches"][name], out["cnn_cases"]))
+    for name, line in (("bwd1x1", 301), ("bwd3x3", 403)):
+        kernels.append(bwd_entry(
+            name, f"deeplearning4j_tpu/nn/layers/bottleneck.py:{line}",
+            out["resnet_train"]["launches"][name], out["cnn_bwd_cases"]))
+    return kernels
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ class GraphVertexConf:
     def init(self, gen: torch.Generator, its: List[InputType], device):
         return {}, {}
 
-    def apply(self, params, xs: List, state):
+    def apply(self, params, xs: List, state, *, train=False):
+        """Return (y, new_state); ``train`` reaches the layers."""
         raise NotImplementedError
 
 
@@ -58,11 +59,11 @@ class LayerVertex(GraphVertexConf):
     def supports_streaming(self):
         return getattr(self.layer, "supports_streaming", False)
 
-    def apply(self, params, xs, state, **extra):
+    def apply(self, params, xs, state, *, train=False, **extra):
         x = xs[0]
         if self.preprocessor is not None:
             x = self.preprocessor.apply(x)
-        return self.layer.apply(params, x, state, **extra)
+        return self.layer.apply(params, x, state, train=train, **extra)
 
 
 @dataclass
@@ -78,7 +79,7 @@ class ElementWiseVertex(GraphVertexConf):
                 f"ElementWiseVertex op {self.op!r} is not ported yet "
                 f"(ROADMAP.md A11); ported: add")
 
-    def apply(self, params, xs, state):
+    def apply(self, params, xs, state, *, train=False):
         y = xs[0]
         for x in xs[1:]:
             y = y + x

@@ -22,9 +22,11 @@ fused execution plan replaces whole chains of them with the bottleneck
 and stem kernels (``nn/graph.py``).
 
 The CNN layers take ``data_format`` ``"NCHW"`` (the public layout) or
-``"NHWC"`` (the internal layout ``use_cnn_data_format`` selects). BN
-runs in inference mode: training a graph that holds one is ROADMAP.md's
-"ResNet50 training", and ``fit`` refuses it.
+``"NHWC"`` (the internal layout ``use_cnn_data_format`` selects). Every
+``apply`` takes ``train``: BN normalizes with the batch statistics in
+training and returns its decayed running statistics as the new state;
+the other layers ignore it, as their JAX twins do (the port has no
+dropout).
 
 Streaming state (``rnn_time_step``): the attention layer carries a
 dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
@@ -103,8 +105,10 @@ class LayerConf:
         """Return (params, state) dicts for this layer."""
         return {}, {}
 
-    def apply(self, params, x, state):
-        """Return (y, new_state)."""
+    def apply(self, params, x, state, *, train=False):
+        """Return (y, new_state). ``train`` selects the training form
+        (batch statistics in BatchNormalization; the other ported layers
+        ignore it, as their JAX twins do)."""
         raise NotImplementedError
 
     # regularization coefficients collected by the network loss
@@ -185,7 +189,7 @@ class DenseLayer(FeedForwardLayerConf):
         y = x @ params["W"]
         return y + params["b"] if self.has_bias else y
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         return _act.get(self.activation)(self.preout(params, x)), state
 
 
@@ -195,7 +199,7 @@ class ActivationLayer(LayerConf):
 
     activation: str = "relu"
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         return _act.get(self.activation)(x), state
 
 
@@ -235,7 +239,7 @@ class ConvolutionLayer(FeedForwardLayerConf):
                          self.weight_init, device)
         return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         y = _conv.conv2d(x, params["W"], params.get("b"),
                          _pair(self.stride), _pair(self.padding),
                          _pair(self.dilation), self.convolution_mode,
@@ -264,7 +268,7 @@ class SubsamplingLayer(LayerConf):
                                  self.convolution_mode)
         return InputType.convolutional(oh, ow, it.channels)
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         k, s, p = _pair(self.kernel), _pair(self.stride), _pair(self.padding)
         pt = self.pooling_type.lower()
         args = (x, k, s, p, self.convolution_mode, self.data_format)
@@ -299,7 +303,7 @@ class ZeroPaddingLayer(LayerConf):
         return InputType.convolutional(it.height + t + b, it.width + l + r,
                                        it.channels)
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         return _conv.zero_pad2d(x, self._pads(), self.data_format), state
 
 
@@ -321,7 +325,7 @@ class GlobalPoolingLayer(LayerConf):
             return InputType.feed_forward(it.channels)
         return it
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         if x.dim() == 4:
             axes = (2, 3) if self.data_format == "NCHW" else (1, 2)
         else:
@@ -343,9 +347,11 @@ class GlobalPoolingLayer(LayerConf):
 class BatchNormalization(FeedForwardLayerConf):
     """Batch norm with the running statistics as state (``mean``,
     ``var``, f32): eps 1e-5, decay 0.9, gamma 1, beta 0 as in the JAX
-    package. ``apply`` is the inference form (running statistics; the
-    state stays as it is); its parameters and state are cast to x's
-    dtype first, as the JAX layer does."""
+    package. Its parameters and state are cast to x's dtype first, as the
+    JAX layer does. Inference normalizes with the running statistics and
+    returns the state as it is; training (``train=True``) normalizes with
+    the batch statistics and returns the decayed running statistics in
+    f32, detached (no step's autograd graph stays alive in the state)."""
 
     eps: float = 1e-5
     decay: float = 0.9
@@ -367,7 +373,7 @@ class BatchNormalization(FeedForwardLayerConf):
         return params, {"mean": torch.zeros(nf, device=device),
                         "var": torch.ones(nf, device=device)}
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         nf = state["mean"].shape[0]
         gamma = params.get("gamma")
         beta = params.get("beta")
@@ -375,10 +381,13 @@ class BatchNormalization(FeedForwardLayerConf):
             gamma = torch.full((nf,), self.gamma, device=x.device)
             beta = torch.full((nf,), self.beta, device=x.device)
         ch_axis = 3 if (self.data_format == "NHWC" and x.dim() == 4) else 1
-        y, _, _ = _norm.batch_norm(
+        y, new_mean, new_var = _norm.batch_norm(
             x, gamma.to(x.dtype), beta.to(x.dtype),
-            state["mean"].to(x.dtype), state["var"].to(x.dtype), False,
+            state["mean"].to(x.dtype), state["var"].to(x.dtype), train,
             self.eps, self.decay, channel_axis=ch_axis)
+        if train:
+            state = {"mean": new_mean.detach().float(),
+                     "var": new_var.detach().float()}
         return _act.get(self.activation)(y), state
 
 
@@ -408,7 +417,7 @@ class Convolution1DLayer(FeedForwardLayerConf):
                          self.n_out, self.weight_init, device)
         return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         # one [N*T, C] x [C, O] product
         y = x.transpose(1, 2) @ params["W"][:, :, 0].t() + params["b"]
         return _act.get(self.activation)(y.transpose(1, 2)), state
@@ -427,7 +436,7 @@ class LayerNormalization(FeedForwardLayerConf):
         return {"gamma": torch.ones(nf, device=device),
                 "beta": torch.zeros(nf, device=device)}, {}
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         xf = x.float() if x.dtype != torch.float64 else x
         mean = xf.mean(dim=1, keepdim=True)
         var = ((xf * xf).mean(dim=1, keepdim=True)
@@ -467,7 +476,7 @@ class PositionalEmbeddingLayer(FeedForwardLayerConf):
         p = 0.02 * torch.randn((it.size, self.max_length), generator=gen)
         return {"P": p.to(device)}, {}
 
-    def apply(self, params, x, state, stream=False):
+    def apply(self, params, x, state, stream=False, *, train=False):
         t = x.shape[2]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} exceeds max_length "
@@ -543,7 +552,7 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             p["b" + name] = torch.zeros(n_out, device=device)
         return p, {}
 
-    def apply(self, params, x, state, stream=False):
+    def apply(self, params, x, state, stream=False, *, train=False):
         n, _, t = x.shape
         h = self.n_heads
         hkv = self.n_kv_heads or h
@@ -727,7 +736,7 @@ class OutputLayer(FeedForwardLayerConf):
         y = x @ params["W"]
         return y + params["b"] if self.has_bias else y
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         return _act.get(self.activation)(self.preout(params, x)), state
 
     def compute_score(self, labels, preout, mask=None):
@@ -759,7 +768,7 @@ class RnnOutputLayer(FeedForwardLayerConf):
         y = x.transpose(1, 2) @ params["W"] + params["b"]   # [N,T,O]
         return y.transpose(1, 2)
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False):
         return _act.get(self.activation)(self.preout(params, x)), state
 
     def compute_score(self, labels, preout, mask=None):

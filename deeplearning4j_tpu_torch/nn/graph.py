@@ -7,10 +7,11 @@ drive, training (``fit`` over a DataSet, ``(features, labels)`` or an
 iterator, one optimizer step per batch, and ``score``), and the fused
 execution plan of the CNN stack. PyTorch runs eagerly, so there is no
 jit cache: each call runs the vertex loop directly, and a train step is
-one autograd pass over it. Fused multi-step dispatch, prefetch,
-listeners and the non-finite sentinel (ROADMAP.md A4, A5) and masks
-(A6) are refused, and so is training a graph that holds a convolution or
-batch-norm layer (ROADMAP.md, ResNet50 training).
+one autograd pass over it, with batch statistics in every BN (``fit``
+trains ResNet50 on either execution plan). Fused multi-step dispatch,
+prefetch, listeners and the non-finite sentinel (ROADMAP.md A4, A5) and
+masks (A6) are refused, and so is training with the stem kernels engaged
+(ROADMAP.md, ResNet50 training with the stem).
 
 Execution plans (``set_fusion``, resolved by ``tuning/plan.py``): at
 level ``"bottleneck"`` each ResNet bottleneck chain (conv1x1 -> BN ->
@@ -22,7 +23,10 @@ or downsample form, NHWC) runs through the bottleneck kernels
 gates are the port's own (they refuse what the kernels do not take, not
 the TPU's VMEM budget). Parameters and state stay keyed by the original
 vertex names, so a plan changes how a chain runs, not what it computes.
-Level ``True`` (the bn -> act -> conv1x1 plan) is ROADMAP.md B3.
+In training a fused block differentiates through the bottleneck's
+backward kernels and writes each BN's decayed running statistics under
+its vertex name. Level ``True`` (the bn -> act -> conv1x1 plan) is
+ROADMAP.md B3.
 
 Parameters live in ``net.params`` as ``{vertex: {name: tensor}}`` (f32
 master weights) on ``net.device``; ``net.state`` carries the BN running
@@ -527,9 +531,11 @@ class ComputationGraph:
         return c[1:]
 
     def _apply_fused_bottleneck(self, out_name, group, params, state,
-                                acts):
+                                new_state, acts, *, train):
         """Run one bottleneck group through the kernels: reads the block
-        input, writes the final relu output into ``acts[out_name]``."""
+        input, writes the final relu output into ``acts[out_name]`` and,
+        in training, each BN's new running statistics (detached) into
+        ``new_state`` under its vertex name."""
         from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
             fused_bottleneck)
         x = acts[group["src"]].contiguous()
@@ -541,17 +547,25 @@ class ComputationGraph:
             ps = self._bn_params(group["bn_skip"], params, state,
                                  x.dtype)[1]
             ws = self._kernel_weight(params, group["conv_skip"], "1x1")
-        acts[out_name], _ = fused_bottleneck(
+        acts[out_name], stats = fused_bottleneck(
             x, self._kernel_weight(params, group["conv_a"], "1x1"), pa,
             self._kernel_weight(params, group["conv_b"], "3x3"), pb,
             self._kernel_weight(params, group["conv_c"], "1x1"), pc,
-            w_skip=ws, bn_skip=ps, stride=group["stride"], train=False,
-            eps=bn_a.eps)
+            w_skip=ws, bn_skip=ps, stride=group["stride"], train=train,
+            eps=bn_a.eps, decay=bn_a.decay)
+        if train:
+            bns = [group[k] for k in ("bn_a", "bn_b", "bn_c", "bn_skip")
+                   if k in group]
+            for i, bn_name in enumerate(bns):
+                new_state[bn_name] = {"mean": stats[2 * i].detach(),
+                                      "var": stats[2 * i + 1].detach()}
 
-    def _apply_fused_stem(self, out_name, group, params, state, acts):
+    def _apply_fused_stem(self, out_name, group, params, state, acts, *,
+                          train):
         """Run the stem group through the kernels: reads the network
         input (through the absorbed pad vertex's preprocessor, the entry
-        transpose), writes the pooled output into ``acts[out_name]``."""
+        transpose), writes the pooled output into ``acts[out_name]``.
+        Training through it is refused by ``fused_stem``."""
         from deeplearning4j_tpu_torch.nn.layers.stem import fused_stem
         x = acts[group["src"]]
         if group["pre_vertex"]:
@@ -559,19 +573,24 @@ class ComputationGraph:
         bn, p = self._bn_params(group["bn"], params, state, x.dtype)
         acts[out_name], _ = fused_stem(
             x.contiguous(), self._kernel_weight(params, group["conv"], "s2d"),
-            p, train=False, eps=bn.eps)
+            p, train=train, eps=bn.eps)
 
     def _kernel_weight(self, params, name, layout):
         """Conv vertex ``name``'s OIHW weight in a kernel's layout: "1x1"
         ``[I, O]``; "3x3" tap-major ``[9, I, O]``, tap ``t = kh * 3 + kw``
         (the kernel's order of shifted windows, cross-correlation like
-        F.conv2d); "s2d" the stem's space-to-depth ``[64 I, O]``. Made
-        once per weight tensor and kept until that tensor is replaced (a
-        new ``net.params``, or its compute-dtype copy), not per forward."""
+        F.conv2d); "s2d" the stem's space-to-depth ``[64 I, O]``. Outside
+        autograd it is made once per weight tensor and kept until that
+        tensor is replaced (a new ``net.params``, or its compute-dtype
+        copy), not per forward. In training it is made inside the autograd
+        graph on every step and not kept: each step's weight is a new
+        tensor, dW flows back through the layout to the OIHW weight, and
+        a kept copy would hold the last step's graph alive."""
         from deeplearning4j_tpu_torch.nn.layers.stem import stem_weight_s2d
         w4 = params[name]["W"]
+        grad = torch.is_grad_enabled() and w4.requires_grad
         hit = self._layouts.get(name)
-        if hit is not None and hit[0] is w4:
+        if not grad and hit is not None and hit[0] is w4:
             return hit[1]
         o, i = w4.shape[0], w4.shape[1]
         if layout == "1x1":
@@ -580,7 +599,8 @@ class ComputationGraph:
             w = w4.permute(2, 3, 1, 0).reshape(9, i, o).contiguous()
         else:
             w = stem_weight_s2d(w4)
-        self._layouts[name] = (w4, w)
+        if not grad:
+            self._layouts[name] = (w4, w)
         return w
 
     def _bn_params(self, bn_name, params, state, dtype):
@@ -635,13 +655,15 @@ class ComputationGraph:
         return params, inputs
 
     def _forward(self, params, state, inputs: Dict[str, Any], *,
-                 stream: bool = False, preout_of=()):
+                 train: bool = False, stream: bool = False, preout_of=()):
         """Topological-order forward; returns (activations, new state).
-        ``stream`` selects the streaming (KV-cache) path of the
-        streaming vertices; other calls see no streaming state. The
-        output layers named in ``preout_of`` yield their pre-activation
-        output (the loss takes every output's preout in this one
-        pass). The chains of the selected execution plan run fused."""
+        ``train`` selects every vertex's training form (BN batch
+        statistics, their running averages in the new state). ``stream``
+        selects the streaming (KV-cache) path of the streaming vertices;
+        other calls see no streaming state. The output layers named in
+        ``preout_of`` yield their pre-activation output (the loss takes
+        every output's preout in this one pass). The chains of the
+        selected execution plan run fused."""
         skip, bplan, splan = self._fusion()
         acts: Dict[str, Any] = dict(inputs)
         new_state: Dict[str, Any] = {}
@@ -651,10 +673,11 @@ class ComputationGraph:
                 continue
             if name in bplan:
                 self._apply_fused_bottleneck(name, bplan[name], params,
-                                             state, acts)
+                                             state, new_state, acts,
+                                             train=train)
             elif name in splan:
                 self._apply_fused_stem(name, splan[name], params, state,
-                                       acts)
+                                       acts, train=train)
             if name in bplan or name in splan:
                 new_state[name] = state.get(name, {})
                 continue
@@ -671,15 +694,16 @@ class ComputationGraph:
             extra = ({"stream": stream}
                      if getattr(v, "supports_streaming", False) else {})
             acts[name], new_state[name] = v.apply(params[name], xs, v_state,
-                                                  **extra)
+                                                  train=train, **extra)
         return acts, new_state
 
     # ------------------------------------------------------------------
-    def _loss(self, params, inputs, labels):
+    def _loss(self, params, inputs, labels, *, train: bool = True):
         """Sum of the output layers' losses plus the L1/L2 terms, as a
         function of the f32 ``params`` (the compute cast happens here,
-        so autograd carries the gradient back through it); returns
-        (loss, new state)."""
+        so autograd carries the gradient back through it), with the
+        forward in its training form unless ``train=False`` (``score``);
+        returns (loss, new state)."""
         outs = self.conf.network_outputs
         for name in outs:
             if not hasattr(getattr(self.conf.vertices[name], "layer", None),
@@ -688,7 +712,7 @@ class ComputationGraph:
                                  "layer")
         cparams, cinputs = self._cast_compute(params, inputs)
         acts, new_state = self._forward(cparams, self.state, cinputs,
-                                        preout_of=set(outs))
+                                        train=train, preout_of=set(outs))
         total = 0.0
         for name in outs:
             total = total + self.conf.vertices[name].layer.compute_score(
@@ -758,24 +782,13 @@ class ComputationGraph:
         """Train: one optimizer step per batch. ``data`` is a DataSet, an
         iterator of DataSets, or features with ``labels`` (arrays, or
         dicts keyed by input / output name), batched by
-        ``batch_size``."""
+        ``batch_size``. ``execution_plan`` ("fused" | "xla") is resolved
+        once per call (``tuning/plan.py``); None keeps the net's plan. A
+        fused bottleneck block trains through the backward kernels."""
         if steps_per_dispatch != 1:
             raise NotImplementedError("fused multi-step dispatch "
                                       "(steps_per_dispatch > 1) is not "
                                       "ported yet (ROADMAP.md A4)")
-        if execution_plan is not None:
-            raise NotImplementedError(
-                "execution plans in fit are not ported yet (ROADMAP.md "
-                "A4; the fused plan's backward: ROADMAP.md, ResNet50 "
-                "training)")
-        for v in self.conf.vertices.values():
-            if isinstance(getattr(v, "layer", None),
-                          (ConvolutionLayer, BatchNormalization)):
-                raise NotImplementedError(
-                    "training a graph with convolution or batch-norm "
-                    "layers (batch statistics, the fused plan's backward "
-                    "kernels) is not ported yet (ROADMAP.md, ResNet50 "
-                    "training)")
         if prefetch or pad_tail:
             raise NotImplementedError("device prefetch and tail padding "
                                       "are not ported yet (ROADMAP.md A5)")
@@ -784,6 +797,16 @@ class ComputationGraph:
                                       "ported yet (ROADMAP.md A5)")
         if not self._initialized:
             self.init()
+        if execution_plan is not None:
+            from deeplearning4j_tpu_torch.tuning.plan import (
+                apply_execution_plan)
+            apply_execution_plan(self, execution_plan)
+        if self._fusion()[2]:
+            raise NotImplementedError(
+                "training with the stem kernels engaged (fused_stem's "
+                "backward kernels) is not ported yet (ROADMAP.md, ResNet50 "
+                "training with the stem); set_fusion('bottleneck') trains "
+                "the blocks fused and the stem unfused")
         if labels is not None:
             it = ArrayDataSetIterator(data, labels, batch_size)
         elif isinstance(data, DataSet):
@@ -810,23 +833,22 @@ class ComputationGraph:
         included)."""
         inputs, labels = self._batch(ds)
         with torch.no_grad():
-            loss, _ = self._loss(self.params, inputs, labels)
+            loss, _ = self._loss(self.params, inputs, labels, train=False)
         return float(loss)
 
     # ------------------------------------------------------------------
     def output(self, *inputs, train: bool = False):
-        """Output activations (f32 heads) of the inference forward, under
-        the selected execution plan: one tensor for a single-output
-        graph, else a list. CNN inputs are NCHW."""
-        if train:
-            raise NotImplementedError(
-                "output(train=True) (batch statistics) is not ported yet "
-                "(ROADMAP.md, ResNet50 training)")
+        """Output activations (f32 heads) of the forward under the
+        selected execution plan: one tensor for a single-output graph,
+        else a list. CNN inputs are NCHW. ``train=True`` runs the
+        training forward (BN batch statistics) and drops its new state,
+        as the JAX package does."""
         if not self._initialized:
             self.init()
         with torch.no_grad():
             acts, _ = self._forward(self._compute_params(), self.state,
-                                    self._as_input_dict(inputs))
+                                    self._as_input_dict(inputs),
+                                    train=train)
             outs = [f32_head(acts[o]) for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 

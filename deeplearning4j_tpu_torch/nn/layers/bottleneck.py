@@ -1,4 +1,4 @@
-"""The fused ResNet bottleneck, forward (inference): the CUDA kernels'
+"""The fused ResNet bottleneck, forward and backward: the CUDA kernels'
 wrappers, their plain PyTorch versions, and the block built from them.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/bottleneck.py``: the
@@ -9,20 +9,29 @@ its output's per-channel sum and sum of squares as its EPILOGUE. NHWC
 throughout; identity blocks (stride 1, identity skip) and downsample
 entry blocks (stride on conv_a and on a conv shortcut with its own BN).
 
-The two kernels are hand-written CUDA C++ for Hopper, ``csrc/
+The forward kernels are hand-written CUDA C++ for Hopper, ``csrc/
 bottleneck.cu`` over the implicit GEMM of ``csrc/conv_gemm.cuh``; they
-replace the TPU kernels ``_fwd1x1_kernel`` and ``_fwd3x3_kernel`` (the
-source note there says what bounds them and what their design does
-about that). Each wrapper dispatches on where its tensors lie: CUDA
-tensors launch the kernel (or raise on what it does not take), CPU
-tensors take the plain version beside it, written as the JAX kernel
-body (f32 products of dtype-rounded operands, the same rounding points).
-There is no fallback from the kernel to the plain version.
+replace the TPU kernels ``_fwd1x1_kernel`` and ``_fwd3x3_kernel``. The
+backward kernels, ``csrc/bottleneck_bwd.cu`` over the same tiles,
+replace ``_bwd1x1_kernel`` and ``_bwd3x3_kernel``: one entry point per
+stage computes the stage's dW, the previous stage's dz0 and that
+stage's BN-backward sums (the source notes say what bounds each kernel
+and what its design does about that). The JAX package's channel-split
+variant of the backward (grid ``(split, n)``) exists only for the TPU's
+VMEM budget and is not ported: the CUDA kernels tile any shape. Each
+wrapper dispatches on where its tensors lie: CUDA tensors launch the
+kernel (or raise on what it does not take), CPU tensors take the plain
+version beside it, written as the JAX kernel body (f32 products of
+dtype-rounded operands, the same rounding points). There is no fallback
+from the kernel to the plain version.
 
-Inference only in this slice: ``fused_bottleneck(train=True)`` and the
-four backward kernels (``_bwd1x1_kernel``, ``_bwd3x3_kernel`` and their
-channel-split variant) are ROADMAP.md's "ResNet50 training". Inference
-ignores the sums, but the kernels compute them: training needs them.
+Training (``fused_bottleneck(train=True)``) takes the batch statistics
+from the forward kernels' sums and differentiates the block with
+:class:`BottleneckTrain`, the ``torch.autograd.Function`` counterpart of
+the JAX ``custom_vjp`` (``_bottleneck_core`` / ``_bottleneck_ds_core``):
+its backward recomputes the f32 tail from the saved raw conv outputs and
+runs stages c, b, a (and the conv shortcut) through the backward
+kernels.
 
 The gate is the port's own. The JAX package's
 ``fused_bottleneck_supported`` encodes the TPU's VMEM budget (whole
@@ -40,14 +49,19 @@ from typing import NamedTuple, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
+from deeplearning4j_tpu_torch.nn.layers.normalization import decayed
 
-__all__ = ["BnParams", "CONV1X1", "CONV3X3", "conv1x1", "conv1x1_plain",
-           "conv3x3", "conv3x3_plain", "fused_bottleneck",
-           "fused_bottleneck_supported", "reference_bottleneck"]
+__all__ = ["BWD1X1", "BWD3X3", "BnParams", "BottleneckTrain", "CONV1X1",
+           "CONV3X3", "conv1x1", "conv1x1_bwd", "conv1x1_bwd_plain",
+           "conv1x1_plain", "conv3x3", "conv3x3_bwd", "conv3x3_bwd_plain",
+           "conv3x3_plain", "fused_bottleneck", "fused_bottleneck_supported",
+           "reference_bottleneck"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV1X1_ARGS = [_P] * 9 + [_I] * 8 + [_P]
 _CONV3X3_ARGS = [_P] * 9 + [_I] * 7 + [_P]
+_BWD1X1_ARGS = [_P] * 13 + [_I] * 10 + [_P]
+_BWD3X3_ARGS = [_P] * 13 + [_I] * 9 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -63,9 +77,22 @@ _LIBRARY = CudaLibrary(
      "dl4j_conv_row_tile": []},
     headers=["nn/layers/csrc/conv_gemm.cuh"])
 
-#: the two kernels; each ``.launches`` counts its launches
+_BWD_LIBRARY = CudaLibrary(
+    "bottleneck_bwd", ["nn/layers/csrc/bottleneck_bwd.cu"],
+    {**{s: _BWD1X1_ARGS for s in _symbols("bwd1x1").values()},
+     **{s: _BWD3X3_ARGS for s in _symbols("bwd3x3").values()},
+     "dl4j_bwd_row_tile": []},
+    headers=["nn/layers/csrc/conv_gemm.cuh"])
+
+#: the four kernels; each ``.launches`` counts its launches (a backward
+#: stage's entry point, which launches its dz and dW passes, counts once)
 CONV1X1 = CudaKernel(_LIBRARY, "conv1x1", _symbols("conv1x1"))
 CONV3X3 = CudaKernel(_LIBRARY, "conv3x3", _symbols("conv3x3"))
+BWD1X1 = CudaKernel(_BWD_LIBRARY, "bwd1x1", _symbols("bwd1x1"))
+BWD3X3 = CudaKernel(_BWD_LIBRARY, "bwd3x3", _symbols("bwd3x3"))
+
+#: the backward kernels' reduction step: a dW split covers whole steps
+_BWD_STEP = 16
 
 
 class BnParams(NamedTuple):
@@ -246,6 +273,216 @@ def conv3x3_plain(x, sc, bb, w, *, act: str = "identity"):
 
 
 # ---------------------------------------------------------------------
+# the backward stages: wrappers and plain versions
+# ---------------------------------------------------------------------
+# Stage k's conv read z_{k-1} = act(y_{k-1} * sc_p + bb_p) and wrote y_k.
+# Given g = dz0_k (already relu-masked) and aff_k's rows (sc, bb, inv, mu,
+# m1, m2) of stage k's BN backward,
+#     dy = sc * (g - m1 - yhat * m2),   yhat = (y_k - mu) * inv
+# and a stage returns dW_k = z_{k-1}^T dy, dz0_{k-1} = (dy W^T) * relu'(
+# z0_{k-1}) at full resolution and the sums (Σdz0_{k-1}, Σdz0_{k-1} *
+# yhat_{k-1}) stage k-1's BN backward needs. (The JAX ``_bwd_stage`` also
+# takes ``gmode="dy"``, g as dy itself; no caller in either package uses
+# it, so it is not ported.)
+
+def _check_bwd(name, yk, g, yprev, w, aff_k, aff_p):
+    """Raise on what a backward kernel does not take."""
+    if yprev.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
+                         f"{yprev.device}")
+    if yprev.dtype not in _DTYPES or any(
+            t.dtype != yprev.dtype for t in (yk, g, w)):
+        raise ValueError(f"{name} kernel takes yk, g, yprev and w of one "
+                         f"dtype, f32 or bf16, got {yk.dtype}, {g.dtype}, "
+                         f"{yprev.dtype}, {w.dtype}")
+    for key, t in (("yk", yk), ("g", g), ("yprev", yprev), ("w", w),
+                   ("aff_k", aff_k), ("aff_p", aff_p)):
+        if t.device != yprev.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not "
+                             f"{yprev.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    for key, t in (("aff_k", aff_k), ("aff_p", aff_p)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be f32, got {t.dtype}")
+
+
+def _bwd_shapes(name, yk, g, yprev, w, aff_k, aff_p, taps, stride):
+    """Raise on a stage's shapes that do not fit together."""
+    n, h, wd, c = _nhwc(yprev, name)
+    if stride not in (1, 2) or h % stride or wd % stride:
+        raise ValueError(f"{name}: stride {stride} must be 1 or 2 and "
+                         f"divide H={h}, W={wd}")
+    k = yk.shape[-1] if yk.dim() == 4 else -1
+    want = (n, h // stride, wd // stride, k)
+    if tuple(yk.shape) != want or tuple(g.shape) != want:
+        raise ValueError(f"{name}: yk {tuple(yk.shape)} and g "
+                         f"{tuple(g.shape)} must be {want}")
+    wshape = (c, k) if taps == 1 else (9, c, k)
+    if tuple(w.shape) != wshape:
+        raise ValueError(f"{name}: w {tuple(w.shape)} is not {wshape}")
+    if tuple(aff_k.shape) != (6, k) or tuple(aff_p.shape) != (4, c):
+        raise ValueError(f"{name}: aff_k {tuple(aff_k.shape)} and aff_p "
+                         f"{tuple(aff_p.shape)} must be (6, {k}), (4, {c})")
+
+
+def _dw_splits(rows, tiles, device):
+    """(chunk, splits) of a dW pass over ``rows`` reduction rows with
+    ``tiles`` output tiles: about four blocks per SM in all, each split
+    at least 32 reduction steps, a whole number of steps."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(-(-4 * sms // tiles), -(-rows // (32 * _BWD_STEP))))
+    chunk = -(-rows // want)
+    chunk = -(-chunk // _BWD_STEP) * _BWD_STEP
+    return chunk, -(-rows // chunk)
+
+
+def _stage_bwd(kernel, yk, g, yprev, w, aff_k, aff_p, relu, stride, taps):
+    """Allocate a stage's outputs and scratch, launch its entry point."""
+    n, h, wd, c = yprev.shape
+    k = yk.shape[3]
+    rows = n * (h // stride) * (wd // stride)
+    dev = yprev.device
+    f32 = torch.float32
+    dz = torch.empty_like(yprev)
+    dw = torch.empty((c, k) if taps == 1 else (9, c, k), dtype=f32,
+                     device=dev)
+    sums = torch.zeros((2, c), dtype=f32, device=dev)
+    if not (rows and c and k):
+        return dz.zero_(), dw.zero_(), sums
+    tiles = -(-rows // _BWD_LIBRARY.load().dl4j_bwd_row_tile())
+    part = torch.empty((2, c, tiles), dtype=f32, device=dev)
+    tiles_rk = -(-(taps * c) // 128) * -(-k // 64)
+    chunk, splits = _dw_splits(rows, tiles_rk, dev)
+    dw_part = torch.empty((splits, taps * c, k), dtype=f32, device=dev)
+    args = [yk.data_ptr(), g.data_ptr(), yprev.data_ptr(), w.data_ptr(),
+            aff_k.data_ptr(), aff_p.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+            dw_part.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            sums[0].data_ptr(), sums[1].data_ptr(), n, h, wd, c, k]
+    if taps == 1:
+        args.append(stride)
+    kernel.launch(yprev.dtype, *args, int(relu), tiles, chunk, splits,
+                  _stream(yprev))
+    return dz, dw, sums
+
+
+def conv1x1_bwd(yk, g, yprev, w, aff_k, aff_p, *, act_prev: str,
+                stride: int = 1):
+    """One 1x1 stage's backward: ``(dz0_prev [N, H, W, C] in yprev's
+    dtype, dW [C, K] f32, sums [2, C] f32)``. yk, g ``[N, H/s, W/s, K]``;
+    yprev ``[N, H, W, C]``; w ``[C, K]``; aff_k ``[6, K]`` and aff_p
+    ``[4, C]`` (rows sc, bb, inv, mu) f32. ``act_prev="identity"``: z_{k-1}
+    is yprev itself (no affine, no mask) and the sums stay zero. dz0 is 0
+    where a stride-2 conv never read. The kernel on CUDA tensors,
+    :func:`conv1x1_bwd_plain` on CPU tensors."""
+    relu = _relu(act_prev)
+    _bwd_shapes("conv1x1_bwd", yk, g, yprev, w, aff_k, aff_p, 1, stride)
+    if yprev.device.type == "cpu":
+        return conv1x1_bwd_plain(yk, g, yprev, w, aff_k, aff_p,
+                                 act_prev=act_prev, stride=stride)
+    _check_bwd("conv1x1_bwd", yk, g, yprev, w, aff_k, aff_p)
+    return _stage_bwd(BWD1X1, yk, g, yprev, w, aff_k, aff_p, relu, stride,
+                      1)
+
+
+def conv3x3_bwd(yk, g, yprev, w, aff_k, aff_p, *, act_prev: str = "relu"):
+    """The 3x3 same-pad stage's backward, as :func:`conv1x1_bwd` with w
+    and dW ``[9, C, K]`` (tap ``t = kh * 3 + kw``): dW per tap over the
+    zero-padded z_{k-1}, dz0 by the transposed taps over the zero-padded
+    dy. The 3x3 always has a real BN prologue: ``act_prev`` is "relu".
+    The kernel on CUDA tensors, :func:`conv3x3_bwd_plain` on CPU
+    tensors."""
+    if act_prev != "relu":
+        raise ValueError(f"conv3x3_bwd: the 3x3 stage's prologue is relu, "
+                         f"got {act_prev!r}")
+    _bwd_shapes("conv3x3_bwd", yk, g, yprev, w, aff_k, aff_p, 9, 1)
+    if yprev.device.type == "cpu":
+        return conv3x3_bwd_plain(yk, g, yprev, w, aff_k, aff_p,
+                                 act_prev=act_prev)
+    _check_bwd("conv3x3_bwd", yk, g, yprev, w, aff_k, aff_p)
+    return _stage_bwd(BWD3X3, yk, g, yprev, w, aff_k, aff_p, True, 1, 9)
+
+
+def _dy(yk, g, aff_k):
+    """dy in f32, op by op as the TPU kernel."""
+    sc, _, inv, mu, m1, m2 = aff_k
+    yhat = (yk.float() - mu) * inv
+    return sc * (g.float() - m1 - yhat * m2)
+
+
+def _z_prev(yprev, aff_p, relu):
+    """(z0, z) of the previous stage in f32: ``z0 = yprev * sc + bb`` and
+    its relu, or yprev itself under the identity prologue."""
+    yp = yprev.float()
+    if not relu:
+        return yp, yp
+    z0 = yp * aff_p[0] + aff_p[1]
+    return z0, torch.clamp_min(z0, 0.0)
+
+
+def _dz_out(dzs, yprev, aff_p, z0, relu, stride):
+    """Mask, store and sum a stage's f32 dz at the read positions: dz0
+    at full resolution (0 where a strided conv never read) in yprev's
+    dtype, and the sums over the f32 values before their rounding."""
+    n, h, wd, c = yprev.shape
+    if relu:
+        dzs = torch.where(z0 > 0, dzs, 0.0)
+    dz = torch.zeros_like(yprev)
+    dz[:, ::stride, ::stride, :] = dzs.to(yprev.dtype)
+    sums = torch.zeros((2, c), dtype=torch.float32, device=yprev.device)
+    if relu:
+        yhat = (yprev[:, ::stride, ::stride, :].float() - aff_p[3]) \
+            * aff_p[2]
+        sums = torch.stack([dzs.reshape(-1, c).sum(0),
+                            (dzs * yhat).reshape(-1, c).sum(0)])
+    return dz, sums
+
+
+def conv1x1_bwd_plain(yk, g, yprev, w, aff_k, aff_p, *, act_prev: str,
+                      stride: int = 1):
+    """The plain PyTorch version of :func:`conv1x1_bwd`, written as the
+    JAX ``_bwd1x1_kernel``: dW from z_{k-1} and dy each rounded to yk's
+    dtype, dz from dy rounded to w's dtype, both products in f32; the
+    relu' mask on the unrounded z0; the sums over the f32 dz."""
+    relu = _relu(act_prev)
+    c, k = yprev.shape[3], yk.shape[3]
+    dy = _dy(yk, g, aff_k)
+    z0, z = _z_prev(yprev[:, ::stride, ::stride, :], aff_p, relu)
+    dw = z.to(yk.dtype).float().reshape(-1, c).t() \
+        @ dy.to(yk.dtype).float().reshape(-1, k)
+    dzs = (dy.to(w.dtype).float().reshape(-1, k) @ w.float().t()) \
+        .reshape(z0.shape)
+    dz, sums = _dz_out(dzs, yprev, aff_p, z0, relu, stride)
+    return dz, dw, sums
+
+
+def conv3x3_bwd_plain(yk, g, yprev, w, aff_k, aff_p, *,
+                      act_prev: str = "relu"):
+    """The plain PyTorch version of :func:`conv3x3_bwd`, written as the
+    JAX ``_bwd3x3_kernel``: nine tap products over the zero-padded z_{k-1}
+    (dW) and the zero-padded dy at the mirrored offsets (dz), in tap
+    order."""
+    n, h, wd, c = yprev.shape
+    k = yk.shape[3]
+    pad = torch.nn.functional.pad
+    dy = _dy(yk, g, aff_k)
+    z0, z = _z_prev(yprev, aff_p, _relu(act_prev))
+    zp = pad(z.to(yk.dtype).float(), (0, 0, 1, 1, 1, 1))
+    dyr = dy.to(yk.dtype).float().reshape(-1, k)
+    dyp = pad(dy.to(w.dtype).float(), (0, 0, 1, 1, 1, 1))
+    wf = w.float()
+    dws, dzs = [], None
+    for t in range(9):
+        kh, kw = divmod(t, 3)
+        dws.append(zp[:, kh:kh + h, kw:kw + wd, :].reshape(-1, c).t() @ dyr)
+        tap = dyp[:, 2 - kh:2 - kh + h, 2 - kw:2 - kw + wd, :] \
+            .reshape(-1, k) @ wf[t].t()
+        dzs = tap if dzs is None else dzs + tap
+    dz, sums = _dz_out(dzs.reshape(n, h, wd, c), yprev, aff_p, z0, True, 1)
+    return dz, torch.stack(dws), sums
+
+
+# ---------------------------------------------------------------------
 # the block
 # ---------------------------------------------------------------------
 def _finalize_stats(s1, s2, count):
@@ -268,31 +505,158 @@ def _bn_affine(p: BnParams, eps):
     return sc.contiguous(), bb.contiguous()
 
 
+def _rows(*rows):
+    """Affine rows stacked as the backward kernels read them: [R, C] f32."""
+    return torch.stack(rows).float().contiguous()
+
+
+_SUM = (0, 1, 2)       # the per-channel reductions over N, H, W
+
+
+class BottleneckTrain(torch.autograd.Function):
+    """The training block: the JAX ``_bottleneck_core`` (identity form)
+    and ``_bottleneck_ds_core`` (downsample form, ``ws`` given) with
+    their ``custom_vjp``.
+
+    ``apply(eps, stride, x, wa, wb, wc, ga, be_a, gb, be_b, gc, be_c, ws,
+    gs, be_s)`` returns ``(out, mu_a, var_a, mu_b, var_b, mu_c, var_c[,
+    mu_s, var_s])``: the batch statistics, from the forward kernels' sums
+    over ``count = N Ho Wo``, are non-differentiable outputs (the JAX vjp
+    ignores their cotangents; they feed the running averages only). Only
+    the raw conv outputs are saved; the backward recomputes the f32 tail
+    ``relu(yc sc + bb + shortcut)`` and runs stages c, b, a (and the conv
+    shortcut) through the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, eps, stride, x, wa, wb, wc, ga, be_a, gb, be_b, gc,
+                be_c, ws, gs, be_s):
+        n, h, wd, cin = x.shape
+        count = n * (h // stride) * (wd // stride)
+        ones = torch.ones(cin, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros_like(ones)
+        ya, s1, s2 = conv1x1(x, ones, zeros, wa, act="identity",
+                             stride=stride)
+        mua, vara = _finalize_stats(s1, s2, count)
+        sca, bba, _ = _affine(ga, be_a, mua, vara, eps)
+        yb, s1, s2 = conv3x3(ya, sca, bba, wb, act="relu")
+        mub, varb = _finalize_stats(s1, s2, count)
+        scb, bbb, _ = _affine(gb, be_b, mub, varb, eps)
+        yc, s1, s2 = conv1x1(yb, scb, bbb, wc, act="relu")
+        muc, varc = _finalize_stats(s1, s2, count)
+        scc, bbc, _ = _affine(gc, be_c, muc, varc, eps)
+        stats = [mua, vara, mub, varb, muc, varc]
+        ys = None
+        if ws is not None:
+            ys, s1, s2 = conv1x1(x, ones, zeros, ws, act="identity",
+                                 stride=stride)
+            mus, vars_ = _finalize_stats(s1, s2, count)
+            scs, bbs, _ = _affine(gs, be_s, mus, vars_, eps)
+            shortcut = ys.float() * scs + bbs
+            stats += [mus, vars_]
+        else:
+            shortcut = x.float()
+        pre = yc.float() * scc + bbc + shortcut
+        out = torch.clamp_min(pre, 0.0).to(x.dtype)
+        ctx.eps, ctx.stride, ctx.count = eps, stride, count
+        ctx.save_for_backward(x, ya, yb, yc, ys, wa, wb, wc, ws, ga, be_a,
+                              gb, be_b, gc, be_c, gs, be_s, *stats)
+        ctx.mark_non_differentiable(*stats)
+        return (out, *stats)
+
+    @staticmethod
+    def backward(ctx, g, *_stat_grads):
+        (x, ya, yb, yc, ys, wa, wb, wc, ws, ga, be_a, gb, be_b, gc, be_c,
+         gs, be_s, *stats) = ctx.saved_tensors
+        eps, stride, count = ctx.eps, ctx.stride, ctx.count
+        mua, vara, mub, varb, muc, varc = stats[:6]
+        sca, bba, inva = _affine(ga, be_a, mua, vara, eps)
+        scb, bbb, invb = _affine(gb, be_b, mub, varb, eps)
+        scc, bbc, invc = _affine(gc, be_c, muc, varc, eps)
+        # the tail: relu' of the recomputed pre-activation, and stage c's
+        # BN-backward sums (the same gz is the skip's gradient)
+        if ws is not None:
+            mus, vars_ = stats[6:]
+            scs, bbs, invs = _affine(gs, be_s, mus, vars_, eps)
+            shortcut = ys.float() * scs + bbs
+        else:
+            shortcut = x.float()
+        pre = yc.float() * scc + bbc + shortcut
+        gz = torch.where(pre > 0, g.float(), 0.0)
+        yhat_c = (yc.float() - muc) * invc
+        dgc, dbc = (gz * yhat_c).sum(_SUM), gz.sum(_SUM)
+        gzt = gz.to(yc.dtype)
+        aff_c = _rows(scc, bbc, invc, muc, gz.mean(_SUM),
+                      (gz * yhat_c).mean(_SUM))
+        dz0b, dwc, sums_b = conv1x1_bwd(yc, gzt, yb, wc, aff_c,
+                                        _rows(scb, bbb, invb, mub),
+                                        act_prev="relu")
+        aff_b = _rows(scb, bbb, invb, mub, sums_b[0] / count,
+                      sums_b[1] / count)
+        dz0a, dwb, sums_a = conv3x3_bwd(yb, dz0b, ya, wb, aff_b,
+                                        _rows(sca, bba, inva, mua),
+                                        act_prev="relu")
+        # stage a: the identity prologue (z_prev is the block input)
+        cin = x.shape[3]
+        one = torch.ones(cin, dtype=torch.float32, device=x.device)
+        aff_id = _rows(one, 1.0 - one, one, 1.0 - one)
+        aff_a = _rows(sca, bba, inva, mua, sums_a[0] / count,
+                      sums_a[1] / count)
+        dx_main, dwa, _ = conv1x1_bwd(ya, dz0a, x, wa, aff_a, aff_id,
+                                      act_prev="identity", stride=stride)
+        grads = [dwa.to(wa.dtype), dwb.to(wb.dtype), dwc.to(wc.dtype),
+                 sums_a[1].to(ga.dtype), sums_a[0].to(be_a.dtype),
+                 sums_b[1].to(gb.dtype), sums_b[0].to(be_b.dtype),
+                 dgc.to(gc.dtype), dbc.to(be_c.dtype)]
+        if ws is None:
+            dx = (dx_main.float() + gz).to(x.dtype)
+            return (None, None, dx, *grads, None, None, None)
+        yhat_s = (ys.float() - mus) * invs
+        aff_s = _rows(scs, bbs, invs, mus, gz.mean(_SUM),
+                      (gz * yhat_s).mean(_SUM))
+        dx_skip, dws, _ = conv1x1_bwd(ys, gzt, x, ws, aff_s, aff_id,
+                                      act_prev="identity", stride=stride)
+        dx = (dx_main.float() + dx_skip.float()).to(x.dtype)
+        return (None, None, dx, *grads, dws.to(ws.dtype),
+                (gz * yhat_s).sum(_SUM).to(gs.dtype),
+                gz.sum(_SUM).to(be_s.dtype))
+
+
 def fused_bottleneck(x, wa, bn_a: BnParams, wb, bn_b: BnParams, wc,
                      bn_c: BnParams, *, train: bool, w_skip=None,
                      bn_skip: BnParams = None, stride: int = 1,
-                     eps: float = 1e-5
+                     eps: float = 1e-5, decay: float = 0.9
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """ResNet bottleneck through the conv kernels, inference.
+    """ResNet bottleneck through the conv kernels.
 
     x ``[N, H, W, Cin]`` NHWC (the post-relu block input); wa ``[Cin,
     Cmid]``, wb ``[9, Cmid, Cmid]`` (tap-major 3x3), wc ``[Cmid, Cout]``.
     Identity form (``w_skip=None``, stride 1, Cout == Cin): ``relu(
     norm_c(conv_c(...)) + x)``. Downsample form: ``w_skip`` ``[Cin,
     Cout]`` and ``bn_skip`` give the conv shortcut, ``stride`` applies
-    to conv_a and the shortcut. Returns ``(out, running stats)``, the
-    stats unchanged (6 entries, or 8 with the skip), as the JAX
-    package's inference does. ``train=True`` is not ported yet."""
+    to conv_a and the shortcut.
+
+    Returns ``(out, running stats)``: 6 entries (mean and var of a, b,
+    c) or 8 (with the skip), f32. Training (``train=True``) normalizes
+    with the batch statistics, differentiates through
+    :class:`BottleneckTrain`, and decays the running statistics as the
+    unfused ``BatchNormalization`` does, ``decay * old + (1 - decay) *
+    batch`` with ``decay * old`` rounded in x's dtype (``normalization.
+    decayed``). Inference uses the
+    running statistics and returns them unchanged."""
     ds = w_skip is not None
     if ds != (bn_skip is not None):
         raise ValueError("w_skip and bn_skip go together")
     if stride != 1 and not ds:
         raise ValueError("stride != 1 requires the conv shortcut")
+    bns = (bn_a, bn_b, bn_c) + ((bn_skip,) if ds else ())
     if train:
-        raise NotImplementedError(
-            "fused_bottleneck(train=True) (batch statistics and the four "
-            "backward kernels) is not ported yet (ROADMAP.md, ResNet50 "
-            "training)")
+        outs = BottleneckTrain.apply(
+            eps, stride, x, wa, wb, wc, bn_a.gamma, bn_a.beta, bn_b.gamma,
+            bn_b.beta, bn_c.gamma, bn_c.beta, w_skip,
+            *((bn_skip.gamma, bn_skip.beta) if ds else (None, None)))
+        olds = [t for p in bns for t in (p.running_mean, p.running_var)]
+        return outs[0], tuple(decayed(old.to(x.dtype), new, decay).float()
+                              for old, new in zip(olds, outs[1:]))
     sca, bba = _bn_affine(bn_a, eps)
     scb, bbb = _bn_affine(bn_b, eps)
     scc, bbc = _bn_affine(bn_c, eps)
@@ -310,11 +674,8 @@ def fused_bottleneck(x, wa, bn_a: BnParams, wb, bn_b: BnParams, wc,
         shortcut = x.float()
     pre = yc.float() * scc + bbc + shortcut
     out = torch.clamp_min(pre, 0.0).to(x.dtype)
-    stats = (bn_a.running_mean, bn_a.running_var, bn_b.running_mean,
-             bn_b.running_var, bn_c.running_mean, bn_c.running_var)
-    if ds:
-        stats = stats + (bn_skip.running_mean, bn_skip.running_var)
-    return out, stats
+    return out, tuple(t for p in bns for t in (p.running_mean,
+                                               p.running_var))
 
 
 def reference_bottleneck(x, wa, bn_a, wb, bn_b, wc, bn_c, *, train,

@@ -1,0 +1,549 @@
+// The fused ResNet bottleneck's backward stages, for Hopper (sm_90a): one
+// entry point per stage of a 1x1 conv (stride 1 or 2) or a 3x3 same-pad
+// conv, computing the stage's weight gradient, the gradient of the
+// previous stage's pre-activation and that stage's BN-backward sums.
+//
+// Replaces the TPU kernels of deeplearning4j_tpu/nn/layers/bottleneck.py:
+//   bwd1x1 <- `_bwd1x1_kernel` (pallas_call in `_bwd_stage`)
+//   bwd3x3 <- `_bwd3x3_kernel` (pallas_call in `_bwd_stage`)
+// Stage k's conv read z_{k-1} = act(y_{k-1} sc_p + bb_p) and wrote y_k.
+// Given g = dz0_k and aff_k's rows (sc, bb, inv, mu, m1, m2), each
+// computes what its TPU kernel computes:
+//   dy   = sc (g - m1 - yhat m2), yhat = (y_k - mu) inv, in f32;
+//   dW   = z_{k-1}^T dy, both operands rounded to the stage's dtype,
+//          accumulated in f32 (the 3x3: per tap over the zero-padded
+//          z_{k-1}, [9, C, K] tap-major, t = kh * 3 + kw);
+//   dz   = (dy rounded to w's dtype) W^T, accumulated in f32 (the 3x3:
+//          the transposed taps over the zero-padded dy), masked by
+//          relu'(z0) on the UNROUNDED f32 z0 = y_{k-1} sc_p + bb_p, and
+//          stored rounded; a stride-2 1x1 writes 0 where the conv never
+//          read;
+//   sums = sum dz, sum dz yhat_{k-1} over the f32 dz BEFORE its rounding
+//          (the forward's epilogue sums the stored values instead).
+// With the identity prologue (relu = 0: z_{k-1} is the block input) there
+// is no affine, no mask and no sums: the caller's zeroed sums stay zero.
+// A padded tap reads 0 in both passes, after the prologue: not sc (0 - m1
+// - yhat(0) m2) in the dz pass, not relu(bb_p) in the dW pass.
+//
+// Translation. The TPU kernel holds one image (or a channel slice of it,
+// the channel-split variant that exists for the TPU's VMEM budget) per
+// grid step and carries dW and the sums along the sequential grid. Here
+// a stage is two implicit GEMMs over the tiles of conv_gemm.cuh (128 x 64
+// output tiles, 16-deep reduction steps, f32 products on the CUDA cores;
+// its tile_step is the inner loop of both passes):
+//   - the dz pass: rows = the conv's output pixels M = N Ho Wo, columns =
+//     C, reduction over K (9K); dy is computed from g, y_k and aff_k as
+//     the A tile is gathered (the BN-backward prologue), the relu' mask,
+//     the store and the sums run in the epilogue; the sums go through
+//     conv_gemm.cuh's per-block partials and its fixed-order pass;
+//   - the dW pass: rows = C (9C), columns = K, reduction over M. M is
+//     large and the output small (the s2 stage c's [64, 256] is four
+//     tiles for 132 SMs), so M is split across the grid's z dimension
+//     into f32 partials, reduced over the splits in a fixed order (f64):
+//     the same dW on every run, no float atomics. z_{k-1} is recomputed
+//     from y_{k-1} as its tile is gathered, dy again from g and y_k.
+// Any shape tiles, so no channel split is needed.
+//
+// What bounds it on an H100. At B=128 in bf16 the s2 stage c (K=256 ->
+// C=64 at 56x56, M = 401,408) reads y_k and g (411 MB) and y_{k-1} (51
+// MB) and writes dz (51 MB): 0.153 ms at 3.35 TB/s against 26 GFLOP,
+// 0.027 ms at 989 TFLOP/s, so bytes. The s2 3x3 (64 -> 64) moves 206 MB
+// (0.061 ms) for 59 GFLOP (0.060 ms): both even. This first version is
+// the simple, right one: every product on the f32 CUDA cores (67
+// TFLOP/s), dy recomputed by each pass (and by each row tile of the dW
+// pass), so the f32 rate and the recomputation bound it. Tensor-core
+// tiles and one dy per pass are a later kernel's work.
+//
+// Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
+// shared library with a plain C interface, loaded through ctypes
+// (deeplearning4j_tpu_torch/cuda_library.py). Every entry point launches
+// on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
+
+#include "conv_gemm.cuh"
+
+namespace {
+
+using dl4j_conv::block_partials;
+using dl4j_conv::from_f32;
+using dl4j_conv::kAStride;
+using dl4j_conv::kBK;
+using dl4j_conv::kBM;
+using dl4j_conv::kBN;
+using dl4j_conv::kBPerThread;
+using dl4j_conv::kRowsPerThread;
+using dl4j_conv::kThreads;
+using dl4j_conv::round_to;
+using dl4j_conv::tile_step;
+using dl4j_conv::to_f32;
+
+struct Stage {
+  int n, h, w, c;    // y_{k-1}, dz [n, h, w, c]
+  int ho, wo, k;     // y_k, g [n, ho, wo, k]
+  int stride;        // the 1x1 conv's subsample (the 3x3: 1)
+  int relu;          // the relu prologue (else the identity)
+  int tiles;         // the sums' partials per channel (>= dz row blocks)
+  int chunk;         // the dW pass: reduction rows per split
+  int splits;        // the dW pass: splits of M
+};
+
+// aff_k's constants of channel kk: sc, inv, mu, m1, m2.
+struct DyAffine {
+  float sc, inv, mu, m1, m2;
+};
+
+__device__ __forceinline__ DyAffine dy_affine(const float* __restrict__ aff,
+                                              int kk, int k) {
+  return {aff[kk], aff[2 * k + kk], aff[3 * k + kk], aff[4 * k + kk],
+          aff[5 * k + kk]};
+}
+
+// dy at element `off` of g / y_k, in f32, op by op as the TPU kernel
+// (no fused multiply-add, so the plain version's PyTorch ops agree).
+template <typename T>
+__device__ __forceinline__ float dy_at(const T* __restrict__ g,
+                                       const T* __restrict__ yk, int64_t off,
+                                       const DyAffine& a) {
+  const float gv = to_f32(g[off]);
+  const float yhat = __fmul_rn(__fsub_rn(to_f32(yk[off]), a.mu), a.inv);
+  return __fmul_rn(a.sc, __fsub_rn(__fsub_rn(gv, a.m1), __fmul_rn(yhat, a.m2)));
+}
+
+// ---------------------------------------------------------------------
+// the dz pass: dz[m, c] = sum_r A[m, r] B[r, c] over the conv's output
+// pixels m; r = (tap, kk), A = dy at the pixel the tap reads (0 outside
+// the image), B[r, c] = w[tap, c, kk]
+// ---------------------------------------------------------------------
+template <typename T, int TAPS>
+__device__ __forceinline__ void dz_load(
+    const T* __restrict__ yk, const T* __restrict__ g,
+    const T* __restrict__ w, const float* __restrict__ aff_k,
+    const Stage& s, int k0, int a_k, const int (&img)[kRowsPerThread],
+    const int (&ah)[kRowsPerThread], const int (&aw)[kRowsPerThread],
+    int b_k, int b_c, int n0, float (&ra)[kRowsPerThread],
+    float (&rb)[kBPerThread]) {
+  const int red = TAPS * s.k;
+  int r = k0 + a_k;
+  bool r_ok = r < red;
+  int t = 0, kk = r, dh = 0, dw = 0;
+  if (TAPS == 9 && r_ok) {
+    t = r / s.k;
+    kk = r - t * s.k;
+    dh = 1 - t / 3;
+    dw = 1 - t % 3;
+  }
+  DyAffine a{1.f, 1.f, 0.f, 0.f, 0.f};
+  if (r_ok) a = dy_affine(aff_k, kk, s.k);
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    float v = 0.f;
+    const int ih = ah[j] + dh;
+    const int iw = aw[j] + dw;
+    if (r_ok && img[j] >= 0 && ih >= 0 && ih < s.ho && iw >= 0 && iw < s.wo) {
+      const int64_t off =
+          (static_cast<int64_t>(img[j]) + ih * s.wo + iw) * s.k + kk;
+      v = round_to<T>(dy_at(g, yk, off, a));
+    }
+    ra[j] = v;
+  }
+  r = k0 + b_k;
+  r_ok = r < red;
+  t = 0;
+  kk = r;
+  if (TAPS == 9 && r_ok) {
+    t = r / s.k;
+    kk = r - t * s.k;
+  }
+#pragma unroll
+  for (int j = 0; j < kBPerThread; ++j) {
+    const int col = n0 + b_c + 16 * j;
+    rb[j] = (r_ok && col < s.c)
+                ? to_f32(w[(static_cast<int64_t>(t) * s.c + col) * s.k + kk])
+                : 0.f;
+  }
+}
+
+template <typename T, int TAPS>
+__global__ void __launch_bounds__(kThreads)
+    dz_kernel(const T* __restrict__ yk, const T* __restrict__ g,
+              const T* __restrict__ yprev, const T* __restrict__ w,
+              const float* __restrict__ aff_k,
+              const float* __restrict__ aff_p, T* __restrict__ dz,
+              float* __restrict__ part1, float* __restrict__ part2,
+              Stage s) {
+  __shared__ __align__(16) float smem[kBK * kAStride + kBK * kBN];
+  float* As = smem;
+  float* Bs = smem + kBK * kAStride;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int hw = s.ho * s.wo;
+  const int rows = s.n * hw;
+  const int red = TAPS * s.k;
+
+  // A loads: reduction offset a_k of rows a_m + 16 j (the dy pixels)
+  const int a_k = tid & 15;
+  const int a_m = tid >> 4;
+  int img[kRowsPerThread], ah[kRowsPerThread], aw[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    const int m = m0 + a_m + 16 * j;
+    if (m < rows) {
+      const int nn = m / hw;
+      const int rem = m - nn * hw;
+      ah[j] = rem / s.wo;
+      aw[j] = rem - ah[j] * s.wo;
+      img[j] = nn * hw;
+    } else {
+      img[j] = -1;
+      ah[j] = 0;
+      aw[j] = 0;
+    }
+  }
+  // B loads: reduction offset b_k (consecutive threads read consecutive
+  // kk of one weight row) of columns b_c + 16 j
+  const int b_k = tid & 15;
+  const int b_c = tid >> 4;
+
+  float ra[kRowsPerThread], rb[kBPerThread];
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  dz_load<T, TAPS>(yk, g, w, aff_k, s, 0, a_k, img, ah, aw, b_k, b_c, n0, ra,
+                   rb);
+  for (int k0 = 0; k0 < red; k0 += kBK) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      As[a_k * kAStride + a_m + 16 * j] = ra[j];
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) Bs[b_k * kBN + b_c + 16 * j] = rb[j];
+    __syncthreads();
+    if (k0 + kBK < red)
+      dz_load<T, TAPS>(yk, g, w, aff_k, s, k0 + kBK, a_k, img, ah, aw, b_k,
+                       b_c, n0, ra, rb);
+    tile_step(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
+
+  // epilogue: the relu' mask on the unrounded z0, the store (zeros where
+  // a stride-2 conv never read), the sums of the f32 values
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};
+  float s2[4] = {0.f, 0.f, 0.f, 0.f};
+  float scp[4], bbp[4], invp[4], mup[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx * 4 + j;
+    const bool ok = s.relu && col < s.c;
+    scp[j] = ok ? aff_p[col] : 1.f;
+    bbp[j] = ok ? aff_p[s.c + col] : 0.f;
+    invp[j] = ok ? aff_p[2 * s.c + col] : 1.f;
+    mup[j] = ok ? aff_p[3 * s.c + col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+    if (m >= rows) continue;
+    const int nn = m / hw;
+    const int rem = m - nn * hw;
+    const int oh = rem / s.wo;
+    const int ow = rem - oh * s.wo;
+    const int64_t pix =
+        (static_cast<int64_t>(nn) * s.h + oh * s.stride) * s.w + ow * s.stride;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col >= s.c) continue;
+      const int64_t at = pix * s.c + col;
+      float v = acc[i][j];
+      if (s.relu) {
+        const float yp = to_f32(yprev[at]);
+        const float z0 = __fadd_rn(__fmul_rn(yp, scp[j]), bbp[j]);
+        v = z0 > 0.f ? v : 0.f;
+        const float yhat = __fmul_rn(__fsub_rn(yp, mup[j]), invp[j]);
+        s1[j] += v;
+        s2[j] += v * yhat;
+      }
+      dz[at] = from_f32<T>(v);
+      if (s.stride == 2) {
+        const T zero = from_f32<T>(0.f);
+        const int64_t row = static_cast<int64_t>(s.w) * s.c;
+        dz[at + s.c] = zero;
+        dz[at + row] = zero;
+        dz[at + row + s.c] = zero;
+      }
+    }
+  }
+  if (s.relu) block_partials(smem, s1, s2, n0, s.c, s.tiles, part1, part2);
+}
+
+// ---------------------------------------------------------------------
+// the dW pass: dW[r, kk] = sum_m A[r, m] B[m, kk] over the conv's output
+// pixels m of one split; r = (tap, c), A = z_{k-1} at the pixel the tap
+// reads (0 outside the image), B = dy; partials [splits, R, K]
+// ---------------------------------------------------------------------
+template <typename T, int TAPS>
+__global__ void __launch_bounds__(kThreads)
+    dw_kernel(const T* __restrict__ yk, const T* __restrict__ g,
+              const T* __restrict__ yprev, const float* __restrict__ aff_k,
+              const float* __restrict__ aff_p, float* __restrict__ part,
+              Stage s) {
+  __shared__ __align__(16) float smem[kBK * kAStride + kBK * kBN];
+  float* As = smem;
+  float* Bs = smem + kBK * kAStride;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int r0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int hw = s.ho * s.wo;
+  const int rows = s.n * hw;
+  const int red_r = TAPS * s.c;
+  const int mb = blockIdx.z * s.chunk;
+  const int m_end = min(mb + s.chunk, rows);
+
+  // A loads: one row r per thread (consecutive threads on consecutive
+  // channels), reduction offsets a_k + 2 j
+  const int a_r = tid & 127;
+  const int a_k = tid >> 7;
+  const int r = r0 + a_r;
+  const bool r_ok = r < red_r;
+  int ch = 0, dh = 0, dw = 0;
+  if (r_ok) {
+    const int t = r / s.c;
+    ch = r - t * s.c;
+    if (TAPS == 9) {
+      dh = t / 3 - 1;
+      dw = t % 3 - 1;
+    }
+  }
+  const float scp = (r_ok && s.relu) ? aff_p[ch] : 1.f;
+  const float bbp = (r_ok && s.relu) ? aff_p[s.c + ch] : 0.f;
+  // B loads: column b_n (consecutive threads on consecutive kk),
+  // reduction offsets b_k + 4 j
+  const int b_n = tid & 63;
+  const int b_k = tid >> 6;
+  const int col = n0 + b_n;
+  const bool col_ok = col < s.k;
+  DyAffine a{1.f, 1.f, 0.f, 0.f, 0.f};
+  if (col_ok) a = dy_affine(aff_k, col, s.k);
+
+  float ra[kRowsPerThread], rb[kBPerThread];
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int m = mb + k0 + a_k + 2 * j;
+      float z = 0.f;
+      if (r_ok && m < m_end) {
+        const int nn = m / hw;
+        const int rem = m - nn * hw;
+        const int oh = rem / s.wo;
+        const int ow = rem - oh * s.wo;
+        const int ih = oh * s.stride + dh;
+        const int iw = ow * s.stride + dw;
+        if (ih >= 0 && ih < s.h && iw >= 0 && iw < s.w) {
+          z = to_f32(yprev[((static_cast<int64_t>(nn) * s.h + ih) * s.w + iw) *
+                               s.c +
+                           ch]);
+          if (s.relu) z = fmaxf(__fadd_rn(__fmul_rn(z, scp), bbp), 0.f);
+          z = round_to<T>(z);
+        }
+      }
+      ra[j] = z;
+    }
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) {
+      const int m = mb + k0 + b_k + 4 * j;
+      rb[j] = (col_ok && m < m_end)
+                  ? round_to<T>(
+                        dy_at(g, yk, static_cast<int64_t>(m) * s.k + col, a))
+                  : 0.f;
+    }
+  };
+
+  const int len = m_end - mb;
+  if (len > 0) load(0);
+  for (int k0 = 0; k0 < len; k0 += kBK) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      As[(a_k + 2 * j) * kAStride + a_r] = ra[j];
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) Bs[(b_k + 4 * j) * kBN + b_n] = rb[j];
+    __syncthreads();
+    if (k0 + kBK < len) load(k0 + kBK);
+    tile_step(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
+
+  float* out = part + static_cast<int64_t>(blockIdx.z) * red_r * s.k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int rr = r0 + ty * 8 + i;
+    if (rr >= red_r) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cc = n0 + tx * 4 + j;
+      if (cc < s.k) out[static_cast<int64_t>(rr) * s.k + cc] = acc[i][j];
+    }
+  }
+}
+
+// dW = the splits' partials summed in order (f64), one thread per entry.
+constexpr int kSplitThreads = 256;
+
+__global__ void __launch_bounds__(kSplitThreads)
+    reduce_splits_kernel(const float* __restrict__ part, int splits,
+                         int64_t size, float* __restrict__ dw) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kSplitThreads + threadIdx.x;
+  if (i >= size) return;
+  double a = 0.0;
+  for (int z = 0; z < splits; ++z) a += part[z * size + i];
+  dw[i] = static_cast<float>(a);
+}
+
+// Launch one stage's four kernels on `stream`: the dz pass, the sums'
+// fixed-order reduction (relu prologue only), the dW pass and its split
+// reduction. Refuses (cudaErrorInvalidValue, before any launch) partials
+// one row tile short, or splits that do not cover M in whole steps.
+template <typename T, int TAPS>
+int stage_bwd(const void* yk, const void* g, const void* yprev,
+              const void* w, const void* aff_k, const void* aff_p, void* dz,
+              void* dw, void* dw_part, void* part1, void* part2, void* s1,
+              void* s2, const Stage& s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = s.n * s.ho * s.wo;
+  const int blocks = (rows + kBM - 1) / kBM;
+  if (blocks > s.tiles || s.chunk <= 0 || s.chunk % kBK ||
+      static_cast<int64_t>(s.chunk) * s.splits < rows ||
+      static_cast<int64_t>(s.chunk) * (s.splits - 1) >= rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || s.c == 0 || s.k == 0)
+    return static_cast<int>(cudaGetLastError());
+  const T* ykp = static_cast<const T*>(yk);
+  const T* gp = static_cast<const T*>(g);
+  const T* ypp = static_cast<const T*>(yprev);
+  const float* akp = static_cast<const float*>(aff_k);
+  const float* app = static_cast<const float*>(aff_p);
+  dim3 grid(blocks, (s.c + kBN - 1) / kBN);
+  dz_kernel<T, TAPS><<<grid, kThreads, 0, st>>>(
+      ykp, gp, ypp, static_cast<const T*>(w), akp, app, static_cast<T*>(dz),
+      static_cast<float*>(part1), static_cast<float*>(part2), s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.relu) {
+    dl4j_conv::reduce_partials_kernel<<<s.c, dl4j_conv::kReduceThreads, 0,
+                                        st>>>(
+        static_cast<const float*>(part1), static_cast<const float*>(part2),
+        blocks, s.tiles, static_cast<float*>(s1), static_cast<float*>(s2));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int red_r = TAPS * s.c;
+  dim3 grid_w((red_r + kBM - 1) / kBM, (s.k + kBN - 1) / kBN, s.splits);
+  dw_kernel<T, TAPS><<<grid_w, kThreads, 0, st>>>(
+      ykp, gp, ypp, akp, app, static_cast<float*>(dw_part), s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t size = static_cast<int64_t>(red_r) * s.k;
+  reduce_splits_kernel<<<static_cast<unsigned>((size + kSplitThreads - 1) /
+                                               kSplitThreads),
+                         kSplitThreads, 0, st>>>(
+      static_cast<const float*>(dw_part), s.splits, size,
+      static_cast<float*>(dw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd1x1(const void* yk, const void* g, const void* yprev, const void* w,
+           const void* aff_k, const void* aff_p, void* dz, void* dw,
+           void* dw_part, void* part1, void* part2, void* s1, void* s2, int n,
+           int h, int wd, int c, int k, int stride, int relu,
+           int tiles, int chunk, int splits, void* stream) {
+  if (stride != 1 && stride != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Stage s{n,    h,        wd,    c,     h / stride, wd / stride, k,
+          stride, relu, tiles, chunk, splits};
+  return stage_bwd<T, 1>(yk, g, yprev, w, aff_k, aff_p, dz, dw, dw_part,
+                         part1, part2, s1, s2, s, stream);
+}
+
+template <typename T>
+int bwd3x3(const void* yk, const void* g, const void* yprev, const void* w,
+           const void* aff_k, const void* aff_p, void* dz, void* dw,
+           void* dw_part, void* part1, void* part2, void* s1, void* s2, int n,
+           int h, int wd, int c, int k, int relu, int tiles,
+           int chunk, int splits, void* stream) {
+  Stage s{n, h, wd, c, h, wd, k, 1, relu, tiles, chunk, splits};
+  return stage_bwd<T, 9>(yk, g, yprev, w, aff_k, aff_p, dz, dw, dw_part,
+                         part1, part2, s1, s2, s, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int dl4j_bwd1x1_f32(const void* yk, const void* g, const void* yprev,
+                    const void* w, const void* aff_k, const void* aff_p,
+                    void* dz, void* dw, void* dw_part, void* part1,
+                    void* part2, void* s1, void* s2, int n, int h, int wd,
+                    int c, int k, int stride, int relu,
+                    int tiles, int chunk, int splits, void* stream) {
+  return bwd1x1<float>(yk, g, yprev, w, aff_k, aff_p, dz, dw, dw_part, part1,
+                       part2, s1, s2, n, h, wd, c, k, stride, relu,
+                       tiles, chunk, splits, stream);
+}
+
+int dl4j_bwd1x1_bf16(const void* yk, const void* g, const void* yprev,
+                     const void* w, const void* aff_k, const void* aff_p,
+                     void* dz, void* dw, void* dw_part, void* part1,
+                     void* part2, void* s1, void* s2, int n, int h, int wd,
+                     int c, int k, int stride, int relu,
+                     int tiles, int chunk, int splits, void* stream) {
+  return bwd1x1<__nv_bfloat16>(yk, g, yprev, w, aff_k, aff_p, dz, dw,
+                               dw_part, part1, part2, s1, s2, n, h, wd, c, k,
+                               stride, relu, tiles, chunk, splits,
+                               stream);
+}
+
+int dl4j_bwd3x3_f32(const void* yk, const void* g, const void* yprev,
+                    const void* w, const void* aff_k, const void* aff_p,
+                    void* dz, void* dw, void* dw_part, void* part1,
+                    void* part2, void* s1, void* s2, int n, int h, int wd,
+                    int c, int k, int relu, int tiles,
+                    int chunk, int splits, void* stream) {
+  return bwd3x3<float>(yk, g, yprev, w, aff_k, aff_p, dz, dw, dw_part, part1,
+                       part2, s1, s2, n, h, wd, c, k, relu, tiles,
+                       chunk, splits, stream);
+}
+
+int dl4j_bwd3x3_bf16(const void* yk, const void* g, const void* yprev,
+                     const void* w, const void* aff_k, const void* aff_p,
+                     void* dz, void* dw, void* dw_part, void* part1,
+                     void* part2, void* s1, void* s2, int n, int h, int wd,
+                     int c, int k, int relu, int tiles,
+                     int chunk, int splits, void* stream) {
+  return bwd3x3<__nv_bfloat16>(yk, g, yprev, w, aff_k, aff_p, dz, dw,
+                               dw_part, part1, part2, s1, s2, n, h, wd, c, k,
+                               relu, tiles, chunk, splits, stream);
+}
+
+int dl4j_bwd_row_tile() { return kBM; }
+
+const char* dl4j_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -164,6 +164,60 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
+// One reduction step of a tile: each thread's 8 x 4 strip (rows ty * 8,
+// channels tx * 4) accumulates the kBK products of the staged A and B.
+__device__ __forceinline__ void tile_step(const float* As, const float* Bs,
+                                          int ty, int tx,
+                                          float (&acc)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    const float4 a0 =
+        *reinterpret_cast<const float4*>(&As[kk * kAStride + ty * 8]);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(&As[kk * kAStride + ty * 8 + 4]);
+    const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk * kBN + tx * 4]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+  }
+}
+
+// The block's partial sums: each thread's column sums s1, s2 (channels
+// n0 + tx * 4 + j of its 8 rows) reduced over the 16 row groups in order
+// into part1/part2 [cols][tiles] at row block blockIdx.x. Reuses `smem`
+// (2 x 16 x kBN floats), which the caller no longer reads.
+__device__ __forceinline__ void block_partials(float* smem,
+                                               const float (&s1)[4],
+                                               const float (&s2)[4], int n0,
+                                               int cols, int tiles,
+                                               float* __restrict__ part1,
+                                               float* __restrict__ part2) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  float* red1 = smem;                  // [16][kBN]
+  float* red2 = smem + 16 * kBN;       // [16][kBN]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red1[ty * kBN + tx * 4 + j] = s1[j];
+    red2[ty * kBN + tx * 4 + j] = s2[j];
+  }
+  __syncthreads();
+  if (tid < kBN && n0 + tid < cols) {
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < 16; ++t) {
+      a += red1[t * kBN + tid];
+      b += red2[t * kBN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(n0 + tid) * tiles + blockIdx.x;
+    part1[at] = a;
+    part2[at] = b;
+  }
+}
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
     conv_gemm_kernel(const T* __restrict__ x, const float* __restrict__ sc,
@@ -238,20 +292,7 @@ __global__ void __launch_bounds__(kThreads)
     if (k0 + kBK < g.r)   // in flight during the products
       load_tile<T, MODE>(x, sc, bb, w, g, k0 + kBK, a_k, img, ah, aw, b_k, b_n,
                          n0, ra, rb);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(&As[kk * kAStride + ty * 8]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk * kAStride + ty * 8 + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk * kBN + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
+    tile_step(As, Bs, ty, tx, acc);
     __syncthreads();
   }
 
@@ -273,25 +314,7 @@ __global__ void __launch_bounds__(kThreads)
       s2[j] += of * of;
     }
   }
-  // the block's partial sums: the 16 row groups in order
-  float* red1 = smem;                  // [16][kBN]
-  float* red2 = smem + 16 * kBN;       // [16][kBN]
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red1[ty * kBN + tx * 4 + j] = s1[j];
-    red2[ty * kBN + tx * 4 + j] = s2[j];
-  }
-  __syncthreads();
-  if (tid < kBN && n0 + tid < g.k) {
-    float a = 0.f, b = 0.f;
-    for (int t = 0; t < 16; ++t) {
-      a += red1[t * kBN + tid];
-      b += red2[t * kBN + tid];
-    }
-    const int64_t at = static_cast<int64_t>(n0 + tid) * g.tiles + blockIdx.x;
-    part1[at] = a;
-    part2[at] = b;
-  }
+  block_partials(smem, s1, s2, n0, g.k, g.tiles, part1, part2);
 }
 
 // The blocks' partial sums, [k][tiles] (the first `blocks` of each row

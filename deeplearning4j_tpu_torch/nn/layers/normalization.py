@@ -6,7 +6,7 @@ statistics of training accumulate in f32 (one pass, ``E[x^2] -
 mean^2`` clamped at 0); the normalization itself runs op by op in x's
 dtype (``inv = rsqrt(var + eps)`` rounded to it, then ``(x - mean)
 inv``, then ``* gamma + beta``), so under bf16 each op rounds as the JAX
-forward's does.
+forward's does. The running statistics update as :func:`decayed` says.
 """
 
 from __future__ import annotations
@@ -15,7 +15,18 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["batch_norm"]
+__all__ = ["batch_norm", "decayed"]
+
+
+def decayed(old, new, decay: float):
+    """``decay * old + (1 - decay) * new`` with JAX's rounding. There
+    ``decay`` is a weakly typed Python float, so it takes old's dtype: in
+    bf16 it rounds (0.9 to 0.8984375) and the product rounds in bf16,
+    where a PyTorch bf16 tensor times a Python float would multiply by
+    the unrounded 0.9 in f32 and round once. The f32 batch term then
+    promotes the sum to f32."""
+    return old * torch.tensor(decay, dtype=old.dtype, device=old.device) \
+        + (1.0 - decay) * new
 
 
 def batch_norm(x, gamma, beta, running_mean, running_var, train: bool,
@@ -34,8 +45,8 @@ def batch_norm(x, gamma, beta, running_mean, running_var, train: bool,
         xf = x if x.dtype == torch.float64 else x.float()
         mean = xf.mean(dim=axes)
         var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
-        new_mean = decay * running_mean + (1.0 - decay) * mean
-        new_var = decay * running_var + (1.0 - decay) * var
+        new_mean = decayed(running_mean, mean, decay)
+        new_var = decayed(running_var, var, decay)
     else:
         mean, var = running_mean, running_var
         new_mean, new_var = running_mean, running_var

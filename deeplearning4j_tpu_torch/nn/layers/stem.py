@@ -19,9 +19,11 @@ wrapper launches its kernel on CUDA tensors (or raises on what it does
 not take) and takes the plain version beside it on CPU tensors, written
 as the JAX kernel body.
 
-Inference only in this slice: ``fused_stem(train=True)`` and the three
-backward kernels (``_stem_bwd_pool_kernel``, ``_stem_bwd_dw_kernel``,
-``_stem_bwd_dx_kernel``) are ROADMAP.md's "ResNet50 training".
+Inference only: ``fused_stem(train=True)`` and the three backward
+kernels (``_stem_bwd_pool_kernel``, ``_stem_bwd_dw_kernel``,
+``_stem_bwd_dx_kernel``) are ROADMAP.md's "ResNet50 training with the
+stem". ResNet50 trains with the stem unfused (the "fused" plan leaves it
+off, as the JAX package does on an uncalibrated crossover store).
 
 The gate is the port's own: the JAX package's ``fused_stem_supported``
 encodes the TPU's VMEM budget (it refuses the f32 stem at 224x224); the
@@ -234,7 +236,7 @@ def fused_stem(x, w, bn: BnParams, *, train: bool, eps: float = 1e-5
         raise NotImplementedError(
             "fused_stem(train=True) (batch statistics and the three "
             "backward kernels) is not ported yet (ROADMAP.md, ResNet50 "
-            "training)")
+            "training with the stem)")
     sc, bb = _bn_affine(bn, eps)
     y, _, _ = stem_conv(x, stem_weight_s2d(w) if w.dim() == 4 else w)
     return stem_pool(y, sc, bb), (bn.running_mean, bn.running_var)

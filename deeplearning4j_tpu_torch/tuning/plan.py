@@ -11,6 +11,10 @@ Counterpart of ``deeplearning4j_tpu/tuning/plan.py``
   (only a measured verdict engages it there); ``set_fusion("bottleneck",
   stem=True)`` engages it by hand.
 
+Both serve ``ComputationGraph.output`` and ``fit`` (which resolves its
+``execution_plan=`` here once per call): a fused block trains through
+the bottleneck's backward kernels.
+
 ``"auto"`` resolves per shape from the measured kernel-crossover store
 (``tuning/crossover.py``, ``tuning/calibrate.py``), which is not ported
 yet (ROADMAP.md A4). ``set_fusion`` applies the plan with change

@@ -6,7 +6,7 @@ card (``"cuda"`` unless the caller passes ``device="cpu"``). The JAX
 zoo's build options: ``data_format="NHWC"`` runs the CNN stack in the
 internal NHWC layout (the public input stays NCHW), and
 ``execution_plan="fused" | "xla"`` resolves the execution plan at build
-time (``tuning/plan.py``). The JAX zoo's direct ``fuse=`` switches are
+time (``tuning/plan.py``), for inference and training alike. The JAX zoo's direct ``fuse=`` switches are
 not ported (``fuse=True``, the bn -> act -> 1x1-conv plan, is ROADMAP.md
 B3; its ``fuse="bottleneck"`` is ``execution_plan="fused"`` here).
 Pretrained checkpoints and the model registry come with the formats

@@ -10,8 +10,10 @@ and a softmax output. He ("relu") weight init, ``Nesterovs(0.1,
 momentum=0.9)`` unless ``updater=`` says otherwise.
 
 Its fast path is ``data_format="NHWC", execution_plan="fused"`` (every
-bottleneck through the bottleneck kernels), then
-``net.set_fusion("bottleneck", stem=True)`` for the stem kernels too.
+bottleneck through the bottleneck kernels, in ``output`` and in ``fit``,
+whose backward runs the backward kernels), then
+``net.set_fusion("bottleneck", stem=True)`` for the stem kernels too
+(inference only: training with them is the next slice).
 """
 
 from __future__ import annotations

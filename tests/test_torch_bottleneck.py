@@ -12,7 +12,8 @@ layers/bottleneck.py) against the JAX package's, on the CPU.
   packages' ``reference_bottleneck``: f32 within 1e-5; bf16 against the
   JAX chain within two ulps of each element.
 - The wrappers take the plain versions on CPU tensors, launch nothing,
-  and refuse what the kernels do not take; ``train=True`` is refused.
+  and refuse what the kernels do not take (training is
+  ``tests/test_torch_bottleneck_train.py``).
 Inputs are made from a numpy seed; bf16 inputs are bf16 values handed to
 both packages exactly.
 """
@@ -223,8 +224,8 @@ def test_what_the_kernels_do_not_take_is_refused():
     with pytest.raises(ValueError, match=r"\[9, C"):
         tb.conv3x3(x[0], sc[0], bb[0], w[0])
     (targs, tkw), _ = _block("identity", "f32")
-    with pytest.raises(NotImplementedError, match="ResNet50 training"):
-        tb.fused_bottleneck(*targs, train=True, **tkw)
+    with pytest.raises(ValueError, match="go together"):
+        tb.fused_bottleneck(*targs, train=True, bn_skip=targs[2], **tkw)
     with pytest.raises(ValueError, match="conv shortcut"):
         tb.fused_bottleneck(*targs, train=False, stride=2)
 

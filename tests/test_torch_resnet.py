@@ -18,9 +18,12 @@ CPU.
 - The fused plan matches the same vertex groups as the JAX matchers (16
   bottleneck blocks and the stem) and skips the same vertices; with
   ``only=`` two named blocks, as the JAX graph does.
-- The refusals: ``execution_plan="auto"``, ``fuse=True``, fusion level
-  True, ``train=True``, ``fit`` on the CNN graph and ``fit`` with an
-  execution plan; and the default device is the card.
+- The refusals: ``execution_plan="auto"`` (also in ``fit``),
+  ``fit(steps_per_dispatch>1)``, ``fuse=True``, fusion level True, and
+  training or ``output(train=True)`` with the stem kernels engaged;
+  ``fit`` trains the CNN graph on the fused plan (training is
+  ``tests/test_torch_resnet_train.py``); the default device is the
+  card.
 """
 
 import jax
@@ -413,16 +416,25 @@ def test_what_is_not_ported_is_refused():
         net.set_fusion(True)
     with pytest.raises(ValueError, match="stem=True"):
         net.set_fusion(False, stem=True)
-    with pytest.raises(NotImplementedError, match="ResNet50 training"):
-        net.output(np.zeros((1, 3, 32, 32), np.float32), train=True)
-    x = np.zeros((2, 3, 32, 32), np.float32)
+    x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)) \
+        .astype(np.float32)
     y = np.eye(CLASSES, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="ResNet50 training"):
-        net.fit(x, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        net.fit(x, y, execution_plan="auto")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        net.fit(x, y, steps_per_dispatch=2)
+    net.set_fusion("bottleneck", stem=True)
     with pytest.raises(NotImplementedError,
-                       match=r"execution plans in fit .*ResNet50 training"):
-        net.fit(x, y, execution_plan="fused")
+                       match="ResNet50 training with the stem"):
+        net.output(x, train=True)
+    with pytest.raises(NotImplementedError,
+                       match="ResNet50 training with the stem"):
+        net.fit(x, y)
     assert net.iteration_count == 0
+    # the fused plan (the stem unfused) trains
+    net.fit(x, y, execution_plan="fused")
+    assert net.iteration_count == 1 and np.isfinite(net.score_value)
+    assert net.fusion_level == "bottleneck" and not net._fusion()[2]
     with pytest.raises(ValueError, match="state tree"):
         net.load_numpy_state({"stem_bn": {"mean": np.zeros(3, np.float32)}})
     with pytest.raises(NotImplementedError, match="execution_plan='fused'"):

@@ -119,7 +119,8 @@ def test_cpu_wrappers_launch_nothing_and_train_is_refused():
     before = (ts.STEM_CONV.launches, ts.STEM_POOL.launches)
     ts.fused_stem(x[0], w7[0], tbn, train=False)
     assert (ts.STEM_CONV.launches, ts.STEM_POOL.launches) == before
-    with pytest.raises(NotImplementedError, match="ResNet50 training"):
+    with pytest.raises(NotImplementedError,
+                       match="ResNet50 training with the stem"):
         ts.fused_stem(x[0], w7[0], tbn, train=True)
     with pytest.raises(ValueError, match=r"\[64 C, K\]"):
         ts.stem_conv(x[0], w7[0])
