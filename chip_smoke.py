@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits nonzero):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
-2. build: both CUDA kernel libraries (paged attention, flash attention)
-   from the sources in the checkout, one nvcc each, started together;
+2. build: every CUDA kernel library (paged attention, flash attention,
+   bottleneck, bottleneck backward, stem, stem backward) from the
+   sources in the checkout, one nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with the kernel's, the plain
    version's and a library call's times (CUDA events, L2 flushed before
@@ -106,10 +107,47 @@ Phases (any failure exits nonzero):
     off), by parameters, BN state and Nesterovs velocity (``update_err``,
     leaf by leaf); the same planted fault must fail the limit.
 
+16. stem bwd kernels: the fused stem's three backward kernels (bwd_pool:
+    the pool and relu backward with the BN-backward sums; bwd_dw: dy and
+    the weight gradient; bwd_dx: the input gradient) against their plain
+    versions at the training shape (224x224x3 -> 64), bf16 at B=128 and
+    f32 at B=16, each on its plain version's inputs: dz0, dy, dW and dx
+    by row and 64-row tile as in phase 13 (dx's tiles to 1e-3 in bf16:
+    its sums cancel), the sums within 1e-6 of each channel's sum of
+    |terms|; in bf16 four faults planted in the plain versions fail the
+    limits (bwd_pool without its relu' mask, the window maxima compared
+    in f32, dW from the unrounded dy, dx rounded per tap). Times of the
+    kernel, the plain version and ``aten.max_pool2d_with_indices_
+    backward`` or cuDNN's ``convolution_backward`` (wgrad, dgrad;
+    channels-last) beside the bound;
+17. resnet train stem: phase 14's configuration with the stem kernels
+    engaged (``set_fusion("bottleneck", stem=True)``) through
+    ``net.fit``: a warm-up step and 5 timed steps, the loss finite, per
+    step conv1x1 36, conv3x3 16, bwd1x1 36, bwd3x3 16 launches, the stem
+    conv, pool, bwd_pool and bwd_dw once each, bwd_dx never; the first
+    four losses within 3e-2 of the xla plan's from the same seed and
+    moving alike; ms per step, images/s and peak memory of the stem-
+    fused, fused (no stem) and xla plans in turns; one profiled step;
+18. resnet train stem reference: phase 15 with the stem engaged: the
+    kernels against the plain versions (the stem's too) and against the
+    xla plan, two f32 fit steps at B=8, by update_err leaf by leaf; a
+    fault planted in the stem's backward (dW summed over half the batch,
+    through the kernel) fails the limit;
+19. auto plan: ``calibrate_training_kernels`` on the full-width
+    ResNet50 (bf16, B=8) into a store in a temporary directory (every
+    distinct block shape and the stem; bwd_dx launched), each key's
+    kernel and fallback ms and verdict; a fresh net's
+    ``fit(execution_plan="auto")`` at B=128 fuses and launches exactly
+    what the verdicts imply, and so does the store saved and loaded
+    back; entries stamped with another device kind resolve to the xla
+    plan; a store of synthetic verdicts (the stem and the s2 and s4
+    blocks win) engages the stem and those blocks.
+
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits nonzero and prints no result. ``--json`` also writes every
-measurement to PATH.
+measurement to PATH; ``--phases`` runs a subset (by their names in
+``phase_s``), for debugging, and then prints neither of the last two.
 """
 
 from __future__ import annotations
@@ -199,7 +237,15 @@ TRAIN_RESNET_STEPS, TRAIN_RESNET_TURNS = 5, 2
 #: the backward's 16 stage c, 16 stage a and 4 conv shortcut 1x1 stages
 #: and 16 3x3 stages; the stem trains unfused
 RESNET_TRAIN_LAUNCHES = {"conv1x1": 36, "conv3x3": 16, "bwd1x1": 36,
-                         "bwd3x3": 16, "stem_conv": 0, "stem_pool": 0}
+                         "bwd3x3": 16, "stem_conv": 0, "stem_pool": 0,
+                         "stem_bwd_pool": 0, "stem_bwd_dw": 0,
+                         "stem_bwd_dx": 0}
+#: with the stem engaged (phases 17-18): its forward kernels, bwd_pool
+#: and bwd_dw once a step; the input gradient never (the stem's input is
+#: the network input)
+RESNET_TRAIN_STEM_LAUNCHES = {**RESNET_TRAIN_LAUNCHES, "stem_conv": 1,
+                              "stem_pool": 1, "stem_bwd_pool": 1,
+                              "stem_bwd_dw": 1}
 # The backward kernels against their plain versions. dz0 (stored in the
 # compute dtype) by rows and 64-row tiles as the forward convs (CONV_ROW,
 # CONV_TILE: same rounding points, f32 sums in another order). dW is
@@ -279,7 +325,8 @@ def kernel_counters():
             "flash_bwd_dkv": fa.FLASH_BWD_DKV, "conv1x1": bn.CONV1X1,
             "conv3x3": bn.CONV3X3, "stem_conv": stem.STEM_CONV,
             "stem_pool": stem.STEM_POOL, "bwd1x1": bn.BWD1X1,
-            "bwd3x3": bn.BWD3X3}
+            "bwd3x3": bn.BWD3X3, "stem_bwd_pool": stem.STEM_BWD_POOL,
+            "stem_bwd_dw": stem.STEM_BWD_DW, "stem_bwd_dx": stem.STEM_BWD_DX}
 
 
 def zero_counts():
@@ -1787,7 +1834,6 @@ def resnet_train(device):
     """The ResNet50 training path at full width: a warm-up step, the
     counted timed steps, the xla plan in turns, peak memory, one
     profiled step."""
-    from torch.profiler import ProfilerActivity, profile
     net = resnet_train_net(device, torch.bfloat16)
     x, y = train_images(RESNET_B)
     start = tree_numpy(net.params)
@@ -1833,29 +1879,10 @@ def resnet_train(device):
         rec["turns_" + plan] = {"step_ms": [1e3 * t for t in ts],
                                 "step_ms_median": 1e3 * m,
                                 "images_per_s": RESNET_B / m}
-    fit_s(net, x, y, "fused")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _ = fit_s(net, x, y, "fused")
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    dev_us = {e.key: getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-              for e in kernels}
-    busy_us = sum(dev_us.values())
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-
-    def share(*names):
-        return (sum(t for key, t in dev_us.items()
-                    if any(n in key for n in names)) / busy_us
-                if busy_us else None)
-
-    rec["profile"] = {
-        "step_ms": 1e3 * wall, "device_busy_share": busy_us / (wall * 1e6),
-        "kernel_launches": sum(e.count for e in kernels),
-        "conv_fwd_share": share("conv_gemm_kernel"),
-        "conv_bwd_share": share("dz_kernel", "dw_kernel", "reduce_splits"),
-        "top_kernels_us": [[key[:80], t] for key, t in top]}
+    rec["profile"], share = profile_fit_step(net, x, y, "fused")
+    rec["profile"].update(
+        conv_fwd_share=share("conv_gemm_kernel"),
+        conv_bwd_share=share("dz_kernel", "dw_kernel", "reduce_splits"))
     del net
     torch.cuda.empty_cache()
     rec["against_xla"] = train_against_xla(device, x, y, start, first,
@@ -1864,6 +1891,35 @@ def resnet_train(device):
     if failures:
         raise AssertionError(f"resnet train: {failures}: {rec}")
     return rec
+
+
+def profile_fit_step(net, x, y, plan, top=12):
+    """A warm-up fit step, then one under ``torch.profiler``: (its record
+    -- wall ms, device busy share, launches, the top kernels' device
+    us -- and ``share(*names)``, the share of the device time in kernels
+    whose names hold any of ``names``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fit_s(net, x, y, plan)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = fit_s(net, x, y, plan)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+              for e in kernels}
+    busy_us = sum(dev_us.values())
+
+    def share(*names):
+        return (sum(t for key, t in dev_us.items()
+                    if any(n in key for n in names)) / busy_us
+                if busy_us else None)
+
+    ranked = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
+    return {"step_ms": 1e3 * wall,
+            "device_busy_share": busy_us / (wall * 1e6),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels_us": [[key[:90], t] for key, t in ranked]}, share
 
 
 def train_steps(device, x, y, plan, steps, swaps=()):
@@ -1982,17 +2038,24 @@ def update_err(got, want, base):
                for k in keys)
 
 
-def resnet_train_reference(device):
-    """f32 at B=8: two fit steps with the kernels (the fused plan), with
-    the plain versions swapped in, on the xla plan, and with a planted
-    fault; parameters, BN state and velocity by update_err."""
+def resnet_train_reference(device, stem=False):
+    """f32 at B=8: two fit steps with the kernels (the fused plan; with
+    ``stem``, the stem kernels engaged too), with the plain versions
+    swapped in, on the xla plan, and with a planted fault (``stem``: in
+    the stem's backward, else in a block's); parameters, BN state and
+    velocity by update_err."""
     x, y = train_images(TRAIN_REF_B)
+    plain = train_swapped() + (stem_swapped() if stem else [])
+    fault = stem_fault() if stem else train_fault()
     runs = {}
     for label, plan, swaps in (("kernels", "fused", []),
-                               ("plain", "fused", train_swapped()),
+                               ("plain", "fused", plain),
                                ("xla", "xla", []),
-                               ("planted", "fused", train_fault())):
+                               ("planted", "fused", fault)):
         net = resnet_train_net(device, torch.float32, lr=TRAIN_REF_LR)
+        if stem and plan == "fused":
+            net.set_fusion("bottleneck", stem=True)
+            plan = None
         if label == "kernels":
             base = {"params": tree_numpy(net.params),
                     "state": tree_numpy(net.state),
@@ -2012,7 +2075,7 @@ def resnet_train_reference(device):
         torch.cuda.empty_cache()
     ref = runs["kernels"]
     rec = {"dtype": "float32", "batch": TRAIN_REF_B, "hw": RESNET_HW,
-           "lr": TRAIN_REF_LR, "steps": TRAIN_REF_STEPS,
+           "lr": TRAIN_REF_LR, "steps": TRAIN_REF_STEPS, "stem": stem,
            "limits": {"params": TRAIN_REF_LIMIT, "updater": TRAIN_REF_LIMIT,
                       "state": TRAIN_REF_STATE}}
     failures = []
@@ -2030,13 +2093,548 @@ def resnet_train_reference(device):
     if not all(np.isfinite(ref["losses"])) or \
             not ref["losses"][1] < ref["losses"][0]:
         failures.append("the reference's loss not finite or not falling")
-    want = {n: c * TRAIN_REF_STEPS for n, c in RESNET_TRAIN_LAUNCHES.items()}
+    per_step = RESNET_TRAIN_STEM_LAUNCHES if stem else RESNET_TRAIN_LAUNCHES
+    want = {n: c * TRAIN_REF_STEPS for n, c in per_step.items()}
     if {n: ref["launches"][n] for n in want} != want or \
             any(runs["plain"]["launches"][n] for n in want):
         failures.append("launches")
-    log("resnet train reference:", json.dumps(rec))
+    name = "resnet train stem reference" if stem else \
+        "resnet train reference"
+    log(f"{name}:", json.dumps(rec))
     if failures:
-        raise AssertionError(f"resnet train reference: {failures}: {rec}")
+        raise AssertionError(f"{name}: {failures}: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------
+# phase 16: the stem's backward kernels against their plain versions
+# ---------------------------------------------------------------------
+#: the stem at the training path's shape: 224x224x3 -> 112x112x64
+STEM_BWD_GEO = dict(h=224, w=224, c=3, k=64)
+#: dx's 64-row tiles: dx sums 16 taps x 64 channels of a dy from which
+#: the BN backward took the mean, so the sum cancels far below its terms
+#: and the f32 sums in another order flip one bf16 ulp in more outputs
+#: than the forward convs do (1.74e-4 on the H100, against CONV_TILE's
+#: 1e-4); the rounding moved into the tap loop reads far above the limit
+STEM_DX_TILE = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
+def stem_bwd_inputs(n, dtype, device, seed):
+    """Seeded inputs of the stem's backward at the training shape: x and
+    a He-normal weight, the conv kernel's y and batch statistics with
+    drawn BN gains and biases (the BN rows aff_p), the pooled output's
+    gradient g; then, from the plain versions, dz0 and the rows aff_k
+    (m1, m2 from its sums), and dy, so that each kernel is held on its
+    plain version's inputs."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    gen = torch.Generator().manual_seed(seed)
+    geo = STEM_BWD_GEO
+    h, w, c, k = geo["h"], geo["w"], geo["c"], geo["k"]
+    g = stem.stem_geometry(h, w)
+    x = torch.randn((n, h, w, c), generator=gen).to(device, dtype)
+    w7 = (torch.randn((k, c, 7, 7), generator=gen)
+          * (2.0 / (49 * c)) ** 0.5).to(device, dtype)
+    ws = stem.stem_weight_s2d(w7)
+    gamma = (0.5 + torch.rand(k, generator=gen)).to(device)
+    beta = (0.3 * torch.randn(k, generator=gen)).to(device)
+    gout = torch.randn((n, g["po"], g["pw"], k), generator=gen) \
+        .to(device, dtype)
+    y, s1, s2 = stem.stem_conv(x, ws)
+    count = n * g["ho"] * g["wo"]
+    mu, var = bn._finalize_stats(s1, s2, count)
+    sc, bb, inv = bn._affine(gamma, beta, mu, var, 1e-5)
+    aff_p = bn._rows(sc, bb, inv, mu)
+    dz, sums = stem.stem_bwd_pool_plain(y, gout, aff_p)
+    aff_k = bn._rows(sc, bb, inv, mu, sums[0] / count, sums[1] / count)
+    dy, _ = stem.stem_bwd_dw_plain(x, y, dz, aff_k)
+    return {"x": x, "w7": w7, "ws": ws, "y": y, "g": gout, "aff_p": aff_p,
+            "dz": dz, "aff_k": aff_k, "dy": dy}
+
+
+def stem_pool_fault(y, g, aff, fault):
+    """The plain pool backward with ``fault`` planted: dz0 only."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    z0 = y.float() * aff[0] + aff[1]
+    zc = torch.clamp_min(z0, 0.0)
+    if fault != "max_in_f32":
+        zc = zc.to(y.dtype).float()
+    dz = stem._pool_grad(zc, g.float())
+    if fault != "no_mask":
+        dz = torch.where(z0 > 0, dz, 0.0)
+    return dz.to(y.dtype)
+
+
+def stem_bwd_fns(kernel, a):
+    """(kernel call, plain call, library call, {fault: call}) on inputs
+    ``a``. The faults are planted in the plain versions (the kernels
+    cannot be told to skip a step): "no_mask", bwd_pool without its
+    relu' mask; "max_in_f32", the window maxima compared on the f32 relu
+    output, not on its rounding to the model dtype (ties are common in
+    bf16); "dy_unrounded", dW from the f32 dy instead of the stored,
+    rounded one; "dx_per_tap", dx rounded to the model dtype after every
+    tap instead of once. The library calls, their operands made here
+    outside their time: ``aten.max_pool2d_with_indices_backward`` on the
+    rounded relu output (the indices of its forward), and cuDNN's
+    ``convolution_backward`` of the 7x7/2 pad-3 conv, channels-last: the
+    weight gradient for dw, the input gradient for dx."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    aten = torch.ops.aten
+    cl = torch.channels_last
+    x, y, g, dz, dy = a["x"], a["y"], a["g"], a["dz"], a["dy"]
+    nchw = (0, 3, 1, 2)
+    if kernel == "stem_bwd_pool":
+        aff = a["aff_p"]
+        zc = torch.clamp_min(y.float() * aff[0] + aff[1], 0.0) \
+            .to(y.dtype).permute(nchw)
+        _, idx = aten.max_pool2d_with_indices(zc, [3, 3], [2, 2], [1, 1])
+        gn = g.permute(nchw)
+        return (lambda: stem.stem_bwd_pool(y, g, aff),
+                lambda: stem.stem_bwd_pool_plain(y, g, aff),
+                lambda: aten.max_pool2d_with_indices_backward(
+                    gn, zc, [3, 3], [2, 2], [1, 1], [1, 1], False, idx),
+                {f: (lambda f=f: stem_pool_fault(y, g, aff, f))
+                 for f in ("no_mask", "max_in_f32")})
+    dyn, xn = dy.permute(nchw), x.permute(nchw)
+    w7 = a["w7"].contiguous(memory_format=cl)
+
+    def library(mask):
+        return lambda: aten.convolution_backward(
+            dyn, xn, w7, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1,
+            mask)
+
+    if kernel == "stem_bwd_dw":
+        aff = a["aff_k"]
+
+        def unrounded():
+            g_ = stem.stem_geometry(x.shape[1], x.shape[2])
+            sc, _, inv, mu, m1, m2 = aff
+            dyf = sc * (dz.float() - m1 - (y.float() - mu) * inv * m2)
+            ic = stem._im2col(stem._s2d_image(x.float(), g_), g_)
+            return ic.t() @ dyf.reshape(-1, y.shape[3])
+
+        return (lambda: stem.stem_bwd_dw(x, y, dz, aff),
+                lambda: stem.stem_bwd_dw_plain(x, y, dz, aff),
+                library([False, True, False]), {"dy_unrounded": unrounded})
+    shape = tuple(x.shape)
+    return (lambda: stem.stem_bwd_dx(dy, a["ws"], shape),
+            lambda: stem.stem_bwd_dx_plain(dy, a["ws"], shape),
+            library([True, False, False]),
+            {"dx_per_tap": lambda: stem_dx_per_tap(dy, a["ws"], shape)})
+
+
+def stem_dx_per_tap(dy, ws, shape):
+    """The plain dx with the fault "dx_per_tap": the f32 sum rounded to
+    dy's dtype after every tap."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    n, h, w, c = shape
+    g = stem.stem_geometry(h, w)
+    hs, ws_, ho, wo = g["hs"], g["ws"], g["ho"], g["wo"]
+    k = dy.shape[3]
+    dyp = torch.nn.functional.pad(dy.float(), (0, 0, 3, ws_ - wo, 3, hs - ho))
+    acc = 0.0
+    for t in range(16):
+        i, j = divmod(t, 4)
+        gs = dyp[:, 3 - i:3 - i + hs, 3 - j:3 - j + ws_, :] \
+            .reshape(n, hs * ws_, k)
+        acc = (acc + gs @ ws[t * 4 * c:(t + 1) * 4 * c].float().t()) \
+            .to(dy.dtype).float()
+    p = acc.reshape(n, hs, ws_, 2, 2, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, 2 * hs, 2 * ws_, c)
+    return p[:, 3:3 + h, 3:3 + w, :].to(dy.dtype)
+
+
+def stem_bwd_bound(kernel, n, dtype):
+    """Least time on this card: the bytes the function must move (each
+    input once, each output once) over the memory rate, against the
+    multiply-adds of the 7x7 taps (dW and dx, 2 M 49 C K) over the
+    dtype's peak."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    geo = STEM_BWD_GEO
+    h, w, c, k = geo["h"], geo["w"], geo["c"], geo["k"]
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    m = n * ho * wo
+    if kernel == "stem_bwd_pool":
+        nbytes = (2 * m * k + n * po * pw * k) * el + (4 + 2) * k * 4
+        ops = 0
+    elif kernel == "stem_bwd_dw":
+        nbytes = (n * h * w * c + 3 * m * k) * el + 6 * k * 4 \
+            + 64 * c * k * 4
+        ops = 2 * m * 49 * c * k
+    else:
+        nbytes = (m * k + 64 * c * k + n * h * w * c) * el
+        ops = 2 * m * 49 * c * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stem_bwd_case(kernel, a, dtype, n, device):
+    """One stem backward kernel against its plain version on the same
+    inputs: each output by rows and 64-row tiles (dz0, dy, dx as stored
+    in the compute dtype, dW in f32 by its rows), the sums within
+    BWD_SUMS of each channel's sum of |terms|; in bf16 each planted
+    fault fails the limits; then the kernel's, plain version's and
+    library call's times beside the bound."""
+    kern, plain, library, faults = stem_bwd_fns(kernel, a)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    case = {"case": kernel, "kernel": kernel,
+            "dtype": str(dtype).split(".")[-1], "batch": n, **STEM_BWD_GEO}
+    failures = []
+    k = STEM_BWD_GEO["k"]
+    limits = {"row_rel": CONV_ROW[dtype], "tile_rel": CONV_TILE[dtype]}
+    if kernel == "stem_bwd_pool":
+        (dz, sums), (rdz, rsums) = got, ref
+        outs = {"dz0": (dz, rdz)}
+        case["sums_rel"] = bwd_sums_rel(sums, rdz, a["y"], a["aff_p"],
+                                        rsums)
+        limits["sums_rel"] = BWD_SUMS
+        if case["sums_rel"] > BWD_SUMS:
+            failures.append("sums")
+        finite = [dz, sums]
+    elif kernel == "stem_bwd_dw":
+        (dy, dw), (rdy, rdw) = got, ref
+        outs = {"dy": (dy, rdy), "dW": (dw, rdw)}
+        limits.update(dw_row_rel=BWD_DW_ROW[dtype],
+                      dw_tile_rel=BWD_DW_TILE[dtype])
+        finite = [dy, dw]
+    else:
+        outs = {"dx": (got, ref)}
+        limits["tile_rel"] = STEM_DX_TILE[dtype]
+        finite = [got]
+    for name, (o, r) in outs.items():
+        width = o.shape[-1] if name != "dW" else k
+        rr, tr = conv_agreement(o.reshape(-1, width), r.reshape(-1, width))
+        case[name] = {"max_abs_err": float((o.float() - r.float()).abs()
+                                           .max()),
+                      "row_rel": rr, "tile_rel": tr}
+        lim = (("dw_row_rel", "dw_tile_rel") if name == "dW"
+               else ("row_rel", "tile_rel"))
+        if rr > limits[lim[0]] or tr > limits[lim[1]]:
+            failures.append(name)
+    main = {"stem_bwd_pool": "dz0", "stem_bwd_dw": "dW",
+            "stem_bwd_dx": "dx"}[kernel]
+    case["max_abs_err"] = case[main]["max_abs_err"]
+    case["limits"] = limits
+    if dtype == torch.bfloat16:
+        planted_rec = {}
+        for fault, fn in faults.items():
+            name = "dW" if fault == "dy_unrounded" else main
+            ref_out = outs[name][1]
+            width = ref_out.shape[-1] if name != "dW" else k
+            planted_rec[fault] = conv_agreement(
+                fn().reshape(-1, width), ref_out.reshape(-1, width))
+            lim = (("dw_row_rel", "dw_tile_rel") if name == "dW"
+                   else ("row_rel", "tile_rel"))
+            if planted_rec[fault][0] <= limits[lim[0]] and \
+                    planted_rec[fault][1] <= limits[lim[1]]:
+                failures.append(f"the limits do not tell {fault}")
+        case["planted"] = planted_rec
+    ok = all(bool(torch.isfinite(t).all()) for t in finite)
+    log("stem bwd check", json.dumps(case))
+    if not ok or failures:
+        raise AssertionError(f"{kernel} kernel disagrees with its plain "
+                             f"version ({failures}, finite {ok}): {case}")
+    del got, ref, outs, finite
+    bound_ms, bound_by = stem_bwd_bound(kernel, n, dtype)
+    case.update(ms=median_ms(kern, device),
+                plain_ms=median_ms(plain, device, iters=10),
+                library_ms=median_ms(library, device),
+                bound_ms=bound_ms, bound_by=bound_by)
+    log("stem bwd", json.dumps(case))
+    del kern, plain, library, faults
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_stem_bwd_kernels(device):
+    """The three stem backward kernels in bf16 at the main path's batch,
+    then in f32 at 16."""
+    cases = []
+    for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16)):
+        a = stem_bwd_inputs(n, dtype, device, seed=40)
+        for kernel in ("stem_bwd_pool", "stem_bwd_dw", "stem_bwd_dx"):
+            cases.append(stem_bwd_case(kernel, a, dtype, n, device))
+        del a
+        torch.cuda.empty_cache()
+    return cases
+
+
+# ---------------------------------------------------------------------
+# phases 17-18: ResNet50 training with the fused stem
+# ---------------------------------------------------------------------
+def resnet_train_stem(device, xla_losses=None):
+    """ResNet50 training at full width with the stem kernels engaged
+    (``set_fusion("bottleneck", stem=True)``): a warm-up step, the
+    counted timed steps, the losses against the xla plan's from the same
+    seed (phase 14's, or a fresh run), the stem-fused, fused (no stem) and
+    xla plans' steps and peak memory in turns, one profiled step."""
+    net = resnet_train_net(device, torch.bfloat16)
+    net.set_fusion("bottleneck", stem=True)
+    x, y = train_images(RESNET_B)
+    warm_s, warm_loss = fit_s(net, x, y, None)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_RESNET_STEPS):
+        t, loss = fit_s(net, x, y, None)
+        step_s.append(t)
+        losses.append(loss)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    med = float(np.median(step_s))
+    rec = {"config": {"model": "ResNet50", "classes": RESNET_CLASSES,
+                      "hw": RESNET_HW, "batch": RESNET_B,
+                      "dtype": "bfloat16", "data_format": "NHWC",
+                      "updater": "Nesterovs(0.1, 0.9)",
+                      "plan": "fused + stem",
+                      "fused_blocks": len(net._fusion()[1]),
+                      "stem": bool(net._fusion()[2])},
+           "warmup_step_s": warm_s, "warmup_loss": warm_loss,
+           "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "step_ms_median": 1e3 * med, "images_per_s": RESNET_B / med,
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    failures = []
+    if not all(np.isfinite(losses + [warm_loss])):
+        failures.append("loss not finite")
+    for name, per_step in RESNET_TRAIN_STEM_LAUNCHES.items():
+        if counts[name] != per_step * TRAIN_RESNET_STEPS:
+            failures.append(f"{name} launched {counts[name]} in "
+                            f"{TRAIN_RESNET_STEPS} steps, want "
+                            f"{per_step} a step")
+    # the three plans' steps in turns (stem, fused, xla, stem, ...)
+    plans = {"fused_stem": ("bottleneck", True), "fused": ("bottleneck",
+                                                           False),
+             "xla": (False, False)}
+    times = {p: [] for p in plans}
+    peaks = {p: 0 for p in plans}
+    for _ in range(TRAIN_RESNET_TURNS):
+        for plan, (level, stem_on) in plans.items():
+            net.set_fusion(level, stem=stem_on)
+            fit_s(net, x, y, None)
+            torch.cuda.reset_peak_memory_stats(device)
+            for _ in range(2):
+                times[plan].append(fit_s(net, x, y, None)[0])
+            peaks[plan] = max(peaks[plan],
+                              torch.cuda.max_memory_allocated(device))
+    for plan, ts in times.items():
+        m = float(np.median(ts))
+        rec["turns_" + plan] = {"step_ms": [1e3 * t for t in ts],
+                                "step_ms_median": 1e3 * m,
+                                "images_per_s": RESNET_B / m,
+                                "max_memory_allocated_bytes": peaks[plan]}
+    net.set_fusion("bottleneck", stem=True)
+    rec["profile"], share = profile_fit_step(net, x, y, None)
+    rec["profile"].update(
+        conv_fwd_share=share("conv_gemm_kernel"),
+        conv_bwd_share=share("dz_kernel", "dw_kernel", "reduce_splits"),
+        stem_share=share("conv_gemm_kernel<__nv_bfloat16, 2>",
+                         "stem_pool_kernel", "bwd_pool_kernel", "dy_kernel",
+                         "dw_kernel<__nv_bfloat16>("))
+    del net
+    torch.cuda.empty_cache()
+    if xla_losses is None:
+        xla_losses = train_steps(device, x, y, "xla",
+                                 1 + TRAIN_RESNET_STEPS)[2]
+    all_losses = [warm_loss] + losses
+    n = TRAIN_LOSS_AGREED
+    rec["against_xla"] = {
+        "losses_xla": xla_losses,
+        "loss_rel": [abs(a - b) / b for a, b in zip(all_losses, xla_losses)],
+        "limits": {"loss_rel": TRAIN_LOSS_AGREE, "losses": n}}
+    if not max(rec["against_xla"]["loss_rel"][:n]) <= TRAIN_LOSS_AGREE:
+        failures.append("the losses part from the xla plan's")
+    moves = [np.sign(np.diff(t[:n])).tolist()
+             for t in (all_losses, xla_losses)]
+    if moves[0] != moves[1] or moves[0][0] >= 0:
+        failures.append(f"the losses move {moves[0]} and on the xla plan "
+                        f"{moves[1]}; both must fall at the first update "
+                        f"and move alike")
+    log("resnet train stem:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"resnet train stem: {failures}: {rec}")
+    return rec
+
+
+def stem_swapped():
+    """The stem kernels' wrappers swapped for their plain versions (for
+    ``with_swaps``)."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    return [(vars(stem), {n: getattr(stem, n + "_plain")
+                          for n in ("stem_conv", "stem_pool",
+                                    "stem_bwd_pool", "stem_bwd_dw",
+                                    "stem_bwd_dx")})]
+
+
+def stem_fault():
+    """Swaps (for ``with_swaps``) that plant a fault in the stem's
+    backward, through the kernel: dW's pixel reduction loses the second
+    half of the batch (as a dropped split of its partials would). (The
+    BN backward without its mean terms m1, m2 moved the stem weight's
+    update by only 0.093 of itself on the H100: in f32 at this init the
+    projection is small.)"""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    bwd = stem.stem_bwd_dw
+
+    def faulty(x, y, dz, aff):
+        dy, _ = bwd(x, y, dz, aff)
+        h = x.shape[0] // 2
+        _, dw = bwd(x[:h].contiguous(), y[:h].contiguous(),
+                    dz[:h].contiguous(), aff)
+        return dy, dw
+
+    return [(vars(stem), {"stem_bwd_dw": faulty})]
+
+
+# ---------------------------------------------------------------------
+# phase 19: the calibrated "auto" plan
+# ---------------------------------------------------------------------
+#: the synthetic verdicts' subset: the blocks of these stages win
+AUTO_SYNTHETIC_STAGES = ("s2", "s4")
+
+
+def expected_launches(bcands, chosen, stem_on):
+    """Launches of one training step that fuses the ``chosen`` blocks
+    (and the stem iff ``stem_on``)."""
+    ones = sum(2 + ("conv_skip" in bcands[b]) for b in chosen)
+    s = int(bool(stem_on))
+    return {"conv1x1": ones, "conv3x3": len(chosen), "bwd1x1": ones,
+            "bwd3x3": len(chosen), "stem_conv": s, "stem_pool": s,
+            "stem_bwd_pool": s, "stem_bwd_dw": s, "stem_bwd_dx": 0}
+
+
+def auto_fit(device, store, x, y):
+    """A fresh net's ``fit(execution_plan="auto")`` step with ``store``
+    as the process's store: (the resolution record, the blocks and stem
+    the store's verdicts imply, the step's launches, the loss)."""
+    from deeplearning4j_tpu_torch.tuning import (
+        apply_execution_plan, reset_default_store, winner)
+    from deeplearning4j_tpu_torch.tuning.plan import _block_key, _stem_key
+    net = resnet_train_net(device, torch.bfloat16)
+    bcands, scands = net.fusion_candidates()
+    entries = store.entries()
+
+    def wins(key):
+        return key in entries and winner(entries[key]) == "kernel"
+
+    chosen = {b for b, g in bcands.items() if wins(_block_key(g, "bfloat16"))}
+    stem_on = any(wins(_stem_key(g, "bfloat16")) for g in scands.values())
+    reset_default_store(store)
+    try:
+        record = apply_execution_plan(net, "auto", store=store)
+        net.set_fusion(False)
+        zero_counts()
+        _, loss = fit_s(net, x, y, "auto")
+        counts = read_counts()
+    finally:
+        reset_default_store(None)
+    fusion = net._fusion()
+    resolved = (set(fusion[1]), bool(fusion[2]))
+    del net
+    torch.cuda.empty_cache()
+    return (record, (chosen, stem_on), resolved,
+            expected_launches(bcands, chosen, stem_on), counts, loss)
+
+
+def auto_plan(device):
+    """``calibrate_training_kernels`` on the full-width ResNet50 (bf16)
+    into a store in a temporary directory; a fresh net's
+    ``fit(execution_plan="auto")`` launches what the verdicts imply; the
+    store saved and loaded back resolves the same way; entries stamped
+    with another device kind resolve to the xla plan; a store with
+    synthetic verdicts picking the stem and a subset of blocks."""
+    import os
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.tuning import (
+        KernelCrossoverStore, apply_execution_plan,
+        calibrate_training_kernels, winner)
+    from deeplearning4j_tpu_torch.tuning.crossover import CROSSOVER_NAME
+    tmp = tempfile.mkdtemp(prefix="dl4j_crossover_")
+    failures = []
+    rec = {"store_dir": "a temporary directory"}
+    try:
+        path = os.path.join(tmp, CROSSOVER_NAME)
+        store = KernelCrossoverStore(path=path)
+        net = resnet_train_net(device, torch.bfloat16)
+        bcands, scands = net.fusion_candidates()
+        zero_counts()
+        t0 = time.perf_counter()
+        results = calibrate_training_kernels(net, store=store, persist=True)
+        rec["calibration_s"] = time.perf_counter() - t0
+        rec["calibration_launches"] = read_counts()
+        rec["calibration"] = {
+            key: {"kernel_ms": e["kernel_ms"],
+                  "fallback_ms": e["fallback_ms"], "verdict": winner(e),
+                  "device_kind": e["device_kind"]}
+            for key, e in results.items()}
+        del net
+        torch.cuda.empty_cache()
+        from deeplearning4j_tpu_torch.tuning.plan import _block_key, _stem_key
+        want_keys = {_block_key(g, "bfloat16") for g in bcands.values()} | \
+            {_stem_key(g, "bfloat16") for g in scands.values()}
+        if set(results) != want_keys or not scands:
+            failures.append(f"calibrated {sorted(results)}, the net's "
+                            f"distinct shapes are {sorted(want_keys)}")
+        if rec["calibration_launches"]["stem_bwd_dx"] < 1:
+            failures.append("calibration did not launch stem_bwd_dx")
+        x, y = train_images(RESNET_B)
+        runs = {}
+        for label, st in (("calibrated", store),
+                          ("loaded", KernelCrossoverStore.load(path))):
+            record, implied, resolved, want, counts, loss = auto_fit(
+                device, st, x, y)
+            runs[label] = record
+            rec[label] = {"blocks": record["blocks"],
+                          "stem": record["stem"], "launches": counts,
+                          "want": want, "loss": loss}
+            if resolved != implied:
+                failures.append(f"{label}: the plan fused {resolved}, the "
+                                f"verdicts imply {implied}")
+            if {n: counts[n] for n in want} != want:
+                failures.append(f"{label}: launches {counts}, want {want}")
+            if not np.isfinite(loss):
+                failures.append(f"{label}: loss not finite")
+        if runs["loaded"] != runs["calibrated"]:
+            failures.append("the loaded store resolves otherwise")
+        # entries of another card: "auto" is the xla plan
+        foreign = KernelCrossoverStore(
+            path=os.path.join(tmp, "foreign.json"),
+            entries={k: {**e, "device_kind": "another card"}
+                     for k, e in store.entries().items()})
+        net = resnet_train_net(device, torch.bfloat16)
+        r = apply_execution_plan(net, "auto", store=foreign)
+        rec["foreign"] = {"level": r["level"], "blocks": r["blocks"],
+                          "stem": r["stem"]}
+        if r["level"] is not False or r["stem"] or net.fusion_level:
+            failures.append("a foreign card's entries engaged a kernel")
+        del net
+        # synthetic verdicts: the stem and the blocks of two stages win
+        synth = KernelCrossoverStore(path=os.path.join(tmp, "synth.json"))
+        for b, g in bcands.items():
+            win = b.startswith(AUTO_SYNTHETIC_STAGES)
+            synth.record(_block_key(g, "bfloat16"), 1.0 if win else 2.0,
+                         1.5, device=device)
+        for g in scands.values():
+            synth.record(_stem_key(g, "bfloat16"), 1.0, 1.5, device=device)
+        record, implied, resolved, want, counts, loss = auto_fit(
+            device, synth, x, y)
+        rec["synthetic"] = {"blocks": record["blocks"],
+                            "stem": record["stem"], "launches": counts,
+                            "want": want, "loss": loss}
+        if resolved != implied or not implied[1] or \
+                not 0 < len(implied[0]) < len(bcands):
+            failures.append(f"synthetic: fused {resolved}, implied "
+                            f"{implied}")
+        if {n: counts[n] for n in want} != want or not np.isfinite(loss):
+            failures.append(f"synthetic: launches {counts}, want {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("auto plan:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"auto plan: {failures}: {rec}")
     return rec
 
 
@@ -2086,6 +2684,32 @@ def bwd_entry(name, replaces, launches, cases):
             "cases": [{k: c[k] for k in ("case", "dtype", "batch", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by", *keys)
+                       if k in c} for c in mine]}
+
+
+def stem_bwd_entry(name, replaces, launches, path, cases):
+    """A stem backward kernel's entry of the kernels line: its numbers at
+    the main path's shape (the bf16 case), every case's, and the path
+    its launches were counted on."""
+    mine = [c for c in cases if c["kernel"] == name]
+    main = mine[0]
+    library = {"stem_bwd_pool": "aten.max_pool2d_with_indices_backward",
+               "stem_bwd_dw": "aten.convolution_backward (cuDNN wgrad)",
+               "stem_bwd_dx": "aten.convolution_backward (cuDNN dgrad)"}
+    keys = ("max_abs_err", "sums_rel", "dz0", "dy", "dW", "dx", "planted")
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/nn/layers/csrc/stem_bwd.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_on": path,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": library[name], "dtype": main["dtype"],
+            "batch": main["batch"], "limits": main["limits"],
+            "max_abs_err_all": max(c["max_abs_err"] for c in mine),
+            "cases": [{k: c[k] for k in ("dtype", "batch", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", *keys)
                        if k in c} for c in mine]}
 
 
@@ -2139,7 +2763,11 @@ def kernel_entry(name, source, replaces, launches, main, cases):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
+    ap.add_argument("--phases", help="a comma-separated subset of the "
+                    "phases to run (by their phase_s names; debugging): "
+                    "no kernels line and no result line")
     args = ap.parse_args(argv)
+    only = set(args.phases.split(",")) if args.phases else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
@@ -2171,46 +2799,87 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return r
 
-    rng = np.random.default_rng(0)
-    out["paged_cases"] = phase("paged", check_paged_kernel, device, rng)
-    out["flash_cases"] = phase("flash", check_flash_kernels, device,
-                               exp_rate)
-    out["serve"], out["serve_launches"] = phase("serve", serve, device, rng)
-    log("serve:", json.dumps({**out["serve"], "card": smi}))
-    out["profile"] = phase("profile", profile_decode, device, rng)
-    log("profile:", json.dumps({**out["profile"], "card": smi}))
-    out["reference"] = phase("reference", reference, device, rng)
-    train_rec, net, batch = phase("train", train, device, rng)
-    log("train:", json.dumps({
-        "tokens_per_s": train_rec["tokens_per_s"],
-        "step_ms_median": train_rec["step_ms_median"],
-        "max_memory_allocated_bytes":
-            train_rec["max_memory_allocated_bytes"], "card": smi}))
-    out["train"] = train_rec
-    out["train_profile"] = phase("train_profile", profile_train, net, batch)
-    del net, batch
-    out["train_reference"] = phase("train_reference", train_reference,
-                                   device, rng)
-    out["cnn_cases"] = phase("cnn", check_cnn_kernels, device)
-    out["resnet"] = phase("resnet", resnet, device)
-    log("resnet:", json.dumps({
-        "images_per_s_fused": out["resnet"]["fused"]["images_per_s"],
-        "images_per_s_xla": out["resnet"]["xla"]["images_per_s"],
-        "max_memory_allocated_bytes":
-            out["resnet"]["max_memory_allocated_bytes"], "card": smi}))
-    out["resnet_reference"] = phase("resnet_reference", resnet_reference,
-                                    device)
-    out["cnn_bwd_cases"] = phase("cnn_bwd", check_cnn_bwd_kernels, device)
-    rt = out["resnet_train"] = phase("resnet_train", resnet_train, device)
-    log("resnet train:", json.dumps({
-        "images_per_s_fused": rt["images_per_s"],
-        "step_ms_median": rt["step_ms_median"],
-        "images_per_s_xla": rt["turns_xla"]["images_per_s"],
-        "max_memory_allocated_bytes": rt["max_memory_allocated_bytes"],
-        "card": smi}))
-    out["resnet_train_reference"] = phase(
-        "resnet_train_reference", resnet_train_reference, device)
+    def want(name):
+        return only is None or name in only
 
+    rng = np.random.default_rng(0)
+    if want("paged"):
+        out["paged_cases"] = phase("paged", check_paged_kernel, device, rng)
+    if want("flash"):
+        out["flash_cases"] = phase("flash", check_flash_kernels, device,
+                                   exp_rate)
+    if want("serve"):
+        out["serve"], out["serve_launches"] = phase("serve", serve, device,
+                                                    rng)
+        log("serve:", json.dumps({**out["serve"], "card": smi}))
+        out["profile"] = phase("profile", profile_decode, device, rng)
+        log("profile:", json.dumps({**out["profile"], "card": smi}))
+        out["reference"] = phase("reference", reference, device, rng)
+    if want("train"):
+        train_rec, net, batch = phase("train", train, device, rng)
+        log("train:", json.dumps({
+            "tokens_per_s": train_rec["tokens_per_s"],
+            "step_ms_median": train_rec["step_ms_median"],
+            "max_memory_allocated_bytes":
+                train_rec["max_memory_allocated_bytes"], "card": smi}))
+        out["train"] = train_rec
+        out["train_profile"] = phase("train_profile", profile_train, net,
+                                     batch)
+        del net, batch
+        out["train_reference"] = phase("train_reference", train_reference,
+                                       device, rng)
+    if want("cnn"):
+        out["cnn_cases"] = phase("cnn", check_cnn_kernels, device)
+    if want("resnet"):
+        out["resnet"] = phase("resnet", resnet, device)
+        log("resnet:", json.dumps({
+            "images_per_s_fused": out["resnet"]["fused"]["images_per_s"],
+            "images_per_s_xla": out["resnet"]["xla"]["images_per_s"],
+            "max_memory_allocated_bytes":
+                out["resnet"]["max_memory_allocated_bytes"], "card": smi}))
+        out["resnet_reference"] = phase("resnet_reference",
+                                        resnet_reference, device)
+    if want("cnn_bwd"):
+        out["cnn_bwd_cases"] = phase("cnn_bwd", check_cnn_bwd_kernels,
+                                     device)
+    if want("resnet_train"):
+        rt = out["resnet_train"] = phase("resnet_train", resnet_train,
+                                         device)
+        log("resnet train:", json.dumps({
+            "images_per_s_fused": rt["images_per_s"],
+            "step_ms_median": rt["step_ms_median"],
+            "images_per_s_xla": rt["turns_xla"]["images_per_s"],
+            "max_memory_allocated_bytes": rt["max_memory_allocated_bytes"],
+            "card": smi}))
+        out["resnet_train_reference"] = phase(
+            "resnet_train_reference", resnet_train_reference, device)
+    if want("stem_bwd"):
+        out["stem_bwd_cases"] = phase("stem_bwd", check_stem_bwd_kernels,
+                                      device)
+    if want("resnet_train_stem"):
+        xla_losses = out.get("resnet_train", {}).get("against_xla", {}) \
+            .get("losses_xla")
+        rs = out["resnet_train_stem"] = phase(
+            "resnet_train_stem", resnet_train_stem, device, xla_losses)
+        log("resnet train stem:", json.dumps({
+            plan: {k: rs["turns_" + plan][k]
+                   for k in ("step_ms_median", "images_per_s",
+                             "max_memory_allocated_bytes")}
+            for plan in ("fused_stem", "fused", "xla")} | {"card": smi}))
+        out["resnet_train_stem_reference"] = phase(
+            "resnet_train_stem_reference", resnet_train_reference, device,
+            True)
+    if want("auto_plan"):
+        out["auto_plan"] = phase("auto_plan", auto_plan, device)
+
+    if only is not None:
+        log(f"chip_smoke: phases {sorted(only)} passed in "
+            f"{time.perf_counter() - t_start:.1f} s (a partial run: no "
+            f"kernels line, no result line)")
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
     total_s = time.perf_counter() - t_start
     out.update(total_s=total_s, phase_s=phase_s)
     log(f"chip_smoke: all phases passed in {total_s:.1f} s "
@@ -2265,6 +2934,17 @@ def kernels_line(out):
         kernels.append(bwd_entry(
             name, f"deeplearning4j_tpu/nn/layers/bottleneck.py:{line}",
             out["resnet_train"]["launches"][name], out["cnn_bwd_cases"]))
+    # the input gradient is off fit's path (the stem's input is the
+    # network input): its launches are the calibration's
+    for name, line in (("stem_bwd_pool", 220), ("stem_bwd_dw", 268),
+                       ("stem_bwd_dx", 305)):
+        on_dx = name == "stem_bwd_dx"
+        kernels.append(stem_bwd_entry(
+            name, f"deeplearning4j_tpu/nn/layers/stem.py:{line}",
+            (out["auto_plan"]["calibration_launches"] if on_dx
+             else out["resnet_train_stem"]["launches"])[name],
+            "calibrate_training_kernels" if on_dx
+            else "fit with the stem engaged", out["stem_bwd_cases"]))
     return kernels
 
 

@@ -14,10 +14,15 @@ carrying on quietly on the CPU.
 Ported so far: the rope transformer served through the paged
 generation engine (``zoo.TextGenerationTransformer``,
 ``serving.GenerationEngine``) with the paged-decode kernel
-(``serving/csrc/paged_attention.cu``), and the transformer trained
-through ``ComputationGraph.fit`` (losses, Sgd/Adam, learned positions)
-with the flash-attention forward and backward kernels
-(``nn/layers/csrc/flash_attention.cu``). ROADMAP.md lists the rest.
+(``serving/csrc/paged_attention.cu``); the transformer trained through
+``ComputationGraph.fit`` (losses, Sgd/Adam, learned positions) with the
+flash-attention forward and backward kernels
+(``nn/layers/csrc/flash_attention.cu``); ResNet50 (``zoo.ResNet50``)
+classifying and training on the fused execution plan, its bottleneck
+blocks and stem through the conv kernels and their backward kernels
+(``nn/layers/csrc/bottleneck.cu``, ``bottleneck_bwd.cu``, ``stem.cu``,
+``stem_bwd.cu``), the plan resolved from a measured kernel-crossover
+store (``tuning``). ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,7 @@ jit cache: each call runs the vertex loop directly, and a train step is
 one autograd pass over it, with batch statistics in every BN (``fit``
 trains ResNet50 on either execution plan). Fused multi-step dispatch,
 prefetch, listeners and the non-finite sentinel (ROADMAP.md A4, A5) and
-masks (A6) are refused, and so is training with the stem kernels engaged
-(ROADMAP.md, ResNet50 training with the stem).
+masks (A6) are refused.
 
 Execution plans (``set_fusion``, resolved by ``tuning/plan.py``): at
 level ``"bottleneck"`` each ResNet bottleneck chain (conv1x1 -> BN ->
@@ -24,9 +23,9 @@ gates are the port's own (they refuse what the kernels do not take, not
 the TPU's VMEM budget). Parameters and state stay keyed by the original
 vertex names, so a plan changes how a chain runs, not what it computes.
 In training a fused block differentiates through the bottleneck's
-backward kernels and writes each BN's decayed running statistics under
-its vertex name. Level ``True`` (the bn -> act -> conv1x1 plan) is
-ROADMAP.md B3.
+backward kernels, and the fused stem through the stem's, each writing
+its BNs' decayed running statistics under their vertex names. Level
+``True`` (the bn -> act -> conv1x1 plan) is ROADMAP.md B3.
 
 Parameters live in ``net.params`` as ``{vertex: {name: tensor}}`` (f32
 master weights) on ``net.device``; ``net.state`` carries the BN running
@@ -560,20 +559,24 @@ class ComputationGraph:
                 new_state[bn_name] = {"mean": stats[2 * i].detach(),
                                       "var": stats[2 * i + 1].detach()}
 
-    def _apply_fused_stem(self, out_name, group, params, state, acts, *,
-                          train):
+    def _apply_fused_stem(self, out_name, group, params, state, new_state,
+                          acts, *, train):
         """Run the stem group through the kernels: reads the network
         input (through the absorbed pad vertex's preprocessor, the entry
-        transpose), writes the pooled output into ``acts[out_name]``.
-        Training through it is refused by ``fused_stem``."""
+        transpose), writes the pooled output into ``acts[out_name]`` and,
+        in training, the stem BN's new running statistics (detached) into
+        ``new_state`` under its vertex name."""
         from deeplearning4j_tpu_torch.nn.layers.stem import fused_stem
         x = acts[group["src"]]
         if group["pre_vertex"]:
             x = self.conf.vertices[group["pre_vertex"]].preprocessor.apply(x)
         bn, p = self._bn_params(group["bn"], params, state, x.dtype)
-        acts[out_name], _ = fused_stem(
+        acts[out_name], (mean, var) = fused_stem(
             x.contiguous(), self._kernel_weight(params, group["conv"], "s2d"),
-            p, train=train, eps=bn.eps)
+            p, train=train, eps=bn.eps, decay=bn.decay)
+        if train:
+            new_state[group["bn"]] = {"mean": mean.detach(),
+                                      "var": var.detach()}
 
     def _kernel_weight(self, params, name, layout):
         """Conv vertex ``name``'s OIHW weight in a kernel's layout: "1x1"
@@ -677,7 +680,7 @@ class ComputationGraph:
                                              train=train)
             elif name in splan:
                 self._apply_fused_stem(name, splan[name], params, state,
-                                       acts, train=train)
+                                       new_state, acts, train=train)
             if name in bplan or name in splan:
                 new_state[name] = state.get(name, {})
                 continue
@@ -782,9 +785,12 @@ class ComputationGraph:
         """Train: one optimizer step per batch. ``data`` is a DataSet, an
         iterator of DataSets, or features with ``labels`` (arrays, or
         dicts keyed by input / output name), batched by
-        ``batch_size``. ``execution_plan`` ("fused" | "xla") is resolved
-        once per call (``tuning/plan.py``); None keeps the net's plan. A
-        fused bottleneck block trains through the backward kernels."""
+        ``batch_size``. ``execution_plan`` ("auto" | "fused" | "xla") is
+        resolved once per call (``tuning/plan.py``: "auto" per shape from
+        the kernel-crossover store, "fused" every eligible block and the
+        stem where the store says it wins); None keeps the net's plan. A
+        fused bottleneck block or stem trains through its backward
+        kernels."""
         if steps_per_dispatch != 1:
             raise NotImplementedError("fused multi-step dispatch "
                                       "(steps_per_dispatch > 1) is not "
@@ -801,12 +807,6 @@ class ComputationGraph:
             from deeplearning4j_tpu_torch.tuning.plan import (
                 apply_execution_plan)
             apply_execution_plan(self, execution_plan)
-        if self._fusion()[2]:
-            raise NotImplementedError(
-                "training with the stem kernels engaged (fused_stem's "
-                "backward kernels) is not ported yet (ROADMAP.md, ResNet50 "
-                "training with the stem); set_fusion('bottleneck') trains "
-                "the blocks fused and the stem unfused")
         if labels is not None:
             it = ArrayDataSetIterator(data, labels, batch_size)
         elif isinstance(data, DataSet):

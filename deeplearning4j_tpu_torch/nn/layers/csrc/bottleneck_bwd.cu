@@ -400,20 +400,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dW = the splits' partials summed in order (f64), one thread per entry.
-constexpr int kSplitThreads = 256;
-
-__global__ void __launch_bounds__(kSplitThreads)
-    reduce_splits_kernel(const float* __restrict__ part, int splits,
-                         int64_t size, float* __restrict__ dw) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kSplitThreads + threadIdx.x;
-  if (i >= size) return;
-  double a = 0.0;
-  for (int z = 0; z < splits; ++z) a += part[z * size + i];
-  dw[i] = static_cast<float>(a);
-}
-
 // Launch one stage's four kernels on `stream`: the dz pass, the sums'
 // fixed-order reduction (relu prologue only), the dW pass and its split
 // reduction. Refuses (cudaErrorInvalidValue, before any launch) partials
@@ -457,13 +443,8 @@ int stage_bwd(const void* yk, const void* g, const void* yprev,
       ykp, gp, ypp, akp, app, static_cast<float*>(dw_part), s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t size = static_cast<int64_t>(red_r) * s.k;
-  reduce_splits_kernel<<<static_cast<unsigned>((size + kSplitThreads - 1) /
-                                               kSplitThreads),
-                         kSplitThreads, 0, st>>>(
-      static_cast<const float*>(dw_part), s.splits, size,
-      static_cast<float*>(dw));
-  return static_cast<int>(cudaGetLastError());
+  return dl4j_conv::reduce_splits(dw_part, s.splits,
+                                  static_cast<int64_t>(red_r) * s.k, dw, st);
 }
 
 template <typename T>

@@ -1,7 +1,9 @@
 // Implicit-GEMM convolution with a BN-affine prologue and a per-channel
 // sum / sum-of-squares epilogue, shared by the bottleneck kernels
 // (bottleneck.cu: 1x1 and 3x3) and the space-to-depth stem conv
-// (stem.cu). Layouts are the JAX package's: x NHWC, the weight as the
+// (stem.cu); its tile step, partial sums, fixed-order reductions and the
+// stem's im2col decode also serve the backward passes (bottleneck_bwd.cu,
+// stem_bwd.cu). Layouts are the JAX package's: x NHWC, the weight as the
 // contraction matrix [R, K] (R = C for a 1x1 conv, 9C tap-major for the
 // 3x3, 64C in the phase-major space-to-depth order for the stem), the
 // output NHWC [N, Ho, Wo, K].
@@ -351,6 +353,34 @@ __global__ void __launch_bounds__(kReduceThreads)
     s1[col] = static_cast<float>(ra[0]);
     s2[col] = static_cast<float>(rb[0]);
   }
+}
+
+// A weight gradient split over the pixels into f32 partials [splits,
+// size]: summed over the splits in order (f64), one thread per entry, so
+// the same result on every run and no float atomics. Used by the
+// backward kernels' dW passes (bottleneck_bwd.cu, stem_bwd.cu).
+constexpr int kSplitThreads = 256;
+
+__global__ void __launch_bounds__(kSplitThreads)
+    reduce_splits_kernel(const float* __restrict__ part, int splits,
+                         int64_t size, float* __restrict__ dw) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kSplitThreads + threadIdx.x;
+  if (i >= size) return;
+  double a = 0.0;
+  for (int z = 0; z < splits; ++z) a += part[z * size + i];
+  dw[i] = static_cast<float>(a);
+}
+
+// Launch reduce_splits_kernel over `size` entries on `stream`.
+inline int reduce_splits(const void* part, int splits, int64_t size,
+                         void* dw, cudaStream_t stream) {
+  reduce_splits_kernel<<<static_cast<unsigned>((size + kSplitThreads - 1) /
+                                                kSplitThreads),
+                         kSplitThreads, 0, stream>>>(
+      static_cast<const float*>(part), splits, size,
+      static_cast<float*>(dw));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The number of row blocks the GEMM launches: the partials' second dim.

@@ -1,5 +1,6 @@
-"""The fused ResNet stem, forward (inference): space-to-depth 7x7/2 conv
-with its sums, then BN affine + relu + 3x3/2 max pool in one pass.
+"""The fused ResNet stem, forward and backward: space-to-depth 7x7/2
+conv with its sums, then BN affine + relu + 3x3/2 max pool in one pass,
+and the three backward passes.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/stem.py``. The 7x7/2 conv
 over the input zero-padded by 3 is a 4x4/1 conv over the space-to-depth
@@ -10,25 +11,31 @@ squares of the stored output. The output stage normalizes, applies relu
 and max-pools (3x3/2, pad 1, the padding -inf after the relu) in one
 read of the conv output.
 
-The two kernels are hand-written CUDA C++ for Hopper, ``csrc/stem.cu``
-(the conv over the implicit GEMM of ``csrc/conv_gemm.cuh``, which builds
-the im2col from the raw image as it goes); they replace the TPU kernels
-``_stem_conv_kernel`` and ``_stem_pool_kernel`` (the source note there
-says what bounds them and what their design does about that). Each
-wrapper launches its kernel on CUDA tensors (or raises on what it does
-not take) and takes the plain version beside it on CPU tensors, written
-as the JAX kernel body.
+The kernels are hand-written CUDA C++ for Hopper: ``csrc/stem.cu`` (the
+conv over the implicit GEMM of ``csrc/conv_gemm.cuh``, which builds the
+im2col from the raw image as it goes, and the pool) replaces the TPU
+kernels ``_stem_conv_kernel`` and ``_stem_pool_kernel``; ``csrc/
+stem_bwd.cu`` replaces ``_stem_bwd_pool_kernel`` (the pool and relu
+backward with the BN-backward sums), ``_stem_bwd_dw_kernel`` (the BN
+backward and the weight gradient) and ``_stem_bwd_dx_kernel`` (the input
+gradient); the source notes say what bounds each and what its design
+does about that. Each wrapper launches its kernel on CUDA tensors (or
+raises on what it does not take) and takes the plain version beside it
+on CPU tensors, written as the JAX kernel body over the batch.
 
-Inference only: ``fused_stem(train=True)`` and the three backward
-kernels (``_stem_bwd_pool_kernel``, ``_stem_bwd_dw_kernel``,
-``_stem_bwd_dx_kernel``) are ROADMAP.md's "ResNet50 training with the
-stem". ResNet50 trains with the stem unfused (the "fused" plan leaves it
-off, as the JAX package does on an uncalibrated crossover store).
+Training (``fused_stem(train=True)``) normalizes with the batch
+statistics from the conv kernel's sums and differentiates through
+:class:`StemTrain`, the counterpart of the JAX ``_stem_core`` with its
+``custom_vjp``. As there, the pool backward sends the gradient to EVERY
+tied window maximum, compared in the model dtype (XLA's and torch's
+max-pool gradients pick one): in bf16 ties are common, so the fused
+stem's gradient differs from the unfused plan's there by design.
 
 The gate is the port's own: the JAX package's ``fused_stem_supported``
 encodes the TPU's VMEM budget (it refuses the f32 stem at 224x224); the
-kernel tiles any image, so :func:`fused_stem_supported` asks only for an
-NHWC input in f32 or bf16.
+kernels tile any image, so :func:`fused_stem_supported` asks only for an
+NHWC input in f32 or bf16 with at most 192 channels (the input
+gradient's kernel keeps the weight in shared memory).
 """
 
 from __future__ import annotations
@@ -40,17 +47,28 @@ import torch
 
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
-    BnParams, _bn_affine, _dtype_ok, _outputs, _stats, _stream)
+    BnParams, _affine, _bn_affine, _dtype_ok, _dw_splits, _finalize_stats,
+    _outputs, _rows, _stats, _stream)
+from deeplearning4j_tpu_torch.nn.layers.normalization import decayed
 
-__all__ = ["STEM_CONV", "STEM_POOL", "fused_stem", "fused_stem_supported",
-           "reference_stem", "stem_conv", "stem_conv_plain",
+__all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
+           "STEM_POOL", "StemTrain", "fused_stem", "fused_stem_supported",
+           "reference_stem", "stem_bwd_dw", "stem_bwd_dw_plain",
+           "stem_bwd_dx", "stem_bwd_dx_plain", "stem_bwd_pool",
+           "stem_bwd_pool_plain", "stem_conv", "stem_conv_plain",
            "stem_geometry", "stem_pool", "stem_pool_plain",
            "stem_weight_s2d"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _POOL_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+_BWD_POOL_ARGS = [_P] * 8 + [_I] * 5 + [_P]
+_BWD_DW_ARGS = [_P] * 7 + [_I] * 6 + [_P]
+_BWD_DX_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the input gradient's kernel holds the [64 C, K] weight in 48 KB of
+#: shared memory, at least one reduction row of it: C <= 192
+_MAX_CHANNELS = 192
 
 
 def _symbols(stem):
@@ -65,9 +83,24 @@ _LIBRARY = CudaLibrary(
      "dl4j_conv_row_tile": []},
     headers=["nn/layers/csrc/conv_gemm.cuh"])
 
-#: the two kernels; each ``.launches`` counts its launches
+_BWD_LIBRARY = CudaLibrary(
+    "stem_bwd", ["nn/layers/csrc/stem_bwd.cu"],
+    {**{s: _BWD_POOL_ARGS for s in _symbols("stem_bwd_pool").values()},
+     **{s: _BWD_DW_ARGS for s in _symbols("stem_bwd_dw").values()},
+     **{s: _BWD_DX_ARGS for s in _symbols("stem_bwd_dx").values()},
+     "dl4j_stem_bwd_pool_tile": []},
+    headers=["nn/layers/csrc/conv_gemm.cuh"])
+
+#: the five kernels; each ``.launches`` counts its launches (an entry
+#: point that launches a pass and its reduction counts once)
 STEM_CONV = CudaKernel(_LIBRARY, "stem_conv", _symbols("stem_conv"))
 STEM_POOL = CudaKernel(_LIBRARY, "stem_pool", _symbols("stem_pool"))
+STEM_BWD_POOL = CudaKernel(_BWD_LIBRARY, "stem_bwd_pool",
+                           _symbols("stem_bwd_pool"))
+STEM_BWD_DW = CudaKernel(_BWD_LIBRARY, "stem_bwd_dw",
+                         _symbols("stem_bwd_dw"))
+STEM_BWD_DX = CudaKernel(_BWD_LIBRARY, "stem_bwd_dx",
+                         _symbols("stem_bwd_dx"))
 
 
 def stem_geometry(h: int, w: int) -> dict:
@@ -99,15 +132,18 @@ def stem_weight_s2d(w4: torch.Tensor) -> torch.Tensor:
 
 def fused_stem_supported(x_shape, n_out: int, dtype) -> bool:
     """Whether the kernels take this stem: NHWC ``[N, H, W, C]`` in f32
-    or bf16. Any size fits (the JAX gate's VMEM budget does not
-    apply)."""
-    return len(x_shape) == 4 and _dtype_ok(dtype)
+    or bf16, ``C <= 192``. Any size fits (the JAX gate's VMEM budget does
+    not apply)."""
+    return len(x_shape) == 4 and x_shape[3] <= _MAX_CHANNELS and \
+        _dtype_ok(dtype)
 
 
 # ---------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------
 def _check(name, **tensors):
+    """Raise on what a kernel does not take: the first tensor sets the
+    device and dtype; ``sc``, ``bb`` and ``aff`` are f32."""
     first = next(iter(tensors.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
@@ -119,7 +155,7 @@ def _check(name, **tensors):
         if t.device != first.device:
             raise ValueError(f"{name}: {key} is on {t.device}, not "
                              f"{first.device}")
-        want = torch.float32 if key in ("sc", "bb") else first.dtype
+        want = torch.float32 if key in ("sc", "bb", "aff") else first.dtype
         if t.dtype != want:
             raise ValueError(f"{name}: {key} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
@@ -168,6 +204,111 @@ def stem_pool(y, sc, bb):
         STEM_POOL.launch(y.dtype, y.data_ptr(), sc.data_ptr(), bb.data_ptr(),
                          out.data_ptr(), n, ho, wo, k, _stream(y))
     return out
+
+
+def _nhwc4(name, **tensors):
+    for key, t in tensors.items():
+        if t.dim() != 4:
+            raise ValueError(f"{name}: {key} must be NHWC, got "
+                             f"{tuple(t.shape)}")
+
+
+def stem_bwd_pool(y, g, aff):
+    """The pool and relu backward: y ``[N, ho, wo, K]`` the raw conv
+    output, g ``[N, po, pw, K]`` the pooled output's gradient in y's
+    dtype, aff ``[4, K]`` f32 rows (sc, bb, inv, mu). Every window sends
+    its gradient to every position whose ``relu(y sc + bb)``, rounded to
+    y's dtype, ties its maximum; the relu' mask on the unrounded ``y sc
+    + bb``. Returns ``(dz0, sums)``: dz0 ``[N, ho, wo, K]`` in y's dtype
+    and sums ``[2, K]`` f32, ``(Σdz0, Σdz0 ŷ)`` over the stored dz0, ``ŷ
+    = (y - mu) inv``. The kernel on CUDA tensors,
+    :func:`stem_bwd_pool_plain` on CPU tensors."""
+    _nhwc4("stem_bwd_pool", y=y, g=g)
+    n, ho, wo, k = y.shape
+    want = (n, (ho - 1) // 2 + 1, (wo - 1) // 2 + 1, k)
+    if tuple(g.shape) != want or tuple(aff.shape) != (4, k):
+        raise ValueError(f"stem_bwd_pool: g {tuple(g.shape)} and aff "
+                         f"{tuple(aff.shape)} must be {want} and (4, {k})")
+    if y.device.type == "cpu":
+        return stem_bwd_pool_plain(y, g, aff)
+    _check("stem_bwd_pool", y=y, g=g, aff=aff)
+    f32 = torch.float32
+    dz = torch.empty_like(y)
+    sums = torch.zeros((2, k), dtype=f32, device=y.device)
+    if not dz.numel():
+        return dz, sums
+    tiles = -(-(n * ho * wo) // _BWD_LIBRARY.load().dl4j_stem_bwd_pool_tile())
+    part = torch.empty((2, k, tiles), dtype=f32, device=y.device)
+    STEM_BWD_POOL.launch(y.dtype, y.data_ptr(), g.data_ptr(), aff.data_ptr(),
+                         dz.data_ptr(), part[0].data_ptr(),
+                         part[1].data_ptr(), sums[0].data_ptr(),
+                         sums[1].data_ptr(), n, ho, wo, k, tiles, _stream(y))
+    return dz, sums
+
+
+def stem_bwd_dw(x, y, dz, aff):
+    """The BN backward and the weight gradient: x ``[N, H, W, C]`` the
+    stem's input, y and dz ``[N, ho, wo, K]`` the raw conv output and
+    dz0 (y's dtype), aff ``[6, K]`` f32 rows (sc, bb, inv, mu, m1, m2).
+    Returns ``(dy, dW)``: ``dy = sc (dz0 - m1 - ŷ m2)`` in f32, stored in
+    y's dtype; dW ``[64 C, K]`` f32, the space-to-depth window of x
+    against the stored dy, summed over the pixels. The kernel on CUDA
+    tensors, :func:`stem_bwd_dw_plain` on CPU tensors."""
+    _nhwc4("stem_bwd_dw", x=x, y=y, dz=dz)
+    n, h, wd, c = x.shape
+    g = stem_geometry(h, wd)
+    k = y.shape[3]
+    want = (n, g["ho"], g["wo"], k)
+    if tuple(y.shape) != want or tuple(dz.shape) != want or \
+            tuple(aff.shape) != (6, k):
+        raise ValueError(f"stem_bwd_dw: y {tuple(y.shape)}, dz "
+                         f"{tuple(dz.shape)} and aff {tuple(aff.shape)} "
+                         f"must be {want}, {want} and (6, {k})")
+    if x.device.type == "cpu":
+        return stem_bwd_dw_plain(x, y, dz, aff)
+    _check("stem_bwd_dw", x=x, y=y, dz=dz, aff=aff)
+    f32 = torch.float32
+    dy = torch.empty_like(y)
+    dw = torch.zeros((64 * c, k), dtype=f32, device=x.device)
+    rows = n * g["ho"] * g["wo"]
+    if not (rows and c and k):
+        return dy, dw
+    chunk, splits = _dw_splits(rows, -(-(64 * c) // 128) * -(-k // 64),
+                               x.device)
+    dw_part = torch.empty((splits, 64 * c, k), dtype=f32, device=x.device)
+    STEM_BWD_DW.launch(x.dtype, x.data_ptr(), y.data_ptr(), dz.data_ptr(),
+                       aff.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                       dw_part.data_ptr(), n, h, wd, c, k, chunk, splits,
+                       _stream(x))
+    return dy, dw
+
+
+def stem_bwd_dx(dy, w, x_shape):
+    """The input gradient: dy ``[N, ho, wo, K]``, w the ``[64 C, K]``
+    matrix of :func:`stem_weight_s2d` in dy's dtype, x_shape the input's
+    ``(N, H, W, C)``. Returns dx ``[N, H, W, C]`` in dy's dtype, the
+    transposed 4x4 correlation in space-to-depth coordinates un-shuffled
+    to pixels, f32 sums rounded once. The kernel on CUDA tensors,
+    :func:`stem_bwd_dx_plain` on CPU tensors."""
+    n, h, wd, c = (int(v) for v in x_shape)
+    g = stem_geometry(h, wd)
+    _nhwc4("stem_bwd_dx", dy=dy)
+    k = dy.shape[3]
+    if tuple(dy.shape) != (n, g["ho"], g["wo"], k) or \
+            tuple(w.shape) != (64 * c, k):
+        raise ValueError(f"stem_bwd_dx: dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} do not fit x {tuple(x_shape)}")
+    if dy.device.type == "cpu":
+        return stem_bwd_dx_plain(dy, w, x_shape)
+    if c > _MAX_CHANNELS:
+        raise ValueError(f"stem_bwd_dx: the kernel takes at most "
+                         f"{_MAX_CHANNELS} input channels, got {c}")
+    _check("stem_bwd_dx", dy=dy, w=w)
+    dx = torch.empty((n, h, wd, c), dtype=dy.dtype, device=dy.device)
+    if dx.numel():
+        STEM_BWD_DX.launch(dy.dtype, dy.data_ptr(), w.data_ptr(),
+                           dx.data_ptr(), n, h, wd, c, k, _stream(dy))
+    return dx
 
 
 # ---------------------------------------------------------------------
@@ -219,26 +360,153 @@ def stem_pool_plain(y, sc, bb):
     return out.to(y.dtype)
 
 
+def _pool_grad(zc, g):
+    """The 3x3/2 pad-1 max pool's gradient as the TPU kernel takes it:
+    zc ``[N, ho, wo, K]`` and g ``[N, po, pw, K]`` f32; every window
+    sends g to every position equal to its maximum (over the -inf
+    padding), the windows' shares added in the kernel's order of window
+    offsets. Returns dz ``[N, ho, wo, K]`` f32."""
+    n, ho, wo, k = zc.shape
+    po, pw = g.shape[1], g.shape[2]
+    zp = torch.nn.functional.pad(zc, (0, 0, 1, 1, 1, 1),
+                                 value=-float("inf"))
+    wins = [zp[:, i:i + 2 * po - 1:2, j:j + 2 * pw - 1:2, :]
+            for i in range(3) for j in range(3)]
+    m = wins[0]
+    for win in wins[1:]:
+        m = torch.maximum(m, win)
+    acc = torch.zeros((n, ho + 2, wo + 2, k), dtype=torch.float32,
+                      device=zc.device)
+    for t, win in enumerate(wins):
+        i, j = divmod(t, 3)
+        acc[:, i:i + 2 * po - 1:2, j:j + 2 * pw - 1:2, :] += \
+            torch.where(win == m, g, 0.0)
+    return acc[:, 1:1 + ho, 1:1 + wo, :]
+
+
+def stem_bwd_pool_plain(y, g, aff):
+    """The plain PyTorch version of :func:`stem_bwd_pool`, written as the
+    JAX ``_stem_bwd_pool_kernel``: z0 in f32, the window maxima compared
+    on relu(z0) rounded to y's dtype, the mask on z0, dz0 stored, the
+    sums over the stored values."""
+    sc, bb, inv, mu = aff
+    k = y.shape[3]
+    yf = y.float()
+    z0 = yf * sc + bb
+    zc = torch.clamp_min(z0, 0.0).to(y.dtype).float()
+    dz0 = torch.where(z0 > 0, _pool_grad(zc, g.float()), 0.0).to(y.dtype)
+    d = dz0.float().reshape(-1, k)
+    yhat = ((yf - mu) * inv).reshape(-1, k)
+    return dz0, torch.stack([d.sum(0), (d * yhat).sum(0)])
+
+
+def stem_bwd_dw_plain(x, y, dz, aff):
+    """The plain PyTorch version of :func:`stem_bwd_dw`, written as the
+    JAX ``_stem_bwd_dw_kernel``: dy op by op in f32, rounded to y's dtype;
+    dW one f32 matmul of the s2d im2col (x rounded to y's dtype) against
+    the rounded dy."""
+    sc, _, inv, mu, m1, m2 = aff
+    n, h, wd, _ = x.shape
+    g = stem_geometry(h, wd)
+    yhat = (y.float() - mu) * inv
+    dy = (sc * (dz.float() - m1 - yhat * m2)).to(y.dtype)
+    ic = _im2col(_s2d_image(x.float(), g), g).to(y.dtype).float()
+    return dy, ic.t() @ dy.float().reshape(-1, y.shape[3])
+
+
+def stem_bwd_dx_plain(dy, w, x_shape):
+    """The plain PyTorch version of :func:`stem_bwd_dx`, written as the
+    JAX ``_stem_bwd_dx_kernel``: dy padded in s2d coordinates, sixteen
+    f32 tap products against w's tap blocks summed in tap order, the
+    un-shuffle and the crop, rounded to dy's dtype."""
+    n, h, wd, c = (int(v) for v in x_shape)
+    g = stem_geometry(h, wd)
+    hs, ws, ho, wo = g["hs"], g["ws"], g["ho"], g["wo"]
+    k, c4 = dy.shape[3], 4 * c
+    dyp = torch.nn.functional.pad(dy.float(),
+                                  (0, 0, 3, ws - wo, 3, hs - ho))
+    wf = w.float()
+    acc = None
+    for t in range(16):
+        i, j = divmod(t, 4)
+        gs = dyp[:, 3 - i:3 - i + hs, 3 - j:3 - j + ws, :] \
+            .reshape(n, hs * ws, k).to(w.dtype).float()
+        tap = gs @ wf[t * c4:(t + 1) * c4].t()
+        acc = tap if acc is None else acc + tap
+    p = acc.reshape(n, hs, ws, 2, 2, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, 2 * hs, 2 * ws, c)
+    return p[:, 3:3 + h, 3:3 + wd, :].to(dy.dtype)
+
+
 # ---------------------------------------------------------------------
 # the stem
 # ---------------------------------------------------------------------
-def fused_stem(x, w, bn: BnParams, *, train: bool, eps: float = 1e-5
+class StemTrain(torch.autograd.Function):
+    """The training stem: the JAX ``_stem_core`` with its ``custom_vjp``.
+
+    ``apply(eps, x, ws, gamma, beta)``, ws the ``[64 C, K]`` matrix of
+    :func:`stem_weight_s2d`, returns ``(out, mean, var)``: the conv
+    kernel, the batch statistics from its sums over ``count = N ho wo``,
+    the affine, the pool kernel. The statistics are non-differentiable
+    outputs (the JAX vjp ignores their cotangents; they feed the running
+    averages only). x, the raw conv output y, the statistics and the
+    weights are saved; the backward runs bwd_pool, bwd_dw and, only when
+    x needs its gradient, bwd_dx."""
+
+    @staticmethod
+    def forward(ctx, eps, x, ws, gamma, beta):
+        n, h, wd, _ = x.shape
+        g = stem_geometry(h, wd)
+        count = n * g["ho"] * g["wo"]
+        y, s1, s2 = stem_conv(x, ws)
+        mean, var = _finalize_stats(s1, s2, count)
+        sc, bb, _ = _affine(gamma, beta, mean, var, eps)
+        out = stem_pool(y, sc.float().contiguous(), bb.float().contiguous())
+        ctx.eps, ctx.count = eps, count
+        ctx.save_for_backward(x, y, ws, gamma, beta, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, gout, *_stat_grads):
+        x, y, ws, gamma, beta, mean, var = ctx.saved_tensors
+        sc, bb, inv = _affine(gamma, beta, mean, var, ctx.eps)
+        dz0, sums = stem_bwd_pool(y, gout.to(y.dtype).contiguous(),
+                                  _rows(sc, bb, inv, mean))
+        aff_k = _rows(sc, bb, inv, mean, sums[0] / ctx.count,
+                      sums[1] / ctx.count)
+        dy, dw = stem_bwd_dw(x, y, dz0, aff_k)
+        dx = stem_bwd_dx(dy, ws, x.shape) if ctx.needs_input_grad[1] \
+            else None
+        return (None, dx, dw.to(ws.dtype), sums[1].to(gamma.dtype),
+                sums[0].to(beta.dtype))
+
+
+def fused_stem(x, w, bn: BnParams, *, train: bool, eps: float = 1e-5,
+               decay: float = 0.9
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The fused ResNet stem, inference. x ``[N, H, W, C]`` NHWC raw
-    input; w the OIHW conv weight ``[K, C, 7, 7]`` (rearranged here, so
-    the parameter keeps its layout) or its :func:`stem_weight_s2d` matrix
-    ``[64 C, K]`` (a caller that keeps the rearranged copy). Zero-pad 3,
-    7x7/2 conv (no bias), BN with the running statistics, relu, 3x3/2
-    pad-1 max pool. Returns
-    ``(out, (running mean, running var))`` unchanged. ``train=True`` is
-    not ported yet."""
+    """The fused ResNet stem. x ``[N, H, W, C]`` NHWC raw input; w the
+    OIHW conv weight ``[K, C, 7, 7]`` (rearranged here, so the parameter
+    keeps its layout and its gradient) or its :func:`stem_weight_s2d`
+    matrix ``[64 C, K]`` (a caller that keeps the rearranged copy).
+    Zero-pad 3, 7x7/2 conv (no bias), BN, relu, 3x3/2 pad-1 max pool.
+
+    Returns ``(out, (running mean, running var))``. Training
+    (``train=True``) normalizes with the batch statistics, differentiates
+    through :class:`StemTrain`, and decays the running statistics as the
+    unfused ``BatchNormalization`` does, ``decay * old + (1 - decay) *
+    batch`` with ``decay * old`` rounded in x's dtype (``normalization.
+    decayed``), f32. Inference uses the running statistics and returns
+    them unchanged."""
+    ws = stem_weight_s2d(w) if w.dim() == 4 else w
     if train:
-        raise NotImplementedError(
-            "fused_stem(train=True) (batch statistics and the three "
-            "backward kernels) is not ported yet (ROADMAP.md, ResNet50 "
-            "training with the stem)")
+        out, mean, var = StemTrain.apply(eps, x, ws, bn.gamma, bn.beta)
+        return out, (decayed(bn.running_mean.to(x.dtype), mean,
+                             decay).float(),
+                     decayed(bn.running_var.to(x.dtype), var,
+                             decay).float())
     sc, bb = _bn_affine(bn, eps)
-    y, _, _ = stem_conv(x, stem_weight_s2d(w) if w.dim() == 4 else w)
+    y, _, _ = stem_conv(x, ws)
     return stem_pool(y, sc, bb), (bn.running_mean, bn.running_var)
 
 

@@ -5,10 +5,12 @@ the network, ``init(device=None)`` builds it with seeded weights on the
 card (``"cuda"`` unless the caller passes ``device="cpu"``). The JAX
 zoo's build options: ``data_format="NHWC"`` runs the CNN stack in the
 internal NHWC layout (the public input stays NCHW), and
-``execution_plan="fused" | "xla"`` resolves the execution plan at build
-time (``tuning/plan.py``), for inference and training alike. The JAX zoo's direct ``fuse=`` switches are
-not ported (``fuse=True``, the bn -> act -> 1x1-conv plan, is ROADMAP.md
-B3; its ``fuse="bottleneck"`` is ``execution_plan="fused"`` here).
+``execution_plan="auto" | "fused" | "xla"`` resolves the execution plan
+at build time (``tuning/plan.py``, "auto" from the kernel-crossover
+store), for inference and training alike. The JAX zoo's direct
+``fuse=`` switches are not ported (``fuse=True``, the bn -> act ->
+1x1-conv plan, is ROADMAP.md B3; its ``fuse="bottleneck"`` is
+``execution_plan="fused"`` here).
 Pretrained checkpoints and the model registry come with the formats
 (ROADMAP.md A1).
 """
@@ -35,9 +37,6 @@ class ZooModel:
                 "ported yet (ROADMAP.md B3, with the execution plans of "
                 "ROADMAP.md A4); execution_plan='fused' selects the fused "
                 "bottleneck plan")
-        if options.get("execution_plan") == "auto":
-            raise NotImplementedError(
-                "execution_plan='auto' is not ported yet (ROADMAP.md A4)")
         self.num_classes = num_classes
         self.seed = seed
         self.options = options

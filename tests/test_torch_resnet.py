@@ -18,12 +18,12 @@ CPU.
 - The fused plan matches the same vertex groups as the JAX matchers (16
   bottleneck blocks and the stem) and skips the same vertices; with
   ``only=`` two named blocks, as the JAX graph does.
-- The refusals: ``execution_plan="auto"`` (also in ``fit``),
-  ``fit(steps_per_dispatch>1)``, ``fuse=True``, fusion level True, and
-  training or ``output(train=True)`` with the stem kernels engaged;
-  ``fit`` trains the CNN graph on the fused plan (training is
-  ``tests/test_torch_resnet_train.py``); the default device is the
-  card.
+- The refusals: ``fit(steps_per_dispatch>1)``, ``fuse=True``, fusion
+  level True; ``execution_plan="auto"`` on an uncalibrated store
+  resolves to the xla plan (in the zoo, ``apply_execution_plan`` and
+  ``fit``), and ``fit`` and ``output(train=True)`` run with the stem
+  kernels engaged (training is ``tests/test_torch_resnet_train.py`` and
+  ``test_torch_resnet_train_stem.py``); the default device is the card.
 """
 
 import jax
@@ -382,9 +382,15 @@ def test_the_entry_point_selects_the_fused_plan():
         .init(device="cpu")
     assert net.fusion_level == "bottleneck" and not net._fuse_stem
     assert len(net._fusion()[1]) == 16 and not net._fusion()[2]
-    rec = apply_execution_plan(net, "fused")
+    from deeplearning4j_tpu_torch.tuning import KernelCrossoverStore
+    # the record names each consulted candidate's key and choice: under
+    # "fused" the stem's, off on an uncalibrated store
+    rec = apply_execution_plan(
+        net, "fused", store=KernelCrossoverStore(path="/nonexistent/none"))
     assert rec == {"plan": "fused", "level": "bottleneck", "blocks": 16,
-                   "stem": False}
+                   "stem": False, "keys": {"stem_pool": {
+                       "key": "train_stem|cin=3,cout=64,h=32,w=32|f32",
+                       "choice": "fallback"}}}
     net.set_fusion("bottleneck", stem=True)
     assert list(net._fusion()[2]) == ["stem_pool"]
     assert apply_execution_plan(net, "xla")["level"] is False
@@ -403,13 +409,18 @@ def test_the_entry_point_selects_the_fused_plan():
     assert out.dtype == torch.float32 and tuple(out.shape) == (1, CLASSES)
 
 
-def test_what_is_not_ported_is_refused():
+def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
+    from deeplearning4j_tpu_torch.tuning import (
+        KernelCrossoverStore, crossover)
+    monkeypatch.setattr(crossover, "_default_store", KernelCrossoverStore(
+        path=str(tmp_path / crossover.CROSSOVER_NAME)))
     net = ResNet50(num_classes=CLASSES, height=32, width=32,
                    data_format="NHWC").init(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        apply_execution_plan(net, "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        ResNet50(execution_plan="auto")
+    # "auto" on an uncalibrated store: the xla plan
+    assert apply_execution_plan(net, "auto")["level"] is False
+    assert ResNet50(num_classes=CLASSES, height=32, width=32,
+                    data_format="NHWC", execution_plan="auto"
+                    ).init(device="cpu").fusion_level is False
     with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
         ResNet50(fuse=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
@@ -420,20 +431,18 @@ def test_what_is_not_ported_is_refused():
         .astype(np.float32)
     y = np.eye(CLASSES, dtype=np.float32)[[0, 1]]
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        net.fit(x, y, execution_plan="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         net.fit(x, y, steps_per_dispatch=2)
-    net.set_fusion("bottleneck", stem=True)
-    with pytest.raises(NotImplementedError,
-                       match="ResNet50 training with the stem"):
-        net.output(x, train=True)
-    with pytest.raises(NotImplementedError,
-                       match="ResNet50 training with the stem"):
-        net.fit(x, y)
     assert net.iteration_count == 0
-    # the fused plan (the stem unfused) trains
-    net.fit(x, y, execution_plan="fused")
+    net.set_fusion("bottleneck", stem=True)
+    assert net.output(x, train=True).shape == (2, CLASSES)
+    # the stem kernels' plan trains; "auto" then resolves to the xla plan
+    net.fit(x, y)
     assert net.iteration_count == 1 and np.isfinite(net.score_value)
+    net.fit(x, y, execution_plan="auto")
+    assert net.iteration_count == 2 and net.fusion_level is False
+    # the fused plan (the stem off on an uncalibrated store) trains
+    net.fit(x, y, execution_plan="fused")
+    assert net.iteration_count == 3 and np.isfinite(net.score_value)
     assert net.fusion_level == "bottleneck" and not net._fusion()[2]
     with pytest.raises(ValueError, match="state tree"):
         net.load_numpy_state({"stem_bn": {"mean": np.zeros(3, np.float32)}})

@@ -9,7 +9,9 @@ stem.py) against the JAX package's, on the CPU.
   stored conv output and the pool equal but for 1-ulp flips in under 1%
   of the elements, the sums within 1e-5 of Σ|y| (Σy²: of itself).
 - ``fused_stem(train=False)`` against the JAX ``fused_stem(
-  interpret=True)`` and both packages' ``reference_stem``.
+  interpret=True)`` and both packages' ``reference_stem``; training
+  runs (held against the JAX package in
+  ``tests/test_torch_stem_train.py``).
 Inputs come from a numpy seed (continuous values: no ties in a pool
 window).
 """
@@ -114,17 +116,23 @@ def test_reference_stem_matches_jax_in_training():
     np.testing.assert_allclose(_np(v), _np(jv), atol=1e-5, rtol=1e-5)
 
 
-def test_cpu_wrappers_launch_nothing_and_train_is_refused():
+def test_cpu_wrappers_launch_nothing_and_train_runs():
     x, w7, (tbn, _) = _inputs(16, 16, "f32")
-    before = (ts.STEM_CONV.launches, ts.STEM_POOL.launches)
+    counters = (ts.STEM_CONV, ts.STEM_POOL, ts.STEM_BWD_POOL,
+                ts.STEM_BWD_DW, ts.STEM_BWD_DX)
+    before = [c.launches for c in counters]
     ts.fused_stem(x[0], w7[0], tbn, train=False)
-    assert (ts.STEM_CONV.launches, ts.STEM_POOL.launches) == before
-    with pytest.raises(NotImplementedError,
-                       match="ResNet50 training with the stem"):
-        ts.fused_stem(x[0], w7[0], tbn, train=True)
+    # training runs (StemTrain: tests/test_torch_stem_train.py)
+    out, (m, v) = ts.fused_stem(x[0], w7[0], tbn, train=True)
+    assert tuple(out.shape) == (2, 4, 4, 16)
+    assert bool(torch.isfinite(out).all()) and m.dtype == torch.float32
+    assert not torch.equal(m, tbn.running_mean)
+    assert [c.launches for c in counters] == before
     with pytest.raises(ValueError, match=r"\[64 C, K\]"):
         ts.stem_conv(x[0], w7[0])
     assert ts.fused_stem_supported((1, 224, 224, 3), 64, "float32")
     assert ts.fused_stem_supported((1, 5, 5, 3), 64, "bfloat16")
     assert not ts.fused_stem_supported((1, 224, 224, 3), 64, "float16")
     assert not ts.fused_stem_supported((224, 224, 3), 64, "float32")
+    # the input gradient's kernel keeps the weight in shared memory
+    assert not ts.fused_stem_supported((1, 8, 8, 193), 64, "float32")

@@ -1,0 +1,265 @@
+"""The port's fused-stem training (deeplearning4j_tpu_torch/nn/layers/
+stem.py: the three backward passes and ``StemTrain``) against the JAX
+package's, on the CPU.
+
+- The plain backward versions against the JAX Pallas kernels in
+  interpret mode (``_bwd_pool``, ``_bwd_dw``, ``_bwd_dx``), at an even
+  and an odd size (16x16, 15x17; C=3, K=8), f32 and bf16, on the same
+  inputs. f32: within 1e-5 of each output's largest magnitude (sums in
+  other orders; XLA fuses the pool's ``y sc + bb`` into one multiply-add,
+  1 ulp of f32). bf16 (the same rounding points): dz0, dy and dx equal
+  but for 1-ulp flips in under 1% of the elements; dW and the sums (f32)
+  within 1e-5 of the sum of their terms' magnitudes.
+- ``fused_stem(train=True)`` (``StemTrain``) against ``jax.vjp`` of the
+  JAX ``fused_stem(train=True, interpret=True)``: the output, dx, the
+  OIHW dW, dgamma, dbeta (f32 within 1e-5 of each tensor's largest
+  magnitude; bf16 equal but for 1-ulp flips in under 5% of the
+  elements, two ulps for dx and dW: a sum over pixels, rounded) and the
+  decayed running statistics (within 1e-6, the bf16 decay rounding
+  included); and against torch autograd of the port's unfused
+  ``reference_stem`` in f32 on tie-free data, within 1e-5.
+- A tie planted in bf16 (two pixels of one pool window whose f32 values
+  differ but round to one bf16 value) sends the window's gradient to
+  both, as the JAX kernel does; the maxima compared in f32 send it to
+  one.
+- The CPU wrappers launch nothing; the backward runs bwd_dx only when x
+  needs its gradient.
+Inputs come from a numpy seed; bf16 inputs are bf16 values handed to both
+packages exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.nn.layers import stem as js
+from deeplearning4j_tpu.nn.layers.bottleneck import BnParams as JBn
+from deeplearning4j_tpu_torch.nn.layers import stem as ts
+from deeplearning4j_tpu_torch.nn.layers.bottleneck import BnParams
+
+from test_torch_bottleneck import _both, _np, assert_bf16_flips
+
+SIZES = [(16, 16), (15, 17)]
+N, C, K = 2, 3, 8
+F32_REL = 1e-5
+
+
+def _close(got, want, rel=F32_REL):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    scale = max(np.abs(want).max(), 1e-30)
+    assert np.abs(got - want).max() <= rel * scale, \
+        np.abs(got - want).max() / scale
+
+
+def _sums_close(got, want, terms, rel=F32_REL):
+    """Each sum within ``rel`` of the sum of its terms' magnitudes."""
+    got, want = _np(got), _np(want)
+    mag = np.stack([np.abs(_np(t)).reshape(-1, K).sum(0) for t in terms])
+    np.testing.assert_array_less(np.abs(got - want), rel * mag + 1e-30)
+
+
+def _check(got, want, dtype, share=1e-2, ulps=1):
+    if dtype == "f32":
+        _close(got, want)
+    else:
+        assert got.dtype == torch.bfloat16
+        assert_bf16_flips(got, want, max_share=share, ulps=ulps)
+
+
+def _rows(rng, *extra):
+    """BN rows of a raw conv output drawn with per-channel statistics:
+    (sc, bb, inv, mu) and the ``extra`` rows, f32 for both packages."""
+    mu, sd = rng.normal(0, 0.3, K), rng.uniform(0.5, 1.5, K)
+    gamma, beta = rng.uniform(0.5, 1.5, K), rng.normal(0, 0.3, K)
+    inv = 1 / sd
+    sc = gamma * inv
+    rows = np.stack([sc, beta - mu * sc, inv, mu, *extra]).astype(np.float32)
+    return (torch.from_numpy(rows), jnp.asarray(rows)), mu, sd
+
+
+def _pool_inputs(h, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    g = ts.stem_geometry(h, w)
+    aff, mu, sd = _rows(rng)
+    y = _both(mu + sd * rng.standard_normal((N, g["ho"], g["wo"], K)),
+              dtype)
+    gout = _both(rng.standard_normal((N, g["po"], g["pw"], K)), dtype)
+    return g, y, gout, aff
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("h,w", SIZES)
+def test_plain_bwd_pool_matches_the_jax_kernel(h, w, dtype):
+    g, y, gout, aff = _pool_inputs(h, w, dtype, seed=h + w)
+    dz, sums = ts.stem_bwd_pool(y[0], gout[0], aff[0])
+    jdz, jsums = js._bwd_pool(y[1], gout[1], aff[1], g, True)
+    assert tuple(dz.shape) == jdz.shape and dz.dtype == y[0].dtype
+    _check(dz, jdz, dtype)
+    yhat = (y[0].float() - aff[0][3]) * aff[0][2]
+    _sums_close(sums, jsums, [dz, dz.float() * yhat])
+    # the sums are those of the stored dz0
+    d = dz.float().reshape(-1, K)
+    stored = torch.stack([d.sum(0), (d * yhat.reshape(-1, K)).sum(0)])
+    _sums_close(sums, stored, [dz, dz.float() * yhat], rel=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("h,w", SIZES)
+def test_plain_bwd_dw_matches_the_jax_kernel(h, w, dtype):
+    rng = np.random.default_rng(h * w)
+    g = ts.stem_geometry(h, w)
+    aff, mu, sd = _rows(rng, rng.normal(0, 0.05, K), rng.normal(0, 0.05, K))
+    x = _both(rng.standard_normal((N, h, w, C)), dtype)
+    y = _both(mu + sd * rng.standard_normal((N, g["ho"], g["wo"], K)),
+              dtype)
+    dz = _both(rng.standard_normal((N, g["ho"], g["wo"], K))
+               * (rng.uniform(size=(N, g["ho"], g["wo"], K)) > 0.5), dtype)
+    dy, dw = ts.stem_bwd_dw(x[0], y[0], dz[0], aff[0])
+    jdy, jdw = js._bwd_dw(x[1], y[1], dz[1], aff[1], (64 * C, K), g, True)
+    assert tuple(dw.shape) == jdw.shape == (64 * C, K)
+    assert dw.dtype == torch.float32 and dy.dtype == y[0].dtype
+    _check(dy, jdy, dtype)
+    # dW: each entry within 1e-5 of the sum of its terms' magnitudes
+    ic = ts._im2col(ts._s2d_image(x[0].float(), g), g)
+    mag = _np(ic.abs().t() @ dy.float().abs().reshape(-1, K))
+    np.testing.assert_array_less(np.abs(_np(dw) - _np(jdw)),
+                                 F32_REL * mag + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("h,w", SIZES)
+def test_plain_bwd_dx_matches_the_jax_kernel(h, w, dtype):
+    rng = np.random.default_rng(h + 2 * w)
+    g = ts.stem_geometry(h, w)
+    dy = _both(rng.standard_normal((N, g["ho"], g["wo"], K)), dtype)
+    w7 = rng.standard_normal((K, C, 7, 7)) * 0.2
+    ws = _both(_np(ts.stem_weight_s2d(torch.from_numpy(w7))), dtype)
+    dx = ts.stem_bwd_dx(dy[0], ws[0], (N, h, w, C))
+    jdx = js._bwd_dx(dy[1], ws[1], (N, h, w, C), g, True)
+    assert tuple(dx.shape) == jdx.shape == (N, h, w, C)
+    _check(dx, jdx, dtype)
+
+
+# ---------------------------------------------------------------------
+# the training stem
+# ---------------------------------------------------------------------
+def _stem_inputs(h, w, dtype, seed, n=N):
+    rng = np.random.default_rng(seed)
+    x = _both(rng.standard_normal((n, h, w, C)), dtype)
+    w7 = _both(rng.standard_normal((K, C, 7, 7)) * np.sqrt(2 / (49 * C)),
+               dtype)
+    gamma = _both(rng.uniform(0.5, 1.5, K), dtype)
+    beta = _both(rng.normal(0, 0.3, K), dtype)
+    rm = rng.normal(0, 0.5, K).astype(np.float32)
+    rv = rng.uniform(0.5, 2.0, K).astype(np.float32)
+    return x, w7, gamma, beta, (rm, rv), rng.standard_normal
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("h,w", SIZES)
+def test_stem_train_matches_the_jax_vjp(h, w, dtype):
+    x, w7, gamma, beta, (rm, rv), draw = _stem_inputs(h, w, dtype,
+                                                      seed=5 * h + w)
+    tdt = x[0].dtype
+    leaves = [t[0].clone().requires_grad_() for t in (x, w7, gamma, beta)]
+    bn = BnParams(leaves[2], leaves[3], torch.from_numpy(rm),
+                  torch.from_numpy(rv))
+    out, (nm, nv) = ts.fused_stem(leaves[0], leaves[1], bn, train=True)
+    gout = _both(draw(tuple(out.shape)), dtype)
+    grads = torch.autograd.grad(out, leaves, gout[0])
+
+    def jfn(xx, ww, gg, bb):
+        return js.fused_stem(xx, ww, JBn(gg, bb, jnp.asarray(rm),
+                                         jnp.asarray(rv)),
+                             train=True, interpret=True)
+
+    (jout, (jm, jv)), vjp = jax.vjp(jfn, x[1], w7[1], gamma[1], beta[1])
+    jgrads = vjp((gout[1], (jnp.zeros_like(jm), jnp.zeros_like(jv))))
+    assert out.dtype == tdt and tuple(out.shape) == jout.shape
+    _check(out.detach(), jout, dtype)
+    for name, got, want in zip(("dx", "dW", "dgamma", "dbeta"), grads,
+                               jgrads):
+        assert got.dtype == tdt and tuple(got.shape) == want.shape, name
+        _check(got, want, dtype, share=5e-2,
+               ulps=2 if name in ("dx", "dW") else 1)
+    for got, want in ((nm, jm), (nv, jv)):
+        assert got.dtype == torch.float32 and not got.requires_grad
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=0)
+
+
+def test_stem_train_matches_autograd_of_the_reference():
+    x, w7, gamma, beta, (rm, rv), draw = _stem_inputs(15, 17, "f32", seed=9)
+    leaves = [t[0].clone().requires_grad_() for t in (x, w7, gamma, beta)]
+    bn = BnParams(leaves[2], leaves[3], torch.from_numpy(rm),
+                  torch.from_numpy(rv))
+    out, stats = ts.fused_stem(leaves[0], leaves[1], bn, train=True)
+    ref, rstats = ts.reference_stem(leaves[0], leaves[1], bn, train=True)
+    gout = torch.from_numpy(draw(tuple(out.shape)).astype(np.float32))
+    grads = torch.autograd.grad(out, leaves, gout)
+    rgrads = torch.autograd.grad(ref, leaves, gout)
+    _close(out.detach(), ref.detach())
+    for got, want in zip(grads, rgrads):
+        _close(got, want)
+    for got, want in zip(stats, rstats):
+        _close(got, want.detach())
+
+
+def _tie():
+    """One channel, a 4x4 conv output: window (0, 0) holds y = 1 and
+    1.0078125 (adjacent bf16 values) at (0, 0) and (1, 1), the rest far
+    below; sc = 0.01, bb = 1 map them to 1.01 and 1.0100781 in f32,
+    which round to one bf16 value. Only window (0, 0) has a gradient."""
+    y = torch.full((1, 4, 4, 1), -50.0)
+    y[0, 0, 0, 0], y[0, 1, 1, 0] = 1.0, 1.0078125
+    g = torch.zeros((1, 2, 2, 1))
+    g[0, 0, 0, 0] = 1.0
+    aff = torch.tensor([[0.01], [1.0], [1.0], [0.0]])
+    return y.to(torch.bfloat16), g.to(torch.bfloat16), aff
+
+
+def test_a_bf16_tie_sends_the_gradient_to_both_positions():
+    y, g, aff = _tie()
+    dz, _ = ts.stem_bwd_pool(y, g, aff)
+    jdz, _ = js._bwd_pool(jnp.asarray(y.float().numpy(), jnp.bfloat16),
+                          jnp.asarray(g.float().numpy(), jnp.bfloat16),
+                          jnp.asarray(aff.numpy()), ts.stem_geometry(7, 7),
+                          True)
+    want = np.zeros((1, 4, 4, 1))
+    want[0, 0, 0, 0] = want[0, 1, 1, 0] = 1.0
+    np.testing.assert_array_equal(_np(dz), want)
+    np.testing.assert_array_equal(_np(jdz), want)
+    # the maxima compared in f32 (not the model dtype) pick one
+    z0 = y.float() * aff[0] + aff[1]
+    one = ts._pool_grad(torch.clamp_min(z0, 0.0), g.float())
+    assert float(one.sum()) == 1.0 and float(one[0, 1, 1, 0]) == 1.0
+
+
+def test_cpu_wrappers_launch_nothing_and_dx_only_when_needed(monkeypatch):
+    x, w7, gamma, beta, (rm, rv), draw = _stem_inputs(16, 16, "f32", seed=1)
+    counters = (ts.STEM_CONV, ts.STEM_POOL, ts.STEM_BWD_POOL,
+                ts.STEM_BWD_DW, ts.STEM_BWD_DX)
+    before = [c.launches for c in counters]
+    calls = []
+    plain = ts.stem_bwd_dx_plain
+    monkeypatch.setattr(ts, "stem_bwd_dx_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    w = w7[0].clone().requires_grad_()
+    bn = BnParams(gamma[0], beta[0], torch.from_numpy(rm),
+                  torch.from_numpy(rv))
+    out, _ = ts.fused_stem(x[0], w, bn, train=True)
+    (dw,) = torch.autograd.grad(out.sum(), [w])
+    assert calls == [] and float(dw.abs().max()) > 0
+    xg = x[0].clone().requires_grad_()
+    out, _ = ts.fused_stem(xg, w, bn, train=True)
+    torch.autograd.grad(out.sum(), [xg])
+    assert calls == [1]
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match=r"must be \("):
+        ts.stem_bwd_pool(torch.zeros(1, 4, 4, K), torch.zeros(1, 3, 2, K),
+                         torch.zeros(4, K))
+    with pytest.raises(ValueError, match="do not fit"):
+        ts.stem_bwd_dx(torch.zeros(1, 8, 8, K), torch.zeros(64 * C, K),
+                       (1, 17, 17, C))

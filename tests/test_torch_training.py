@@ -438,7 +438,6 @@ def test_fit_refuses_what_is_not_ported():
                                      max_length=T).init(device="cpu")
     x, y = _one_hot_batch(0, 2)
     for kw, item in ((dict(steps_per_dispatch=2), "A4"),
-                     (dict(execution_plan="auto"), "A4"),
                      (dict(prefetch=2), "A5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             tnet.fit(x, y, **kw)
@@ -451,6 +450,9 @@ def test_fit_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         tnet.fit(DataSet(x, y, features_mask=np.ones((2, T), np.float32)))
     assert tnet.iteration_count == 0
+    # "auto" resolves: the transformer has no fusable chain (the xla plan)
+    tnet.fit(x, y, execution_plan="auto")
+    assert tnet.iteration_count == 1 and tnet.fusion_level is False
 
 
 def test_the_engine_refuses_learned_positions():
