@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits nonzero):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
-2. build: every CUDA kernel library (paged attention, flash attention,
+2. build: every CUDA kernel library (paged attention with its int8
+   variant, flash attention,
    bottleneck, bottleneck backward, stem, stem backward) from the
    sources in the checkout, one nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
@@ -21,7 +22,11 @@ Phases (any failure exits nonzero):
    masked row, and a T that is no tile multiple; each output held to
    limits relative to each row's and each 64-row tile's own size, and
    in bf16 shown to tell apart a kernel that dropped its rounding
-   points;
+   points. The int8 paged decode (``paged_quant``): the engine and
+   GQA/verify shapes over int8 pools with power-of-two page scales, bf16
+   and f32 queries, SDPA timed on the dequantized dense view, the limits
+   shown to fail two faults planted in the plain version (the V scale
+   dropped; p rounded to bf16), edge rows and an out-of-pool page id;
 4. serve: the serving path at full width: the rope
    TextGenerationTransformer (vocab 2048, width 512, 8 heads, 6 layers,
    max_length 1024, bf16) behind the paged GenerationEngine (8 slots,
@@ -35,6 +40,17 @@ Phases (any failure exits nonzero):
    top kernels per step);
 6. reference: in f32 with 2 layers at the same width, the engine's
    greedy streams equal one-shot ``sample_stream``'s;
+6b. serve int8 (``serve_int8``): phase 4's configuration and traffic
+   with ``PagedKVConfig(kv_dtype="int8")`` and with the bf16 pool in
+   turns (int8, bf16, bf16, int8): tokens/s, ms per decode step, TTFT
+   and TPOT p50, peak memory; every int8 decode dispatch launches the
+   int8 kernel once per layer and row 15's kernel never; the pages the
+   bf16 pool's byte budget buys under int8 (>= 1.9x); ``kv_dtype=
+   "auto"`` resolving as a temporary store's verdicts imply; phase 5's
+   profile of the int8 engine's decode steps;
+6c. int8 reference (``quant_reference``): in f32 with 2 layers, the
+   int8 engine's greedy streams with the kernel equal those with its
+   plain version swapped in, and a prefix hit equals a miss;
 7. train: the training path at full width: the learned-position
    TextGenerationTransformer of bench_all.py's transformer_train_T8192
    (vocab 256, width 512, 8 heads, 6 layers, max_length 8192, Adam(3e-4),
@@ -134,14 +150,18 @@ Phases (any failure exits nonzero):
     fault planted in the stem's backward (dW summed over half the batch,
     through the kernel) fails the limit;
 19. auto plan: ``calibrate_training_kernels`` on the full-width
-    ResNet50 (bf16, B=8) into a store in a temporary directory (every
+    ResNet50 (bf16, B=128, the batch fit trains at) into a store in a
+    temporary directory (every
     distinct block shape and the stem; bwd_dx launched), each key's
     kernel and fallback ms and verdict; a fresh net's
     ``fit(execution_plan="auto")`` at B=128 fuses and launches exactly
     what the verdicts imply, and so does the store saved and loaded
     back; entries stamped with another device kind resolve to the xla
     plan; a store of synthetic verdicts (the stem and the s2 and s4
-    blocks win) engages the stem and those blocks.
+    blocks win) engages the stem and those blocks. The fallback is timed
+    as the xla plan's own layers, and ``fit(execution_plan=
+    "auto")`` on the calibrated store must be within the xla plan's
+    spread of step times, or faster, in turns.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -169,6 +189,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: the SM count and the card's top SM clock it bounds the exponentials
 EXP2_PER_CLOCK_PER_SM = 16
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # paged decode
+# The int8 paged-decode kernel against its plain version (the pools
+# dequantized exactly, then row 15's plain version): bf16 outputs within
+# row 15's limit; f32 outputs within 2e-5 (the JAX package's own
+# tolerance for its int8 kernel against the dequantized reference: the
+# two differ only in the order of f32 sums and the online softmax's
+# rescaling, ~1e-7 here), which p rounded to bf16 before the PV product
+# (the fault planted to show the limit bites) exceeds.
+QUANT_TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # Flash kernels against their plain versions, per output, by
 # flash_attention.agreement (each row's error over that row's largest
 # |plain|; each 64-row tile's summed error over its summed |plain|):
@@ -319,8 +347,10 @@ def kernel_counters():
     from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
     from deeplearning4j_tpu_torch.nn.layers import stem
     from deeplearning4j_tpu_torch.serving.paged_kernel import (
-        PAGED_ATTENTION)
-    return {"paged_attention": PAGED_ATTENTION, "flash_fwd": fa.FLASH_FWD,
+        PAGED_ATTENTION, PAGED_ATTENTION_QUANT)
+    return {"paged_attention": PAGED_ATTENTION,
+            "paged_attention_quant": PAGED_ATTENTION_QUANT,
+            "flash_fwd": fa.FLASH_FWD,
             "flash_bwd_dq": fa.FLASH_BWD_DQ,
             "flash_bwd_dkv": fa.FLASH_BWD_DKV, "conv1x1": bn.CONV1X1,
             "conv3x3": bn.CONV3X3, "stem_conv": stem.STEM_CONV,
@@ -482,6 +512,157 @@ def check_paged_kernel(device, rng):
         if not bool(torch.isfinite(out).all()) or err > TOLERANCE[dtype] \
                 or bool(out[0].any()):
             raise AssertionError(f"paged_attention edge rows: err {err}")
+    return cases
+
+
+# ---------------------------------------------------------------------
+# phase 3c: the int8 paged-decode kernel against its plain version
+# ---------------------------------------------------------------------
+def quant_case(S, hkv, reps, W, D, ps, n_max, lengths, dtype, device, seed):
+    """paged_case's pools quantized per (page, head) as the int8 pool
+    stores them: (q, k int8, v int8, table, lengths, k scales, v
+    scales)."""
+    from deeplearning4j_tpu_torch.serving.quant import pow2ceil, quantize
+    q, kp, vp, table, lens = paged_case(S, hkv, reps, W, D, ps, n_max,
+                                        lengths, torch.float32, device,
+                                        seed)
+    vp = vp * 3.0                       # a V scale unlike the K scale
+    ks = pow2ceil(kp.abs().amax(dim=(2, 3)) / 127.0)
+    vs = pow2ceil(vp.abs().amax(dim=(2, 3)) / 127.0)
+    return (q.to(dtype), quantize(kp, ks[:, :, None, None]),
+            quantize(vp, vs[:, :, None, None]), table, lens, ks, vs)
+
+
+def quant_bound(q, kq, ks, lengths, W):
+    """paged_bound for the int8 pool: the live K and V tokens at one
+    byte a value, each live page's K and V scale of its head once, the
+    queries and output, the live table entries and the lengths; against
+    the multiply-adds over the peak rate for the query dtype."""
+    S, hkv, rw, D = q.shape
+    ps = kq.shape[2]
+    el = q.element_size()
+    lens = [int(x) for x in lengths.cpu()]
+    pages = sum(-(-ln // ps) for ln in lens)
+    nbytes = (2 * q.numel() * el + sum(lens) * hkv * D * 2
+              + pages * hkv * 2 * ks.element_size() + pages * 4 + 4 * S)
+    reps = rw // W
+    keys = sum(reps * max(0, ln - W + w + 1) for ln in lens
+               for w in range(W))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * keys * D * hkv / PEAK_FLOPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def quant_plain_fault(fault):
+    """The int8 plain version with one planted fault: the V scale
+    dropped, or p rounded to bf16 before the PV product (the int8
+    kernel keeps p in f32)."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    from deeplearning4j_tpu_torch.serving.quant import dequantize
+
+    def faulty(q, kq, vq, table, lengths, *, query_width, k_scales,
+               v_scales):
+        kd = dequantize(kq, k_scales[:, :, None, None])
+        if fault == "no_v_scale":
+            return pk.paged_attention_plain(q, kd, vq.float(), table,
+                                            lengths, query_width=query_width)
+        vd = dequantize(vq, v_scales[:, :, None, None], torch.bfloat16)
+        out = pk.paged_attention_plain(q.float(), kd.bfloat16(), vd, table,
+                                       lengths, query_width=query_width)
+        return out.to(q.dtype)
+    return faulty
+
+
+def check_paged_quant_kernel(device, rng):
+    """The int8 kernel against its plain version at the engine shape and
+    the GQA/verify shape, bf16 and f32 queries, with the kernel's, the
+    plain version's and SDPA's times (SDPA on the dequantized dense view,
+    its gather outside the time, as row 15's) beside the bound; the
+    limits shown to fail two faults planted in the plain version."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    from deeplearning4j_tpu_torch.serving.quant import dequantize
+    F = torch.nn.functional
+    shapes = [("engine", dict(S=SLOTS, hkv=HEADS, reps=1, W=1)),
+              ("gqa_verify", dict(S=SLOTS, hkv=2, reps=4, W=5))]
+    cases = []
+    for label, shp in shapes:
+        lengths = rng.integers(16, 300 + NEW_TOKENS + 1, shp["S"])
+        for dtype in (torch.bfloat16, torch.float32):
+            args = quant_case(D=WIDTH // HEADS, ps=PAGE,
+                              n_max=MAX_LEN // PAGE, lengths=lengths,
+                              dtype=dtype, device=device,
+                              seed=10 + len(cases), **shp)
+            q, kq, vq, table, lens, ks, vs = args
+            W = shp["W"]
+            kw = dict(query_width=W, k_scales=ks, v_scales=vs)
+            out = pk.paged_attention(q, kq, vq, table, lens, **kw)
+            torch.cuda.synchronize()
+            ref = pk.paged_attention_quant_plain(q, kq, vq, table, lens,
+                                                 **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            finite = bool(torch.isfinite(out).all())
+            planted = {}
+            for fault in ("no_v_scale", "p_bf16"):
+                bad = quant_plain_fault(fault)(q, kq, vq, table, lens, **kw)
+                planted[fault] = float((bad.float() - ref.float()).abs()
+                                       .max())
+            kd = dequantize(kq, ks[:, :, None, None], dtype)
+            vd = dequantize(vq, vs[:, :, None, None], dtype)
+            dk, dv, mask = sdpa_inputs(q, kd, vd, table, lens, W=W)
+            lib = F.scaled_dot_product_attention(q, dk, dv, attn_mask=mask)
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            ms = median_ms(lambda: pk.paged_attention(q, kq, vq, table,
+                                                      lens, **kw), device)
+            plain_ms = median_ms(lambda: pk.paged_attention_quant_plain(
+                q, kq, vq, table, lens, **kw), device)
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q, dk, dv, attn_mask=mask), device)
+            bound_ms, bound_by = quant_bound(q, kq, ks, lens, W)
+            case = {"shape": label, "dtype": str(dtype).split(".")[-1],
+                    "q": list(q.shape), "pool": list(kq.shape),
+                    "lengths": [int(x) for x in lengths],
+                    "max_abs_err": err, "tolerance": QUANT_TOLERANCE[dtype],
+                    "planted": planted, "finite": finite, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            log("paged_attention_quant", json.dumps(case))
+            if not finite or err > QUANT_TOLERANCE[dtype]:
+                raise AssertionError(f"int8 paged kernel disagrees with its "
+                                     f"plain version: {case}")
+            # the V scale dropped fails every case; p in bf16 the f32 ones
+            # (with bf16 queries the output's own rounding hides it)
+            caught = ["no_v_scale"] + (["p_bf16"] if dtype == torch.float32
+                                       else [])
+            if any(planted[f] <= QUANT_TOLERANCE[dtype] for f in caught):
+                raise AssertionError(f"a planted fault passes the int8 "
+                                     f"limit: {case}")
+            cases.append(case)
+    # edge rows: a 0-length row, a 1-token row, a row filling its table;
+    # and a page id outside the pool turns its (slot, head) to NaN
+    for dtype in (torch.bfloat16, torch.float32):
+        lengths = [0, 1, 17, MAX_LEN]
+        q, kq, vq, table, lens, ks, vs = quant_case(
+            S=4, hkv=2, reps=4, W=1, D=WIDTH // HEADS, ps=PAGE,
+            n_max=MAX_LEN // PAGE, lengths=lengths, dtype=dtype,
+            device=device, seed=98)
+        kw = dict(query_width=1, k_scales=ks, v_scales=vs)
+        out = pk.paged_attention(q, kq, vq, table, lens, **kw)
+        ref = pk.paged_attention_quant_plain(q, kq, vq, table, lens, **kw)
+        bad_table = table.clone()
+        bad_table[2, 0] = kq.shape[0]
+        poisoned = pk.paged_attention(q, kq, vq, bad_table, lens, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        log(f"paged_attention_quant edge rows {lengths} {dtype}: "
+            f"max_abs_err {err}")
+        if not bool(torch.isfinite(out).all()) or bool(out[0].any()) or \
+                err > QUANT_TOLERANCE[dtype] or \
+                not bool(torch.isnan(poisoned[2]).all()) or \
+                not torch.equal(poisoned[3], out[3]):
+            raise AssertionError(f"int8 paged kernel edge rows: err {err}")
     return cases
 
 
@@ -722,6 +903,27 @@ def check_flash_kernels(device, exp_rate):
 # ---------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------
+def serve_requests(rng):
+    """The served traffic: N_REQUESTS prompts of 16..300 tokens, a
+    quarter of them sharing a system prefix, most greedy, some sampled
+    (top-k, top-p)."""
+    system = [int(t) for t in rng.integers(1, VOCAB, SYSTEM_PREFIX)]
+    requests = []
+    for i in range(N_REQUESTS):
+        n = int(rng.integers(16, 301))
+        body = [int(t) for t in rng.integers(1, VOCAB, n)]
+        # a quarter share the system prefix (prompts of 80..300 tokens)
+        prompt = (system + body[:max(16, n - SYSTEM_PREFIX)] if i % 4 == 0
+                  else body)
+        sampling = dict(top_k=1)
+        if i % 5 == 4:
+            sampling = dict(top_k=40, temperature=0.9)
+        elif i % 7 == 6:
+            sampling = dict(top_p=0.9)
+        requests.append((prompt, sampling))
+    return requests
+
+
 def serve(device, rng):
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine, PagedKVConfig)
@@ -740,20 +942,7 @@ def serve(device, rng):
     engine = GenerationEngine(net, VOCAB, slots=SLOTS,
                               paging=PagedKVConfig(page_size=PAGE),
                               device=device)
-    system = [int(t) for t in rng.integers(1, VOCAB, SYSTEM_PREFIX)]
-    requests = []
-    for i in range(N_REQUESTS):
-        n = int(rng.integers(16, 301))
-        body = [int(t) for t in rng.integers(1, VOCAB, n)]
-        # a quarter share the system prefix (prompts of 80..300 tokens)
-        prompt = (system + body[:max(16, n - SYSTEM_PREFIX)] if i % 4 == 0
-                  else body)
-        sampling = dict(top_k=1)
-        if i % 5 == 4:
-            sampling = dict(top_k=40, temperature=0.9)
-        elif i % 7 == 6:
-            sampling = dict(top_p=0.9)
-        requests.append((prompt, sampling))
+    requests = serve_requests(rng)
     t0 = time.perf_counter()
     engine.warmup(max_prompt_len=300)
     warm_s = time.perf_counter() - t0
@@ -808,7 +997,7 @@ def step_ms(engine, steps):
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
-def profile_decode(device, rng, steps=20):
+def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
     """Where a decode step's time goes, with all 8 slots of the served
     configuration decoding (no admission in the window). First the wall
     ms per step as shipped, then with one part swapped out (what the
@@ -818,7 +1007,8 @@ def profile_decode(device, rng, steps=20):
     torch's fused ops; then as shipped again. Then ``torch.profiler``
     over ``steps`` steps: the device's busy share (kernel time over wall
     time, one stream), CUDA kernel launches per step and the kernels
-    with the most device time."""
+    with the most device time. ``kv_dtype`` is the pool's ("int8" in the
+    serve int8 phase)."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.nn import activations as act
@@ -832,7 +1022,8 @@ def profile_decode(device, rng, steps=20):
         max_length=MAX_LEN, positional="rope", seed=7).init(device=device)
     net.conf.dtype = "bfloat16"
     engine = GenerationEngine(net, VOCAB, slots=SLOTS,
-                              paging=PagedKVConfig(page_size=PAGE),
+                              paging=PagedKVConfig(page_size=PAGE,
+                                                   kv_dtype=kv_dtype),
                               device=device)
     for _ in range(SLOTS):
         engine.submit([int(t) for t in rng.integers(1, VOCAB, 200)],
@@ -840,9 +1031,15 @@ def profile_decode(device, rng, steps=20):
     for _ in range(3):          # admit all, then two plain decode steps
         engine.step()
     F = torch.nn.functional
+
+    def plain(*args, k_scales=None, v_scales=None, **kw):
+        if k_scales is None:
+            return pk.paged_attention_plain(*args, **kw)
+        return pk.paged_attention_quant_plain(
+            *args, k_scales=k_scales, v_scales=v_scales, **kw)
+
     swaps = {
-        "plain_attention": (vars(pk), {
-            "paged_attention": pk.paged_attention_plain}),
+        "plain_attention": (vars(pk), {"paged_attention": plain}),
         "fused_activations": (act.ACTIVATIONS, {
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "softmax": lambda x: torch.softmax(x, dim=1)})}
@@ -855,6 +1052,10 @@ def profile_decode(device, rng, steps=20):
         finally:
             table.update(old)
     timed["shipped"].append(step_ms(engine, steps))
+    if not engine.is_healthy() or \
+            sum(r is not None for r in engine._slots) != SLOTS:
+        raise AssertionError(f"profile: the engine stopped decoding "
+                             f"({engine._broken!r})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -877,7 +1078,7 @@ def profile_decode(device, rng, steps=20):
                 sum(e.count for e in kernels) / steps,
             "paged_kernel_share_of_device_time": (
                 sum(t for k, t in dev_us.items()
-                    if "paged_decode_kernel" in k) / busy_us
+                    if "paged_decode" in k) / busy_us
                 if busy_us else None),
             "top_kernels_us_per_step": [[k[:80], t / steps] for k, t in top]}
 
@@ -912,6 +1113,198 @@ def reference(device, rng):
     if not same or launched == 0:
         raise AssertionError(f"engine {got} != sample_stream {want}")
     return {"equal": same, "kernel_launches": launched}
+
+
+# ---------------------------------------------------------------------
+# phases 6b-6c: int8 KV serving at full width, and its f32 reference
+# ---------------------------------------------------------------------
+def served_net(device, layers=None, dtype="bfloat16", seed=7):
+    """Phase 4's served rope transformer (``layers`` cut for the
+    references), random weights from ``seed``."""
+    from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+    model = TextGenerationTransformer(
+        vocab_size=VOCAB, embed_dim=WIDTH, n_heads=HEADS,
+        n_layers=layers or LAYERS,
+        ffn_mult=4, max_length=MAX_LEN, positional="rope", seed=seed)
+    net = model.init(device=device)
+    net.conf.dtype = dtype
+    return model, net
+
+
+def serve_turn(engine, requests):
+    """Serve ``requests`` through a warmed engine's background loop;
+    returns the turn's numbers (tokens/s, the decode dispatches' mean
+    ms, TTFT and TPOT p50, peak device memory) and the launches."""
+    engine.ttft_s.clear()
+    engine.tpot_s.clear()
+    d0, s0 = engine.dispatches, engine.dispatch_s_total
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    engine.start()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, steps=NEW_TOKENS,
+                             rng=np.random.default_rng(i), **kw)
+               for i, (p, kw) in enumerate(requests)]
+    outs = [h.result(timeout=600) for h in handles]
+    dt = time.perf_counter() - t0
+    engine.shutdown()
+    counts = read_counts()
+    dispatches = engine.dispatches - d0
+    generated = sum(len(o) - len(p) for o, (p, _) in zip(outs, requests))
+    reasons = [h.finish_reason for h in handles]
+    if reasons != ["length"] * len(requests) or \
+            generated != len(requests) * NEW_TOKENS:
+        raise AssertionError(f"serve: reasons {reasons}, {generated} tokens")
+    return {"tokens_per_s": generated / dt, "wall_s": dt,
+            "decode_dispatches": dispatches,
+            "decode_step_ms": 1e3 * (engine.dispatch_s_total - s0)
+            / max(1, dispatches),
+            "ttft_p50_ms": 1e3 * float(np.median([h.ttft_s
+                                                  for h in handles])),
+            "tpot_p50_ms": 1e3 * float(np.median(engine.tpot_s)),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts}
+
+
+def serve_int8(device):
+    """Phase 4's configuration with ``kv_dtype="int8"``: the same
+    requests through the int8 engine and the bf16 engine in turns (int8,
+    bf16, bf16, int8), every int8 decode dispatch launching the int8
+    kernel once per layer and row 15's kernel never; the pages the bf16
+    pool's byte budget buys under int8; ``kv_dtype="auto"`` resolving as
+    a temporary store's verdict implies (the turns' measured verdict,
+    another card's entry, a synthetic win)."""
+    import tempfile
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, PagedKVConfig)
+    from deeplearning4j_tpu_torch.serving.quant import kv_page_bytes
+    from deeplearning4j_tpu_torch.tuning import (
+        KernelCrossoverStore, reset_default_store, winner)
+    _, net = served_net(device)
+    requests = serve_requests(np.random.default_rng(1))
+    engines = {}
+    turns = {"int8": [], "bf16": []}
+    for kv in ("int8", "bf16", "bf16", "int8"):
+        eng = engines[kv] = GenerationEngine(
+            net, VOCAB, slots=SLOTS, device=device,
+            paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv))
+        eng.warmup(max_prompt_len=300)
+        rec = serve_turn(eng, requests)
+        n = rec["decode_dispatches"]
+        want = {"paged_attention_quant": n * LAYERS if kv == "int8" else 0,
+                "paged_attention": 0 if kv == "int8" else n * LAYERS}
+        got = {k: rec["launches"][k] for k in want}
+        if n == 0 or got != want:
+            raise AssertionError(f"serve int8: {kv} turn launched {got}, "
+                                 f"want {want}")
+        turns[kv].append(rec)
+        log(f"serve {kv} turn:", json.dumps(
+            {k: v for k, v in rec.items() if k != "launches"}))
+    med = {kv: {k: float(np.median([r[k] for r in rs]))
+                for k in ("tokens_per_s", "decode_step_ms", "ttft_p50_ms",
+                          "tpot_p50_ms", "max_memory_allocated_bytes")}
+           for kv, rs in turns.items()}
+    # the bf16 pool's byte budget, spent on int8 pages
+    e16 = engines["bf16"]
+    dims = [(h, d) for _, h, d in e16._paged_layer_dims()]
+    budget = e16.page_pool.usable * kv_page_bytes(dims, PAGE, "bf16",
+                                                  "bfloat16")
+    e8 = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                          paging=PagedKVConfig(page_size=PAGE,
+                                               kv_dtype="int8",
+                                               total_bytes=budget))
+    pages = {"bf16": e16.page_pool.usable, "int8": e8.page_pool.usable,
+             "budget_bytes": budget}
+    if pages["int8"] < 1.9 * pages["bf16"]:
+        raise AssertionError(f"serve int8: pages {pages}")
+    # kv_dtype="auto" through a store in a temporary directory
+    auto = {}
+    key = engines["int8"]._quant_key
+    with tempfile.TemporaryDirectory(prefix="dl4j_crossover_") as tmp:
+        measured = KernelCrossoverStore(path=tmp + "/measured.json")
+        entry = measured.record(key, med["int8"]["decode_step_ms"],
+                                med["bf16"]["decode_step_ms"], device=device)
+        foreign = KernelCrossoverStore(path=tmp + "/foreign.json", entries={
+            key: {**entry, "kernel_ms": 1.0, "fallback_ms": 2.0,
+                  "device_kind": "another card"}})
+        synthetic = KernelCrossoverStore(path=tmp + "/synthetic.json")
+        synthetic.record(key, 1.0, 2.0, device=device)
+        for label, store, want in (
+                ("measured", measured,
+                 "int8" if winner(entry) == "kernel" else "bf16"),
+                ("foreign", foreign, "bf16"),
+                ("synthetic", synthetic, "int8")):
+            reset_default_store(store)
+            try:
+                eng = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                                       paging=PagedKVConfig(
+                                           page_size=PAGE, kv_dtype="auto"))
+            finally:
+                reset_default_store(None)
+            auto[label] = {"kv_dtype": eng._kv_dtype, "want": want}
+            if eng._kv_dtype != want:
+                raise AssertionError(f"kv_dtype='auto' with the {label} "
+                                     f"store resolved {eng._kv_dtype}")
+    del engines, e16, e8
+    torch.cuda.empty_cache()
+    rec = {"turns": turns, "median": med, "pages": pages, "auto": auto,
+           "quant_key": key,
+           "launches": turns["int8"][-1]["launches"],
+           "profile": profile_decode(device, np.random.default_rng(2),
+                                     kv_dtype="int8")}
+    log("serve int8:", json.dumps({"median": med, "pages": pages,
+                                   "auto": auto,
+                                   "profile": rec["profile"]}))
+    return rec
+
+
+def quant_reference(device):
+    """In f32 with 2 layers at the served width, the int8 engine with
+    the kernel against the same engine with the kernel's plain version
+    swapped in: the same greedy streams; and a prefix hit equals a miss
+    (the prompts sharing two full pages)."""
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, PagedKVConfig)
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    _, net = served_net(device, layers=2, dtype="float32", seed=11)
+    rng = np.random.default_rng(5)
+    shared = [int(t) for t in rng.integers(1, VOCAB, 2 * PAGE)]
+    prompts = [shared + [int(t) for t in rng.integers(1, VOCAB, n)]
+               for n in (5, 40, 1)] + \
+        [[int(t) for t in rng.integers(1, VOCAB, n)] for n in (40, 9)]
+
+    def plain(q, kp, vp, table, lengths, *, query_width, k_scales=None,
+              v_scales=None):
+        return pk.paged_attention_quant_plain(
+            q, kp, vp, table, lengths, query_width=query_width,
+            k_scales=k_scales, v_scales=v_scales)
+
+    def run(prefix_cache, swaps=()):
+        eng = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                               paging=PagedKVConfig(
+                                   page_size=PAGE, kv_dtype="int8",
+                                   prefix_cache=prefix_cache))
+        zero_counts()
+        hs = [eng.submit(p, steps=32, top_k=1) for p in prompts]
+        with_swaps(swaps, eng.run_until_idle)
+        hits = eng.prefix_cache.hits if prefix_cache else 0
+        return ([h.result(timeout=0) for h in hs],
+                read_counts()["paged_attention_quant"], hits)
+
+    kernel, launched, hits = run(True)
+    swapped, launched_plain, _ = run(True, [(vars(pk),
+                                             {"paged_attention": plain})])
+    miss, _, _ = run(False)
+    rec = {"dtype": "float32", "layers": 2, "kernel_launches": launched,
+           "plain_launches": launched_plain, "prefix_hits": hits,
+           "kernel_equals_plain": kernel == swapped,
+           "hit_equals_miss": kernel == miss}
+    log("int8 reference:", json.dumps(rec))
+    if not rec["kernel_equals_plain"] or not rec["hit_equals_miss"] or \
+            launched == 0 or launched_plain != 0 or hits < 2:
+        raise AssertionError(f"int8 reference: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------
@@ -2493,6 +2886,8 @@ def stem_fault():
 # ---------------------------------------------------------------------
 #: the synthetic verdicts' subset: the blocks of these stages win
 AUTO_SYNTHETIC_STAGES = ("s2", "s4")
+#: timed fit steps a turn of phase 19's auto-against-xla comparison
+AUTO_TURN_STEPS = 3
 
 
 def expected_launches(bcands, chosen, stem_on):
@@ -2538,6 +2933,39 @@ def auto_fit(device, store, x, y):
             expected_launches(bcands, chosen, stem_on), counts, loss)
 
 
+def auto_against_xla(device, store, x, y):
+    """Steps of ``fit(execution_plan="auto")`` on the calibrated
+    ``store`` and of ``fit(execution_plan="xla")``, two fresh nets in
+    turns (auto, xla, xla, auto; a warm-up step each first, then
+    AUTO_TURN_STEPS timed ones a turn). "auto" is within the xla plan's
+    spread, or faster, when its median step is at most the xla plan's
+    median plus the xla plan's spread (its largest step less its
+    smallest)."""
+    from deeplearning4j_tpu_torch.tuning import reset_default_store
+    nets = {plan: resnet_train_net(device, torch.bfloat16)
+            for plan in ("auto", "xla")}
+    steps = {"auto": [], "xla": []}
+    reset_default_store(store)
+    try:
+        for plan in ("auto", "xla"):
+            fit_s(nets[plan], x, y, plan)
+        for plan in ("auto", "xla", "xla", "auto"):
+            steps[plan] += [fit_s(nets[plan], x, y, plan)[0]
+                            for _ in range(AUTO_TURN_STEPS)]
+    finally:
+        reset_default_store(None)
+    fusion = nets["auto"]._fusion()
+    del nets
+    torch.cuda.empty_cache()
+    med = {p: float(np.median(t)) for p, t in steps.items()}
+    spread = max(steps["xla"]) - min(steps["xla"])
+    return {"step_ms": {p: [1e3 * t for t in ts] for p, ts in steps.items()},
+            "step_ms_median": {p: 1e3 * m for p, m in med.items()},
+            "xla_spread_ms": 1e3 * spread,
+            "auto_blocks": len(fusion[1]), "auto_stem": bool(fusion[2]),
+            "within": med["auto"] <= med["xla"] + spread}
+
+
 def auto_plan(device):
     """``calibrate_training_kernels`` on the full-width ResNet50 (bf16)
     into a store in a temporary directory; a fresh net's
@@ -2562,7 +2990,8 @@ def auto_plan(device):
         bcands, scands = net.fusion_candidates()
         zero_counts()
         t0 = time.perf_counter()
-        results = calibrate_training_kernels(net, store=store, persist=True)
+        results = calibrate_training_kernels(net, batch_size=RESNET_B,
+                                             store=store, persist=True)
         rec["calibration_s"] = time.perf_counter() - t0
         rec["calibration_launches"] = read_counts()
         rec["calibration"] = {
@@ -2580,7 +3009,15 @@ def auto_plan(device):
                             f"distinct shapes are {sorted(want_keys)}")
         if rec["calibration_launches"]["stem_bwd_dx"] < 1:
             failures.append("calibration did not launch stem_bwd_dx")
+        log("auto plan calibration (kernel ms / fallback ms): " + ", ".join(
+            f"{k.split('|')[1]} {e['kernel_ms']:.3f} / "
+            f"{e['fallback_ms']:.3f} {e['verdict']}"
+            for k, e in rec["calibration"].items()))
         x, y = train_images(RESNET_B)
+        rec["against_xla"] = auto_against_xla(device, store, x, y)
+        if not rec["against_xla"]["within"]:
+            failures.append(f"fit(auto) {rec['against_xla']} is slower "
+                            f"than the xla plan beyond its spread")
         runs = {}
         for label, st in (("calibrated", store),
                           ("loaded", KernelCrossoverStore.load(path))):
@@ -2805,6 +3242,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     if want("paged"):
         out["paged_cases"] = phase("paged", check_paged_kernel, device, rng)
+    if want("paged_quant"):
+        out["paged_quant_cases"] = phase("paged_quant",
+                                         check_paged_quant_kernel, device,
+                                         np.random.default_rng(3))
     if want("flash"):
         out["flash_cases"] = phase("flash", check_flash_kernels, device,
                                    exp_rate)
@@ -2815,6 +3256,12 @@ def main(argv=None) -> int:
         out["profile"] = phase("profile", profile_decode, device, rng)
         log("profile:", json.dumps({**out["profile"], "card": smi}))
         out["reference"] = phase("reference", reference, device, rng)
+    if want("serve_int8"):
+        out["serve_int8"] = phase("serve_int8", serve_int8, device)
+        log("serve int8 medians:", json.dumps({**out["serve_int8"]["median"],
+                                               "card": smi}))
+        out["quant_reference"] = phase("quant_reference", quant_reference,
+                                       device)
     if want("train"):
         train_rec, net, batch = phase("train", train, device, rng)
         log("train:", json.dumps({
@@ -2918,6 +3365,20 @@ def kernels_line(out):
         "library_ms": main_case["library_ms"],
         "max_abs_err_all": max(c["max_abs_err"] for c in paged_cases),
         "cases": paged_cases}]
+    quant_cases = out["paged_quant_cases"]
+    quant_main = next(c for c in quant_cases
+                      if c["shape"] == "engine" and c["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "paged_attention_quant", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/serving/csrc/paged_attention.cu",
+        "replaces": "deeplearning4j_tpu/serving/paged_kernel.py:122",
+        "launches": out["serve_int8"]["launches"]["paged_attention_quant"],
+        "launches_on": "the last int8 turn of the serve int8 phase",
+        **{k: quant_main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+        "library": "scaled_dot_product_attention on the dequantized view",
+        "max_abs_err_all": max(c["max_abs_err"] for c in quant_cases),
+        "cases": quant_cases})
     for name, line in (("flash_fwd", 121), ("flash_bwd_dq", 172),
                        ("flash_bwd_dkv", 213)):
         kernels.append(kernel_entry(name, csrc, f"{pallas}:{line}",

@@ -66,13 +66,14 @@ __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path (stripped on ordinary forwards, cleared by
 #: rnn_clear_previous_state): the attention KV cache and its position,
-#: the paged view the serving engine installs around its decode
-#: dispatches, and the learned positional table's offset. (LSTM h/c,
+#: the paged view the serving engine installs around its dispatches
+#: (with the int8 pool's scale sidecars and the prime-through-the-pool
+#: marker), and the learned positional table's offset. (LSTM h/c,
 #: masked-stream kv_mask and the rolling cache's kv_abs come with their
 #: layers: ROADMAP.md A6, A8.)
 STREAM_STATE_KEYS = frozenset(
     {"kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v", "kv_page_table",
-     "pos_offset"})
+     "kv_page_scale_k", "kv_page_scale_v", "kv_page_prime", "pos_offset"})
 
 #: streaming-state keys whose LEADING axis is the batch dimension
 BATCHED_STREAM_KEYS = frozenset({"kv_k", "kv_v"})
@@ -650,14 +651,39 @@ class SelfAttentionLayer(FeedForwardLayerConf):
 
         Appends past a row's capacity, and those of free rows (whose
         table rows are all 0), land on the null page 0. Duplicate writes
-        there are harmless: every row's length masks page 0 out of what
-        it reads. Prefix-shared pages are read-only by block alignment:
-        a row appends only at positions at or past its own fresh blocks.
+        there are harmless (and on CUDA their order is not defined):
+        every row's length masks page 0 out of what it reads.
+        Prefix-shared pages are read-only by block alignment: a row
+        appends only at positions at or past its own fresh blocks.
+
+        Two extensions of the state, as in the JAX package:
+
+        - ``kv_page_scale_k`` / ``_v`` present: the pool is int8 with
+          per-(page, head) scale sidecars (``serving/quant.py``). The
+          chunk is quantized by :func:`quantize_chunk` (each page under
+          its base token's scale) and written as int8; the sidecars are
+          updated in place and ride the returned state; reads
+          dequantize.
+        - ``kv_page_prime`` present: the chunk is the engine's batch-1
+          prime through the pool (the int8 path: quantize-once means the
+          prompt's pool bytes come from the same quantized append the
+          decode steps run). Prefix-shared positions (``q_pos < pos``)
+          route to the null page, and the read is the dequantize-in-the-
+          gather path written here (dequantize to ``q.dtype``, exact,
+          then :meth:`_grouped_attend`), the counterpart of the JAX
+          package's XLA read for the prime, not the kernel's plain
+          version. The port's prime is unpadded (``rnn_time_step`` drops
+          pads before the forward), so the JAX package's ``pad_left``
+          packing has nothing to do here.
         """
         from deeplearning4j_tpu_torch.serving.paged_kernel import (
             paged_attention)
+        from deeplearning4j_tpu_torch.serving.quant import quantize_chunk
         kp, vp = state["kv_page_k"], state["kv_page_v"]
         table = state["kv_page_table"]
+        ksc, vsc = state.get("kv_page_scale_k"), state.get("kv_page_scale_v")
+        quant = ksc is not None
+        prime = state.get("kv_page_prime") is not None
         pos = state.get("kv_pos")
         if pos is None or pos.dim() < 1:
             raise ValueError(
@@ -672,16 +698,48 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             q, k = self._rope(q, q_pos), self._rope(k, q_pos)
         blk = (q_pos // ps).clamp(0, table.shape[1] - 1).long()
         page = table.gather(1, blk)
-        page = torch.where(q_pos < L, page, torch.zeros_like(page)).long()
+        writable = q_pos < L                 # past capacity: the null page
+        if prime:
+            # shared prefix pages are read in place, never rewritten
+            writable = writable & (q_pos >= pos[:, None])
+        page = torch.where(writable, page, torch.zeros_like(page)).long()
         off = (q_pos % ps).long()
-        kp[page, :, off] = k.transpose(1, 2).to(kp.dtype)   # [N,T,Hkv,D]
-        vp[page, :, off] = v.transpose(1, 2).to(vp.dtype)
-        reps = self.n_heads // hkv
-        o = paged_attention(q.reshape(n, hkv, reps * t, d).contiguous(),
-                            kp, vp, table, (pos + t).to(torch.int32),
-                            query_width=t)
-        return o.reshape(n, self.n_heads, t, d), {**state,
-                                                   "kv_pos": pos + t}
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # [N,T,Hkv,D]
+        if quant:
+            kt, _ = quantize_chunk(kt, ksc, page, q_pos, pos, writable,
+                                   page_size=ps)
+            vt, _ = quantize_chunk(vt, vsc, page, q_pos, pos, writable,
+                                   page_size=ps)
+        kp[page, :, off] = kt.to(kp.dtype)
+        vp[page, :, off] = vt.to(vp.dtype)
+        if prime:
+            kd, vd = (self._paged_dense_view(pool, sc, table, q.dtype)
+                      for pool, sc in ((kp, ksc), (vp, vsc)))
+            valid = torch.arange(L, device=q.device)[None, None, :] \
+                <= q_pos[..., None]                            # [N, T, L]
+            o = self._grouped_attend(q, kd, vd, valid)
+        else:
+            reps = self.n_heads // hkv
+            scales = dict(k_scales=ksc, v_scales=vsc) if quant else {}
+            o = paged_attention(q.reshape(n, hkv, reps * t, d).contiguous(),
+                                kp, vp, table, (pos + t).to(torch.int32),
+                                query_width=t, **scales)
+            o = o.reshape(n, self.n_heads, t, d)
+        # the pools and sidecars, updated in place, ride the state
+        return o, {**state, "kv_pos": pos + t}
+
+    def _paged_dense_view(self, pool, scales, table, dtype):
+        """The dense ``[N, Hkv, L, D]`` view of ``pool`` through
+        ``table`` (the prime's read), an int8 pool dequantized under
+        its scales to ``dtype`` (exact)."""
+        from deeplearning4j_tpu_torch.serving.quant import dequantize
+        idx = table.long()
+        g = pool[idx]                                # [N, n_blk, Hkv, ps, D]
+        if scales is not None:
+            g = dequantize(g, scales[idx][:, :, :, None, None], dtype)
+        n, nb, hkv, ps, d = g.shape
+        return g.transpose(1, 2).reshape(n, hkv, nb * ps, d)[
+            :, :, :self.cache_length].to(dtype)
 
     def _grouped_attend(self, q, kc, vc, valid):
         """Masked attention of ``[N,H,T,D]`` queries against the

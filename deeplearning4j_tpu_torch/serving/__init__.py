@@ -6,7 +6,10 @@ one decode forward per step, retires each request individually and
 streams tokens back through ``GenerationStream`` handles. With
 ``PagedKVConfig`` the KV storage is a refcounted page pool with a
 prefix cache, and decode reads it through the page table with the
-hand-written CUDA paged-attention kernel.
+hand-written CUDA paged-attention kernel; with
+``PagedKVConfig(kv_dtype="int8")`` the pool is int8 under per-page
+power-of-two scales (``serving/quant.py``), primed through the pool and
+read by the hand-written int8 paged-decode kernel.
 """
 
 from deeplearning4j_tpu_torch.serving.engine import (  # noqa: F401

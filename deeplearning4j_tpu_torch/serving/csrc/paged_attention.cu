@@ -31,6 +31,23 @@
 // blocks, cp.async/TMA double buffering, tensor-core dots for wide
 // GQA groups) is later work.
 //
+// The int8 variant (paged_decode_quant_kernel below) replaces
+// deeplearning4j_tpu/serving/paged_kernel.py `_decode_kernel_quant`: the
+// same walk over int8 K/V pools (serving/quant.py), each page's f32
+// power-of-two scales ks[page, h] and vs[page, h] read by the page id the
+// table routed the block through. It computes what the TPU kernel
+// computes: the query widened to f32, score = (q . k_int8) * (scale * sk),
+// the same masks and online softmax in f32, pv = (p . v_int8) * sv with p
+// kept in f32 (NOT rounded to a narrower dtype, unlike the kernel above),
+// output acc / max(l, 1e-30) in the query dtype. Per-page scales commute
+// with both dots, so this is attention over the dequantized pages.
+// What bounds it: again the bytes of the live pages, now one byte per
+// K/V value (plus 8 bytes of scales per live page and head), a quarter of
+// the f32 shared-memory staging above. The pages stay int8 in shared
+// memory (a page of 16 x 64 values is 1 KB), are loaded with 16-byte
+// vector loads where the page's bytes allow it, and are widened to f32 in
+// registers at the dot products.
+//
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into
 // a shared library with a plain C interface, loaded through ctypes
 // (deeplearning4j_tpu_torch/cuda_library.py). Launches on the caller's
@@ -220,6 +237,181 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// The int8 variant. One thread block per (slot, kv head). Shared memory:
+//   q_s [rw, d] f32, p_s [rw, ps] f32, acc [rw, d] f32,
+//   m_s, l_s, c_s [rw] f32 (padded to 16 bytes), then
+//   k_s [ps, d] int8 and v_s [ps, d] int8 (each padded to 16 bytes)
+__host__ __device__ inline size_t quant_float_words(int rw, int d, int ps) {
+  const size_t n = (size_t)2 * rw * d + (size_t)rw * ps + (size_t)3 * rw;
+  return (n + 3) & ~(size_t)3;  // 16-byte aligned int8 pages after them
+}
+__host__ __device__ inline size_t quant_page_bytes(int ps, int d) {
+  return ((size_t)ps * d + 15) & ~(size_t)15;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_quant_kernel(const T* __restrict__ q,
+                              const signed char* __restrict__ k_pool,
+                              const signed char* __restrict__ v_pool,
+                              const float* __restrict__ k_scales,
+                              const float* __restrict__ v_scales,
+                              const int* __restrict__ table,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, int hkv, int rw, int d,
+                              int ps, int n_max, int n_pages, int qw,
+                              float scale, int vec16) {
+  // 16-byte aligned: the int8 pages after the f32 words take int4 stores
+  extern __shared__ __align__(16) float qsmem[];
+  float* q_s = qsmem;
+  float* p_s = q_s + rw * d;
+  float* acc = p_s + rw * ps;
+  float* m_s = acc + rw * d;
+  float* l_s = m_s + rw;
+  float* c_s = l_s + rw;
+  signed char* k_s =
+      reinterpret_cast<signed char*>(qsmem + quant_float_words(rw, d, ps));
+  signed char* v_s = k_s + quant_page_bytes(ps, d);
+
+  const int s = blockIdx.x / hkv;
+  const int h = blockIdx.x % hkv;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int length = lengths[s];
+  const size_t q_off = ((size_t)s * hkv + h) * rw * d;
+  const int page_elems = ps * d;
+
+  for (int i = tid; i < rw * d; i += blockDim.x) {
+    q_s[i] = to_f32(q[q_off + i]);  // the query widened to f32
+    acc[i] = 0.f;
+  }
+  for (int r = tid; r < rw; r += blockDim.x) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
+  }
+  int n_live = length > 0 ? (length + ps - 1) / ps : 0;
+  if (n_live > n_max) n_live = n_max;
+  bool bad_page = false;
+  __syncthreads();
+
+  for (int b = 0; b < n_live; ++b) {
+    // uniform across the block: every thread reads the same entry
+    const int page = table[(size_t)s * n_max + b];
+    if (page < 0 || page >= n_pages) {
+      bad_page = true;
+      break;
+    }
+    const size_t base = ((size_t)page * hkv + h) * page_elems;
+    const size_t srow = (size_t)page * hkv + h;
+    const float kscale = scale * k_scales[srow];  // exact: sk is 2^k
+    const float sv = v_scales[srow];
+    if (vec16) {
+      // 16 bytes a thread; the host checked the pools' alignment and
+      // that a page is a whole number of 16-byte vectors
+      const int4* ksrc = reinterpret_cast<const int4*>(k_pool + base);
+      const int4* vsrc = reinterpret_cast<const int4*>(v_pool + base);
+      int4* kdst = reinterpret_cast<int4*>(k_s);
+      int4* vdst = reinterpret_cast<int4*>(v_s);
+      for (int i = tid; i < page_elems / 16; i += blockDim.x) {
+        kdst[i] = ksrc[i];
+        vdst[i] = vsrc[i];
+      }
+    } else {
+      for (int i = tid; i < page_elems; i += blockDim.x) {
+        k_s[i] = k_pool[base + i];
+        v_s[i] = v_pool[base + i];
+      }
+    }
+    __syncthreads();
+
+    // scores: one warp per (row, key), lanes across the head dim; the
+    // int8 keys widen to f32 in registers
+    for (int pair = warp; pair < rw * ps; pair += n_warps) {
+      const int r = pair / ps;
+      const int j = pair - r * ps;
+      float dot = 0.f;
+      for (int c = lane; c < d; c += 32)
+        dot += q_s[r * d + c] * static_cast<float>(k_s[j * d + c]);
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        const bool valid = b * ps + j <= length - qw + r % qw;
+        p_s[pair] = valid ? dot * kscale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per row; p stays f32
+    for (int r = warp; r < rw; r += n_warps) {
+      float bmax = kNegInf;
+      for (int j = lane; j < ps; j += 32) bmax = fmaxf(bmax, p_s[r * ps + j]);
+      bmax = warp_max(bmax);
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, bmax);
+      const int last = length - qw + r % qw;
+      float psum = 0.f;
+      for (int j = lane; j < ps; j += 32) {
+        const float p = b * ps + j <= last ? expf(p_s[r * ps + j] - m_new) : 0.f;
+        psum += p;
+        p_s[r * ps + j] = p;
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * corr + psum;
+        m_s[r] = m_new;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < rw * d; i += blockDim.x) {
+      const int r = i / d;
+      const int c = i - r * d;
+      float pv = 0.f;
+      for (int j = 0; j < ps; ++j)
+        pv += p_s[r * ps + j] * static_cast<float>(v_s[j * d + c]);
+      acc[i] = acc[i] * c_s[r] + pv * sv;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < rw * d; i += blockDim.x) {
+    const float o = bad_page ? NAN : acc[i] / fmaxf(l_s[i / d], 1e-30f);
+    out[q_off + i] = from_f32<T>(o);
+  }
+}
+
+template <typename T>
+int launch_quant(const void* q, const void* k_pool, const void* v_pool,
+                 const void* k_scales, const void* v_scales,
+                 const void* table, const void* lengths, void* out,
+                 int slots, int hkv, int rw, int d, int ps, int n_max,
+                 int n_pages, int qw, float scale, void* stream) {
+  if (slots <= 0 || hkv <= 0) return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * quant_float_words(rw, d, ps) +
+                      2 * quant_page_bytes(ps, d);
+  if (smem > (size_t)kMaxDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_quant_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec16 = ((size_t)ps * d) % 16 == 0 &&
+                    reinterpret_cast<size_t>(k_pool) % 16 == 0 &&
+                    reinterpret_cast<size_t>(v_pool) % 16 == 0;
+  paged_decode_quant_kernel<T><<<slots * hkv, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const signed char*>(k_pool),
+      static_cast<const signed char*>(v_pool),
+      static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<T*>(out), hkv, rw, d, ps,
+      n_max, n_pages, qw, scale, vec16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,6 +433,30 @@ int dl4j_paged_attention_bf16(const void* q, const void* k_pool,
   return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, out, slots,
                                hkv, rw, d, ps, n_max, n_pages, qw, scale,
                                stream);
+}
+
+int dl4j_paged_attention_quant_f32(const void* q, const void* k_pool,
+                                   const void* v_pool, const void* k_scales,
+                                   const void* v_scales, const void* table,
+                                   const void* lengths, void* out, int slots,
+                                   int hkv, int rw, int d, int ps, int n_max,
+                                   int n_pages, int qw, float scale,
+                                   void* stream) {
+  return launch_quant<float>(q, k_pool, v_pool, k_scales, v_scales, table,
+                             lengths, out, slots, hkv, rw, d, ps, n_max,
+                             n_pages, qw, scale, stream);
+}
+
+int dl4j_paged_attention_quant_bf16(const void* q, const void* k_pool,
+                                    const void* v_pool, const void* k_scales,
+                                    const void* v_scales, const void* table,
+                                    const void* lengths, void* out,
+                                    int slots, int hkv, int rw, int d,
+                                    int ps, int n_max, int n_pages, int qw,
+                                    float scale, void* stream) {
+  return launch_quant<__nv_bfloat16>(q, k_pool, v_pool, k_scales, v_scales,
+                                     table, lengths, out, slots, hkv, rw, d,
+                                     ps, n_max, n_pages, qw, scale, stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

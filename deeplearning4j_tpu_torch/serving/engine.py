@@ -21,6 +21,15 @@ Counterpart of ``deeplearning4j_tpu/serving/engine.py``:
   paged-attention kernel (``serving/paged_kernel.py``; its plain
   version on the CPU). ``prefix_cache=True`` (default) primes shared
   full-block prompt prefixes once (``serving/prefix_cache.py``).
+- ``PagedKVConfig(kv_dtype="int8")`` stores the pool as int8 with
+  per-(page, kv-head) power-of-two scales (``serving/quant.py``): every
+  request primes through the pool (quantize-once: the prompt's pool
+  bytes come from the same quantized append the decode steps run), a
+  prefix hit starts past the shared pages in place, and each decode
+  step appends int8 K/V and attends with the int8 paged-decode kernel.
+  ``total_bytes=`` buys about twice the pages; ``kv_dtype="auto"``
+  takes int8 only where the measured store says it wins on this card
+  (``tuning/plan.resolve_kv_dtype``).
 
 Greedy (top_k=1) outputs equal one-shot ``sample_stream`` with the same
 rng (tested): the arena feeds each request exactly the token sequence a
@@ -30,8 +39,11 @@ generation order.
 Not ported yet, and refused at construction with ``NotImplementedError``
 rather than ignored: speculation, the supervisor, overload control, the
 chaos seams and ``decode_retry``, and the metrics registry (ROADMAP.md
-A7, A5). The request ledger, traces and fleet hooks come later too
-(ROADMAP.md A7, A10). Metrics are plain attributes for now.
+A7, A5). The request ledger, traces, ``health()`` with its KV traffic
+and the fleet hooks come later too (ROADMAP.md A7, A10), and so does
+the choice of decode read path (``decode_impl``: the port has one on
+the card, the kernel; ROADMAP.md A.1). Metrics are plain attributes for
+now.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from deeplearning4j_tpu_torch.serving.errors import (
 from deeplearning4j_tpu_torch.serving.paging import (
     PagedKVConfig, PagePool, gather_pages, pages_needed)
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache
+from deeplearning4j_tpu_torch.serving.quant import kv_page_bytes, pool_leaves
 from deeplearning4j_tpu_torch.serving.request import (
     GenerationRequest, GenerationStream)
 from deeplearning4j_tpu_torch.serving.scheduler import AdmissionQueue
@@ -67,6 +80,10 @@ log = logging.getLogger(__name__)
 #: stream-state keys the admission join writes into the arena row
 _SCATTER_KEYS = frozenset(BATCHED_STREAM_KEYS | {"kv_pos"})
 _PAGED_VIEW = {"kv_k": "kv_page_k", "kv_v": "kv_page_v"}
+_SCALE_VIEW = {"kv_k": "kv_page_scale_k", "kv_v": "kv_page_scale_v"}
+#: the keys of the paged view the engine installs around a forward
+_VIEW_KEYS = frozenset({*_PAGED_VIEW.values(), *_SCALE_VIEW.values(),
+                        "kv_page_table", "kv_page_prime"})
 #: latency samples kept per metric (the monitoring port replaces these)
 METRIC_WINDOW = 4096
 
@@ -136,7 +153,13 @@ class GenerationEngine:
         self._pool: Optional[PagePool] = None
         self._prefix: Optional[PrefixCache] = None
         self._page_store = None            # pools, one per paged leaf
+        self._scale_store = None           # int8: [P, Hkv] f32 per leaf
         self._paged_keys = None            # [(layer name, kv_k|kv_v)]
+        #: the pool's storage ("bf16": the net's own KV dtype; "int8":
+        #: serving/quant.py) and the paged_decode_quant store key that
+        #: kv_dtype="auto" consulted (None unless int8 or auto was asked)
+        self._kv_dtype = "bf16"
+        self._quant_key: Optional[str] = None
         self._page_tables: List[List[int]] = [[] for _ in range(slots)]
         #: the [S, n_max] int32 device table, rebuilt only after a table
         #: mutation (admit / retire), not per step
@@ -160,10 +183,37 @@ class GenerationEngine:
             self._L = lens.pop()
             self._ps = paging.page_size
             self._n_max = -(-self._L // self._ps)
-            usable = paging.resolve_pages(slots, self._n_max)
+            # kv_dtype before pool sizing: a byte budget depends on it
+            l0 = kv_layers[0]
+            native = getattr(net.conf, "dtype", None) or "float32"
+            kv_dtype = paging.kv_dtype
+            if kv_dtype != "bf16":
+                from deeplearning4j_tpu_torch.tuning.plan import (
+                    quant_key_for_engine, resolve_kv_dtype)
+                self._quant_key = quant_key_for_engine(
+                    self._ps, l0.n_out // l0.n_heads,
+                    getattr(l0, "n_kv_heads", None) or l0.n_heads,
+                    self._L, native)
+                if kv_dtype == "auto":
+                    # eligible: the port streams pure-attention nets only
+                    # (recurrent h/c state comes with ROADMAP.md A.4)
+                    kv_dtype = resolve_kv_dtype(True, self._quant_key,
+                                                device=self.device)
+            self._kv_dtype = kv_dtype
+            dims = self._paged_layer_dims()
+            if paging.total_bytes is not None:
+                usable = paging.resolve_pages_bytes(kv_page_bytes(
+                    [(h, d) for _, h, d in dims], self._ps, kv_dtype,
+                    native))
+            else:
+                usable = paging.resolve_pages(slots, self._n_max)
             self._pool = PagePool(usable + 1, self._ps)   # +1: null page
             if paging.prefix_cache:
                 self._prefix = PrefixCache(self._pool)
+            if kv_dtype == "int8":
+                # built eagerly: the int8 prime writes through the pool,
+                # so it exists before the first admission
+                self._init_quant_store(dims)
         # -- plain metrics ------------------------------------------------
         self.admissions = 0
         self.dispatches = 0
@@ -424,7 +474,11 @@ class GenerationEngine:
             if self._pool is not None:
                 table, hit_len = self._alloc_request_pages(req)
             net.rnn_clear_previous_state()
-            if hit_len:
+            if self._kv_dtype == "int8":
+                # the prime runs through the pool; a prefix hit starts
+                # kv_pos past the shared pages, read in place
+                self._install_prime_paged_state(table, hit_len)
+            elif hit_len:
                 self._install_prefix(table, hit_len)
             p0 = prime_prompt(net, req.prompt[hit_len:])
             primed_pos = self._net_pos()
@@ -437,6 +491,8 @@ class GenerationEngine:
             req.handle._fail(e)
             return
         primed_state = dict(net.state)
+        if self._kv_dtype == "int8":
+            primed_state = self._extract_prime_paged_state(primed_state)
         self.admissions += 1
         tok = draw(p0, req.temperature, req.rng, top_k=req.top_k,
                    top_p=req.top_p)
@@ -465,7 +521,8 @@ class GenerationEngine:
             self._arena_ready = True
         net.state = self._merge(saved_state, primed_state, slot)
         if self._pool is not None:
-            self._scatter_primed_pages(primed_state, table)
+            if self._kv_dtype != "int8":   # int8: the prime wrote the pool
+                self._scatter_primed_pages(primed_state, table)
             self._page_tables[slot] = table
             self._table_dev = None
             if self._prefix is not None:
@@ -509,6 +566,74 @@ class GenerationEngine:
         self._paged_keys = keys
         self._page_store = store
 
+    def _paged_layer_dims(self):
+        """(state name, Hkv, head dim) per paged attention layer, sorted
+        by name: the (name, leaf) order ``_init_page_store`` derives
+        from a primed state, so the eager int8 store and the lazy bf16
+        one address the same leaves."""
+        out = []
+        for n, v in self.net.conf.vertices.items():
+            l = getattr(v, "layer", None)
+            if getattr(l, "supports_streaming", False) \
+                    and getattr(l, "cache_length", 0):
+                hkv = getattr(l, "n_kv_heads", None) or l.n_heads
+                out.append((n, int(hkv), int(l.n_out // l.n_heads)))
+        return sorted(out)
+
+    def _init_quant_store(self, dims) -> None:
+        """The eager int8 store (``serving/quant.py``): zeroed ``[P, Hkv,
+        page_size, D]`` int8 pools and ``[P, Hkv]`` f32 scale sidecars,
+        two leaves (k, v) per attention layer."""
+        self._paged_keys = [(n, k) for n, _, _ in dims
+                            for k in ("kv_k", "kv_v")]
+        self._page_store, self._scale_store = pool_leaves(
+            self._pool.total_pages, self._ps, [(h, d) for _, h, d in dims],
+            device=self.device)
+
+    def _paged_view(self, table):
+        """``{layer name: {view key: tensor}}``: each paged layer's pools
+        (and, int8, scale sidecars) and the page table ``table``."""
+        view = {}
+        for i, (n, k) in enumerate(self._paged_keys):
+            d = view.setdefault(n, {"kv_page_table": table})
+            d[_PAGED_VIEW[k]] = self._page_store[i]
+            if self._scale_store is not None:
+                d[_SCALE_VIEW[k]] = self._scale_store[i]
+        return view
+
+    def _install_prime_paged_state(self, table, hit_len: int) -> None:
+        """Arm the batch-1 prime to run through the pool (int8): the
+        pools and scale sidecars, the request's one-row table, kv_pos at
+        the prefix hit length, and the ``kv_page_prime`` marker (the
+        layer then keeps shared pages read-only and reads through its
+        dequantizing gather). On a hit the suffix attends the shared
+        pages in place: ``_install_prefix``'s dense gather has no int8
+        equivalent."""
+        row = np.zeros((1, self._n_max), np.int32)
+        row[0, :len(table)] = table
+        row_dev = torch.as_tensor(row, device=self.device)
+        pos = torch.full((1,), hit_len, dtype=torch.int32,
+                         device=self.device)
+        st = dict(self.net.state)
+        for n, view in self._paged_view(row_dev).items():
+            st[n] = {**(st.get(n) or {}), **view, "kv_pos": pos,
+                     "kv_page_prime": True}
+        self.net.state = st
+        self.net._stream_pos_map = {n: hit_len for n in self._graph_vertices}
+
+    def _extract_prime_paged_state(self, primed_state):
+        """Strip the paged view from the prime's state: what the arena
+        build and merge see keeps the ``[1]`` kv_pos for the slot. The
+        prime wrote the pools and sidecars in place (so, unlike the JAX
+        engine, there is nothing to take back), and only at the
+        request's own fresh pages and the null page: on a failed prime
+        the store stays authoritative, and its pages are released."""
+        out = {n: (dict(v) if isinstance(v, dict) else v)
+               for n, v in primed_state.items()}
+        for n in dict.fromkeys(n for n, _ in self._paged_keys):
+            out[n] = {k: v for k, v in out[n].items() if k not in _VIEW_KEYS}
+        return out
+
     def _scatter_primed_pages(self, primed_state, table) -> None:
         """Commit the primed batch-1 KV into the slot's pages. Shared
         prefix pages are rewritten with the identical values they were
@@ -534,17 +659,14 @@ class GenerationEngine:
 
     def _install_paged_state(self) -> None:
         """Install the paged decode view for the coming forward: each
-        paged layer's state gains its pool pair and the page table. No
-        bytes move: the pools are updated in place by the forward's
-        append, so (unlike the JAX engine's donated buffers and
-        per-layer table copies) there is nothing to hand back."""
-        table = self._tables()
+        paged layer's state gains its pool pair (and, int8, its scale
+        sidecars) and the page table. No bytes move: the pools and
+        sidecars are updated in place by the forward's append, so
+        (unlike the JAX engine's donated buffers and per-layer table
+        copies) there is nothing to hand back."""
         st = dict(self.net.state)
-        for (n, k), pool in zip(self._paged_keys, self._page_store):
-            d = dict(st[n])
-            d[_PAGED_VIEW[k]] = pool
-            d["kv_page_table"] = table
-            st[n] = d
+        for n, view in self._paged_view(self._tables()).items():
+            st[n] = {**st[n], **view}
         if self._kv_pos_dirty:
             free = torch.as_tensor([r is None for r in self._slots],
                                    device=self.device)
@@ -559,8 +681,7 @@ class GenerationEngine:
         """Drop the paged view from ``net.state`` after the forward."""
         st = dict(self.net.state)
         for n in dict.fromkeys(n for n, _ in self._paged_keys):
-            st[n] = {k: v for k, v in st[n].items()
-                     if k not in ("kv_page_k", "kv_page_v", "kv_page_table")}
+            st[n] = {k: v for k, v in st[n].items() if k not in _VIEW_KEYS}
         self.net.state = st
 
     # ------------------------------------------------------------------

@@ -1,21 +1,26 @@
 """Paged-attention decode over the block-paged KV pool: the CUDA kernel's
 wrapper and its plain PyTorch version.
 
-Counterpart of ``deeplearning4j_tpu/serving/paged_kernel.py``. The
-kernel is hand-written CUDA C++ for Hopper, ``csrc/paged_attention.cu``
-(it replaces the TPU kernel ``_decode_kernel``; the source note there
-says what bounds it and what its design does about that). It reads K/V
-straight through the per-slot page table, so a decode step touches only
-the live pages of each row, never a dense copy of the pool.
+Counterpart of ``deeplearning4j_tpu/serving/paged_kernel.py``. The two
+kernels are hand-written CUDA C++ for Hopper in one library,
+``csrc/paged_attention.cu``: the bf16/f32 pool's (it replaces the TPU
+kernel ``_decode_kernel``) and the int8 pool's (``_decode_kernel_quant``;
+the source note says what bounds each and what its design does about
+that). They read K/V straight through the per-slot page table, so a
+decode step touches only the live pages of each row, never a dense copy
+of the pool.
 
 :func:`paged_attention` dispatches on where its tensors lie: CUDA
-tensors launch the kernel (or raise on what it does not take), CPU
-tensors take :func:`paged_attention_plain`. There is no fallback from
-the kernel to the plain version and no process-wide switch between
-them. The plain version gathers ``pool[table]`` densely, masks and
-runs the softmax in f32 with the kernel's rounding points; the CPU
-tests hold it against the JAX package, and ``chip_smoke.py`` holds the
-kernel against it on the card.
+tensors launch a kernel (or raise on what it does not take), CPU
+tensors take the plain version. Passing ``k_scales`` and ``v_scales``
+selects the int8 kernel. There is no fallback from a kernel to its
+plain version and no process-wide switch between them. The plain
+versions gather ``pool[table]`` densely, mask and run the softmax in f32
+with the kernel's rounding points (:func:`paged_attention_plain`; the
+int8 one, :func:`paged_attention_quant_plain`, dequantizes the pools
+first, exactly, and is then the same function); the CPU tests hold
+them against the JAX package, and ``chip_smoke.py`` holds the kernels
+against them on the card.
 
 Appends are not this kernel's job: the layer writes the new tokens'
 K/V into the pool before attending (``SelfAttentionLayer.
@@ -30,6 +35,7 @@ import math
 import torch
 
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
+from deeplearning4j_tpu_torch.serving.quant import dequantize
 
 NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
@@ -37,20 +43,30 @@ NEG_INF = -1e30   # finite: a fully masked row must stay finite
 MAX_SMEM_BYTES = 232448
 MAX_HEAD_DIM = 256
 
-__all__ = ["NEG_INF", "PAGED_ATTENTION", "paged_attention",
-           "paged_attention_plain", "paged_attention_smem_bytes"]
+__all__ = ["NEG_INF", "PAGED_ATTENTION", "PAGED_ATTENTION_QUANT",
+           "paged_attention", "paged_attention_plain",
+           "paged_attention_quant_plain", "paged_attention_quant_smem_bytes",
+           "paged_attention_smem_bytes"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P]
+_QUANT_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
 
 _SYMBOL = {torch.float32: "dl4j_paged_attention_f32",
            torch.bfloat16: "dl4j_paged_attention_bf16"}
+#: the int8 kernel, by the query's (and output's) dtype
+_QUANT_SYMBOL = {torch.float32: "dl4j_paged_attention_quant_f32",
+                 torch.bfloat16: "dl4j_paged_attention_quant_bf16"}
 
-#: the kernel; ``PAGED_ATTENTION.launches`` counts launches
-PAGED_ATTENTION = CudaKernel(
-    CudaLibrary("paged_attention", ["serving/csrc/paged_attention.cu"],
-                {sym: _ARGTYPES for sym in _SYMBOL.values()}),
-    "paged_attention", _SYMBOL)
+_LIBRARY = CudaLibrary(
+    "paged_attention", ["serving/csrc/paged_attention.cu"],
+    {**{sym: _ARGTYPES for sym in _SYMBOL.values()},
+     **{sym: _QUANT_ARGTYPES for sym in _QUANT_SYMBOL.values()}})
+
+#: the kernels; ``.launches`` counts each one's launches
+PAGED_ATTENTION = CudaKernel(_LIBRARY, "paged_attention", _SYMBOL)
+PAGED_ATTENTION_QUANT = CudaKernel(_LIBRARY, "paged_attention_quant",
+                                   _QUANT_SYMBOL)
 
 
 def paged_attention_smem_bytes(rows: int, head_dim: int,
@@ -60,6 +76,17 @@ def paged_attention_smem_bytes(rows: int, head_dim: int,
     three per-row softmax scalars."""
     return 4 * (2 * rows * head_dim + 2 * page_size * head_dim
                 + rows * page_size + 3 * rows)
+
+
+def paged_attention_quant_smem_bytes(rows: int, head_dim: int,
+                                     page_size: int) -> int:
+    """Dynamic shared memory one int8-kernel block uses: the f32 query
+    rows, accumulator, score tile and three per-row scalars (padded to
+    16 bytes), then one int8 K and one int8 V page (each padded to 16
+    bytes)."""
+    words = 2 * rows * head_dim + rows * page_size + 3 * rows
+    page = page_size * head_dim
+    return 4 * (-(-words // 4) * 4) + 2 * (-(-page // 16) * 16)
 
 
 def _shape(q, k_pool, table, query_width):
@@ -75,39 +102,53 @@ def _shape(q, k_pool, table, query_width):
 
 
 def paged_attention(q, k_pool, v_pool, table, lengths, *,
-                    query_width: int):
+                    query_width: int, k_scales=None, v_scales=None):
     """Paged-attention decode.
 
     - ``q``: ``[S, Hkv, reps*W, D]`` queries grouped by kv head, rope
       applied; row ``rep*W + w`` sits at position ``lengths[s] - W + w``.
     - ``k_pool`` / ``v_pool``: ``[P, Hkv, page_size, D]``, already
-      holding this step's appended tokens; same dtype as ``q``.
+      holding this step's appended tokens; q's dtype, or int8 with
+      scales.
     - ``table``: ``[S, n_max]`` int32 page ids (0 = the null page).
     - ``lengths``: ``[S]`` int32 valid positions per row, the appended
       chunk included.
+    - ``k_scales`` / ``v_scales``: ``[P, Hkv]`` f32, the int8 pool's
+      per-(page, head) scale sidecars (``serving/quant.py``). Passing
+      them selects the int8 kernel: they travel together and the pools
+      must be int8.
 
     Returns ``[S, Hkv, reps*W, D]`` in ``q.dtype`` (f32 accumulation).
     On CUDA a page id outside the pool turns its (slot, head) output to
     NaN rather than reading past the pool."""
     S, hkv, rw, d, ps, n_max, qw = _shape(q, k_pool, table, query_width)
+    quant = k_scales is not None or v_scales is not None
+    if quant and (k_scales is None or v_scales is None):
+        raise ValueError("k_scales and v_scales travel together")
+    if quant and (k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8):
+        raise ValueError(f"scale sidecars describe an int8 pool, got "
+                         f"{k_pool.dtype} / {v_pool.dtype}")
     if q.device.type == "cpu":
+        if quant:
+            return paged_attention_quant_plain(
+                q, k_pool, v_pool, table, lengths, query_width=qw,
+                k_scales=k_scales, v_scales=v_scales)
         return paged_attention_plain(q, k_pool, v_pool, table, lengths,
                                      query_width=qw)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, "
                          f"got {q.device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("table", table), ("lengths", lengths)):
+    extra = (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ()
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("table", table), ("lengths", lengths), *extra):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
     if q.dtype not in _SYMBOL:
-        raise ValueError(f"paged_attention kernel takes float32 or "
-                         f"bfloat16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_attention kernels take float32 or "
+                         f"bfloat16 queries, got {q.dtype}")
+    if not quant and (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype):
         raise ValueError(f"pools ({k_pool.dtype}, {v_pool.dtype}) must "
                          f"match q ({q.dtype})")
     if tuple(k_pool.shape) != tuple(v_pool.shape) or \
@@ -121,18 +162,37 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
             tuple(lengths.shape) != (S,):
         raise ValueError(f"table {tuple(table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not fit {S} slots")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    if quant:
+        for name, t in extra:
+            if t.dtype != torch.float32 or \
+                    tuple(t.shape) != tuple(k_pool.shape[:2]):
+                raise ValueError(f"{name} must be float32 "
+                                 f"{tuple(k_pool.shape[:2])}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        smem = paged_attention_quant_smem_bytes(rw, d, ps)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"rows {rw} x head dim {d} x page size {ps} "
+                             f"need {smem} B of shared memory "
+                             f"(> {MAX_SMEM_BYTES})")
+        PAGED_ATTENTION_QUANT.launch(
+            q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), S, hkv, rw, d, ps, n_max,
+            k_pool.shape[0], qw, 1.0 / math.sqrt(d), stream)
+        return out
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} exceeds {MAX_HEAD_DIM}")
     smem = paged_attention_smem_bytes(rw, d, ps)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"rows {rw} x head dim {d} x page size {ps} need "
                          f"{smem} B of shared memory (> {MAX_SMEM_BYTES})")
-    out = torch.empty_like(q)
     PAGED_ATTENTION.launch(
         q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(d), stream)
     return out
 
 
@@ -160,3 +220,16 @@ def paged_attention_plain(q, k_pool, v_pool, table, lengths, *,
     o = torch.einsum("nhrl,nhld->nhrd", p.to(v_pool.dtype).float(),
                      vd.float())
     return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def paged_attention_quant_plain(q, k_pool, v_pool, table, lengths, *,
+                                query_width: int, k_scales, v_scales):
+    """The plain PyTorch version of the int8 kernel: dequantize the int8
+    pools to f32 under their per-(page, head) scales (exact: the scales
+    are powers of two), then :func:`paged_attention_plain`, whose
+    rounding of p to the value dtype is then a no-op (the int8 kernel
+    keeps p in f32)."""
+    kd = dequantize(k_pool, k_scales[:, :, None, None])
+    vd = dequantize(v_pool, v_scales[:, :, None, None])
+    return paged_attention_plain(q, kd, vd, table, lengths,
+                                 query_width=query_width)

@@ -11,8 +11,10 @@ slots' tables read-only.
 
 Decode runs directly on the pool (``direct=True``): the attention layer
 appends each step's K/V in place at ``(page, offset)`` and reads through
-the table with the paged-attention kernel. ``gather_pages`` serves the
-prefix cache's one-row installs.
+the table with the paged-attention kernel, the bf16 one or, for an int8
+pool (``kv_dtype="int8"``, ``serving/quant.py``), the int8 one.
+``gather_pages`` serves the prefix cache's one-row installs of a bf16
+pool.
 
 Page 0 is the reserved null page: table entries past a slot's
 allocation point at it, so reads there are masked by length and stray
@@ -25,6 +27,8 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
+
+from deeplearning4j_tpu_torch.serving.quant import KV_DTYPES
 
 __all__ = ["PageExhausted", "PagePool", "PagedKVConfig", "gather_pages",
            "pages_needed"]
@@ -39,42 +43,84 @@ class PageExhausted(RuntimeError):
 class PagedKVConfig:
     """Knobs for the block-paged arena.
 
-    ``page_size`` tokens per page; capacity ``total_pages``, defaulting
-    to the slot arena's worst case (slots × ceil(L / page_size)).
-    ``prefix_cache`` enables shared-prompt page reuse. ``kv_dtype="bf16"``
-    keeps the net's own KV dtype (the name of the unquantized path, not
-    a cast). The int8 pool (ROADMAP.md B6) and the legacy gather/scatter
-    round trip (``direct=False``, ROADMAP.md A7) are not ported yet and
+    ``page_size`` tokens per page; capacity from ``total_pages``,
+    ``total_tokens`` (rounded down to whole pages) or ``total_bytes`` (a
+    byte budget the engine divides by the per-page cost of the net's kv
+    leaves, int8 scale sidecars included, so the same budget buys about
+    twice the pages under int8), at most one of them; by default the
+    slot arena's worst case (slots x ceil(L / page_size)).
+    ``prefix_cache`` enables shared-prompt page reuse.
+
+    ``kv_dtype`` is the pool's storage: ``"bf16"`` keeps the net's own
+    KV dtype (the name of the unquantized path, not a cast); ``"int8"``
+    stores symmetric per-(page, kv-head) int8 with a ``[P, Hkv]`` scale
+    sidecar per leaf (``serving/quant.py``: quantized once on write,
+    read by the int8 paged-decode kernel); ``"auto"`` takes int8 only
+    where the measured ``paged_decode_quant`` store entry for this
+    engine's shape, on its device, says int8 won
+    (``tuning/plan.resolve_kv_dtype``): uncalibrated runs stay bf16.
+    The legacy gather/scatter round trip (``direct=False``, ROADMAP.md
+    A7) and the choice of decode read path (``decode_impl``: the port
+    reads through its kernels only, ROADMAP.md A.1) are not ported and
     raise."""
 
     page_size: int = 8
     total_pages: Optional[int] = None
+    total_tokens: Optional[int] = None
+    total_bytes: Optional[int] = None
     prefix_cache: bool = True
     direct: bool = True
     kv_dtype: str = "bf16"
+    decode_impl: Optional[str] = None
 
     def __post_init__(self):
+        if self.decode_impl is not None:
+            raise NotImplementedError(
+                f"decode_impl={self.decode_impl!r}: the port has one decode "
+                f"read path on the card, its kernels (ROADMAP.md A.1)")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got "
                              f"{self.page_size}")
-        if self.kv_dtype in ("int8", "auto"):
-            raise NotImplementedError(
-                f"kv_dtype={self.kv_dtype!r}: the int8 KV pool is not "
-                f"ported yet (ROADMAP.md B6)")
-        if self.kv_dtype != "bf16":
-            raise ValueError(f"kv_dtype must be 'bf16', got "
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                              f"{self.kv_dtype!r}")
+        if self.kv_dtype != "bf16" and not self.direct:
+            raise ValueError(
+                "kv_dtype='int8'/'auto' needs direct=True: the legacy "
+                "gather/scatter round trip has no quantized read path")
         if not self.direct:
             raise NotImplementedError(
                 "direct=False (the legacy gather/scatter round trip) is "
                 "not ported (ROADMAP.md A7)")
+        given = [k for k in ("total_pages", "total_tokens", "total_bytes")
+                 if getattr(self, k) is not None]
+        if len(given) > 1:
+            raise ValueError(f"give at most one capacity knob, got {given}")
         if self.total_pages is not None and self.total_pages < 1:
             raise ValueError(f"total_pages must be >= 1, got "
                              f"{self.total_pages}")
+        if self.total_tokens is not None and \
+                self.total_tokens < self.page_size:
+            raise ValueError(f"total_tokens {self.total_tokens} is less "
+                             f"than one page ({self.page_size} tokens)")
+        if self.total_bytes is not None and self.total_bytes < 1:
+            raise ValueError(f"total_bytes must be >= 1, got "
+                             f"{self.total_bytes}")
+
+    def resolve_pages_bytes(self, page_bytes: int) -> int:
+        """Pages the ``total_bytes`` budget buys at ``page_bytes`` a page
+        (``quant.kv_page_bytes`` of the net's kv leaves)."""
+        n = int(self.total_bytes) // max(1, int(page_bytes))
+        if n < 1:
+            raise ValueError(f"total_bytes {self.total_bytes} buys no page "
+                             f"({page_bytes} bytes/page)")
+        return n
 
     def resolve_pages(self, slots: int, n_max: int) -> int:
         if self.total_pages is not None:
             return int(self.total_pages)
+        if self.total_tokens is not None:
+            return int(self.total_tokens) // self.page_size
         return int(slots) * int(n_max)
 
 

@@ -55,13 +55,16 @@ CROSSOVER_NAME = "KERNEL_CROSSOVER_TORCH.json"
 CROSSOVER_VERSION = 1
 
 #: implementation revision per kernel domain: entries recorded against
-#: another revision are pruned on load (a rewritten kernel re-earns its
-#: calibration)
+#: another revision are pruned on load (a rewritten kernel, or a
+#: measurement of another fallback, re-earns its calibration). The two
+#: training domains are at 2: their fallback is timed as the xla plan's
+#: own layers since, where revision 1 timed ``reference_bottleneck`` /
+#: ``reference_stem`` (``tuning/calibrate.py``)
 IMPL_REVS: Dict[str, int] = {
-    "train_bottleneck": 1,    # nn/layers/bottleneck.py fused chain
-    "train_stem": 1,          # nn/layers/stem.py space-to-depth stem
+    "train_bottleneck": 2,    # nn/layers/bottleneck.py fused chain
+    "train_stem": 2,          # nn/layers/stem.py space-to-depth stem
     "paged_decode": 1,        # serving/paged_kernel.py
-    "paged_decode_quant": 1,  # the int8 KV pool (ROADMAP.md B6)
+    "paged_decode_quant": 1,  # the int8 KV pool (serving/quant.py)
 }
 
 

@@ -20,6 +20,12 @@ Both serve ``ComputationGraph.output`` and ``fit`` (which resolves its
 ``execution_plan=`` here once per call): a fused block or stem trains
 through its backward kernels. ``set_fusion`` applies the plan with
 change detection, so resolving the same plan again changes nothing.
+
+The serving twin, :func:`resolve_kv_dtype`, resolves
+``PagedKVConfig(kv_dtype="auto")`` from the store's
+``paged_decode_quant`` entry (:func:`quant_key_for_engine`). The decode
+impl's resolver (``resolve_decode_impl``) is not ported: the port has
+one read path on the card (ROADMAP.md A.1).
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ from typing import Optional
 
 from deeplearning4j_tpu_torch.tuning.crossover import (
     KernelCrossoverStore, bottleneck_fingerprint, default_store,
-    stem_fingerprint)
+    quant_fingerprint, stem_fingerprint)
 
-__all__ = ["EXECUTION_PLANS", "apply_execution_plan"]
+__all__ = ["EXECUTION_PLANS", "apply_execution_plan", "quant_key_for_engine",
+           "resolve_kv_dtype"]
 
 EXECUTION_PLANS = ("auto", "fused", "xla")
 
@@ -98,3 +105,26 @@ def apply_execution_plan(net, plan: Optional[str], *,
     net.set_fusion("bottleneck", stem=stem_on, only=only)
     return {"plan": plan, "level": "bottleneck", "blocks": len(chosen),
             "stem": stem_on, "keys": keys}
+
+
+def resolve_kv_dtype(eligible: bool, key: str, *,
+                     store: Optional[KernelCrossoverStore] = None,
+                     device=None) -> str:
+    """``kv_dtype="auto"`` for the int8 KV page pool. ``eligible`` is the
+    engine's static gate (a pure-attention streaming state): int8 can
+    serve the net; only a measurement on ``device``'s kind of card says
+    it should. Uncalibrated, mismatched (another platform or device
+    kind) or stale entries stay bf16: quantization trades accuracy, so
+    it is opted into by a measured win ("kernel" = the int8 leg
+    faster)."""
+    if not eligible:
+        return "bf16"
+    store = default_store() if store is None else store
+    return ("int8" if store.choose(key, default="fallback", device=device)
+            == "kernel" else "bf16")
+
+
+def quant_key_for_engine(page_size: int, head_dim: int, n_kv_heads: int,
+                         cache_length: int, dtype) -> str:
+    return quant_fingerprint(page_size, head_dim, n_kv_heads, cache_length,
+                             dtype)

@@ -2,8 +2,10 @@
 plan resolution (deeplearning4j_tpu_torch/tuning/) against the JAX
 package's tuning/, on the CPU.
 
-- The fingerprints are the JAX package's strings, and so are the
-  implementation revisions and the verdict rule.
+- The fingerprints are the JAX package's strings, and so is the verdict
+  rule. The implementation revisions are the JAX package's but for the
+  two training domains, one higher: their fallback is timed as the xla
+  plan's layers, and a stored entry of the old revision is pruned.
 - The store: a saved entry reads back (the JAX file layout), repeated
   records merge into a running mean, an entry of a stale revision is
   pruned on load, a torn file reads as uncalibrated, timings that are
@@ -16,7 +18,12 @@ package's tuning/, on the CPU.
   the same record, as the JAX package's on its own ResNet50.
 - ``calibrate_training_kernels`` fills every distinct block shape and
   the stem (the same keys as the JAX harness; timing monkeypatched), and
-  once for real at 32x32 (the plain versions' steps run).
+  once for real at 32x32 (the plain versions' steps run). Its fallback,
+  ``xla_plan_bottleneck`` / ``xla_plan_stem`` (the xla plan's layers),
+  computes ``reference_bottleneck`` / ``reference_stem``: outputs,
+  running statistics and gradients within 1e-5 of each tensor's largest
+  value in f32 (cuDNN-free CPU convolutions against einsums: sums in
+  other orders).
 - The port never writes (nor names in its code) the JAX package's
   ``KERNEL_CROSSOVER.json``.
 """
@@ -74,8 +81,15 @@ def test_fingerprints_are_the_jax_strings(case):
         getattr(jcross, name)(*args, **kw)
 
 
+#: the domains whose fallback the port measures otherwise than the JAX
+#: package (the xla plan's layers, not the reference composition)
+REMEASURED = ("train_bottleneck", "train_stem")
+
+
 def test_revisions_and_verdicts_are_the_jax_packages():
-    assert tt.IMPL_REVS == jt.IMPL_REVS
+    assert set(tt.IMPL_REVS) == set(jt.IMPL_REVS)
+    for domain, rev in tt.IMPL_REVS.items():
+        assert rev == jt.IMPL_REVS[domain] + (domain in REMEASURED), domain
     for e in ({"kernel_ms": 1.0, "fallback_ms": 2.0},
               {"kernel_ms": 2.0, "fallback_ms": 2.0}, {}, {"kernel_ms": 1}):
         assert tt.winner(e) == jt.winner(e)
@@ -125,6 +139,21 @@ def test_a_stale_revision_is_pruned_on_load(tmp_path):
     s2 = tt.KernelCrossoverStore.load(p)
     assert len(s2) == 0
     assert s2.choose(key, default="fallback", device=CPU) == "fallback"
+
+
+@pytest.mark.parametrize("domain", REMEASURED)
+def test_a_revision_one_entry_of_the_old_fallback_is_pruned(tmp_path,
+                                                            domain):
+    """An entry calibrated against the reference composition (revision
+    1, as the earlier harness stored them) no longer decides "auto"."""
+    p = tmp_path / tt.CROSSOVER_NAME
+    key = tcross.fingerprint(domain, "bfloat16", h=56)
+    p.write_text(json.dumps({"version": 1, "entries": {key: {
+        "kernel_ms": 3.7, "fallback_ms": 7.9, "platform": "cpu",
+        "device_kind": "cpu", "impl_rev": 1, "samples": 1}}}))
+    s = tt.KernelCrossoverStore.load(str(p))
+    assert len(s) == 0
+    assert s.choose(key, default="fallback", device=CPU) == "fallback"
 
 
 @pytest.mark.parametrize("text", ["{ torn json", "[1, 2]", ""])
@@ -308,6 +337,75 @@ def test_calibration_fills_every_distinct_shape(nets, tmp_path,
                for e in loaded.entries().values())
     assert len(tt.calibrate_training_kernels(
         tnet, batch_size=2, store=s, include_stem=False)) == 8
+
+
+def _close(got, want, what):
+    got, want = got.detach(), want.detach()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), (what, err)
+
+
+@pytest.mark.parametrize("stride,skip", [(1, False), (2, True), (1, True)])
+def test_the_xla_plan_fallback_computes_reference_bottleneck(stride, skip):
+    from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
+        BnParams, reference_bottleneck)
+    from deeplearning4j_tpu_torch.tuning.calibrate import (
+        oihw_weights, xla_plan_bottleneck)
+    rng = np.random.default_rng(stride + 2 * skip)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).requires_grad_()
+
+    def bn(c):
+        return BnParams(*(torch.from_numpy(rng.normal(m, 0.2, c)
+                                           .astype(np.float32))
+                          for m in (1.0, 0.0)),
+                        torch.zeros(c), torch.ones(c))
+
+    cin, cmid, cout = (8, 4, 16) if skip else (16, 8, 16)
+    x, wa = arr(2, 8, 8, cin), arr(cin, cmid, scale=0.3)
+    wb, wc = arr(9, cmid, cmid, scale=0.2), arr(cmid, cout, scale=0.3)
+    ws = arr(cin, cout, scale=0.3) if skip else None
+    kw = dict(bn_a=bn(cmid), bn_b=bn(cmid), bn_c=bn(cout),
+              bn_skip=bn(cout) if skip else None, stride=stride, train=True)
+    ref, ref_stats = reference_bottleneck(x, wa, wb=wb, wc=wc, w_skip=ws,
+                                          **kw)
+    leaves = [t for t in (x, wa, wb, wc, ws) if t is not None]
+    ref_grads = torch.autograd.grad(ref.sum(), leaves)
+    xla = [t.detach().requires_grad_() if t is not None else None
+           for t in (x, *oihw_weights(wa, wb, wc, ws))]
+    got, stats = xla_plan_bottleneck(xla[0], xla[1], wb=xla[2], wc=xla[3],
+                                     w_skip=xla[4], **kw)
+    grads = torch.autograd.grad(got.sum(), [t for t in xla if t is not None])
+    _close(got, ref, "out")
+    assert len(stats) == len(ref_stats) == (8 if skip else 6)
+    for a, b in zip(stats, ref_stats):
+        _close(a, b, "running stats")
+    _close(grads[0], ref_grads[0], "dx")
+    ref_w = oihw_weights(*ref_grads[1:4], ref_grads[4] if skip else None)
+    for a, b in zip(grads[1:], [w for w in ref_w if w is not None]):
+        _close(a, b, "dW")
+
+
+def test_the_xla_plan_fallback_computes_reference_stem():
+    from deeplearning4j_tpu_torch.nn.layers.bottleneck import BnParams
+    from deeplearning4j_tpu_torch.nn.layers.stem import reference_stem
+    from deeplearning4j_tpu_torch.tuning.calibrate import xla_plan_stem
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 3))
+                         .astype(np.float32)).requires_grad_()
+    w = torch.from_numpy((rng.standard_normal((8, 3, 7, 7)) * 0.2)
+                         .astype(np.float32)).requires_grad_()
+    bn = BnParams(torch.full((8,), 1.1), torch.full((8,), 0.1),
+                  torch.zeros(8), torch.ones(8))
+    ref, ref_stats = reference_stem(x, w, bn, train=True)
+    ref_grads = torch.autograd.grad(ref.sum(), [x, w])
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    got, stats = xla_plan_stem(xl, wl, bn, train=True)
+    grads = torch.autograd.grad(got.sum(), [xl, wl])
+    for a, b in zip((got, *stats, *grads), (ref, *ref_stats, *ref_grads)):
+        _close(a, b, "stem")
 
 
 def test_calibration_runs_the_training_steps():

@@ -185,8 +185,12 @@ def test_left_out_arguments_raise(nets, monkeypatch):
                 "prefill_chaos", "decode_chaos", "seat_chaos"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
             GenerationEngine(tnet, V, device="cpu", **{arg: object()})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
-        PagedKVConfig(kv_dtype="int8")
+    # the int8 pool is ported (tests/test_torch_serving_quant.py); the
+    # legacy round trip it cannot ride is refused as in the JAX package
+    with pytest.raises(ValueError, match="needs direct=True"):
+        PagedKVConfig(kv_dtype="int8", direct=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
+        PagedKVConfig(decode_impl="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         PagedKVConfig(direct=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
