@@ -9,9 +9,9 @@ Phases (any failure exits nonzero):
 
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
 2. build: every CUDA kernel library (paged attention with its int8
-   variant, flash attention,
-   bottleneck, bottleneck backward, stem, stem backward) from the
-   sources in the checkout, one nvcc each, started together;
+   variant, flash attention, bottleneck, bottleneck backward, stem, stem
+   backward, the fused bn -> act -> 1x1 conv) from the sources in the
+   checkout, one nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with the kernel's, the plain
    version's and a library call's times (CUDA events, L2 flushed before
@@ -161,7 +161,38 @@ Phases (any failure exits nonzero):
     blocks win) engages the stem and those blocks. The fallback is timed
     as the xla plan's own layers, and ``fit(execution_plan=
     "auto")`` on the calibrated store must be within the xla plan's
-    spread of step times, or faster, in turns.
+    spread of step times, or faster, in turns;
+20. fused kernels (``fused_kernels``): the fused bn -> act -> 1x1 conv's
+    forward and one-pass backward kernels against their plain versions
+    at the four stages' group shapes (56x56 64 -> 256, 28x28 128 -> 512,
+    14x14 256 -> 1024, 7x7 512 -> 2048), bf16 at B=128 and f32 at B=16,
+    and a tail of M = 147 rows whose inputs are views of buffers with NaN
+    rows after them: out, dy and dW by row and 64-row tile as in phase
+    10, dsc, dbb and db within 1e-6 of each channel's sum of |terms|,
+    everything finite, two backward launches bitwise equal; in bf16 the
+    limits fail three faults planted through the plain versions (no relu
+    in the prologue, no relu' mask on dz, dW from the unrounded z).
+    Times of the kernels, the plain versions and cuBLAS (``torch.matmul``
+    on the activated input; ``g @ W^T`` and ``z^T @ g``) beside the
+    bounds;
+21. resnet fuse_true (``resnet_fuse_true``): ResNet50(fuse=True) at full
+    width (1000 classes, 224x224, B=128, bf16, NHWC): one counted
+    ``output()`` (BN statistics calibrated as phase 11's; 16 fused
+    forward launches, none of the bottleneck or stem kernels), the
+    probabilities finite with rows summing to 1, the logits against the
+    plain versions' and a planted fault (one group's prologue without its
+    relu) beyond the limit, ``output()`` of the fuse=True and xla plans
+    in turns; then bench_all.py's bench_train_plan with ``fuse=True``
+    through ``net.fit``: a warm-up step and 5 timed steps, 16 fused
+    forward and 16 fused backward launches a step and none of the other
+    CNN kernels, the loss finite and its first four values within 3e-2
+    of the xla plan's from the same seed, ms per step, images/s and peak
+    memory of the fuse=True and xla plans in turns, one profiled step;
+22. resnet fuse_true reference (``resnet_fuse_true_reference``): phase
+    15 on fuse=True: two f32 fit steps at B=8 with the kernels against
+    the plain versions and the xla plan by update_err, leaf by leaf; one
+    group's backward without its relu' mask (through the kernels) fails
+    the limit.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -229,7 +260,7 @@ RESNET_TIMED = 5                 # timed output() calls per plan and turn
 #: launches per forward: 16 conv_a + 16 conv_c + 4 conv shortcuts; the 16
 #: 3x3 convs; the stem once
 RESNET_LAUNCHES = {"conv1x1": 36, "conv3x3": 16, "stem_conv": 1,
-                   "stem_pool": 1}
+                   "stem_pool": 1, "fused_fwd": 0}
 # The conv kernels against their plain versions, by
 # flash_attention.agreement over output rows (one pixel's channels) and
 # 64-row tiles: bf16 rows within two ulps of their largest element and
@@ -267,7 +298,7 @@ TRAIN_RESNET_STEPS, TRAIN_RESNET_TURNS = 5, 2
 RESNET_TRAIN_LAUNCHES = {"conv1x1": 36, "conv3x3": 16, "bwd1x1": 36,
                          "bwd3x3": 16, "stem_conv": 0, "stem_pool": 0,
                          "stem_bwd_pool": 0, "stem_bwd_dw": 0,
-                         "stem_bwd_dx": 0}
+                         "stem_bwd_dx": 0, "fused_fwd": 0, "fused_bwd": 0}
 #: with the stem engaged (phases 17-18): its forward kernels, bwd_pool
 #: and bwd_dw once a step; the input gradient never (the stem's input is
 #: the network input)
@@ -320,6 +351,33 @@ TRAIN_REF_LIMIT, TRAIN_REF_STATE = 0.3, 1e-2
 #: output): s4b4, the fifth
 TRAIN_REF_PLANTED = 4
 
+# ResNet50 on the bn -> act -> 1x1-conv plan (fuse=True)
+#: each stage's fused group (b_bn -> b_act -> c_conv) at the main path's
+#: batch: (H = W, C, K); M = B H W rows
+FUSED_STAGES = {"s2": (56, 64, 256), "s3": (28, 128, 512),
+                "s4": (14, 256, 1024), "s5": (7, 512, 2048)}
+#: the tail case (B, H = W, C, K): M = 147 rows, no multiple of the row
+#: tile; y and g are the first M rows of buffers whose later rows are NaN
+FUSED_TAIL = (3, 7, 512, 2048)
+#: launches per forward: one fused forward per bottleneck block, none of
+#: the bottleneck or stem kernels (the level does not touch the stem)
+FUSE_TRUE_LAUNCHES = {**{n: 0 for n in RESNET_TRAIN_STEM_LAUNCHES},
+                      "fused_fwd": 16}
+#: launches per training step: the 16 groups' forward and backward
+FUSE_TRUE_TRAIN_LAUNCHES = {**FUSE_TRUE_LAUNCHES, "fused_bwd": 16}
+#: the planted faults' group among the 16, in the order of its calls
+#: (forward: topological, s3b1; backward: from the output, s4b4)
+FUSE_TRUE_PLANTED = 4
+#: the fuse=True steps' losses held against the xla plan's (within
+#: TRAIN_LOSS_AGREE): the first three. This trajectory turns chaotic one
+#: step earlier than the bottleneck plan's: on the H100 the same fuse=True
+#: net with only its first step through the plain versions (its first
+#: velocity 1.7% apart) is 1.4e-4 and 4.1e-4 away at the second and third
+#: losses and 6.5% at the fourth, so the fourth loss tells no fault
+#: (the xla plan's: 0.19%, 0.19%, 0.75%, then 12%); all six are recorded,
+#: and the f32 reference holds the gradients leaf by leaf
+FUSE_TRUE_LOSS_AGREED = 3
+
 
 def log(*parts):
     print(*parts, flush=True)
@@ -345,7 +403,7 @@ def kernel_counters():
     uses."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
     from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
-    from deeplearning4j_tpu_torch.nn.layers import stem
+    from deeplearning4j_tpu_torch.nn.layers import fused, stem
     from deeplearning4j_tpu_torch.serving.paged_kernel import (
         PAGED_ATTENTION, PAGED_ATTENTION_QUANT)
     return {"paged_attention": PAGED_ATTENTION,
@@ -356,7 +414,8 @@ def kernel_counters():
             "conv3x3": bn.CONV3X3, "stem_conv": stem.STEM_CONV,
             "stem_pool": stem.STEM_POOL, "bwd1x1": bn.BWD1X1,
             "bwd3x3": bn.BWD3X3, "stem_bwd_pool": stem.STEM_BWD_POOL,
-            "stem_bwd_dw": stem.STEM_BWD_DW, "stem_bwd_dx": stem.STEM_BWD_DX}
+            "stem_bwd_dw": stem.STEM_BWD_DW, "stem_bwd_dx": stem.STEM_BWD_DX,
+            "fused_fwd": fused.FUSED_FWD, "fused_bwd": fused.FUSED_BWD}
 
 
 def zero_counts():
@@ -2315,11 +2374,41 @@ def profile_fit_step(net, x, y, plan, top=12):
             "top_kernels_us": [[key[:90], t] for key, t in ranked]}, share
 
 
+def fit_turns(device, net, x, y, plans):
+    """Each plan's fit steps in turns (a warm-up step, then two timed, a
+    turn; TRAIN_RESNET_TURNS rounds), ``plans`` mapping a name to its
+    ``set_fusion`` (level, stem): {"turns_<name>": step ms, their median,
+    images/s, the turns' peak memory}."""
+    times = {p: [] for p in plans}
+    peaks = {p: 0 for p in plans}
+    for _ in range(TRAIN_RESNET_TURNS):
+        for plan, (level, stem_on) in plans.items():
+            net.set_fusion(level, stem=stem_on)
+            fit_s(net, x, y, None)
+            torch.cuda.reset_peak_memory_stats(device)
+            for _ in range(2):
+                times[plan].append(fit_s(net, x, y, None)[0])
+            peaks[plan] = max(peaks[plan],
+                              torch.cuda.max_memory_allocated(device))
+    out = {}
+    for plan, ts in times.items():
+        m = float(np.median(ts))
+        out["turns_" + plan] = {"step_ms": [1e3 * t for t in ts],
+                                "step_ms_median": 1e3 * m,
+                                "images_per_s": RESNET_B / m,
+                                "max_memory_allocated_bytes": peaks[plan]}
+    return out
+
+
 def train_steps(device, x, y, plan, steps, swaps=()):
     """A fresh full-width net from the conf seed trained ``steps`` fit
-    steps on ``plan``: its start parameters, its velocity after the
-    first step (the first gradient times -lr), and every step's loss."""
+    steps on ``plan`` (an execution plan, or True: the fusion level set
+    once): its start parameters, its velocity after the first step (the
+    first gradient times -lr), and every step's loss."""
     net = resnet_train_net(device, torch.bfloat16)
+    if plan is True:
+        net.set_fusion(True)
+        plan = None
     start = tree_numpy(net.params)
     losses = [with_swaps(swaps, lambda: fit_s(net, x, y, plan)[1])]
     first = tree_numpy(net.updater_state)
@@ -2431,23 +2520,35 @@ def update_err(got, want, base):
                for k in keys)
 
 
-def resnet_train_reference(device, stem=False):
-    """f32 at B=8: two fit steps with the kernels (the fused plan; with
-    ``stem``, the stem kernels engaged too), with the plain versions
-    swapped in, on the xla plan, and with a planted fault (``stem``: in
-    the stem's backward, else in a block's); parameters, BN state and
-    velocity by update_err."""
+def resnet_train_reference(device, variant="fused"):
+    """f32 at B=8: two fit steps with the kernels, with the plain versions
+    swapped in, on the xla plan, and with a planted fault; parameters, BN
+    state and velocity by update_err. ``variant``: "fused" (the
+    bottleneck plan; the fault in a block's backward), "stem" (the stem
+    kernels engaged too; the fault in the stem's backward) or
+    "fuse_true" (the bn -> act -> 1x1-conv plan; the fault in a group's
+    backward)."""
     x, y = train_images(TRAIN_REF_B)
-    plain = train_swapped() + (stem_swapped() if stem else [])
-    fault = stem_fault() if stem else train_fault()
+    if variant == "fuse_true":
+        plain, fault = fused_swapped(), fuse_true_fault("no_mask")
+        per_step = FUSE_TRUE_TRAIN_LAUNCHES
+    elif variant == "stem":
+        plain, fault = train_swapped() + stem_swapped(), stem_fault()
+        per_step = RESNET_TRAIN_STEM_LAUNCHES
+    else:
+        plain, fault = train_swapped(), train_fault()
+        per_step = RESNET_TRAIN_LAUNCHES
     runs = {}
     for label, plan, swaps in (("kernels", "fused", []),
                                ("plain", "fused", plain),
                                ("xla", "xla", []),
                                ("planted", "fused", fault)):
         net = resnet_train_net(device, torch.float32, lr=TRAIN_REF_LR)
-        if stem and plan == "fused":
-            net.set_fusion("bottleneck", stem=True)
+        if variant != "fused" and plan == "fused":
+            if variant == "fuse_true":
+                net.set_fusion(True)
+            else:
+                net.set_fusion("bottleneck", stem=True)
             plan = None
         if label == "kernels":
             base = {"params": tree_numpy(net.params),
@@ -2468,7 +2569,7 @@ def resnet_train_reference(device, stem=False):
         torch.cuda.empty_cache()
     ref = runs["kernels"]
     rec = {"dtype": "float32", "batch": TRAIN_REF_B, "hw": RESNET_HW,
-           "lr": TRAIN_REF_LR, "steps": TRAIN_REF_STEPS, "stem": stem,
+           "lr": TRAIN_REF_LR, "steps": TRAIN_REF_STEPS, "variant": variant,
            "limits": {"params": TRAIN_REF_LIMIT, "updater": TRAIN_REF_LIMIT,
                       "state": TRAIN_REF_STATE}}
     failures = []
@@ -2486,13 +2587,13 @@ def resnet_train_reference(device, stem=False):
     if not all(np.isfinite(ref["losses"])) or \
             not ref["losses"][1] < ref["losses"][0]:
         failures.append("the reference's loss not finite or not falling")
-    per_step = RESNET_TRAIN_STEM_LAUNCHES if stem else RESNET_TRAIN_LAUNCHES
     want = {n: c * TRAIN_REF_STEPS for n, c in per_step.items()}
     if {n: ref["launches"][n] for n in want} != want or \
             any(runs["plain"]["launches"][n] for n in want):
         failures.append("launches")
-    name = "resnet train stem reference" if stem else \
-        "resnet train reference"
+    name = {"fused": "resnet train reference",
+            "stem": "resnet train stem reference",
+            "fuse_true": "resnet fuse_true reference"}[variant]
     log(f"{name}:", json.dumps(rec))
     if failures:
         raise AssertionError(f"{name}: {failures}: {rec}")
@@ -2798,26 +2899,9 @@ def resnet_train_stem(device, xla_losses=None):
                             f"{TRAIN_RESNET_STEPS} steps, want "
                             f"{per_step} a step")
     # the three plans' steps in turns (stem, fused, xla, stem, ...)
-    plans = {"fused_stem": ("bottleneck", True), "fused": ("bottleneck",
-                                                           False),
-             "xla": (False, False)}
-    times = {p: [] for p in plans}
-    peaks = {p: 0 for p in plans}
-    for _ in range(TRAIN_RESNET_TURNS):
-        for plan, (level, stem_on) in plans.items():
-            net.set_fusion(level, stem=stem_on)
-            fit_s(net, x, y, None)
-            torch.cuda.reset_peak_memory_stats(device)
-            for _ in range(2):
-                times[plan].append(fit_s(net, x, y, None)[0])
-            peaks[plan] = max(peaks[plan],
-                              torch.cuda.max_memory_allocated(device))
-    for plan, ts in times.items():
-        m = float(np.median(ts))
-        rec["turns_" + plan] = {"step_ms": [1e3 * t for t in ts],
-                                "step_ms_median": 1e3 * m,
-                                "images_per_s": RESNET_B / m,
-                                "max_memory_allocated_bytes": peaks[plan]}
+    rec.update(fit_turns(device, net, x, y, {
+        "fused_stem": ("bottleneck", True), "fused": ("bottleneck", False),
+        "xla": (False, False)}))
     net.set_fusion("bottleneck", stem=True)
     rec["profile"], share = profile_fit_step(net, x, y, None)
     rec["profile"].update(
@@ -3075,6 +3159,373 @@ def auto_plan(device):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phases 20-22: ResNet50 on the bn -> act -> 1x1-conv plan (fuse=True)
+# ---------------------------------------------------------------------
+def fused_inputs(n, hw, c, k, dtype, device, seed, tail=False):
+    """Seeded inputs of one fused group: y [M, C] a raw conv output (a
+    per-channel mean and scale drawn) with its BN affine (sc, bb) that
+    zeroes about half of it under relu; w2 [C, K] He-normal, b [K]
+    small, g [M, K] an output gradient. With ``tail`` y and g are the
+    first M rows of buffers whose next 64 rows are NaN."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    m = n * hw * hw
+    mean, std = 0.3 * randn(c), 0.5 + torch.rand(c, generator=gen)
+    y = mean + std * randn(m, c)
+    sc = (0.5 + torch.rand(c, generator=gen)) / std
+    bb = 0.2 * randn(c) - mean * sc
+    a = {"y": y.to(device, dtype), "sc": sc.to(device),
+         "bb": bb.to(device),
+         "w2": (randn(c, k) * (2.0 / c) ** 0.5).to(device, dtype),
+         "b": (0.1 * randn(k)).to(device),
+         "g": randn(m, k).to(device, dtype)}
+    if tail:
+        for key in ("y", "g"):
+            buf = torch.full((m + 64, a[key].shape[1]), float("nan"),
+                             dtype=dtype, device=device)
+            buf[:m] = a[key]
+            a[key] = buf[:m]
+    return a
+
+
+def fused_faults(a):
+    """The planted faults (bf16), through the plain versions: {fault:
+    (its output, the name of the kernel's output it is held against)}."""
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    y, sc, bb, w2, b, g = (a[k] for k in ("y", "sc", "bb", "w2", "b", "g"))
+    dtype = y.dtype
+    z0 = y.float() * sc + bb
+    z = torch.clamp_min(z0, 0.0)
+    gf = g.float()
+    dz = gf @ w2.float().t()
+    return {
+        # the forward's prologue without its relu
+        "no_relu": (fused.fused_matmul_plain(y, sc, bb, w2, b, "identity"),
+                    "out"),
+        # the backward's dz without its relu' mask
+        "no_mask": ((dz * sc).to(dtype), "dy"),
+        # dW from z in f32, not rounded to g's dtype (bf16 only)
+        "unrounded_z": ((z.t() @ gf).to(w2.dtype), "dw"),
+    } if dtype == torch.bfloat16 else {}
+
+
+def fused_fns(a):
+    """(forward kernel, forward plain, forward library, backward kernel,
+    backward plain, backward library) on inputs ``a``: the library calls
+    are cuBLAS's ``torch.matmul`` on the activated input (forward; the
+    activation made here, outside its time) and the two products
+    ``g @ w2^T`` and ``z^T @ g`` (backward, "none alone")."""
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    y, sc, bb, w2, b, g = (a[k] for k in ("y", "sc", "bb", "w2", "b", "g"))
+    z = torch.clamp_min(y.float() * sc + bb, 0.0).to(y.dtype)
+    zt, w2t = z.t(), w2.t()
+    return (lambda: fused.fused_matmul(y, sc, bb, w2, b, "relu"),
+            lambda: fused.fused_matmul_plain(y, sc, bb, w2, b, "relu"),
+            lambda: torch.matmul(z, w2),
+            lambda: fused.fused_matmul_bwd(y, sc, bb, w2, g, "relu"),
+            lambda: fused.fused_matmul_bwd_plain(y, sc, bb, w2, g, "relu"),
+            lambda: (torch.matmul(g, w2t), torch.matmul(zt, g)))
+
+
+def fused_bounds(m, c, k, dtype):
+    """Least time on this card for the forward and the backward: the
+    bytes each must move (forward: y, W, sc, bb, b in, out written;
+    backward: y, g, W, sc, bb in, dy, dW and the three sums written) over
+    the memory rate, against its multiply-adds (2 M C K forward, twice
+    that backward) over the dtype's peak. Returns {"fwd": (ms, by),
+    "bwd": (ms, by)}."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    out = {}
+    for kind, nbytes, ops in (
+            ("fwd", (m * c + c * k + m * k) * el + (2 * c + k) * 4,
+             2 * m * c * k),
+            ("bwd", (2 * m * c + m * k + 2 * c * k) * el + (4 * c + k) * 4,
+             4 * m * c * k)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+        out[kind] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def fused_sums_rel(got, want, terms):
+    """The sums' largest error over each channel's sum of |terms|."""
+    return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+def fused_case(name, dtype, n, device, seed):
+    """One group's shape: the forward and backward kernels against their
+    plain versions (out, dy and dW by row and 64-row tile, the sums
+    within BWD_SUMS of each channel's sum of |terms|, every value finite),
+    two backward launches bitwise equal, the planted faults (bf16) beyond
+    the limits; then the kernels', plain versions' and library calls'
+    times beside the bounds."""
+    if name == "tail":
+        n, hw, c, k = FUSED_TAIL
+    else:
+        hw, c, k = FUSED_STAGES[name]
+    a = fused_inputs(n, hw, c, k, dtype, device, seed, tail=name == "tail")
+    m = n * hw * hw
+    fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib = fused_fns(a)
+    out, ref_out = fwd(), fwd_plain()
+    got, ref = bwd(), bwd_plain()
+    again = bwd()
+    torch.cuda.synchronize()
+    case = {"case": name, "dtype": str(dtype).split(".")[-1], "batch": n,
+            "m": m, "c": c, "k": k}
+    failures = []
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
+    case["bitwise_repeat"] = all(torch.equal(u, v)
+                                 for u, v in zip(got, again))
+    if not case["bitwise_repeat"]:
+        failures.append("two backward launches differ")
+    limits = {"row_rel": CONV_ROW[dtype], "tile_rel": CONV_TILE[dtype],
+              "sums_rel": BWD_SUMS}
+    for key, g_, r_ in (("out", out, ref_out), ("dy", got[0], ref[0]),
+                        ("dw", got[3], ref[3])):
+        row_rel, tile_rel = conv_agreement(g_, r_)
+        case[key] = {"max_abs_err": float((g_.float() - r_.float()).abs()
+                                          .max()),
+                     "row_rel": row_rel, "tile_rel": tile_rel}
+        if row_rel > limits["row_rel"] or tile_rel > limits["tile_rel"]:
+            failures.append(key)
+    # the sums' terms, from the plain version's f32 dz
+    y32, g32 = a["y"].float(), a["g"].float()
+    dz = g32 @ a["w2"].float().t()
+    dz = torch.where(y32 * a["sc"] + a["bb"] > 0, dz, 0.0)
+    case["sums_rel"] = {
+        "dsc": fused_sums_rel(got[1], ref[1], (dz * y32).abs().sum(0)),
+        "dbb": fused_sums_rel(got[2], ref[2], dz.abs().sum(0)),
+        "db": fused_sums_rel(got[4], ref[4], g32.abs().sum(0))}
+    if max(case["sums_rel"].values()) > BWD_SUMS:
+        failures.append("sums")
+    del dz, y32, g32
+    case["max_abs_err"] = case["out"]["max_abs_err"]
+    case["limits"] = limits
+    if dtype == torch.bfloat16:
+        planted_rec = {}
+        outs = {"out": out, "dy": got[0], "dw": got[3]}
+        for fault, (bad, key) in fused_faults(a).items():
+            planted_rec[fault] = conv_agreement(bad, outs[key])
+            if planted_rec[fault][0] <= limits["row_rel"] and \
+                    planted_rec[fault][1] <= limits["tile_rel"]:
+                failures.append(f"the limits do not tell {fault}")
+        case["planted"] = planted_rec
+    log("fused check", json.dumps(case))
+    if not finite or failures:
+        raise AssertionError(f"fused kernels disagree with their plain "
+                             f"versions ({failures}, finite {finite}): "
+                             f"{case}")
+    del out, ref_out, got, ref, again
+    bounds = fused_bounds(m, c, k, dtype)
+    for kind, kern, plain, library in (("fwd", fwd, fwd_plain, fwd_lib),
+                                       ("bwd", bwd, bwd_plain, bwd_lib)):
+        case[kind] = {"ms": median_ms(kern, device),
+                      "plain_ms": median_ms(plain, device, iters=10),
+                      "library_ms": median_ms(library, device),
+                      "bound_ms": bounds[kind][0],
+                      "bound_by": bounds[kind][1]}
+    log("fused", json.dumps(case))
+    del a, fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_fused_kernels(device):
+    """Every stage's group in bf16 at the main path's batch, then in f32
+    at 16; the tail in both."""
+    return [fused_case(name, dtype, n, device, seed=40 + i)
+            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+            for i, name in enumerate([*FUSED_STAGES, "tail"])]
+
+
+def fuse_true_net(device, dtype, lr=0.1, calibrate=False):
+    """bench_all.py's bench_train_plan ResNet50 with ``fuse=True`` in
+    place of ``execution_plan="fused"``: 1000 classes, 224x224, NHWC,
+    Nesterovs(lr, 0.9), random weights from the conf seed; with
+    ``calibrate`` the BN statistics set from 16 seeded images (as phase
+    11's, so that inference does not saturate)."""
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50(num_classes=RESNET_CLASSES, height=RESNET_HW,
+                   width=RESNET_HW, updater=Nesterovs(lr, momentum=0.9),
+                   data_format="NHWC", fuse=True).init(device=device)
+    if calibrate:
+        net.set_fusion(False)
+        calibrate_bn(net, images(16, device, seed=7))
+        net.set_fusion(True)
+    net.conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return net
+
+
+def fused_swapped():
+    """The fused op's kernel wrappers swapped for their plain versions
+    (for ``with_swaps``)."""
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    return [(vars(fused), {"fused_matmul": fused.fused_matmul_plain,
+                           "fused_matmul_bwd": fused.fused_matmul_bwd_plain})]
+
+
+def fuse_true_fault(kind):
+    """Swaps (for ``with_swaps``) that plant a fault in group
+    FUSE_TRUE_PLANTED (counted per pass of 16 calls), through the
+    kernels: "no_relu", its forward's prologue without the relu;
+    "no_mask", its backward's dz without the relu' mask (dy and the sums
+    of the identity prologue's launch, dW of the right one)."""
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    fwd, bwd, seen = fused.fused_matmul, fused.fused_matmul_bwd, [0]
+
+    def hit():
+        seen[0] += 1
+        return (seen[0] - 1) % 16 == FUSE_TRUE_PLANTED
+
+    def no_relu(y2, sc, bb, w2, b, act="relu"):
+        return fwd(y2, sc, bb, w2, b, "identity" if hit() else act)
+
+    def no_mask(y2, sc, bb, w2, g, act="relu"):
+        if not hit():
+            return bwd(y2, sc, bb, w2, g, act)
+        _, _, _, dw, db = bwd(y2, sc, bb, w2, g, act)
+        dy, dsc, dbb, _, _ = bwd(y2, sc, bb, w2, g, "identity")
+        return dy, dsc, dbb, dw, db
+
+    if kind == "no_relu":
+        return [(vars(fused), {"fused_matmul": no_relu})]
+    return [(vars(fused), {"fused_matmul_bwd": no_mask})]
+
+
+def resnet_fuse_true(device):
+    """ResNet50 on the bn -> act -> 1x1-conv plan at full width: one
+    counted ``output()`` (calibrated BN statistics) with its logits
+    against the plain versions' and the planted prologue fault; then
+    ``fit``: a warm-up step and the counted timed steps, the fuse=True
+    and xla plans' steps and peak memory in turns, one profiled step;
+    the losses against a fresh xla-plan net's from the same seed, and
+    (a reading) against a fresh fuse=True net's whose first step runs
+    the plain versions."""
+    rec, failures = {}, []
+    net = fuse_true_net(device, torch.bfloat16, calibrate=True)
+    x = images(RESNET_B, device, seed=8)
+    net.output(x)
+    zero_counts()
+    out_s, probs = output_s(net, x)
+    counts = read_counts()
+    inf = {"output_ms": 1e3 * out_s, "launches": counts,
+           "groups": len(net._conv_plan())}
+    if tuple(probs.shape) != (RESNET_B, RESNET_CLASSES) or \
+            not bool(torch.isfinite(probs).all()):
+        failures.append("probabilities not finite or misshapen")
+    inf["row_sum_max_dev"] = float((probs.double().sum(1) - 1).abs().max())
+    inf["max_probability"] = float(probs.max())
+    if inf["row_sum_max_dev"] > RESNET_ROW_SUM:
+        failures.append("rows do not sum to 1")
+    for name, want in FUSE_TRUE_LAUNCHES.items():
+        if counts[name] != want:
+            failures.append(f"{name} launched {counts[name]} in a forward, "
+                            f"want {want}")
+    zero_counts()
+    plain = with_swaps(fused_swapped(), lambda: logits(net, x))
+    if any(read_counts().values()):
+        failures.append("the plain versions launched a kernel")
+    limit = RESNET_LOGIT[torch.bfloat16]
+    inf["logit_rel"] = logit_rel(logits(net, x), plain)
+    inf["logit_rel_planted_no_relu"] = logit_rel(
+        with_swaps(fuse_true_fault("no_relu"), lambda: logits(net, x)),
+        plain)
+    inf["logit_rel_limit"] = limit
+    if inf["logit_rel"] > limit:
+        failures.append("logits disagree with the plain versions'")
+    if inf["logit_rel_planted_no_relu"] <= limit:
+        failures.append("the limit does not tell the planted no_relu")
+    # output() of the two plans in turns (fuse_true, xla, fuse_true, xla)
+    times = {"fuse_true": [], "xla": []}
+    for _ in range(2):
+        for plan in times:
+            net.set_fusion(plan == "fuse_true")
+            net.output(x)
+            times[plan] += [output_s(net, x)[0] for _ in range(RESNET_TIMED)]
+    for plan, ts in times.items():
+        med = float(np.median(ts))
+        inf["turns_" + plan] = {"output_ms": [1e3 * t for t in ts],
+                                "output_ms_median": 1e3 * med,
+                                "images_per_s": RESNET_B / med}
+    rec["inference"] = inf
+    del net, x, probs, plain
+    torch.cuda.empty_cache()
+
+    net = fuse_true_net(device, torch.bfloat16)
+    x, y = train_images(RESNET_B)
+    start = tree_numpy(net.params)
+    warm_s, warm_loss = fit_s(net, x, y, None)
+    first = tree_numpy(net.updater_state)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_RESNET_STEPS):
+        t, loss = fit_s(net, x, y, None)
+        step_s.append(t)
+        losses.append(loss)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    med = float(np.median(step_s))
+    rec.update(
+        config={"model": "ResNet50", "classes": RESNET_CLASSES,
+                "hw": RESNET_HW, "batch": RESNET_B, "dtype": "bfloat16",
+                "data_format": "NHWC", "updater": "Nesterovs(0.1, 0.9)",
+                "plan": "fuse=True", "groups": len(net._conv_plan())},
+        warmup_step_s=warm_s, warmup_loss=warm_loss, losses=losses,
+        step_ms=[1e3 * t for t in step_s], step_ms_median=1e3 * med,
+        images_per_s=RESNET_B / med, max_memory_allocated_bytes=peak,
+        launches=counts)
+    if not all(np.isfinite(losses + [warm_loss])):
+        failures.append("loss not finite")
+    for name, per_step in FUSE_TRUE_TRAIN_LAUNCHES.items():
+        if counts[name] != per_step * TRAIN_RESNET_STEPS:
+            failures.append(f"{name} launched {counts[name]} in "
+                            f"{TRAIN_RESNET_STEPS} steps, want "
+                            f"{per_step} a step")
+    # the two plans' steps and peak memory in turns (fuse_true, xla, ...)
+    rec.update(fit_turns(device, net, x, y, {"fuse_true": (True, False),
+                                             "xla": (False, False)}))
+    net.set_fusion(True)
+    rec["profile"], share = profile_fit_step(net, x, y, None)
+    rec["profile"].update(
+        fused_fwd_share=share("fused_fwd_kernel"),
+        fused_bwd_share=share("fused_dz_kernel", "fused_dw_kernel",
+                              "fused_finish_kernel", "reduce_partials"))
+    del net
+    torch.cuda.empty_cache()
+    xstart, xfirst, xlosses = train_steps(device, x, y, "xla",
+                                          1 + TRAIN_RESNET_STEPS)
+    _, pfirst, plosses = train_steps(device, x, y, True,
+                                     1 + TRAIN_RESNET_STEPS,
+                                     fused_swapped())
+    all_losses = [warm_loss] + losses
+    n = FUSE_TRUE_LOSS_AGREED
+    rec["against_xla"] = {
+        "same_start": all(np.array_equal(a, b) for a, b in zip(
+            leaf_values(start), leaf_values(xstart))),
+        "losses_xla": xlosses,
+        "loss_rel": [abs(a - b) / b for a, b in zip(all_losses, xlosses)],
+        "losses_plain_first": plosses,
+        "loss_rel_plain_first": [abs(a - b) / b for a, b in
+                                 zip(all_losses, plosses)],
+        "first_velocity_rel_l2": {"xla": rel_l2(first, xfirst),
+                                  "plain": rel_l2(first, pfirst)},
+        "limits": {"loss_rel": TRAIN_LOSS_AGREE, "losses": n}}
+    if not rec["against_xla"]["same_start"]:
+        failures.append("the xla plan's net starts from other weights")
+    if not max(rec["against_xla"]["loss_rel"][:n]) <= TRAIN_LOSS_AGREE:
+        failures.append("the losses part from the xla plan's")
+    log("resnet fuse_true:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"resnet fuse_true: {failures}: {rec}")
+    return rec
+
+
 def cnn_entry(name, replaces, launches, cases):
     """A ResNet50 kernel's entry of the kernels line: its numbers at the
     main path's shape (the first bf16 case of the kernel), and every
@@ -3148,6 +3599,32 @@ def stem_bwd_entry(name, replaces, launches, path, cases):
                                          "library_ms", "bound_ms",
                                          "bound_by", *keys)
                        if k in c} for c in mine]}
+
+
+def fused_entry(name, replaces, launches, cases):
+    """A fused kernel's entry of the kernels line ("fwd" or "bwd" of
+    each case): its numbers at the main path's s2 shape (bf16, B=128),
+    and every case's."""
+    kind = name.split("_")[1]
+    main = cases[0]
+    keys = ("out",) if kind == "fwd" else ("dy", "dw", "sums_rel",
+                                           "bitwise_repeat")
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/nn/layers/csrc/fused.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_on": f"{TRAIN_RESNET_STEPS} fit steps on fuse=True",
+            "max_abs_err": max(main[k]["max_abs_err"] for k in (
+                ("out",) if kind == "fwd" else ("dy", "dw"))),
+            **{k: main[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "library": ("torch.matmul on the activated input (cuBLAS)"
+                        if kind == "fwd" else "none alone; torch.matmul "
+                        "g @ W^T and z^T @ g (cuBLAS)"),
+            "case": main["case"], "dtype": main["dtype"],
+            "batch": main["batch"], "limits": main["limits"],
+            "cases": [{"case": c["case"], "dtype": c["dtype"],
+                       "batch": c["batch"], **c[kind],
+                       **{k: c[k] for k in keys}} for c in cases]}
 
 
 def build_all():
@@ -3315,9 +3792,26 @@ def main(argv=None) -> int:
             for plan in ("fused_stem", "fused", "xla")} | {"card": smi}))
         out["resnet_train_stem_reference"] = phase(
             "resnet_train_stem_reference", resnet_train_reference, device,
-            True)
+            "stem")
     if want("auto_plan"):
         out["auto_plan"] = phase("auto_plan", auto_plan, device)
+    if want("fused_kernels"):
+        out["fused_cases"] = phase("fused_kernels", check_fused_kernels,
+                                   device)
+    if want("resnet_fuse_true"):
+        rf = out["resnet_fuse_true"] = phase("resnet_fuse_true",
+                                             resnet_fuse_true, device)
+        log("resnet fuse_true:", json.dumps({
+            "inference": {p: rf["inference"]["turns_" + p]
+                          ["output_ms_median"] for p in ("fuse_true", "xla")},
+            "train": {p: {k: rf["turns_" + p][k] for k in (
+                "step_ms_median", "images_per_s",
+                "max_memory_allocated_bytes")} for p in ("fuse_true", "xla")},
+            "card": smi}))
+    if want("resnet_fuse_true_reference"):
+        out["resnet_fuse_true_reference"] = phase(
+            "resnet_fuse_true_reference", resnet_train_reference, device,
+            "fuse_true")
 
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} passed in "
@@ -3406,6 +3900,10 @@ def kernels_line(out):
              else out["resnet_train_stem"]["launches"])[name],
             "calibrate_training_kernels" if on_dx
             else "fit with the stem engaged", out["stem_bwd_cases"]))
+    for name, line in (("fused_fwd", 75), ("fused_bwd", 85)):
+        kernels.append(fused_entry(
+            name, f"deeplearning4j_tpu/nn/layers/fused.py:{line}",
+            out["resnet_fuse_true"]["launches"][name], out["fused_cases"]))
     return kernels
 
 

@@ -5,15 +5,19 @@ topological-order forward, ``output``, the streaming ``rnn_time_step``
 / ``rnn_clear_previous_state`` pair the decoders and the serving engine
 drive, training (``fit`` over a DataSet, ``(features, labels)`` or an
 iterator, one optimizer step per batch, and ``score``), and the fused
-execution plan of the CNN stack. PyTorch runs eagerly, so there is no
+execution plans of the CNN stack. PyTorch runs eagerly, so there is no
 jit cache: each call runs the vertex loop directly, and a train step is
 one autograd pass over it, with batch statistics in every BN (``fit``
-trains ResNet50 on either execution plan). Fused multi-step dispatch,
-prefetch, listeners and the non-finite sentinel (ROADMAP.md A4, A5) and
+trains ResNet50 on every execution plan). Fused multi-step dispatch,
+prefetch, listeners and the non-finite sentinel (ROADMAP.md A5) and
 masks (A6) are refused.
 
 Execution plans (``set_fusion``, resolved by ``tuning/plan.py``): at
-level ``"bottleneck"`` each ResNet bottleneck chain (conv1x1 -> BN ->
+level ``True`` each bn -> [act ->] 1x1-conv group (a BN with one
+consumer, an optional ActivationLayer, a 1x1 stride-1 conv; relu or
+identity) runs as one op (``nn/layers/fused.py``: the BN affine and the
+activation as the conv's prologue, through the fused kernels on NHWC).
+At level ``"bottleneck"`` each ResNet bottleneck chain (conv1x1 -> BN ->
 relu -> conv3x3 -> BN -> relu -> conv1x1 -> BN -> add -> relu, identity
 or downsample form, NHWC) runs through the bottleneck kernels
 (``nn/layers/bottleneck.py``), and with ``stem=True`` the [pad ->]
@@ -22,10 +26,10 @@ or downsample form, NHWC) runs through the bottleneck kernels
 gates are the port's own (they refuse what the kernels do not take, not
 the TPU's VMEM budget). Parameters and state stay keyed by the original
 vertex names, so a plan changes how a chain runs, not what it computes.
-In training a fused block differentiates through the bottleneck's
-backward kernels, and the fused stem through the stem's, each writing
-its BNs' decayed running statistics under their vertex names. Level
-``True`` (the bn -> act -> conv1x1 plan) is ROADMAP.md B3.
+In training a fused group differentiates through its kernels' backward
+(the fused op's one-pass backward, the bottleneck's and the stem's
+backward kernels), each writing its BNs' decayed running statistics
+under their vertex names.
 
 Parameters live in ``net.params`` as ``{vertex: {name: tensor}}`` (f32
 master weights) on ``net.device``; ``net.state`` carries the BN running
@@ -85,13 +89,13 @@ class ComputationGraph:
         #: streamed positions per streaming vertex (the budget guard)
         self._stream_pos_map: Dict[str, int] = {}
         self._compute = None       # (params, dtype, compute-dtype params)
-        #: the execution plan (set_fusion): False or "bottleneck", the
-        #: stem switch and the block subset; the matchers' gates read
+        #: the execution plan (set_fusion): False, True or "bottleneck",
+        #: the stem switch and the block subset; the matchers' gates read
         #: conf.dtype, so both plan caches are dtype-stamped
         self.fusion_level = False
         self._fuse_stem = False
         self._fusion_only = None
-        self._fusion_cache = None      # (dtype, skip, bplan, splan)
+        self._fusion_cache = None      # (dtype, skip, bplan, splan, cplan)
         self._candidates_cache = None  # (dtype, bplan, splan)
         #: the fused chains' conv weights in the kernels' layouts, by
         #: vertex: (the weight tensor they were made from, the copy)
@@ -205,18 +209,14 @@ class ComputationGraph:
     # ------------------------------------------------------------------
     def set_fusion(self, enabled=True, *, stem=False, only=None):
         """Select the execution plan: False (every vertex on its own, the
-        "xla" plan) or ``"bottleneck"`` (each matched bottleneck chain
-        through the bottleneck kernels; ``stem=True`` also the matched
-        stem through the stem kernels; ``only``, a set of block output
-        vertex names, restricts the blocks). Level True (the bn -> act ->
-        1x1-conv groups) is not ported yet."""
-        if enabled is True:
-            raise NotImplementedError(
-                "fusion level True (the bn -> act -> 1x1-conv plan, "
-                "nn/layers/fused.py) is not ported yet (ROADMAP.md B3)")
-        if enabled not in (False, "bottleneck"):
+        "xla" plan), True (each bn -> act -> 1x1-conv group as one fused
+        op, ``nn/layers/fused.py``) or ``"bottleneck"`` (each matched
+        bottleneck chain through the bottleneck kernels; ``stem=True``
+        also the matched stem through the stem kernels; ``only``, a set
+        of block output vertex names, restricts the blocks)."""
+        if enabled not in (False, True, "bottleneck"):
             raise ValueError(f"unknown fusion level {enabled!r}: expected "
-                             "False or 'bottleneck'")
+                             "False, True or 'bottleneck'")
         if stem and enabled != "bottleneck":
             raise ValueError("stem=True rides the 'bottleneck' fusion level")
         only = None if only is None else frozenset(only)
@@ -229,19 +229,78 @@ class ComputationGraph:
     def _fusion(self):
         """(skip, bplan, splan) of the selected plan: bplan maps each
         fused block's output vertex to its group, splan the stem's pool
-        vertex to its group, skip every absorbed vertex to the output
-        vertex that runs it."""
+        vertex to its group, skip every absorbed vertex to the vertex
+        that runs it (at level True: each group's BN and activation to
+        its conv, whose group :meth:`_conv_plan` holds)."""
         if not self.fusion_level:
             return {}, {}, {}
         c = self._fusion_cache
         if c is None or c[0] != self.conf.dtype:
-            skip, bplan = self._bottleneck_fusion(self._fusion_only)
-            splan = self._stem_fusion() if self._fuse_stem else {}
+            bplan, splan, cplan = {}, {}, {}
+            if self.fusion_level is True:
+                skip, cplan = self._conv_fusion()
+            else:
+                skip, bplan = self._bottleneck_fusion(self._fusion_only)
+                splan = self._stem_fusion() if self._fuse_stem else {}
             for out_name, group in splan.items():
                 for m in group["members"]:
                     skip[m] = out_name
-            c = self._fusion_cache = (self.conf.dtype, skip, bplan, splan)
-        return c[1:]
+            c = self._fusion_cache = (self.conf.dtype, skip, bplan, splan,
+                                      cplan)
+        return c[1:4]
+
+    def _conv_plan(self):
+        """Level True's groups: each fused 1x1 conv vertex mapped to
+        ``(bn vertex, prologue activation, the BN's input vertex)``, the
+        JAX ``_fusion()[0]``; empty at the other levels."""
+        self._fusion()
+        return self._fusion_cache[4] if self.fusion_level else {}
+
+    def _conv_fusion(self):
+        """(skip, cplan) of level True, the JAX package's matcher: a
+        BatchNormalization with one input of kind cnn and one consumer,
+        optionally an ActivationLayer with one consumer (only under the
+        BN's identity activation), then a 1x1, stride-1, pad-0,
+        dilation-1 ConvolutionLayer in truncate or same mode whose one
+        input is that vertex and whose data format is the BN's; the
+        prologue activation relu or identity. skip maps the BN and
+        activation vertices to their conv."""
+        consumers, layer_of = self._fusion_graph_view()
+        cplan: Dict[str, Any] = {}
+        skip: Dict[str, str] = {}
+        for bn_name in self._topo:
+            bn = layer_of(bn_name, BatchNormalization)
+            if bn is None or \
+                    len(self.conf.vertex_inputs.get(bn_name, [])) != 1 or \
+                    self._vertex_input_types[bn_name][0].kind != "cnn":
+                continue
+            cons = consumers.get(bn_name, [])
+            if len(cons) != 1:
+                continue
+            nxt, act_vertex = cons[0], None
+            act = bn.activation or "identity"
+            al = layer_of(nxt, ActivationLayer)
+            if al is not None:
+                acons = consumers.get(nxt, [])
+                if act != "identity" or len(acons) != 1:
+                    continue
+                act_vertex, act, nxt = nxt, al.activation, acons[0]
+            conv = layer_of(nxt, ConvolutionLayer)
+            if (conv is None or act not in ("relu", "identity")
+                    or tuple(conv.kernel) != (1, 1)
+                    or tuple(conv.stride) != (1, 1)
+                    or tuple(conv.padding) != (0, 0)
+                    or tuple(conv.dilation) != (1, 1)
+                    or conv.convolution_mode not in ("truncate", "same")
+                    or conv.data_format != bn.data_format
+                    or self.conf.vertex_inputs.get(nxt)
+                    != [act_vertex or bn_name]):
+                continue
+            cplan[nxt] = (bn_name, act, self.conf.vertex_inputs[bn_name][0])
+            skip[bn_name] = nxt
+            if act_vertex is not None:
+                skip[act_vertex] = nxt
+        return skip, cplan
 
     def _fusion_graph_view(self):
         """The matchers' scaffolding: (consumers map, layer_of). layer_of(n,
@@ -529,6 +588,33 @@ class ComputationGraph:
                                           self._stem_fusion())
         return c[1:]
 
+    def _apply_fused(self, conv_name, bn_name, act, src, params, state,
+                     new_state, acts, *, train):
+        """Run one level-True group (``nn/layers/fused.py``): reads the
+        BN's raw input ``acts[src]``, writes the conv's output (its own
+        activation applied after the op) into ``acts[conv_name]`` and, in
+        training, the BN's new running statistics (detached) into
+        ``new_state`` under its vertex name."""
+        from deeplearning4j_tpu_torch.nn import activations
+        from deeplearning4j_tpu_torch.nn.layers.fused import bn_act_conv1x1
+        bn = self.conf.vertices[bn_name].layer
+        conv = self.conf.vertices[conv_name].layer
+        y = acts[src]
+        p, s = params.get(bn_name, {}), state[bn_name]
+        nf = s["mean"].shape[0]
+        gamma = p.get("gamma", torch.full((nf,), bn.gamma, dtype=y.dtype,
+                                          device=y.device))
+        beta = p.get("beta", torch.full((nf,), bn.beta, dtype=y.dtype,
+                                        device=y.device))
+        out, mean, var = bn_act_conv1x1(
+            y, gamma, beta, s["mean"], s["var"], params[conv_name]["W"],
+            params[conv_name].get("b"), train=train, eps=bn.eps,
+            decay=bn.decay, act=act, data_format=conv.data_format)
+        acts[conv_name] = activations.get(conv.activation)(out)
+        new_state[bn_name] = ({"mean": mean.detach(), "var": var.detach()}
+                              if train else s)
+        new_state[conv_name] = state.get(conv_name, {})
+
     def _apply_fused_bottleneck(self, out_name, group, params, state,
                                 new_state, acts, *, train):
         """Run one bottleneck group through the kernels: reads the block
@@ -668,11 +754,16 @@ class ComputationGraph:
         every output's preout in this one pass). The chains of the
         selected execution plan run fused."""
         skip, bplan, splan = self._fusion()
+        cplan = self._conv_plan()
         acts: Dict[str, Any] = dict(inputs)
         new_state: Dict[str, Any] = {}
         for name in self._topo:
             if name in skip:           # absorbed into a fused chain
                 new_state[name] = state.get(name, {})
+                continue
+            if name in cplan:
+                self._apply_fused(name, *cplan[name], params, state,
+                                  new_state, acts, train=train)
                 continue
             if name in bplan:
                 self._apply_fused_bottleneck(name, bplan[name], params,
@@ -788,13 +879,13 @@ class ComputationGraph:
         ``batch_size``. ``execution_plan`` ("auto" | "fused" | "xla") is
         resolved once per call (``tuning/plan.py``: "auto" per shape from
         the kernel-crossover store, "fused" every eligible block and the
-        stem where the store says it wins); None keeps the net's plan. A
-        fused bottleneck block or stem trains through its backward
-        kernels."""
+        stem where the store says it wins); None keeps the net's plan
+        (``set_fusion(True)`` included). A fused group, block or stem
+        trains through its backward kernels."""
         if steps_per_dispatch != 1:
             raise NotImplementedError("fused multi-step dispatch "
                                       "(steps_per_dispatch > 1) is not "
-                                      "ported yet (ROADMAP.md A4)")
+                                      "ported yet (ROADMAP.md A5)")
         if prefetch or pad_tail:
             raise NotImplementedError("device prefetch and tail padding "
                                       "are not ported yet (ROADMAP.md A5)")

@@ -1,0 +1,482 @@
+// The fused BatchNorm -> activation -> 1x1 convolution, for Hopper
+// (sm_90a): the forward product with the BN affine (+ relu) as the
+// prologue of its input and the bias in its epilogue, and the one-pass
+// backward over (y, g).
+//
+// Replaces the TPU kernels of deeplearning4j_tpu/nn/layers/fused.py:
+//   fwd <- `_fwd_kernel` (pallas_call in `_pallas_fwd`)
+//   bwd <- `_bwd_kernel` (pallas_call in `_pallas_bwd`)
+// y [M, C] is the flattened NHWC raw conv output feeding the BN, sc, bb
+// [C] the folded BN affine (f32), W [C, K] in y's dtype, b [K] f32. Each
+// computes what its TPU kernel computes:
+//   fwd: z = act(y sc + bb) in f32 from y's stored values, rounded to
+//        W's dtype; out = z W accumulated in f32, plus b, rounded to y's
+//        dtype;
+//   bwd: z0 = y sc + bb, z = act(z0) recomputed (never stored);
+//        dz = g W^T in f32, masked by z0 > 0 under relu;
+//        dy = dz sc rounded to y's dtype;
+//        dW = sum over rows of (z rounded to g's dtype)^T g, in f32,
+//             rounded to W's dtype;
+//        dsc = sum dz y, dbb = sum dz, db = sum g, all f32.
+// Rows past M are never read and enter no sum.
+//
+// Translation. The TPU kernels walk row blocks of y on a sequential grid
+// with the whole weight resident in VMEM, and the backward carries dW and
+// the three sums across the grid in VMEM scratch. Blocks on an H100 run in
+// no order, so nothing carries over between them:
+//   - the forward is an output-tiled GEMM over conv_gemm.cuh's tiles
+//     (128 rows x 64 columns, 16-deep reduction steps), its prologue
+//     applied as the A tile is gathered (conv_gemm.cuh's load_tile: the
+//     bottleneck's conv1x1 with M = N H W rows of one pixel each), its
+//     epilogue adding b instead of summing the output;
+//   - the backward is two GEMMs over the same tiles. The dz pass: rows M,
+//     columns C, reduction over K (A = g, B = W^T); its epilogue
+//     recomputes z0 from y for the relu' mask, stores dy and sums dz y and
+//     dz into per-block partials, reduced per channel in a fixed order by
+//     conv_gemm.cuh's second pass. The dW pass: rows C, columns K,
+//     reduction over M split across the grid's z dimension into f32
+//     partials, z recomputed from y as its tile is gathered; one more
+//     row of ones (row C) makes db = sum g the same product's last row.
+//     The splits are merged in a fixed order (f64), so two launches on
+//     the same inputs give bitwise-equal results: no float atomics.
+//
+// What bounds it on an H100. At ResNet50's shapes in bf16 at B=128 the
+// s2 block (M = 401,408, C = 64, K = 256) moves y (51 MB) and out (206
+// MB) forward, y, g, dy (308 MB) backward: bytes, 0.077 and 0.092 ms at
+// 3.35 TB/s, against 13 and 26 GFLOP (0.013, 0.027 ms at 989 TFLOP/s);
+// s5 (M = 6,272, C = 512, K = 2048) is bound by its operations. This
+// first version is the simple, right one: every product on the f32 CUDA
+// cores (67 TFLOP/s), y and g read by both backward passes, so the f32
+// rate bounds it. Tensor-core tiles (mma.sync, then wgmma) fed by
+// cp.async or TMA, and one pass that keeps dz's tile for the dW product,
+// are a later kernel's work.
+//
+// Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
+// shared library with a plain C interface, loaded through ctypes
+// (deeplearning4j_tpu_torch/cuda_library.py). Every entry point launches
+// on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
+
+#include "conv_gemm.cuh"
+
+namespace {
+
+using dl4j_conv::block_partials;
+using dl4j_conv::from_f32;
+using dl4j_conv::Geometry;
+using dl4j_conv::kAStride;
+using dl4j_conv::kBK;
+using dl4j_conv::kBM;
+using dl4j_conv::kBN;
+using dl4j_conv::kBPerThread;
+using dl4j_conv::kRowsPerThread;
+using dl4j_conv::kThreads;
+using dl4j_conv::round_to;
+using dl4j_conv::tile_step;
+using dl4j_conv::to_f32;
+
+struct Fused {
+  int m, c, k;   // y, dy [m, c]; W, dW [c, k]; g [m, k]
+  int relu;      // the prologue's activation (else the identity)
+  int tiles;     // the dz pass's partials per channel (>= row blocks)
+  int chunk;     // the dW pass: reduction rows per split
+  int splits;    // the dW pass: splits of M
+};
+
+// ---------------------------------------------------------------------
+// forward: out[m, k] = round(sum_c z[m, c] W[c, k] + b[k])
+// ---------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_fwd_kernel(const T* __restrict__ y, const float* __restrict__ sc,
+                     const float* __restrict__ bb, const T* __restrict__ w,
+                     const float* __restrict__ b, T* __restrict__ out,
+                     Geometry g) {
+  __shared__ __align__(16) float smem[kBK * kAStride + kBK * kBN];
+  float* As = smem;
+  float* Bs = smem + kBK * kAStride;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int rows = g.n;     // one row of y per "image" of one pixel
+
+  // A loads: reduction offset a_k of rows a_m + 16 j; each row is its
+  // own 1 x 1 image, so its anchor pixel is (0, 0)
+  const int a_k = tid & 15;
+  const int a_m = tid >> 4;
+  int img[kRowsPerThread], ah[kRowsPerThread], aw[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    const int m = m0 + a_m + 16 * j;
+    img[j] = m < rows ? m : -1;
+    ah[j] = 0;
+    aw[j] = 0;
+  }
+  // B loads: channel b_n, reduction rows b_k + 4 j
+  const int b_n = tid & 63;
+  const int b_k = tid >> 6;
+
+  float ra[kRowsPerThread], rb[kBPerThread];
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  dl4j_conv::load_tile<T, dl4j_conv::kConv1x1>(y, sc, bb, w, g, 0, a_k, img,
+                                               ah, aw, b_k, b_n, n0, ra, rb);
+  for (int k0 = 0; k0 < g.r; k0 += kBK) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      As[a_k * kAStride + a_m + 16 * j] = ra[j];
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) Bs[(b_k + 4 * j) * kBN + b_n] = rb[j];
+    __syncthreads();
+    if (k0 + kBK < g.r)   // in flight during the products
+      dl4j_conv::load_tile<T, dl4j_conv::kConv1x1>(
+          y, sc, bb, w, g, k0 + kBK, a_k, img, ah, aw, b_k, b_n, n0, ra, rb);
+    tile_step(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
+
+  // epilogue: the f32 sum plus the f32 bias, rounded once and stored
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx * 4 + j;
+    if (col >= g.k) continue;
+    const float bias = b[col];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty * 8 + i;
+      if (m < rows)
+        out[static_cast<int64_t>(m) * g.k + col] =
+            from_f32<T>(__fadd_rn(acc[i][j], bias));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// the dz pass: dz[m, c] = sum_k g[m, k] W[c, k]; the epilogue masks it by
+// relu'(z0), stores dy = dz sc and sums dz y (dsc) and dz (dbb)
+// ---------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_dz_kernel(const T* __restrict__ y, const float* __restrict__ sc,
+                    const float* __restrict__ bb, const T* __restrict__ w,
+                    const T* __restrict__ gr, T* __restrict__ dy,
+                    float* __restrict__ part1, float* __restrict__ part2,
+                    Fused f) {
+  __shared__ __align__(16) float smem[kBK * kAStride + kBK * kBN];
+  float* As = smem;
+  float* Bs = smem + kBK * kAStride;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+
+  // A loads: reduction offset a_k (g's column) of rows a_m + 16 j
+  const int a_k = tid & 15;
+  const int a_m = tid >> 4;
+  // B loads: reduction offset b_k (consecutive threads read consecutive
+  // k of one weight row) of columns b_c + 16 j
+  const int b_k = tid & 15;
+  const int b_c = tid >> 4;
+
+  float ra[kRowsPerThread], rb[kBPerThread];
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  auto load = [&](int k0) {
+    const int ka = k0 + a_k;
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int m = m0 + a_m + 16 * j;
+      ra[j] = (ka < f.k && m < f.m)
+                  ? to_f32(gr[static_cast<int64_t>(m) * f.k + ka])
+                  : 0.f;
+    }
+    const int kb = k0 + b_k;
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) {
+      const int col = n0 + b_c + 16 * j;
+      rb[j] = (kb < f.k && col < f.c)
+                  ? to_f32(w[static_cast<int64_t>(col) * f.k + kb])
+                  : 0.f;
+    }
+  };
+
+  load(0);
+  for (int k0 = 0; k0 < f.k; k0 += kBK) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      As[a_k * kAStride + a_m + 16 * j] = ra[j];
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) Bs[b_k * kBN + b_c + 16 * j] = rb[j];
+    __syncthreads();
+    if (k0 + kBK < f.k) load(k0 + kBK);
+    tile_step(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
+
+  // epilogue: z0 from y (op by op, as the plain version), the mask, the
+  // store of dy, the sums of the f32 dz (s1: dz y, s2: dz)
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};
+  float s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx * 4 + j;
+    if (col >= f.c) continue;
+    const float s = sc[col];
+    const float o = bb[col];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty * 8 + i;
+      if (m >= f.m) continue;
+      const int64_t at = static_cast<int64_t>(m) * f.c + col;
+      const float yf = to_f32(y[at]);
+      float v = acc[i][j];
+      if (f.relu && !(__fadd_rn(__fmul_rn(yf, s), o) > 0.f)) v = 0.f;
+      dy[at] = from_f32<T>(__fmul_rn(v, s));
+      s1[j] += __fmul_rn(v, yf);
+      s2[j] += v;
+    }
+  }
+  block_partials(smem, s1, s2, n0, f.c, f.tiles, part1, part2);
+}
+
+// ---------------------------------------------------------------------
+// the dW pass: P[r, k] = sum_m A[r, m] g[m, k] over one split's rows m,
+// r in [0, C]: A = z rounded to g's dtype for r < C, 1 for r = C (so
+// P's last row is db); partials [splits, C + 1, K]
+// ---------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_dw_kernel(const T* __restrict__ y, const float* __restrict__ sc,
+                    const float* __restrict__ bb, const T* __restrict__ gr,
+                    float* __restrict__ part, Fused f) {
+  __shared__ __align__(16) float smem[kBK * kAStride + kBK * kBN];
+  float* As = smem;
+  float* Bs = smem + kBK * kAStride;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int r0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int rows_r = f.c + 1;
+  const int mb = blockIdx.z * f.chunk;
+  const int m_end = min(mb + f.chunk, f.m);
+
+  // A loads: one row r per thread (consecutive threads on consecutive
+  // channels), reduction offsets a_k + 2 j
+  const int a_r = tid & 127;
+  const int a_k = tid >> 7;
+  const int r = r0 + a_r;
+  const bool is_z = r < f.c;
+  const bool is_one = r == f.c;
+  const float s = is_z ? sc[r] : 1.f;
+  const float o = is_z ? bb[r] : 0.f;
+  // B loads: column b_n (consecutive threads on consecutive k),
+  // reduction offsets b_k + 4 j
+  const int b_n = tid & 63;
+  const int b_k = tid >> 6;
+  const int col = n0 + b_n;
+  const bool col_ok = col < f.k;
+
+  float ra[kRowsPerThread], rb[kBPerThread];
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int m = mb + k0 + a_k + 2 * j;
+      float z = 0.f;
+      if (m < m_end) {
+        if (is_z) {
+          z = __fadd_rn(__fmul_rn(to_f32(y[static_cast<int64_t>(m) * f.c + r]),
+                                  s),
+                        o);
+          if (f.relu) z = fmaxf(z, 0.f);
+          z = round_to<T>(z);
+        } else if (is_one) {
+          z = 1.f;
+        }
+      }
+      ra[j] = z;
+    }
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) {
+      const int m = mb + k0 + b_k + 4 * j;
+      rb[j] = (col_ok && m < m_end)
+                  ? to_f32(gr[static_cast<int64_t>(m) * f.k + col])
+                  : 0.f;
+    }
+  };
+
+  const int len = m_end - mb;
+  if (len > 0) load(0);
+  for (int k0 = 0; k0 < len; k0 += kBK) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      As[(a_k + 2 * j) * kAStride + a_r] = ra[j];
+#pragma unroll
+    for (int j = 0; j < kBPerThread; ++j) Bs[(b_k + 4 * j) * kBN + b_n] = rb[j];
+    __syncthreads();
+    if (k0 + kBK < len) load(k0 + kBK);
+    tile_step(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
+
+  float* out = part + static_cast<int64_t>(blockIdx.z) * rows_r * f.k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int rr = r0 + ty * 8 + i;
+    if (rr >= rows_r) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cc = n0 + tx * 4 + j;
+      if (cc < f.k) out[static_cast<int64_t>(rr) * f.k + cc] = acc[i][j];
+    }
+  }
+}
+
+// The dW pass's partials [splits, C + 1, K] summed over the splits in
+// order (f64), one thread per entry: rows < C rounded to W's dtype into
+// dW, row C into db (f32).
+constexpr int kFinishThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kFinishThreads)
+    fused_finish_kernel(const float* __restrict__ part, int splits, int c,
+                        int k, T* __restrict__ dw, float* __restrict__ db) {
+  const int64_t size = static_cast<int64_t>(c + 1) * k;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
+  if (i >= size) return;
+  double a = 0.0;
+  for (int z = 0; z < splits; ++z) a += part[z * size + i];
+  const float v = static_cast<float>(a);
+  const int64_t wsize = static_cast<int64_t>(c) * k;
+  if (i < wsize)
+    dw[i] = from_f32<T>(v);
+  else
+    db[i - wsize] = v;
+}
+
+template <typename T>
+int fused_fwd(const void* y, const void* sc, const void* bb, const void* w,
+              const void* b, void* out, int m, int c, int k, int relu,
+              void* stream) {
+  if (m == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  Geometry g{m, 1, 1, c, 1, 1, k, 1, c, relu, 0};
+  dim3 grid((m + kBM - 1) / kBM, (k + kBN - 1) / kBN);
+  fused_fwd_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<const float*>(sc),
+      static_cast<const float*>(bb), static_cast<const T*>(w),
+      static_cast<const float*>(b), static_cast<T*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the backward's four kernels on `stream`: the dz pass, the sums'
+// fixed-order reduction, the dW pass and its split reduction. Refuses
+// (cudaErrorInvalidValue, before any launch) partials one row tile short,
+// or splits that do not cover M in whole steps.
+template <typename T>
+int fused_bwd(const void* y, const void* sc, const void* bb, const void* w,
+              const void* g, void* dy, void* dsc, void* dbb, void* dw,
+              void* db, void* part1, void* part2, void* dw_part, int m,
+              int c, int k, int relu, int tiles, int chunk, int splits,
+              void* stream) {
+  const Fused f{m, c, k, relu, tiles, chunk, splits};
+  const int blocks = (m + kBM - 1) / kBM;
+  if (m <= 0 || c <= 0 || k <= 0 || blocks > tiles || chunk <= 0 ||
+      chunk % kBK || static_cast<int64_t>(chunk) * splits < m ||
+      static_cast<int64_t>(chunk) * (splits - 1) >= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* yp = static_cast<const T*>(y);
+  const T* gp = static_cast<const T*>(g);
+  const float* scp = static_cast<const float*>(sc);
+  const float* bbp = static_cast<const float*>(bb);
+  fused_dz_kernel<T><<<dim3(blocks, (c + kBN - 1) / kBN), kThreads, 0, st>>>(
+      yp, scp, bbp, static_cast<const T*>(w), gp, static_cast<T*>(dy),
+      static_cast<float*>(part1), static_cast<float*>(part2), f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dl4j_conv::reduce_partials_kernel<<<c, dl4j_conv::kReduceThreads, 0, st>>>(
+      static_cast<const float*>(part1), static_cast<const float*>(part2),
+      blocks, tiles, static_cast<float*>(dsc), static_cast<float*>(dbb));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid_w((c + 1 + kBM - 1) / kBM, (k + kBN - 1) / kBN, splits);
+  fused_dw_kernel<T><<<grid_w, kThreads, 0, st>>>(
+      yp, scp, bbp, gp, static_cast<float*>(dw_part), f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t size = static_cast<int64_t>(c + 1) * k;
+  fused_finish_kernel<T><<<static_cast<unsigned>((size + kFinishThreads - 1) /
+                                           kFinishThreads),
+                     kFinishThreads, 0, st>>>(
+      static_cast<const float*>(dw_part), splits, c, k, static_cast<T*>(dw),
+      static_cast<float*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int dl4j_fused_fwd_f32(const void* y, const void* sc, const void* bb,
+                       const void* w, const void* b, void* out, int m, int c,
+                       int k, int relu, void* stream) {
+  return fused_fwd<float>(y, sc, bb, w, b, out, m, c, k, relu, stream);
+}
+
+int dl4j_fused_fwd_bf16(const void* y, const void* sc, const void* bb,
+                        const void* w, const void* b, void* out, int m, int c,
+                        int k, int relu, void* stream) {
+  return fused_fwd<__nv_bfloat16>(y, sc, bb, w, b, out, m, c, k, relu,
+                                  stream);
+}
+
+int dl4j_fused_bwd_f32(const void* y, const void* sc, const void* bb,
+                       const void* w, const void* g, void* dy, void* dsc,
+                       void* dbb, void* dw, void* db, void* part1,
+                       void* part2, void* dw_part, int m, int c, int k,
+                       int relu, int tiles, int chunk, int splits,
+                       void* stream) {
+  return fused_bwd<float>(y, sc, bb, w, g, dy, dsc, dbb, dw, db, part1, part2,
+                          dw_part, m, c, k, relu, tiles, chunk, splits,
+                          stream);
+}
+
+int dl4j_fused_bwd_bf16(const void* y, const void* sc, const void* bb,
+                        const void* w, const void* g, void* dy, void* dsc,
+                        void* dbb, void* dw, void* db, void* part1,
+                        void* part2, void* dw_part, int m, int c, int k,
+                        int relu, int tiles, int chunk, int splits,
+                        void* stream) {
+  return fused_bwd<__nv_bfloat16>(y, sc, bb, w, g, dy, dsc, dbb, dw, db,
+                                  part1, part2, dw_part, m, c, k, relu, tiles,
+                                  chunk, splits, stream);
+}
+
+int dl4j_fused_row_tile() { return kBM; }
+
+const char* dl4j_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

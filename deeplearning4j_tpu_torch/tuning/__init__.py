@@ -11,13 +11,14 @@ from deeplearning4j_tpu_torch.tuning.crossover import (  # noqa: F401
     decode_fingerprint, default_store, fingerprint, quant_fingerprint,
     reset_default_store, stem_fingerprint, winner)
 from deeplearning4j_tpu_torch.tuning.plan import (  # noqa: F401
-    EXECUTION_PLANS, apply_execution_plan, quant_key_for_engine,
-    resolve_kv_dtype)
+    EXECUTION_PLANS, apply_execution_plan, modeled_train_step_traffic,
+    quant_key_for_engine, resolve_kv_dtype)
 
 __all__ = [
     "CROSSOVER_NAME", "EXECUTION_PLANS", "IMPL_REVS", "KernelCrossoverStore",
     "apply_execution_plan", "bottleneck_fingerprint",
     "calibrate_training_kernels", "decode_fingerprint", "default_store",
-    "fingerprint", "quant_fingerprint", "quant_key_for_engine",
+    "fingerprint", "modeled_train_step_traffic", "quant_fingerprint",
+    "quant_key_for_engine",
     "reset_default_store", "resolve_kv_dtype", "stem_fingerprint", "winner",
 ]

@@ -21,6 +21,9 @@ Both serve ``ComputationGraph.output`` and ``fit`` (which resolves its
 through its backward kernels. ``set_fusion`` applies the plan with
 change detection, so resolving the same plan again changes nothing.
 
+:func:`modeled_train_step_traffic` is the JAX package's per-step traffic
+model over the fusable chains (plain Python over ``fusion_candidates``).
+
 The serving twin, :func:`resolve_kv_dtype`, resolves
 ``PagedKVConfig(kv_dtype="auto")`` from the store's
 ``paged_decode_quant`` entry (:func:`quant_key_for_engine`). The decode
@@ -36,7 +39,8 @@ from deeplearning4j_tpu_torch.tuning.crossover import (
     KernelCrossoverStore, bottleneck_fingerprint, default_store,
     quant_fingerprint, stem_fingerprint)
 
-__all__ = ["EXECUTION_PLANS", "apply_execution_plan", "quant_key_for_engine",
+__all__ = ["EXECUTION_PLANS", "apply_execution_plan",
+           "modeled_train_step_traffic", "quant_key_for_engine",
            "resolve_kv_dtype"]
 
 EXECUTION_PLANS = ("auto", "fused", "xla")
@@ -128,3 +132,47 @@ def quant_key_for_engine(page_size: int, head_dim: int, n_kv_heads: int,
                          cache_length: int, dtype) -> str:
     return quant_fingerprint(page_size, head_dim, n_kv_heads, cache_length,
                              dtype)
+
+
+# ---------------------------------------------------------------------
+# the per-step traffic model (the JAX package's accounting)
+# ---------------------------------------------------------------------
+#: tensor traversals per stage output per train step: the xla plan
+#: writes a conv output, reads it for the BN statistics, reads and
+#: writes it to normalize, reads it in the next conv, and reads the
+#: statistics' and elementwise tensors again in the backward (~14 per
+#: bottleneck, ~4.7 per stage tensor); the fused plan 1 write and 1 read
+#: forward, 3 reads and 1 write backward per stage (~8 per bottleneck)
+_XLA_TRAVERSALS = 14 / 3.0
+_FUSED_TRAVERSALS = 8 / 3.0
+#: the stem's 112x112x64 activation: the xla plan's conv write, stats
+#: read, normalize read and write, pool read forward and ~3 backward
+#: reads; the fused stem's conv write and one output-stage read forward,
+#: the recompute read and dy write and read backward
+_XLA_STEM_TRAVERSALS = 8.0
+_FUSED_STEM_TRAVERSALS = 4.0
+
+
+def modeled_train_step_traffic(net, batch_size: int) -> dict:
+    """A per-step model of the bytes moved across the BN and elementwise
+    tensors of the net's fusable chains, under the xla plan and under the
+    fused plan: a consistent accounting of the traffic a plan removes,
+    not a simulator. ``{xla_bytes, fused_bytes, blocks, stems}``."""
+    bpe = 2 if _net_dtype(net) in ("bfloat16", "bf16") else 4
+    bcands, scands = net.fusion_candidates()
+    xla = fused = 0.0
+    for grp in bcands.values():
+        s = grp.get("stride", 1)
+        ho, wo = grp["h"] // s, grp["w"] // s
+        stage = batch_size * ho * wo * bpe
+        tensors = stage * (grp["cmid"] * 2 + grp["cout"]
+                           * (2 if "conv_skip" in grp else 1))
+        xla += tensors * _XLA_TRAVERSALS
+        fused += tensors * _FUSED_TRAVERSALS
+    for grp in scands.values():
+        ho, wo = (grp["h"] - 1) // 2 + 1, (grp["w"] - 1) // 2 + 1
+        y = batch_size * ho * wo * grp["cout"] * bpe
+        xla += y * _XLA_STEM_TRAVERSALS
+        fused += y * _FUSED_STEM_TRAVERSALS
+    return {"xla_bytes": int(xla), "fused_bytes": int(fused),
+            "blocks": len(bcands), "stems": len(scands)}

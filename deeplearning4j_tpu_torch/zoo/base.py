@@ -8,9 +8,11 @@ internal NHWC layout (the public input stays NCHW), and
 ``execution_plan="auto" | "fused" | "xla"`` resolves the execution plan
 at build time (``tuning/plan.py``, "auto" from the kernel-crossover
 store), for inference and training alike. The JAX zoo's direct
-``fuse=`` switches are not ported (``fuse=True``, the bn -> act ->
-1x1-conv plan, is ROADMAP.md B3; its ``fuse="bottleneck"`` is
-``execution_plan="fused"`` here).
+``fuse=`` switches set the fusion level as they are: ``fuse=True`` the
+bn -> act -> 1x1-conv plan (``nn/layers/fused.py``), ``fuse=
+"bottleneck"`` the bottleneck plan; ``fuse=`` with ``execution_plan=``
+is refused, as there. A model with no such chain (the transformer)
+builds with an empty plan.
 Pretrained checkpoints and the model registry come with the formats
 (ROADMAP.md A1).
 """
@@ -31,12 +33,6 @@ class ZooModel:
         for k in options:
             if k not in _OPTIONS:
                 raise TypeError(f"unexpected argument {k!r}")
-        if options.get("fuse"):
-            raise NotImplementedError(
-                "fuse= (fuse=True: the bn -> act -> 1x1-conv plan) is not "
-                "ported yet (ROADMAP.md B3, with the execution plans of "
-                "ROADMAP.md A4); execution_plan='fused' selects the fused "
-                "bottleneck plan")
         self.num_classes = num_classes
         self.seed = seed
         self.options = options
@@ -49,9 +45,18 @@ class ZooModel:
         ``"cuda"``), in the chosen layout and execution plan."""
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.tuning.plan import apply_execution_plan
+        level = self.options.get("fuse", False)
+        plan = self.options.get("execution_plan")
+        if level and plan:
+            raise ValueError(
+                f"{type(self).__name__}: fuse= and execution_plan= are "
+                "mutually exclusive (execution_plan supersedes fuse)")
         conf = self.conf()
         if self.options.get("data_format"):
             conf.use_cnn_data_format(self.options["data_format"])
         net = ComputationGraph(conf).init(device)
-        apply_execution_plan(net, self.options.get("execution_plan"))
+        if level:
+            net.set_fusion(level)
+        else:
+            apply_execution_plan(net, plan)
         return net

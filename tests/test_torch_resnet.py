@@ -18,8 +18,9 @@ CPU.
 - The fused plan matches the same vertex groups as the JAX matchers (16
   bottleneck blocks and the stem) and skips the same vertices; with
   ``only=`` two named blocks, as the JAX graph does.
-- The refusals: ``fit(steps_per_dispatch>1)``, ``fuse=True``, fusion
-  level True; ``execution_plan="auto"`` on an uncalibrated store
+- The refusals: ``fit(steps_per_dispatch>1)`` (``fuse=True`` and fusion
+  level True build and plan their 16 groups, ``fuse="bottleneck"`` the
+  bottleneck level); ``execution_plan="auto"`` on an uncalibrated store
   resolves to the xla plan (in the zoo, ``apply_execution_plan`` and
   ``fit``), and ``fit`` and ``output(train=True)`` run with the stem
   kernels engaged (training is ``tests/test_torch_resnet_train.py`` and
@@ -421,16 +422,20 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
     assert ResNet50(num_classes=CLASSES, height=32, width=32,
                     data_format="NHWC", execution_plan="auto"
                     ).init(device="cpu").fusion_level is False
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        ResNet50(fuse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        net.set_fusion(True)
+    # fuse=True and fusion level True build and plan the JAX package's 16
+    # bn -> act -> 1x1-conv groups (tests/test_torch_resnet_fuse_true.py)
+    assert sorted(ResNet50(num_classes=CLASSES, height=32, width=32,
+                           data_format="NHWC", fuse=True)
+                  .init(device="cpu")._conv_plan()) == sorted(
+        f"s{s}b{i}_c_conv" for s, n in ((2, 3), (3, 4), (4, 6), (5, 3))
+        for i in range(n))
+    assert len(net.set_fusion(True)._conv_plan()) == 16
     with pytest.raises(ValueError, match="stem=True"):
         net.set_fusion(False, stem=True)
     x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)) \
         .astype(np.float32)
     y = np.eye(CLASSES, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         net.fit(x, y, steps_per_dispatch=2)
     assert net.iteration_count == 0
     net.set_fusion("bottleneck", stem=True)
@@ -446,8 +451,10 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
     assert net.fusion_level == "bottleneck" and not net._fusion()[2]
     with pytest.raises(ValueError, match="state tree"):
         net.load_numpy_state({"stem_bn": {"mean": np.zeros(3, np.float32)}})
-    with pytest.raises(NotImplementedError, match="execution_plan='fused'"):
-        ResNet50(fuse="bottleneck")
+    # the zoo's fuse="bottleneck" is the bottleneck level
+    assert len(ResNet50(num_classes=CLASSES, height=32, width=32,
+                        data_format="NHWC", fuse="bottleneck")
+               .init(device="cpu")._fusion()[1]) == 16
 
 
 def test_the_default_device_is_the_card(monkeypatch):

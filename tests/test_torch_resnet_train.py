@@ -157,12 +157,22 @@ def _port_net(p0, s0, u0):
     return net
 
 
+def plan_name(plan):
+    """A record's name for ``plan``: an execution plan by its name, the
+    fusion level True as "fuse_true"."""
+    return "fuse_true" if plan is True else plan
+
+
 def _fit(net, x, y, plan):
-    """STEPS fit steps; each step's score, parameters, state and
-    updater state as numpy."""
+    """STEPS fit steps on ``plan``: an execution plan ("xla", "fused"),
+    resolved by each fit, or the fusion level True, set once; each
+    step's score, parameters, state and updater state as numpy."""
+    if plan is True:
+        net.set_fusion(True)
     recs = []
     for _ in range(STEPS):
-        net.fit(x, y, batch_size=B, execution_plan=plan)
+        net.fit(x, y, batch_size=B,
+                execution_plan=None if plan is True else plan)
         recs.append({"score": float(net.score_value),
                      "params": _numpy(net.params),
                      "state": _numpy(net.state),
@@ -173,8 +183,10 @@ def _fit(net, x, y, plan):
 def train_both(jax_plans, port_plans, jax_output_train=False):
     """The JAX ResNet50 and the port's, from the same parameters, state
     and Nesterovs state, each trained STEPS steps on each of its plans
-    (records "jax_<plan>", "port_<plan>"); with ``jax_output_train`` also
-    the JAX graph's ``output(train=True)`` at the start."""
+    (records "jax_<plan>", "port_<plan>", named by :func:`plan_name`;
+    a plan is an execution plan or the fusion level True); with
+    ``jax_output_train`` also the JAX graph's ``output(train=True)`` at
+    the start."""
     jnet = JResNet50(num_classes=CLASSES, height=H, width=W,
                      updater=JNesterovs(LR, momentum=0.9),
                      data_format="NHWC").init()
@@ -191,9 +203,10 @@ def train_both(jax_plans, port_plans, jax_output_train=False):
         jnet.params = jax.tree_util.tree_map(jnp.asarray, p0)
         jnet.state = jax.tree_util.tree_map(jnp.asarray, s0)
         jnet.updater_state = jax.tree_util.tree_map(jnp.asarray, u0)
-        out["jax_" + plan] = _fit(jnet, x, y, plan)
+        out["jax_" + plan_name(plan)] = _fit(jnet, x, y, plan)
     for plan in port_plans:
-        out["port_" + plan] = _fit(_port_net(p0, s0, u0), x, y, plan)
+        out["port_" + plan_name(plan)] = _fit(_port_net(p0, s0, u0), x, y,
+                                              plan)
     if jax_output_train:
         jnet.params = jax.tree_util.tree_map(jnp.asarray, p0)
         jnet.state = jax.tree_util.tree_map(jnp.asarray, s0)

@@ -437,7 +437,7 @@ def test_fit_refuses_what_is_not_ported():
                                      n_heads=HEADS, n_layers=1,
                                      max_length=T).init(device="cpu")
     x, y = _one_hot_batch(0, 2)
-    for kw, item in ((dict(steps_per_dispatch=2), "A4"),
+    for kw, item in ((dict(steps_per_dispatch=2), "A5"),
                      (dict(prefetch=2), "A5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             tnet.fit(x, y, **kw)

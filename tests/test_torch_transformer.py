@@ -282,9 +282,15 @@ def test_left_out_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         TextGenerationTransformer(vocab_size=V, positional="rope",
                                   window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        TextGenerationTransformer(vocab_size=V, positional="rope",
-                                  fuse=True)
+    # fuse=True builds with an empty bn -> act -> 1x1-conv plan, as the
+    # JAX package's does (the transformer has no such chain)
+    kw = dict(vocab_size=V, embed_dim=E, n_heads=HEADS, n_layers=1,
+              max_length=MAXLEN, positional="rope", fuse=True)
+    tnet = TextGenerationTransformer(**kw).init(device="cpu")
+    jnet = JaxTFM(**kw).init()
+    assert tnet.fusion_level is True and jnet.fuse_bn_act_conv is True
+    assert tnet._conv_plan() == jnet._fusion()[0] == {}
+    assert tnet._fusion() == ({}, {}, {})
     with pytest.raises(TypeError, match="kernel_size"):
         TextGenerationTransformer(vocab_size=V, positional="rope",
                                   kernel_size=64)
