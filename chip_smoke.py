@@ -10,8 +10,8 @@ Phases (any failure exits nonzero):
 1. device: the card's name, power limit and top SM clock (nvidia-smi);
 2. build: every CUDA kernel library (paged attention with its int8
    variant, flash attention, bottleneck, bottleneck backward, stem, stem
-   backward, the fused bn -> act -> 1x1 conv) from the sources in the
-   checkout, one nvcc each, started together;
+   backward, the fused bn -> act -> 1x1 conv, the LSTM recurrence) from
+   the sources in the checkout, one nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with the kernel's, the plain
    version's and a library call's times (CUDA events, L2 flushed before
@@ -193,6 +193,35 @@ Phases (any failure exits nonzero):
     the plain versions and the xla plan by update_err, leaf by leaf; one
     group's backward without its relu' mask (through the kernels) fails
     the limit.
+
+23. lstm kernels (``lstm_kernels``): the LSTM recurrence's forward and
+    backward kernels against their plain versions, bf16 and f32: the
+    text LSTM's shape (T = N = H = 256) with and without peepholes, the
+    decode shape (N = T = 1), a mask with fully masked steps and a fully
+    masked row (forward), an H of 200 that splits unevenly, T = 8, and
+    ``lstm_scan(reverse=True)`` (forward and autograd gradients against
+    the plain versions swapped in): outputs, saves and gradients by row
+    and 64-row tile, two backward launches bitwise equal, the limits
+    shown to fail planted faults (the output gate's peephole on the
+    previous cell; no mask blend of c; in bf16 the carry left
+    unrounded). Times of the kernels (inference forward, training
+    forward, backward), the plain versions and cuDNN's LSTM (no
+    peepholes) beside the bounds, per step too;
+24. text_lstm (``text_lstm``): bench_all.py's bench_lstm at full width
+    (TextGenerationLSTM, vocab 128, 2 GravesLSTM layers of 256,
+    RmsProp(1e-3), bf16, B=256, T=256): one counted ``output()`` (2
+    forward launches; probabilities finite, rows summing to 1; ms per
+    forward), ``sample_stream`` with a 32-token prompt and 256 new
+    tokens (2 launches a decode step; tokens/s; the streamed
+    probabilities against one-shot ``output()``), then ``fit``: a
+    warm-up step and 5 timed steps (2 forward and 2 backward launches a
+    step; the loss finite and falling; ms per step, tokens/s, peak
+    memory; one profiled step);
+25. text_lstm reference (``text_lstm_reference``): f32, full width,
+    T = 64: ``output()`` and two RmsProp fit steps with the kernels
+    against the same with the plain versions swapped in (probabilities
+    by row and tile, parameters and g2 by update_err), and a planted
+    backward fault (the peephole gradient dropped) beyond the limit.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -378,6 +407,39 @@ FUSE_TRUE_PLANTED = 4
 #: and the f32 reference holds the gradients leaf by leaf
 FUSE_TRUE_LOSS_AGREED = 3
 
+# The text LSTM (bench_all.py's bench_lstm, BASELINE.json configs[2]):
+# TextGenerationLSTM(vocab 128, max_length 256, RmsProp(1e-3)), 2
+# GravesLSTM layers of 256, bf16, B=256, T=256
+LSTM_VOCAB, LSTM_LAYERS, LSTM_B, LSTM_T, LSTM_STEPS = 128, 2, 256, 256, 5
+LSTM_PROMPT, LSTM_NEW = 32, 256      # sample_stream's prompt, new tokens
+LSTM_REF_T, LSTM_REF_STEPS = 64, 2   # the f32 reference
+# The recurrence kernels against their plain versions, by
+# flash_attention.agreement over rows (one (t, n)'s H or 4H values) and
+# 64-row tiles, by dtype and by sequence length: f32 (sums in another
+# order only) rows within 1e-4 and tiles within 1e-5 at any T. In bf16
+# both round h and c at every step's end, but the f32 sums in another
+# order flip an ulp now and then, and a flip in the carry travels through
+# every later step and spreads over its row: up to T = 32 the two agree
+# to ~3e-5 in the tiles (one-ulp flips; bitwise at T = 8), and a carry
+# left unrounded (the planted fault) reads ~1e-3, so the "short" limits
+# are rows 2^-6 (two ulps of the row's largest value) and tiles 1e-4.
+# Over T = 256 the flips' spread is bf16 rounding noise of the same size
+# as that fault (tiles 2.2e-4): the "long" limits, rows 2^-5 and tiles
+# 1e-3, hold the kernels there, and the semantic faults (the output
+# gate's peephole on the previous cell; no mask blend) read ~3e-2 and
+# more at any T; the unrounded carry is recorded there, not held (nor at
+# T = 1, where no carry crosses a step).
+LSTM_SHORT_T = 32
+LSTM_ROW = {(torch.bfloat16, "short"): 2 ** -6,
+            (torch.bfloat16, "long"): 2 ** -5,
+            (torch.float32, "short"): 1e-4, (torch.float32, "long"): 1e-4}
+LSTM_TILE = {(torch.bfloat16, "short"): 1e-4,
+             (torch.bfloat16, "long"): 1e-3,
+             (torch.float32, "short"): 1e-5, (torch.float32, "long"): 1e-5}
+# the f32 reference's fit steps, kernels against plain versions, by
+# update_err leaf by leaf
+LSTM_REF_LIMIT = 0.3
+
 
 def log(*parts):
     print(*parts, flush=True)
@@ -404,6 +466,7 @@ def kernel_counters():
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
     from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
     from deeplearning4j_tpu_torch.nn.layers import fused, stem
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
     from deeplearning4j_tpu_torch.serving.paged_kernel import (
         PAGED_ATTENTION, PAGED_ATTENTION_QUANT)
     return {"paged_attention": PAGED_ATTENTION,
@@ -415,7 +478,8 @@ def kernel_counters():
             "stem_pool": stem.STEM_POOL, "bwd1x1": bn.BWD1X1,
             "bwd3x3": bn.BWD3X3, "stem_bwd_pool": stem.STEM_BWD_POOL,
             "stem_bwd_dw": stem.STEM_BWD_DW, "stem_bwd_dx": stem.STEM_BWD_DX,
-            "fused_fwd": fused.FUSED_FWD, "fused_bwd": fused.FUSED_BWD}
+            "fused_fwd": fused.FUSED_FWD, "fused_bwd": fused.FUSED_BWD,
+            "lstm_fwd": lk.LSTM_FWD, "lstm_bwd": lk.LSTM_BWD}
 
 
 def zero_counts():
@@ -3526,6 +3590,569 @@ def resnet_fuse_true(device):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phases 23-25: the text LSTM and the recurrence kernels
+# ---------------------------------------------------------------------
+def lstm_inputs(t, n, h, dtype, device, seed, peep=True, mask=False):
+    """Seeded recurrence inputs: zx [T, N, 4H] (0.5 N(0, 1): gates away
+    from saturation), RW [H, 4H] of scale 1/sqrt(H), h0, c0 [N, H], the
+    peepholes [3, H] (or None), a 0/1 mask [T, N] with two fully masked
+    steps and one fully masked row (or None), and the backward's output
+    gradients dout [T, N, H], dhT, dcT [N, H]."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device, dtype)
+
+    m = None
+    if mask:
+        m = (torch.rand((t, n), generator=gen) > 0.25).float()
+        m[t // 4] = 0.0
+        m[t // 2] = 0.0
+        m[:, 1] = 0.0
+        m = m.to(device)
+    return {"zx": randn(t, n, 4 * h, scale=0.5),
+            "rw": randn(h, 4 * h, scale=h ** -0.5),
+            "h0": randn(n, h, scale=0.5), "c0": randn(n, h, scale=0.5),
+            "peephole": randn(3, h, scale=0.3) if peep else None,
+            "mask": m, "dout": randn(t, n, h),
+            "dh": randn(n, h, scale=0.5), "dc": randn(n, h, scale=0.5)}
+
+
+def lstm_limits(dtype, t):
+    """The recurrence kernels' limits for a sequence of t steps (see
+    LSTM_ROW)."""
+    span = "short" if t <= LSTM_SHORT_T else "long"
+    return {"row_rel": LSTM_ROW[dtype, span],
+            "tile_rel": LSTM_TILE[dtype, span], "span": span}
+
+
+def lstm_fault_forward(a, fault):
+    """The plain forward with a planted fault: "po_on_c_prev", the output
+    gate's peephole reading the previous cell; "no_mask_blend_c", a
+    masked step keeping the new cell; "unrounded_carry", h and c carried
+    in f32 between steps (rounded only as outputs). Returns out."""
+    zx, rw, p, m = a["zx"], a["rw"], a["peephole"], a["mask"]
+    dt, h = zx.dtype, rw.shape[0]
+    rwf = rw.float()
+    hp, cp = a["h0"].float(), a["c0"].float()
+    p = None if p is None else p.float()
+    outs = []
+    for t in range(zx.shape[0]):
+        z = zx[t].float() + hp @ rwf
+        zi, zf, zg, zo = z.split(h, dim=1)
+        if p is not None:
+            zi, zf = zi + p[0] * cp, zf + p[1] * cp
+        i, f, g = torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg)
+        cn = f * cp + i * g
+        if p is not None:
+            zo = zo + p[2] * (cp if fault == "po_on_c_prev" else cn)
+        hn = torch.sigmoid(zo) * torch.tanh(cn)
+        hc, cc, ho = hn, cn, hn
+        if m is not None:
+            mt = m[t][:, None]
+            hc = hn * mt + hp * (1.0 - mt)
+            cc = cn if fault == "no_mask_blend_c" else \
+                cn * mt + cp * (1.0 - mt)
+            ho = hc * mt
+        outs.append(ho.to(dt))
+        if fault == "unrounded_carry":
+            hp, cp = hc, cc
+        else:
+            hp, cp = hc.to(dt).float(), cc.to(dt).float()
+    return torch.stack(outs)
+
+
+def lstm_bounds(t, n, h, dtype, exp_rate, peep):
+    """Least time on this card, as (ms, by), for the inference forward,
+    the training forward (its f32 saves written too) and the backward:
+    the bytes each must move over the memory rate, its multiply-adds
+    (2 T N H 4H) over the dtype's peak, its exponentials (sigmoid, tanh:
+    5 T N H forward, T N H backward) over the SFU's rate; the largest."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    p = 3 * h * el if peep else 0
+    io = (h * 4 * h + 2 * n * h) * el + p
+    fwd = (t * n * 4 * h + t * n * h + 2 * n * h) * el + io
+    saves = t * n * 5 * h * 4
+    bwd = saves + (t * n * h + t * n * 4 * h + 4 * n * h) * el + io
+    flops = 2 * t * n * h * 4 * h
+    out = {}
+    for kind, nbytes, exps in (("fwd", fwd, 5 * t * n * h),
+                               ("fwd_train", fwd + saves, 5 * t * n * h),
+                               ("bwd", bwd, t * n * h)):
+        times = {"bytes": nbytes / HBM_BYTES_PER_S,
+                 "operations": flops / PEAK_FLOPS[dtype],
+                 "exponentials": exps / exp_rate}
+        by = max(times, key=times.get)
+        out[kind] = (1e3 * times[by], by)
+    return out
+
+
+def cudnn_lstm_fns(t, n, h, dtype, device, seed):
+    """cuDNN's LSTM (``torch.nn.LSTM``, no peepholes) on x [T, N, H]
+    (the second layer's input width): (its forward, its backward alone
+    -- ``autograd.grad`` over a retained forward --, the port's projection
+    plus forward kernel on the same x and weights)."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    gen = torch.Generator().manual_seed(seed)
+    lstm = torch.nn.LSTM(h, h).to(device, dtype)
+    lstm.flatten_parameters()
+    x = (0.5 * torch.randn((t, n, h), generator=gen)).to(device, dtype)
+    # cuDNN's gate order is (i, f, g, o), the port's (i, f, c, o): the same
+    w = lstm.weight_ih_l0.detach().t().contiguous()
+    rw = lstm.weight_hh_l0.detach().t().contiguous()
+    b = (lstm.bias_ih_l0 + lstm.bias_hh_l0).detach()
+    z0 = torch.zeros((n, h), dtype=dtype, device=device)
+    xg = x.detach().clone().requires_grad_()
+    y = lstm(xg)[0]
+    dy = torch.randn(y.shape, generator=gen).to(device, dtype)
+    params = [xg, *lstm.parameters()]
+
+    def fwd():
+        with torch.no_grad():
+            return lstm(x)
+
+    def port():
+        zx = (x.reshape(t * n, h) @ w).reshape(t, n, 4 * h) + b
+        return lk.lstm_forward(zx, rw, z0, z0)
+
+    return (fwd, lambda: torch.autograd.grad(y, params, dy,
+                                             retain_graph=True), port)
+
+
+def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
+              mask=False, timed=False):
+    """One shape: the forward kernel against its plain version (out, hT,
+    cT, and without a mask the saved gates and c), the backward kernel
+    against its plain version on the plain forward's saves (dzx, dh0,
+    dc0), each by row and 64-row tile; two backward launches bitwise
+    equal; with a mask the masked outputs exactly 0 and the fully masked
+    row's hT, cT exactly h0, c0; the planted faults beyond the limits.
+    ``timed``: the kernels', plain versions' and cuDNN's times beside the
+    bounds."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    a = lstm_inputs(t, n, h, dtype, device, seed, peep, mask)
+    args = (a["zx"], a["rw"], a["h0"], a["c0"], a["peephole"], a["mask"])
+    save = not mask
+    got = lk.lstm_forward(*args, save=save)
+    ref = lk.lstm_forward_plain(*args, save=save)
+    torch.cuda.synchronize()
+    case = {"case": name, "dtype": str(dtype).split(".")[-1], "t": t,
+            "n": n, "h": h, "peephole": peep, "mask": mask,
+            "plan": lk.lstm_plan(n, h, dtype, device=device),
+            "plan_bwd": lk.lstm_plan(n, h, dtype, bwd=True, device=device)}
+    limits = lstm_limits(dtype, t)
+    failures = []
+    outs = {"out": (got[0], ref[0]), "hT": (got[1], ref[1]),
+            "cT": (got[2], ref[2])}
+    if save:
+        outs.update(gates=(got[3][0], ref[3][0]), c=(got[3][1], ref[3][1]))
+        sv = ref[3]
+        bwd_args = (sv[0], sv[1], a["c0"], a["rw"], a["peephole"], a["dout"],
+                    a["dh"], a["dc"])
+        bg = lk.lstm_backward(*bwd_args)
+        again = lk.lstm_backward(*bwd_args)
+        br = lk.lstm_backward_plain(*bwd_args)
+        torch.cuda.synchronize()
+        case["bitwise_repeat"] = all(torch.equal(u, v)
+                                     for u, v in zip(bg, again))
+        if not case["bitwise_repeat"]:
+            failures.append("two backward launches differ")
+        outs.update(dzx=(bg[0], br[0]), dh0=(bg[1], br[1]),
+                    dc0=(bg[2], br[2]))
+    finite = all(bool(torch.isfinite(g_).all()) for g_, _ in outs.values())
+    for key, (g_, r_) in outs.items():
+        row_rel, tile_rel = conv_agreement(g_, r_)
+        case[key] = {"max_abs_err": float((g_.float() - r_.float()).abs()
+                                          .max()),
+                     "row_rel": row_rel, "tile_rel": tile_rel}
+        if row_rel > limits["row_rel"] or tile_rel > limits["tile_rel"]:
+            failures.append(key)
+    if mask:
+        m = a["mask"]
+        case["masked_out_zero"] = bool((got[0][m == 0] == 0).all())
+        case["masked_row_carry_exact"] = bool(
+            torch.equal(got[1][1], a["h0"][1])
+            and torch.equal(got[2][1], a["c0"][1]))
+        if not (case["masked_out_zero"] and case["masked_row_carry_exact"]):
+            failures.append("masked steps")
+    case["max_abs_err"] = case["out"]["max_abs_err"]
+    case["limits"] = limits
+    faults = ([] if not peep else ["po_on_c_prev"]) + \
+        (["no_mask_blend_c"] if mask else []) + \
+        (["unrounded_carry"] if dtype == torch.bfloat16 else [])
+    case["planted"] = {}
+    for fault in faults:
+        bad = lstm_fault_forward(a, fault)
+        rel = conv_agreement(bad, got[0])
+        case["planted"][fault] = rel
+        # a carry crosses a step only for T > 1
+        held = fault != "unrounded_carry" or (
+            limits["span"] == "short" and t > 1)
+        if held and rel[0] <= limits["row_rel"] and \
+                rel[1] <= limits["tile_rel"]:
+            failures.append(f"the limits do not tell {fault}")
+    log("lstm check", json.dumps(case))
+    if not finite or failures:
+        raise AssertionError(f"lstm kernels disagree with their plain "
+                             f"versions ({failures}, finite {finite}): "
+                             f"{case}")
+    if timed:
+        bounds = lstm_bounds(t, n, h, dtype, exp_rate, peep)
+        cfwd, cbwd, port = cudnn_lstm_fns(t, n, h, dtype, device, seed + 1)
+        plain_iters = 3 if t > 32 else 10
+        fwd = lambda: lk.lstm_forward(*args)
+        rows = {
+            "fwd": (fwd, lambda: lk.lstm_forward_plain(*args), cfwd),
+            "fwd_train": (lambda: lk.lstm_forward(*args, save=True),
+                          lambda: lk.lstm_forward_plain(*args, save=True),
+                          None),
+            "bwd": (lambda: lk.lstm_backward(*bwd_args),
+                    lambda: lk.lstm_backward_plain(*bwd_args), cbwd)}
+        for kind, (kern, plain, library) in rows.items():
+            ms = median_ms(kern, device, iters=10)
+            case[kind] = {
+                "ms": ms, "ms_per_step": ms / t,
+                "plain_ms": median_ms(plain, device, iters=plain_iters,
+                                      warm=1),
+                "library_ms": (median_ms(library, device, iters=10)
+                               if library is not None else None),
+                "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1]}
+        case["fwd"]["projection_plus_kernel_ms"] = median_ms(port, device,
+                                                             iters=10)
+        case["library"] = ("torch.nn.LSTM (cuDNN, no peepholes; input "
+                           "width H, its own projection inside): forward; "
+                           "backward alone (autograd.grad over a retained "
+                           "forward)")
+        log("lstm", json.dumps(case))
+    del a, got, ref, outs
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_lstm_kernels(device, exp_rate):
+    """The recurrence kernels at the text LSTM's shape (T = N = H = 256,
+    timed), without peepholes (timed, against cuDNN's LSTM), at the
+    decode shape (N = T = 1, timed), with a mask, at an H that splits
+    unevenly (200), and short (T = 8), in bf16 and f32; then reverse
+    through ``lstm_scan`` in f32 (the wrapper's flips of zx, the mask
+    and the outputs: no kernel code of their own; in bf16 its gradients,
+    products over 4H columns of the backward's recurrence noise, read up
+    to 8.6e-4 in the tiles, which would blur the check)."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, t, n, h, kw) in enumerate((
+                ("main", 256, 256, 256, dict(timed=True)),
+                ("main_nopeep", 256, 256, 256, dict(peep=False, timed=True)),
+                ("decode", 1, 1, 256, dict(timed=True)),
+                ("mask", 32, 64, 256, dict(mask=True)),
+                ("uneven", 32, 256, 200, {}),
+                ("short", 8, 256, 256, {}))):
+            cases.append(lstm_case(name, t, n, h, dtype, device, 60 + i,
+                                   exp_rate, **kw))
+    cases.append(lstm_reverse_case(torch.float32, device))
+    return cases
+
+
+def lstm_swapped():
+    """The recurrence kernels' wrappers swapped for their plain versions
+    (for ``with_swaps``)."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    return [(vars(lk), {"lstm_forward": lk.lstm_forward_plain,
+                        "lstm_backward": lk.lstm_backward_plain})]
+
+
+def lstm_reverse_case(dtype, device, t=32, n=64, c=128, h=256):
+    """``lstm_scan(reverse=True)`` with peepholes: the masked forward,
+    then the unmasked forward and the gradients of x, W, RW, b and P
+    (autograd through the kernels), against the same with the plain
+    versions swapped in, by row and tile."""
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import lstm_scan
+    gen = torch.Generator().manual_seed(70)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device, dtype)
+
+    x = randn(n, c, t)
+    w, rw = randn(c, 4 * h, scale=c ** -0.5), randn(h, 4 * h, scale=h ** -0.5)
+    b, p = randn(4 * h, scale=0.1), randn(3, h, scale=0.3)
+    m = (torch.rand((n, t), generator=gen) > 0.25).float().to(device)
+    dy = randn(n, h, t)
+
+    def run():
+        with torch.no_grad():
+            masked = lstm_scan(x, w, rw, b, peephole=p, mask=m,
+                               reverse=True)[0]
+        leaves = [v.detach().clone().requires_grad_()
+                  for v in (x, w, rw, b, p)]
+        out = lstm_scan(*leaves[:4], peephole=leaves[4], reverse=True)[0]
+        grads = torch.autograd.grad(out, leaves, dy)
+        return [masked, out.detach(), *grads]
+
+    got, ref = run(), with_swaps(lstm_swapped(), run)
+    torch.cuda.synchronize()
+    case = {"case": "reverse", "dtype": str(dtype).split(".")[-1], "t": t,
+            "n": n, "c": c, "h": h}
+    limits = lstm_limits(dtype, t)
+    failures = []
+    for key, g_, r_ in zip(("masked_out", "out", "dx", "dW", "dRW", "db",
+                            "dP"), got, ref):
+        g2, r2 = (v.reshape(-1, v.shape[-1]) if v.dim() > 1
+                  else v.reshape(1, -1) for v in (g_, r_))
+        row_rel, tile_rel = conv_agreement(g2, r2)
+        case[key] = {"max_abs_err": float((g_.float() - r_.float()).abs()
+                                          .max()),
+                     "row_rel": row_rel, "tile_rel": tile_rel}
+        if row_rel > limits["row_rel"] or tile_rel > limits["tile_rel"]:
+            failures.append(key)
+    case["max_abs_err"] = case["out"]["max_abs_err"]
+    case["limits"] = limits
+    log("lstm check", json.dumps(case))
+    if failures:
+        raise AssertionError(f"lstm_scan(reverse=True) with the kernels "
+                             f"disagrees with the plain versions "
+                             f"({failures}): {case}")
+    return case
+
+
+def text_lstm_net(device, dtype, t=LSTM_T):
+    """bench_all.py's bench_lstm model: TextGenerationLSTM(vocab 128,
+    max_length t, RmsProp(1e-3)) -- 2 GravesLSTM layers of 256, an
+    RnnOutputLayer softmax over 128, tBPTT in chunks of t -- random
+    weights from the conf seed, in ``dtype``."""
+    from deeplearning4j_tpu_torch.nn.updater import RmsProp
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    net = TextGenerationLSTM(vocab_size=LSTM_VOCAB, max_length=t,
+                             updater=RmsProp(1e-3)).init(device=device)
+    net.conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return net
+
+
+def text_batch(b, t, seed=0):
+    """bench_lstm's batch: one-hot [B, V, T] of ids from default_rng(seed)
+    and the labels rolled by one position."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, LSTM_VOCAB, (b, t))
+    x = np.zeros((b, LSTM_VOCAB, t), np.float32)
+    x[np.arange(b)[:, None], ids, np.arange(t)[None, :]] = 1.0
+    return x, np.roll(x, -1, axis=2)
+
+
+def lstm_counts():
+    c = read_counts()
+    return {"lstm_fwd": c["lstm_fwd"], "lstm_bwd": c["lstm_bwd"]}
+
+
+def text_lstm(device):
+    """The text LSTM's three paths at full width in bf16: ``output()``
+    (2 forward launches, probabilities finite with rows summing to 1, ms
+    per forward), ``sample_stream`` (32-token prompt, 256 new tokens, 2
+    launches a decode step, tokens/s; the streamed probabilities of the
+    sampled ids against one-shot ``output()`` of each prefix), ``fit``
+    (a warm-up step, then LSTM_STEPS timed steps, each ending in a host
+    read of the loss: finite and falling, 2 + 2 launches a step, ms per
+    step, tokens/s, peak memory; one profiled step)."""
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    rec, failures = {}, []
+    net = text_lstm_net(device, torch.bfloat16)
+    x, y = text_batch(LSTM_B, LSTM_T)
+    # inference
+    net.output(x[:2])
+    zero_counts()
+    out_s, probs = output_s(net, x)
+    counts = lstm_counts()
+    times = [output_s(net, x)[0] for _ in range(4)] + [out_s]
+    sums = probs.sum(dim=1)
+    inf = {"output_ms_median": 1e3 * float(np.median(times)),
+           "output_ms": [1e3 * v for v in times], "launches": counts,
+           "row_sum_max_err": float((sums - 1).abs().max())}
+    if tuple(probs.shape) != (LSTM_B, LSTM_VOCAB, LSTM_T) or \
+            not bool(torch.isfinite(probs).all()) or \
+            inf["row_sum_max_err"] > RESNET_ROW_SUM:
+        failures.append("probabilities not finite, misshapen or not "
+                        "summing to 1")
+    if counts != {"lstm_fwd": LSTM_LAYERS, "lstm_bwd": 0}:
+        failures.append(f"output() launched {counts}")
+    rec["inference"] = inf
+    log("text_lstm output:", json.dumps(inf))
+    # streaming generation
+    model = TextGenerationLSTM(vocab_size=LSTM_VOCAB, max_length=LSTM_T)
+    prompt = np.random.default_rng(1).integers(0, LSTM_VOCAB,
+                                               LSTM_PROMPT).tolist()
+    model.sample_stream(net, prompt, 4, rng=np.random.default_rng(2))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = model.sample_stream(net, prompt, LSTM_NEW,
+                              rng=np.random.default_rng(2))
+    gen_s = time.perf_counter() - t0
+    counts = lstm_counts()
+    stream = {"tokens": len(ids) - LSTM_PROMPT, "seconds": gen_s,
+              "tokens_per_s": (len(ids) - LSTM_PROMPT) / gen_s,
+              "ms_per_token": 1e3 * gen_s / (len(ids) - LSTM_PROMPT),
+              "launches": counts}
+    # one dispatch primes the prompt, one per later token
+    want = LSTM_LAYERS * (len(ids) - LSTM_PROMPT)
+    if counts != {"lstm_fwd": want, "lstm_bwd": 0}:
+        failures.append(f"sample_stream launched {counts}, not {want} "
+                        f"forward launches")
+    stream.update(stream_against_one_shot(net, ids))
+    lim = lstm_limits(torch.bfloat16, len(ids))
+    if not stream["probs_bitwise"] and (stream["row_rel"] > lim["row_rel"]
+                                        or stream["tile_rel"]
+                                        > lim["tile_rel"]):
+        failures.append("streamed probabilities part from one-shot "
+                        "output()'s")
+    rec["stream"] = stream
+    log("text_lstm stream:", json.dumps(stream))
+    # training
+    net.rnn_clear_previous_state()
+    fit_s(net, x, y, None)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    steps = [fit_s(net, x, y, None) for _ in range(LSTM_STEPS)]
+    counts = lstm_counts()
+    losses = [l for _, l in steps]
+    ms = [1e3 * s for s, _ in steps]
+    train = {"step_ms": ms, "step_ms_median": float(np.median(ms)),
+             "tokens_per_s": LSTM_B * LSTM_T / (float(np.median(ms)) / 1e3),
+             "losses": losses, "launches": counts,
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"the losses do not fall: {losses}")
+    want = {"lstm_fwd": LSTM_LAYERS * LSTM_STEPS,
+            "lstm_bwd": LSTM_LAYERS * LSTM_STEPS}
+    if counts != want:
+        failures.append(f"fit launched {counts}, not {want}")
+    prof, share = profile_fit_step(net, x, y, None)
+    prof["lstm_kernels_share_of_device_time"] = share("lstm_fwd_kernel",
+                                                      "lstm_bwd_kernel")
+    train["profile"] = prof
+    rec["train"] = train
+    log("text_lstm train:", json.dumps(train))
+    if failures:
+        raise AssertionError(f"text_lstm: {failures}: {rec}")
+    return rec
+
+
+def stream_against_one_shot(net, ids):
+    """The next-token probabilities of the sampled ids, streamed (the
+    prompt in one chunk, then one token a call) against one-shot
+    ``output()`` of the whole sequence, column by column: bitwise equal
+    or not, and their agreement by row (one position's distribution) and
+    tile."""
+    from deeplearning4j_tpu_torch.util.decoding import _one_hot
+    x = _one_hot(net, [ids])
+    net.rnn_clear_previous_state()
+    cols = [net.rnn_time_step(x[:, :, :LSTM_PROMPT])]
+    for k in range(LSTM_PROMPT, len(ids)):
+        cols.append(net.rnn_time_step(x[:, :, k:k + 1]))
+    streamed = torch.cat(cols, dim=2)[0].t().cpu()       # [T, V]
+    one_shot = net.output(x)[0].t().cpu()
+    row_rel, tile_rel = conv_agreement(streamed, one_shot)
+    net.rnn_clear_previous_state()
+    return {"probs_bitwise": bool(torch.equal(streamed, one_shot)),
+            "positions_differing": int((streamed != one_shot).any(dim=1)
+                                       .sum()),
+            "max_abs_err": float((streamed - one_shot).abs().max()),
+            "row_rel": row_rel, "tile_rel": tile_rel}
+
+
+def text_lstm_reference(device):
+    """f32 at full width, T = LSTM_REF_T: ``output()`` and
+    LSTM_REF_STEPS RmsProp fit steps with the kernels against the same
+    with the plain versions swapped in (probabilities by row and tile;
+    parameters and RmsProp's g2 by update_err, leaf by leaf), and a
+    planted backward fault (the peephole gradient dropped, through the
+    kernels) beyond the limit."""
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    x, y = text_batch(LSTM_B, LSTM_REF_T, seed=3)
+    scan = recurrent.lstm_recurrence
+
+    def no_dp(zx, rw, h0, c0, peephole=None, mask=None):
+        return scan(zx, rw, h0, c0,
+                    None if peephole is None else peephole.detach(), mask)
+
+    def run(swaps):
+        net = text_lstm_net(device, torch.float32, LSTM_REF_T)
+        start = tree_numpy(net.params)
+
+        def go():
+            probs = net.output(x).cpu()
+            for _ in range(LSTM_REF_STEPS):
+                net.fit(x, y, batch_size=LSTM_B)
+            return probs
+        probs = with_swaps(swaps, go)
+        res = (start, probs, tree_numpy(net.params),
+               tree_numpy(net.updater_state))
+        del net
+        torch.cuda.empty_cache()
+        return res
+
+    start, probs, params, g2 = run(())
+    _, pprobs, pparams, pg2 = run(lstm_swapped())
+    _, _, fparams, _ = run([(vars(recurrent), {"lstm_recurrence": no_dp})])
+    p_rel = conv_agreement(*(p.permute(0, 2, 1).reshape(-1, LSTM_VOCAB)
+                             for p in (probs, pprobs)))
+    rec = {"t": LSTM_REF_T, "steps": LSTM_REF_STEPS,
+           "probs": {"row_rel": p_rel[0], "tile_rel": p_rel[1]},
+           "params_vs_plain": update_err(params, pparams, start),
+           "g2_vs_plain": update_err(g2, pg2, {"g2": {
+               k: {n: np.zeros_like(v) for n, v in p.items()}
+               for k, p in start.items()}}),
+           "fault_no_dp": update_err(fparams, params, start),
+           "limits": {**lstm_limits(torch.float32, LSTM_REF_T),
+                      "update_err": LSTM_REF_LIMIT}}
+    log("text_lstm reference:", json.dumps(rec))
+    failures = []
+    lim = lstm_limits(torch.float32, LSTM_REF_T)
+    if p_rel[0] > lim["row_rel"] or p_rel[1] > lim["tile_rel"]:
+        failures.append("the probabilities part from the plain versions'")
+    if rec["params_vs_plain"][0] > LSTM_REF_LIMIT or \
+            rec["g2_vs_plain"][0] > LSTM_REF_LIMIT:
+        failures.append("two steps part from the plain versions'")
+    if rec["fault_no_dp"][0] <= LSTM_REF_LIMIT:
+        failures.append("the limit does not tell the dropped dP")
+    if failures:
+        raise AssertionError(f"text_lstm reference: {failures}: {rec}")
+    return rec
+
+
+def lstm_entry(name, replaces, launches, cases, text):
+    """A recurrence kernel's entry of the kernels line: its numbers at the
+    main path's shape (bf16, T = N = H = 256, peepholes) and every timed
+    case's; the launches of the counted fit steps, and those of the
+    other two paths."""
+    kind = "fwd" if name == "lstm_fwd" else "bwd"
+    main = next(c for c in cases if c["case"] == "main"
+                and c["dtype"] == "bfloat16")
+    errs = ("out", "hT", "cT") if kind == "fwd" else ("dzx", "dh0", "dc0")
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/nn/layers/csrc/lstm.cu",
+            "replaces": replaces, "launches": launches,
+            **({} if kind == "fwd" else {
+                "replaces_note": "the port's own kernel, no TPU twin: JAX's "
+                                 "_lstm_bwd differentiates through a scan"}),
+            "launches_on": f"{LSTM_STEPS} fit steps of the text LSTM",
+            "launches_output": text["inference"]["launches"][name],
+            "launches_sample_stream": text["stream"]["launches"][name],
+            "max_abs_err": max(main[k]["max_abs_err"] for k in errs),
+            **{k: main[kind][k] for k in ("ms", "ms_per_step", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+            **({"ms_train_forward": main["fwd_train"]["ms"],
+                "projection_plus_kernel_ms":
+                    main["fwd"]["projection_plus_kernel_ms"]}
+               if kind == "fwd" else {}),
+            "library": main["library"], "dtype": main["dtype"],
+            "limits": main["limits"],
+            "cases": [{"case": c["case"], "dtype": c["dtype"],
+                       **{k: c[k] for k in (kind, "plan", "plan_bwd")
+                          if k in c},
+                       **{k: c[k] for k in errs if k in c}}
+                      for c in cases if "plan" in c]}
+
+
 def cnn_entry(name, replaces, launches, cases):
     """A ResNet50 kernel's entry of the kernels line: its numbers at the
     main path's shape (the first bf16 case of the kernel), and every
@@ -3812,6 +4439,21 @@ def main(argv=None) -> int:
         out["resnet_fuse_true_reference"] = phase(
             "resnet_fuse_true_reference", resnet_train_reference, device,
             "fuse_true")
+    if want("lstm_kernels"):
+        out["lstm_cases"] = phase("lstm_kernels", check_lstm_kernels, device,
+                                  exp_rate)
+    if want("text_lstm"):
+        tl = out["text_lstm"] = phase("text_lstm", text_lstm, device)
+        log("text_lstm:", json.dumps({
+            "output_ms_median": tl["inference"]["output_ms_median"],
+            "stream_tokens_per_s": tl["stream"]["tokens_per_s"],
+            "train_step_ms_median": tl["train"]["step_ms_median"],
+            "train_tokens_per_s": tl["train"]["tokens_per_s"],
+            "max_memory_allocated_bytes":
+                tl["train"]["max_memory_allocated_bytes"], "card": smi}))
+    if want("text_lstm_reference"):
+        out["text_lstm_reference"] = phase("text_lstm_reference",
+                                           text_lstm_reference, device)
 
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} passed in "
@@ -3904,6 +4546,13 @@ def kernels_line(out):
         kernels.append(fused_entry(
             name, f"deeplearning4j_tpu/nn/layers/fused.py:{line}",
             out["resnet_fuse_true"]["launches"][name], out["fused_cases"]))
+    # the backward has no TPU twin: it replaces _lstm_bwd, the custom_vjp
+    # rule that differentiates through the JAX scan
+    for name, line in (("lstm_fwd", 41), ("lstm_bwd", 163)):
+        kernels.append(lstm_entry(
+            name, f"deeplearning4j_tpu/nn/layers/pallas_kernels.py:{line}",
+            out["text_lstm"]["train"]["launches"][name], out["lstm_cases"],
+            out["text_lstm"]))
     return kernels
 
 

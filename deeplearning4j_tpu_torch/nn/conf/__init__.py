@@ -1,5 +1,6 @@
-"""Configuration DSL (the subset the ported transformer builds)."""
+"""Configuration DSL (the subset the ported models build)."""
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.network import (  # noqa: F401
-    ComputationGraphConfiguration, NeuralNetConfiguration)
+    ComputationGraphConfiguration, MultiLayerConfiguration,
+    NeuralNetConfiguration)

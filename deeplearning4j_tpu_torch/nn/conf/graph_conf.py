@@ -1,10 +1,11 @@
 """Graph vertices and the GraphBuilder for DAG networks.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``, with the
-two vertices the transformer and ResNet50 need: ``LayerVertex`` (a layer
-conf, with an optional input preprocessor) and ``ElementWiseVertex``
-(the residual adds, over RNN or CNN activations). The other vertices
-port with the breadth modules (ROADMAP.md A11).
+vertices the ported graphs need: ``LayerVertex`` (a layer conf, with an
+optional input preprocessor), ``ElementWiseVertex`` (the residual adds,
+over RNN or CNN activations) and ``MergeVertex`` (concatenation on the
+feature axis, as in the recurrent regression graph). The other
+vertices port with the breadth modules (ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
 
 __all__ = ["ElementWiseVertex", "GraphBuilder", "GraphVertexConf",
-           "LayerVertex"]
+           "LayerVertex", "MergeVertex"]
 
 
 @dataclass
@@ -84,6 +85,29 @@ class ElementWiseVertex(GraphVertexConf):
         for x in xs[1:]:
             y = y + x
         return y, state
+
+
+@dataclass
+class MergeVertex(GraphVertexConf):
+    """Concatenate the inputs on the feature axis: axis 1 of ``[N, F]``,
+    ``[N, F, T]`` and NCHW ``[N, C, H, W]``; under internal NHWC the
+    4-D inputs carry channels on the last axis."""
+
+    data_format: str = "NCHW"
+
+    def output_type(self, its):
+        first = its[0]
+        if first.kind == "cnn":
+            return InputType.convolutional(
+                first.height, first.width, sum(it.channels for it in its))
+        if first.kind == "rnn":
+            return InputType.recurrent(sum(it.size for it in its),
+                                       first.timesteps)
+        return InputType.feed_forward(sum(it.flat_size() for it in its))
+
+    def apply(self, params, xs, state, *, train=False):
+        axis = 3 if (self.data_format == "NHWC" and xs[0].dim() == 4) else 1
+        return torch.cat(xs, dim=axis), state
 
 
 class GraphBuilder:

@@ -5,6 +5,8 @@ the layers the ported zoo models build. The transformer
 (``zoo/transformer.py``): ``Convolution1DLayer`` (kernel 1: the token
 projection and the FFN), ``PositionalEmbeddingLayer`` (learned
 positions), ``LayerNormalization``, ``SelfAttentionLayer`` and
+``RnnOutputLayer``. The text LSTM (``zoo/text_lstm.py``): ``GravesLSTM``
+(``LSTM`` with peepholes), ``GravesBidirectionalLSTM`` and
 ``RnnOutputLayer``. ResNet50 (``zoo/resnet.py``): ``ConvolutionLayer``,
 ``BatchNormalization``, ``ActivationLayer``, ``SubsamplingLayer``,
 ``ZeroPaddingLayer``, ``GlobalPoolingLayer``, ``DenseLayer`` and
@@ -16,7 +18,9 @@ JAX package's (a conv ``W`` is ``[O, I, kH, kW]``, BN has ``gamma`` /
 ``beta`` parameters and a ``mean`` / ``var`` state), so parameters and
 state copy across unchanged (``util/convert.py``). The whole-sequence
 attention runs the flash-attention kernels
-(``nn/layers/flash_attention.py``); the CNN layers run PyTorch's
+(``nn/layers/flash_attention.py``), the LSTM layers the recurrence
+kernels (``nn/layers/recurrent.py`` over ``nn/layers/lstm_kernel.py``;
+their ``apply`` also takes a ``[N, T]`` mask); the CNN layers run PyTorch's
 convolution and pooling (the JAX package's are XLA's too), and the
 fused execution plan replaces whole chains of them with the bottleneck
 and stem kernels (``nn/graph.py``).
@@ -34,7 +38,9 @@ position ``kv_pos`` (a scalar, or ``[N]`` per row in the engine's slot
 arena), or, while the serving engine decodes on its page pool, the
 paged view (``kv_page_k`` / ``kv_page_v`` ``[P, Hkv, page_size, D]``
 and ``kv_page_table`` ``[N, n_max]``); the learned positional table
-carries its ``pos_offset``.
+carries its ``pos_offset``; an LSTM layer carries its ``h`` / ``c``
+``[N, H]`` (in the compute dtype), which ``rnn_time_step`` feeds back
+and the truncated-BPTT ``fit`` carries from chunk to chunk.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import convolution as _conv
 from deeplearning4j_tpu_torch.nn.layers import normalization as _norm
+from deeplearning4j_tpu_torch.nn.layers import recurrent as _rnn
 from deeplearning4j_tpu_torch.nn.layers.flash_attention import (
     flash_attention)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
@@ -58,25 +65,27 @@ NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
 __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
            "Convolution1DLayer", "ConvolutionLayer", "DenseLayer",
-           "GlobalPoolingLayer", "LayerConf", "LayerNormalization",
-           "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
+           "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM",
+           "LSTM", "LayerConf", "LayerNormalization", "OutputLayer",
+           "PositionalEmbeddingLayer", "RnnOutputLayer",
            "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
            "ZeroPaddingLayer", "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
-#: path (stripped on ordinary forwards, cleared by
-#: rnn_clear_previous_state): the attention KV cache and its position,
-#: the paged view the serving engine installs around its dispatches
-#: (with the int8 pool's scale sidecars and the prime-through-the-pool
-#: marker), and the learned positional table's offset. (LSTM h/c,
-#: masked-stream kv_mask and the rolling cache's kv_abs come with their
-#: layers: ROADMAP.md A6, A8.)
+#: path and the truncated-BPTT fit (stripped on ordinary forwards,
+#: cleared by rnn_clear_previous_state): the LSTM carry h / c, the
+#: attention KV cache and its position, the paged view the serving
+#: engine installs around its dispatches (with the int8 pool's scale
+#: sidecars and the prime-through-the-pool marker), and the learned
+#: positional table's offset. (Masked-stream kv_mask and the rolling
+#: cache's kv_abs come with their features: ROADMAP.md A6.)
 STREAM_STATE_KEYS = frozenset(
-    {"kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v", "kv_page_table",
-     "kv_page_scale_k", "kv_page_scale_v", "kv_page_prime", "pos_offset"})
+    {"h", "c", "kv_k", "kv_v", "kv_pos", "kv_page_k", "kv_page_v",
+     "kv_page_table", "kv_page_scale_k", "kv_page_scale_v",
+     "kv_page_prime", "pos_offset"})
 
 #: streaming-state keys whose LEADING axis is the batch dimension
-BATCHED_STREAM_KEYS = frozenset({"kv_k", "kv_v"})
+BATCHED_STREAM_KEYS = frozenset({"h", "c", "kv_k", "kv_v"})
 
 
 def stream_capacity(layers):
@@ -769,6 +778,106 @@ class SelfAttentionLayer(FeedForwardLayerConf):
         sin = ang.sin()[lead].to(x.dtype)
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------
+# recurrent layers
+# ---------------------------------------------------------------------
+def _lstm_params(gen, n_in, h, forget_gate_bias_init, weight_init, device,
+                 peephole):
+    """W ``[n_in, 4h]``, RW ``[h, 4h]`` (both with fans ``n_in + h`` and
+    ``h``, as in the JAX package), b ``[4h]`` zero but for the forget
+    gate's slice, and with ``peephole`` P ``[3, h]`` zero."""
+    w = init_weights(gen, (n_in, 4 * h), n_in + h, h, weight_init, device)
+    rw = init_weights(gen, (h, 4 * h), n_in + h, h, weight_init, device)
+    b = torch.zeros(4 * h, device=device)
+    b[h:2 * h] = forget_gate_bias_init
+    p = {"W": w, "RW": rw, "b": b}
+    if peephole:
+        p["P"] = torch.zeros((3, h), device=device)
+    return p
+
+
+@dataclass
+class LSTM(FeedForwardLayerConf):
+    """LSTM without peepholes over ``[N, C, T]``: W ``[n_in, 4 n_out]``,
+    RW ``[n_out, 4 n_out]``, b ``[4 n_out]``, gate order (i, f, c, o),
+    the forget gate's bias at ``forget_gate_bias_init``. The recurrence
+    runs the LSTM kernels (``nn/layers/recurrent.py``); the gates are
+    sigmoid and the cell tanh (other activations: ROADMAP.md A1). The
+    layer carries ``h`` / ``c`` in its state: a forward starts from the
+    carried ones if the network passes them (streaming, truncated BPTT)
+    and returns the last step's."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+    activation: str = "tanh"
+
+    _peephole = False
+    #: streams through an h / c carry that cannot be rewound
+    carries_recurrent_state = True
+    #: apply takes a [N, T] mask
+    takes_mask = True
+
+    def output_type(self, it):
+        return InputType.recurrent(self.n_out, it.timesteps)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.size
+        return _lstm_params(gen, self.n_in, self.n_out,
+                            self.forget_gate_bias_init, self.weight_init,
+                            device, self._peephole), {}
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        out, h_t, c_t = _rnn.lstm_scan(
+            x, params["W"], params["RW"], params["b"], h0=state.get("h"),
+            c0=state.get("c"), peephole=params.get("P"), mask=mask,
+            gate_act=self.gate_activation, cell_act=self.activation)
+        return out, {**state, "h": h_t, "c": c_t}
+
+
+@dataclass
+class GravesLSTM(LSTM):
+    """LSTM with peephole connections: P ``[3, n_out]``, rows (pI, pF,
+    pO); pO reads the new cell."""
+
+    _peephole = True
+
+
+@dataclass
+class GravesBidirectionalLSTM(FeedForwardLayerConf):
+    """A forward and a reversed GravesLSTM over the same input, their
+    outputs SUMMED (width ``n_out``): WF, RWF, bF, PF and their ``B``
+    twins. It carries no streaming state."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+    activation: str = "tanh"
+
+    takes_mask = True
+
+    def output_type(self, it):
+        return InputType.recurrent(self.n_out, it.timesteps)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.size
+        p = {}
+        for tag in ("F", "B"):
+            for k, v in _lstm_params(gen, self.n_in, self.n_out,
+                                     self.forget_gate_bias_init,
+                                     self.weight_init, device, True).items():
+                p[k + tag] = v
+        return p, {}
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        y = _rnn.bidirectional_sum(
+            x, params["WF"], params["RWF"], params["bF"], params["WB"],
+            params["RWB"], params["bB"], peep_f=params["PF"],
+            peep_b=params["PB"], mask=mask, gate_act=self.gate_activation,
+            cell_act=self.activation)
+        return y, state
 
 
 @dataclass

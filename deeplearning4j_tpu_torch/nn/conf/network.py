@@ -1,13 +1,21 @@
-"""Network-level configuration: the builder DSL for DAG networks.
+"""Network-level configuration: the builder DSL.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/network.py``:
 ``NeuralNetConfiguration.Builder`` global defaults (weight init, L1/L2)
 cascade into the layer confs, the updater and gradient normalization
-go to the network, and ``graph_builder()`` yields a
+go to the network; ``graph_builder()`` yields a
 ``ComputationGraphConfiguration``, whose ``use_cnn_data_format``
-switches the CNN stack's internal layout. The other global defaults
-(activation, bias init, dropout), the sequential ``list()`` builder and
-JSON round trips come with the formats (ROADMAP.md A1).
+switches the CNN stack's internal layout, and ``list()`` a
+``ListBuilder`` for a sequential ``MultiLayerConfiguration`` (with
+truncated BPTT, ``tbptt``). Building a list with an input type walks
+the layers once (:func:`_infer_shapes_and_preprocessors`): each layer's
+``n_in`` is filled from the type reaching it, and a layer whose input
+kind differs from the one it expects would get a shape adapter
+(:func:`infer_preprocessor`); the recurrent stack needs none (recurrent
+in, recurrent out), and the adapters between kinds are refused with
+the sequential network's other preprocessors (ROADMAP.md A2, with LeNet
+on this network). The other global defaults (activation, bias init,
+dropout) and JSON round trips come with the formats (ROADMAP.md A1).
 """
 
 from __future__ import annotations
@@ -17,13 +25,23 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    FeedForwardLayerConf, LayerConf)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
 from deeplearning4j_tpu_torch.nn.updater import Sgd, Updater
 
-__all__ = ["ComputationGraphConfiguration", "NeuralNetConfiguration",
-           "apply_global_defaults"]
+__all__ = ["ComputationGraphConfiguration", "ListBuilder",
+           "MultiLayerConfiguration", "NeuralNetConfiguration",
+           "apply_global_defaults", "infer_preprocessor"]
+
+#: the input kind each ported layer family expects; other layers take any
+_EXPECTS = {
+    "ff": {"DenseLayer", "OutputLayer", "BatchNormalization"},
+    "cnn": {"ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer"},
+    "rnn": {"LSTM", "GravesLSTM", "GravesBidirectionalLSTM",
+            "RnnOutputLayer", "Convolution1DLayer"},
+}
 
 
 def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
@@ -37,6 +55,111 @@ def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
             continue
         if getattr(layer, k) == cls_defaults.get(k):
             setattr(layer, k, v)
+
+
+def infer_preprocessor(it: InputType, layer: LayerConf):
+    """The shape adapter a layer needs between the input type reaching it
+    and the kind it expects: None where they agree (BatchNormalization
+    takes feed-forward and CNN input as it is); the adapters between
+    kinds (CNN to feed-forward, feed-forward to CNN, RNN to
+    feed-forward) are not ported yet, so every other case raises."""
+    name = type(layer).__name__
+    want = next((k for k, names in _EXPECTS.items() if name in names), None)
+    if want is None or want == it.kind:
+        return None
+    if name == "BatchNormalization" and it.kind in ("ff", "cnn"):
+        return None
+    raise NotImplementedError(
+        f"a {it.kind} input to {name} needs a shape adapter; the sequential "
+        "network's preprocessors other than the recurrent stack's are not "
+        "ported yet (ROADMAP.md A2)")
+
+
+def _infer_shapes_and_preprocessors(conf: "MultiLayerConfiguration") -> None:
+    """Walk the net once: check that no layer needs a preprocessor and
+    fill the ``n_in`` fields from the input type reaching each layer."""
+    it = conf.input_type
+    for layer in conf.layers:
+        infer_preprocessor(it, layer)
+        if isinstance(layer, FeedForwardLayerConf) and layer.n_in is None:
+            layer.n_in = it.channels if it.kind == "cnn" else it.flat_size()
+        it = layer.output_type(it)
+
+
+@dataclass
+class MultiLayerConfiguration:
+    """Sequential net config, built through
+    ``NeuralNetConfiguration.Builder().list()``: the layers, the input
+    type, and the training settings (``tbptt`` with
+    ``tbptt_fwd_length``: ``fit`` splits each ``[N, C, T]`` batch into
+    chunks of that many steps and carries the recurrent state across
+    them). ``dtype`` selects the compute policy as for a graph."""
+
+    layers: List[LayerConf] = field(default_factory=list)
+    input_type: Optional[InputType] = None
+    seed: int = 12345
+    updater: Updater = field(default_factory=lambda: Sgd(0.1))
+    tbptt_fwd_length: int = 20
+    tbptt: bool = False
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
+    dtype: str = "float32"
+
+    def layer_input_types(self) -> List[InputType]:
+        """The input type each layer sees."""
+        if self.input_type is None:
+            raise ValueError("input_type not set; call set_input_type or "
+                             "provide n_in")
+        it, out = self.input_type, []
+        for layer in self.layers:
+            out.append(it)
+            it = layer.output_type(it)
+        return out
+
+    def output_type(self) -> InputType:
+        its = self.layer_input_types()
+        return self.layers[-1].output_type(its[-1])
+
+
+class ListBuilder:
+    """Sequential-net builder: ``layer``, ``set_input_type``, ``tbptt``
+    and ``build``."""
+
+    def __init__(self, parent: "NeuralNetConfiguration.Builder"):
+        self._parent = parent
+        self._layers: List[LayerConf] = []
+        self._input_type: Optional[InputType] = None
+        self._tbptt = False
+        self._tbptt_fwd = 20
+
+    def layer(self, *args):
+        """``layer(conf)`` or ``layer(index, conf)``."""
+        self._layers.append(args[-1])
+        return self
+
+    def set_input_type(self, it: InputType):
+        self._input_type = it
+        return self
+
+    def tbptt(self, fwd: int = 20):
+        """Truncated BPTT in chunks of ``fwd`` steps."""
+        self._tbptt = True
+        self._tbptt_fwd = fwd
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        g = self._parent
+        for layer in self._layers:
+            apply_global_defaults(layer, g._defaults)
+        conf = MultiLayerConfiguration(
+            layers=self._layers, input_type=self._input_type, seed=g._seed,
+            updater=g._updater, tbptt=self._tbptt,
+            tbptt_fwd_length=self._tbptt_fwd,
+            gradient_normalization=g._grad_norm,
+            gradient_normalization_threshold=g._grad_norm_threshold)
+        if conf.input_type is not None:
+            _infer_shapes_and_preprocessors(conf)
+        return conf
 
 
 class NeuralNetConfiguration:
@@ -75,6 +198,9 @@ class NeuralNetConfiguration:
             self._grad_norm = method
             self._grad_norm_threshold = threshold
             return self
+
+        def list(self) -> ListBuilder:
+            return ListBuilder(self)
 
         def graph_builder(self):
             from deeplearning4j_tpu_torch.nn.conf.graph_conf import (

@@ -3,8 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, the
 topological-order forward, ``output``, the streaming ``rnn_time_step``
 / ``rnn_clear_previous_state`` pair the decoders and the serving engine
-drive, training (``fit`` over a DataSet, ``(features, labels)`` or an
-iterator, one optimizer step per batch, and ``score``), and the fused
+drive (the KV caches and positional offsets, and the LSTM layers' ``h``
+/ ``c``: a streaming call feeds each layer its carried state and keeps
+the new one; other calls start from zeros), training (``fit`` over a
+DataSet, ``(features, labels)`` or an iterator, one optimizer step per
+batch, and ``score``), and the fused
 execution plans of the CNN stack. PyTorch runs eagerly, so there is no
 jit cache: each call runs the vertex loop directly, and a train step is
 one autograd pass over it, with batch statistics in every BN (``fit``
@@ -48,7 +51,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.compute import (
     bf16_cast, bf16_cast_tree, f32_head)
@@ -60,35 +63,21 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer, stream_capacity)
 from deeplearning4j_tpu_torch.nn.conf.network import (
     ComputationGraphConfiguration)
-from deeplearning4j_tpu_torch.nn.updater import normalize_gradients, tree_map
+from deeplearning4j_tpu_torch.nn.network_base import BF16, NetworkBase
 
 __all__ = ["ComputationGraph"]
 
-_BF16 = ("bfloat16", "bf16")
 
-
-class ComputationGraph:
+class ComputationGraph(NetworkBase):
     """DAG network with fit, score, output and streaming inference."""
 
     def __init__(self, conf: ComputationGraphConfiguration):
+        super().__init__()
         self.conf = conf
-        self.params: Dict[str, Any] = {}
-        self.state: Dict[str, Any] = {}
-        self.updater_state: Dict[str, Any] = {}
-        self.iteration_count = 0
-        self.epoch_count = 0
-        self._score_raw: Any = float("nan")
-        #: the non-finite sentinel policy of the JAX package's fit
-        #: loops; the port trains without the sentinel, and fit refuses
-        #: a policy set here (ROADMAP.md A5)
-        self.nonfinite_policy = None
-        self.device = None
-        self._initialized = False
         self._topo = conf.topological_order()
         self._vertex_input_types: Dict[str, List[InputType]] = {}
         #: streamed positions per streaming vertex (the budget guard)
         self._stream_pos_map: Dict[str, int] = {}
-        self._compute = None       # (params, dtype, compute-dtype params)
         #: the execution plan (set_fusion): False, True or "bottleneck",
         #: the stem switch and the block subset; the matchers' gates read
         #: conf.dtype, so both plan caches are dtype-stamped
@@ -133,76 +122,11 @@ class ComputationGraph:
         self._initialized = True
         return self
 
-    @property
-    def score_value(self) -> float:
-        """The last fit batch's loss (read from the device on first
-        access, then cached)."""
-        if not isinstance(self._score_raw, float):
-            self._score_raw = float(self._score_raw)
-        return self._score_raw
-
-    @score_value.setter
-    def score_value(self, value) -> None:
-        self._score_raw = value
-
-    def add_listener(self, listener):
-        raise NotImplementedError("training listeners are not ported yet "
-                                  "(ROADMAP.md A5)")
-
-    def set_listeners(self, *listeners):
-        raise NotImplementedError("training listeners are not ported yet "
-                                  "(ROADMAP.md A5)")
-
-    def load_numpy_params(self, np_params) -> "ComputationGraph":
-        """Replace the parameters with the JAX graph's ``net.params`` as
-        nested numpy arrays (``{vertex: {name: array}}``, see
-        ``util/convert.params_from_numpy``); names and shapes must match
-        this graph's."""
-        from deeplearning4j_tpu_torch.util.convert import params_from_numpy
-        if not self._initialized:
-            raise RuntimeError("init() the graph before loading params")
-        new = params_from_numpy(np_params, self.device)
-        want = {(v, k): tuple(t.shape) for v, p in self.params.items()
-                for k, t in p.items()}
-        got = {(v, k): tuple(t.shape) for v, p in new.items()
-               for k, t in p.items()}
-        if want != got:
-            raise ValueError(
-                f"parameter tree mismatch: missing "
-                f"{sorted(set(want) - set(got))}, unexpected "
-                f"{sorted(set(got) - set(want))}, shapes differ at "
-                f"{sorted(k for k in set(want) & set(got) if want[k] != got[k])}")
-        self.params = new
-        return self
-
-    def load_numpy_updater_state(self, np_state) -> "ComputationGraph":
-        """Replace the updater state with the JAX graph's
-        ``net.updater_state`` as numpy (``util/convert.
-        updater_state_from_numpy``), to resume a JAX run here; its tree
-        must match this graph's updater state."""
-        from deeplearning4j_tpu_torch.util.convert import (
-            updater_state_from_numpy)
-        if not self._initialized:
-            raise RuntimeError("init() the graph before loading state")
-        new = updater_state_from_numpy(np_state, self.device)
-        if _shapes(new) != _shapes(self.updater_state):
-            raise ValueError("updater state tree does not match this "
-                             "graph's updater and parameters")
-        self.updater_state = new
-        return self
-
-    def load_numpy_state(self, np_state) -> "ComputationGraph":
-        """Replace the state with the JAX graph's ``net.state`` as numpy
-        (``util/convert.state_from_numpy``): the BN running mean and
-        variance, keyed by vertex; its tree must match this graph's."""
-        from deeplearning4j_tpu_torch.util.convert import state_from_numpy
-        if not self._initialized:
-            raise RuntimeError("init() the graph before loading state")
-        new = state_from_numpy(np_state, self.device)
-        if _shapes(new) != _shapes(self.state):
-            raise ValueError("state tree does not match this graph's")
-        self.state = new
-        return self
+    def _layer_items(self):
+        for name, v in self.conf.vertices.items():
+            layer = getattr(v, "layer", None)
+            if layer is not None:
+                yield name, layer
 
     # ------------------------------------------------------------------
     # execution plans: the fused bottleneck and stem chains
@@ -708,23 +632,6 @@ class ComputationGraph:
             running_var=s["var"].to(dtype).float())
 
     # ------------------------------------------------------------------
-    def _compute_params(self):
-        """The parameters in the compute dtype: the bf16 copy is made
-        once per parameter tree (and dtype), not per call."""
-        if self.conf.dtype not in _BF16:
-            return self.params
-        c = self._compute
-        if c is None or c[0] is not self.params or c[1] != self.conf.dtype:
-            c = (self.params, self.conf.dtype, bf16_cast_tree(self.params))
-            self._compute = c
-        return c[2]
-
-    def _tensor(self, x) -> torch.Tensor:
-        """An input or a label on the net's device; floating arrays
-        become f32 (the JAX package's default)."""
-        x = torch.as_tensor(x, device=self.device)
-        return x.float() if x.dtype == torch.float64 else x
-
     def _as_input_dict(self, inputs) -> Dict[str, torch.Tensor]:
         """The network inputs by name, in the compute dtype."""
         if len(inputs) == 1 and isinstance(inputs[0], dict):
@@ -738,7 +645,7 @@ class ComputationGraph:
         """The bf16 compute cast of a parameter tree and an input dict
         under ``conf.dtype = "bfloat16"`` (differentiable: training
         calls it inside the loss)."""
-        if self.conf.dtype in _BF16:
+        if self.conf.dtype in BF16:
             params = bf16_cast_tree(params)
             inputs = {k: bf16_cast(x) for k, x in inputs.items()}
         return params, inputs
@@ -813,46 +720,10 @@ class ComputationGraph:
                 labels[name], f32_head(acts[name]))
         return total + self._reg_loss(params), new_state
 
-    def _reg_loss(self, params):
-        """L1 and L2 terms of every layer's coefficients, on the f32
-        parameters."""
-        reg = 0.0
-        for name, v in self.conf.vertices.items():
-            layer = getattr(v, "layer", None)
-            if layer is None:
-                continue
-            p = params.get(name, {})
-            for k, coeff in layer.l1_coeffs().items():
-                if k in p:
-                    reg = reg + coeff * p[k].abs().sum()
-            for k, coeff in layer.l2_coeffs().items():
-                if k in p:
-                    reg = reg + 0.5 * coeff * (p[k] ** 2).sum()
-        return reg
-
     def _train_step(self, inputs, labels) -> torch.Tensor:
-        """One optimizer step: loss and gradients by autograd through the
-        whole forward (the flash-attention kernels' backward included),
-        gradient normalization, the updater's steps subtracted from the
-        parameters. Returns the loss (on the device)."""
-        params = tree_map(lambda t: t.detach().requires_grad_(),
-                          self.params)
-        loss, new_state = self._loss(params, inputs, labels)
-        leaves = [(v, k) for v, p in params.items() for k in p]
-        grads = torch.autograd.grad(loss, [params[v][k] for v, k in leaves],
-                                    allow_unused=True)
-        tree = {v: {} for v in params}
-        for (v, k), g in zip(leaves, grads):
-            tree[v][k] = torch.zeros_like(params[v][k]) if g is None else g
-        conf = self.conf
-        with torch.no_grad():
-            tree = normalize_gradients(tree, conf.gradient_normalization,
-                                       conf.gradient_normalization_threshold)
-            steps, self.updater_state = conf.updater.update(
-                tree, self.updater_state, self.params)
-            self.params = tree_map(lambda p, s: p - s, self.params, steps)
-        self.state = new_state
-        return loss.detach()
+        """One optimizer step, autograd through the whole forward (the
+        kernels' backward included); returns the loss (on the device)."""
+        return self._step(lambda p: self._loss(p, inputs, labels))
 
     def _batch(self, ds: DataSet):
         """A batch's inputs and labels as f32 tensors by name."""
@@ -882,32 +753,15 @@ class ComputationGraph:
         stem where the store says it wins); None keeps the net's plan
         (``set_fusion(True)`` included). A fused group, block or stem
         trains through its backward kernels."""
-        if steps_per_dispatch != 1:
-            raise NotImplementedError("fused multi-step dispatch "
-                                      "(steps_per_dispatch > 1) is not "
-                                      "ported yet (ROADMAP.md A5)")
-        if prefetch or pad_tail:
-            raise NotImplementedError("device prefetch and tail padding "
-                                      "are not ported yet (ROADMAP.md A5)")
-        if self.nonfinite_policy is not None:
-            raise NotImplementedError("the non-finite sentinel is not "
-                                      "ported yet (ROADMAP.md A5)")
+        it = self._fit_iterator(data, labels, batch_size,
+                                steps_per_dispatch=steps_per_dispatch,
+                                prefetch=prefetch, pad_tail=pad_tail)
         if not self._initialized:
             self.init()
         if execution_plan is not None:
             from deeplearning4j_tpu_torch.tuning.plan import (
                 apply_execution_plan)
             apply_execution_plan(self, execution_plan)
-        if labels is not None:
-            it = ArrayDataSetIterator(data, labels, batch_size)
-        elif isinstance(data, DataSet):
-            it = ArrayDataSetIterator(data.features, data.labels, batch_size,
-                                      data.features_mask, data.labels_mask)
-        else:
-            it = data
-        if it is not data:
-            # the internal iterator's pass index follows the epoch count
-            it.restore_state({"epoch": self.epoch_count, "pos": 0})
         for _ in range(epochs):
             for ds in it:
                 self._fit_batch(ds)
@@ -1005,17 +859,5 @@ class ComputationGraph:
             updates[name] = new_pos
         return {**pos, **updates}
 
-    def rnn_clear_previous_state(self):
+    def _clear_stream_positions(self):
         self._stream_pos_map = {}
-        for k, s in self.state.items():
-            if isinstance(s, dict):
-                self.state[k] = {kk: vv for kk, vv in s.items()
-                                 if kk not in STREAM_STATE_KEYS}
-
-
-def _shapes(tree):
-    """The structure of a state tree: shapes of tensors, types of the
-    rest."""
-    if isinstance(tree, dict):
-        return {k: _shapes(v) for k, v in tree.items()}
-    return tuple(tree.shape) if torch.is_tensor(tree) else type(tree)

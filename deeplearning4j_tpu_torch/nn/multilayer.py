@@ -1,0 +1,304 @@
+"""MultiLayerNetwork: the sequential network runtime.
+
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the
+layer-by-layer forward, ``output``, the streaming ``rnn_time_step`` /
+``rnn_clear_previous_state`` pair, training (``fit`` over a DataSet,
+``(features, labels)`` or an iterator, one optimizer step per batch,
+truncated BPTT when the configuration asks for it) and ``score``.
+PyTorch runs eagerly: each call runs the layer loop directly, and a
+train step is one autograd pass over it (``nn/network_base.py``).
+
+Parameters, state and updater state are trees keyed by layer index
+(``"0"``, ``"1"``, ...), as in the JAX package, so the JAX network's
+trees load as they are (``load_numpy_params`` and the other loaders).
+Under ``conf.dtype = "bfloat16"`` the forward runs on bf16 copies of the
+parameters and input (inference reuses one cast copy; training casts
+inside the differentiated loss, so the gradients reach the f32 master
+weights) and the loss takes the output layer's pre-activation promoted
+to f32, as the JAX ``_cast_compute`` and ``_loss`` do.
+
+Recurrent state: an LSTM layer returns its last ``h`` / ``c`` in its
+state. An ordinary forward (``output``, a ``fit`` step) strips the
+carried ones first and starts from zeros; ``rnn_time_step`` feeds them
+back and keeps the new ones; truncated BPTT (``_fit_tbptt``) clears them
+at the start of each batch and carries them from chunk to chunk,
+detached (the JAX package gets that by running each chunk as its own
+jitted call). A ``[N, T]`` mask in ``output(mask=)`` reaches the LSTM
+layers (masked steps carry h and c through and output zeros); masks in
+``fit`` are refused (ROADMAP.md A6), as are the fit loop's listeners,
+fused multi-step dispatch, prefetch and tail padding (A5),
+``evaluate`` (A5) and ``pretrain`` (A2, with LeNet on this network).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.compute import (
+    bf16_cast, bf16_cast_tree, f32_head)
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    STREAM_STATE_KEYS, GlobalPoolingLayer, SelfAttentionLayer,
+    stream_capacity)
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    MultiLayerConfiguration, _infer_shapes_and_preprocessors)
+from deeplearning4j_tpu_torch.nn.network_base import BF16, NetworkBase
+
+__all__ = ["MultiLayerNetwork"]
+
+
+class MultiLayerNetwork(NetworkBase):
+    """Sequential network with fit, score, output and streaming
+    inference."""
+
+    def __init__(self, conf: MultiLayerConfiguration):
+        super().__init__()
+        self.conf = conf
+        self.layers = conf.layers
+        self._stream_pos = 0
+
+    def _layer_items(self):
+        return ((str(i), layer) for i, layer in enumerate(self.layers))
+
+    def init(self, device=None):
+        """Build the parameters from ``conf.seed`` on ``device``
+        (default ``"cuda"``; raises without a CUDA device unless
+        ``device="cpu"``)."""
+        self.device = resolve_device(device)
+        if self.conf.input_type is None:
+            n_in = getattr(self.layers[0], "n_in", None)
+            if n_in is None:
+                raise ValueError("set conf.input_type or the first layer's "
+                                 "n_in")
+            self.conf.input_type = InputType.feed_forward(n_in)
+        _infer_shapes_and_preprocessors(self.conf)
+        gen = torch.Generator().manual_seed(int(self.conf.seed))
+        self.params, self.state = {}, {}
+        for i, (layer, it) in enumerate(zip(self.layers,
+                                            self.conf.layer_input_types())):
+            p, s = layer.init(gen, it, self.device)
+            self.params[str(i)] = p
+            self.state[str(i)] = s
+        self.updater_state = self.conf.updater.init_state(self.params)
+        self._stream_pos = 0
+        self._initialized = True
+        return self
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def _cast_compute(self, params, x):
+        """The bf16 compute cast of the parameters and the input under
+        ``conf.dtype = "bfloat16"`` (differentiable: training calls it
+        inside the loss)."""
+        if self.conf.dtype in BF16:
+            return bf16_cast_tree(params), bf16_cast(x)
+        return params, x
+
+    def _forward(self, params, state, x, *, train=False, carry_rnn=False,
+                 stream=False, mask=None, upto: Optional[int] = None):
+        """The layers' activations (``acts[i]`` is layer i's output) and
+        the new state. Each layer sees its state stripped of the
+        streaming keys unless ``carry_rnn``; ``stream`` selects the
+        streaming path of the streaming layers; ``mask`` ``[N, T]``
+        reaches the recurrent layers; ``upto`` stops before that layer
+        (its state and the later layers' pass through)."""
+        acts, new_state = [], {}
+        n = len(self.layers) if upto is None else upto
+        h = x
+        for i in range(n):
+            layer = self.layers[i]
+            s_i = state.get(str(i), {})
+            if not carry_rnn:
+                s_i = {k: v for k, v in s_i.items()
+                       if k not in STREAM_STATE_KEYS}
+            extra = _mask_kwargs(layer, mask)
+            if getattr(layer, "supports_streaming", False):
+                extra["stream"] = stream
+            h, new_state[str(i)] = layer.apply(params[str(i)], h, s_i,
+                                               train=train, **extra)
+            acts.append(h)
+        for i in range(n, len(self.layers)):
+            new_state[str(i)] = state.get(str(i), {})
+        return acts, new_state
+
+    def _loss(self, params, state, x, y, *, train=True, carry_rnn=False):
+        """The output layer's loss on the f32 promotion of its
+        pre-activation, plus the L1/L2 terms, as a function of the f32
+        ``params`` (the compute cast happens here); returns (loss, new
+        state)."""
+        out_idx = len(self.layers) - 1
+        out_layer = self.layers[out_idx]
+        if not hasattr(out_layer, "compute_score"):
+            raise ValueError("the last layer must be an output layer to "
+                             "compute a loss")
+        cparams, cx = self._cast_compute(params, x)
+        acts, new_state = self._forward(cparams, state, cx, train=train,
+                                        carry_rnn=carry_rnn, upto=out_idx)
+        h = acts[-1] if acts else cx
+        preout = out_layer.preout(cparams[str(out_idx)], h)
+        score = out_layer.compute_score(y, f32_head(preout))
+        return score + self._reg_loss(params), new_state
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, epochs: int = 1, batch_size: int = 32,
+            *, steps_per_dispatch: int = 1, prefetch: int = 0,
+            pad_tail=None, execution_plan=None):
+        """Train: one optimizer step per batch, or per chunk of
+        ``conf.tbptt_fwd_length`` steps of a ``[N, C, T]`` batch under
+        truncated BPTT. ``data`` is a DataSet, an iterator of DataSets,
+        or features with ``labels``, batched by ``batch_size``.
+        ``execution_plan`` validates as for a graph; a sequential network
+        has no fused chains, so every plan runs its layers as they
+        are."""
+        it = self._fit_iterator(data, labels, batch_size,
+                                steps_per_dispatch=steps_per_dispatch,
+                                prefetch=prefetch, pad_tail=pad_tail)
+        if not self._initialized:
+            self.init()
+        if execution_plan is not None:
+            from deeplearning4j_tpu_torch.tuning.plan import (
+                apply_execution_plan)
+            apply_execution_plan(self, execution_plan)
+        for _ in range(epochs):
+            for ds in it:
+                if self.conf.tbptt and ds.features.ndim == 3:
+                    self._fit_tbptt(ds)
+                else:
+                    self._fit_batch(ds)
+            self.epoch_count += 1
+        return self
+
+    def _batch(self, ds: DataSet):
+        _refuse_masks(ds)
+        return self._tensor(ds.features), self._tensor(ds.labels)
+
+    def _fit_batch(self, ds: DataSet, carry_rnn: bool = False):
+        x, y = self._batch(ds)
+        self.score_value = self._step(
+            lambda p: self._loss(p, self.state, x, y, carry_rnn=carry_rnn))
+        self.iteration_count += 1
+
+    def _fit_tbptt(self, ds: DataSet):
+        """Truncated BPTT: the batch in chunks of ``tbptt_fwd_length``
+        steps, one optimizer step each, the recurrent state cleared first
+        and carried (detached) from chunk to chunk."""
+        _refuse_masks(ds)
+        t = ds.features.shape[2]
+        L = self.conf.tbptt_fwd_length
+        self.rnn_clear_previous_state()
+        for s in range(0, t, L):
+            labels = ds.labels
+            if labels is not None and labels.ndim == 3:
+                labels = labels[:, :, s:s + L]
+            self._fit_batch(DataSet(ds.features[:, :, s:s + L], labels),
+                            carry_rnn=True)
+
+    def score(self, ds: DataSet = None, features=None, labels=None) -> float:
+        """The loss of ``ds`` (or of ``features`` and ``labels``) at the
+        current parameters, L1/L2 terms included."""
+        if ds is None:
+            ds = DataSet(features, labels)
+        x, y = self._batch(ds)
+        with torch.no_grad():
+            loss, _ = self._loss(self.params, self.state, x, y, train=False)
+        return float(loss)
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
+    def output(self, x, train: bool = False, mask=None):
+        """The output layer's activations (f32) for ``x``, from zero
+        recurrent state; ``mask`` ``[N, T]`` reaches the recurrent
+        layers."""
+        if not self._initialized:
+            self.init()
+        m = None if mask is None else self._tensor(mask)
+        with torch.no_grad():
+            acts, _ = self._forward(self._compute_params(), self.state,
+                                    self._cast_compute({}, self._tensor(x))[1],
+                                    train=train, mask=m)
+        return f32_head(acts[-1])
+
+    def rnn_time_step(self, x, pad_left=None):
+        """Stateful streaming inference: run one chunk ``[N, F, T]``
+        through the carried state (each LSTM layer's h / c, attention
+        caches) and keep the new state; returns the chunk's outputs.
+
+        ``pad_left`` marks the first ``pad_left`` positions as left
+        padding, which the JAX package feeds as masked steps (h and c
+        pass through; no position is taken); eager PyTorch has no shapes
+        to bucket, so the pads are dropped before the forward, which
+        leaves the state as the masked steps would, and the pad columns
+        of the output are zeros."""
+        if not self._initialized:
+            self.init()
+        x = self._cast_compute({}, self._tensor(x))[1]
+        pad = 0
+        if pad_left is not None:
+            pad = int(pad_left)
+            if not 0 <= pad < x.shape[-1]:
+                raise ValueError(f"pad_left {pad} out of range for a chunk "
+                                 f"of {x.shape[-1]} positions")
+            x = x[..., pad:]
+        new_pos = self._stream_pos + int(x.shape[-1])
+        cap = stream_capacity(self.layers)
+        if cap is not None and new_pos > cap:
+            raise ValueError(
+                f"streamed {new_pos} positions, exceeding the smallest "
+                f"streaming capacity ({cap}); call "
+                "rnn_clear_previous_state() or raise cache_length/"
+                "max_length")
+        with torch.no_grad():
+            acts, new_state = self._forward(self._compute_params(),
+                                            self.state, x, carry_rnn=True,
+                                            stream=True)
+        self.state = new_state
+        self._stream_pos = new_pos
+        out = f32_head(acts[-1])
+        return torch.nn.functional.pad(out, (pad, 0)) if pad else out
+
+    def _clear_stream_positions(self):
+        self._stream_pos = 0
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+    def evaluate(self, iterator):
+        raise NotImplementedError("evaluation is not ported yet "
+                                  "(ROADMAP.md A5)")
+
+    def evaluate_regression(self, iterator):
+        raise NotImplementedError("evaluation is not ported yet "
+                                  "(ROADMAP.md A5)")
+
+    def pretrain(self, iterator, epochs: int = 1):
+        raise NotImplementedError("layerwise pretraining is not ported yet "
+                                  "(ROADMAP.md A2)")
+
+
+def _refuse_masks(ds: DataSet) -> None:
+    if ds.features_mask is not None or ds.labels_mask is not None:
+        raise NotImplementedError("feature and label masks in fit are not "
+                                  "ported yet (ROADMAP.md A6)")
+
+
+def _mask_kwargs(layer, mask):
+    """The mask argument for ``layer``: the recurrent layers take it; a
+    layer that would read it in the JAX package (attention, pooling over
+    time) is refused; the others ignore it, as there."""
+    if mask is None:
+        return {}
+    if getattr(layer, "takes_mask", False):
+        return {"mask": mask}
+    if isinstance(layer, (SelfAttentionLayer, GlobalPoolingLayer)):
+        raise NotImplementedError(
+            f"a mask through {type(layer).__name__} is not ported yet "
+            "(ROADMAP.md A6)")
+    return {}

@@ -1,8 +1,9 @@
 """Updaters, learning-rate schedules and gradient normalization.
 
 Counterpart of ``deeplearning4j_tpu/nn/updater.py`` for the rules the
-ported models use: ``Sgd``, ``Adam`` and ``Nesterovs`` (ResNet50's; the
-other updaters are ROADMAP.md A1), ``schedule_lr`` and
+ported models use: ``Sgd``, ``Adam``, ``Nesterovs`` (ResNet50's) and
+``RmsProp`` (the text LSTM's; the other updaters are ROADMAP.md A1),
+``schedule_lr`` and
 ``normalize_gradients``. As in the JAX package the updater state is an explicit tree threaded through a
 pure ``update(grads, state, params) -> (steps, new_state)``; the caller
 subtracts the steps. Trees are nested dicts of tensors
@@ -22,8 +23,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Adam", "Nesterovs", "Sgd", "Updater", "normalize_gradients",
-           "schedule_lr", "tree_leaves", "tree_map"]
+__all__ = ["Adam", "Nesterovs", "RmsProp", "Sgd", "Updater",
+           "normalize_gradients", "schedule_lr", "tree_leaves", "tree_map"]
 
 
 def tree_map(fn, tree, *rest):
@@ -134,6 +135,29 @@ class Adam(Updater):
             lambda m_, v_: lr * corr * m_ / (torch.sqrt(v_) + self.epsilon),
             m, v)
         return steps, {"m": m, "v": v, "t": t}
+
+
+@dataclass
+class RmsProp(Updater):
+    """RMSProp as the JAX package computes it: ``g2' = d g2 + (1 - d)
+    g^2``, and the step ``lr g / sqrt(g2' + eps)`` to subtract (epsilon
+    inside the root). Its state is ``{"g2": tree}``."""
+
+    learning_rate: float = 1e-1
+    rms_decay: float = 0.95
+    epsilon: float = 1e-8
+
+    def init_state(self, params):
+        return {"g2": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        lr = self._lr(lr_scale)
+        d = self.rms_decay
+        g2 = tree_map(lambda a, g: d * a + (1 - d) * g * g, state["g2"],
+                      grads)
+        steps = tree_map(lambda g, a: lr * g / torch.sqrt(a + self.epsilon),
+                         grads, g2)
+        return steps, {"g2": g2}
 
 
 def normalize_gradients(grads, method: Optional[str], threshold: float = 1.0):

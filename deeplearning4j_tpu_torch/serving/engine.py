@@ -115,6 +115,12 @@ class GenerationEngine:
         if not hasattr(net, "rnn_time_step"):
             raise TypeError("GenerationEngine needs a streaming net "
                             "(rnn_time_step / rnn_clear_previous_state)")
+        if any(getattr(l, "carries_recurrent_state", False)
+               for l in _stream_layers(net)):
+            raise NotImplementedError(
+                "serving a recurrent (LSTM) net needs the engine's h / c "
+                "slot arena, which is not ported yet (ROADMAP.md A7); "
+                "generate with sample_stream")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.device = resolve_device(device)

@@ -75,6 +75,12 @@ def apply_execution_plan(net, plan: Optional[str], *,
     if plan not in EXECUTION_PLANS:
         raise ValueError(f"execution_plan must be one of {EXECUTION_PLANS}, "
                          f"got {plan!r}")
+    if not hasattr(net, "set_fusion"):
+        # a sequential network: the plan validates, but its layers have
+        # no fused chains (those are graph features), so every plan runs
+        # the layers as they are
+        return {"plan": plan, "level": False, "blocks": 0, "stem": False,
+                "keys": {}}
     if plan == "xla":
         net.set_fusion(False)
         return {"plan": plan, "level": False, "blocks": 0, "stem": False,

@@ -16,7 +16,12 @@ elsewhere) become f32 tensors under the same names
 The updater state carries across the same way: the JAX ``Adam`` state
 ``{"m": tree, "v": tree, "t": step}`` taken to numpy becomes the port's
 (trees of f32 tensors, ``t`` a Python int), so a JAX run resumes in the
-port (``tests/test_torch_training.py``).
+port (``tests/test_torch_training.py``); ``RmsProp``'s ``{"g2": tree}``
+and ``Nesterovs``' ``{"v": tree}`` carry across the same way
+(``tests/test_torch_text_lstm.py``). A sequential network's trees are
+keyed by layer index (``"0"``, ``"1"``, ...) instead of vertex name, and
+its state carries the LSTM layers' ``h`` / ``c`` only while it streams
+or trains through truncated BPTT.
 """
 
 from __future__ import annotations

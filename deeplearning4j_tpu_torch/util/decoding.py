@@ -7,6 +7,10 @@ JAX package's wherever the probabilities agree), priming, the one-token
 decode step, the retirement rule and ``sample_stream``. Batched,
 speculative and beam decoding come later (ROADMAP.md A7).
 
+The network is a ``ComputationGraph`` (the transformer) or a
+``MultiLayerNetwork`` (the text LSTM, whose carried state is each
+layer's h / c): the vocabulary is the network input's size either way.
+
 Priming feeds the whole prompt as ONE unpadded chunk. The JAX package
 primes in power-of-two chunks or one left-padded bucket to bound its
 jit shapes; packed (padded) priming equals unpadded priming by
@@ -24,11 +28,20 @@ __all__ = ["draw", "filter_probs", "prime_prompt", "sample_stream",
            "step_tokens", "stop_reason"]
 
 
+def _vocab(net) -> int:
+    """The network input's size: a sequential network's ``input_type``,
+    a graph's first input type."""
+    it = getattr(net.conf, "input_type", None)
+    if it is None:
+        it = next(iter(net.conf.input_types.values()))
+    return it.size
+
+
 def _one_hot(net, rows) -> torch.Tensor:
     """One-hot ``[B, V, T]`` float32 on the net's device, built there
     from the token ids (only the ids cross to the device)."""
     ids = torch.as_tensor(np.asarray(rows, np.int64), device=net.device)
-    vocab = next(iter(net.conf.input_types.values())).size
+    vocab = _vocab(net)
     x = torch.zeros((ids.shape[0], vocab, ids.shape[1]), device=net.device)
     return x.scatter_(1, ids[:, None, :], 1.0)
 
@@ -110,8 +123,12 @@ def _check_seed(seed_ids, steps, max_length):
 
 
 def _stream_layers(net):
-    """Every layer of a ComputationGraph that may carry streaming
-    state."""
+    """Every layer of a network (a graph's vertices' layers, a
+    sequential network's layers) that may carry streaming state."""
+    layers = getattr(net, "layers", None)
+    if layers is not None:
+        yield from layers
+        return
     for v in net.conf.vertices.values():
         l = getattr(v, "layer", None)
         if l is not None:
@@ -156,7 +173,7 @@ def sample_stream(net, seed_ids, steps: int, vocab_size: int,
     Generation ends early when a ``stop_tokens`` member is drawn (kept
     as the final id)."""
     _check_seed(seed_ids, steps, max_length)
-    vocab = next(iter(net.conf.input_types.values())).size
+    vocab = _vocab(net)
     if vocab != vocab_size:
         raise ValueError(f"vocab_size {vocab_size} != the net's input "
                          f"size {vocab}")

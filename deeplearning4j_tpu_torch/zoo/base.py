@@ -12,7 +12,11 @@ store), for inference and training alike. The JAX zoo's direct
 bn -> act -> 1x1-conv plan (``nn/layers/fused.py``), ``fuse=
 "bottleneck"`` the bottleneck plan; ``fuse=`` with ``execution_plan=``
 is refused, as there. A model with no such chain (the transformer)
-builds with an empty plan.
+builds with an empty plan. A model whose ``conf()`` is a sequential
+``MultiLayerConfiguration`` (the text LSTM) builds a
+``MultiLayerNetwork``: ``execution_plan=`` validates and changes
+nothing there, and ``fuse=`` is refused (the fused chains are graph
+features), as in the JAX zoo.
 Pretrained checkpoints and the model registry come with the formats
 (ROADMAP.md A1).
 """
@@ -43,6 +47,8 @@ class ZooModel:
     def init(self, device=None):
         """Build and initialize the network on ``device`` (default
         ``"cuda"``), in the chosen layout and execution plan."""
+        from deeplearning4j_tpu_torch.nn.conf.network import (
+            MultiLayerConfiguration)
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.tuning.plan import apply_execution_plan
         level = self.options.get("fuse", False)
@@ -52,6 +58,16 @@ class ZooModel:
                 f"{type(self).__name__}: fuse= and execution_plan= are "
                 "mutually exclusive (execution_plan supersedes fuse)")
         conf = self.conf()
+        if isinstance(conf, MultiLayerConfiguration):
+            from deeplearning4j_tpu_torch.nn.multilayer import (
+                MultiLayerNetwork)
+            if level or self.options.get("data_format"):
+                raise ValueError(
+                    f"{type(self).__name__}: fuse= and data_format= need a "
+                    "ComputationGraph model")
+            net = MultiLayerNetwork(conf).init(device)
+            apply_execution_plan(net, plan)
+            return net
         if self.options.get("data_format"):
             conf.use_cnn_data_format(self.options["data_format"])
         net = ComputationGraph(conf).init(device)

@@ -1,0 +1,281 @@
+"""The port's LSTM recurrence (deeplearning4j_tpu_torch/nn/layers/
+lstm_kernel.py, recurrent.py) against the JAX package, on the CPU, where
+the wrappers take the kernels' plain versions.
+
+- The plain forward against the JAX Pallas kernel in interpret mode
+  (``pallas_lstm_recurrence(..., interpret=True)``) and against its scan
+  (``_scan_recurrence``) at (T, N, H) = (5, 8, 128) in f32, atol and rtol
+  2e-5 (the JAX test's own, tests/test_pallas_lstm.py). In bf16 against
+  the interpret kernel: the port rounds h and c to bf16 at every step's
+  end, as the JAX layer's scan carries them; the kernel keeps an f32
+  carry and rounds only its outputs. So they part by bf16 rounding:
+  within 2^-6 of each row's largest |value| (two ulps; 6.3e-3 read), and
+  each 64-row tile within 2e-3 of its summed |value| (1.2e-3 read); by
+  at most 3.9e-3 absolute, as far as the JAX scan in bf16 parts from the
+  same kernel (3.9e-3 read). The f32 read: 8.9e-8.
+- ``lstm_scan`` with peepholes, a mask with fully masked steps and rows,
+  and ``reverse``, carry given or zero, against the JAX ``lstm_scan`` in
+  f32 within 1e-5 (2.1e-7 read); ``bidirectional_sum`` likewise.
+- The autograd Function's gradients (zx, RW, P, h0, c0, the gradients
+  of out, hT and cT all seeded) against ``jax.grad`` of the JAX
+  ``lstm_scan`` (with W the identity, so its x is zx) in f32 within
+  1e-5 (3.0e-7 read); the same with the backward's own loop on the plain
+  forward's saves.
+- A planted fault (the output gate's peephole reading the previous cell,
+  not the new one) reads outside those tolerances.
+- A gate or cell activation the kernels do not compute raises
+  NotImplementedError; the wrappers launch nothing for CPU tensors; a
+  mask is refused by the backward.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.nn.layers import recurrent as jrec
+from deeplearning4j_tpu.nn.layers.pallas_kernels import (
+    _scan_recurrence, pallas_lstm_recurrence)
+from deeplearning4j_tpu_torch.nn.conf import layers as tl
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+from deeplearning4j_tpu_torch.nn.layers.flash_attention import agreement
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+def _recurrence_inputs(t, n, h, seed, peep=False):
+    rng = np.random.default_rng(seed)
+    d = {"zx": _f32(rng.standard_normal((t, n, 4 * h)) * 0.3),
+         "rw": _f32(rng.standard_normal((h, 4 * h)) * 0.1),
+         "h0": _f32(rng.standard_normal((n, h)) * 0.1),
+         "c0": _f32(rng.standard_normal((n, h)) * 0.1)}
+    if peep:
+        d["p"] = _f32(rng.standard_normal((3, h)) * 0.5)
+    return d
+
+
+def _torch(d, dtype=torch.float32):
+    return {k: torch.tensor(v).to(dtype) for k, v in d.items()}
+
+
+def _rows(a):
+    a = torch.as_tensor(np.asarray(a, np.float32))
+    return a.reshape(1, 1, -1, a.shape[-1])
+
+
+# ---------------------------------------------------------------------
+# the recurrence against the Pallas kernel and the scan
+# ---------------------------------------------------------------------
+def test_plain_forward_matches_the_pallas_kernel_and_the_scan_f32():
+    d = _recurrence_inputs(5, 8, 128, seed=0)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    kern = pallas_lstm_recurrence(j["zx"], j["rw"], j["h0"], j["c0"],
+                                  interpret=True)
+    scan = _scan_recurrence(j["zx"], j["rw"], j["h0"], j["c0"])
+    a = _torch(d)
+    out, h_t, c_t, _ = lk.lstm_forward(a["zx"], a["rw"], a["h0"], a["c0"])
+    for want in (kern, scan):
+        for got, w in zip((out, h_t, c_t), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL)
+
+
+def test_plain_forward_bf16_against_the_pallas_kernel():
+    d = _recurrence_inputs(5, 8, 128, seed=1)
+    j = {k: jnp.asarray(v, jnp.bfloat16) for k, v in d.items()}
+    kern = pallas_lstm_recurrence(j["zx"], j["rw"], j["h0"], j["c0"],
+                                  interpret=True)
+    a = _torch(d, torch.bfloat16)
+    got = lk.lstm_forward(a["zx"], a["rw"], a["h0"], a["c0"])[:3]
+    for g, w in zip(got, kern):
+        row_rel, tile_rel = agreement(_rows(g.float()),
+                                      _rows(np.asarray(w, np.float32)))
+        assert row_rel <= 2 ** -6 and tile_rel <= 2e-3, (row_rel, tile_rel)
+
+
+def _scan_inputs(n, c, t, h, seed):
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((n, t)) > 0.3).astype(np.float32)
+    mask[:, 2] = 0.0                 # a fully masked step
+    mask[1] = 0.0                    # a fully masked row
+    return {"x": _f32(rng.standard_normal((n, c, t))),
+            "w": _f32(rng.standard_normal((c, 4 * h)) * 0.4),
+            "rw": _f32(rng.standard_normal((h, 4 * h)) * 0.3),
+            "b": _f32(rng.standard_normal(4 * h) * 0.1),
+            "p": _f32(rng.standard_normal((3, h)) * 0.5),
+            "h0": _f32(rng.standard_normal((n, h)) * 0.5),
+            "c0": _f32(rng.standard_normal((n, h)) * 0.5), "mask": mask}
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_lstm_scan_peephole_mask_reverse_matches_jax(reverse, masked,
+                                                     carry):
+    d = _scan_inputs(4, 5, 7, 6, seed=2)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    a = _torch(d)
+    kw_j = dict(peephole=j["p"], reverse=reverse,
+                mask=j["mask"] if masked else None,
+                h0=j["h0"] if carry else None, c0=j["c0"] if carry else None)
+    kw_t = dict(peephole=a["p"], reverse=reverse,
+                mask=a["mask"] if masked else None,
+                h0=a["h0"] if carry else None, c0=a["c0"] if carry else None)
+    want = jrec.lstm_scan(j["x"], j["w"], j["rw"], j["b"], **kw_j)
+    got = trec.lstm_scan(a["x"], a["w"], a["rw"], a["b"], **kw_t)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+    if masked:
+        # a masked step outputs zeros; the masked row carries h0, c0
+        assert not got[0][:, :, 2].any()
+        if carry:
+            assert torch.equal(got[1][1], a["h0"][1])
+            assert torch.equal(got[2][1], a["c0"][1])
+
+
+def test_bidirectional_sum_matches_jax():
+    d = _scan_inputs(3, 5, 6, 4, seed=3)
+    rng = np.random.default_rng(4)
+    wb = _f32(rng.standard_normal(d["w"].shape) * 0.4)
+    rwb = _f32(rng.standard_normal(d["rw"].shape) * 0.3)
+    bb = _f32(rng.standard_normal(d["b"].shape) * 0.1)
+    pb = _f32(rng.standard_normal(d["p"].shape) * 0.5)
+    args = (d["x"], d["w"], d["rw"], d["b"], wb, rwb, bb)
+    want = jrec.bidirectional_sum(*map(jnp.asarray, args),
+                                  peep_f=jnp.asarray(d["p"]),
+                                  peep_b=jnp.asarray(pb),
+                                  mask=jnp.asarray(d["mask"]))
+    got = trec.bidirectional_sum(*map(torch.tensor, args),
+                                 peep_f=torch.tensor(d["p"]),
+                                 peep_b=torch.tensor(pb),
+                                 mask=torch.tensor(d["mask"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------
+def _grad_case(seed=5, t=6, n=4, h=5):
+    rng = np.random.default_rng(seed)
+    d = _recurrence_inputs(t, n, h, seed, peep=True)
+    d["zx"] = _f32(rng.standard_normal((t, n, 4 * h)))
+    d["rw"] = _f32(rng.standard_normal((h, 4 * h)) * 0.4)
+    d["h0"] = _f32(rng.standard_normal((n, h)) * 0.5)
+    d["c0"] = _f32(rng.standard_normal((n, h)) * 0.5)
+    cot = {"out": _f32(rng.standard_normal((t, n, h))),
+           "h": _f32(rng.standard_normal((n, h))),
+           "c": _f32(rng.standard_normal((n, h)))}
+    return d, cot
+
+
+def _jax_grads(d, cot):
+    """jax.grad of the JAX lstm_scan with W the identity and b zero (so
+    its zx is x transposed) for the loss <out, dout> + <hT, dhT> + <cT,
+    dcT>: (dzx, drw, dh0, dc0, dp)."""
+    h = d["rw"].shape[0]
+    eye = jnp.eye(4 * h, dtype=jnp.float32)
+
+    def loss(zx, rw, h0, c0, p):
+        x = jnp.transpose(zx, (1, 2, 0))              # [N, 4H, T]
+        out, h_t, c_t = jrec.lstm_scan(x, eye, rw,
+                                       jnp.zeros(4 * h, jnp.float32),
+                                       h0=h0, c0=c0, peephole=p)
+        return (jnp.sum(jnp.transpose(out, (2, 0, 1)) * cot["out"])
+                + jnp.sum(h_t * cot["h"]) + jnp.sum(c_t * cot["c"]))
+
+    return jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(d[k]) for k in ("zx", "rw", "h0", "c0", "p")))
+
+
+def test_autograd_function_gradients_match_jax_grad():
+    d, cot = _grad_case()
+    want = _jax_grads(d, cot)
+    leaves = [torch.tensor(d[k], requires_grad=True)
+              for k in ("zx", "rw", "h0", "c0", "p")]
+    out, h_t, c_t = lk.lstm_recurrence(*leaves)
+    loss = ((out * torch.tensor(cot["out"])).sum()
+            + (h_t * torch.tensor(cot["h"])).sum()
+            + (c_t * torch.tensor(cot["c"])).sum())
+    got = torch.autograd.grad(loss, leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_backward_loop_on_the_forward_saves_matches_jax_grad():
+    d, cot = _grad_case(seed=6)
+    want = _jax_grads(d, cot)
+    a = _torch(d)
+    _, _, _, (gates, c) = lk.lstm_forward(a["zx"], a["rw"], a["h0"],
+                                          a["c0"], a["p"], save=True)
+    dzx, dh0, dc0 = lk.lstm_backward(gates, c, a["c0"], a["rw"], a["p"],
+                                     torch.tensor(cot["out"]),
+                                     torch.tensor(cot["h"]),
+                                     torch.tensor(cot["c"]))
+    for g, w in ((dzx, want[0]), (dh0, want[2]), (dc0, want[3])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_planted_peephole_fault_reads_outside_the_tolerance():
+    """The output gate's peephole on c_prev instead of the new c: the
+    forward and the gradients part from JAX's far beyond 2e-5."""
+    d = _scan_inputs(4, 5, 7, 6, seed=7)
+    a = _torch(d)
+    want = jrec.lstm_scan(*(jnp.asarray(d[k]) for k in ("x", "w", "rw", "b")),
+                          peephole=jnp.asarray(d["p"]))[0]
+    t, n, h = 7, 4, 6
+    zx = (a["x"].permute(2, 0, 1).reshape(t * n, -1) @ a["w"]).reshape(
+        t, n, 4 * h) + a["b"]
+    hp = cp = torch.zeros(n, h)
+    outs = []
+    for s in range(t):
+        zi, zf, zg, zo = (zx[s] + hp @ a["rw"]).split(h, dim=1)
+        i = torch.sigmoid(zi + a["p"][0] * cp)
+        f = torch.sigmoid(zf + a["p"][1] * cp)
+        cn = f * cp + i * torch.tanh(zg)
+        hp = torch.sigmoid(zo + a["p"][2] * cp) * torch.tanh(cn)  # fault
+        cp = cn
+        outs.append(hp)
+    faulty = torch.stack(outs).permute(1, 2, 0).numpy()
+    assert np.abs(faulty - np.asarray(want)).max() > 100 * TOL["atol"]
+
+
+# ---------------------------------------------------------------------
+# refusals and dispatch
+# ---------------------------------------------------------------------
+def test_other_activations_raise_not_implemented():
+    d = _scan_inputs(2, 3, 4, 4, seed=8)
+    a = _torch(d)
+    for kw in (dict(gate_act="hardsigmoid"), dict(cell_act="relu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
+            trec.lstm_scan(a["x"], a["w"], a["rw"], a["b"], **kw)
+    layer = tl.GravesLSTM(n_out=4, gate_activation="hardsigmoid")
+    gen = torch.Generator().manual_seed(0)
+    p, s = layer.init(gen, InputType.recurrent(3, 4), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
+        layer.apply(p, a["x"], s)
+
+
+def test_cpu_tensors_launch_nothing_and_the_backward_refuses_a_mask():
+    d = _scan_inputs(2, 3, 4, 4, seed=9)
+    a = _torch(d)
+    before = (lk.LSTM_FWD.launches, lk.LSTM_BWD.launches)
+    leaves = [v.clone().requires_grad_() for v in (a["x"], a["w"], a["rw"],
+                                                   a["b"], a["p"])]
+    out, _, _ = trec.lstm_scan(*leaves[:4], peephole=leaves[4])
+    out.sum().backward()
+    assert (lk.LSTM_FWD.launches, lk.LSTM_BWD.launches) == before
+    masked, _, _ = trec.lstm_scan(*leaves[:4], peephole=leaves[4],
+                                  mask=a["mask"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        masked.sum().backward()
+    with pytest.raises(ValueError, match="is not"):
+        lk.lstm_forward(a["x"], a["rw"], a["h0"], a["c0"])
