@@ -100,7 +100,15 @@ Phases (any failure exits nonzero):
     BN-backward affine of zero, a 1x1 without its relu' mask, sums over
     the stored rounded dz0). Times of the kernel, the plain version and
     cuDNN's ``aten.convolution_backward`` (dgrad and wgrad,
-    channels-last) beside the bound;
+    channels-last) beside the bound. Two ragged cases in bf16 and f32 at
+    B=3 (C=20, K=36: no multiple of 8; M = 147, no multiple of a row
+    tile; a stride-2 1x1 and a 7x7 3x3) on the same limits; every bf16
+    case launched twice, bitwise equal. Then the sweep: every distinct
+    backward stage of a ResNet50 step at B=128, bf16 (per stage s2-s5:
+    the 1x1 stages c, a (first block, strided from s3 on), a (later
+    blocks) and the conv shortcut, and the 3x3), each against its plain
+    version once on the same limits, with its kernel and cuDNN times,
+    bound and launches a step, and the launch-weighted totals a step;
 14. resnet train: ResNet50 training at full width (bench_all.py's
     bench_train_plan: 1000 classes, 224x224, B=128, bf16, NHWC,
     Nesterovs(0.1, 0.9), the fused plan, random weights from the conf
@@ -2098,20 +2106,21 @@ BWD_CASES = {
 }
 
 
-def bwd_inputs(kernel, geo, n, dtype, device, seed):
+def bwd_inputs(kernel, geo, n, dtype, device, seed, gen="cpu"):
     """Seeded inputs of a backward stage: y_k a raw conv output (a
     per-channel mean and scale drawn) with its BN rows aff_k (sc, bb,
     inv, mu of those statistics, m1, m2 drawn); g = dz0_k, a gradient
     masked by a relu (about half zero); yprev a raw conv output with its
     rows aff_p under a relu prologue, or a post-relu block input with
-    (1, 0, 1, 0) under the identity; He-normal weights."""
-    g = torch.Generator().manual_seed(seed)
+    (1, 0, 1, 0) under the identity; He-normal weights. Drawn on
+    ``gen`` (the card's generator for the sweep's large shapes)."""
+    g = torch.Generator(device=gen).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g)
+        return torch.randn(shape, generator=g, device=gen)
 
     def rand(*shape):
-        return torch.rand(shape, generator=g)
+        return torch.rand(shape, generator=g, device=gen)
 
     h, w, c, k, s = geo["h"], geo["w"], geo["c"], geo["k"], geo["stride"]
     taps = 9 if kernel == "bwd3x3" else 1
@@ -2128,8 +2137,8 @@ def bwd_inputs(kernel, geo, n, dtype, device, seed):
         aff_p = torch.stack([scp, 0.2 * randn(c) - mp * scp, 1 / sp, mp])
     else:
         yprev = torch.clamp_min(randn(n, h, w, c), 0.0)
-        aff_p = torch.stack([torch.ones(c), torch.zeros(c), torch.ones(c),
-                             torch.zeros(c)])
+        one = torch.ones(c, device=gen)
+        aff_p = torch.stack([one, 0 * one, one, 0 * one])
     wshape = (9, c, k) if taps == 9 else (c, k)
     wt = randn(*wshape) * (2.0 / (taps * c)) ** 0.5
     return {"yk": yk.to(device, dtype), "g": gz.to(device, dtype),
@@ -2219,49 +2228,70 @@ def bwd_sums_rel(sums, ref_dz, yprev, aff_p, ref_sums):
     return float(((sums - ref_sums).abs() / mag.clamp_min(1e-30)).max())
 
 
-def bwd_case(name, dtype, n, device, seed):
-    """One backward case: the kernel against its plain version (dz0, dW,
-    sums), the zero rows of stride 2, the planted faults in bf16, then
-    the kernel's, plain version's and cuDNN's times beside the bound."""
-    kernel, geo = BWD_CASES[name]
-    a = bwd_inputs(kernel, geo, n, dtype, device, seed)
-    kern, plain, library, faults = bwd_fns(kernel, geo, a)
-    (dz, dw, sums), (rdz, rdw, rsums) = kern(), plain()
-    torch.cuda.synchronize()
-    case = {"case": name, "kernel": kernel,
-            "dtype": str(dtype).split(".")[-1], "batch": n, **geo}
+def bwd_compare(kernel, geo, a, got, ref, dtype):
+    """The kernel's (dz0, dW, sums) against the plain version's on inputs
+    ``a``: (the agreement's record, the failures)."""
+    (dz, dw, sums), (rdz, rdw, rsums) = got, ref
+    rec = {}
     failures = []
     finite = all(bool(torch.isfinite(t).all()) for t in (dz, dw, sums))
+    if not finite:
+        failures.append("not finite")
     row_rel, tile_rel = conv_agreement(dz, rdz)
     dw_row, dw_tile = conv_agreement(dw.reshape(-1, geo["k"]),
                                      rdw.reshape(-1, geo["k"]))
-    case.update(max_abs_err=float((dz.float() - rdz.float()).abs().max()),
-                dw_max_abs_err=float((dw - rdw).abs().max()),
-                row_rel=row_rel, tile_rel=tile_rel, dw_row_rel=dw_row,
-                dw_tile_rel=dw_tile,
-                limits={"row_rel": CONV_ROW[dtype],
-                        "tile_rel": CONV_TILE[dtype],
-                        "dw_row_rel": BWD_DW_ROW[dtype],
-                        "dw_tile_rel": BWD_DW_TILE[dtype],
-                        "sums_rel": BWD_SUMS})
+    rec.update(max_abs_err=float((dz.float() - rdz.float()).abs().max()),
+               dw_max_abs_err=float((dw - rdw).abs().max()),
+               row_rel=row_rel, tile_rel=tile_rel, dw_row_rel=dw_row,
+               dw_tile_rel=dw_tile,
+               limits={"row_rel": CONV_ROW[dtype],
+                       "tile_rel": CONV_TILE[dtype],
+                       "dw_row_rel": BWD_DW_ROW[dtype],
+                       "dw_tile_rel": BWD_DW_TILE[dtype],
+                       "sums_rel": BWD_SUMS})
     if row_rel > CONV_ROW[dtype] or tile_rel > CONV_TILE[dtype]:
         failures.append("dz0")
     if dw_row > BWD_DW_ROW[dtype] or dw_tile > BWD_DW_TILE[dtype]:
         failures.append("dW")
     if geo["act"] == "relu":
-        case["sums_rel"] = bwd_sums_rel(sums, rdz, a["yprev"], a["aff_p"],
-                                        rsums)
-        if case["sums_rel"] > BWD_SUMS:
+        rec["sums_rel"] = bwd_sums_rel(sums, rdz, a["yprev"], a["aff_p"],
+                                       rsums)
+        if rec["sums_rel"] > BWD_SUMS:
             failures.append("sums")
     elif bool(sums.any()):
         failures.append("identity prologue's sums not zero")
     if geo["stride"] == 2:
         unread = dz.clone()
         unread[:, ::2, ::2, :] = 0
-        case["unread_nonzero"] = int(torch.count_nonzero(unread))
-        if case["unread_nonzero"]:
+        rec["unread_nonzero"] = int(torch.count_nonzero(unread))
+        if rec["unread_nonzero"]:
             failures.append("stride-2 rows the conv never read not zero")
+    return rec, failures
+
+
+def bwd_case(name, dtype, n, device, seed, cases=None, planted=True):
+    """One backward case: the kernel against its plain version (dz0, dW,
+    sums), the zero rows of stride 2, in bf16 two launches bitwise equal
+    and (``planted``) the planted faults, then the kernel's, plain
+    version's and cuDNN's times beside the bound."""
+    kernel, geo = (cases or BWD_CASES)[name]
+    a = bwd_inputs(kernel, geo, n, dtype, device, seed)
+    kern, plain, library, faults = bwd_fns(kernel, geo, a)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    case = {"case": name, "kernel": kernel,
+            "dtype": str(dtype).split(".")[-1], "batch": n, **geo}
+    rec, failures = bwd_compare(kernel, geo, a, got, ref, dtype)
+    case.update(rec)
+    (dz, dw, sums), (rdz, rdw, rsums) = got, ref
     if dtype == torch.bfloat16:
+        again = kern()
+        case["bitwise_repeat"] = all(torch.equal(x, y)
+                                     for x, y in zip(got, again))
+        if not case["bitwise_repeat"]:
+            failures.append("two launches differ")
+        del again
+    if dtype == torch.bfloat16 and planted:
         # the limits' power: each planted fault fails them
         planted_rec = {}
         for fault, fn in faults.items():
@@ -2282,11 +2312,10 @@ def bwd_case(name, dtype, n, device, seed):
                 failures.append("the limit does not tell rounded sums")
         case["planted"] = planted_rec
     log("cnn bwd check", json.dumps(case))
-    if not finite or failures:
+    if failures:
         raise AssertionError(f"{kernel} kernel disagrees with its plain "
-                             f"version ({failures}, finite {finite}): "
-                             f"{case}")
-    del dz, dw, sums, rdz, rdw, rsums
+                             f"version ({failures}): {case}")
+    del dz, dw, sums, rdz, rdw, rsums, got, ref
     bound_ms, bound_by = bwd_bound(kernel, geo, n, dtype)
     case.update(ms=median_ms(kern, device),
                 plain_ms=median_ms(plain, device, iters=10),
@@ -2298,12 +2327,97 @@ def bwd_case(name, dtype, n, device, seed):
     return case
 
 
-def check_cnn_bwd_kernels(device):
+#: the ragged cases (B = 3, so M = 147): C and K no multiple of 8, M no
+#: multiple of any row tile, a stride-2 1x1 and a 3x3 over 7x7 images
+BWD_RAGGED = {
+    "ragged_1x1_s2": ("bwd1x1", dict(h=14, w=14, c=20, k=36, stride=2,
+                                     act="relu")),
+    "ragged_3x3": ("bwd3x3", dict(h=7, w=7, c=20, k=36, stride=1,
+                                  act="relu")),
+}
+BWD_RAGGED_B = 3
+
+
+def resnet_bwd_stages():
+    """Every distinct backward stage of a ResNet50 training step at
+    224x224: name: (kernel, geometry, launches a step). Per stage
+    (resolution, width, output width, blocks, stride): stage c and the
+    3x3 in every block, stage a of the first block (the block input,
+    strided from s3 on) and of the later ones, the conv shortcut."""
+    out, cin, hin = {}, 64, 56
+    for name, hw, mid, cout, blocks, s in (("s2", 56, 64, 256, 3, 1),
+                                           ("s3", 28, 128, 512, 4, 2),
+                                           ("s4", 14, 256, 1024, 6, 2),
+                                           ("s5", 7, 512, 2048, 3, 2)):
+        out[f"{name}_c"] = ("bwd1x1", dict(h=hw, w=hw, c=mid, k=cout,
+                                           stride=1, act="relu"), blocks)
+        out[f"{name}_b"] = ("bwd3x3", dict(h=hw, w=hw, c=mid, k=mid,
+                                           stride=1, act="relu"), blocks)
+        out[f"{name}_a0"] = ("bwd1x1", dict(h=hin, w=hin, c=cin, k=mid,
+                                            stride=s, act="identity"), 1)
+        out[f"{name}_a"] = ("bwd1x1", dict(h=hw, w=hw, c=cout, k=mid,
+                                           stride=1, act="identity"),
+                            blocks - 1)
+        out[f"{name}_sc"] = ("bwd1x1", dict(h=hin, w=hin, c=cin, k=cout,
+                                            stride=s, act="identity"), 1)
+        cin, hin = cout, hw
+    return out
+
+
+def bwd_sweep(device, smi):
+    """Every distinct backward stage of a step at B=128, bf16: the kernel
+    against its plain version once (the limits of the cases), its time
+    and cuDNN's beside the bound, and the totals a step weighted by each
+    stage's launches."""
+    stages = resnet_bwd_stages()
+    for name in ("bwd1x1", "bwd3x3"):
+        per_step = sum(st[2] for st in stages.values() if st[0] == name)
+        assert per_step == RESNET_TRAIN_LAUNCHES[name], (name, per_step)
+    rows, failed = [], []
+    totals = {"bwd1x1": [0.0, 0.0, 0.0], "bwd3x3": [0.0, 0.0, 0.0]}
+    dtype = torch.bfloat16
+    for i, (name, (kernel, geo, per_step)) in enumerate(stages.items()):
+        a = bwd_inputs(kernel, geo, RESNET_B, dtype, device, seed=60 + i,
+                       gen=device)
+        kern, plain, library, _ = bwd_fns(kernel, geo, a)
+        rec, failures = bwd_compare(kernel, geo, a, kern(), plain(), dtype)
+        bound_ms, bound_by = bwd_bound(kernel, geo, RESNET_B, dtype)
+        row = {"stage": name, "kernel": kernel, **geo,
+               "launches_per_step": per_step, **rec,
+               "ms": median_ms(kern, device),
+               "library_ms": median_ms(library, device),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        for j, key in enumerate(("ms", "library_ms", "bound_ms")):
+            totals[kernel][j] += per_step * row[key]
+        log("cnn bwd sweep", json.dumps(row))
+        if failures:
+            failed.append((name, failures))
+        rows.append(row)
+        del a, kern, plain, library
+        torch.cuda.empty_cache()
+    step = {kernel: dict(zip(("kernel_ms", "cudnn_ms", "bound_ms"), t))
+            for kernel, t in totals.items()}
+    step["all"] = {key: sum(step[k][key] for k in totals)
+                   for key in ("kernel_ms", "cudnn_ms", "bound_ms")}
+    log("cnn bwd sweep per step (launch-weighted, B=128, bf16):",
+        json.dumps({**step, "card": smi}))
+    if failed:
+        raise AssertionError(f"backward sweep disagrees: {failed}")
+    return {"stages": rows, "per_step": step}
+
+
+def check_cnn_bwd_kernels(device, smi):
     """Every backward case in bf16 at the main path's batch, then in f32
-    at 16."""
-    return [bwd_case(name, dtype, n, device, seed=20 + i)
-            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
-            for i, name in enumerate(BWD_CASES)]
+    at 16; the ragged cases in both at B=3; the sweep of a step's
+    stages."""
+    cases = [bwd_case(name, dtype, n, device, seed=20 + i)
+             for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+             for i, name in enumerate(BWD_CASES)]
+    cases += [bwd_case(name, dtype, BWD_RAGGED_B, device, seed=40 + i,
+                       cases=BWD_RAGGED, planted=False)
+              for dtype in (torch.bfloat16, torch.float32)
+              for i, name in enumerate(BWD_RAGGED)]
+    return {"cases": cases, "sweep": bwd_sweep(device, smi)}
 
 
 # ---------------------------------------------------------------------
@@ -2398,7 +2512,8 @@ def resnet_train(device):
     rec["profile"], share = profile_fit_step(net, x, y, "fused")
     rec["profile"].update(
         conv_fwd_share=share("conv_gemm_kernel"),
-        conv_bwd_share=share("dz_kernel", "dw_kernel", "reduce_splits"))
+        conv_bwd_share=share("dz_kernel", "dw_kernel", "dz_tc_kernel",
+                             "dw_tc_kernel", "reduce_splits"))
     del net
     torch.cuda.empty_cache()
     rec["against_xla"] = train_against_xla(device, x, y, start, first,
@@ -2970,7 +3085,8 @@ def resnet_train_stem(device, xla_losses=None):
     rec["profile"], share = profile_fit_step(net, x, y, None)
     rec["profile"].update(
         conv_fwd_share=share("conv_gemm_kernel"),
-        conv_bwd_share=share("dz_kernel", "dw_kernel", "reduce_splits"),
+        conv_bwd_share=share("dz_kernel", "dw_kernel", "dz_tc_kernel",
+                             "dw_tc_kernel", "reduce_splits"),
         stem_share=share("conv_gemm_kernel<__nv_bfloat16, 2>",
                          "stem_pool_kernel", "bwd_pool_kernel", "dy_kernel",
                          "dw_kernel<__nv_bfloat16>("))
@@ -4177,14 +4293,15 @@ def cnn_entry(name, replaces, launches, cases):
                        if k in c} for c in mine]}
 
 
-def bwd_entry(name, replaces, launches, cases):
+def bwd_entry(name, replaces, launches, cases, sweep):
     """A backward kernel's entry of the kernels line: its numbers at the
-    main path's shape (the first bf16 case of the kernel), and every
-    case's."""
+    main path's shape (the first bf16 case of the kernel), every case's,
+    and the sweep's launch-weighted times a step."""
     mine = [c for c in cases if c["kernel"] == name]
     main = mine[0]
     keys = ("max_abs_err", "dw_max_abs_err", "row_rel", "tile_rel",
-            "dw_row_rel", "dw_tile_rel", "sums_rel", "planted")
+            "dw_row_rel", "dw_tile_rel", "sums_rel", "planted",
+            "bitwise_repeat")
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/"
                       "bottleneck_bwd.cu",
@@ -4193,6 +4310,7 @@ def bwd_entry(name, replaces, launches, cases):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": "aten.convolution_backward (cuDNN dgrad + wgrad)",
+            "per_step_sweep": sweep["per_step"][name],
             "case": main["case"], "dtype": main["dtype"],
             "batch": main["batch"], "limits": main["limits"],
             "max_abs_err_all": max(c["max_abs_err"] for c in mine),
@@ -4265,7 +4383,8 @@ def build_all():
             f.result()
     build_s = time.perf_counter() - t0
     logs = {lib.name: [line.strip() for line in lib.build_log.splitlines()
-                       if "registers" in line or "spill" in line]
+                       if "registers" in line or "spill" in line
+                       or "entry function" in line]
             for lib in libs}
     return build_s, logs
 
@@ -4391,8 +4510,9 @@ def main(argv=None) -> int:
         out["resnet_reference"] = phase("resnet_reference",
                                         resnet_reference, device)
     if want("cnn_bwd"):
-        out["cnn_bwd_cases"] = phase("cnn_bwd", check_cnn_bwd_kernels,
-                                     device)
+        bwd = phase("cnn_bwd", check_cnn_bwd_kernels, device, smi)
+        out["cnn_bwd_cases"], out["cnn_bwd_sweep"] = bwd["cases"], \
+            bwd["sweep"]
     if want("resnet_train"):
         rt = out["resnet_train"] = phase("resnet_train", resnet_train,
                                          device)
@@ -4530,7 +4650,8 @@ def kernels_line(out):
     for name, line in (("bwd1x1", 301), ("bwd3x3", 403)):
         kernels.append(bwd_entry(
             name, f"deeplearning4j_tpu/nn/layers/bottleneck.py:{line}",
-            out["resnet_train"]["launches"][name], out["cnn_bwd_cases"]))
+            out["resnet_train"]["launches"][name], out["cnn_bwd_cases"],
+            out["cnn_bwd_sweep"]))
     # the input gradient is off fit's path (the stem's input is the
     # network input): its launches are the calibration's
     for name, line in (("stem_bwd_pool", 220), ("stem_bwd_dw", 268),

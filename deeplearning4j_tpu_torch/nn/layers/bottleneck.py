@@ -12,11 +12,14 @@ entry blocks (stride on conv_a and on a conv shortcut with its own BN).
 The forward kernels are hand-written CUDA C++ for Hopper, ``csrc/
 bottleneck.cu`` over the implicit GEMM of ``csrc/conv_gemm.cuh``; they
 replace the TPU kernels ``_fwd1x1_kernel`` and ``_fwd3x3_kernel``. The
-backward kernels, ``csrc/bottleneck_bwd.cu`` over the same tiles,
-replace ``_bwd1x1_kernel`` and ``_bwd3x3_kernel``: one entry point per
-stage computes the stage's dW, the previous stage's dz0 and that
-stage's BN-backward sums (the source notes say what bounds each kernel
-and what its design does about that). The JAX package's channel-split
+backward kernels, ``csrc/bottleneck_bwd.cu``, replace ``_bwd1x1_kernel``
+and ``_bwd3x3_kernel``: one entry point per stage computes the stage's
+dW, the previous stage's dz0 and that stage's BN-backward sums, in bf16
+on the tensor cores (``csrc/conv_mma.cuh``: ``mma.sync`` tiles staged
+through the BN-backward and activation prologues, planned here by
+:func:`_bwd_tc_plan`), in f32 on the CUDA cores over ``conv_gemm.cuh``'s
+tiles (the source notes say what bounds each kernel and what its design
+does about that). The JAX package's channel-split
 variant of the backward (grid ``(split, n)``) exists only for the TPU's
 VMEM budget and is not ported: the CUDA kernels tile any shape. Each
 wrapper dispatches on where its tensors lie: CUDA tensors launch the
@@ -44,6 +47,7 @@ not divide, a dtype other than f32 or bf16.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -82,7 +86,7 @@ _BWD_LIBRARY = CudaLibrary(
     {**{s: _BWD1X1_ARGS for s in _symbols("bwd1x1").values()},
      **{s: _BWD3X3_ARGS for s in _symbols("bwd3x3").values()},
      "dl4j_bwd_row_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh"])
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
 
 #: the four kernels; each ``.launches`` counts its launches (a backward
 #: stage's entry point, which launches its dz and dW passes, counts once)
@@ -91,8 +95,15 @@ CONV3X3 = CudaKernel(_LIBRARY, "conv3x3", _symbols("conv3x3"))
 BWD1X1 = CudaKernel(_BWD_LIBRARY, "bwd1x1", _symbols("bwd1x1"))
 BWD3X3 = CudaKernel(_BWD_LIBRARY, "bwd3x3", _symbols("bwd3x3"))
 
-#: the backward kernels' reduction step: a dW split covers whole steps
+#: the f32 backward kernels' reduction step: a dW split covers whole steps
 _BWD_STEP = 16
+#: the bf16 backward kernels' output pixels per dz block and pixels per dW
+#: chunk (csrc/bottleneck_bwd.cu's kDzPixels, kDwPixels)
+_TC_DZ_PIXELS, _TC_DW_PIXELS = 128, 64
+#: the bf16 dW pass's grid: about this many blocks per SM in all
+_TC_DW_BLOCKS_PER_SM = 2
+#: the bf16 backward kernels index elements with 32-bit ints
+_TC_MAX_ELEMENTS = 2 ** 31 - 1
 
 
 class BnParams(NamedTuple):
@@ -114,7 +125,12 @@ def fused_bottleneck_supported(x_shape, c_mid: int, c_out: int, dtype,
     """Whether the kernels take this block: NHWC ``[N, H, W, C]``, a
     stride of 1 or 2 that divides H and W (the strided 1x1 subsamples
     exactly), f32 or bf16. Any size fits: the kernels tile the images
-    (the JAX gate's VMEM budget does not apply)."""
+    (the JAX gate's VMEM budget does not apply), any width and any
+    alignment of the tensors (the bf16 backward kernels copy 16 bytes at
+    a time where C and K are multiples of 8 and the pointers 16-byte
+    aligned, element by element otherwise); only a bf16 backward stage
+    whose activations or weight hold 2^31 - 1 elements or more is
+    refused when it runs (its kernels index with 32-bit ints)."""
     if len(x_shape) != 4 or stride not in (1, 2) or not _dtype_ok(dtype):
         return False
     _, h, w, _ = x_shape
@@ -305,6 +321,11 @@ def _check_bwd(name, yk, g, yprev, w, aff_k, aff_p):
     for key, t in (("aff_k", aff_k), ("aff_p", aff_p)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be f32, got {t.dtype}")
+    if yprev.dtype == torch.bfloat16 and max(
+            t.numel() for t in (yk, yprev, w)) >= _TC_MAX_ELEMENTS:
+        raise ValueError(f"{name}: the bf16 kernel indexes with 32-bit "
+                         f"ints; yk, yprev and w must each hold fewer than "
+                         f"{_TC_MAX_ELEMENTS} elements")
 
 
 def _bwd_shapes(name, yk, g, yprev, w, aff_k, aff_p, taps, stride):
@@ -326,6 +347,12 @@ def _bwd_shapes(name, yk, g, yprev, w, aff_k, aff_p, taps, stride):
                          f"{tuple(aff_p.shape)} must be (6, {k}), (4, {c})")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    """The card's SM count (one query per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _dw_splits(rows, tiles, device):
     """(chunk, splits) of a dW pass over ``rows`` reduction rows with
     ``tiles`` output tiles: about four blocks per SM in all, each split
@@ -335,6 +362,59 @@ def _dw_splits(rows, tiles, device):
     chunk = -(-rows // want)
     chunk = -(-chunk // _BWD_STEP) * _BWD_STEP
     return chunk, -(-rows // chunk)
+
+
+def _patch_tiling(rows, wo, pp):
+    """The bf16 3x3 kernels' patch of at most ``pp`` pixels of the tall
+    image ``[rows, wo]`` (the images stacked), as ``csrc/conv_mma.cuh``'s
+    ``patch_tiling`` chooses it: ``(tw, th, cols, patches)``, the width
+    up to 16 and the height up to 64 whose useful pixels per pixel of
+    the patch's one-pixel halo are the most, ``th / (cols (th + 2)(tw +
+    2))`` compared exactly, ties to the wider patch."""
+    best = None
+    for d in range(1, min(wo, 16) + 1):
+        th = min(pp // d, 64)
+        cols = -(-wo // d)
+        halo = (th + 2) * (d + 2)
+        if best is None or th * best[2] * best[3] >= best[1] * cols * halo:
+            best = (d, th, cols, halo)
+    tw, th, cols, _ = best
+    return tw, th, cols, -(-rows // th) * cols
+
+
+class BwdPlan(NamedTuple):
+    """A bf16 backward stage's launch plan (the C entry point's ``tiles,
+    chunk, splits``): the dz pass's blocks along the pixels (the sums'
+    partials a channel), and the dW pass's patches per split and
+    splits."""
+    tiles: int
+    chunk: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_tc_plan(n, h, w, c, k, stride, taps, sms) -> BwdPlan:
+    """The plan of a bf16 stage on a card of ``sms`` SMs. dz: one block
+    per 128 output pixels (the 3x3: per patch). dW: 64-pixel chunks
+    (the 3x3: patches), split so the grid holds about two blocks per SM,
+    each split at least 8 chunks; the blocks' shape as the kernel picks
+    it (the 3x3: 64 channels of all nine taps x 32 columns; the 1x1: 64
+    or 128 channels x 64 to 256 columns)."""
+    ho, wo = h // stride, w // stride
+    m = n * ho * wo
+    if taps == 9:
+        dz = _patch_tiling(n * ho, wo, _TC_DZ_PIXELS)[3]
+        dw = _patch_tiling(n * ho, wo, _TC_DW_PIXELS)[3]
+        br, bn = 64, 32
+    else:
+        dz, dw = -(-m // _TC_DZ_PIXELS), -(-m // _TC_DW_PIXELS)
+        br = 64 if c <= 64 else 128
+        bn = 64 if k <= 64 else 128 if (k <= 128 or c > 64) else 256
+    blocks = -(-c // br) * -(-k // bn)
+    want = max(1, min(-(-_TC_DW_BLOCKS_PER_SM * sms // blocks),
+                      -(-dw // 8)))
+    chunk = -(-dw // want)
+    return BwdPlan(dz, chunk, -(-dw // chunk))
 
 
 def _stage_bwd(kernel, yk, g, yprev, w, aff_k, aff_p, relu, stride, taps):
@@ -350,10 +430,14 @@ def _stage_bwd(kernel, yk, g, yprev, w, aff_k, aff_p, relu, stride, taps):
     sums = torch.zeros((2, c), dtype=f32, device=dev)
     if not (rows and c and k):
         return dz.zero_(), dw.zero_(), sums
-    tiles = -(-rows // _BWD_LIBRARY.load().dl4j_bwd_row_tile())
+    if yprev.dtype == torch.bfloat16:
+        tiles, chunk, splits = _bwd_tc_plan(n, h, wd, c, k, stride, taps,
+                                            _sm_count(dev))
+    else:
+        tiles = -(-rows // _BWD_LIBRARY.load().dl4j_bwd_row_tile())
+        tiles_rk = -(-(taps * c) // 128) * -(-k // 64)
+        chunk, splits = _dw_splits(rows, tiles_rk, dev)
     part = torch.empty((2, c, tiles), dtype=f32, device=dev)
-    tiles_rk = -(-(taps * c) // 128) * -(-k // 64)
-    chunk, splits = _dw_splits(rows, tiles_rk, dev)
     dw_part = torch.empty((splits, taps * c, k), dtype=f32, device=dev)
     args = [yk.data_ptr(), g.data_ptr(), yprev.data_ptr(), w.data_ptr(),
             aff_k.data_ptr(), aff_p.data_ptr(), dz.data_ptr(), dw.data_ptr(),

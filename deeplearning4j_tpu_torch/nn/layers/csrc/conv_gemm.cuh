@@ -1,9 +1,12 @@
 // Implicit-GEMM convolution with a BN-affine prologue and a per-channel
 // sum / sum-of-squares epilogue, shared by the bottleneck kernels
 // (bottleneck.cu: 1x1 and 3x3) and the space-to-depth stem conv
-// (stem.cu); its tile step, partial sums, fixed-order reductions and the
-// stem's im2col decode also serve the backward passes (bottleneck_bwd.cu,
-// stem_bwd.cu). Layouts are the JAX package's: x NHWC, the weight as the
+// (stem.cu); its tile step and the stem's im2col decode also serve the
+// stem's backward passes (stem_bwd.cu) and the f32 bottleneck backward
+// (bottleneck_bwd.cu), and its fixed-order reductions (the per-block
+// partial sums, the dW splits) every backward kernel. The bf16
+// bottleneck backward runs on the tensor cores instead (conv_mma.cuh).
+// Layouts are the JAX package's: x NHWC, the weight as the
 // contraction matrix [R, K] (R = C for a 1x1 conv, 9C tap-major for the
 // 3x3, 64C in the phase-major space-to-depth order for the stem), the
 // output NHWC [N, Ho, Wo, K].

@@ -57,11 +57,13 @@ CROSSOVER_VERSION = 1
 #: implementation revision per kernel domain: entries recorded against
 #: another revision are pruned on load (a rewritten kernel, or a
 #: measurement of another fallback, re-earns its calibration). The two
-#: training domains are at 2: their fallback is timed as the xla plan's
-#: own layers since, where revision 1 timed ``reference_bottleneck`` /
-#: ``reference_stem`` (``tuning/calibrate.py``)
+#: training domains are at 2 or more: their fallback is timed as the xla
+#: plan's own layers since, where revision 1 timed
+#: ``reference_bottleneck`` / ``reference_stem`` (``tuning/calibrate.py``);
+#: train_bottleneck is at 3 since its bf16 backward kernels run on the
+#: tensor cores (revision 2 timed them on the f32 CUDA cores)
 IMPL_REVS: Dict[str, int] = {
-    "train_bottleneck": 2,    # nn/layers/bottleneck.py fused chain
+    "train_bottleneck": 3,    # nn/layers/bottleneck.py fused chain
     "train_stem": 2,          # nn/layers/stem.py space-to-depth stem
     "paged_decode": 1,        # serving/paged_kernel.py
     "paged_decode_quant": 1,  # the int8 KV pool (serving/quant.py)

@@ -84,12 +84,18 @@ def test_fingerprints_are_the_jax_strings(case):
 #: the domains whose fallback the port measures otherwise than the JAX
 #: package (the xla plan's layers, not the reference composition)
 REMEASURED = ("train_bottleneck", "train_stem")
+#: the port's revisions of a domain beyond the JAX package's: one for the
+#: remeasured fallback, and one more for train_bottleneck, whose bf16
+#: backward kernels were rewritten for the tensor cores
+PORT_REVISIONS = {"train_bottleneck": 2, "train_stem": 1}
 
 
 def test_revisions_and_verdicts_are_the_jax_packages():
     assert set(tt.IMPL_REVS) == set(jt.IMPL_REVS)
+    assert set(PORT_REVISIONS) == set(REMEASURED)
     for domain, rev in tt.IMPL_REVS.items():
-        assert rev == jt.IMPL_REVS[domain] + (domain in REMEASURED), domain
+        assert rev == jt.IMPL_REVS[domain] + PORT_REVISIONS.get(domain, 0), \
+            domain
     for e in ({"kernel_ms": 1.0, "fallback_ms": 2.0},
               {"kernel_ms": 2.0, "fallback_ms": 2.0}, {}, {"kernel_ms": 1}):
         assert tt.winner(e) == jt.winner(e)
@@ -154,6 +160,19 @@ def test_a_revision_one_entry_of_the_old_fallback_is_pruned(tmp_path,
     s = tt.KernelCrossoverStore.load(str(p))
     assert len(s) == 0
     assert s.choose(key, default="fallback", device=CPU) == "fallback"
+
+
+def test_a_verdict_on_the_cuda_core_backward_kernels_is_pruned(tmp_path):
+    """A train_bottleneck entry of revision 2 timed the backward kernels
+    on the f32 CUDA cores; the tensor-core kernels re-earn the key."""
+    p = tmp_path / tt.CROSSOVER_NAME
+    key = tcross.fingerprint("train_bottleneck", "bfloat16", h=56)
+    p.write_text(json.dumps({"version": 1, "entries": {key: {
+        "kernel_ms": 15.6, "fallback_ms": 4.1, "platform": "cpu",
+        "device_kind": "cpu", "impl_rev": 2, "samples": 1}}}))
+    s = tt.KernelCrossoverStore.load(str(p))
+    assert len(s) == 0
+    assert s.choose(key, default="kernel", device=CPU) == "kernel"
 
 
 @pytest.mark.parametrize("text", ["{ torn json", "[1, 2]", ""])

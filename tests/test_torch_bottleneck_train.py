@@ -26,6 +26,11 @@ layers/bottleneck.py) against the JAX package's, on the CPU.
   port's unfused ``reference_bottleneck`` in f32, within 1e-5.
 - The backward wrappers take the plain versions on CPU tensors, launch
   nothing, and refuse what the kernels do not take.
+- The bf16 kernels' host-side plan (``_patch_tiling``, ``_bwd_tc_plan``):
+  the 3x3's patches at ResNet50's widths, patches that hold every pixel
+  exactly once, and dW splits that cover every chunk, at every distinct
+  backward stage of a ResNet50 step. The stage cases include the card's
+  ragged shapes (C and K no multiple of 8, M = 147) and a 7x7 3x3.
 Inputs are made from a numpy seed; bf16 inputs are bf16 values handed to
 both packages exactly.
 """
@@ -51,6 +56,11 @@ STAGE_CASES = {
     "1x1_identity_stride2": (1, "identity", 2, 3, 8, 6, 24, 40),
     "3x3_relu": (9, "relu", 1, 2, 7, 6, 24, 16),
     "3x3_relu_one_row": (9, "relu", 1, 2, 1, 7, 16, 24),
+    # the card's ragged cases (C and K no multiple of 8, M = 147 no
+    # multiple of a row tile) and s5's small image
+    "1x1_relu_stride2_ragged": (1, "relu", 2, 3, 14, 14, 20, 36),
+    "3x3_relu_ragged": (9, "relu", 1, 3, 7, 7, 20, 36),
+    "3x3_relu_7x7": (9, "relu", 1, 2, 7, 7, 24, 24),
 }
 
 
@@ -298,3 +308,68 @@ def test_backward_refuses_what_the_kernels_do_not_take():
         tb.conv3x3_bwd(*t3[:3], t3[3][0], *t3[4:], **kw3)
     with pytest.raises(ValueError, match="aff_k"):
         tb.conv3x3_bwd(*t3[:4], t3[4][:4], t3[5], **kw3)
+
+
+# ---------------------------------------------------------------------
+# the bf16 kernels' launch plan (host side, _bwd_tc_plan)
+# ---------------------------------------------------------------------
+#: every distinct backward stage of a ResNet50 step at 224x224:
+#: (kernel taps, h = w of y_{k-1}, C, K, stride)
+RESNET_STAGES = [(1, 56, 64, 256, 1), (9, 56, 64, 64, 1),
+                 (1, 56, 64, 64, 1), (1, 56, 256, 64, 1),
+                 (1, 28, 128, 512, 1), (9, 28, 128, 128, 1),
+                 (1, 56, 256, 128, 2), (1, 28, 512, 128, 1),
+                 (1, 56, 256, 512, 2), (1, 14, 256, 1024, 1),
+                 (9, 14, 256, 256, 1), (1, 28, 512, 256, 2),
+                 (1, 14, 1024, 256, 1), (1, 28, 512, 1024, 2),
+                 (1, 7, 512, 2048, 1), (9, 7, 512, 512, 1),
+                 (1, 14, 1024, 512, 2), (1, 7, 2048, 512, 1),
+                 (1, 14, 1024, 2048, 2)]
+
+
+@pytest.mark.parametrize("hw, dz, dw", [(56, (14, 9), (8, 8)),
+                                        (28, (14, 9), (7, 9)),
+                                        (14, (14, 9), (7, 9)),
+                                        (7, (7, 18), (7, 9))])
+def test_the_3x3_patches_at_resnet50s_widths(hw, dz, dw):
+    """The dz pass's 128-pixel and the dW pass's 64-pixel patches of
+    the 3x3 at each stage's width: the ones whose halo wastes least."""
+    assert tb._patch_tiling(128 * hw, hw, 128)[:2] == dz
+    assert tb._patch_tiling(128 * hw, hw, 64)[:2] == dw
+
+
+@pytest.mark.parametrize("n, h, w, pp", [(2, 7, 7, 128), (3, 7, 7, 64),
+                                         (2, 1, 7, 128), (1, 5, 1, 64),
+                                         (2, 6, 17, 128), (1, 3, 2, 64)])
+def test_patches_cover_every_pixel_once(n, h, w, pp):
+    """The patches of the tall image [N H, W] (the images stacked) hold
+    every pixel exactly once, none more than ``pp`` pixels."""
+    tw, th, cols, patches = tb._patch_tiling(n * h, w, pp)
+    assert 1 <= tw <= min(w, 16) and th * tw <= pp and th <= 64
+    seen = np.zeros((n * h, w), np.int64)
+    for p in range(patches):
+        r0, c0 = (p // cols) * th, (p % cols) * tw
+        seen[r0:r0 + th, c0:c0 + tw] += 1
+    assert (seen == 1).all()
+    assert patches == -(-(n * h) // th) * cols
+
+
+@pytest.mark.parametrize("taps, hw, c, k, stride", RESNET_STAGES)
+def test_the_plan_covers_every_chunk_in_whole_splits(taps, hw, c, k,
+                                                     stride):
+    """At B=128 on a 132-SM card: one dz block per 128 output pixels (the
+    3x3: per patch), and splits of the dW chunks that cover them all,
+    none empty, each at least 8 chunks where there are enough."""
+    n, sms = 128, 132
+    ho = hw // stride
+    tiles, chunk, splits = tb._bwd_tc_plan(n, hw, hw, c, k, stride, taps,
+                                           sms)
+    if taps == 9:
+        dz = tb._patch_tiling(n * ho, ho, 128)[3]
+        dw = tb._patch_tiling(n * ho, ho, 64)[3]
+    else:
+        dz, dw = -(-n * ho * ho // 128), -(-n * ho * ho // 64)
+    assert tiles == dz
+    assert chunk * splits >= dw > chunk * (splits - 1)
+    assert chunk >= min(8, dw)
+    assert splits <= 2 * sms
