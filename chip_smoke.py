@@ -19,10 +19,18 @@ Phases (any failure exits nonzero):
    GQA/verify shapes, bf16 and f32. Flash forward, dq and dk/dv: the
    training shape (B=4, H=8, T=8192, D=64, bf16, causal), then f32
    causal, cross attention with Tq != Tk, a key mask with one fully
-   masked row, and a T that is no tile multiple; each output held to
-   limits relative to each row's and each 64-row tile's own size, and
-   in bf16 shown to tell apart a kernel that dropped its rounding
-   points. The int8 paged decode (``paged_quant``): the engine and
+   masked row, a T that is no tile multiple (f32 and bf16) and one
+   under a tile (T=40, bf16), bf16 causal at head dims 32 and 128
+   (T=2048: the tensor-core backward's other tile plans), and bf16 at
+   head dim 40 (off that route: the CUDA-core backward); each
+   output held to limits relative to each row's and each 64-row tile's
+   own size, and in bf16 shown to tell apart a kernel that dropped its
+   rounding points; in every bf16 case dq, dk and dv launched twice and
+   bitwise equal; each case records its backward route and each
+   kernel's achieved TFLOP/s beside its bound. Before them, the flash
+   library's SASS (``cuobjdump -sass``): the tensor-core dq and dk/dv
+   kernels hold HMMA.16816.F32.BF16, the CUDA-core ones none. The int8
+   paged decode (``paged_quant``): the engine and
    GQA/verify shapes over int8 pools with power-of-two page scales, bf16
    and f32 queries, SDPA timed on the dequantized dense view, the limits
    shown to fail two faults planted in the plain version (the V scale
@@ -60,6 +68,17 @@ Phases (any failure exits nonzero):
 8. train reference: in f32 with 2 layers at the same width and T=1024,
    two Adam steps with the kernels and two with their plain versions
    swapped in give the same parameters;
+8b. train reference bf16 (``train_reference_bf16``): bf16, 2 layers at
+   the same width, T=2048, B=4: one backward of the loss from the same
+   parameters and batch with the kernels (the tensor-core backward) and
+   with their plain versions swapped in. The kernels' dq, dk and dv on
+   the path's own tensors within phase 3b's limits of the plain
+   versions' on the same arguments (dv from the unrounded p, planted in
+   the plain dk/dv, fails them); each parameter leaf's gradient within
+   TRAIN_BF16_GRAD_REL (relative L2) of the plain backward's (ds
+   without its delta term, planted the same way, fails it) and within
+   TRAIN_BF16_GRAD_REL_ALL of all three plain versions', as phase 8
+   swaps them;
 9. train profile: one training step under ``torch.profiler`` (device
    busy share, launches per step, the top kernels);
 10. cnn kernels: the four ResNet50 forward kernels (bottleneck conv1x1
@@ -289,6 +308,18 @@ N_REQUESTS, NEW_TOKENS, SYSTEM_PREFIX = 16, 128, 64
 
 # the trained model (bench_all.py's transformer_train_T8192)
 TRAIN_VOCAB, TRAIN_T, TRAIN_B, TRAIN_STEPS = 256, 8192, 4, 5
+# The bf16 training-path check (train_reference_bf16): one backward of
+# 2 layers at full width, T=2048, each leaf's gradient by grad_rel. On
+# the H100 the kernels' dq, dk and dv sit 1.5e-6 to 4.8e-6 (tile_rel)
+# from the plain versions' on the path's own tensors, yet the leaves
+# upstream of both layers (layer 0, the embeddings) differ by up to
+# 3.0e-3 against the plain backward and 7.6e-3 against all three plain
+# versions: the bf16 casts of the network's own backward turn the few
+# one-ulp differences into flips of their own. The limits sit ~3x above
+# those readings; ds without its delta term reads 0.05-2.7.
+TRAIN_BF16_T = 2048
+TRAIN_BF16_GRAD_REL = 1e-2
+TRAIN_BF16_GRAD_REL_ALL = 2e-2
 
 # ResNet50 inference (bench.py's BATCH, bench_all.py's bench_train_plan
 # configuration run forward)
@@ -939,9 +970,12 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
     dq = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta, causal)
     torch.cuda.synchronize()
+    route = fa.backward_route(dtype, D)
     case = {"case": label, "dtype": str(dtype).split(".")[-1],
             "shape": [B, H, tq, tk, D], "causal": causal,
             "key_lengths": lengths,
+            "routes": {"flash_fwd": fa.CUDA_CORES, "flash_bwd_dq": route,
+                       "flash_bwd_dkv": route},
             "limits": {"row_rel": FLASH_ROW[dtype],
                        "tile_rel_o": FLASH_TILE[dtype, "o"],
                        "tile_rel_grad": FLASH_TILE[dtype, "grad"],
@@ -953,6 +987,17 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
                                   {"o": o, "dq": dq, "dk": dk, "dv": dv},
                                   lse, delta)
     case.update(rec)
+    if dtype == torch.bfloat16:
+        # no atomics: a second launch on the same inputs is bitwise equal
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, causal)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
+                                              causal)
+        case["bitwise_repeat"] = {
+            "dq": bool(torch.equal(dq, dq2)), "dk": bool(torch.equal(dk, dk2)),
+            "dv": bool(torch.equal(dv, dv2))}
+        failures += [f"{n} not bitwise equal over two launches"
+                     for n, same in case["bitwise_repeat"].items() if not same]
+        del dq2, dk2, dv2
     torch.cuda.synchronize()
     if lengths is not None and 0 in lengths:
         row = lengths.index(0)
@@ -989,10 +1034,15 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
     for name, (kern, plain) in fns.items():
         bound_ms, bound_by, terms = flash_bound(name, q, k, km, causal,
                                                 exp_rate)
-        timed[name] = {"ms": median_ms(kern, device),
+        ms = median_ms(kern, device)
+        timed[name] = {"ms": ms, "route": case["routes"][name],
                        "plain_ms": median_ms(plain, device, iters=10),
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_terms_ms": terms}
+                       "bound_terms_ms": terms,
+                       # the matmul flops flash_bound counts, over the
+                       # kernel's time
+                       "tflops": terms["flops_ms"] / ms
+                       * PEAK_FLOPS[dtype] / 1e12}
     timed["flash_fwd"]["library_ms"] = median_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                is_causal=lib_causal), device)
@@ -1011,7 +1061,9 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
 def check_flash_kernels(device, exp_rate):
     """The training shape first (compared and timed at T=8192; the plain
     versions hold their [B,H,T,T] f32 tensors in place, ~30 GB), then
-    the edge cases at T <= 2048."""
+    the edge cases at T <= 2048: the tensor-core backward's other head
+    dims (32, the zoo default's, and 128), a bf16 head dim off that
+    route (40, the CUDA-core kernels), and the ragged tails in bf16."""
     w = WIDTH // HEADS
     cases = [
         flash_case("train_shape_bf16", (TRAIN_B, HEADS, TRAIN_T, TRAIN_T, w),
@@ -1027,8 +1079,56 @@ def check_flash_kernels(device, exp_rate):
                    lengths=[2048, 1500, 700, 0]),
         flash_case("ragged_t_f32", (2, HEADS, 1999, 1999, w), torch.float32,
                    True, device, exp_rate, seed=6),
+        flash_case("causal_d32_T2048_bf16", (TRAIN_B, HEADS, 2048, 2048, 32),
+                   torch.bfloat16, True, device, exp_rate, seed=7),
+        flash_case("causal_d128_T2048_bf16",
+                   (TRAIN_B, HEADS, 2048, 2048, 128), torch.bfloat16, True,
+                   device, exp_rate, seed=8),
+        flash_case("off_route_d40_bf16", (TRAIN_B, HEADS, 2048, 2048, 40),
+                   torch.bfloat16, True, device, exp_rate, seed=9),
+        flash_case("ragged_t_bf16", (2, HEADS, 1999, 1999, w),
+                   torch.bfloat16, True, device, exp_rate, seed=10),
+        flash_case("one_tile_t40_bf16", (2, HEADS, 40, 40, w),
+                   torch.bfloat16, True, device, exp_rate, seed=11),
     ]
     return cases
+
+
+def flash_sass():
+    """The flash library's SASS (``cuobjdump -sass``): the tensor-core
+    backward kernels' functions must hold HMMA.16816.F32.BF16 (mma.sync
+    m16n8k16, bf16 in, f32 out) and the CUDA-core ones none. Returns
+    {function: HMMA count} by kernel template."""
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.cuda_library import nvcc_path
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(fa._LIBRARY.path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA.16816.F32.BF16" in line:
+            counts[fn] += 1
+    by_kernel = {}
+    for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv_mma_kernel"):
+        by_kernel[name] = {f: c for f, c in counts.items()
+                           if f"{len(name)}{name}I" in f}
+    rec = {"tool": str(tool), "hmma_16816_f32_bf16": by_kernel}
+    log("flash sass:", json.dumps(rec))
+    for name, fns in by_kernel.items():
+        tc = "_mma_" in name
+        if not fns or any((c == 0) if tc else (c != 0) for c in fns.values()):
+            raise AssertionError(f"flash sass: {name} "
+                                 f"{'lacks' if tc else 'has'} "
+                                 f"HMMA.16816.F32.BF16: {fns}")
+    return rec
 
 
 # ---------------------------------------------------------------------
@@ -1565,6 +1665,161 @@ def train_reference(device, rng, steps=2, T=1024, B=2):
             ck["flash_fwd"] != steps * 2 or cp["flash_fwd"] != 0:
         raise AssertionError(f"train reference: kernels and plain "
                              f"attention disagree: {rec}")
+    return rec
+
+
+def loss_grads(net, x, y):
+    """The loss and its gradient at the net's parameters, leaf by leaf
+    (``"vertex/name"``), by autograd through the training forward, as a
+    fit step takes it before the updater."""
+    params = {v: {n: t.detach().requires_grad_() for n, t in p.items()}
+              for v, p in net.params.items()}
+    inputs = {net.conf.network_inputs[0]: net._tensor(x)}
+    labels = {net.conf.network_outputs[0]: net._tensor(y)}
+    loss, _ = net._loss(params, inputs, labels)
+    leaves = [(v, n) for v, p in params.items() for n in p]
+    grads = torch.autograd.grad(loss, [params[v][n] for v, n in leaves],
+                                allow_unused=True)
+    return float(loss.detach()), {f"{v}/{n}": g.float() for (v, n), g in
+                         zip(leaves, grads) if g is not None}
+
+
+def grad_rel(got, want):
+    """Each leaf's ||got - want|| over ||want||; an attention key bias
+    (exact gradient zero: softmax ignores a shift shared by every key)
+    over its layer's key weights' ||want|| instead."""
+    out = {}
+    for leaf, w in want.items():
+        ref = want[leaf[:-2] + "Wk"] if leaf.endswith("/bk") else w
+        out[leaf] = float(torch.linalg.vector_norm(got[leaf] - w)
+                          / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+    return out
+
+
+def dkv_without_delta(q, k, v, km, do, lse, delta, causal=False):
+    """A planted fault: the plain dk/dv with ds = p dP scale (the delta
+    term dropped)."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    return fa.flash_attention_bwd_dkv_plain(q, k, v, km, do, lse,
+                                            torch.zeros_like(delta), causal)
+
+
+def dkv_unrounded_p(q, k, v, km, do, lse, delta, causal=False):
+    """A planted fault: the plain dk/dv with dv from the unrounded f32 p
+    (no bf16 rounding point before p^T.dO)."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    dk, _ = fa.flash_attention_bwd_dkv_plain(q, k, v, km, do, lse, delta,
+                                             causal)
+    p = fa._probs(q, k, km, lse, causal)
+    dv = torch.matmul(p.transpose(-1, -2), do.to(p.dtype))
+    return dk, dv.to(v.dtype)
+
+
+def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
+    """bf16, 2 layers at full width, T=2048: one backward of the loss
+    from the same parameters and batch. The dq and dk/dv kernels'
+    outputs on the path's own tensors against the plain versions on the
+    same arguments, by phase 3b's row and tile limits, which dv from the
+    unrounded p (planted in the plain dk/dv) fails. Then leaf by leaf
+    (grad_rel): the kernels against the plain dq and dk/dv swapped in
+    (the forward kernel in both) within TRAIN_BF16_GRAD_REL, a limit
+    that ds without its delta term (planted in the swapped-in plain
+    dk/dv) fails; and against all three plain versions swapped in, as
+    phase 8 swaps them, within TRAIN_BF16_GRAD_REL_ALL. dv from the
+    unrounded p is measured leaf by leaf too, held to nothing there."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    net = train_model(2, T, seed=13).init(device=device)
+    net.conf.dtype = "bfloat16"
+    x, y = one_hot_batch(np.random.default_rng(17), B, TRAIN_VOCAB, T)
+    backward = {"flash_attention_bwd_dq": fa.flash_attention_bwd_dq_plain,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_plain}
+    calls = []
+
+    def recorded(fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((fn.__name__, args, out))
+            return out
+        return call
+    swaps = {"kernels": {n: recorded(vars(fa)[n]) for n in backward},
+             "plain_backward": backward,
+             "plain": {**backward,
+                       "flash_attention_fwd": fa.flash_attention_fwd_plain},
+             "no_delta": {**backward,
+                          "flash_attention_bwd_dkv": dkv_without_delta},
+             "unrounded_p": {**backward,
+                             "flash_attention_bwd_dkv": dkv_unrounded_p}}
+    runs = {}
+    for label, swap in swaps.items():
+        old = {k: vars(fa)[k] for k in swap}
+        zero_counts()
+        vars(fa).update(swap)
+        try:
+            loss, grads = loss_grads(net, x, y)
+        finally:
+            vars(fa).update(old)
+        runs[label] = (loss, grads, read_counts())
+    # the kernels' outputs on the training path's own tensors (layer 1's
+    # backward first), against the plain versions on the same arguments
+    # by phase 3b's measures; the unrounded-p fault on the same arguments
+    on_path, fault_on_path = [], []
+    with torch.no_grad():
+        for name, args, out in calls:
+            plain = vars(fa)[name + "_plain"](*args)
+            if name.endswith("dq"):
+                pairs = [("dq", out, plain)]
+            else:
+                pairs = [("dk", out[0], plain[0]), ("dv", out[1], plain[1])]
+                fault_on_path.append(fa.agreement(
+                    dkv_unrounded_p(*args)[1], plain[1])[1])
+            for n, got, want in pairs:
+                row_rel, tile_rel = fa.agreement(got, want)
+                on_path.append({"output": n, "row_rel": row_rel,
+                                "tile_rel": tile_rel})
+    del calls
+    kernels = runs["kernels"][1]
+    rel = {label: grad_rel(runs[label][1], runs["plain_backward"][1])
+           for label in ("kernels", "no_delta", "unrounded_p")}
+    rel["kernels_against_all_plain"] = grad_rel(kernels, runs["plain"][1])
+    worst = {label: max(r.values()) for label, r in rel.items()}
+    counts = {label: {n: runs[label][2][n] for n in
+                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+              for label in runs}
+    rec = {"dtype": "bfloat16", "layers": 2, "width": WIDTH, "T": T,
+           "batch": B, "route": fa.backward_route(torch.bfloat16,
+                                                  WIDTH // HEADS),
+           "losses": {label: r[0] for label, r in runs.items()},
+           "limit": TRAIN_BF16_GRAD_REL,
+           "limit_against_all_plain": TRAIN_BF16_GRAD_REL_ALL,
+           "worst_leaf_rel": worst,
+           "kernels_on_path": on_path,
+           "unrounded_p_dv_on_path_tile_rel": fault_on_path,
+           **{f"{label}_leaf_rel": r for label, r in rel.items()},
+           "launches": counts}
+    log("train reference bf16:", json.dumps(rec))
+    failures = [f"{a['output']} on the path" for a in on_path
+                if a["row_rel"] > FLASH_ROW[torch.bfloat16]
+                or a["tile_rel"] > FLASH_TILE[torch.bfloat16, "grad"]]
+    if len(on_path) != 6:
+        failures.append("kernel calls recorded")
+    if not min(fault_on_path) > FLASH_TILE[torch.bfloat16, "grad"]:
+        failures.append("the tile limit passes dv from the unrounded p")
+    if worst["kernels"] > TRAIN_BF16_GRAD_REL:
+        failures.append("kernels against the plain backward")
+    if worst["kernels_against_all_plain"] > TRAIN_BF16_GRAD_REL_ALL:
+        failures.append("kernels against all plain versions")
+    if not worst["no_delta"] > TRAIN_BF16_GRAD_REL:
+        failures.append("the limit passes the dropped delta term")
+    fwd_only = {"flash_fwd": 2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want = {"kernels": {n: 2 for n in fwd_only}, "plain_backward": fwd_only,
+            "plain": {n: 0 for n in fwd_only}, "no_delta": fwd_only,
+            "unrounded_p": fwd_only}
+    if counts != want:
+        failures.append("launches")
+    if not all(np.isfinite(r[0]) for r in runs.values()):
+        failures.append("loss not finite")
+    if failures:
+        raise AssertionError(f"train reference bf16: {failures}: {rec}")
     return rec
 
 
@@ -4408,8 +4663,12 @@ def kernel_entry(name, source, replaces, launches, main, cases):
     k = main["kernels"][name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            # the units the kernel runs on at the main shape: "tensor_cores"
+            # (mma.sync) or "cuda_cores"
+            "core_route": k["route"],
             **errors(main), "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "tflops": k["tflops"],
             "library_ms": k["library_ms"],
             **({"library_bwd_ms": k["library_bwd_ms"]}
                if "library_bwd_ms" in k else {}),
@@ -4417,7 +4676,10 @@ def kernel_entry(name, source, replaces, launches, main, cases):
             "limits": main["limits"],
             "max_abs_err_all": max(worst(c, "max_abs_err") for c in cases),
             "cases": [{"case": c["case"], **c["kernels"][name], **errors(c),
-                       "limits": c["limits"]} for c in cases]}
+                       "limits": c["limits"],
+                       **({"bitwise_repeat": c["bitwise_repeat"]}
+                          if "bitwise_repeat" in c else {})}
+                      for c in cases]}
 
 
 def main(argv=None) -> int:
@@ -4470,6 +4732,7 @@ def main(argv=None) -> int:
                                          check_paged_quant_kernel, device,
                                          np.random.default_rng(3))
     if want("flash"):
+        out["flash_sass"] = phase("flash_sass", flash_sass)
         out["flash_cases"] = phase("flash", check_flash_kernels, device,
                                    exp_rate)
     if want("serve"):
@@ -4498,6 +4761,9 @@ def main(argv=None) -> int:
         del net, batch
         out["train_reference"] = phase("train_reference", train_reference,
                                        device, rng)
+    if want("train_reference_bf16"):
+        out["train_reference_bf16"] = phase(
+            "train_reference_bf16", train_reference_bf16, device)
     if want("cnn"):
         out["cnn_cases"] = phase("cnn", check_cnn_kernels, device)
     if want("resnet"):

@@ -6,6 +6,9 @@
 //   flash_fwd_kernel      <- `_fwd_kernel`     (pallas_call in `_flash_fwd`)
 //   flash_bwd_dq_kernel   <- `_bwd_dq_kernel`  (pallas_call in `_run_bwd_kernels`)
 //   flash_bwd_dkv_kernel  <- `_bwd_dkv_kernel` (pallas_call in `_run_bwd_kernels`)
+// and, for bf16 head dims that are multiples of 16 up to 128, the
+// tensor-core twins of the last two, tc::flash_bwd_dq_mma_kernel and
+// tc::flash_bwd_dkv_mma_kernel (the entry points *_bf16_mma).
 // Each computes what its TPU kernel computes, with the same rounding
 // points and masking:
 //   - scores in base 2: s = (q . k) * (scale * log2 e), masked to the
@@ -42,14 +45,47 @@
 // exponentials over 134 MB of q, k, v and o: at the tensor cores' 989
 // TFLOP/s the flops take ~0.28 ms, the exponentials about as long on the
 // special-function units, the bytes ~0.04 ms. dq does 1.5x the forward's
-// flops, dk/dv 2x. So all three are bounded by operations. This first
-// version is the simple, right one: tiles of q/k/v/dO staged in shared
-// memory as f32 (rows padded to an odd stride, so that a warp's reads
-// are free of bank conflicts), and every dot product on the f32 CUDA
-// cores, each thread owning a 4x4 (or 2x2) block of the score tile and a
-// strip of the output tile in registers. Its ceiling is the f32 rate (67
-// TFLOP/s), not the tensor cores'. mma.sync/wgmma tiles fed by TMA or
-// cp.async double buffering are the later kernel's work.
+// flops, dk/dv 2x. So all three are bounded by operations.
+//
+// Two designs. The forward, f32 everywhere, and bf16 head dims off the
+// tensor-core route (not a multiple of 16, or over 128) run the first,
+// simple one: tiles of q/k/v/dO staged in shared memory as f32 (rows
+// padded to an odd stride, so that a warp's reads are free of bank
+// conflicts), and every dot product on the f32 CUDA cores, each thread
+// owning a 4x4 (or 2x2) block of the score tile and a strip of the
+// output tile in registers. Its ceiling is the f32 rate (67 TFLOP/s); f32
+// stays exact f32 there (no TF32).
+//
+// The bf16 backward at head dims that are multiples of 16 up to 128 (the
+// namespace tc below) runs on the tensor cores: mma.sync m16n8k16, bf16
+// operands, f32 accumulators, fed by ldmatrix from bf16 tiles (conv_mma.cuh's
+// primitives). A block of four warps owns 64 rows (16 a warp) and holds their
+// operands as A fragments in registers (read again from shared memory at each
+// step where registers are short, D > 64). dq owns queries: S = Q.K^T and dP
+// = dO.V^T land in the accumulators, p and ds are computed there, and ds,
+// packed to bf16 (the rounding point before ds.K), is the A operand of dQ +=
+// ds.K, K read through ldmatrix.trans: ds never goes through shared memory.
+// dk/dv owns keys and computes the transposed scores S^T = K.Q^T and dP^T =
+// V.dO^T, so the keys are the accumulator rows and p^T (rounded to bf16) and
+// ds^T (from the unrounded f32 p, then rounded) are already the A operands of
+// dV += p^T.dO and dK += ds^T.Q; lse and delta are per column there, staged
+// beside each query tile. The next K/V tile (dq) or Q/dO/lse/delta tile
+// (dk/dv) is copied with 16-byte cp.async (zero-filled past T and d) while
+// the warps multiply the current one. Masks only where they bite: interior
+// causal tiles take an unmasked body, as the JAX kernels' _dispatch does; the
+// diagonal, the ragged tails and every tile under a key mask mask before the
+// exponential and zero after it. Each tile's dq, dk or dv product is taken
+// into zeroed fragments and added to the running sums with a round-to-nearest
+// f32 add (the tensor cores' own accumulation rounds toward zero, and a T of
+// 8192 has 128 tiles). No atomics: a repeated launch is bitwise equal. What
+// bounds it now (on an H100 at the training shape, dq at about a quarter of
+// the tensor cores' peak and dk/dv a little less, PERF.md): four warps a
+// block and three blocks an SM (168 registers a thread; dk/dv spills a few
+// hundred bytes for it), so little latency hiding; the exponential, the
+// scaling and the masks per element on the FMA and special-function pipes
+// between the products; mma.sync's share of the tensor cores' rate. wgmma fed
+// by TMA with warp specialisation (a producer warp, consumer warpgroups) is
+// the next step.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -62,6 +98,11 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -623,6 +664,552 @@ int dkv(const void* q, const void* k, const void* v, const void* km,
                               heads, tq, tk, d, causal, scale, scale_log2, s);
 }
 
+// ---------------------------------------------------------------------
+// bf16 backward on the tensor cores (head dims 16..128, multiples of 16)
+// ---------------------------------------------------------------------
+namespace tc {
+
+using dl4j_mma::bf16;
+using dl4j_mma::ldsm_x4;
+using dl4j_mma::mma_16816;
+using dl4j_mma::pack2;
+using dl4j_mma::smem_addr;
+
+constexpr int kWarps = 4;
+constexpr int kThreadsTc = 32 * kWarps;
+constexpr int kOwn = 16 * kWarps;  // a block's own rows: queries or keys
+
+// bf16 tiles of a head dim padded to DP (zeros past d): rows LD = DP + 8
+// elements apart, DP / 8 + 1 16-byte groups (an odd number), so the
+// eight rows of one ldmatrix phase hit eight distinct bank groups
+template <int DP>
+struct Geo {
+  static constexpr int LD = DP + 8;
+  static constexpr int KS = DP / 16;  // 16-deep steps over the head dim
+  static constexpr int NF = DP / 8;   // n8 fragments across the head dim
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// rows [row0, row0 + N) of a [n_rows, d] matrix into an [N][LD] tile, as
+// 16-byte copies in flight (zero-filled past n_rows and past d)
+template <int DP, int N>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int row0, int n_rows, int d) {
+  constexpr int CH = DP / 8;
+  for (int i = threadIdx.x; i < N * CH; i += kThreadsTc) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const int row = row0 + r;
+    const bool ok = row < n_rows && c * 8 < d;
+    dl4j_mma::cp_async16(dst + r * Geo<DP>::LD + c * 8,
+                         ok ? src + (size_t)row * d + c * 8 : src, ok);
+  }
+}
+
+// the f32 values of rows [row0, row0 + N) (lse or delta), 0 past n_rows
+template <int N>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          int row0, int n_rows) {
+  for (int i = threadIdx.x; i < N; i += kThreadsTc) {
+    const bool ok = row0 + i < n_rows;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// The A operand of a warp's 16 rows (from row r0 of an [*][LD] tile) over
+// the head dim: held in registers (HOLD) or read by ldmatrix at each step
+// where registers are short (Plan, DP = 128).
+template <int DP, bool HOLD>
+struct RowsA {
+  uint32_t f[HOLD ? Geo<DP>::KS : 1][4];
+  uint32_t base;  // this lane's ldmatrix row address in the tile
+
+  __device__ __forceinline__ void init(const bf16* tile, int r0, int lane) {
+    base = smem_addr(tile + (r0 + (lane & 15)) * Geo<DP>::LD +
+                     dl4j_mma::a_k(lane));
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int ks = 0; ks < Geo<DP>::KS; ++ks)
+        ldsm_x4<false>(base + ks * 32, f[ks]);
+    }
+  }
+  __device__ __forceinline__ const uint32_t (&at(int ks))[4] {
+    if constexpr (HOLD) {
+      return f[ks];
+    } else {
+      ldsm_x4<false>(base + ks * 32, f[0]);
+      return f[0];
+    }
+  }
+};
+
+// acc (16 x N, n8 fragments) = A . B^T over the head dim, B an [N][LD]
+// tile whose rows are acc's columns; into zeroed fragments
+template <int DP, int N, bool HOLD>
+__device__ __forceinline__ void dot_nt(float (&acc)[N / 8][4],
+                                       RowsA<DP, HOLD>& a,
+                                       const bf16* b_tile, int lane) {
+  constexpr int LD = Geo<DP>::LD;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t b0 = smem_addr(b_tile + dl4j_mma::b_n(lane) * LD +
+                                dl4j_mma::b_k(lane));
+#pragma unroll
+  for (int ks = 0; ks < Geo<DP>::KS; ++ks) {
+    const uint32_t(&af)[4] = a.at(ks);
+#pragma unroll
+    for (int h = 0; h < N / 16; ++h) {
+      uint32_t b[4];
+      ldsm_x4<false>(b0 + (h * 16 * LD + ks * 16) * 2, b);
+      mma_16816(acc[2 * h], af, b[0], b[1]);
+      mma_16816(acc[2 * h + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+// C fragments (16 x N) as the A operand of the next product (16-deep
+// steps over N), rounded to bf16: the rounding point before ds.K, p^T.dO
+// and ds^T.Q
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&c)[N / 8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks) {
+    a[ks][0] = pack2(c[2 * ks][0], c[2 * ks][1]);
+    a[ks][1] = pack2(c[2 * ks][2], c[2 * ks][3]);
+    a[ks][2] = pack2(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    a[ks][3] = pack2(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+  }
+}
+
+// tot (16 x DP) += A . B, A the packed 16 x N operand, B an [N][LD] tile
+// whose rows are the reduction index (read with ldmatrix.trans). Each
+// pair of n8 fragments takes the tile's product into zeroed fragments
+// and adds it to the running sums in round-to-nearest f32: the tensor
+// cores' own accumulation rounds toward zero, a bias that would grow
+// over the up to 128 tiles of a sequence of 8192.
+template <int DP, int N>
+__device__ __forceinline__ void acc_nn(float (&tot)[Geo<DP>::NF][4],
+                                       const uint32_t (&a)[N / 16][4],
+                                       const bf16* b_tile, int lane) {
+  constexpr int LD = Geo<DP>::LD;
+  const uint32_t b0 = smem_addr(b_tile + dl4j_mma::b_trans_k(lane) * LD +
+                                dl4j_mma::b_trans_n(lane));
+#pragma unroll
+  for (int h = 0; h < DP / 16; ++h) {
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4<true>(b0 + (ks * 16 * LD + h * 16) * 2, b);
+      mma_16816(c[0], a[ks], b[0], b[1]);
+      mma_16816(c[1], a[ks], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      tot[2 * h][e] = __fadd_rn(tot[2 * h][e], c[0][e]);
+      tot[2 * h + 1][e] = __fadd_rn(tot[2 * h + 1][e], c[1][e]);
+    }
+  }
+}
+
+// a warp's 16 x DP sums (this lane's rows r_lo and r_lo + 8) into the
+// rows below n_rows and the columns below d of a [n_rows, d] bf16 matrix
+template <int DP>
+__device__ __forceinline__ void store_tot(bf16* out,
+                                          const float (&tot)[Geo<DP>::NF][4],
+                                          int r_lo, int n_rows, int d,
+                                          int lane) {
+#pragma unroll
+  for (int n = 0; n < Geo<DP>::NF; ++n) {
+    const int col = n * 8 + 2 * (lane & 3);
+    if (col >= d) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + 8 * h;
+      if (row < n_rows)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * d + col) =
+            pack2(tot[n][2 * h], tot[n][2 * h + 1]);
+    }
+  }
+}
+
+// The tile plan by head dim (padded to 32, 64 or 128), from the kernels'
+// times at T=8192 on the H100: the walked tiles are 64 rows; up to 64
+// the A operands are held in registers and the registers capped for three
+// blocks an SM (dk/dv at 64 spills a few hundred bytes for it and is
+// faster all the same); at 128, where the sums of dk and dv alone take
+// 128 registers a thread, the A operands are read from shared memory at
+// each step and one block's registers are not capped.
+template <int DP>
+struct Plan {
+  static constexpr int kTile = 64;
+  static constexpr bool kHold = DP <= 64;
+  static constexpr int kMinBlocks = DP <= 64 ? 3 : 1;
+};
+
+// the shared memory of each kernel, in bytes: its own rows' two tiles,
+// two buffers of the walked tile's two, and (dk/dv) lse and delta
+template <int DP>
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * (2 * kOwn + 4 * Plan<DP>::kTile) * Geo<DP>::LD;
+}
+template <int DP>
+constexpr size_t dkv_smem() {
+  return dq_smem<DP>() + sizeof(float) * 4 * Plan<DP>::kTile;
+}
+
+// dq: a block owns 64 queries (16 a warp), holds their q and dO as A
+// operands and walks the key tiles of BK keys up to the causal limit,
+// double-buffered: S = Q.K^T and dP = dO.V^T into the accumulators, p and
+// ds there too, ds repacked as the A operand of dQ += ds.K.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc, Plan<DP>::kMinBlocks)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const unsigned char* __restrict__ kmask,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int bh_n, int heads,
+                            int tq, int tk, int d, int causal, float scale,
+                            float scale_log2) {
+  constexpr int LD = Geo<DP>::LD;
+  constexpr int BK = Plan<DP>::kTile;
+  constexpr bool HOLD = Plan<DP>::kHold;
+  constexpr int NF = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kOwn][LD]
+  bf16* do_s = q_s + kOwn * LD;                   // [kOwn][LD]
+  bf16* k_s = do_s + kOwn * LD;                   // [2][BK][LD]
+  bf16* v_s = k_s + 2 * BK * LD;                  // [2][BK][LD]
+
+  const int n_qt = (tq + kOwn - 1) / kOwn;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / bh_n)) * kOwn;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t rb = (size_t)bh * tq;
+  const bf16* kb = k + (size_t)bh * tk * d;
+  const bf16* vb = v + (size_t)bh * tk * d;
+  const unsigned char* km =
+      kmask ? kmask + (size_t)(bh / heads) * tk : nullptr;
+
+  const int k_end = causal ? min(tk, q0 + kOwn) : tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  stage_rows<DP, kOwn>(q_s, q + rb * d, q0, tq, d);
+  stage_rows<DP, kOwn>(do_s, dout + rb * d, q0, tq, d);
+  if (n_kt > 0) {
+    stage_rows<DP, BK>(k_s, kb, 0, tk, d);
+    stage_rows<DP, BK>(v_s, vb, 0, tk, d);
+  }
+  dl4j_mma::cp_async_commit();
+
+  // this lane's rows of the accumulators: r_lo and r_lo + 8
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    lse2[h] = row < tq ? __fmul_rn(lse[rb + row], kLog2e) : 0.f;
+    dl[h] = row < tq ? delta[rb + row] : 0.f;
+  }
+  float tot[Geo<DP>::NF][4];
+#pragma unroll
+  for (int n = 0; n < Geo<DP>::NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[n][e] = 0.f;
+  RowsA<DP, HOLD> qa, da;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < n_kt) {  // the next tile in flight over this one's work
+      stage_rows<DP, BK>(k_s + ((j + 1) & 1) * BK * LD, kb, k0 + BK, tk, d);
+      stage_rows<DP, BK>(v_s + ((j + 1) & 1) * BK * LD, vb, k0 + BK, tk, d);
+    }
+    dl4j_mma::cp_async_commit();
+    dl4j_mma::cp_async_wait<1>();
+    __syncthreads();
+    if (j == 0) {
+      qa.init(q_s, 16 * warp, lane);
+      da.init(do_s, 16 * warp, lane);
+    }
+    const bf16* kt = k_s + (j & 1) * BK * LD;
+    const bf16* vt = v_s + (j & 1) * BK * LD;
+    float s[NF][4], dp[NF][4];
+    dot_nt<DP, BK>(s, qa, kt, lane);
+    dot_nt<DP, BK>(dp, da, vt, lane);
+
+    // ds = p (dp - delta) scale, into s; masks only where they bite:
+    // the diagonal tile, the ragged tail of the keys, a key mask
+    auto probs = [&](auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = __fmul_rn(s[n][e], scale_log2);
+          bool ok = true;
+          if (kMasked) {
+            const int row = r_lo + 8 * (e >> 1);
+            const int key = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            ok = key < tk && (km == nullptr || km[key] != 0) &&
+                 (!causal || key <= row);
+            // before the exponential: a masked raw score above the
+            // row's lse would overflow to inf, and 0 * inf = NaN
+            if (!ok) x = kNegInf;
+          }
+          float p = exp2f(__fsub_rn(x, lse2[e >> 1]));
+          if (kMasked && !ok) p = 0.f;
+          s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], dl[e >> 1])),
+                              scale);
+        }
+    };
+    if (km != nullptr || k0 + BK > tk || (causal && k0 + BK - 1 > q0))
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    uint32_t dsa[BK / 16][4];
+    pack_a<BK>(dsa, s);
+    acc_nn<DP, BK>(tot, dsa, kt, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+  dl4j_mma::cp_async_wait<0>();
+  store_tot<DP>(dq + rb * d, tot, r_lo, tq, d, lane);
+}
+
+// dk, dv: a block owns 64 keys (16 a warp), holds their k and v as A
+// operands and walks the query tiles of BQ queries from the causal
+// diagonal on, double-buffered with their lse and delta: S^T = K.Q^T and
+// dP^T = V.dO^T put the keys on the accumulator rows, so p^T (rounded)
+// and ds^T (from the unrounded p, then rounded) are already the A
+// operands of dV += p^T.dO and dK += ds^T.Q; lse and delta are per
+// column.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc, Plan<DP>::kMinBlocks)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const unsigned char* __restrict__ kmask,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int bh_n, int heads, int tq, int tk, int d,
+                             int causal, float scale, float scale_log2) {
+  constexpr int LD = Geo<DP>::LD;
+  constexpr int BQ = Plan<DP>::kTile;
+  constexpr bool HOLD = Plan<DP>::kHold;
+  constexpr int NF = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kOwn][LD]
+  bf16* v_s = k_s + kOwn * LD;                    // [kOwn][LD]
+  bf16* q_s = v_s + kOwn * LD;                    // [2][BQ][LD]
+  bf16* do_s = q_s + 2 * BQ * LD;                 // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
+
+  const int bh = blockIdx.x % bh_n;
+  const int k0 = (int)(blockIdx.x / bh_n) * kOwn;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t rb = (size_t)bh * tq;
+  const size_t kbase = (size_t)bh * tk * d;
+  const bf16* qb = q + rb * d;
+  const bf16* dob = dout + rb * d;
+  const unsigned char* km =
+      kmask ? kmask + (size_t)(bh / heads) * tk : nullptr;
+
+  // causal: query rows before the tile's first key see none of it
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < tq ? (tq - q_begin + BQ - 1) / BQ : 0;
+  stage_rows<DP, kOwn>(k_s, k + kbase, k0, tk, d);
+  stage_rows<DP, kOwn>(v_s, v + kbase, k0, tk, d);
+  auto stage_queries = [&](int buf, int q0) {
+    stage_rows<DP, BQ>(q_s + buf * BQ * LD, qb, q0, tq, d);
+    stage_rows<DP, BQ>(do_s + buf * BQ * LD, dob, q0, tq, d);
+    stage_vec<BQ>(lse_s + buf * BQ, lse + rb, q0, tq);
+    stage_vec<BQ>(dl_s + buf * BQ, delta + rb, q0, tq);
+  };
+  if (n_qt > 0) stage_queries(0, q_begin);
+  dl4j_mma::cp_async_commit();
+
+  // this lane's keys (accumulator rows r_lo and r_lo + 8): kept by the
+  // key mask and below tk
+  const int r_lo = k0 + 16 * warp + (lane >> 2);
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = r_lo + 8 * h;
+    key_ok[h] = key < tk && (km == nullptr || km[key] != 0);
+  }
+  float dk_tot[Geo<DP>::NF][4], dv_tot[Geo<DP>::NF][4];
+#pragma unroll
+  for (int n = 0; n < Geo<DP>::NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_tot[n][e] = dv_tot[n][e] = 0.f;
+  RowsA<DP, HOLD> ka, va;
+
+  for (int i = 0; i < n_qt; ++i) {
+    const int q0 = q_begin + i * BQ;
+    if (i + 1 < n_qt) stage_queries((i + 1) & 1, q0 + BQ);
+    dl4j_mma::cp_async_commit();
+    dl4j_mma::cp_async_wait<1>();
+    __syncthreads();
+    if (i == 0) {
+      ka.init(k_s, 16 * warp, lane);
+      va.init(v_s, 16 * warp, lane);
+    }
+    const bf16* qt = q_s + (i & 1) * BQ * LD;
+    const bf16* dot = do_s + (i & 1) * BQ * LD;
+    const float* ls = lse_s + (i & 1) * BQ;
+    const float* dls = dl_s + (i & 1) * BQ;
+    float st[NF][4], dpt[NF][4];
+    dot_nt<DP, BQ>(st, ka, qt, lane);
+    dot_nt<DP, BQ>(dpt, va, dot, lane);
+
+    // p^T into st (f32), ds^T into dpt; masks only where they bite: the
+    // diagonal tile, the ragged tails of queries and keys, a key mask
+    auto probs = [&](auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * (lane & 3) + (e & 1);
+          float x = __fmul_rn(st[n][e], scale_log2);
+          bool ok = true;
+          if (kMasked) {
+            const int query = q0 + col;
+            ok = query < tq && key_ok[e >> 1] &&
+                 (!causal || r_lo + 8 * (e >> 1) <= query);
+            if (!ok) x = kNegInf;  // before the exponential, as in dq
+          }
+          float p = exp2f(__fsub_rn(x, __fmul_rn(ls[col], kLog2e)));
+          if (kMasked && !ok) p = 0.f;
+          st[n][e] = p;
+          dpt[n][e] = __fmul_rn(
+              __fmul_rn(p, __fsub_rn(dpt[n][e], dls[col])), scale);
+        }
+    };
+    if (km != nullptr || k0 + kOwn > tk || q0 + BQ > tq ||
+        (causal && k0 + kOwn - 1 > q0))
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+    pack_a<BQ>(pa, st);
+    pack_a<BQ>(dsa, dpt);
+    acc_nn<DP, BQ>(dv_tot, pa, dot, lane);
+    acc_nn<DP, BQ>(dk_tot, dsa, qt, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+  dl4j_mma::cp_async_wait<0>();
+  store_tot<DP>(dk + kbase, dk_tot, r_lo, tk, d, lane);
+  store_tot<DP>(dv + kbase, dv_tot, r_lo, tk, d, lane);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int DP>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* km, const void* dout, const void* lse,
+                  const void* delta, void* dq, int bh_n, int heads, int tq,
+                  int tk, int d, int causal, float scale, float scale_log2,
+                  cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_mma_kernel<DP>;
+  const size_t smem = dq_smem<DP>();
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  const int n_tiles = (tq + kOwn - 1) / kOwn;
+  kernel<<<n_tiles * bh_n, kThreadsTc, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(km),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), bh_n, heads,
+      tq, tk, d, causal, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dkv_mma(const void* q, const void* k, const void* v,
+                   const void* km, const void* dout, const void* lse,
+                   const void* delta, void* dk, void* dv, int bh_n,
+                   int heads, int tq, int tk, int d, int causal, float scale,
+                   float scale_log2, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_mma_kernel<DP>;
+  const size_t smem = dkv_smem<DP>();
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  const int n_tiles = (tk + kOwn - 1) / kOwn;
+  kernel<<<n_tiles * bh_n, kThreadsTc, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(km),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), bh_n, heads, tq, tk, d, causal, scale,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// what the tensor-core route takes: a head dim that is a multiple of 16
+// up to 128, and 16-byte aligned q, k, v, dO and outputs (the wrapper's
+// route choice and its checks say the same)
+inline int refuse(int d, std::initializer_list<const void*> ptrs) {
+  if (d <= 0 || d % 16 != 0 || d > 128) return (int)cudaErrorInvalidValue;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+int dq(const void* q, const void* k, const void* v, const void* km,
+       const void* dout, const void* lse, const void* delta, void* dq_out,
+       int bh_n, int heads, int tq, int tk, int d, int causal, float scale,
+       float scale_log2, void* stream) {
+  if (const int err = refuse(d, {q, k, v, dout, dq_out})) return err;
+  if (bh_n <= 0 || tq <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 32)
+    return launch_dq_mma<32>(q, k, v, km, dout, lse, delta, dq_out, bh_n,
+                             heads, tq, tk, d, causal, scale, scale_log2, s);
+  if (d <= 64)
+    return launch_dq_mma<64>(q, k, v, km, dout, lse, delta, dq_out, bh_n,
+                             heads, tq, tk, d, causal, scale, scale_log2, s);
+  return launch_dq_mma<128>(q, k, v, km, dout, lse, delta, dq_out, bh_n,
+                            heads, tq, tk, d, causal, scale, scale_log2, s);
+}
+
+int dkv(const void* q, const void* k, const void* v, const void* km,
+        const void* dout, const void* lse, const void* delta, void* dk,
+        void* dv, int bh_n, int heads, int tq, int tk, int d, int causal,
+        float scale, float scale_log2, void* stream) {
+  if (const int err = refuse(d, {q, k, v, dout, dk, dv})) return err;
+  if (bh_n <= 0 || tk <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 32)
+    return launch_dkv_mma<32>(q, k, v, km, dout, lse, delta, dk, dv, bh_n,
+                              heads, tq, tk, d, causal, scale, scale_log2, s);
+  if (d <= 64)
+    return launch_dkv_mma<64>(q, k, v, km, dout, lse, delta, dk, dv, bh_n,
+                              heads, tq, tk, d, causal, scale, scale_log2, s);
+  return launch_dkv_mma<128>(q, k, v, km, dout, lse, delta, dk, dv, bh_n,
+                             heads, tq, tk, d, causal, scale, scale_log2, s);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -679,6 +1266,28 @@ int dl4j_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   return dkv<__nv_bfloat16>(q, k, v, km, dout, lse, delta, dk, dv, bh_n,
                             heads, tq, tk, d, causal, scale, scale_log2,
                             stream);
+}
+
+// the bf16 backward on the tensor cores: head dims that are multiples of
+// 16 up to 128, 16-byte aligned tensors (else an error code, no launch)
+int dl4j_flash_bwd_dq_bf16_mma(const void* q, const void* k, const void* v,
+                               const void* km, const void* dout,
+                               const void* lse, const void* delta,
+                               void* dq_out, int bh_n, int heads, int tq,
+                               int tk, int d, int causal, float scale,
+                               float scale_log2, void* stream) {
+  return tc::dq(q, k, v, km, dout, lse, delta, dq_out, bh_n, heads, tq, tk,
+                d, causal, scale, scale_log2, stream);
+}
+
+int dl4j_flash_bwd_dkv_bf16_mma(const void* q, const void* k, const void* v,
+                                const void* km, const void* dout,
+                                const void* lse, const void* delta, void* dk,
+                                void* dv, int bh_n, int heads, int tq,
+                                int tk, int d, int causal, float scale,
+                                float scale_log2, void* stream) {
+  return tc::dkv(q, k, v, km, dout, lse, delta, dk, dv, bh_n, heads, tq, tk,
+                 d, causal, scale, scale_log2, stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

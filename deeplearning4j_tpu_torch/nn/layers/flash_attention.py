@@ -10,6 +10,14 @@ replaces the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``; the source note there says what bounds them and
 what their design does about that).
 
+The two backward kernels have two routes, chosen by dtype and head dim
+in one place, :func:`backward_route`: bf16 at a head dim that is a
+multiple of 16 up to 128 runs on the tensor cores (``mma.sync`` tiles,
+the C entry points ``*_bf16_mma``); f32 (exact, no TF32) and every other
+head dim up to 256 run on the CUDA cores. Both routes count under the
+same :class:`CudaKernel`. A launch on the tensor-core route that fails
+raises; nothing drops to the other route.
+
 :class:`FlashAttention` saves ``(q, k, v, o, lse)`` in the forward. Its
 backward computes ``delta = rowsum(dO * O)`` in f32 as a plain torch op
 (the JAX package also computes it outside any kernel), then runs the dq
@@ -17,7 +25,8 @@ kernel and the dk/dv kernel.
 
 Each wrapper dispatches on where its tensors lie: CUDA tensors launch
 the kernel (or raise on what it does not take: the dtype, a head dim
-over 256, a non-contiguous tensor; a launch error, such as shared memory
+over 256, a non-contiguous tensor, on the tensor-core route a tensor
+off a 16-byte boundary; a launch error, such as shared memory
 the card refuses, comes back from the kernel's launcher and is raised
 too), CPU tensors take the plain version beside it. There is no
 fallback from the kernel to the plain version and no switch between
@@ -48,9 +57,15 @@ LOG2E = float(np.log2(np.e))   # the scores run in base 2, as on the TPU
 LN2 = float(np.log(2.0))
 
 MAX_HEAD_DIM = 256
+#: the tensor-core backward takes bf16 head dims that are multiples of
+#: TC_HEAD_DIM_STEP up to TC_MAX_HEAD_DIM
+TC_MAX_HEAD_DIM = 128
+TC_HEAD_DIM_STEP = 16
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
-__all__ = ["FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD", "FlashAttention",
-           "agreement", "flash_attention", "flash_attention_bwd_dkv",
+__all__ = ["CUDA_CORES", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD",
+           "FlashAttention", "TENSOR_CORES", "agreement", "backward_route",
+           "flash_attention", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_lse"]
@@ -66,17 +81,43 @@ def _symbols(stem):
             torch.bfloat16: f"dl4j_{stem}_bf16"}
 
 
+def _bwd_symbols(stem):
+    """A backward kernel's entry points by (dtype, route)."""
+    return {(torch.float32, CUDA_CORES): f"dl4j_{stem}_f32",
+            (torch.bfloat16, CUDA_CORES): f"dl4j_{stem}_bf16",
+            (torch.bfloat16, TENSOR_CORES): f"dl4j_{stem}_bf16_mma"}
+
+
 _LIBRARY = CudaLibrary(
     "flash_attention", ["nn/layers/csrc/flash_attention.cu"],
     {**{s: _FWD_ARGS for s in _symbols("flash_fwd").values()},
-     **{s: _BWD_DQ_ARGS for s in _symbols("flash_bwd_dq").values()},
-     **{s: _BWD_DKV_ARGS for s in _symbols("flash_bwd_dkv").values()}})
+     **{s: _BWD_DQ_ARGS for s in _bwd_symbols("flash_bwd_dq").values()},
+     **{s: _BWD_DKV_ARGS for s in _bwd_symbols("flash_bwd_dkv").values()}},
+    headers=["nn/layers/csrc/conv_mma.cuh"])
 
-#: the three kernels; each ``.launches`` counts its launches
+#: the three kernels; each ``.launches`` counts its launches (the two
+#: backward kernels' on either route)
 FLASH_FWD = CudaKernel(_LIBRARY, "flash_fwd", _symbols("flash_fwd"))
-FLASH_BWD_DQ = CudaKernel(_LIBRARY, "flash_bwd_dq", _symbols("flash_bwd_dq"))
+FLASH_BWD_DQ = CudaKernel(_LIBRARY, "flash_bwd_dq",
+                          _bwd_symbols("flash_bwd_dq"))
 FLASH_BWD_DKV = CudaKernel(_LIBRARY, "flash_bwd_dkv",
-                           _symbols("flash_bwd_dkv"))
+                           _bwd_symbols("flash_bwd_dkv"))
+
+
+def backward_route(dtype, d) -> str:
+    """The route of the dq and dk/dv kernels for ``dtype`` and head dim
+    ``d``: TENSOR_CORES for bf16 at a multiple of 16 up to 128, else
+    CUDA_CORES (f32 stays exact f32). Raises on what no route takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash backward kernels take float32 or "
+                         f"bfloat16, got {dtype}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash backward: head dim {d} is not in "
+                         f"1..{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and d % TC_HEAD_DIM_STEP == 0 and \
+            d <= TC_MAX_HEAD_DIM:
+        return TENSOR_CORES
+    return CUDA_CORES
 
 
 def _shape(q, k, v, key_mask, causal):
@@ -105,11 +146,9 @@ def _acc_dtype(dtype):
 
 def _check_cuda(name, d, **tensors):
     """Raise on what the kernel does not take; every tensor lies on the
-    first one's CUDA device, is contiguous and has its dtype."""
+    first one's device, is contiguous and has its dtype, and that device
+    is a CUDA device (checked last)."""
     first = next(iter(tensors.values()))
-    if first.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
-                         f"{first.device}")
     if first.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} kernel takes float32 or bfloat16, got "
                          f"{first.dtype}")
@@ -124,6 +163,9 @@ def _check_cuda(name, d, **tensors):
             raise ValueError(f"{name}: {key} must be contiguous")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} exceeds {MAX_HEAD_DIM}")
+    if first.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
+                         f"{first.device}")
 
 
 def agreement(x, ref):
@@ -222,11 +264,12 @@ def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta, causal=False):
     _check_rows(q, do, lse, delta)
     km = _key_flags(key_mask, q.device)
     dq = torch.empty_like(q)
-    FLASH_BWD_DQ.launch(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        _ptr(km), do.data_ptr(), lse.data_ptr(),
-                        delta.data_ptr(), dq.data_ptr(), b * h, h, tq, tk, d,
-                        int(causal), _scale(d), _scale(d) * LOG2E,
-                        _stream(q))
+    route = _checked_route("flash_attention_bwd_dq", q, k, v, do, dq)
+    FLASH_BWD_DQ.launch((q.dtype, route), q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), _ptr(km), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                        b * h, h, tq, tk, d, int(causal), _scale(d),
+                        _scale(d) * LOG2E, _stream(q))
     return dq
 
 
@@ -244,12 +287,26 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
     km = _key_flags(key_mask, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    FLASH_BWD_DKV.launch(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         _ptr(km), do.data_ptr(), lse.data_ptr(),
-                         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                         b * h, h, tq, tk, d, int(causal), _scale(d),
-                         _scale(d) * LOG2E, _stream(q))
+    route = _checked_route("flash_attention_bwd_dkv", q, k, v, do, dk, dv)
+    FLASH_BWD_DKV.launch((q.dtype, route), q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), _ptr(km), do.data_ptr(),
+                         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), b * h, h, tq, tk, d, int(causal),
+                         _scale(d), _scale(d) * LOG2E, _stream(q))
     return dk, dv
+
+
+def _checked_route(name, q, *tensors):
+    """The backward route for q's dtype and head dim; on the tensor-core
+    route every bf16 tensor must start on a 16-byte boundary (its
+    copies are 16 bytes wide)."""
+    route = backward_route(q.dtype, q.shape[-1])
+    if route == TENSOR_CORES:
+        for t in (q, *tensors):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the tensor-core route needs "
+                                 f"16-byte aligned tensors")
+    return route
 
 
 def _check_rows(q, do, lse, delta):

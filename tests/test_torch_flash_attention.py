@@ -298,3 +298,85 @@ def test_agreement_scales_with_each_row():
     assert fa.agreement(noisy, tiny)[0] == pytest.approx(1e-9)
     noisy[:, :, 3, 0] = 0.5
     assert fa.agreement(noisy, tiny)[0] == pytest.approx(0.5)
+
+
+# The backward's two routes, chosen by dtype and head dim in one place:
+# bf16 at a multiple of 16 up to 128 on the tensor cores, the rest (f32
+# exact, other bf16 head dims up to 256) on the CUDA cores.
+ROUTES = [
+    (torch.bfloat16, 32, fa.TENSOR_CORES),
+    (torch.bfloat16, 64, fa.TENSOR_CORES),
+    (torch.bfloat16, 128, fa.TENSOR_CORES),
+    (torch.bfloat16, 16, fa.TENSOR_CORES),
+    (torch.float32, 64, fa.CUDA_CORES),
+    (torch.float32, 128, fa.CUDA_CORES),
+    (torch.bfloat16, 40, fa.CUDA_CORES),
+    (torch.bfloat16, 144, fa.CUDA_CORES),
+    (torch.bfloat16, 256, fa.CUDA_CORES),
+]
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTES)
+def test_backward_route_by_dtype_and_head_dim(dtype, d, route):
+    assert fa.backward_route(dtype, d) == route
+    # both kernels have an entry point for the pair, under one counter
+    for kern, stem in ((fa.FLASH_BWD_DQ, "flash_bwd_dq"),
+                       (fa.FLASH_BWD_DKV, "flash_bwd_dkv")):
+        sym = kern.symbols[dtype, route]
+        assert sym.startswith(f"dl4j_{stem}_")
+        assert sym in kern.library.functions
+
+
+def test_the_tensor_core_entry_points_are_in_the_source():
+    src = fa._LIBRARY.sources[0].read_text()
+    for kern in (fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
+        assert f"int {kern.symbols[torch.bfloat16, fa.TENSOR_CORES]}(" in src
+    assert any(h.name == "conv_mma.cuh" for h in fa._LIBRARY.headers)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 257),
+                                     (torch.float32, 0),
+                                     (torch.float16, 64)])
+def test_backward_route_refuses_what_no_route_takes(dtype, d):
+    with pytest.raises(ValueError):
+        fa.backward_route(dtype, d)
+
+
+def _meta(d, tq=8, tk=8, dtype=torch.bfloat16):
+    """Tensors with shapes and no storage: the wrappers' checks run on
+    them as on CUDA tensors (the device is checked last)."""
+    def t(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return (t(1, 2, tq, d), t(1, 2, tk, d), t(1, 2, tk, d), None,
+            t(1, 2, tq, d), t(1, 2, tq, dt=torch.float32),
+            t(1, 2, tq, dt=torch.float32))
+
+
+@pytest.mark.parametrize("wrapper", [fa.flash_attention_bwd_dq,
+                                     fa.flash_attention_bwd_dkv])
+def test_backward_wrappers_raise_on_what_no_route_takes(wrapper):
+    with pytest.raises(ValueError, match="exceeds 256"):
+        wrapper(*_meta(264), causal=True)
+    q, k, v, km, do, lse, delta = _meta(64)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, km,
+                do, lse, delta, True)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        wrapper(q, k, v, km, do, lse, delta, True)
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTES[:1] + ROUTES[4:7])
+def test_backward_wrappers_launch_the_route_they_chose(monkeypatch, dtype,
+                                                       d, route):
+    """Past the device check, each wrapper hands its kernel the
+    (dtype, route) key that backward_route gives, and nothing else."""
+    seen = []
+    monkeypatch.setattr(fa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    for kern in (fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
+        monkeypatch.setattr(kern, "launch",
+                            lambda key, *args: seen.append(key))
+    args = _meta(d, dtype=dtype)
+    fa.flash_attention_bwd_dq(*args, causal=True)
+    fa.flash_attention_bwd_dkv(*args, causal=True)
+    assert seen == [(dtype, route)] * 2
