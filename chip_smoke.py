@@ -21,15 +21,16 @@ Phases (any failure exits nonzero):
    causal, cross attention with Tq != Tk, a key mask with one fully
    masked row, a T that is no tile multiple (f32 and bf16) and one
    under a tile (T=40, bf16), bf16 causal at head dims 32 and 128
-   (T=2048: the tensor-core backward's other tile plans), and bf16 at
-   head dim 40 (off that route: the CUDA-core backward); each
+   (T=2048: the tensor-core kernels' other tile plans), and bf16 at
+   head dim 40 (off that route: the CUDA-core kernels); each
    output held to limits relative to each row's and each 64-row tile's
    own size, and in bf16 shown to tell apart a kernel that dropped its
-   rounding points; in every bf16 case dq, dk and dv launched twice and
-   bitwise equal; each case records its backward route and each
-   kernel's achieved TFLOP/s beside its bound. Before them, the flash
-   library's SASS (``cuobjdump -sass``): the tensor-core dq and dk/dv
-   kernels hold HMMA.16816.F32.BF16, the CUDA-core ones none. The int8
+   rounding points; in every bf16 case the forward (o, lse), dq, dk and
+   dv launched twice and bitwise equal; each case records its kernels'
+   route (``flash_attention.kernel_route``) and each kernel's achieved
+   TFLOP/s beside its bound. Before them, the flash library's SASS
+   (``cuobjdump -sass``): the tensor-core forward, dq and dk/dv kernels
+   hold HMMA.16816.F32.BF16, the CUDA-core ones none. The int8
    paged decode (``paged_quant``): the engine and
    GQA/verify shapes over int8 pools with power-of-two page scales, bf16
    and f32 queries, SDPA timed on the dequantized dense view, the limits
@@ -64,17 +65,22 @@ Phases (any failure exits nonzero):
    (vocab 256, width 512, 8 heads, 6 layers, max_length 8192, Adam(3e-4),
    bf16) through ``net.fit`` on one fixed batch of 4 x 8192 tokens: one
    warm-up step, then 5 timed steps; the loss must be finite and fall,
-   and each flash kernel must launch 6 times per step;
+   and each flash kernel must launch 6 times per step. Then the
+   non-finite sentinel's cost (steps with its policy "off" and "skip"
+   in turns), and one step on the batch with a NaN planted, which must
+   leave the parameters, Adam's state and the layer state bit-equal and
+   count one skipped step;
 8. train reference: in f32 with 2 layers at the same width and T=1024,
    two Adam steps with the kernels and two with their plain versions
    swapped in give the same parameters;
 8b. train reference bf16 (``train_reference_bf16``): bf16, 2 layers at
    the same width, T=2048, B=4: one backward of the loss from the same
-   parameters and batch with the kernels (the tensor-core backward) and
-   with their plain versions swapped in. The kernels' dq, dk and dv on
-   the path's own tensors within phase 3b's limits of the plain
-   versions' on the same arguments (dv from the unrounded p, planted in
-   the plain dk/dv, fails them); each parameter leaf's gradient within
+   parameters and batch with the kernels (the tensor-core forward and
+   backward) and with their plain versions swapped in. The kernels' o,
+   lse, dq, dk and dv on the path's own tensors within phase 3b's limits
+   of the plain versions' on the same arguments (the forward with p
+   unrounded before P.V and dv from the unrounded p, planted in the
+   plain versions, fail them); each parameter leaf's gradient within
    TRAIN_BF16_GRAD_REL (relative L2) of the plain backward's (ds
    without its delta term, planted the same way, fails it) and within
    TRAIN_BF16_GRAD_REL_ALL of all three plain versions', as phase 8
@@ -308,6 +314,9 @@ N_REQUESTS, NEW_TOKENS, SYSTEM_PREFIX = 16, 128, 64
 
 # the trained model (bench_all.py's transformer_train_T8192)
 TRAIN_VOCAB, TRAIN_T, TRAIN_B, TRAIN_STEPS = 256, 8192, 4, 5
+# the non-finite sentinel's cost: fit steps with its policy "off" and
+# "skip" (the default) in turns, each turn this many steps
+SENTINEL_TURNS, SENTINEL_TURN_STEPS = ("off", "skip", "skip", "off"), 2
 # The bf16 training-path check (train_reference_bf16): one backward of
 # 2 layers at full width, T=2048, each leaf's gradient by grad_rel. On
 # the H100 the kernels' dq, dk and dv sit 1.5e-6 to 4.8e-6 (tile_rel)
@@ -970,11 +979,11 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
     dq = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta, causal)
     torch.cuda.synchronize()
-    route = fa.backward_route(dtype, D)
+    route = fa.kernel_route(dtype, D)
     case = {"case": label, "dtype": str(dtype).split(".")[-1],
             "shape": [B, H, tq, tk, D], "causal": causal,
             "key_lengths": lengths,
-            "routes": {"flash_fwd": fa.CUDA_CORES, "flash_bwd_dq": route,
+            "routes": {"flash_fwd": route, "flash_bwd_dq": route,
                        "flash_bwd_dkv": route},
             "limits": {"row_rel": FLASH_ROW[dtype],
                        "tile_rel_o": FLASH_TILE[dtype, "o"],
@@ -989,15 +998,17 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
     case.update(rec)
     if dtype == torch.bfloat16:
         # no atomics: a second launch on the same inputs is bitwise equal
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, km, causal)
         dq2 = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, causal)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
                                               causal)
         case["bitwise_repeat"] = {
+            "o": bool(torch.equal(o, o2)), "lse": bool(torch.equal(lse, lse2)),
             "dq": bool(torch.equal(dq, dq2)), "dk": bool(torch.equal(dk, dk2)),
             "dv": bool(torch.equal(dv, dv2))}
         failures += [f"{n} not bitwise equal over two launches"
                      for n, same in case["bitwise_repeat"].items() if not same]
-        del dq2, dk2, dv2
+        del o2, lse2, dq2, dk2, dv2
     torch.cuda.synchronize()
     if lengths is not None and 0 in lengths:
         row = lengths.index(0)
@@ -1061,7 +1072,7 @@ def flash_case(label, shape, dtype, causal, device, exp_rate, seed,
 def check_flash_kernels(device, exp_rate):
     """The training shape first (compared and timed at T=8192; the plain
     versions hold their [B,H,T,T] f32 tensors in place, ~30 GB), then
-    the edge cases at T <= 2048: the tensor-core backward's other head
+    the edge cases at T <= 2048: the tensor-core kernels' other head
     dims (32, the zoo default's, and 128), a bf16 head dim off that
     route (40, the CUDA-core kernels), and the ragged tails in bf16."""
     w = WIDTH // HEADS
@@ -1096,9 +1107,9 @@ def check_flash_kernels(device, exp_rate):
 
 def flash_sass():
     """The flash library's SASS (``cuobjdump -sass``): the tensor-core
-    backward kernels' functions must hold HMMA.16816.F32.BF16 (mma.sync
-    m16n8k16, bf16 in, f32 out) and the CUDA-core ones none. Returns
-    {function: HMMA count} by kernel template."""
+    kernels' functions (forward, dq, dk/dv) must hold HMMA.16816.F32.BF16
+    (mma.sync m16n8k16, bf16 in, f32 out) and the CUDA-core ones none.
+    Returns {function: HMMA count} by kernel template."""
     from pathlib import Path
 
     from deeplearning4j_tpu_torch.cuda_library import nvcc_path
@@ -1116,8 +1127,8 @@ def flash_sass():
             counts[fn] += 1
     by_kernel = {}
     for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkv_mma_kernel"):
+                 "flash_bwd_dkv_kernel", "flash_fwd_mma_kernel",
+                 "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel"):
         by_kernel[name] = {f: c for f, c in counts.items()
                            if f"{len(name)}{name}I" in f}
     rec = {"tool": str(tool), "hmma_16816_f32_bf16": by_kernel}
@@ -1559,10 +1570,71 @@ def train_model(layers, T, seed):
         updater=Adam(3e-4), seed=seed)
 
 
+def timed_fit(net, x, y):
+    """Wall seconds of one fit step that ends in a host read of its
+    loss, and the loss."""
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=TRAIN_B)
+    loss = net.score_value
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, loss
+
+
+def sentinel_turns(net, x, y):
+    """The sentinel's cost: fit steps with the policy "off" and "skip"
+    in turns (SENTINEL_TURNS), each step's ms by policy."""
+    ms = {p: [] for p in set(SENTINEL_TURNS)}
+    try:
+        for policy in SENTINEL_TURNS:
+            net.nonfinite_policy = policy
+            for _ in range(SENTINEL_TURN_STEPS):
+                ms[policy].append(1e3 * timed_fit(net, x, y)[0])
+    finally:
+        net.nonfinite_policy = None
+    return {"turns": list(SENTINEL_TURNS), "steps_per_turn":
+            SENTINEL_TURN_STEPS, "step_ms": ms,
+            "step_ms_median": {p: float(np.median(t)) for p, t in
+                               ms.items()}}
+
+
+def nan_step(net, x, y):
+    """One fit step on the batch with one NaN planted in its features,
+    under the default policy: the parameters, Adam's state (t included)
+    and the layer state must stay bit-equal on the card, and the
+    sentinel must count one bad, skipped step."""
+    from deeplearning4j_tpu_torch.nn.updater import tree_leaves
+    bad = x.copy()
+    bad[1, 7, TRAIN_T // 2] = np.nan
+    acct = net._sentinel_accounting
+    counts0 = (acct.bad_steps, acct.skipped_updates, acct.total_steps)
+    trees = (net.params, net.updater_state, net.state)
+    before = [[t.clone() for t in tree_leaves(tree)] for tree in trees]
+    net.fit(bad, y, batch_size=TRAIN_B)
+    loss = net.score_value
+    after = [tree_leaves(tree) for tree in (net.params, net.updater_state,
+                                            net.state)]
+    equal = {name: len(a) == len(b) and all(
+        torch.equal(u, w) for u, w in zip(a, b))
+        for name, a, b in zip(("params", "updater_state", "state"), after,
+                              before)}
+    rec = {"loss": loss, "bit_equal": equal,
+           "adam_t": int(net.updater_state["t"]),
+           "bad_steps": acct.bad_steps - counts0[0],
+           "skipped_updates": acct.skipped_updates - counts0[1],
+           "steps": acct.total_steps - counts0[2]}
+    if np.isfinite(loss) or not all(equal.values()) or \
+            (rec["bad_steps"], rec["skipped_updates"], rec["steps"]) != \
+            (1, 1, 1):
+        raise AssertionError(f"train: the NaN step was not skipped: {rec}")
+    return rec
+
+
 def train(device, rng):
     """bench_all.py's transformer_train_T8192 through ``net.fit``: one
     warm-up step, then TRAIN_STEPS timed steps on one fixed batch, with
-    every kernel count set to 0 just before them and read just after."""
+    every kernel count set to 0 just before them and read just after.
+    Then the sentinel's policy "off" and "skip" in turns, and one step
+    on the batch with a NaN planted, which must change nothing."""
     net = train_model(LAYERS, TRAIN_T, seed=3).init(device=device)
     net.conf.dtype = "bfloat16"
     x, y = one_hot_batch(rng, TRAIN_B, TRAIN_VOCAB, TRAIN_T)
@@ -1575,13 +1647,13 @@ def train(device, rng):
     losses, step_s = [], []
     zero_counts()
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        net.fit(x, y, batch_size=TRAIN_B)
-        losses.append(net.score_value)      # a host read of the loss
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+        s, loss = timed_fit(net, x, y)     # a host read of the loss
+        step_s.append(s)
+        losses.append(loss)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
+    turns = sentinel_turns(net, x, y)
+    nan = nan_step(net, x, y)
     want = TRAIN_STEPS * LAYERS
     rec = {"config": {"vocab": TRAIN_VOCAB, "width": WIDTH, "heads": HEADS,
                       "layers": LAYERS, "T": TRAIN_T, "batch": TRAIN_B,
@@ -1592,6 +1664,7 @@ def train(device, rng):
            "step_ms_median": 1e3 * float(np.median(step_s)),
            "tokens_per_s": TRAIN_B * TRAIN_T / float(np.median(step_s)),
            "max_memory_allocated_bytes": peak, "launches": counts,
+           "sentinel_turns": turns, "nan_step": nan,
            "iteration_count": net.iteration_count}
     log("train:", json.dumps(rec))
     if not all(np.isfinite(losses)) or not losses[-1] < min(first,
@@ -1715,13 +1788,45 @@ def dkv_unrounded_p(q, k, v, km, do, lse, delta, causal=False):
     return dk, dv.to(v.dtype)
 
 
+def fwd_unrounded_p(q, k, v, km, causal=False):
+    """A planted fault: the plain forward with p left unrounded before
+    P.V (f32 p times the widened V), o rounded as a kernel stores it."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    o, lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                          km, causal)
+    return o.to(q.dtype), lse
+
+
+def fwd_on_path(args, got):
+    """A forward's (o, lse) on the training path's own arguments against
+    the plain version's on the same arguments, by phase 3b's measures:
+    o's row and tile agreement, lse's largest error, and o's distance
+    (tile) from the forward without its rounding point. Returns (record,
+    failures)."""
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    o, lse = got
+    ref_o, ref_lse = fa.flash_attention_fwd_plain(*args)
+    row_rel, tile_rel = fa.agreement(o, ref_o)
+    rec = {"row_rel": row_rel, "tile_rel": tile_rel,
+           "lse_max_abs_err": max_err(lse, ref_lse),
+           "o_from_unrounded": fa.agreement(o, fwd_unrounded_p(*args)[0])[1]}
+    failures = [n for n, bad in (
+        ("o row", row_rel > FLASH_ROW[torch.bfloat16]),
+        ("o tile", tile_rel > FLASH_TILE[torch.bfloat16, "o"]),
+        ("lse", rec["lse_max_abs_err"] > FLASH_LSE),
+        ("o is the unrounded forward",
+         rec["o_from_unrounded"] < FLASH_UNROUNDED)) if bad]
+    return rec, failures
+
+
 def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
     """bf16, 2 layers at full width, T=2048: one backward of the loss
-    from the same parameters and batch. The dq and dk/dv kernels'
-    outputs on the path's own tensors against the plain versions on the
-    same arguments, by phase 3b's row and tile limits, which dv from the
-    unrounded p (planted in the plain dk/dv) fails. Then leaf by leaf
-    (grad_rel): the kernels against the plain dq and dk/dv swapped in
+    from the same parameters and batch. The forward, dq and dk/dv
+    kernels' outputs on the path's own tensors against the plain
+    versions on the same arguments, by phase 3b's row, tile and lse
+    limits, which the forward with p unrounded before P.V and dv from
+    the unrounded p (planted in the plain versions) fail. Then leaf by
+    leaf (grad_rel): the kernels against the plain dq and dk/dv swapped in
     (the forward kernel in both) within TRAIN_BF16_GRAD_REL, a limit
     that ds without its delta term (planted in the swapped-in plain
     dk/dv) fails; and against all three plain versions swapped in, as
@@ -1741,7 +1846,8 @@ def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
             calls.append((fn.__name__, args, out))
             return out
         return call
-    swaps = {"kernels": {n: recorded(vars(fa)[n]) for n in backward},
+    swaps = {"kernels": {n: recorded(vars(fa)[n])
+                         for n in (*backward, "flash_attention_fwd")},
              "plain_backward": backward,
              "plain": {**backward,
                        "flash_attention_fwd": fa.flash_attention_fwd_plain},
@@ -1759,12 +1865,17 @@ def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
         finally:
             vars(fa).update(old)
         runs[label] = (loss, grads, read_counts())
-    # the kernels' outputs on the training path's own tensors (layer 1's
-    # backward first), against the plain versions on the same arguments
-    # by phase 3b's measures; the unrounded-p fault on the same arguments
-    on_path, fault_on_path = [], []
+    # the kernels' outputs on the training path's own tensors (the
+    # forwards, then layer 1's backward first), against the plain
+    # versions on the same arguments by phase 3b's measures; the
+    # unrounded-p faults on the same arguments
+    on_path, fault_on_path, fwd_path, fwd_fault = [], [], [], []
     with torch.no_grad():
         for name, args, out in calls:
+            if name == "flash_attention_fwd":
+                fwd_path.append(fwd_on_path(args, out))
+                fwd_fault.append(fwd_on_path(args, fwd_unrounded_p(*args)))
+                continue
             plain = vars(fa)[name + "_plain"](*args)
             if name.endswith("dq"):
                 pairs = [("dq", out, plain)]
@@ -1786,12 +1897,14 @@ def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
               for label in runs}
     rec = {"dtype": "bfloat16", "layers": 2, "width": WIDTH, "T": T,
-           "batch": B, "route": fa.backward_route(torch.bfloat16,
-                                                  WIDTH // HEADS),
+           "batch": B, "route": fa.kernel_route(torch.bfloat16,
+                                                WIDTH // HEADS),
            "losses": {label: r[0] for label, r in runs.items()},
            "limit": TRAIN_BF16_GRAD_REL,
            "limit_against_all_plain": TRAIN_BF16_GRAD_REL_ALL,
            "worst_leaf_rel": worst,
+           "forward_on_path": [r for r, _ in fwd_path],
+           "forward_unrounded_p_on_path": [r for r, _ in fwd_fault],
            "kernels_on_path": on_path,
            "unrounded_p_dv_on_path_tile_rel": fault_on_path,
            **{f"{label}_leaf_rel": r for label, r in rel.items()},
@@ -1800,8 +1913,12 @@ def train_reference_bf16(device, T=TRAIN_BF16_T, B=TRAIN_B):
     failures = [f"{a['output']} on the path" for a in on_path
                 if a["row_rel"] > FLASH_ROW[torch.bfloat16]
                 or a["tile_rel"] > FLASH_TILE[torch.bfloat16, "grad"]]
-    if len(on_path) != 6:
+    failures += [f"forward on the path: {f}" for _, fs in fwd_path
+                 for f in fs]
+    if len(on_path) != 6 or len(fwd_path) != 2:
         failures.append("kernel calls recorded")
+    if not all(fs for _, fs in fwd_fault):
+        failures.append("the forward's limits pass p unrounded before P.V")
     if not min(fault_on_path) > FLASH_TILE[torch.bfloat16, "grad"]:
         failures.append("the tile limit passes dv from the unrounded p")
     if worst["kernels"] > TRAIN_BF16_GRAD_REL:
@@ -4711,7 +4828,7 @@ def main(argv=None) -> int:
         for line in lines:
             log(f"  {name}: {line}")
 
-    out = {"card": smi, "build_s": build_s}
+    out = {"card": smi, "build_s": build_s, "build_ptxas": build_logs}
     phase_s = {}
 
     def phase(name, fn, *a):

@@ -7,18 +7,19 @@
 //   flash_bwd_dq_kernel   <- `_bwd_dq_kernel`  (pallas_call in `_run_bwd_kernels`)
 //   flash_bwd_dkv_kernel  <- `_bwd_dkv_kernel` (pallas_call in `_run_bwd_kernels`)
 // and, for bf16 head dims that are multiples of 16 up to 128, the
-// tensor-core twins of the last two, tc::flash_bwd_dq_mma_kernel and
-// tc::flash_bwd_dkv_mma_kernel (the entry points *_bf16_mma).
+// tensor-core twins of all three, tc::flash_fwd_mma_kernel,
+// tc::flash_bwd_dq_mma_kernel and tc::flash_bwd_dkv_mma_kernel (the entry
+// points *_bf16_mma).
 // Each computes what its TPU kernel computes, with the same rounding
 // points and masking:
 //   - scores in base 2: s = (q . k) * (scale * log2 e), masked to the
 //     finite -1e30 before the exponential, and the masked probabilities
 //     zeroed explicitly afterwards, so a fully masked row (key mask of
 //     length 0) gives o = 0 and finite, zero gradients;
-//   - forward: online softmax (running max m, sum l, f32 accumulator),
-//     p rounded to V's dtype before P.V, o = acc / max(l, 1e-30) rounded
-//     to the input dtype, lse = m ln 2 + log(max(l, 1e-30)) in f32 with a
-//     natural log;
+//   - forward: online softmax (running max m, sum l of the unrounded f32
+//     p, f32 accumulator), p rounded to V's dtype before P.V, o = acc /
+//     max(l, 1e-30) rounded to the input dtype, lse = m ln 2 + log(max(l,
+//     1e-30)) in f32 with a natural log;
 //   - dq: p = exp2(s - lse log2 e), ds = p (dO.V^T - delta) scale, ds
 //     rounded to K's dtype before ds.K, f32 accumulation;
 //   - dk, dv: p rounded to dO's dtype before p^T.dO, ds rounded to Q's
@@ -41,51 +42,62 @@
 // the most work), so the tail of the grid is short blocks.
 //
 // What bounds it on an H100. At the training shape (B=4, H=8, T=8192,
-// D=64, causal, bf16) the forward does ~2.75e11 matmul flops and 1.07e9
+// D=64, causal, bf16) the forward does ~2.75e11 matmul flops and ~1.07e9
 // exponentials over 134 MB of q, k, v and o: at the tensor cores' 989
 // TFLOP/s the flops take ~0.28 ms, the exponentials about as long on the
-// special-function units, the bytes ~0.04 ms. dq does 1.5x the forward's
-// flops, dk/dv 2x. So all three are bounded by operations.
+// special-function units (16 a clock an SM), the bytes ~0.04 ms. dq does
+// 1.5x the forward's flops, dk/dv 2x. So all three are bounded by
+// operations, and none of them reaches that bound on the f32 CUDA cores
+// (67 TFLOP/s): the products have to run on the tensor cores, and the
+// per-score work between them (scale, mask, exponential, the running max
+// and sum) has to stay in registers, off shared memory.
 //
-// Two designs. The forward, f32 everywhere, and bf16 head dims off the
-// tensor-core route (not a multiple of 16, or over 128) run the first,
-// simple one: tiles of q/k/v/dO staged in shared memory as f32 (rows
-// padded to an odd stride, so that a warp's reads are free of bank
-// conflicts), and every dot product on the f32 CUDA cores, each thread
-// owning a 4x4 (or 2x2) block of the score tile and a strip of the
-// output tile in registers. Its ceiling is the f32 rate (67 TFLOP/s); f32
-// stays exact f32 there (no TF32).
+// Two designs. f32 everywhere, and bf16 head dims off the tensor-core
+// route (not a multiple of 16, or over 128), run the first, simple one:
+// tiles of q/k/v/dO staged in shared memory as f32 (rows padded to an
+// odd stride, so that a warp's reads are free of bank conflicts), and
+// every dot product on the f32 CUDA cores, each thread owning a 4x4 (or
+// 2x2) block of the score tile and a strip of the output tile in
+// registers; the forward's p makes a round trip through shared memory.
+// Its ceiling is the f32 rate; f32 stays exact f32 there (no TF32).
 //
-// The bf16 backward at head dims that are multiples of 16 up to 128 (the
-// namespace tc below) runs on the tensor cores: mma.sync m16n8k16, bf16
-// operands, f32 accumulators, fed by ldmatrix from bf16 tiles (conv_mma.cuh's
-// primitives). A block of four warps owns 64 rows (16 a warp) and holds their
-// operands as A fragments in registers (read again from shared memory at each
-// step where registers are short, D > 64). dq owns queries: S = Q.K^T and dP
-// = dO.V^T land in the accumulators, p and ds are computed there, and ds,
-// packed to bf16 (the rounding point before ds.K), is the A operand of dQ +=
-// ds.K, K read through ldmatrix.trans: ds never goes through shared memory.
-// dk/dv owns keys and computes the transposed scores S^T = K.Q^T and dP^T =
-// V.dO^T, so the keys are the accumulator rows and p^T (rounded to bf16) and
-// ds^T (from the unrounded f32 p, then rounded) are already the A operands of
-// dV += p^T.dO and dK += ds^T.Q; lse and delta are per column there, staged
-// beside each query tile. The next K/V tile (dq) or Q/dO/lse/delta tile
-// (dk/dv) is copied with 16-byte cp.async (zero-filled past T and d) while
-// the warps multiply the current one. Masks only where they bite: interior
-// causal tiles take an unmasked body, as the JAX kernels' _dispatch does; the
-// diagonal, the ragged tails and every tile under a key mask mask before the
-// exponential and zero after it. Each tile's dq, dk or dv product is taken
-// into zeroed fragments and added to the running sums with a round-to-nearest
-// f32 add (the tensor cores' own accumulation rounds toward zero, and a T of
-// 8192 has 128 tiles). No atomics: a repeated launch is bitwise equal. What
-// bounds it now (on an H100 at the training shape, dq at about a quarter of
-// the tensor cores' peak and dk/dv a little less, PERF.md): four warps a
-// block and three blocks an SM (168 registers a thread; dk/dv spills a few
-// hundred bytes for it), so little latency hiding; the exponential, the
-// scaling and the masks per element on the FMA and special-function pipes
-// between the products; mma.sync's share of the tensor cores' rate. wgmma fed
-// by TMA with warp specialisation (a producer warp, consumer warpgroups) is
-// the next step.
+// bf16 at head dims that are multiples of 16 up to 128 (the namespace tc
+// below) runs on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+// accumulators, fed by ldmatrix from bf16 tiles (conv_mma.cuh's
+// primitives). A block of four warps owns 64 rows (16 a warp; the
+// forward's 128 up to D=64, 32 a warp, so that each ldmatrix of K or V
+// feeds two products: with one, the shared-memory reads take as long as
+// the products) and holds their operands as A fragments in registers
+// (read again from shared memory at each step where registers are short,
+// D > 64). The forward and
+// dq own queries: S = Q.K^T (and, for dq, dP = dO.V^T) land in the
+// accumulators. The forward keeps its online softmax there: each lane
+// holds two rows' running max and sum, reduced over the four lanes of a
+// quad with shuffles, and p, packed to bf16 (the rounding point before
+// P.V), is the A operand of O += P.V with V read through ldmatrix.trans.
+// dq computes p and ds there, and ds, packed to bf16 (the rounding point
+// before ds.K), is the A operand of dQ += ds.K. So neither p nor ds goes
+// through shared memory. dk/dv owns keys and computes the transposed
+// scores S^T = K.Q^T and dP^T = V.dO^T, so the keys are the accumulator
+// rows and p^T (rounded to bf16) and ds^T (from the unrounded f32 p, then
+// rounded) are already the A operands of dV += p^T.dO and dK += ds^T.Q;
+// lse and delta are per column there, staged beside each query tile. The
+// next K/V tile (forward, dq) or Q/dO/lse/delta tile (dk/dv) is copied
+// with 16-byte cp.async (zero-filled past T and d) while the warps
+// multiply the current one. Masks only where they bite: interior causal
+// tiles take an unmasked body, as the JAX kernels' _dispatch does; the
+// diagonal, the ragged tails and every tile under a key mask mask before
+// the exponential and zero after it. Each tile's o, dq, dk or dv product
+// is taken into zeroed fragments and added to the running sums with a
+// round-to-nearest f32 add (the tensor cores' own accumulation rounds
+// toward zero, and a T of 8192 has 128 tiles). No atomics: a repeated
+// launch is bitwise equal. What bounds them now (on an H100 at the
+// training shape, a quarter to a third of the tensor cores' peak,
+// PERF.md): four warps a block and few blocks an SM, so little latency
+// hiding; the exponential, the scaling and the masks per element on the
+// FMA and special-function pipes between the products; mma.sync's share
+// of the tensor cores' rate. wgmma fed by TMA with warp specialisation (a
+// producer warp, consumer warpgroups) is the next step.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -665,7 +677,7 @@ int dkv(const void* q, const void* k, const void* v, const void* km,
 }
 
 // ---------------------------------------------------------------------
-// bf16 backward on the tensor cores (head dims 16..128, multiples of 16)
+// bf16 on the tensor cores (head dims 16..128, multiples of 16)
 // ---------------------------------------------------------------------
 namespace tc {
 
@@ -750,30 +762,50 @@ struct RowsA {
   }
 };
 
-// acc (16 x N, n8 fragments) = A . B^T over the head dim, B an [N][LD]
-// tile whose rows are acc's columns; into zeroed fragments
-template <int DP, int N, bool HOLD>
-__device__ __forceinline__ void dot_nt(float (&acc)[N / 8][4],
-                                       RowsA<DP, HOLD>& a,
-                                       const bf16* b_tile, int lane) {
+// acc[mt] (16 x N each, n8 fragments) = A[mt] . B^T over the head dim
+// for MT row tiles, B an [N][LD] tile whose rows are acc's columns, each
+// ldmatrix of B feeding MT products; into zeroed fragments
+template <int DP, int N, int MT, bool HOLD>
+__device__ __forceinline__ void dot_nt_rows(float (&acc)[MT][N / 8][4],
+                                            RowsA<DP, HOLD> (&a)[MT],
+                                            const bf16* b_tile, int lane) {
   constexpr int LD = Geo<DP>::LD;
 #pragma unroll
-  for (int n = 0; n < N / 8; ++n)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
   const uint32_t b0 = smem_addr(b_tile + dl4j_mma::b_n(lane) * LD +
                                 dl4j_mma::b_k(lane));
 #pragma unroll
   for (int ks = 0; ks < Geo<DP>::KS; ++ks) {
-    const uint32_t(&af)[4] = a.at(ks);
+    const uint32_t* af[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) af[mt] = a[mt].at(ks);
 #pragma unroll
     for (int h = 0; h < N / 16; ++h) {
       uint32_t b[4];
       ldsm_x4<false>(b0 + (h * 16 * LD + ks * 16) * 2, b);
-      mma_16816(acc[2 * h], af, b[0], b[1]);
-      mma_16816(acc[2 * h + 1], af, b[2], b[3]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t(&am)[4] =
+            *reinterpret_cast<const uint32_t(*)[4]>(af[mt]);
+        mma_16816(acc[mt][2 * h], am, b[0], b[1]);
+        mma_16816(acc[mt][2 * h + 1], am, b[2], b[3]);
+      }
     }
   }
+}
+
+// dot_nt_rows of one row tile
+template <int DP, int N, bool HOLD>
+__device__ __forceinline__ void dot_nt(float (&acc)[N / 8][4],
+                                       RowsA<DP, HOLD>& a,
+                                       const bf16* b_tile, int lane) {
+  dot_nt_rows<DP, N, 1, HOLD>(
+      reinterpret_cast<float(&)[1][N / 8][4]>(acc),
+      reinterpret_cast<RowsA<DP, HOLD>(&)[1]>(a), b_tile, lane);
 }
 
 // C fragments (16 x N) as the A operand of the next product (16-deep
@@ -791,35 +823,55 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
   }
 }
 
-// tot (16 x DP) += A . B, A the packed 16 x N operand, B an [N][LD] tile
-// whose rows are the reduction index (read with ldmatrix.trans). Each
+// tot[mt] (16 x DP) += A[mt] . B for MT row tiles, A[mt] the packed
+// 16 x N operand, B an [N][LD] tile whose rows are the reduction index
+// (read with ldmatrix.trans), each ldmatrix feeding MT products. Each
 // pair of n8 fragments takes the tile's product into zeroed fragments
 // and adds it to the running sums in round-to-nearest f32: the tensor
 // cores' own accumulation rounds toward zero, a bias that would grow
 // over the up to 128 tiles of a sequence of 8192.
-template <int DP, int N>
-__device__ __forceinline__ void acc_nn(float (&tot)[Geo<DP>::NF][4],
-                                       const uint32_t (&a)[N / 16][4],
-                                       const bf16* b_tile, int lane) {
+template <int DP, int N, int MT>
+__device__ __forceinline__ void acc_nn_rows(
+    float (&tot)[MT][Geo<DP>::NF][4], const uint32_t (&a)[MT][N / 16][4],
+    const bf16* b_tile, int lane) {
   constexpr int LD = Geo<DP>::LD;
   const uint32_t b0 = smem_addr(b_tile + dl4j_mma::b_trans_k(lane) * LD +
                                 dl4j_mma::b_trans_n(lane));
 #pragma unroll
   for (int h = 0; h < DP / 16; ++h) {
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float c[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][0][e] = c[mt][1][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < N / 16; ++ks) {
       uint32_t b[4];
       ldsm_x4<true>(b0 + (ks * 16 * LD + h * 16) * 2, b);
-      mma_16816(c[0], a[ks], b[0], b[1]);
-      mma_16816(c[1], a[ks], b[2], b[3]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_16816(c[mt][0], a[mt][ks], b[0], b[1]);
+        mma_16816(c[mt][1], a[mt][ks], b[2], b[3]);
+      }
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      tot[2 * h][e] = __fadd_rn(tot[2 * h][e], c[0][e]);
-      tot[2 * h + 1][e] = __fadd_rn(tot[2 * h + 1][e], c[1][e]);
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tot[mt][2 * h][e] = __fadd_rn(tot[mt][2 * h][e], c[mt][0][e]);
+        tot[mt][2 * h + 1][e] = __fadd_rn(tot[mt][2 * h + 1][e], c[mt][1][e]);
+      }
   }
+}
+
+// acc_nn_rows of one row tile
+template <int DP, int N>
+__device__ __forceinline__ void acc_nn(float (&tot)[Geo<DP>::NF][4],
+                                       const uint32_t (&a)[N / 16][4],
+                                       const bf16* b_tile, int lane) {
+  acc_nn_rows<DP, N, 1>(
+      reinterpret_cast<float(&)[1][Geo<DP>::NF][4]>(tot),
+      reinterpret_cast<const uint32_t(&)[1][N / 16][4]>(a), b_tile, lane);
 }
 
 // a warp's 16 x DP sums (this lane's rows r_lo and r_lo + 8) into the
@@ -1119,8 +1171,227 @@ __global__ void __launch_bounds__(kThreadsTc, Plan<DP>::kMinBlocks)
   store_tot<DP>(dv + kbase, dv_tot, r_lo, tk, d, lane);
 }
 
+// The forward's plan by head dim: a warp owns MT m16 row tiles (32 rows
+// up to D=64, so that one ldmatrix of K or V feeds two products and the
+// shared-memory reads per product halve; 16 rows at D=128, where two
+// tiles' sums would not fit in the registers), four warps a block, the
+// walked key tiles of Plan (64 keys, Q held in registers up to D=64).
+template <int DP>
+struct FwdPlan {
+  static constexpr int kMT = DP <= 64 ? 2 : 1;
+  static constexpr int kRows = 16 * kMT * kWarps;  // a block's queries
+  static constexpr int kMinBlocks = 2;
+};
+
+// the forward's shared memory, in bytes: its own queries' tile and two
+// buffers of the walked key tile's k and v
+template <int DP>
+constexpr size_t fwd_smem() {
+  return sizeof(bf16) * (FwdPlan<DP>::kRows + 4 * Plan<DP>::kTile) *
+         Geo<DP>::LD;
+}
+
+// forward: a block owns FwdPlan's queries (16 MT a warp), holds their q as
+// A operands and walks the key tiles of BK keys up to the causal limit,
+// double-buffered: S = Q.K^T into the accumulators, the online softmax
+// there (a lane holds rows r_lo and r_lo + 8 of each of its row tiles; a
+// row's max and sum are reduced over the four lanes of its quad), p
+// packed to bf16 as the A operand of O += P.V (V read through
+// ldmatrix.trans): p never touches shared memory. l sums the unrounded
+// f32 p.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc, FwdPlan<DP>::kMinBlocks)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const unsigned char* __restrict__ kmask,
+                         bf16* __restrict__ o, float* __restrict__ lse,
+                         int bh_n, int heads, int tq, int tk, int d,
+                         int causal, float scale_log2) {
+  constexpr int LD = Geo<DP>::LD;
+  constexpr int BK = Plan<DP>::kTile;
+  constexpr bool HOLD = Plan<DP>::kHold;
+  constexpr int MT = FwdPlan<DP>::kMT;
+  constexpr int ROWS = FwdPlan<DP>::kRows;
+  constexpr int NF = BK / 8;
+  static_assert(NF * 4 <= 32, "one validity bit a score of a row tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* k_s = q_s + ROWS * LD;                    // [2][BK][LD]
+  bf16* v_s = k_s + 2 * BK * LD;                  // [2][BK][LD]
+
+  const int n_qt = (tq + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / bh_n)) * ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t rb = (size_t)bh * tq;
+  const bf16* kb = k + (size_t)bh * tk * d;
+  const bf16* vb = v + (size_t)bh * tk * d;
+  const unsigned char* km =
+      kmask ? kmask + (size_t)(bh / heads) * tk : nullptr;
+
+  // causal: keys past the block's last query are never visible
+  const int k_end = causal ? min(tk, q0 + ROWS) : tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  stage_rows<DP, ROWS>(q_s, q + rb * d, q0, tq, d);
+  if (n_kt > 0) {
+    stage_rows<DP, BK>(k_s, kb, 0, tk, d);
+    stage_rows<DP, BK>(v_s, vb, 0, tk, d);
+  }
+  dl4j_mma::cp_async_commit();
+
+  // this lane's rows of row tile mt: r_lo + 16 mt and that + 8
+  const int r_lo = q0 + 16 * MT * warp + (lane >> 2);
+  float m[MT][2], l[MT][2];
+  float tot[MT][Geo<DP>::NF][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = kNegInf;
+      l[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < Geo<DP>::NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][n][e] = 0.f;
+  }
+  RowsA<DP, HOLD> qa[MT];
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < n_kt) {  // the next tile in flight over this one's work
+      stage_rows<DP, BK>(k_s + ((j + 1) & 1) * BK * LD, kb, k0 + BK, tk, d);
+      stage_rows<DP, BK>(v_s + ((j + 1) & 1) * BK * LD, vb, k0 + BK, tk, d);
+    }
+    dl4j_mma::cp_async_commit();
+    dl4j_mma::cp_async_wait<1>();
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        qa[mt].init(q_s, 16 * (MT * warp + mt), lane);
+    }
+    const bf16* kt = k_s + (j & 1) * BK * LD;
+    const bf16* vt = v_s + (j & 1) * BK * LD;
+    float s[MT][NF][4];
+    dot_nt_rows<DP, BK, MT>(s, qa, kt, lane);
+
+    // the online softmax step of each row tile, p into s; masks only
+    // where they bite: the diagonal tiles, the ragged tail of the keys, a
+    // key mask
+    auto softmax = [&](auto masked_tag) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r0 = r_lo + 16 * mt;
+        uint32_t valid = 0xffffffffu;
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = __fmul_rn(s[mt][n][e], scale_log2);
+            if (kMasked) {
+              const int row = r0 + 8 * (e >> 1);
+              const int key = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+              const bool ok = key < tk && (km == nullptr || km[key] != 0) &&
+                              (!causal || key <= row);
+              if (!ok) {  // before the exponential
+                x = kNegInf;
+                valid &= ~(1u << (n * 4 + e));
+              }
+            }
+            s[mt][n][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          mx[h] = fmaxf(m[mt][h], mx[h]);  // the new running max
+        }
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(__fsub_rn(s[mt][n][e], mx[e >> 1]));
+            // explicit zeroing: in a fully masked row exp2(-1e30 - -1e30)
+            // = 1
+            if (kMasked && !((valid >> (n * 4 + e)) & 1u)) p = 0.f;
+            s[mt][n][e] = p;
+            sum[e >> 1] = __fadd_rn(sum[e >> 1], p);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 1));
+          sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 2));
+          corr[h] = exp2f(__fsub_rn(m[mt][h], mx[h]));
+          l[mt][h] = __fadd_rn(__fmul_rn(l[mt][h], corr[h]), sum[h]);
+          m[mt][h] = mx[h];
+        }
+#pragma unroll
+        for (int n = 0; n < Geo<DP>::NF; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tot[mt][n][e] = __fmul_rn(tot[mt][n][e], corr[e >> 1]);
+      }
+    };
+    if (km != nullptr || k0 + BK > tk || (causal && k0 + BK - 1 > q0))
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+    uint32_t pa[MT][BK / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      pack_a<BK>(pa[mt], s[mt]);  // p rounded to bf16 before P.V
+    acc_nn_rows<DP, BK, MT>(tot, pa, vt, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+  dl4j_mma::cp_async_wait<0>();
+
+  // o = acc / max(l, 1e-30); lse = m ln 2 + log(max(l, 1e-30))
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float lc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lc[h] = fmaxf(l[mt][h], 1e-30f);
+      const int row = r_lo + 16 * mt + 8 * h;
+      if ((lane & 3) == 0 && row < tq)
+        lse[rb + row] = __fadd_rn(__fmul_rn(m[mt][h], kLn2), logf(lc[h]));
+    }
+#pragma unroll
+    for (int n = 0; n < Geo<DP>::NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tot[mt][n][e] = __fdiv_rn(tot[mt][n][e], lc[e >> 1]);
+    store_tot<DP>(o + rb * d, tot[mt], r_lo + 16 * mt, tq, d, lane);
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int DP>
+int launch_fwd_mma(const void* q, const void* k, const void* v,
+                   const void* km, void* o, void* lse, int bh_n, int heads,
+                   int tq, int tk, int d, int causal, float scale_log2,
+                   cudaStream_t stream) {
+  auto kernel = flash_fwd_mma_kernel<DP>;
+  const size_t smem = fwd_smem<DP>();
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  const int n_tiles = (tq + FwdPlan<DP>::kRows - 1) / FwdPlan<DP>::kRows;
+  kernel<<<n_tiles * bh_n, kThreadsTc, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(km),
+      static_cast<bf16*>(o), static_cast<float*>(lse), bh_n, heads, tq, tk,
+      d, causal, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 template <int DP>
@@ -1172,6 +1443,22 @@ inline int refuse(int d, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   return 0;
+}
+
+int fwd(const void* q, const void* k, const void* v, const void* km,
+        void* o, void* lse, int bh_n, int heads, int tq, int tk, int d,
+        int causal, float scale_log2, void* stream) {
+  if (const int err = refuse(d, {q, k, v, o})) return err;
+  if (bh_n <= 0 || tq <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 32)
+    return launch_fwd_mma<32>(q, k, v, km, o, lse, bh_n, heads, tq, tk, d,
+                              causal, scale_log2, s);
+  if (d <= 64)
+    return launch_fwd_mma<64>(q, k, v, km, o, lse, bh_n, heads, tq, tk, d,
+                              causal, scale_log2, s);
+  return launch_fwd_mma<128>(q, k, v, km, o, lse, bh_n, heads, tq, tk, d,
+                             causal, scale_log2, s);
 }
 
 int dq(const void* q, const void* k, const void* v, const void* km,
@@ -1268,8 +1555,16 @@ int dl4j_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                             stream);
 }
 
-// the bf16 backward on the tensor cores: head dims that are multiples of
-// 16 up to 128, 16-byte aligned tensors (else an error code, no launch)
+// bf16 on the tensor cores: head dims that are multiples of 16 up to
+// 128, 16-byte aligned tensors (else an error code, no launch)
+int dl4j_flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
+                            const void* km, void* o, void* lse, int bh_n,
+                            int heads, int tq, int tk, int d, int causal,
+                            float scale_log2, void* stream) {
+  return tc::fwd(q, k, v, km, o, lse, bh_n, heads, tq, tk, d, causal,
+                 scale_log2, stream);
+}
+
 int dl4j_flash_bwd_dq_bf16_mma(const void* q, const void* k, const void* v,
                                const void* km, const void* dout,
                                const void* lse, const void* delta,

@@ -10,11 +10,11 @@ replaces the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``; the source note there says what bounds them and
 what their design does about that).
 
-The two backward kernels have two routes, chosen by dtype and head dim
-in one place, :func:`backward_route`: bf16 at a head dim that is a
-multiple of 16 up to 128 runs on the tensor cores (``mma.sync`` tiles,
-the C entry points ``*_bf16_mma``); f32 (exact, no TF32) and every other
-head dim up to 256 run on the CUDA cores. Both routes count under the
+The three kernels have two routes, chosen by dtype and head dim in one
+place, :func:`kernel_route`: bf16 at a head dim that is a multiple of 16
+up to 128 runs on the tensor cores (``mma.sync`` tiles, the C entry
+points ``*_bf16_mma``); f32 (exact, no TF32) and every other head dim up
+to 256 run on the CUDA cores. Both routes of a kernel count under the
 same :class:`CudaKernel`. A launch on the tensor-core route that fails
 raises; nothing drops to the other route.
 
@@ -57,18 +57,18 @@ LOG2E = float(np.log2(np.e))   # the scores run in base 2, as on the TPU
 LN2 = float(np.log(2.0))
 
 MAX_HEAD_DIM = 256
-#: the tensor-core backward takes bf16 head dims that are multiples of
+#: the tensor-core kernels take bf16 head dims that are multiples of
 #: TC_HEAD_DIM_STEP up to TC_MAX_HEAD_DIM
 TC_MAX_HEAD_DIM = 128
 TC_HEAD_DIM_STEP = 16
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 __all__ = ["CUDA_CORES", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD",
-           "FlashAttention", "TENSOR_CORES", "agreement", "backward_route",
-           "flash_attention", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dq_plain", "flash_attention_fwd",
-           "flash_attention_fwd_plain", "flash_attention_lse"]
+           "FlashAttention", "TENSOR_CORES", "agreement", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_lse", "kernel_route"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 6 + [_I] * 6 + [_F, _P]
@@ -77,12 +77,7 @@ _BWD_DKV_ARGS = [_P] * 9 + [_I] * 6 + [_F, _F, _P]
 
 
 def _symbols(stem):
-    return {torch.float32: f"dl4j_{stem}_f32",
-            torch.bfloat16: f"dl4j_{stem}_bf16"}
-
-
-def _bwd_symbols(stem):
-    """A backward kernel's entry points by (dtype, route)."""
+    """A kernel's entry points by (dtype, route)."""
     return {(torch.float32, CUDA_CORES): f"dl4j_{stem}_f32",
             (torch.bfloat16, CUDA_CORES): f"dl4j_{stem}_bf16",
             (torch.bfloat16, TENSOR_CORES): f"dl4j_{stem}_bf16_mma"}
@@ -91,28 +86,29 @@ def _bwd_symbols(stem):
 _LIBRARY = CudaLibrary(
     "flash_attention", ["nn/layers/csrc/flash_attention.cu"],
     {**{s: _FWD_ARGS for s in _symbols("flash_fwd").values()},
-     **{s: _BWD_DQ_ARGS for s in _bwd_symbols("flash_bwd_dq").values()},
-     **{s: _BWD_DKV_ARGS for s in _bwd_symbols("flash_bwd_dkv").values()}},
+     **{s: _BWD_DQ_ARGS for s in _symbols("flash_bwd_dq").values()},
+     **{s: _BWD_DKV_ARGS for s in _symbols("flash_bwd_dkv").values()}},
     headers=["nn/layers/csrc/conv_mma.cuh"])
 
-#: the three kernels; each ``.launches`` counts its launches (the two
-#: backward kernels' on either route)
+#: the three kernels; each ``.launches`` counts its launches on either
+#: route
 FLASH_FWD = CudaKernel(_LIBRARY, "flash_fwd", _symbols("flash_fwd"))
 FLASH_BWD_DQ = CudaKernel(_LIBRARY, "flash_bwd_dq",
-                          _bwd_symbols("flash_bwd_dq"))
+                          _symbols("flash_bwd_dq"))
 FLASH_BWD_DKV = CudaKernel(_LIBRARY, "flash_bwd_dkv",
-                           _bwd_symbols("flash_bwd_dkv"))
+                           _symbols("flash_bwd_dkv"))
 
 
-def backward_route(dtype, d) -> str:
-    """The route of the dq and dk/dv kernels for ``dtype`` and head dim
-    ``d``: TENSOR_CORES for bf16 at a multiple of 16 up to 128, else
-    CUDA_CORES (f32 stays exact f32). Raises on what no route takes."""
+def kernel_route(dtype, d) -> str:
+    """The route of the forward, dq and dk/dv kernels for ``dtype`` and
+    head dim ``d``: TENSOR_CORES for bf16 at a multiple of 16 up to 128,
+    else CUDA_CORES (f32 stays exact f32). Raises on what no route
+    takes."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash backward kernels take float32 or "
-                         f"bfloat16, got {dtype}")
+        raise ValueError(f"flash kernels take float32 or bfloat16, got "
+                         f"{dtype}")
     if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash backward: head dim {d} is not in "
+        raise ValueError(f"flash kernels: head dim {d} is not in "
                          f"1..{MAX_HEAD_DIM}")
     if dtype == torch.bfloat16 and d % TC_HEAD_DIM_STEP == 0 and \
             d <= TC_MAX_HEAD_DIM:
@@ -245,9 +241,11 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal=False):
     km = _key_flags(key_mask, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    FLASH_FWD.launch(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     _ptr(km), o.data_ptr(), lse.data_ptr(), b * h, h, tq,
-                     tk, d, int(causal), _scale(d) * LOG2E, _stream(q))
+    route = _checked_route("flash_attention_fwd", q, k, v, o)
+    FLASH_FWD.launch((q.dtype, route), q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), _ptr(km), o.data_ptr(), lse.data_ptr(),
+                     b * h, h, tq, tk, d, int(causal), _scale(d) * LOG2E,
+                     _stream(q))
     return o, lse
 
 
@@ -297,10 +295,10 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
 
 
 def _checked_route(name, q, *tensors):
-    """The backward route for q's dtype and head dim; on the tensor-core
+    """The kernel route for q's dtype and head dim; on the tensor-core
     route every bf16 tensor must start on a 16-byte boundary (its
     copies are 16 bytes wide)."""
-    route = backward_route(q.dtype, q.shape[-1])
+    route = kernel_route(q.dtype, q.shape[-1])
     if route == TENSOR_CORES:
         for t in (q, *tensors):
             if t.data_ptr() % 16:

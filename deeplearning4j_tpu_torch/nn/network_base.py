@@ -6,12 +6,14 @@ tensor}}`` trees (f32 master weights; keys are vertex names in a graph,
 layer indices ``"0"``, ``"1"``, ... in a sequential network), the state
 and the updater state in trees of the same keys, and train the same way:
 one autograd pass over the forward, gradient normalization, the
-updater's steps subtracted. This base holds that, the compute-dtype copy
-of the parameters that inference reuses, the last loss
-(``score_value``, read from the device on first access, as the JAX
+updater's steps subtracted, under the non-finite sentinel
+(``resilience/sentinel.py``: by default a step whose loss or raw
+gradients are not finite changes nothing). This base holds that, the
+compute-dtype copy of the parameters that inference reuses, the last
+loss (``score_value``, read from the device on first access, as the JAX
 package's ``LazyScore``), the parameter and state loaders from the JAX
-package's numpy trees, and the fit options the port refuses
-(ROADMAP.md A5).
+package's numpy trees, and the fit options the port refuses (ROADMAP.md
+A5).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.nn.compute import bf16_cast_tree
 from deeplearning4j_tpu_torch.nn.conf.layers import STREAM_STATE_KEYS
 from deeplearning4j_tpu_torch.nn.updater import normalize_gradients, tree_map
+from deeplearning4j_tpu_torch.resilience.sentinel import (
+    effective_policy, guard_updates, record_step_flag, tree_finite)
 
 __all__ = ["BF16", "NetworkBase"]
 
@@ -43,9 +47,8 @@ class NetworkBase:
         self.iteration_count = 0
         self.epoch_count = 0
         self._score_raw: Any = float("nan")
-        #: the non-finite sentinel policy of the JAX package's fit
-        #: loops; the port trains without the sentinel, and fit refuses
-        #: a policy set here (ROADMAP.md A5)
+        #: the non-finite sentinel's policy ("skip", "record", "off");
+        #: None takes the process default (resilience/sentinel.py)
         self.nonfinite_policy = None
         self.device = None
         self._initialized = False
@@ -171,8 +174,14 @@ class NetworkBase:
         state) for leaf copies of the f32 parameters; the gradients by
         autograd, normalized, the updater's steps subtracted; the new
         state kept detached (no step's graph stays alive in it, as none
-        crosses a jitted step in the JAX package). Returns the loss (on
-        the device)."""
+        crosses a jitted step in the JAX package). Under the sentinel's
+        policy (not "off") the loss and the raw gradients are tested on
+        the device, and the flag read once, after the update is queued
+        (``resilience/sentinel.py`` says why); under "skip" a bad step
+        leaves the parameters, the updater state and the layer state as
+        they were. Returns the loss (on the device)."""
+        policy = effective_policy(self)
+        old_state = self.state
         params = tree_map(lambda t: t.detach().requires_grad_(),
                           self.params)
         loss, new_state = loss_fn(params)
@@ -183,14 +192,24 @@ class NetworkBase:
         for (v, k), g in zip(leaves, grads):
             tree[v][k] = torch.zeros_like(params[v][k]) if g is None else g
         conf = self.conf
+        new_state = tree_map(
+            lambda t: t.detach() if torch.is_tensor(t) else t, new_state)
         with torch.no_grad():
+            # the raw gradients: normalization must not hide an Inf
+            ok = None if policy == "off" else tree_finite(loss, tree)
             tree = normalize_gradients(tree, conf.gradient_normalization,
                                        conf.gradient_normalization_threshold)
-            steps, self.updater_state = conf.updater.update(
+            steps, new_upd = conf.updater.update(
                 tree, self.updater_state, self.params)
-            self.params = tree_map(lambda p, s: p - s, self.params, steps)
-        self.state = tree_map(
-            lambda t: t.detach() if torch.is_tensor(t) else t, new_state)
+            new_params = tree_map(lambda p, s: p - s, self.params, steps)
+            new = (new_params, new_upd, new_state)
+            good = ok is None or bool(ok)      # the step's one host read
+            if not good:
+                new = guard_updates(ok, policy, (new_params, self.params),
+                                    (new_upd, self.updater_state),
+                                    (new_state, old_state))
+        self.params, self.updater_state, self.state = new
+        record_step_flag(self, good, policy)
         return loss.detach()
 
     def _fit_iterator(self, data, labels, batch_size, *, steps_per_dispatch,
@@ -204,9 +223,7 @@ class NetworkBase:
         if prefetch or pad_tail:
             raise NotImplementedError("device prefetch and tail padding "
                                       "are not ported yet (ROADMAP.md A5)")
-        if self.nonfinite_policy is not None:
-            raise NotImplementedError("the non-finite sentinel is not "
-                                      "ported yet (ROADMAP.md A5)")
+        effective_policy(self)   # raises on a policy it does not know
         if labels is not None:
             it = ArrayDataSetIterator(data, labels, batch_size)
         elif isinstance(data, DataSet):

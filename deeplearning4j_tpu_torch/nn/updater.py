@@ -12,7 +12,10 @@ subtracts the steps. Trees are nested dicts of tensors
 ``Adam`` is the JAX package's formula, not ``torch.optim.Adam``'s:
 epsilon is added to ``sqrt(v)`` and the bias correction is folded into
 one factor ``corr = sqrt(1 - beta2^t) / (1 - beta1^t)`` taken in f32, so
-the steps agree with the JAX package's.
+the steps agree with the JAX package's. Its step count ``t`` is a 0-d
+int32 tensor on the parameters' device, as the JAX package keeps it, so
+the non-finite sentinel's select (``resilience/sentinel.py``) treats it
+as it treats every other leaf of the state.
 """
 
 from __future__ import annotations
@@ -119,20 +122,25 @@ class Adam(Updater):
     epsilon: float = 1e-8
 
     def init_state(self, params):
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else None
         return {"m": tree_map(torch.zeros_like, params),
-                "v": tree_map(torch.zeros_like, params), "t": 0}
+                "v": tree_map(torch.zeros_like, params),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
 
     def update(self, grads, state, params, lr_scale=1.0):
         lr = self._lr(lr_scale)
-        t = int(state["t"]) + 1
+        t = state["t"] + 1
         b1, b2 = self.beta1, self.beta2
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
         v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"],
                      grads)
-        tf = torch.tensor(float(t), dtype=torch.float32)
-        corr = torch.sqrt(1.0 - b2 ** tf) / (1.0 - b1 ** tf)
+        tf = t.to(torch.float32)
+        # lr * corr once (the JAX package's lr * corr * m / ..., whose
+        # first product is the same value for every leaf)
+        lr_corr = lr * (torch.sqrt(1.0 - b2 ** tf) / (1.0 - b1 ** tf))
         steps = tree_map(
-            lambda m_, v_: lr * corr * m_ / (torch.sqrt(v_) + self.epsilon),
+            lambda m_, v_: lr_corr * m_ / (torch.sqrt(v_) + self.epsilon),
             m, v)
         return steps, {"m": m, "v": v, "t": t}
 

@@ -15,9 +15,9 @@ elsewhere) become f32 tensors under the same names
 
 The updater state carries across the same way: the JAX ``Adam`` state
 ``{"m": tree, "v": tree, "t": step}`` taken to numpy becomes the port's
-(trees of f32 tensors, ``t`` a Python int), so a JAX run resumes in the
-port (``tests/test_torch_training.py``); ``RmsProp``'s ``{"g2": tree}``
-and ``Nesterovs``' ``{"v": tree}`` carry across the same way
+(trees of f32 tensors, ``t`` a 0-d int32 tensor), so a JAX run resumes
+in the port (``tests/test_torch_training.py``); ``RmsProp``'s ``{"g2":
+tree}`` and ``Nesterovs``' ``{"v": tree}`` carry across the same way
 (``tests/test_torch_text_lstm.py``). A sequential network's trees are
 keyed by layer index (``"0"``, ``"1"``, ...) instead of vertex name, and
 its state carries the LSTM layers' ``h`` / ``c`` only while it streams
@@ -75,7 +75,8 @@ def state_to_numpy(state) -> dict:
 def updater_state_from_numpy(np_state, device=None) -> dict:
     """An updater state of numpy arrays (nested dicts; floating arrays
     are moment trees, integer scalars step counts) → the port's: f32
-    tensors on ``device`` (default ``"cuda"``) and Python ints."""
+    tensors and 0-d int32 step counts on ``device`` (default
+    ``"cuda"``)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -83,7 +84,7 @@ def updater_state_from_numpy(np_state, device=None) -> dict:
             return {k: conv(v) for k, v in x.items()}
         arr = np.asarray(x)
         if np.issubdtype(arr.dtype, np.integer) and arr.ndim == 0:
-            return int(arr)
+            return torch.tensor(int(arr), dtype=torch.int32, device=dev)
         if not np.issubdtype(arr.dtype, np.floating):
             raise TypeError(f"updater state leaf of dtype {arr.dtype}")
         return torch.tensor(arr, dtype=torch.float32, device=dev)
@@ -96,6 +97,6 @@ def updater_state_to_numpy(state) -> dict:
     int32 scalars, as the JAX package keeps them)."""
     if isinstance(state, dict):
         return {k: updater_state_to_numpy(v) for k, v in state.items()}
-    if isinstance(state, int):
-        return np.asarray(state, np.int32)
+    if not state.dtype.is_floating_point:
+        return np.asarray(int(state), np.int32)
     return state.detach().float().cpu().numpy()

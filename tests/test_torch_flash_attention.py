@@ -300,9 +300,10 @@ def test_agreement_scales_with_each_row():
     assert fa.agreement(noisy, tiny)[0] == pytest.approx(0.5)
 
 
-# The backward's two routes, chosen by dtype and head dim in one place:
-# bf16 at a multiple of 16 up to 128 on the tensor cores, the rest (f32
-# exact, other bf16 head dims up to 256) on the CUDA cores.
+# The kernels' two routes, chosen by dtype and head dim in one place for
+# the forward and both backward kernels: bf16 at a multiple of 16 up to
+# 128 on the tensor cores, the rest (f32 exact, other bf16 head dims up
+# to 256) on the CUDA cores.
 ROUTES = [
     (torch.bfloat16, 32, fa.TENSOR_CORES),
     (torch.bfloat16, 64, fa.TENSOR_CORES),
@@ -318,9 +319,11 @@ ROUTES = [
 
 @pytest.mark.parametrize("dtype,d,route", ROUTES)
 def test_backward_route_by_dtype_and_head_dim(dtype, d, route):
-    assert fa.backward_route(dtype, d) == route
-    # both kernels have an entry point for the pair, under one counter
-    for kern, stem in ((fa.FLASH_BWD_DQ, "flash_bwd_dq"),
+    assert fa.kernel_route(dtype, d) == route
+    # all three kernels have an entry point for the pair, under one
+    # counter each
+    for kern, stem in ((fa.FLASH_FWD, "flash_fwd"),
+                       (fa.FLASH_BWD_DQ, "flash_bwd_dq"),
                        (fa.FLASH_BWD_DKV, "flash_bwd_dkv")):
         sym = kern.symbols[dtype, route]
         assert sym.startswith(f"dl4j_{stem}_")
@@ -329,8 +332,10 @@ def test_backward_route_by_dtype_and_head_dim(dtype, d, route):
 
 def test_the_tensor_core_entry_points_are_in_the_source():
     src = fa._LIBRARY.sources[0].read_text()
-    for kern in (fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
+    for kern in (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
         assert f"int {kern.symbols[torch.bfloat16, fa.TENSOR_CORES]}(" in src
+    assert "dl4j_flash_fwd_bf16_mma" in fa._LIBRARY.functions
+    assert "flash_fwd_mma_kernel" in src
     assert any(h.name == "conv_mma.cuh" for h in fa._LIBRARY.headers)
 
 
@@ -339,7 +344,7 @@ def test_the_tensor_core_entry_points_are_in_the_source():
                                      (torch.float16, 64)])
 def test_backward_route_refuses_what_no_route_takes(dtype, d):
     with pytest.raises(ValueError):
-        fa.backward_route(dtype, d)
+        fa.kernel_route(dtype, d)
 
 
 def _meta(d, tq=8, tk=8, dtype=torch.bfloat16):
@@ -368,15 +373,42 @@ def test_backward_wrappers_raise_on_what_no_route_takes(wrapper):
 @pytest.mark.parametrize("dtype,d,route", ROUTES[:1] + ROUTES[4:7])
 def test_backward_wrappers_launch_the_route_they_chose(monkeypatch, dtype,
                                                        d, route):
-    """Past the device check, each wrapper hands its kernel the
-    (dtype, route) key that backward_route gives, and nothing else."""
+    """Past the device check, each wrapper (the forward and both
+    backward kernels) hands its kernel the (dtype, route) key that
+    kernel_route gives, and nothing else."""
     seen = []
     monkeypatch.setattr(fa, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(fa, "_stream", lambda t: 0)
-    for kern in (fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
+    for kern in (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
         monkeypatch.setattr(kern, "launch",
                             lambda key, *args: seen.append(key))
     args = _meta(d, dtype=dtype)
+    fa.flash_attention_fwd(*args[:4], causal=True)
     fa.flash_attention_bwd_dq(*args, causal=True)
     fa.flash_attention_bwd_dkv(*args, causal=True)
-    assert seen == [(dtype, route)] * 2
+    assert seen == [(dtype, route)] * 3
+
+
+@pytest.mark.parametrize("unaligned", ["q", "k", "v"])
+def test_the_tensor_core_route_refuses_unaligned_tensors(monkeypatch,
+                                                         unaligned):
+    """On the tensor-core route (bf16, D=64) every wrapper refuses a
+    tensor off a 16-byte boundary (its copies are 16 bytes wide) before
+    it launches anything."""
+    monkeypatch.setattr(fa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    for kern in (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
+        monkeypatch.setattr(kern, "launch", lambda *a: pytest.fail(
+            "launched an unaligned tensor"))
+    q, k, v, km, do, lse, delta = _meta(64)
+    t = dict(q=q, k=k, v=v)
+    # one element in: a contiguous view 2 bytes past the boundary
+    t[unaligned] = torch.empty(t[unaligned].numel() + 1,
+                               dtype=torch.bfloat16,
+                               device="meta")[1:].view(t[unaligned].shape)
+    assert t[unaligned].data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_fwd(t["q"], t["k"], t["v"], km, causal=True)
+    for wrapper in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wrapper(t["q"], t["k"], t["v"], km, do, lse, delta, True)
