@@ -14,8 +14,9 @@ Phases (any failure exits nonzero):
    the sources in the checkout, one nvcc each, started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with the kernel's, the plain
-   version's and a library call's times (CUDA events, L2 flushed before
-   each launch) beside the kernel's bound. Paged decode: the engine and
+   version's and a library call's times (CUDA events around the card's
+   time alone, a spin holding the stream while the host enqueues; L2
+   flushed before each launch) beside the kernel's bound. Paged decode: the engine and
    GQA/verify shapes, bf16 and f32. Flash forward, dq and dk/dv: the
    training shape (B=4, H=8, T=8192, D=64, bf16, causal), then f32
    causal, cross attention with Tq != Tk, a key mask with one fully
@@ -94,11 +95,24 @@ Phases (any failure exits nonzero):
     size, the channel sums to 1e-5 of the sum of |output| (against the
     kernel's own stored output), the pool exactly; in bf16 the check is
     shown to fail a version that skips the rounding of the activated
-    input before the dot; a conv launcher given partial sums one row
-    tile short refuses. Times of the
-    kernel, the plain version and the nearest library call (a cuBLAS
-    matmul on the activated input, cuDNN's conv, ``F.max_pool2d``)
-    beside the bound;
+    input before the dot, and every case is launched twice, bitwise
+    equal; the bf16 and f32 conv launchers given partial sums one pixel
+    block short of their grid (the bf16 3x3: one patch short) refuse.
+    Times of the kernel, the plain version and the nearest library call
+    (a cuBLAS matmul on the activated input, cuDNN's conv,
+    ``F.max_pool2d``) beside the bound. Before them, the bottleneck
+    library's SASS: the bf16 forward kernels (the tensor cores) hold
+    HMMA.16816.F32.BF16, the f32 ones none, with their registers and
+    spills from ``ptxas -v`` and their shared memory. Three ragged cases
+    in bf16 and f32 at B=3 (C=20, K=36: no multiple of 8; a 1x1 and a
+    3x3 over 9x13 images, whose patches cross images; a stride-2 1x1 at
+    10x14) on the same limits. Then the sweep: every distinct forward
+    conv of a ResNet50 forward at 224x224, B=128, bf16 (per stage s2-s5:
+    conv_a of the first block, strided from s3 on, and of the later
+    ones, the 3x3 conv_b, conv_c and the conv shortcut), each against
+    its plain version once on the same limits, with its kernel and
+    library times, bound and launches a forward, and the launch-weighted
+    totals a forward;
 11. resnet: ResNet50 inference at full width (1000 classes, 224x224,
     B=128, bf16, NHWC, the fused plan with the stem, random weights
     from a seed, BN statistics calibrated on 16 seeded images) through
@@ -539,16 +553,26 @@ def read_counts():
     return {n: c.launches for n, c in kernel_counters().items()}
 
 
+#: the spin that holds the stream before each timed call (~0.5 ms at the
+#: H100's top clock, far above a wrapper's host time)
+SPIN_CYCLES = 1_000_000
+
+
 def median_ms(fn, device, iters=30, warm=3):
     """Median time of one call of ``fn`` on the card, by CUDA events,
     with the 50 MB L2 flushed before every call (the decode step reads
-    each layer's pages after the other layers evicted them)."""
+    each layer's pages after the other layers evicted them). A spin
+    holds the stream before the window opens, so the host has enqueued
+    the call before the card reaches it and the window holds the card's
+    time alone: without it, a wrapper whose host time outran the flush
+    (the conv wrappers') had that time counted too."""
     flush = torch.empty(96 << 20, dtype=torch.int8, device=device)
     for _ in range(warm):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1110,28 +1134,15 @@ def flash_sass():
     kernels' functions (forward, dq, dk/dv) must hold HMMA.16816.F32.BF16
     (mma.sync m16n8k16, bf16 in, f32 out) and the CUDA-core ones none.
     Returns {function: HMMA count} by kernel template."""
-    from pathlib import Path
-
-    from deeplearning4j_tpu_torch.cuda_library import nvcc_path
     from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
-    tool = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(fa._LIBRARY.path)],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA.16816.F32.BF16" in line:
-            counts[fn] += 1
+    counts, tool = sass_hmma(fa._LIBRARY)
     by_kernel = {}
     for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel", "flash_fwd_mma_kernel",
                  "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel"):
         by_kernel[name] = {f: c for f, c in counts.items()
                            if f"{len(name)}{name}I" in f}
-    rec = {"tool": str(tool), "hmma_16816_f32_bf16": by_kernel}
+    rec = {"tool": tool, "hmma_16816_f32_bf16": by_kernel}
     log("flash sass:", json.dumps(rec))
     for name, fns in by_kernel.items():
         tc = "_mma_" in name
@@ -1986,22 +1997,38 @@ CNN_CASES = {
 }
 
 
-def cnn_inputs(kernel, geo, n, dtype, device, seed):
+#: the ragged cases (B = 3): C and K no multiple of 8, M no multiple of
+#: a pixel block, 3x3 patches that cross images, a stride-2 1x1
+CNN_RAGGED = {
+    "ragged_1x1": ("conv1x1", dict(h=9, w=13, c=20, k=36, stride=1,
+                                   act="relu")),
+    "ragged_1x1_s2": ("conv1x1", dict(h=10, w=14, c=20, k=36, stride=2,
+                                      act="identity")),
+    "ragged_3x3": ("conv3x3", dict(h=9, w=13, c=20, k=36, act="relu")),
+}
+CNN_RAGGED_B = 3
+
+
+def cnn_inputs(kernel, geo, n, dtype, device, seed, gen="cpu"):
     """Seeded inputs at a case's shape: x (NHWC), and the prologue's
     (sc, bb) and the weight where the kernel takes them. A relu
     prologue normalizes a raw conv output (per-channel mean and scale
     drawn) and zeroes about half of it; an identity prologue reads a
-    post-relu block input; weights are He-normal."""
-    g = torch.Generator().manual_seed(seed)
+    post-relu block input; weights are He-normal. Drawn on ``gen``
+    (the card's generator for the sweep's large shapes)."""
+    g = torch.Generator(device=gen).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g)
+        return torch.randn(shape, generator=g, device=gen)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=gen)
 
     h, w = geo["h"], geo["w"]
     if kernel == "stem_pool":
         k = geo["k"]
         y = randn(n, h, w, k).to(device, dtype)
-        sc = (0.5 + torch.rand(k, generator=g)).to(device)
+        sc = (0.5 + rand(k)).to(device)
         bb = (0.3 * randn(k)).to(device)
         return {"y": y, "sc": sc, "bb": bb}
     c, k = geo["c"], geo["k"]
@@ -2011,13 +2038,13 @@ def cnn_inputs(kernel, geo, n, dtype, device, seed):
                 "w7": w7.to(device, dtype)}
     taps = 9 if kernel == "conv3x3" else 1
     if geo["act"] == "relu":
-        mean, std = 0.3 * randn(c), 0.5 + torch.rand(c, generator=g)
+        mean, std = 0.3 * randn(c), 0.5 + rand(c)
         x = mean + std * randn(n, h, w, c)
-        sc = (0.5 + torch.rand(c, generator=g)) / std
+        sc = (0.5 + rand(c)) / std
         bb = 0.2 * randn(c) - mean * sc
     else:
         x = torch.clamp_min(randn(n, h, w, c), 0.0)
-        sc, bb = torch.ones(c), torch.zeros(c)
+        sc, bb = torch.ones(c, device=gen), torch.zeros(c, device=gen)
     wshape = (9, c, k) if taps == 9 else (c, k)
     wt = randn(*wshape) * (2.0 / (taps * c)) ** 0.5
     return {"x": x.to(device, dtype), "sc": sc.to(device),
@@ -2108,11 +2135,41 @@ def conv_agreement(out, ref):
     return fa.agreement(out.reshape(1, 1, -1, k), ref.reshape(1, 1, -1, k))
 
 
-def cnn_case(name, dtype, n, device, seed):
+def cnn_compare(got, ref, dtype):
+    """A conv kernel's (o, Σo, Σo²) against the plain version's: (the
+    agreement's record, the failures)."""
+    (o, s1, s2), (ro, rs1, rs2) = got, ref
+    failures = []
+    if not all(bool(torch.isfinite(t).all()) for t in (o, s1, s2)):
+        failures.append("not finite")
+    row_rel, tile_rel = conv_agreement(o, ro)
+    # the epilogue's sums against torch's sums of the kernel's own
+    # stored output (the plain version's output differs by the flips,
+    # and so do its sums)
+    from deeplearning4j_tpu_torch.nn.layers.bottleneck import _stats
+    ts1, ts2 = _stats(o)
+    absum = o.float().reshape(-1, o.shape[-1]).abs().sum(0)
+    sums_rel = max(float(((s1 - ts1).abs() / absum.clamp_min(1e-30)).max()),
+                   float(((s2 - ts2).abs() / ts2.abs().clamp_min(1e-30))
+                         .max()))
+    rec = {"sums_rel_vs_plain": float(
+               ((s1 - rs1).abs() / absum.clamp_min(1e-30)).max()),
+           "max_abs_err": float((o.float() - ro.float()).abs().max()),
+           "row_rel": row_rel, "tile_rel": tile_rel, "sums_rel": sums_rel,
+           "limits": {"row_rel": CONV_ROW[dtype],
+                      "tile_rel": CONV_TILE[dtype], "sums_rel": CONV_SUMS}}
+    if row_rel > CONV_ROW[dtype] or tile_rel > CONV_TILE[dtype]:
+        failures.append("output")
+    if sums_rel > CONV_SUMS:
+        failures.append("sums")
+    return rec, failures
+
+
+def cnn_case(name, dtype, n, device, seed, cases=None):
     """One case: the kernel against its plain version on the same
-    inputs, and the kernel's, plain version's and library call's times
-    beside the bound."""
-    kernel, geo = CNN_CASES[name]
+    inputs, in bf16 two launches bitwise equal, and the kernel's, plain
+    version's and library call's times beside the bound."""
+    kernel, geo = (cases or CNN_CASES)[name]
     a = cnn_inputs(kernel, geo, n, dtype, device, seed)
     kern, plain, library, unrounded = cnn_fns(kernel, geo, a)
     got, ref = kern(), plain()
@@ -2120,6 +2177,14 @@ def cnn_case(name, dtype, n, device, seed):
     case = {"case": name, "kernel": kernel, "dtype": str(dtype).split(".")[-1],
             "batch": n, **geo}
     failures = []
+    if dtype == torch.bfloat16:
+        again = kern()
+        case["bitwise_repeat"] = all(
+            torch.equal(x, y) for x, y in zip(
+                *(r if isinstance(r, tuple) else (r,) for r in (got, again))))
+        if not case["bitwise_repeat"]:
+            failures.append("two launches differ")
+        del again
     if kernel == "stem_pool":
         case["max_abs_err"] = float((got.float() - ref.float()).abs().max())
         case["limits"] = {"max_abs_err": 0.0}
@@ -2127,30 +2192,11 @@ def cnn_case(name, dtype, n, device, seed):
         if case["max_abs_err"] != 0.0:
             failures.append("pool")
     else:
-        (o, s1, s2), (ro, rs1, rs2) = got, ref
-        finite = all(bool(torch.isfinite(t).all()) for t in (o, s1, s2))
-        row_rel, tile_rel = conv_agreement(o, ro)
-        # the epilogue's sums against torch's sums of the kernel's own
-        # stored output (the plain version's output differs by the
-        # flips, and so do its sums)
-        from deeplearning4j_tpu_torch.nn.layers.bottleneck import _stats
-        ts1, ts2 = _stats(o)
-        absum = o.float().reshape(-1, o.shape[-1]).abs().sum(0)
-        sums_rel = max(float(((s1 - ts1).abs() / absum.clamp_min(1e-30))
-                             .max()),
-                       float(((s2 - ts2).abs() / ts2.abs().clamp_min(1e-30))
-                             .max()))
-        case["sums_rel_vs_plain"] = float(
-            ((s1 - rs1).abs() / absum.clamp_min(1e-30)).max())
-        case.update(max_abs_err=float((o.float() - ro.float()).abs().max()),
-                    row_rel=row_rel, tile_rel=tile_rel, sums_rel=sums_rel,
-                    limits={"row_rel": CONV_ROW[dtype],
-                            "tile_rel": CONV_TILE[dtype],
-                            "sums_rel": CONV_SUMS})
-        if row_rel > CONV_ROW[dtype] or tile_rel > CONV_TILE[dtype]:
-            failures.append("output")
-        if sums_rel > CONV_SUMS:
-            failures.append("sums")
+        rec, fails = cnn_compare(got, ref, dtype)
+        case.update(rec)
+        failures += fails
+        finite = "not finite" not in fails
+        ro = ref[0]
         if dtype == torch.bfloat16 and unrounded is not None:
             # the limits' power: the plain version without the rounding
             # of the activated input (z in f32), its output rounded as
@@ -2177,33 +2223,189 @@ def cnn_case(name, dtype, n, device, seed):
 
 
 def check_tile_guard(device):
-    """The conv launcher refuses partial sums one row tile short of the
-    grid (a CUDA error, no launch) instead of writing past them."""
+    """Each conv launcher refuses partial sums one pixel block short of
+    its grid (a CUDA error, no launch) instead of writing past them: the
+    bf16 and f32 1x1, and the bf16 3x3 at 56x56, whose patches (28) are
+    more than its 128-pixel row tiles (25)."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
-    x = torch.zeros((2, 16, 16, 64), dtype=torch.bfloat16, device=device)
-    w = torch.zeros((64, 64), dtype=torch.bfloat16, device=device)
     one = torch.ones(64, device=device)
-    out, part, tiles, sums = bn._outputs(bn._LIBRARY, x, 2, 16, 16, 64)
-    before = bn.CONV1X1.launches
-    try:
-        bn.CONV1X1.launch(x.dtype, x.data_ptr(), one.data_ptr(),
+    for kernel, taps, dtype, (n, hw) in (
+            (bn.CONV1X1, 1, torch.bfloat16, (2, 16)),
+            (bn.CONV1X1, 1, torch.float32, (2, 16)),
+            (bn.CONV3X3, 9, torch.bfloat16, (1, 56))):
+        x = torch.zeros((n, hw, hw, 64), dtype=dtype, device=device)
+        w = torch.zeros((64, 64) if taps == 1 else (9, 64, 64), dtype=dtype,
+                        device=device)
+        out, part, tiles, sums = bn._conv_outputs(x, n, hw, hw, 64, 1, taps)
+        if taps == 9:
+            assert tiles > -(-(n * hw * hw) // 128), tiles
+        before = kernel.launches
+        try:
+            kernel.launch(x.dtype, x.data_ptr(), one.data_ptr(),
                           one.data_ptr(), w.data_ptr(), out.data_ptr(),
                           part[0].data_ptr(), part[1].data_ptr(),
-                          sums[0].data_ptr(), sums[1].data_ptr(), 2, 16, 16,
-                          64, 64, 1, 0, tiles - 1, bn._stream(x))
-    except RuntimeError as e:
-        assert bn.CONV1X1.launches == before, "a refused launch counted"
-        log(f"cnn tile guard: {tiles - 1} of {tiles} tiles refused ({e})")
-        return
-    raise AssertionError("conv1x1 took partial sums one tile short")
+                          sums[0].data_ptr(), sums[1].data_ptr(), n, hw, hw,
+                          64, 64, *((1,) if taps == 1 else ()), 0, tiles - 1,
+                          bn._stream(x))
+        except RuntimeError as e:
+            assert kernel.launches == before, "a refused launch counted"
+            log(f"cnn tile guard: {kernel.name} {dtype} {tiles - 1} of "
+                f"{tiles} tiles refused ({e})")
+            continue
+        raise AssertionError(f"{kernel.name} {dtype} took partial sums one "
+                             f"tile short")
 
 
-def check_cnn_kernels(device):
-    """Every case in bf16 at the main path's batch, then in f32 at 16."""
+def sass_hmma(library):
+    """{function: its HMMA.16816.F32.BF16 count} in ``library``'s SASS
+    (``cuobjdump -sass``), and the tool's path."""
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.cuda_library import nvcc_path
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library.path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA.16816.F32.BF16" in line:
+            counts[fn] += 1
+    return counts, str(tool)
+
+
+def ptxas_usage(library, name):
+    """{function: its ptxas -v line pair (spills; registers)} of the
+    entry functions of ``library`` whose name holds ``name``."""
+    usage, fn = {}, None
+    for line in library.build_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if name in line else None
+        elif fn is not None and ("spill" in line or "registers" in line):
+            usage.setdefault(fn, []).append(line.strip())
+    return usage
+
+
+#: the bf16 forward's tensor-core kernel and the f32 forward's CUDA-core
+#: one, by their templates' mangled names
+CONV_TC_KERNEL, CONV_CUDA_CORE_KERNEL = "13fwd_tc_kernel", "16conv_gemm_kernel"
+
+
+def conv_sass():
+    """The bottleneck library's SASS: the bf16 forward functions (the
+    tensor cores) must hold HMMA.16816.F32.BF16 and the f32 ones (the
+    CUDA cores) none; with each function's registers and spills as
+    ptxas reported them."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    counts, tool = sass_hmma(bn._LIBRARY)
+    tc = {f: c for f, c in counts.items() if CONV_TC_KERNEL in f}
+    cuda_cores = {f: c for f, c in counts.items()
+                  if CONV_CUDA_CORE_KERNEL in f}
+    rec = {"tool": str(tool), "hmma_16816_f32_bf16": {
+               "fwd_tc_kernel": tc, "conv_gemm_kernel": cuda_cores},
+           "ptxas": ptxas_usage(bn._LIBRARY, "fwd_tc_kernel")}
+    log("cnn sass:", json.dumps(rec))
+    if not tc or any(c == 0 for c in tc.values()) or not cuda_cores or \
+            any(c != 0 for c in cuda_cores.values()):
+        raise AssertionError(f"cnn sass: HMMA.16816.F32.BF16 not in every "
+                             f"bf16 forward function or in an f32 one: "
+                             f"{rec['hmma_16816_f32_bf16']}")
+    return rec
+
+
+def resnet_fwd_convs():
+    """Every distinct bottleneck forward conv of a ResNet50 forward at
+    224x224: name: (kernel, geometry, launches a forward). Per stage
+    (resolution, width, output width, blocks, stride): conv_a of the
+    first block (the block input, strided from s3 on) and of the later
+    ones, the 3x3 conv_b and conv_c in every block, the conv shortcut."""
+    out, cin, hin = {}, 64, 56
+    for name, hw, mid, cout, blocks, s in (("s2", 56, 64, 256, 3, 1),
+                                           ("s3", 28, 128, 512, 4, 2),
+                                           ("s4", 14, 256, 1024, 6, 2),
+                                           ("s5", 7, 512, 2048, 3, 2)):
+        out[f"{name}_a0"] = ("conv1x1", dict(h=hin, w=hin, c=cin, k=mid,
+                                             stride=s, act="identity"), 1)
+        out[f"{name}_a"] = ("conv1x1", dict(h=hw, w=hw, c=cout, k=mid,
+                                            stride=1, act="identity"),
+                            blocks - 1)
+        out[f"{name}_b"] = ("conv3x3", dict(h=hw, w=hw, c=mid, k=mid,
+                                            act="relu"), blocks)
+        out[f"{name}_c"] = ("conv1x1", dict(h=hw, w=hw, c=mid, k=cout,
+                                            stride=1, act="relu"), blocks)
+        out[f"{name}_sc"] = ("conv1x1", dict(h=hin, w=hin, c=cin, k=cout,
+                                             stride=s, act="identity"), 1)
+        cin, hin = cout, hw
+    return out
+
+
+def fwd_sweep(device, smi):
+    """Every distinct forward conv of a ResNet50 forward at B=128, bf16:
+    the kernel against its plain version once (the limits of the cases),
+    its time and the library call's beside the bound, its shared memory,
+    and the totals a forward weighted by each conv's launches."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    convs = resnet_fwd_convs()
+    for name in ("conv1x1", "conv3x3"):
+        per_fwd = sum(cv[2] for cv in convs.values() if cv[0] == name)
+        assert per_fwd == RESNET_LAUNCHES[name], (name, per_fwd)
+    rows, failed = [], []
+    totals = {"conv1x1": [0.0, 0.0, 0.0], "conv3x3": [0.0, 0.0, 0.0]}
+    dtype = torch.bfloat16
+    lib = bn._LIBRARY.load()
+    for i, (name, (kernel, geo, per_fwd)) in enumerate(convs.items()):
+        a = cnn_inputs(kernel, geo, RESNET_B, dtype, device, seed=80 + i,
+                       gen=device)
+        kern, plain, library, _ = cnn_fns(kernel, geo, a)
+        rec, failures = cnn_compare(kern(), plain(), dtype)
+        bound_ms, bound_by = cnn_bound(kernel, geo, RESNET_B, dtype)
+        taps = 9 if kernel == "conv3x3" else 1
+        stride = geo.get("stride", 1)
+        row = {"conv": name, "kernel": kernel, **geo,
+               "launches_per_forward": per_fwd, **rec,
+               "smem_bytes": lib.dl4j_conv_tc_smem(
+                   RESNET_B, geo["h"], geo["w"], geo["k"], stride, taps),
+               "plan": bn._fwd_tc_plan(RESNET_B, geo["h"], geo["w"],
+                                       geo["k"], stride, taps,
+                                       bn._sm_count(device))._asdict(),
+               "ms": median_ms(kern, device),
+               "library_ms": median_ms(library, device),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        for j, key in enumerate(("ms", "library_ms", "bound_ms")):
+            totals[kernel][j] += per_fwd * row[key]
+        log("cnn fwd sweep", json.dumps(row))
+        if failures:
+            failed.append((name, failures))
+        rows.append(row)
+        del a, kern, plain, library
+        torch.cuda.empty_cache()
+    fwd = {kernel: dict(zip(("kernel_ms", "library_ms", "bound_ms"), t))
+           for kernel, t in totals.items()}
+    fwd["all"] = {key: sum(fwd[k][key] for k in totals)
+                  for key in ("kernel_ms", "library_ms", "bound_ms")}
+    log("cnn fwd sweep per forward (launch-weighted, B=128, bf16):",
+        json.dumps({**fwd, "card": smi}))
+    if failed:
+        raise AssertionError(f"forward sweep disagrees: {failed}")
+    return {"convs": rows, "per_forward": fwd}
+
+
+def check_cnn_kernels(device, smi):
+    """The SASS check; every case in bf16 at the main path's batch, then
+    in f32 at 16; the ragged cases in both at B=3; the sweep of a
+    forward's convs."""
+    sass = conv_sass()
     check_tile_guard(device)
-    return [cnn_case(name, dtype, n, device, seed=i)
-            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
-            for i, name in enumerate(CNN_CASES)]
+    cases = [cnn_case(name, dtype, n, device, seed=i)
+             for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+             for i, name in enumerate(CNN_CASES)]
+    cases += [cnn_case(name, dtype, CNN_RAGGED_B, device, seed=50 + i,
+                       cases=CNN_RAGGED)
+              for dtype in (torch.bfloat16, torch.float32)
+              for i, name in enumerate(CNN_RAGGED)]
+    return {"cases": cases, "sweep": fwd_sweep(device, smi), "sass": sass}
 
 
 # ---------------------------------------------------------------------
@@ -2426,7 +2628,8 @@ def resnet(device):
         "kernel_launches": sum(e.count for e in kernels),
         "conv_kernels_share_of_device_time": (
             sum(t for k, t in dev_us.items() if "conv_gemm" in k
-                or "stem_pool" in k or "reduce_partials" in k) / busy_us
+                or "fwd_tc_kernel" in k or "stem_pool" in k
+                or "reduce_partials" in k) / busy_us
             if busy_us else None),
         "top_kernels_us": [[k[:80], t] for k, t in top]}
     log("resnet:", json.dumps(rec))
@@ -2883,7 +3086,7 @@ def resnet_train(device):
                                 "images_per_s": RESNET_B / m}
     rec["profile"], share = profile_fit_step(net, x, y, "fused")
     rec["profile"].update(
-        conv_fwd_share=share("conv_gemm_kernel"),
+        conv_fwd_share=share("conv_gemm_kernel", "fwd_tc_kernel"),
         conv_bwd_share=share("dz_kernel", "dw_kernel", "dz_tc_kernel",
                              "dw_tc_kernel", "reduce_splits"))
     del net
@@ -3456,7 +3659,7 @@ def resnet_train_stem(device, xla_losses=None):
     net.set_fusion("bottleneck", stem=True)
     rec["profile"], share = profile_fit_step(net, x, y, None)
     rec["profile"].update(
-        conv_fwd_share=share("conv_gemm_kernel"),
+        conv_fwd_share=share("conv_gemm_kernel", "fwd_tc_kernel"),
         conv_bwd_share=share("dz_kernel", "dw_kernel", "dz_tc_kernel",
                              "dw_tc_kernel", "reduce_splits"),
         stem_share=share("conv_gemm_kernel<__nv_bfloat16, 2>",
@@ -4641,21 +4844,28 @@ def lstm_entry(name, replaces, launches, cases, text):
                       for c in cases if "plan" in c]}
 
 
-def cnn_entry(name, replaces, launches, cases):
+def cnn_entry(name, replaces, launches, cases, sweep):
     """A ResNet50 kernel's entry of the kernels line: its numbers at the
-    main path's shape (the first bf16 case of the kernel), and every
-    case's."""
+    main path's shape (the first bf16 case of the kernel), every case's,
+    and for the bottleneck convs the sweep's launch-weighted times a
+    forward."""
     mine = [c for c in cases if c["kernel"] == name]
     main = mine[0]
     keys = ("max_abs_err", "row_rel", "tile_rel", "sums_rel",
-            "unrounded_tile_rel")
+            "unrounded_tile_rel", "bitwise_repeat")
+    conv = name in sweep["per_forward"]
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/" + (
                 "stem.cu" if name.startswith("stem") else "bottleneck.cu"),
             "replaces": replaces, "launches": launches,
+            **({"design": "redesigned for the tensor cores (bf16: "
+                          "mma.sync over conv_mma.cuh; f32: the CUDA "
+                          "cores)"} if conv else {}),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            **({"per_forward_sweep": sweep["per_forward"][name]}
+               if conv else {}),
             "case": main["case"], "dtype": main["dtype"],
             "batch": main["batch"], "limits": main["limits"],
             "max_abs_err_all": max(c["max_abs_err"] for c in mine),
@@ -4882,7 +5092,9 @@ def main(argv=None) -> int:
         out["train_reference_bf16"] = phase(
             "train_reference_bf16", train_reference_bf16, device)
     if want("cnn"):
-        out["cnn_cases"] = phase("cnn", check_cnn_kernels, device)
+        cnn = phase("cnn", check_cnn_kernels, device, smi)
+        out["cnn_cases"], out["cnn_fwd_sweep"], out["cnn_sass"] = \
+            cnn["cases"], cnn["sweep"], cnn["sass"]
     if want("resnet"):
         out["resnet"] = phase("resnet", resnet, device)
         log("resnet:", json.dumps({
@@ -5029,7 +5241,8 @@ def kernels_line(out):
                        ("stem_pool", "stem.py:199")):
         kernels.append(cnn_entry(
             name, f"deeplearning4j_tpu/nn/layers/{line}",
-            out["resnet"]["launches"][name], out["cnn_cases"]))
+            out["resnet"]["launches"][name], out["cnn_cases"],
+            out["cnn_fwd_sweep"]))
     for name, line in (("bwd1x1", 301), ("bwd3x3", 403)):
         kernels.append(bwd_entry(
             name, f"deeplearning4j_tpu/nn/layers/bottleneck.py:{line}",

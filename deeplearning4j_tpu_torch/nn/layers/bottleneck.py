@@ -10,13 +10,15 @@ throughout; identity blocks (stride 1, identity skip) and downsample
 entry blocks (stride on conv_a and on a conv shortcut with its own BN).
 
 The forward kernels are hand-written CUDA C++ for Hopper, ``csrc/
-bottleneck.cu`` over the implicit GEMM of ``csrc/conv_gemm.cuh``; they
-replace the TPU kernels ``_fwd1x1_kernel`` and ``_fwd3x3_kernel``. The
-backward kernels, ``csrc/bottleneck_bwd.cu``, replace ``_bwd1x1_kernel``
-and ``_bwd3x3_kernel``: one entry point per stage computes the stage's
-dW, the previous stage's dz0 and that stage's BN-backward sums, in bf16
-on the tensor cores (``csrc/conv_mma.cuh``: ``mma.sync`` tiles staged
-through the BN-backward and activation prologues, planned here by
+bottleneck.cu``; they replace the TPU kernels ``_fwd1x1_kernel`` and
+``_fwd3x3_kernel``, in bf16 on the tensor cores (``csrc/conv_mma.cuh``:
+``mma.sync`` tiles staged through the activation prologue, planned here
+by :func:`_fwd_tc_plan`), in f32 on the CUDA cores over the implicit
+GEMM of ``csrc/conv_gemm.cuh``. The backward kernels, ``csrc/
+bottleneck_bwd.cu``, replace ``_bwd1x1_kernel`` and ``_bwd3x3_kernel``:
+one entry point per stage computes the stage's dW, the previous stage's
+dz0 and that stage's BN-backward sums, in bf16 on the tensor cores
+(staged through the BN-backward and activation prologues, planned by
 :func:`_bwd_tc_plan`), in f32 on the CUDA cores over ``conv_gemm.cuh``'s
 tiles (the source notes say what bounds each kernel and what its design
 does about that). The JAX package's channel-split
@@ -48,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +66,7 @@ __all__ = ["BWD1X1", "BWD3X3", "BnParams", "BottleneckTrain", "CONV1X1",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV1X1_ARGS = [_P] * 9 + [_I] * 8 + [_P]
 _CONV3X3_ARGS = [_P] * 9 + [_I] * 7 + [_P]
+_CONV_TC_SMEM_ARGS = [_I] * 6
 _BWD1X1_ARGS = [_P] * 13 + [_I] * 10 + [_P]
 _BWD3X3_ARGS = [_P] * 13 + [_I] * 9 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -78,8 +81,8 @@ _LIBRARY = CudaLibrary(
     "bottleneck", ["nn/layers/csrc/bottleneck.cu"],
     {**{s: _CONV1X1_ARGS for s in _symbols("conv1x1").values()},
      **{s: _CONV3X3_ARGS for s in _symbols("conv3x3").values()},
-     "dl4j_conv_row_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh"])
+     "dl4j_conv_row_tile": [], "dl4j_conv_tc_smem": _CONV_TC_SMEM_ARGS},
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
 
 _BWD_LIBRARY = CudaLibrary(
     "bottleneck_bwd", ["nn/layers/csrc/bottleneck_bwd.cu"],
@@ -97,12 +100,15 @@ BWD3X3 = CudaKernel(_BWD_LIBRARY, "bwd3x3", _symbols("bwd3x3"))
 
 #: the f32 backward kernels' reduction step: a dW split covers whole steps
 _BWD_STEP = 16
+#: the bf16 forward kernels' output pixels per block (csrc/bottleneck.cu's
+#: kPixels)
+_TC_FWD_PIXELS = 128
 #: the bf16 backward kernels' output pixels per dz block and pixels per dW
 #: chunk (csrc/bottleneck_bwd.cu's kDzPixels, kDwPixels)
 _TC_DZ_PIXELS, _TC_DW_PIXELS = 128, 64
 #: the bf16 dW pass's grid: about this many blocks per SM in all
 _TC_DW_BLOCKS_PER_SM = 2
-#: the bf16 backward kernels index elements with 32-bit ints
+#: the bf16 kernels index elements with 32-bit ints
 _TC_MAX_ELEMENTS = 2 ** 31 - 1
 
 
@@ -126,9 +132,9 @@ def fused_bottleneck_supported(x_shape, c_mid: int, c_out: int, dtype,
     stride of 1 or 2 that divides H and W (the strided 1x1 subsamples
     exactly), f32 or bf16. Any size fits: the kernels tile the images
     (the JAX gate's VMEM budget does not apply), any width and any
-    alignment of the tensors (the bf16 backward kernels copy 16 bytes at
-    a time where C and K are multiples of 8 and the pointers 16-byte
-    aligned, element by element otherwise); only a bf16 backward stage
+    alignment of the tensors (the bf16 kernels copy 16 bytes at a time
+    where C and K are multiples of 8 and the pointers 16-byte aligned,
+    element by element otherwise); only a bf16 conv or backward stage
     whose activations or weight hold 2^31 - 1 elements or more is
     refused when it runs (its kernels index with 32-bit ints)."""
     if len(x_shape) != 4 or stride not in (1, 2) or not _dtype_ok(dtype):
@@ -140,7 +146,7 @@ def fused_bottleneck_supported(x_shape, c_mid: int, c_out: int, dtype,
 # ---------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------
-def _check(name, x, sc, bb, w, c, k):
+def _check(name, x, sc, bb, w, c, k, out_numel):
     """Raise on what the kernel does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
@@ -161,21 +167,87 @@ def _check(name, x, sc, bb, w, c, k):
             raise ValueError(f"{name}: {key} must be contiguous")
     if w.shape[-1] != k:
         raise ValueError(f"{name}: w {tuple(w.shape)} has no {k} columns")
+    if x.dtype == torch.bfloat16 and max(x.numel(), w.numel(), out_numel) \
+            >= _TC_MAX_ELEMENTS:
+        raise ValueError(f"{name}: the bf16 kernel indexes with 32-bit "
+                         f"ints; x, w and the output must each hold fewer "
+                         f"than {_TC_MAX_ELEMENTS} elements")
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _outputs(library, x, n, ho, wo, k):
-    """The output, the partial sums (one per channel and output-row tile
-    of ``library``'s conv kernels, the tile read from the library), their
-    length per channel, and the sums."""
+def _outputs(library, x, n, ho, wo, k, tiles=None):
+    """The output, the partial sums (``tiles`` per channel; by default
+    one per output-row tile of ``library``'s conv kernels, the tile read
+    from the library), their length per channel, and the sums."""
     out = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
-    tiles = -(-(n * ho * wo) // library.load().dl4j_conv_row_tile())
+    if tiles is None:
+        tiles = -(-(n * ho * wo) // library.load().dl4j_conv_row_tile())
     part = torch.empty((2, k, tiles), dtype=torch.float32, device=x.device)
     sums = torch.zeros((2, k), dtype=torch.float32, device=x.device)
     return out, part, tiles, sums
+
+
+class FwdPlan(NamedTuple):
+    """A bf16 forward conv's launch plan, as ``csrc/bottleneck.cu``
+    chooses it: the output's ``blocks`` pixel blocks of 128 pixels (the
+    1x1: runs of them; the 3x3: ``patch = (tw, th, cols)`` patches of the
+    tall image, ``None`` for the 1x1), column tiles of ``channels``
+    output channels, and ``tiles`` block rows of the grid (the sums'
+    partials a channel): row q walks the pixel blocks q, q + tiles, ..."""
+    tiles: int
+    blocks: int
+    channels: int
+    patch: Optional[Tuple[int, int, int]]
+
+
+def _fwd_rows(blocks, cols, cap):
+    """The grid's block rows over ``blocks`` pixel blocks and ``cols``
+    column tiles on a card that holds ``cap`` blocks at once, as
+    ``csrc/bottleneck.cu``'s ``fwd_slots`` picks them: the fewest rounds
+    ``w ceil(blocks / q)`` over the waves w, q = w cap // cols rows (at
+    least 1, at most ``blocks``), ties to fewer waves."""
+    best, best_rounds, w = 1, None, 1
+    while True:
+        q = min(max(w * cap // cols, 1), blocks)
+        rounds = w * -(-blocks // q)
+        if best_rounds is None or rounds < best_rounds:
+            best, best_rounds = q, rounds
+        if q == blocks:
+            return best
+        w += 1
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_tc_plan(n, h, w, k, stride, taps, sms) -> FwdPlan:
+    """The plan of a bf16 forward conv of ``taps`` (1 or 9) over x ``[n,
+    h, w, C]`` to ``k`` channels on a card of ``sms`` SMs: 128-pixel runs
+    of the output (the 1x1) or the patches of :func:`_patch_tiling` (the
+    3x3); 64 output channels a block up to K = 64 (two blocks an SM),
+    else 128 (one); the block rows of :func:`_fwd_rows`."""
+    ho, wo = h // stride, w // stride
+    channels, per_sm = (64, 2) if k <= 64 else (128, 1)
+    patch = None
+    if taps == 9:
+        tw, th, cols, blocks = _patch_tiling(n * ho, wo, _TC_FWD_PIXELS)
+        patch = (tw, th, cols)
+    else:
+        blocks = -(-(n * ho * wo) // _TC_FWD_PIXELS)
+    tiles = _fwd_rows(blocks, -(-k // channels), per_sm * sms) \
+        if blocks and k else 1
+    return FwdPlan(tiles, blocks, channels, patch)
+
+
+def _conv_outputs(x, n, h, w, k, stride, taps):
+    """:func:`_outputs` of a forward conv: the bf16 kernels' partials are
+    their grid's block rows (:func:`_fwd_tc_plan`), the f32 kernels'
+    their output-row tiles."""
+    tiles = _fwd_tc_plan(n, h, w, k, stride, taps,
+                         _sm_count(x.device)).tiles \
+        if x.dtype == torch.bfloat16 else None
+    return _outputs(_LIBRARY, x, n, h // stride, w // stride, k, tiles)
 
 
 def conv1x1(x, sc, bb, w, *, act: str = "identity", stride: int = 1):
@@ -193,9 +265,9 @@ def conv1x1(x, sc, bb, w, *, act: str = "identity", stride: int = 1):
     if x.device.type == "cpu":
         return conv1x1_plain(x, sc, bb, w, act=act, stride=stride)
     k = w.shape[1]
-    _check("conv1x1", x, sc, bb, w, c, k)
-    out, part, tiles, sums = _outputs(_LIBRARY, x, n, h // stride,
-                                      wd // stride, k)
+    _check("conv1x1", x, sc, bb, w, c, k, n * (h // stride) * (wd // stride)
+           * k)
+    out, part, tiles, sums = _conv_outputs(x, n, h, wd, k, stride, 1)
     if out.numel():
         CONV1X1.launch(x.dtype, x.data_ptr(), sc.data_ptr(), bb.data_ptr(),
                        w.data_ptr(), out.data_ptr(), part[0].data_ptr(),
@@ -218,8 +290,8 @@ def conv3x3(x, sc, bb, w, *, act: str = "identity"):
     if x.device.type == "cpu":
         return conv3x3_plain(x, sc, bb, w, act=act)
     k = w.shape[2]
-    _check("conv3x3", x, sc, bb, w, c, k)
-    out, part, tiles, sums = _outputs(_LIBRARY, x, n, h, wd, k)
+    _check("conv3x3", x, sc, bb, w, c, k, n * h * wd * k)
+    out, part, tiles, sums = _conv_outputs(x, n, h, wd, k, 1, 9)
     if out.numel():
         CONV3X3.launch(x.dtype, x.data_ptr(), sc.data_ptr(), bb.data_ptr(),
                        w.data_ptr(), out.data_ptr(), part[0].data_ptr(),

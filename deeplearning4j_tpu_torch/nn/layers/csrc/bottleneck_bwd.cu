@@ -502,6 +502,7 @@ int stage_bwd(const void* yk, const void* g, const void* yprev,
 // =====================================================================
 // bf16: the tensor-core kernels (conv_mma.cuh)
 // =====================================================================
+using dl4j_mma::aligned16;
 using dl4j_mma::bf16;
 using dl4j_mma::clamp8;
 using dl4j_mma::copy8;
@@ -514,7 +515,10 @@ using dl4j_mma::kFragM;
 using dl4j_mma::kFragN;
 using dl4j_mma::load8;
 using dl4j_mma::pack8;
+using dl4j_mma::patch_origin;
+using dl4j_mma::set_smem;
 using dl4j_mma::smem_addr;
+using dl4j_mma::stages_for;
 using dl4j_mma::store8;
 using dl4j_mma::Tiling;
 using dl4j_mma::warp_k16;
@@ -551,39 +555,14 @@ __device__ __forceinline__ int prev_pixel(int m, const TcStage& s) {
 // output pixel, or -1 (past the patch's TH x TW, or outside the image).
 __device__ __forceinline__ int patch_pixel(int q, int r0, int col0,
                                            const TcStage& s) {
-  const Tiling& t = s.tile;
-  const int i = q / t.tw;
-  const int row = r0 + i;
-  const int col = col0 + q - i * t.tw;
-  return (i < t.th && row < s.n * s.ho && col < s.wo) ? row * s.wo + col
-                                                       : -1;
+  return dl4j_mma::patch_pixel(q, r0, col0, s.tile, s.n * s.ho, s.wo);
 }
 
-// Halo pixel r (the patch grown by one pixel each side) of the 3x3 patch
-// at (r0, col0): its pixel, or -1 outside the tall image.
+// Halo pixel r of the 3x3 patch at (r0, col0): its pixel, or -1 outside
+// the tall image.
 __device__ __forceinline__ int halo_pixel(int r, int r0, int col0,
                                           const TcStage& s) {
-  const int hw = s.tile.tw + 2;
-  const int hi = r / hw;
-  const int row = r0 - 1 + hi;
-  const int col = col0 - 1 + r - hi * hw;
-  return (row >= 0 && row < s.n * s.ho && col >= 0 && col < s.wo)
-             ? row * s.wo + col
-             : -1;
-}
-
-// The first tall row and column of 3x3 patch p.
-__device__ __forceinline__ void patch_origin(int p, const Tiling& t, int& r0,
-                                             int& col0) {
-  const int pr = p / t.cols;
-  r0 = pr * t.th;
-  col0 = (p - pr * t.cols) * t.tw;
-}
-
-// Copy stages in flight: three where a stage's copies take at most 40 KB
-// of shared memory, else two.
-__host__ __device__ constexpr int stages_for(size_t bytes) {
-  return bytes <= 40 * 1024 ? 3 : 2;
+  return dl4j_mma::halo_pixel(r, r0, col0, s.tile, s.n * s.ho, s.wo);
 }
 
 // ---------------------------------------------------------------------
@@ -1235,19 +1214,6 @@ size_t dw_smem(const TcStage& s) {
                     : 0);
 }
 
-// Let `kernel` take `bytes` of dynamic shared memory; `granted` (one per
-// kernel) remembers the most already granted, so a launch pays the call
-// only when it needs more.
-template <class K>
-int set_smem(K kernel, size_t bytes, size_t& granted) {
-  if (bytes <= granted) return 0;
-  const int err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-  if (!err) granted = bytes;
-  return err;
-}
-
 template <int TAPS, int WN>
 int launch_dz(const void* yk, const void* g, const void* yprev,
               const void* w, const void* aff_k, const void* aff_p, void* dz,
@@ -1314,10 +1280,6 @@ int launch_dw_for(const void* yk, const void* g, const void* yprev,
     return launch_dw<1, 2, 4>(yk, g, yprev, aff_k, aff_p, dw_part, splits, s,
                               st);
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // One bf16 stage on the tensor cores: the dz pass, the sums' fixed-order

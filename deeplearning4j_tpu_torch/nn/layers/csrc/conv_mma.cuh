@@ -3,9 +3,11 @@
 // bf16 tiles in shared memory, the loaders that stage those tiles
 // through a prologue, and the patch tiling of an NHWC image.
 //
-// Used by the bottleneck backward kernels (bottleneck_bwd.cu: bwd1x1 and
-// bwd3x3 in bf16). The f32 kernels keep conv_gemm.cuh's CUDA-core tile
-// step (exact f32, no TF32).
+// Used by the bottleneck's bf16 kernels: the forward convs
+// (bottleneck.cu: conv1x1 and conv3x3) and the backward stages
+// (bottleneck_bwd.cu: bwd1x1 and bwd3x3), and by the flash kernels'
+// tensor-core tiles (flash_attention.cu). The f32 kernels keep
+// conv_gemm.cuh's CUDA-core tile step (exact f32, no TF32).
 //
 // The pieces:
 //   - warp_k16: one 16-deep reduction step of a warp's 64 x 32 output
@@ -23,14 +25,18 @@
 //   - dy8, z8: the prologues, from the raw copy to the operand tile, 8
 //     channels at a time, their per-channel constants held in registers
 //     (a thread converts the same 8 channels of every row it takes): the
-//     BN-backward dy and the activated z, in f32 op by op, rounded to
-//     bf16 where the plain version rounds. The tensor cores then
+//     BN-backward dy and the activated z (the forward's BN affine + relu
+//     or the affine alone, the backward's relu or the bare input), in
+//     f32 op by op, rounded to bf16 where the plain version rounds. The tensor cores then
 //     multiply operands already rounded, so their products are exact
 //     and only the f32 sums differ from it.
 //   - patch_tiling: a 3x3's pixels cut into TH x TW patches of the
 //     "tall" image [N H, W] (the images stacked), chosen so that the
 //     patch and its one-pixel halo waste the least; the taps of a pixel
-//     whose row crosses into the next image read a zero row instead.
+//     whose row crosses into the next image read a zero row instead
+//     (patch_pixel, halo_pixel, patch_origin address them).
+//   - stages_for, set_smem: the depth of a kernel's copy ring, and the
+//     dynamic shared memory above 48 KB granted before a launch.
 // Row strides of the tiles are 16 bytes past a multiple of 128, so the
 // eight rows of one ldmatrix phase hit eight distinct bank groups.
 
@@ -39,6 +45,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace dl4j_mma {
@@ -220,15 +227,21 @@ __device__ __forceinline__ void dy_constants(const float* aff, int k, int ch,
           ch + e < k ? __ldg(aff + (row ? row + 1 : 0) * k + ch + e) : 0.f;
 }
 
-// The activation constants (sc, bb: aff_p's rows 0, 1) of channels ch ..
-// ch + 8, 0 past C.
-__device__ __forceinline__ void z_constants(const float* aff, int c, int ch,
+// The activation constants (sc, bb) of channels ch .. ch + 8, 0 past C.
+__device__ __forceinline__ void z_constants(const float* sc, const float* bb,
+                                            int c, int ch,
                                             float (&cz)[2][8]) {
 #pragma unroll
-  for (int row = 0; row < 2; ++row)
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      cz[row][e] = ch + e < c ? __ldg(aff + row * c + ch + e) : 0.f;
+  for (int e = 0; e < 8; ++e) {
+    cz[0][e] = ch + e < c ? __ldg(sc + ch + e) : 0.f;
+    cz[1][e] = ch + e < c ? __ldg(bb + ch + e) : 0.f;
+  }
+}
+
+// The same from aff_p's rows 0, 1 (sc, bb).
+__device__ __forceinline__ void z_constants(const float* aff, int c, int ch,
+                                            float (&cz)[2][8]) {
+  z_constants(aff, aff + c, c, ch, cz);
 }
 
 // The BN-backward prologue of 8 channels: dy = sc (g - m1 - yhat m2),
@@ -254,17 +267,21 @@ __device__ __forceinline__ uint4 dy8(const uint4& gr, const uint4& yr,
 }
 
 // The activation prologue of 8 channels: z = relu(y sc + bb) (two
-// roundings), or y itself (relu = 0), rounded to bf16; the first `valid`
-// elements, the rest 0.
+// roundings); with relu = 0, y sc + bb where `affine` (the forward's
+// identity prologue), else y itself (the backward's); rounded to bf16;
+// the first `valid` elements, the rest 0.
 __device__ __forceinline__ uint4 z8(const uint4& yr, const float (&c)[2][8],
-                                    int valid, int relu) {
-  if (!relu && valid == 8) return yr;   // the identity: y itself
+                                    int valid, int relu,
+                                    bool affine = false) {
+  if (!relu && !affine && valid == 8) return yr;   // y itself
   float out[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     float z = e < valid ? elem(yr, e) : 0.f;
-    if (relu && e < valid)
-      z = fmaxf(__fadd_rn(__fmul_rn(z, c[0][e]), c[1][e]), 0.f);
+    if ((relu || affine) && e < valid) {
+      z = __fadd_rn(__fmul_rn(z, c[0][e]), c[1][e]);
+      if (relu) z = fmaxf(z, 0.f);
+    }
     out[e] = z;
   }
   return pack8(out);
@@ -299,6 +316,65 @@ inline Tiling patch_tiling(int rows, int wo, int pp) {
   }
   best.patches = ((rows + best.th - 1) / best.th) * best.cols;
   return best;
+}
+
+// The first tall row and column of patch p.
+__host__ __device__ __forceinline__ void patch_origin(int p, const Tiling& t,
+                                                      int& r0, int& col0) {
+  const int pr = p / t.cols;
+  r0 = pr * t.th;
+  col0 = (p - pr * t.cols) * t.tw;
+}
+
+// Local pixel q of the patch at tall row r0, column col0 of the tall
+// image [rows, wo]: its pixel, or -1 (past the patch's TH x TW, or
+// outside the image).
+__device__ __forceinline__ int patch_pixel(int q, int r0, int col0,
+                                           const Tiling& t, int rows,
+                                           int wo) {
+  const int i = q / t.tw;
+  const int row = r0 + i;
+  const int col = col0 + q - i * t.tw;
+  return (i < t.th && row < rows && col < wo) ? row * wo + col : -1;
+}
+
+// Halo pixel r (the patch grown by one pixel each side) of the patch at
+// (r0, col0): its pixel, or -1 outside the tall image [rows, wo].
+__device__ __forceinline__ int halo_pixel(int r, int r0, int col0,
+                                          const Tiling& t, int rows,
+                                          int wo) {
+  const int hw = t.tw + 2;
+  const int hi = r / hw;
+  const int row = r0 - 1 + hi;
+  const int col = col0 - 1 + r - hi * hw;
+  return (row >= 0 && row < rows && col >= 0 && col < wo) ? row * wo + col
+                                                          : -1;
+}
+
+// ---------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------
+// Copy stages in flight: three where a stage's copies take at most 40 KB
+// of shared memory, else two.
+__host__ __device__ constexpr int stages_for(size_t bytes) {
+  return bytes <= 40 * 1024 ? 3 : 2;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory; `granted` (one per
+// kernel) remembers the most already granted, so a launch pays the call
+// only when it needs more.
+template <class K>
+int set_smem(K kernel, size_t bytes, size_t& granted) {
+  if (bytes <= granted) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+  if (!err) granted = bytes;
+  return err;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace dl4j_mma

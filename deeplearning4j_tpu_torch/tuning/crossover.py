@@ -61,9 +61,11 @@ CROSSOVER_VERSION = 1
 #: plan's own layers since, where revision 1 timed
 #: ``reference_bottleneck`` / ``reference_stem`` (``tuning/calibrate.py``);
 #: train_bottleneck is at 3 since its bf16 backward kernels run on the
-#: tensor cores (revision 2 timed them on the f32 CUDA cores)
+#: tensor cores (revision 2 timed them on the f32 CUDA cores), and at 4
+#: since its bf16 forward kernels do (revision 3 timed them on the CUDA
+#: cores)
 IMPL_REVS: Dict[str, int] = {
-    "train_bottleneck": 3,    # nn/layers/bottleneck.py fused chain
+    "train_bottleneck": 4,    # nn/layers/bottleneck.py fused chain
     "train_stem": 2,          # nn/layers/stem.py space-to-depth stem
     "paged_decode": 1,        # serving/paged_kernel.py
     "paged_decode_quant": 1,  # the int8 KV pool (serving/quant.py)

@@ -14,6 +14,11 @@ layers/bottleneck.py) against the JAX package's, on the CPU.
 - The wrappers take the plain versions on CPU tensors, launch nothing,
   and refuse what the kernels do not take (training is
   ``tests/test_torch_bottleneck_train.py``).
+- The bf16 kernels' host-side plan (``_fwd_tc_plan``): the grid's block
+  rows walk every pixel block once, so every output pixel is stored
+  once, in the fewest rounds, at every distinct forward conv of a
+  ResNet50 forward at B=128 and at the card's ragged shapes; the bf16
+  partials are sized by it.
 Inputs are made from a numpy seed; bf16 inputs are bf16 values handed to
 both packages exactly.
 """
@@ -37,6 +42,11 @@ CONV_CASES = {
     "1x1_stride2_relu": (1, "relu", 2, 3, 4, 4, 16, 24),
     "3x3_relu": (9, "relu", 1, 2, 7, 6, 24, 40),
     "3x3_identity": (9, "identity", 1, 2, 5, 5, 16, 8),
+    # the card's ragged cases: C and K no multiple of 8, 9x13 images
+    # whose 3x3 patches cross images, a stride-2 1x1 at 10x14
+    "1x1_ragged": (1, "relu", 1, 3, 9, 13, 20, 36),
+    "1x1_stride2_ragged": (1, "identity", 2, 3, 10, 14, 20, 36),
+    "3x3_ragged": (9, "relu", 1, 3, 9, 13, 20, 36),
 }
 
 
@@ -242,3 +252,78 @@ def test_the_gate_refuses_only_what_the_kernels_do_not_take(shape, stride,
                                                              dtype, ok):
     assert tb.fused_bottleneck_supported(shape, 64, 256, dtype,
                                          stride=stride) is ok
+
+
+# ---------------------------------------------------------------------
+# the bf16 forward kernels' launch plan (host side, _fwd_tc_plan)
+# ---------------------------------------------------------------------
+#: every distinct bottleneck forward conv of a ResNet50 forward at
+#: 224x224 (h = w of the input, C, K, stride, taps), and the card's
+#: ragged cases at B = 3 (n, h, w, C, K, stride, taps)
+RESNET_FWD_CONVS = [(56, 64, 64, 1, 1), (56, 256, 64, 1, 1),
+                    (56, 64, 64, 1, 9), (56, 64, 256, 1, 1),
+                    (56, 256, 128, 2, 1), (28, 512, 128, 1, 1),
+                    (28, 128, 128, 1, 9), (28, 128, 512, 1, 1),
+                    (56, 256, 512, 2, 1), (28, 512, 256, 2, 1),
+                    (14, 1024, 256, 1, 1), (14, 256, 256, 1, 9),
+                    (14, 256, 1024, 1, 1), (28, 512, 1024, 2, 1),
+                    (14, 1024, 512, 2, 1), (7, 2048, 512, 1, 1),
+                    (7, 512, 512, 1, 9), (7, 512, 2048, 1, 1),
+                    (14, 1024, 2048, 2, 1)]
+FWD_PLAN_CASES = [(128, hw, hw, c, k, s, t)
+                  for hw, c, k, s, t in RESNET_FWD_CONVS] + [
+    (3, 9, 13, 20, 36, 1, 1), (3, 10, 14, 20, 36, 2, 1),
+    (3, 9, 13, 20, 36, 1, 9), (1, 1, 1, 8, 8, 1, 9)]
+
+
+def _rounds(q, blocks, cols, cap):
+    """Rounds of pixel blocks with q grid rows: a block walks ceil(blocks
+    / q) of them, in ceil(q cols / cap) waves of the grid."""
+    return -(-q * cols // cap) * -(-blocks // q)
+
+
+@pytest.mark.parametrize("n, h, w, c, k, stride, taps", FWD_PLAN_CASES)
+def test_the_forward_plan_stores_every_pixel_once(n, h, w, c, k, stride,
+                                                  taps):
+    """On a 132-SM card the grid's block rows (the bf16 partials a
+    channel) walk the pixel blocks q, q + rows, ...: every pixel block
+    once, so every output pixel once, and no more rows than pixel
+    blocks; the rows take the fewest rounds of any choice."""
+    sms = 132
+    ho, wo = h // stride, w // stride
+    plan = tb._fwd_tc_plan(n, h, w, k, stride, taps, sms)
+    assert plan.channels == (64 if k <= 64 else 128)
+    assert 1 <= plan.tiles <= plan.blocks
+    walked = np.zeros(plan.blocks, np.int64)
+    for q in range(plan.tiles):
+        walked[q::plan.tiles] += 1
+    assert (walked == 1).all()
+    seen = np.zeros((n * ho, wo), np.int64)
+    for p in range(plan.blocks):
+        if taps == 9:
+            tw, th, cols = plan.patch
+            assert th * tw <= 128
+            r0, c0 = (p // cols) * th, (p % cols) * tw
+            seen[r0:r0 + th, c0:c0 + tw] += 1
+        else:
+            assert plan.patch is None
+            seen.reshape(-1)[128 * p:128 * (p + 1)] += 1
+    assert (seen == 1).all()
+    cols, cap = -(-k // plan.channels), (2 if k <= 64 else 1) * sms
+    best = min(_rounds(q, plan.blocks, cols, cap)
+               for q in range(1, plan.blocks + 1))
+    assert _rounds(plan.tiles, plan.blocks, cols, cap) == best
+
+
+def test_the_bf16_partials_follow_the_plan(monkeypatch):
+    """The bf16 forward's partials are the plan's block rows: for the s2
+    3x3 of one image, its 28 patches, more than the 25 output-row tiles
+    of 128 pixels that size the f32 kernel's."""
+    monkeypatch.setattr(tb, "_sm_count", lambda device: 132)
+    x = torch.zeros((1, 56, 56, 64), dtype=torch.bfloat16)
+    out, part, tiles, sums = tb._conv_outputs(x, 1, 56, 56, 64, 1, 9)
+    plan = tb._fwd_tc_plan(1, 56, 56, 64, 1, 9, 132)
+    assert tiles == plan.tiles == plan.blocks == 28 > -(-56 * 56 // 128)
+    assert tuple(part.shape) == (2, 64, 28)
+    assert tuple(out.shape) == (1, 56, 56, 64) and out.dtype == x.dtype
+    assert tuple(sums.shape) == (2, 64) and not sums.any()
