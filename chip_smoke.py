@@ -101,9 +101,10 @@ Phases (any failure exits nonzero):
     Times of the kernel, the plain version and the nearest library call
     (a cuBLAS matmul on the activated input, cuDNN's conv,
     ``F.max_pool2d``) beside the bound. Before them, the bottleneck
-    library's SASS: the bf16 forward kernels (the tensor cores) hold
-    HMMA.16816.F32.BF16, the f32 ones none, with their registers and
-    spills from ``ptxas -v`` and their shared memory. Three ragged cases
+    library's SASS: each bf16 forward function (the tensor cores,
+    ``conv_fwd_tc.cuh``) holds 144 HMMA.16816.F32.BF16 (the 3x3) or 64
+    (the 1x1), the f32 ones none, with their registers and spills from
+    ``ptxas -v`` and their shared memory. Three ragged cases
     in bf16 and f32 at B=3 (C=20, K=36: no multiple of 8; a 1x1 and a
     3x3 over 9x13 images, whose patches cross images; a stride-2 1x1 at
     10x14) on the same limits. Then the sweep: every distinct forward
@@ -182,7 +183,19 @@ Phases (any failure exits nonzero):
     in f32, dW from the unrounded dy, dx rounded per tap). Times of the
     kernel, the plain version and ``aten.max_pool2d_with_indices_
     backward`` or cuDNN's ``convolution_backward`` (wgrad, dgrad;
-    channels-last) beside the bound;
+    channels-last) beside the bound. The bf16 weight gradient runs one
+    pass on the tensor cores (``stem.stem_dw_route``): before the cases
+    the stem library's SASS (128 HMMA.16816.F32.BF16 in that function,
+    none in the CUDA-core GEMM; its registers, spills and shared
+    memory), its dy and dW launched twice and bitwise equal, dy's
+    largest difference from the plain version printed (0 expected), the
+    device kernels one call starts on each route (the library's own
+    counts: bf16 the pass and its reduction, no dy pass; f32 the dy
+    pass, the GEMM and the reduction), a partials buffer one grid row
+    short refused, and ragged cases in bf16 and f32 at B=3 (9x13 and
+    15x17 images, C=4, K=36) of all three kernels on the same limits
+    (the bf16 dW also from an x one element off 16-byte alignment,
+    bitwise equal);
 17. resnet train stem: phase 14's configuration with the stem kernels
     engaged (``set_fusion("bottleneck", stem=True)``) through
     ``net.fit``: a warm-up step and 5 timed steps, the loss finite, per
@@ -221,7 +234,11 @@ Phases (any failure exits nonzero):
     in the prologue, no relu' mask on dz, dW from the unrounded z).
     Times of the kernels, the plain versions and cuBLAS (``torch.matmul``
     on the activated input; ``g @ W^T`` and ``z^T @ g``) beside the
-    bounds;
+    bounds. The bf16 forward is the bottleneck's tensor-core 1x1
+    (``conv_fwd_tc.cuh``, bias epilogue): before the cases the fused
+    library's SASS (64 HMMA.16816.F32.BF16 in each bf16 forward
+    function, none in the f32 one), and every forward launched twice,
+    bitwise equal;
 21. resnet fuse_true (``resnet_fuse_true``): ResNet50(fuse=True) at full
     width (1000 classes, 224x224, B=128, bf16, NHWC): one counted
     ``output()`` (BN statistics calibrated as phase 11's; 16 fused
@@ -2288,30 +2305,47 @@ def ptxas_usage(library, name):
     return usage
 
 
-#: the bf16 forward's tensor-core kernel and the f32 forward's CUDA-core
-#: one, by their templates' mangled names
+#: the bf16 forward's tensor-core kernel (conv_fwd_tc.cuh, shared by the
+#: bottleneck and the fused op) and the f32 forwards' CUDA-core ones, by
+#: their mangled names
 CONV_TC_KERNEL, CONV_CUDA_CORE_KERNEL = "13fwd_tc_kernel", "16conv_gemm_kernel"
+FUSED_CUDA_CORE_KERNEL = "16fused_fwd_kernel"
+#: HMMA.16816.F32.BF16 in each fully unrolled chunk of fwd_tc_kernel: 9
+#: taps x one k16 step (the 3x3), 4 k16 steps (the 1x1), 16 products each
+CONV_TC_HMMA = {9: 144, 1: 64}
+
+
+def tc_sass(library, tc_name, cuda_core_name, want=None):
+    """``library``'s SASS: the functions named ``tc_name`` (the tensor
+    cores) hold HMMA.16816.F32.BF16 (``want(function)`` of them where
+    given), those named ``cuda_core_name`` none. Returns (the record, the
+    list of what disagrees)."""
+    counts, tool = sass_hmma(library)
+    tc = {f: c for f, c in counts.items() if tc_name in f}
+    cuda_cores = {f: c for f, c in counts.items() if cuda_core_name in f}
+    bad = [f for f, c in tc.items()
+           if c == 0 or (want is not None and c != want(f))]
+    bad += [f for f, c in cuda_cores.items() if c != 0]
+    if not tc or not cuda_cores:
+        bad.append("no tensor-core or no CUDA-core function found")
+    rec = {"tool": str(tool), "hmma_16816_f32_bf16": {
+               tc_name: tc, cuda_core_name: cuda_cores},
+           "ptxas": ptxas_usage(library, tc_name.lstrip("0123456789"))}
+    return rec, bad
 
 
 def conv_sass():
-    """The bottleneck library's SASS: the bf16 forward functions (the
-    tensor cores) must hold HMMA.16816.F32.BF16 and the f32 ones (the
-    CUDA cores) none; with each function's registers and spills as
-    ptxas reported them."""
+    """The bottleneck library's SASS: each bf16 forward function (the
+    tensor cores) holds 144 HMMA.16816.F32.BF16 (the 3x3) or 64 (the
+    1x1), and the f32 ones (the CUDA cores) none; with each function's
+    registers and spills as ptxas reported them."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
-    counts, tool = sass_hmma(bn._LIBRARY)
-    tc = {f: c for f, c in counts.items() if CONV_TC_KERNEL in f}
-    cuda_cores = {f: c for f, c in counts.items()
-                  if CONV_CUDA_CORE_KERNEL in f}
-    rec = {"tool": str(tool), "hmma_16816_f32_bf16": {
-               "fwd_tc_kernel": tc, "conv_gemm_kernel": cuda_cores},
-           "ptxas": ptxas_usage(bn._LIBRARY, "fwd_tc_kernel")}
+    rec, bad = tc_sass(bn._LIBRARY, CONV_TC_KERNEL, CONV_CUDA_CORE_KERNEL,
+                       lambda f: CONV_TC_HMMA[9 if "ILi9E" in f else 1])
     log("cnn sass:", json.dumps(rec))
-    if not tc or any(c == 0 for c in tc.values()) or not cuda_cores or \
-            any(c != 0 for c in cuda_cores.values()):
-        raise AssertionError(f"cnn sass: HMMA.16816.F32.BF16 not in every "
-                             f"bf16 forward function or in an f32 one: "
-                             f"{rec['hmma_16816_f32_bf16']}")
+    if bad:
+        raise AssertionError(f"cnn sass: HMMA.16816.F32.BF16 counts off in "
+                             f"{bad}: {rec['hmma_16816_f32_bf16']}")
     return rec
 
 
@@ -3367,17 +3401,26 @@ STEM_BWD_GEO = dict(h=224, w=224, c=3, k=64)
 STEM_DX_TILE = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 
-def stem_bwd_inputs(n, dtype, device, seed):
-    """Seeded inputs of the stem's backward at the training shape: x and
-    a He-normal weight, the conv kernel's y and batch statistics with
-    drawn BN gains and biases (the BN rows aff_p), the pooled output's
-    gradient g; then, from the plain versions, dz0 and the rows aff_k
-    (m1, m2 from its sums), and dy, so that each kernel is held on its
-    plain version's inputs."""
+#: the ragged cases (B = 3): odd images, C = 4 (RGBA: a tap's 16
+#: channels all real), K = 36 (no multiple of 8: element-wise copies)
+STEM_BWD_RAGGED = {"ragged_9x13": dict(h=9, w=13, c=4, k=36),
+                   "ragged_15x17": dict(h=15, w=17, c=4, k=36)}
+STEM_BWD_RAGGED_B = 3
+#: HMMA.16816.F32.BF16 in the tensor-core dW function: 8 k16 steps (the
+#: patch's rows) x 16 products
+STEM_DW_TC_HMMA = 128
+
+
+def stem_bwd_inputs(n, dtype, device, seed, geo=STEM_BWD_GEO):
+    """Seeded inputs of the stem's backward at ``geo`` (by default the
+    training shape): x and a He-normal weight, the conv kernel's y and
+    batch statistics with drawn BN gains and biases (the BN rows aff_p),
+    the pooled output's gradient g; then, from the plain versions, dz0
+    and the rows aff_k (m1, m2 from its sums), and dy, so that each
+    kernel is held on its plain version's inputs."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
     from deeplearning4j_tpu_torch.nn.layers import stem
     gen = torch.Generator().manual_seed(seed)
-    geo = STEM_BWD_GEO
     h, w, c, k = geo["h"], geo["w"], geo["c"], geo["k"]
     g = stem.stem_geometry(h, w)
     x = torch.randn((n, h, w, c), generator=gen).to(device, dtype)
@@ -3397,7 +3440,7 @@ def stem_bwd_inputs(n, dtype, device, seed):
     aff_k = bn._rows(sc, bb, inv, mu, sums[0] / count, sums[1] / count)
     dy, _ = stem.stem_bwd_dw_plain(x, y, dz, aff_k)
     return {"x": x, "w7": w7, "ws": ws, "y": y, "g": gout, "aff_p": aff_p,
-            "dz": dz, "aff_k": aff_k, "dy": dy}
+            "dz": dz, "aff_k": aff_k, "dy": dy, "geo": dict(geo)}
 
 
 def stem_pool_fault(y, g, aff, fault):
@@ -3518,20 +3561,47 @@ def stem_bwd_bound(kernel, n, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def stem_bwd_case(kernel, a, dtype, n, device):
+def stem_bwd_case(kernel, a, dtype, n, device, label=None):
     """One stem backward kernel against its plain version on the same
     inputs: each output by rows and 64-row tiles (dz0, dy, dx as stored
     in the compute dtype, dW in f32 by its rows), the sums within
-    BWD_SUMS of each channel's sum of |terms|; in bf16 each planted
-    fault fails the limits; then the kernel's, plain version's and
-    library call's times beside the bound."""
+    BWD_SUMS of each channel's sum of |terms|; bf16 dy and dW launched
+    twice, bitwise equal; dy's largest difference from the plain
+    version's (the same ops: 0 expected). At the training shape (no
+    ``label``) in bf16 each planted fault fails the limits, and the
+    kernel's, plain version's and library call's times stand beside the
+    bound; a ragged case (``label``) is held to the same limits only."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
     kern, plain, library, faults = stem_bwd_fns(kernel, a)
     got, ref = kern(), plain()
+    again = kern() if dtype == torch.bfloat16 and kernel == "stem_bwd_dw" \
+        else None
     torch.cuda.synchronize()
-    case = {"case": kernel, "kernel": kernel,
-            "dtype": str(dtype).split(".")[-1], "batch": n, **STEM_BWD_GEO}
+    geo = a["geo"]
+    case = {"case": label or kernel, "kernel": kernel,
+            "dtype": str(dtype).split(".")[-1], "batch": n, **geo}
+    if kernel == "stem_bwd_dw":
+        case["route"] = stem.stem_dw_route(dtype, geo["c"])
     failures = []
-    k = STEM_BWD_GEO["k"]
+    if again is not None:
+        case["bitwise_repeat"] = all(torch.equal(u, v)
+                                     for u, v in zip(got, again))
+        if not case["bitwise_repeat"]:
+            failures.append("two launches differ")
+    if again is not None and label is not None:
+        # x one element off 16-byte alignment: the element-wise copies of
+        # its rows give the same halo tiles, so the same bits
+        x = a["x"]
+        xu = torch.empty(x.numel() + 1, dtype=x.dtype,
+                         device=x.device)[1:].view(x.shape)
+        xu.copy_(x)
+        case["x_unaligned_bitwise"] = all(torch.equal(u, v) for u, v in zip(
+            stem.stem_bwd_dw(xu, a["y"], a["dz"], a["aff_k"]), got))
+        if not case["x_unaligned_bitwise"]:
+            failures.append("an unaligned x changes the result")
+        del xu
+    del again
+    k = geo["k"]
     limits = {"row_rel": CONV_ROW[dtype], "tile_rel": CONV_TILE[dtype]}
     if kernel == "stem_bwd_pool":
         (dz, sums), (rdz, rsums) = got, ref
@@ -3566,7 +3636,11 @@ def stem_bwd_case(kernel, a, dtype, n, device):
             "stem_bwd_dx": "dx"}[kernel]
     case["max_abs_err"] = case[main]["max_abs_err"]
     case["limits"] = limits
-    if dtype == torch.bfloat16:
+    if kernel == "stem_bwd_dw":
+        log(f"stem bwd_dw {case['case']} {case['dtype']}: dy's largest "
+            f"difference from the plain version's "
+            f"{case['dy']['max_abs_err']!r} (route {case['route']})")
+    if dtype == torch.bfloat16 and label is None:
         planted_rec = {}
         for fault, fn in faults.items():
             name = "dW" if fault == "dy_unrounded" else main
@@ -3586,6 +3660,9 @@ def stem_bwd_case(kernel, a, dtype, n, device):
         raise AssertionError(f"{kernel} kernel disagrees with its plain "
                              f"version ({failures}, finite {ok}): {case}")
     del got, ref, outs, finite
+    if label is not None:
+        del kern, plain, library, faults
+        return case
     bound_ms, bound_by = stem_bwd_bound(kernel, n, dtype)
     case.update(ms=median_ms(kern, device),
                 plain_ms=median_ms(plain, device, iters=10),
@@ -3597,17 +3674,111 @@ def stem_bwd_case(kernel, a, dtype, n, device):
     return case
 
 
+def stem_sass():
+    """The stem backward library's SASS: the tensor-core dW function
+    holds STEM_DW_TC_HMMA HMMA.16816.F32.BF16, the CUDA-core dW GEMM
+    none; its registers and spills from ptxas -v and its dynamic shared
+    memory."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    rec, bad = tc_sass(stem._BWD_LIBRARY, "12dw_tc_kernel", "9dw_kernel",
+                       lambda f: STEM_DW_TC_HMMA)
+    rec["smem_bytes"] = stem._BWD_LIBRARY.load().dl4j_stem_bwd_dw_tc_smem()
+    log("stem sass:", json.dumps(rec))
+    if bad:
+        raise AssertionError(f"stem sass: HMMA.16816.F32.BF16 counts off in "
+                             f"{bad}: {rec['hmma_16816_f32_bf16']}")
+    return rec
+
+
+#: the device kernels of one stem_bwd_dw call on each route, as the
+#: library's launchers count them (dl4j_stem_bwd_dw_kernel_launches): the
+#: tensor-core pass and its split reduction, or the dy pass, the
+#: CUDA-core GEMM and the reduction
+STEM_DW_KERNELS = ("dy_kernel", "dw_kernel", "dw_tc_kernel",
+                   "reduce_splits_kernel")
+STEM_DW_LAUNCHES = {"tensor_cores": (0, 0, 1, 1), "cuda_cores": (1, 1, 0, 1)}
+
+
+def stem_dw_launches(a):
+    """The device kernels one stem_bwd_dw call started, by the library's
+    own counts, against its route's STEM_DW_LAUNCHES."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    lib = stem._BWD_LIBRARY.load()
+    route = stem.stem_dw_route(a["x"].dtype, a["x"].shape[3])
+
+    def counts():
+        c = (ctypes.c_int * 4)()
+        lib.dl4j_stem_bwd_dw_kernel_launches(c)
+        return list(c)
+
+    before = counts()
+    stem.stem_bwd_dw(a["x"], a["y"], a["dz"], a["aff_k"])
+    torch.cuda.synchronize()
+    got = {n: v - b for n, v, b in zip(STEM_DW_KERNELS, counts(), before)}
+    want = dict(zip(STEM_DW_KERNELS, STEM_DW_LAUNCHES[route]))
+    rec = {"route": route, "dtype": str(a["x"].dtype).split(".")[-1],
+           "device_kernels": got}
+    log("stem bwd_dw launches:", json.dumps(rec))
+    if got != want:
+        raise AssertionError(f"stem_bwd_dw on {route} launched {got}, "
+                             f"expected {want}")
+    return rec
+
+
+def check_stem_dw_guard(device):
+    """The tensor-core dW launcher refuses partials one grid row short
+    (a CUDA error, no launch) instead of writing past them."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    n, h, w, c, k = 2, 32, 32, 3, 64
+    bf = torch.bfloat16
+    x = torch.zeros((n, h, w, c), dtype=bf, device=device)
+    y = torch.zeros((n, 16, 16, k), dtype=bf, device=device)
+    aff = torch.zeros((6, k), device=device)
+    dy = torch.empty_like(y)
+    dw = torch.empty((64 * c, k), device=device)
+    tiles = stem._stem_dw_plan(n, h, w, k, bn._sm_count(device)).tiles
+    part = torch.empty((tiles, 64 * c, k), device=device)
+    before = stem.STEM_BWD_DW.launches
+    try:
+        stem.STEM_BWD_DW.launch(
+            (bf, stem.TENSOR_CORES), x.data_ptr(), y.data_ptr(),
+            y.data_ptr(), aff.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            part.data_ptr(), n, h, w, c, k, tiles - 1, bn._stream(x))
+    except RuntimeError as e:
+        assert stem.STEM_BWD_DW.launches == before, "a refused launch counted"
+        log(f"stem dw guard: {tiles - 1} of {tiles} partial rows refused "
+            f"({e})")
+        return {"tiles": tiles, "refused": tiles - 1}
+    raise AssertionError("stem_bwd_dw took partials one grid row short")
+
+
 def check_stem_bwd_kernels(device):
-    """The three stem backward kernels in bf16 at the main path's batch,
-    then in f32 at 16."""
-    cases = []
+    """The SASS check; the three stem backward kernels in bf16 at the
+    main path's batch, then in f32 at 16; the dW route's device kernels
+    in both; the short-partials guard; the ragged cases in both at B=3."""
+    sass = stem_sass()
+    cases, launches = [], []
     for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16)):
         a = stem_bwd_inputs(n, dtype, device, seed=40)
         for kernel in ("stem_bwd_pool", "stem_bwd_dw", "stem_bwd_dx"):
             cases.append(stem_bwd_case(kernel, a, dtype, n, device))
+        launches.append(stem_dw_launches(a))
         del a
         torch.cuda.empty_cache()
-    return cases
+    guard = check_stem_dw_guard(device)
+    for i, (label, geo) in enumerate(STEM_BWD_RAGGED.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            a = stem_bwd_inputs(STEM_BWD_RAGGED_B, dtype, device,
+                                seed=60 + i, geo=geo)
+            for kernel in ("stem_bwd_pool", "stem_bwd_dw", "stem_bwd_dx"):
+                cases.append(stem_bwd_case(kernel, a, dtype,
+                                           STEM_BWD_RAGGED_B, device,
+                                           label=label))
+    return {"cases": cases, "sass": sass, "dw_launches": launches,
+            "dw_guard": guard}
 
 
 # ---------------------------------------------------------------------
@@ -3660,11 +3831,11 @@ def resnet_train_stem(device, xla_losses=None):
     rec["profile"], share = profile_fit_step(net, x, y, None)
     rec["profile"].update(
         conv_fwd_share=share("conv_gemm_kernel", "fwd_tc_kernel"),
-        conv_bwd_share=share("dz_kernel", "dw_kernel", "dz_tc_kernel",
-                             "dw_tc_kernel", "reduce_splits"),
+        conv_bwd_share=share("dz_kernel", "dw_kernel<", "dz_tc_kernel",
+                             "dw_tc_kernel<", "reduce_splits"),
         stem_share=share("conv_gemm_kernel<__nv_bfloat16, 2>",
                          "stem_pool_kernel", "bwd_pool_kernel", "dy_kernel",
-                         "dw_kernel<__nv_bfloat16>("))
+                         "dw_kernel<__nv_bfloat16>(", "dw_tc::dw_tc_kernel"))
     del net
     torch.cuda.empty_cache()
     if xla_losses is None:
@@ -4026,13 +4197,29 @@ def fused_case(name, dtype, n, device, seed):
     m = n * hw * hw
     fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib = fused_fns(a)
     out, ref_out = fwd(), fwd_plain()
+    out_again = fwd()
     got, ref = bwd(), bwd_plain()
     again = bwd()
     torch.cuda.synchronize()
     case = {"case": name, "dtype": str(dtype).split(".")[-1], "batch": n,
-            "m": m, "c": c, "k": k}
+            "m": m, "c": c, "k": k,
+            # the forward's units: bf16 the shared tensor-core 1x1
+            # (conv_fwd_tc.cuh), f32 the CUDA cores
+            "fwd_route": "tensor_cores" if dtype == torch.bfloat16
+            else "cuda_cores"}
+    if dtype == torch.bfloat16:
+        from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+        from deeplearning4j_tpu_torch.nn.layers import fused
+        case["fwd_plan"] = fused._fwd_plan(m, k, bn._sm_count(device)) \
+            ._asdict()
+        case["fwd_smem_bytes"] = fused._LIBRARY.load() \
+            .dl4j_fused_fwd_tc_smem(m, k)
     failures = []
     finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
+    case["fwd_bitwise_repeat"] = torch.equal(out, out_again)
+    if not case["fwd_bitwise_repeat"]:
+        failures.append("two forward launches differ")
+    del out_again
     case["bitwise_repeat"] = all(torch.equal(u, v)
                                  for u, v in zip(got, again))
     if not case["bitwise_repeat"]:
@@ -4089,12 +4276,29 @@ def fused_case(name, dtype, n, device, seed):
     return case
 
 
+def fused_sass():
+    """The fused library's SASS: each bf16 forward function (the shared
+    tensor-core 1x1, bias epilogue) holds 64 HMMA.16816.F32.BF16, the
+    f32 forward (the CUDA cores) none; with their registers and spills
+    from ptxas -v."""
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    rec, bad = tc_sass(fused._LIBRARY, CONV_TC_KERNEL,
+                       FUSED_CUDA_CORE_KERNEL, lambda f: CONV_TC_HMMA[1])
+    log("fused sass:", json.dumps(rec))
+    if bad:
+        raise AssertionError(f"fused sass: HMMA.16816.F32.BF16 counts off "
+                             f"in {bad}: {rec['hmma_16816_f32_bf16']}")
+    return rec
+
+
 def check_fused_kernels(device):
-    """Every stage's group in bf16 at the main path's batch, then in f32
-    at 16; the tail in both."""
-    return [fused_case(name, dtype, n, device, seed=40 + i)
-            for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
-            for i, name in enumerate([*FUSED_STAGES, "tail"])]
+    """The SASS check; every stage's group in bf16 at the main path's
+    batch, then in f32 at 16; the tail in both."""
+    sass = fused_sass()
+    return {"sass": sass, "cases": [
+        fused_case(name, dtype, n, device, seed=40 + i)
+        for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
+        for i, name in enumerate([*FUSED_STAGES, "tail"])]}
 
 
 def fuse_true_net(device, dtype, lr=0.1, calibrate=False):
@@ -4248,7 +4452,9 @@ def resnet_fuse_true(device):
     net.set_fusion(True)
     rec["profile"], share = profile_fit_step(net, x, y, None)
     rec["profile"].update(
-        fused_fwd_share=share("fused_fwd_kernel"),
+        # bf16: the shared tensor-core 1x1 with the bias epilogue
+        fused_fwd_share=share("fused_fwd_kernel", "fwd_tc_kernel<1, 2, 1>",
+                              "fwd_tc_kernel<1, 4, 1>"),
         fused_bwd_share=share("fused_dz_kernel", "fused_dw_kernel",
                               "fused_finish_kernel", "reduce_partials"))
     del net
@@ -4911,11 +5117,16 @@ def stem_bwd_entry(name, replaces, launches, path, cases):
     library = {"stem_bwd_pool": "aten.max_pool2d_with_indices_backward",
                "stem_bwd_dw": "aten.convolution_backward (cuDNN wgrad)",
                "stem_bwd_dx": "aten.convolution_backward (cuDNN dgrad)"}
-    keys = ("max_abs_err", "sums_rel", "dz0", "dy", "dW", "dx", "planted")
+    keys = ("case", "route", "max_abs_err", "sums_rel", "dz0", "dy", "dW",
+            "dx", "planted", "bitwise_repeat", "x_unaligned_bitwise")
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/stem_bwd.cu",
             "replaces": replaces, "launches": launches,
             "launches_on": path,
+            **({"design": "redesigned for the tensor cores (bf16 at 4 C <= "
+                          "16: one pass, mma.sync over conv_mma.cuh; f32: "
+                          "the CUDA cores)",
+                "core_route": main["route"]} if "route" in main else {}),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -4934,12 +5145,19 @@ def fused_entry(name, replaces, launches, cases):
     and every case's."""
     kind = name.split("_")[1]
     main = cases[0]
-    keys = ("out",) if kind == "fwd" else ("dy", "dw", "sums_rel",
-                                           "bitwise_repeat")
+    keys = ("out", "fwd_route", "fwd_bitwise_repeat") if kind == "fwd" \
+        else ("dy", "dw", "sums_rel", "bitwise_repeat")
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/fused.cu",
             "replaces": replaces, "launches": launches,
             "launches_on": f"{TRAIN_RESNET_STEPS} fit steps on fuse=True",
+            **({"design": "redesigned for the tensor cores (bf16: the "
+                          "bottleneck's 1x1 kernel of conv_fwd_tc.cuh with "
+                          "a bias epilogue; f32: the CUDA cores)",
+                "core_route": main["fwd_route"],
+                "kernel_source": "deeplearning4j_tpu_torch/nn/layers/csrc/"
+                                 "conv_fwd_tc.cuh"}
+               if kind == "fwd" else {}),
             "max_abs_err": max(main[k]["max_abs_err"] for k in (
                 ("out",) if kind == "fwd" else ("dy", "dw"))),
             **{k: main[kind][k] for k in ("ms", "plain_ms", "bound_ms",
@@ -5120,8 +5338,11 @@ def main(argv=None) -> int:
         out["resnet_train_reference"] = phase(
             "resnet_train_reference", resnet_train_reference, device)
     if want("stem_bwd"):
-        out["stem_bwd_cases"] = phase("stem_bwd", check_stem_bwd_kernels,
-                                      device)
+        sb = phase("stem_bwd", check_stem_bwd_kernels, device)
+        out["stem_bwd_cases"], out["stem_bwd_sass"] = sb["cases"], \
+            sb["sass"]
+        out["stem_dw_launches"], out["stem_dw_guard"] = \
+            sb["dw_launches"], sb["dw_guard"]
     if want("resnet_train_stem"):
         xla_losses = out.get("resnet_train", {}).get("against_xla", {}) \
             .get("losses_xla")
@@ -5138,8 +5359,8 @@ def main(argv=None) -> int:
     if want("auto_plan"):
         out["auto_plan"] = phase("auto_plan", auto_plan, device)
     if want("fused_kernels"):
-        out["fused_cases"] = phase("fused_kernels", check_fused_kernels,
-                                   device)
+        fk = phase("fused_kernels", check_fused_kernels, device)
+        out["fused_cases"], out["fused_sass"] = fk["cases"], fk["sass"]
     if want("resnet_fuse_true"):
         rf = out["resnet_fuse_true"] = phase("resnet_fuse_true",
                                              resnet_fuse_true, device)

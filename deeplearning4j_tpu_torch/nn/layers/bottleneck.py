@@ -11,22 +11,23 @@ entry blocks (stride on conv_a and on a conv shortcut with its own BN).
 
 The forward kernels are hand-written CUDA C++ for Hopper, ``csrc/
 bottleneck.cu``; they replace the TPU kernels ``_fwd1x1_kernel`` and
-``_fwd3x3_kernel``, in bf16 on the tensor cores (``csrc/conv_mma.cuh``:
-``mma.sync`` tiles staged through the activation prologue, planned here
-by :func:`_fwd_tc_plan`), in f32 on the CUDA cores over the implicit
-GEMM of ``csrc/conv_gemm.cuh``. The backward kernels, ``csrc/
-bottleneck_bwd.cu``, replace ``_bwd1x1_kernel`` and ``_bwd3x3_kernel``:
-one entry point per stage computes the stage's dW, the previous stage's
-dz0 and that stage's BN-backward sums, in bf16 on the tensor cores
-(staged through the BN-backward and activation prologues, planned by
-:func:`_bwd_tc_plan`), in f32 on the CUDA cores over ``conv_gemm.cuh``'s
-tiles (the source notes say what bounds each kernel and what its design
-does about that). The JAX package's channel-split
-variant of the backward (grid ``(split, n)``) exists only for the TPU's
-VMEM budget and is not ported: the CUDA kernels tile any shape. Each
-wrapper dispatches on where its tensors lie: CUDA tensors launch the
-kernel (or raise on what it does not take), CPU tensors take the plain
-version beside it, written as the JAX kernel body (f32 products of
+``_fwd3x3_kernel``, in bf16 on the tensor cores (``csrc/
+conv_fwd_tc.cuh``, shared with the fused bn -> act -> 1x1 forward, over
+``csrc/conv_mma.cuh``: ``mma.sync`` tiles staged through the activation
+prologue, planned here by :func:`_fwd_tc_plan`), in f32 on the CUDA
+cores over the implicit GEMM of ``csrc/conv_gemm.cuh``. The backward
+kernels, ``csrc/bottleneck_bwd.cu``, replace ``_bwd1x1_kernel`` and
+``_bwd3x3_kernel``: one entry point per stage computes the stage's dW,
+the previous stage's dz0 and that stage's BN-backward sums, in bf16 on
+the tensor cores (staged through the BN-backward and activation
+prologues, planned by :func:`_bwd_tc_plan`), in f32 on the CUDA cores
+over ``conv_gemm.cuh``'s tiles (the source notes say what bounds each
+kernel and what its design does about that). The JAX package's channel-
+split variant of the backward (grid ``(split, n)``) exists only for the
+TPU's VMEM budget and is not ported: the CUDA kernels tile any shape.
+Each wrapper dispatches on where its tensors lie: CUDA tensors launch
+the kernel (or raise on what it does not take), CPU tensors take the
+plain version beside it, written as the JAX kernel body (f32 products of
 dtype-rounded operands, the same rounding points). There is no fallback
 from the kernel to the plain version.
 
@@ -82,7 +83,8 @@ _LIBRARY = CudaLibrary(
     {**{s: _CONV1X1_ARGS for s in _symbols("conv1x1").values()},
      **{s: _CONV3X3_ARGS for s in _symbols("conv3x3").values()},
      "dl4j_conv_row_tile": [], "dl4j_conv_tc_smem": _CONV_TC_SMEM_ARGS},
-    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/conv_fwd_tc.cuh"])
 
 _BWD_LIBRARY = CudaLibrary(
     "bottleneck_bwd", ["nn/layers/csrc/bottleneck_bwd.cu"],

@@ -23,33 +23,42 @@
 // Translation. The TPU kernels walk row blocks of y on a sequential grid
 // with the whole weight resident in VMEM, and the backward carries dW and
 // the three sums across the grid in VMEM scratch. Blocks on an H100 run in
-// no order, so nothing carries over between them:
-//   - the forward is an output-tiled GEMM over conv_gemm.cuh's tiles
-//     (128 rows x 64 columns, 16-deep reduction steps), its prologue
-//     applied as the A tile is gathered (conv_gemm.cuh's load_tile: the
-//     bottleneck's conv1x1 with M = N H W rows of one pixel each), its
-//     epilogue adding b instead of summing the output;
-//   - the backward is two GEMMs over the same tiles. The dz pass: rows M,
-//     columns C, reduction over K (A = g, B = W^T); its epilogue
-//     recomputes z0 from y for the relu' mask, stores dy and sums dz y and
-//     dz into per-block partials, reduced per channel in a fixed order by
-//     conv_gemm.cuh's second pass. The dW pass: rows C, columns K,
-//     reduction over M split across the grid's z dimension into f32
-//     partials, z recomputed from y as its tile is gathered; one more
-//     row of ones (row C) makes db = sum g the same product's last row.
-//     The splits are merged in a fixed order (f64), so two launches on
-//     the same inputs give bitwise-equal results: no float atomics.
+// no order, so nothing carries over between them.
 //
 // What bounds it on an H100. At ResNet50's shapes in bf16 at B=128 the
-// s2 block (M = 401,408, C = 64, K = 256) moves y (51 MB) and out (206
+// s2 group (M = 401,408, C = 64, K = 256) moves y (51 MB) and out (206
 // MB) forward, y, g, dy (308 MB) backward: bytes, 0.077 and 0.092 ms at
 // 3.35 TB/s, against 13 and 26 GFLOP (0.013, 0.027 ms at 989 TFLOP/s);
-// s5 (M = 6,272, C = 512, K = 2048) is bound by its operations. This
-// first version is the simple, right one: every product on the f32 CUDA
-// cores (67 TFLOP/s), y and g read by both backward passes, so the f32
-// rate bounds it. Tensor-core tiles (mma.sync, then wgmma) fed by
-// cp.async or TMA, and one pass that keeps dz's tile for the dW product,
-// are a later kernel's work.
+// s5 (M = 6,272, C = 512, K = 2048) is bound by its operations.
+//
+// The bf16 forward, the main path's, runs on the tensor cores: it is the
+// bottleneck's conv1x1 as a stride-1 1x1 over M images of one pixel,
+// conv_fwd_tc.cuh's fwd_tc_kernel with the bias epilogue (kBias: the f32
+// bias added to the f32 sum, rounded once; no sums). That header says
+// how the design meets the bound: a persistent grid (its block rows
+// planned by fused.py with bottleneck.py's rule) whose cp.async ring runs
+// on between 128-row blocks, the prologue converted once per staged
+// element, mma.sync tiles fed by ldmatrix, stores 16 bytes a thread. What
+// still holds it back: each block's copy, conversion, products and
+// stores run one after another at one or two blocks an SM, and
+// mma.sync's rate is below wgmma's.
+//
+// The f32 forward and the backward stay on conv_gemm.cuh's f32 CUDA-core
+// tiles (128 rows x 64 columns, 16-deep reduction steps; exact f32, no
+// TF32): the f32 forward's prologue applied as the A tile is gathered
+// (conv_gemm.cuh's load_tile), its epilogue adding b. The backward is two
+// GEMMs over the same tiles. The dz pass: rows M, columns C, reduction
+// over K (A = g, B = W^T); its epilogue recomputes z0 from y for the
+// relu' mask, stores dy and sums dz y and dz into per-block partials,
+// reduced per channel in a fixed order by conv_gemm.cuh's second pass.
+// The dW pass: rows C, columns K, reduction over M split across the
+// grid's z dimension into f32 partials, z recomputed from y as its tile
+// is gathered; one more row of ones (row C) makes db = sum g the same
+// product's last row. The splits are merged in a fixed order (f64), so
+// two launches on the same inputs give bitwise-equal results: no float
+// atomics. The backward's products on the f32 rate and its two reads of
+// y and g bound it; tensor-core tiles and one pass that keeps dz's tile
+// for the dW product are later work (ROADMAP queue B).
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -57,7 +66,10 @@
 // on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
+#include "conv_fwd_tc.cuh"
 #include "conv_gemm.cuh"
+
+#include <climits>
 
 namespace {
 
@@ -375,6 +387,7 @@ __global__ void __launch_bounds__(kFinishThreads)
     db[i - wsize] = v;
 }
 
+// The f32 forward on the CUDA cores.
 template <typename T>
 int fused_fwd(const void* y, const void* sc, const void* bb, const void* w,
               const void* b, void* out, int m, int c, int k, int relu,
@@ -387,6 +400,31 @@ int fused_fwd(const void* y, const void* sc, const void* bb, const void* w,
       static_cast<const float*>(bb), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<T*>(out), g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward on the tensor cores: the stride-1 1x1 over M images
+// of one pixel on `slots` grid rows (fused.py's plan), the bias epilogue.
+// Refuses (cudaErrorInvalidValue, before any launch) slots outside 1 ..
+// the 128-row blocks, or a tensor of 2^31 - 1 elements or more (the
+// kernel indexes with ints).
+int fused_fwd_tc(const void* y, const void* sc, const void* bb,
+                 const void* w, const void* b, void* out, int m, int c,
+                 int k, int relu, int slots, void* stream) {
+  if (static_cast<int64_t>(m) * c >= INT_MAX ||
+      static_cast<int64_t>(m) * k >= INT_MAX ||
+      static_cast<int64_t>(c) * k >= INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  const int vec = c % 8 == 0 && k % 8 == 0 && dl4j_mma::aligned16(y) &&
+                  dl4j_mma::aligned16(w) && dl4j_mma::aligned16(out);
+  dl4j_fwd::Fwd s =
+      dl4j_fwd::fwd_geometry<1>(m, 1, 1, c, k, 1, relu, vec, 0);
+  if (slots < 1 || slots > s.tile.patches)
+    return static_cast<int>(cudaErrorInvalidValue);
+  s.slots = slots;
+  return dl4j_fwd::launch_fwd_for<1, dl4j_fwd::kBias>(
+      y, sc, bb, w, b, out, nullptr, nullptr, s,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Launch the backward's four kernels on `stream`: the dz pass, the sums'
@@ -446,9 +484,8 @@ int dl4j_fused_fwd_f32(const void* y, const void* sc, const void* bb,
 
 int dl4j_fused_fwd_bf16(const void* y, const void* sc, const void* bb,
                         const void* w, const void* b, void* out, int m, int c,
-                        int k, int relu, void* stream) {
-  return fused_fwd<__nv_bfloat16>(y, sc, bb, w, b, out, m, c, k, relu,
-                                  stream);
+                        int k, int relu, int slots, void* stream) {
+  return fused_fwd_tc(y, sc, bb, w, b, out, m, c, k, relu, slots, stream);
 }
 
 int dl4j_fused_bwd_f32(const void* y, const void* sc, const void* bb,
@@ -474,6 +511,11 @@ int dl4j_fused_bwd_bf16(const void* y, const void* sc, const void* bb,
 }
 
 int dl4j_fused_row_tile() { return kBM; }
+
+// Bytes of dynamic shared memory the bf16 forward launches with.
+int dl4j_fused_fwd_tc_smem(int m, int k) {
+  return static_cast<int>(dl4j_fwd::fwd_smem_for(m, 1, 1, k, 1, 1));
+}
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -41,12 +41,25 @@
 //     No scatter, no atomics. A block covers 256 pixels of 64 channels
 //     and writes its per-channel partial sums; conv_gemm.cuh's fixed-
 //     order f64 pass reduces them.
-//   - bwd_dw is an elementwise dy pass, then an implicit GEMM over
-//     conv_gemm.cuh's tiles: rows the 64 C entries of the s2d window
-//     (decode_r of the forward conv: the stem's im2col gathered from the
-//     raw image), columns K, the reduction over the N ho wo pixels split
-//     over the grid's z into f32 partials summed in a fixed order (f64)
-//     by conv_gemm.cuh's reduce_splits: the same dW on every run.
+//   - bwd_dw in bf16 at 4 C <= 16 (RGB or RGBA input, the main path's C
+//     = 3) is one pass on the tensor cores (dw_tc below): the s2d view
+//     makes dW a 16-tap conv's weight gradient, dW[tap (i, j)] = sum over
+//     the pixels of s2d[oh + i, ow + j, :4C]^T dy[oh, ow, :]. A block
+//     owns 8 x 16-pixel patches of an image and 64 output channels; per
+//     patch it stages the x rows under the patch's s2d halo, y and dz
+//     (cp.async, a ring two patches ahead), rearranges the raw rows into
+//     the padded s2d halo tile, computes dy (the same ops as the plain
+//     version) into the product's B tile and stores it, and runs 8 k16
+//     steps of mma.sync m16n8k16 (16 taps x 16 channels x 64 columns), the
+//     16 taps reading shifted windows of the halo through ldmatrix. The
+//     grid is persistent (one block an SM): each block keeps its dW tile
+//     in registers over its patches and writes one f32 partial, summed in
+//     a fixed order (f64) by conv_gemm.cuh's reduce_splits: the same dW
+//     on every run, no atomics. f32, and bf16 at 4 C > 16, keep the
+//     CUDA-core route: an elementwise dy pass, then an implicit GEMM over
+//     conv_gemm.cuh's tiles (rows the 64 C entries of the s2d window,
+//     decode_r of the forward conv; columns K; the pixels split over the
+//     grid's z into f32 partials, reduced the same way);
 //   - bwd_dx is laid out along the pixel axis: one thread per (s2d pixel,
 //     4 of its 4 C outputs), so at C = 3 three threads share a pixel and
 //     each keeps 4 f32 sums; the [64 C, K] matrix sits in shared memory
@@ -58,12 +71,18 @@
 // bwd_pool reads y (206 MB) and g (51 MB) and writes dz0 (206 MB), 0.138
 // ms of bytes; bwd_dw reads x (38.5 MB), y and dz0 and writes dy (206 MB
 // each), 0.196 ms of bytes against 30.2 GFLOP of the 7x7 taps (0.031 ms
-// at 989 TFLOP/s); bwd_dx reads dy and writes dx (38.5 MB), 0.073 ms. All
-// three are bound by bytes. This first version runs every product on the
-// f32 CUDA cores (67 TFLOP/s: 0.45 ms for either product), recomputes
-// each pool window's maximum once per pixel that it covers (2.25 windows
-// of 9 loads per pixel, from the caches), and reads dy again for the dW
-// GEMM; tensor-core tiles are a later kernel's work.
+// at 989 TFLOP/s; 52.6 GFLOP with the padded 8x8 window and the four
+// zero channels of each tap the tensor cores multiply); bwd_dx reads dy
+// and writes dx (38.5 MB), 0.073 ms. All three are bound by bytes.
+// bwd_dw's one pass moves those bytes once (dy is never read back) and
+// multiplies at the tensor cores' rate; what still holds it back is one
+// 8-warp block an SM running each patch's rearrangement and dy, then its
+// products, one after the other (two barriers a patch), and mma.sync's
+// rate below wgmma's. bwd_pool and bwd_dx run on the f32 CUDA cores:
+// bwd_pool recomputes each pool window's maximum once per pixel that it
+// covers (2.25 windows of 9 loads per pixel, from the caches), bwd_dx
+// multiplies at the f32 rate (67 TFLOP/s); their redesign is later work
+// (ROADMAP queue B).
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -72,9 +91,11 @@
 // cudaGetLastError().
 
 #include <algorithm>
+#include <climits>
 #include <cmath>
 
 #include "conv_gemm.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -210,10 +231,18 @@ int stem_bwd_pool(const void* y, const void* g, const void* aff, void* dz,
 }
 
 // ---------------------------------------------------------------------
-// bwd_dw: the dy pass, then dW[r, kk] = sum_m A[r, m] dy[m, kk] over the
-// output pixels m of one split; r = (tap, phase, c) of the s2d window,
-// A = x at the pixel it reads (0 outside the image); partials [splits,
-// 64 C, K]
+// the device kernels the weight gradient's launchers started, by kind:
+// the dy pass, the CUDA-core GEMM, the tensor-core pass, the split
+// reduction (read through dl4j_stem_bwd_dw_kernel_launches)
+// ---------------------------------------------------------------------
+enum DwKernel : int { kDyPass = 0, kDwGemm = 1, kDwTc = 2, kDwReduce = 3 };
+int dw_launched[4] = {0, 0, 0, 0};
+
+// ---------------------------------------------------------------------
+// bwd_dw on the CUDA cores (f32; bf16 at 4 C > 16): the dy pass, then
+// dW[r, kk] = sum_m A[r, m] dy[m, kk] over the output pixels m of one
+// split; r = (tap, phase, c) of the s2d window, A = x at the pixel it
+// reads (0 outside the image); partials [splits, 64 C, K]
 // ---------------------------------------------------------------------
 constexpr int kDyThreads = 256;
 
@@ -351,6 +380,7 @@ int stem_bwd_dw(const void* x, const void* y, const void* dz,
       static_cast<const float*>(aff), static_cast<T*>(dy), total, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  ++dw_launched[kDyPass];
   Geometry g{n, h, wd, c, ho, wo, k, 2, 64 * c, 0, 0};
   dim3 grid((g.r + kBM - 1) / kBM, (k + kBN - 1) / kBN, splits);
   dw_kernel<T><<<grid, kThreads, 0, st>>>(
@@ -358,9 +388,389 @@ int stem_bwd_dw(const void* x, const void* y, const void* dz,
       static_cast<float*>(dw_part), g, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return dl4j_conv::reduce_splits(dw_part, splits,
-                                  static_cast<int64_t>(g.r) * k, dw, st);
+  ++dw_launched[kDwGemm];
+  const int red = dl4j_conv::reduce_splits(
+      dw_part, splits, static_cast<int64_t>(g.r) * k, dw, st);
+  if (!red) ++dw_launched[kDwReduce];
+  return red;
 }
+
+// ---------------------------------------------------------------------
+// bwd_dw, bf16 at 4 C <= 16 (RGB, RGBA): one pass on the tensor cores
+// ---------------------------------------------------------------------
+// dW row (tap (i, j), phase, c) is channel phase C + c of the s2d image
+// at tap (i, j) (decode_r<kStemS2d>, stem.py's stem_weight_s2d), so dW of
+// tap (i, j) = sum over the output pixels of s2d[oh + i, ow + j, :4C]^T
+// dy[oh, ow, :]: a 16-tap conv's weight gradient whose taps read shifted
+// windows of one s2d halo tile, each tap's 4C channels padded with zeros
+// to 16 (one 32-byte row an s2d pixel, which ldmatrix takes).
+namespace dw_tc {
+
+using dl4j_mma::bf16;
+using dl4j_mma::clamp8;
+using dl4j_mma::copy8;
+using dl4j_mma::cp_async_commit;
+using dl4j_mma::cp_async_wait;
+using dl4j_mma::kFragM;
+using dl4j_mma::kFragN;
+using dl4j_mma::smem_addr;
+
+constexpr int kTh = 8;                   // output patch: 8 rows ...
+constexpr int kTw = 16;                  // ... of 16 pixels, one k16 step
+constexpr int kPatch = kTh * kTw;        // 128 output pixels
+constexpr int kHh = kTh + 3;             // the s2d halo the 4x4 taps read:
+constexpr int kHw = kTw + 3;             //   11 x 19 s2d pixels
+constexpr int kHalo = kHh * kHw;
+constexpr int kHs = 24;                  // a halo row: 16 channels, padded
+                                         // to 48 bytes (no ldmatrix bank
+                                         // conflicts)
+constexpr int kRawRows = 2 * kHh;        // the x rows under the halo: 22
+constexpr int kRawCols = 2 * kHw;        // x columns under it: 38
+constexpr int kRawChunks = 20;           // 16-byte chunks of a raw row:
+                                         // ceil((38 C + 7) / 8) at C = 4
+constexpr int kRawRow = 8 * kRawChunks;  // bf16
+constexpr int kMaxC = 4;                 // 4 C <= 16
+constexpr int kCols = 64;                // output channels a block owns
+constexpr int kDs = kCols + 8;           // the dy tile's row stride
+constexpr int kThreads = 256;            // 8 warps: 4 tap rows x 2 halves
+constexpr int kStageElems = kRawRows * kRawRow + 2 * kPatch * kCols;
+constexpr int kStages = dl4j_mma::stages_for(kStageElems * sizeof(bf16));
+constexpr size_t kSmem =
+    (static_cast<size_t>(kHalo) * kHs + kPatch * kDs) * sizeof(bf16) +
+    5 * kCols * sizeof(float) +
+    static_cast<size_t>(kStages) * kStageElems * sizeof(bf16);
+static_assert(kMaxC * 38 + 7 <= kRawRow, "a raw row holds its x segment");
+
+struct Dw {
+  int n, h, w, c;       // x [n, h, w, c]
+  int ho, wo, k;        // y, dz, dy [n, ho, wo, k]
+  int prow, pcol;       // patches an image: down, across
+  int patches;          // n prow pcol
+  int cols;             // column tiles of kCols output channels
+  int slots;            // block rows: slot q walks patches q, q + slots, ..
+  int vec;              // y, dz, dy: 16-byte copies and stores
+  int vec_x;            // x 16-byte aligned: its rows by cp.async
+  int x_elems;          // elements of x
+};
+
+// Copy 16 bytes, of which the first `bytes` from src, the rest zeros.
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// A block owns kCols output channels and walks its slot's patches of 8 x
+// 16 output pixels; per patch, from a ring of kStages copies (the x rows
+// under the patch's s2d halo, y and dz of its pixels, cp.async, copied
+// kStages - 1 patches ahead): the s2d halo tile, rearranged from the raw
+// rows (zeros outside the image and past 4C); dy = sc (dz - m1 - yhat
+// m2), f32 op by op and rounded, into the B tile and stored; then 8 k16
+// steps of warp_k16 (A = the halo's shifted window, B = dy, both stored
+// [pixel][channel] and read with ldmatrix.trans). Warp (wm, wn) holds
+// the taps (wm, 0..3) x columns 32 wn .. +32 in registers over all its
+// patches, the tensor cores' sums promoted every patch (128 products)
+// with round-to-nearest adds, and writes them once to its partials
+// [slot, 64 C, K].
+__global__ void __launch_bounds__(kThreads, 1)
+    dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                 const bf16* __restrict__ dz,
+                 const float* __restrict__ aff, bf16* __restrict__ dy,
+                 float* __restrict__ part, Dw s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 1;   // the tap row i of the warp's four taps
+  const int wn = warp & 1;    // its 32 columns
+  const int slot = blockIdx.x / s.cols;
+  const int k0 = (blockIdx.x - slot * s.cols) * kCols;
+  const int mine = (s.patches - slot + s.slots - 1) / s.slots;
+  const int per_img = s.prow * s.pcol;
+  const bool vec = s.vec != 0;
+  bf16* Hs = reinterpret_cast<bf16*>(smem);                  // [kHalo][kHs]
+  bf16* Ds = Hs + kHalo * kHs;                               // [kPatch][kDs]
+  float* Cs = reinterpret_cast<float*>(Ds + kPatch * kDs);   // [5][kCols]
+  bf16* Ring = reinterpret_cast<bf16*>(Cs + 5 * kCols);      // [S][stage]
+
+  // the image and first output row and column of patch p
+  auto origin = [&](int p, int& img, int& oh0, int& ow0) {
+    img = p / per_img;
+    const int rem = p - img * per_img;
+    const int pr = rem / s.pcol;
+    oh0 = pr * kTh;
+    ow0 = (rem - pr * s.pcol) * kTw;
+  };
+  // this thread's pixel items (y, dz, dy): pixel (tid >> 3) + 32 j of
+  // the patch, channels ch .. ch + 8
+  const int v = tid & 7;
+  const int ch = k0 + 8 * v;
+  const int dvalid = clamp8(s.k - ch);
+  auto pixel = [&](int q, int img, int oh0, int ow0, int& off) {
+    const int oh = oh0 + (q >> 4);
+    const int ow = ow0 + (q & 15);
+    const bool in = oh < s.ho && ow < s.wo;
+    off = in ? ((img * s.ho + oh) * s.wo + ow) * s.k + ch : 0;
+    return in;
+  };
+  auto issue = [&](int g) {   // one copy group, empty past the last
+    if (g < mine) {
+      bf16* st = Ring + (g % kStages) * kStageElems;
+      int img, oh0, ow0;
+      origin(slot + g * s.slots, img, oh0, ow0);
+      // the x rows under the halo: x columns xcl .. xch of rows 2 oh0 -
+      // 3 .. + 22, whole 16-byte chunks of x from the one holding the
+      // first element (zero-filled past x's end)
+      const int xc0 = 2 * ow0 - 3;
+      const int xcl = max(xc0, 0);
+      const int xch = min(xc0 + kRawCols, s.w);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int it = tid + j * kThreads;
+        if (it >= kRawRows * kRawChunks) continue;
+        const int rr = it / kRawChunks;
+        const int qq = it - rr * kRawChunks;
+        const int xr = 2 * oh0 - 3 + rr;
+        if (xr < 0 || xr >= s.h) continue;
+        const int row = (img * s.h + xr) * s.w;
+        const int q = (((row + xcl) * s.c) >> 3) + qq;
+        if (8 * q >= (row + xch) * s.c) continue;
+        bf16* dst = st + rr * kRawRow + 8 * qq;
+        const int left = s.x_elems - 8 * q;
+        if (s.vec_x)
+          cp_async_n(dst, x + 8 * q, left >= 8 ? 16 : 2 * left);
+        else
+          *reinterpret_cast<uint4*>(dst) =
+              dl4j_mma::load8(x, 8 * q, left >= 8 ? 8 : left, false);
+      }
+      // y and dz of the patch's pixels (zeros outside the image)
+      bf16* ry = st + kRawRows * kRawRow;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = (tid >> 3) + 32 * j;
+        int off;
+        const int valid = pixel(q, img, oh0, ow0, off) ? dvalid : 0;
+        copy8(ry + q * kCols + 8 * v, y, off, valid, vec);
+        copy8(ry + (kPatch + q) * kCols + 8 * v, dz, off, valid, vec);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int g = 0; g < kStages - 1; ++g) issue(g);
+  // the dy constants of the block's columns: sc, inv, mu, m1, m2 (aff's
+  // rows 0, 2, 3, 4, 5), 0 past K
+  for (int i = tid; i < 5 * kCols; i += kThreads) {
+    const int r = i / kCols;
+    const int col = k0 + i - r * kCols;
+    Cs[i] = col < s.k ? __ldg(aff + (r ? r + 1 : 0) * s.k + col) : 0.f;
+  }
+  // this thread's halo items: channels 8 hh .. + 8 of s2d pixels (tid >>
+  // 1) + 128 j; channel 8 hh + e is pixel phase (pr, pc) = ((8 hh + e) /
+  // C) / 2, % 2 and input channel (8 hh + e) % C, packed as cc | pc << 4
+  // | pr << 5 (-1 past 4 C)
+  const int hh = tid & 1;
+  int code[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c16 = 8 * hh + e;
+    const int phase = c16 / s.c;
+    code[e] = c16 < 4 * s.c
+                  ? (c16 - phase * s.c) | ((phase & 1) << 4) |
+                        ((phase >> 1) << 5)
+                  : -1;
+  }
+
+  // acc: the tensor cores' sums of this patch, whose accumulation rounds
+  // toward zero; tot: the totals, promoted into every patch with f32 adds
+  // (round to nearest)
+  float acc[kFragM][kFragN][4], tot[kFragM][kFragN][4];
+#pragma unroll
+  for (int f = 0; f < kFragM; ++f)
+#pragma unroll
+    for (int n = 0; n < kFragN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][n][e] = tot[f][n][e] = 0.f;
+
+  for (int i = 0; i < mine; ++i) {
+    const bf16* st = Ring + (i % kStages) * kStageElems;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // patch i copied; the last products done
+    issue(i + kStages - 1);
+    int img, oh0, ow0;
+    origin(slot + i * s.slots, img, oh0, ow0);
+    // the s2d halo: pixel (hu, hv) holds x at (2 (oh0 + hu) - 3 + pr,
+    // 2 (ow0 + hv) - 3 + pc), channel cc, in phase-major order
+    {
+      const unsigned short* raw = reinterpret_cast<const unsigned short*>(st);
+      const int xc0 = 2 * ow0 - 3;
+      const int xcl = max(xc0, 0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int hp = (tid >> 1) + 128 * j;
+        if (hp >= kHalo) continue;
+        const int hu = hp / kHw;
+        const int hv = hp - hu * kHw;
+        uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (code[e] < 0) continue;
+          const int rr = 2 * hu + ((code[e] >> 5) & 1);
+          const int xr = 2 * oh0 - 3 + rr;
+          const int xc = xc0 + 2 * hv + ((code[e] >> 4) & 1);
+          if (xr < 0 || xr >= s.h || xc < 0 || xc >= s.w) continue;
+          // the raw row starts at the chunk holding element (row, xcl)
+          const int lead = (((img * s.h + xr) * s.w + xcl) * s.c) & 7;
+          const uint32_t b =
+              raw[rr * kRawRow + lead + (xc - xcl) * s.c + (code[e] & 15)];
+          wd[e >> 1] |= b << ((e & 1) * 16);
+        }
+        *reinterpret_cast<uint4*>(Hs + hp * kHs + 8 * hh) =
+            make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+    }
+    // dy of the patch's pixels: into the B tile (0 outside the image) and
+    // stored
+    {
+      float cd[5][8];
+#pragma unroll
+      for (int r = 0; r < 5; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; e += 4) {
+          const float4 c4 =
+              *reinterpret_cast<const float4*>(Cs + r * kCols + 8 * v + e);
+          cd[r][e] = c4.x;
+          cd[r][e + 1] = c4.y;
+          cd[r][e + 2] = c4.z;
+          cd[r][e + 3] = c4.w;
+        }
+      const bf16* ry = st + kRawRows * kRawRow;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = (tid >> 3) + 32 * j;
+        int off;
+        const bool in = pixel(q, img, oh0, ow0, off);
+        const uint4 d = dl4j_mma::dy8(
+            *reinterpret_cast<const uint4*>(ry + (kPatch + q) * kCols + 8 * v),
+            *reinterpret_cast<const uint4*>(ry + q * kCols + 8 * v), cd,
+            in ? dvalid : 0);
+        *reinterpret_cast<uint4*>(Ds + q * kDs + 8 * v) = d;
+        if (in && dvalid) dl4j_mma::store8(dy, off, dvalid, vec, d);
+      }
+    }
+    __syncthreads();
+    // the products: step ks is patch row ks; tap (wm, f) reads the halo
+    // at (ks + wm, column + f)
+#pragma unroll
+    for (int ks = 0; ks < kTh; ++ks) {
+      uint32_t a[kFragM], b[kFragN / 2];
+#pragma unroll
+      for (int f = 0; f < kFragM; ++f)
+        a[f] = smem_addr(Hs +
+                         ((ks + wm) * kHw + dl4j_mma::a_trans_k(lane) + f) *
+                             kHs +
+                         dl4j_mma::a_trans_r(lane));
+#pragma unroll
+      for (int h2 = 0; h2 < kFragN / 2; ++h2)
+        b[h2] = smem_addr(Ds + (16 * ks + dl4j_mma::b_trans_k(lane)) * kDs +
+                          wn * 32 + 16 * h2 + dl4j_mma::b_trans_n(lane));
+      dl4j_mma::warp_k16<true, true>(acc, a, b);
+    }
+#pragma unroll
+    for (int f = 0; f < kFragM; ++f)
+#pragma unroll
+      for (int n = 0; n < kFragN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[f][n][e] += acc[f][n][e];
+          acc[f][n][e] = 0.f;
+        }
+  }
+
+  // the block's partial: dW rows (tap, c16) for c16 < 4 C
+  const int c4 = 4 * s.c;
+  float* out = part + static_cast<int64_t>(slot) * 16 * c4 * s.k;
+#pragma unroll
+  for (int f = 0; f < kFragM; ++f)
+#pragma unroll
+    for (int n = 0; n < kFragN; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c16 = (lane >> 2) + 8 * half;
+        const int kk = k0 + wn * 32 + 8 * n + (lane & 3) * 2;
+        if (c16 >= c4) continue;
+        float* row = out + static_cast<int64_t>((4 * wm + f) * c4 + c16) * s.k;
+        if (kk < s.k) row[kk] = tot[f][n][2 * half];
+        if (kk + 1 < s.k) row[kk + 1] = tot[f][n][2 * half + 1];
+      }
+}
+
+// The geometry and grid of the pass on a card of `sms` SMs: 8 x 16-pixel
+// patches of each image, kCols-channel column tiles, and as many block
+// rows as the card holds blocks (one an SM: the ring, its registers) over
+// the column tiles, at most one a patch (stem.py's _stem_dw_plan mirrors
+// it).
+inline Dw geometry(int n, int h, int wd, int c, int k, int sms) {
+  Dw s{};
+  s.n = n;
+  s.h = h;
+  s.w = wd;
+  s.c = c;
+  s.ho = (h - 1) / 2 + 1;
+  s.wo = (wd - 1) / 2 + 1;
+  s.k = k;
+  s.prow = (s.ho + kTh - 1) / kTh;
+  s.pcol = (s.wo + kTw - 1) / kTw;
+  s.patches = n * s.prow * s.pcol;
+  s.cols = (k + kCols - 1) / kCols;
+  const int q = sms / s.cols;
+  s.slots = q < 1 ? 1 : q > s.patches ? s.patches : q;
+  return s;
+}
+
+// The pass and its fixed-order split reduction. Refuses (before any
+// launch) C outside 1 .. 4, `tiles` short of the grid's block rows, and
+// any tensor of 2^31 - 1 elements or more (the kernel indexes with ints).
+inline int launch(const void* x, const void* y, const void* dz,
+                  const void* aff, void* dy, void* dw, void* dw_part, int n,
+                  int h, int wd, int c, int k, int tiles, cudaStream_t st) {
+  const int64_t rows = static_cast<int64_t>(n) * ((h - 1) / 2 + 1) *
+                       ((wd - 1) / 2 + 1);
+  if (c < 1 || c > kMaxC ||
+      static_cast<int64_t>(n) * h * wd * c >= INT_MAX ||
+      rows * k >= INT_MAX || static_cast<int64_t>(64) * c * k >= INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Dw s = geometry(n, h, wd, c, k, sms);
+  if (tiles < s.slots) return static_cast<int>(cudaErrorInvalidValue);
+  if (s.patches == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  s.vec = k % 8 == 0 && dl4j_mma::aligned16(y) && dl4j_mma::aligned16(dz) &&
+          dl4j_mma::aligned16(dy);
+  s.vec_x = dl4j_mma::aligned16(x);
+  s.x_elems = n * h * wd * c;
+  static size_t granted = 0;
+  int err = dl4j_mma::set_smem(dw_tc_kernel, kSmem, granted);
+  if (err) return err;
+  dw_tc_kernel<<<static_cast<unsigned>(s.slots) * s.cols, kThreads, kSmem,
+                 st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y),
+      static_cast<const bf16*>(dz), static_cast<const float*>(aff),
+      static_cast<bf16*>(dy), static_cast<float*>(dw_part), s);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  ++dw_launched[kDwTc];
+  err = dl4j_conv::reduce_splits(dw_part, s.slots,
+                                 static_cast<int64_t>(64) * c * k, dw, st);
+  if (!err) ++dw_launched[kDwReduce];
+  return err;
+}
+
+}  // namespace dw_tc
 
 // ---------------------------------------------------------------------
 // bwd_dx
@@ -509,6 +919,14 @@ int dl4j_stem_bwd_dw_bf16(const void* x, const void* y, const void* dz,
                                     c, k, chunk, splits, stream);
 }
 
+int dl4j_stem_bwd_dw_bf16_mma(const void* x, const void* y, const void* dz,
+                              const void* aff, void* dy, void* dw,
+                              void* dw_part, int n, int h, int wd, int c,
+                              int k, int tiles, void* stream) {
+  return dw_tc::launch(x, y, dz, aff, dy, dw, dw_part, n, h, wd, c, k, tiles,
+                       static_cast<cudaStream_t>(stream));
+}
+
 int dl4j_stem_bwd_dx_f32(const void* dy, const void* w, void* dx, int n,
                          int h, int wd, int c, int k, void* stream) {
   return stem_bwd_dx<float>(dy, w, dx, n, h, wd, c, k, stream);
@@ -520,6 +938,17 @@ int dl4j_stem_bwd_dx_bf16(const void* dy, const void* w, void* dx, int n,
 }
 
 int dl4j_stem_bwd_pool_tile() { return kPoolPix; }
+
+// The weight gradient's device kernels started so far, by kind (out[4]:
+// the dy pass, the CUDA-core GEMM, the tensor-core pass, the split
+// reduction): what one call of each route launches.
+int dl4j_stem_bwd_dw_kernel_launches(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = dw_launched[i];
+  return 0;
+}
+
+// Bytes of dynamic shared memory the bf16 dW pass launches with.
+int dl4j_stem_bwd_dw_tc_smem() { return static_cast<int>(dw_tc::kSmem); }
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -9,15 +9,20 @@ per-channel affine ``(sc, bb)`` folded from the BN statistics, and the
 normalized tensor is never stored. Its backward is one pass over (y, g)
 that recomputes the normalized tensor instead of reading it.
 
-The kernels are hand-written CUDA C++ for Hopper, ``csrc/fused.cu`` over
-the tiles of ``csrc/conv_gemm.cuh``: :func:`fused_matmul` replaces the
-TPU kernel ``_fwd_kernel`` and :func:`fused_matmul_bwd` replaces
-``_bwd_kernel`` (the source note says what bounds each on the card and
-what the design does about that). Each wrapper dispatches on where its
-tensors lie: CUDA tensors launch the kernel (or raise on what it does
-not take), CPU tensors take the plain version beside it, written as the
-JAX kernel body with the same rounding points. There is no other route
-and no process-wide switch.
+The kernels are hand-written CUDA C++ for Hopper, ``csrc/fused.cu``:
+:func:`fused_matmul` replaces the TPU kernel ``_fwd_kernel`` and
+:func:`fused_matmul_bwd` replaces ``_bwd_kernel`` (the source notes say
+what bounds each on the card and what the design does about that). The
+bf16 forward runs on the tensor cores: it is the bottleneck's bf16
+conv1x1 kernel (``csrc/conv_fwd_tc.cuh``) as a stride-1 1x1 over ``M``
+images of one pixel, with the bias added in its epilogue and no sums;
+its grid is planned here with the bottleneck's rule (:func:`_fwd_plan`,
+``bottleneck._fwd_tc_plan``). The f32 forward and the backward run on
+the f32 CUDA-core tiles of ``csrc/conv_gemm.cuh``. Each wrapper
+dispatches on where its tensors lie: CUDA tensors launch the kernel (or
+raise on what it does not take), CPU tensors take the plain version
+beside it, written as the JAX kernel body with the same rounding points.
+There is no other route and no process-wide switch.
 
 :class:`FusedMatmul` is the ``torch.autograd.Function`` counterpart of
 the JAX ``_fused_matmul_pallas`` with its ``custom_vjp``: it saves only
@@ -51,7 +56,8 @@ import torch
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
-    _dtype_ok, _dw_splits, _stream)
+    _TC_MAX_ELEMENTS, FwdPlan, _dtype_ok, _dw_splits, _fwd_tc_plan,
+    _sm_count, _stream)
 from deeplearning4j_tpu_torch.nn.layers.normalization import decayed
 
 __all__ = ["FUSED_BWD", "FUSED_FWD", "FusedMatmul", "bn_act_conv1x1",
@@ -60,6 +66,8 @@ __all__ = ["FUSED_BWD", "FUSED_FWD", "FusedMatmul", "bn_act_conv1x1",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+#: the bf16 forward takes its grid's block rows too (:func:`_fwd_plan`)
+_FWD_TC_ARGS = [_P] * 6 + [_I] * 5 + [_P]
 _BWD_ARGS = [_P] * 13 + [_I] * 7 + [_P]
 _ACTS = ("identity", "relu")
 
@@ -71,10 +79,11 @@ def _symbols(stem):
 
 _LIBRARY = CudaLibrary(
     "fused", ["nn/layers/csrc/fused.cu"],
-    {**{s: _FWD_ARGS for s in _symbols("fused_fwd").values()},
+    {"dl4j_fused_fwd_f32": _FWD_ARGS, "dl4j_fused_fwd_bf16": _FWD_TC_ARGS,
      **{s: _BWD_ARGS for s in _symbols("fused_bwd").values()},
-     "dl4j_fused_row_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh"])
+     "dl4j_fused_row_tile": [], "dl4j_fused_fwd_tc_smem": [_I, _I]},
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/conv_fwd_tc.cuh"])
 
 #: the two kernels; each ``.launches`` counts its launches (the
 #: backward's entry point, which launches its dz and dW passes, counts
@@ -88,6 +97,15 @@ def fused_conv1x1_supported(act: str, dtype) -> bool:
     or bf16. Any C and K fit: the kernels tile both (the JAX gate's VMEM
     budget does not apply)."""
     return act in _ACTS and _dtype_ok(dtype)
+
+
+def _fwd_plan(m, k, sms) -> FwdPlan:
+    """The bf16 forward's launch plan on a card of ``sms`` SMs: the
+    bottleneck's stride-1 1x1 plan (:func:`bottleneck._fwd_tc_plan`)
+    over ``m`` images of one pixel, so 128-row blocks, 64 or 128 output
+    channels a block and the same block rows (``.tiles``), which the
+    kernel takes as its grid's rows."""
+    return _fwd_tc_plan(m, 1, 1, k, 1, 1, sms)
 
 
 # ---------------------------------------------------------------------
@@ -146,12 +164,18 @@ def fused_matmul(y2, sc, bb, w2, b, act: str = "relu"):
                 (("y2", y2), ("w2", w2)))
     m, c = y2.shape
     k = w2.shape[1]
+    bf16 = y2.dtype == torch.bfloat16
+    if bf16 and max(m * c, m * k, c * k) >= _TC_MAX_ELEMENTS:
+        raise ValueError(f"fused_matmul: the bf16 kernel indexes with "
+                         f"32-bit ints; y2, w2 and the output must each "
+                         f"hold fewer than {_TC_MAX_ELEMENTS} elements")
     out = torch.empty((m, k), dtype=y2.dtype, device=y2.device)
     if m and k:
+        rows = [_fwd_plan(m, k, _sm_count(y2.device)).tiles] if bf16 else []
         FUSED_FWD.launch(y2.dtype, y2.data_ptr(), sc.data_ptr(),
                          bb.data_ptr(), w2.data_ptr(), b.data_ptr(),
                          out.data_ptr(), m, c, k, int(act == "relu"),
-                         _stream(y2))
+                         *rows, _stream(y2))
     return out
 
 

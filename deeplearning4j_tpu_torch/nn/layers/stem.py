@@ -19,9 +19,14 @@ stem_bwd.cu`` replaces ``_stem_bwd_pool_kernel`` (the pool and relu
 backward with the BN-backward sums), ``_stem_bwd_dw_kernel`` (the BN
 backward and the weight gradient) and ``_stem_bwd_dx_kernel`` (the input
 gradient); the source notes say what bounds each and what its design
-does about that. Each wrapper launches its kernel on CUDA tensors (or
-raises on what it does not take) and takes the plain version beside it
-on CPU tensors, written as the JAX kernel body over the batch.
+does about that. The weight gradient has two routes,
+:func:`stem_dw_route`: bf16 at ``4 C <= 16`` (RGB or RGBA input) runs
+one pass on the tensor cores (``mma.sync`` tiles over ``csrc/
+conv_mma.cuh``; its grid planned by :func:`_stem_dw_plan`), f32 and
+wider inputs a dy pass and an f32 CUDA-core GEMM. Each wrapper launches
+its kernel on CUDA tensors (or raises on what it does not take) and
+takes the plain version beside it on CPU tensors, written as the JAX
+kernel body over the batch.
 
 Training (``fused_stem(train=True)``) normalizes with the batch
 statistics from the conv kernel's sums and differentiates through
@@ -41,14 +46,17 @@ gradient's kernel keeps the weight in shared memory).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
-    BnParams, _affine, _bn_affine, _dtype_ok, _dw_splits, _finalize_stats,
-    _outputs, _rows, _stats, _stream)
+    _TC_MAX_ELEMENTS, BnParams, _affine, _bn_affine, _dtype_ok, _dw_splits,
+    _finalize_stats, _outputs, _rows, _sm_count, _stats, _stream)
+from deeplearning4j_tpu_torch.nn.layers.flash_attention import (
+    CUDA_CORES, TENSOR_CORES)
 from deeplearning4j_tpu_torch.nn.layers.normalization import decayed
 
 __all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
@@ -56,24 +64,38 @@ __all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
            "reference_stem", "stem_bwd_dw", "stem_bwd_dw_plain",
            "stem_bwd_dx", "stem_bwd_dx_plain", "stem_bwd_pool",
            "stem_bwd_pool_plain", "stem_conv", "stem_conv_plain",
-           "stem_geometry", "stem_pool", "stem_pool_plain",
+           "stem_dw_route", "stem_geometry", "stem_pool", "stem_pool_plain",
            "stem_weight_s2d"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _POOL_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 _BWD_POOL_ARGS = [_P] * 8 + [_I] * 5 + [_P]
-_BWD_DW_ARGS = [_P] * 7 + [_I] * 6 + [_P]
+_BWD_DW_ARGS = [_P] * 7 + [_I] * 7 + [_P]
+_BWD_DW_TC_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _BWD_DX_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
 #: the input gradient's kernel holds the [64 C, K] weight in 48 KB of
 #: shared memory, at least one reduction row of it: C <= 192
 _MAX_CHANNELS = 192
+#: the bf16 weight gradient's tensor-core route: a tap's 4 C channels
+#: padded to 16 (RGB or RGBA input)
+_TC_DW_MAX_CHANNELS = 4
+#: its output patch (rows, columns) and output channels a block
+#: (csrc/stem_bwd.cu's dw_tc::kTh, kTw, kCols)
+_TC_DW_PATCH, _TC_DW_COLS = (8, 16), 64
 
 
 def _symbols(stem):
     return {torch.float32: f"dl4j_{stem}_f32",
             torch.bfloat16: f"dl4j_{stem}_bf16"}
+
+
+def _dw_symbols():
+    """The weight gradient's entry points by (dtype, route)."""
+    return {(torch.float32, CUDA_CORES): "dl4j_stem_bwd_dw_f32",
+            (torch.bfloat16, CUDA_CORES): "dl4j_stem_bwd_dw_bf16",
+            (torch.bfloat16, TENSOR_CORES): "dl4j_stem_bwd_dw_bf16_mma"}
 
 
 _LIBRARY = CudaLibrary(
@@ -87,9 +109,11 @@ _BWD_LIBRARY = CudaLibrary(
     "stem_bwd", ["nn/layers/csrc/stem_bwd.cu"],
     {**{s: _BWD_POOL_ARGS for s in _symbols("stem_bwd_pool").values()},
      **{s: _BWD_DW_ARGS for s in _symbols("stem_bwd_dw").values()},
+     "dl4j_stem_bwd_dw_bf16_mma": _BWD_DW_TC_ARGS,
      **{s: _BWD_DX_ARGS for s in _symbols("stem_bwd_dx").values()},
-     "dl4j_stem_bwd_pool_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh"])
+     "dl4j_stem_bwd_pool_tile": [], "dl4j_stem_bwd_dw_tc_smem": [],
+     "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
 
 #: the five kernels; each ``.launches`` counts its launches (an entry
 #: point that launches a pass and its reduction counts once)
@@ -97,8 +121,7 @@ STEM_CONV = CudaKernel(_LIBRARY, "stem_conv", _symbols("stem_conv"))
 STEM_POOL = CudaKernel(_LIBRARY, "stem_pool", _symbols("stem_pool"))
 STEM_BWD_POOL = CudaKernel(_BWD_LIBRARY, "stem_bwd_pool",
                            _symbols("stem_bwd_pool"))
-STEM_BWD_DW = CudaKernel(_BWD_LIBRARY, "stem_bwd_dw",
-                         _symbols("stem_bwd_dw"))
+STEM_BWD_DW = CudaKernel(_BWD_LIBRARY, "stem_bwd_dw", _dw_symbols())
 STEM_BWD_DX = CudaKernel(_BWD_LIBRARY, "stem_bwd_dx",
                          _symbols("stem_bwd_dx"))
 
@@ -128,6 +151,47 @@ def stem_weight_s2d(w4: torch.Tensor) -> torch.Tensor:
     w8 = torch.nn.functional.pad(w4, (0, 1, 0, 1))       # [K,C,8,8]
     w8 = w8.reshape(k, c, 4, 2, 4, 2)                    # [K,C,i,pi,j,pj]
     return w8.permute(2, 4, 3, 5, 1, 0).reshape(64 * c, k).contiguous()
+
+
+def stem_dw_route(dtype, c: int) -> str:
+    """The weight gradient's route for ``dtype`` and ``c`` input
+    channels: TENSOR_CORES for bf16 at ``4 C <= 16`` (each tap's 4 C
+    channels padded to one 16-channel row), else CUDA_CORES (f32 stays
+    exact f32; wider bf16 inputs take the CUDA-core GEMM). Raises on a
+    dtype no route takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"stem_bwd_dw kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if dtype == torch.bfloat16 and 1 <= c <= _TC_DW_MAX_CHANNELS:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+class StemDwPlan(NamedTuple):
+    """The tensor-core weight gradient's launch plan, as ``csrc/
+    stem_bwd.cu``'s ``dw_tc::geometry`` chooses it: ``patches`` output
+    patches of 8 x 16 pixels (``grid = (down, across)`` an image),
+    ``cols`` column tiles of 64 output channels, and ``tiles`` block
+    rows of the grid (the partials' rows): row q walks the patches q, q
+    + tiles, ..."""
+    tiles: int
+    patches: int
+    cols: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_dw_plan(n, h, w, k, sms) -> StemDwPlan:
+    """The plan for x ``[n, h, w, C]`` to ``k`` channels on a card of
+    ``sms`` SMs: one block an SM over the column tiles, at most one a
+    patch (at least one)."""
+    g = stem_geometry(h, w)
+    th, tw = _TC_DW_PATCH
+    down, across = -(-g["ho"] // th), -(-g["wo"] // tw)
+    patches = n * down * across
+    cols = -(-k // _TC_DW_COLS)
+    return StemDwPlan(max(1, min(patches, sms // cols)), patches, cols,
+                      (down, across))
 
 
 def fused_stem_supported(x_shape, n_out: int, dtype) -> bool:
@@ -267,19 +331,30 @@ def stem_bwd_dw(x, y, dz, aff):
     if x.device.type == "cpu":
         return stem_bwd_dw_plain(x, y, dz, aff)
     _check("stem_bwd_dw", x=x, y=y, dz=dz, aff=aff)
+    route = stem_dw_route(x.dtype, c)
+    if route == TENSOR_CORES and max(x.numel(), y.numel(), 64 * c * k) \
+            >= _TC_MAX_ELEMENTS:
+        raise ValueError(f"stem_bwd_dw: the bf16 kernel indexes with "
+                         f"32-bit ints; x, y and dW must each hold fewer "
+                         f"than {_TC_MAX_ELEMENTS} elements")
     f32 = torch.float32
     dy = torch.empty_like(y)
     dw = torch.zeros((64 * c, k), dtype=f32, device=x.device)
     rows = n * g["ho"] * g["wo"]
     if not (rows and c and k):
         return dy, dw
-    chunk, splits = _dw_splits(rows, -(-(64 * c) // 128) * -(-k // 64),
-                               x.device)
-    dw_part = torch.empty((splits, 64 * c, k), dtype=f32, device=x.device)
-    STEM_BWD_DW.launch(x.dtype, x.data_ptr(), y.data_ptr(), dz.data_ptr(),
-                       aff.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                       dw_part.data_ptr(), n, h, wd, c, k, chunk, splits,
-                       _stream(x))
+    if route == TENSOR_CORES:
+        tiles = _stem_dw_plan(n, h, wd, k, _sm_count(x.device)).tiles
+        split = [tiles]
+    else:
+        chunk, tiles = _dw_splits(rows, -(-(64 * c) // 128) * -(-k // 64),
+                                  x.device)
+        split = [chunk, tiles]
+    dw_part = torch.empty((tiles, 64 * c, k), dtype=f32, device=x.device)
+    STEM_BWD_DW.launch((x.dtype, route), x.data_ptr(), y.data_ptr(),
+                       dz.data_ptr(), aff.data_ptr(), dy.data_ptr(),
+                       dw.data_ptr(), dw_part.data_ptr(), n, h, wd, c, k,
+                       *split, _stream(x))
     return dy, dw
 
 

@@ -85,10 +85,11 @@ def test_fingerprints_are_the_jax_strings(case):
 #: package (the xla plan's layers, not the reference composition)
 REMEASURED = ("train_bottleneck", "train_stem")
 #: the port's revisions of a domain beyond the JAX package's: one for the
-#: remeasured fallback, and two more for train_bottleneck, whose bf16
+#: remeasured fallback, two more for train_bottleneck, whose bf16
 #: backward kernels and then its bf16 forward kernels were rewritten for
-#: the tensor cores
-PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 1}
+#: the tensor cores, and one more for train_stem, whose bf16 weight
+#: gradient was
+PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 2}
 
 
 def test_revisions_and_verdicts_are_the_jax_packages():
@@ -170,6 +171,21 @@ def test_a_verdict_on_the_cuda_core_backward_kernels_is_pruned(tmp_path):
     key = tcross.fingerprint("train_bottleneck", "bfloat16", h=56)
     p.write_text(json.dumps({"version": 1, "entries": {key: {
         "kernel_ms": 15.6, "fallback_ms": 4.1, "platform": "cpu",
+        "device_kind": "cpu", "impl_rev": 2, "samples": 1}}}))
+    s = tt.KernelCrossoverStore.load(str(p))
+    assert len(s) == 0
+    assert s.choose(key, default="kernel", device=CPU) == "kernel"
+
+
+def test_a_stem_verdict_on_the_cuda_core_weight_gradient_is_pruned(
+        tmp_path):
+    """A train_stem entry of revision 2 timed the bf16 weight gradient as
+    a dy pass and an f32 CUDA-core GEMM; the one tensor-core pass
+    re-earns the key."""
+    p = tmp_path / tt.CROSSOVER_NAME
+    key = tcross.stem_fingerprint(224, 224, 3, 64, "bfloat16")
+    p.write_text(json.dumps({"version": 1, "entries": {key: {
+        "kernel_ms": 19.3, "fallback_ms": 17.7, "platform": "cpu",
         "device_kind": "cpu", "impl_rev": 2, "samples": 1}}}))
     s = tt.KernelCrossoverStore.load(str(p))
     assert len(s) == 0

@@ -391,3 +391,34 @@ def test_the_wrappers_take_the_plain_versions_on_the_cpu():
         tf.fused_matmul_bwd(meta["y2"], sc.to("meta"), bb.to("meta"),
                             meta["w2"], meta["g"], "relu")
     assert (tf.FUSED_FWD.launches, tf.FUSED_BWD.launches) == before
+
+
+# ---------------------------------------------------------------------
+# the bf16 forward's launch plan (host side): the bottleneck's 1x1 rule
+# ---------------------------------------------------------------------
+#: the four stages' groups at B = 128 (M = 128 H W, C, K) and the tail
+FUSED_FWD_PLANS = [(128 * 56 * 56, 64, 256), (128 * 28 * 28, 128, 512),
+                   (128 * 14 * 14, 256, 1024), (128 * 7 * 7, 512, 2048),
+                   (147, 512, 2048)]
+
+
+@pytest.mark.parametrize("m, c, k", FUSED_FWD_PLANS)
+def test_the_forward_plan_is_the_bottleneck_1x1_rule(m, c, k):
+    """The fused forward runs the bottleneck's bf16 1x1 kernel over M
+    images of one pixel: its plan is ``_fwd_tc_plan``'s stride-1 1x1
+    plan of that image, 128-row blocks, 64 or 128 output channels a
+    block, and the grid rows of ``_fwd_rows`` (fewest rounds of row
+    blocks over the card's blocks), each walking every row block once."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
+    sms = 132
+    plan = tf._fwd_plan(m, k, sms)
+    assert plan == tb._fwd_tc_plan(m, 1, 1, k, 1, 1, sms)
+    assert plan.blocks == -(-m // 128) and plan.patch is None
+    channels, per_sm = (64, 2) if k <= 64 else (128, 1)
+    assert plan.channels == channels
+    assert plan.tiles == tb._fwd_rows(plan.blocks, -(-k // channels),
+                                      per_sm * sms)
+    walked = np.zeros(plan.blocks, np.int64)
+    for q in range(plan.tiles):
+        walked[q::plan.tiles] += 1
+    assert (walked == 1).all()

@@ -143,6 +143,80 @@ def test_plain_bwd_dx_matches_the_jax_kernel(h, w, dtype):
     _check(dx, jdx, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_plain_bwd_dw_matches_the_jax_kernel_ragged(dtype):
+    """The ragged case of the tensor-core route's checks on the card: an
+    odd 9x13 image, C = 4 (RGBA, a tap's 16 channels all real), K = 36
+    (no multiple of 8)."""
+    n, h, w, c, k = 3, 9, 13, 4, 36
+    rng = np.random.default_rng(913)
+    g = ts.stem_geometry(h, w)
+    mu, sd = rng.normal(0, 0.3, k), rng.uniform(0.5, 1.5, k)
+    gamma, beta = rng.uniform(0.5, 1.5, k), rng.normal(0, 0.3, k)
+    sc = gamma / sd
+    rows = np.stack([sc, beta - mu * sc, 1 / sd, mu, rng.normal(0, 0.05, k),
+                     rng.normal(0, 0.05, k)]).astype(np.float32)
+    aff = (torch.from_numpy(rows), jnp.asarray(rows))
+    x = _both(rng.standard_normal((n, h, w, c)), dtype)
+    shape = (n, g["ho"], g["wo"], k)
+    y = _both(mu + sd * rng.standard_normal(shape), dtype)
+    dz = _both(rng.standard_normal(shape)
+               * (rng.uniform(size=shape) > 0.5), dtype)
+    dy, dw = ts.stem_bwd_dw(x[0], y[0], dz[0], aff[0])
+    jdy, jdw = js._bwd_dw(x[1], y[1], dz[1], aff[1], (64 * c, k), g, True)
+    assert tuple(dw.shape) == jdw.shape == (64 * c, k)
+    _check(dy, jdy, dtype)
+    ic = ts._im2col(ts._s2d_image(x[0].float(), g), g)
+    mag = _np(ic.abs().t() @ dy.float().abs().reshape(-1, k))
+    np.testing.assert_array_less(np.abs(_np(dw) - _np(jdw)),
+                                 F32_REL * mag + 1e-30)
+
+
+# ---------------------------------------------------------------------
+# the tensor-core weight gradient's route and plan (host side)
+# ---------------------------------------------------------------------
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8])
+def test_the_dw_route_takes_the_tensor_cores_for_bf16_up_to_rgba(c):
+    want = ts.TENSOR_CORES if c <= 4 else ts.CUDA_CORES
+    assert ts.stem_dw_route(torch.bfloat16, c) == want
+    assert ts.stem_dw_route(torch.float32, c) == ts.CUDA_CORES
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ts.stem_dw_route(torch.float16, c)
+
+
+#: (n, h, w, K): the training shape at B = 128 and the card's ragged
+#: cases at B = 3; a K of two column tiles; one image on a 132-SM card
+STEM_DW_PLANS = [(128, 224, 224, 64), (3, 9, 13, 36), (3, 15, 17, 36),
+                 (2, 64, 64, 160), (1, 32, 32, 64)]
+
+
+@pytest.mark.parametrize("n, h, w, k", STEM_DW_PLANS)
+def test_the_dw_plan_takes_every_output_pixel_once(n, h, w, k):
+    """The grid's block rows walk the patches q, q + rows, ...: every
+    patch once, each patch's 8 x 16 pixels (within the image) once, so
+    every output pixel of every image once; the partials (the rows) are
+    no more than the patches and fill the card's SMs over the column
+    tiles."""
+    sms = 132
+    g = ts.stem_geometry(h, w)
+    plan = ts._stem_dw_plan(n, h, w, k, sms)
+    (th, tw), down, across = ts._TC_DW_PATCH, *plan.grid
+    assert plan.patches == n * down * across
+    assert plan.cols == -(-k // ts._TC_DW_COLS)
+    assert 1 <= plan.tiles <= plan.patches
+    assert plan.tiles == min(plan.patches, max(1, sms // plan.cols))
+    walked = np.zeros(plan.patches, np.int64)
+    for q in range(plan.tiles):
+        walked[q::plan.tiles] += 1
+    assert (walked == 1).all()
+    seen = np.zeros((n, g["ho"], g["wo"]), np.int64)
+    for p in range(plan.patches):
+        img, rem = divmod(p, down * across)
+        r, c = divmod(rem, across)
+        seen[img, th * r:th * (r + 1), tw * c:tw * (c + 1)] += 1
+    assert (seen == 1).all()
+
+
 # ---------------------------------------------------------------------
 # the training stem
 # ---------------------------------------------------------------------
@@ -263,3 +337,73 @@ def test_cpu_wrappers_launch_nothing_and_dx_only_when_needed(monkeypatch):
     with pytest.raises(ValueError, match="do not fit"):
         ts.stem_bwd_dx(torch.zeros(1, 8, 8, K), torch.zeros(64 * C, K),
                        (1, 17, 17, C))
+
+
+# ---------------------------------------------------------------------
+# every kernel library's ctypes signatures against its C entry points
+# ---------------------------------------------------------------------
+def _libraries():
+    """Every CudaLibrary of the port, by name."""
+    from deeplearning4j_tpu_torch.cuda_library import CudaLibrary
+    from deeplearning4j_tpu_torch.nn.layers import (
+        bottleneck, flash_attention, fused, lstm_kernel, stem)
+    from deeplearning4j_tpu_torch.serving import paged_kernel
+    libs = {}
+    for mod in (bottleneck, flash_attention, fused, lstm_kernel, stem,
+                paged_kernel):
+        for value in vars(mod).values():
+            if isinstance(value, CudaLibrary):
+                libs[value.name] = value
+    return libs
+
+
+LIBRARIES = ["bottleneck", "bottleneck_bwd", "flash_attention", "fused",
+             "lstm", "paged_attention", "stem", "stem_bwd"]
+
+
+def _kind(param):
+    """A C parameter's kind: "ptr", "float" or "int"."""
+    p = param.strip()
+    if "*" in p:
+        return "ptr"
+    for kind in ("float", "int"):
+        if p.startswith(kind + " "):
+            return kind
+    raise AssertionError(f"unexpected C parameter {p!r}")
+
+
+def _argtype_kind(t):
+    import ctypes
+    if t is ctypes.c_void_p or issubclass(t, ctypes._Pointer):
+        return "ptr"
+    return {ctypes.c_float: "float", ctypes.c_int: "int"}[t]
+
+
+def _c_entry_points(text):
+    """{symbol: its parameter list} of the ``int dl4j_*`` definitions in
+    ``text``, those written out and those a ``#define X(NAME, T)`` macro
+    stamps out as ``X(dl4j_..., T)``."""
+    import re
+    flat = text.replace("\\\n", " ")
+    defs = {m.group(1): m.group(2) for m in re.finditer(
+        r"^int (dl4j_\w+)\(([^)]*)\)\s*\{", flat, re.M)}
+    for m in re.finditer(r"#define (\w+)\(NAME, \w+\)\s*int NAME\(([^)]*)\)",
+                         flat):
+        for use in re.finditer(rf"^{m.group(1)}\((dl4j_\w+),", flat, re.M):
+            defs[use.group(1)] = m.group(2)
+    return defs
+
+
+@pytest.mark.parametrize("name", LIBRARIES)
+def test_every_entry_point_takes_its_c_parameters(name):
+    """Each symbol's ctypes argtypes are its C definition's parameters,
+    one for one: a short list passes the trailing stream as a 32-bit int
+    (the stem's weight gradient had one argtype too few), which a stream
+    handle above 2^31 cannot survive."""
+    lib = _libraries()[name]
+    defs = _c_entry_points("".join(s.read_text() for s in lib.sources))
+    assert set(lib.functions) <= set(defs), set(lib.functions) - set(defs)
+    for sym, argtypes in lib.functions.items():
+        params = [p for p in defs[sym].split(",") if p.strip()]
+        assert [_kind(p) for p in params] == \
+            [_argtype_kind(t) for t in argtypes], sym
