@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--parent DIR]
 
 Phases (any failure exits nonzero):
 
@@ -16,8 +16,15 @@ Phases (any failure exits nonzero):
    at the shapes the main paths give it, with the kernel's, the plain
    version's and a library call's times (CUDA events around the card's
    time alone, a spin holding the stream while the host enqueues; L2
-   flushed before each launch) beside the kernel's bound. Paged decode: the engine and
-   GQA/verify shapes, bf16 and f32. Flash forward, dq and dk/dv: the
+   flushed before each launch) beside the kernel's bound. Paged decode
+   (the pages of a row split over the warps of its block): the engine
+   and GQA/verify shapes, bf16 and f32, each launched twice and bitwise
+   equal, the limit shown to fail the warps' partials combined without
+   their rescale (planted in the plain version); the edge rows (lengths
+   0, 1, 17, 1024) in both dtypes, the 0-length row exact zeros; with
+   ``--parent DIR`` (another checkout, e.g. the parent commit's tree)
+   that tree's paged kernel built beside this one and timed in turns
+   with it on the same inputs. Flash forward, dq and dk/dv: the
    training shape (B=4, H=8, T=8192, D=64, bf16, causal), then f32
    causal, cross attention with Tq != Tk, a key mask with one fully
    masked row, a T that is no tile multiple (f32 and bf16) and one
@@ -195,7 +202,13 @@ Phases (any failure exits nonzero):
     short refused, and ragged cases in bf16 and f32 at B=3 (9x13 and
     15x17 images, C=4, K=36) of all three kernels on the same limits
     (the bf16 dW also from an x one element off 16-byte alignment,
-    bitwise equal);
+    bitwise equal). The bf16 input gradient at 4 C <= 16 and K <= 64
+    runs on the tensor cores too (``stem.stem_dx_route``): 96 HMMA in
+    its function at C = 3, 4 (48 at C = 1, 2), none spilling, its dx
+    launched twice and bitwise equal and from a dy one element off
+    16-byte alignment, the device kernels of each route (bf16 the
+    tensor-core pass, f32 the CUDA-core one), and the launcher refusing
+    K = 65 and C = 5 (no launch);
 17. resnet train stem: phase 14's configuration with the stem kernels
     engaged (``set_fusion("bottleneck", stem=True)``) through
     ``net.fit``: a warm-up step and 5 timed steps, the loss finite, per
@@ -659,9 +672,85 @@ def sdpa_inputs(q, kp, vp, table, lengths, W):
     return kd, vd, mask
 
 
-def check_paged_kernel(device, rng):
+def paged_plan(q, table):
+    """The split decode's plan for these inputs on this card, as the
+    wrapper makes it."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    S, hkv, rw, D = q.shape
+    return pk.decode_split_plan(
+        rw, D, q.element_size(), pairs=S * hkv,
+        sms=torch.cuda.get_device_properties(q.device).multi_processor_count,
+        n_max=table.shape[1])
+
+
+def paged_no_rescale(q, kp, vp, table, lengths, W):
+    """A planted fault: the split decode's partials (the plain version's
+    math over each warp's share of the pages, p rounded at the share's
+    own max) combined without their rescale, ``sum acc_w / sum l_w``
+    (the kernel weighs each share by exp(m_w - max m))."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    S, hkv, rw, D = q.shape
+    ps, n_max = kp.shape[2], table.shape[1]
+    plan = paged_plan(q, table)
+    wpt = plan.splits * plan.warps_per_tile
+    kd, vd, mask = sdpa_inputs(q, kp, vp, table, lengths, W)
+    sc = torch.einsum("nhrd,nhld->nhrl", q.float(), kd.float()) \
+        * (1.0 / D ** 0.5)
+    share = (torch.arange(n_max * ps, device=q.device) // ps) % wpt
+    acc = lsum = 0.0
+    for w in range(wpt):
+        valid = mask & (share == w)
+        sw = torch.where(valid, sc, torch.full_like(sc, pk.NEG_INF))
+        p = torch.exp(sw - sw.amax(dim=-1, keepdim=True)) * valid
+        lsum = lsum + p.sum(dim=-1, keepdim=True)
+        acc = acc + torch.einsum("nhrl,nhld->nhrd", p.to(vp.dtype).float(),
+                                 vd.float())
+    return (acc / lsum.clamp_min(1e-30)).to(q.dtype)
+
+
+def parent_paged_kernel(parent):
+    """The bf16/f32 paged kernel of another checkout (``--parent``: the
+    parent commit's tree, whose entry points take no scratch and no
+    splits), built from its own source beside this one's, for timing in
+    turns on the same inputs; None without one."""
+    if not parent:
+        return None
+    import ctypes
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / \
+        "serving" / "csrc" / "paged_attention.cu"
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = CudaLibrary("paged_attention_parent", [str(src)],
+                      {sym: [p] * 6 + [i] * 8 + [ctypes.c_float, p]
+                       for sym in pk._SYMBOL.values()})
+    return CudaKernel(lib, "paged_attention_parent", pk._SYMBOL)
+
+
+def paged_launch(kernel, args, W, out):
+    """One launch of the parent checkout's paged decode (``kernel``) on
+    the wrapper's arguments, into ``out``."""
+    q, kp, vp, table, lengths = args
+    S, hkv, rw, D = q.shape
+    kernel.launch(q.dtype, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                  table.data_ptr(), lengths.data_ptr(), out.data_ptr(), S,
+                  hkv, rw, D, kp.shape[2], table.shape[1], kp.shape[0], W,
+                  1.0 / D ** 0.5, torch.cuda.current_stream().cuda_stream)
+
+
+def check_paged_kernel(device, rng, parent=None):
+    """The split decode against its plain version at the engine's shape
+    and a GQA / verify shape, each dtype: within TOLERANCE, two launches
+    bitwise equal, the partials combined without their rescale (planted)
+    beyond the limit; the kernel's, plain version's, SDPA's and (with
+    ``parent``) the parent checkout's kernel's times, the last two in
+    turns with the kernel's (parent, kernel, kernel, parent). Then the
+    edge rows in both dtypes."""
     from deeplearning4j_tpu_torch.serving import paged_kernel as pk
     F = torch.nn.functional
+    old = parent_paged_kernel(parent)
     # the engine's decode shape (S=8 slots, 8 kv heads, one query row,
     # head dim 64, page 16, 64 pages for max_length 1024) with the serve
     # phase's context lengths (prompt 16..300 plus up to 128 tokens),
@@ -679,17 +768,39 @@ def check_paged_kernel(device, rng):
                               **shp)
             W = shp["W"]
             out = pk.paged_attention(*args, query_width=W)
+            again = pk.paged_attention(*args, query_width=W)
             torch.cuda.synchronize()
             ref = pk.paged_attention_plain(*args, query_width=W)
+            fault = paged_no_rescale(*args, W=W)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
+            fault_err = float((fault.float() - ref.float()).abs().max())
             finite = bool(torch.isfinite(out).all())
             kd, vd, mask = sdpa_inputs(*args, W=W)
             lib = F.scaled_dot_product_attention(args[0], kd, vd,
                                                  attn_mask=mask)
             lib_err = float((lib.float() - ref.float()).abs().max())
-            ms = median_ms(lambda: pk.paged_attention(*args, query_width=W),
-                           device)
+            plan = paged_plan(args[0], args[3])
+
+            def kern():
+                return pk.paged_attention(*args, query_width=W)
+
+            if old is not None:
+                prev = torch.empty_like(out)
+                paged_launch(old, args, W, prev)
+                torch.cuda.synchronize()
+                parent_err = float((prev.float() - ref.float()).abs().max())
+
+                def parent_call():
+                    paged_launch(old, args, W, prev)
+
+                turns = [median_ms(parent_call, device), median_ms(kern, device),
+                         median_ms(kern, device),
+                         median_ms(parent_call, device)]
+                ms = float(np.median(turns[1:3]))
+            else:
+                turns = None
+                ms = median_ms(kern, device)
             plain_ms = median_ms(
                 lambda: pk.paged_attention_plain(*args, query_width=W),
                 device)
@@ -701,29 +812,47 @@ def check_paged_kernel(device, rng):
                     "q": list(args[0].shape), "pool": list(args[1].shape),
                     "lengths": [int(x) for x in lengths],
                     "max_abs_err": err, "tolerance": TOLERANCE[dtype],
-                    "finite": finite, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                    "finite": finite,
+                    "bitwise_repeat": bool(torch.equal(out, again)),
+                    "planted": {"combine_without_rescale": fault_err},
+                    "splits": plan.splits,
+                    "warps_per_tile": plan.warps_per_tile,
+                    "chunk_keys": plan.chunk_keys, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_max_abs_err": lib_err,
                     "bound_ms": bound_ms, "bound_by": bound_by}
+            if turns is not None:
+                case.update(parent_ms=[turns[0], turns[3]],
+                            kernel_ms_turns=turns[1:3],
+                            parent_max_abs_err=parent_err)
             log("paged_attention", json.dumps(case))
-            if not finite or err > TOLERANCE[dtype]:
+            if not finite or err > TOLERANCE[dtype] or \
+                    not case["bitwise_repeat"] or \
+                    fault_err <= TOLERANCE[dtype]:
                 raise AssertionError(f"paged_attention kernel disagrees with "
-                                     f"its plain version: {case}")
+                                     f"its plain version, is not bitwise "
+                                     f"repeatable, or the limit does not "
+                                     f"tell the planted fault: {case}")
             cases.append(case)
-    # edge rows: a 0-length row, a 1-token row, a row filling its table
+    # edge rows: a 0-length row (exact zeros), a 1-token row, a row past
+    # one page, a row filling its table
     for dtype in (torch.bfloat16, torch.float32):
         lengths = [0, 1, 17, MAX_LEN]
         args = paged_case(S=4, hkv=2, reps=4, W=1, D=WIDTH // HEADS,
                           ps=PAGE, n_max=MAX_LEN // PAGE, lengths=lengths,
                           dtype=dtype, device=device, seed=99)
         out = pk.paged_attention(*args, query_width=1)
+        again = pk.paged_attention(*args, query_width=1)
         ref = pk.paged_attention_plain(*args, query_width=1)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        same = bool(torch.equal(out, again))
         log(f"paged_attention edge rows {lengths} {dtype}: "
-            f"max_abs_err {err}")
+            f"max_abs_err {err}, bitwise repeat {same}")
         if not bool(torch.isfinite(out).all()) or err > TOLERANCE[dtype] \
-                or bool(out[0].any()):
-            raise AssertionError(f"paged_attention edge rows: err {err}")
+                or bool(out[0].any()) or not same:
+            raise AssertionError(f"paged_attention edge rows: err {err}, "
+                                 f"bitwise repeat {same}")
     return cases
 
 
@@ -3409,6 +3538,11 @@ STEM_BWD_RAGGED_B = 3
 #: HMMA.16816.F32.BF16 in the tensor-core dW function: 8 k16 steps (the
 #: patch's rows) x 16 products
 STEM_DW_TC_HMMA = 128
+#: in the tensor-core dx function, by C: the body of its loop over the
+#: 4 tap columns, 4 k16 steps x 24 products (three patch rows x the four
+#: tap rows, two n8 fragments of outputs); at 4 C <= 8 the compiler
+#: drops the second fragment's, whose outputs are never stored
+STEM_DX_TC_HMMA = {1: 48, 2: 48, 3: 96, 4: 96}
 
 
 def stem_bwd_inputs(n, dtype, device, seed, geo=STEM_BWD_GEO):
@@ -3574,7 +3708,7 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
     from deeplearning4j_tpu_torch.nn.layers import stem
     kern, plain, library, faults = stem_bwd_fns(kernel, a)
     got, ref = kern(), plain()
-    again = kern() if dtype == torch.bfloat16 and kernel == "stem_bwd_dw" \
+    again = kern() if dtype == torch.bfloat16 and kernel != "stem_bwd_pool" \
         else None
     torch.cuda.synchronize()
     geo = a["geo"]
@@ -3582,13 +3716,28 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
             "dtype": str(dtype).split(".")[-1], "batch": n, **geo}
     if kernel == "stem_bwd_dw":
         case["route"] = stem.stem_dw_route(dtype, geo["c"])
+    elif kernel == "stem_bwd_dx":
+        case["route"] = stem.stem_dx_route(dtype, geo["c"], geo["k"])
     failures = []
     if again is not None:
-        case["bitwise_repeat"] = all(torch.equal(u, v)
-                                     for u, v in zip(got, again))
+        pairs = zip(got, again) if kernel == "stem_bwd_dw" \
+            else [(got, again)]
+        case["bitwise_repeat"] = all(torch.equal(u, v) for u, v in pairs)
         if not case["bitwise_repeat"]:
             failures.append("two launches differ")
-    if again is not None and label is not None:
+    if again is not None and kernel == "stem_bwd_dx":
+        # dy one element off 16-byte alignment: the element-wise copies of
+        # the halo give the same tiles, so the same bits
+        dy = a["dy"]
+        dyu = torch.empty(dy.numel() + 1, dtype=dy.dtype,
+                          device=dy.device)[1:].view(dy.shape)
+        dyu.copy_(dy)
+        case["dy_unaligned_bitwise"] = torch.equal(
+            stem.stem_bwd_dx(dyu, a["ws"], tuple(a["x"].shape)), got)
+        if not case["dy_unaligned_bitwise"]:
+            failures.append("an unaligned dy changes the result")
+        del dyu
+    if again is not None and label is not None and kernel == "stem_bwd_dw":
         # x one element off 16-byte alignment: the element-wise copies of
         # its rows give the same halo tiles, so the same bits
         x = a["x"]
@@ -3640,6 +3789,9 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
         log(f"stem bwd_dw {case['case']} {case['dtype']}: dy's largest "
             f"difference from the plain version's "
             f"{case['dy']['max_abs_err']!r} (route {case['route']})")
+    elif kernel == "stem_bwd_dx":
+        log(f"stem bwd_dx {case['case']} {case['dtype']}: route "
+            f"{case['route']}, dx tiles {case['dx']['tile_rel']!r}")
     if dtype == torch.bfloat16 and label is None:
         planted_rec = {}
         for fault, fn in faults.items():
@@ -3676,55 +3828,108 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
 
 def stem_sass():
     """The stem backward library's SASS: the tensor-core dW function
-    holds STEM_DW_TC_HMMA HMMA.16816.F32.BF16, the CUDA-core dW GEMM
-    none; its registers and spills from ptxas -v and its dynamic shared
-    memory."""
+    holds STEM_DW_TC_HMMA HMMA.16816.F32.BF16 and the dx ones (one per
+    C) STEM_DX_TC_HMMA, the CUDA-core dW GEMM and dx pass none; their
+    registers and spills from ptxas -v (none may spill) and their
+    dynamic shared memory."""
     from deeplearning4j_tpu_torch.nn.layers import stem
-    rec, bad = tc_sass(stem._BWD_LIBRARY, "12dw_tc_kernel", "9dw_kernel",
-                       lambda f: STEM_DW_TC_HMMA)
-    rec["smem_bytes"] = stem._BWD_LIBRARY.load().dl4j_stem_bwd_dw_tc_smem()
-    log("stem sass:", json.dumps(rec))
+    lib = stem._BWD_LIBRARY.load()
+    recs, bad = {}, []
+    for grad, want, smem in (
+            ("dw", lambda f: STEM_DW_TC_HMMA, lib.dl4j_stem_bwd_dw_tc_smem),
+            ("dx", lambda f: STEM_DX_TC_HMMA[int(f.split("ILi")[1][0])],
+             lib.dl4j_stem_bwd_dx_tc_smem)):
+        rec, off = tc_sass(stem._BWD_LIBRARY, f"12{grad}_tc_kernel",
+                           f"9{grad}_kernel", want)
+        rec["smem_bytes"] = smem()
+        recs[grad] = rec
+        bad += off
+        bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
+                if any("spill" in x and " 0 bytes spill stores" not in x
+                       for x in lines)]
+    log("stem sass:", json.dumps(recs))
     if bad:
-        raise AssertionError(f"stem sass: HMMA.16816.F32.BF16 counts off in "
-                             f"{bad}: {rec['hmma_16816_f32_bf16']}")
-    return rec
+        counts = [r["hmma_16816_f32_bf16"] for r in recs.values()]
+        raise AssertionError(f"stem sass: HMMA.16816.F32.BF16 counts off "
+                             f"or spills in {bad}: {counts}")
+    return recs
 
 
-#: the device kernels of one stem_bwd_dw call on each route, as the
-#: library's launchers count them (dl4j_stem_bwd_dw_kernel_launches): the
-#: tensor-core pass and its split reduction, or the dy pass, the
-#: CUDA-core GEMM and the reduction
-STEM_DW_KERNELS = ("dy_kernel", "dw_kernel", "dw_tc_kernel",
-                   "reduce_splits_kernel")
-STEM_DW_LAUNCHES = {"tensor_cores": (0, 0, 1, 1), "cuda_cores": (1, 1, 0, 1)}
+#: the device kernels of one stem_bwd_dw / stem_bwd_dx call on each
+#: route, as the library's launchers count them (dl4j_stem_bwd_dw_ /
+#: dx_kernel_launches): dW the tensor-core pass and its split reduction,
+#: or the dy pass, the CUDA-core GEMM and the reduction; dx the
+#: tensor-core pass or the CUDA-core one
+STEM_GRAD_KERNELS = {"dw": ("dy_kernel", "dw_kernel", "dw_tc_kernel",
+                            "reduce_splits_kernel"),
+                     "dx": ("dx_kernel", "dx_tc_kernel")}
+STEM_GRAD_LAUNCHES = {
+    "dw": {"tensor_cores": (0, 0, 1, 1), "cuda_cores": (1, 1, 0, 1)},
+    "dx": {"tensor_cores": (0, 1), "cuda_cores": (1, 0)}}
 
 
-def stem_dw_launches(a):
-    """The device kernels one stem_bwd_dw call started, by the library's
-    own counts, against its route's STEM_DW_LAUNCHES."""
+def stem_grad_launches(a, grad):
+    """The device kernels one stem_bwd_dw (``grad`` "dw") or stem_bwd_dx
+    ("dx") call started, by the library's own counts, against its
+    route's STEM_GRAD_LAUNCHES."""
     import ctypes
 
     from deeplearning4j_tpu_torch.nn.layers import stem
     lib = stem._BWD_LIBRARY.load()
-    route = stem.stem_dw_route(a["x"].dtype, a["x"].shape[3])
+    x, dy = a["x"], a["dy"]
+    names = STEM_GRAD_KERNELS[grad]
+    read = getattr(lib, f"dl4j_stem_bwd_{grad}_kernel_launches")
 
     def counts():
-        c = (ctypes.c_int * 4)()
-        lib.dl4j_stem_bwd_dw_kernel_launches(c)
+        c = (ctypes.c_int * len(names))()
+        read(c)
         return list(c)
 
     before = counts()
-    stem.stem_bwd_dw(a["x"], a["y"], a["dz"], a["aff_k"])
+    if grad == "dw":
+        route = stem.stem_dw_route(x.dtype, x.shape[3])
+        stem.stem_bwd_dw(x, a["y"], a["dz"], a["aff_k"])
+    else:
+        route = stem.stem_dx_route(dy.dtype, x.shape[3], dy.shape[3])
+        stem.stem_bwd_dx(dy, a["ws"], tuple(x.shape))
     torch.cuda.synchronize()
-    got = {n: v - b for n, v, b in zip(STEM_DW_KERNELS, counts(), before)}
-    want = dict(zip(STEM_DW_KERNELS, STEM_DW_LAUNCHES[route]))
-    rec = {"route": route, "dtype": str(a["x"].dtype).split(".")[-1],
+    got = {n: v - b for n, v, b in zip(names, counts(), before)}
+    want = dict(zip(names, STEM_GRAD_LAUNCHES[grad][route]))
+    rec = {"route": route, "dtype": str(x.dtype).split(".")[-1],
            "device_kernels": got}
-    log("stem bwd_dw launches:", json.dumps(rec))
+    log(f"stem bwd_{grad} launches:", json.dumps(rec))
     if got != want:
-        raise AssertionError(f"stem_bwd_dw on {route} launched {got}, "
+        raise AssertionError(f"stem_bwd_{grad} on {route} launched {got}, "
                              f"expected {want}")
     return rec
+
+
+def check_stem_dx_guard(device):
+    """The tensor-core dx launcher refuses what its tiles do not hold
+    (K = 65, C = 5: a CUDA error, no launch) instead of reading or
+    writing past them; it has no partials."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    bf = torch.bfloat16
+    refused = []
+    for c, k in ((3, 65), (5, 64)):
+        dy = torch.zeros((2, 16, 16, k), dtype=bf, device=device)
+        w = torch.zeros((64 * c, k), dtype=bf, device=device)
+        dx = torch.empty((2, 32, 32, c), dtype=bf, device=device)
+        before = stem.STEM_BWD_DX.launches
+        try:
+            stem.STEM_BWD_DX.launch(
+                (bf, stem.TENSOR_CORES), dy.data_ptr(), w.data_ptr(),
+                dx.data_ptr(), 2, 32, 32, c, k, bn._stream(dy))
+        except RuntimeError as e:
+            assert stem.STEM_BWD_DX.launches == before, \
+                "a refused launch counted"
+            refused.append({"c": c, "k": k, "error": str(e)})
+            continue
+        raise AssertionError(f"stem_bwd_dx's tensor-core pass took C {c}, "
+                             f"K {k}")
+    log("stem dx guard:", json.dumps(refused))
+    return refused
 
 
 def check_stem_dw_guard(device):
@@ -3760,15 +3965,17 @@ def check_stem_bwd_kernels(device):
     main path's batch, then in f32 at 16; the dW route's device kernels
     in both; the short-partials guard; the ragged cases in both at B=3."""
     sass = stem_sass()
-    cases, launches = [], []
+    cases, launches, dx_launches = [], [], []
     for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16)):
         a = stem_bwd_inputs(n, dtype, device, seed=40)
         for kernel in ("stem_bwd_pool", "stem_bwd_dw", "stem_bwd_dx"):
             cases.append(stem_bwd_case(kernel, a, dtype, n, device))
-        launches.append(stem_dw_launches(a))
+        launches.append(stem_grad_launches(a, "dw"))
+        dx_launches.append(stem_grad_launches(a, "dx"))
         del a
         torch.cuda.empty_cache()
     guard = check_stem_dw_guard(device)
+    dx_guard = check_stem_dx_guard(device)
     for i, (label, geo) in enumerate(STEM_BWD_RAGGED.items()):
         for dtype in (torch.bfloat16, torch.float32):
             a = stem_bwd_inputs(STEM_BWD_RAGGED_B, dtype, device,
@@ -3778,7 +3985,8 @@ def check_stem_bwd_kernels(device):
                                            STEM_BWD_RAGGED_B, device,
                                            label=label))
     return {"cases": cases, "sass": sass, "dw_launches": launches,
-            "dw_guard": guard}
+            "dw_guard": guard, "dx_launches": dx_launches,
+            "dx_guard": dx_guard}
 
 
 # ---------------------------------------------------------------------
@@ -5118,14 +5326,20 @@ def stem_bwd_entry(name, replaces, launches, path, cases):
                "stem_bwd_dw": "aten.convolution_backward (cuDNN wgrad)",
                "stem_bwd_dx": "aten.convolution_backward (cuDNN dgrad)"}
     keys = ("case", "route", "max_abs_err", "sums_rel", "dz0", "dy", "dW",
-            "dx", "planted", "bitwise_repeat", "x_unaligned_bitwise")
+            "dx", "planted", "bitwise_repeat", "x_unaligned_bitwise",
+            "dy_unaligned_bitwise")
+    design = {"stem_bwd_dw": "redesigned for the tensor cores (bf16 at 4 C "
+                             "<= 16: one pass, mma.sync over conv_mma.cuh; "
+                             "f32: the CUDA cores)",
+              "stem_bwd_dx": "redesigned for the tensor cores (bf16 at 4 C "
+                             "<= 16 and K <= 64: the s2d weight resident, "
+                             "mma.sync over a dy halo tile; f32: the CUDA "
+                             "cores)"}
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/stem_bwd.cu",
             "replaces": replaces, "launches": launches,
             "launches_on": path,
-            **({"design": "redesigned for the tensor cores (bf16 at 4 C <= "
-                          "16: one pass, mma.sync over conv_mma.cuh; f32: "
-                          "the CUDA cores)",
+            **({"design": design[name],
                 "core_route": main["route"]} if "route" in main else {}),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -5230,6 +5444,9 @@ def kernel_entry(name, source, replaces, launches, main, cases):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
+    ap.add_argument("--parent", help="another checkout of the repo (the "
+                    "parent commit's tree): phase 3 builds its paged "
+                    "kernel and times it in turns with this one")
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
@@ -5271,7 +5488,8 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     if want("paged"):
-        out["paged_cases"] = phase("paged", check_paged_kernel, device, rng)
+        out["paged_cases"] = phase("paged", check_paged_kernel, device, rng,
+                                   args.parent)
     if want("paged_quant"):
         out["paged_quant_cases"] = phase("paged_quant",
                                          check_paged_quant_kernel, device,
@@ -5343,6 +5561,8 @@ def main(argv=None) -> int:
             sb["sass"]
         out["stem_dw_launches"], out["stem_dw_guard"] = \
             sb["dw_launches"], sb["dw_guard"]
+        out["stem_dx_launches"], out["stem_dx_guard"] = \
+            sb["dx_launches"], sb["dx_guard"]
     if want("resnet_train_stem"):
         xla_losses = out.get("resnet_train", {}).get("against_xla", {}) \
             .get("losses_xla")

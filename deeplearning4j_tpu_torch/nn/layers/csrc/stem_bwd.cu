@@ -60,10 +60,22 @@
 //     conv_gemm.cuh's tiles (rows the 64 C entries of the s2d window,
 //     decode_r of the forward conv; columns K; the pixels split over the
 //     grid's z into f32 partials, reduced the same way);
-//   - bwd_dx is laid out along the pixel axis: one thread per (s2d pixel,
-//     4 of its 4 C outputs), so at C = 3 three threads share a pixel and
-//     each keeps 4 f32 sums; the [64 C, K] matrix sits in shared memory
-//     as f32, tap-major with the 4 C outputs contiguous (one float4 per
+//   - bwd_dx in bf16 at 4 C <= 16 and K <= 64 (the main path's C = 3, K
+//     = 64) runs on the tensor cores (dx_tc below): in s2d coordinates
+//     it is a 16-tap conv, dS[u, v, :4C] = sum over the taps (i, j) of
+//     dy[u - i, v - j, :K] W_tap^T, a GEMM of the s2d pixels by 4 C
+//     (padded to 16) over 16 taps x K. A persistent block keeps the
+//     whole s2d weight in shared memory (32 KB) and walks 24 x 16-pixel
+//     patches, the dy halo under each staged by cp.async a patch ahead;
+//     its 16 taps read shifted windows of the halo through ldmatrix,
+//     each warp reusing a loaded halo row for the tap rows of its three
+//     patch rows, and mma.sync m16n8k16 multiplies;
+//     the epilogue un-shuffles the patch's dx into shared memory and
+//     stores whole row segments. f32, and wider inputs, keep the
+//     CUDA-core pass: one thread per (s2d pixel, 4 of its 4 C outputs),
+//     so at C = 3 three threads share a pixel and each keeps 4 f32
+//     sums; the [64 C, K] matrix sits in shared memory as f32,
+//     tap-major with the 4 C outputs contiguous (one float4 per
 //     reduction step), loaded once per block, which then walks the
 //     pixels (K is cut into chunks where it does not fit).
 //
@@ -78,11 +90,17 @@
 // multiplies at the tensor cores' rate; what still holds it back is one
 // 8-warp block an SM running each patch's rearrangement and dy, then its
 // products, one after the other (two barriers a patch), and mma.sync's
-// rate below wgmma's. bwd_pool and bwd_dx run on the f32 CUDA cores:
-// bwd_pool recomputes each pool window's maximum once per pixel that it
-// covers (2.25 windows of 9 loads per pixel, from the caches), bwd_dx
-// multiplies at the f32 rate (67 TFLOP/s); their redesign is later work
-// (ROADMAP queue B).
+// rate below wgmma's. bwd_dx's tensor-core pass reads dy once from
+// device memory (the halo's overlap from L2) and does 64 GFLOP of
+// padded products, 0.065 ms at 989 TFLOP/s; what bounds it in practice
+// is shared memory: each tap reads its window of the halo again, 1.7 KB
+// of ldmatrix a pixel (10 ldmatrix for 24 products; 3.4 GB at B=128
+// with the patches' padding), ~0.10 ms at 128 bytes a clock an SM, and
+// each patch's copy, products and stores running one after another in
+// one 8-warp block an SM. bwd_pool runs on the f32 CUDA cores and
+// recomputes each pool window's maximum once per pixel that it covers
+// (2.25 windows of 9 loads per pixel, from the caches); its redesign is
+// later work (ROADMAP queue B).
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -773,7 +791,296 @@ inline int launch(const void* x, const void* y, const void* dz,
 }  // namespace dw_tc
 
 // ---------------------------------------------------------------------
-// bwd_dx
+// the device kernels the input gradient's launchers started, by kind:
+// the CUDA-core pass, the tensor-core pass (read through
+// dl4j_stem_bwd_dx_kernel_launches)
+// ---------------------------------------------------------------------
+enum DxKernel : int { kDxCuda = 0, kDxTc = 1 };
+int dx_launched[2] = {0, 0};
+
+// ---------------------------------------------------------------------
+// bwd_dx, bf16 at 4 C <= 16 and K <= 64: on the tensor cores
+// ---------------------------------------------------------------------
+// In s2d coordinates dx is a 16-tap conv: dS[u, v, :4C] = sum over the
+// taps (i, j) of dy[u - i, v - j, :K] W_tap^T, W_tap the tap's [4C, K]
+// block of the s2d weight. A GEMM of M = the s2d pixels, N = 4 C padded
+// to 16, a reduction of 16 taps x K (K <= 64, padded to 64).
+namespace dx_tc {
+
+using dl4j_mma::bf16;
+using dl4j_mma::copy8;
+using dl4j_mma::cp_async_commit;
+using dl4j_mma::cp_async_wait;
+using dl4j_mma::ldsm_x4;
+using dl4j_mma::mma_16816;
+using dl4j_mma::smem_addr;
+
+constexpr int kRows = 3;                 // patch rows a warp owns
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;    // 256
+constexpr int kTh = kRows * kWarps;      // s2d output patch: 24 rows ...
+constexpr int kTw = 16;                  // ... of 16 pixels (one m16 row)
+constexpr int kHh = kTh + 3;             // the dy halo the 4x4 taps read:
+constexpr int kHw = kTw + 3;             //   27 x 19 pixels
+constexpr int kHalo = kHh * kHw;
+constexpr int kK = 64;                   // dy channels staged (K <= 64)
+constexpr int kHs = kK + 8;              // a halo pixel: 144 bytes (no
+                                         // ldmatrix bank conflicts)
+constexpr int kN = 16;                   // the 4 C outputs, padded
+constexpr int kWs = kK + 8;              // a weight row (tap, output)
+constexpr int kMaxC = 4;                 // 4 C <= 16
+constexpr int kXr = 2 * kTh;             // the patch's dx: 48 rows ...
+constexpr int kXc = 2 * kTw;             // ... of 32 pixels
+constexpr int kStageElems = kHalo * kHs;
+constexpr int kStages = 2;               // one patch copied ahead (three
+                                         // stages do not fit)
+constexpr size_t kSmem =
+    (static_cast<size_t>(16) * kN * kWs + kXr * kXc * kMaxC +
+     static_cast<size_t>(kStages) * kStageElems) *
+    sizeof(bf16);
+
+struct Dx {
+  int n, h, w;          // dx [n, h, w, C]
+  int ho, wo, k;        // dy [n, ho, wo, k]
+  int prow, pcol;       // patches of the s2d grid an image: down, across
+  int patches;          // n prow pcol
+  int slots;            // blocks: block q walks patches q, q + slots, ..
+  int vec;              // dy: 16-byte copies
+};
+
+// A block keeps the whole s2d weight in shared memory (B, [tap][4 C ->
+// 16][k], zeros past 4 C and K) and walks its slot's patches of 24 x 16
+// s2d pixels (the pixels (u, v), 1 <= u <= (h + 2) / 2, that touch the
+// image); per patch, from a ring of kStages copies (the dy halo under
+// the patch, cp.async, kStages - 1 patches ahead), warp w computes patch
+// rows 3 w .. 3 w + 2 against all 16 columns: for each tap column j and
+// k16 step it loads the four tap rows' B fragments once and the six
+// halo rows 3 w .. 3 w + 5 (A, [pixel][k], shifted j to the left) once
+// each, and halo row 3 w + t is tap row i = e + 3 - t of patch row 3 w +
+// e: 24 products from 10 ldmatrix. The tensor cores' sums of a (j, k16)
+// step are promoted into the f32 totals with round-to-nearest adds. The
+// epilogue un-shuffles the patch's 48 x 32 x C dx values into shared
+// memory and stores them as whole row segments, cropped to the image.
+// C, the input channels, is a template parameter: the un-shuffle and the
+// crop divide by it.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    dx_tc_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
+                 bf16* __restrict__ dx, Dx s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int c4 = 4 * C;
+  const int mine = (s.patches - static_cast<int>(blockIdx.x) + s.slots - 1) /
+                   s.slots;
+  const int per_img = s.prow * s.pcol;
+  const bool vec = s.vec != 0;
+  bf16* Ws = reinterpret_cast<bf16*>(smem);        // [16][kN][kWs]
+  bf16* Xs = Ws + 16 * kN * kWs;                    // [kXr][kXc C]
+  bf16* Ring = Xs + kXr * kXc * kMaxC;              // [S][kHalo][kHs]
+
+  // the image and first s2d row and column of patch p
+  auto origin = [&](int p, int& img, int& u0, int& v0) {
+    img = p / per_img;
+    const int rem = p - img * per_img;
+    const int pr = rem / s.pcol;
+    u0 = 1 + pr * kTh;
+    v0 = 1 + (rem - pr * s.pcol) * kTw;
+  };
+  auto issue = [&](int g) {   // one copy group, empty past the last
+    if (g < mine) {
+      bf16* st = Ring + (g % kStages) * kStageElems;
+      int img, u0, v0;
+      origin(static_cast<int>(blockIdx.x) + g * s.slots, img, u0, v0);
+      // halo pixel (hu, hv) is dy[u0 - 3 + hu, v0 - 3 + hv] (zeros
+      // outside dy and past K), 8 channels an item (not unrolled: the
+      // registers go to the products)
+#pragma unroll 1
+      for (int it = tid; it < kHalo * 8; it += kThreads) {
+        const int hp = it >> 3;
+        const int ch = 8 * (it & 7);
+        const int hu = hp / kHw;
+        const int du = u0 - 3 + hu;
+        const int dv = v0 - 3 + hp - hu * kHw;
+        const bool in = du >= 0 && du < s.ho && dv >= 0 && dv < s.wo;
+        const int valid = in ? dl4j_mma::clamp8(s.k - ch) : 0;
+        copy8(st + hp * kHs + ch, dy,
+              in ? ((img * s.ho + du) * s.wo + dv) * s.k + ch : 0, valid,
+              vec);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int g = 0; g < kStages - 1; ++g) issue(g);
+  // the weight, once: row (tap, o) of tap-major w [16 4C, K], zeros past
+  // 4 C and K
+  for (int i = tid; i < 16 * kN * kK; i += kThreads) {
+    const int kk = i % kK;
+    const int row = i / kK;             // tap kN + o
+    const int tap = row / kN;
+    const int o = row - tap * kN;
+    Ws[row * kWs + kk] = (o < c4 && kk < s.k)
+                             ? w[(tap * c4 + o) * s.k + kk]
+                             : __float2bfloat16(0.f);
+  }
+
+  const int r0 = kRows * warp;   // the warp's first patch row
+  for (int i = 0; i < mine; ++i) {
+    const bf16* Hs = Ring + (i % kStages) * kStageElems;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // patch i copied; the last patch's dx stored
+    issue(i + kStages - 1);
+    int img, u0, v0;
+    origin(static_cast<int>(blockIdx.x) + i * s.slots, img, u0, v0);
+
+    // acc: the tensor cores' sums of one (j, k16) step, whose
+    // accumulation rounds toward zero; tot: the totals, promoted into
+    // with f32 adds (round to nearest)
+    float tot[kRows][2][4];
+#pragma unroll
+    for (int e = 0; e < kRows; ++e)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tot[e][n][q] = 0.f;
+    // the tap columns one at a time: unrolled, the compiler hoists the
+    // whole sequence's fragments and spills
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < kK / 16; ++ks) {
+        uint32_t bfr[4][4];   // tap rows i = 0..3 of column j
+#pragma unroll
+        for (int ti = 0; ti < 4; ++ti)
+          ldsm_x4<false>(smem_addr(Ws + ((ti * 4 + j) * kN +
+                                         dl4j_mma::b_n(lane)) * kWs +
+                                   16 * ks + dl4j_mma::b_k(lane)),
+                         bfr[ti]);
+        float acc[kRows][2][4];
+#pragma unroll
+        for (int e = 0; e < kRows; ++e)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[e][n][q] = 0.f;
+#pragma unroll
+        for (int t = 0; t < kRows + 3; ++t) {
+          uint32_t af[4];
+          ldsm_x4<false>(smem_addr(Hs + ((r0 + t) * kHw + (lane & 15) + 3 -
+                                         j) * kHs +
+                                   16 * ks + dl4j_mma::a_k(lane)),
+                         af);
+#pragma unroll
+          for (int e = 0; e < kRows; ++e) {
+            const int ti = e + 3 - t;
+            if (ti < 0 || ti > 3) continue;
+            mma_16816(acc[e][0], af, bfr[ti][0], bfr[ti][1]);
+            mma_16816(acc[e][1], af, bfr[ti][2], bfr[ti][3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < kRows; ++e)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) tot[e][n][q] += acc[e][n][q];
+      }
+    }
+
+    // the un-shuffle: output o = phase C + channel of s2d pixel (pu, pv)
+    // is dx pixel (2 pu + phase / 2, 2 pv + phase % 2) of the patch
+    constexpr int xrow = kXc * C;
+#pragma unroll
+    for (int e = 0; e < kRows; ++e)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int o = 8 * n + 2 * (lane & 3) + (q & 1);
+          if (o >= c4) continue;
+          const int pv = (lane >> 2) + 8 * (q >> 1);
+          const int phase = o / C;
+          const int cc = o - phase * C;
+          Xs[(2 * (r0 + e) + (phase >> 1)) * xrow +
+             (2 * pv + (phase & 1)) * C + cc] =
+              __float2bfloat16(tot[e][n][q]);
+        }
+    __syncthreads();
+    // the crop: patch row lr is dx row 2 u0 - 3 + lr, column lc dx
+    // column 2 v0 - 3 + lc
+    const int xr0 = 2 * u0 - 3;
+    const int xc0 = 2 * v0 - 3;
+#pragma unroll 1
+    for (int it = tid; it < kXr * xrow; it += kThreads) {
+      const int lr = it / xrow;
+      const int rem = it - lr * xrow;
+      const int lc = rem / C;
+      const int xr = xr0 + lr;
+      const int xc = xc0 + lc;
+      if (xr < 0 || xr >= s.h || xc < 0 || xc >= s.w) continue;
+      dx[((img * s.h + xr) * s.w + xc) * C + rem - lc * C] = Xs[it];
+    }
+  }
+}
+
+// The geometry and grid on a card of `sms` SMs: 24 x 16 patches of the
+// s2d pixels that touch the image, and the fewest blocks (one an SM: the
+// ring and the weight) that walk them in the fewest rounds (stem.py's
+// _stem_dx_plan mirrors it).
+inline Dx geometry(int n, int h, int wd, int k, int sms) {
+  Dx s{};
+  s.n = n;
+  s.h = h;
+  s.w = wd;
+  s.ho = (h - 1) / 2 + 1;
+  s.wo = (wd - 1) / 2 + 1;
+  s.k = k;
+  s.prow = (((h + 2) >> 1) + kTh - 1) / kTh;
+  s.pcol = (((wd + 2) >> 1) + kTw - 1) / kTw;
+  s.patches = n * s.prow * s.pcol;
+  const int rounds = (s.patches + sms - 1) / sms;
+  s.slots = rounds > 0 ? (s.patches + rounds - 1) / rounds : 0;
+  return s;
+}
+
+// Refuses (before any launch) C outside 1 .. 4, K outside 1 .. 64, and
+// any tensor of 2^31 - 1 elements or more (the kernel indexes with ints).
+inline int launch(const void* dy, const void* w, void* dx, int n, int h,
+                  int wd, int c, int k, cudaStream_t st) {
+  const int64_t dy_elems = static_cast<int64_t>(n) * ((h - 1) / 2 + 1) *
+                           ((wd - 1) / 2 + 1) * k;
+  if (c < 1 || c > kMaxC || k < 1 || k > kK ||
+      static_cast<int64_t>(n) * h * wd * c >= INT_MAX ||
+      dy_elems >= INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Dx s = geometry(n, h, wd, k, sms);
+  if (s.patches == 0) return static_cast<int>(cudaGetLastError());
+  s.vec = k % 8 == 0 && dl4j_mma::aligned16(dy);
+  static size_t granted[kMaxC] = {0, 0, 0, 0};
+  auto kernel = c == 1 ? dx_tc_kernel<1>
+                : c == 2 ? dx_tc_kernel<2>
+                : c == 3 ? dx_tc_kernel<3>
+                         : dx_tc_kernel<4>;
+  int err = dl4j_mma::set_smem(kernel, kSmem, granted[c - 1]);
+  if (err) return err;
+  kernel<<<static_cast<unsigned>(s.slots), kThreads, kSmem, st>>>(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(w),
+      static_cast<bf16*>(dx), s);
+  err = static_cast<int>(cudaGetLastError());
+  if (!err) ++dx_launched[kDxTc];
+  return err;
+}
+
+}  // namespace dx_tc
+
+// ---------------------------------------------------------------------
+// bwd_dx on the CUDA cores (f32; bf16 at 4 C > 16 or K > 64)
 // ---------------------------------------------------------------------
 constexpr int kDxThreads = 256;
 constexpr int kDxSmem = 12288;   // floats (48 KB): a [16, kc, 4 C] chunk
@@ -880,7 +1187,9 @@ int stem_bwd_dx(const void* dy, const void* w, void* dx, int n, int h,
       static_cast<const T*>(dy), static_cast<const T*>(w),
       static_cast<T*>(dx), n, h, wd, c, k, (h - 1) / 2 + 1, (wd - 1) / 2 + 1,
       (h + 2) >> 1, (wd + 2) >> 1, kc > 0 ? kc : 1);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++dx_launched[kDxCuda];
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -937,6 +1246,13 @@ int dl4j_stem_bwd_dx_bf16(const void* dy, const void* w, void* dx, int n,
   return stem_bwd_dx<__nv_bfloat16>(dy, w, dx, n, h, wd, c, k, stream);
 }
 
+int dl4j_stem_bwd_dx_bf16_mma(const void* dy, const void* w, void* dx,
+                              int n, int h, int wd, int c, int k,
+                              void* stream) {
+  return dx_tc::launch(dy, w, dx, n, h, wd, c, k,
+                       static_cast<cudaStream_t>(stream));
+}
+
 int dl4j_stem_bwd_pool_tile() { return kPoolPix; }
 
 // The weight gradient's device kernels started so far, by kind (out[4]:
@@ -947,8 +1263,18 @@ int dl4j_stem_bwd_dw_kernel_launches(int* out) {
   return 0;
 }
 
+// The input gradient's device kernels started so far, by kind (out[2]:
+// the CUDA-core pass, the tensor-core pass).
+int dl4j_stem_bwd_dx_kernel_launches(int* out) {
+  for (int i = 0; i < 2; ++i) out[i] = dx_launched[i];
+  return 0;
+}
+
 // Bytes of dynamic shared memory the bf16 dW pass launches with.
 int dl4j_stem_bwd_dw_tc_smem() { return static_cast<int>(dw_tc::kSmem); }
+
+// Bytes of dynamic shared memory the bf16 dx pass launches with.
+int dl4j_stem_bwd_dx_tc_smem() { return static_cast<int>(dx_tc::kSmem); }
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -23,7 +23,10 @@ does about that. The weight gradient has two routes,
 :func:`stem_dw_route`: bf16 at ``4 C <= 16`` (RGB or RGBA input) runs
 one pass on the tensor cores (``mma.sync`` tiles over ``csrc/
 conv_mma.cuh``; its grid planned by :func:`_stem_dw_plan`), f32 and
-wider inputs a dy pass and an f32 CUDA-core GEMM. Each wrapper launches
+wider inputs a dy pass and an f32 CUDA-core GEMM. So has the input
+gradient, :func:`stem_dx_route`: bf16 at ``4 C <= 16`` and ``K <= 64``
+on the tensor cores (its grid planned by :func:`_stem_dx_plan`), f32
+and the rest the f32 CUDA cores. Each wrapper launches
 its kernel on CUDA tensors (or raises on what it does not take) and
 takes the plain version beside it on CPU tensors, written as the JAX
 kernel body over the batch.
@@ -64,7 +67,8 @@ __all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
            "reference_stem", "stem_bwd_dw", "stem_bwd_dw_plain",
            "stem_bwd_dx", "stem_bwd_dx_plain", "stem_bwd_pool",
            "stem_bwd_pool_plain", "stem_conv", "stem_conv_plain",
-           "stem_dw_route", "stem_geometry", "stem_pool", "stem_pool_plain",
+           "stem_dw_route", "stem_dx_route", "stem_geometry", "stem_pool",
+           "stem_pool_plain",
            "stem_weight_s2d"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -78,12 +82,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: the input gradient's kernel holds the [64 C, K] weight in 48 KB of
 #: shared memory, at least one reduction row of it: C <= 192
 _MAX_CHANNELS = 192
-#: the bf16 weight gradient's tensor-core route: a tap's 4 C channels
-#: padded to 16 (RGB or RGBA input)
-_TC_DW_MAX_CHANNELS = 4
+#: the bf16 weight and input gradients' tensor-core routes: a tap's 4 C
+#: channels padded to 16 (RGB or RGBA input)
+_TC_MAX_CHANNELS = 4
 #: its output patch (rows, columns) and output channels a block
 #: (csrc/stem_bwd.cu's dw_tc::kTh, kTw, kCols)
 _TC_DW_PATCH, _TC_DW_COLS = (8, 16), 64
+#: the bf16 input gradient's tensor-core route: the s2d weight resident
+#: in shared memory, K <= 64 dy channels a halo pixel (dx_tc::kK); its
+#: patch of s2d pixels (dx_tc::kTh, kTw)
+_TC_DX_MAX_K = 64
+_TC_DX_PATCH = (24, 16)
 
 
 def _symbols(stem):
@@ -91,11 +100,11 @@ def _symbols(stem):
             torch.bfloat16: f"dl4j_{stem}_bf16"}
 
 
-def _dw_symbols():
-    """The weight gradient's entry points by (dtype, route)."""
-    return {(torch.float32, CUDA_CORES): "dl4j_stem_bwd_dw_f32",
-            (torch.bfloat16, CUDA_CORES): "dl4j_stem_bwd_dw_bf16",
-            (torch.bfloat16, TENSOR_CORES): "dl4j_stem_bwd_dw_bf16_mma"}
+def _route_symbols(stem):
+    """A backward kernel's entry points by (dtype, route)."""
+    return {(torch.float32, CUDA_CORES): f"dl4j_{stem}_f32",
+            (torch.bfloat16, CUDA_CORES): f"dl4j_{stem}_bf16",
+            (torch.bfloat16, TENSOR_CORES): f"dl4j_{stem}_bf16_mma"}
 
 
 _LIBRARY = CudaLibrary(
@@ -110,9 +119,11 @@ _BWD_LIBRARY = CudaLibrary(
     {**{s: _BWD_POOL_ARGS for s in _symbols("stem_bwd_pool").values()},
      **{s: _BWD_DW_ARGS for s in _symbols("stem_bwd_dw").values()},
      "dl4j_stem_bwd_dw_bf16_mma": _BWD_DW_TC_ARGS,
-     **{s: _BWD_DX_ARGS for s in _symbols("stem_bwd_dx").values()},
+     **{s: _BWD_DX_ARGS for s in _route_symbols("stem_bwd_dx").values()},
      "dl4j_stem_bwd_pool_tile": [], "dl4j_stem_bwd_dw_tc_smem": [],
-     "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+     "dl4j_stem_bwd_dx_tc_smem": [],
+     "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
+     "dl4j_stem_bwd_dx_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
 
 #: the five kernels; each ``.launches`` counts its launches (an entry
@@ -121,9 +132,10 @@ STEM_CONV = CudaKernel(_LIBRARY, "stem_conv", _symbols("stem_conv"))
 STEM_POOL = CudaKernel(_LIBRARY, "stem_pool", _symbols("stem_pool"))
 STEM_BWD_POOL = CudaKernel(_BWD_LIBRARY, "stem_bwd_pool",
                            _symbols("stem_bwd_pool"))
-STEM_BWD_DW = CudaKernel(_BWD_LIBRARY, "stem_bwd_dw", _dw_symbols())
+STEM_BWD_DW = CudaKernel(_BWD_LIBRARY, "stem_bwd_dw",
+                         _route_symbols("stem_bwd_dw"))
 STEM_BWD_DX = CudaKernel(_BWD_LIBRARY, "stem_bwd_dx",
-                         _symbols("stem_bwd_dx"))
+                         _route_symbols("stem_bwd_dx"))
 
 
 def stem_geometry(h: int, w: int) -> dict:
@@ -162,7 +174,7 @@ def stem_dw_route(dtype, c: int) -> str:
     if dtype not in _DTYPES:
         raise ValueError(f"stem_bwd_dw kernels take float32 or bfloat16, "
                          f"got {dtype}")
-    if dtype == torch.bfloat16 and 1 <= c <= _TC_DW_MAX_CHANNELS:
+    if dtype == torch.bfloat16 and 1 <= c <= _TC_MAX_CHANNELS:
         return TENSOR_CORES
     return CUDA_CORES
 
@@ -192,6 +204,47 @@ def _stem_dw_plan(n, h, w, k, sms) -> StemDwPlan:
     cols = -(-k // _TC_DW_COLS)
     return StemDwPlan(max(1, min(patches, sms // cols)), patches, cols,
                       (down, across))
+
+
+def stem_dx_route(dtype, c: int, k: int) -> str:
+    """The input gradient's route for ``dtype``, ``c`` input channels
+    and ``k`` output channels: TENSOR_CORES for bf16 at ``4 C <= 16``
+    and ``1 <= K <= 64`` (a tap's 4 C outputs padded to 16, a halo
+    pixel's K channels to 64), else CUDA_CORES (f32 stays exact f32).
+    Raises on a dtype no route takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"stem_bwd_dx kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if dtype == torch.bfloat16 and 1 <= c <= _TC_MAX_CHANNELS and \
+            1 <= k <= _TC_DX_MAX_K:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+class StemDxPlan(NamedTuple):
+    """The tensor-core input gradient's launch plan, as ``csrc/
+    stem_bwd.cu``'s ``dx_tc::geometry`` chooses it: ``patches`` patches
+    of 24 x 16 s2d pixels (``grid = (down, across)`` an image, over the
+    s2d pixels ``1 <= u <= (h + 2) // 2``, ``1 <= v <= (w + 2) // 2``
+    that touch the image), walked by ``tiles`` blocks in ``rounds``
+    rounds: block q takes the patches q, q + tiles, ..."""
+    tiles: int
+    patches: int
+    rounds: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_dx_plan(n, h, w, sms) -> StemDxPlan:
+    """The plan for dx ``[n, h, w, C]`` on a card of ``sms`` SMs: the
+    fewest rounds one block an SM allows, then the fewest blocks that
+    keep them."""
+    th, tw = _TC_DX_PATCH
+    down, across = -(-((h + 2) // 2) // th), -(-((w + 2) // 2) // tw)
+    patches = n * down * across
+    rounds = -(-patches // sms)
+    tiles = -(-patches // rounds) if rounds else 0
+    return StemDxPlan(tiles, patches, rounds, (down, across))
 
 
 def fused_stem_supported(x_shape, n_out: int, dtype) -> bool:
@@ -363,8 +416,9 @@ def stem_bwd_dx(dy, w, x_shape):
     matrix of :func:`stem_weight_s2d` in dy's dtype, x_shape the input's
     ``(N, H, W, C)``. Returns dx ``[N, H, W, C]`` in dy's dtype, the
     transposed 4x4 correlation in space-to-depth coordinates un-shuffled
-    to pixels, f32 sums rounded once. The kernel on CUDA tensors,
-    :func:`stem_bwd_dx_plain` on CPU tensors."""
+    to pixels, f32 sums rounded once. The kernel of
+    :func:`stem_dx_route` on CUDA tensors, :func:`stem_bwd_dx_plain` on
+    CPU tensors."""
     n, h, wd, c = (int(v) for v in x_shape)
     g = stem_geometry(h, wd)
     _nhwc4("stem_bwd_dx", dy=dy)
@@ -379,9 +433,15 @@ def stem_bwd_dx(dy, w, x_shape):
         raise ValueError(f"stem_bwd_dx: the kernel takes at most "
                          f"{_MAX_CHANNELS} input channels, got {c}")
     _check("stem_bwd_dx", dy=dy, w=w)
+    route = stem_dx_route(dy.dtype, c, k)
+    if route == TENSOR_CORES and max(dy.numel(), n * h * wd * c) \
+            >= _TC_MAX_ELEMENTS:
+        raise ValueError(f"stem_bwd_dx: the bf16 kernel indexes with "
+                         f"32-bit ints; dy and dx must each hold fewer "
+                         f"than {_TC_MAX_ELEMENTS} elements")
     dx = torch.empty((n, h, wd, c), dtype=dy.dtype, device=dy.device)
     if dx.numel():
-        STEM_BWD_DX.launch(dy.dtype, dy.data_ptr(), w.data_ptr(),
+        STEM_BWD_DX.launch((dy.dtype, route), dy.data_ptr(), w.data_ptr(),
                            dx.data_ptr(), n, h, wd, c, k, _stream(dy))
     return dx
 

@@ -8,7 +8,10 @@ kernel ``_decode_kernel``) and the int8 pool's (``_decode_kernel_quant``;
 the source note says what bounds each and what its design does about
 that). They read K/V straight through the per-slot page table, so a
 decode step touches only the live pages of each row, never a dense copy
-of the pool.
+of the pool. The bf16/f32 kernel splits each row's live pages over the
+warps of its block, which combine their online-softmax partials in a
+fixed order; :func:`decode_split_plan` mirrors how it cuts the rows,
+the pages and the head dim.
 
 :func:`paged_attention` dispatches on where its tensors lie: CUDA
 tensors launch a kernel (or raise on what it does not take), CPU
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -43,13 +47,14 @@ NEG_INF = -1e30   # finite: a fully masked row must stay finite
 MAX_SMEM_BYTES = 232448
 MAX_HEAD_DIM = 256
 
-__all__ = ["NEG_INF", "PAGED_ATTENTION", "PAGED_ATTENTION_QUANT",
+__all__ = ["DecodeSplitPlan", "NEG_INF", "PAGED_ATTENTION",
+           "PAGED_ATTENTION_QUANT", "decode_split_plan",
            "paged_attention", "paged_attention_plain",
            "paged_attention_quant_plain", "paged_attention_quant_smem_bytes",
            "paged_attention_smem_bytes"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 _QUANT_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
 
 _SYMBOL = {torch.float32: "dl4j_paged_attention_f32",
@@ -69,13 +74,76 @@ PAGED_ATTENTION_QUANT = CudaKernel(_LIBRARY, "paged_attention_quant",
                                    _QUANT_SYMBOL)
 
 
+class DecodeSplitPlan(NamedTuple):
+    """How ``csrc/paged_attention.cu``'s split decode cuts one (slot, kv
+    head): ``splits`` blocks; the query rows in ``tiles`` tiles of
+    ``rows_per_tile``; ``warps`` a block, ``warps_per_tile`` of them on
+    each tile (block b's warp w takes tiles ``w // warps_per_tile + i *
+    groups`` and, of each, the live pages ``b * warps_per_tile + w %
+    warps_per_tile + j * splits * warps_per_tile``); ``chunk_keys`` keys
+    a warp scores at a time, one online-softmax update (a key's head dim
+    in 16-byte vectors, or single values, over a power of two of lanes;
+    a few such keys a lane); ``smem_bytes`` the warps' f32 partials and,
+    where a tile holds several rows, the query's rows (f32, whole
+    tiles)."""
+    splits: int
+    rows_per_tile: int
+    tiles: int
+    warps: int
+    warps_per_tile: int
+    groups: int
+    chunk_keys: int
+    smem_bytes: int
+
+    def warp_pages(self, warp: int, n_live: int, split: int = 0):
+        """[(tile, [page indices])] of block ``split``'s ``warp`` for a
+        row with ``n_live`` live pages."""
+        g, share = divmod(warp, self.warps_per_tile)
+        if g >= self.groups:
+            return []
+        stride = self.splits * self.warps_per_tile
+        pages = list(range(split * self.warps_per_tile + share, n_live,
+                           stride))
+        return [(t, pages) for t in range(g, self.tiles, self.groups)]
+
+
+def decode_split_plan(rows: int, head_dim: int, elem_bytes: int = 2,
+                      vec: bool = True, pairs: int = 1, sms: int = 1,
+                      n_max: int = 1) -> DecodeSplitPlan:
+    """The split decode's plan for ``rows`` query rows at ``head_dim``,
+    values of ``elem_bytes`` bytes, ``pairs`` (slot, kv head) pairs of
+    up to ``n_max`` pages on a card of ``sms`` SMs; ``vec``: the 16-byte
+    route (the head dim a whole number of 16-byte vectors, the pools
+    aligned), else element by element. One block a pair, except where
+    several query rows make each page's work heavy and the pairs leave
+    SMs idle: then as many blocks as fill the SMs, at most 8 and no more
+    than the pages give every warp one (the blocks' partials then cost a
+    second combine)."""
+    rt = 1 if rows == 1 else 4
+    warps = 16
+    tiles = -(-rows // rt)
+    wpt = max(1, warps // tiles)
+    ve = 16 // elem_bytes if vec else 1
+    nv = head_dim // ve
+    lpk = 1
+    while lpk < nv and lpk < 32:
+        lpk *= 2
+    passes = 1 if ve == 1 else (8 if rt == 1 else 4) // elem_bytes
+    q_rows = tiles * rt if rt > 1 else 0
+    splits = 1 if rt == 1 else \
+        max(1, min(8, sms // max(pairs, 1), -(-n_max // wpt)))
+    return DecodeSplitPlan(splits, rt, tiles, warps, wpt, warps // wpt,
+                           passes * (32 // lpk),
+                           4 * (wpt * rows * (head_dim + 2)
+                                + q_rows * head_dim))
+
+
 def paged_attention_smem_bytes(rows: int, head_dim: int,
                                page_size: int) -> int:
-    """Dynamic shared memory one kernel block uses (all f32): the query
-    rows and accumulator, one K and one V page, the score tile and the
-    three per-row softmax scalars."""
-    return 4 * (2 * rows * head_dim + 2 * page_size * head_dim
-                + rows * page_size + 3 * rows)
+    """Dynamic shared memory one block of the bf16/f32 kernel uses: its
+    warps' partials (m, l and the accumulator of each row, f32) and a
+    tiled query's rows; the page size adds nothing (no page is staged)."""
+    return decode_split_plan(rows, head_dim).smem_bytes
 
 
 def paged_attention_quant_smem_bytes(rows: int, head_dim: int,
@@ -184,16 +252,43 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
         return out
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} exceeds {MAX_HEAD_DIM}")
-    smem = paged_attention_smem_bytes(rw, d, ps)
-    if smem > MAX_SMEM_BYTES:
+    plan = decode_split_plan(
+        rw, d, q.element_size(), pairs=S * hkv, n_max=n_max,
+        sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if plan.smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"rows {rw} x head dim {d} x page size {ps} need "
-                         f"{smem} B of shared memory (> {MAX_SMEM_BYTES})")
+                         f"{plan.smem_bytes} B of shared memory "
+                         f"(> {MAX_SMEM_BYTES})")
+    part = counters = None
+    if plan.splits > 1:
+        # the blocks' partials, and their done-counters (zeros the kernel
+        # leaves zero, kept for the stream)
+        part = torch.empty(S * hkv * plan.splits * rw * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, S * hkv)
     PAGED_ATTENTION.launch(
         q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw,
+        part.data_ptr() if part is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw, plan.splits,
         1.0 / math.sqrt(d), stream)
     return out
+
+
+#: (device, stream) -> the split decode's int32 done-counters: zero, and
+#: zero again after every launch (its last block of each pair resets its
+#: own), so one buffer serves every launch on that stream
+_COUNTERS = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 def paged_attention_plain(q, k_pool, v_pool, table, lengths, *,

@@ -87,9 +87,9 @@ REMEASURED = ("train_bottleneck", "train_stem")
 #: the port's revisions of a domain beyond the JAX package's: one for the
 #: remeasured fallback, two more for train_bottleneck, whose bf16
 #: backward kernels and then its bf16 forward kernels were rewritten for
-#: the tensor cores, and one more for train_stem, whose bf16 weight
-#: gradient was
-PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 2}
+#: the tensor cores, and two more for train_stem, whose bf16 weight
+#: gradient and then its bf16 input gradient were
+PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 3}
 
 
 def test_revisions_and_verdicts_are_the_jax_packages():

@@ -7,6 +7,14 @@ same plain version). Here the plain version is held against both JAX
 versions: the dense-gather reference ``paged_ref_attention`` and the
 Pallas kernel ``paged_attention`` in interpret mode. Tolerance: f32,
 atol = rtol = 1e-5 (XLA and torch sum in different orders).
+
+The CUDA kernel splits each row's live pages over the warps of its
+block and combines their partials in a fixed order; a torch mirror of
+that split (``decode_split_plan``'s cut, p rounded at each chunk's own
+running max) is held against the JAX kernel in interpret mode within
+the card's TOLERANCE, with a 0-length row, a warp's share wholly masked
+for some verify rows, and a bad page; the plan covers every live page
+once.
 """
 
 import jax.numpy as jnp
@@ -17,8 +25,8 @@ import torch
 from deeplearning4j_tpu.serving.paged_kernel import (
     paged_attention as jax_paged_attention, paged_ref_attention)
 from deeplearning4j_tpu_torch.serving.paged_kernel import (
-    PAGED_ATTENTION, paged_attention, paged_attention_plain,
-    paged_attention_smem_bytes)
+    NEG_INF, PAGED_ATTENTION, decode_split_plan, paged_attention,
+    paged_attention_plain, paged_attention_smem_bytes)
 
 PS, D, HKV, NB = 4, 8, 2, 5
 
@@ -133,7 +141,199 @@ def test_wrapper_rejects_bad_shapes_and_devices():
 
 
 def test_smem_bytes_of_the_engine_shape():
-    # rows 1, head dim 64, page 16: q + acc (2*64) + K/V pages (2*16*64)
-    # + scores (16) + three row scalars, all f32
-    assert paged_attention_smem_bytes(1, 64, 16) == \
-        4 * (2 * 64 + 2 * 16 * 64 + 16 + 3)
+    # rows 1, head dim 64: the 16 warps' partials, each m, l and the
+    # row's accumulator (64), all f32; the page size stages nothing
+    assert paged_attention_smem_bytes(1, 64, 16) == 4 * 16 * (64 + 2)
+    # the verify shape (20 rows, 5 tiles of 4): 3 warps a tile, and the
+    # query's 20 rows
+    assert paged_attention_smem_bytes(20, 64, 16) == \
+        4 * (3 * 20 * (64 + 2) + 20 * 64)
+
+
+# ---------------------------------------------------------------------
+# the split decode: a mirror of the CUDA kernel's page split and its
+# fixed-order combine against the JAX kernel
+# ---------------------------------------------------------------------
+#: the card's limits (chip_smoke.py's TOLERANCE): max |error| against the
+#: reference, bf16 and f32 outputs
+TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _combine(parts):
+    """Partials (m, l, acc) combined in order, each weighed by exp(m -
+    max m), one that saw no key (l = 0) by exactly 0."""
+    mx = max(m for m, _, _ in parts)
+    a = torch.zeros_like(parts[0][2])
+    lsum = torch.tensor(0.0)
+    for m, l, acc in parts:
+        wt = torch.exp(m - mx) if float(l) > 0 else 0.0
+        a, lsum = a + acc * wt, lsum + l * wt
+    return mx, lsum, a
+
+
+def _split_mirror(q, kp, vp, table, lengths, qw, vec=True, sms=1):
+    """``csrc/paged_attention.cu``'s split decode in torch on the CPU, as
+    ``decode_split_plan`` cuts it on a card of ``sms`` SMs: for each
+    (slot, head) and each of its blocks, each warp walks its share of a
+    row tile's live pages chunk by chunk (scores in f32, masked at the
+    finite -1e30 and zeroed, p rounded to the value dtype at each
+    chunk's running max, l summing the unrounded p); each block combines
+    its warps' partials in order, then the blocks' in order; a page id
+    outside the pool poisons the (slot, head). Returns (the output, the
+    number of partials that walked pages but saw no key of their
+    row)."""
+    S, hkv, rw, d = q.shape
+    P, ps, nb = kp.shape[0], kp.shape[2], table.shape[1]
+    plan = decode_split_plan(rw, d, q.element_size(), vec, pairs=S * hkv,
+                             sms=sms, n_max=nb)
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=f32)
+    out = torch.empty(q.shape, dtype=f32)
+    masked = 0
+    for s in range(S):
+        length = int(lengths[s])
+        n_live = min(-(-length // ps) if length > 0 else 0, nb)
+        for h in range(hkv):
+            parts, bad = {}, False
+            for split, w in np.ndindex(plan.splits, plan.warps):
+                share = w % plan.warps_per_tile
+                for tile, pages in plan.warp_pages(w, n_live, split):
+                    lo = tile * plan.rows_per_tile
+                    for r in range(lo, min(rw, lo + plan.rows_per_tile)):
+                        m = torch.tensor(NEG_INF, dtype=f32)
+                        l = torch.tensor(0.0, dtype=f32)
+                        acc = torch.zeros(d, dtype=f32)
+                        last = length - qw + r % qw
+                        for b in pages:
+                            page = int(table[s, b])
+                            if not 0 <= page < P:
+                                bad = True
+                                continue
+                            for k0 in range(0, ps, plan.chunk_keys):
+                                js = torch.arange(
+                                    k0, min(k0 + plan.chunk_keys, ps))
+                                valid = b * ps + js <= last
+                                sc = kp[page, h, js].float() @ \
+                                    q[s, h, r].float() * scale
+                                sc = torch.where(valid, sc, NEG_INF)
+                                m_new = torch.maximum(m, sc.max())
+                                corr = torch.exp(m - m_new)
+                                p = torch.where(valid, torch.exp(sc - m_new),
+                                                0.0)
+                                l = l * corr + p.sum()
+                                acc = acc * corr + p.to(vp.dtype).float() \
+                                    @ vp[page, h, js].float()
+                                m = m_new
+                        masked += bool(pages) and float(l) == 0.0
+                        parts[split, share, r] = (m, l, acc)
+            for r in range(rw):
+                blocks = [_combine([parts[b, w, r] for w in
+                                    range(plan.warps_per_tile)])
+                          for b in range(plan.splits)]
+                _, lsum, a = _combine(blocks)
+                out[s, h, r] = float("nan") if bad else \
+                    a / torch.clamp_min(lsum, 1e-30)
+    return out.to(q.dtype), masked
+
+
+def _jax_kernel(q, kp, vp, table, lengths, qw):
+    as_j = [jnp.asarray(t.float().numpy(),
+                        jnp.bfloat16 if t.dtype == torch.bfloat16 else None)
+            for t in (q, kp, vp)]
+    return np.asarray(jax_paged_attention(
+        *as_j, jnp.asarray(table.numpy()), jnp.asarray(lengths.numpy()),
+        query_width=qw, interpret=True).astype(jnp.float32))
+
+
+def _verify_case(dtype, seed):
+    """A verify shape (reps 2, W 3: 6 rows, two tiles of 4, 8 warps a
+    tile, so every live page its own warp's share): a 0-length row; a
+    row of 9 = 2 pages + 1 key, whose third page holds position 8 alone,
+    so the warp that owns it saw no key of the rows at positions 6 and 7
+    (a group wholly masked for them); the rest ragged."""
+    q, kp, vp, table, lengths = _case(2, 3, seed=seed)
+    lengths[2] = 2 * PS + 1
+    table[2] = 0
+    table[2, :3] = np.arange(1, 4) + 20
+    t = _torch(q, kp, vp, table, lengths)
+    t[:3] = [x.to(dtype) for x in t[:3]]
+    return t
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_mirror_matches_the_jax_kernel_with_a_masked_group(dtype,
+                                                                 sms):
+    """One block a (slot, head), and as many as a 132-SM card gives these
+    10 pairs (two blocks of 8 warps a tile: each page its own warp)."""
+    q, kp, vp, table, lengths = _verify_case(dtype, seed=5)
+    got, masked = _split_mirror(q, kp, vp, table, lengths, 3, sms=sms)
+    assert masked > 0
+    want = _jax_kernel(q, kp, vp, table, lengths, 3)
+    assert np.abs(got.float().numpy() - want).max() <= TOLERANCE[dtype]
+    assert torch.all(got[0] == 0)    # the 0-length row: exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_mirror_matches_the_jax_kernel_at_the_engine_cut(dtype):
+    """One query row, D = 64, pages of 16 (the engine's decode, cut to 5
+    slots, 2 heads and 4 pages a row): 16 warps, each a page; bf16 one
+    chunk a page (p rounded at the page's max, as the JAX kernel), f32
+    four chunks of 4 keys a page (p exact in f32)."""
+    rng = np.random.default_rng(11)
+    S, hkv, d, ps, nb = 5, 2, 64, 16, 4
+    P = S * nb + 1
+    q = rng.normal(size=(S, hkv, 1, d)).astype(np.float32)
+    kp = rng.normal(size=(P, hkv, ps, d)).astype(np.float32)
+    vp = rng.normal(size=(P, hkv, ps, d)).astype(np.float32)
+    lengths = np.array([0, 1, 17, nb * ps, 40], np.int32)
+    table = np.zeros((S, nb), np.int32)
+    pages = rng.permutation(np.arange(1, P))
+    for s, ln in enumerate(lengths):
+        live = -(-int(ln) // ps)
+        table[s, :live] = pages[s * nb:s * nb + live]
+    t = _torch(q, kp, vp, table, lengths)
+    t[:3] = [x.to(dtype) for x in t[:3]]
+    plan = decode_split_plan(1, d, t[0].element_size())
+    assert plan.chunk_keys == (16 if dtype == torch.bfloat16 else 4)
+    got, _ = _split_mirror(*t, 1)
+    want = _jax_kernel(*t, 1)
+    assert np.abs(got.float().numpy() - want).max() <= TOLERANCE[dtype]
+    assert torch.all(got[0] == 0)
+
+
+def test_split_mirror_poisons_a_bad_page_and_nothing_else():
+    """A page id outside the pool in one row's share poisons every head
+    of that slot with NaN; the other slots keep the JAX kernel's
+    output."""
+    q, kp, vp, table, lengths = _verify_case(torch.float32, seed=6)
+    want = _jax_kernel(q, kp, vp, table, lengths, 3)
+    bad = table.clone()
+    bad[2, 2] = kp.shape[0]
+    got, _ = _split_mirror(q, kp, vp, bad, lengths, 3, sms=132)
+    assert torch.isnan(got[2]).all()
+    keep = [s for s in range(q.shape[0]) if s != 2]
+    assert np.abs(got[keep].numpy() - want[keep]).max() <= \
+        TOLERANCE[torch.float32]
+
+
+@pytest.mark.parametrize("pairs", [64, 16, 1000])
+@pytest.mark.parametrize("rows", [1, 5, 20, 64])
+@pytest.mark.parametrize("n_live", [0, 1, 17, 27, 64])
+def test_the_split_plan_covers_every_live_page_once(rows, n_live, pairs):
+    """Each row tile's live pages, over the blocks and warps that hold
+    it, once each; every row in exactly one tile. On a 132-SM card the
+    engine's 64 pairs take one block each (one query row); the verify
+    shape's 16 pairs take 8 (20 rows), a thousand pairs one; never more
+    than give each warp of a tile one of the 64 pages."""
+    plan = decode_split_plan(rows, 64, pairs=pairs, sms=132, n_max=64)
+    assert plan.splits == (1 if rows == 1 or pairs > 132 else min(
+        8, 132 // pairs, -(-64 // plan.warps_per_tile)))
+    seen = np.zeros((plan.tiles, n_live), np.int64)
+    for split, w in np.ndindex(plan.splits, plan.warps):
+        for tile, pages in plan.warp_pages(w, n_live, split):
+            seen[tile, pages] += 1
+    assert (seen == 1).all()
+    assert plan.tiles * plan.rows_per_tile >= rows > \
+        (plan.tiles - 1) * plan.rows_per_tile
+    assert plan.warps_per_tile * plan.groups <= plan.warps

@@ -22,6 +22,10 @@ package's, on the CPU.
   differ but round to one bf16 value) sends the window's gradient to
   both, as the JAX kernel does; the maxima compared in f32 send it to
   one.
+- The ragged cases of the card's tensor-core checks (9x13 and 15x17,
+  C=4, K=36, B=3) for dW and dx; the weight and input gradients' routes
+  by dtype, C and K; their grid plans cover every output (dW) and every
+  s2d pixel (dx) once, dx's in the fewest rounds.
 - The CPU wrappers launch nothing; the backward runs bwd_dx only when x
   needs its gradient.
 Inputs come from a numpy seed; bf16 inputs are bf16 values handed to both
@@ -172,8 +176,27 @@ def test_plain_bwd_dw_matches_the_jax_kernel_ragged(dtype):
                                  F32_REL * mag + 1e-30)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("h,w", [(9, 13), (15, 17)])
+def test_plain_bwd_dx_matches_the_jax_kernel_ragged(h, w, dtype):
+    """The ragged cases of the tensor-core route's checks on the card:
+    odd images, C = 4 (RGBA, a tap's 16 outputs all real), K = 36 (no
+    multiple of 8: the halo copied element by element), B = 3."""
+    n, c, k = 3, 4, 36
+    rng = np.random.default_rng(h * w)
+    g = ts.stem_geometry(h, w)
+    dy = _both(rng.standard_normal((n, g["ho"], g["wo"], k)), dtype)
+    w7 = rng.standard_normal((k, c, 7, 7)) * 0.2
+    ws = _both(_np(ts.stem_weight_s2d(torch.from_numpy(w7))), dtype)
+    dx = ts.stem_bwd_dx(dy[0], ws[0], (n, h, w, c))
+    jdx = js._bwd_dx(dy[1], ws[1], (n, h, w, c), g, True)
+    assert tuple(dx.shape) == jdx.shape == (n, h, w, c)
+    _check(dx, jdx, dtype)
+
+
 # ---------------------------------------------------------------------
-# the tensor-core weight gradient's route and plan (host side)
+# the tensor-core weight and input gradients' routes and plans (host
+# side)
 # ---------------------------------------------------------------------
 @pytest.mark.parametrize("c", [1, 3, 4, 5, 8])
 def test_the_dw_route_takes_the_tensor_cores_for_bf16_up_to_rgba(c):
@@ -215,6 +238,60 @@ def test_the_dw_plan_takes_every_output_pixel_once(n, h, w, k):
         r, c = divmod(rem, across)
         seen[img, th * r:th * (r + 1), tw * c:tw * (c + 1)] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("k", [1, 36, 64, 65, 128])
+def test_the_dx_route_takes_the_tensor_cores_for_bf16_up_to_rgba_and_k64(
+        c, k):
+    want = ts.TENSOR_CORES if c <= 4 and k <= 64 else ts.CUDA_CORES
+    assert ts.stem_dx_route(torch.bfloat16, c, k) == want
+    assert ts.stem_dx_route(torch.float32, c, k) == ts.CUDA_CORES
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ts.stem_dx_route(torch.float16, c, k)
+
+
+#: (n, h, w): the training shape at B = 128, the card's ragged cases at
+#: B = 3, the calibration's B, one image on a 132-SM card, a batch whose
+#: patches are not a whole number of rounds
+STEM_DX_PLANS = [(128, 224, 224), (3, 9, 13), (3, 15, 17), (16, 224, 224),
+                 (1, 32, 32), (7, 100, 60)]
+
+
+@pytest.mark.parametrize("n, h, w", STEM_DX_PLANS)
+def test_the_dx_plan_stores_every_s2d_pixel_once_in_the_fewest_rounds(
+        n, h, w):
+    """The blocks walk the patches q, q + blocks, ...: every patch once,
+    so every s2d pixel that touches the image once (and with it every dx
+    pixel: the un-shuffle is one to one); no block takes more patches
+    than the fewest rounds a 132-SM card allows, and one block fewer
+    would need another round."""
+    sms = 132
+    plan = ts._stem_dx_plan(n, h, w, sms)
+    (th, tw), (down, across) = ts._TC_DX_PATCH, plan.grid
+    us, vs = (h + 2) // 2, (w + 2) // 2
+    assert plan.patches == n * down * across
+    assert plan.rounds == -(-plan.patches // sms)
+    assert 1 <= plan.tiles <= sms
+    assert -(-plan.patches // plan.tiles) == plan.rounds
+    assert -(-plan.patches // (plan.tiles - 1 or 1)) > plan.rounds or \
+        plan.tiles == 1
+    walked = np.zeros(plan.patches, np.int64)
+    for q in range(plan.tiles):
+        walked[q::plan.tiles] += 1
+    assert (walked == 1).all()
+    seen = np.zeros((n, us + 1, vs + 1), np.int64)
+    for p in range(plan.patches):
+        img, rem = divmod(p, down * across)
+        r, c = divmod(rem, across)
+        seen[img, 1 + th * r:1 + th * (r + 1),
+             1 + tw * c:1 + tw * (c + 1)] += 1
+    assert (seen[:, 1:, 1:] == 1).all()
+    # the un-shuffle: s2d pixel (u, v), phase (a, b) is dx pixel (2u - 3
+    # + a, 2v - 3 + b), so the pixels 1..us x 1..vs cover the image
+    rows = {2 * u - 3 + a for u in range(1, us + 1) for a in (0, 1)}
+    cols = {2 * v - 3 + b for v in range(1, vs + 1) for b in (0, 1)}
+    assert set(range(h)) <= rows and set(range(w)) <= cols
 
 
 # ---------------------------------------------------------------------
