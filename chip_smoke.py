@@ -672,13 +672,13 @@ def sdpa_inputs(q, kp, vp, table, lengths, W):
     return kd, vd, mask
 
 
-def paged_plan(q, table):
+def paged_plan(q, table, elem_bytes=None):
     """The split decode's plan for these inputs on this card, as the
-    wrapper makes it."""
+    wrapper makes it (``elem_bytes``: the pool's, by default q's)."""
     from deeplearning4j_tpu_torch.serving import paged_kernel as pk
     S, hkv, rw, D = q.shape
     return pk.decode_split_plan(
-        rw, D, q.element_size(), pairs=S * hkv,
+        rw, D, elem_bytes or q.element_size(), pairs=S * hkv,
         sms=torch.cuda.get_device_properties(q.device).multi_processor_count,
         n_max=table.shape[1])
 
@@ -708,36 +708,90 @@ def paged_no_rescale(q, kp, vp, table, lengths, W):
     return (acc / lsum.clamp_min(1e-30)).to(q.dtype)
 
 
-def parent_paged_kernel(parent):
-    """The bf16/f32 paged kernel of another checkout (``--parent``: the
-    parent commit's tree, whose entry points take no scratch and no
-    splits), built from its own source beside this one's, for timing in
-    turns on the same inputs; None without one."""
+#: the parent commit's paged-decode library, built once for both phases
+_PARENT_PAGED = {}
+
+
+def parent_paged_kernel(parent, quant=False):
+    """The paged kernel of another checkout (``--parent``: the parent
+    commit's tree), built from its own source beside this one's, for
+    timing in turns on the same inputs; None without one. Its bf16/f32
+    entry points take this tree's arguments (the split decode: scratch,
+    counters and splits); its int8 ones the first design's (no scratch,
+    no splits)."""
     if not parent:
         return None
-    import ctypes
-    from pathlib import Path
+    if not _PARENT_PAGED:
+        import ctypes
+        from pathlib import Path
 
-    from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
-    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
-    src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / \
-        "serving" / "csrc" / "paged_attention.cu"
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib = CudaLibrary("paged_attention_parent", [str(src)],
-                      {sym: [p] * 6 + [i] * 8 + [ctypes.c_float, p]
-                       for sym in pk._SYMBOL.values()})
-    return CudaKernel(lib, "paged_attention_parent", pk._SYMBOL)
+        from deeplearning4j_tpu_torch.cuda_library import (
+            CudaKernel, CudaLibrary)
+        from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+        src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / \
+            "serving" / "csrc" / "paged_attention.cu"
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib = CudaLibrary(
+            "paged_attention_parent", [str(src)],
+            {**{sym: pk._ARGTYPES for sym in pk._SYMBOL.values()},
+             **{sym: [p] * 8 + [i] * 8 + [ctypes.c_float, p]
+                for sym in pk._QUANT_SYMBOL.values()}})
+        _PARENT_PAGED[False] = CudaKernel(lib, "paged_attention_parent",
+                                          pk._SYMBOL)
+        _PARENT_PAGED[True] = CudaKernel(lib, "paged_attention_quant_parent",
+                                         pk._QUANT_SYMBOL)
+    return _PARENT_PAGED[quant]
 
 
 def paged_launch(kernel, args, W, out):
     """One launch of the parent checkout's paged decode (``kernel``) on
-    the wrapper's arguments, into ``out``."""
-    q, kp, vp, table, lengths = args
+    the wrapper's arguments, into ``out``: the bf16/f32 split decode
+    with this tree's plan and scratch, or (seven arguments: the int8
+    pools and their scales) the first int8 design."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    q, kp, vp, table, lengths = args[:5]
     S, hkv, rw, D = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (S, hkv, rw, D, kp.shape[2], table.shape[1], kp.shape[0], W)
+    if len(args) == 7:
+        ks, vs = args[5:]
+        kernel.launch(q.dtype, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                      ks.data_ptr(), vs.data_ptr(), table.data_ptr(),
+                      lengths.data_ptr(), out.data_ptr(), *tail,
+                      1.0 / D ** 0.5, stream)
+        return
+    plan = paged_plan(q, table)
+    part = counters = None
+    if plan.splits > 1:
+        part = torch.empty(S * hkv * plan.splits * rw * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = pk._counters(q.device, stream, S * hkv)
     kernel.launch(q.dtype, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                  table.data_ptr(), lengths.data_ptr(), out.data_ptr(), S,
-                  hkv, rw, D, kp.shape[2], table.shape[1], kp.shape[0], W,
-                  1.0 / D ** 0.5, torch.cuda.current_stream().cuda_stream)
+                  table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  part.data_ptr() if part is not None else None,
+                  counters.data_ptr() if counters is not None else None,
+                  *tail, plan.splits, 1.0 / D ** 0.5, stream)
+
+
+def parent_turns(old, args, W, out, kern, ref, device):
+    """The parent checkout's kernel (``old``) and this one's (``kern``)
+    timed in turns on the same inputs (parent, kernel, kernel, parent):
+    ({parent_ms, kernel_ms_turns, parent_max_abs_err}, this kernel's
+    median ms); without a parent, ({}, this kernel's ms)."""
+    if old is None:
+        return {}, median_ms(kern, device)
+    prev = torch.empty_like(out)
+    paged_launch(old, args, W, prev)
+    torch.cuda.synchronize()
+    err = float((prev.float() - ref.float()).abs().max())
+
+    def parent_call():
+        paged_launch(old, args, W, prev)
+
+    turns = [median_ms(parent_call, device), median_ms(kern, device),
+             median_ms(kern, device), median_ms(parent_call, device)]
+    return ({"parent_ms": [turns[0], turns[3]], "kernel_ms_turns": turns[1:3],
+             "parent_max_abs_err": err}, float(np.median(turns[1:3])))
 
 
 def check_paged_kernel(device, rng, parent=None):
@@ -785,22 +839,7 @@ def check_paged_kernel(device, rng, parent=None):
             def kern():
                 return pk.paged_attention(*args, query_width=W)
 
-            if old is not None:
-                prev = torch.empty_like(out)
-                paged_launch(old, args, W, prev)
-                torch.cuda.synchronize()
-                parent_err = float((prev.float() - ref.float()).abs().max())
-
-                def parent_call():
-                    paged_launch(old, args, W, prev)
-
-                turns = [median_ms(parent_call, device), median_ms(kern, device),
-                         median_ms(kern, device),
-                         median_ms(parent_call, device)]
-                ms = float(np.median(turns[1:3]))
-            else:
-                turns = None
-                ms = median_ms(kern, device)
+            turns, ms = parent_turns(old, args, W, out, kern, ref, device)
             plain_ms = median_ms(
                 lambda: pk.paged_attention_plain(*args, query_width=W),
                 device)
@@ -820,11 +859,7 @@ def check_paged_kernel(device, rng, parent=None):
                     "chunk_keys": plan.chunk_keys, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "library_max_abs_err": lib_err,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
-            if turns is not None:
-                case.update(parent_ms=[turns[0], turns[3]],
-                            kernel_ms_turns=turns[1:3],
-                            parent_max_abs_err=parent_err)
+                    "bound_ms": bound_ms, "bound_by": bound_by, **turns}
             log("paged_attention", json.dumps(case))
             if not finite or err > TOLERANCE[dtype] or \
                     not case["bitwise_repeat"] or \
@@ -915,15 +950,35 @@ def quant_plain_fault(fault):
     return faulty
 
 
-def check_paged_quant_kernel(device, rng):
-    """The int8 kernel against its plain version at the engine shape and
-    the GQA/verify shape, bf16 and f32 queries, with the kernel's, the
-    plain version's and SDPA's times (SDPA on the dequantized dense view,
-    its gather outside the time, as row 15's) beside the bound; the
-    limits shown to fail two faults planted in the plain version."""
+def quant_sass():
+    """The int8 split decode's functions (``paged_decode_quant_kernel``,
+    one per query dtype, route and row tile) with their registers and
+    spills as ptxas reported them."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    pk._LIBRARY.load()
+    rec = ptxas_usage(pk._LIBRARY, "paged_decode_quant_kernel")
+    log("paged_attention_quant sass:", json.dumps(rec))
+    if not rec:
+        raise AssertionError("no paged_decode_quant_kernel function in the "
+                             "paged library's ptxas log")
+    return rec
+
+
+def check_paged_quant_kernel(device, rng, parent=None):
+    """The int8 kernel (row 15's split over int8 pools) against its
+    plain version at the engine shape and the GQA/verify shape, bf16 and
+    f32 queries: within QUANT_TOLERANCE, two launches bitwise equal, the
+    limits shown to fail two faults planted in the plain version and the
+    split's partials combined without their rescale; the kernel's, the
+    plain version's and SDPA's times (SDPA on the dequantized dense
+    view, its gather outside the time, as row 15's) beside the bound,
+    and with ``parent`` the parent checkout's int8 kernel in turns with
+    this one's. Then the edge rows, repeated, and a bad page."""
     from deeplearning4j_tpu_torch.serving import paged_kernel as pk
     from deeplearning4j_tpu_torch.serving.quant import dequantize
     F = torch.nn.functional
+    old = parent_paged_kernel(parent, quant=True)
+    sass = quant_sass()
     shapes = [("engine", dict(S=SLOTS, hkv=HEADS, reps=1, W=1)),
               ("gqa_verify", dict(S=SLOTS, hkv=2, reps=4, W=5))]
     cases = []
@@ -938,6 +993,7 @@ def check_paged_quant_kernel(device, rng):
             W = shp["W"]
             kw = dict(query_width=W, k_scales=ks, v_scales=vs)
             out = pk.paged_attention(q, kq, vq, table, lens, **kw)
+            again = pk.paged_attention(q, kq, vq, table, lens, **kw)
             torch.cuda.synchronize()
             ref = pk.paged_attention_quant_plain(q, kq, vq, table, lens,
                                                  **kw)
@@ -949,13 +1005,23 @@ def check_paged_quant_kernel(device, rng):
                 bad = quant_plain_fault(fault)(q, kq, vq, table, lens, **kw)
                 planted[fault] = float((bad.float() - ref.float()).abs()
                                        .max())
+            kd32 = dequantize(kq, ks[:, :, None, None])
+            vd32 = dequantize(vq, vs[:, :, None, None])
+            planted["combine_without_rescale"] = float(
+                (paged_no_rescale(q, kd32, vd32, table, lens, W).float()
+                 - ref.float()).abs().max())
+            del kd32, vd32
             kd = dequantize(kq, ks[:, :, None, None], dtype)
             vd = dequantize(vq, vs[:, :, None, None], dtype)
             dk, dv, mask = sdpa_inputs(q, kd, vd, table, lens, W=W)
             lib = F.scaled_dot_product_attention(q, dk, dv, attn_mask=mask)
             lib_err = float((lib.float() - ref.float()).abs().max())
-            ms = median_ms(lambda: pk.paged_attention(q, kq, vq, table,
-                                                      lens, **kw), device)
+            plan = paged_plan(q, table, elem_bytes=1)
+
+            def kern():
+                return pk.paged_attention(q, kq, vq, table, lens, **kw)
+
+            turns, ms = parent_turns(old, args, W, out, kern, ref, device)
             plain_ms = median_ms(lambda: pk.paged_attention_quant_plain(
                 q, kq, vq, table, lens, **kw), device)
             lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
@@ -965,24 +1031,33 @@ def check_paged_quant_kernel(device, rng):
                     "q": list(q.shape), "pool": list(kq.shape),
                     "lengths": [int(x) for x in lengths],
                     "max_abs_err": err, "tolerance": QUANT_TOLERANCE[dtype],
-                    "planted": planted, "finite": finite, "ms": ms,
+                    "planted": planted, "finite": finite,
+                    "bitwise_repeat": bool(torch.equal(out, again)),
+                    "splits": plan.splits,
+                    "warps_per_tile": plan.warps_per_tile,
+                    "chunk_keys": plan.chunk_keys,
+                    "smem_bytes": plan.smem_bytes, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
+                    "bound_by": bound_by, **turns}
             log("paged_attention_quant", json.dumps(case))
-            if not finite or err > QUANT_TOLERANCE[dtype]:
+            if not finite or err > QUANT_TOLERANCE[dtype] or \
+                    not case["bitwise_repeat"]:
                 raise AssertionError(f"int8 paged kernel disagrees with its "
-                                     f"plain version: {case}")
-            # the V scale dropped fails every case; p in bf16 the f32 ones
-            # (with bf16 queries the output's own rounding hides it)
-            caught = ["no_v_scale"] + (["p_bf16"] if dtype == torch.float32
-                                       else [])
+                                     f"plain version or is not bitwise "
+                                     f"repeatable: {case}")
+            # the V scale dropped and the combine without its rescale fail
+            # every case; p in bf16 the f32 ones (with bf16 queries the
+            # output's own rounding hides it)
+            caught = ["no_v_scale", "combine_without_rescale"] + (
+                ["p_bf16"] if dtype == torch.float32 else [])
             if any(planted[f] <= QUANT_TOLERANCE[dtype] for f in caught):
                 raise AssertionError(f"a planted fault passes the int8 "
                                      f"limit: {case}")
             cases.append(case)
-    # edge rows: a 0-length row, a 1-token row, a row filling its table;
-    # and a page id outside the pool turns its (slot, head) to NaN
+    # edge rows: a 0-length row, a 1-token row, a row past one page, a
+    # row filling its table, each repeated; and a page id outside the
+    # pool turns its (slot, head) to NaN and nothing else
     for dtype in (torch.bfloat16, torch.float32):
         lengths = [0, 1, 17, MAX_LEN]
         q, kq, vq, table, lens, ks, vs = quant_case(
@@ -991,20 +1066,24 @@ def check_paged_quant_kernel(device, rng):
             device=device, seed=98)
         kw = dict(query_width=1, k_scales=ks, v_scales=vs)
         out = pk.paged_attention(q, kq, vq, table, lens, **kw)
+        again = pk.paged_attention(q, kq, vq, table, lens, **kw)
         ref = pk.paged_attention_quant_plain(q, kq, vq, table, lens, **kw)
         bad_table = table.clone()
         bad_table[2, 0] = kq.shape[0]
         poisoned = pk.paged_attention(q, kq, vq, bad_table, lens, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        same = bool(torch.equal(out, again))
         log(f"paged_attention_quant edge rows {lengths} {dtype}: "
-            f"max_abs_err {err}")
+            f"max_abs_err {err}, bitwise repeat {same}")
+        keep = [0, 1, 3]
         if not bool(torch.isfinite(out).all()) or bool(out[0].any()) or \
-                err > QUANT_TOLERANCE[dtype] or \
+                err > QUANT_TOLERANCE[dtype] or not same or \
                 not bool(torch.isnan(poisoned[2]).all()) or \
-                not torch.equal(poisoned[3], out[3]):
-            raise AssertionError(f"int8 paged kernel edge rows: err {err}")
-    return cases
+                not torch.equal(poisoned[keep], out[keep]):
+            raise AssertionError(f"int8 paged kernel edge rows: err {err}, "
+                                 f"bitwise repeat {same}")
+    return {"cases": cases, "sass": sass}
 
 
 # ---------------------------------------------------------------------
@@ -1406,7 +1485,8 @@ def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
     torch's fused ops; then as shipped again. Then ``torch.profiler``
     over ``steps`` steps: the device's busy share (kernel time over wall
     time, one stream), CUDA kernel launches per step and the kernels
-    with the most device time. ``kv_dtype`` is the pool's ("int8" in the
+    with the most device time, and the share of it in the paged kernels
+    (the int8 one's apart). ``kv_dtype`` is the pool's ("int8" in the
     serve int8 phase)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1478,6 +1558,11 @@ def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
             "paged_kernel_share_of_device_time": (
                 sum(t for k, t in dev_us.items()
                     if "paged_decode" in k) / busy_us
+                if busy_us else None),
+            # the int8 kernel's alone (the int8 pool's decode)
+            "paged_quant_kernel_share_of_device_time": (
+                sum(t for k, t in dev_us.items()
+                    if "paged_decode_quant" in k) / busy_us
                 if busy_us else None),
             "top_kernels_us_per_step": [[k[:80], t / steps] for k, t in top]}
 
@@ -3699,8 +3784,8 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
     """One stem backward kernel against its plain version on the same
     inputs: each output by rows and 64-row tiles (dz0, dy, dx as stored
     in the compute dtype, dW in f32 by its rows), the sums within
-    BWD_SUMS of each channel's sum of |terms|; bf16 dy and dW launched
-    twice, bitwise equal; dy's largest difference from the plain
+    BWD_SUMS of each channel's sum of |terms|; every bf16 kernel
+    launched twice, bitwise equal (dz0 and its sums, dy and dW, dx); dy's largest difference from the plain
     version's (the same ops: 0 expected). At the training shape (no
     ``label``) in bf16 each planted fault fails the limits, and the
     kernel's, plain version's and library call's times stand beside the
@@ -3708,8 +3793,7 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
     from deeplearning4j_tpu_torch.nn.layers import stem
     kern, plain, library, faults = stem_bwd_fns(kernel, a)
     got, ref = kern(), plain()
-    again = kern() if dtype == torch.bfloat16 and kernel != "stem_bwd_pool" \
-        else None
+    again = kern() if dtype == torch.bfloat16 else None
     torch.cuda.synchronize()
     geo = a["geo"]
     case = {"case": label or kernel, "kernel": kernel,
@@ -3720,8 +3804,8 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
         case["route"] = stem.stem_dx_route(dtype, geo["c"], geo["k"])
     failures = []
     if again is not None:
-        pairs = zip(got, again) if kernel == "stem_bwd_dw" \
-            else [(got, again)]
+        pairs = [(got, again)] if kernel == "stem_bwd_dx" \
+            else zip(got, again)
         case["bitwise_repeat"] = all(torch.equal(u, v) for u, v in pairs)
         if not case["bitwise_repeat"]:
             failures.append("two launches differ")
@@ -3831,9 +3915,15 @@ def stem_sass():
     holds STEM_DW_TC_HMMA HMMA.16816.F32.BF16 and the dx ones (one per
     C) STEM_DX_TC_HMMA, the CUDA-core dW GEMM and dx pass none; their
     registers and spills from ptxas -v (none may spill) and their
-    dynamic shared memory."""
+    dynamic shared memory. The pool backward's functions (by dtype and
+    route; the CUDA cores) with their registers, spills and dynamic
+    shared memory, recorded."""
+    import ctypes
+
     from deeplearning4j_tpu_torch.nn.layers import stem
     lib = stem._BWD_LIBRARY.load()
+    pool_smem = (ctypes.c_int * 2)()
+    lib.dl4j_stem_bwd_pool_smem(pool_smem)
     recs, bad = {}, []
     for grad, want, smem in (
             ("dw", lambda f: STEM_DW_TC_HMMA, lib.dl4j_stem_bwd_dw_tc_smem),
@@ -3847,9 +3937,14 @@ def stem_sass():
         bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
                 if any("spill" in x and " 0 bytes spill stores" not in x
                        for x in lines)]
+    recs["pool"] = {"ptxas": ptxas_usage(stem._BWD_LIBRARY,
+                                         "bwd_pool_kernel"),
+                    "smem_bytes": {"float32": pool_smem[0],
+                                   "bfloat16": pool_smem[1]}}
     log("stem sass:", json.dumps(recs))
     if bad:
-        counts = [r["hmma_16816_f32_bf16"] for r in recs.values()]
+        counts = [r["hmma_16816_f32_bf16"] for r in recs.values()
+                  if "hmma_16816_f32_bf16" in r]
         raise AssertionError(f"stem sass: HMMA.16816.F32.BF16 counts off "
                              f"or spills in {bad}: {counts}")
     return recs
@@ -5328,7 +5423,10 @@ def stem_bwd_entry(name, replaces, launches, path, cases):
     keys = ("case", "route", "max_abs_err", "sums_rel", "dz0", "dy", "dW",
             "dx", "planted", "bitwise_repeat", "x_unaligned_bitwise",
             "dy_unaligned_bitwise")
-    design = {"stem_bwd_dw": "redesigned for the tensor cores (bf16 at 4 C "
+    design = {"stem_bwd_pool": "redesigned: a tiled gather reading y once "
+                               "(8 x 8 pooled windows a block, zc and each "
+                               "window's maximum once in shared memory)",
+              "stem_bwd_dw": "redesigned for the tensor cores (bf16 at 4 C "
                              "<= 16: one pass, mma.sync over conv_mma.cuh; "
                              "f32: the CUDA cores)",
               "stem_bwd_dx": "redesigned for the tensor cores (bf16 at 4 C "
@@ -5339,8 +5437,8 @@ def stem_bwd_entry(name, replaces, launches, path, cases):
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/stem_bwd.cu",
             "replaces": replaces, "launches": launches,
             "launches_on": path,
-            **({"design": design[name],
-                "core_route": main["route"]} if "route" in main else {}),
+            "design": design[name],
+            **({"core_route": main["route"]} if "route" in main else {}),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -5445,8 +5543,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--parent", help="another checkout of the repo (the "
-                    "parent commit's tree): phase 3 builds its paged "
-                    "kernel and times it in turns with this one")
+                    "parent commit's tree): phases 3 and 3c build its "
+                    "paged kernels and time them in turns with this one's")
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
@@ -5491,9 +5589,10 @@ def main(argv=None) -> int:
         out["paged_cases"] = phase("paged", check_paged_kernel, device, rng,
                                    args.parent)
     if want("paged_quant"):
-        out["paged_quant_cases"] = phase("paged_quant",
-                                         check_paged_quant_kernel, device,
-                                         np.random.default_rng(3))
+        pq = phase("paged_quant", check_paged_quant_kernel, device,
+                   np.random.default_rng(3), args.parent)
+        out["paged_quant_cases"], out["paged_quant_sass"] = pq["cases"], \
+            pq["sass"]
     if want("flash"):
         out["flash_sass"] = phase("flash_sass", flash_sass)
         out["flash_cases"] = phase("flash", check_flash_kernels, device,
@@ -5666,6 +5765,10 @@ def kernels_line(out):
         "replaces": "deeplearning4j_tpu/serving/paged_kernel.py:122",
         "launches": out["serve_int8"]["launches"]["paged_attention_quant"],
         "launches_on": "the last int8 turn of the serve int8 phase",
+        "design": "redesigned: row 15's split decode over the int8 pools "
+                  "(16 warps a (slot, head), up to 8 blocks at the verify "
+                  "shape)",
+        "ptxas": out["paged_quant_sass"],
         **{k: quant_main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")},
         "library": "scaled_dot_product_attention on the dequantized view",

@@ -34,13 +34,23 @@
 // grid and carry dW and the sums along it; the pool backward scatters
 // each window's gradient into a padded accumulator with pads and
 // reshapes. Here:
-//   - bwd_pool is a gather: one thread per (pixel, channel), channels
-//     fastest so a warp reads contiguous channels; it finds the <= 4
-//     windows that cover its pixel (p with |r - 2p| <= 1), recomputes
-//     each window's maximum from y, and adds g where its own zc ties it.
-//     No scatter, no atomics. A block covers 256 pixels of 64 channels
-//     and writes its per-channel partial sums; conv_gemm.cuh's fixed-
-//     order f64 pass reduces them.
+//   - bwd_pool is a tiled gather that reads y once from device memory.
+//     A block owns 8 x 8 pooled windows of one image (pixel rows 2 p0 ..
+//     2 p0 + 15, columns likewise) and 64 channels. It stages the y rows
+//     under them with their halo (one pixel row and column before, two
+//     after: the next tile's first windows reach into the tile) and the
+//     9 x 9 windows' g rows in shared memory, 16-byte cp.async (8 bf16
+//     or 4 f32 channels a thread) where K is a whole number of vectors
+//     and the pointers are aligned, element by element otherwise (the
+//     halo's overlap with the neighbouring tiles comes from L2); converts
+//     the halo to zc once (-inf outside the image); writes each window's
+//     maximum once; then each thread takes 8 (or 4) channels of a pair of
+//     pixels of one row, reads each covering window's maximum and g once
+//     for the pair, adds g where a pixel's zc ties the maximum, in the
+//     TPU kernel's window order, masks by z0 > 0, and stores 16 bytes of
+//     dz0 a pixel. No scatter, no atomics. Each block sums its pixels'
+//     stored dz0 and dz0 yhat per channel in a fixed order into one
+//     partial; conv_gemm.cuh's fixed-order f64 pass reduces them.
 //   - bwd_dw in bf16 at 4 C <= 16 (RGB or RGBA input, the main path's C
 //     = 3) is one pass on the tensor cores (dw_tc below): the s2d view
 //     makes dW a 16-tap conv's weight gradient, dW[tap (i, j)] = sum over
@@ -97,10 +107,14 @@
 // of ldmatrix a pixel (10 ldmatrix for 24 products; 3.4 GB at B=128
 // with the patches' padding), ~0.10 ms at 128 bytes a clock an SM, and
 // each patch's copy, products and stores running one after another in
-// one 8-warp block an SM. bwd_pool runs on the f32 CUDA cores and
-// recomputes each pool window's maximum once per pixel that it covers
-// (2.25 windows of 9 loads per pixel, from the caches); its redesign is
-// later work (ROADMAP queue B).
+// one 8-warp block an SM. bwd_pool moves its bytes once (y's halo
+// rows, 1.4x the tile's, come from L2); what bounds it in practice is
+// its instructions, about 30 an element: the halo's conversion to zc
+// (1.4x the tile's pixels), the window reads and compares, and each
+// pixel's mask, rounding and two sums, in two blocks an SM (113 KB of
+// shared memory each in bf16) whose passes wait on each other at their
+// barriers. Its copies hide behind the other block's passes; smaller
+// tiles (more blocks an SM) cost more in halo than they gain.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -135,115 +149,323 @@ using dl4j_conv::to_f32;
 // bwd_pool
 // ---------------------------------------------------------------------
 constexpr int kPoolThreads = 256;
-constexpr int kPoolLanes = 64;                            // channels
-constexpr int kPoolPixLanes = kPoolThreads / kPoolLanes;  // 4
-constexpr int kPoolPix = 256;   // pixels per block: the partials' tile
+constexpr int kPoolC = 64;        // channels a block (a chunk of K)
+constexpr int kPoolWh = 8;        // pooled windows a tile: rows
+constexpr int kPoolWw = 8;        //   and columns
+// the halo tile of y (and zc): the tile's 2 kPoolWh pixel rows, one
+// before and two after (the next tile's first windows), likewise across
+constexpr int kPoolHh = 2 * kPoolWh + 3;
+constexpr int kPoolHw = 2 * kPoolWw + 3;
+// the windows whose maxima and g a tile reads: its own and the next
+// tile's first row and column
+constexpr int kPoolMh = kPoolWh + 1;
+constexpr int kPoolMw = kPoolWw + 1;
 
-// relu(y sc + bb) rounded to T, in f32 (two roundings, no fused
-// multiply-add, as the plain version's PyTorch ops).
 template <typename T>
-__device__ __forceinline__ float zc_of(T yv, float sc, float bb) {
-  return round_to<T>(fmaxf(__fadd_rn(__fmul_rn(to_f32(yv), sc), bb), 0.f));
+constexpr size_t pool_smem() {
+  return sizeof(T) * kPoolC *
+         (2 * kPoolHh * kPoolHw + 2 * kPoolMh * kPoolMw);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPoolThreads)
+// VEC channels of one pixel: one 16-byte access where VEC x sizeof(T) is
+// 16, one element where VEC is 1.
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+constexpr bool kBf16x8 = sizeof(T) == 2 && VEC == 8;
+
+// A pack's values in f32.
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const T* p, float (&f)[VEC]) {
+  const Pack<T, VEC> v = *reinterpret_cast<const Pack<T, VEC>*>(p);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) f[e] = to_f32(v.v[e]);
+}
+
+// f32 values rounded to T (round to nearest even) and stored as a pack
+// (bf16: two values a conversion).
+template <typename T, int VEC>
+__device__ __forceinline__ void pack_store(T* p, const float (&f)[VEC]) {
+  if constexpr (kBf16x8<T, VEC>) {
+    *reinterpret_cast<uint4*>(p) = dl4j_mma::pack8(f);
+  } else {
+    Pack<T, VEC> v;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v.v[e] = from_f32<T>(f[e]);
+    *reinterpret_cast<Pack<T, VEC>*>(p) = v;
+  }
+}
+
+__device__ __forceinline__ uint32_t hmax2_bits(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 m =
+      __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&m);
+}
+
+// One tile of pooled windows (blockIdx.x: image, tile row, tile column
+// of a (down, across) grid) and one chunk of kPoolC channels
+// (blockIdx.y); a thread holds the VEC channels cv .. cv + VEC of the
+// chunk (VEC = 16 / sizeof(T): the 16-byte route; 1: the element route)
+// and takes pixel slot, slot + kPix, ... of each pass.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kPoolThreads, 2)
     bwd_pool_kernel(const T* __restrict__ y, const T* __restrict__ g,
                     const float* __restrict__ aff, T* __restrict__ dz,
                     float* __restrict__ part1, float* __restrict__ part2,
-                    int n, int ho, int wo, int k, int po, int pw,
-                    int tiles) {
-  __shared__ float red[2][kPoolPixLanes][kPoolLanes];
-  const int lane = threadIdx.x % kPoolLanes;
-  const int plane = threadIdx.x / kPoolLanes;
-  const int ch = blockIdx.y * kPoolLanes + lane;
-  const int64_t hw = static_cast<int64_t>(ho) * wo;
-  const int64_t rows = n * hw;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kPoolPix;
-  float s1 = 0.f, s2 = 0.f;
-  if (ch < k) {
-    const float sc = aff[ch];
-    const float bb = aff[k + ch];
-    const float inv = aff[2 * k + ch];
-    const float mu = aff[3 * k + ch];
-    for (int j = plane; j < kPoolPix; j += kPoolPixLanes) {
-      const int64_t m = m0 + j;
-      if (m >= rows) break;
-      const int64_t img = m / hw;
-      const int rem = static_cast<int>(m - img * hw);
-      const int r = rem / wo;
-      const int c = rem - r * wo;
-      const T* yi = y + img * hw * k + ch;        // channel ch of image img
-      const T* gi = g + img * po * pw * k + ch;
-      const float yv = to_f32(yi[static_cast<int64_t>(rem) * k]);
-      const float z0 = __fadd_rn(__fmul_rn(yv, sc), bb);
-      const float zc = round_to<T>(fmaxf(z0, 0.f));
-      float acc = 0.f;
-      // the windows (p, q) with |r - 2p| <= 1 and |c - 2q| <= 1, in the
-      // TPU kernel's order: its window offset r - 2p + 1 ascending
-      for (int p = (r + 1) >> 1; p >= (r >> 1); --p) {
-        if (p >= po) continue;
-        for (int q = (c + 1) >> 1; q >= (c >> 1); --q) {
-          if (q >= pw) continue;
-          float mx = -INFINITY;
-          for (int a = 2 * p - 1; a <= 2 * p + 1; ++a) {
-            if (a < 0 || a >= ho) continue;
-            for (int b = 2 * q - 1; b <= 2 * q + 1; ++b) {
-              if (b < 0 || b >= wo) continue;
-              mx = fmaxf(mx, zc_of(yi[(static_cast<int64_t>(a) * wo + b) * k],
-                                   sc, bb));
-            }
-          }
-          if (zc == mx)
-            acc += to_f32(gi[(static_cast<int64_t>(p) * pw + q) * k]);
-        }
-      }
-      const T stored = from_f32<T>(z0 > 0.f ? acc : 0.f);
-      dz[m * k + ch] = stored;
-      const float v = to_f32(stored);
-      const float yhat = __fmul_rn(__fsub_rn(yv, mu), inv);
-      s1 += v;
-      s2 += v * yhat;
+                    int ho, int wo, int k, int po, int pw, int down,
+                    int across, int tiles) {
+  constexpr int kL = kPoolC / VEC;           // threads a pixel
+  constexpr int kPix = kPoolThreads / kL;    // pixels a pass
+  extern __shared__ __align__(16) unsigned char pool_raw[];
+  T* ys = reinterpret_cast<T*>(pool_raw);    // [kPoolHh][kPoolHw][kPoolC]
+  T* zs = ys + kPoolHh * kPoolHw * kPoolC;   // the same, zc
+  T* ms = zs + kPoolHh * kPoolHw * kPoolC;   // [kPoolMh][kPoolMw][kPoolC]
+  T* gs = ms + kPoolMh * kPoolMw * kPoolC;   // the same, g
+
+  const int img = blockIdx.x / (down * across);
+  const int rem = blockIdx.x - img * down * across;
+  const int tr = rem / across;
+  const int p0 = tr * kPoolWh;
+  const int q0 = (rem - tr * across) * kPoolWw;
+  const int r0 = 2 * p0 - 1, c0 = 2 * q0 - 1;   // the halo's first pixel
+  const int ch0 = blockIdx.y * kPoolC;
+  const int kc = min(kPoolC, k - ch0);
+  const int slot = threadIdx.x / kL;
+  const int cv = (threadIdx.x - slot * kL) * VEC;
+  // the thread's channels exist (the 16-byte route: K a whole number of
+  // vectors, so all VEC of them)
+  const bool on = cv < kc;
+  const T* yi = y + static_cast<int64_t>(img) * ho * wo * k + ch0 + cv;
+  const T* gi = g + static_cast<int64_t>(img) * po * pw * k + ch0 + cv;
+
+  // stage the halo's y and the windows' g
+  if (on) {
+    for (int px = slot; px < kPoolHh * kPoolHw; px += kPix) {
+      const int hr = px / kPoolHw;
+      const int r = r0 + hr, c = c0 + px - hr * kPoolHw;
+      if (r < 0 || r >= ho || c < 0 || c >= wo) continue;
+      const T* src = yi + (static_cast<int64_t>(r) * wo + c) * k;
+      T* dst = ys + px * kPoolC + cv;
+      if constexpr (VEC > 1)
+        dl4j_mma::cp_async16(dst, src, true);
+      else
+        *dst = *src;
+    }
+    for (int wx = slot; wx < kPoolMh * kPoolMw; wx += kPix) {
+      const int a = wx / kPoolMw, b = wx - a * kPoolMw;
+      if (p0 + a >= po || q0 + b >= pw) continue;
+      const T* src = gi + (static_cast<int64_t>(p0 + a) * pw + q0 + b) * k;
+      T* dst = gs + wx * kPoolC + cv;
+      if constexpr (VEC > 1)
+        dl4j_mma::cp_async16(dst, src, true);
+      else
+        *dst = *src;
     }
   }
-  // the block's partial sums: the pixel lanes reduced in order
-  red[0][plane][lane] = s1;
-  red[1][plane][lane] = s2;
+  dl4j_mma::cp_async_commit();
+  float sc[VEC], bb[VEC], inv[VEC], mu[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int ch = ch0 + cv + e;
+    sc[e] = on ? aff[ch] : 0.f;
+    bb[e] = on ? aff[k + ch] : 0.f;
+    inv[e] = on ? aff[2 * k + ch] : 0.f;
+    mu[e] = on ? aff[3 * k + ch] : 0.f;
+  }
+  dl4j_mma::cp_async_wait<0>();
   __syncthreads();
-  if (plane == 0 && ch < k) {
-    float a = 0.f, b = 0.f;
-    for (int t = 0; t < kPoolPixLanes; ++t) {
-      a += red[0][t][lane];
-      b += red[1][t][lane];
+
+  // zc over the halo, once: relu(y sc + bb) in f32 (two roundings, no
+  // fused multiply-add, as the plain version's PyTorch ops) rounded to T;
+  // -inf (the pool's padding) outside the image
+  if (on) {
+    for (int px = slot; px < kPoolHh * kPoolHw; px += kPix) {
+      const int hr = px / kPoolHw;
+      const int r = r0 + hr, c = c0 + px - hr * kPoolHw;
+      const bool in = r >= 0 && r < ho && c >= 0 && c < wo;
+      float z[VEC];
+      unpack<T, VEC>(ys + px * kPoolC + cv, z);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        z[e] = in ? fmaxf(__fadd_rn(__fmul_rn(z[e], sc[e]), bb[e]), 0.f)
+                  : -INFINITY;
+      pack_store<T, VEC>(zs + px * kPoolC + cv, z);
     }
-    const int64_t at = static_cast<int64_t>(ch) * tiles + blockIdx.x;
+  }
+  __syncthreads();
+
+  // each window's maximum, once
+  if (on) {
+    for (int wx = slot; wx < kPoolMh * kPoolMw; wx += kPix) {
+      const int a = wx / kPoolMw, b = wx - a * kPoolMw;
+      if (p0 + a >= po || q0 + b >= pw) continue;
+      const T* z0p = zs + (2 * a * kPoolHw + 2 * b) * kPoolC + cv;
+      if constexpr (kBf16x8<T, VEC>) {
+        // bf16 pairs: the maximum is one of the values either way
+        uint4 m = *reinterpret_cast<const uint4*>(z0p);
+#pragma unroll
+        for (int t = 1; t < 9; ++t) {
+          const uint4 z = *reinterpret_cast<const uint4*>(
+              z0p + ((t / 3) * kPoolHw + t % 3) * kPoolC);
+          m = make_uint4(hmax2_bits(m.x, z.x), hmax2_bits(m.y, z.y),
+                         hmax2_bits(m.z, z.z), hmax2_bits(m.w, z.w));
+        }
+        *reinterpret_cast<uint4*>(ms + wx * kPoolC + cv) = m;
+      } else {
+        float mx[VEC], z[VEC];
+        unpack<T, VEC>(z0p, mx);
+#pragma unroll
+        for (int t = 1; t < 9; ++t) {
+          unpack<T, VEC>(z0p + ((t / 3) * kPoolHw + t % 3) * kPoolC, z);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) mx[e] = fmaxf(mx[e], z[e]);
+        }
+        pack_store<T, VEC>(ms + wx * kPoolC + cv, mx);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the gather: each pixel of the tile takes g from the <= 4 windows
+  // that cover it (p with |r - 2p| <= 1, q likewise) where its zc ties
+  // their maximum, in the TPU kernel's order (the window offset r - 2p +
+  // 1 ascending, then c - 2q + 1), masked by z0 > 0. A thread takes a
+  // pair of pixels of one row, (r, 2q) and (r, 2q + 1): for each window
+  // row p that covers r (p = (r + 1) / 2, then r / 2) it reads window (p,
+  // q + 1), which covers the odd pixel only, then (p, q), which covers
+  // both, each maximum and g once for the pair. The pairs of a row are
+  // two warps, so a warp's window loops agree.
+  float s1[VEC], s2[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) s1[e] = s2[e] = 0.f;
+  T* dzi = dz + static_cast<int64_t>(img) * ho * wo * k + ch0 + cv;
+  if (on) {
+    for (int it = slot; it < 2 * kPoolWh * kPoolWw; it += kPix) {
+      const int lr = it / kPoolWw, b = it - lr * kPoolWw;
+      const int r = 2 * p0 + lr, c = 2 * (q0 + b);
+      if (r >= ho || c >= wo) continue;
+      const bool odd_in = c + 1 < wo;     // the pair's second pixel
+      const int hx = ((lr + 1) * kPoolHw + 2 * b + 1) * kPoolC + cv;
+      float zc0[VEC], zc1[VEC], acc0[VEC], acc1[VEC];
+      unpack<T, VEC>(zs + hx, zc0);
+      unpack<T, VEC>(zs + hx + kPoolC, zc1);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc0[e] = acc1[e] = 0.f;
+      for (int a = (lr + 1) >> 1; a >= (lr >> 1); --a) {
+        if (p0 + a >= po) continue;
+        const int wx = (a * kPoolMw + b) * kPoolC + cv;
+        float mv[VEC], gv[VEC];
+        if (q0 + b + 1 < pw) {
+          unpack<T, VEC>(ms + wx + kPoolC, mv);
+          unpack<T, VEC>(gs + wx + kPoolC, gv);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (zc1[e] == mv[e]) acc1[e] += gv[e];
+        }
+        unpack<T, VEC>(ms + wx, mv);
+        unpack<T, VEC>(gs + wx, gv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          if (zc1[e] == mv[e]) acc1[e] += gv[e];
+          if (zc0[e] == mv[e]) acc0[e] += gv[e];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !odd_in) break;
+        float yf[VEC], out[VEC];
+        unpack<T, VEC>(ys + hx + u * kPoolC, yf);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float z0 = __fadd_rn(__fmul_rn(yf[e], sc[e]), bb[e]);
+          out[e] = round_to<T>(z0 > 0.f ? (u ? acc1[e] : acc0[e]) : 0.f);
+          s1[e] += out[e];
+          s2[e] += out[e] * __fmul_rn(__fsub_rn(yf[e], mu[e]), inv[e]);
+        }
+        pack_store<T, VEC>(
+            dzi + (static_cast<int64_t>(r) * wo + c + u) * k, out);
+      }
+    }
+  }
+
+  // the block's partial sums: the pixel slots reduced in order (the zc
+  // tile, no longer read, holds them)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(zs);    // [2][kPix][kPoolC]
+  if (on) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      red[slot * kPoolC + cv + e] = s1[e];
+      red[(kPix + slot) * kPoolC + cv + e] = s2[e];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kc) {
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < kPix; ++t) {
+      a += red[t * kPoolC + threadIdx.x];
+      b += red[(kPix + t) * kPoolC + threadIdx.x];
+    }
+    const int64_t at =
+        static_cast<int64_t>(ch0 + threadIdx.x) * tiles + blockIdx.x;
     part1[at] = a;
     part2[at] = b;
   }
 }
 
+template <typename T, int VEC>
+int launch_bwd_pool(const T* y, const T* g, const float* aff, T* dz,
+                    float* part1, float* part2, int ho, int wo, int k,
+                    int po, int pw, int down, int across, int tiles,
+                    dim3 grid, cudaStream_t st) {
+  static size_t granted = 48 * 1024;
+  auto kernel = bwd_pool_kernel<T, VEC>;
+  const int err = dl4j_mma::set_smem(kernel, pool_smem<T>(), granted);
+  if (err) return err;
+  kernel<<<grid, kPoolThreads, pool_smem<T>(), st>>>(
+      y, g, aff, dz, part1, part2, ho, wo, k, po, pw, down, across, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grid: n x down x across tiles of kPoolWh x kPoolWw pooled windows
+// (stem.py's _stem_pool_plan mirrors it), ceil(K / 64) channel chunks;
+// one partial per tile and channel in part1 / part2 [K, tiles]. Refuses
+// partials short of the grid (before any launch).
 template <typename T>
 int stem_bwd_pool(const void* y, const void* g, const void* aff, void* dz,
                   void* part1, void* part2, void* s1, void* s2, int n,
                   int ho, int wo, int k, int tiles, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t rows = static_cast<int64_t>(n) * ho * wo;
-  const int64_t blocks = (rows + kPoolPix - 1) / kPoolPix;
-  if (blocks > tiles) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0 || k == 0) return static_cast<int>(cudaGetLastError());
   const int po = (ho - 1) / 2 + 1;
   const int pw = (wo - 1) / 2 + 1;
-  dim3 grid(static_cast<unsigned>(blocks), (k + kPoolLanes - 1) / kPoolLanes);
-  bwd_pool_kernel<T><<<grid, kPoolThreads, 0, st>>>(
-      static_cast<const T*>(y), static_cast<const T*>(g),
-      static_cast<const float*>(aff), static_cast<T*>(dz),
-      static_cast<float*>(part1), static_cast<float*>(part2), n, ho, wo, k,
-      po, pw, tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int down = (po + kPoolWh - 1) / kPoolWh;
+  const int across = (pw + kPoolWw - 1) / kPoolWw;
+  const int64_t blocks = static_cast<int64_t>(n) * down * across;
+  if (blocks > tiles || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kVec = static_cast<int>(16 / sizeof(T));
+  const bool vec = k % kVec == 0 && dl4j_mma::aligned16(y) &&
+                   dl4j_mma::aligned16(g) && dl4j_mma::aligned16(dz);
+  const dim3 grid(static_cast<unsigned>(blocks), (k + kPoolC - 1) / kPoolC);
+  const T* yt = static_cast<const T*>(y);
+  const T* gt = static_cast<const T*>(g);
+  const float* af = static_cast<const float*>(aff);
+  T* dzt = static_cast<T*>(dz);
+  float* p1 = static_cast<float*>(part1);
+  float* p2 = static_cast<float*>(part2);
+  const int err =
+      vec ? launch_bwd_pool<T, kVec>(yt, gt, af, dzt, p1, p2, ho, wo, k, po,
+                                     pw, down, across, tiles, grid, st)
+          : launch_bwd_pool<T, 1>(yt, gt, af, dzt, p1, p2, ho, wo, k, po,
+                                  pw, down, across, tiles, grid, st);
+  if (err != cudaSuccess) return err;
   dl4j_conv::reduce_partials_kernel<<<k, dl4j_conv::kReduceThreads, 0, st>>>(
-      static_cast<const float*>(part1), static_cast<const float*>(part2),
-      static_cast<int>(blocks), tiles, static_cast<float*>(s1),
+      p1, p2, static_cast<int>(blocks), tiles, static_cast<float*>(s1),
       static_cast<float*>(s2));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1253,7 +1475,13 @@ int dl4j_stem_bwd_dx_bf16_mma(const void* dy, const void* w, void* dx,
                        static_cast<cudaStream_t>(stream));
 }
 
-int dl4j_stem_bwd_pool_tile() { return kPoolPix; }
+// Bytes of dynamic shared memory the pool backward launches with, f32
+// and bf16 (out[2]).
+int dl4j_stem_bwd_pool_smem(int* out) {
+  out[0] = static_cast<int>(pool_smem<float>());
+  out[1] = static_cast<int>(pool_smem<__nv_bfloat16>());
+  return 0;
+}
 
 // The weight gradient's device kernels started so far, by kind (out[4]:
 // the dy pass, the CUDA-core GEMM, the tensor-core pass, the split

@@ -16,9 +16,10 @@ conv over the implicit GEMM of ``csrc/conv_gemm.cuh``, which builds the
 im2col from the raw image as it goes, and the pool) replaces the TPU
 kernels ``_stem_conv_kernel`` and ``_stem_pool_kernel``; ``csrc/
 stem_bwd.cu`` replaces ``_stem_bwd_pool_kernel`` (the pool and relu
-backward with the BN-backward sums), ``_stem_bwd_dw_kernel`` (the BN
-backward and the weight gradient) and ``_stem_bwd_dx_kernel`` (the input
-gradient); the source notes say what bounds each and what its design
+backward with the BN-backward sums: a tiled gather that reads y once,
+its grid planned by :func:`_stem_pool_plan`), ``_stem_bwd_dw_kernel``
+(the BN backward and the weight gradient) and ``_stem_bwd_dx_kernel``
+(the input gradient); the source notes say what bounds each and what its design
 does about that. The weight gradient has two routes,
 :func:`stem_dw_route`: bf16 at ``4 C <= 16`` (RGB or RGBA input) runs
 one pass on the tensor cores (``mma.sync`` tiles over ``csrc/
@@ -93,6 +94,10 @@ _TC_DW_PATCH, _TC_DW_COLS = (8, 16), 64
 #: patch of s2d pixels (dx_tc::kTh, kTw)
 _TC_DX_MAX_K = 64
 _TC_DX_PATCH = (24, 16)
+#: the pool backward's tile of pooled windows (rows, columns) and its
+#: chunk of channels a block (csrc/stem_bwd.cu's kPoolWh, kPoolWw,
+#: kPoolC)
+_POOL_WINDOWS, _POOL_CHANNELS = (8, 8), 64
 
 
 def _symbols(stem):
@@ -120,8 +125,8 @@ _BWD_LIBRARY = CudaLibrary(
      **{s: _BWD_DW_ARGS for s in _symbols("stem_bwd_dw").values()},
      "dl4j_stem_bwd_dw_bf16_mma": _BWD_DW_TC_ARGS,
      **{s: _BWD_DX_ARGS for s in _route_symbols("stem_bwd_dx").values()},
-     "dl4j_stem_bwd_pool_tile": [], "dl4j_stem_bwd_dw_tc_smem": [],
-     "dl4j_stem_bwd_dx_tc_smem": [],
+     "dl4j_stem_bwd_dw_tc_smem": [], "dl4j_stem_bwd_dx_tc_smem": [],
+     "dl4j_stem_bwd_pool_smem": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_stem_bwd_dx_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
@@ -204,6 +209,29 @@ def _stem_dw_plan(n, h, w, k, sms) -> StemDwPlan:
     cols = -(-k // _TC_DW_COLS)
     return StemDwPlan(max(1, min(patches, sms // cols)), patches, cols,
                       (down, across))
+
+
+class StemPoolPlan(NamedTuple):
+    """The pool backward's launch plan, as ``csrc/stem_bwd.cu``'s
+    ``stem_bwd_pool`` chooses it: ``tiles`` blocks of 8 x 8 pooled
+    windows (``grid = (down, across)`` an image; tile (i, j) stores the
+    pixel rows ``16 i .. 16 i + 15`` and columns ``16 j .. 16 j + 15``
+    inside the image), each over ``chunks`` chunks of 64 channels; one
+    partial sum a tile and channel, so the partials' rows are
+    ``tiles``."""
+    tiles: int
+    chunks: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_pool_plan(n, ho, wo, k) -> StemPoolPlan:
+    """The plan for y ``[n, ho, wo, k]``."""
+    wh, ww = _POOL_WINDOWS
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    down, across = -(-po // wh), -(-pw // ww)
+    return StemPoolPlan(n * down * across, -(-k // _POOL_CHANNELS),
+                        (down, across))
 
 
 def stem_dx_route(dtype, c: int, k: int) -> str:
@@ -354,7 +382,7 @@ def stem_bwd_pool(y, g, aff):
     sums = torch.zeros((2, k), dtype=f32, device=y.device)
     if not dz.numel():
         return dz, sums
-    tiles = -(-(n * ho * wo) // _BWD_LIBRARY.load().dl4j_stem_bwd_pool_tile())
+    tiles = _stem_pool_plan(n, ho, wo, k).tiles
     part = torch.empty((2, k, tiles), dtype=f32, device=y.device)
     STEM_BWD_POOL.launch(y.dtype, y.data_ptr(), g.data_ptr(), aff.data_ptr(),
                          dz.data_ptr(), part[0].data_ptr(),

@@ -38,24 +38,31 @@
 // as well, whose partials the last block to finish combines in block
 // order. Dead table entries (the null page 0) are never touched.
 //
-// The int8 variant (paged_decode_quant_kernel below) replaces
+// The int8 variant (paged_decode_quant_kernel) replaces
 // deeplearning4j_tpu/serving/paged_kernel.py `_decode_kernel_quant`. It
-// keeps the first design of the decode: one 4-warp block per (slot, kv
-// head) walks the row's pages one at a time, each staged in shared
-// memory behind block barriers (the split above is not yet carried over;
-// ROADMAP queue B), over int8 K/V pools (serving/quant.py), each page's f32
-// power-of-two scales ks[page, h] and vs[page, h] read by the page id the
-// table routed the block through. It computes what the TPU kernel
-// computes: the query widened to f32, score = (q . k_int8) * (scale * sk),
-// the same masks and online softmax in f32, pv = (p . v_int8) * sv with p
-// kept in f32 (NOT rounded to a narrower dtype, unlike the kernel above),
-// output acc / max(l, 1e-30) in the query dtype. Per-page scales commute
-// with both dots, so this is attention over the dequantized pages.
-// What bounds it: again the bytes of the live pages, now one byte per
-// K/V value (plus 8 bytes of scales per live page and head). The pages
-// stay int8 in shared memory (a page of 16 x 64 values is 1 KB), are
-// loaded with 16-byte vector loads where the page's bytes allow it, and
-// are widened to f32 in registers at the dot products.
+// computes what that TPU kernel computes over int8 K/V pools
+// (serving/quant.py) with each page's f32 power-of-two scales ks[page,
+// h] and vs[page, h], read by the page id the table routed the page
+// through: the query widened to f32, score = (q . k_int8) * (scale * sk),
+// the same masks and online softmax in f32, pv = (p . v_int8) * sv with
+// p kept in f32 (NOT rounded to a narrower dtype, unlike the kernel
+// above), output acc / max(l, 1e-30) in the query dtype. Per-page scales
+// commute with both dots, so this is attention over the dequantized
+// pages; and since they are powers of two, scale * sk and p * sv are
+// exact, so folding sv into p before the PV product changes only the f32
+// summation order. What bounds it: again the bytes of the live pages,
+// now one byte a K/V value plus 8 bytes of scales a live page and head
+// (1.7 MB at the engine's shape, 0.5 us), so again the walk. It runs on
+// the split above, the same code with the pool's element type as a
+// template parameter: 16 warps (and at a verify shape up to 8 blocks) a
+// (slot, kv head), a warp loading its pages' K and V as 16-byte vectors
+// (16 int8 values a lane) straight into registers, the next chunk in
+// flight, each page's two scales loaded with its table entry (one load a
+// lane, then shuffles) and never again per key; the int8 values widen to
+// f32 in registers (a byte permute into a float's mantissa and one
+// subtraction, exact); a chunk never straddles two pages, so one pair of
+// scales serves it (at D = 64, page 16: 4 lanes a key, a page one chunk
+// of two passes). The warps' and blocks' combine is the one above.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into
 // a shared library with a plain C interface, loaded through ctypes
@@ -68,16 +75,19 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
 constexpr int kMaxDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(signed char x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -91,77 +101,114 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // ---------------------------------------------------------------------
-// the split decode (bf16 and f32 pools)
+// the split decode (bf16, f32 and int8 pools)
 // ---------------------------------------------------------------------
-// Lanes: a key's D values are cut into vectors of VE elements (16 bytes;
-// 1 element where D or a pool's alignment does not allow 16); lpk lanes
-// (a power of two, at most 32) share a key, each holding up to 8 / VE of
-// its vectors, so a warp's 32 / lpk lane groups take 32 / lpk keys a
-// pass, and kPasses passes make a chunk: the keys whose scores share one
-// online-softmax update (one 16-key page at bf16, D = 64).
-template <typename T, int VE>
+// Lanes: a key's D values are cut into vectors of VE elements (16 bytes:
+// 4 f32, 8 bf16 or 16 int8 values; int8 at a tile of 4 rows 8 bytes, 8
+// values, so that the 4 rows' accumulators fit in the registers; 1
+// element where D or a pool's alignment does not allow a vector); lpk
+// lanes (a power of two, at most 32) share a key, each holding kSlots of
+// its vectors (8 values, or one vector of 16 int8), so a warp's 32 / lpk
+// lane groups take 32 / lpk keys a pass, and kPasses passes make a
+// chunk: the keys whose scores share one online-softmax update (one
+// 16-key page at D = 64 for bf16 and int8). A chunk never straddles two
+// pages.
+template <typename KV, int VE>
 struct Vec {
-  using V = uint4;   // 16 bytes
+  using V = std::conditional_t<VE * sizeof(KV) == 8, uint2, uint4>;
 };
-template <typename T>
-struct Vec<T, 1> {
-  using V = T;
+template <typename KV>
+struct Vec<KV, 1> {
+  using V = KV;
 };
 
-template <typename T, int VE>
-__device__ __forceinline__ float elem_of(const typename Vec<T, VE>::V& v,
+template <typename KV, int VE>
+__device__ __forceinline__ float elem_of(const typename Vec<KV, VE>::V& v,
                                          int e) {
   if constexpr (VE == 1) {
     return to_f32(v);
-  } else if constexpr (sizeof(T) == 4) {
+  } else if constexpr (sizeof(KV) == 4) {
     return __uint_as_float(e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w);
-  } else {
+  } else if constexpr (sizeof(KV) == 2) {
     const int i = e >> 1;
     const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
     return __bfloat162float(__ushort_as_bfloat16(
         static_cast<unsigned short>((e & 1) ? (w >> 16) : (w & 0xffffu))));
+  } else {
+    // int8: the byte, its sign bit flipped (b + 128), as the low mantissa
+    // byte of 2^23; less 2^23 + 128 that is b, exactly
+    const int i = e >> 2;
+    uint32_t w;
+    if constexpr (VE == 8)
+      w = i == 0 ? v.x : v.y;
+    else
+      w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+    return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4b000000u,
+                                       0x7540u | (e & 3))) -
+           8388736.f;
   }
 }
 
-template <typename T, int VE>
-__device__ __forceinline__ typename Vec<T, VE>::V load_of(const T* p) {
+template <typename KV, int VE>
+__device__ __forceinline__ typename Vec<KV, VE>::V load_of(const KV* p) {
+  using V = typename Vec<KV, VE>::V;
   if constexpr (VE == 1)
     return *p;
   else
-    return __ldg(reinterpret_cast<const uint4*>(p));
+    return __ldg(reinterpret_cast<const V*>(p));
 }
 
-template <typename T, int VE>
-__device__ __forceinline__ typename Vec<T, VE>::V zero_of() {
-  if constexpr (VE == 1)
-    return from_f32<T>(0.f);
+template <typename KV, int VE>
+__device__ __forceinline__ typename Vec<KV, VE>::V zero_of() {
+  if constexpr (VE != 1)
+    return typename Vec<KV, VE>::V{};
+  else if constexpr (sizeof(KV) == 1)
+    return static_cast<KV>(0);
   else
-    return make_uint4(0u, 0u, 0u, 0u);
+    return from_f32<KV>(0.f);
 }
 
 // Warps a block (512 threads: at most 128 registers a thread).
 constexpr int kSplitWarps = 16;
 // Passes a chunk: 4 at 2-byte values, 2 at 4-byte ones (the same 64
-// bytes of K and of V a lane), 1 on the element-wise route; half that
-// (at least 1) where a warp holds a tile of 4 rows, whose query and
-// accumulator take the registers.
-template <typename T, int VE, int RT>
+// bytes of K and of V a lane), half that (at least 1) where a warp holds
+// a tile of 4 rows, whose query and accumulator take the registers; 2 at
+// int8 (32 values widened a lane: a 16-key page at D = 64 for one row,
+// 16 values and 8 keys for a tile); 1 on the element-wise route.
+template <typename KV, int VE, int RT>
 __host__ __device__ constexpr int split_passes() {
-  return VE == 1 ? 1
-                 : static_cast<int>((RT == 1 ? 8 : 4) / sizeof(T));
+  if constexpr (VE == 1)
+    return 1;
+  else if constexpr (sizeof(KV) == 1)
+    return 2;
+  else
+    return static_cast<int>((RT == 1 ? 8 : 4) / sizeof(KV));
 }
+
+// Values a vector: 16 bytes, but int8 at a tile of 4 rows 8 bytes.
+template <typename KV, int RT>
+constexpr int vec_elems() {
+  return sizeof(KV) == 1 && RT > 1 ? 8 : static_cast<int>(16 / sizeof(KV));
+}
+
+// The arguments of one launch. KV is the pools' element type: T, or
+// signed char with the scale sidecars k_scales, v_scales [P, Hkv].
+template <typename T, typename KV>
+struct SplitArgs {
+  const T* q;
+  const KV* k_pool;
+  const KV* v_pool;
+  const float* k_scales;
+  const float* v_scales;
+  const int* table;
+  const int* lengths;
+  T* out;
+  float* part;
+  int* counters;
+  int hkv, rw, d, ps, n_max, n_pages, qw, splits;
+  float scale;
+};
 
 // `splits` blocks per (slot s, kv head h) (more than one only where the
 // (slot, head) pairs would leave SMs idle and several query rows make
@@ -169,50 +216,48 @@ __host__ __device__ constexpr int split_passes() {
 // each tile's live pages split over the splits x wpt warps that hold it
 // (block b's warp share takes pages b wpt + share + i splits wpt; wpt =
 // warps / tiles, at least 1). A warp walks its pages chunk by
-// chunk with no block barrier: the page ids come from one table load a
-// lane (then shuffles), and the next chunk's K and V (16-byte loads into
-// registers) are in flight while it scores the current one; lane groups
-// cover the head dim (dot products reduced by shuffles); it keeps its
-// own running (m, l, acc) in registers, p rounded to T at each chunk's
-// running max, l summing the unrounded p; one query row is held in
-// registers, a tile of 4 read from shared memory (f32, [tiles 4][d],
-// zero rows past rw), which leaves the registers to the accumulators.
-// Its partials go to shared memory: m, l [wpt][rw] and acc [wpt][rw][d],
-// all f32; one barrier, and the block combines them warp by warp in a
-// fixed order (a warp whose share held no key a row sees, l = 0, weighs
-// exactly 0). With one block a pair that is the output. With several,
-// each block writes its combined (m, l, acc) rows to the caller's
-// scratch `part` [pairs splits][rw][2 + d] and counts itself done on
-// `counters[pair]`; the last one combines the blocks' rows in block
-// order (the same weights), writes the output and sets the counter back
-// to 0 for the next launch. A table entry outside the pool poisons the
-// whole (slot, head) with NaN (a block's l = NaN carries it).
-template <typename T, int VE, int RT>
-__global__ void __launch_bounds__(32 * kSplitWarps)
-    paged_decode_split_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool,
-                              const int* __restrict__ table,
-                              const int* __restrict__ lengths,
-                              T* __restrict__ out, float* __restrict__ part,
-                              int* __restrict__ counters, int hkv, int rw,
-                              int d, int ps, int n_max, int n_pages, int qw,
-                              int splits, float scale) {
+// chunk with no block barrier: the page ids (and an int8 pool's scales)
+// come from one table load a lane (then shuffles), and the next chunk's
+// K and V (16-byte loads into registers) are in flight while it scores
+// the current one; lane groups cover the head dim (dot products reduced
+// by shuffles); it keeps its own running (m, l, acc) in registers, p
+// rounded to KV at each chunk's running max (an int8 pool: p kept in
+// f32, times the page's sv), l summing the unrounded p; one query row is
+// held in registers, a tile of 4 read from shared memory (f32, [tiles
+// 4][d], zero rows past rw), which leaves the registers to the
+// accumulators. Its partials go to shared memory: m, l [wpt][rw] and acc
+// [wpt][rw][d], all f32; one barrier, and the block combines them warp
+// by warp in a fixed order (a warp whose share held no key a row sees,
+// l = 0, weighs exactly 0). With one block a pair that is the output.
+// With several, each block writes its combined (m, l, acc) rows to the
+// caller's scratch `part` [pairs splits][rw][2 + d] and counts itself
+// done on `counters[pair]`; the last one combines the blocks' rows in
+// block order (the same weights), writes the output and sets the
+// counter back to 0 for the next launch. A table entry outside the pool
+// poisons the whole (slot, head) with NaN (a block's l = NaN carries it).
+template <typename T, typename KV, int VE, int RT>
+__device__ __forceinline__ void split_decode(const SplitArgs<T, KV>& a) {
+  constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int kWarps = kSplitWarps;
-  constexpr int kSlots = 8 / VE;              // vectors a lane a key
-  constexpr int kE = kSlots * VE;             // values a lane a key: 8
-  constexpr int kPasses = split_passes<T, VE, RT>();
-  using V = typename Vec<T, VE>::V;
+  constexpr int kSlots = VE >= 8 ? 1 : 8 / VE;  // vectors a lane a key
+  constexpr int kE = kSlots * VE;               // values a lane a key
+  constexpr int kPasses = split_passes<KV, VE, RT>();
+  using V = typename Vec<KV, VE>::V;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_bad, s_last;
 
+  const T* __restrict__ q = a.q;
+  const KV* __restrict__ k_pool = a.k_pool;
+  const KV* __restrict__ v_pool = a.v_pool;
+  const int hkv = a.hkv, rw = a.rw, d = a.d, ps = a.ps, n_max = a.n_max;
+  const int n_pages = a.n_pages, qw = a.qw, splits = a.splits;
   const int pair = blockIdx.x / splits;
   const int split = blockIdx.x - pair * splits;
   const int s = pair / hkv;
   const int h = pair - s * hkv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int length = lengths[s];
+  const int length = a.lengths[s];
   int n_live = length > 0 ? (length + ps - 1) / ps : 0;
   if (n_live > n_max) n_live = n_max;
   const int nv = d / VE;
@@ -242,19 +287,28 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
   }
   __syncthreads();
 
-  const int* trow = table + (size_t)s * n_max;
+  const int* trow = a.table + (size_t)s * n_max;
   const int n_my =
       share < n_live ? (n_live - share + stride - 1) / stride : 0;
   // the page ids of the warp's first 32 pages, one a lane, read whether
-  // live or not (inside the row: the load need not wait for the length)
+  // live or not (inside the row: the load need not wait for the length);
+  // an int8 pool's scales of the live ones beside them
   const int tb = share + lane * stride < n_max
                      ? __ldg(trow + share + lane * stride) : 0;
+  float tks = 0.f, tvs = 0.f;
+  if constexpr (kQuant) {
+    if (lane < n_my && tb >= 0 && tb < n_pages) {
+      tks = __ldg(a.k_scales + (size_t)tb * hkv + h);
+      tvs = __ldg(a.v_scales + (size_t)tb * hkv + h);
+    }
+  }
   bool bad = false;
 
   // chunk g of the warp's walk: K and V of its keys, zeros past the page
-  // or the head dim; false where the page id is outside the pool
+  // or the head dim, and (int8) the page's scales; false where the page
+  // id is outside the pool
   auto fetch = [&](int g, V (&kd)[kPasses][kSlots],
-                   V (&vd)[kPasses][kSlots]) {
+                   V (&vd)[kPasses][kSlots], float& sk, float& sv) {
     const int pi = g / cpp;
     const int j0 = (g - pi * cpp) * ck + kg;
     const int pid = __shfl_sync(0xffffffffu, tb, pi & 31);
@@ -269,9 +323,16 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
         const int vi = sub + c * lpk;
         const bool in = ok && j < ps && vi < nv;
         const size_t at = base + (size_t)j * d + vi * VE;
-        kd[t][c] = in ? load_of<T, VE>(k_pool + at) : zero_of<T, VE>();
-        vd[t][c] = in ? load_of<T, VE>(v_pool + at) : zero_of<T, VE>();
+        kd[t][c] = in ? load_of<KV, VE>(k_pool + at) : zero_of<KV, VE>();
+        vd[t][c] = in ? load_of<KV, VE>(v_pool + at) : zero_of<KV, VE>();
       }
+    if constexpr (kQuant) {
+      const float k32 = __shfl_sync(0xffffffffu, tks, pi & 31);
+      const float v32 = __shfl_sync(0xffffffffu, tvs, pi & 31);
+      const size_t at = (size_t)(ok ? page : 0) * hkv + h;
+      sk = pi < 32 ? k32 : ok ? __ldg(a.k_scales + at) : 0.f;
+      sv = pi < 32 ? v32 : ok ? __ldg(a.v_scales + at) : 0.f;
+    }
     return ok;
   };
 
@@ -301,7 +362,8 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
       }
       V kc[kPasses][kSlots], vc[kPasses][kSlots];   // the chunk consumed
       V kn[kPasses][kSlots], vn[kPasses][kSlots];   // the next, in flight
-      bool ok_n = chunks > 0 ? fetch(0, kn, vn) : true;
+      float skc = 0.f, svc = 0.f, skn = 0.f, svn = 0.f;
+      bool ok_n = chunks > 0 ? fetch(0, kn, vn, skn, svn) : true;
       for (int g = 0; g < chunks; ++g) {
 #pragma unroll
         for (int t = 0; t < kPasses; ++t)
@@ -310,12 +372,16 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
             kc[t][c] = kn[t][c];
             vc[t][c] = vn[t][c];
           }
+        skc = skn;
+        svc = svn;
         const bool ok = ok_n;
-        if (g + 1 < chunks) ok_n = fetch(g + 1, kn, vn);
+        if (g + 1 < chunks) ok_n = fetch(g + 1, kn, vn, skn, svn);
         if (!ok) {
           bad = true;
           continue;
         }
+        // exact: sk is a power of two
+        const float kscale = kQuant ? a.scale * skc : a.scale;
         const int pi = g / cpp;
         const int j0 = (g - pi * cpp) * ck + kg;      // the lane's first key
         const int pos0 = (share + pi * stride) * ps + j0;  // its position
@@ -337,12 +403,12 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
                   qv = qr[c * VE + e];
                 else
                   qv = q_s[(rt * RT + rr) * d + qcol[c] + e];
-                dot = fmaf(qv, elem_of<T, VE>(kc[t][c], e), dot);
+                dot = fmaf(qv, elem_of<KV, VE>(kc[t][c], e), dot);
               }
             for (int o = lpk >> 1; o > 0; o >>= 1)
               dot += __shfl_xor_sync(0xffffffffu, dot, o);
             valid[t] = j0 + t * kpp < ps && pos0 + t * kpp <= last;
-            sc[t] = valid[t] ? dot * scale : kNegInf;
+            sc[t] = valid[t] ? dot * kscale : kNegInf;
             cmax = fmaxf(cmax, sc[t]);
           }
           for (int o = lpk; o < 32; o <<= 1)
@@ -356,18 +422,21 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
             // see exp(-1e30 - -1e30) = 1
             const float p = valid[t] ? expf(sc[t] - m_new) : 0.f;
             psum += p;
-            pr[t] = to_f32(from_f32<T>(p));
+            if constexpr (kQuant)
+              pr[t] = p * svc;        // exact: sv is a power of two
+            else
+              pr[t] = to_f32(from_f32<KV>(p));
           }
           l[rr] = l[rr] * corr + psum;
 #pragma unroll
           for (int c = 0; c < kSlots; ++c)
 #pragma unroll
             for (int e = 0; e < VE; ++e) {
-              float a = acc[rr][c * VE + e] * corr;
+              float acc_e = acc[rr][c * VE + e] * corr;
 #pragma unroll
               for (int t = 0; t < kPasses; ++t)
-                a = fmaf(pr[t], elem_of<T, VE>(vc[t][c], e), a);
-              acc[rr][c * VE + e] = a;
+                acc_e = fmaf(pr[t], elem_of<KV, VE>(vc[t][c], e), acc_e);
+              acc[rr][c * VE + e] = acc_e;
             }
           m[rr] = m_new;
         }
@@ -407,22 +476,23 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
   // the block's combine: its warps 0, 1, ... in order
   const bool poisoned = s_bad != 0;
   const int prow = d + 2;                        // a row of `part`
-  float* mine = part + (size_t)blockIdx.x * rw * prow;
+  float* mine = a.part + (size_t)blockIdx.x * rw * prow;
   for (int i = threadIdx.x; i < rw * d; i += blockDim.x) {
     const int r = i / d;
     float mx = kNegInf;
     for (int w = 0; w < wpt; ++w) mx = fmaxf(mx, part_m[w * rw + r]);
-    float a = 0.f, lsum = 0.f;
+    float acc_i = 0.f, lsum = 0.f;
     for (int w = 0; w < wpt; ++w) {
       const float lw = part_l[w * rw + r];
       const float wt = lw > 0.f ? expf(part_m[w * rw + r] - mx) : 0.f;
-      a += part_acc[(size_t)(w * rw + r) * d + i - r * d] * wt;
+      acc_i += part_acc[(size_t)(w * rw + r) * d + i - r * d] * wt;
       lsum += lw * wt;
     }
     if (splits == 1) {
-      out[q_off + i] = from_f32<T>(poisoned ? NAN : a / fmaxf(lsum, 1e-30f));
+      a.out[q_off + i] =
+          from_f32<T>(poisoned ? NAN : acc_i / fmaxf(lsum, 1e-30f));
     } else {
-      mine[r * prow + 2 + i - r * d] = a;
+      mine[r * prow + 2 + i - r * d] = acc_i;
       if (i == r * d) {
         mine[r * prow] = mx;
         mine[r * prow + 1] = poisoned ? NAN : lsum;
@@ -435,11 +505,11 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    s_last = atomicAdd(counters + pair, 1) == splits - 1;
+    s_last = atomicAdd(a.counters + pair, 1) == splits - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const float* rows = part + (size_t)pair * splits * rw * prow;
+  const float* rows = a.part + (size_t)pair * splits * rw * prow;
   for (int i = threadIdx.x; i < rw * d; i += blockDim.x) {
     const int r = i / d;
     float mx = kNegInf;
@@ -449,17 +519,32 @@ __global__ void __launch_bounds__(32 * kSplitWarps)
       mx = fmaxf(mx, __ldcg(row));
       nan_l |= isnan(__ldcg(row + 1));
     }
-    float a = 0.f, lsum = 0.f;
+    float acc_i = 0.f, lsum = 0.f;
     for (int b = 0; b < splits; ++b) {
       const float* row = rows + (size_t)(b * rw + r) * prow;
       const float lb = __ldcg(row + 1);
       const float wt = lb > 0.f ? expf(__ldcg(row) - mx) : 0.f;
-      a += __ldcg(row + 2 + i - r * d) * wt;
+      acc_i += __ldcg(row + 2 + i - r * d) * wt;
       lsum += lb * wt;
     }
-    out[q_off + i] = from_f32<T>(nan_l ? NAN : a / fmaxf(lsum, 1e-30f));
+    a.out[q_off + i] =
+        from_f32<T>(nan_l ? NAN : acc_i / fmaxf(lsum, 1e-30f));
   }
-  if (threadIdx.x == 0) counters[pair] = 0;
+  if (threadIdx.x == 0) a.counters[pair] = 0;
+}
+
+// The bf16 / f32 pools' kernel and the int8 pool's: one body, two names
+// (the serve profiles tell the two apart by name).
+template <typename T, int VE, int RT>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+    paged_decode_split_kernel(const SplitArgs<T, T> a) {
+  split_decode<T, T, VE, RT>(a);
+}
+
+template <typename T, int VE, int RT>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+    paged_decode_quant_kernel(const SplitArgs<T, signed char> a) {
+  split_decode<T, signed char, VE, RT>(a);
 }
 
 // Shared memory of the split decode: the warps' partials, and a tiled
@@ -472,232 +557,69 @@ size_t split_smem(int rw, int d) {
                           (RT > 1 ? (size_t)n_rt * RT * d : 0));
 }
 
-template <typename T, int VE, int RT>
-int launch_split(const void* q, const void* k_pool, const void* v_pool,
-                 const void* table, const void* lengths, void* out,
-                 void* part, void* counters, int slots, int hkv, int rw,
-                 int d, int ps, int n_max, int n_pages, int qw, int splits,
-                 float scale, cudaStream_t st) {
-  auto kernel = paged_decode_split_kernel<T, VE, RT>;
-  const size_t smem = split_smem<RT>(rw, d);
+template <typename T, typename KV, int VE, int RT>
+int launch_split(const SplitArgs<T, KV>& a, int slots, cudaStream_t st) {
+  void (*kernel)(const SplitArgs<T, KV>);
+  if constexpr (sizeof(KV) == 1)
+    kernel = paged_decode_quant_kernel<T, VE, RT>;
+  else
+    kernel = paged_decode_split_kernel<T, VE, RT>;
+  const size_t smem = split_smem<RT>(a.rw, a.d);
   if (smem > (size_t)kMaxDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<slots * hkv * splits, 32 * kSplitWarps, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), hkv, rw, d,
-      ps, n_max, n_pages, qw, splits, scale);
+  kernel<<<slots * a.hkv * a.splits, 32 * kSplitWarps, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// One launch: 16-byte vectors where D is a whole number of them and both
-// pools are 16-byte aligned, else element by element; one query row, or
-// tiles of 4; `splits` blocks a (slot, head) (the wrapper's plan,
+// One launch: vectors (vec_elems) where D is a whole number of them and
+// both pools are aligned to one, else element by element; one query row,
+// or tiles of 4; `splits` blocks a (slot, head) (the wrapper's plan,
 // paged_kernel.decode_split_plan), which above 1 need the scratch `part`
 // [slots hkv splits][rw][2 + d] f32 and `counters` [slots hkv] int32,
-// zero on entry (and left zero). Refuses (before any launch) D outside 1
-// .. 256, splits outside 1 .. 64, and several splits without scratch.
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* table, const void* lengths, void* out, void* part,
-           void* counters, int slots, int hkv, int rw, int d, int ps,
-           int n_max, int n_pages, int qw, int splits, float scale,
-           void* stream) {
-  if (d < 1 || d > 256 || ps < 1 || splits < 1 || splits > 64 ||
-      (splits > 1 && (part == nullptr || counters == nullptr)))
+// zero on entry (and left zero). KV signed char: the int8 pools, with
+// their scales. Refuses (before any launch) D outside 1 .. 256, splits
+// outside 1 .. 64, several splits without scratch, and int8 pools
+// without scales.
+template <typename T, typename KV>
+int launch(const SplitArgs<T, KV>& a, int slots, void* stream) {
+  if (a.d < 1 || a.d > 256 || a.ps < 1 || a.splits < 1 || a.splits > 64 ||
+      (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)) ||
+      (sizeof(KV) == 1 && (a.k_scales == nullptr || a.v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (slots <= 0 || hkv <= 0 || rw <= 0) return (int)cudaGetLastError();
-  constexpr int kVe = static_cast<int>(16 / sizeof(T));
-  const bool vec = d % kVe == 0 &&
-                   reinterpret_cast<size_t>(k_pool) % 16 == 0 &&
-                   reinterpret_cast<size_t>(v_pool) % 16 == 0;
+  if (slots <= 0 || a.hkv <= 0 || a.rw <= 0) return (int)cudaGetLastError();
+  constexpr int kVe1 = vec_elems<KV, 1>(), kVe4 = vec_elems<KV, 4>();
+  const int ve = a.rw == 1 ? kVe1 : kVe4;
+  const size_t bytes = ve * sizeof(KV);
+  const bool vec = a.d % ve == 0 &&
+                   reinterpret_cast<size_t>(a.k_pool) % bytes == 0 &&
+                   reinterpret_cast<size_t>(a.v_pool) % bytes == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DL4J_SPLIT(VE, RT)                                                \
-  launch_split<T, VE, RT>(q, k_pool, v_pool, table, lengths, out, part,  \
-                          counters, slots, hkv, rw, d, ps, n_max, n_pages, \
-                          qw, splits, scale, st)
-  if (rw == 1) return vec ? DL4J_SPLIT(kVe, 1) : DL4J_SPLIT(1, 1);
-  return vec ? DL4J_SPLIT(kVe, 4) : DL4J_SPLIT(1, 4);
-#undef DL4J_SPLIT
+  if (a.rw == 1)
+    return vec ? launch_split<T, KV, kVe1, 1>(a, slots, st)
+               : launch_split<T, KV, 1, 1>(a, slots, st);
+  return vec ? launch_split<T, KV, kVe4, 4>(a, slots, st)
+             : launch_split<T, KV, 1, 4>(a, slots, st);
 }
 
-// The int8 variant. One thread block per (slot, kv head). Shared memory:
-//   q_s [rw, d] f32, p_s [rw, ps] f32, acc [rw, d] f32,
-//   m_s, l_s, c_s [rw] f32 (padded to 16 bytes), then
-//   k_s [ps, d] int8 and v_s [ps, d] int8 (each padded to 16 bytes)
-__host__ __device__ inline size_t quant_float_words(int rw, int d, int ps) {
-  const size_t n = (size_t)2 * rw * d + (size_t)rw * ps + (size_t)3 * rw;
-  return (n + 3) & ~(size_t)3;  // 16-byte aligned int8 pages after them
-}
-__host__ __device__ inline size_t quant_page_bytes(int ps, int d) {
-  return ((size_t)ps * d + 15) & ~(size_t)15;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_quant_kernel(const T* __restrict__ q,
-                              const signed char* __restrict__ k_pool,
-                              const signed char* __restrict__ v_pool,
-                              const float* __restrict__ k_scales,
-                              const float* __restrict__ v_scales,
-                              const int* __restrict__ table,
-                              const int* __restrict__ lengths,
-                              T* __restrict__ out, int hkv, int rw, int d,
-                              int ps, int n_max, int n_pages, int qw,
-                              float scale, int vec16) {
-  // 16-byte aligned: the int8 pages after the f32 words take int4 stores
-  extern __shared__ __align__(16) float qsmem[];
-  float* q_s = qsmem;
-  float* p_s = q_s + rw * d;
-  float* acc = p_s + rw * ps;
-  float* m_s = acc + rw * d;
-  float* l_s = m_s + rw;
-  float* c_s = l_s + rw;
-  signed char* k_s =
-      reinterpret_cast<signed char*>(qsmem + quant_float_words(rw, d, ps));
-  signed char* v_s = k_s + quant_page_bytes(ps, d);
-
-  const int s = blockIdx.x / hkv;
-  const int h = blockIdx.x % hkv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int length = lengths[s];
-  const size_t q_off = ((size_t)s * hkv + h) * rw * d;
-  const int page_elems = ps * d;
-
-  for (int i = tid; i < rw * d; i += blockDim.x) {
-    q_s[i] = to_f32(q[q_off + i]);  // the query widened to f32
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < rw; r += blockDim.x) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  int n_live = length > 0 ? (length + ps - 1) / ps : 0;
-  if (n_live > n_max) n_live = n_max;
-  bool bad_page = false;
-  __syncthreads();
-
-  for (int b = 0; b < n_live; ++b) {
-    // uniform across the block: every thread reads the same entry
-    const int page = table[(size_t)s * n_max + b];
-    if (page < 0 || page >= n_pages) {
-      bad_page = true;
-      break;
-    }
-    const size_t base = ((size_t)page * hkv + h) * page_elems;
-    const size_t srow = (size_t)page * hkv + h;
-    const float kscale = scale * k_scales[srow];  // exact: sk is 2^k
-    const float sv = v_scales[srow];
-    if (vec16) {
-      // 16 bytes a thread; the host checked the pools' alignment and
-      // that a page is a whole number of 16-byte vectors
-      const int4* ksrc = reinterpret_cast<const int4*>(k_pool + base);
-      const int4* vsrc = reinterpret_cast<const int4*>(v_pool + base);
-      int4* kdst = reinterpret_cast<int4*>(k_s);
-      int4* vdst = reinterpret_cast<int4*>(v_s);
-      for (int i = tid; i < page_elems / 16; i += blockDim.x) {
-        kdst[i] = ksrc[i];
-        vdst[i] = vsrc[i];
-      }
-    } else {
-      for (int i = tid; i < page_elems; i += blockDim.x) {
-        k_s[i] = k_pool[base + i];
-        v_s[i] = v_pool[base + i];
-      }
-    }
-    __syncthreads();
-
-    // scores: one warp per (row, key), lanes across the head dim; the
-    // int8 keys widen to f32 in registers
-    for (int pair = warp; pair < rw * ps; pair += n_warps) {
-      const int r = pair / ps;
-      const int j = pair - r * ps;
-      float dot = 0.f;
-      for (int c = lane; c < d; c += 32)
-        dot += q_s[r * d + c] * static_cast<float>(k_s[j * d + c]);
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        const bool valid = b * ps + j <= length - qw + r % qw;
-        p_s[pair] = valid ? dot * kscale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row; p stays f32
-    for (int r = warp; r < rw; r += n_warps) {
-      float bmax = kNegInf;
-      for (int j = lane; j < ps; j += 32) bmax = fmaxf(bmax, p_s[r * ps + j]);
-      bmax = warp_max(bmax);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, bmax);
-      const int last = length - qw + r % qw;
-      float psum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const float p = b * ps + j <= last ? expf(p_s[r * ps + j] - m_new) : 0.f;
-        psum += p;
-        p_s[r * ps + j] = p;
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + psum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < rw * d; i += blockDim.x) {
-      const int r = i / d;
-      const int c = i - r * d;
-      float pv = 0.f;
-      for (int j = 0; j < ps; ++j)
-        pv += p_s[r * ps + j] * static_cast<float>(v_s[j * d + c]);
-      acc[i] = acc[i] * c_s[r] + pv * sv;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < rw * d; i += blockDim.x) {
-    const float o = bad_page ? NAN : acc[i] / fmaxf(l_s[i / d], 1e-30f);
-    out[q_off + i] = from_f32<T>(o);
-  }
-}
-
-template <typename T>
-int launch_quant(const void* q, const void* k_pool, const void* v_pool,
-                 const void* k_scales, const void* v_scales,
-                 const void* table, const void* lengths, void* out,
-                 int slots, int hkv, int rw, int d, int ps, int n_max,
-                 int n_pages, int qw, float scale, void* stream) {
-  if (slots <= 0 || hkv <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * quant_float_words(rw, d, ps) +
-                      2 * quant_page_bytes(ps, d);
-  if (smem > (size_t)kMaxDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_quant_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int vec16 = ((size_t)ps * d) % 16 == 0 &&
-                    reinterpret_cast<size_t>(k_pool) % 16 == 0 &&
-                    reinterpret_cast<size_t>(v_pool) % 16 == 0;
-  paged_decode_quant_kernel<T><<<slots * hkv, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const signed char*>(k_pool),
-      static_cast<const signed char*>(v_pool),
-      static_cast<const float*>(k_scales),
-      static_cast<const float*>(v_scales), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(out), hkv, rw, d, ps,
-      n_max, n_pages, qw, scale, vec16);
-  return (int)cudaGetLastError();
+template <typename T, typename KV>
+int launch_any(const void* q, const void* k_pool, const void* v_pool,
+               const void* k_scales, const void* v_scales,
+               const void* table, const void* lengths, void* out,
+               void* part, void* counters, int slots, int hkv, int rw,
+               int d, int ps, int n_max, int n_pages, int qw, int splits,
+               float scale, void* stream) {
+  const SplitArgs<T, KV> a{
+      static_cast<const T*>(q),        static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool),  static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
+      static_cast<const int*>(table),  static_cast<const int*>(lengths),
+      static_cast<T*>(out),            static_cast<float*>(part),
+      static_cast<int*>(counters),     hkv, rw, d, ps, n_max, n_pages, qw,
+      splits,                          scale};
+  return launch<T, KV>(a, slots, stream);
 }
 
 }  // namespace
@@ -710,9 +632,10 @@ int dl4j_paged_attention_f32(const void* q, const void* k_pool,
                              void* counters, int slots, int hkv, int rw,
                              int d, int ps, int n_max, int n_pages, int qw,
                              int splits, float scale, void* stream) {
-  return launch<float>(q, k_pool, v_pool, table, lengths, out, part,
-                       counters, slots, hkv, rw, d, ps, n_max, n_pages, qw,
-                       splits, scale, stream);
+  return launch_any<float, float>(q, k_pool, v_pool, nullptr, nullptr,
+                                  table, lengths, out, part, counters,
+                                  slots, hkv, rw, d, ps, n_max, n_pages, qw,
+                                  splits, scale, stream);
 }
 
 int dl4j_paged_attention_bf16(const void* q, const void* k_pool,
@@ -721,33 +644,38 @@ int dl4j_paged_attention_bf16(const void* q, const void* k_pool,
                               void* counters, int slots, int hkv, int rw,
                               int d, int ps, int n_max, int n_pages, int qw,
                               int splits, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, out, part,
-                               counters, slots, hkv, rw, d, ps, n_max,
-                               n_pages, qw, splits, scale, stream);
+  return launch_any<__nv_bfloat16, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, table, lengths, out, part,
+      counters, slots, hkv, rw, d, ps, n_max, n_pages, qw, splits, scale,
+      stream);
 }
 
 int dl4j_paged_attention_quant_f32(const void* q, const void* k_pool,
                                    const void* v_pool, const void* k_scales,
                                    const void* v_scales, const void* table,
-                                   const void* lengths, void* out, int slots,
-                                   int hkv, int rw, int d, int ps, int n_max,
-                                   int n_pages, int qw, float scale,
-                                   void* stream) {
-  return launch_quant<float>(q, k_pool, v_pool, k_scales, v_scales, table,
-                             lengths, out, slots, hkv, rw, d, ps, n_max,
-                             n_pages, qw, scale, stream);
+                                   const void* lengths, void* out,
+                                   void* part, void* counters, int slots,
+                                   int hkv, int rw, int d, int ps,
+                                   int n_max, int n_pages, int qw,
+                                   int splits, float scale, void* stream) {
+  return launch_any<float, signed char>(
+      q, k_pool, v_pool, k_scales, v_scales, table, lengths, out, part,
+      counters, slots, hkv, rw, d, ps, n_max, n_pages, qw, splits, scale,
+      stream);
 }
 
 int dl4j_paged_attention_quant_bf16(const void* q, const void* k_pool,
                                     const void* v_pool, const void* k_scales,
                                     const void* v_scales, const void* table,
                                     const void* lengths, void* out,
-                                    int slots, int hkv, int rw, int d,
-                                    int ps, int n_max, int n_pages, int qw,
-                                    float scale, void* stream) {
-  return launch_quant<__nv_bfloat16>(q, k_pool, v_pool, k_scales, v_scales,
-                                     table, lengths, out, slots, hkv, rw, d,
-                                     ps, n_max, n_pages, qw, scale, stream);
+                                    void* part, void* counters, int slots,
+                                    int hkv, int rw, int d, int ps,
+                                    int n_max, int n_pages, int qw,
+                                    int splits, float scale, void* stream) {
+  return launch_any<__nv_bfloat16, signed char>(
+      q, k_pool, v_pool, k_scales, v_scales, table, lengths, out, part,
+      counters, slots, hkv, rw, d, ps, n_max, n_pages, qw, splits, scale,
+      stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

@@ -8,8 +8,9 @@ kernel ``_decode_kernel``) and the int8 pool's (``_decode_kernel_quant``;
 the source note says what bounds each and what its design does about
 that). They read K/V straight through the per-slot page table, so a
 decode step touches only the live pages of each row, never a dense copy
-of the pool. The bf16/f32 kernel splits each row's live pages over the
-warps of its block, which combine their online-softmax partials in a
+of the pool. Both are one body over the pool's element type: each row's
+live pages split over the warps of its block (and, at a verify shape,
+over up to 8 blocks), which combine their online-softmax partials in a
 fixed order; :func:`decode_split_plan` mirrors how it cuts the rows,
 the pages and the head dim.
 
@@ -55,7 +56,7 @@ __all__ = ["DecodeSplitPlan", "NEG_INF", "PAGED_ATTENTION",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
-_QUANT_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
+_QUANT_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
 
 _SYMBOL = {torch.float32: "dl4j_paged_attention_f32",
            torch.bfloat16: "dl4j_paged_attention_bf16"}
@@ -111,10 +112,12 @@ def decode_split_plan(rows: int, head_dim: int, elem_bytes: int = 2,
                       vec: bool = True, pairs: int = 1, sms: int = 1,
                       n_max: int = 1) -> DecodeSplitPlan:
     """The split decode's plan for ``rows`` query rows at ``head_dim``,
-    values of ``elem_bytes`` bytes, ``pairs`` (slot, kv head) pairs of
-    up to ``n_max`` pages on a card of ``sms`` SMs; ``vec``: the 16-byte
-    route (the head dim a whole number of 16-byte vectors, the pools
-    aligned), else element by element. One block a pair, except where
+    pool values of ``elem_bytes`` bytes (1: the int8 pool: two passes a
+    chunk, of 16-byte vectors for one row, one 16-key page at D = 64, and
+    of 8-byte ones for a tile of 4 rows, 8 keys), ``pairs`` (slot, kv
+    head) pairs of up to ``n_max`` pages on a card of ``sms`` SMs;
+    ``vec``: the vector route (the head dim a whole number of vectors,
+    the pools aligned to one), else element by element. One block a pair, except where
     several query rows make each page's work heavy and the pairs leave
     SMs idle: then as many blocks as fill the SMs, at most 8 and no more
     than the pages give every warp one (the blocks' partials then cost a
@@ -123,12 +126,18 @@ def decode_split_plan(rows: int, head_dim: int, elem_bytes: int = 2,
     warps = 16
     tiles = -(-rows // rt)
     wpt = max(1, warps // tiles)
-    ve = 16 // elem_bytes if vec else 1
+    ve = (8 if elem_bytes == 1 and rt > 1 else 16 // elem_bytes) if vec \
+        else 1
     nv = head_dim // ve
     lpk = 1
     while lpk < nv and lpk < 32:
         lpk *= 2
-    passes = 1 if ve == 1 else (8 if rt == 1 else 4) // elem_bytes
+    if ve == 1:
+        passes = 1
+    elif elem_bytes == 1:
+        passes = 2
+    else:
+        passes = (8 if rt == 1 else 4) // elem_bytes
     q_rows = tiles * rt if rt > 1 else 0
     splits = 1 if rt == 1 else \
         max(1, min(8, sms // max(pairs, 1), -(-n_max // wpt)))
@@ -148,13 +157,9 @@ def paged_attention_smem_bytes(rows: int, head_dim: int,
 
 def paged_attention_quant_smem_bytes(rows: int, head_dim: int,
                                      page_size: int) -> int:
-    """Dynamic shared memory one int8-kernel block uses: the f32 query
-    rows, accumulator, score tile and three per-row scalars (padded to
-    16 bytes), then one int8 K and one int8 V page (each padded to 16
-    bytes)."""
-    words = 2 * rows * head_dim + rows * page_size + 3 * rows
-    page = page_size * head_dim
-    return 4 * (-(-words // 4) * 4) + 2 * (-(-page // 16) * 16)
+    """Dynamic shared memory one int8-kernel block uses: the split
+    decode's, as the bf16/f32 kernel's (no page is staged)."""
+    return decode_split_plan(rows, head_dim, 1).smem_bytes
 
 
 def _shape(q, k_pool, table, query_width):
@@ -230,8 +235,8 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
             tuple(lengths.shape) != (S,):
         raise ValueError(f"table {tuple(table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not fit {S} slots")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} exceeds {MAX_HEAD_DIM}")
     if quant:
         for name, t in extra:
             if t.dtype != torch.float32 or \
@@ -239,26 +244,15 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
                 raise ValueError(f"{name} must be float32 "
                                  f"{tuple(k_pool.shape[:2])}, got {t.dtype} "
                                  f"{tuple(t.shape)}")
-        smem = paged_attention_quant_smem_bytes(rw, d, ps)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"rows {rw} x head dim {d} x page size {ps} "
-                             f"need {smem} B of shared memory "
-                             f"(> {MAX_SMEM_BYTES})")
-        PAGED_ATTENTION_QUANT.launch(
-            q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), S, hkv, rw, d, ps, n_max,
-            k_pool.shape[0], qw, 1.0 / math.sqrt(d), stream)
-        return out
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} exceeds {MAX_HEAD_DIM}")
     plan = decode_split_plan(
-        rw, d, q.element_size(), pairs=S * hkv, n_max=n_max,
+        rw, d, k_pool.element_size(), pairs=S * hkv, n_max=n_max,
         sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
     if plan.smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"rows {rw} x head dim {d} x page size {ps} need "
                          f"{plan.smem_bytes} B of shared memory "
                          f"(> {MAX_SMEM_BYTES})")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
     part = counters = None
     if plan.splits > 1:
         # the blocks' partials, and their done-counters (zeros the kernel
@@ -266,13 +260,19 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
         part = torch.empty(S * hkv * plan.splits * rw * (d + 2),
                            dtype=torch.float32, device=q.device)
         counters = _counters(q.device, stream, S * hkv)
-    PAGED_ATTENTION.launch(
-        q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None,
-        counters.data_ptr() if counters is not None else None,
-        S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw, plan.splits,
-        1.0 / math.sqrt(d), stream)
+    scratch = (part.data_ptr() if part is not None else None,
+               counters.data_ptr() if counters is not None else None,
+               S, hkv, rw, d, ps, n_max, k_pool.shape[0], qw, plan.splits,
+               1.0 / math.sqrt(d), stream)
+    if quant:
+        PAGED_ATTENTION_QUANT.launch(
+            q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), *scratch)
+    else:
+        PAGED_ATTENTION.launch(
+            q.dtype, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), *scratch)
     return out
 
 

@@ -65,11 +65,12 @@ CROSSOVER_VERSION = 1
 #: since its bf16 forward kernels do (revision 3 timed them on the CUDA
 #: cores); train_stem is at 3 since its bf16 weight gradient runs in one
 #: pass on the tensor cores (revision 2 timed a dy pass and a CUDA-core
-#: GEMM), and at 4 since its bf16 input gradient does (revision 3 timed
-#: it on the f32 CUDA cores)
+#: GEMM), at 4 since its bf16 input gradient does (revision 3 timed it
+#: on the f32 CUDA cores), and at 5 since its pool backward reads y once
+#: in tiles (revision 4 timed a pass that read it about 20 times)
 IMPL_REVS: Dict[str, int] = {
     "train_bottleneck": 4,    # nn/layers/bottleneck.py fused chain
-    "train_stem": 4,          # nn/layers/stem.py space-to-depth stem
+    "train_stem": 5,          # nn/layers/stem.py space-to-depth stem
     "paged_decode": 1,        # serving/paged_kernel.py
     "paged_decode_quant": 1,  # the int8 KV pool (serving/quant.py)
 }

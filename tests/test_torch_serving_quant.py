@@ -243,10 +243,13 @@ def test_quant_wrapper_refusals():
 
 
 def test_quant_smem_bytes_of_the_engine_shape():
-    # f32 q rows + acc (2*64) + scores (16) + three row scalars, padded
-    # to 16 bytes; two int8 pages of 16 x 64
-    assert paged_attention_quant_smem_bytes(1, 64, 16) == \
-        4 * 148 + 2 * 1024
+    # the split decode's layout, no page staged: the 16 warps' partials,
+    # each m, l and the row's accumulator (64), all f32
+    assert paged_attention_quant_smem_bytes(1, 64, 16) == 4 * 16 * (64 + 2)
+    # the verify shape (20 rows, 5 tiles of 4): 3 warps a tile, and the
+    # query's 20 rows in f32
+    assert paged_attention_quant_smem_bytes(20, 64, 16) == \
+        4 * (3 * 20 * (64 + 2) + 20 * 64)
 
 
 # ---------------------------------------------------------------------

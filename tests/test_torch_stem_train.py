@@ -26,6 +26,13 @@ package's, on the CPU.
   C=4, K=36, B=3) for dW and dx; the weight and input gradients' routes
   by dtype, C and K; their grid plans cover every output (dW) and every
   s2d pixel (dx) once, dx's in the fewest rounds.
+- The pool backward kernel's tiling, mirrored in torch (each tile's y
+  and halo staged, zc once, each window's maximum once, the gather in
+  window order): dz0 equal to the plain version's bit for bit and held
+  against the JAX ``_bwd_pool`` as above, at conv outputs of 9x13,
+  15x17 (tiles cutting windows: the kernel's 8 x 8 windows and 2 x 3)
+  and 112x112, bf16 with planted ties and f32; its plan stores every
+  pixel once and sizes the partials to its grid.
 - The CPU wrappers launch nothing; the backward runs bwd_dx only when x
   needs its gradient.
 Inputs come from a numpy seed; bf16 inputs are bf16 values handed to both
@@ -292,6 +299,147 @@ def test_the_dx_plan_stores_every_s2d_pixel_once_in_the_fewest_rounds(
     rows = {2 * u - 3 + a for u in range(1, us + 1) for a in (0, 1)}
     cols = {2 * v - 3 + b for v in range(1, vs + 1) for b in (0, 1)}
     assert set(range(h)) <= rows and set(range(w)) <= cols
+
+
+# ---------------------------------------------------------------------
+# the pool backward's tiling (csrc/stem_bwd.cu bwd_pool_kernel)
+# ---------------------------------------------------------------------
+def _pool_tiling_mirror(y, g, aff, windows=ts._POOL_WINDOWS):
+    """The pool backward kernel's tiling in torch on the CPU. For each
+    tile of ``windows`` pooled windows of each image: the y rows under
+    it staged with their halo (one pixel row and column before, two
+    after), converted to zc once (relu(y sc + bb) rounded to y's dtype,
+    -inf outside the image); the maximum of each window the tile reads
+    (its own and the next tile's first row and column) once; then each
+    pixel of the tile takes g from the windows that cover it, in window
+    order, where its zc ties their maximum, masked by z0 > 0 and stored;
+    each tile's sums in f32, the tiles' in f64 in order. Returns (dz0,
+    sums, the positions that tie a window's maximum beyond one a
+    window)."""
+    n, ho, wo, k = y.shape
+    po, pw = g.shape[1], g.shape[2]
+    wh, ww = windows
+    sc, bb, inv, mu = aff
+    hh, hw, mh, mw = 2 * wh + 3, 2 * ww + 3, wh + 1, ww + 1
+    dz = torch.zeros_like(y)
+    parts, ties = [], 0
+    for img, tr, tc in np.ndindex(n, -(-po // wh), -(-pw // ww)):
+        p0, q0 = tr * wh, tc * ww
+        rows = torch.arange(2 * p0 - 1, 2 * p0 - 1 + hh)
+        cols = torch.arange(2 * q0 - 1, 2 * q0 - 1 + hw)
+        inside = (((rows >= 0) & (rows < ho))[:, None]
+                  & ((cols >= 0) & (cols < wo))[None, :])[..., None]
+        ys = y[img][rows.clamp(0, ho - 1)][:, cols.clamp(0, wo - 1)]
+        z0 = ys.float() * sc + bb
+        zc = torch.where(inside, torch.clamp_min(z0, 0.0).to(y.dtype)
+                         .float(), -float("inf"))
+        views = [zc[i:i + 2 * mh - 1:2, j:j + 2 * mw - 1:2]
+                 for i in range(3) for j in range(3)]
+        mx = views[0]
+        for v in views[1:]:
+            mx = torch.maximum(mx, v)
+        wa, wb = torch.arange(mh), torch.arange(mw)
+        live = ((p0 + wa < po)[:, None] & (q0 + wb < pw)[None, :])[..., None]
+        ties += int(((sum((v == mx).int() for v in views) - 1)
+                     * live).clamp_min(0).sum())
+        gt = g[img][(p0 + wa).clamp(max=po - 1)][:, (q0 + wb)
+                                                   .clamp(max=pw - 1)]
+        gt = torch.where(live, gt.float(), 0.0)
+        own = zc[1:1 + 2 * wh, 1:1 + 2 * ww]
+        acc = torch.zeros((2 * wh, 2 * ww, k))
+        for t in range(9):
+            i, j = divmod(t, 3)
+            lr, lc = 2 * wa + i - 1, 2 * wb + j - 1
+            ka = (lr >= 0) & (lr < 2 * wh) & (p0 + wa < po)
+            kb = (lc >= 0) & (lc < 2 * ww) & (q0 + wb < pw)
+            if not (ka.any() and kb.any()):
+                continue
+            r_, c_ = lr[ka][:, None], lc[kb][None, :]
+            a_, b_ = wa[ka][:, None], wb[kb][None, :]
+            acc[r_, c_] += torch.where(own[r_, c_] == mx[a_, b_],
+                                       gt[a_, b_], 0.0)
+        r1, c1 = min(ho, 2 * p0 + 2 * wh), min(wo, 2 * q0 + 2 * ww)
+        nr, nc = r1 - 2 * p0, c1 - 2 * q0
+        z0o = z0[1:1 + nr, 1:1 + nc]
+        d = torch.where(z0o > 0, acc[:nr, :nc], 0.0).to(y.dtype)
+        dz[img, 2 * p0:r1, 2 * q0:c1] = d
+        yhat = (ys[1:1 + nr, 1:1 + nc].float() - mu) * inv
+        df = d.float().reshape(-1, k)
+        parts.append(torch.stack([df.sum(0), (df * yhat.reshape(-1, k))
+                                  .sum(0)]))
+    sums = torch.stack(parts).double().sum(0).float()
+    return dz, sums, ties
+
+
+def _tiling_inputs(n, ho, wo, dtype, seed):
+    """y [n, ho, wo, K] with per-channel statistics, g, and the BN rows,
+    for both packages; bf16 y on a grid of quarter steps so that window
+    maxima tie often (after the affine and the rounding too)."""
+    rng = np.random.default_rng(seed)
+    aff, mu, sd = _rows(rng)
+    draw = rng.standard_normal((n, ho, wo, K))
+    if dtype == "bf16":
+        draw = np.round(draw * 4) / 4
+    y = _both(mu + sd * draw, dtype)
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    gout = _both(rng.standard_normal((n, po, pw, K)), dtype)
+    return y, gout, aff
+
+
+#: (n, ho, wo, windows a tile): the conv outputs of the ragged cases, cut
+#: by the kernel's tile and by one of 2 x 3 windows, and the main path's
+#: 112 x 112 (7 x 7 tiles)
+TILINGS = [(2, 9, 13, (8, 8)), (2, 9, 13, (2, 3)), (2, 15, 17, (8, 8)),
+           (2, 15, 17, (2, 3)), (1, 112, 112, (8, 8))]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("n, ho, wo, windows", TILINGS)
+def test_the_pool_tiling_mirror_matches_the_jax_kernel(n, ho, wo, windows,
+                                                       dtype):
+    y, gout, aff = _tiling_inputs(n, ho, wo, dtype, seed=ho * wo)
+    dz, sums, ties = _pool_tiling_mirror(y[0], gout[0], aff[0], windows)
+    pdz, psums = ts.stem_bwd_pool_plain(y[0], gout[0], aff[0])
+    assert torch.equal(dz, pdz)
+    if dtype == "bf16":
+        assert ties > 0
+    g = {"po": gout[0].shape[1], "pw": gout[0].shape[2]}
+    jdz, jsums = js._bwd_pool(y[1], gout[1], aff[1], g, True)
+    _check(dz, jdz, dtype)
+    yhat = (y[0].float() - aff[0][3]) * aff[0][2]
+    _sums_close(sums, jsums, [dz, dz.float() * yhat])
+    _sums_close(sums, psums, [dz, dz.float() * yhat], rel=1e-6)
+
+
+#: (n, ho, wo, K): the training shape at B = 128, the ragged cases'
+#: conv outputs at B = 3 (K = 36), a channel chunk and a half
+STEM_POOL_PLANS = [(128, 112, 112, 64), (3, 5, 7, 36), (3, 8, 9, 36),
+                   (2, 17, 33, 96), (1, 1, 1, 8)]
+
+
+@pytest.mark.parametrize("n, ho, wo, k", STEM_POOL_PLANS)
+def test_the_pool_plan_stores_every_pixel_once(n, ho, wo, k):
+    """Tile (i, j) of each image stores the pixels 16 i .. 16 i + 15 by
+    16 j .. 16 j + 15 inside it, and reads the windows 8 i .. 8 i + 8 by
+    8 j .. 8 j + 8: every pixel once, every window that covers a stored
+    pixel among those read; one partial a tile, so the partials' rows
+    are the grid's blocks, and the channel chunks cover K."""
+    plan = ts._stem_pool_plan(n, ho, wo, k)
+    (wh, ww), (down, across) = ts._POOL_WINDOWS, plan.grid
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    assert plan.tiles == n * down * across
+    assert (plan.chunks - 1) * ts._POOL_CHANNELS < k <= \
+        plan.chunks * ts._POOL_CHANNELS
+    seen = np.zeros((n, ho, wo), np.int64)
+    for t in range(plan.tiles):
+        img, rem = divmod(t, down * across)
+        i, j = divmod(rem, across)
+        seen[img, 2 * wh * i:2 * wh * (i + 1), 2 * ww * j:2 * ww * (j + 1)] += 1
+        for r in range(2 * wh * i, min(ho, 2 * wh * (i + 1))):
+            for p in {r // 2, (r + 1) // 2}:
+                assert p >= po or wh * i <= p <= wh * (i + 1)
+    assert (seen == 1).all()
+    assert -(-po // wh) == down and -(-pw // ww) == across
 
 
 # ---------------------------------------------------------------------
