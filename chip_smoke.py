@@ -715,10 +715,9 @@ _PARENT_PAGED = {}
 def parent_paged_kernel(parent, quant=False):
     """The paged kernel of another checkout (``--parent``: the parent
     commit's tree), built from its own source beside this one's, for
-    timing in turns on the same inputs; None without one. Its bf16/f32
-    entry points take this tree's arguments (the split decode: scratch,
-    counters and splits); its int8 ones the first design's (no scratch,
-    no splits)."""
+    timing in turns on the same inputs; None without one. Its entry
+    points take this tree's arguments (the split decode: scratch,
+    counters and splits; the int8 ones also the pools' scales)."""
     if not parent:
         return None
     if not _PARENT_PAGED:
@@ -730,11 +729,10 @@ def parent_paged_kernel(parent, quant=False):
         from deeplearning4j_tpu_torch.serving import paged_kernel as pk
         src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / \
             "serving" / "csrc" / "paged_attention.cu"
-        p, i = ctypes.c_void_p, ctypes.c_int
         lib = CudaLibrary(
             "paged_attention_parent", [str(src)],
             {**{sym: pk._ARGTYPES for sym in pk._SYMBOL.values()},
-             **{sym: [p] * 8 + [i] * 8 + [ctypes.c_float, p]
+             **{sym: pk._QUANT_ARGTYPES
                 for sym in pk._QUANT_SYMBOL.values()}})
         _PARENT_PAGED[False] = CudaKernel(lib, "paged_attention_parent",
                                           pk._SYMBOL)
@@ -745,32 +743,27 @@ def parent_paged_kernel(parent, quant=False):
 
 def paged_launch(kernel, args, W, out):
     """One launch of the parent checkout's paged decode (``kernel``) on
-    the wrapper's arguments, into ``out``: the bf16/f32 split decode
-    with this tree's plan and scratch, or (seven arguments: the int8
-    pools and their scales) the first int8 design."""
+    the wrapper's arguments, into ``out``, with this tree's plan and
+    scratch: the bf16/f32 split decode, or (seven arguments: the int8
+    pools and their scales) the int8 one."""
     from deeplearning4j_tpu_torch.serving import paged_kernel as pk
     q, kp, vp, table, lengths = args[:5]
     S, hkv, rw, D = q.shape
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (S, hkv, rw, D, kp.shape[2], table.shape[1], kp.shape[0], W)
-    if len(args) == 7:
-        ks, vs = args[5:]
-        kernel.launch(q.dtype, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                      ks.data_ptr(), vs.data_ptr(), table.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), *tail,
-                      1.0 / D ** 0.5, stream)
-        return
-    plan = paged_plan(q, table)
+    plan = paged_plan(q, table, kp.element_size())
     part = counters = None
     if plan.splits > 1:
         part = torch.empty(S * hkv * plan.splits * rw * (D + 2),
                            dtype=torch.float32, device=q.device)
         counters = pk._counters(q.device, stream, S * hkv)
+    scales = tuple(t.data_ptr() for t in args[5:])
     kernel.launch(q.dtype, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                  table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  *scales, table.data_ptr(), lengths.data_ptr(),
+                  out.data_ptr(),
                   part.data_ptr() if part is not None else None,
                   counters.data_ptr() if counters is not None else None,
-                  *tail, plan.splits, 1.0 / D ** 0.5, stream)
+                  S, hkv, rw, D, kp.shape[2], table.shape[1], kp.shape[0], W,
+                  plan.splits, 1.0 / D ** 0.5, stream)
 
 
 def parent_turns(old, args, W, out, kern, ref, device):
@@ -2236,8 +2229,26 @@ CNN_RAGGED = {
     "ragged_1x1_s2": ("conv1x1", dict(h=10, w=14, c=20, k=36, stride=2,
                                       act="identity")),
     "ragged_3x3": ("conv3x3", dict(h=9, w=13, c=20, k=36, act="relu")),
+    # the stem at an odd image (the last patches and the s2d halo's last
+    # rows cut by the image) and a small one at K = 36 (masked columns,
+    # element stores), at C = 1 and 4 (the tensor-core route's narrowest
+    # and widest input)
+    "ragged_stem_223x225_c1": ("stem_conv", dict(h=223, w=225, c=1, k=64)),
+    "ragged_stem_223x225_c4": ("stem_conv", dict(h=223, w=225, c=4, k=64)),
+    "ragged_stem_15x17_c1": ("stem_conv", dict(h=15, w=17, c=1, k=36)),
+    "ragged_stem_15x17_c4": ("stem_conv", dict(h=15, w=17, c=4, k=36)),
 }
 CNN_RAGGED_B = 3
+#: the stem conv's planted faults (bf16): "shifted_tap", tap (1, 1)'s
+#: window read one s2d pixel to the right; "unrounded_sums", the sums taken
+#: over the f32 accumulator, not the stored y. The first fails the output
+#: limits at any shape. The second moves a channel's Σy by the rounding's
+#: random walk, about 2^-9 / sqrt(3 n) of Σ|y| for n pixels a channel, so
+#: CONV_SUMS (1e-5) tells it only where n is small: it is held up to
+#: STEM_SUMS_TOLD pixels a channel (the 15 x 17 cases, n = 216) and
+#: recorded beyond (n = 1.6 M at B = 128: ~1e-6, untellable)
+STEM_CONV_FAULTS = ("shifted_tap", "unrounded_sums")
+STEM_SUMS_TOLD = 5000
 
 
 def cnn_inputs(kernel, geo, n, dtype, device, seed, gen="cpu"):
@@ -2396,10 +2407,143 @@ def cnn_compare(got, ref, dtype):
     return rec, failures
 
 
-def cnn_case(name, dtype, n, device, seed, cases=None):
+def stem_conv_fault(x, ws, fault):
+    """The plain stem conv (the s2d im2col in f32, one f32 matmul) with a
+    planted fault (STEM_CONV_FAULTS): (y, Σ, Σ²)."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    from deeplearning4j_tpu_torch.nn.layers.bottleneck import _stats
+    n, h, wd, _ = x.shape
+    g = stem.stem_geometry(h, wd)
+    ho, wo = g["ho"], g["wo"]
+    sd = stem._s2d_image(x.float(), g)
+    cols = []
+    for i in range(4):
+        for j in range(4):
+            j0 = j + (fault == "shifted_tap" and (i, j) == (1, 1))
+            cols.append(sd[:, i:i + ho, j0:j0 + wo, :].reshape(-1, sd.shape[3]))
+    acc = torch.cat(cols, dim=1).to(ws.dtype).float() @ ws.float()
+    y = acc.to(x.dtype).reshape(n, ho, wo, ws.shape[1])
+    if fault == "unrounded_sums":
+        return y, acc.sum(0), (acc * acc).sum(0)
+    return (y, *_stats(y))
+
+
+def stem_conv_launches():
+    """The stem conv's device kernels started so far (the CUDA-core GEMM,
+    the tensor-core pass), as its launchers count them."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    out = (ctypes.c_int * 2)()
+    stem._LIBRARY.load().dl4j_stem_conv_kernel_launches(out)
+    return list(out)
+
+
+def stem_conv_record(a, geo, n, dtype, kern, got, device):
+    """The stem conv case's route: the route stem_conv_route picks, the
+    device kernel one call starts (which must be that route's), its plan
+    (the tensor cores), and in bf16 the planted faults against the
+    kernel's output (the failures the limits must show, where held).
+    Returns (the record, the failures)."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    from deeplearning4j_tpu_torch.nn.layers.bottleneck import _sm_count
+    rec, failures = {"route": stem.stem_conv_route(dtype, geo["c"])}, []
+    before = stem_conv_launches()
+    kern()
+    torch.cuda.synchronize()
+    ran = [x - y for x, y in zip(stem_conv_launches(), before)]
+    rec["device_kernels"] = {"conv_gemm_kernel": ran[0],
+                             "conv_tc_kernel": ran[1]}
+    if ran != ([0, 1] if rec["route"] == "tensor_cores" else [1, 0]):
+        failures.append(f"route {rec['route']} launched {ran}")
+    if rec["route"] == "tensor_cores":
+        rec["plan"] = stem._stem_conv_plan(
+            n, geo["h"], geo["w"], geo["k"], _sm_count(device))._asdict()
+    if dtype == torch.bfloat16:
+        ws = stem.stem_weight_s2d(a["w7"])
+        ho, wo = (geo["h"] - 1) // 2 + 1, (geo["w"] - 1) // 2 + 1
+        rec["planted"] = {}
+        for fault in STEM_CONV_FAULTS:
+            frec, ffail = cnn_compare(stem_conv_fault(a["x"], ws, fault),
+                                      got, dtype)
+            held = fault == "shifted_tap" or n * ho * wo <= STEM_SUMS_TOLD
+            rec["planted"][fault] = {
+                **{k: frec[k] for k in ("row_rel", "tile_rel", "sums_rel")},
+                "failures": ffail, "held": held}
+            if held and not ffail:
+                failures.append(f"the limits do not tell {fault}")
+    return rec, failures
+
+
+#: the kernel libraries of another checkout (``--parent``), built once
+_PARENT_LIBS = {}
+
+
+def parent_library(parent, name, source, functions):
+    """The kernel library ``name`` of the checkout ``parent`` (the parent
+    commit's tree), built from its own source (``source``, under its
+    package; the headers it includes are its own) beside this one's,
+    with ``functions`` {symbol: argtypes}; loaded."""
+    if name not in _PARENT_LIBS:
+        from pathlib import Path
+
+        from deeplearning4j_tpu_torch.cuda_library import CudaLibrary
+        src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / source
+        _PARENT_LIBS[name] = CudaLibrary(f"{name}_parent", [str(src)],
+                                         functions)
+    return _PARENT_LIBS[name].load()
+
+
+def in_turns(old, kern, device, iters=30):
+    """The parent checkout's call (``old``) and this one's (``kern``)
+    timed in turns (parent, kernel, kernel, parent)."""
+    turns = [median_ms(old, device, iters), median_ms(kern, device, iters),
+             median_ms(kern, device, iters), median_ms(old, device, iters)]
+    return {"parent_ms": [turns[0], turns[3]],
+            "kernel_ms_turns": turns[1:3]}
+
+
+def parent_stem_turns(parent, a, ref_y, kern, device):
+    """The parent checkout's bf16 stem conv (the CUDA-core implicit GEMM
+    of conv_gemm.cuh) on the same inputs: its output against the plain
+    version's, and its time in turns with this one's."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib = parent_library(parent, "stem", "nn/layers/csrc/stem.cu",
+                         {"dl4j_stem_conv_bf16": [p_] * 7 + [i_] * 6 + [p_],
+                          "dl4j_conv_row_tile": []})
+    x, ws = a["x"], stem.stem_weight_s2d(a["w7"])
+    n, h, wd, c = x.shape
+    k = ws.shape[1]
+    g = stem.stem_geometry(h, wd)
+    y = torch.empty((n, g["ho"], g["wo"], k), dtype=x.dtype, device=device)
+    tiles = -(-(n * g["ho"] * g["wo"]) // lib.dl4j_conv_row_tile())
+    part = torch.empty((2, k, tiles), dtype=torch.float32, device=device)
+    sums = torch.zeros((2, k), dtype=torch.float32, device=device)
+
+    def old():
+        err = lib.dl4j_stem_conv_bf16(
+            x.data_ptr(), ws.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), n,
+            h, wd, c, k, tiles, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's stem conv: CUDA error {err}")
+
+    old()
+    torch.cuda.synchronize()
+    return {**in_turns(old, kern, device),
+            "parent_max_abs_err": float((y.float() - ref_y.float()).abs()
+                                        .max())}
+
+
+def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     """One case: the kernel against its plain version on the same
     inputs, in bf16 two launches bitwise equal, and the kernel's, plain
-    version's and library call's times beside the bound."""
+    version's and library call's times beside the bound; for the stem
+    conv its route and planted faults (stem_conv_record) and, with a
+    parent checkout, the parent's kernel in turns at the main shape."""
     kernel, geo = (cases or CNN_CASES)[name]
     a = cnn_inputs(kernel, geo, n, dtype, device, seed)
     kern, plain, library, unrounded = cnn_fns(kernel, geo, a)
@@ -2428,6 +2572,11 @@ def cnn_case(name, dtype, n, device, seed, cases=None):
         failures += fails
         finite = "not finite" not in fails
         ro = ref[0]
+        if kernel == "stem_conv":
+            srec, sfails = stem_conv_record(a, geo, n, dtype, kern, got,
+                                            device)
+            case.update(srec)
+            failures += sfails
         if dtype == torch.bfloat16 and unrounded is not None:
             # the limits' power: the plain version without the rounding
             # of the activated input (z in f32), its output rounded as
@@ -2441,12 +2590,16 @@ def cnn_case(name, dtype, n, device, seed, cases=None):
     if not finite or failures:
         raise AssertionError(f"{kernel} kernel disagrees with its plain "
                              f"version ({failures}, finite {finite}): {case}")
-    del got, ref
+    del got
     bound_ms, bound_by = cnn_bound(kernel, geo, n, dtype)
     case.update(ms=median_ms(kern, device),
                 plain_ms=median_ms(plain, device, iters=10),
                 library_ms=median_ms(library, device),
                 bound_ms=bound_ms, bound_by=bound_by)
+    if parent and kernel == "stem_conv" and dtype == torch.bfloat16 and \
+            cases is None:
+        case["parent"] = parent_stem_turns(parent, a, ref[0], kern, device)
+    del ref
     log("cnn", json.dumps(case))
     del a, kern, plain, library, unrounded
     torch.cuda.empty_cache()
@@ -2640,20 +2793,43 @@ def fwd_sweep(device, smi):
     return {"convs": rows, "per_forward": fwd}
 
 
-def check_cnn_kernels(device, smi):
-    """The SASS check; every case in bf16 at the main path's batch, then
-    in f32 at 16; the ragged cases in both at B=3; the sweep of a
-    forward's convs."""
+def stem_conv_sass():
+    """The stem library's SASS: the bf16 tensor-core conv function holds
+    HMMA.16816.F32.BF16 and the CUDA-core implicit GEMMs none; the
+    tensor-core function's registers, spills (none may spill) and
+    dynamic shared memory."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    rec, bad = tc_sass(stem._LIBRARY, "14conv_tc_kernel",
+                       "16conv_gemm_kernel")
+    rec["smem_bytes"] = stem._LIBRARY.load().dl4j_stem_conv_tc_smem()
+    bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
+            if any("spill" in x and " 0 bytes spill stores" not in x
+                   for x in lines)]
+    log("stem conv sass:", json.dumps(rec))
+    if bad:
+        raise AssertionError(f"stem conv sass: HMMA.16816.F32.BF16 counts "
+                             f"off or spills in {bad}: "
+                             f"{rec['hmma_16816_f32_bf16']}")
+    return rec
+
+
+def check_cnn_kernels(device, smi, parent=None):
+    """The SASS checks; every case in bf16 at the main path's batch (the
+    stem conv with the parent's kernel in turns, given one), then in f32
+    at 16; the ragged cases in both at B=3; the sweep of a forward's
+    convs."""
     sass = conv_sass()
+    stem_sass_rec = stem_conv_sass()
     check_tile_guard(device)
-    cases = [cnn_case(name, dtype, n, device, seed=i)
+    cases = [cnn_case(name, dtype, n, device, seed=i, parent=parent)
              for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
              for i, name in enumerate(CNN_CASES)]
     cases += [cnn_case(name, dtype, CNN_RAGGED_B, device, seed=50 + i,
                        cases=CNN_RAGGED)
               for dtype in (torch.bfloat16, torch.float32)
               for i, name in enumerate(CNN_RAGGED)]
-    return {"cases": cases, "sweep": fwd_sweep(device, smi), "sass": sass}
+    return {"cases": cases, "sweep": fwd_sweep(device, smi),
+            "sass": {**sass, "stem_conv": stem_sass_rec}}
 
 
 # ---------------------------------------------------------------------
@@ -4863,6 +5039,160 @@ def lstm_fault_forward(a, fault):
     return torch.stack(outs)
 
 
+#: the backward's planted faults: "dh_bf16_dgates", dh_{t-1} from the
+#: dgates rounded to bf16 (the tensor-core product without the split's
+#: lower terms); "dc_no_peep", dc_{t-1} without the pI / pF terms. The
+#: second is a semantic fault, held wherever there are peepholes; the
+#: first is bf16 rounding noise, held in f32 and reported (its readings,
+#: told or not) in bf16, where the limits at a long T are of its size
+LSTM_BWD_FAULTS = ("dh_bf16_dgates", "dc_no_peep")
+
+
+def lstm_fault_backward(gates, c, c0, rw, peep, dout, dh_t, dc_t, fault):
+    """lstm_backward_plain with a planted fault (LSTM_BWD_FAULTS):
+    (dzx, dh0, dc0) in dout's dtype."""
+    t_len, n, h = c.shape
+    dt = dout.dtype
+    rwt = rw.float().t()
+    p = None if peep is None else peep.float()
+    dh_next, dc_next = dh_t.float(), dc_t.float()
+    dzx = []
+    for t in range(t_len - 1, -1, -1):
+        i, f, g, o = gates[t].float().split(h, dim=1)
+        cn = c[t].float()
+        cp = c0.float() if t == 0 else c[t - 1].to(dt).float()
+        dh = dout[t].float() + dh_next
+        tc = torch.tanh(cn)
+        dzo = dh * tc * o * (1.0 - o)
+        dcn = dh * o * (1.0 - tc * tc) + dc_next
+        if p is not None:
+            dcn = dcn + p[2] * dzo
+        dzi = dcn * g * i * (1.0 - i)
+        dzf = dcn * cp * f * (1.0 - f)
+        dzg = dcn * i * (1.0 - g * g)
+        dc_next = dcn * f
+        if p is not None and fault != "dc_no_peep":
+            dc_next = dc_next + p[0] * dzi + p[1] * dzf
+        dg = torch.cat([dzi, dzf, dzg, dzo], dim=1)
+        dzx.append(dg.to(dt))
+        if fault == "dh_bf16_dgates":
+            dg = dg.to(torch.bfloat16).float()
+        dh_next = dg @ rwt
+    return torch.stack(dzx[::-1]), dh_next.to(dt), dc_next.to(dt)
+
+
+def lstm_bwd_launches():
+    """The backward's device kernels started so far (the cooperative
+    kernel, the cluster kernel), as its launchers count them."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    out = (ctypes.c_int * 2)()
+    lk._LIBRARY.load().dl4j_lstm_bwd_kernel_launches(out)
+    return list(out)
+
+
+def parent_lstm_bwd(parent, bwd_args, device):
+    """The parent checkout's backward (the cooperative kernel at every H)
+    on the same arguments: a thunk launching it, and its outputs."""
+    import ctypes
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    args = [p_] * 14 + [i_] * 6 + [p_]
+    lib = parent_library(parent, "lstm", "nn/layers/csrc/lstm.cu",
+                         {"dl4j_lstm_plan": [i_] * 4 +
+                          [ctypes.POINTER(ctypes.c_int)],
+                          "dl4j_lstm_bwd_f32": args,
+                          "dl4j_lstm_bwd_bf16": args})
+    gates, c, c0, rw, peep, dout, dh_t, dc_t = bwd_args
+    t, n, h = c.shape
+    bf16 = dout.dtype == torch.bfloat16
+    plan = (ctypes.c_int * 7)()
+    err = lib.dl4j_lstm_plan(n, h, int(bf16), 1, plan)
+    if err:
+        raise RuntimeError(f"the parent's LSTM plan: CUDA error {err}")
+    dt, f32 = dout.dtype, torch.float32
+    outs = (torch.empty((t, n, 4 * h), dtype=dt, device=device),
+            torch.empty((n, h), dtype=dt, device=device),
+            torch.empty((n, h), dtype=dt, device=device))
+    dgbuf = torch.empty((2, n, 4 * h), dtype=f32, device=device)
+    dcbuf = torch.empty((n, h), dtype=f32, device=device)
+    sync = torch.zeros(2, dtype=torch.int32, device=device)
+    fn = lib.dl4j_lstm_bwd_bf16 if bf16 else lib.dl4j_lstm_bwd_f32
+
+    def old():
+        e = fn(gates.data_ptr(), c.data_ptr(), c0.data_ptr(), rw.data_ptr(),
+               None if peep is None else peep.data_ptr(), dout.data_ptr(),
+               dh_t.data_ptr(), dc_t.data_ptr(), *(o.data_ptr()
+                                                   for o in outs),
+               dgbuf.data_ptr(), dcbuf.data_ptr(), sync.data_ptr(), t, n, h,
+               plan[0], plan[4], plan[5],
+               torch.cuda.current_stream().cuda_stream)
+        if e:
+            raise RuntimeError(f"the parent's LSTM backward: CUDA error {e}")
+
+    return old, outs
+
+
+def cluster_row_tiles(bwd_args, device):
+    """The bf16 cluster backward at both row tiles a block (16 and 32
+    rows: the plan takes the one whose clusters the card runs in fewer
+    waves), each with its clusters, shared memory and time, launched
+    past the wrapper (its count untouched)."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    lib = lk._LIBRARY.load()
+    gates, c, c0, rw, peep, dout, dh_t, dc_t = bwd_args
+    t, n, h = c.shape
+    outs = [torch.empty((t, n, 4 * h), dtype=dout.dtype, device=device),
+            torch.empty((n, h), dtype=dout.dtype, device=device),
+            torch.empty((n, h), dtype=dout.dtype, device=device)]
+    rec = {}
+    for mt in (1, 2):
+        def call(mt=mt):
+            e = lib.dl4j_lstm_bwd_cluster_bf16(
+                gates.data_ptr(), c.data_ptr(), c0.data_ptr(), rw.data_ptr(),
+                None if peep is None else peep.data_ptr(), dout.data_ptr(),
+                dh_t.data_ptr(), dc_t.data_ptr(),
+                *(o.data_ptr() for o in outs), t, n, h, mt,
+                torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"cluster backward at mt {mt}: CUDA "
+                                   f"error {e}")
+        plan = lk._lstm_bwd_cluster_plan(n, h, dout.dtype, mt)
+        rec[f"rows_{plan.rows}"] = {"clusters": plan.batch_tiles,
+                                    "smem": plan.smem,
+                                    "ms": median_ms(call, device, iters=10)}
+    return rec
+
+
+def lstm_sass():
+    """The LSTM library's SASS: the bf16 cluster backward holds
+    HMMA.16816.F32.BF16, the f32 one and the cooperative and forward
+    kernels none; each cluster function's registers and spills (none
+    may spill)."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    counts, tool = sass_hmma(lk._LIBRARY)
+    tc = {f: n for f, n in counts.items()
+          if "cluster_kernelI13__nv_bfloat16" in f}
+    rest = {f: n for f, n in counts.items() if f not in tc}
+    rec = {"tool": tool, "hmma_16816_f32_bf16": {"cluster_bf16": tc,
+                                                  "others": rest},
+           "ptxas": ptxas_usage(lk._LIBRARY, "lstm_bwd_cluster_kernel")}
+    bad = [f for f, n in tc.items() if n == 0] + \
+        [f for f, n in rest.items() if n != 0]
+    if not tc:
+        bad.append("no bf16 cluster function found")
+    bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
+            if any("spill" in x and " 0 bytes spill stores" not in x
+                   for x in lines)]
+    log("lstm sass:", json.dumps(rec))
+    if bad:
+        raise AssertionError(f"lstm sass: HMMA.16816.F32.BF16 counts off "
+                             f"or spills in {bad}: {counts}")
+    return rec
+
+
 def lstm_bounds(t, n, h, dtype, exp_rate, peep):
     """Least time on this card, as (ms, by), for the inference forward,
     the training forward (its f32 saves written too) and the backward:
@@ -4921,7 +5251,7 @@ def cudnn_lstm_fns(t, n, h, dtype, device, seed):
 
 
 def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
-              mask=False, timed=False):
+              mask=False, timed=False, parent=None):
     """One shape: the forward kernel against its plain version (out, hT,
     cT, and without a mask the saved gates and c), the backward kernel
     against its plain version on the plain forward's saves (dzx, dh0,
@@ -4929,7 +5259,10 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
     equal; with a mask the masked outputs exactly 0 and the fully masked
     row's hT, cT exactly h0, c0; the planted faults beyond the limits.
     ``timed``: the kernels', plain versions' and cuDNN's times beside the
-    bounds."""
+    bounds, and with a parent checkout its backward in turns with this
+    one's. The backward's route, the device kernel one call starts
+    (which must be that route's) and its planted faults
+    (LSTM_BWD_FAULTS) are recorded."""
     from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
     a = lstm_inputs(t, n, h, dtype, device, seed, peep, mask)
     args = (a["zx"], a["rw"], a["h0"], a["c0"], a["peephole"], a["mask"])
@@ -4950,7 +5283,16 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
         sv = ref[3]
         bwd_args = (sv[0], sv[1], a["c0"], a["rw"], a["peephole"], a["dout"],
                     a["dh"], a["dc"])
+        before = lstm_bwd_launches()
         bg = lk.lstm_backward(*bwd_args)
+        torch.cuda.synchronize()
+        ran = [x - y for x, y in zip(lstm_bwd_launches(), before)]
+        case["bwd_route"] = lk.lstm_bwd_route(n, h, dtype)
+        case["bwd_device_kernels"] = {"lstm_bwd_kernel": ran[0],
+                                      "lstm_bwd_cluster_kernel": ran[1]}
+        if ran != ([0, 1] if case["bwd_route"] == lk.CLUSTER else [1, 0]) \
+                or case["plan_bwd"]["route"] != case["bwd_route"]:
+            failures.append(f"route {case['bwd_route']} launched {ran}")
         again = lk.lstm_backward(*bwd_args)
         br = lk.lstm_backward_plain(*bwd_args)
         torch.cuda.synchronize()
@@ -4960,6 +5302,21 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
             failures.append("two backward launches differ")
         outs.update(dzx=(bg[0], br[0]), dh0=(bg[1], br[1]),
                     dc0=(bg[2], br[2]))
+        case["planted_bwd"] = {}
+        for fault in LSTM_BWD_FAULTS:
+            if fault == "dc_no_peep" and not peep:
+                continue
+            bad = lstm_fault_backward(*bwd_args, fault)
+            reads = {key: conv_agreement(b_, g_)
+                     for key, b_, g_ in zip(("dzx", "dh0", "dc0"), bad, bg)}
+            told = any(r[0] > limits["row_rel"] or r[1] > limits["tile_rel"]
+                       for r in reads.values())
+            held = fault == "dc_no_peep" or dtype == torch.float32
+            case["planted_bwd"][fault] = {"readings": reads, "told": told,
+                                          "held": held}
+            if held and not told:
+                failures.append(f"the limits do not tell {fault}")
+            del bad
     finite = all(bool(torch.isfinite(g_).all()) for g_, _ in outs.values())
     for key, (g_, r_) in outs.items():
         row_rel, tile_rel = conv_agreement(g_, r_)
@@ -5020,6 +5377,18 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
                 "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1]}
         case["fwd"]["projection_plus_kernel_ms"] = median_ms(port, device,
                                                              iters=10)
+        if case["bwd_route"] == lk.CLUSTER and dtype == torch.bfloat16:
+            case["bwd"]["row_tiles"] = cluster_row_tiles(bwd_args, device)
+        if parent:
+            old, pouts = parent_lstm_bwd(parent, bwd_args, device)
+            old()
+            torch.cuda.synchronize()
+            case["bwd"]["parent"] = {
+                **in_turns(old, rows["bwd"][0], device, iters=10),
+                "parent_max_abs_err": max(
+                    float((u.float() - v.float()).abs().max())
+                    for u, v in zip(pouts, br))}
+            del pouts
         case["library"] = ("torch.nn.LSTM (cuDNN, no peepholes; input "
                            "width H, its own projection inside): forward; "
                            "backward alone (autograd.grad over a retained "
@@ -5030,28 +5399,39 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
     return case
 
 
-def check_lstm_kernels(device, exp_rate):
-    """The recurrence kernels at the text LSTM's shape (T = N = H = 256,
-    timed), without peepholes (timed, against cuDNN's LSTM), at the
+def check_lstm_kernels(device, exp_rate, parent=None):
+    """The LSTM library's SASS; the recurrence kernels at the text LSTM's
+    shape (T = N = H = 256, timed, with a parent checkout its backward
+    in turns), without peepholes (timed, against cuDNN's LSTM), at the
     decode shape (N = T = 1, timed), with a mask, at an H that splits
-    unevenly (200), and short (T = 8), in bf16 and f32; then reverse
-    through ``lstm_scan`` in f32 (the wrapper's flips of zx, the mask
-    and the outputs: no kernel code of their own; in bf16 its gradients,
-    products over 4H columns of the backward's recurrence noise, read up
-    to 8.6e-4 in the tiles, which would blur the check)."""
+    unevenly (200), short (T = 8), and at the smallest H whose backward
+    takes the cooperative route (512; N = 64, T = 4: over 32 steps the
+    bf16 forward's one-ulp flips at this H reach 1.4e-4 in the tiles,
+    past the short limit), in bf16 and f32;
+    then reverse through ``lstm_scan`` in f32 (the wrapper's flips of
+    zx, the mask and the outputs: no kernel code of their own; in bf16
+    its gradients, products over 4H columns of the backward's recurrence
+    noise, read up to 8.6e-4 in the tiles, which would blur the
+    check)."""
+    sass = lstm_sass()
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, t, n, h, kw) in enumerate((
-                ("main", 256, 256, 256, dict(timed=True)),
+                ("main", 256, 256, 256, dict(timed=True, parent=parent)),
                 ("main_nopeep", 256, 256, 256, dict(peep=False, timed=True)),
                 ("decode", 1, 1, 256, dict(timed=True)),
                 ("mask", 32, 64, 256, dict(mask=True)),
                 ("uneven", 32, 256, 200, {}),
-                ("short", 8, 256, 256, {}))):
+                ("short", 8, 256, 256, {}),
+                ("cooperative", 4, 64, 512, {}))):
             cases.append(lstm_case(name, t, n, h, dtype, device, 60 + i,
                                    exp_rate, **kw))
+    coop = [c for c in cases if c["case"] == "cooperative"]
+    if any(c["bwd_route"] != "cooperative" for c in coop):
+        raise AssertionError(f"H = 512 did not take the cooperative route: "
+                             f"{[c['plan_bwd'] for c in coop]}")
     cases.append(lstm_reverse_case(torch.float32, device))
-    return cases
+    return {"cases": cases, "sass": sass}
 
 
 def lstm_swapped():
@@ -5332,7 +5712,22 @@ def lstm_entry(name, replaces, launches, cases, text):
             "replaces": replaces, "launches": launches,
             **({} if kind == "fwd" else {
                 "replaces_note": "the port's own kernel, no TPU twin: JAX's "
-                                 "_lstm_bwd differentiates through a scan"}),
+                                 "_lstm_bwd differentiates through a scan",
+                "design": "redesigned: clusters of the unit tiles of a "
+                          "batch tile exchange dgates through distributed "
+                          "shared memory, one cluster barrier a step; bf16 "
+                          "products on mma.sync over a three-term split",
+                "bwd_route": main["bwd_route"],
+                "functions": {"cluster": "cl::lstm_bwd_cluster_kernel<T> "
+                                         "(H <= 256)",
+                              "cooperative": "lstm_bwd_kernel<T> (H > 256)"},
+                "plan_bwd": main["plan_bwd"],
+                "planted_bwd": main["planted_bwd"],
+                **({"parent": main["bwd"]["parent"]}
+                   if "parent" in main["bwd"] else {}),
+                "ms_f32": next(c["bwd"]["ms"] for c in cases
+                               if c["case"] == "main"
+                               and c["dtype"] == "float32")}),
             "launches_on": f"{LSTM_STEPS} fit steps of the text LSTM",
             "launches_output": text["inference"]["launches"][name],
             "launches_sample_stream": text["stream"]["launches"][name],
@@ -5361,7 +5756,7 @@ def cnn_entry(name, replaces, launches, cases, sweep):
     mine = [c for c in cases if c["kernel"] == name]
     main = mine[0]
     keys = ("max_abs_err", "row_rel", "tile_rel", "sums_rel",
-            "unrounded_tile_rel", "bitwise_repeat")
+            "unrounded_tile_rel", "bitwise_repeat", "route", "planted")
     conv = name in sweep["per_forward"]
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/" + (
@@ -5370,6 +5765,16 @@ def cnn_entry(name, replaces, launches, cases, sweep):
             **({"design": "redesigned for the tensor cores (bf16: "
                           "mma.sync over conv_mma.cuh; f32: the CUDA "
                           "cores)"} if conv else {}),
+            **({"design": "redesigned for the tensor cores (bf16 at 4 C "
+                          "<= 16: a 16-tap conv over the s2d halo tile, "
+                          "mma.sync over conv_mma.cuh; f32 and wider "
+                          "inputs: the CUDA-core implicit GEMM)",
+                "core_route": main["route"],
+                "functions": {"tensor_cores": "conv_tc::conv_tc_kernel",
+                              "cuda_cores":
+                                  "conv_gemm_kernel<T, kStemS2d>"},
+                **({"parent": main["parent"]} if "parent" in main else {})}
+               if name == "stem_conv" else {}),
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -5543,8 +5948,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--parent", help="another checkout of the repo (the "
-                    "parent commit's tree): phases 3 and 3c build its "
-                    "paged kernels and time them in turns with this one's")
+                    "parent commit's tree): phases 3, 3c, 10 and the LSTM "
+                    "kernels' build its paged kernels, stem conv and LSTM "
+                    "backward and time them in turns with this one's")
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
@@ -5627,7 +6033,7 @@ def main(argv=None) -> int:
         out["train_reference_bf16"] = phase(
             "train_reference_bf16", train_reference_bf16, device)
     if want("cnn"):
-        cnn = phase("cnn", check_cnn_kernels, device, smi)
+        cnn = phase("cnn", check_cnn_kernels, device, smi, args.parent)
         out["cnn_cases"], out["cnn_fwd_sweep"], out["cnn_sass"] = \
             cnn["cases"], cnn["sweep"], cnn["sass"]
     if want("resnet"):
@@ -5695,8 +6101,9 @@ def main(argv=None) -> int:
             "resnet_fuse_true_reference", resnet_train_reference, device,
             "fuse_true")
     if want("lstm_kernels"):
-        out["lstm_cases"] = phase("lstm_kernels", check_lstm_kernels, device,
-                                  exp_rate)
+        lkc = phase("lstm_kernels", check_lstm_kernels, device, exp_rate,
+                    args.parent)
+        out["lstm_cases"], out["lstm_sass"] = lkc["cases"], lkc["sass"]
     if want("text_lstm"):
         tl = out["text_lstm"] = phase("text_lstm", text_lstm, device)
         log("text_lstm:", json.dumps({

@@ -25,14 +25,15 @@
 // The backward takes those saves, c0, RW, P and the gradients of out, hT,
 // cT, and writes dzx = dgates [T, N, 4H] (in T), dh0 and dc0; each step
 // computes dgates from dh, dc and the saved gates (the peephole terms
-// included) and dh_{t-1} = dgates RW^T. dW, db, dRW and dP are products
-// and reductions over the whole sequence, computed outside as the JAX
-// package computes them outside any Pallas kernel. No float atomics: two
-// launches give the same bits.
+// included) and dh_{t-1} = dgates RW^T on the f32 dgates. dW, db, dRW and
+// dP are products and reductions over the whole sequence, computed
+// outside as the JAX package computes them outside any Pallas kernel. No
+// float atomics: two launches give the same bits.
 //
 // Translation. The TPU kernel walks T on a sequential grid with RW and the
 // (h, c) carry resident in VMEM. Blocks on an H100 run in no order, so the
-// time loop moves inside one persistent launch:
+// time loop moves inside one persistent launch. The forward, and the
+// backward where H > 256 (the cooperative route):
 //   - each block owns a tile of hidden units (ub of them) with all four of
 //     their gate columns, so the cell update stays inside the block, and
 //     one or more tiles of batch rows (nb); its slice of RW (RW[:, 4 ub]
@@ -53,18 +54,44 @@
 //     The barrier itself is a counter and a generation word, with a
 //     __threadfence() by every thread before arriving, so the next step
 //     reads every block's h_t.
+// The backward where H <= 256 (the cluster route, namespace cl below):
+// the recurrence couples hidden units only within a batch row, so the
+// unit tiles of one batch tile (at most 8 of up to 32 units) form one
+// thread-block cluster, and the clusters need no barrier between them.
+// Each step a block writes its piece of dgates_t (its rows x 4 ub gate
+// columns) into its own double-buffered shared memory, the cluster meets
+// at one barrier.cluster arrive / wait (release / acquire), and each warp
+// reads one peer's piece through distributed shared memory, every load
+// of it in flight at once. In bf16 the piece is written as three bf16
+// terms hi + mid + lo of each f32 value (exact for normal values: 3 x 8
+// significand bits cover f32's 24), laid out as mma.sync m16n8k16 A
+// fragments, so a lane takes its fragment in one 16-byte load; the warp
+// multiplies them against the block's RW[ub, :] slice (bf16, resident in
+// shared memory, read with ldmatrix), the three terms into zeroed
+// fragments promoted with round-to-nearest adds each k16 step (the tensor
+// cores' accumulation rounds toward zero), and the warps' partials are
+// summed in a fixed order. In f32 the piece is f32 ([column][row]); each
+// warp reads one peer's piece through distributed shared memory, 16
+// columns' loads in flight at a time, and multiplies it on the CUDA cores
+// against the resident f32 RW^T slice, a lane taking 4 rows x 4 units,
+// the warps' partials summed in the same fixed order. The step's saves
+// (the gates, c and c_{t-1},
+// f32) are copied a step ahead by cp.async, dout a step ahead into
+// registers; a thread's dc stays in registers for the whole sequence.
 //
 // What bounds it on an H100. Inference at T = N = H = 256, bf16, one
 // layer: zx (134 MB) read and out (34 MB) written, 0.050 ms at 3.35 TB/s;
 // 2 T N H 4H = 34.4 GFLOP, 0.035 ms at the bf16 tensor-core peak; the
-// training forward also writes 336 MB of f32 saves (0.150 ms). No formula
-// shows the sequential floor: T dependent steps, each a grid barrier of a
-// few microseconds, so about 0.5-1 ms at T = 256. This first version is the
-// simple, right one: the products run on the f32 CUDA cores from shared
-// memory, and every block re-reads h from L2 each step. mma.sync/wgmma
-// for h RW, and clusters sharing h through distributed shared memory, are
-// a later kernel's work. The decode shape (N = 1, T = 1) is bound by the
-// launch's latency.
+// training forward also writes 336 MB of f32 saves (0.150 ms), which the
+// backward reads. No formula shows the sequential floor: T dependent
+// steps, each a barrier and a chain of dependent reads, so the time is
+// latency. The forward (and the cooperative backward) runs its products
+// on the f32 CUDA cores from shared memory and re-reads h from L2 each
+// step in dependent chunk rounds behind a grid barrier. The cluster
+// backward's step is one cluster barrier, one round of distributed
+// shared-memory loads, 24 mma.sync per warp (bf16) and the elementwise
+// update; its f32 route is bound by the f32 FMA rate (2 T N H 4H FMAs).
+// The decode shape (N = 1, T = 1) is bound by the launch's latency.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -72,10 +99,14 @@
 // on the caller's stream, allocates nothing and returns the launch's CUDA
 // error code.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -487,6 +518,13 @@ int plan(int n, int h, bool bwd, int* out) {
   return best_score < 0 ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
 }
 
+// ---------------------------------------------------------------------
+// the device kernels the backward's launchers started, by kind (read
+// through dl4j_lstm_bwd_kernel_launches)
+// ---------------------------------------------------------------------
+enum BwdKernel : int { kBwdCooperative = 0, kBwdCluster = 1 };
+int bwd_launched[2] = {0, 0};
+
 template <typename T, typename Args>
 int launch(Args a, bool bwd, int ub, int groups, int resident,
            void* stream) {
@@ -554,8 +592,538 @@ int lstm_bwd(const void* gates, const void* csave, const void* c0,
   a.t_len = t_len;
   a.n = n;
   a.h = h;
-  return launch<T>(a, true, ub, groups, resident, stream);
+  const int err = launch<T>(a, true, ub, groups, resident, stream);
+  if (!err) ++bwd_launched[kBwdCooperative];
+  return err;
 }
+
+// ---------------------------------------------------------------------
+// the backward on thread-block clusters (H <= 256)
+// ---------------------------------------------------------------------
+namespace cl {
+
+namespace cg = cooperative_groups;
+using dl4j_mma::bf16;
+using dl4j_mma::smem_addr;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;               // a portable cluster
+constexpr int kMaxUnits = 32;                // units a block: 4 n8 fragments
+constexpr int kMaxKs = 4 * kMaxUnits / 16;   // k16 steps of a piece
+constexpr int kMaxMt = 2;                    // m16 row tiles a block
+constexpr int kTerms = 3;                    // bf16 terms of an f32 value
+constexpr int kTile = 256;                   // bf16 of a 16 x 16 A tile
+constexpr int kVals = 6;                     // saves a pair: i f g o, c,
+                                             // c_{t-1}
+constexpr int kRedStride = kMaxUnits + 8;    // a warp partial's row (f32)
+
+// The split of one launch: cs blocks a cluster (unit tiles of ub units),
+// a piece of kp gate columns (4 ub padded to whole k16 steps, ks of
+// them), nb = 16 mt rows a block, batch_tiles clusters; wstride is the
+// bf16 RW slice's row (cs kp columns, padded by 8).
+struct Geo {
+  int cs, ub, kp, ks, mt, nb, batch_tiles, wstride;
+};
+
+inline Geo geo(int n, int h, int mt) {
+  Geo g;
+  g.cs = (h + kMaxUnits - 1) / kMaxUnits;
+  g.ub = (h + g.cs - 1) / g.cs;
+  g.kp = (4 * g.ub + 15) / 16 * 16;
+  g.ks = g.kp / 16;
+  g.mt = mt;
+  g.nb = 16 * mt;
+  g.batch_tiles = (n + g.nb - 1) / g.nb;
+  g.wstride = g.cs * g.kp + 8;
+  return g;
+}
+
+// Bytes of shared memory a block takes: the two exchange buffers (bf16:
+// A fragments of the three terms; f32: the piece [kp][nb]), the RW slice
+// (bf16: [32][wstride]; f32: RW^T [cs kp][32]), the warps' partials and
+// the saves' two stages.
+inline size_t smem_bytes(const Geo& g, bool tc) {
+  const size_t rest =
+      static_cast<size_t>(kWarps) * g.nb * kRedStride * sizeof(float) +
+      2ull * kVals * 2 * g.mt * kThreads * sizeof(float);
+  if (tc)
+    return 2ull * g.mt * g.ks * kTerms * kTile * sizeof(bf16) +
+           32ull * g.wstride * sizeof(bf16) + rest;
+  return 2ull * g.nb * g.kp * sizeof(float) +
+         static_cast<size_t>(g.cs) * g.kp * kMaxUnits * sizeof(float) + rest;
+}
+
+struct Args {
+  const float* gates;   // [T, N, 4H]
+  const float* csave;   // [T, N, H]
+  const void* c0;
+  const void* rw;
+  const void* peep;     // [3, H] or null
+  const void* dout;     // [T, N, H]
+  const void* dh_t;     // [N, H] or null
+  const void* dc_t;     // [N, H] or null
+  void* dzx;
+  void* dh0;
+  void* dc0;
+  int t_len, n, h;
+  Geo g;
+};
+
+// Copy 4 bytes (or, where !valid, write 4 zero bytes).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Element (r, c) of a 16 x 16 bf16 tile laid out as mma.sync m16n8k16 A
+// fragments: lane (r % 8) 4 + (c % 8) / 2 holds 8 values, a0 .. a7 =
+// (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1), (r, c + 8), ..., so a
+// lane takes its fragment in one 16-byte load.
+__device__ __forceinline__ int frag_at(int r, int c) {
+  return ((r & 7) * 4 + ((c & 7) >> 1)) * 8 +
+         2 * ((r >> 3) + 2 * (c >> 3)) + (c & 1);
+}
+
+// Block (batch tile bt, cluster rank q) owns rows 16 mt bt .. + 16 mt and
+// units q ub .. + ub (their four gate columns); a thread owns the units
+// 2 (tid % 16) + {0, 1} of the rows tid / 16 + 16 m: their dc carry, their
+// dgates, their saves. Step s (T - 1 down to 0; s = -1 only takes dh0):
+//   1. dh_s = dgates_{s+1} RW^T over the peers' pieces of step s + 1:
+//      warp w multiplies peer w's piece (bf16: on the tensor cores; f32:
+//      on the CUDA cores), the warps' partials summed in order;
+//   2. the next step's saves copied (cp.async) and its dout loaded;
+//   3. dgates_s, dc from dh, dc and the saves (the peephole terms), dzx
+//      stored, the piece of step s written into buffer s & 1;
+//   4. the cluster barrier: every piece of step s visible to every peer.
+// Double buffering suffices: a block writes buffer s & 1 only after the
+// barrier of step s + 1, which every peer reaches after its reads of
+// that buffer (the pieces of step s + 2).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bwd_cluster_kernel(Args a) {
+  constexpr bool kTc = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Geo g = a.g;
+  const int H = a.h, N = a.n, H4 = 4 * H;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bt = blockIdx.x / g.cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int unit0 = rank * g.ub;
+  const int own = min(g.ub, H - unit0);   // this block's units
+  const int up = tid & 15, rr = tid >> 4;
+  const int pp = 2 * g.mt;                // pairs a thread
+  const T* rw = static_cast<const T*>(a.rw);
+  const T* c0 = static_cast<const T*>(a.c0);
+  const T* peep = static_cast<const T*>(a.peep);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* dh_t = static_cast<const T*>(a.dh_t);
+  const T* dc_t = static_cast<const T*>(a.dc_t);
+  T* dzx = static_cast<T*>(a.dzx);
+
+  // shared memory: the exchange, the RW slice, the warps' partials, the
+  // saves
+  const int xelems = kTc ? g.mt * g.ks * kTerms * kTile : g.nb * g.kp;
+  unsigned char* p = smem;
+  T* xch = reinterpret_cast<T*>(p);   // [2][xelems]
+  p += 2ull * xelems * sizeof(T);
+  bf16* wb = reinterpret_cast<bf16*>(p);   // bf16: [32][wstride]
+  float* wt = reinterpret_cast<float*>(p);   // f32: [cs kp][32]
+  p += kTc ? 32ull * g.wstride * sizeof(bf16)
+           : static_cast<size_t>(g.cs) * g.kp * kMaxUnits * sizeof(float);
+  float* red = reinterpret_cast<float*>(p);   // [8][nb][kRedStride]
+  p += static_cast<size_t>(kWarps) * g.nb * kRedStride * sizeof(float);
+  float* sv = reinterpret_cast<float*>(p);   // [2][kVals][pp][kThreads]
+
+  // the exchange zeroed (rows past N, units past H and the padding stay
+  // zero), and the RW slice: column q kp + gg ub + u of unit uu is
+  // RW[unit0 + uu, gg H + q ub + u], zero past the units and gate
+  // columns
+  {
+    uint4* x4 = reinterpret_cast<uint4*>(xch);
+    const int n4 = static_cast<int>(2ull * xelems * sizeof(T) / 16);
+    for (int i = tid; i < n4; i += kThreads) x4[i] = make_uint4(0, 0, 0, 0);
+    const int kall = g.cs * g.kp;
+    for (int i = tid; i < 32 * kall; i += kThreads) {
+      const int uu = kTc ? i / kall : i % 32;
+      const int col = kTc ? i - uu * kall : i / 32;
+      const int q = col / g.kp;
+      const int kl = col - q * g.kp;
+      const int gg = kl / g.ub;
+      const int u = kl - gg * g.ub;
+      const bool ok = uu < own && gg < 4 && u < min(g.ub, H - q * g.ub);
+      const T v = ok ? rw[static_cast<size_t>(unit0 + uu) * H4 + gg * H +
+                          q * g.ub + u]
+                     : T(0.f);
+      if constexpr (kTc)
+        wb[uu * g.wstride + col] = v;
+      else
+        wt[i] = v;
+    }
+  }
+  // this thread's pairs (m, e): row rr + 16 m, unit 2 up + e
+  int nrow[kMaxMt][2], jcol[kMaxMt][2];
+  bool ok[kMaxMt][2];
+  float p_i[2], p_f[2], p_o[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int ul = 2 * up + e;
+    const bool uok = ul < own;
+    p_i[e] = p_f[e] = p_o[e] = 0.f;
+    if (peep != nullptr && uok) {
+      p_i[e] = to_f32(peep[unit0 + ul]);
+      p_f[e] = to_f32(peep[H + unit0 + ul]);
+      p_o[e] = to_f32(peep[2 * H + unit0 + ul]);
+    }
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m) {
+      nrow[m][e] = bt * g.nb + rr + 16 * m;
+      jcol[m][e] = unit0 + ul;
+      ok[m][e] = m < g.mt && uok && nrow[m][e] < N;
+    }
+  }
+  auto slot = [&](int st, int v, int pr) {
+    return sv + ((st * kVals + v) * pp + pr) * kThreads + tid;
+  };
+  // the saves of step t into stage t & 1 (one copy group)
+  auto issue = [&](int t) {
+    if (t >= 0) {
+#pragma unroll
+      for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (m >= g.mt) continue;
+          const int pr = 2 * m + e;
+          const bool v = ok[m][e];
+          const size_t nt = static_cast<size_t>(t) * N + nrow[m][e];
+          const size_t g0 = v ? nt * H4 + jcol[m][e] : 0;
+          const size_t c1 = v ? nt * H + jcol[m][e] : 0;
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg)
+            cp_async4(slot(t & 1, gg, pr), a.gates + g0 + gg * (v ? H : 0),
+                      v);
+          cp_async4(slot(t & 1, 4, pr), a.csave + c1, v);
+          cp_async4(slot(t & 1, 5, pr),
+                    a.csave + (v && t > 0 ? c1 - static_cast<size_t>(N) * H
+                                          : 0),
+                    v && t > 0);
+        }
+    }
+    dl4j_mma::cp_async_commit();
+  };
+  auto load_dout = [&](int t, float (&d)[kMaxMt][2]) {
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[m][e] = ok[m][e] ? to_f32(dout[(static_cast<size_t>(t) * N +
+                                          nrow[m][e]) * H + jcol[m][e]])
+                           : 0.f;
+  };
+
+  float dh[kMaxMt][2], dc[kMaxMt][2], dnext[kMaxMt][2];
+#pragma unroll
+  for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) dh[m][e] = dc[m][e] = 0.f;
+  issue(a.t_len - 1);
+  load_dout(a.t_len - 1, dnext);
+  cluster.sync();   // every block started, its exchange zeroed
+
+  for (int s = a.t_len - 1; s >= -1; --s) {
+    if (s < a.t_len - 1) {
+      // dh_s = dgates_{s+1} RW^T from the pieces in buffer (s + 1) & 1
+      const int buf = (s + 1) & 1;
+      if constexpr (kTc) {
+        if (warp < g.cs) {
+          const bf16* piece = cluster.map_shared_rank(
+              reinterpret_cast<const bf16*>(xch) + buf * xelems, warp);
+#pragma unroll 1
+          for (int m = 0; m < g.mt; ++m) {
+            uint4 av[kMaxKs][kTerms];
+#pragma unroll
+            for (int ks = 0; ks < kMaxKs; ++ks)
+#pragma unroll
+              for (int tm = 0; tm < kTerms; ++tm)
+                if (ks < g.ks)
+                  av[ks][tm] = *reinterpret_cast<const uint4*>(
+                      piece + ((m * g.ks + ks) * kTerms + tm) * kTile +
+                      lane * 8);
+            float acc[4][4];
+#pragma unroll
+            for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[nf][q] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < kMaxKs; ++ks) {
+              if (ks >= g.ks) continue;
+              uint32_t bfr[2][4];
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2)
+                dl4j_mma::ldsm_x4<false>(
+                    smem_addr(wb + (16 * h2 + dl4j_mma::b_n(lane)) *
+                                       g.wstride +
+                              warp * g.kp + 16 * ks + dl4j_mma::b_k(lane)),
+                    bfr[h2]);
+              // lo, mid, hi into zeroed fragments, then promoted
+              float part[4][4];
+#pragma unroll
+              for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) part[nf][q] = 0.f;
+#pragma unroll
+              for (int tm = kTerms - 1; tm >= 0; --tm) {
+                const uint32_t af[4] = {av[ks][tm].x, av[ks][tm].y,
+                                        av[ks][tm].z, av[ks][tm].w};
+#pragma unroll
+                for (int nf = 0; nf < 4; ++nf)
+                  dl4j_mma::mma_16816(part[nf], af,
+                                      bfr[nf >> 1][(nf & 1) * 2],
+                                      bfr[nf >> 1][(nf & 1) * 2 + 1]);
+              }
+#pragma unroll
+              for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[nf][q] += part[nf][q];
+            }
+#pragma unroll
+            for (int nf = 0; nf < 4; ++nf) {
+              const int row = 16 * m + (lane >> 2);
+              const int col = 8 * nf + 2 * (lane & 3);
+              float* r0 = red + (warp * g.nb + row) * kRedStride + col;
+              *reinterpret_cast<float2*>(r0) =
+                  make_float2(acc[nf][0], acc[nf][1]);
+              *reinterpret_cast<float2*>(r0 + 8 * kRedStride) =
+                  make_float2(acc[nf][2], acc[nf][3]);
+            }
+          }
+        }
+      } else if (warp < g.cs) {
+        // f32: lane (row group, unit group) takes 4 rows x 4 units of the
+        // peer's piece (stored [column][row]) against the RW^T slice, 16
+        // columns' loads in flight at a time, on the CUDA cores
+        const float* piece = cluster.map_shared_rank(
+            reinterpret_cast<const float*>(xch) + buf * xelems, warp);
+        const int r0 = 4 * (lane >> 3), u0 = 4 * (lane & 7);
+        const float* wq = wt + warp * g.kp * kMaxUnits + u0;
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int k0 = 0; k0 < g.kp; k0 += 16) {
+          float4 d[16];
+#pragma unroll
+          for (int kk = 0; kk < 16; ++kk)
+            d[kk] = *reinterpret_cast<const float4*>(
+                piece + (k0 + kk) * g.nb + r0);
+#pragma unroll
+          for (int kk = 0; kk < 16; ++kk) {
+            const float4 w4 = *reinterpret_cast<const float4*>(
+                wq + (k0 + kk) * kMaxUnits);
+            const float dv[4] = {d[kk].x, d[kk].y, d[kk].z, d[kk].w};
+            const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(dv[i], wv[j], acc[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(
+              red + (warp * g.nb + r0 + i) * kRedStride + u0) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+      // the warps' partials summed in order
+        __syncthreads();
+#pragma unroll
+        for (int m = 0; m < kMaxMt; ++m) {
+          if (m >= g.mt) continue;
+          float2 sum = make_float2(0.f, 0.f);
+          for (int w = 0; w < g.cs; ++w) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                red + (w * g.nb + rr + 16 * m) * kRedStride + 2 * up);
+            sum.x += v.x;
+            sum.y += v.y;
+          }
+          dh[m][0] = sum.x;
+          dh[m][1] = sum.y;
+        }
+    }
+    if (s < 0) {
+#pragma unroll
+      for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (ok[m][e])
+            static_cast<T*>(a.dh0)[static_cast<size_t>(nrow[m][e]) * H +
+                                   jcol[m][e]] = from_f32<T>(dh[m][e]);
+      break;
+    }
+    issue(s - 1);   // the next step's saves, in flight during this one
+    float dcur[kMaxMt][2];
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) dcur[m][e] = dnext[m][e];
+    if (s > 0) load_dout(s - 1, dnext);
+    dl4j_mma::cp_async_wait<1>();   // this step's saves
+
+    const int t = s;
+    const bool last = t == a.t_len - 1;
+    T* xo = xch + (t & 1) * xelems;
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!ok[m][e]) continue;
+        const int pr = 2 * m + e;
+        const size_t nh = static_cast<size_t>(nrow[m][e]) * H + jcol[m][e];
+        const float dh_next =
+            last ? (dh_t != nullptr ? to_f32(dh_t[nh]) : 0.f) : dh[m][e];
+        const float dc_next =
+            last ? (dc_t != nullptr ? to_f32(dc_t[nh]) : 0.f) : dc[m][e];
+        const float ig = *slot(t & 1, 0, pr), fg = *slot(t & 1, 1, pr);
+        const float gg = *slot(t & 1, 2, pr), og = *slot(t & 1, 3, pr);
+        const float cn = *slot(t & 1, 4, pr);
+        // the carried c_{t-1}: c0, or the saved c of step t-1 rounded to T
+        const float cp = t == 0 ? to_f32(c0[nh])
+                                : to_f32(from_f32<T>(*slot(t & 1, 5, pr)));
+        const float dhv = dcur[m][e] + dh_next;
+        const float tc = tanhf(cn);
+        const float dzo = dhv * tc * og * (1.f - og);
+        const float dcn =
+            dhv * og * (1.f - tc * tc) + dc_next + p_o[e] * dzo;
+        const float dzi = dcn * gg * ig * (1.f - ig);
+        const float dzf = dcn * cp * fg * (1.f - fg);
+        const float dzg = dcn * ig * (1.f - gg * gg);
+        const float dcp = dcn * fg + p_i[e] * dzi + p_f[e] * dzf;
+        const float dz[4] = {dzi, dzf, dzg, dzo};
+        const size_t g0 =
+            (static_cast<size_t>(t) * N + nrow[m][e]) * H4 + jcol[m][e];
+        const int ul = 2 * up + e;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dzx[g0 + q * H] = from_f32<T>(dz[q]);
+          const int kl = q * g.ub + ul;   // the piece's gate column
+          if constexpr (kTc) {
+            // hi + mid + lo = dz exactly (each remainder exact in f32)
+            const bf16 hi = __float2bfloat16(dz[q]);
+            const float r1 = dz[q] - __bfloat162float(hi);
+            const bf16 mid = __float2bfloat16(r1);
+            const bf16 lo = __float2bfloat16(r1 - __bfloat162float(mid));
+            bf16* tile = xo + (m * g.ks + (kl >> 4)) * kTerms * kTile +
+                         frag_at(rr, kl & 15);
+            tile[0] = hi;
+            tile[kTile] = mid;
+            tile[2 * kTile] = lo;
+          } else {
+            xo[kl * g.nb + rr + 16 * m] = dz[q];
+          }
+        }
+        dc[m][e] = dcp;
+        if (t == 0) static_cast<T*>(a.dc0)[nh] = from_f32<T>(dcp);
+      }
+    cluster.sync();   // the pieces of step s written and visible
+  }
+  cluster.sync();   // no block leaves while a peer reads its pieces
+}
+
+// Launch the cluster kernel at mt row tiles a block.
+template <typename T>
+int launch(Args a, int mt, cudaStream_t st) {
+  constexpr bool kTc = sizeof(T) == 2;
+  if (mt < 1 || mt > (kTc ? kMaxMt : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.g = geo(a.n, a.h, mt);
+  if (a.g.cs > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes(a.g, kTc);
+  auto fn = lstm_bwd_cluster_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.g.cs * a.g.batch_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.g.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fn, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++bwd_launched[kBwdCluster];
+  return static_cast<int>(e);
+}
+
+// The clusters the card runs at once for the split at mt (0 where a
+// block's shared memory does not fit).
+template <typename T>
+int active_clusters(const Geo& g, int* out) {
+  const size_t bytes = smem_bytes(g, sizeof(T) == 2);
+  int dev = 0, smem_max = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  *out = 0;
+  if (bytes > static_cast<size_t>(smem_max)) return 0;
+  auto fn = lstm_bwd_cluster_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.cs * g.batch_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &cfg));
+}
+
+// The split of the cluster route for N rows and H units (H <= 256): the
+// row tiles a block (bf16: 16 or 32, f32: 16) whose clusters the card
+// runs in the fewest waves, ties to 16 (less work a step). Fills out[8]
+// (cs, ub, kp, mt, nb, batch_tiles, smem, active clusters).
+template <typename T>
+int plan(int n, int h, int* out) {
+  constexpr bool kTc = sizeof(T) == 2;
+  if (geo(n, h, 1).cs > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long best = -1;
+  for (int mt = 1; mt <= (kTc ? kMaxMt : 1); ++mt) {
+    const Geo g = geo(n, h, mt);
+    int active = 0;
+    const int e = active_clusters<T>(g, &active);
+    if (e) return e;
+    if (active < 1) continue;
+    const long long waves = (g.batch_tiles + active - 1) / active;
+    if (best < 0 || waves < best) {
+      best = waves;
+      const int vals[8] = {g.cs, g.ub, g.kp, g.mt, g.nb, g.batch_tiles,
+                           static_cast<int>(smem_bytes(g, kTc)), active};
+      for (int i = 0; i < 8; ++i) out[i] = vals[i];
+    }
+  }
+  return best < 0 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+}  // namespace cl
 
 }  // namespace
 
@@ -591,6 +1159,45 @@ DL4J_LSTM_FWD(dl4j_lstm_fwd_bf16, __nv_bfloat16)
   }
 DL4J_LSTM_BWD(dl4j_lstm_bwd_f32, float)
 DL4J_LSTM_BWD(dl4j_lstm_bwd_bf16, __nv_bfloat16)
+
+#define DL4J_LSTM_BWD_CLUSTER(NAME, T)                                       \
+  int NAME(const void* gates, const void* csave, const void* c0,             \
+           const void* rw, const void* peep, const void* dout,               \
+           const void* dh_t, const void* dc_t, void* dzx, void* dh0,         \
+           void* dc0, int t_len, int n, int h, int mt, void* stream) {       \
+    cl::Args a;                                                              \
+    a.gates = static_cast<const float*>(gates);                              \
+    a.csave = static_cast<const float*>(csave);                              \
+    a.c0 = c0;                                                               \
+    a.rw = rw;                                                               \
+    a.peep = peep;                                                           \
+    a.dout = dout;                                                           \
+    a.dh_t = dh_t;                                                           \
+    a.dc_t = dc_t;                                                           \
+    a.dzx = dzx;                                                             \
+    a.dh0 = dh0;                                                             \
+    a.dc0 = dc0;                                                             \
+    a.t_len = t_len;                                                         \
+    a.n = n;                                                                 \
+    a.h = h;                                                                 \
+    return cl::launch<T>(a, mt, static_cast<cudaStream_t>(stream));          \
+  }
+DL4J_LSTM_BWD_CLUSTER(dl4j_lstm_bwd_cluster_f32, float)
+DL4J_LSTM_BWD_CLUSTER(dl4j_lstm_bwd_cluster_bf16, __nv_bfloat16)
+
+// The cluster route's split for N rows and H units on this card (out[8]:
+// cluster size, units a block, piece columns, row tiles a block, rows a
+// block, clusters, shared memory bytes, clusters the card runs at once).
+int dl4j_lstm_bwd_cluster_plan(int n, int h, int bf16, int* out) {
+  return bf16 ? cl::plan<__nv_bfloat16>(n, h, out) : cl::plan<float>(n, h, out);
+}
+
+// The backward's device kernels started so far, by kind (out[2]: the
+// cooperative kernel, the cluster kernel).
+int dl4j_lstm_bwd_kernel_launches(int* out) {
+  for (int i = 0; i < 2; ++i) out[i] = bwd_launched[i];
+  return 0;
+}
 
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

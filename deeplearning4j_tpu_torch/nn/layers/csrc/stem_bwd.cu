@@ -128,6 +128,7 @@
 
 #include "conv_gemm.cuh"
 #include "conv_mma.cuh"
+#include "stem_s2d.cuh"
 
 namespace {
 
@@ -655,31 +656,23 @@ using dl4j_mma::kFragM;
 using dl4j_mma::kFragN;
 using dl4j_mma::smem_addr;
 
-constexpr int kTh = 8;                   // output patch: 8 rows ...
-constexpr int kTw = 16;                  // ... of 16 pixels, one k16 step
-constexpr int kPatch = kTh * kTw;        // 128 output pixels
-constexpr int kHh = kTh + 3;             // the s2d halo the 4x4 taps read:
-constexpr int kHw = kTw + 3;             //   11 x 19 s2d pixels
-constexpr int kHalo = kHh * kHw;
-constexpr int kHs = 24;                  // a halo row: 16 channels, padded
-                                         // to 48 bytes (no ldmatrix bank
-                                         // conflicts)
-constexpr int kRawRows = 2 * kHh;        // the x rows under the halo: 22
-constexpr int kRawCols = 2 * kHw;        // x columns under it: 38
-constexpr int kRawChunks = 20;           // 16-byte chunks of a raw row:
-                                         // ceil((38 C + 7) / 8) at C = 4
-constexpr int kRawRow = 8 * kRawChunks;  // bf16
-constexpr int kMaxC = 4;                 // 4 C <= 16
+using dl4j_s2d::kHalo;
+using dl4j_s2d::kHs;
+using dl4j_s2d::kHw;
+using dl4j_s2d::kMaxC;
+using dl4j_s2d::kPatch;
+using dl4j_s2d::kRawElems;
+using dl4j_s2d::kTh;   // output patch: 8 rows ...
+using dl4j_s2d::kTw;   // ... of 16 pixels, one k16 step
 constexpr int kCols = 64;                // output channels a block owns
 constexpr int kDs = kCols + 8;           // the dy tile's row stride
 constexpr int kThreads = 256;            // 8 warps: 4 tap rows x 2 halves
-constexpr int kStageElems = kRawRows * kRawRow + 2 * kPatch * kCols;
+constexpr int kStageElems = kRawElems + 2 * kPatch * kCols;
 constexpr int kStages = dl4j_mma::stages_for(kStageElems * sizeof(bf16));
 constexpr size_t kSmem =
     (static_cast<size_t>(kHalo) * kHs + kPatch * kDs) * sizeof(bf16) +
     5 * kCols * sizeof(float) +
     static_cast<size_t>(kStages) * kStageElems * sizeof(bf16);
-static_assert(kMaxC * 38 + 7 <= kRawRow, "a raw row holds its x segment");
 
 struct Dw {
   int n, h, w, c;       // x [n, h, w, c]
@@ -692,15 +685,6 @@ struct Dw {
   int vec_x;            // x 16-byte aligned: its rows by cp.async
   int x_elems;          // elements of x
 };
-
-// Copy 16 bytes, of which the first `bytes` from src, the rest zeros.
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 
 // A block owns kCols output channels and walks its slot's patches of 8 x
 // 16 output pixels; per patch, from a ring of kStages copies (the x rows
@@ -730,6 +714,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int mine = (s.patches - slot + s.slots - 1) / s.slots;
   const int per_img = s.prow * s.pcol;
   const bool vec = s.vec != 0;
+  const dl4j_s2d::Src src{x, s.h, s.w, s.c, s.x_elems, s.vec_x};
   bf16* Hs = reinterpret_cast<bf16*>(smem);                  // [kHalo][kHs]
   bf16* Ds = Hs + kHalo * kHs;                               // [kPatch][kDs]
   float* Cs = reinterpret_cast<float*>(Ds + kPatch * kDs);   // [5][kCols]
@@ -760,33 +745,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       bf16* st = Ring + (g % kStages) * kStageElems;
       int img, oh0, ow0;
       origin(slot + g * s.slots, img, oh0, ow0);
-      // the x rows under the halo: x columns xcl .. xch of rows 2 oh0 -
-      // 3 .. + 22, whole 16-byte chunks of x from the one holding the
-      // first element (zero-filled past x's end)
-      const int xc0 = 2 * ow0 - 3;
-      const int xcl = max(xc0, 0);
-      const int xch = min(xc0 + kRawCols, s.w);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int it = tid + j * kThreads;
-        if (it >= kRawRows * kRawChunks) continue;
-        const int rr = it / kRawChunks;
-        const int qq = it - rr * kRawChunks;
-        const int xr = 2 * oh0 - 3 + rr;
-        if (xr < 0 || xr >= s.h) continue;
-        const int row = (img * s.h + xr) * s.w;
-        const int q = (((row + xcl) * s.c) >> 3) + qq;
-        if (8 * q >= (row + xch) * s.c) continue;
-        bf16* dst = st + rr * kRawRow + 8 * qq;
-        const int left = s.x_elems - 8 * q;
-        if (s.vec_x)
-          cp_async_n(dst, x + 8 * q, left >= 8 ? 16 : 2 * left);
-        else
-          *reinterpret_cast<uint4*>(dst) =
-              dl4j_mma::load8(x, 8 * q, left >= 8 ? 8 : left, false);
-      }
+      // the x rows under the patch's s2d halo
+      dl4j_s2d::issue_rows<kThreads>(st, src, img, oh0, ow0, tid);
       // y and dz of the patch's pixels (zeros outside the image)
-      bf16* ry = st + kRawRows * kRawRow;
+      bf16* ry = st + kRawElems;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int q = (tid >> 3) + 32 * j;
@@ -806,21 +768,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int col = k0 + i - r * kCols;
     Cs[i] = col < s.k ? __ldg(aff + (r ? r + 1 : 0) * s.k + col) : 0.f;
   }
-  // this thread's halo items: channels 8 hh .. + 8 of s2d pixels (tid >>
-  // 1) + 128 j; channel 8 hh + e is pixel phase (pr, pc) = ((8 hh + e) /
-  // C) / 2, % 2 and input channel (8 hh + e) % C, packed as cc | pc << 4
-  // | pr << 5 (-1 past 4 C)
-  const int hh = tid & 1;
+  // this thread's halo channels (dl4j_s2d::rearrange)
   int code[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int c16 = 8 * hh + e;
-    const int phase = c16 / s.c;
-    code[e] = c16 < 4 * s.c
-                  ? (c16 - phase * s.c) | ((phase & 1) << 4) |
-                        ((phase >> 1) << 5)
-                  : -1;
-  }
+  dl4j_s2d::channel_codes(s.c, tid & 1, code);
 
   // acc: the tensor cores' sums of this patch, whose accumulation rounds
   // toward zero; tot: the totals, promoted into every patch with f32 adds
@@ -840,36 +790,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     issue(i + kStages - 1);
     int img, oh0, ow0;
     origin(slot + i * s.slots, img, oh0, ow0);
-    // the s2d halo: pixel (hu, hv) holds x at (2 (oh0 + hu) - 3 + pr,
-    // 2 (ow0 + hv) - 3 + pc), channel cc, in phase-major order
-    {
-      const unsigned short* raw = reinterpret_cast<const unsigned short*>(st);
-      const int xc0 = 2 * ow0 - 3;
-      const int xcl = max(xc0, 0);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int hp = (tid >> 1) + 128 * j;
-        if (hp >= kHalo) continue;
-        const int hu = hp / kHw;
-        const int hv = hp - hu * kHw;
-        uint32_t wd[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (code[e] < 0) continue;
-          const int rr = 2 * hu + ((code[e] >> 5) & 1);
-          const int xr = 2 * oh0 - 3 + rr;
-          const int xc = xc0 + 2 * hv + ((code[e] >> 4) & 1);
-          if (xr < 0 || xr >= s.h || xc < 0 || xc >= s.w) continue;
-          // the raw row starts at the chunk holding element (row, xcl)
-          const int lead = (((img * s.h + xr) * s.w + xcl) * s.c) & 7;
-          const uint32_t b =
-              raw[rr * kRawRow + lead + (xc - xcl) * s.c + (code[e] & 15)];
-          wd[e >> 1] |= b << ((e & 1) * 16);
-        }
-        *reinterpret_cast<uint4*>(Hs + hp * kHs + 8 * hh) =
-            make_uint4(wd[0], wd[1], wd[2], wd[3]);
-      }
-    }
+    // the s2d halo tile of the patch
+    dl4j_s2d::rearrange<kThreads>(Hs, st, code, src, img, oh0, ow0, tid);
     // dy of the patch's pixels: into the B tile (0 outside the image) and
     // stored
     {
@@ -885,7 +807,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           cd[r][e + 2] = c4.z;
           cd[r][e + 3] = c4.w;
         }
-      const bf16* ry = st + kRawRows * kRawRow;
+      const bf16* ry = st + kRawElems;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int q = (tid >> 3) + 32 * j;

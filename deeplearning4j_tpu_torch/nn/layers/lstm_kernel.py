@@ -12,11 +12,16 @@ The kernels are hand-written CUDA C++ for Hopper, ``csrc/lstm.cu``:
 :func:`lstm_backward` is the port's own (the JAX package differentiates
 through its scan, ``_lstm_bwd``). The source note says what bounds each
 on the card and what the design does about it: one persistent,
-time-looped launch per layer and direction, a grid barrier between
-steps. Each wrapper dispatches on where its tensors lie: CUDA tensors
-launch the kernel (or raise on what it does not take), CPU tensors take
-the plain version beside it, a per-step loop with the kernel's rounding
-points. There is no other route and no process-wide switch.
+time-looped launch per layer and direction. The forward's steps meet at
+a grid barrier; the backward has two routes, :func:`lstm_bwd_route`:
+where the unit tiles of a batch tile fit one thread-block cluster (H <=
+256) the cluster kernel exchanges each step's dgates through distributed
+shared memory and meets at a cluster barrier (its split mirrored by
+:func:`_lstm_bwd_cluster_plan`), else the cooperative kernel of the
+forward's shape. Each wrapper dispatches on where its tensors lie: CUDA
+tensors launch the kernel of their route (or raise on what it does not
+take), CPU tensors take the plain version beside it, a per-step loop
+with the kernel's rounding points. There is no process-wide switch.
 
 Beyond the TPU kernel, the kernels compute what the JAX scan
 (``deeplearning4j_tpu/nn/layers/recurrent.py`` ``lstm_scan``) computes
@@ -43,20 +48,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 
-__all__ = ["LSTMRecurrence", "LSTM_BWD", "LSTM_FWD", "lstm_backward",
-           "lstm_backward_plain", "lstm_forward", "lstm_forward_plain",
+__all__ = ["CLUSTER", "COOPERATIVE", "LSTMRecurrence", "LSTM_BWD",
+           "LSTM_FWD", "lstm_backward", "lstm_backward_plain",
+           "lstm_bwd_route", "lstm_forward", "lstm_forward_plain",
            "lstm_plan", "lstm_recurrence"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 14 + [_I] * 6 + [_P]
 _BWD_ARGS = [_P] * 14 + [_I] * 6 + [_P]
+_BWD_CLUSTER_ARGS = [_P] * 11 + [_I] * 4 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the backward's two routes
+COOPERATIVE, CLUSTER = "cooperative", "cluster"
+#: the cluster route: at most 8 blocks a cluster (the portable size) of
+#: at most 32 units each, 16 rows an m16 tile, 256 threads a block, 6 f32
+#: saves a (row, unit) pair staged two steps deep (csrc/lstm.cu's
+#: cl::kMaxCluster, kMaxUnits, kThreads, kVals)
+_CLUSTER_MAX, _CLUSTER_UNITS, _CLUSTER_THREADS, _CLUSTER_VALS = 8, 32, 256, 6
 
 
 def _symbols(stem):
@@ -68,31 +82,108 @@ _LIBRARY = CudaLibrary(
     "lstm", ["nn/layers/csrc/lstm.cu"],
     {**{s: _FWD_ARGS for s in _symbols("lstm_fwd").values()},
      **{s: _BWD_ARGS for s in _symbols("lstm_bwd").values()},
-     "dl4j_lstm_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]})
+     **{s: _BWD_CLUSTER_ARGS
+        for s in _symbols("lstm_bwd_cluster").values()},
+     "dl4j_lstm_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+     "dl4j_lstm_bwd_cluster_plan": [_I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_int)],
+     "dl4j_lstm_bwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+    headers=["nn/layers/csrc/conv_mma.cuh"])
 
 #: the two kernels; each ``.launches`` counts its launches (one per layer
-#: and direction per forward or backward, whatever T)
+#: and direction per forward or backward, whatever T); the backward's
+#: entry points by (dtype, route)
 LSTM_FWD = CudaKernel(_LIBRARY, "lstm_fwd", _symbols("lstm_fwd"))
-LSTM_BWD = CudaKernel(_LIBRARY, "lstm_bwd", _symbols("lstm_bwd"))
+LSTM_BWD = CudaKernel(_LIBRARY, "lstm_bwd", {
+    **{(dt, COOPERATIVE): sym for dt, sym in _symbols("lstm_bwd").items()},
+    **{(dt, CLUSTER): sym
+       for dt, sym in _symbols("lstm_bwd_cluster").items()}})
+
+
+def lstm_bwd_route(n: int, h: int, dtype) -> str:
+    """The backward's route for N rows, H units and ``dtype``: CLUSTER
+    where the unit tiles of a batch tile (``ceil(H / 32)`` of them) fit
+    one portable cluster of 8 blocks (H <= 256), else COOPERATIVE.
+    Raises on a dtype no route takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"lstm_backward kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if n < 1 or h < 1:
+        raise ValueError(f"lstm_backward: N and H must be at least 1, got "
+                         f"{(n, h)}")
+    return CLUSTER if -(-h // _CLUSTER_UNITS) <= _CLUSTER_MAX \
+        else COOPERATIVE
+
+
+class ClusterPlan(NamedTuple):
+    """The cluster backward's split, as ``csrc/lstm.cu``'s ``cl::geo``
+    makes it: ``cluster`` blocks a cluster of ``ub`` units each (block q
+    owns units ``q ub .. q ub + ub`` inside H), a piece of ``kp`` gate
+    columns a block (4 ub padded to whole k16 steps), ``rows`` = 16
+    ``mt`` batch rows a block, ``batch_tiles`` clusters (cluster b owns
+    rows ``b rows .. b rows + rows`` inside N), and ``smem`` bytes of
+    shared memory a block."""
+    cluster: int
+    ub: int
+    kp: int
+    mt: int
+    rows: int
+    batch_tiles: int
+    smem: int
+
+
+def _lstm_bwd_cluster_plan(n, h, dtype, mt=1) -> ClusterPlan:
+    """The cluster route's split for N rows and H units at ``mt`` row
+    tiles a block (the kernel takes 1 or 2 in bf16, 1 in f32; the card's
+    plan picks the one it runs in the fewest waves)."""
+    cs = -(-h // _CLUSTER_UNITS)
+    ub = -(-h // cs)
+    kp = -(-4 * ub // 16) * 16
+    rows = 16 * mt
+    # the warps' partials and the saves' two stages, then the exchange's
+    # two buffers and the RW slice
+    smem = (8 * rows * (_CLUSTER_UNITS + 8) * 4
+            + 2 * _CLUSTER_VALS * 2 * mt * _CLUSTER_THREADS * 4)
+    if dtype == torch.bfloat16:
+        smem += 2 * mt * (kp // 16) * 3 * 256 * 2 + 32 * (cs * kp + 8) * 2
+    else:
+        smem += 2 * rows * kp * 4 + cs * kp * _CLUSTER_UNITS * 4
+    return ClusterPlan(cs, ub, kp, mt, rows, -(-n // rows), smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(n: int, h: int, bf16: bool, bwd: bool, device_index: int):
-    out = (ctypes.c_int * 7)()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    route = lstm_bwd_route(n, h, dtype) if bwd else COOPERATIVE
     with torch.cuda.device(device_index):
         lib = _LIBRARY.load()
-        _LIBRARY.check("dl4j_lstm_plan",
-                       lib.dl4j_lstm_plan(n, h, int(bf16), int(bwd), out))
-    keys = ("ub", "nb", "units", "batch_tiles", "groups", "resident", "smem")
-    return dict(zip(keys, list(out)))
+        if route == CLUSTER:
+            out = (ctypes.c_int * 8)()
+            _LIBRARY.check("dl4j_lstm_bwd_cluster_plan",
+                           lib.dl4j_lstm_bwd_cluster_plan(n, h, int(bf16),
+                                                          out))
+            keys = ("cluster", "ub", "kp", "mt", "rows", "batch_tiles",
+                    "smem", "active_clusters")
+        else:
+            out = (ctypes.c_int * 7)()
+            _LIBRARY.check("dl4j_lstm_plan",
+                           lib.dl4j_lstm_plan(n, h, int(bf16), int(bwd),
+                                              out))
+            keys = ("ub", "nb", "units", "batch_tiles", "groups",
+                    "resident", "smem")
+    return {"route": route, **dict(zip(keys, list(out)))}
 
 
 def lstm_plan(n: int, h: int, dtype, bwd: bool = False, device=None):
     """The kernel's work split on the current CUDA device for N rows and
-    H units: ``ub`` units and ``nb`` rows a tile, the grid of ``units``
+    H units, with its ``route``. The forward and the cooperative
+    backward: ``ub`` units and ``nb`` rows a tile, the grid of ``units``
     x ``groups`` blocks, whether RW's slice stays resident in shared
-    memory, and the dynamic shared memory a block takes (the source
-    note of ``csrc/lstm.cu`` says how it is chosen)."""
+    memory, and the dynamic shared memory a block takes. The cluster
+    backward: the fields of :class:`ClusterPlan` at the row tiles whose
+    clusters the card runs in the fewest waves, and how many clusters it
+    runs at once (the source note of ``csrc/lstm.cu`` says how each is
+    chosen)."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     return _plan(int(n), int(h), dtype == torch.bfloat16, bool(bwd), idx)
@@ -192,8 +283,9 @@ def lstm_backward(gates, c, c0, rw, peephole, dout, dh_t=None, dc_t=None):
     4H]`` and ``c [T, N, H]`` (f32), c0, rw, the optional peephole (the
     model dtype) and the gradients of out ``[T, N, H]`` and, optionally,
     of hT and cT: ``(dzx [T, N, 4H], dh0, dc0)`` in the model dtype. The
-    kernel on CUDA tensors (one launch for all T steps; the same bits on
-    every launch), :func:`lstm_backward_plain` on CPU tensors."""
+    kernel of :func:`lstm_bwd_route` on CUDA tensors (one launch for all
+    T steps; the same bits on every launch), :func:`lstm_backward_plain`
+    on CPU tensors."""
     if gates.dim() != 3 or c.dim() != 3 or gates.shape[2] != 4 * c.shape[2] \
             or gates.shape[:2] != c.shape[:2]:
         raise ValueError(f"lstm_backward: saves {tuple(gates.shape)} and "
@@ -217,16 +309,23 @@ def lstm_backward(gates, c, c0, rw, peephole, dout, dh_t=None, dc_t=None):
     dzx = torch.empty((t, n, 4 * h), dtype=dt, device=dev)
     dh0 = torch.empty((n, h), dtype=dt, device=dev)
     dc0 = torch.empty((n, h), dtype=dt, device=dev)
+    p = lstm_plan(n, h, dt, bwd=True, device=dev)
+    if p["route"] == CLUSTER:
+        LSTM_BWD.launch((dt, CLUSTER), gates.data_ptr(), c.data_ptr(),
+                        c0.data_ptr(), rw.data_ptr(), _ptr(peephole),
+                        dout.data_ptr(), _ptr(dh_t), _ptr(dc_t),
+                        dzx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t,
+                        n, h, p["mt"], _stream(dout))
+        return dzx, dh0, dc0
     dgbuf = torch.empty((2, n, 4 * h), dtype=torch.float32, device=dev)
     dcbuf = torch.empty((n, h), dtype=torch.float32, device=dev)
     sync = torch.zeros(2, dtype=torch.int32, device=dev)
-    p = lstm_plan(n, h, dt, bwd=True, device=dev)
-    LSTM_BWD.launch(dt, gates.data_ptr(), c.data_ptr(), c0.data_ptr(),
-                    rw.data_ptr(), _ptr(peephole), dout.data_ptr(),
-                    _ptr(dh_t), _ptr(dc_t), dzx.data_ptr(), dh0.data_ptr(),
-                    dc0.data_ptr(), dgbuf.data_ptr(), dcbuf.data_ptr(),
-                    sync.data_ptr(), t, n, h, p["ub"], p["groups"],
-                    p["resident"], _stream(dout))
+    LSTM_BWD.launch((dt, COOPERATIVE), gates.data_ptr(), c.data_ptr(),
+                    c0.data_ptr(), rw.data_ptr(), _ptr(peephole),
+                    dout.data_ptr(), _ptr(dh_t), _ptr(dc_t), dzx.data_ptr(),
+                    dh0.data_ptr(), dc0.data_ptr(), dgbuf.data_ptr(),
+                    dcbuf.data_ptr(), sync.data_ptr(), t, n, h, p["ub"],
+                    p["groups"], p["resident"], _stream(dout))
     return dzx, dh0, dc0
 
 

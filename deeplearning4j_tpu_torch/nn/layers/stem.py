@@ -12,9 +12,14 @@ and max-pools (3x3/2, pad 1, the padding -inf after the relu) in one
 read of the conv output.
 
 The kernels are hand-written CUDA C++ for Hopper: ``csrc/stem.cu`` (the
-conv over the implicit GEMM of ``csrc/conv_gemm.cuh``, which builds the
-im2col from the raw image as it goes, and the pool) replaces the TPU
-kernels ``_stem_conv_kernel`` and ``_stem_pool_kernel``; ``csrc/
+conv and the pool) replaces the TPU kernels ``_stem_conv_kernel`` and
+``_stem_pool_kernel``. The conv has two routes, :func:`stem_conv_route`:
+bf16 at ``4 C <= 16`` runs on the tensor cores (a 16-tap conv in s2d
+coordinates over the s2d halo tile of ``csrc/stem_s2d.cuh``, the weight
+resident in shared memory; its persistent grid planned by
+:func:`_stem_conv_plan`), f32 and wider inputs the implicit GEMM of
+``csrc/conv_gemm.cuh``, which builds the im2col from the raw image as it
+goes, on the f32 CUDA cores. ``csrc/
 stem_bwd.cu`` replaces ``_stem_bwd_pool_kernel`` (the pool and relu
 backward with the BN-backward sums: a tiled gather that reads y once,
 its grid planned by :func:`_stem_pool_plan`), ``_stem_bwd_dw_kernel``
@@ -68,7 +73,7 @@ __all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
            "reference_stem", "stem_bwd_dw", "stem_bwd_dw_plain",
            "stem_bwd_dx", "stem_bwd_dx_plain", "stem_bwd_pool",
            "stem_bwd_pool_plain", "stem_conv", "stem_conv_plain",
-           "stem_dw_route", "stem_dx_route", "stem_geometry", "stem_pool",
+           "stem_conv_route", "stem_dw_route", "stem_dx_route", "stem_geometry", "stem_pool",
            "stem_pool_plain",
            "stem_weight_s2d"]
 
@@ -83,9 +88,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: the input gradient's kernel holds the [64 C, K] weight in 48 KB of
 #: shared memory, at least one reduction row of it: C <= 192
 _MAX_CHANNELS = 192
-#: the bf16 weight and input gradients' tensor-core routes: a tap's 4 C
-#: channels padded to 16 (RGB or RGBA input)
+#: the bf16 conv's and its weight and input gradients' tensor-core
+#: routes: a tap's 4 C channels padded to 16 (RGB or RGBA input)
 _TC_MAX_CHANNELS = 4
+#: the tensor-core conv's output patch (rows, columns), output channels
+#: a block, and blocks an SM (csrc/stem.cu's conv_tc::kCols and its
+#: launch bounds; the patch is csrc/stem_s2d.cuh's kTh, kTw)
+_TC_CONV_PATCH, _TC_CONV_COLS, _TC_CONV_BLOCKS_PER_SM = (8, 16), 64, 2
 #: its output patch (rows, columns) and output channels a block
 #: (csrc/stem_bwd.cu's dw_tc::kTh, kTw, kCols)
 _TC_DW_PATCH, _TC_DW_COLS = (8, 16), 64
@@ -114,10 +123,12 @@ def _route_symbols(stem):
 
 _LIBRARY = CudaLibrary(
     "stem", ["nn/layers/csrc/stem.cu"],
-    {**{s: _CONV_ARGS for s in _symbols("stem_conv").values()},
+    {**{s: _CONV_ARGS for s in _route_symbols("stem_conv").values()},
      **{s: _POOL_ARGS for s in _symbols("stem_pool").values()},
-     "dl4j_conv_row_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh"])
+     "dl4j_conv_row_tile": [], "dl4j_stem_conv_tc_smem": [],
+     "dl4j_stem_conv_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/stem_s2d.cuh"])
 
 _BWD_LIBRARY = CudaLibrary(
     "stem_bwd", ["nn/layers/csrc/stem_bwd.cu"],
@@ -129,11 +140,12 @@ _BWD_LIBRARY = CudaLibrary(
      "dl4j_stem_bwd_pool_smem": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_stem_bwd_dx_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
-    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/stem_s2d.cuh"])
 
 #: the five kernels; each ``.launches`` counts its launches (an entry
 #: point that launches a pass and its reduction counts once)
-STEM_CONV = CudaKernel(_LIBRARY, "stem_conv", _symbols("stem_conv"))
+STEM_CONV = CudaKernel(_LIBRARY, "stem_conv", _route_symbols("stem_conv"))
 STEM_POOL = CudaKernel(_LIBRARY, "stem_pool", _symbols("stem_pool"))
 STEM_BWD_POOL = CudaKernel(_BWD_LIBRARY, "stem_bwd_pool",
                            _symbols("stem_bwd_pool"))
@@ -168,6 +180,49 @@ def stem_weight_s2d(w4: torch.Tensor) -> torch.Tensor:
     w8 = torch.nn.functional.pad(w4, (0, 1, 0, 1))       # [K,C,8,8]
     w8 = w8.reshape(k, c, 4, 2, 4, 2)                    # [K,C,i,pi,j,pj]
     return w8.permute(2, 4, 3, 5, 1, 0).reshape(64 * c, k).contiguous()
+
+
+def stem_conv_route(dtype, c: int) -> str:
+    """The conv's route for ``dtype`` and ``c`` input channels:
+    TENSOR_CORES for bf16 at ``4 C <= 16`` (each tap's 4 C channels
+    padded to one 16-channel row of the s2d halo tile, as the weight
+    gradient's route, :func:`stem_dw_route`), else CUDA_CORES (f32
+    stays exact f32; wider bf16 inputs take the CUDA-core implicit
+    GEMM). Raises on a dtype no route takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"stem_conv kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if dtype == torch.bfloat16 and 1 <= c <= _TC_MAX_CHANNELS:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+class StemConvPlan(NamedTuple):
+    """The tensor-core conv's launch plan, as ``csrc/stem.cu``'s
+    ``conv_tc::geometry`` chooses it: ``patches`` output patches of 8 x
+    16 pixels (``grid = (down, across)`` an image), ``cols`` column tiles
+    of 64 output channels, and ``tiles`` block rows of the grid (the
+    sums' partials a channel): row q walks the patches q, q + tiles,
+    ..."""
+    tiles: int
+    patches: int
+    cols: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_conv_plan(n, h, w, k, sms) -> StemConvPlan:
+    """The plan for x ``[n, h, w, C]`` to ``k`` channels on a card of
+    ``sms`` SMs: two blocks an SM over the column tiles, at most one a
+    patch (at least one)."""
+    g = stem_geometry(h, w)
+    th, tw = _TC_CONV_PATCH
+    down, across = -(-g["ho"] // th), -(-g["wo"] // tw)
+    patches = n * down * across
+    cols = -(-k // _TC_CONV_COLS)
+    return StemConvPlan(
+        max(1, min(patches, _TC_CONV_BLOCKS_PER_SM * sms // cols)), patches,
+        cols, (down, across))
 
 
 def stem_dw_route(dtype, c: int) -> str:
@@ -311,7 +366,8 @@ def stem_conv(x, w):
     """The stem conv: x ``[N, H, W, C]``, w the ``[64 C, K]`` matrix of
     :func:`stem_weight_s2d`. Returns ``(y, Σy, Σy²)``, y ``[N, ho, wo,
     K]`` in x's dtype, the sums ``[K]`` f32 over the stored y. The kernel
-    on CUDA tensors, :func:`stem_conv_plain` on CPU tensors."""
+    of :func:`stem_conv_route` on CUDA tensors, :func:`stem_conv_plain`
+    on CPU tensors."""
     if x.dim() != 4 or w.dim() != 2 or w.shape[0] != 64 * x.shape[3]:
         raise ValueError(f"stem_conv: x {tuple(x.shape)} must be NHWC and "
                          f"w {tuple(w.shape)} [64 C, K]")
@@ -321,12 +377,23 @@ def stem_conv(x, w):
     n, h, wd, c = x.shape
     k = w.shape[1]
     g = stem_geometry(h, wd)
-    y, part, tiles, sums = _outputs(_LIBRARY, x, n, g["ho"], g["wo"], k)
+    route = stem_conv_route(x.dtype, c)
+    tiles = None
+    if route == TENSOR_CORES:
+        if max(x.numel(), n * g["ho"] * g["wo"] * k, 64 * c * k) \
+                >= _TC_MAX_ELEMENTS:
+            raise ValueError(f"stem_conv: the bf16 kernel indexes with "
+                             f"32-bit ints; x, y and w must each hold "
+                             f"fewer than {_TC_MAX_ELEMENTS} elements")
+        tiles = _stem_conv_plan(n, h, wd, k, _sm_count(x.device)).tiles
+    y, part, tiles, sums = _outputs(_LIBRARY, x, n, g["ho"], g["wo"], k,
+                                    tiles)
     if y.numel():
-        STEM_CONV.launch(x.dtype, x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                         part[0].data_ptr(), part[1].data_ptr(),
-                         sums[0].data_ptr(), sums[1].data_ptr(), n, h, wd,
-                         c, k, tiles, _stream(x))
+        STEM_CONV.launch((x.dtype, route), x.data_ptr(), w.data_ptr(),
+                         y.data_ptr(), part[0].data_ptr(),
+                         part[1].data_ptr(), sums[0].data_ptr(),
+                         sums[1].data_ptr(), n, h, wd, c, k, tiles,
+                         _stream(x))
     return y, sums[0], sums[1]
 
 

@@ -66,13 +66,18 @@ CROSSOVER_VERSION = 1
 #: cores); train_stem is at 3 since its bf16 weight gradient runs in one
 #: pass on the tensor cores (revision 2 timed a dy pass and a CUDA-core
 #: GEMM), at 4 since its bf16 input gradient does (revision 3 timed it
-#: on the f32 CUDA cores), and at 5 since its pool backward reads y once
-#: in tiles (revision 4 timed a pass that read it about 20 times)
+#: on the f32 CUDA cores), at 5 since its pool backward reads y once
+#: in tiles (revision 4 timed a pass that read it about 20 times), and at
+#: 6 since its bf16 conv runs on the tensor cores (revision 5 timed it on
+#: the f32 CUDA cores); paged_decode_quant is at 2 since both of its legs
+#: were rewritten: the int8 kernel as a split over warps, and the bf16
+#: kernel its fallback leg times, the same split (revision 1 timed one
+#: warp's dependent page rounds in each)
 IMPL_REVS: Dict[str, int] = {
     "train_bottleneck": 4,    # nn/layers/bottleneck.py fused chain
-    "train_stem": 5,          # nn/layers/stem.py space-to-depth stem
+    "train_stem": 6,          # nn/layers/stem.py space-to-depth stem
     "paged_decode": 1,        # serving/paged_kernel.py
-    "paged_decode_quant": 1,  # the int8 KV pool (serving/quant.py)
+    "paged_decode_quant": 2,  # the int8 KV pool (serving/quant.py)
 }
 
 

@@ -43,7 +43,8 @@ from deeplearning4j_tpu.tuning.plan import _block_key as j_block_key
 from deeplearning4j_tpu.zoo import ResNet50 as JResNet50
 from deeplearning4j_tpu_torch import tuning as tt
 from deeplearning4j_tpu_torch.tuning import crossover as tcross
-from deeplearning4j_tpu_torch.tuning.plan import _block_key, _stem_key
+from deeplearning4j_tpu_torch.tuning.plan import (
+    _block_key, _stem_key, resolve_kv_dtype)
 from deeplearning4j_tpu_torch.zoo import ResNet50
 
 REPO = Path(__file__).resolve().parents[1]
@@ -87,15 +88,21 @@ REMEASURED = ("train_bottleneck", "train_stem")
 #: the port's revisions of a domain beyond the JAX package's: one for the
 #: remeasured fallback, two more for train_bottleneck, whose bf16
 #: backward kernels and then its bf16 forward kernels were rewritten for
-#: the tensor cores, and three more for train_stem, whose bf16 weight
-#: gradient and then its bf16 input gradient were, and then its pool
-#: backward was rewritten to read y once
-PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 4}
+#: the tensor cores, and four more for train_stem, whose bf16 weight
+#: gradient and then its bf16 input gradient were, then its pool
+#: backward was rewritten to read y once, and then its bf16 conv moved
+#: to the tensor cores; paged_decode_quant, whose fallback is not
+#: remeasured, one for its two rewritten legs (the int8 kernel and the
+#: bf16 kernel it is timed against, both split over warps)
+PORT_REVISIONS = {"train_bottleneck": 3, "train_stem": 5,
+                  "paged_decode_quant": 1}
 
 
 def test_revisions_and_verdicts_are_the_jax_packages():
     assert set(tt.IMPL_REVS) == set(jt.IMPL_REVS)
-    assert set(PORT_REVISIONS) == set(REMEASURED)
+    # every remeasured domain has a port revision (a rewritten kernel
+    # raises one too)
+    assert set(REMEASURED) <= set(PORT_REVISIONS)
     for domain, rev in tt.IMPL_REVS.items():
         assert rev == jt.IMPL_REVS[domain] + PORT_REVISIONS.get(domain, 0), \
             domain
@@ -191,6 +198,25 @@ def test_a_stem_verdict_on_the_cuda_core_weight_gradient_is_pruned(
     s = tt.KernelCrossoverStore.load(str(p))
     assert len(s) == 0
     assert s.choose(key, default="kernel", device=CPU) == "kernel"
+
+
+def test_an_int8_verdict_on_the_old_decode_kernels_is_pruned(tmp_path):
+    """A paged_decode_quant entry of revision 1 timed the int8 kernel and
+    its bf16 leg before both were split over warps: it is pruned on
+    load, a current train_stem entry beside it is kept, and
+    ``kv_dtype="auto"`` resolves to bf16 again."""
+    p = tmp_path / tt.CROSSOVER_NAME
+    quant = tcross.quant_fingerprint(16, 64, 8, 1024, "bfloat16")
+    stem = tcross.stem_fingerprint(224, 224, 3, 64, "bfloat16")
+    entry = {"kernel_ms": 0.5, "fallback_ms": 0.9, "platform": "cpu",
+             "device_kind": "cpu", "samples": 1}
+    p.write_text(json.dumps({"version": 1, "entries": {
+        quant: {**entry, "impl_rev": 1},
+        stem: {**entry, "impl_rev": tt.IMPL_REVS["train_stem"]}}}))
+    s = tt.KernelCrossoverStore.load(str(p))
+    assert quant not in s.entries() and stem in s.entries()
+    assert s.choose(stem, device=CPU) == "kernel"
+    assert resolve_kv_dtype(True, quant, store=s, device=CPU) == "bf16"
 
 
 @pytest.mark.parametrize("text", ["{ torn json", "[1, 2]", ""])

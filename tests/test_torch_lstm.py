@@ -26,6 +26,17 @@ the wrappers take the kernels' plain versions.
 - A gate or cell activation the kernels do not compute raises
   NotImplementedError; the wrappers launch nothing for CPU tensors; a
   mask is refused by the backward.
+- The cluster backward (``csrc/lstm.cu`` ``cl::``): its three-term bf16
+  split reproduces f32 values bit for bit over a wide exponent range,
+  and its product with a bf16 RW is the f32 product within 1e-6 of the
+  product's scale; a torch mirror of the cluster exchange (each block's
+  dh from every peer's piece in turn, the split terms one k16 step at a
+  time) on the plain forward's saves is held against
+  ``lstm_backward_plain`` (1e-5) and ``jax.grad`` of the JAX scan
+  (GRAD_TOL) at one, two and three unit tiles; the plan
+  (``_lstm_bwd_cluster_plan``) covers every (row, unit) pair once within
+  227 KB of shared memory; the route (``lstm_bwd_route``) takes clusters
+  up to H = 256 and the cooperative kernel beyond.
 """
 
 import jax
@@ -279,3 +290,170 @@ def test_cpu_tensors_launch_nothing_and_the_backward_refuses_a_mask():
         masked.sum().backward()
     with pytest.raises(ValueError, match="is not"):
         lk.lstm_forward(a["x"], a["rw"], a["h0"], a["c0"])
+
+
+# ---------------------------------------------------------------------
+# the cluster backward (csrc/lstm.cu cl::lstm_bwd_cluster_kernel)
+# ---------------------------------------------------------------------
+def _split3(x):
+    """The kernel's three-term split of f32 values: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each remainder exact in f32."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def test_the_three_term_split_is_exact_and_its_product_f32():
+    """hi + mid + lo is each seeded f32 value bit for bit, over normal
+    values of exponents -100 .. 100 (3 x 8 significand bits cover f32's
+    24); the terms' products with a bf16 RW, summed lo, mid, hi in f32,
+    are the f32 product within 1e-6 of its f64 value's scale."""
+    rng = np.random.default_rng(11)
+    x = torch.tensor(_f32(rng.standard_normal((64, 128))
+                          * 2.0 ** rng.integers(-100, 100, (64, 128))))
+    hi, mid, lo = _split3(x)
+    back = (hi.double() + mid.double() + lo.double())
+    assert torch.equal(back, x.double())
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    w = torch.tensor(_f32(rng.standard_normal((128, 32)) * 0.1)) \
+        .to(torch.bfloat16).float()
+    d = torch.tensor(_f32(rng.standard_normal((64, 128))))
+    terms = _split3(d)
+    got = terms[2].float() @ w + terms[1].float() @ w + terms[0].float() @ w
+    want = d.double() @ w.double()
+    scale = (d.double().abs() @ w.double().abs())
+    assert float(((got.double() - want).abs() / scale).max()) < 1e-6
+    assert float(((d @ w).double() - want).abs().div(scale).max()) < 1e-6
+
+
+def _cluster_bwd_mirror(gates, c, c0, rw, peep, dout, dh_t, dc_t, split):
+    """The cluster backward in torch: each step's dgates cut into the
+    blocks' pieces (block q's gate columns g H + q ub + u, u < ub, as
+    columns g ub + u of a piece of kp); each block's dh over its units
+    from every peer's piece in turn, against the block's RW slice. With
+    ``split`` (the bf16 route) a piece's three bf16 terms multiply the
+    slice one k16 step at a time (lo, mid, hi summed in f32, promoted
+    into the peer's sum), the peers' sums added in order; else (f32)
+    each peer's piece times the slice, the peers in order. The cell
+    update is the plain version's. Returns (dzx, dh0, dc0) in f32."""
+    t_len, n, h = c.shape
+    plan = lk._lstm_bwd_cluster_plan(
+        n, h, torch.bfloat16 if split else torch.float32)
+    cs, ub, kp = plan.cluster, plan.ub, plan.kp
+    rwf = rw.float()
+    p = None if peep is None else peep.float()
+    units = [range(q * ub, min(h, (q + 1) * ub)) for q in range(cs)]
+
+    def cols(q):   # dgates columns of block q's piece, in piece order
+        return [g * h + j for g in range(4) for j in units[q]]
+
+    def dh_of(dg):
+        dh = torch.zeros(n, h)
+        for r in range(cs):
+            own = list(units[r])
+            acc = torch.zeros(n, len(own))
+            for q in range(cs):
+                piece = torch.zeros(n, kp)
+                piece[:, :4 * len(units[q])] = dg[:, cols(q)]
+                slab = torch.zeros(kp, len(own))
+                slab[:4 * len(units[q])] = rwf[own][:, cols(q)].t()
+                if split:
+                    sq = torch.zeros(n, len(own))
+                    for ks in range(kp // 16):
+                        a = _split3(piece[:, 16 * ks:16 * ks + 16])
+                        b = slab[16 * ks:16 * ks + 16]
+                        sq = sq + (a[2].float() @ b + a[1].float() @ b
+                                   + a[0].float() @ b)
+                    acc = acc + sq
+                else:
+                    acc = acc + piece @ slab
+            dh[:, own] = acc
+        return dh
+
+    dh_next = torch.zeros(n, h) if dh_t is None else dh_t.float()
+    dc_next = torch.zeros(n, h) if dc_t is None else dc_t.float()
+    dzx = []
+    for t in range(t_len - 1, -1, -1):
+        i, f, g, o = gates[t].float().split(h, dim=1)
+        cn = c[t].float()
+        cp = c0.float() if t == 0 else c[t - 1].float()
+        dh = dout[t].float() + dh_next
+        tc = torch.tanh(cn)
+        dzo = dh * tc * o * (1.0 - o)
+        dcn = dh * o * (1.0 - tc * tc) + dc_next
+        if p is not None:
+            dcn = dcn + p[2] * dzo
+        dzi = dcn * g * i * (1.0 - i)
+        dzf = dcn * cp * f * (1.0 - f)
+        dzg = dcn * i * (1.0 - g * g)
+        dc_next = dcn * f
+        if p is not None:
+            dc_next = dc_next + p[0] * dzi + p[1] * dzf
+        dg = torch.cat([dzi, dzf, dzg, dzo], dim=1)
+        dzx.append(dg)
+        dh_next = dh_of(dg)
+    return torch.stack(dzx[::-1]), dh_next, dc_next
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("t, n, h", [(5, 20, 40), (4, 18, 70), (6, 4, 5)])
+def test_the_cluster_exchange_mirror_matches_the_plain_backward_and_jax(
+        t, n, h, split):
+    """The mirror (three clusters' worth of unit tiles at H = 70, two at
+    40, one at 5; two batch tiles at N = 18, 20) on the plain forward's
+    saves in f32 against ``lstm_backward_plain`` within 1e-5 and against
+    ``jax.grad`` of the JAX scan within GRAD_TOL."""
+    d, cot = _grad_case(seed=t * n + h, t=t, n=n, h=h)
+    want = _jax_grads(d, cot)
+    a = _torch(d)
+    _, _, _, (gates, c) = lk.lstm_forward(a["zx"], a["rw"], a["h0"],
+                                          a["c0"], a["p"], save=True)
+    bwd = (gates, c, a["c0"], a["rw"], a["p"], torch.tensor(cot["out"]),
+           torch.tensor(cot["h"]), torch.tensor(cot["c"]))
+    got = _cluster_bwd_mirror(*bwd, split=split)
+    plain = lk.lstm_backward_plain(*bwd)
+    for g, pl, w in zip(got, plain, (want[0], want[2], want[3])):
+        np.testing.assert_allclose(g.numpy(), pl.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+#: (N, H): the text LSTM's shape, fewer rows, the decode row, an H the
+#: unit tiles split unevenly (7 blocks of 29), and one block of 17 units
+CLUSTER_SHAPES = [(256, 256), (64, 256), (1, 256), (256, 200), (3, 17)]
+
+
+@pytest.mark.parametrize("n, h", CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype, mt", [(torch.bfloat16, 1),
+                                       (torch.bfloat16, 2),
+                                       (torch.float32, 1)])
+def test_the_cluster_plan_covers_every_row_and_unit_once(n, h, dtype, mt):
+    """Cluster b's block q owns rows b rows .. + rows and units q ub ..
+    + ub, inside N and H: every (row, unit) pair once; at most 8 blocks
+    a cluster of at most 32 units; the piece's columns cover the four
+    gates of a block's units in whole k16 steps; a block's shared
+    memory within the card's 227 KB."""
+    plan = lk._lstm_bwd_cluster_plan(n, h, dtype, mt)
+    assert lk.lstm_bwd_route(n, h, dtype) == lk.CLUSTER
+    assert 1 <= plan.cluster <= 8 and 1 <= plan.ub <= 32
+    assert plan.kp % 16 == 0 and 4 * plan.ub <= plan.kp < 4 * plan.ub + 16
+    assert plan.rows == 16 * mt
+    assert plan.smem <= 232448
+    seen = np.zeros((n, h), np.int64)
+    for b in range(plan.batch_tiles):
+        for q in range(plan.cluster):
+            seen[b * plan.rows:(b + 1) * plan.rows,
+                 q * plan.ub:(q + 1) * plan.ub] += 1
+    assert (seen == 1).all()
+    assert (plan.cluster - 1) * plan.ub < h
+
+
+@pytest.mark.parametrize("h", [1, 17, 200, 255, 256, 257, 512, 1024])
+def test_the_backward_route_takes_clusters_up_to_256_units(h):
+    want = lk.CLUSTER if h <= 256 else lk.COOPERATIVE
+    for dtype in (torch.bfloat16, torch.float32):
+        assert lk.lstm_bwd_route(64, h, dtype) == want
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lk.lstm_bwd_route(64, h, torch.float16)
