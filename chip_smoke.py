@@ -136,7 +136,12 @@ Phases (any failure exits nonzero):
 12. resnet reference: in f32 at B=8, the fused plan's (kernels) logits
     against the "xla" plan's of the same graph, with the same two
     planted faults;
-13. cnn bwd kernels: the two ResNet50 backward kernels (a bottleneck
+13. cnn bwd kernels: first the library's SASS (HMMA.16816.F32.BF16 in
+    every tensor-core function of ``conv_bwd_tc.cuh``'s stage mode, none
+    in the f32 ones; with ``--parent DIR`` each stage function's HMMA
+    count, registers and spill stores equal to the parent tree's, and
+    two bf16 1x1 cases bitwise equal to its kernel's); then the two
+    ResNet50 backward kernels (a bottleneck
     stage's 1x1 and 3x3 backward: dz0, dW and the BN sums in one entry
     point) against their plain versions at the training path's shapes,
     bf16 at B=128 and f32 at B=16: dz0 and dW by row and 64-row tile as
@@ -239,19 +244,26 @@ Phases (any failure exits nonzero):
     forward and one-pass backward kernels against their plain versions
     at the four stages' group shapes (56x56 64 -> 256, 28x28 128 -> 512,
     14x14 256 -> 1024, 7x7 512 -> 2048), bf16 at B=128 and f32 at B=16,
-    and a tail of M = 147 rows whose inputs are views of buffers with NaN
-    rows after them: out, dy and dW by row and 64-row tile as in phase
-    10, dsc, dbb and db within 1e-6 of each channel's sum of |terms|,
-    everything finite, two backward launches bitwise equal; in bf16 the
-    limits fail three faults planted through the plain versions (no relu
-    in the prologue, no relu' mask on dz, dW from the unrounded z).
+    a tail of M = 147 rows whose inputs are views of buffers with NaN
+    rows after them, and a ragged group (C = 20, K = 36: the bf16
+    kernels' element-wise copies): out, dy and dW by row and 64-row tile
+    as in phase 10, dsc, dbb and db within 1e-6 of each channel's sum of
+    |terms|, everything finite, two backward launches bitwise equal, the
+    backward's route (bf16 the tensor cores: bwd1x1's kernels of
+    ``conv_bwd_tc.cuh`` in their fused mode; f32 the CUDA cores), plan
+    and shared memory recorded; in bf16 the limits fail four faults
+    planted through the plain versions (no relu in the prologue, no
+    relu' mask on dz, dW from the unrounded z, the sums over the
+    bf16-rounded dz); with ``--parent DIR`` the parent tree's backward
+    timed in turns at every stage.
     Times of the kernels, the plain versions and cuBLAS (``torch.matmul``
     on the activated input; ``g @ W^T`` and ``z^T @ g``) beside the
     bounds. The bf16 forward is the bottleneck's tensor-core 1x1
     (``conv_fwd_tc.cuh``, bias epilogue): before the cases the fused
     library's SASS (64 HMMA.16816.F32.BF16 in each bf16 forward
-    function, none in the f32 one), and every forward launched twice,
-    bitwise equal;
+    function, none in the f32 one; HMMA in every bf16 backward function,
+    none in the f32 ones, no backward function spilling), and every
+    forward launched twice, bitwise equal;
 21. resnet fuse_true (``resnet_fuse_true``): ResNet50(fuse=True) at full
     width (1000 classes, 224x224, B=128, bf16, NHWC): one counted
     ``output()`` (BN statistics calibrated as phase 11's; 16 fused
@@ -278,12 +290,16 @@ Phases (any failure exits nonzero):
     masked row (forward), an H of 200 that splits unevenly, T = 8, and
     ``lstm_scan(reverse=True)`` (forward and autograd gradients against
     the plain versions swapped in): outputs, saves and gradients by row
-    and 64-row tile, two backward launches bitwise equal, the limits
-    shown to fail planted faults (the output gate's peephole on the
-    previous cell; no mask blend of c; in bf16 the carry left
-    unrounded). Times of the kernels (inference forward, training
-    forward, backward), the plain versions and cuDNN's LSTM (no
-    peepholes) beside the bounds, per step too;
+    and 64-row tile, two forward and two backward launches bitwise
+    equal, each kernel's route (the cluster kernels up to H = 256, the
+    cooperative ones beyond) and the device kernel it started, the
+    limits shown to fail planted faults (the output gate's peephole on
+    the previous cell; no mask blend of c; in bf16 the carry left
+    unrounded; a peer's piece of h read a step stale). Times of the
+    kernels (inference forward, training forward, backward), the plain
+    versions and cuDNN's LSTM (no peepholes) beside the bounds, per step
+    too; with ``--parent DIR`` the parent tree's forward (main and
+    decode) and backward in turns;
 24. text_lstm (``text_lstm``): bench_all.py's bench_lstm at full width
     (TextGenerationLSTM, vocab 128, 2 GravesLSTM layers of 256,
     RmsProp(1e-3), bf16, B=256, T=256): one counted ``output()`` (2
@@ -311,6 +327,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -480,6 +497,10 @@ FUSED_STAGES = {"s2": (56, 64, 256), "s3": (28, 128, 512),
 #: the tail case (B, H = W, C, K): M = 147 rows, no multiple of the row
 #: tile; y and g are the first M rows of buffers whose later rows are NaN
 FUSED_TAIL = (3, 7, 512, 2048)
+#: a ragged group (B, H = W, C, K): widths that are not multiples of 8,
+#: so the kernels take their element-wise copies and stores, NaN-bordered
+#: as the tail
+FUSED_RAGGED = (3, 7, 20, 36)
 #: launches per forward: one fused forward per bottleneck block, none of
 #: the bottleneck or stem kernels (the level does not touch the stem)
 FUSE_TRUE_LAUNCHES = {**{n: 0 for n in RESNET_TRAIN_STEM_LAUNCHES},
@@ -2672,6 +2693,33 @@ def ptxas_usage(library, name):
     return usage
 
 
+def ptxas_registers(lines):
+    """The register count in a function's ptxas -v lines, or None."""
+    for line in lines:
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            return int(m.group(1))
+    return None
+
+
+def spilling(ptxas):
+    """The functions of a ptxas_usage record that spill."""
+    return [f"{f} spills" for f, lines in ptxas.items()
+            if any("spill" in x and " 0 bytes spill stores" not in x
+                   for x in lines)]
+
+
+def tc_key(fn):
+    """A backward tensor-core function of conv_bwd_tc.cuh (or, in a
+    parent tree, of bottleneck_bwd.cu) by its mangled name: (its name,
+    its template ints), or None for any other function."""
+    m = re.search(r"\d+(dz_tc_kernel|dw_tc_kernel)I((?:Li\d+E)+)E", fn)
+    if not m:
+        return None
+    return m.group(1), tuple(int(x) for x in re.findall(r"Li(\d+)E",
+                                                        m.group(2)))
+
+
 #: the bf16 forward's tensor-core kernel (conv_fwd_tc.cuh, shared by the
 #: bottleneck and the fused op) and the f32 forwards' CUDA-core ones, by
 #: their mangled names
@@ -3405,10 +3453,127 @@ def bwd_sweep(device, smi):
     return {"stages": rows, "per_step": step}
 
 
-def check_cnn_bwd_kernels(device, smi):
-    """Every backward case in bf16 at the main path's batch, then in f32
-    at 16; the ragged cases in both at B=3; the sweep of a step's
-    stages."""
+def parent_bwd1x1(parent, a, geo, device):
+    """The parent checkout's bf16 bwd1x1 stage on inputs ``a``, planned
+    as this tree plans it (bottleneck._bwd_tc_plan): (dz, dW, sums)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    lib = parent_library(parent, "bottleneck_bwd",
+                         "nn/layers/csrc/bottleneck_bwd.cu",
+                         {"dl4j_bwd1x1_bf16": bn._BWD1X1_ARGS,
+                          "dl4j_bwd_row_tile": []})
+    n, h, wd, c = a["yprev"].shape
+    k, s = a["yk"].shape[3], geo["stride"]
+    tiles, chunk, splits = bn._bwd_tc_plan(n, h, wd, c, k, s, 1,
+                                           bn._sm_count(device))
+    f32 = torch.float32
+    dz = torch.empty_like(a["yprev"])
+    dw = torch.empty((c, k), dtype=f32, device=device)
+    sums = torch.zeros((2, c), dtype=f32, device=device)
+    part = torch.empty((2, c, tiles), dtype=f32, device=device)
+    dw_part = torch.empty((splits, c, k), dtype=f32, device=device)
+    e = lib.dl4j_bwd1x1_bf16(
+        *(a[key].data_ptr() for key in ("yk", "g", "yprev", "w", "aff_k",
+                                         "aff_p")),
+        dz.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), n, h,
+        wd, c, k, s, int(geo["act"] == "relu"), tiles, chunk, splits,
+        torch.cuda.current_stream().cuda_stream)
+    if e:
+        raise RuntimeError(f"the parent's bwd1x1: CUDA error {e}")
+    return dz, dw, sums
+
+
+def bwd_sass(device, parent=None):
+    """The bottleneck backward library's SASS: every bf16 tensor-core
+    function (conv_bwd_tc.cuh's stage kernels, moved there from
+    bottleneck_bwd.cu) holds HMMA.16816.F32.BF16, the f32 CUDA-core ones
+    (dz_kernel, dw_kernel) none; with each function's registers and
+    spills (the 3x3 dW pass's spill stores are known, PERF.md row 4).
+    With a parent checkout, each tensor-core function's HMMA count,
+    registers and spill stores equal the parent's same function's, and
+    the bf16 1x1 cases' (dz, dW, sums) at B=128 equal the parent
+    kernel's bitwise: the move changed none of them."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    lib = bn._BWD_LIBRARY
+    counts, tool = sass_hmma(lib)
+    ptx = {**ptxas_usage(lib, "dz_tc_kernel"),
+           **ptxas_usage(lib, "dw_tc_kernel")}
+    tc = {f: c for f, c in counts.items() if tc_key(f)}
+    cuda_cores = {f: c for f, c in counts.items()
+                  if ("dz_kernel" in f or "dw_kernel" in f)
+                  and not tc_key(f)}
+    bad = [f for f, c in tc.items() if c == 0]
+    bad += [f for f, c in cuda_cores.items() if c != 0]
+    if not tc or not cuda_cores:
+        bad.append("no tensor-core or no CUDA-core function found")
+
+    def spill_stores(lines):
+        for line in lines:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                return int(m.group(1))
+        return None
+
+    def by_key(counts_, ptx_, stage_mode):
+        out = {}
+        for f, c in counts_.items():
+            key = tc_key(f)
+            if key is None:
+                continue
+            ints = key[1]
+            if stage_mode:   # this tree: the trailing mode, 0 a stage
+                if ints[-1] != 0:
+                    continue
+                ints = ints[:-1]
+            out[f"{key[0]}<{', '.join(map(str, ints))}>"] = {
+                "hmma": c, "registers": ptxas_registers(ptx_.get(f, [])),
+                "spill_stores": spill_stores(ptx_.get(f, []))}
+        return out
+
+    rec = {"tool": tool, "hmma_16816_f32_bf16": {
+               "tensor_cores": tc, "cuda_cores": cuda_cores},
+           "ptxas": ptx, "stage_functions": by_key(counts, ptx, True)}
+    if parent:
+        parent_library(parent, "bottleneck_bwd",
+                       "nn/layers/csrc/bottleneck_bwd.cu",
+                       {"dl4j_bwd1x1_bf16": bn._BWD1X1_ARGS,
+                        "dl4j_bwd_row_tile": []})
+        plib = _PARENT_LIBS["bottleneck_bwd"]
+        pcounts, _ = sass_hmma(plib)
+        pptx = {**ptxas_usage(plib, "dz_tc_kernel"),
+                **ptxas_usage(plib, "dw_tc_kernel")}
+        rec["parent_stage_functions"] = by_key(pcounts, pptx, False)
+        if rec["parent_stage_functions"] != rec["stage_functions"] or \
+                not rec["stage_functions"]:
+            bad.append("the stage functions' HMMA counts, registers or "
+                       "spills moved from the parent's")
+        rec["parent_bitwise"] = {}
+        for i, name in enumerate(("s2_c_bwd", "s3b0_a_bwd")):
+            kernel, geo = BWD_CASES[name]
+            a = bwd_inputs(kernel, geo, RESNET_B, torch.bfloat16, device,
+                           seed=90 + i)
+            mine = bn.conv1x1_bwd(a["yk"], a["g"], a["yprev"], a["w"],
+                                  a["aff_k"], a["aff_p"],
+                                  act_prev=geo["act"], stride=geo["stride"])
+            theirs = parent_bwd1x1(parent, a, geo, device)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(mine, theirs))
+            rec["parent_bitwise"][name] = same
+            if not same:
+                bad.append(f"{name} differs from the parent's bits")
+            del a, mine, theirs
+    log("cnn bwd sass:", json.dumps(rec))
+    if bad:
+        raise AssertionError(f"cnn bwd sass: {bad}: {rec}")
+    return rec
+
+
+def check_cnn_bwd_kernels(device, smi, parent=None):
+    """The library's SASS (with a parent checkout, the stage functions
+    against the parent's); every backward case in bf16 at the main
+    path's batch, then in f32 at 16; the ragged cases in both at B=3;
+    the sweep of a step's stages."""
+    sass = bwd_sass(device, parent)
     cases = [bwd_case(name, dtype, n, device, seed=20 + i)
              for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
              for i, name in enumerate(BWD_CASES)]
@@ -3416,7 +3581,7 @@ def check_cnn_bwd_kernels(device, smi):
                        cases=BWD_RAGGED, planted=False)
               for dtype in (torch.bfloat16, torch.float32)
               for i, name in enumerate(BWD_RAGGED)]
-    return {"cases": cases, "sweep": bwd_sweep(device, smi)}
+    return {"cases": cases, "sweep": bwd_sweep(device, smi), "sass": sass}
 
 
 # ---------------------------------------------------------------------
@@ -4661,18 +4826,85 @@ def fused_sums_rel(got, want, terms):
     return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
 
 
-def fused_case(name, dtype, n, device, seed):
+def fused_bwd_plan(m, c, k, dtype, device):
+    """The backward's route and plan as its wrapper makes them: bf16 the
+    tensor cores' (fused._bwd_tc_plan: 128-row dz blocks, the dW pass's
+    64-row chunks a split), f32 the CUDA cores' (128-row blocks, rows a
+    split)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    route = fused.bwd_route(dtype)
+    if route == fused.TENSOR_CORES:
+        plan = fused._bwd_tc_plan(m, c, k, bn._sm_count(device))._asdict()
+    else:
+        chunk, splits = bn._dw_splits(m, -(-(c + 1) // 128) * -(-k // 64),
+                                      device)
+        plan = {"tiles": -(-m // 128), "chunk": chunk, "splits": splits}
+    return route, plan
+
+
+def fused_rounded_dz_sums(a):
+    """The planted fault "rounded_dz_sums": dsc and dbb summed over the
+    bf16-rounded dz instead of the f32 dz (what staging dz in bf16 for
+    the epilogue's sums would give)."""
+    y32, g32 = a["y"].float(), a["g"].float()
+    dz = g32 @ a["w2"].float().t()
+    dz = torch.where(y32 * a["sc"] + a["bb"] > 0, dz, 0.0)
+    dz = dz.to(a["y"].dtype).float()
+    return (dz * y32).sum(0), dz.sum(0)
+
+
+def parent_fused_bwd(parent, a, device):
+    """The parent checkout's bf16 backward (the CUDA-core passes of its
+    fused.cu, planned as its wrapper plans them) on the same inputs: a
+    thunk launching it, and its outputs (dy, dsc, dbb, dw, db)."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    lib = parent_library(parent, "fused", "nn/layers/csrc/fused.cu",
+                         {"dl4j_fused_bwd_bf16": fused._BWD_ARGS,
+                          "dl4j_fused_row_tile": []})
+    y, sc, bb, w2, g = (a[k] for k in ("y", "sc", "bb", "w2", "g"))
+    m, c = y.shape
+    k = w2.shape[1]
+    f32 = torch.float32
+    tiles = -(-m // lib.dl4j_fused_row_tile())
+    chunk, splits = bn._dw_splits(m, -(-(c + 1) // 128) * -(-k // 64),
+                                  device)
+    outs = (torch.empty_like(y), torch.empty(c, dtype=f32, device=device),
+            torch.empty(c, dtype=f32, device=device),
+            torch.empty((c, k), dtype=w2.dtype, device=device),
+            torch.empty(k, dtype=f32, device=device))
+    part = torch.empty((2, c, tiles), dtype=f32, device=device)
+    dw_part = torch.empty((splits, c + 1, k), dtype=f32, device=device)
+
+    def old():
+        e = lib.dl4j_fused_bwd_bf16(
+            y.data_ptr(), sc.data_ptr(), bb.data_ptr(), w2.data_ptr(),
+            g.data_ptr(), *(o.data_ptr() for o in outs), part[0].data_ptr(),
+            part[1].data_ptr(), dw_part.data_ptr(), m, c, k, 1, tiles, chunk,
+            splits, torch.cuda.current_stream().cuda_stream)
+        if e:
+            raise RuntimeError(f"the parent's fused backward: CUDA error {e}")
+
+    return old, outs
+
+
+def fused_case(name, dtype, n, device, seed, parent=None):
     """One group's shape: the forward and backward kernels against their
     plain versions (out, dy and dW by row and 64-row tile, the sums
     within BWD_SUMS of each channel's sum of |terms|, every value finite),
     two backward launches bitwise equal, the planted faults (bf16) beyond
-    the limits; then the kernels', plain versions' and library calls'
-    times beside the bounds."""
-    if name == "tail":
-        n, hw, c, k = FUSED_TAIL
+    the limits; the backward's route and plan; then the kernels', plain
+    versions' and library calls' times beside the bounds, and with a
+    parent checkout (bf16) its backward in turns with this one's."""
+    if name in ("tail", "ragged"):
+        n, hw, c, k = FUSED_TAIL if name == "tail" else FUSED_RAGGED
     else:
         hw, c, k = FUSED_STAGES[name]
-    a = fused_inputs(n, hw, c, k, dtype, device, seed, tail=name == "tail")
+    a = fused_inputs(n, hw, c, k, dtype, device, seed,
+                     tail=name in ("tail", "ragged"))
     m = n * hw * hw
     fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib = fused_fns(a)
     out, ref_out = fwd(), fwd_plain()
@@ -4693,6 +4925,16 @@ def fused_case(name, dtype, n, device, seed):
             ._asdict()
         case["fwd_smem_bytes"] = fused._LIBRARY.load() \
             .dl4j_fused_fwd_tc_smem(m, k)
+        import ctypes
+        smem = (ctypes.c_int * 2)()
+        fused._LIBRARY.load().dl4j_fused_bwd_tc_smem(c, k, smem)
+        case["bwd_smem_bytes"] = {"dz": smem[0], "dw": smem[1]}
+    case["bwd_route"], case["bwd_plan"] = fused_bwd_plan(m, c, k, dtype,
+                                                         device)
+    # the bf16 kernels copy 16 bytes a thread where C and K are multiples
+    # of 8 (the buffers here are aligned), else element by element
+    case["copies"] = "16-byte" if c % 8 == 0 and k % 8 == 0 \
+        else "element-wise"
     failures = []
     finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
     case["fwd_bitwise_repeat"] = torch.equal(out, out_again)
@@ -4734,6 +4976,17 @@ def fused_case(name, dtype, n, device, seed):
             if planted_rec[fault][0] <= limits["row_rel"] and \
                     planted_rec[fault][1] <= limits["tile_rel"]:
                 failures.append(f"the limits do not tell {fault}")
+        # the sums over the bf16-rounded dz, held to the sums' limit
+        y32, g32 = a["y"].float(), a["g"].float()
+        dz = torch.where(y32 * a["sc"] + a["bb"] > 0,
+                         g32 @ a["w2"].float().t(), 0.0)
+        bad_sc, bad_bb = fused_rounded_dz_sums(a)
+        planted_rec["rounded_dz_sums"] = max(
+            fused_sums_rel(bad_sc, got[1], (dz * y32).abs().sum(0)),
+            fused_sums_rel(bad_bb, got[2], dz.abs().sum(0)))
+        if planted_rec["rounded_dz_sums"] <= BWD_SUMS:
+            failures.append("the limits do not tell rounded_dz_sums")
+        del dz, y32, g32, bad_sc, bad_bb
         case["planted"] = planted_rec
     log("fused check", json.dumps(case))
     if not finite or failures:
@@ -4749,6 +5002,17 @@ def fused_case(name, dtype, n, device, seed):
                       "library_ms": median_ms(library, device),
                       "bound_ms": bounds[kind][0],
                       "bound_by": bounds[kind][1]}
+    if parent and dtype == torch.bfloat16:
+        old, pouts = parent_fused_bwd(parent, a, device)
+        old()
+        ref = bwd_plain()
+        torch.cuda.synchronize()
+        case["bwd"]["parent"] = {
+            **in_turns(old, bwd, device),
+            "parent_max_abs_err": max(
+                float((u.float() - v.float()).abs().max())
+                for u, v in zip(pouts, ref))}
+        del pouts, ref
     log("fused", json.dumps(case))
     del a, fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib
     torch.cuda.empty_cache()
@@ -4758,26 +5022,45 @@ def fused_case(name, dtype, n, device, seed):
 def fused_sass():
     """The fused library's SASS: each bf16 forward function (the shared
     tensor-core 1x1, bias epilogue) holds 64 HMMA.16816.F32.BF16, the
-    f32 forward (the CUDA cores) none; with their registers and spills
-    from ptxas -v."""
+    f32 forward (the CUDA cores) none; each bf16 backward function (the
+    shared tensor-core dz and dW passes of conv_bwd_tc.cuh, fused mode)
+    holds HMMA, the f32 backward's (fused_dz_kernel, fused_dw_kernel)
+    none; with their registers and spills from ptxas -v (no backward
+    function may spill)."""
     from deeplearning4j_tpu_torch.nn.layers import fused
     rec, bad = tc_sass(fused._LIBRARY, CONV_TC_KERNEL,
                        FUSED_CUDA_CORE_KERNEL, lambda f: CONV_TC_HMMA[1])
+    counts, _ = sass_hmma(fused._LIBRARY)
+    bwd_tc = {f: c for f, c in counts.items() if tc_key(f)}
+    bwd_cc = {f: c for f, c in counts.items()
+              if "fused_dz_kernel" in f or "fused_dw_kernel" in f}
+    bad += [f for f, c in bwd_tc.items() if c == 0]
+    bad += [f for f, c in bwd_cc.items() if c != 0]
+    if not bwd_tc or not bwd_cc:
+        bad.append("no tensor-core or no CUDA-core backward function")
+    rec["hmma_16816_f32_bf16"].update(bwd_tensor_cores=bwd_tc,
+                                      bwd_cuda_cores=bwd_cc)
+    rec["ptxas_bwd"] = {**ptxas_usage(fused._LIBRARY, "dz_tc_kernel"),
+                        **ptxas_usage(fused._LIBRARY, "dw_tc_kernel")}
+    bad += spilling(rec["ptxas_bwd"])
     log("fused sass:", json.dumps(rec))
     if bad:
         raise AssertionError(f"fused sass: HMMA.16816.F32.BF16 counts off "
-                             f"in {bad}: {rec['hmma_16816_f32_bf16']}")
+                             f"or spills in {bad}: "
+                             f"{rec['hmma_16816_f32_bf16']}")
     return rec
 
 
-def check_fused_kernels(device):
+def check_fused_kernels(device, parent=None):
     """The SASS check; every stage's group in bf16 at the main path's
-    batch, then in f32 at 16; the tail in both."""
+    batch (with a parent checkout, its backward in turns), then in f32
+    at 16; the tail and the ragged group in both."""
     sass = fused_sass()
     return {"sass": sass, "cases": [
-        fused_case(name, dtype, n, device, seed=40 + i)
+        fused_case(name, dtype, n, device, seed=40 + i,
+                   parent=parent if name in FUSED_STAGES else None)
         for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
-        for i, name in enumerate([*FUSED_STAGES, "tail"])]}
+        for i, name in enumerate([*FUSED_STAGES, "tail", "ragged"])]}
 
 
 def fuse_true_net(device, dtype, lr=0.1, calibrate=False):
@@ -4934,7 +5217,14 @@ def resnet_fuse_true(device):
         # bf16: the shared tensor-core 1x1 with the bias epilogue
         fused_fwd_share=share("fused_fwd_kernel", "fwd_tc_kernel<1, 2, 1>",
                               "fwd_tc_kernel<1, 4, 1>"),
+        # bf16: conv_bwd_tc.cuh's fused-mode passes (template mode 1;
+        # no bottleneck stage runs in a fuse=True step)
         fused_bwd_share=share("fused_dz_kernel", "fused_dw_kernel",
+                              "dz_tc_kernel<1, 2, 1>",
+                              "dz_tc_kernel<1, 4, 1>",
+                              *(f"dw_tc_kernel<1, {wm}, {wn}, 1>"
+                                for wm, wn in ((1, 2), (1, 4), (1, 8),
+                                               (2, 2), (2, 4))),
                               "fused_finish_kernel", "reduce_partials"))
     del net
     torch.cuda.empty_cache()
@@ -5007,15 +5297,27 @@ def lstm_fault_forward(a, fault):
     """The plain forward with a planted fault: "po_on_c_prev", the output
     gate's peephole reading the previous cell; "no_mask_blend_c", a
     masked step keeping the new cell; "unrounded_carry", h and c carried
-    in f32 between steps (rounded only as outputs). Returns out."""
+    in f32 between steps (rounded only as outputs); "stale_peer", the
+    cluster route's second block's piece of h_{t-1} read from the other
+    buffer, a step stale (zeros at the first step), as the CPU tests'
+    mirror plants it. Returns out."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
     zx, rw, p, m = a["zx"], a["rw"], a["peephole"], a["mask"]
     dt, h = zx.dtype, rw.shape[0]
     rwf = rw.float()
     hp, cp = a["h0"].float(), a["c0"].float()
+    h_stale = torch.zeros_like(hp)   # the other buffer: zeros, then h_{t-2}
+    plan = lk._lstm_fwd_cluster_plan(zx.shape[1], h, dt)
+    peer = slice(plan.ub, min(h, 2 * plan.ub))
     p = None if p is None else p.float()
     outs = []
     for t in range(zx.shape[0]):
-        z = zx[t].float() + hp @ rwf
+        h_in = hp
+        if fault == "stale_peer":
+            h_in = hp.clone()
+            h_in[:, peer] = h_stale[:, peer]
+            h_stale = hp
+        z = zx[t].float() + h_in @ rwf
         zi, zf, zg, zo = z.split(h, dim=1)
         if p is not None:
             zi, zf = zi + p[0] * cp, zf + p[1] * cp
@@ -5092,17 +5394,76 @@ def lstm_bwd_launches():
     return list(out)
 
 
+def lstm_fwd_launches():
+    """The forward's device kernels started so far (the cooperative
+    kernel, the cluster kernel), as its launchers count them."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    out = (ctypes.c_int * 2)()
+    lk._LIBRARY.load().dl4j_lstm_fwd_kernel_launches(out)
+    return list(out)
+
+
+def parent_lstm_fwd(parent, args, save, device):
+    """The parent checkout's forward (the cooperative kernel at every H)
+    on the same arguments ``(zx, rw, h0, c0, peephole, mask)``, with the
+    training saves where ``save``: a thunk launching it, and its
+    outputs (out, hT, cT)."""
+    import ctypes
+    lib = parent_lstm_library(parent)
+    zx, rw, h0, c0, peep, mask = args
+    t, n, h4 = zx.shape
+    h = h4 // 4
+    bf16 = zx.dtype == torch.bfloat16
+    plan = (ctypes.c_int * 7)()
+    err = lib.dl4j_lstm_plan(n, h, int(bf16), 0, plan)
+    if err:
+        raise RuntimeError(f"the parent's LSTM plan: CUDA error {err}")
+    dt, f32 = zx.dtype, torch.float32
+    outs = (torch.empty((t, n, h), dtype=dt, device=device),
+            torch.empty((n, h), dtype=dt, device=device),
+            torch.empty((n, h), dtype=dt, device=device))
+    hbuf = torch.empty((2, n, h), dtype=dt, device=device)
+    cbuf = torch.empty((n, h), dtype=f32, device=device)
+    saves = (torch.empty((t, n, 4 * h), dtype=f32, device=device),
+             torch.empty((t, n, h), dtype=f32, device=device)) if save \
+        else (None, None)
+    sync = torch.zeros(2, dtype=torch.int32, device=device)
+    fn = lib.dl4j_lstm_fwd_bf16 if bf16 else lib.dl4j_lstm_fwd_f32
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def old():
+        e = fn(zx.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+               ptr(peep), ptr(mask), *(o.data_ptr() for o in outs),
+               hbuf.data_ptr(), cbuf.data_ptr(), ptr(saves[0]),
+               ptr(saves[1]), sync.data_ptr(), t, n, h, plan[0], plan[4],
+               plan[5], torch.cuda.current_stream().cuda_stream)
+        if e:
+            raise RuntimeError(f"the parent's LSTM forward: CUDA error {e}")
+
+    return old, outs
+
+
+def parent_lstm_library(parent):
+    """The parent checkout's LSTM library: its plan and its cooperative
+    forward and backward entry points (one argument list each)."""
+    import ctypes
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    args = [p_] * 14 + [i_] * 6 + [p_]
+    return parent_library(parent, "lstm", "nn/layers/csrc/lstm.cu", {
+        "dl4j_lstm_plan": [i_] * 4 + [ctypes.POINTER(ctypes.c_int)],
+        **{f"dl4j_lstm_{kind}_{dt}": args for kind in ("fwd", "bwd")
+           for dt in ("f32", "bf16")}})
+
+
 def parent_lstm_bwd(parent, bwd_args, device):
     """The parent checkout's backward (the cooperative kernel at every H)
     on the same arguments: a thunk launching it, and its outputs."""
     import ctypes
-    p_, i_ = ctypes.c_void_p, ctypes.c_int
-    args = [p_] * 14 + [i_] * 6 + [p_]
-    lib = parent_library(parent, "lstm", "nn/layers/csrc/lstm.cu",
-                         {"dl4j_lstm_plan": [i_] * 4 +
-                          [ctypes.POINTER(ctypes.c_int)],
-                          "dl4j_lstm_bwd_f32": args,
-                          "dl4j_lstm_bwd_bf16": args})
+    lib = parent_lstm_library(parent)
     gates, c, c0, rw, peep, dout, dh_t, dc_t = bwd_args
     t, n, h = c.shape
     bf16 = dout.dtype == torch.bfloat16
@@ -5167,10 +5528,10 @@ def cluster_row_tiles(bwd_args, device):
 
 
 def lstm_sass():
-    """The LSTM library's SASS: the bf16 cluster backward holds
-    HMMA.16816.F32.BF16, the f32 one and the cooperative and forward
-    kernels none; each cluster function's registers and spills (none
-    may spill)."""
+    """The LSTM library's SASS: the bf16 cluster kernels (the forward's
+    and the backward's) hold HMMA.16816.F32.BF16, the f32 cluster
+    kernels and the cooperative kernels (forward and backward) none;
+    each cluster function's registers and spills (none may spill)."""
     from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
     counts, tool = sass_hmma(lk._LIBRARY)
     tc = {f: n for f, n in counts.items()
@@ -5178,14 +5539,13 @@ def lstm_sass():
     rest = {f: n for f, n in counts.items() if f not in tc}
     rec = {"tool": tool, "hmma_16816_f32_bf16": {"cluster_bf16": tc,
                                                   "others": rest},
-           "ptxas": ptxas_usage(lk._LIBRARY, "lstm_bwd_cluster_kernel")}
+           "ptxas": ptxas_usage(lk._LIBRARY, "cluster_kernel")}
     bad = [f for f, n in tc.items() if n == 0] + \
         [f for f, n in rest.items() if n != 0]
-    if not tc:
-        bad.append("no bf16 cluster function found")
-    bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
-            if any("spill" in x and " 0 bytes spill stores" not in x
-                   for x in lines)]
+    for kind in ("lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel"):
+        if not any(kind in f for f in tc):
+            bad.append(f"no bf16 {kind} found")
+    bad += spilling(rec["ptxas"])
     log("lstm sass:", json.dumps(rec))
     if bad:
         raise AssertionError(f"lstm sass: HMMA.16816.F32.BF16 counts off "
@@ -5256,26 +5616,45 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
     cT, and without a mask the saved gates and c), the backward kernel
     against its plain version on the plain forward's saves (dzx, dh0,
     dc0), each by row and 64-row tile; two backward launches bitwise
-    equal; with a mask the masked outputs exactly 0 and the fully masked
-    row's hT, cT exactly h0, c0; the planted faults beyond the limits.
-    ``timed``: the kernels', plain versions' and cuDNN's times beside the
-    bounds, and with a parent checkout its backward in turns with this
-    one's. The backward's route, the device kernel one call starts
-    (which must be that route's) and its planted faults
-    (LSTM_BWD_FAULTS) are recorded."""
+    equal, and two forward launches; with a mask the masked outputs
+    exactly 0 and the fully masked row's hT, cT exactly h0, c0; the
+    planted faults beyond the limits. ``timed``: the kernels', plain
+    versions' and cuDNN's times beside the bounds, and with a parent
+    checkout its forward (inference and training) and backward in turns
+    with this one's. Each kernel's route, the device kernel one call
+    starts (which must be that route's) and the backward's planted
+    faults (LSTM_BWD_FAULTS) are recorded."""
     from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
     a = lstm_inputs(t, n, h, dtype, device, seed, peep, mask)
     args = (a["zx"], a["rw"], a["h0"], a["c0"], a["peephole"], a["mask"])
     save = not mask
+    before = lstm_fwd_launches()
     got = lk.lstm_forward(*args, save=save)
+    torch.cuda.synchronize()
+    ran_fwd = [x - y for x, y in zip(lstm_fwd_launches(), before)]
+    again_fwd = lk.lstm_forward(*args, save=save)
     ref = lk.lstm_forward_plain(*args, save=save)
     torch.cuda.synchronize()
     case = {"case": name, "dtype": str(dtype).split(".")[-1], "t": t,
             "n": n, "h": h, "peephole": peep, "mask": mask,
+            "fwd_route": lk.lstm_fwd_route(n, h, dtype),
+            "fwd_device_kernels": {"lstm_fwd_kernel": ran_fwd[0],
+                                   "lstm_fwd_cluster_kernel": ran_fwd[1]},
             "plan": lk.lstm_plan(n, h, dtype, device=device),
             "plan_bwd": lk.lstm_plan(n, h, dtype, bwd=True, device=device)}
     limits = lstm_limits(dtype, t)
     failures = []
+    if ran_fwd != ([0, 1] if case["fwd_route"] == lk.CLUSTER else [1, 0]) \
+            or case["plan"]["route"] != case["fwd_route"]:
+        failures.append(f"forward route {case['fwd_route']} launched "
+                        f"{ran_fwd}")
+    case["fwd_bitwise_repeat"] = all(
+        torch.equal(u, v) for u, v in zip(
+            [*got[:3], *(got[3] or ())], [*again_fwd[:3],
+                                          *(again_fwd[3] or ())]))
+    if not case["fwd_bitwise_repeat"]:
+        failures.append("two forward launches differ")
+    del again_fwd
     outs = {"out": (got[0], ref[0]), "hT": (got[1], ref[1]),
             "cT": (got[2], ref[2])}
     if save:
@@ -5337,7 +5716,9 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
     case["limits"] = limits
     faults = ([] if not peep else ["po_on_c_prev"]) + \
         (["no_mask_blend_c"] if mask else []) + \
-        (["unrounded_carry"] if dtype == torch.bfloat16 else [])
+        (["unrounded_carry"] if dtype == torch.bfloat16 else []) + \
+        (["stale_peer"] if case["fwd_route"] == lk.CLUSTER
+         and case["plan"]["cluster"] > 1 else [])
     case["planted"] = {}
     for fault in faults:
         bad = lstm_fault_forward(a, fault)
@@ -5380,6 +5761,17 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
         if case["bwd_route"] == lk.CLUSTER and dtype == torch.bfloat16:
             case["bwd"]["row_tiles"] = cluster_row_tiles(bwd_args, device)
         if parent:
+            for kind, train in (("fwd", False), ("fwd_train", True)):
+                old, pouts = parent_lstm_fwd(parent, args, train, device)
+                old()
+                torch.cuda.synchronize()
+                case[kind]["parent"] = {
+                    **in_turns(old, rows[kind][0], device, iters=10),
+                    "parent_max_abs_err": max(
+                        float((u.float() - v.float()).abs().max())
+                        for u, v in zip(pouts, ref[:3]))}
+                del pouts
+        if parent and save:
             old, pouts = parent_lstm_bwd(parent, bwd_args, device)
             old()
             torch.cuda.synchronize()
@@ -5401,11 +5793,12 @@ def lstm_case(name, t, n, h, dtype, device, seed, exp_rate, peep=True,
 
 def check_lstm_kernels(device, exp_rate, parent=None):
     """The LSTM library's SASS; the recurrence kernels at the text LSTM's
-    shape (T = N = H = 256, timed, with a parent checkout its backward
-    in turns), without peepholes (timed, against cuDNN's LSTM), at the
-    decode shape (N = T = 1, timed), with a mask, at an H that splits
-    unevenly (200), short (T = 8), and at the smallest H whose backward
-    takes the cooperative route (512; N = 64, T = 4: over 32 steps the
+    shape (T = N = H = 256, timed, with a parent checkout its forward and
+    backward in turns), without peepholes (timed, against cuDNN's LSTM),
+    at the decode shape (N = T = 1, timed, with a parent checkout in
+    turns), with a mask, at an H that splits unevenly (200), short (T =
+    8), and at the smallest H whose kernels take the cooperative route
+    (512; N = 64, T = 4: over 32 steps the
     bf16 forward's one-ulp flips at this H reach 1.4e-4 in the tiles,
     past the short limit), in bf16 and f32;
     then reverse through ``lstm_scan`` in f32 (the wrapper's flips of
@@ -5419,7 +5812,7 @@ def check_lstm_kernels(device, exp_rate, parent=None):
         for i, (name, t, n, h, kw) in enumerate((
                 ("main", 256, 256, 256, dict(timed=True, parent=parent)),
                 ("main_nopeep", 256, 256, 256, dict(peep=False, timed=True)),
-                ("decode", 1, 1, 256, dict(timed=True)),
+                ("decode", 1, 1, 256, dict(timed=True, parent=parent)),
                 ("mask", 32, 64, 256, dict(mask=True)),
                 ("uneven", 32, 256, 200, {}),
                 ("short", 8, 256, 256, {}),
@@ -5427,9 +5820,10 @@ def check_lstm_kernels(device, exp_rate, parent=None):
             cases.append(lstm_case(name, t, n, h, dtype, device, 60 + i,
                                    exp_rate, **kw))
     coop = [c for c in cases if c["case"] == "cooperative"]
-    if any(c["bwd_route"] != "cooperative" for c in coop):
+    if any(c["bwd_route"] != "cooperative" or c["fwd_route"] != "cooperative"
+           for c in coop):
         raise AssertionError(f"H = 512 did not take the cooperative route: "
-                             f"{[c['plan_bwd'] for c in coop]}")
+                             f"{[(c['plan'], c['plan_bwd']) for c in coop]}")
     cases.append(lstm_reverse_case(torch.float32, device))
     return {"cases": cases, "sass": sass}
 
@@ -5605,8 +5999,9 @@ def text_lstm(device):
     if counts != want:
         failures.append(f"fit launched {counts}, not {want}")
     prof, share = profile_fit_step(net, x, y, None)
-    prof["lstm_kernels_share_of_device_time"] = share("lstm_fwd_kernel",
-                                                      "lstm_bwd_kernel")
+    prof["lstm_kernels_share_of_device_time"] = share(
+        "lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_fwd_cluster_kernel",
+        "lstm_bwd_cluster_kernel")
     train["profile"] = prof
     rec["train"] = train
     log("text_lstm train:", json.dumps(train))
@@ -5728,6 +6123,28 @@ def lstm_entry(name, replaces, launches, cases, text):
                 "ms_f32": next(c["bwd"]["ms"] for c in cases
                                if c["case"] == "main"
                                and c["dtype"] == "float32")}),
+            **({"design": "redesigned: clusters of the unit tiles of a "
+                          "batch tile exchange h through distributed "
+                          "shared memory, one cluster barrier a step; "
+                          "bf16 products on mma.sync, each peer's K-slice "
+                          "promoted in order",
+                "fwd_route": main["fwd_route"],
+                "functions": {"cluster": "cl::lstm_fwd_cluster_kernel<T> "
+                                         "(H <= 256)",
+                              "cooperative": "lstm_fwd_kernel<T> (H > 256)"},
+                "plan": main["plan"], "planted": main["planted"],
+                **({"parent": {k: main[k]["parent"]
+                               for k in ("fwd", "fwd_train")}}
+                   if "parent" in main["fwd"] else {}),
+                **({"parent_decode": next(
+                    c["fwd"]["parent"] for c in cases
+                    if c["case"] == "decode" and c["dtype"] == "bfloat16")}
+                   if any(c["case"] == "decode" and "parent" in c["fwd"]
+                          for c in cases) else {}),
+                "ms_f32": next(c["fwd"]["ms"] for c in cases
+                               if c["case"] == "main"
+                               and c["dtype"] == "float32")}
+               if kind == "fwd" else {}),
             "launches_on": f"{LSTM_STEPS} fit steps of the text LSTM",
             "launches_output": text["inference"]["launches"][name],
             "launches_sample_stream": text["stream"]["launches"][name],
@@ -5863,7 +6280,8 @@ def fused_entry(name, replaces, launches, cases):
     kind = name.split("_")[1]
     main = cases[0]
     keys = ("out", "fwd_route", "fwd_bitwise_repeat") if kind == "fwd" \
-        else ("dy", "dw", "sums_rel", "bitwise_repeat")
+        else ("dy", "dw", "sums_rel", "bitwise_repeat", "bwd_route",
+              "bwd_plan")
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/fused.cu",
             "replaces": replaces, "launches": launches,
@@ -5874,7 +6292,25 @@ def fused_entry(name, replaces, launches, cases):
                 "core_route": main["fwd_route"],
                 "kernel_source": "deeplearning4j_tpu_torch/nn/layers/csrc/"
                                  "conv_fwd_tc.cuh"}
-               if kind == "fwd" else {}),
+               if kind == "fwd" else {
+                "design": "redesigned for the tensor cores (bf16: the "
+                          "bottleneck's bwd1x1 kernels of conv_bwd_tc.cuh "
+                          "in their fused mode, the raw g the dz "
+                          "product's operand, db from the dW pass's g "
+                          "tiles; f32: the CUDA cores)",
+                "core_route": main["bwd_route"], "plan": main["bwd_plan"],
+                "functions": {
+                    "tensor_cores": "dl4j_bwd::dz_tc_kernel<1, WN, kFused>, "
+                                    "dl4j_bwd::dw_tc_kernel<1, WM, WN, "
+                                    "kFused> (bf16)",
+                    "cuda_cores": "fused_dz_kernel<float>, "
+                                  "fused_dw_kernel<float> (f32)"},
+                "planted": main["planted"],
+                **({"parent": {c["case"]: c["bwd"]["parent"]
+                               for c in cases if "parent" in c["bwd"]}}
+                   if "parent" in main["bwd"] else {}),
+                "kernel_source": "deeplearning4j_tpu_torch/nn/layers/csrc/"
+                                 "conv_bwd_tc.cuh"}),
             "max_abs_err": max(main[k]["max_abs_err"] for k in (
                 ("out",) if kind == "fwd" else ("dy", "dw"))),
             **{k: main[kind][k] for k in ("ms", "plain_ms", "bound_ms",
@@ -6046,9 +6482,10 @@ def main(argv=None) -> int:
         out["resnet_reference"] = phase("resnet_reference",
                                         resnet_reference, device)
     if want("cnn_bwd"):
-        bwd = phase("cnn_bwd", check_cnn_bwd_kernels, device, smi)
-        out["cnn_bwd_cases"], out["cnn_bwd_sweep"] = bwd["cases"], \
-            bwd["sweep"]
+        bwd = phase("cnn_bwd", check_cnn_bwd_kernels, device, smi,
+                    args.parent)
+        out["cnn_bwd_cases"], out["cnn_bwd_sweep"], out["cnn_bwd_sass"] = \
+            bwd["cases"], bwd["sweep"], bwd["sass"]
     if want("resnet_train"):
         rt = out["resnet_train"] = phase("resnet_train", resnet_train,
                                          device)
@@ -6084,7 +6521,8 @@ def main(argv=None) -> int:
     if want("auto_plan"):
         out["auto_plan"] = phase("auto_plan", auto_plan, device)
     if want("fused_kernels"):
-        fk = phase("fused_kernels", check_fused_kernels, device)
+        fk = phase("fused_kernels", check_fused_kernels, device,
+                   args.parent)
         out["fused_cases"], out["fused_sass"] = fk["cases"], fk["sass"]
     if want("resnet_fuse_true"):
         rf = out["resnet_fuse_true"] = phase("resnet_fuse_true",

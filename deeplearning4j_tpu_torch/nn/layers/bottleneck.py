@@ -91,7 +91,8 @@ _BWD_LIBRARY = CudaLibrary(
     {**{s: _BWD1X1_ARGS for s in _symbols("bwd1x1").values()},
      **{s: _BWD3X3_ARGS for s in _symbols("bwd3x3").values()},
      "dl4j_bwd_row_tile": []},
-    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh"])
+    headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/conv_bwd_tc.cuh"])
 
 #: the four kernels; each ``.launches`` counts its launches (a backward
 #: stage's entry point, which launches its dz and dW passes, counts once)

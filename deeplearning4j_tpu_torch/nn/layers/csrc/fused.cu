@@ -43,22 +43,51 @@
 // stores run one after another at one or two blocks an SM, and
 // mma.sync's rate is below wgmma's.
 //
-// The f32 forward and the backward stay on conv_gemm.cuh's f32 CUDA-core
-// tiles (128 rows x 64 columns, 16-deep reduction steps; exact f32, no
-// TF32): the f32 forward's prologue applied as the A tile is gathered
-// (conv_gemm.cuh's load_tile), its epilogue adding b. The backward is two
-// GEMMs over the same tiles. The dz pass: rows M, columns C, reduction
-// over K (A = g, B = W^T); its epilogue recomputes z0 from y for the
-// relu' mask, stores dy and sums dz y and dz into per-block partials,
-// reduced per channel in a fixed order by conv_gemm.cuh's second pass.
-// The dW pass: rows C, columns K, reduction over M split across the
-// grid's z dimension into f32 partials, z recomputed from y as its tile
-// is gathered; one more row of ones (row C) makes db = sum g the same
-// product's last row. The splits are merged in a fixed order (f64), so
-// two launches on the same inputs give bitwise-equal results: no float
-// atomics. The backward's products on the f32 rate and its two reads of
-// y and g bound it; tensor-core tiles and one pass that keeps dz's tile
-// for the dW product are later work (ROADMAP queue B).
+// The bf16 backward, the main path's, runs on the tensor cores too: it
+// is the bottleneck's bwd1x1 stage (conv_bwd_tc.cuh) in its kFused mode,
+// two passes over (y, g) with no float atomics:
+//   - the dz pass: 128 rows of M a block and up to 128 channels of C (C
+//     > 128: more column tiles); g itself is the A operand, copied 16
+//     bytes a thread by cp.async into a 3-stage ring of [128][32 + 8]
+//     tiles that ldmatrix reads (no conversion pass, one block barrier a
+//     chunk of 32 of K), W [C, K] the B operand; the tensor cores'
+//     partials promoted with round-to-nearest adds every 4 k16 steps (at
+//     s5 K = 2048 is 128 of them); the epilogue stages the f32 tile in
+//     shared memory, masks it by relu'(y sc + bb) on the unrounded z0,
+//     sums dz y and dz from the f32 dz into per-block partials and stores
+//     dy = dz sc, 16 bytes a thread;
+//   - the dW pass: 64 or 128 channels of z by 64 to 256 columns of g a
+//     block, over a split of M's 64-row chunks; y copied by cp.async and
+//     converted once into z = round(act(y sc + bb)), g's ring tile read
+//     by ldmatrix.trans as it landed; promoted every 8 k16 steps; the
+//     blocks of the first channel tile also sum g's columns (db) into
+//     row C of the partials [splits, C + 1, K];
+//   - the sums' partials reduced per channel in a fixed order (f64,
+//     conv_gemm.cuh's reduce_partials_kernel), the dW / db partials over
+//     the splits in order (f64, fused_finish_kernel below).
+// The plan (128-row dz blocks, the dW splits) is fused.py's _bwd_tc_plan,
+// the bottleneck's 1x1 plan over M one-pixel images. What still holds
+// it back: each pass reads g (and y) once more than one pass would (at
+// s2 565 MB against the bound's 308 MB), a block's chain of chunks at
+// the small-M stages (s4, s5: 25 and 49 dz blocks a column tile), and
+// mma.sync's rate below wgmma's.
+//
+// The f32 forward and the f32 backward stay on conv_gemm.cuh's f32
+// CUDA-core tiles (128 rows x 64 columns, 16-deep reduction steps; exact
+// f32, no TF32): the f32 forward's prologue applied as the A tile is
+// gathered (conv_gemm.cuh's load_tile), its epilogue adding b. The f32
+// backward is two GEMMs over the same tiles. The dz pass: rows M,
+// columns C, reduction over K (A = g, B = W^T); its epilogue recomputes
+// z0 from y for the relu' mask, stores dy and sums dz y and dz into
+// per-block partials, reduced per channel in a fixed order by
+// conv_gemm.cuh's second pass. The dW pass: rows C, columns K, reduction
+// over M split across the grid's z dimension into f32 partials, z
+// recomputed from y as its tile is gathered; one more row of ones (row
+// C) makes db = sum g the same product's last row. The splits are merged
+// in a fixed order (f64), so two launches on the same inputs give
+// bitwise-equal results. One pass over (y, g) for both products, each
+// block's g tile and z kept for both (dz = g W^T needs g and W; dW = z^T
+// g needs z and g: no dz), is later work (ROADMAP queue B, B3b).
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -66,6 +95,7 @@
 // on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
+#include "conv_bwd_tc.cuh"
 #include "conv_fwd_tc.cuh"
 #include "conv_gemm.cuh"
 
@@ -472,6 +502,65 @@ int fused_bwd(const void* y, const void* sc, const void* bb, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 backward on the tensor cores (conv_bwd_tc.cuh's kFused
+// kernels): the dz pass, the sums' fixed-order reduction, the dW pass
+// (db in its partials' row C) and the splits' reduction. `tiles` must
+// cover the dz pass's 128-row blocks and chunk x splits the dW pass's
+// 64-row chunks (fused.py's _bwd_tc_plan), and no tensor may hold 2^31 -
+// 1 elements or more (the kernels index with ints):
+// cudaErrorInvalidValue, before any launch, otherwise.
+int fused_bwd_tc(const void* y, const void* sc, const void* bb,
+                 const void* w, const void* g, void* dy, void* dsc,
+                 void* dbb, void* dw, void* db, void* part1, void* part2,
+                 void* dw_part, int m, int c, int k, int relu, int tiles,
+                 int chunk, int splits, void* stream) {
+  using dl4j_bwd::kDwPixels;
+  using dl4j_bwd::kDzPixels;
+  using dl4j_bwd::kFused;
+  if (m <= 0 || c <= 0 || k <= 0 ||
+      static_cast<int64_t>(m) * c >= INT_MAX ||
+      static_cast<int64_t>(m) * k >= INT_MAX ||
+      static_cast<int64_t>(c + 1) * k >= INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = c % 8 == 0 && k % 8 == 0 && dl4j_mma::aligned16(y) &&
+                  dl4j_mma::aligned16(g) && dl4j_mma::aligned16(w) &&
+                  dl4j_mma::aligned16(dy);
+  // M images of one pixel: y is the stage's y_{k-1}, g its output
+  // gradient, stride 1
+  dl4j_bwd::TcStage s{m, 1, 1, c, 1, 1, k, 1, relu, vec,
+                      dl4j_mma::Tiling{0, 0, 0, 0}, tiles, chunk};
+  dl4j_bwd::TcStage sz = s, sw = s;
+  sz.tile.patches = (m + kDzPixels - 1) / kDzPixels;
+  sw.tile.patches = (m + kDwPixels - 1) / kDwPixels;
+  if (sz.tile.patches > tiles || chunk <= 0 || splits <= 0 ||
+      static_cast<int64_t>(chunk) * splits < sw.tile.patches ||
+      static_cast<int64_t>(chunk) * (splits - 1) >= sw.tile.patches)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the kernels' places: yk unused, yprev = y, aff_k = bb, aff_p = sc
+  int err = c <= 64 ? dl4j_bwd::launch_dz<1, 2, kFused>(
+                          nullptr, g, y, w, bb, sc, dy, part1, part2, sz, st)
+                    : dl4j_bwd::launch_dz<1, 4, kFused>(
+                          nullptr, g, y, w, bb, sc, dy, part1, part2, sz, st);
+  if (err) return err;
+  dl4j_conv::reduce_partials_kernel<<<c, dl4j_conv::kReduceThreads, 0, st>>>(
+      static_cast<const float*>(part1), static_cast<const float*>(part2),
+      sz.tile.patches, tiles, static_cast<float*>(dsc),
+      static_cast<float*>(dbb));
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = dl4j_bwd::launch_dw_for<1, kFused>(nullptr, g, y, bb, sc, dw_part,
+                                           splits, sw, st);
+  if (err) return err;
+  const int64_t size = static_cast<int64_t>(c + 1) * k;
+  fused_finish_kernel<__nv_bfloat16>
+      <<<static_cast<unsigned>((size + kFinishThreads - 1) / kFinishThreads),
+         kFinishThreads, 0, st>>>(static_cast<const float*>(dw_part), splits,
+                                  c, k, static_cast<__nv_bfloat16*>(dw),
+                                  static_cast<float*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -505,12 +594,28 @@ int dl4j_fused_bwd_bf16(const void* y, const void* sc, const void* bb,
                         void* part2, void* dw_part, int m, int c, int k,
                         int relu, int tiles, int chunk, int splits,
                         void* stream) {
-  return fused_bwd<__nv_bfloat16>(y, sc, bb, w, g, dy, dsc, dbb, dw, db,
-                                  part1, part2, dw_part, m, c, k, relu, tiles,
-                                  chunk, splits, stream);
+  return fused_bwd_tc(y, sc, bb, w, g, dy, dsc, dbb, dw, db, part1, part2,
+                      dw_part, m, c, k, relu, tiles, chunk, splits, stream);
 }
 
 int dl4j_fused_row_tile() { return kBM; }
+
+// Bytes of dynamic shared memory the bf16 backward's dz and dW passes
+// launch with at widths c, k (out[2]).
+int dl4j_fused_bwd_tc_smem(int c, int k, int* out) {
+  using dl4j_bwd::kFused;
+  dl4j_bwd::TcStage s{};
+  s.c = c;
+  s.k = k;
+  out[0] = static_cast<int>(c <= 64 ? dl4j_bwd::dz_smem<1, 2, kFused>(s)
+                                    : dl4j_bwd::dz_smem<1, 4, kFused>(s));
+  out[1] = static_cast<int>(
+      dl4j_bwd::with_dw_shape<1>(s, [&](auto wm, auto wn) {
+        return dl4j_bwd::dw_smem<1, decltype(wm)::value, decltype(wn)::value,
+                                 kFused>(s);
+      }));
+  return 0;
+}
 
 // Bytes of dynamic shared memory the bf16 forward launches with.
 int dl4j_fused_fwd_tc_smem(int m, int k) {

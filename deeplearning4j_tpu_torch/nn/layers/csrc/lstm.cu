@@ -32,7 +32,7 @@
 //
 // Translation. The TPU kernel walks T on a sequential grid with RW and the
 // (h, c) carry resident in VMEM. Blocks on an H100 run in no order, so the
-// time loop moves inside one persistent launch. The forward, and the
+// time loop moves inside one persistent launch. The forward and the
 // backward where H > 256 (the cooperative route):
 //   - each block owns a tile of hidden units (ub of them) with all four of
 //     their gate columns, so the cell update stays inside the block, and
@@ -54,30 +54,49 @@
 //     The barrier itself is a counter and a generation word, with a
 //     __threadfence() by every thread before arriving, so the next step
 //     reads every block's h_t.
-// The backward where H <= 256 (the cluster route, namespace cl below):
+// The forward where H <= 256 (the cluster route, namespace cl below):
 // the recurrence couples hidden units only within a batch row, so the
 // unit tiles of one batch tile (at most 8 of up to 32 units) form one
 // thread-block cluster, and the clusters need no barrier between them.
+// Each block keeps RW[:, the 4 ub gate columns of its units] resident in
+// shared memory and its threads' c and h carries in registers. Each step
+// it writes its piece of h_t (its rows x ub units, rounded to T) into its
+// own double-buffered shared memory, the cluster meets at one
+// barrier.cluster arrive (release) / wait (acquire) with the step's
+// global stores (out, the saves) between them, and warp q copies peer
+// q's piece (the q-th K-slice of the next product) through distributed
+// shared memory into the block's assembled h tile, every load in flight
+// at once. Warp w then takes 16 of the block's gate columns over the
+// whole K, each peer's K-slice into zeroed fragments added in peer order
+// with round-to-nearest adds: in bf16 on mma.sync m16n8k16 (the piece is
+// stored in A-fragment order, so a lane takes a fragment in one 16-byte
+// load, and the bf16 carry's products are exact: no split), RW's slice
+// read by ldmatrix.trans; in f32 on the CUDA cores. The gate tile goes
+// through shared memory to the cell update, a thread owning two units
+// of one or two rows; zx for the next step is loaded into registers a
+// step ahead (a pair's two bf16 values are not 4-byte aligned at every
+// H, which cp.async would need). The block's shared memory (92-115 KB in
+// bf16) lets two blocks share an SM, so 16 clusters of 8 run in one wave.
+// The backward where H <= 256 (the cluster route too): the same clusters.
 // Each step a block writes its piece of dgates_t (its rows x 4 ub gate
-// columns) into its own double-buffered shared memory, the cluster meets
-// at one barrier.cluster arrive / wait (release / acquire), and each warp
-// reads one peer's piece through distributed shared memory, every load
-// of it in flight at once. In bf16 the piece is written as three bf16
-// terms hi + mid + lo of each f32 value (exact for normal values: 3 x 8
-// significand bits cover f32's 24), laid out as mma.sync m16n8k16 A
-// fragments, so a lane takes its fragment in one 16-byte load; the warp
-// multiplies them against the block's RW[ub, :] slice (bf16, resident in
-// shared memory, read with ldmatrix), the three terms into zeroed
-// fragments promoted with round-to-nearest adds each k16 step (the tensor
-// cores' accumulation rounds toward zero), and the warps' partials are
-// summed in a fixed order. In f32 the piece is f32 ([column][row]); each
-// warp reads one peer's piece through distributed shared memory, 16
-// columns' loads in flight at a time, and multiplies it on the CUDA cores
-// against the resident f32 RW^T slice, a lane taking 4 rows x 4 units,
-// the warps' partials summed in the same fixed order. The step's saves
-// (the gates, c and c_{t-1},
-// f32) are copied a step ahead by cp.async, dout a step ahead into
-// registers; a thread's dc stays in registers for the whole sequence.
+// columns) into its own double-buffered shared memory, the cluster meets at
+// one barrier.cluster arrive / wait (release / acquire), and each warp reads
+// one peer's piece through distributed shared memory, every load of it in
+// flight at once. In bf16 the piece is written as three bf16 terms hi + mid
+// + lo of each f32 value (exact for normal values: 3 x 8 significand bits
+// cover f32's 24), laid out as mma.sync m16n8k16 A fragments, so a lane
+// takes its fragment in one 16-byte load; the warp multiplies them against
+// the block's RW[ub, :] slice (bf16, resident in shared memory, read with
+// ldmatrix), the three terms into zeroed fragments promoted with
+// round-to-nearest adds each k16 step (the tensor cores' accumulation rounds
+// toward zero), and the warps' partials are summed in a fixed order. In f32
+// the piece is f32 ([column][row]); each warp reads one peer's piece through
+// distributed shared memory, 16 columns' loads in flight at a time, and
+// multiplies it on the CUDA cores against the resident f32 RW^T slice, a
+// lane taking 4 rows x 4 units, the warps' partials summed in the same fixed
+// order. The step's saves (the gates, c and c_{t-1}, f32) are copied a step
+// ahead by cp.async, dout a step ahead into registers; a thread's dc stays
+// in registers for the whole sequence.
 //
 // What bounds it on an H100. Inference at T = N = H = 256, bf16, one
 // layer: zx (134 MB) read and out (34 MB) written, 0.050 ms at 3.35 TB/s;
@@ -85,13 +104,17 @@
 // training forward also writes 336 MB of f32 saves (0.150 ms), which the
 // backward reads. No formula shows the sequential floor: T dependent
 // steps, each a barrier and a chain of dependent reads, so the time is
-// latency. The forward (and the cooperative backward) runs its products
-// on the f32 CUDA cores from shared memory and re-reads h from L2 each
-// step in dependent chunk rounds behind a grid barrier. The cluster
-// backward's step is one cluster barrier, one round of distributed
-// shared-memory loads, 24 mma.sync per warp (bf16) and the elementwise
-// update; its f32 route is bound by the f32 FMA rate (2 T N H 4H FMAs).
-// The decode shape (N = 1, T = 1) is bound by the launch's latency.
+// latency. The cooperative kernels run their products on the f32 CUDA
+// cores from shared memory and re-read h from L2 each step in dependent
+// chunk rounds behind a grid barrier. The cluster forward's step is one
+// cluster barrier, one round of distributed shared-memory loads (16 KB
+// of h a block at 32 rows), 32 mma.sync per warp a row tile (bf16) and
+// the elementwise update; the cluster backward's one barrier, one round
+// of loads, 24 mma.sync per warp (bf16) and its update. Their f32
+// routes are bound by the f32 FMA rate (2 T N H 4H FMAs), and the f32
+// forward's 160 KB blocks run one an SM, 15 clusters of 8 at once. The
+// decode shape (N = 1, T = 1) is bound by the launch's latency and the
+// RW slices' staging.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -524,6 +547,8 @@ int plan(int n, int h, bool bwd, int* out) {
 // ---------------------------------------------------------------------
 enum BwdKernel : int { kBwdCooperative = 0, kBwdCluster = 1 };
 int bwd_launched[2] = {0, 0};
+// the same for the forward's (read through dl4j_lstm_fwd_kernel_launches)
+int fwd_launched[2] = {0, 0};
 
 template <typename T, typename Args>
 int launch(Args a, bool bwd, int ub, int groups, int resident,
@@ -565,7 +590,9 @@ int lstm_fwd(const void* zx, const void* rw, const void* h0, const void* c0,
   a.t_len = t_len;
   a.n = n;
   a.h = h;
-  return launch<T>(a, false, ub, groups, resident, stream);
+  const int err = launch<T>(a, false, ub, groups, resident, stream);
+  if (!err) ++fwd_launched[kBwdCooperative];
+  return err;
 }
 
 template <typename T>
@@ -621,9 +648,11 @@ constexpr int kRedStride = kMaxUnits + 8;    // a warp partial's row (f32)
 // The split of one launch: cs blocks a cluster (unit tiles of ub units),
 // a piece of kp gate columns (4 ub padded to whole k16 steps, ks of
 // them), nb = 16 mt rows a block, batch_tiles clusters; wstride is the
-// bf16 RW slice's row (cs kp columns, padded by 8).
+// bf16 RW slice's row (cs kp columns, padded by 8). The forward's piece
+// is the block's h tile: nb rows x kq units (ub padded to whole k16
+// steps), its K-slice of the product.
 struct Geo {
-  int cs, ub, kp, ks, mt, nb, batch_tiles, wstride;
+  int cs, ub, kp, ks, mt, nb, batch_tiles, wstride, kq;
 };
 
 inline Geo geo(int n, int h, int mt) {
@@ -636,7 +665,27 @@ inline Geo geo(int n, int h, int mt) {
   g.nb = 16 * mt;
   g.batch_tiles = (n + g.nb - 1) / g.nb;
   g.wstride = g.cs * g.kp + 8;
+  g.kq = (g.ub + 15) / 16 * 16;
   return g;
+}
+
+// The forward's gate columns a block (4 ub, padded: 8 warps of 16), the
+// bf16 RW slice's row (padded by 8) and the gate tile's row (f32).
+constexpr int kFwdCols = 4 * kMaxUnits;
+constexpr int kFwdNs = kFwdCols + 8;
+constexpr int kGateStride = kFwdCols + 4;
+
+// Bytes of shared memory a forward block takes: the exchange's two
+// buffers (a piece, mt kq 16 values), the assembled h tile (cs kq x nb),
+// the gate tile, the stores' staging tile (out and c, [2][nb][32] f32)
+// and the RW slice (bf16 [cs kq][kFwdNs], f32 [cs kq][kFwdCols]).
+inline size_t fwd_smem_bytes(const Geo& g, bool tc) {
+  const size_t kall = static_cast<size_t>(g.cs) * g.kq;
+  const size_t el = tc ? sizeof(bf16) : sizeof(float);
+  return (2ull * g.mt * g.kq * 16 + kall * g.mt * 16) * el +
+         static_cast<size_t>(g.nb) * (kGateStride + 2 * kMaxUnits) *
+             sizeof(float) +
+         kall * (tc ? kFwdNs : kFwdCols) * el;
 }
 
 // Bytes of shared memory a block takes: the two exchange buffers (bf16:
@@ -1035,6 +1084,400 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();   // no block leaves while a peer reads its pieces
 }
 
+// ---------------------------------------------------------------------
+// the forward on thread-block clusters (H <= 256)
+// ---------------------------------------------------------------------
+struct FwdClusterArgs {
+  const void* zx;      // [T, N, 4H]
+  const void* rw;      // [H, 4H]
+  const void* h0;
+  const void* c0;
+  const void* peep;    // [3, H] or null
+  const float* mask;   // [T, N] or null
+  void* out;           // [T, N, H]
+  void* h_t;
+  void* c_t;
+  float* gates;        // [T, N, 4H] training save, or null
+  float* csave;        // [T, N, H] training save, or null
+  int t_len, n, h;
+  int wvec;            // RW's slice copied 16 bytes at a time
+  Geo g;
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Block (batch tile bt, cluster rank q) owns rows nb bt .. + nb and units
+// q ub .. + ub with their four gate columns; a thread owns the units
+// 2 (tid % 16) + {0, 1} of the rows tid / 16 + 16 m: their h and c carry
+// (in registers for the whole sequence), their zx (loaded a step ahead),
+// their outputs and saves. The block's RW slice, RW[:, the 4 ub gate
+// columns of its units], stays in shared memory, rows ordered as the
+// assembled h tile's columns (peer q's units at q kq ..). Step t:
+//   1. warp q copies peer q's piece of h_{t-1} (buffer (t + 1) & 1: h0
+//      at t = 0) through distributed shared memory into the assembled
+//      h tile, every load of it in flight at once;
+//   2. gates = h_{t-1} RW_slice: warp w the 16 gate columns 16 w .. + 16
+//      over the whole K, each peer's K-slice into zeroed fragments
+//      promoted with round-to-nearest adds in peer order (bf16: mma.sync
+//      m16n8k16 on the fragment-ordered tile and ldmatrix.trans of the
+//      slice; f32: the CUDA cores), into the gate tile;
+//   3. the cell update from the gate tile, zx and the carries; h and c
+//      rounded to T; h written into this block's piece, buffer t & 1 (A
+//      fragment order in bf16, [unit][row] in f32);
+//   4. the cluster barrier's arrive (release), the global stores of out,
+//      the saves and hT / cT, then its wait (acquire): every piece of
+//      step t visible to every peer.
+// Double buffering suffices: a block writes buffer t & 1 at step t only
+// after the wait of step t - 1, which every peer passes only after its
+// reads of that buffer (the pieces of step t - 2, read at step t - 1).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    lstm_fwd_cluster_kernel(FwdClusterArgs a) {
+  constexpr bool kTc = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Geo g = a.g;
+  const int H = a.h, N = a.n, H4 = 4 * H;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bt = blockIdx.x / g.cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int unit0 = rank * g.ub;
+  const int own = min(g.ub, H - unit0);   // this block's units
+  const int up = tid & 15, rr = tid >> 4;
+  const int qs = g.kq / 16;               // k16 steps of a piece
+  const int kall = g.cs * g.kq;           // the product's K, padded
+  const int KS = kall / 16;
+  const T* rw = static_cast<const T*>(a.rw);
+  const T* zx = static_cast<const T*>(a.zx);
+  const T* h0 = static_cast<const T*>(a.h0);
+  const T* c0 = static_cast<const T*>(a.c0);
+  const T* peep = static_cast<const T*>(a.peep);
+  T* out = static_cast<T*>(a.out);
+
+  // shared memory: the exchange, the assembled h tile, the gate tile,
+  // the RW slice
+  const int xelems = g.mt * g.kq * 16;   // a piece
+  unsigned char* p = smem;
+  T* xch = reinterpret_cast<T*>(p);       // [2][xelems]
+  p += 2ull * xelems * sizeof(T);
+  T* hloc = reinterpret_cast<T*>(p);      // bf16 [mt][KS][256]; f32
+  p += static_cast<size_t>(g.mt) * kall * 16 * sizeof(T);   // [kall][nb]
+  float* gt = reinterpret_cast<float*>(p);   // [nb][kGateStride]
+  p += static_cast<size_t>(g.nb) * kGateStride * sizeof(float);
+  float* stg = reinterpret_cast<float*>(p);  // [2][nb][32]: out, c
+  p += 2ull * g.nb * kMaxUnits * sizeof(float);
+  T* wsl = reinterpret_cast<T*>(p);       // [kall][wcols]
+  constexpr int wcols = kTc ? kFwdNs : kFwdCols;
+
+  // the exchange zeroed (rows past N, units past H and the padding stay
+  // zero); the RW slice: row kk (peer q = kk / kq, its unit u), column
+  // n = gg ub + u2 of this block's units holds RW[q ub + u, gg H + unit0
+  // + u2], zero past the units, the gates and the peers' units
+  {
+    uint4* x4 = reinterpret_cast<uint4*>(xch);
+    const int n4 = static_cast<int>(2ull * xelems * sizeof(T) / 16);
+    for (int i = tid; i < n4; i += kThreads) x4[i] = make_uint4(0, 0, 0, 0);
+    if (a.wvec) {
+      constexpr int E = 16 / sizeof(T);
+      const int per = g.ub / E;   // 16-byte chunks of a gate's units
+      for (int i = tid; i < kall * 4 * per; i += kThreads) {
+        const int kk = i / (4 * per);
+        const int r = i - kk * 4 * per;
+        const int gg = r / per;
+        const int ch = r - gg * per;
+        const int q = kk / g.kq;
+        const int u = kk - q * g.kq;
+        const bool ok = u < min(g.ub, H - q * g.ub) && ch * E < own;
+        *reinterpret_cast<uint4*>(wsl + kk * wcols + gg * g.ub + ch * E) =
+            ok ? __ldg(reinterpret_cast<const uint4*>(
+                     rw + static_cast<size_t>(q * g.ub + u) * H4 + gg * H +
+                     unit0 + ch * E))
+               : make_uint4(0, 0, 0, 0);
+      }
+      const int pad = kFwdCols - 4 * g.ub;
+      for (int i = tid; i < kall * pad; i += kThreads) {
+        const int kk = i / pad;
+        wsl[kk * wcols + 4 * g.ub + (i - kk * pad)] = T(0.f);
+      }
+    } else {
+      for (int i = tid; i < kall * kFwdCols; i += kThreads) {
+        const int kk = i / kFwdCols;
+        const int n = i - kk * kFwdCols;
+        const int q = kk / g.kq;
+        const int u = kk - q * g.kq;
+        const int gg = n / g.ub;
+        const int u2 = n - gg * g.ub;
+        const bool ok = gg < 4 && u2 < own && u < min(g.ub, H - q * g.ub);
+        wsl[kk * wcols + n] =
+            ok ? rw[static_cast<size_t>(q * g.ub + u) * H4 + gg * H + unit0 +
+                    u2]
+               : T(0.f);
+      }
+    }
+  }
+  __syncthreads();   // the exchange zeroed before this block's h0 lands
+
+  // this thread's pairs (m, e): row rr + 16 m, unit 2 up + e; h0 and c0
+  // into the carries and h0 into this block's piece, buffer 1
+  int nrow[kMaxMt];
+  bool ok[kMaxMt][2];
+  float hp[kMaxMt][2], cp[kMaxMt][2], p_i[2], p_f[2], p_o[2];
+  auto put = [&](int buf, int m, int e, T v) {
+    const int ul = 2 * up + e;
+    if constexpr (kTc)
+      xch[buf * xelems + (m * qs + (ul >> 4)) * 256 + frag_at(rr, ul & 15)] =
+          v;
+    else
+      xch[buf * xelems + ul * g.nb + rr + 16 * m] = v;
+  };
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int ul = 2 * up + e;
+    p_i[e] = p_f[e] = p_o[e] = 0.f;
+    if (peep != nullptr && ul < own) {
+      p_i[e] = to_f32(peep[unit0 + ul]);
+      p_f[e] = to_f32(peep[H + unit0 + ul]);
+      p_o[e] = to_f32(peep[2 * H + unit0 + ul]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kMaxMt; ++m) {
+    nrow[m] = bt * g.nb + rr + 16 * m;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ok[m][e] = m < g.mt && 2 * up + e < own && nrow[m] < N;
+      hp[m][e] = cp[m][e] = 0.f;
+      if (!ok[m][e]) continue;
+      const size_t nh = static_cast<size_t>(nrow[m]) * H + unit0 + 2 * up + e;
+      hp[m][e] = to_f32(h0[nh]);
+      cp[m][e] = to_f32(c0[nh]);
+      put(1, m, e, h0[nh]);
+    }
+  }
+  // zx of step t for this thread's pairs, a step ahead
+  float zn[kMaxMt][2][4];
+  auto load_zx = [&](int t) {
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg)
+          zn[m][e][gg] =
+              ok[m][e] ? to_f32(zx[(static_cast<size_t>(t) * N + nrow[m]) *
+                                       H4 +
+                                   gg * H + unit0 + 2 * up + e])
+                       : 0.f;
+  };
+  load_zx(0);
+  cluster.sync();   // every block started, its piece of h0 written
+
+  for (int t = 0; t < a.t_len; ++t) {
+    // 1. the peers' pieces of h_{t-1} into the assembled tile
+    if (warp < g.cs) {
+      const T* piece = cluster.map_shared_rank(
+          xch + ((t + 1) & 1) * xelems, warp);
+      if constexpr (kTc) {
+        // 16 x 16 tiles (m, ks) -> the tile's steps warp qs + ks
+        uint4 v[kMaxMt * 2];
+#pragma unroll
+        for (int i = 0; i < kMaxMt * 2; ++i)
+          if (i < g.mt * qs)
+            v[i] = *reinterpret_cast<const uint4*>(piece + i * 256 +
+                                                   lane * 8);
+#pragma unroll
+        for (int i = 0; i < kMaxMt * 2; ++i)
+          if (i < g.mt * qs) {
+            const int m = i / qs;
+            *reinterpret_cast<uint4*>(
+                hloc + (m * KS + warp * qs + (i - m * qs)) * 256 + lane * 8) =
+                v[i];
+          }
+      } else {
+        // [kq][nb] -> rows warp kq .. of the tile [kall][nb]
+        const int n4 = g.kq * g.nb / 4;
+        const float4* src = reinterpret_cast<const float4*>(piece);
+        float4* dst =
+            reinterpret_cast<float4*>(hloc + warp * g.kq * g.nb);
+        float4 v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (lane + 32 * i < n4) v[i] = src[lane + 32 * i];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (lane + 32 * i < n4) dst[lane + 32 * i] = v[i];
+      }
+    }
+    __syncthreads();
+    // 2. the gate tile: h_{t-1} RW_slice, each peer's K-slice promoted in
+    // order
+    if constexpr (kTc) {
+      if (16 * warp < 4 * g.ub) {
+#pragma unroll
+        for (int m = 0; m < kMaxMt; ++m) {
+          if (m >= g.mt) continue;
+          float acc[2][4];
+#pragma unroll
+          for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[nf][q] = 0.f;
+#pragma unroll 1
+          for (int q = 0; q < g.cs; ++q) {
+            float part[2][4];
+#pragma unroll
+            for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[nf][e] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              if (ks >= qs) continue;
+              const int step = q * qs + ks;
+              const uint4 av = *reinterpret_cast<const uint4*>(
+                  hloc + (m * KS + step) * 256 + lane * 8);
+              const uint32_t af[4] = {av.x, av.y, av.z, av.w};
+              uint32_t bfr[4];
+              dl4j_mma::ldsm_x4<true>(
+                  smem_addr(wsl + (16 * step + dl4j_mma::b_trans_k(lane)) *
+                                      kFwdNs +
+                            16 * warp + dl4j_mma::b_trans_n(lane)),
+                  bfr);
+              dl4j_mma::mma_16816(part[0], af, bfr[0], bfr[1]);
+              dl4j_mma::mma_16816(part[1], af, bfr[2], bfr[3]);
+            }
+#pragma unroll
+            for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[nf][e] += part[nf][e];
+          }
+#pragma unroll
+          for (int nf = 0; nf < 2; ++nf) {
+            float* r0 = gt + (16 * m + (lane >> 2)) * kGateStride + 16 * warp +
+                        8 * nf + 2 * (lane & 3);
+            *reinterpret_cast<float2*>(r0) =
+                make_float2(acc[nf][0], acc[nf][1]);
+            *reinterpret_cast<float2*>(r0 + 8 * kGateStride) =
+                make_float2(acc[nf][2], acc[nf][3]);
+          }
+        }
+      }
+    } else {
+      // rows 2 warp, 2 warp + 1 x columns 4 lane .. + 4 (nb = 16)
+      const float* hf = reinterpret_cast<const float*>(hloc);
+      const float* wf = reinterpret_cast<const float*>(wsl);
+      const int r0 = 2 * warp, c0 = 4 * lane;
+      float acc[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+      for (int q = 0; q < g.cs; ++q) {
+        float part[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+#pragma unroll 4
+        for (int kk = q * g.kq; kk < (q + 1) * g.kq; ++kk) {
+          const float2 hv =
+              *reinterpret_cast<const float2*>(hf + kk * g.nb + r0);
+          const float4 wv =
+              *reinterpret_cast<const float4*>(wf + kk * kFwdCols + c0);
+          const float hs[2] = {hv.x, hv.y};
+          const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              part[i][j] = fmaf(hs[i], ws[j], part[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float4*>(gt + (r0 + i) * kGateStride + c0) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+    // 3. the cell update; h into this block's piece of step t, the
+    // activated gates over their pre-activations in the gate tile (each
+    // thread its own pairs' slots), out and the unrounded c into the
+    // staging tile, for the stores after the arrive
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!ok[m][e]) continue;
+        const int row = rr + 16 * m, ul = 2 * up + e;
+        float* gr = gt + row * kGateStride + ul;
+        const float c_prev = cp[m][e];
+        float zi = zn[m][e][0] + gr[0];
+        float zf = zn[m][e][1] + gr[g.ub];
+        const float zg = zn[m][e][2] + gr[2 * g.ub];
+        float zo = zn[m][e][3] + gr[3 * g.ub];
+        zi += p_i[e] * c_prev;
+        zf += p_f[e] * c_prev;
+        const float ig = sigmoid(zi), fg = sigmoid(zf), gg = tanhf(zg);
+        const float cn = fg * c_prev + ig * gg;
+        zo += p_o[e] * cn;                 // the peephole reads the new c
+        const float og = sigmoid(zo);
+        const float hn = og * tanhf(cn);
+        float hc = hn, cc = cn, ho = hn;
+        if (a.mask != nullptr) {
+          const float mk = a.mask[static_cast<size_t>(t) * N + nrow[m]];
+          hc = hn * mk + hp[m][e] * (1.f - mk);
+          cc = cn * mk + c_prev * (1.f - mk);
+          ho = hc * mk;
+        }
+        const T hr = from_f32<T>(hc), cr = from_f32<T>(cc);
+        hp[m][e] = to_f32(hr);
+        cp[m][e] = to_f32(cr);
+        put(t & 1, m, e, hr);
+        gr[0] = ig;
+        gr[g.ub] = fg;
+        gr[2 * g.ub] = gg;
+        gr[3 * g.ub] = og;
+        stg[row * kMaxUnits + ul] = ho;
+        stg[(g.nb + row) * kMaxUnits + ul] = cn;
+      }
+    if (t + 1 < a.t_len) load_zx(t + 1);   // in flight from here on
+    cluster_arrive();   // this block's piece of step t written
+    // 4. the global stores from this thread's own slots, while the peers
+    // arrive
+#pragma unroll
+    for (int m = 0; m < kMaxMt; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!ok[m][e]) continue;
+        const int row = rr + 16 * m, ul = 2 * up + e;
+        const int j = unit0 + ul;
+        const size_t nt = static_cast<size_t>(t) * N + nrow[m];
+        out[nt * H + j] = from_f32<T>(stg[row * kMaxUnits + ul]);
+        if (a.gates != nullptr) {
+          const float* gr = gt + row * kGateStride + ul;
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg)
+            a.gates[nt * H4 + gg * H + j] = gr[gg * g.ub];
+          a.csave[nt * H + j] = stg[(g.nb + row) * kMaxUnits + ul];
+        }
+        if (t == a.t_len - 1) {
+          const size_t nh = static_cast<size_t>(nrow[m]) * H + j;
+          static_cast<T*>(a.h_t)[nh] = from_f32<T>(hp[m][e]);
+          static_cast<T*>(a.c_t)[nh] = from_f32<T>(cp[m][e]);
+        }
+      }
+    cluster_wait();   // every peer's piece of step t visible
+  }
+}
+
 // Launch the cluster kernel at mt row tiles a block.
 template <typename T>
 int launch(Args a, int mt, cudaStream_t st) {
@@ -1067,18 +1510,56 @@ int launch(Args a, int mt, cudaStream_t st) {
   return static_cast<int>(e);
 }
 
-// The clusters the card runs at once for the split at mt (0 where a
-// block's shared memory does not fit).
+// The forward's launch at mt row tiles a block (RW's slice copied 16
+// bytes at a time where its rows and the units a block are whole 16-byte
+// chunks and RW is aligned).
 template <typename T>
-int active_clusters(const Geo& g, int* out) {
-  const size_t bytes = smem_bytes(g, sizeof(T) == 2);
+int launch_fwd(FwdClusterArgs a, int mt, cudaStream_t st) {
+  constexpr bool kTc = sizeof(T) == 2;
+  if (mt < 1 || mt > (kTc ? kMaxMt : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.g = geo(a.n, a.h, mt);
+  if (a.g.cs > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int E = 16 / sizeof(T);
+  a.wvec = a.g.ub % E == 0 && a.h % E == 0 && dl4j_mma::aligned16(a.rw);
+  const size_t bytes = fwd_smem_bytes(a.g, kTc);
+  auto fn = lstm_fwd_cluster_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.g.cs * a.g.batch_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.g.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fn, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++fwd_launched[kBwdCluster];
+  return static_cast<int>(e);
+}
+
+// The clusters the card runs at once for the split at mt, forward or
+// backward (0 where a block's shared memory does not fit).
+template <typename T>
+int active_clusters(const Geo& g, bool fwd, int* out) {
+  const size_t bytes =
+      fwd ? fwd_smem_bytes(g, sizeof(T) == 2) : smem_bytes(g, sizeof(T) == 2);
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   *out = 0;
   if (bytes > static_cast<size_t>(smem_max)) return 0;
-  auto fn = lstm_bwd_cluster_kernel<T>;
+  auto fn = fwd ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel<T>)
+                : reinterpret_cast<const void*>(lstm_bwd_cluster_kernel<T>);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1096,12 +1577,13 @@ int active_clusters(const Geo& g, int* out) {
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &cfg));
 }
 
-// The split of the cluster route for N rows and H units (H <= 256): the
-// row tiles a block (bf16: 16 or 32, f32: 16) whose clusters the card
-// runs in the fewest waves, ties to 16 (less work a step). Fills out[8]
-// (cs, ub, kp, mt, nb, batch_tiles, smem, active clusters).
+// The split of the cluster route for N rows and H units (H <= 256),
+// forward or backward: the row tiles a block (bf16: 16 or 32, f32: 16)
+// whose clusters the card runs in the fewest waves, ties to 16 (less
+// work a step). Fills out[8] (cs, ub, kp (the forward: kq), mt, nb,
+// batch_tiles, smem, active clusters).
 template <typename T>
-int plan(int n, int h, int* out) {
+int plan(int n, int h, bool fwd, int* out) {
   constexpr bool kTc = sizeof(T) == 2;
   if (geo(n, h, 1).cs > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1109,14 +1591,15 @@ int plan(int n, int h, int* out) {
   for (int mt = 1; mt <= (kTc ? kMaxMt : 1); ++mt) {
     const Geo g = geo(n, h, mt);
     int active = 0;
-    const int e = active_clusters<T>(g, &active);
+    const int e = active_clusters<T>(g, fwd, &active);
     if (e) return e;
     if (active < 1) continue;
     const long long waves = (g.batch_tiles + active - 1) / active;
     if (best < 0 || waves < best) {
       best = waves;
-      const int vals[8] = {g.cs, g.ub, g.kp, g.mt, g.nb, g.batch_tiles,
-                           static_cast<int>(smem_bytes(g, kTc)), active};
+      const size_t bytes = fwd ? fwd_smem_bytes(g, kTc) : smem_bytes(g, kTc);
+      const int vals[8] = {g.cs, g.ub, fwd ? g.kq : g.kp, g.mt, g.nb,
+                           g.batch_tiles, static_cast<int>(bytes), active};
       for (int i = 0; i < 8; ++i) out[i] = vals[i];
     }
   }
@@ -1189,7 +1672,49 @@ DL4J_LSTM_BWD_CLUSTER(dl4j_lstm_bwd_cluster_bf16, __nv_bfloat16)
 // cluster size, units a block, piece columns, row tiles a block, rows a
 // block, clusters, shared memory bytes, clusters the card runs at once).
 int dl4j_lstm_bwd_cluster_plan(int n, int h, int bf16, int* out) {
-  return bf16 ? cl::plan<__nv_bfloat16>(n, h, out) : cl::plan<float>(n, h, out);
+  return bf16 ? cl::plan<__nv_bfloat16>(n, h, false, out)
+              : cl::plan<float>(n, h, false, out);
+}
+
+#define DL4J_LSTM_FWD_CLUSTER(NAME, T)                                       \
+  int NAME(const void* zx, const void* rw, const void* h0, const void* c0,   \
+           const void* peep, const void* mask, void* out, void* h_t,         \
+           void* c_t, void* gates, void* csave, int t_len, int n, int h,     \
+           int mt, void* stream) {                                           \
+    cl::FwdClusterArgs a;                                                    \
+    a.zx = zx;                                                               \
+    a.rw = rw;                                                               \
+    a.h0 = h0;                                                               \
+    a.c0 = c0;                                                               \
+    a.peep = peep;                                                           \
+    a.mask = static_cast<const float*>(mask);                                \
+    a.out = out;                                                             \
+    a.h_t = h_t;                                                             \
+    a.c_t = c_t;                                                             \
+    a.gates = static_cast<float*>(gates);                                    \
+    a.csave = static_cast<float*>(csave);                                    \
+    a.t_len = t_len;                                                         \
+    a.n = n;                                                                 \
+    a.h = h;                                                                 \
+    return cl::launch_fwd<T>(a, mt, static_cast<cudaStream_t>(stream));      \
+  }
+DL4J_LSTM_FWD_CLUSTER(dl4j_lstm_fwd_cluster_f32, float)
+DL4J_LSTM_FWD_CLUSTER(dl4j_lstm_fwd_cluster_bf16, __nv_bfloat16)
+
+// The forward's cluster split for N rows and H units on this card (out[8]:
+// cluster size, units a block, units a piece (kq), row tiles a block,
+// rows a block, clusters, shared memory bytes, clusters the card runs at
+// once).
+int dl4j_lstm_fwd_cluster_plan(int n, int h, int bf16, int* out) {
+  return bf16 ? cl::plan<__nv_bfloat16>(n, h, true, out)
+              : cl::plan<float>(n, h, true, out);
+}
+
+// The forward's device kernels started so far, by kind (out[2]: the
+// cooperative kernel, the cluster kernel).
+int dl4j_lstm_fwd_kernel_launches(int* out) {
+  for (int i = 0; i < 2; ++i) out[i] = fwd_launched[i];
+  return 0;
 }
 
 // The backward's device kernels started so far, by kind (out[2]: the

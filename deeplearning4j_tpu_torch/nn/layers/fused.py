@@ -17,8 +17,14 @@ bf16 forward runs on the tensor cores: it is the bottleneck's bf16
 conv1x1 kernel (``csrc/conv_fwd_tc.cuh``) as a stride-1 1x1 over ``M``
 images of one pixel, with the bias added in its epilogue and no sums;
 its grid is planned here with the bottleneck's rule (:func:`_fwd_plan`,
-``bottleneck._fwd_tc_plan``). The f32 forward and the backward run on
-the f32 CUDA-core tiles of ``csrc/conv_gemm.cuh``. Each wrapper
+``bottleneck._fwd_tc_plan``). The bf16 backward runs on the tensor cores
+too: the bottleneck's bwd1x1 kernels (``csrc/conv_bwd_tc.cuh``) in their
+fused mode, g itself the dz product's operand, dy = dz sc and the sums
+dz y, dz in its epilogue, db from the g tiles of the dW pass; planned
+by :func:`_bwd_tc_plan` (the bottleneck's 1x1 plan over ``M`` one-pixel
+images). The f32 forward and the f32 backward run on the f32 CUDA-core
+tiles of ``csrc/conv_gemm.cuh``; :func:`bwd_route` names the route a
+dtype takes. Each wrapper
 dispatches on where its tensors lie: CUDA tensors launch the kernel (or
 raise on what it does not take), CPU tensors take the plain version
 beside it, written as the JAX kernel body with the same rounding points.
@@ -56,11 +62,14 @@ import torch
 from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.layers.bottleneck import (
-    _TC_MAX_ELEMENTS, FwdPlan, _dtype_ok, _dw_splits, _fwd_tc_plan,
+    _TC_MAX_ELEMENTS, BwdPlan, FwdPlan, _dtype_ok, _dw_splits, _fwd_tc_plan,
     _sm_count, _stream)
+from deeplearning4j_tpu_torch.nn.layers.bottleneck import \
+    _bwd_tc_plan as _stage_bwd_tc_plan
 from deeplearning4j_tpu_torch.nn.layers.normalization import decayed
 
-__all__ = ["FUSED_BWD", "FUSED_FWD", "FusedMatmul", "bn_act_conv1x1",
+__all__ = ["CUDA_CORES", "FUSED_BWD", "FUSED_FWD", "FusedMatmul",
+           "TENSOR_CORES", "bn_act_conv1x1", "bwd_route",
            "fused_conv1x1_supported", "fused_matmul", "fused_matmul_bwd",
            "fused_matmul_bwd_plain", "fused_matmul_plain"]
 
@@ -70,6 +79,9 @@ _FWD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
 _FWD_TC_ARGS = [_P] * 6 + [_I] * 5 + [_P]
 _BWD_ARGS = [_P] * 13 + [_I] * 7 + [_P]
 _ACTS = ("identity", "relu")
+#: the backward's two routes: bf16 on the tensor cores (conv_bwd_tc.cuh's
+#: fused mode), f32 on the CUDA cores (fused.cu's conv_gemm.cuh tiles)
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
 def _symbols(stem):
@@ -81,9 +93,11 @@ _LIBRARY = CudaLibrary(
     "fused", ["nn/layers/csrc/fused.cu"],
     {"dl4j_fused_fwd_f32": _FWD_ARGS, "dl4j_fused_fwd_bf16": _FWD_TC_ARGS,
      **{s: _BWD_ARGS for s in _symbols("fused_bwd").values()},
-     "dl4j_fused_row_tile": [], "dl4j_fused_fwd_tc_smem": [_I, _I]},
+     "dl4j_fused_row_tile": [], "dl4j_fused_fwd_tc_smem": [_I, _I],
+     "dl4j_fused_bwd_tc_smem": [_I, _I, ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
-             "nn/layers/csrc/conv_fwd_tc.cuh"])
+             "nn/layers/csrc/conv_fwd_tc.cuh",
+             "nn/layers/csrc/conv_bwd_tc.cuh"])
 
 #: the two kernels; each ``.launches`` counts its launches (the
 #: backward's entry point, which launches its dz and dW passes, counts
@@ -97,6 +111,25 @@ def fused_conv1x1_supported(act: str, dtype) -> bool:
     or bf16. Any C and K fit: the kernels tile both (the JAX gate's VMEM
     budget does not apply)."""
     return act in _ACTS and _dtype_ok(dtype)
+
+
+def bwd_route(dtype) -> str:
+    """The backward's route for ``dtype``: TENSOR_CORES for bf16,
+    CUDA_CORES for f32. Raises on a dtype no route takes."""
+    if not _dtype_ok(dtype):
+        raise ValueError(f"fused_matmul_bwd kernels take float32 or "
+                         f"bfloat16, got {dtype}")
+    return TENSOR_CORES if dtype == torch.bfloat16 else CUDA_CORES
+
+
+def _bwd_tc_plan(m, c, k, sms) -> BwdPlan:
+    """The bf16 backward's launch plan on a card of ``sms`` SMs, as the
+    kernel's launcher checks it: the bottleneck's stride-1 1x1 plan
+    (:func:`bottleneck._bwd_tc_plan`) over ``m`` images of one pixel, so
+    ``tiles`` dz blocks of 128 rows (the sums' partials a channel), and
+    the dW pass's 64-row chunks split ``chunk`` a split into ``splits``
+    splits (its partials ``[splits, C + 1, K]``, row C holding db)."""
+    return _stage_bwd_tc_plan(m, 1, 1, c, k, 1, 1, sms)
 
 
 def _fwd_plan(m, k, sms) -> FwdPlan:
@@ -187,8 +220,9 @@ def fused_matmul_bwd(y2, sc, bb, w2, g, act: str = "relu"
     y2 sc + bb and z = act(z0) are recomputed; dz = g w2^T in f32,
     masked by z0 > 0 under relu; dy = dz sc; dw = z^T g with z rounded to
     g's dtype; dsc = sum dz y2, dbb = sum dz, db = sum g. The kernel on
-    CUDA tensors (the same bits on every launch: no float atomics),
-    :func:`fused_matmul_bwd_plain` on CPU tensors."""
+    CUDA tensors, on the route :func:`bwd_route` names (the same bits
+    on every launch: no float atomics), :func:`fused_matmul_bwd_plain`
+    on CPU tensors."""
     _check("fused_matmul_bwd", y2, sc, bb, w2, act,
            ("g", g, (y2.shape[0], w2.shape[1])))
     if y2.device.type == "cpu":
@@ -205,9 +239,18 @@ def fused_matmul_bwd(y2, sc, bb, w2, g, act: str = "relu"
     if not (m and c and k):
         return (dy.zero_(), sums[0].zero_(), sums[1].zero_(), dw.zero_(),
                 db.zero_())
-    tiles = -(-m // _LIBRARY.load().dl4j_fused_row_tile())
+    if bwd_route(y2.dtype) == TENSOR_CORES:
+        if max(m * c, m * k, (c + 1) * k) >= _TC_MAX_ELEMENTS:
+            raise ValueError(f"fused_matmul_bwd: the bf16 kernels index "
+                             f"with 32-bit ints; y2, g and the dW partials' "
+                             f"rows must each hold fewer than "
+                             f"{_TC_MAX_ELEMENTS} elements")
+        tiles, chunk, splits = _bwd_tc_plan(m, c, k, _sm_count(dev))
+    else:
+        tiles = -(-m // _LIBRARY.load().dl4j_fused_row_tile())
+        chunk, splits = _dw_splits(m, -(-(c + 1) // 128) * -(-k // 64),
+                                   dev)
     part = torch.empty((2, c, tiles), dtype=f32, device=dev)
-    chunk, splits = _dw_splits(m, -(-(c + 1) // 128) * -(-k // 64), dev)
     dw_part = torch.empty((splits, c + 1, k), dtype=f32, device=dev)
     FUSED_BWD.launch(y2.dtype, y2.data_ptr(), sc.data_ptr(), bb.data_ptr(),
                      w2.data_ptr(), g.data_ptr(), dy.data_ptr(),

@@ -12,16 +12,18 @@ The kernels are hand-written CUDA C++ for Hopper, ``csrc/lstm.cu``:
 :func:`lstm_backward` is the port's own (the JAX package differentiates
 through its scan, ``_lstm_bwd``). The source note says what bounds each
 on the card and what the design does about it: one persistent,
-time-looped launch per layer and direction. The forward's steps meet at
-a grid barrier; the backward has two routes, :func:`lstm_bwd_route`:
-where the unit tiles of a batch tile fit one thread-block cluster (H <=
-256) the cluster kernel exchanges each step's dgates through distributed
-shared memory and meets at a cluster barrier (its split mirrored by
-:func:`_lstm_bwd_cluster_plan`), else the cooperative kernel of the
-forward's shape. Each wrapper dispatches on where its tensors lie: CUDA
-tensors launch the kernel of their route (or raise on what it does not
-take), CPU tensors take the plain version beside it, a per-step loop
-with the kernel's rounding points. There is no process-wide switch.
+time-looped launch per layer and direction. Each has two routes,
+:func:`lstm_fwd_route` and :func:`lstm_bwd_route`: where the unit tiles
+of a batch tile fit one thread-block cluster (H <= 256) the cluster
+kernel exchanges each step's h (forward) or dgates (backward) through
+distributed shared memory and meets at a cluster barrier (their splits
+mirrored by :func:`_lstm_fwd_cluster_plan` and
+:func:`_lstm_bwd_cluster_plan`), else the cooperative kernel, whose
+steps meet at a grid barrier. Each wrapper dispatches on where its
+tensors lie: CUDA tensors launch the kernel of their route (or raise on
+what it does not take), CPU tensors take the plain version beside it, a
+per-step loop with the kernel's rounding points. There is no
+process-wide switch.
 
 Beyond the TPU kernel, the kernels compute what the JAX scan
 (``deeplearning4j_tpu/nn/layers/recurrent.py`` ``lstm_scan``) computes
@@ -57,20 +59,24 @@ from deeplearning4j_tpu_torch.cuda_library import CudaKernel, CudaLibrary
 __all__ = ["CLUSTER", "COOPERATIVE", "LSTMRecurrence", "LSTM_BWD",
            "LSTM_FWD", "lstm_backward", "lstm_backward_plain",
            "lstm_bwd_route", "lstm_forward", "lstm_forward_plain",
-           "lstm_plan", "lstm_recurrence"]
+           "lstm_fwd_route", "lstm_plan", "lstm_recurrence"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 14 + [_I] * 6 + [_P]
 _BWD_ARGS = [_P] * 14 + [_I] * 6 + [_P]
-_BWD_CLUSTER_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+#: the cluster kernels' entry points, forward and backward alike
+_CLUSTER_ARGS = [_P] * 11 + [_I] * 4 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
-#: the backward's two routes
+#: the two routes of each kernel
 COOPERATIVE, CLUSTER = "cooperative", "cluster"
 #: the cluster route: at most 8 blocks a cluster (the portable size) of
 #: at most 32 units each, 16 rows an m16 tile, 256 threads a block, 6 f32
 #: saves a (row, unit) pair staged two steps deep (csrc/lstm.cu's
-#: cl::kMaxCluster, kMaxUnits, kThreads, kVals)
+#: cl::kMaxCluster, kMaxUnits, kThreads, kVals); the forward's 128 gate
+#: columns a block, its bf16 RW slice's and f32 gate tile's rows
+#: (kFwdCols, kFwdNs, kGateStride)
 _CLUSTER_MAX, _CLUSTER_UNITS, _CLUSTER_THREADS, _CLUSTER_VALS = 8, 32, 256, 6
+_FWD_COLS, _FWD_NS, _GATE_STRIDE = 128, 136, 132
 
 
 def _symbols(stem):
@@ -81,23 +87,40 @@ def _symbols(stem):
 _LIBRARY = CudaLibrary(
     "lstm", ["nn/layers/csrc/lstm.cu"],
     {**{s: _FWD_ARGS for s in _symbols("lstm_fwd").values()},
+     **{s: _CLUSTER_ARGS for s in _symbols("lstm_fwd_cluster").values()},
      **{s: _BWD_ARGS for s in _symbols("lstm_bwd").values()},
-     **{s: _BWD_CLUSTER_ARGS
-        for s in _symbols("lstm_bwd_cluster").values()},
+     **{s: _CLUSTER_ARGS for s in _symbols("lstm_bwd_cluster").values()},
      "dl4j_lstm_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
      "dl4j_lstm_bwd_cluster_plan": [_I, _I, _I,
                                     ctypes.POINTER(ctypes.c_int)],
-     "dl4j_lstm_bwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+     "dl4j_lstm_fwd_cluster_plan": [_I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_int)],
+     "dl4j_lstm_bwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
+     "dl4j_lstm_fwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_mma.cuh"])
 
 #: the two kernels; each ``.launches`` counts its launches (one per layer
-#: and direction per forward or backward, whatever T); the backward's
-#: entry points by (dtype, route)
-LSTM_FWD = CudaKernel(_LIBRARY, "lstm_fwd", _symbols("lstm_fwd"))
+#: and direction per forward or backward, whatever T); their entry points
+#: by (dtype, route)
+LSTM_FWD = CudaKernel(_LIBRARY, "lstm_fwd", {
+    **{(dt, COOPERATIVE): sym for dt, sym in _symbols("lstm_fwd").items()},
+    **{(dt, CLUSTER): sym
+       for dt, sym in _symbols("lstm_fwd_cluster").items()}})
 LSTM_BWD = CudaKernel(_LIBRARY, "lstm_bwd", {
     **{(dt, COOPERATIVE): sym for dt, sym in _symbols("lstm_bwd").items()},
     **{(dt, CLUSTER): sym
        for dt, sym in _symbols("lstm_bwd_cluster").items()}})
+
+
+def _route(name, n, h, dtype):
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name} kernels take float32 or bfloat16, got "
+                         f"{dtype}")
+    if n < 1 or h < 1:
+        raise ValueError(f"{name}: N and H must be at least 1, got "
+                         f"{(n, h)}")
+    return CLUSTER if -(-h // _CLUSTER_UNITS) <= _CLUSTER_MAX \
+        else COOPERATIVE
 
 
 def lstm_bwd_route(n: int, h: int, dtype) -> str:
@@ -105,21 +128,23 @@ def lstm_bwd_route(n: int, h: int, dtype) -> str:
     where the unit tiles of a batch tile (``ceil(H / 32)`` of them) fit
     one portable cluster of 8 blocks (H <= 256), else COOPERATIVE.
     Raises on a dtype no route takes."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"lstm_backward kernels take float32 or bfloat16, "
-                         f"got {dtype}")
-    if n < 1 or h < 1:
-        raise ValueError(f"lstm_backward: N and H must be at least 1, got "
-                         f"{(n, h)}")
-    return CLUSTER if -(-h // _CLUSTER_UNITS) <= _CLUSTER_MAX \
-        else COOPERATIVE
+    return _route("lstm_backward", n, h, dtype)
+
+
+def lstm_fwd_route(n: int, h: int, dtype) -> str:
+    """The forward's route for N rows, H units and ``dtype``, by the
+    backward's rule: CLUSTER up to H = 256 (the decode shape, N = 1,
+    included), else COOPERATIVE. Raises on a dtype no route takes."""
+    return _route("lstm_forward", n, h, dtype)
 
 
 class ClusterPlan(NamedTuple):
-    """The cluster backward's split, as ``csrc/lstm.cu``'s ``cl::geo``
-    makes it: ``cluster`` blocks a cluster of ``ub`` units each (block q
-    owns units ``q ub .. q ub + ub`` inside H), a piece of ``kp`` gate
-    columns a block (4 ub padded to whole k16 steps), ``rows`` = 16
+    """A cluster kernel's split, as ``csrc/lstm.cu``'s ``cl::geo`` makes
+    it: ``cluster`` blocks a cluster of ``ub`` units each (block q owns
+    units ``q ub .. q ub + ub`` inside H), a piece of ``kp`` columns a
+    block (the backward: its 4 ub gate columns of dgates; the forward:
+    its ub units of h, the K-slice of the product; padded to whole k16
+    steps), ``rows`` = 16
     ``mt`` batch rows a block, ``batch_tiles`` clusters (cluster b owns
     rows ``b rows .. b rows + rows`` inside N), and ``smem`` bytes of
     shared memory a block."""
@@ -151,17 +176,54 @@ def _lstm_bwd_cluster_plan(n, h, dtype, mt=1) -> ClusterPlan:
     return ClusterPlan(cs, ub, kp, mt, rows, -(-n // rows), smem)
 
 
+def _lstm_fwd_cluster_plan(n, h, dtype, mt=1) -> ClusterPlan:
+    """The forward cluster route's split for N rows and H units at ``mt``
+    row tiles a block (1 or 2 in bf16, 1 in f32), as ``cl::geo`` and
+    ``cl::fwd_smem_bytes`` make it: the piece is the block's h tile, ``kp
+    = ub`` padded to whole k16 steps; shared memory holds the exchange's
+    two pieces, the assembled h tile (``cluster kp`` columns), the f32
+    gate tile, the stores' staging tile (out and c) and the RW slice
+    (bf16 rows of 136, f32 of 128)."""
+    cs = -(-h // _CLUSTER_UNITS)
+    ub = -(-h // cs)
+    kq = -(-ub // 16) * 16
+    rows = 16 * mt
+    kall = cs * kq
+    el = 2 if dtype == torch.bfloat16 else 4
+    smem = ((2 * mt * kq * 16 + kall * mt * 16) * el
+            + rows * (_GATE_STRIDE + 2 * _CLUSTER_UNITS) * 4
+            + kall * (_FWD_NS if dtype == torch.bfloat16 else _FWD_COLS) * el)
+    return ClusterPlan(cs, ub, kq, mt, rows, -(-n // rows), smem)
+
+
+def _cluster_row_tiles(n, h, dtype, active) -> int:
+    """The row tiles a block (``mt``) the C plan (``cl::plan``) picks for
+    a cluster route, given ``active[mt]``, the clusters the card runs at
+    once at that split (0 where a block does not fit): of 1 and 2 (bf16;
+    f32 takes 1), the one whose ``ceil(N / 16 mt)`` clusters run in the
+    fewest waves, ties to the smaller (less work a step)."""
+    best = None
+    for mt in ((1, 2) if dtype == torch.bfloat16 else (1,)):
+        if active.get(mt, 0) < 1:
+            continue
+        waves = -(-(-(-n // (16 * mt))) // active[mt])
+        if best is None or waves < best[0]:
+            best = (waves, mt)
+    if best is None:
+        raise ValueError(f"no cluster split of N={n}, H={h} fits")
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(n: int, h: int, bf16: bool, bwd: bool, device_index: int):
     dtype = torch.bfloat16 if bf16 else torch.float32
-    route = lstm_bwd_route(n, h, dtype) if bwd else COOPERATIVE
+    route = (lstm_bwd_route if bwd else lstm_fwd_route)(n, h, dtype)
     with torch.cuda.device(device_index):
         lib = _LIBRARY.load()
         if route == CLUSTER:
             out = (ctypes.c_int * 8)()
-            _LIBRARY.check("dl4j_lstm_bwd_cluster_plan",
-                           lib.dl4j_lstm_bwd_cluster_plan(n, h, int(bf16),
-                                                          out))
+            sym = f"dl4j_lstm_{'bwd' if bwd else 'fwd'}_cluster_plan"
+            _LIBRARY.check(sym, getattr(lib, sym)(n, h, int(bf16), out))
             keys = ("cluster", "ub", "kp", "mt", "rows", "batch_tiles",
                     "smem", "active_clusters")
         else:
@@ -176,14 +238,13 @@ def _plan(n: int, h: int, bf16: bool, bwd: bool, device_index: int):
 
 def lstm_plan(n: int, h: int, dtype, bwd: bool = False, device=None):
     """The kernel's work split on the current CUDA device for N rows and
-    H units, with its ``route``. The forward and the cooperative
-    backward: ``ub`` units and ``nb`` rows a tile, the grid of ``units``
-    x ``groups`` blocks, whether RW's slice stays resident in shared
-    memory, and the dynamic shared memory a block takes. The cluster
-    backward: the fields of :class:`ClusterPlan` at the row tiles whose
-    clusters the card runs in the fewest waves, and how many clusters it
-    runs at once (the source note of ``csrc/lstm.cu`` says how each is
-    chosen)."""
+    H units, with its ``route``. The cooperative route: ``ub`` units and
+    ``nb`` rows a tile, the grid of ``units`` x ``groups`` blocks,
+    whether RW's slice stays resident in shared memory, and the dynamic
+    shared memory a block takes. The cluster route: the fields of
+    :class:`ClusterPlan` at the row tiles whose clusters the card runs
+    in the fewest waves, and how many clusters it runs at once (the
+    source note of ``csrc/lstm.cu`` says how each is chosen)."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     return _plan(int(n), int(h), dtype == torch.bfloat16, bool(bwd), idx)
@@ -250,8 +311,9 @@ def lstm_forward(zx, rw, h0, c0, peephole=None, mask=None, *,
     and with ``save`` the backward's saves ``(gates [T, N, 4H], c [T, N,
     H])`` in f32 (None otherwise). rw, h0, c0 and the optional peephole
     ``[3, H]`` in zx's dtype, the optional mask ``[T, N]`` f32. The
-    kernel on CUDA tensors (one launch for all T steps),
-    :func:`lstm_forward_plain` on CPU tensors."""
+    kernel of :func:`lstm_fwd_route` on CUDA tensors (one launch for all
+    T steps; the same bits on every launch), :func:`lstm_forward_plain`
+    on CPU tensors."""
     t, n, h = _check(zx, rw, h0, c0, peephole, mask)
     if zx.device.type == "cpu":
         return lstm_forward_plain(zx, rw, h0, c0, peephole, mask, save=save)
@@ -262,19 +324,26 @@ def lstm_forward(zx, rw, h0, c0, peephole=None, mask=None, *,
     out = torch.empty((t, n, h), dtype=zx.dtype, device=dev)
     h_t = torch.empty((n, h), dtype=zx.dtype, device=dev)
     c_t = torch.empty((n, h), dtype=zx.dtype, device=dev)
-    hbuf = torch.empty((2, n, h), dtype=zx.dtype, device=dev)
-    cbuf = torch.empty((n, h), dtype=f32, device=dev)
     saves = (torch.empty((t, n, 4 * h), dtype=f32, device=dev),
              torch.empty((t, n, h), dtype=f32, device=dev)) if save \
         else (None, None)
-    sync = torch.zeros(2, dtype=torch.int32, device=dev)
     p = lstm_plan(n, h, zx.dtype, device=dev)
-    LSTM_FWD.launch(zx.dtype, zx.data_ptr(), rw.data_ptr(), h0.data_ptr(),
-                    c0.data_ptr(), _ptr(peephole), _ptr(mask),
-                    out.data_ptr(), h_t.data_ptr(), c_t.data_ptr(),
-                    hbuf.data_ptr(), cbuf.data_ptr(), _ptr(saves[0]),
-                    _ptr(saves[1]), sync.data_ptr(), t, n, h, p["ub"],
-                    p["groups"], p["resident"], _stream(zx))
+    if p["route"] == CLUSTER:
+        LSTM_FWD.launch((zx.dtype, CLUSTER), zx.data_ptr(), rw.data_ptr(),
+                        h0.data_ptr(), c0.data_ptr(), _ptr(peephole),
+                        _ptr(mask), out.data_ptr(), h_t.data_ptr(),
+                        c_t.data_ptr(), _ptr(saves[0]), _ptr(saves[1]), t,
+                        n, h, p["mt"], _stream(zx))
+        return out, h_t, c_t, (saves if save else None)
+    hbuf = torch.empty((2, n, h), dtype=zx.dtype, device=dev)
+    cbuf = torch.empty((n, h), dtype=f32, device=dev)
+    sync = torch.zeros(2, dtype=torch.int32, device=dev)
+    LSTM_FWD.launch((zx.dtype, COOPERATIVE), zx.data_ptr(), rw.data_ptr(),
+                    h0.data_ptr(), c0.data_ptr(), _ptr(peephole),
+                    _ptr(mask), out.data_ptr(), h_t.data_ptr(),
+                    c_t.data_ptr(), hbuf.data_ptr(), cbuf.data_ptr(),
+                    _ptr(saves[0]), _ptr(saves[1]), sync.data_ptr(), t, n,
+                    h, p["ub"], p["groups"], p["resident"], _stream(zx))
     return out, h_t, c_t, (saves if save else None)
 
 

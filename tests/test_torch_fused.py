@@ -31,6 +31,16 @@ CPU.
 - The wrappers take the plain versions for CPU tensors and launch
   nothing; the gate refuses an activation outside relu and identity and
   f64 off the CPU.
+- The bf16 backward on the tensor cores (``csrc/conv_bwd_tc.cuh``'s
+  fused mode): its plan (``_bwd_tc_plan``, the bottleneck's 1x1 plan
+  over M one-pixel images) covers every row, every dW split's chunks and
+  every (channel, column) tile once at 1 and 132 SMs for the four
+  stages' groups and the tail; ``bwd_route`` sends bf16 to the tensor
+  cores and f32 to the CUDA cores; a torch mirror of its order (128-row
+  dz blocks summing the f32 dz into per-block partials, dW and db over
+  the plan's splits merged in f64) against the JAX ``_pallas_bwd`` in
+  interpret mode within TC_ROW / TC_TILE (dy, dW) and TC_SUMS (the
+  sums), with the sums over the bf16-rounded dz outside TC_SUMS.
 """
 
 import jax
@@ -422,3 +432,161 @@ def test_the_forward_plan_is_the_bottleneck_1x1_rule(m, c, k):
     for q in range(plan.tiles):
         walked[q::plan.tiles] += 1
     assert (walked == 1).all()
+
+
+# ---------------------------------------------------------------------
+# the bf16 backward on the tensor cores: its plan, its route, and a
+# mirror of its order against the Pallas kernel in interpret mode
+# ---------------------------------------------------------------------
+#: the four stages' groups at B = 128 and the tail (M, C, K)
+FUSED_BWD_PLANS = FUSED_FWD_PLANS
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("m, c, k", FUSED_BWD_PLANS)
+def test_the_backward_plan_covers_every_row_and_tile_once(m, c, k, sms):
+    """``_bwd_tc_plan`` is the bottleneck's stride-1 1x1 plan over M
+    one-pixel images: ``tiles`` 128-row dz blocks cover every row once
+    (the sums' partials a channel); the dW pass's 64-row chunks, ``chunk``
+    a split, cover every row once with no empty split; its (channel,
+    column) tiles, as the kernel's launcher picks them, cover every
+    entry of dW once; its partials ``[splits, C + 1, K]`` hold row C for
+    db."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
+    plan = tf._bwd_tc_plan(m, c, k, sms)
+    assert plan == tb._bwd_tc_plan(m, 1, 1, c, k, 1, 1, sms)
+    rows = np.zeros(m, np.int64)
+    for blk in range(plan.tiles):
+        rows[128 * blk:128 * (blk + 1)] += 1
+    assert (rows == 1).all() and 128 * (plan.tiles - 1) < m
+    chunks = -(-m // 64)
+    seen = np.zeros(m, np.int64)
+    for s in range(plan.splits):
+        first, last = s * plan.chunk, min((s + 1) * plan.chunk, chunks)
+        assert first < last, "an empty split"
+        seen[64 * first:64 * last] += 1
+    assert (seen == 1).all()
+    br = 64 if c <= 64 else 128
+    bn = 64 if k <= 64 else 128 if (k <= 128 or c > 64) else 256
+    cover = np.zeros((c, k), np.int64)
+    for i in range(-(-c // br)):
+        for j in range(-(-k // bn)):
+            cover[br * i:br * (i + 1), bn * j:bn * (j + 1)] += 1
+    assert (cover == 1).all()
+    part = torch.empty((plan.splits, c + 1, k), device="meta")
+    assert part.shape[1] == c + 1 and part.numel() < 2 ** 31 - 1
+
+
+def test_the_backward_route_is_the_tensor_cores_for_bf16():
+    assert tf.bwd_route(torch.bfloat16) == tf.TENSOR_CORES
+    assert tf.bwd_route(torch.float32) == tf.CUDA_CORES
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tf.bwd_route(torch.float16)
+
+
+def _tc_bwd_mirror(y2, sc, bb, w2, g, act, plan, fault=None):
+    """The bf16 tensor-core backward's order as plain torch: dz per
+    128-row block in f32 (the tensor cores' products of bf16 operands
+    are exact), masked by relu'(z0) on the unrounded z0, dy = dz sc
+    rounded once, the block's sums dz y and dz of the f32 dz into
+    per-block partials summed in f64; dW and db per split of the plan's
+    64-row chunks in f32 (db the split's column sums of g, row C of the
+    partials), the splits summed in f64, dW rounded to w2's dtype.
+    ``fault="rounded_dz_sums"`` sums the bf16-rounded dz instead."""
+    m, c = y2.shape
+    k = w2.shape[1]
+    yf, gf, wf = y2.float(), g.float(), w2.float()
+    z0 = yf * sc + bb
+    dy = torch.empty_like(y2)
+    p1 = torch.zeros((plan.tiles, c))
+    p2 = torch.zeros((plan.tiles, c))
+    for blk in range(plan.tiles):
+        r = slice(128 * blk, min(128 * (blk + 1), m))
+        dz = gf[r] @ wf.t()
+        if act == "relu":
+            dz = torch.where(z0[r] > 0, dz, 0.0)
+        dy[r] = (dz * sc).to(y2.dtype)
+        terms = dz.to(y2.dtype).float() if fault == "rounded_dz_sums" else dz
+        p1[blk] = (terms * yf[r]).sum(0)
+        p2[blk] = terms.sum(0)
+    z = (torch.clamp_min(z0, 0.0) if act == "relu" else z0).to(g.dtype)
+    parts = torch.zeros((plan.splits, c + 1, k))
+    for s in range(plan.splits):
+        r = slice(64 * plan.chunk * s, min(64 * plan.chunk * (s + 1), m))
+        parts[s, :c] = z[r].float().t() @ gf[r]
+        parts[s, c] = gf[r].sum(0)
+    tot = parts.double().sum(0).float()
+    return (dy, p1.double().sum(0).float(), p2.double().sum(0).float(),
+            tot[:c].to(w2.dtype), tot[c])
+
+
+def _agreement(x, ref):
+    from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+    k = ref.shape[-1]
+    return fa.agreement(x.float().reshape(1, 1, -1, k),
+                        ref.float().reshape(1, 1, -1, k))
+
+
+#: (M, C, K, act): tails past the 128-row dz blocks and the 64-row dW
+#: chunks, C = 64 and a width that is not a multiple of 8, small K; M =
+#: 1573 splits its dW pass four ways at 132 SMs
+TC_BWD_CASES = [(147, 64, 40, "relu"), (147, 20, 24, "identity"),
+                (1573, 20, 24, "relu"), (1573, 64, 40, "identity")]
+#: the limits: dy and dW per row (one row's largest error over its
+#: largest |ref|) 2^-6 and per 64-row tile 1e-4 (one bf16 ulp flips
+#: where the f32 sums' order moves a rounding); the sums within 1e-6 of
+#: each channel's sum of |terms| (f32 sums in another order)
+TC_ROW, TC_TILE, TC_SUMS = 2 ** -6, 1e-4, 1e-6
+
+
+def _tc_bwd_inputs(m, c, k, seed):
+    rng = np.random.default_rng(seed)
+    mean = rng.normal(0, 0.3, c)
+    std = rng.uniform(0.5, 1.5, c)
+    y = mean + std * rng.standard_normal((m, c))
+    sc = rng.uniform(0.5, 1.5, c) / std
+    bb = rng.normal(0, 0.2, c) - mean * sc
+    w = rng.standard_normal((c, k)) * (2.0 / c) ** 0.5
+    g = rng.standard_normal((m, k))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return f32(y), f32(sc), f32(bb), f32(w), f32(g)
+
+
+@pytest.mark.parametrize("m, c, k, act", TC_BWD_CASES)
+def test_the_tensor_core_backward_order_matches_the_pallas_kernel(
+        m, c, k, act):
+    """The mirror of the bf16 tensor-core backward's order (its plan at
+    132 SMs) against the JAX ``_pallas_bwd`` in interpret mode on the same
+    bf16 inputs: dy and dW within TC_ROW a row and TC_TILE a 64-row tile,
+    dsc, dbb and db within TC_SUMS of each channel's sum of |terms|; the
+    sums over the bf16-rounded dz (the planted fault) fall outside."""
+    from deeplearning4j_tpu.nn.layers.fused import _pallas_bwd
+    y, sc, bb, w, g = _tc_bwd_inputs(m, c, k, seed=m + c)
+    bf = torch.bfloat16
+    ty, tw, tg = (torch.from_numpy(a).to(bf) for a in (y, w, g))
+    tsc, tbb = torch.from_numpy(sc), torch.from_numpy(bb)
+    plan = tf._bwd_tc_plan(m, c, k, 132)
+    got = _tc_bwd_mirror(ty, tsc, tbb, tw, tg, act, plan)
+    jy, jw, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (ty, tw, tg))
+    want = [torch.from_numpy(np.array(jnp.asarray(v, jnp.float32)))
+            for v in _pallas_bwd(jy, jnp.asarray(sc), jnp.asarray(bb), jw,
+                                 jg, act, 128, True)]
+    for name, i in (("dy", 0), ("dw", 3)):
+        row, tile = _agreement(got[i], want[i])
+        assert row <= TC_ROW and tile <= TC_TILE, (name, row, tile)
+    yf, gf = ty.float(), tg.float()
+    z0 = yf * tsc + tbb
+    dz = gf @ tw.float().t()
+    if act == "relu":
+        dz = torch.where(z0 > 0, dz, 0.0)
+    terms = {1: (dz * yf).abs().sum(0), 2: dz.abs().sum(0),
+             4: gf.abs().sum(0)}
+
+    def sums_rel(a):
+        return max(float(((a[i] - want[i]).abs() / t).max())
+                   for i, t in terms.items())
+
+    assert sums_rel(got) <= TC_SUMS
+    bad = _tc_bwd_mirror(ty, tsc, tbb, tw, tg, act, plan, "rounded_dz_sums")
+    assert sums_rel(bad) > TC_SUMS

@@ -37,6 +37,18 @@ the wrappers take the kernels' plain versions.
   (``_lstm_bwd_cluster_plan``) covers every (row, unit) pair once within
   227 KB of shared memory; the route (``lstm_bwd_route``) takes clusters
   up to H = 256 and the cooperative kernel beyond.
+- The cluster forward (``cl::lstm_fwd_cluster_kernel``): a torch mirror
+  (each block's h_{t-1} assembled from the peers' pieces by buffer
+  parity, each peer's K-slice multiplied in turn and the partials added
+  in peer order) against ``lstm_forward_plain`` and the JAX scan with
+  peepholes and a mask (1e-5) and the Pallas kernel in interpret mode
+  (TOL), one, two and three unit tiles; a peer's piece read a step
+  stale falls outside; its plan (``_lstm_fwd_cluster_plan``) covers
+  every (row, unit) pair once within 227 KB (two blocks an SM in bf16),
+  the row tiles a block are those of fewest waves
+  (``_cluster_row_tiles``), and ``lstm_fwd_route`` takes clusters up to
+  H = 256, the decode shape included, and the cooperative kernel
+  beyond.
 """
 
 import jax
@@ -457,3 +469,167 @@ def test_the_backward_route_takes_clusters_up_to_256_units(h):
         assert lk.lstm_bwd_route(64, h, dtype) == want
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         lk.lstm_bwd_route(64, h, torch.float16)
+
+
+# ---------------------------------------------------------------------
+# the cluster forward (csrc/lstm.cu cl::lstm_fwd_cluster_kernel)
+# ---------------------------------------------------------------------
+def _cluster_fwd_mirror(zx, rw, h0, c0, peep=None, mask=None, stale=None):
+    """The cluster forward in torch (f32): block q's piece of h_t is its
+    units q ub .. + ub (padded to kp columns) of every row, written into
+    buffer t & 1; step t assembles each block's h_{t-1} from the peers'
+    pieces in buffer (t + 1) & 1 (h0 in buffer 1 before the first step)
+    and multiplies peer q's piece, the q-th K-slice, against the rows of
+    RW of its units, the peers' partials added in order (the kernel's
+    warps each take 16 gate columns over the whole K, one K-slice at a
+    time). With ``stale`` that peer's piece is read from the other
+    buffer: a step stale (zeros at the first step). The cell update is
+    the plain version's. Returns (out, hT, cT)."""
+    t_len, n, h4 = zx.shape
+    h = h4 // 4
+    plan = lk._lstm_fwd_cluster_plan(n, h, torch.float32)
+    cs, ub, kq = plan.cluster, plan.ub, plan.kp
+    units = [list(range(q * ub, min(h, (q + 1) * ub))) for q in range(cs)]
+    rwf = rw.float()
+    p = None if peep is None else peep.float()
+    pieces = torch.zeros(2, cs, n, kq)
+
+    def put(buf, hv):
+        for q in range(cs):
+            pieces[buf, q, :, :len(units[q])] = hv[:, units[q]]
+
+    hp, cp = h0.float(), c0.float()
+    put(1, hp)
+    outs = []
+    for t in range(t_len):
+        cur = (t + 1) & 1
+        acc = torch.zeros(n, 4 * h)
+        for q in range(cs):
+            slab = torch.zeros(kq, 4 * h)
+            slab[:len(units[q])] = rwf[units[q]]
+            acc = acc + pieces[1 - cur if q == stale else cur, q] @ slab
+        z = zx[t].float() + acc
+        zi, zf, zg, zo = z.split(h, dim=1)
+        if p is not None:
+            zi, zf = zi + p[0] * cp, zf + p[1] * cp
+        i, f, g = torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg)
+        cn = f * cp + i * g
+        if p is not None:
+            zo = zo + p[2] * cn
+        hn = torch.sigmoid(zo) * torch.tanh(cn)
+        hc, cc, ho = hn, cn, hn
+        if mask is not None:
+            m = mask[t].float()[:, None]
+            hc, cc = hn * m + hp * (1.0 - m), cn * m + cp * (1.0 - m)
+            ho = hc * m
+        outs.append(ho)
+        hp, cp = hc, cc
+        put(t & 1, hp)
+    return torch.stack(outs), hp, cp
+
+
+#: (T, N, H): one, two and three unit tiles; two batch tiles at N = 18, 20
+FWD_MIRROR_SHAPES = [(5, 20, 40), (4, 18, 70), (6, 4, 5)]
+#: the mirror against the plain forward (the same f32 ops, products in
+#: other orders) and the JAX scan and interpret kernel (their own f32
+#: limits): atol and rtol 1e-5 / TOL
+FWD_MIRROR_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t, n, h", FWD_MIRROR_SHAPES)
+def test_the_cluster_forward_mirror_matches_the_plain_forward_and_jax(
+        t, n, h, masked):
+    """The mirror in f32 with peepholes (and a mask with a fully masked
+    step and row) against ``lstm_forward_plain`` and the JAX
+    ``lstm_scan`` (W the identity, so its x is zx) within FWD_MIRROR_TOL;
+    without peepholes and mask against the JAX Pallas kernel in
+    interpret mode within TOL; the stale peer's reading (each peer in
+    turn) outside FWD_MIRROR_TOL."""
+    d, _ = _grad_case(seed=t * n + h + 11, t=t, n=n, h=h)
+    rng = np.random.default_rng(t + n + h)
+    mask = (rng.random((t, n)) > 0.3).astype(np.float32)
+    mask[1] = 0.0
+    mask[:, 0] = 0.0
+    a = _torch(d)
+    tm = torch.tensor(mask) if masked else None
+    got = _cluster_fwd_mirror(a["zx"], a["rw"], a["h0"], a["c0"], a["p"],
+                              tm)
+    plain = lk.lstm_forward_plain(a["zx"], a["rw"], a["h0"], a["c0"],
+                                  a["p"], tm)[:3]
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    out, h_t, c_t = jrec.lstm_scan(
+        jnp.transpose(j["zx"], (1, 2, 0)), jnp.eye(4 * h, dtype=jnp.float32),
+        j["rw"], jnp.zeros(4 * h, jnp.float32), h0=j["h0"], c0=j["c0"],
+        peephole=j["p"], mask=jnp.asarray(mask.T) if masked else None)
+    scan = (jnp.transpose(out, (2, 0, 1)), h_t, c_t)
+    for g, pl, w in zip(got, plain, scan):
+        np.testing.assert_allclose(g.numpy(), pl.numpy(), **FWD_MIRROR_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **FWD_MIRROR_TOL)
+    if not masked:
+        kern = pallas_lstm_recurrence(j["zx"], j["rw"], j["h0"], j["c0"],
+                                      interpret=True)
+        bare = _cluster_fwd_mirror(a["zx"], a["rw"], a["h0"], a["c0"])
+        for g, w in zip(bare, kern):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    for q in range(lk._lstm_fwd_cluster_plan(n, h, torch.float32).cluster):
+        bad = _cluster_fwd_mirror(a["zx"], a["rw"], a["h0"], a["c0"],
+                                  a["p"], tm, stale=q)[0]
+        assert not np.allclose(bad.numpy(), plain[0].numpy(),
+                               **FWD_MIRROR_TOL), q
+
+
+@pytest.mark.parametrize("n, h", CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype, mt", [(torch.bfloat16, 1),
+                                       (torch.bfloat16, 2),
+                                       (torch.float32, 1)])
+def test_the_forward_cluster_plan_covers_every_row_and_unit_once(
+        n, h, dtype, mt):
+    """The forward's split: cluster b's block q owns rows b rows .. +
+    rows and units q ub .. + ub, inside N and H, every (row, unit) pair
+    once; its piece (its h tile's units, padded) whole k16 steps; its
+    gate columns (4 ub) within the 8 warps' 128; a block's shared memory
+    within the card's 227 KB, and at 16 rows in bf16 within half an SM's
+    228 KB (two blocks an SM)."""
+    plan = lk._lstm_fwd_cluster_plan(n, h, dtype, mt)
+    assert lk.lstm_fwd_route(n, h, dtype) == lk.CLUSTER
+    assert plan[:2] == lk._lstm_bwd_cluster_plan(n, h, dtype, mt)[:2]
+    assert 1 <= plan.cluster <= 8 and 1 <= plan.ub <= 32
+    assert plan.kp % 16 == 0 and plan.ub <= plan.kp < plan.ub + 16
+    assert 4 * plan.ub <= 128 and plan.rows == 16 * mt
+    assert plan.smem <= 232448
+    if dtype == torch.bfloat16:
+        assert 2 * (plan.smem + 1024) <= 233472
+    seen = np.zeros((n, h), np.int64)
+    for b in range(plan.batch_tiles):
+        for q in range(plan.cluster):
+            seen[b * plan.rows:(b + 1) * plan.rows,
+                 q * plan.ub:(q + 1) * plan.ub] += 1
+    assert (seen == 1).all()
+    assert (plan.cluster - 1) * plan.ub < h
+
+
+@pytest.mark.parametrize("n, active, want", [
+    (256, {1: 30, 2: 30}, 1),   # 16 clusters in one wave: 16 rows
+    (256, {1: 15, 2: 15}, 2),   # 16 take two waves, 8 one
+    (256, {1: 0, 2: 15}, 2),    # 16 rows do not fit
+    (1, {1: 15, 2: 15}, 1)])
+def test_the_cluster_plan_picks_the_rows_of_fewest_waves(n, active, want):
+    assert lk._cluster_row_tiles(n, 256, torch.bfloat16, active) == want
+    if active[1]:   # f32 takes 16 rows a block only
+        assert lk._cluster_row_tiles(n, 256, torch.float32, active) == 1
+    with pytest.raises(ValueError, match="fits"):
+        lk._cluster_row_tiles(n, 256, torch.bfloat16, {1: 0, 2: 0})
+
+
+@pytest.mark.parametrize("h", [1, 17, 200, 255, 256, 257, 512, 1024])
+def test_the_forward_route_takes_clusters_up_to_256_units(h):
+    """The forward's route by shape: the cluster kernel up to H = 256,
+    the decode shape (N = 1) included; the cooperative kernel beyond."""
+    want = lk.CLUSTER if h <= 256 else lk.COOPERATIVE
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 64, 256):
+            assert lk.lstm_fwd_route(n, h, dtype) == want
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lk.lstm_fwd_route(64, h, torch.float16)
