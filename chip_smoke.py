@@ -100,7 +100,13 @@ Phases (any failure exits nonzero):
     at the inference path's shapes, bf16 at B=128 and f32 at B=16: each
     output row and each 64-row tile held to limits relative to its own
     size, the channel sums to 1e-5 of the sum of |output| (against the
-    kernel's own stored output), the pool exactly; in bf16 the check is
+    kernel's own stored output), the pool exactly (NaN at the same
+    elements, every other element bit-equal; sc of both signs and one
+    zero channel; a case with NaN and +-inf planted in y; its route, the
+    C plan against stem.py's ``_stem_fwd_pool_plan``, and two planted
+    faults, the window's maximum alone and a NaN-dropping maximum, which
+    must fail; with ``--parent DIR`` the parent tree's pool timed in
+    turns and its NaN count on the planted case); in bf16 the check is
     shown to fail a version that skips the rounding of the activated
     input before the dot, and every case is launched twice, bitwise
     equal; the bf16 and f32 conv launchers given partial sums one pixel
@@ -111,16 +117,20 @@ Phases (any failure exits nonzero):
     library's SASS: each bf16 forward function (the tensor cores,
     ``conv_fwd_tc.cuh``) holds 144 HMMA.16816.F32.BF16 (the 3x3) or 64
     (the 1x1), the f32 ones none, with their registers and spills from
-    ``ptxas -v`` and their shared memory. Three ragged cases
+    ``ptxas -v`` and their shared memory (the forward pool's four
+    functions too, none may spill). Three ragged cases
     in bf16 and f32 at B=3 (C=20, K=36: no multiple of 8; a 1x1 and a
     3x3 over 9x13 images, whose patches cross images; a stride-2 1x1 at
-    10x14) on the same limits. Then the sweep: every distinct forward
+    10x14) on the same limits, and three ragged pools (111x113, 8x9 at K
+    = 36, 9x13 at K = 34: the element route). Then the sweep: every distinct forward
     conv of a ResNet50 forward at 224x224, B=128, bf16 (per stage s2-s5:
     conv_a of the first block, strided from s3 on, and of the later
     ones, the 3x3 conv_b, conv_c and the conv shortcut), each against
     its plain version once on the same limits, with its kernel and
     library times, bound and launches a forward, and the launch-weighted
-    totals a forward;
+    totals a forward; last a report (no bar): one NaN planted in the
+    input of a small bf16 and f32 conv1x1 and conv3x3, and whether the
+    output carries it as the plain version's does;
 11. resnet: ResNet50 inference at full width (1000 classes, 224x224,
     B=128, bf16, NHWC, the fused plan with the stem, random weights
     from a seed, BN statistics calibrated on 16 seeded images) through
@@ -255,7 +265,8 @@ Phases (any failure exits nonzero):
     planted through the plain versions (no relu in the prologue, no
     relu' mask on dz, dW from the unrounded z, the sums over the
     bf16-rounded dz); with ``--parent DIR`` the parent tree's backward
-    timed in turns at every stage.
+    timed in turns at every stage; last the NaN report of phase 10 for
+    the fused forward.
     Times of the kernels, the plain versions and cuBLAS (``torch.matmul``
     on the activated input; ``g @ W^T`` and ``z^T @ g``) beside the
     bounds. The bf16 forward is the bottleneck's tensor-core 1x1
@@ -314,7 +325,16 @@ Phases (any failure exits nonzero):
     T = 64: ``output()`` and two RmsProp fit steps with the kernels
     against the same with the plain versions swapped in (probabilities
     by row and tile, parameters and g2 by update_err), and a planted
-    backward fault (the peephole gradient dropped) beyond the limit.
+    backward fault (the peephole gradient dropped) beyond the limit;
+26. serializer (``serializer``): the port's model archives. Phase 24's
+    text LSTM (bf16) after one fit step, written with ``write_model`` to
+    a temporary directory and restored with ``restore_model`` onto the
+    card: parameters, updater state and ``output()`` bitwise equal to
+    the original's, one more fit step from each with losses within 1e-6
+    relative; then ``tests/fixtures/regression_tfm_v1.zip`` (the JAX
+    package's archive) restored onto the card, its output within 5e-3
+    of the fixture's ``_output.npy``, the flash forward's launches
+    recorded.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -326,6 +346,7 @@ measurement to PATH; ``--phases`` runs a subset (by their names in
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -2239,6 +2260,10 @@ CNN_CASES = {
     "s5_conv_b": ("conv3x3", dict(h=7, w=7, c=512, k=512, act="relu")),
     "stem_conv": ("stem_conv", dict(h=224, w=224, c=3, k=64)),
     "stem_pool": ("stem_pool", dict(h=112, w=112, k=64)),
+    # NaN and +-inf planted in y (one inf in the sc = 0 channel): NaN
+    # where the plain version gives NaN, every other element bit-equal
+    "stem_pool_nonfinite": ("stem_pool", dict(h=112, w=112, k=64,
+                                              nonfinite=True)),
 }
 
 
@@ -2258,6 +2283,12 @@ CNN_RAGGED = {
     "ragged_stem_223x225_c4": ("stem_conv", dict(h=223, w=225, c=4, k=64)),
     "ragged_stem_15x17_c1": ("stem_conv", dict(h=15, w=17, c=1, k=36)),
     "ragged_stem_15x17_c4": ("stem_conv", dict(h=15, w=17, c=4, k=36)),
+    # the pool at an odd y (the last windows cut by the image) and a small
+    # one, at K = 36: bf16 the element route, f32 the 16-byte route with a
+    # short last chunk; K = 34 takes f32 onto the element route too
+    "ragged_pool_111x113": ("stem_pool", dict(h=111, w=113, k=36)),
+    "ragged_pool_8x9": ("stem_pool", dict(h=8, w=9, k=36)),
+    "ragged_pool_9x13_k34": ("stem_pool", dict(h=9, w=13, k=34)),
 }
 CNN_RAGGED_B = 3
 #: the stem conv's planted faults (bf16): "shifted_tap", tap (1, 1)'s
@@ -2270,6 +2301,15 @@ CNN_RAGGED_B = 3
 #: recorded beyond (n = 1.6 M at B = 128: ~1e-6, untellable)
 STEM_CONV_FAULTS = ("shifted_tap", "unrounded_sums")
 STEM_SUMS_TOLD = 5000
+#: NaN, +inf and -inf planted in the nonfinite pool case's y (a third
+#: each)
+POOL_NONFINITE = 96
+#: the forward pool's planted faults: "max_only", the window's raw
+#: maximum alone (as if sc were never negative); "nan_dropped", fmaxf and
+#: fminf, which return the other operand where one is NaN. The exact
+#: comparison must fail the first in every case (each has channels with
+#: sc < 0) and the second in the nonfinite case
+STEM_POOL_FAULTS = ("max_only", "nan_dropped")
 
 
 def cnn_inputs(kernel, geo, n, dtype, device, seed, gen="cpu"):
@@ -2289,11 +2329,25 @@ def cnn_inputs(kernel, geo, n, dtype, device, seed, gen="cpu"):
 
     h, w = geo["h"], geo["w"]
     if kernel == "stem_pool":
+        # sc of both signs, one channel 0 (the BN scale gamma / sigma
+        # takes gamma's sign)
         k = geo["k"]
-        y = randn(n, h, w, k).to(device, dtype)
-        sc = (0.5 + rand(k)).to(device)
-        bb = (0.3 * randn(k)).to(device)
-        return {"y": y, "sc": sc, "bb": bb}
+        y = randn(n, h, w, k)
+        sc = 0.5 + rand(k)
+        sc[1::3] *= -1.0
+        sc[2 % k] = 0.0
+        bb = 0.3 * randn(k)
+        if geo.get("nonfinite"):
+            flat = y.view(-1)
+            idx = torch.randint(0, flat.numel(), (POOL_NONFINITE,),
+                                generator=g, device=gen)
+            third = POOL_NONFINITE // 3
+            flat[idx[:third]] = float("nan")
+            flat[idx[third:2 * third]] = float("inf")
+            flat[idx[2 * third:]] = -float("inf")
+            y[0, 1, 1, 2 % k] = float("inf")
+        return {"y": y.to(device, dtype), "sc": sc.to(device),
+                "bb": bb.to(device)}
     c, k = geo["c"], geo["k"]
     if kernel == "stem_conv":
         w7 = randn(k, c, 7, 7) * (2.0 / (49 * c)) ** 0.5
@@ -2496,8 +2550,122 @@ def stem_conv_record(a, geo, n, dtype, kern, got, device):
     return rec, failures
 
 
+def same_bits(a, b):
+    """``a`` and ``b`` equal bit for bit (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(it), b.view(it)
+    return torch.equal(a, b)
+
+
+def pool_exact(got, ref):
+    """The forward pool's exact comparison: NaN at the same elements,
+    every other element bit-equal. Returns (the record, the failures)."""
+    gn, rn = torch.isnan(got.float()), torch.isnan(ref.float())
+    it = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    differ = (got.view(it) != ref.view(it)) & ~rn
+    err = torch.where(gn | rn | (got == ref), 0.0,
+                      (got.float() - ref.float()).abs())
+    rec = {"nan_kernel": int(gn.sum()), "nan_plain": int(rn.sum()),
+           "nan_positions_equal": bool(torch.equal(gn, rn)),
+           "bits_differ": int(differ.sum()),
+           "max_abs_err": float(err.max()) if err.numel() else 0.0,
+           "limits": {"bits_differ": 0, "nan_positions_equal": True}}
+    failures = []
+    if not rec["nan_positions_equal"]:
+        failures.append("NaN positions")
+    if rec["bits_differ"]:
+        failures.append("bits")
+    return rec, failures
+
+
+def stem_fwd_pool_fault(y, sc, bb, fault):
+    """The forward pool's arithmetic in torch, without its walk (the raw
+    window's maximum and minimum over padding that neither takes, then
+    relu(max(z(hi), z(lo))), z(v) = v sc + bb in f32), with a planted
+    fault (STEM_POOL_FAULTS)."""
+    _, ho, wo, _ = y.shape
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    big, small = (torch.fmax, torch.fmin) if fault == "nan_dropped" else \
+        (torch.maximum, torch.minimum)
+    ext = []
+    for pad, red in ((-float("inf"), big), (float("inf"), small)):
+        zp = torch.nn.functional.pad(y.float(), (0, 0, 1, 1, 1, 1),
+                                     value=pad)
+        m = None
+        for i in range(3):
+            for j in range(3):
+                w = zp[:, i:i + 2 * po - 1:2, j:j + 2 * pw - 1:2]
+                m = w if m is None else red(m, w)
+        ext.append(m)
+    z1, z2 = ext[0] * sc + bb, ext[1] * sc + bb
+    z = z1 if fault == "max_only" else big(z1, z2)
+    return big(z, torch.zeros((), device=y.device)).to(y.dtype)
+
+
+def stem_pool_launches():
+    """The forward pool's device kernels started so far (the 16-byte
+    route, the element route), as its launcher counts them."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    out = (ctypes.c_int * 2)()
+    stem._LIBRARY.load().dl4j_stem_pool_kernel_launches(out)
+    return list(out)
+
+
+def stem_pool_record(a, geo, n, dtype, kern, got):
+    """The forward pool case's route: the plan stem.py mirrors against
+    the C launcher's, the device kernel one call starts (which must be
+    the plan's route), and the planted faults against the kernel's
+    output (STEM_POOL_FAULTS: each must fail the exact comparison where
+    it can show). Returns (the record, the failures)."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    y, sc, bb = a["y"], a["sc"], a["bb"]
+    h, w, k = geo["h"], geo["w"], geo["k"]
+    plan = stem._stem_fwd_pool_plan(n, h, w, k, y.element_size(),
+                                    y.data_ptr() % 16 == 0 and
+                                    got.data_ptr() % 16 == 0)
+    c_out = (ctypes.c_int * 5)()
+    err = stem._LIBRARY.load().dl4j_stem_pool_plan(n, h, w, k, plan.vec,
+                                                   c_out)
+    rec = {"route": plan.route, "plan": plan._asdict(),
+           "c_plan": list(c_out)}
+    failures = []
+    if err or rec["c_plan"] != [*plan.grid, plan.strips, plan.quads,
+                                plan.rows]:
+        failures.append(f"the C plan {rec['c_plan']} (error {err}) is not "
+                        f"stem.py's {plan}")
+    before = stem_pool_launches()
+    kern()
+    torch.cuda.synchronize()
+    ran = [x - y_ for x, y_ in zip(stem_pool_launches(), before)]
+    rec["device_kernels"] = {"vector": ran[0], "element": ran[1]}
+    if ran != ([1, 0] if plan.route == "vector" else [0, 1]):
+        failures.append(f"route {plan.route} launched {ran}")
+    rec["planted"] = {}
+    for fault in STEM_POOL_FAULTS:
+        frec, ffail = pool_exact(stem_fwd_pool_fault(y, sc, bb, fault), got)
+        held = fault == "max_only" or bool(geo.get("nonfinite"))
+        rec["planted"][fault] = {
+            **{x: frec[x] for x in ("nan_kernel", "nan_positions_equal",
+                                    "bits_differ")},
+            "failures": ffail, "held": held}
+        if held and not ffail:
+            failures.append(f"the exact comparison does not tell {fault}")
+    return rec, failures
+
+
 #: the kernel libraries of another checkout (``--parent``), built once
 _PARENT_LIBS = {}
+#: the parent tree's stem library: its bf16 conv and its two pools
+_POOL_C_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+PARENT_STEM_FUNCTIONS = {
+    "dl4j_stem_conv_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+                           [ctypes.c_void_p],
+    "dl4j_conv_row_tile": [],
+    "dl4j_stem_pool_bf16": _POOL_C_ARGS, "dl4j_stem_pool_f32": _POOL_C_ARGS}
 
 
 def parent_library(parent, name, source, functions):
@@ -2528,13 +2696,9 @@ def parent_stem_turns(parent, a, ref_y, kern, device):
     """The parent checkout's bf16 stem conv (the CUDA-core implicit GEMM
     of conv_gemm.cuh) on the same inputs: its output against the plain
     version's, and its time in turns with this one's."""
-    import ctypes
-
     from deeplearning4j_tpu_torch.nn.layers import stem
-    p_, i_ = ctypes.c_void_p, ctypes.c_int
     lib = parent_library(parent, "stem", "nn/layers/csrc/stem.cu",
-                         {"dl4j_stem_conv_bf16": [p_] * 7 + [i_] * 6 + [p_],
-                          "dl4j_conv_row_tile": []})
+                         PARENT_STEM_FUNCTIONS)
     x, ws = a["x"], stem.stem_weight_s2d(a["w7"])
     n, h, wd, c = x.shape
     k = ws.shape[1]
@@ -2559,6 +2723,38 @@ def parent_stem_turns(parent, a, ref_y, kern, device):
                                         .max())}
 
 
+def parent_pool_turns(parent, a, ref, kern, device, nonfinite):
+    """The parent checkout's forward pool on the same inputs, against the
+    plain version's output exactly; in the nonfinite case its NaN count
+    beside the plain version's (the fault a NaN-dropping pool shows),
+    else its time in turns with this one's."""
+    from deeplearning4j_tpu_torch.nn.layers import stem
+    lib = parent_library(parent, "stem", "nn/layers/csrc/stem.cu",
+                         PARENT_STEM_FUNCTIONS)
+    y, sc, bb = a["y"], a["sc"], a["bb"]
+    n, ho, wo, k = y.shape
+    out = torch.empty_like(ref)
+    fn = getattr(lib, "dl4j_stem_pool_bf16" if y.dtype == torch.bfloat16
+                 else "dl4j_stem_pool_f32")
+
+    def old():
+        err = fn(y.data_ptr(), sc.data_ptr(), bb.data_ptr(), out.data_ptr(),
+                 n, ho, wo, k, stem._stream(y))
+        if err:
+            raise RuntimeError(f"the parent's stem pool: CUDA error {err}")
+
+    old()
+    torch.cuda.synchronize()
+    exact, fails = pool_exact(out, ref)
+    rec = {"parent_exact": {**exact, "failures": fails}}
+    if nonfinite:
+        rec["fault_observed"] = {"parent_nan": exact["nan_kernel"],
+                                 "plain_nan": exact["nan_plain"]}
+    else:
+        rec.update(in_turns(old, kern, device))
+    return rec
+
+
 def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     """One case: the kernel against its plain version on the same
     inputs, in bf16 two launches bitwise equal, and the kernel's, plain
@@ -2573,20 +2769,24 @@ def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     case = {"case": name, "kernel": kernel, "dtype": str(dtype).split(".")[-1],
             "batch": n, **geo}
     failures = []
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 or kernel == "stem_pool":
         again = kern()
         case["bitwise_repeat"] = all(
-            torch.equal(x, y) for x, y in zip(
+            same_bits(x, y) for x, y in zip(
                 *(r if isinstance(r, tuple) else (r,) for r in (got, again))))
         if not case["bitwise_repeat"]:
             failures.append("two launches differ")
         del again
     if kernel == "stem_pool":
-        case["max_abs_err"] = float((got.float() - ref.float()).abs().max())
-        case["limits"] = {"max_abs_err": 0.0}
-        finite = bool(torch.isfinite(got).all())
-        if case["max_abs_err"] != 0.0:
-            failures.append("pool")
+        rec, fails = pool_exact(got, ref)
+        case.update(rec)
+        failures += fails
+        # planted NaN and inf make non-finite outputs, held by the exact
+        # comparison
+        finite = bool(geo.get("nonfinite")) or bool(torch.isfinite(got).all())
+        prec, pfails = stem_pool_record(a, geo, n, dtype, kern, got)
+        case.update(prec)
+        failures += pfails
     else:
         rec, fails = cnn_compare(got, ref, dtype)
         case.update(rec)
@@ -2620,6 +2820,9 @@ def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     if parent and kernel == "stem_conv" and dtype == torch.bfloat16 and \
             cases is None:
         case["parent"] = parent_stem_turns(parent, a, ref[0], kern, device)
+    if parent and kernel == "stem_pool" and cases is None:
+        case["parent"] = parent_pool_turns(parent, a, ref, kern, device,
+                                           bool(geo.get("nonfinite")))
     del ref
     log("cnn", json.dumps(case))
     del a, kern, plain, library, unrounded
@@ -2850,9 +3053,12 @@ def stem_conv_sass():
     rec, bad = tc_sass(stem._LIBRARY, "14conv_tc_kernel",
                        "16conv_gemm_kernel")
     rec["smem_bytes"] = stem._LIBRARY.load().dl4j_stem_conv_tc_smem()
-    bad += [f"{f} spills" for f, lines in rec["ptxas"].items()
-            if any("spill" in x and " 0 bytes spill stores" not in x
-                   for x in lines)]
+    # the forward pool's functions (both routes, both dtypes): registers,
+    # shared memory (none) and spills (none may spill)
+    rec["fwd_pool_ptxas"] = ptxas_usage(stem._LIBRARY, "fwd_pool_kernel")
+    if len(rec["fwd_pool_ptxas"]) != 4:
+        bad.append(f"{len(rec['fwd_pool_ptxas'])} fwd_pool functions, not 4")
+    bad += spilling(rec["ptxas"]) + spilling(rec["fwd_pool_ptxas"])
     log("stem conv sass:", json.dumps(rec))
     if bad:
         raise AssertionError(f"stem conv sass: HMMA.16816.F32.BF16 counts "
@@ -2861,11 +3067,56 @@ def stem_conv_sass():
     return rec
 
 
+def nan_report(kernels, device):
+    """A report, not a bar: one NaN planted in a small case's input (x's
+    first element, or y2's for the fused op) through each of ``kernels``
+    ("conv1x1", "conv3x3": the bottleneck forward's relu prologue;
+    "fused": the fused forward's), bf16 and f32: whether the kernel's
+    output carries it as the plain version's does (the JAX kernels'
+    jnp.maximum propagates NaN; a prologue relu written as fmaxf drops
+    it)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import fused
+    rows = []
+    for kernel in kernels:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator().manual_seed(11)
+            c = k = 64
+            x = torch.randn((2, 8, 8, c), generator=g)
+            x.view(-1)[0] = float("nan")
+            sc, bb = 0.5 + torch.rand(c, generator=g), torch.randn(c,
+                                                                 generator=g)
+            taps = 9 if kernel == "conv3x3" else 1
+            w = torch.randn((9, c, k) if taps == 9 else (c, k), generator=g)
+            args = [t.to(device) for t in (x, sc, bb)]
+            args[0] = args[0].to(dtype)
+            wd = w.to(device, dtype)
+            if kernel == "fused":
+                b = torch.zeros(k, device=device)
+                y2 = args[0].reshape(-1, c)
+                got = fused.fused_matmul(y2, args[1], args[2], wd, b)
+                ref = fused.fused_matmul_plain(y2, args[1], args[2], wd, b)
+            else:
+                fn, plain = (bn.conv3x3, bn.conv3x3_plain) if taps == 9 \
+                    else (bn.conv1x1, bn.conv1x1_plain)
+                got = fn(*args, wd, act="relu")[0]
+                ref = plain(*args, wd, act="relu")[0]
+            rows.append({"kernel": kernel, "dtype": str(dtype).split(".")[-1],
+                         "nan_outputs_kernel": int(torch.isnan(got.float())
+                                                   .sum()),
+                         "nan_outputs_plain": int(torch.isnan(ref.float())
+                                                  .sum())})
+            rows[-1]["carries_nan"] = rows[-1]["nan_outputs_kernel"] == \
+                rows[-1]["nan_outputs_plain"]
+    log("nan report:", json.dumps(rows))
+    return rows
+
+
 def check_cnn_kernels(device, smi, parent=None):
     """The SASS checks; every case in bf16 at the main path's batch (the
-    stem conv with the parent's kernel in turns, given one), then in f32
-    at 16; the ragged cases in both at B=3; the sweep of a forward's
-    convs."""
+    stem conv and pool with the parent's kernels in turns, given one),
+    then in f32 at 16; the ragged cases in both at B=3; the sweep of a
+    forward's convs; the NaN report of the bottleneck forward."""
     sass = conv_sass()
     stem_sass_rec = stem_conv_sass()
     check_tile_guard(device)
@@ -2877,7 +3128,8 @@ def check_cnn_kernels(device, smi, parent=None):
               for dtype in (torch.bfloat16, torch.float32)
               for i, name in enumerate(CNN_RAGGED)]
     return {"cases": cases, "sweep": fwd_sweep(device, smi),
-            "sass": {**sass, "stem_conv": stem_sass_rec}}
+            "sass": {**sass, "stem_conv": stem_sass_rec},
+            "nan_report": nan_report(("conv1x1", "conv3x3"), device)}
 
 
 # ---------------------------------------------------------------------
@@ -3100,7 +3352,7 @@ def resnet(device):
         "kernel_launches": sum(e.count for e in kernels),
         "conv_kernels_share_of_device_time": (
             sum(t for k, t in dev_us.items() if "conv_gemm" in k
-                or "fwd_tc_kernel" in k or "stem_pool" in k
+                or "fwd_tc_kernel" in k or "fwd_pool_kernel" in k
                 or "reduce_partials" in k) / busy_us
             if busy_us else None),
         "top_kernels_us": [[k[:80], t] for k, t in top]}
@@ -4478,7 +4730,7 @@ def resnet_train_stem(device, xla_losses=None):
         conv_bwd_share=share("dz_kernel", "dw_kernel<", "dz_tc_kernel",
                              "dw_tc_kernel<", "reduce_splits"),
         stem_share=share("conv_gemm_kernel<__nv_bfloat16, 2>",
-                         "stem_pool_kernel", "bwd_pool_kernel", "dy_kernel",
+                         "fwd_pool_kernel", "bwd_pool_kernel", "dy_kernel",
                          "dw_kernel<__nv_bfloat16>(", "dw_tc::dw_tc_kernel"))
     del net
     torch.cuda.empty_cache()
@@ -5060,7 +5312,8 @@ def check_fused_kernels(device, parent=None):
         fused_case(name, dtype, n, device, seed=40 + i,
                    parent=parent if name in FUSED_STAGES else None)
         for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
-        for i, name in enumerate([*FUSED_STAGES, "tail", "ragged"])]}
+        for i, name in enumerate([*FUSED_STAGES, "tail", "ragged"])],
+        "nan_report": nan_report(("fused",), device)}
 
 
 def fuse_true_net(device, dtype, lr=0.1, calibrate=False):
@@ -6033,6 +6286,100 @@ def stream_against_one_shot(net, ids):
             "row_rel": row_rel, "tile_rel": tile_rel}
 
 
+#: the serializer phase: a restored net's next fit step's loss against
+#: the original's (the same bits in, the same kernels: a difference is a
+#: fault in what the archive carried), and the transformer fixture's
+#: output against its recorded output (tests/test_regression_formats.py's
+#: OUT_ATOL: the fixture was recorded by the JAX package on a CPU)
+SERIALIZER_LOSS_REL = 1e-6
+SERIALIZER_FIXTURE_ATOL = 5e-3
+
+
+def serializer(device):
+    """The port's model archives on the card. The text LSTM at
+    bench_lstm's widths (bf16) after one fit step: ``write_model`` to a
+    temporary directory, ``restore_model`` onto the card; the restored
+    parameters and updater state bitwise equal to the original's, its
+    ``output()`` bitwise equal, and one more fit step from each with
+    losses within SERIALIZER_LOSS_REL. Then ``regression_tfm_v1.zip``
+    (the JAX package's archive of a 2-layer transformer) restored onto
+    the card: its output within SERIALIZER_FIXTURE_ATOL of the fixture's
+    ``_output.npy``, with the flash forward kernel's launches."""
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.updater import tree_leaves
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    rec, failures = {}, []
+    net = text_lstm_net(device, torch.bfloat16)
+    x, y = text_batch(LSTM_B, LSTM_T)
+    fit_s(net, x, y, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "text_lstm.zip")
+        t0 = time.perf_counter()
+        write_model(net, path)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["archive_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = restore_model(path, device=device)
+        rec["restore_s"] = time.perf_counter() - t0
+    rec["restored"] = {"type": type(back).__name__,
+                       "device": str(next(iter(back.params["0"].values()))
+                                     .device),
+                       "dtype": back.conf.dtype,
+                       "iteration_count": back.iteration_count}
+    same = {name: len(tree_leaves(a)) == len(tree_leaves(b)) and all(
+                torch.equal(u, v)
+                for u, v in zip(tree_leaves(a), tree_leaves(b)))
+            for name, a, b in (("params", net.params, back.params),
+                               ("updater_state", net.updater_state,
+                                back.updater_state))}
+    rec["bitwise"] = same
+    out_a, out_b = net.output(x), back.output(x)
+    rec["bitwise"]["output"] = bool(torch.equal(out_a, out_b))
+    _, loss_a = fit_s(net, x, y, None)
+    _, loss_b = fit_s(back, x, y, None)
+    rec["next_step_losses"] = [loss_a, loss_b]
+    rec["next_step_loss_rel"] = abs(loss_a - loss_b) / abs(loss_a)
+    rec["limits"] = {"next_step_loss_rel": SERIALIZER_LOSS_REL,
+                     "fixture_max_abs_err": SERIALIZER_FIXTURE_ATOL}
+    log("serializer text_lstm:", json.dumps(rec))
+    if not all(rec["bitwise"].values()):
+        failures.append(f"the restored text LSTM is not the written one: "
+                        f"{rec['bitwise']}")
+    if rec["restored"]["device"] == "cpu" or rec["restored"]["dtype"] != \
+            "bfloat16":
+        failures.append(f"restored as {rec['restored']}")
+    if not rec["next_step_loss_rel"] <= SERIALIZER_LOSS_REL:
+        failures.append("the next fit step's losses part")
+    del net, back, out_a, out_b
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures")
+    tnet = restore_model(os.path.join(fix, "regression_tfm_v1.zip"),
+                         device=device)
+    xin = np.load(os.path.join(fix, "regression_tfm_v1_input.npy"))
+    want = np.load(os.path.join(fix, "regression_tfm_v1_output.npy"))
+    zero_counts()
+    got = tnet.output(xin)
+    got = (got[0] if isinstance(got, (list, tuple)) else got).float().cpu()
+    counts = read_counts()
+    tfm = {"type": type(tnet).__name__, "shape": list(got.shape),
+           "max_abs_err": float(np.abs(got.numpy() - want).max()),
+           "launches": {k: v for k, v in counts.items() if v},
+           "updater_t": int(tnet.updater_state["t"])}
+    rec["regression_tfm_v1"] = tfm
+    log("serializer regression_tfm_v1:", json.dumps(tfm))
+    if list(got.shape) != list(want.shape) or \
+            not tfm["max_abs_err"] <= SERIALIZER_FIXTURE_ATOL:
+        failures.append("the transformer fixture's output")
+    if not counts["flash_fwd"]:
+        failures.append("the restored transformer ran no flash forward")
+    if failures:
+        raise AssertionError(f"serializer: {failures}: {rec}")
+    return rec
+
+
 def text_lstm_reference(device):
     """f32 at full width, T = LSTM_REF_T: ``output()`` and
     LSTM_REF_STEPS RmsProp fit steps with the kernels against the same
@@ -6173,7 +6520,9 @@ def cnn_entry(name, replaces, launches, cases, sweep):
     mine = [c for c in cases if c["kernel"] == name]
     main = mine[0]
     keys = ("max_abs_err", "row_rel", "tile_rel", "sums_rel",
-            "unrounded_tile_rel", "bitwise_repeat", "route", "planted")
+            "unrounded_tile_rel", "bitwise_repeat", "route", "planted",
+            "nan_positions_equal", "bits_differ", "device_kernels", "plan",
+            "parent")
     conv = name in sweep["per_forward"]
     return {"name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/nn/layers/csrc/" + (
@@ -6182,6 +6531,22 @@ def cnn_entry(name, replaces, launches, cases, sweep):
             **({"design": "redesigned for the tensor cores (bf16: "
                           "mma.sync over conv_mma.cuh; f32: the CUDA "
                           "cores)"} if conv else {}),
+            **({"design": "redesigned: a strip walk that reads y once (16-"
+                          "byte loads, a warp 4 pooled columns by 8 pooled "
+                          "rows), each window's raw NaN-propagating maximum "
+                          "and minimum, relu(max(z(hi), z(lo))) exact for "
+                          "every sign of sc",
+                "functions": {"vector": "fwd_pool::fwd_pool_kernel<T, "
+                                        "16 / sizeof(T)>",
+                              "element": "fwd_pool::fwd_pool_kernel<T, 1>"},
+                "nonfinite": {x: c.get(x) for c in mine
+                              if c["case"] == "stem_pool_nonfinite"
+                              and c["dtype"] == "bfloat16"
+                              for x in ("nan_kernel", "nan_plain",
+                                        "nan_positions_equal",
+                                        "bits_differ", "parent")},
+                **({"parent": main["parent"]} if "parent" in main else {})}
+               if name == "stem_pool" else {}),
             **({"design": "redesigned for the tensor cores (bf16 at 4 C "
                           "<= 16: a 16-tap conv over the s2d halo tile, "
                           "mma.sync over conv_mma.cuh; f32 and wider "
@@ -6385,8 +6750,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--parent", help="another checkout of the repo (the "
                     "parent commit's tree): phases 3, 3c, 10 and the LSTM "
-                    "kernels' build its paged kernels, stem conv and LSTM "
-                    "backward and time them in turns with this one's")
+                    "kernels' build its paged kernels, stem conv and pool "
+                    "and LSTM kernels and time them in turns with this "
+                    "one's")
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
@@ -6472,6 +6838,7 @@ def main(argv=None) -> int:
         cnn = phase("cnn", check_cnn_kernels, device, smi, args.parent)
         out["cnn_cases"], out["cnn_fwd_sweep"], out["cnn_sass"] = \
             cnn["cases"], cnn["sweep"], cnn["sass"]
+        out["cnn_nan_report"] = cnn["nan_report"]
     if want("resnet"):
         out["resnet"] = phase("resnet", resnet, device)
         log("resnet:", json.dumps({
@@ -6524,6 +6891,7 @@ def main(argv=None) -> int:
         fk = phase("fused_kernels", check_fused_kernels, device,
                    args.parent)
         out["fused_cases"], out["fused_sass"] = fk["cases"], fk["sass"]
+        out["fused_nan_report"] = fk["nan_report"]
     if want("resnet_fuse_true"):
         rf = out["resnet_fuse_true"] = phase("resnet_fuse_true",
                                              resnet_fuse_true, device)
@@ -6554,6 +6922,8 @@ def main(argv=None) -> int:
     if want("text_lstm_reference"):
         out["text_lstm_reference"] = phase("text_lstm_reference",
                                            text_lstm_reference, device)
+    if want("serializer"):
+        out["serializer"] = phase("serializer", serializer, device)
 
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} passed in "

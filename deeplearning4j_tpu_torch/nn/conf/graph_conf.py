@@ -4,22 +4,30 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``, with the
 vertices the ported graphs need: ``LayerVertex`` (a layer conf, with an
 optional input preprocessor), ``ElementWiseVertex`` (the residual adds,
 over RNN or CNN activations) and ``MergeVertex`` (concatenation on the
-feature axis, as in the recurrent regression graph). The other
-vertices port with the breadth modules (ROADMAP.md A11).
+feature axis, as in the recurrent regression graph), and their JSON
+form (:func:`vertex_to_dict`, :func:`vertex_from_dict`: the JAX
+package's ``{"@class": name, field: value}``, a layer vertex's layer and
+preprocessor nested in their own forms). The other vertices port with
+the breadth modules (ROADMAP.md A11).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, List
+from typing import Any, Dict, List
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    LayerConf, layer_from_dict, layer_to_dict)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    Preprocessor, preprocessor_from_dict, preprocessor_to_dict)
 
 __all__ = ["ElementWiseVertex", "GraphBuilder", "GraphVertexConf",
-           "LayerVertex", "MergeVertex"]
+           "LayerVertex", "MergeVertex", "VERTEX_REGISTRY",
+           "vertex_from_dict", "vertex_to_dict"]
 
 
 @dataclass
@@ -108,6 +116,45 @@ class MergeVertex(GraphVertexConf):
     def apply(self, params, xs, state, *, train=False):
         axis = 3 if (self.data_format == "NHWC" and xs[0].dim() == 4) else 1
         return torch.cat(xs, dim=axis), state
+
+
+VERTEX_REGISTRY: Dict[str, type] = {c.__name__: c for c in (
+    LayerVertex, ElementWiseVertex, MergeVertex)}
+
+
+def vertex_to_dict(v: GraphVertexConf) -> dict:
+    """The JAX package's JSON form of a vertex: ``{"@class": name}`` and
+    its fields, a layer and a preprocessor in their own forms."""
+    d = {"@class": type(v).__name__}
+    for f in dataclasses.fields(v):
+        val = getattr(v, f.name)
+        if isinstance(val, LayerConf):
+            val = layer_to_dict(val)
+        elif isinstance(val, Preprocessor):
+            val = preprocessor_to_dict(val)
+        elif isinstance(val, tuple):
+            val = list(val)
+        d[f.name] = val
+    return d
+
+
+def vertex_from_dict(d: dict) -> GraphVertexConf:
+    """The inverse of :func:`vertex_to_dict`; the vertices the port does
+    not have are refused."""
+    d = dict(d)
+    name = d.pop("@class")
+    cls = VERTEX_REGISTRY.get(name)
+    if cls is None:
+        raise NotImplementedError(f"vertex {name!r} is not ported yet "
+                                  "(ROADMAP.md A11)")
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: v for k, v in d.items() if k in names}
+    if isinstance(kwargs.get("layer"), dict):
+        kwargs["layer"] = layer_from_dict(kwargs["layer"])
+    if isinstance(kwargs.get("preprocessor"), dict):
+        kwargs["preprocessor"] = preprocessor_from_dict(
+            kwargs["preprocessor"])
+    return cls(**kwargs)
 
 
 class GraphBuilder:

@@ -7,7 +7,7 @@ conventions: feed-forward activations are ``[batch, size]``, recurrent
 channels, height, width]`` (NCHW at the public boundary; the internal
 NHWC layout of ``use_cnn_data_format`` keeps the same type). The
 flattened-CNN and 3-D kinds port with the breadth modules (ROADMAP.md
-A11).
+A11). ``to_dict`` / ``from_dict`` are the JAX package's JSON form.
 """
 
 from __future__ import annotations
@@ -49,3 +49,23 @@ class InputType:
         if self.kind == "cnn":
             return int(self.channels) * int(self.height) * int(self.width)
         raise ValueError(f"no flat size for {self}")
+
+    def to_dict(self) -> dict:
+        """``{"kind": kind}`` and each size that is set."""
+        d = {"kind": self.kind}
+        for f in ("size", "timesteps", "channels", "height", "width"):
+            v = getattr(self, f)
+            if v is not None:
+                d[f] = v
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "InputType":
+        """The inverse of :meth:`to_dict`; the kinds the port does not
+        have (flattened CNN, 3-D) are refused."""
+        if d.get("kind") not in ("ff", "rnn", "cnn") or \
+                d.get("depth") is not None:
+            raise NotImplementedError(
+                f"input type {d!r} is not ported yet (ROADMAP.md A11); "
+                "ported: ff, rnn, cnn")
+        return InputType(**{k: v for k, v in d.items() if k != "depth"})

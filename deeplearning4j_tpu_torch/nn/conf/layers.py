@@ -32,6 +32,14 @@ training and returns its decayed running statistics as the new state;
 the other layers ignore it, as their JAX twins do (the port has no
 dropout).
 
+JSON (``layer_to_dict`` / ``layer_from_dict``, over ``LAYER_REGISTRY``)
+is the JAX package's wire form: ``{"@class": name, field: value}`` with
+every field the JAX conf has. The fields the port does not have yet
+(dropout, weight noise, constraints, the weight distribution, bias init,
+per-layer learning rates and updaters, and a few layer options) are
+written at their JAX defaults and read only at them (``_ABSENT``);
+any other value is refused, naming ROADMAP.md A1.
+
 Streaming state (``rnn_time_step``): the attention layer carries a
 dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
 position ``kv_pos`` (a scalar, or ``[N]`` per row in the engine's slot
@@ -45,9 +53,10 @@ and the truncated-BPTT ``fit`` carries from chunk to chunk.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,10 +75,11 @@ NEG_INF = -1e30   # finite: a fully masked row must stay finite
 __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
            "Convolution1DLayer", "ConvolutionLayer", "DenseLayer",
            "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM",
-           "LSTM", "LayerConf", "LayerNormalization", "OutputLayer",
-           "PositionalEmbeddingLayer", "RnnOutputLayer",
+           "LAYER_REGISTRY", "LSTM", "LayerConf", "LayerNormalization",
+           "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
            "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
-           "ZeroPaddingLayer", "stream_capacity"]
+           "ZeroPaddingLayer", "layer_from_dict", "layer_to_dict",
+           "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path and the truncated-BPTT fit (stripped on ordinary forwards,
@@ -404,11 +414,12 @@ class BatchNormalization(FeedForwardLayerConf):
 @dataclass
 class Convolution1DLayer(FeedForwardLayerConf):
     """1-D convolution over ``[N, C, T]``, ported for kernel 1 (the
-    position-wise matmul the transformer uses; stride 1, any padding
-    mode gives the same result). W is ``[n_out, n_in, kernel]`` as in
-    the JAX package."""
+    position-wise matmul the transformer uses; stride 1, where every
+    convolution mode gives the same result). W is ``[n_out, n_in,
+    kernel]`` as in the JAX package."""
 
     kernel: int = 1
+    convolution_mode: str = "truncate"
 
     def __post_init__(self):
         if self.kernel != 1:
@@ -416,6 +427,10 @@ class Convolution1DLayer(FeedForwardLayerConf):
                 "Convolution1DLayer is ported for kernel=1 only (the "
                 "transformer's position-wise projections); general 1-D "
                 "convolution is ROADMAP.md A11")
+        if self.convolution_mode not in ("truncate", "same", "strict",
+                                         "causal"):
+            raise ValueError(f"unknown convolution mode "
+                             f"{self.convolution_mode!r}")
 
     def output_type(self, it):
         return InputType.recurrent(self.n_out, it.timesteps)
@@ -946,3 +961,71 @@ class RnnOutputLayer(FeedForwardLayerConf):
         l2 = labels.transpose(1, 2).reshape(n * t, c)
         m2 = mask.reshape(n * t) if mask is not None else None
         return _losses.score(l2, p2, self.loss, self.activation, m2)
+
+
+# ---------------------------------------------------------------------
+# registry and JSON
+# ---------------------------------------------------------------------
+LAYER_REGISTRY: Dict[str, type] = {c.__name__: c for c in (
+    DenseLayer, ActivationLayer, ConvolutionLayer, Convolution1DLayer,
+    SubsamplingLayer, ZeroPaddingLayer, GlobalPoolingLayer,
+    BatchNormalization, LayerNormalization, PositionalEmbeddingLayer,
+    SelfAttentionLayer, LSTM, GravesLSTM, GravesBidirectionalLSTM,
+    OutputLayer, RnnOutputLayer)}
+
+#: the JAX conf fields the port does not have, at their JAX defaults: on
+#: every layer, on the parameterized ones (BaseLayerConf), and per class
+_ABSENT_ALL = {"dropout": 0.0, "weight_noise": None, "constraints": None}
+_ABSENT_BASE = {"dist": None, "bias_init": 0.0, "learning_rate": None,
+                "updater": None}
+_ABSENT_CLASS = {
+    "Convolution1DLayer": {"stride": 1, "padding": 0, "dilation": 1,
+                           "has_bias": True},
+    "RnnOutputLayer": {"has_bias": True},
+    "GlobalPoolingLayer": {"collapse_dimensions": True},
+    "SubsamplingLayer": {"pnorm": 2.0},
+}
+
+
+def _absent(cls) -> dict:
+    """The JAX fields ``cls`` lacks, with the defaults it is read at."""
+    return {**_ABSENT_ALL,
+            **(_ABSENT_BASE if issubclass(cls, BaseLayerConf) else {}),
+            **_ABSENT_CLASS.get(cls.__name__, {})}
+
+
+def layer_to_dict(layer: LayerConf) -> dict:
+    """The JAX package's JSON form of a layer conf: ``{"@class": name}``,
+    every field (tuples as lists), and the JAX fields the port lacks at
+    their defaults."""
+    d = {"@class": type(layer).__name__}
+    for f in dataclasses.fields(layer):
+        v = getattr(layer, f.name)
+        d[f.name] = list(v) if isinstance(v, tuple) else v
+    d.update(_absent(type(layer)))
+    return d
+
+
+def layer_from_dict(d: dict) -> LayerConf:
+    """The inverse of :func:`layer_to_dict`. A layer the port does not
+    have, a field it does not know, or a JAX field it lacks at anything
+    but its default is refused (NotImplementedError)."""
+    d = dict(d)
+    name = d.pop("@class")
+    cls = LAYER_REGISTRY.get(name)
+    if cls is None:
+        raise NotImplementedError(f"layer {name!r} is not ported yet "
+                                  "(ROADMAP.md A1, A11)")
+    fields = {f.name for f in dataclasses.fields(cls)}
+    absent = _absent(cls)
+    for key, v in d.items():
+        if key in fields:
+            continue
+        if key not in absent:
+            raise NotImplementedError(f"{name}.{key} is not ported yet "
+                                      "(ROADMAP.md A1)")
+        if v != absent[key] and not (key == "constraints" and not v):
+            raise NotImplementedError(
+                f"{name}.{key} = {v!r}: only its default {absent[key]!r} "
+                "is ported (ROADMAP.md A1)")
+    return cls(**{k: v for k, v in d.items() if k in fields})

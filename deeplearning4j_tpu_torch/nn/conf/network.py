@@ -15,21 +15,29 @@ kind differs from the one it expects would get a shape adapter
 in, recurrent out), and the adapters between kinds are refused with
 the sequential network's other preprocessors (ROADMAP.md A2, with LeNet
 on this network). The other global defaults (activation, bias init,
-dropout) and JSON round trips come with the formats (ROADMAP.md A1).
+dropout) come with the formats (ROADMAP.md A1).
+
+Both configurations read and write the JAX package's JSON (``to_dict``
+/ ``to_json``, ``from_dict`` / ``from_json``), key for key. The JAX
+fields the port does not carry (a sequential network's preprocessors,
+``backprop`` and ``pretrain``; a graph's truncated-BPTT lengths) are
+written at their JAX defaults and read only at them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    FeedForwardLayerConf, LayerConf)
+    FeedForwardLayerConf, LayerConf, layer_from_dict, layer_to_dict)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
-from deeplearning4j_tpu_torch.nn.updater import Sgd, Updater
+from deeplearning4j_tpu_torch.nn.updater import (
+    Sgd, Updater, updater_from_dict, updater_to_dict)
 
 __all__ = ["ComputationGraphConfiguration", "ListBuilder",
            "MultiLayerConfiguration", "NeuralNetConfiguration",
@@ -86,6 +94,17 @@ def _infer_shapes_and_preprocessors(conf: "MultiLayerConfiguration") -> None:
         it = layer.output_type(it)
 
 
+def _check_absent(what: str, d: dict, absent: dict, roadmap: dict) -> None:
+    """Refuse a JAX field the port does not carry at anything but its
+    default (``roadmap`` names the ROADMAP.md item of a field, else
+    A1)."""
+    for key, default in absent.items():
+        if key in d and d[key] != default:
+            raise NotImplementedError(
+                f"{what}.{key} = {d[key]!r}: only {default!r} is ported "
+                f"(ROADMAP.md {roadmap.get(key, 'A1')})")
+
+
 @dataclass
 class MultiLayerConfiguration:
     """Sequential net config, built through
@@ -93,13 +112,16 @@ class MultiLayerConfiguration:
     type, and the training settings (``tbptt`` with
     ``tbptt_fwd_length``: ``fit`` splits each ``[N, C, T]`` batch into
     chunks of that many steps and carries the recurrent state across
-    them). ``dtype`` selects the compute policy as for a graph."""
+    them; ``tbptt_back_length`` is carried as the JAX package carries
+    it, unused by either ``fit``). ``dtype`` selects the compute policy
+    as for a graph."""
 
     layers: List[LayerConf] = field(default_factory=list)
     input_type: Optional[InputType] = None
     seed: int = 12345
     updater: Updater = field(default_factory=lambda: Sgd(0.1))
     tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
     tbptt: bool = False
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
@@ -120,6 +142,59 @@ class MultiLayerConfiguration:
         its = self.layer_input_types()
         return self.layers[-1].output_type(its[-1])
 
+    #: the JAX fields this conf lacks, at the defaults they are read at
+    _ABSENT = {"preprocessors": {}, "backprop": True, "pretrain": False}
+
+    def to_dict(self) -> dict:
+        """The JAX package's JSON form, key for key."""
+        return {
+            "layers": [layer_to_dict(layer) for layer in self.layers],
+            "preprocessors": {},
+            "input_type": self.input_type.to_dict() if self.input_type
+            else None,
+            "seed": self.seed,
+            "updater": updater_to_dict(self.updater),
+            "backprop": True,
+            "pretrain": False,
+            "tbptt": self.tbptt,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "dtype": self.dtype,
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d: dict) -> "MultiLayerConfiguration":
+        """The inverse of :meth:`to_dict`, with the JAX package's
+        defaults for missing keys. Preprocessors and layer-wise
+        pretraining are refused (ROADMAP.md A2)."""
+        _check_absent("MultiLayerConfiguration", d,
+                      MultiLayerConfiguration._ABSENT,
+                      {"preprocessors": "A2", "pretrain": "A2"})
+        return MultiLayerConfiguration(
+            layers=[layer_from_dict(x) for x in d["layers"]],
+            input_type=InputType.from_dict(d["input_type"])
+            if d.get("input_type") else None,
+            seed=d.get("seed", 12345),
+            updater=updater_from_dict(d["updater"]) if d.get("updater")
+            else Sgd(0.1),
+            tbptt=d.get("tbptt", False),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_back_length=d.get("tbptt_back_length", 20),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            dtype=d.get("dtype", "float32"))
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))
+
 
 class ListBuilder:
     """Sequential-net builder: ``layer``, ``set_input_type``, ``tbptt``
@@ -131,6 +206,7 @@ class ListBuilder:
         self._input_type: Optional[InputType] = None
         self._tbptt = False
         self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, *args):
         """``layer(conf)`` or ``layer(index, conf)``."""
@@ -141,10 +217,12 @@ class ListBuilder:
         self._input_type = it
         return self
 
-    def tbptt(self, fwd: int = 20):
-        """Truncated BPTT in chunks of ``fwd`` steps."""
+    def tbptt(self, fwd: int = 20, back: Optional[int] = None):
+        """Truncated BPTT in chunks of ``fwd`` steps (``back``, default
+        ``fwd``, is carried in the conf as the JAX package does)."""
         self._tbptt = True
         self._tbptt_fwd = fwd
+        self._tbptt_back = back if back is not None else fwd
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -155,6 +233,7 @@ class ListBuilder:
             layers=self._layers, input_type=self._input_type, seed=g._seed,
             updater=g._updater, tbptt=self._tbptt,
             tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             gradient_normalization=g._grad_norm,
             gradient_normalization_threshold=g._grad_norm_threshold)
         if conf.input_type is not None:
@@ -250,6 +329,61 @@ class ComputationGraphConfiguration:
             raise ValueError("Graph has a cycle or disconnected vertex "
                              "inputs")
         return order
+
+    #: the JAX fields this conf lacks, at the defaults they are read at
+    _ABSENT = {"tbptt_fwd_length": 20, "tbptt_back_length": 20}
+
+    def to_dict(self) -> dict:
+        """The JAX package's JSON form, key for key."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+            vertex_to_dict)
+        return {
+            "vertices": {k: vertex_to_dict(v)
+                         for k, v in self.vertices.items()},
+            "vertex_inputs": self.vertex_inputs,
+            "network_inputs": self.network_inputs,
+            "network_outputs": self.network_outputs,
+            "input_types": {k: v.to_dict()
+                            for k, v in self.input_types.items()},
+            "seed": self.seed,
+            "updater": updater_to_dict(self.updater),
+            **self._ABSENT,
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "dtype": self.dtype,
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d: dict) -> "ComputationGraphConfiguration":
+        """The inverse of :meth:`to_dict`, with the JAX package's
+        defaults for missing keys."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+            vertex_from_dict)
+        _check_absent("ComputationGraphConfiguration", d,
+                      ComputationGraphConfiguration._ABSENT, {})
+        return ComputationGraphConfiguration(
+            vertices={k: vertex_from_dict(v)
+                      for k, v in d["vertices"].items()},
+            vertex_inputs={k: list(v) for k, v in d["vertex_inputs"].items()},
+            network_inputs=list(d["network_inputs"]),
+            network_outputs=list(d["network_outputs"]),
+            input_types={k: InputType.from_dict(v)
+                         for k, v in d.get("input_types", {}).items()},
+            seed=d.get("seed", 12345),
+            updater=updater_from_dict(d["updater"]) if d.get("updater")
+            else Sgd(0.1),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            dtype=d.get("dtype", "float32"))
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
 
     def use_cnn_data_format(self, fmt: str = "NHWC"
                             ) -> "ComputationGraphConfiguration":

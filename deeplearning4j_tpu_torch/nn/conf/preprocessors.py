@@ -4,17 +4,22 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``, with the
 two CNN adapters: ``FeedForwardToCnnPreProcessor`` (the entry transpose
 ``use_cnn_data_format("NHWC")`` installs: public NCHW in, internal NHWC
 out) and ``CnnToFeedForwardPreProcessor`` (flatten in DL4J's NCHW
-order). The RNN adapters port with the breadth modules (ROADMAP.md A11).
+order), and their JSON form (:func:`preprocessor_to_dict`,
+:func:`preprocessor_from_dict`: the JAX package's ``{"@class": name,
+field: value}``). The RNN adapters port with the sequential network's
+breadth (ROADMAP.md A2).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["CnnToFeedForwardPreProcessor", "FeedForwardToCnnPreProcessor",
-           "Preprocessor"]
+           "PREPROCESSOR_REGISTRY", "Preprocessor", "preprocessor_from_dict",
+           "preprocessor_to_dict"]
 
 
 @dataclass
@@ -66,3 +71,30 @@ class FeedForwardToCnnPreProcessor(Preprocessor):
     def output_type(self, it):
         return InputType.convolutional(self.height, self.width,
                                        self.channels)
+
+
+PREPROCESSOR_REGISTRY = {c.__name__: c for c in (
+    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)}
+
+
+def preprocessor_to_dict(p: Preprocessor) -> dict:
+    """The JAX package's JSON form: ``{"@class": name, field: value}``
+    (tuples as lists)."""
+    d = {"@class": type(p).__name__}
+    for f in dataclasses.fields(p):
+        v = getattr(p, f.name)
+        d[f.name] = list(v) if isinstance(v, tuple) else v
+    return d
+
+
+def preprocessor_from_dict(d: dict) -> Preprocessor:
+    """The inverse of :func:`preprocessor_to_dict`; the preprocessors
+    the port does not have are refused."""
+    d = dict(d)
+    name = d.pop("@class")
+    cls = PREPROCESSOR_REGISTRY.get(name)
+    if cls is None:
+        raise NotImplementedError(
+            f"preprocessor {name!r} is not ported yet (ROADMAP.md A2)")
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})

@@ -39,8 +39,26 @@
 //   - f32, and wider inputs, take the implicit GEMM of conv_gemm.cuh
 //     (mode kStemS2d), which gathers the A tiles element by element from
 //     the raw NHWC image and multiplies on the f32 CUDA cores.
-// The pool is one thread per output element (channels fastest, so a
-// warp's reads of y are contiguous).
+// The pool (fwd_pool below) reads y once and never forms relu(y sc + bb)
+// for a pixel: for finite sc that function of y is monotone in f32
+// (multiply, then add, each rounded to nearest: non-decreasing for sc >=
+// 0, non-increasing for sc <= 0), so a window's largest relu value is
+// relu(max(z(max y), z(min y))), z(v) = v sc + bb, bit-equal to taking
+// it pixel by pixel for every sign of sc. The window's raw maximum and
+// minimum are NaN-propagating (bf16 pairs: __hmax2_nan / __hmin2_nan;
+// f32: max.NaN / min.NaN), so a NaN anywhere in a window gives NaN, and
+// with sc = 0 a +-inf (0 inf is NaN) does too, at whichever extreme it
+// sits, as the plain version's torch.maximum and the JAX kernel's
+// jnp.maximum give. Each warp owns 4 pooled columns (a lane group of 8
+// each, 8 bf16 or 4 f32 channels a lane: 16-byte loads and stores) of a
+// strip of 8 pooled rows of one image and walks it down: pooled row p
+// reads image rows 2p and 2p + 1 (each row's 2q, 2q + 1 columns; 2q - 1
+// is the left lane group's 2q + 1, shuffled, the warp's first group
+// loading it) and keeps row 2p + 1's reduction for p + 1. The window is
+// separable: each row is reduced over its three columns, then the three
+// rows. Where K is no whole number of 16-byte vectors, or y or the
+// output is not 16-byte aligned, the same walk goes element by element
+// (a lane one channel).
 //
 // What bounds it on an H100. At B=128, 224x224x3, K=64 in bf16 the conv
 // reads 38.5 MB and writes 206 MB for 30.2 GFLOP (39.5 with the
@@ -53,8 +71,18 @@
 // turn (three barriers a patch), which the second block of an SM
 // overlaps. The f32 route is bound by the f32 FMA rate (19.7 G
 // multiply-adds at B=128). The pool reads those 206 MB and writes 51 MB,
-// 0.077 ms; it reads each y element up to four times through the L1/L2
-// caches.
+// 0.077 ms: bytes. Taken pixel by pixel in each window (a thread an
+// output: nine 2-byte loads, each y element loaded and transformed 2.25
+// times on average, 231 M loads at B=128) it is bound by instructions
+// instead. Here a y element is loaded once, as part of a
+// 16-byte vector; the re-reads are the strips' halo rows (one image row
+// in 16, 6.25% more rows, read about when the strip above reads them, so
+// from L2) and the warps' first columns (one 16-byte load in 8 more,
+// the neighbouring warp's, from L1 or L2); the affine runs twice an
+// output (0.5 a y element), the window's comparisons 6 bf16 pair
+// operations a pair of outputs. What is left is the stream itself: 8
+// warps a block, 40-odd warps an SM keeping 2-3 KB of loads each in
+// flight.
 //
 // Built with route (b): nvcc -gencode arch=compute_90a,code=sm_90a into a
 // shared library with a plain C interface, loaded through ctypes
@@ -75,40 +103,294 @@ using dl4j_conv::Geometry;
 using dl4j_conv::from_f32;
 using dl4j_conv::to_f32;
 
-constexpr int kPoolThreads = 256;
+// ---------------------------------------------------------------------
+// stem_pool: a strip walk over the raw y, its window max and min once
+// ---------------------------------------------------------------------
+namespace fwd_pool {
 
-template <typename T>
-__global__ void __launch_bounds__(kPoolThreads)
-    stem_pool_kernel(const T* __restrict__ y, const float* __restrict__ sc,
-                     const float* __restrict__ bb, T* __restrict__ out,
-                     int n, int ho, int wo, int k, int po, int pw) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * kPoolThreads + threadIdx.x;
-  const int64_t total = static_cast<int64_t>(n) * po * pw * k;
-  if (idx >= total) return;
-  const int ch = static_cast<int>(idx % k);
-  int64_t rest = idx / k;
-  const int q = static_cast<int>(rest % pw);
-  rest /= pw;
-  const int p = static_cast<int>(rest % po);
-  const int img = static_cast<int>(rest / po);
-  const float s = sc[ch];
-  const float b = bb[ch];
-  float m = -INFINITY;
-  for (int i = 0; i < 3; ++i) {
-    const int r = 2 * p - 1 + i;
-    if (r < 0 || r >= ho) continue;
-    for (int j = 0; j < 3; ++j) {
-      const int cc = 2 * q - 1 + j;
-      if (cc < 0 || cc >= wo) continue;
-      const int64_t off =
-          ((static_cast<int64_t>(img) * ho + r) * wo + cc) * k + ch;
-      const float z = fmaxf(__fadd_rn(__fmul_rn(to_f32(y[off]), s), b), 0.f);
-      m = fmaxf(m, z);
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kLanes = 8;               // lanes a pixel, VEC channels each
+constexpr int kCols = 32 / kLanes;      // pooled columns a warp: 4
+constexpr int kRows = 8;                // pooled rows a warp walks
+
+// the pool's device kernels started so far, by route: the 16-byte route,
+// the element route (read through dl4j_stem_pool_kernel_launches)
+enum Route : int { kVector = 0, kElement = 1 };
+int launched[2] = {0, 0};
+
+struct Pool {
+  int ho, wo, k;        // y [n, ho, wo, k]
+  int po, pw;           // out [n, po, pw, k]
+  int strips;           // row strips an image: ceil(po / kRows)
+  int quads;            // column quads a pooled row: ceil(pw / kCols)
+  int warps;            // n strips quads: one a (strip, quad)
+};
+
+// VEC channels of one pixel: one 16-byte access where VEC sizeof(T) is
+// 16, one element where VEC is 1.
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+constexpr bool kBf16x8 = sizeof(T) == 2 && VEC == 8;
+
+// The NaN-propagating maximum and minimum (PTX max.NaN / min.NaN): fmaxf
+// and fminf return the other operand where one is NaN, which the JAX
+// kernel's jnp.maximum and the plain version's torch.maximum do not.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> vmax(Pack<T, VEC> a,
+                                             Pack<T, VEC> b) {
+  if constexpr (kBf16x8<T, VEC>) {
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(a.v);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(b.v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = __hmax2_nan(x[e], y[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      a.v[e] = from_f32<T>(max_nan(to_f32(a.v[e]), to_f32(b.v[e])));
+  }
+  return a;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> vmin(Pack<T, VEC> a,
+                                             Pack<T, VEC> b) {
+  if constexpr (kBf16x8<T, VEC>) {
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(a.v);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(b.v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = __hmin2_nan(x[e], y[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      a.v[e] = from_f32<T>(min_nan(to_f32(a.v[e]), to_f32(b.v[e])));
+  }
+  return a;
+}
+
+// A pack from the lane `kLanes` below (the pooled column to the left).
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> from_left(Pack<T, VEC> p) {
+  constexpr int kWords = (sizeof(p) + 3) / 4;
+  uint32_t w[kWords] = {};
+  memcpy(w, &p, sizeof(p));
+#pragma unroll
+  for (int e = 0; e < kWords; ++e)
+    w[e] = __shfl_up_sync(0xffffffffu, w[e], kLanes);
+  memcpy(&p, w, sizeof(p));
+  return p;
+}
+
+// One image row's horizontal maximum and minimum over the thread's
+// window columns 2q - 1, 2q, 2q + 1. Column 2q is in the image for
+// every pooled column q; 2q - 1 is the left neighbour's 2q + 1, taken
+// from its lanes (the warp's first column loads it, where q > 0); a
+// column outside the image is replaced by column 2q, which changes
+// neither extreme.
+template <typename T, int VEC>
+struct Row {
+  Pack<T, VEC> hi, lo;
+};
+
+// Loads (all started before any use) of one row: columns 2q, 2q + 1 and,
+// for the warp's first pooled column, 2q - 1.
+template <typename T, int VEC>
+struct Raw {
+  Pack<T, VEC> a, b, c;
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<T, VEC> load_row(const T* row, int k, bool on,
+                                                bool first, bool has_a,
+                                                bool has_c) {
+  using P = Pack<T, VEC>;
+  Raw<T, VEC> r;
+  if (on) {
+    r.b = *reinterpret_cast<const P*>(row);
+    r.c = has_c ? *reinterpret_cast<const P*>(row + k) : r.b;
+    r.a = first && has_a ? *reinterpret_cast<const P*>(row - k) : r.b;
+  } else {
+    r.a = r.b = r.c = P{};
+  }
+  return r;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Row<T, VEC> reduce_row(Raw<T, VEC> r, bool first,
+                                                  bool has_a) {
+  const Pack<T, VEC> left = from_left(r.c);
+  const Pack<T, VEC> a = first ? r.a : has_a ? left : r.b;
+  return {vmax(vmax(a, r.b), r.c), vmin(vmin(a, r.b), r.c)};
+}
+
+// A warp owns pooled columns 4 u .. 4 u + 3 (u: its quad) of a strip of
+// kRows pooled rows of one image, and one chunk of kLanes VEC channels
+// (blockIdx.y); lane group g = lane / kLanes takes column q = 4 u + g,
+// lane % kLanes its VEC channels. Walking the strip down, pooled row p
+// needs image rows 2p - 1, 2p, 2p + 1: the row 2p - 1 is the last
+// iteration's 2p + 1 (kept in registers; at the strip's first row it is
+// the halo row, loaded), so each image row is read once, the halo row
+// twice (once a strip). Each row is reduced across its three window
+// columns, then the three rows, giving the raw window maximum and
+// minimum (NaN-propagating). relu(y sc + bb) in f32 is monotone in y
+// (non-decreasing for sc >= 0, non-increasing for sc <= 0; with sc = 0
+// a +-inf gives NaN, at whichever extreme it sits), so the window's
+// largest value is relu(max(z(hi), z(lo))) exactly: the affine twice an
+// output, the result rounded to T once.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+    fwd_pool_kernel(const T* __restrict__ y, const float* __restrict__ sc,
+                    const float* __restrict__ bb, T* __restrict__ out,
+                    Pool s) {
+  using P = Pack<T, VEC>;
+  // the chunk's sc and bb, read by each output (registers are what
+  // limits the warps an SM keeps loading)
+  __shared__ __align__(16) float aff[2][kLanes * VEC];
+  const int c0 = blockIdx.y * kLanes * VEC;
+  for (int t = threadIdx.x; t < kLanes * VEC; t += kThreads) {
+    const bool ok = c0 + t < s.k;
+    aff[0][t] = ok ? sc[c0 + t] : 0.f;
+    aff[1][t] = ok ? bb[c0 + t] : 0.f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (gw >= s.warps) return;            // a whole warp: shuffles stay full
+  const int quad = gw % s.quads;
+  const int rest = gw / s.quads;
+  const int strip = rest % s.strips;
+  const int img = rest / s.strips;
+  const int grp = lane / kLanes;
+  const int q = quad * kCols + grp;
+  const int cl = (lane % kLanes) * VEC;   // the lane's first channel
+  const int cv = c0 + cl;
+  // the thread's outputs exist (the 16-byte route: K a whole number of
+  // vectors, so all VEC of them)
+  const bool on = q < s.pw && cv < s.k;
+  const bool first = grp == 0;
+  const bool has_a = q > 0;
+  const bool has_c = 2 * q + 1 < s.wo;
+  const int64_t pitch = static_cast<int64_t>(s.wo) * s.k;
+  const T* yc = y + static_cast<int64_t>(img) * s.ho * pitch +
+                static_cast<int64_t>(2 * q) * s.k + cv;
+  T* oc = out + (static_cast<int64_t>(img) * s.po * s.pw + q) * s.k + cv;
+  const int p0 = strip * kRows;
+  const int p1 = min(p0 + kRows, s.po);
+
+  Row<T, VEC> up{};                      // image row 2p - 1, reduced
+  if (p0 > 0)
+    up = reduce_row<T, VEC>(
+        load_row<T, VEC>(yc + (2 * p0 - 1) * pitch, s.k, on, first, has_a,
+                         has_c),
+        first, has_a);
+  for (int p = p0; p < p1; ++p) {
+    const bool has_dn = 2 * p + 1 < s.ho;
+    const Raw<T, VEC> r0 =
+        load_row<T, VEC>(yc + 2 * p * pitch, s.k, on, first, has_a, has_c);
+    const Raw<T, VEC> r1 =
+        has_dn ? load_row<T, VEC>(yc + (2 * p + 1) * pitch, s.k, on, first,
+                                  has_a, has_c)
+               : r0;
+    const Row<T, VEC> mid = reduce_row(r0, first, has_a);
+    const Row<T, VEC> dn = has_dn ? reduce_row(r1, first, has_a) : mid;
+    const Row<T, VEC> u = p > 0 ? up : mid;
+    const P hi = vmax(vmax(u.hi, mid.hi), dn.hi);
+    const P lo = vmin(vmin(u.lo, mid.lo), dn.lo);
+    up = dn;
+    if (!on) continue;
+    float res[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float a = aff[0][cl + e], b = aff[1][cl + e];
+      const float z1 = __fadd_rn(__fmul_rn(to_f32(hi.v[e]), a), b);
+      const float z2 = __fadd_rn(__fmul_rn(to_f32(lo.v[e]), a), b);
+      res[e] = max_nan(max_nan(z1, z2), 0.f);
+    }
+    T* o = oc + static_cast<int64_t>(p) * s.pw * s.k;
+    if constexpr (kBf16x8<T, VEC>) {
+      *reinterpret_cast<uint4*>(o) = dl4j_mma::pack8(res);
+    } else {
+      P v;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v.v[e] = from_f32<T>(res[e]);
+      *reinterpret_cast<P*>(o) = v;
     }
   }
-  out[idx] = from_f32<T>(m);
 }
+
+// The grid (stem.py's _stem_fwd_pool_plan mirrors it): one warp a strip
+// of kRows pooled rows by kCols pooled columns of an image, 8 warps a
+// block along (image, strip, quad), quads fastest; grid.y the chunks of
+// kLanes VEC channels.
+inline Pool geometry(int n, int ho, int wo, int k, int64_t* warps) {
+  Pool s{};
+  s.ho = ho;
+  s.wo = wo;
+  s.k = k;
+  s.po = (ho - 1) / 2 + 1;
+  s.pw = (wo - 1) / 2 + 1;
+  s.strips = (s.po + kRows - 1) / kRows;
+  s.quads = (s.pw + kCols - 1) / kCols;
+  *warps = static_cast<int64_t>(n) * s.strips * s.quads;
+  return s;
+}
+
+inline dim3 grid_of(const Pool& s, int vec) {
+  const int per = kThreads / 32;
+  return dim3(static_cast<unsigned>(
+                  (static_cast<int64_t>(s.warps) + per - 1) / per),
+              static_cast<unsigned>((s.k + kLanes * vec - 1) /
+                                    (kLanes * vec)));
+}
+
+template <typename T, int VEC>
+int launch(const T* y, const float* sc, const float* bb, T* out,
+           const Pool& s, cudaStream_t st) {
+  const dim3 grid = grid_of(s, VEC);
+  fwd_pool_kernel<T, VEC><<<grid, kThreads, 0, st>>>(y, sc, bb, out, s);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (!err) ++launched[VEC > 1 ? kVector : kElement];
+  return err;
+}
+
+// The 16-byte route where K is a whole number of 16-byte vectors and y
+// and out are 16-byte aligned, else the element route. Refuses (before
+// any launch) 2^31 - 1 warps or more (the kernel's warp index is an
+// int).
+template <typename T>
+int stem_pool(const void* y, const void* sc, const void* bb, void* out,
+              int n, int ho, int wo, int k, void* stream) {
+  int64_t warps = 0;
+  Pool s = geometry(n, ho, wo, k, &warps);
+  if (warps == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  if (warps >= INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  s.warps = static_cast<int>(warps);
+  constexpr int kVec = static_cast<int>(16 / sizeof(T));
+  const T* yt = static_cast<const T*>(y);
+  T* ot = static_cast<T*>(out);
+  const float* s_ = static_cast<const float*>(sc);
+  const float* b_ = static_cast<const float*>(bb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k % kVec == 0 && dl4j_mma::aligned16(y) && dl4j_mma::aligned16(out))
+    return launch<T, kVec>(yt, s_, b_, ot, s, st);
+  return launch<T, 1>(yt, s_, b_, ot, s, st);
+}
+
+}  // namespace fwd_pool
 
 // ---------------------------------------------------------------------
 // the device kernels the conv's launchers started, by kind: the CUDA-core
@@ -452,23 +734,6 @@ int stem_conv(const void* x, const void* w, void* out, void* part1,
   return err;
 }
 
-template <typename T>
-int stem_pool(const void* y, const void* sc, const void* bb, void* out,
-              int n, int ho, int wo, int k, void* stream) {
-  const int po = (ho - 1) / 2 + 1;
-  const int pw = (wo - 1) / 2 + 1;
-  const int64_t total = static_cast<int64_t>(n) * po * pw * k;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks =
-      static_cast<int>((total + kPoolThreads - 1) / kPoolThreads);
-  stem_pool_kernel<T><<<blocks, kPoolThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(bb), static_cast<T*>(out), n, ho, wo, k, po,
-      pw);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -499,16 +764,43 @@ int dl4j_stem_conv_bf16_mma(const void* x, const void* w, void* out,
 int dl4j_stem_pool_f32(const void* y, const void* sc, const void* bb,
                        void* out, int n, int ho, int wo, int k,
                        void* stream) {
-  return stem_pool<float>(y, sc, bb, out, n, ho, wo, k, stream);
+  return fwd_pool::stem_pool<float>(y, sc, bb, out, n, ho, wo, k, stream);
 }
 
 int dl4j_stem_pool_bf16(const void* y, const void* sc, const void* bb,
                         void* out, int n, int ho, int wo, int k,
                         void* stream) {
-  return stem_pool<__nv_bfloat16>(y, sc, bb, out, n, ho, wo, k, stream);
+  return fwd_pool::stem_pool<__nv_bfloat16>(y, sc, bb, out, n, ho, wo, k,
+                                           stream);
 }
 
 int dl4j_conv_row_tile() { return dl4j_conv::kBM; }
+
+// The pool's plan for y [n, ho, wo, k] on the route of `vec` channels a
+// lane (16 / sizeof(T), or 1): out[5] = grid.x, grid.y, strips an image,
+// quads a pooled row, pooled rows a strip (stem.py's
+// _stem_fwd_pool_plan).
+int dl4j_stem_pool_plan(int n, int ho, int wo, int k, int vec, int* out) {
+  int64_t warps = 0;
+  fwd_pool::Pool s = fwd_pool::geometry(n, ho, wo, k, &warps);
+  if (warps >= INT_MAX || vec < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  s.warps = static_cast<int>(warps);
+  const dim3 grid = fwd_pool::grid_of(s, vec);
+  out[0] = static_cast<int>(grid.x);
+  out[1] = static_cast<int>(grid.y);
+  out[2] = s.strips;
+  out[3] = s.quads;
+  out[4] = fwd_pool::kRows;
+  return 0;
+}
+
+// The pool's device kernels started so far, by route (out[2]: the
+// 16-byte route, the element route).
+int dl4j_stem_pool_kernel_launches(int* out) {
+  for (int i = 0; i < 2; ++i) out[i] = fwd_pool::launched[i];
+  return 0;
+}
 
 // The conv's device kernels started so far, by kind (out[2]: the
 // CUDA-core GEMM, the tensor-core pass): what one call of each route

@@ -13,7 +13,11 @@ read of the conv output.
 
 The kernels are hand-written CUDA C++ for Hopper: ``csrc/stem.cu`` (the
 conv and the pool) replaces the TPU kernels ``_stem_conv_kernel`` and
-``_stem_pool_kernel``. The conv has two routes, :func:`stem_conv_route`:
+``_stem_pool_kernel``. The pool reads y once: each warp walks a strip of
+pooled rows, reducing the raw y over each window (NaN-propagating maximum
+and minimum), and takes ``relu(y sc + bb)`` at the two extremes, which is
+exact because that function is monotone in y for either sign of sc; its
+grid is planned by :func:`_stem_fwd_pool_plan`. The conv has two routes, :func:`stem_conv_route`:
 bf16 at ``4 C <= 16`` runs on the tensor cores (a 16-tap conv in s2d
 coordinates over the s2d halo tile of ``csrc/stem_s2d.cuh``, the weight
 resident in shared memory; its persistent grid planned by
@@ -73,13 +77,14 @@ __all__ = ["STEM_BWD_DW", "STEM_BWD_DX", "STEM_BWD_POOL", "STEM_CONV",
            "reference_stem", "stem_bwd_dw", "stem_bwd_dw_plain",
            "stem_bwd_dx", "stem_bwd_dx_plain", "stem_bwd_pool",
            "stem_bwd_pool_plain", "stem_conv", "stem_conv_plain",
-           "stem_conv_route", "stem_dw_route", "stem_dx_route", "stem_geometry", "stem_pool",
-           "stem_pool_plain",
+           "stem_conv_route", "stem_dw_route", "stem_dx_route",
+           "stem_geometry", "stem_pool", "stem_pool_plain",
            "stem_weight_s2d"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _POOL_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+_POOL_PLAN_ARGS = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
 _BWD_POOL_ARGS = [_P] * 8 + [_I] * 5 + [_P]
 _BWD_DW_ARGS = [_P] * 7 + [_I] * 7 + [_P]
 _BWD_DW_TC_ARGS = [_P] * 7 + [_I] * 6 + [_P]
@@ -103,6 +108,10 @@ _TC_DW_PATCH, _TC_DW_COLS = (8, 16), 64
 #: patch of s2d pixels (dx_tc::kTh, kTw)
 _TC_DX_MAX_K = 64
 _TC_DX_PATCH = (24, 16)
+#: the forward pool's walk (csrc/stem.cu's fwd_pool): lanes a pixel,
+#: pooled columns a warp, pooled rows a strip, warps a block (kLanes,
+#: kCols, kRows, kThreads / 32)
+_FWD_POOL_LANES, _FWD_POOL_COLS, _FWD_POOL_ROWS, _FWD_POOL_WARPS = 8, 4, 8, 8
 #: the pool backward's tile of pooled windows (rows, columns) and its
 #: chunk of channels a block (csrc/stem_bwd.cu's kPoolWh, kPoolWw,
 #: kPoolC)
@@ -126,7 +135,9 @@ _LIBRARY = CudaLibrary(
     {**{s: _CONV_ARGS for s in _route_symbols("stem_conv").values()},
      **{s: _POOL_ARGS for s in _symbols("stem_pool").values()},
      "dl4j_conv_row_tile": [], "dl4j_stem_conv_tc_smem": [],
-     "dl4j_stem_conv_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
+     "dl4j_stem_conv_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
+     "dl4j_stem_pool_plan": _POOL_PLAN_ARGS,
+     "dl4j_stem_pool_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
              "nn/layers/csrc/stem_s2d.cuh"])
 
@@ -287,6 +298,39 @@ def _stem_pool_plan(n, ho, wo, k) -> StemPoolPlan:
     down, across = -(-po // wh), -(-pw // ww)
     return StemPoolPlan(n * down * across, -(-k // _POOL_CHANNELS),
                         (down, across))
+
+
+class StemFwdPoolPlan(NamedTuple):
+    """The forward pool's launch plan, as ``csrc/stem.cu``'s
+    ``fwd_pool::geometry`` chooses it: ``route`` "vector" (16-byte loads
+    and stores, ``vec`` channels a lane: K a whole number of 16-byte
+    vectors and y and the output aligned) or "element" (``vec`` 1); a
+    warp walks pooled rows ``rows s .. rows s + rows - 1`` (strip s of
+    ``strips`` an image) at pooled columns ``4 u .. 4 u + 3`` (quad u of
+    ``quads``), 8 warps a block along (image, strip, quad), quads
+    fastest; ``grid = (blocks, channel chunks of 8 vec)``."""
+    route: str
+    vec: int
+    strips: int
+    quads: int
+    rows: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def _stem_fwd_pool_plan(n, ho, wo, k, itemsize, aligned=True
+                        ) -> StemFwdPoolPlan:
+    """The plan for y ``[n, ho, wo, k]`` of ``itemsize``-byte elements,
+    y and the output 16-byte aligned or not."""
+    vec = 16 // itemsize
+    route = "vector" if k % vec == 0 and aligned else "element"
+    vec = vec if route == "vector" else 1
+    po, pw = (ho - 1) // 2 + 1, (wo - 1) // 2 + 1
+    strips, quads = -(-po // _FWD_POOL_ROWS), -(-pw // _FWD_POOL_COLS)
+    warps = n * strips * quads
+    return StemFwdPoolPlan(route, vec, strips, quads, _FWD_POOL_ROWS,
+                           (-(-warps // _FWD_POOL_WARPS),
+                            -(-k // (_FWD_POOL_LANES * vec))))
 
 
 def stem_dx_route(dtype, c: int, k: int) -> str:

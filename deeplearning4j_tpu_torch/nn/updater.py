@@ -4,7 +4,9 @@ Counterpart of ``deeplearning4j_tpu/nn/updater.py`` for the rules the
 ported models use: ``Sgd``, ``Adam``, ``Nesterovs`` (ResNet50's) and
 ``RmsProp`` (the text LSTM's; the other updaters are ROADMAP.md A1),
 ``schedule_lr`` and
-``normalize_gradients``. As in the JAX package the updater state is an explicit tree threaded through a
+``normalize_gradients``, and their JSON form (:func:`updater_to_dict`,
+:func:`updater_from_dict`: the JAX package's ``{"@class": name,
+field: value}``). As in the JAX package the updater state is an explicit tree threaded through a
 pure ``update(grads, state, params) -> (steps, new_state)``; the caller
 subtracts the steps. Trees are nested dicts of tensors
 (``{vertex: {name: tensor}}``).
@@ -20,14 +22,16 @@ as it treats every other leaf of the state.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Adam", "Nesterovs", "RmsProp", "Sgd", "Updater",
-           "normalize_gradients", "schedule_lr", "tree_leaves", "tree_map"]
+__all__ = ["Adam", "Nesterovs", "RmsProp", "Sgd", "UPDATER_REGISTRY",
+           "Updater", "normalize_gradients", "schedule_lr", "tree_leaves",
+           "tree_map", "updater_from_dict", "updater_to_dict"]
 
 
 def tree_map(fn, tree, *rest):
@@ -166,6 +170,35 @@ class RmsProp(Updater):
         steps = tree_map(lambda g, a: lr * g / torch.sqrt(a + self.epsilon),
                          grads, g2)
         return steps, {"g2": g2}
+
+
+#: the updaters by their JSON name (the class name, and lower case as
+#: the JAX package registers them)
+UPDATER_REGISTRY: Dict[str, type] = {
+    name: cls for c in (Sgd, Nesterovs, Adam, RmsProp)
+    for name, cls in ((c.__name__, c), (c.__name__.lower(), c))}
+
+
+def updater_to_dict(u: Updater) -> dict:
+    """The JAX package's JSON form: ``{"@class": name, field: value}``."""
+    return {"@class": type(u).__name__,
+            **{f.name: getattr(u, f.name) for f in dataclasses.fields(u)}}
+
+
+def updater_from_dict(d) -> Updater:
+    """The inverse of :func:`updater_to_dict` (an :class:`Updater` passes
+    through). The updaters the port does not have are refused."""
+    if isinstance(d, Updater):
+        return d
+    d = dict(d)
+    name = d.pop("@class")
+    cls = UPDATER_REGISTRY.get(name)
+    if cls is None:
+        raise NotImplementedError(
+            f"updater {name!r} is not ported yet (ROADMAP.md A1); ported: "
+            "Sgd, Nesterovs, Adam, RmsProp")
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
 
 
 def normalize_gradients(grads, method: Optional[str], threshold: float = 1.0):

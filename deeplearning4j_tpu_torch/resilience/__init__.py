@@ -1,1 +1,2 @@
-"""Training resilience: the non-finite sentinel (``sentinel.py``)."""
+"""Training resilience: the non-finite sentinel (``sentinel.py``) and
+whole-file durable writes (``durable.py``)."""

@@ -1,0 +1,250 @@
+"""The port's model archives (deeplearning4j_tpu_torch/util/
+model_serializer.py and the configurations' JSON) against the JAX
+package's, on the CPU.
+
+- The configuration JSON is the JAX package's wire form: for both graph
+  fixtures the port's ``from_json(...).to_dict()`` equals the JAX
+  package's key for key, and every key of the fixture JSON (the JAX
+  package writes four SelfAttentionLayer fields the transformer fixture
+  predates, at their defaults; the port writes them too).
+- The port restores ``regression_tfm_v1.zip`` and ``regression_cg_v1.zip``
+  with no JAX: the parameters hash to ``regression_checksums.json`` under
+  the fixture generator's ``params_sha256``, the updater state is the
+  archive's leaf for leaf (Adam's step count and moments non-zero; the
+  graph fixture's Nesterovs velocity was written before any step, all
+  zeros), and the output is within ``OUT_ATOL`` (5e-3, the JAX test's) of
+  ``_output.npy`` and within 1e-5 of the JAX package's restored net.
+- A small text LSTM goes both ways: the JAX package writes what the port
+  restores, the port writes what the JAX package's ``restore_model``
+  reads; outputs within 1e-5 and one further tBPTT ``fit`` step within
+  ``test_torch_text_lstm.py``'s tolerances (score 1e-5 relative, each
+  leaf within 1e-3 of its change).
+- ``restore_model`` sniffs the type; a dropout (and the other JAX fields
+  the port lacks) off its default is refused naming ROADMAP.md A1, the
+  sequential fixture (ConvolutionMode "same", a preprocessor) naming A2;
+  a failed write leaves the old archive whole.
+"""
+
+import copy
+import io
+import json
+import os
+import sys
+import zipfile
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
+from deeplearning4j_tpu.nn.conf.network import (
+    ComputationGraphConfiguration as JGraphConf)
+from deeplearning4j_tpu.util import model_serializer as jms
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    ComputationGraphConfiguration, MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.util import model_serializer as tms
+from deeplearning4j_tpu_torch.util.convert import (
+    params_to_numpy, updater_state_to_numpy)
+
+from test_torch_text_lstm import _batch, _nets, _np_tree
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+OUT_ATOL = 5e-3          # tests/test_regression_formats.py
+GRAPHS = ["tfm", "cg"]
+
+
+def _p(name):
+    return os.path.join(FIX, name)
+
+
+def _params_sha256(params):
+    sys.path.insert(0, FIX)
+    try:
+        from generate_regression_fixtures import params_sha256
+    finally:
+        sys.path.remove(FIX)
+    return params_sha256(params)
+
+
+def _first(out):
+    return out[0] if isinstance(out, (list, tuple)) else out
+
+
+def _contains(big, small, path=""):
+    """Every key of ``small`` is in ``big`` with the same value."""
+    if isinstance(small, dict):
+        assert isinstance(big, dict), path
+        for k, v in small.items():
+            assert k in big, f"{path}/{k}"
+            _contains(big[k], v, f"{path}/{k}")
+    else:
+        assert big == small, (path, big, small)
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_graph_json_is_the_jax_wire_form(name):
+    text = open(_p(f"regression_{name}_v1.json")).read()
+    got = ComputationGraphConfiguration.from_json(text).to_dict()
+    assert got == JGraphConf.from_json(text).to_dict()
+    _contains(got, json.loads(text))
+    if name == "cg":
+        assert got == json.loads(text)
+    again = ComputationGraphConfiguration.from_json(json.dumps(got))
+    assert again.to_dict() == got
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_the_port_restores_the_graph_fixtures(name):
+    net = tms.restore_model(_p(f"regression_{name}_v1.zip"), device="cpu")
+    assert isinstance(net, ComputationGraph)
+    assert _params_sha256(params_to_numpy(net.params)) == json.load(
+        open(_p("regression_checksums.json")))[f"{name}_v1_params"]
+    # the updater state is the archive's, leaf for leaf: Adam's moments
+    # and step count after the transformer fixture's step; the graph
+    # fixture was written before any step, so its Nesterovs velocity is
+    # all zeros in the archive and restored as such
+    upd = updater_state_to_numpy(net.updater_state)
+    with zipfile.ZipFile(_p(f"regression_{name}_v1.zip")) as zf:
+        entries = [e for e in zf.namelist() if e.startswith("updater/")]
+        assert entries
+        for e in entries:
+            leaf = upd
+            for seg in e[len("updater/"):-len(".npy")].split("/"):
+                leaf = leaf[seg]
+            want = np.load(io.BytesIO(zf.read(e)))
+            assert leaf.dtype == want.dtype and np.array_equal(leaf, want)
+    if name == "tfm":
+        assert int(upd["t"]) > 0
+        assert any(np.any(a != 0) for p in upd["m"].values()
+                   for a in p.values())
+    x = np.load(_p(f"regression_{name}_v1_input.npy"))
+    expected = np.load(_p(f"regression_{name}_v1_output.npy"))
+    got = _first(net.output(x)).numpy()
+    np.testing.assert_allclose(got, expected, atol=OUT_ATOL)
+    jnet = jms.restore_computation_graph(_p(f"regression_{name}_v1.zip"))
+    np.testing.assert_allclose(got, np.asarray(_first(jnet.output(x))),
+                               atol=1e-5)
+    assert net.iteration_count == jnet.iteration_count
+
+
+def _fit_and_compare(tnet, jnet, x, y):
+    """One further tBPTT fit on both: the score within 1e-5 relative,
+    each leaf within 1e-3 of its change."""
+    start = params_to_numpy(tnet.params)
+    jnet.fit(JDataSet(x, y), epochs=1)
+    tnet.fit(DataSet(x, y), epochs=1)
+    assert tnet.score_value == pytest.approx(float(jnet.score_value),
+                                             rel=1e-5)
+    got, want = params_to_numpy(tnet.params), _np_tree(jnet.params)
+    for k in want:
+        for n in want[k]:
+            change = np.abs(want[k][n] - start[k][n]).max()
+            err = np.abs(got[k][n] - want[k][n]).max() / change
+            assert err <= 1e-3, (k, n, err)
+
+
+def test_a_text_lstm_goes_between_the_packages(tmp_path):
+    jnet, tnet = _nets()
+    x, y = _batch(seed=11)
+    jnet.fit(JDataSet(x, y), epochs=1)
+    tnet.fit(DataSet(x, y), epochs=1)
+    # the JAX package writes, the port restores
+    jpath, tpath = str(tmp_path / "jax.zip"), str(tmp_path / "port.zip")
+    jms.write_model(jnet, jpath)
+    back = tms.restore_model(jpath, device="cpu")
+    assert isinstance(back, MultiLayerNetwork)
+    assert back.conf.to_dict() == jnet.conf.to_dict()
+    np.testing.assert_allclose(back.output(x).numpy(),
+                               np.asarray(jnet.output(x)), atol=1e-5,
+                               rtol=1e-5)
+    # the port writes, the JAX package restores
+    tms.write_model(tnet, tpath)
+    jback = jms.restore_model(tpath)
+    assert type(jback).__name__ == "MultiLayerNetwork"
+    assert jback.conf.to_dict() == tnet.conf.to_dict()
+    np.testing.assert_allclose(np.asarray(jback.output(x)),
+                               tnet.output(x).numpy(), atol=1e-5, rtol=1e-5)
+    assert jback.iteration_count == tnet.iteration_count
+    x2, y2 = _batch(seed=12)
+    _fit_and_compare(back, jnet, x2, y2)
+    _fit_and_compare(tnet, jback, x2, y2)
+
+
+def test_a_port_archive_restores_in_the_port(tmp_path):
+    """The port's own round trip: the same bits, the updater state and
+    counters carried, and ``restore_model`` sniffing each type."""
+    _, tnet = _nets()
+    x, y = _batch(seed=13)
+    tnet.fit(DataSet(x, y), epochs=1)
+    path = str(tmp_path / "m.zip")
+    tms.write_model(tnet, path)
+    back = tms.restore_model(path, device="cpu")
+    assert isinstance(back, MultiLayerNetwork)
+    assert torch.equal(back.output(x), tnet.output(x))
+    for a, b in ((back.updater_state, tnet.updater_state),
+                 (back.params, tnet.params)):
+        a, b = updater_state_to_numpy(a), updater_state_to_numpy(b)
+        assert json.dumps(_shapes(a)) == json.dumps(_shapes(b))
+    assert back.iteration_count == tnet.iteration_count
+    graph = tms.restore_model(_p("regression_cg_v1.zip"), device="cpu")
+    assert isinstance(graph, ComputationGraph)
+    gpath = str(tmp_path / "g.zip")
+    tms.write_model(graph, gpath)
+    assert isinstance(tms.restore_model(gpath, device="cpu"),
+                      ComputationGraph)
+    assert not tms.restore_model(path, load_updater=False,
+                                 device="cpu").updater_state["g2"]["0"][
+        "W"].any()
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in sorted(tree.items())}
+    return list(np.shape(tree))
+
+
+@pytest.mark.parametrize("key,value", [("dropout", 0.5),
+                                       ("learning_rate", 0.1),
+                                       ("bias_init", 0.5)])
+def test_a_field_the_port_lacks_is_taken_only_at_its_default(key, value):
+    d = json.load(open(_p("regression_cg_v1.json")))
+    bad = copy.deepcopy(d)
+    bad["vertices"]["lstm"]["layer"][key] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
+        ComputationGraphConfiguration.from_dict(bad)
+    ComputationGraphConfiguration.from_dict(d)
+
+
+def test_the_sequential_fixture_is_refused_naming_a2():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+        tms.restore_model(_p("regression_mln_v1.zip"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+        MultiLayerConfiguration.from_json(
+            open(_p("regression_mln_v1.json")).read())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+        tms.restore_normalizer_from_file(_p("regression_cg_v1.zip"))
+
+
+def test_a_failed_write_leaves_the_old_archive_whole(tmp_path, monkeypatch):
+    graph = tms.restore_model(_p("regression_cg_v1.zip"), device="cpu")
+    path = tmp_path / "m.zip"
+    tms.write_model(graph, str(path))
+    before = path.read_bytes()
+
+    def fail(_):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(tms, "updater_state_to_numpy", fail)
+    with pytest.raises(OSError, match="disk full"):
+        tms.write_model(graph, str(path))
+    assert path.read_bytes() == before
+    assert os.listdir(tmp_path) == ["m.zip"]
+
+
+def test_restore_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tms.restore_model(_p("regression_cg_v1.zip"))
