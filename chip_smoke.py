@@ -128,9 +128,16 @@ Phases (any failure exits nonzero):
     ones, the 3x3 conv_b, conv_c and the conv shortcut), each against
     its plain version once on the same limits, with its kernel and
     library times, bound and launches a forward, and the launch-weighted
-    totals a forward; last a report (no bar): one NaN planted in the
-    input of a small bf16 and f32 conv1x1 and conv3x3, and whether the
-    output carries it as the plain version's does;
+    totals a forward; last the NaN bar (``nan_bar``, ROADMAP C4): one NaN
+    planted in the input of a small bf16 and f32 conv1x1 and conv3x3
+    (the relu prologue of ``conv_mma.cuh``'s z8 and ``conv_gemm.cuh``),
+    the output and sums NaN at exactly the plain version's elements and
+    within the limits elsewhere, the bar shown failing on the plain
+    version with the NaN dropped and, with ``--parent DIR``, on the
+    parent tree's kernels (``parent_kernels``: that tree's library built
+    from its source and launched through this tree's wrappers), which
+    ``--parent`` also times in turns with this tree's at the s2 conv_c
+    and 3x3 (rows 1, 2);
 11. resnet: ResNet50 inference at full width (1000 classes, 224x224,
     B=128, bf16, NHWC, the fused plan with the stem, random weights
     from a seed, BN statistics calibrated on 16 seeded images) through
@@ -171,6 +178,10 @@ Phases (any failure exits nonzero):
     blocks) and the conv shortcut, and the 3x3), each against its plain
     version once on the same limits, with its kernel and cuDNN times,
     bound and launches a step, and the launch-weighted totals a step;
+    with ``--parent`` the s2 1x1 and 3x3 stages in turns with the parent
+    tree's kernels (rows 3, 4); last the NaN bar of phase 10 at the
+    bwd1x1 and bwd3x3 stages, one NaN planted in yprev (the recomputed
+    prologue of ``conv_mma.cuh`` and ``bottleneck_bwd.cu``);
 14. resnet train: ResNet50 training at full width (bench_all.py's
     bench_train_plan: 1000 classes, 224x224, B=128, bf16, NHWC,
     Nesterovs(0.1, 0.9), the fused plan, random weights from the conf
@@ -223,7 +234,11 @@ Phases (any failure exits nonzero):
     launched twice and bitwise equal and from a dy one element off
     16-byte alignment, the device kernels of each route (bf16 the
     tensor-core pass, f32 the CUDA-core one), and the launcher refusing
-    K = 65 and C = 5 (no launch);
+    K = 65 and C = 5 (no launch); with ``--parent`` the pool backward in
+    turns with the parent tree's (row 9); last the NaN bar of phase 10
+    at the pool backward, one NaN planted in y inside two windows (its
+    relu and the bf16 and f32 window maxima of ``stem_bwd.cu``: a window
+    holding NaN sends no gradient);
 17. resnet train stem: phase 14's configuration with the stem kernels
     engaged (``set_fusion("bottleneck", stem=True)``) through
     ``net.fit``: a warm-up step and 5 timed steps, the loss finite, per
@@ -264,9 +279,9 @@ Phases (any failure exits nonzero):
     and shared memory recorded; in bf16 the limits fail four faults
     planted through the plain versions (no relu in the prologue, no
     relu' mask on dz, dW from the unrounded z, the sums over the
-    bf16-rounded dz); with ``--parent DIR`` the parent tree's backward
-    timed in turns at every stage; last the NaN report of phase 10 for
-    the fused forward.
+    bf16-rounded dz); with ``--parent DIR`` the parent tree's forward and
+    backward timed in turns at every stage (rows 5, 6); last the NaN bar
+    of phase 10 for the fused forward.
     Times of the kernels, the plain versions and cuBLAS (``torch.matmul``
     on the activated input; ``g @ W^T`` and ``z^T @ g``) beside the
     bounds. The bf16 forward is the bottleneck's tensor-core 1x1
@@ -334,7 +349,21 @@ Phases (any failure exits nonzero):
     relative; then ``tests/fixtures/regression_tfm_v1.zip`` (the JAX
     package's archive) restored onto the card, its output within 5e-3
     of the fixture's ``_output.npy``, the flash forward's launches
-    recorded.
+    recorded;
+27. regularized_lstm (``regularized_lstm``): phase 24's text LSTM at full
+    width (bf16, B = T = 256) with A1's training hooks: Dropout(0.9) on
+    each LSTM's input, DropConnect(0.95) on the second's weights,
+    MaxNormConstraint(0.75) on their weights, xavier_uniform init, the
+    output bias at 0.1, AdaMax: a warm-up and 3 timed ``fit`` steps (2 +
+    2 recurrence launches a step, the scan route never; columns rescaled
+    by the constraint in every step; the loss finite and falling), the
+    net written and restored onto the card bitwise
+    (parameters, AdaMax's state, ``output()``), ms a step and peak memory
+    against phase 24's unregularized net in turns (a report); in f32 at
+    T = 64 the kernels against the plain versions with the same masks
+    (losses within 1e-4, parameters and AdaMax state by update_err, a
+    run with other masks beyond the limit); a hardsigmoid-gated LSTM on
+    the scan route on the card against the same net on the CPU.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -573,6 +602,27 @@ LSTM_TILE = {(torch.bfloat16, "short"): 1e-4,
 # the f32 reference's fit steps, kernels against plain versions, by
 # update_err leaf by leaf
 LSTM_REF_LIMIT = 0.3
+# The regularized text LSTM (regularized_lstm): bench_lstm's net with
+# A1's training hooks as a DL4J character model sets them: each LSTM
+# drops 10% of its input (Dropout(0.9)), the second drops 5% of its
+# weights (DropConnect(0.95)), MaxNormConstraint on each LSTM's weights,
+# xavier_uniform init, the output layer's bias at 0.1, AdaMax; REG_STEPS
+# timed fit steps after a warm-up step, each rescaling some columns.
+# REG_MAX_NORM binds: it lies under most initial column norms of three
+# of the four LSTM matrices (the phase records each matrix's least,
+# median and largest), so the projection rescales most of their columns
+# and the updates push columns back over it each step. The f32
+# reference (T =
+# LSTM_REF_T) holds the kernels' losses within REG_LOSS_REL of the plain
+# versions' (the same masks from the same generator seed; f32 sums in
+# another order only) and the parameters and AdaMax state by update_err
+# within LSTM_REF_LIMIT, and shows a run with another generator seed
+# (other masks) beyond that limit. The scan route's check: a
+# hardsigmoid-gated GravesLSTM of REG_SCAN_H units on the card against
+# the same net on the CPU, output() and one fit step within
+# REG_SCAN_TOL.
+REG_MAX_NORM, REG_STEPS, REG_LOSS_REL = 0.75, 3, 1e-4
+REG_SCAN_H, REG_SCAN_T, REG_SCAN_TOL = 32, 16, 1e-5
 
 
 def log(*parts):
@@ -2668,6 +2718,17 @@ PARENT_STEM_FUNCTIONS = {
     "dl4j_stem_pool_bf16": _POOL_C_ARGS, "dl4j_stem_pool_f32": _POOL_C_ARGS}
 
 
+def parent_source_library(name, src, functions):
+    """A CudaLibrary ``name`` of the parent checkout's source ``src`` (a
+    Path) with ``functions`` {symbol: argtypes}. Every header beside the
+    source enters the library's digest, so a build left from another
+    parent tree is not taken for this one's."""
+    from deeplearning4j_tpu_torch.cuda_library import CudaLibrary
+    return CudaLibrary(name, [str(src)], functions,
+                       headers=[str(h) for h in
+                                sorted(src.parent.glob("*.cuh"))])
+
+
 def parent_library(parent, name, source, functions):
     """The kernel library ``name`` of the checkout ``parent`` (the parent
     commit's tree), built from its own source (``source``, under its
@@ -2675,12 +2736,86 @@ def parent_library(parent, name, source, functions):
     with ``functions`` {symbol: argtypes}; loaded."""
     if name not in _PARENT_LIBS:
         from pathlib import Path
-
-        from deeplearning4j_tpu_torch.cuda_library import CudaLibrary
         src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / source
-        _PARENT_LIBS[name] = CudaLibrary(f"{name}_parent", [str(src)],
-                                         functions)
+        _PARENT_LIBS[name] = parent_source_library(f"{name}_parent", src,
+                                                   functions)
     return _PARENT_LIBS[name].load()
+
+
+#: this tree's kernel libraries built from another checkout's sources
+#: (``--parent``): by library name, the source under the package
+PARENT_SWAP_SOURCES = {
+    "bottleneck": "nn/layers/csrc/bottleneck.cu",
+    "bottleneck_bwd": "nn/layers/csrc/bottleneck_bwd.cu",
+    "fused": "nn/layers/csrc/fused.cu",
+    "stem_bwd": "nn/layers/csrc/stem_bwd.cu"}
+
+
+def parent_swap_library(parent, library):
+    """``library`` (a CudaLibrary of this tree) built from the parent
+    checkout's source of the same name, with this tree's C interface
+    (the parent's kernels changed in their device code only)."""
+    from pathlib import Path
+    name = f"{library.name}_parent"
+    if name not in _PARENT_LIBS:
+        src = Path(parent).resolve() / "deeplearning4j_tpu_torch" / \
+            PARENT_SWAP_SOURCES[library.name]
+        _PARENT_LIBS[name] = parent_source_library(name, src,
+                                                   library.functions)
+    return _PARENT_LIBS[name]
+
+
+def build_parent_libraries(parent):
+    """Every parent library the phases may swap in, one nvcc each, all
+    started together (the first use would otherwise build each in
+    turn)."""
+    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+    from deeplearning4j_tpu_torch.nn.layers import fused, stem
+    libs = [parent_swap_library(parent, lib) for lib in (
+        bn._LIBRARY, bn._BWD_LIBRARY, fused._LIBRARY, stem._BWD_LIBRARY)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.load) for lib in libs]:
+            f.result()
+    return time.perf_counter() - t0
+
+
+class parent_kernels:
+    """A context in which ``kernels`` (CudaKernels of one library of this
+    tree) launch the parent checkout's build of that library through this
+    tree's wrappers, so the parent's kernel runs on exactly the
+    arguments this tree's would; the kernels' launch counts are left as
+    they were."""
+
+    def __init__(self, parent, kernels):
+        self.kernels = kernels
+        self.lib = parent_swap_library(parent, kernels[0].library)
+
+    def __enter__(self):
+        self.saved = [(k.library, k.launches) for k in self.kernels]
+        for k in self.kernels:
+            k.library = self.lib
+        return self.lib
+
+    def __exit__(self, *exc):
+        for k, (lib, launches) in zip(self.kernels, self.saved):
+            k.library, k.launches = lib, launches
+        return False
+
+
+def parent_swap_turns(parent, kernels, kern, device):
+    """The parent checkout's kernel (through this tree's wrapper, see
+    :class:`parent_kernels`) and this tree's, timed in turns on the same
+    call ``kern``."""
+    def old():
+        with parent_kernels(parent, kernels):
+            return kern()
+    old()
+    torch.cuda.synchronize()
+    rec = in_turns(old, kern, device)
+    rec["kernel_over_parent"] = (sum(rec["kernel_ms_turns"])
+                                 / sum(rec["parent_ms"]))
+    return rec
 
 
 def in_turns(old, kern, device, iters=30):
@@ -2755,6 +2890,14 @@ def parent_pool_turns(parent, a, ref, kern, device, nonfinite):
     return rec
 
 
+#: the main path's cases whose kernels are timed in turns with the
+#: parent checkout's (``--parent``): rows 1 and 2 (the s2 conv_c and 3x3),
+#: 3 and 4 (their backward stages), 9 (the stem pool backward); rows 5
+#: and 6 at every stage of the fused phase
+PARENT_TURN_CASES = ("s2_conv_c", "s2_conv_b", "s2_c_bwd", "s2_b_bwd",
+                     "stem_bwd_pool")
+
+
 def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     """One case: the kernel against its plain version on the same
     inputs, in bf16 two launches bitwise equal, and the kernel's, plain
@@ -2820,6 +2963,10 @@ def cnn_case(name, dtype, n, device, seed, cases=None, parent=None):
     if parent and kernel == "stem_conv" and dtype == torch.bfloat16 and \
             cases is None:
         case["parent"] = parent_stem_turns(parent, a, ref[0], kern, device)
+    if parent and name in PARENT_TURN_CASES and cases is None:
+        from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+        case["parent"] = parent_swap_turns(
+            parent, [bn.CONV1X1, bn.CONV3X3], kern, device)
     if parent and kernel == "stem_pool" and cases is None:
         case["parent"] = parent_pool_turns(parent, a, ref, kern, device,
                                            bool(geo.get("nonfinite")))
@@ -3067,48 +3214,187 @@ def stem_conv_sass():
     return rec
 
 
-def nan_report(kernels, device):
-    """A report, not a bar: one NaN planted in a small case's input (x's
-    first element, or y2's for the fused op) through each of ``kernels``
-    ("conv1x1", "conv3x3": the bottleneck forward's relu prologue;
-    "fused": the fused forward's), bf16 and f32: whether the kernel's
-    output carries it as the plain version's does (the JAX kernels'
-    jnp.maximum propagates NaN; a prologue relu written as fmaxf drops
-    it)."""
+#: the sites of ROADMAP C4 (a relu or window maximum that dropped NaN)
+#: held by the NaN bar, by the kernel through which each case reaches
+#: them: the bottleneck forward's relu prologue (conv_mma.cuh z8 in
+#: bf16, conv_gemm.cuh in f32), the fused forward's (z8 / conv_gemm.cuh),
+#: the fused backward's recomputed z of its dW pass (z8 / fused.cu), the
+#: bottleneck backward's recomputed prologue (z8 / bottleneck_bwd.cu) and
+#: the stem pool backward's relu and window maxima (stem_bwd.cu: bf16
+#: pairs, f32)
+NAN_SITES = ("conv1x1", "conv3x3", "fused", "fused_bwd", "bwd1x1", "bwd3x3",
+             "stem_bwd_pool")
+#: the outputs the NaN bar holds as sums
+NAN_SUM_NAMES = ("sum", "sum_sq", "sums", "dsc", "dbb", "db")
+#: the NaN bar's limit on the finite sums (f32 sums in another order, of
+#: the same stored values), relative to the tensor's largest |value|
+NAN_SUMS_REL = 1e-4
+
+
+def nan_negative(t, pos, sc, bb):
+    """``t`` with the element at ``pos`` (NaN) replaced by a value whose
+    prologue ``t sc + bb`` is negative: what a NaN-dropping relu makes
+    of the NaN."""
+    c = pos[-1]
+    out = t.clone()
+    out[pos] = (-abs(float(bb[c])) - 1.0) / float(sc[c])
+    return out
+
+
+def nan_case(site, dtype, device):
+    """One NaN case of ``site``: (kernel call, plain call, the plain
+    version on the NaN-dropped input, output names, the site's
+    CudaKernels). One NaN is planted in the input the site's prologue or
+    window maximum reads: x (the forward convs, 2 x 8 x 8 x 64), y2 (the
+    fused forward and backward, 128 x 64 to 64), yprev (the backward
+    stages, 2 x 8 x 8 x 64 to 64) or y (the stem pool backward, 2 x 8 x
+    8 x 64, the NaN inside two windows' overlap)."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
-    from deeplearning4j_tpu_torch.nn.layers import fused
-    rows = []
-    for kernel in kernels:
+    from deeplearning4j_tpu_torch.nn.layers import fused, stem
+    g = torch.Generator().manual_seed(11 + NAN_SITES.index(site))
+    c = k = 64
+    if site in ("conv1x1", "conv3x3", "fused", "fused_bwd"):
+        x = torch.randn((2, 8, 8, c), generator=g)
+        pos = (1, 3, 4, 5)
+        x[pos] = float("nan")
+        sc = 0.5 + torch.rand(c, generator=g)
+        bb = torch.randn(c, generator=g)
+        taps = 9 if site == "conv3x3" else 1
+        w = torch.randn((9, c, k) if taps == 9 else (c, k), generator=g) \
+            / (taps * c) ** 0.5
+        xd, dropped_x = x.to(device, dtype), nan_negative(x, pos, sc, bb) \
+            .to(device, dtype)
+        scd, bbd, wd = sc.to(device), bb.to(device), w.to(device, dtype)
+        if site == "fused":
+            b = (0.1 * torch.randn(k, generator=g)).to(device)
+            y2, y2d = xd.reshape(-1, c), dropped_x.reshape(-1, c)
+            return (lambda: (fused.fused_matmul(y2, scd, bbd, wd, b),),
+                    lambda: (fused.fused_matmul_plain(y2, scd, bbd, wd, b),),
+                    lambda: (fused.fused_matmul_plain(y2d, scd, bbd, wd,
+                                                      b),),
+                    ("out",), [fused.FUSED_FWD, fused.FUSED_BWD])
+        if site == "fused_bwd":
+            gd = torch.randn((x.numel() // c, k), generator=g) \
+                .to(device, dtype)
+            y2, y2d = xd.reshape(-1, c), dropped_x.reshape(-1, c)
+            return (lambda: fused.fused_matmul_bwd(y2, scd, bbd, wd, gd),
+                    lambda: fused.fused_matmul_bwd_plain(y2, scd, bbd, wd,
+                                                         gd),
+                    lambda: fused.fused_matmul_bwd_plain(y2d, scd, bbd, wd,
+                                                         gd),
+                    ("dy", "dsc", "dbb", "dw", "db"),
+                    [fused.FUSED_FWD, fused.FUSED_BWD])
+        fn, plain = (bn.conv3x3, bn.conv3x3_plain) if taps == 9 else \
+            (bn.conv1x1, bn.conv1x1_plain)
+        return (lambda: fn(xd, scd, bbd, wd, act="relu"),
+                lambda: plain(xd, scd, bbd, wd, act="relu"),
+                lambda: plain(dropped_x, scd, bbd, wd, act="relu"),
+                ("out", "sum", "sum_sq"), [bn.CONV1X1, bn.CONV3X3])
+    if site in ("bwd1x1", "bwd3x3"):
+        geo = dict(h=8, w=8, c=c, k=k, stride=1, act="relu")
+        a = bwd_inputs(site, geo, 2, dtype, device, seed=70)
+        pos = (1, 3, 2, 7)
+        yprev = a["yprev"].float().cpu()
+        yprev[pos] = float("nan")
+        a["yprev"] = yprev.to(device, dtype)
+        scp, bbp = (a["aff_p"][i].cpu() for i in (0, 1))
+        dropped = dict(a, yprev=nan_negative(yprev, pos, scp, bbp)
+                       .to(device, dtype))
+        fn, plain = (bn.conv3x3_bwd, bn.conv3x3_bwd_plain) \
+            if site == "bwd3x3" else (bn.conv1x1_bwd, bn.conv1x1_bwd_plain)
+
+        def call(f, args):
+            return lambda: f(*(args[n] for n in ("yk", "g", "yprev", "w",
+                                                  "aff_k", "aff_p")),
+                             act_prev="relu")
+        return (call(fn, a), call(plain, a), call(plain, dropped),
+                ("dz0", "dW", "sums"), [bn.BWD1X1, bn.BWD3X3])
+    a = stem_bwd_inputs(2, dtype, device, seed=71,
+                        geo=dict(h=16, w=16, c=3, k=k))
+    pos = (1, 3, 4, 9)
+    y = a["y"].float().cpu()
+    y[pos] = float("nan")
+    yd = y.to(device, dtype)
+    aff = a["aff_p"]
+    yn = nan_negative(y, pos, aff[0].cpu(), aff[1].cpu()).to(device, dtype)
+    return (lambda: stem.stem_bwd_pool(yd, a["g"], aff),
+            lambda: stem.stem_bwd_pool_plain(yd, a["g"], aff),
+            lambda: stem.stem_bwd_pool_plain(yn, a["g"], aff),
+            ("dz0", "sums"),
+            [stem.STEM_BWD_POOL, stem.STEM_BWD_DW, stem.STEM_BWD_DX])
+
+
+def nan_check(got, ref, dtype, names):
+    """The NaN bar: each output's NaN at exactly the plain version's
+    elements; the finite elements within the phase's limits (an output
+    or dW by rows and 64-row tiles as its cases, the sums within
+    NAN_SUMS_REL of their largest |value|). (record, failures)."""
+    rec, failures = {}, []
+    for name, g, r in zip(names, got, ref):
+        gn, rn = torch.isnan(g.float()), torch.isnan(r.float())
+        same = bool(torch.equal(gn, rn))
+        g0 = torch.where(rn, 0.0, g.float())
+        r0 = torch.where(rn, 0.0, r.float())
+        entry = {"nan_kernel": int(gn.sum()), "nan_plain": int(rn.sum()),
+                 "nan_positions_equal": same}
+        if name in NAN_SUM_NAMES:
+            scale = max(float(r0.abs().max()), 1e-30)
+            entry["finite_rel"] = float((g0 - r0).abs().max()) / scale
+            ok = entry["finite_rel"] <= NAN_SUMS_REL
+        else:
+            width = g.shape[-1]
+            rr, tr = conv_agreement(g0.reshape(-1, width),
+                                    r0.reshape(-1, width))
+            entry.update(row_rel=rr, tile_rel=tr)
+            lim = (BWD_DW_ROW[dtype], BWD_DW_TILE[dtype]) if name == "dW" \
+                else (CONV_ROW[dtype], CONV_TILE[dtype])
+            ok = rr <= lim[0] and tr <= lim[1]
+        rec[name] = entry
+        if not same:
+            failures.append(f"{name}: NaN at {entry['nan_kernel']} elements, "
+                            f"the plain version's at {entry['nan_plain']}")
+        if not ok:
+            failures.append(f"{name}: finite values off")
+    return rec, failures
+
+
+def nan_bar(sites, device, parent=None):
+    """The NaN bar at ``sites``, bf16 and f32: the kernel's outputs
+    carry NaN at exactly the plain version's elements and agree with it
+    elsewhere (:func:`nan_check`). The bar is shown failing on the plain
+    version run on the input with the NaN dropped (what the old fmaxf
+    relu computed) and, with ``parent``, on the parent checkout's
+    kernel (the NaN-dropping one) through this tree's wrapper."""
+    rows, failures = [], []
+    for site in sites:
         for dtype in (torch.bfloat16, torch.float32):
-            g = torch.Generator().manual_seed(11)
-            c = k = 64
-            x = torch.randn((2, 8, 8, c), generator=g)
-            x.view(-1)[0] = float("nan")
-            sc, bb = 0.5 + torch.rand(c, generator=g), torch.randn(c,
-                                                                 generator=g)
-            taps = 9 if kernel == "conv3x3" else 1
-            w = torch.randn((9, c, k) if taps == 9 else (c, k), generator=g)
-            args = [t.to(device) for t in (x, sc, bb)]
-            args[0] = args[0].to(dtype)
-            wd = w.to(device, dtype)
-            if kernel == "fused":
-                b = torch.zeros(k, device=device)
-                y2 = args[0].reshape(-1, c)
-                got = fused.fused_matmul(y2, args[1], args[2], wd, b)
-                ref = fused.fused_matmul_plain(y2, args[1], args[2], wd, b)
-            else:
-                fn, plain = (bn.conv3x3, bn.conv3x3_plain) if taps == 9 \
-                    else (bn.conv1x1, bn.conv1x1_plain)
-                got = fn(*args, wd, act="relu")[0]
-                ref = plain(*args, wd, act="relu")[0]
-            rows.append({"kernel": kernel, "dtype": str(dtype).split(".")[-1],
-                         "nan_outputs_kernel": int(torch.isnan(got.float())
-                                                   .sum()),
-                         "nan_outputs_plain": int(torch.isnan(ref.float())
-                                                  .sum())})
-            rows[-1]["carries_nan"] = rows[-1]["nan_outputs_kernel"] == \
-                rows[-1]["nan_outputs_plain"]
-    log("nan report:", json.dumps(rows))
+            kern, plain, dropped, names, kernels = nan_case(site, dtype,
+                                                            device)
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            row = {"site": site, "dtype": str(dtype).split(".")[-1]}
+            row["kernel"], fails = nan_check(got, ref, dtype, names)
+            failures += [f"{site} {row['dtype']} {f}" for f in fails]
+            row["bar_holds"] = not fails
+            row["dropped"], dfails = nan_check(dropped(), ref, dtype, names)
+            row["bar_fails_dropped"] = bool(dfails)
+            if not dfails:
+                failures.append(f"{site} {row['dtype']}: the bar does not "
+                                "tell a NaN-dropping relu")
+            if parent:
+                with parent_kernels(parent, kernels):
+                    pgot = kern()
+                torch.cuda.synchronize()
+                row["parent"], pfails = nan_check(pgot, ref, dtype, names)
+                row["bar_fails_parent"] = bool(pfails)
+                if not pfails:
+                    failures.append(f"{site} {row['dtype']}: the parent's "
+                                    "kernel passes the bar")
+            rows.append(row)
+            del got, ref
+    log("nan bar:", json.dumps(rows))
+    if failures:
+        raise AssertionError(f"nan bar: {failures}")
     return rows
 
 
@@ -3116,7 +3402,7 @@ def check_cnn_kernels(device, smi, parent=None):
     """The SASS checks; every case in bf16 at the main path's batch (the
     stem conv and pool with the parent's kernels in turns, given one),
     then in f32 at 16; the ragged cases in both at B=3; the sweep of a
-    forward's convs; the NaN report of the bottleneck forward."""
+    forward's convs; the NaN bar of the bottleneck forward."""
     sass = conv_sass()
     stem_sass_rec = stem_conv_sass()
     check_tile_guard(device)
@@ -3129,7 +3415,7 @@ def check_cnn_kernels(device, smi, parent=None):
               for i, name in enumerate(CNN_RAGGED)]
     return {"cases": cases, "sweep": fwd_sweep(device, smi),
             "sass": {**sass, "stem_conv": stem_sass_rec},
-            "nan_report": nan_report(("conv1x1", "conv3x3"), device)}
+            "nan_bar": nan_bar(("conv1x1", "conv3x3"), device, parent)}
 
 
 # ---------------------------------------------------------------------
@@ -3568,7 +3854,8 @@ def bwd_compare(kernel, geo, a, got, ref, dtype):
     return rec, failures
 
 
-def bwd_case(name, dtype, n, device, seed, cases=None, planted=True):
+def bwd_case(name, dtype, n, device, seed, cases=None, planted=True,
+             parent=None):
     """One backward case: the kernel against its plain version (dz0, dW,
     sums), the zero rows of stride 2, in bf16 two launches bitwise equal
     and (``planted``) the planted faults, then the kernel's, plain
@@ -3620,6 +3907,10 @@ def bwd_case(name, dtype, n, device, seed, cases=None, planted=True):
                 plain_ms=median_ms(plain, device, iters=10),
                 library_ms=median_ms(library, device),
                 bound_ms=bound_ms, bound_by=bound_by)
+    if parent and name in PARENT_TURN_CASES and cases is None:
+        from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
+        case["parent"] = parent_swap_turns(
+            parent, [bn.BWD1X1, bn.BWD3X3], kern, device)
     log("cnn bwd", json.dumps(case))
     del a, kern, plain, library, faults
     torch.cuda.empty_cache()
@@ -3705,34 +3996,11 @@ def bwd_sweep(device, smi):
     return {"stages": rows, "per_step": step}
 
 
-def parent_bwd1x1(parent, a, geo, device):
-    """The parent checkout's bf16 bwd1x1 stage on inputs ``a``, planned
-    as this tree plans it (bottleneck._bwd_tc_plan): (dz, dW, sums)."""
-    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
-    lib = parent_library(parent, "bottleneck_bwd",
-                         "nn/layers/csrc/bottleneck_bwd.cu",
-                         {"dl4j_bwd1x1_bf16": bn._BWD1X1_ARGS,
-                          "dl4j_bwd_row_tile": []})
-    n, h, wd, c = a["yprev"].shape
-    k, s = a["yk"].shape[3], geo["stride"]
-    tiles, chunk, splits = bn._bwd_tc_plan(n, h, wd, c, k, s, 1,
-                                           bn._sm_count(device))
-    f32 = torch.float32
-    dz = torch.empty_like(a["yprev"])
-    dw = torch.empty((c, k), dtype=f32, device=device)
-    sums = torch.zeros((2, c), dtype=f32, device=device)
-    part = torch.empty((2, c, tiles), dtype=f32, device=device)
-    dw_part = torch.empty((splits, c, k), dtype=f32, device=device)
-    e = lib.dl4j_bwd1x1_bf16(
-        *(a[key].data_ptr() for key in ("yk", "g", "yprev", "w", "aff_k",
-                                         "aff_p")),
-        dz.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), n, h,
-        wd, c, k, s, int(geo["act"] == "relu"), tiles, chunk, splits,
-        torch.cuda.current_stream().cuda_stream)
-    if e:
-        raise RuntimeError(f"the parent's bwd1x1: CUDA error {e}")
-    return dz, dw, sums
+#: the bottleneck backward's tensor-core stage functions whose registers
+#: or spill stores differ from the parent tree's, as {function: {field:
+#: (parent, this tree)}}: the HMMA counts must match the parent's and
+#: the other fields must match it or this table
+BWD_SASS_MOVED = {}
 
 
 def bwd_sass(device, parent=None):
@@ -3741,10 +4009,11 @@ def bwd_sass(device, parent=None):
     bottleneck_bwd.cu) holds HMMA.16816.F32.BF16, the f32 CUDA-core ones
     (dz_kernel, dw_kernel) none; with each function's registers and
     spills (the 3x3 dW pass's spill stores are known, PERF.md row 4).
-    With a parent checkout, each tensor-core function's HMMA count,
-    registers and spill stores equal the parent's same function's, and
-    the bf16 1x1 cases' (dz, dW, sums) at B=128 equal the parent
-    kernel's bitwise: the move changed none of them."""
+    With a parent checkout, each tensor-core function's HMMA count
+    equals the parent's same function's, its registers and spill stores
+    too or as BWD_SASS_MOVED records, and the bf16 1x1 cases' (dz, dW,
+    sums) at B=128 equal the parent kernel's bitwise (finite data: the
+    NaN-propagating relu changes no finite value)."""
     from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
     lib = bn._BWD_LIBRARY
     counts, tool = sass_hmma(lib)
@@ -3786,28 +4055,46 @@ def bwd_sass(device, parent=None):
                "tensor_cores": tc, "cuda_cores": cuda_cores},
            "ptxas": ptx, "stage_functions": by_key(counts, ptx, True)}
     if parent:
-        parent_library(parent, "bottleneck_bwd",
-                       "nn/layers/csrc/bottleneck_bwd.cu",
-                       {"dl4j_bwd1x1_bf16": bn._BWD1X1_ARGS,
-                        "dl4j_bwd_row_tile": []})
-        plib = _PARENT_LIBS["bottleneck_bwd"]
+        plib = parent_swap_library(parent, lib)
+        plib.load()
         pcounts, _ = sass_hmma(plib)
         pptx = {**ptxas_usage(plib, "dz_tc_kernel"),
                 **ptxas_usage(plib, "dw_tc_kernel")}
-        rec["parent_stage_functions"] = by_key(pcounts, pptx, False)
-        if rec["parent_stage_functions"] != rec["stage_functions"] or \
-                not rec["stage_functions"]:
-            bad.append("the stage functions' HMMA counts, registers or "
-                       "spills moved from the parent's")
+        theirs_fns = rec["parent_stage_functions"] = by_key(pcounts, pptx,
+                                                            True)
+        mine_fns = rec["stage_functions"]
+        moved = {}
+        for f in sorted(set(theirs_fns) | set(mine_fns)):
+            t, m = theirs_fns.get(f), mine_fns.get(f)
+            if t is None or m is None or t["hmma"] != m["hmma"]:
+                bad.append(f"{f}: HMMA counts or functions differ from the "
+                           "parent's")
+                continue
+            d = {k: (t[k], m[k]) for k in ("registers", "spill_stores")
+                 if t[k] != m[k]}
+            if d:
+                moved[f] = d
+        rec["moved_from_parent"] = moved
+        if not mine_fns or moved != {
+                f: {k: tuple(v) for k, v in d.items()}
+                for f, d in BWD_SASS_MOVED.items()}:
+            bad.append(f"the stage functions' registers or spills moved "
+                       f"from the parent's as {moved}, not as "
+                       f"BWD_SASS_MOVED records")
         rec["parent_bitwise"] = {}
         for i, name in enumerate(("s2_c_bwd", "s3b0_a_bwd")):
             kernel, geo = BWD_CASES[name]
             a = bwd_inputs(kernel, geo, RESNET_B, torch.bfloat16, device,
                            seed=90 + i)
-            mine = bn.conv1x1_bwd(a["yk"], a["g"], a["yprev"], a["w"],
-                                  a["aff_k"], a["aff_p"],
-                                  act_prev=geo["act"], stride=geo["stride"])
-            theirs = parent_bwd1x1(parent, a, geo, device)
+
+            def call():
+                return bn.conv1x1_bwd(a["yk"], a["g"], a["yprev"], a["w"],
+                                      a["aff_k"], a["aff_p"],
+                                      act_prev=geo["act"],
+                                      stride=geo["stride"])
+            mine = call()
+            with parent_kernels(parent, [bn.BWD1X1, bn.BWD3X3]):
+                theirs = call()
             torch.cuda.synchronize()
             same = all(torch.equal(u, v) for u, v in zip(mine, theirs))
             rec["parent_bitwise"][name] = same
@@ -3823,17 +4110,20 @@ def bwd_sass(device, parent=None):
 def check_cnn_bwd_kernels(device, smi, parent=None):
     """The library's SASS (with a parent checkout, the stage functions
     against the parent's); every backward case in bf16 at the main
-    path's batch, then in f32 at 16; the ragged cases in both at B=3;
-    the sweep of a step's stages."""
+    path's batch, then in f32 at 16 (with a parent checkout, the s2
+    stages in turns with the parent's kernels); the ragged cases in both
+    at B=3; the sweep of a step's stages; the NaN bar of the backward's
+    recomputed prologue."""
     sass = bwd_sass(device, parent)
-    cases = [bwd_case(name, dtype, n, device, seed=20 + i)
+    cases = [bwd_case(name, dtype, n, device, seed=20 + i, parent=parent)
              for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
              for i, name in enumerate(BWD_CASES)]
     cases += [bwd_case(name, dtype, BWD_RAGGED_B, device, seed=40 + i,
                        cases=BWD_RAGGED, planted=False)
               for dtype in (torch.bfloat16, torch.float32)
               for i, name in enumerate(BWD_RAGGED)]
-    return {"cases": cases, "sweep": bwd_sweep(device, smi), "sass": sass}
+    return {"cases": cases, "sweep": bwd_sweep(device, smi), "sass": sass,
+            "nan_bar": nan_bar(("bwd1x1", "bwd3x3"), device, parent)}
 
 
 # ---------------------------------------------------------------------
@@ -4373,7 +4663,7 @@ def stem_bwd_bound(kernel, n, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def stem_bwd_case(kernel, a, dtype, n, device, label=None):
+def stem_bwd_case(kernel, a, dtype, n, device, label=None, parent=None):
     """One stem backward kernel against its plain version on the same
     inputs: each output by rows and 64-row tiles (dz0, dy, dx as stored
     in the compute dtype, dW in f32 by its rows), the sums within
@@ -4497,6 +4787,10 @@ def stem_bwd_case(kernel, a, dtype, n, device, label=None):
                 plain_ms=median_ms(plain, device, iters=10),
                 library_ms=median_ms(library, device),
                 bound_ms=bound_ms, bound_by=bound_by)
+    if parent and kernel in PARENT_TURN_CASES:
+        case["parent"] = parent_swap_turns(
+            parent, [stem.STEM_BWD_POOL, stem.STEM_BWD_DW, stem.STEM_BWD_DX],
+            kern, device)
     log("stem bwd", json.dumps(case))
     del kern, plain, library, faults
     torch.cuda.empty_cache()
@@ -4648,16 +4942,19 @@ def check_stem_dw_guard(device):
     raise AssertionError("stem_bwd_dw took partials one grid row short")
 
 
-def check_stem_bwd_kernels(device):
+def check_stem_bwd_kernels(device, parent=None):
     """The SASS check; the three stem backward kernels in bf16 at the
-    main path's batch, then in f32 at 16; the dW route's device kernels
-    in both; the short-partials guard; the ragged cases in both at B=3."""
+    main path's batch, then in f32 at 16 (with a parent checkout, the
+    pool backward in turns with the parent's); the dW route's device
+    kernels in both; the short-partials guard; the ragged cases in both
+    at B=3; the NaN bar of the pool backward."""
     sass = stem_sass()
     cases, launches, dx_launches = [], [], []
     for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16)):
         a = stem_bwd_inputs(n, dtype, device, seed=40)
         for kernel in ("stem_bwd_pool", "stem_bwd_dw", "stem_bwd_dx"):
-            cases.append(stem_bwd_case(kernel, a, dtype, n, device))
+            cases.append(stem_bwd_case(kernel, a, dtype, n, device,
+                                       parent=parent))
         launches.append(stem_grad_launches(a, "dw"))
         dx_launches.append(stem_grad_launches(a, "dx"))
         del a
@@ -4674,7 +4971,8 @@ def check_stem_bwd_kernels(device):
                                            label=label))
     return {"cases": cases, "sass": sass, "dw_launches": launches,
             "dw_guard": guard, "dx_launches": dx_launches,
-            "dx_guard": dx_guard}
+            "dx_guard": dx_guard,
+            "nan_bar": nan_bar(("stem_bwd_pool",), device, parent)}
 
 
 # ---------------------------------------------------------------------
@@ -5106,43 +5404,6 @@ def fused_rounded_dz_sums(a):
     return (dz * y32).sum(0), dz.sum(0)
 
 
-def parent_fused_bwd(parent, a, device):
-    """The parent checkout's bf16 backward (the CUDA-core passes of its
-    fused.cu, planned as its wrapper plans them) on the same inputs: a
-    thunk launching it, and its outputs (dy, dsc, dbb, dw, db)."""
-    import ctypes
-
-    from deeplearning4j_tpu_torch.nn.layers import bottleneck as bn
-    from deeplearning4j_tpu_torch.nn.layers import fused
-    lib = parent_library(parent, "fused", "nn/layers/csrc/fused.cu",
-                         {"dl4j_fused_bwd_bf16": fused._BWD_ARGS,
-                          "dl4j_fused_row_tile": []})
-    y, sc, bb, w2, g = (a[k] for k in ("y", "sc", "bb", "w2", "g"))
-    m, c = y.shape
-    k = w2.shape[1]
-    f32 = torch.float32
-    tiles = -(-m // lib.dl4j_fused_row_tile())
-    chunk, splits = bn._dw_splits(m, -(-(c + 1) // 128) * -(-k // 64),
-                                  device)
-    outs = (torch.empty_like(y), torch.empty(c, dtype=f32, device=device),
-            torch.empty(c, dtype=f32, device=device),
-            torch.empty((c, k), dtype=w2.dtype, device=device),
-            torch.empty(k, dtype=f32, device=device))
-    part = torch.empty((2, c, tiles), dtype=f32, device=device)
-    dw_part = torch.empty((splits, c + 1, k), dtype=f32, device=device)
-
-    def old():
-        e = lib.dl4j_fused_bwd_bf16(
-            y.data_ptr(), sc.data_ptr(), bb.data_ptr(), w2.data_ptr(),
-            g.data_ptr(), *(o.data_ptr() for o in outs), part[0].data_ptr(),
-            part[1].data_ptr(), dw_part.data_ptr(), m, c, k, 1, tiles, chunk,
-            splits, torch.cuda.current_stream().cuda_stream)
-        if e:
-            raise RuntimeError(f"the parent's fused backward: CUDA error {e}")
-
-    return old, outs
-
-
 def fused_case(name, dtype, n, device, seed, parent=None):
     """One group's shape: the forward and backward kernels against their
     plain versions (out, dy and dW by row and 64-row tile, the sums
@@ -5150,7 +5411,7 @@ def fused_case(name, dtype, n, device, seed, parent=None):
     two backward launches bitwise equal, the planted faults (bf16) beyond
     the limits; the backward's route and plan; then the kernels', plain
     versions' and library calls' times beside the bounds, and with a
-    parent checkout (bf16) its backward in turns with this one's."""
+    parent checkout its forward and backward in turns with this one's."""
     if name in ("tail", "ragged"):
         n, hw, c, k = FUSED_TAIL if name == "tail" else FUSED_RAGGED
     else:
@@ -5254,17 +5515,11 @@ def fused_case(name, dtype, n, device, seed, parent=None):
                       "library_ms": median_ms(library, device),
                       "bound_ms": bounds[kind][0],
                       "bound_by": bounds[kind][1]}
-    if parent and dtype == torch.bfloat16:
-        old, pouts = parent_fused_bwd(parent, a, device)
-        old()
-        ref = bwd_plain()
-        torch.cuda.synchronize()
-        case["bwd"]["parent"] = {
-            **in_turns(old, bwd, device),
-            "parent_max_abs_err": max(
-                float((u.float() - v.float()).abs().max())
-                for u, v in zip(pouts, ref))}
-        del pouts, ref
+    if parent:
+        from deeplearning4j_tpu_torch.nn.layers import fused
+        for kind, kern in (("fwd", fwd), ("bwd", bwd)):
+            case[kind]["parent"] = parent_swap_turns(
+                parent, [fused.FUSED_FWD, fused.FUSED_BWD], kern, device)
     log("fused", json.dumps(case))
     del a, fwd, fwd_plain, fwd_lib, bwd, bwd_plain, bwd_lib
     torch.cuda.empty_cache()
@@ -5313,7 +5568,7 @@ def check_fused_kernels(device, parent=None):
                    parent=parent if name in FUSED_STAGES else None)
         for dtype, n in ((torch.bfloat16, RESNET_B), (torch.float32, 16))
         for i, name in enumerate([*FUSED_STAGES, "tail", "ragged"])],
-        "nan_report": nan_report(("fused",), device)}
+        "nan_bar": nan_bar(("fused", "fused_bwd"), device, parent)}
 
 
 def fuse_true_net(device, dtype, lr=0.1, calibrate=False):
@@ -6440,6 +6695,258 @@ def text_lstm_reference(device):
     return rec
 
 
+def regularized_lstm_net(device, dtype, t=LSTM_T, seed=12345):
+    """bench_lstm's text LSTM (2 GravesLSTM of 256, vocab 128, tBPTT in
+    chunks of ``t``, element-wise clipping at 1) with A1's training
+    hooks: Dropout(0.9) on each LSTM's input, DropConnect(0.95) on the
+    second LSTM's weights, MaxNormConstraint(REG_MAX_NORM) on each
+    LSTM's weights, xavier_uniform weights, the output bias at 0.1,
+    AdaMax(2e-3); random weights from ``seed``, its training generator
+    from ``seed + 1``."""
+    from deeplearning4j_tpu_torch.nn.conf.constraints import (
+        MaxNormConstraint)
+    from deeplearning4j_tpu_torch.nn.conf.dropout import DropConnect, Dropout
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater import AdaMax
+    b = (NeuralNetConfiguration.Builder().seed(seed).updater(AdaMax(2e-3))
+         .weight_init("xavier_uniform")
+         .gradient_normalization("clipelementwiseabsolutevalue", 1.0)
+         .list())
+    for i in range(LSTM_LAYERS):
+        b.layer(GravesLSTM(
+            n_out=256, activation="tanh", dropout=Dropout(0.9),
+            weight_noise=DropConnect(0.95) if i == 1 else None,
+            constraints=[MaxNormConstraint(max_norm=REG_MAX_NORM)]))
+    b.layer(RnnOutputLayer(n_out=LSTM_VOCAB, loss="mcxent",
+                           activation="softmax", bias_init=0.1))
+    conf = b.set_input_type(InputType.recurrent(LSTM_VOCAB, t)).tbptt(t) \
+        .build()
+    conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def regularized_reference(device):
+    """f32, T = LSTM_REF_T: REG_STEPS fit steps of the regularized net
+    with the kernels and with their plain versions swapped in (the same
+    generator seed, so the same masks): the losses within REG_LOSS_REL,
+    the parameters and AdaMax's m and u by update_err within
+    LSTM_REF_LIMIT; a run with another generator seed beyond it."""
+    x, y = text_batch(LSTM_B, LSTM_REF_T, seed=5)
+
+    def run(swaps, gen_seed=None):
+        net = regularized_lstm_net(device, torch.float32, LSTM_REF_T)
+        if gen_seed is not None:
+            net._train_gen.manual_seed(gen_seed)
+        start = tree_numpy(net.params)
+        losses = with_swaps(swaps, lambda: [fit_s(net, x, y, None)[1]
+                                            for _ in range(REG_STEPS)])
+        res = (start, losses, tree_numpy(net.params),
+               tree_numpy({k: net.updater_state[k] for k in ("m", "u")}))
+        del net
+        torch.cuda.empty_cache()
+        return res
+
+    start, losses, params, st = run(())
+    _, plosses, pparams, pst = run(lstm_swapped())
+    _, _, oparams, _ = run((), gen_seed=7)
+    zeros = {k: {kk: {n: np.zeros_like(v) for n, v in p.items()}
+                 for kk, p in start.items()} for k in ("m", "u")}
+    rec = {"t": LSTM_REF_T, "steps": REG_STEPS, "losses": losses,
+           "losses_plain": plosses,
+           "loss_rel": max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, plosses)),
+           "params_vs_plain": update_err(params, pparams, start),
+           "adamax_vs_plain": update_err(st, pst, zeros),
+           "other_masks": update_err(oparams, params, start),
+           "limits": {"loss_rel": REG_LOSS_REL,
+                      "update_err": LSTM_REF_LIMIT}}
+    log("regularized_lstm reference:", json.dumps(rec))
+    failures = []
+    if rec["loss_rel"] > REG_LOSS_REL:
+        failures.append("the losses part from the plain versions'")
+    if rec["params_vs_plain"][0] > LSTM_REF_LIMIT or \
+            rec["adamax_vs_plain"][0] > LSTM_REF_LIMIT:
+        failures.append("the steps part from the plain versions'")
+    if rec["other_masks"][0] <= LSTM_REF_LIMIT:
+        failures.append("the limit does not tell other masks")
+    return rec, failures
+
+
+def regularized_scan(device):
+    """A small hardsigmoid-gated GravesLSTM net (the scan route: no
+    recurrence kernel) on the card against the same net on the CPU:
+    output() and one Sgd fit step (no dropout) within REG_SCAN_TOL
+    (AdaMax's first step, lr g / (|g| + eps), turns the f32 sums' order
+    into 1e-5 of a parameter where a gradient is near 0)."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater import Sgd
+
+    def net_on(dev):
+        conf = (NeuralNetConfiguration.Builder().seed(3)
+                .updater(Sgd(0.1)).list()
+                .layer(GravesLSTM(n_out=REG_SCAN_H,
+                                  gate_activation="hardsigmoid"))
+                .layer(RnnOutputLayer(n_out=LSTM_VOCAB, loss="mcxent",
+                                      activation="softmax"))
+                .set_input_type(InputType.recurrent(LSTM_VOCAB,
+                                                    REG_SCAN_T)).build())
+        return MultiLayerNetwork(conf).init(device=dev)
+
+    x, y = text_batch(8, REG_SCAN_T, seed=6)
+    card, cpu = net_on(device), net_on("cpu")
+    zero_counts()
+    runs = recurrent.LSTM_SCAN.runs
+    out = card.output(x).cpu()
+    card.fit(x, y, batch_size=8)
+    loss = card.score_value
+    counts = lstm_counts()
+    rec = {"scan_runs": recurrent.LSTM_SCAN.runs - runs, "launches": counts,
+           "output_max_abs_err": float((out - cpu.output(x)).abs().max())}
+    cpu.fit(x, y, batch_size=8)
+    rec["loss_rel"] = abs(loss - cpu.score_value) / abs(cpu.score_value)
+    rec["params_max_abs_err"] = max(
+        float((card.params[k][n].cpu() - cpu.params[k][n]).abs().max())
+        for k in cpu.params for n in cpu.params[k])
+    log("regularized_lstm scan route:", json.dumps(rec))
+    failures = []
+    if rec["scan_runs"] != 2 or counts != {"lstm_fwd": 0, "lstm_bwd": 0}:
+        failures.append(f"the scan route: {rec['scan_runs']} runs, "
+                        f"kernels {counts}")
+    if max(rec["output_max_abs_err"], rec["loss_rel"],
+           rec["params_max_abs_err"]) > REG_SCAN_TOL:
+        failures.append("the card's scan parts from the CPU's")
+    return rec, failures
+
+
+class max_norm_clips:
+    """A context in which MaxNormConstraint rescales as before and also
+    counts the columns it rescales (norm over max_norm), a device tensor
+    a call in ``.calls`` (read after the steps: no sync in them)."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn.conf.constraints import (
+            MaxNormConstraint)
+        self.cls, self.apply = MaxNormConstraint, MaxNormConstraint.apply
+        self.calls = []
+
+        def apply(con, w):
+            self.calls.append((con._norm(w) > con.max_norm).sum())
+            return self.apply(con, w)
+        MaxNormConstraint.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply = self.apply
+
+
+def regularized_lstm(device):
+    """The text LSTM at full width (bench_lstm, bf16, B = T = 256) with
+    A1's training hooks (:func:`regularized_lstm_net`): a warm-up fit
+    step and REG_STEPS timed ones, each LSTM's kernels launched as in
+    the text_lstm phase (2 + 2 a step) and the scan route never, the
+    MaxNorm projection rescaling some columns in every step, the
+    loss finite and falling; the net written and restored onto the card
+    bitwise (parameters, AdaMax's m, u and t, output()); ms a step and
+    peak memory against the unregularized text_lstm net in turns (a
+    report); the f32 reference (:func:`regularized_reference`) and the
+    scan route (:func:`regularized_scan`)."""
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.nn.updater import tree_leaves
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    rec, failures = {}, []
+    net = regularized_lstm_net(device, torch.bfloat16)
+    norms = {f"{k}/{n}": torch.sqrt((w.float() ** 2).sum(0)).quantile(
+                 torch.tensor([0.0, 0.5, 1.0], device=w.device)).tolist()
+             for k, p in net.params.items() for n, w in p.items()
+             if n in ("W", "RW") and k != str(LSTM_LAYERS)}
+    x, y = text_batch(LSTM_B, LSTM_T)
+    first = fit_s(net, x, y, None)[1]
+    zero_counts()
+    runs = recurrent.LSTM_SCAN.runs
+    steps, marks = [], []
+    with max_norm_clips() as clips:
+        for _ in range(REG_STEPS):
+            marks.append(len(clips.calls))
+            steps.append(fit_s(net, x, y, None))
+    counts = lstm_counts()
+    marks.append(len(clips.calls))
+    losses = [first] + [l for _, l in steps]
+    train = {"step_ms": [1e3 * t for t, _ in steps], "losses": losses,
+             "launches": counts,
+             "scan_runs": recurrent.LSTM_SCAN.runs - runs,
+             "max_norm": REG_MAX_NORM, "init_column_norms": norms,
+             "clipped_columns": [sum(int(n) for n in clips.calls[a:b])
+                                 for a, b in zip(marks, marks[1:])]}
+    if not all(train["clipped_columns"]):
+        failures.append(f"MaxNorm({REG_MAX_NORM}) rescaled no column in "
+                        f"a step: {train['clipped_columns']}")
+    want = {"lstm_fwd": LSTM_LAYERS * REG_STEPS,
+            "lstm_bwd": LSTM_LAYERS * REG_STEPS}
+    if counts != want or train["scan_runs"]:
+        failures.append(f"fit launched {counts} (scan {train['scan_runs']})"
+                        f", not {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"the losses do not fall: {losses}")
+    rec["train"] = train
+    log("regularized_lstm train:", json.dumps(train))
+    # the archive: written after the steps, restored onto the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "regularized_lstm.zip")
+        write_model(net, path)
+        rec["archive_bytes"] = os.path.getsize(path)
+        back = restore_model(path, device=device)
+    same = {name: len(tree_leaves(a)) == len(tree_leaves(b)) and all(
+                torch.equal(u, v)
+                for u, v in zip(tree_leaves(a), tree_leaves(b)))
+            for name, a, b in (("params", net.params, back.params),
+                               ("adamax", net.updater_state,
+                                back.updater_state))}
+    same["output"] = bool(torch.equal(net.output(x), back.output(x)))
+    same["conf"] = back.conf.to_dict() == net.conf.to_dict()
+    rec["restored_bitwise"] = same
+    if not all(same.values()):
+        failures.append(f"the restored net is not the written one: {same}")
+    del back
+    # the step against the unregularized text LSTM, in turns
+    plain_net = text_lstm_net(device, torch.bfloat16)
+    fit_s(plain_net, x, y, None)
+    turns = {"regularized": [], "text_lstm": [], "peak_bytes": {}}
+    for name in ("regularized", "text_lstm", "text_lstm", "regularized"):
+        n_ = net if name == "regularized" else plain_net
+        torch.cuda.reset_peak_memory_stats()
+        turns[name] += [1e3 * fit_s(n_, x, y, None)[0]
+                        for _ in range(REG_STEPS)]
+        turns["peak_bytes"][name] = torch.cuda.max_memory_allocated()
+    turns["step_ms_median"] = {k: float(np.median(turns[k]))
+                               for k in ("regularized", "text_lstm")}
+    rec["turns"] = turns
+    log("regularized_lstm turns (a report):", json.dumps(turns))
+    del net, plain_net
+    torch.cuda.empty_cache()
+    rec["reference"], fails = regularized_reference(device)
+    failures += fails
+    rec["scan"], fails = regularized_scan(device)
+    failures += fails
+    if failures:
+        raise AssertionError(f"regularized_lstm: {failures}: {rec}")
+    return rec
+
+
 def lstm_entry(name, replaces, launches, cases, text):
     """A recurrence kernel's entry of the kernels line: its numbers at the
     main path's shape (bf16, T = N = H = 256, peepholes) and every timed
@@ -6749,10 +7256,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--parent", help="another checkout of the repo (the "
-                    "parent commit's tree): phases 3, 3c, 10 and the LSTM "
-                    "kernels' build its paged kernels, stem conv and pool "
-                    "and LSTM kernels and time them in turns with this "
-                    "one's")
+                    "parent commit's tree): phases 3, 3c, 10, 13, 16, 20 "
+                    "and the LSTM kernels' build its paged, conv, "
+                    "backward, stem, fused and LSTM kernels, time them in "
+                    "turns with this one's and show the NaN bar failing "
+                    "on them")
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
@@ -6780,6 +7288,9 @@ def main(argv=None) -> int:
             log(f"  {name}: {line}")
 
     out = {"card": smi, "build_s": build_s, "build_ptxas": build_logs}
+    if args.parent:
+        out["parent_build_s"] = build_parent_libraries(args.parent)
+        log(f"parent build: {out['parent_build_s']:.2f} s")
     phase_s = {}
 
     def phase(name, fn, *a):
@@ -6838,7 +7349,7 @@ def main(argv=None) -> int:
         cnn = phase("cnn", check_cnn_kernels, device, smi, args.parent)
         out["cnn_cases"], out["cnn_fwd_sweep"], out["cnn_sass"] = \
             cnn["cases"], cnn["sweep"], cnn["sass"]
-        out["cnn_nan_report"] = cnn["nan_report"]
+        out["cnn_nan_bar"] = cnn["nan_bar"]
     if want("resnet"):
         out["resnet"] = phase("resnet", resnet, device)
         log("resnet:", json.dumps({
@@ -6853,6 +7364,7 @@ def main(argv=None) -> int:
                     args.parent)
         out["cnn_bwd_cases"], out["cnn_bwd_sweep"], out["cnn_bwd_sass"] = \
             bwd["cases"], bwd["sweep"], bwd["sass"]
+        out["cnn_bwd_nan_bar"] = bwd["nan_bar"]
     if want("resnet_train"):
         rt = out["resnet_train"] = phase("resnet_train", resnet_train,
                                          device)
@@ -6865,9 +7377,10 @@ def main(argv=None) -> int:
         out["resnet_train_reference"] = phase(
             "resnet_train_reference", resnet_train_reference, device)
     if want("stem_bwd"):
-        sb = phase("stem_bwd", check_stem_bwd_kernels, device)
+        sb = phase("stem_bwd", check_stem_bwd_kernels, device, args.parent)
         out["stem_bwd_cases"], out["stem_bwd_sass"] = sb["cases"], \
             sb["sass"]
+        out["stem_bwd_nan_bar"] = sb["nan_bar"]
         out["stem_dw_launches"], out["stem_dw_guard"] = \
             sb["dw_launches"], sb["dw_guard"]
         out["stem_dx_launches"], out["stem_dx_guard"] = \
@@ -6891,7 +7404,7 @@ def main(argv=None) -> int:
         fk = phase("fused_kernels", check_fused_kernels, device,
                    args.parent)
         out["fused_cases"], out["fused_sass"] = fk["cases"], fk["sass"]
-        out["fused_nan_report"] = fk["nan_report"]
+        out["fused_nan_bar"] = fk["nan_bar"]
     if want("resnet_fuse_true"):
         rf = out["resnet_fuse_true"] = phase("resnet_fuse_true",
                                              resnet_fuse_true, device)
@@ -6924,6 +7437,12 @@ def main(argv=None) -> int:
                                            text_lstm_reference, device)
     if want("serializer"):
         out["serializer"] = phase("serializer", serializer, device)
+    if want("regularized_lstm"):
+        rl = out["regularized_lstm"] = phase("regularized_lstm",
+                                             regularized_lstm, device)
+        log("regularized_lstm:", json.dumps({
+            "step_ms_median": rl["turns"]["step_ms_median"],
+            "peak_bytes": rl["turns"]["peak_bytes"], "card": smi}))
 
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} passed in "

@@ -30,8 +30,12 @@ __all__ = ["BUILD_DIR", "CudaKernel", "CudaLibrary", "NVCC_FLAGS",
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
+#: ``-fno-gnu-unique``: a template function's static (a launcher's granted
+#: shared memory, from a header compiled into several libraries) stays
+#: each library's own instead of one GNU unique symbol for the process
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:

@@ -40,8 +40,9 @@ class GraphVertexConf:
     def init(self, gen: torch.Generator, its: List[InputType], device):
         return {}, {}
 
-    def apply(self, params, xs: List, state, *, train=False):
-        """Return (y, new_state); ``train`` reaches the layers."""
+    def apply(self, params, xs: List, state, *, train=False, gen=None):
+        """Return (y, new_state); ``train`` and the generator ``gen``
+        reach the layers."""
         raise NotImplementedError
 
 
@@ -68,11 +69,12 @@ class LayerVertex(GraphVertexConf):
     def supports_streaming(self):
         return getattr(self.layer, "supports_streaming", False)
 
-    def apply(self, params, xs, state, *, train=False, **extra):
+    def apply(self, params, xs, state, *, train=False, gen=None, **extra):
         x = xs[0]
         if self.preprocessor is not None:
             x = self.preprocessor.apply(x)
-        return self.layer.apply(params, x, state, train=train, **extra)
+        return self.layer.apply(params, x, state, train=train, gen=gen,
+                                **extra)
 
 
 @dataclass
@@ -88,7 +90,7 @@ class ElementWiseVertex(GraphVertexConf):
                 f"ElementWiseVertex op {self.op!r} is not ported yet "
                 f"(ROADMAP.md A11); ported: add")
 
-    def apply(self, params, xs, state, *, train=False):
+    def apply(self, params, xs, state, *, train=False, gen=None):
         y = xs[0]
         for x in xs[1:]:
             y = y + x
@@ -113,7 +115,7 @@ class MergeVertex(GraphVertexConf):
                                        first.timesteps)
         return InputType.feed_forward(sum(it.flat_size() for it in its))
 
-    def apply(self, params, xs, state, *, train=False):
+    def apply(self, params, xs, state, *, train=False, gen=None):
         axis = 3 if (self.data_format == "NHWC" and xs[0].dim() == 4) else 1
         return torch.cat(xs, dim=axis), state
 

@@ -1,7 +1,8 @@
-"""Layer configurations for the ported transformer and ResNet50.
+"""Layer configurations.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, restricted to
-the layers the ported zoo models build. The transformer
+the layers the ported zoo models build, with ``EmbeddingLayer`` and
+``DropoutLayer``. The transformer
 (``zoo/transformer.py``): ``Convolution1DLayer`` (kernel 1: the token
 projection and the FFN), ``PositionalEmbeddingLayer`` (learned
 positions), ``LayerNormalization``, ``SelfAttentionLayer`` and
@@ -27,18 +28,27 @@ and stem kernels (``nn/graph.py``).
 
 The CNN layers take ``data_format`` ``"NCHW"`` (the public layout) or
 ``"NHWC"`` (the internal layout ``use_cnn_data_format`` selects). Every
-``apply`` takes ``train``: BN normalizes with the batch statistics in
-training and returns its decayed running statistics as the new state;
-the other layers ignore it, as their JAX twins do (the port has no
-dropout).
+``apply`` takes ``train`` and ``gen``: BN normalizes with the batch
+statistics in training and returns its decayed running statistics as
+the new state; in training, with the layer's generator ``gen`` (the
+network's training generator split per layer), each layer that drops
+its input in the JAX package (dense, the dropout layer, convolution,
+1-D convolution, attention, the LSTM family and the output layers)
+applies its ``dropout`` (:meth:`LayerConf.maybe_dropout_input`,
+``nn/conf/dropout.py``). Inference (``train=False``, or no generator)
+applies none.
 
+Every layer carries ``dropout`` (a retain probability, 0.0 off, or an
+``IDropout``), ``weight_noise`` (an ``IWeightNoise``, applied by the
+sequential network) and ``constraints`` (``nn/conf/constraints.py``);
+the parameterized ones ``dist`` (the ``"distribution"`` init's dict)
+and ``bias_init`` (every bias's initial value), which their ``init``
+uses, and ``learning_rate`` and ``updater``, which are serialized and
+otherwise unused, as in the JAX package (whose ``fit`` reads neither).
 JSON (``layer_to_dict`` / ``layer_from_dict``, over ``LAYER_REGISTRY``)
 is the JAX package's wire form: ``{"@class": name, field: value}`` with
-every field the JAX conf has. The fields the port does not have yet
-(dropout, weight noise, constraints, the weight distribution, bias init,
-per-layer learning rates and updaters, and a few layer options) are
-written at their JAX defaults and read only at them (``_ABSENT``);
-any other value is refused, naming ROADMAP.md A1.
+every field the JAX conf has, the dropouts, noises and constraints as
+their own dicts.
 
 Streaming state (``rnn_time_step``): the attention layer carries a
 dense KV cache (``kv_k`` / ``kv_v`` ``[N, Hkv, L, D]``) with its
@@ -56,12 +66,14 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import losses as _losses
+from deeplearning4j_tpu_torch.nn.conf import dropout as _dropout
+from deeplearning4j_tpu_torch.nn.conf.constraints import constraint_from_dict
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import convolution as _conv
 from deeplearning4j_tpu_torch.nn.layers import normalization as _norm
@@ -74,7 +86,8 @@ NEG_INF = -1e30   # finite: a fully masked row must stay finite
 
 __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
            "Convolution1DLayer", "ConvolutionLayer", "DenseLayer",
-           "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM",
+           "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
+           "GravesBidirectionalLSTM", "GravesLSTM",
            "LAYER_REGISTRY", "LSTM", "LayerConf", "LayerNormalization",
            "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
            "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
@@ -114,9 +127,16 @@ def stream_capacity(layers):
 
 @dataclass
 class LayerConf:
-    """Base for all layer configs."""
+    """Base for all layer configs. ``dropout`` is the RETAIN probability
+    applied to the layer's input in training (DL4J's semantics; 0.0 turns
+    it off), or an ``IDropout``; ``weight_noise`` an ``IWeightNoise`` on
+    the layer's parameters in training; ``constraints`` projected after
+    each update."""
 
     name: Optional[str] = None
+    dropout: Any = 0.0
+    weight_noise: Any = None
+    constraints: Any = None
 
     def output_type(self, it: InputType) -> InputType:
         return it
@@ -125,11 +145,33 @@ class LayerConf:
         """Return (params, state) dicts for this layer."""
         return {}, {}
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         """Return (y, new_state). ``train`` selects the training form
-        (batch statistics in BatchNormalization; the other ported layers
-        ignore it, as their JAX twins do)."""
+        (batch statistics in BatchNormalization, input dropout from the
+        generator ``gen``)."""
         raise NotImplementedError
+
+    def draws_in_training(self) -> bool:
+        """Whether a training step draws for this layer: its dropout or
+        its weight noise."""
+        d = self.dropout
+        return self.weight_noise is not None or \
+            hasattr(d, "apply_dropout") or \
+            (isinstance(d, (int, float)) and 0.0 < d < 1.0)
+
+    def maybe_dropout_input(self, x, train, gen):
+        """``x`` after this layer's input dropout in training (with a
+        generator), else ``x`` itself."""
+        if not train or gen is None:
+            return x
+        if hasattr(self.dropout, "apply_dropout"):
+            return self.dropout.apply_dropout(x, gen)
+        if isinstance(self.dropout, (int, float)) and \
+                0.0 < self.dropout < 1.0:
+            keep = self.dropout
+            return _dropout.inverted_dropout(
+                x, _dropout.bernoulli(keep, x, gen), keep)
+        return x
 
     # regularization coefficients collected by the network loss
     def l1_coeffs(self):
@@ -141,18 +183,24 @@ class LayerConf:
 
 @dataclass
 class BaseLayerConf(LayerConf):
-    """Base for parameterized layers: activation, weight init and L1/L2
+    """Base for parameterized layers: activation, weight init (``dist``:
+    the ``"distribution"`` scheme's dict), bias init and L1/L2
     regularization. As in the JAX package the coefficients reach the
     parameters named ``W``, ``RW`` (``l1``/``l2``) and ``b``
-    (``l1_bias``/``l2_bias``) only. Biases start at zero (bias init and
-    per-layer updaters: ROADMAP.md A1)."""
+    (``l1_bias``/``l2_bias``) only. ``learning_rate`` and ``updater``
+    are carried as the JAX package carries them: serialized, and read by
+    neither package's ``fit``."""
 
     activation: str = "identity"
     weight_init: str = "xavier"
+    dist: Optional[dict] = None
+    bias_init: float = 0.0
     l1: float = 0.0
     l2: float = 0.0
     l1_bias: float = 0.0
     l2_bias: float = 0.0
+    learning_rate: Optional[float] = None
+    updater: Optional[dict] = None
 
     def l1_coeffs(self):
         return _coeffs(self.l1, self.l1_bias)
@@ -182,8 +230,10 @@ def _pair(v) -> Tuple[int, int]:
     return (int(v), int(v))
 
 
-def _bias(n_out, has_bias, device):
-    return {"b": torch.zeros(n_out, device=device)} if has_bias else {}
+def _bias(layer, has_bias, device):
+    """``{"b": bias_init everywhere}`` of ``n_out`` elements, or none."""
+    return {"b": torch.full((layer.n_out,), float(layer.bias_init),
+                            device=device)} if has_bias else {}
 
 
 # ---------------------------------------------------------------------
@@ -202,15 +252,42 @@ class DenseLayer(FeedForwardLayerConf):
         if self.n_in is None:
             self.n_in = it.flat_size()
         w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
-                         self.n_out, self.weight_init, device)
-        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+                         self.n_out, self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
 
-    def preout(self, params, x):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        x = self.maybe_dropout_input(x, train, gen)
         y = x @ params["W"]
-        return y + params["b"] if self.has_bias else y
+        if self.has_bias:
+            y = y + params["b"]
+        return _act.get(self.activation)(y), state
 
-    def apply(self, params, x, state, *, train=False):
-        return _act.get(self.activation)(self.preout(params, x)), state
+
+@dataclass
+class EmbeddingLayer(FeedForwardLayerConf):
+    """Embedding lookup: the input a column of indices (``[N]`` or ``[N,
+    1]``), the output ``W[idx] (+ b)``, W ``[n_in, n_out]``."""
+
+    has_bias: bool = True
+
+    def output_type(self, it):
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, gen, it, device):
+        if self.n_in is None:
+            self.n_in = it.flat_size()
+        w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
+                         self.n_out, self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
+
+    def apply(self, params, x, state, *, train=False, gen=None):
+        idx = x.to(torch.int32)
+        if idx.dim() == 2:
+            idx = idx[:, 0]
+        y = params["W"][idx.long()]
+        if self.has_bias:
+            y = y + params["b"]
+        return _act.get(self.activation)(y), state
 
 
 @dataclass
@@ -219,8 +296,21 @@ class ActivationLayer(LayerConf):
 
     activation: str = "relu"
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         return _act.get(self.activation)(x), state
+
+
+@dataclass
+class DropoutLayer(LayerConf):
+    """Dropout as a layer of its own: ``dropout`` is the retain
+    probability (0.5 unless set)."""
+
+    def __post_init__(self):
+        if self.dropout == 0.0:
+            self.dropout = 0.5
+
+    def apply(self, params, x, state, *, train=False, gen=None):
+        return self.maybe_dropout_input(x, train, gen), state
 
 
 # ---------------------------------------------------------------------
@@ -256,10 +346,11 @@ class ConvolutionLayer(FeedForwardLayerConf):
         kh, kw = _pair(self.kernel)
         w = init_weights(gen, (self.n_out, self.n_in, kh, kw),
                          self.n_in * kh * kw, self.n_out * kh * kw,
-                         self.weight_init, device)
-        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+                         self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        x = self.maybe_dropout_input(x, train, gen)
         y = _conv.conv2d(x, params["W"], params.get("b"),
                          _pair(self.stride), _pair(self.padding),
                          _pair(self.dilation), self.convolution_mode,
@@ -269,14 +360,16 @@ class ConvolutionLayer(FeedForwardLayerConf):
 
 @dataclass
 class SubsamplingLayer(LayerConf):
-    """2-D pooling: max, avg or sum (pnorm ports with the breadth layers,
-    ROADMAP.md A11)."""
+    """2-D pooling: max, avg or sum (pnorm pooling, whose exponent
+    ``pnorm`` is carried, ports with the breadth layers, ROADMAP.md
+    A11)."""
 
     pooling_type: str = "max"
     kernel: Sequence[int] = (2, 2)
     stride: Sequence[int] = (2, 2)
     padding: Sequence[int] = (0, 0)
     convolution_mode: str = "truncate"
+    pnorm: float = 2.0
     data_format: str = "NCHW"
 
     def output_type(self, it):
@@ -288,7 +381,7 @@ class SubsamplingLayer(LayerConf):
                                  self.convolution_mode)
         return InputType.convolutional(oh, ow, it.channels)
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         k, s, p = _pair(self.kernel), _pair(self.stride), _pair(self.padding)
         pt = self.pooling_type.lower()
         args = (x, k, s, p, self.convolution_mode, self.data_format)
@@ -323,7 +416,7 @@ class ZeroPaddingLayer(LayerConf):
         return InputType.convolutional(it.height + t + b, it.width + l + r,
                                        it.channels)
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         return _conv.zero_pad2d(x, self._pads(), self.data_format), state
 
 
@@ -332,10 +425,13 @@ class GlobalPoolingLayer(LayerConf):
     """Global pooling over the spatial axes of CNN input (``[N, C, H,
     W]``, or ``[N, H, W, C]`` under internal NHWC) or the time axis of
     unmasked RNN input: max, avg, sum or pnorm. An avg in bf16
-    accumulates in f32 and rounds once, as ``jnp.mean`` does."""
+    accumulates in f32 and rounds once, as ``jnp.mean`` does.
+    ``collapse_dimensions`` is carried; the JAX layer always collapses
+    too."""
 
     pooling_type: str = "max"
     pnorm: float = 2.0
+    collapse_dimensions: bool = True
     data_format: str = "NCHW"
 
     def output_type(self, it):
@@ -345,7 +441,7 @@ class GlobalPoolingLayer(LayerConf):
             return InputType.feed_forward(it.channels)
         return it
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         if x.dim() == 4:
             axes = (2, 3) if self.data_format == "NCHW" else (1, 2)
         else:
@@ -393,7 +489,7 @@ class BatchNormalization(FeedForwardLayerConf):
         return params, {"mean": torch.zeros(nf, device=device),
                         "var": torch.ones(nf, device=device)}
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         nf = state["mean"].shape[0]
         gamma = params.get("gamma")
         beta = params.get("beta")
@@ -413,20 +509,27 @@ class BatchNormalization(FeedForwardLayerConf):
 
 @dataclass
 class Convolution1DLayer(FeedForwardLayerConf):
-    """1-D convolution over ``[N, C, T]``, ported for kernel 1 (the
-    position-wise matmul the transformer uses; stride 1, where every
-    convolution mode gives the same result). W is ``[n_out, n_in,
-    kernel]`` as in the JAX package."""
+    """1-D convolution over ``[N, C, T]``, ported for kernel 1, stride 1,
+    padding 0 and dilation 1 (the position-wise matmul the transformer
+    uses, where every convolution mode gives the same result), with or
+    without a bias. W is ``[n_out, n_in, kernel]`` as in the JAX
+    package."""
 
     kernel: int = 1
+    stride: int = 1
+    padding: int = 0
+    dilation: int = 1
     convolution_mode: str = "truncate"
+    has_bias: bool = True
 
     def __post_init__(self):
-        if self.kernel != 1:
+        if (self.kernel, self.stride, self.padding, self.dilation) != \
+                (1, 1, 0, 1):
             raise NotImplementedError(
-                "Convolution1DLayer is ported for kernel=1 only (the "
-                "transformer's position-wise projections); general 1-D "
-                "convolution is ROADMAP.md A11")
+                "Convolution1DLayer is ported for kernel=1, stride=1, "
+                "padding=0, dilation=1 only (the transformer's "
+                "position-wise projections); general 1-D convolution is "
+                "ROADMAP.md A11")
         if self.convolution_mode not in ("truncate", "same", "strict",
                                          "causal"):
             raise ValueError(f"unknown convolution mode "
@@ -439,12 +542,15 @@ class Convolution1DLayer(FeedForwardLayerConf):
         if self.n_in is None:
             self.n_in = it.size
         w = init_weights(gen, (self.n_out, self.n_in, 1), self.n_in,
-                         self.n_out, self.weight_init, device)
-        return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
+                         self.n_out, self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        x = self.maybe_dropout_input(x, train, gen)
         # one [N*T, C] x [C, O] product
-        y = x.transpose(1, 2) @ params["W"][:, :, 0].t() + params["b"]
+        y = x.transpose(1, 2) @ params["W"][:, :, 0].t()
+        if self.has_bias:
+            y = y + params["b"]
         return _act.get(self.activation)(y.transpose(1, 2)), state
 
 
@@ -461,7 +567,7 @@ class LayerNormalization(FeedForwardLayerConf):
         return {"gamma": torch.ones(nf, device=device),
                 "beta": torch.zeros(nf, device=device)}, {}
 
-    def apply(self, params, x, state, *, train=False):
+    def apply(self, params, x, state, *, train=False, gen=None):
         xf = x.float() if x.dtype != torch.float64 else x
         mean = xf.mean(dim=1, keepdim=True)
         var = ((xf * xf).mean(dim=1, keepdim=True)
@@ -501,7 +607,8 @@ class PositionalEmbeddingLayer(FeedForwardLayerConf):
         p = 0.02 * torch.randn((it.size, self.max_length), generator=gen)
         return {"P": p.to(device)}, {}
 
-    def apply(self, params, x, state, stream=False, *, train=False):
+    def apply(self, params, x, state, stream=False, *, train=False,
+              gen=None):
         t = x.shape[2]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} exceeds max_length "
@@ -573,11 +680,13 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             n_in = self.n_in if name != "o" else self.n_out
             n_out = hkv * d if name in ("k", "v") else self.n_out
             p["W" + name] = init_weights(gen, (n_in, n_out), n_in, n_out,
-                                         self.weight_init, device)
+                                         self.weight_init, device, self.dist)
             p["b" + name] = torch.zeros(n_out, device=device)
         return p, {}
 
-    def apply(self, params, x, state, stream=False, *, train=False):
+    def apply(self, params, x, state, stream=False, *, train=False,
+              gen=None):
+        x = self.maybe_dropout_input(x, train, gen)
         n, _, t = x.shape
         h = self.n_heads
         hkv = self.n_kv_heads or h
@@ -799,12 +908,14 @@ class SelfAttentionLayer(FeedForwardLayerConf):
 # recurrent layers
 # ---------------------------------------------------------------------
 def _lstm_params(gen, n_in, h, forget_gate_bias_init, weight_init, device,
-                 peephole):
+                 peephole, dist=None):
     """W ``[n_in, 4h]``, RW ``[h, 4h]`` (both with fans ``n_in + h`` and
     ``h``, as in the JAX package), b ``[4h]`` zero but for the forget
     gate's slice, and with ``peephole`` P ``[3, h]`` zero."""
-    w = init_weights(gen, (n_in, 4 * h), n_in + h, h, weight_init, device)
-    rw = init_weights(gen, (h, 4 * h), n_in + h, h, weight_init, device)
+    w = init_weights(gen, (n_in, 4 * h), n_in + h, h, weight_init, device,
+                     dist)
+    rw = init_weights(gen, (h, 4 * h), n_in + h, h, weight_init, device,
+                      dist)
     b = torch.zeros(4 * h, device=device)
     b[h:2 * h] = forget_gate_bias_init
     p = {"W": w, "RW": rw, "b": b}
@@ -818,8 +929,9 @@ class LSTM(FeedForwardLayerConf):
     """LSTM without peepholes over ``[N, C, T]``: W ``[n_in, 4 n_out]``,
     RW ``[n_out, 4 n_out]``, b ``[4 n_out]``, gate order (i, f, c, o),
     the forget gate's bias at ``forget_gate_bias_init``. The recurrence
-    runs the LSTM kernels (``nn/layers/recurrent.py``); the gates are
-    sigmoid and the cell tanh (other activations: ROADMAP.md A1). The
+    runs the LSTM kernels with sigmoid gates and a tanh cell, and the JAX
+    scan's step-by-step math with any other activations
+    (``nn/layers/recurrent.py``). The
     layer carries ``h`` / ``c`` in its state: a forward starts from the
     carried ones if the network passes them (streaming, truncated BPTT)
     and returns the last step's."""
@@ -842,9 +954,10 @@ class LSTM(FeedForwardLayerConf):
             self.n_in = it.size
         return _lstm_params(gen, self.n_in, self.n_out,
                             self.forget_gate_bias_init, self.weight_init,
-                            device, self._peephole), {}
+                            device, self._peephole, self.dist), {}
 
-    def apply(self, params, x, state, *, train=False, mask=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+        x = self.maybe_dropout_input(x, train, gen)
         out, h_t, c_t = _rnn.lstm_scan(
             x, params["W"], params["RW"], params["b"], h0=state.get("h"),
             c0=state.get("c"), peephole=params.get("P"), mask=mask,
@@ -882,11 +995,13 @@ class GravesBidirectionalLSTM(FeedForwardLayerConf):
         for tag in ("F", "B"):
             for k, v in _lstm_params(gen, self.n_in, self.n_out,
                                      self.forget_gate_bias_init,
-                                     self.weight_init, device, True).items():
+                                     self.weight_init, device, True,
+                                     self.dist).items():
                 p[k + tag] = v
         return p, {}
 
-    def apply(self, params, x, state, *, train=False, mask=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+        x = self.maybe_dropout_input(x, train, gen)
         y = _rnn.bidirectional_sum(
             x, params["WF"], params["RWF"], params["bF"], params["WB"],
             params["RWB"], params["bB"], peep_f=params["PF"],
@@ -911,15 +1026,17 @@ class OutputLayer(FeedForwardLayerConf):
         if self.n_in is None:
             self.n_in = it.flat_size()
         w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
-                         self.n_out, self.weight_init, device)
-        return {"W": w, **_bias(self.n_out, self.has_bias, device)}, {}
+                         self.n_out, self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
 
-    def preout(self, params, x):
+    def preout(self, params, x, *, train=False, gen=None):
+        x = self.maybe_dropout_input(x, train, gen)
         y = x @ params["W"]
         return y + params["b"] if self.has_bias else y
 
-    def apply(self, params, x, state, *, train=False):
-        return _act.get(self.activation)(self.preout(params, x)), state
+    def apply(self, params, x, state, *, train=False, gen=None):
+        return _act.get(self.activation)(
+            self.preout(params, x, train=train, gen=gen)), state
 
     def compute_score(self, labels, preout, mask=None):
         return _losses.score(labels, preout, self.loss, self.activation,
@@ -929,11 +1046,12 @@ class OutputLayer(FeedForwardLayerConf):
 @dataclass
 class RnnOutputLayer(FeedForwardLayerConf):
     """Per-timestep dense output over ``[N, C, T]``: W ``[n_in, n_out]``,
-    the activation over the class axis, and its loss
-    (:meth:`compute_score`)."""
+    b unless ``has_bias`` is False, the activation over the class axis,
+    and its loss (:meth:`compute_score`)."""
 
     loss: str = "mcxent"
     activation: str = "softmax"
+    has_bias: bool = True
 
     def output_type(self, it):
         return InputType.recurrent(self.n_out, it.timesteps)
@@ -942,16 +1060,20 @@ class RnnOutputLayer(FeedForwardLayerConf):
         if self.n_in is None:
             self.n_in = it.size
         w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
-                         self.n_out, self.weight_init, device)
-        return {"W": w, "b": torch.zeros(self.n_out, device=device)}, {}
+                         self.n_out, self.weight_init, device, self.dist)
+        return {"W": w, **_bias(self, self.has_bias, device)}, {}
 
-    def preout(self, params, x):
+    def preout(self, params, x, *, train=False, gen=None):
         """The pre-activation output ``[N, O, T]``."""
-        y = x.transpose(1, 2) @ params["W"] + params["b"]   # [N,T,O]
+        x = self.maybe_dropout_input(x, train, gen)
+        y = x.transpose(1, 2) @ params["W"]                 # [N,T,O]
+        if self.has_bias:
+            y = y + params["b"]
         return y.transpose(1, 2)
 
-    def apply(self, params, x, state, *, train=False):
-        return _act.get(self.activation)(self.preout(params, x)), state
+    def apply(self, params, x, state, *, train=False, gen=None):
+        return _act.get(self.activation)(
+            self.preout(params, x, train=train, gen=gen)), state
 
     def compute_score(self, labels, preout, mask=None):
         """Mean loss over the examples with time folded into the batch:
@@ -967,65 +1089,51 @@ class RnnOutputLayer(FeedForwardLayerConf):
 # registry and JSON
 # ---------------------------------------------------------------------
 LAYER_REGISTRY: Dict[str, type] = {c.__name__: c for c in (
-    DenseLayer, ActivationLayer, ConvolutionLayer, Convolution1DLayer,
-    SubsamplingLayer, ZeroPaddingLayer, GlobalPoolingLayer,
-    BatchNormalization, LayerNormalization, PositionalEmbeddingLayer,
-    SelfAttentionLayer, LSTM, GravesLSTM, GravesBidirectionalLSTM,
-    OutputLayer, RnnOutputLayer)}
-
-#: the JAX conf fields the port does not have, at their JAX defaults: on
-#: every layer, on the parameterized ones (BaseLayerConf), and per class
-_ABSENT_ALL = {"dropout": 0.0, "weight_noise": None, "constraints": None}
-_ABSENT_BASE = {"dist": None, "bias_init": 0.0, "learning_rate": None,
-                "updater": None}
-_ABSENT_CLASS = {
-    "Convolution1DLayer": {"stride": 1, "padding": 0, "dilation": 1,
-                           "has_bias": True},
-    "RnnOutputLayer": {"has_bias": True},
-    "GlobalPoolingLayer": {"collapse_dimensions": True},
-    "SubsamplingLayer": {"pnorm": 2.0},
-}
-
-
-def _absent(cls) -> dict:
-    """The JAX fields ``cls`` lacks, with the defaults it is read at."""
-    return {**_ABSENT_ALL,
-            **(_ABSENT_BASE if issubclass(cls, BaseLayerConf) else {}),
-            **_ABSENT_CLASS.get(cls.__name__, {})}
+    DenseLayer, EmbeddingLayer, ActivationLayer, DropoutLayer,
+    ConvolutionLayer, Convolution1DLayer, SubsamplingLayer, ZeroPaddingLayer,
+    GlobalPoolingLayer, BatchNormalization, LayerNormalization,
+    PositionalEmbeddingLayer, SelfAttentionLayer, LSTM, GravesLSTM,
+    GravesBidirectionalLSTM, OutputLayer, RnnOutputLayer)}
 
 
 def layer_to_dict(layer: LayerConf) -> dict:
-    """The JAX package's JSON form of a layer conf: ``{"@class": name}``,
-    every field (tuples as lists), and the JAX fields the port lacks at
-    their defaults."""
+    """The JAX package's JSON form of a layer conf: ``{"@class": name}``
+    and every field (tuples as lists; a dropout or weight noise object,
+    and each constraint, as its own dict)."""
     d = {"@class": type(layer).__name__}
     for f in dataclasses.fields(layer):
         v = getattr(layer, f.name)
-        d[f.name] = list(v) if isinstance(v, tuple) else v
-    d.update(_absent(type(layer)))
+        if f.name == "constraints" and v:
+            v = [c.to_dict() for c in v]
+        elif hasattr(v, "to_dict") and f.name in ("dropout", "weight_noise"):
+            v = v.to_dict()
+        elif isinstance(v, tuple):
+            v = list(v)
+        d[f.name] = v
     return d
 
 
 def layer_from_dict(d: dict) -> LayerConf:
     """The inverse of :func:`layer_to_dict`. A layer the port does not
-    have, a field it does not know, or a JAX field it lacks at anything
-    but its default is refused (NotImplementedError)."""
+    have, or a field it does not know, is refused
+    (NotImplementedError)."""
     d = dict(d)
     name = d.pop("@class")
     cls = LAYER_REGISTRY.get(name)
     if cls is None:
         raise NotImplementedError(f"layer {name!r} is not ported yet "
-                                  "(ROADMAP.md A1, A11)")
+                                  "(ROADMAP.md A11)")
     fields = {f.name for f in dataclasses.fields(cls)}
-    absent = _absent(cls)
-    for key, v in d.items():
-        if key in fields:
-            continue
-        if key not in absent:
-            raise NotImplementedError(f"{name}.{key} is not ported yet "
-                                      "(ROADMAP.md A1)")
-        if v != absent[key] and not (key == "constraints" and not v):
-            raise NotImplementedError(
-                f"{name}.{key} = {v!r}: only its default {absent[key]!r} "
-                "is ported (ROADMAP.md A1)")
-    return cls(**{k: v for k, v in d.items() if k in fields})
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise NotImplementedError(f"{name} fields {unknown} are not ported "
+                                  "yet (ROADMAP.md A11)")
+    if isinstance(d.get("dropout"), dict):
+        d["dropout"] = _dropout.dropout_from_dict(d["dropout"])
+    if isinstance(d.get("weight_noise"), dict):
+        d["weight_noise"] = _dropout.weight_noise_from_dict(
+            d["weight_noise"])
+    if d.get("constraints"):
+        d["constraints"] = [constraint_from_dict(c) if isinstance(c, dict)
+                            else c for c in d["constraints"]]
+    return cls(**d)

@@ -14,14 +14,16 @@ kind differs from the one it expects would get a shape adapter
 (:func:`infer_preprocessor`); the recurrent stack needs none (recurrent
 in, recurrent out), and the adapters between kinds are refused with
 the sequential network's other preprocessors (ROADMAP.md A2, with LeNet
-on this network). The other global defaults (activation, bias init,
-dropout) come with the formats (ROADMAP.md A1).
+on this network). The builder's global defaults are the JAX package's:
+weight init, its ``dist``, activation (parameterized layers only), L1 /
+L2, bias init and dropout; ``learning_rate`` sets the updater's.
 
 Both configurations read and write the JAX package's JSON (``to_dict``
 / ``to_json``, ``from_dict`` / ``from_json``), key for key. The JAX
 fields the port does not carry (a sequential network's preprocessors,
-``backprop`` and ``pretrain``; a graph's truncated-BPTT lengths) are
-written at their JAX defaults and read only at them.
+``backprop`` and ``pretrain``) are written at their JAX defaults and
+read only at them. A graph carries its truncated-BPTT lengths as the
+JAX graph does: as fields, with no truncated-BPTT ``fit``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    FeedForwardLayerConf, LayerConf, layer_from_dict, layer_to_dict)
+    BaseLayerConf, FeedForwardLayerConf, LayerConf, layer_from_dict,
+    layer_to_dict)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -55,11 +58,14 @@ _EXPECTS = {
 def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
     """Cascade builder-level defaults into a layer conf, DL4J-style: a
     global value applies unless the layer set the field explicitly
-    (detected as the field differing from its dataclass default)."""
+    (detected as the field differing from its dataclass default); the
+    activation reaches the parameterized layers only."""
     cls_defaults = {f.name: f.default for f in dataclasses.fields(layer)
                     if f.default is not dataclasses.MISSING}
     for k, v in defaults.items():
         if v is None or not hasattr(layer, k):
+            continue
+        if k == "activation" and not isinstance(layer, BaseLayerConf):
             continue
         if getattr(layer, k) == cls_defaults.get(k):
             setattr(layer, k, v)
@@ -94,15 +100,14 @@ def _infer_shapes_and_preprocessors(conf: "MultiLayerConfiguration") -> None:
         it = layer.output_type(it)
 
 
-def _check_absent(what: str, d: dict, absent: dict, roadmap: dict) -> None:
+def _check_absent(what: str, d: dict, absent: dict, roadmap: str) -> None:
     """Refuse a JAX field the port does not carry at anything but its
-    default (``roadmap`` names the ROADMAP.md item of a field, else
-    A1)."""
+    default (``roadmap``: the ROADMAP.md item that ports them)."""
     for key, default in absent.items():
         if key in d and d[key] != default:
             raise NotImplementedError(
                 f"{what}.{key} = {d[key]!r}: only {default!r} is ported "
-                f"(ROADMAP.md {roadmap.get(key, 'A1')})")
+                f"(ROADMAP.md {roadmap})")
 
 
 @dataclass
@@ -172,10 +177,9 @@ class MultiLayerConfiguration:
     def from_dict(d: dict) -> "MultiLayerConfiguration":
         """The inverse of :meth:`to_dict`, with the JAX package's
         defaults for missing keys. Preprocessors and layer-wise
-        pretraining are refused (ROADMAP.md A2)."""
+        pretraining (``backprop`` off) are refused (ROADMAP.md A2)."""
         _check_absent("MultiLayerConfiguration", d,
-                      MultiLayerConfiguration._ABSENT,
-                      {"preprocessors": "A2", "pretrain": "A2"})
+                      MultiLayerConfiguration._ABSENT, "A2")
         return MultiLayerConfiguration(
             layers=[layer_from_dict(x) for x in d["layers"]],
             input_type=InputType.from_dict(d["input_type"])
@@ -260,8 +264,20 @@ class NeuralNetConfiguration:
             self._updater = u
             return self
 
+        def learning_rate(self, lr: float):
+            self._updater.learning_rate = float(lr)
+            return self
+
         def weight_init(self, w: str):
             self._defaults["weight_init"] = w
+            return self
+
+        def dist(self, d: dict):
+            self._defaults["dist"] = d
+            return self
+
+        def activation(self, a: str):
+            self._defaults["activation"] = a
             return self
 
         def l1(self, v: float):
@@ -270,6 +286,14 @@ class NeuralNetConfiguration:
 
         def l2(self, v: float):
             self._defaults["l2"] = v
+            return self
+
+        def bias_init(self, v: float):
+            self._defaults["bias_init"] = v
+            return self
+
+        def dropout(self, retain: float):
+            self._defaults["dropout"] = retain
             return self
 
         def gradient_normalization(self, method: str,
@@ -293,7 +317,8 @@ class ComputationGraphConfiguration:
     ``NeuralNetConfiguration.Builder().graph_builder()``. ``dtype``
     selects the compute policy (``"float32"`` or ``"bfloat16"``,
     ``nn/compute.py``); ``updater`` and the gradient normalization drive
-    ``ComputationGraph.fit``."""
+    ``ComputationGraph.fit``. The truncated-BPTT lengths are carried as
+    the JAX graph carries them (its ``fit`` has no truncated BPTT)."""
 
     vertices: Dict[str, Any] = field(default_factory=dict)
     vertex_inputs: Dict[str, List[str]] = field(default_factory=dict)
@@ -302,6 +327,8 @@ class ComputationGraphConfiguration:
     input_types: Dict[str, InputType] = field(default_factory=dict)
     seed: int = 12345
     updater: Updater = field(default_factory=lambda: Sgd(0.1))
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     dtype: str = "float32"
@@ -330,9 +357,6 @@ class ComputationGraphConfiguration:
                              "inputs")
         return order
 
-    #: the JAX fields this conf lacks, at the defaults they are read at
-    _ABSENT = {"tbptt_fwd_length": 20, "tbptt_back_length": 20}
-
     def to_dict(self) -> dict:
         """The JAX package's JSON form, key for key."""
         from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
@@ -347,7 +371,8 @@ class ComputationGraphConfiguration:
                             for k, v in self.input_types.items()},
             "seed": self.seed,
             "updater": updater_to_dict(self.updater),
-            **self._ABSENT,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
             "gradient_normalization": self.gradient_normalization,
             "gradient_normalization_threshold":
                 self.gradient_normalization_threshold,
@@ -363,8 +388,6 @@ class ComputationGraphConfiguration:
         defaults for missing keys."""
         from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
             vertex_from_dict)
-        _check_absent("ComputationGraphConfiguration", d,
-                      ComputationGraphConfiguration._ABSENT, {})
         return ComputationGraphConfiguration(
             vertices={k: vertex_from_dict(v)
                       for k, v in d["vertices"].items()},
@@ -376,6 +399,8 @@ class ComputationGraphConfiguration:
             seed=d.get("seed", 12345),
             updater=updater_from_dict(d["updater"]) if d.get("updater")
             else Sgd(0.1),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_back_length=d.get("tbptt_back_length", 20),
             gradient_normalization=d.get("gradient_normalization"),
             gradient_normalization_threshold=d.get(
                 "gradient_normalization_threshold", 1.0),

@@ -12,8 +12,11 @@ execution plans of the CNN stack. PyTorch runs eagerly, so there is no
 jit cache: each call runs the vertex loop directly, and a train step is
 one autograd pass over it, with batch statistics in every BN (``fit``
 trains ResNet50 on every execution plan). Fused multi-step dispatch,
-prefetch, listeners and the non-finite sentinel (ROADMAP.md A5) and
-masks (A6) are refused.
+prefetch and listeners (ROADMAP.md A5) and masks (A6) are refused.
+In training each layer's ``dropout`` draws from its generator of the
+step (``nn/network_base.py``); as in the JAX ``ComputationGraph``, the
+graph applies no weight noise and no constraints (those are the
+sequential network's), and inference draws nothing.
 
 Execution plans (``set_fusion``, resolved by ``tuning/plan.py``): at
 level ``True`` each bn -> [act ->] 1x1-conv group (a BN with one
@@ -27,7 +30,8 @@ or downsample form, NHWC) runs through the bottleneck kernels
 7x7/2 conv -> BN -> relu -> 3x3/2 max-pool stem through the stem kernels
 (``nn/layers/stem.py``). The matchers are the JAX package's; only the
 gates are the port's own (they refuse what the kernels do not take, not
-the TPU's VMEM budget). Parameters and state stay keyed by the original
+the TPU's VMEM budget). As in the JAX package, no layer with dropout
+joins a fused chain. Parameters and state stay keyed by the original
 vertex names, so a plan changes how a chain runs, not what it computes.
 In training a fused group differentiates through its kernels' backward
 (the fused op's one-pass backward, the bottleneck's and the stem's
@@ -118,6 +122,7 @@ class ComputationGraph(NetworkBase):
             self.params[name] = p
             self.state[name] = s
         self.updater_state = self.conf.updater.init_state(self.params)
+        self._init_train_gen()
         self._stream_pos_map = {}
         self._initialized = True
         return self
@@ -125,6 +130,12 @@ class ComputationGraph(NetworkBase):
     def _layer_items(self):
         for name, v in self.conf.vertices.items():
             layer = getattr(v, "layer", None)
+            if layer is not None:
+                yield name, layer
+
+    def _layers_in_order(self):
+        for name in self._topo:
+            layer = getattr(self.conf.vertices[name], "layer", None)
             if layer is not None:
                 yield name, layer
 
@@ -229,7 +240,8 @@ class ComputationGraph(NetworkBase):
     def _fusion_graph_view(self):
         """The matchers' scaffolding: (consumers map, layer_of). layer_of(n,
         cls) is vertex n's layer iff n is a plain LayerVertex of exactly
-        ``cls`` with no preprocessor and not a network output."""
+        ``cls`` with no preprocessor, no dropout and not a network
+        output."""
         self._infer_types()
         consumers: Dict[str, List[str]] = {}
         for cname, srcs in self.conf.vertex_inputs.items():
@@ -242,7 +254,8 @@ class ComputationGraph(NetworkBase):
             if (not isinstance(v, LayerVertex) or v.preprocessor is not None
                     or n in outputs):
                 return None
-            return v.layer if type(v.layer) is cls else None
+            l = v.layer
+            return l if type(l) is cls and not l.dropout else None
 
         return consumers, layer_of
 
@@ -446,7 +459,8 @@ class ComputationGraph(NetworkBase):
                 padl = pv.layer if (
                     isinstance(pv, LayerVertex)
                     and type(pv.layer) is ZeroPaddingLayer
-                    and pad_name not in outputs) else None
+                    and pad_name not in outputs
+                    and not pv.layer.dropout) else None
                 if (padl is None or tuple(padl._pads()) != (3, 3, 3, 3)
                         or padl.data_format != "NHWC"
                         or chain_next(pad_name) != cv_name):
@@ -651,7 +665,8 @@ class ComputationGraph(NetworkBase):
         return params, inputs
 
     def _forward(self, params, state, inputs: Dict[str, Any], *,
-                 train: bool = False, stream: bool = False, preout_of=()):
+                 train: bool = False, stream: bool = False, preout_of=(),
+                 gens=None):
         """Topological-order forward; returns (activations, new state).
         ``train`` selects every vertex's training form (BN batch
         statistics, their running averages in the new state). ``stream``
@@ -659,7 +674,8 @@ class ComputationGraph(NetworkBase):
         other calls see no streaming state. The output layers named in
         ``preout_of`` yield their pre-activation output (the loss takes
         every output's preout in this one pass). The chains of the
-        selected execution plan run fused."""
+        selected execution plan run fused. ``gens`` (a training step's
+        generators by vertex) feed the layers' dropout."""
         skip, bplan, splan = self._fusion()
         cplan = self._conv_plan()
         acts: Dict[str, Any] = dict(inputs)
@@ -688,23 +704,28 @@ class ComputationGraph(NetworkBase):
             if not stream:
                 v_state = {k: val for k, val in v_state.items()
                            if k not in STREAM_STATE_KEYS}
+            g = gens.get(name) if gens else None
             if name in preout_of:
                 acts[name], new_state[name] = (
-                    v.layer.preout(params[name], xs[0]), v_state)
+                    v.layer.preout(params[name], xs[0], train=train, gen=g),
+                    v_state)
                 continue
             extra = ({"stream": stream}
                      if getattr(v, "supports_streaming", False) else {})
             acts[name], new_state[name] = v.apply(params[name], xs, v_state,
-                                                  train=train, **extra)
+                                                  train=train, gen=g,
+                                                  **extra)
         return acts, new_state
 
     # ------------------------------------------------------------------
-    def _loss(self, params, inputs, labels, *, train: bool = True):
+    def _loss(self, params, inputs, labels, *, train: bool = True,
+              gens=None):
         """Sum of the output layers' losses plus the L1/L2 terms, as a
         function of the f32 ``params`` (the compute cast happens here,
         so autograd carries the gradient back through it), with the
-        forward in its training form unless ``train=False`` (``score``);
-        returns (loss, new state)."""
+        forward in its training form unless ``train=False`` (``score``),
+        with a training step's generators ``gens``; returns (loss, new
+        state)."""
         outs = self.conf.network_outputs
         for name in outs:
             if not hasattr(getattr(self.conf.vertices[name], "layer", None),
@@ -713,7 +734,8 @@ class ComputationGraph(NetworkBase):
                                  "layer")
         cparams, cinputs = self._cast_compute(params, inputs)
         acts, new_state = self._forward(cparams, self.state, cinputs,
-                                        train=train, preout_of=set(outs))
+                                        train=train, preout_of=set(outs),
+                                        gens=gens)
         total = 0.0
         for name in outs:
             total = total + self.conf.vertices[name].layer.compute_score(
@@ -723,7 +745,9 @@ class ComputationGraph(NetworkBase):
     def _train_step(self, inputs, labels) -> torch.Tensor:
         """One optimizer step, autograd through the whole forward (the
         kernels' backward included); returns the loss (on the device)."""
-        return self._step(lambda p: self._loss(p, inputs, labels))
+        gens = self._step_gens()
+        return self._step(lambda p: self._loss(p, inputs, labels,
+                                               gens=gens))
 
     def _batch(self, ds: DataSet):
         """A batch's inputs and labels as f32 tensors by name."""
@@ -786,14 +810,16 @@ class ComputationGraph(NetworkBase):
         """Output activations (f32 heads) of the forward under the
         selected execution plan: one tensor for a single-output graph,
         else a list. CNN inputs are NCHW. ``train=True`` runs the
-        training forward (BN batch statistics) and drops its new state,
-        as the JAX package does."""
+        training forward (BN batch statistics, dropout drawn from a step
+        of the training generator) and drops its new state, as the JAX
+        package does."""
         if not self._initialized:
             self.init()
+        gens = self._step_gens() if train else None
         with torch.no_grad():
             acts, _ = self._forward(self._compute_params(), self.state,
                                     self._as_input_dict(inputs),
-                                    train=train)
+                                    train=train, gens=gens)
             outs = [f32_head(acts[o]) for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 

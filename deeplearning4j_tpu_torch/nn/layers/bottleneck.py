@@ -84,6 +84,7 @@ _LIBRARY = CudaLibrary(
      **{s: _CONV3X3_ARGS for s in _symbols("conv3x3").values()},
      "dl4j_conv_row_tile": [], "dl4j_conv_tc_smem": _CONV_TC_SMEM_ARGS},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh",
              "nn/layers/csrc/conv_fwd_tc.cuh"])
 
 _BWD_LIBRARY = CudaLibrary(
@@ -92,6 +93,7 @@ _BWD_LIBRARY = CudaLibrary(
      **{s: _BWD3X3_ARGS for s in _symbols("bwd3x3").values()},
      "dl4j_bwd_row_tile": []},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh",
              "nn/layers/csrc/conv_bwd_tc.cuh"])
 
 #: the four kernels; each ``.launches`` counts its launches (a backward

@@ -410,7 +410,8 @@ __global__ void __launch_bounds__(kThreads)
           z = to_f32(yprev[((static_cast<int64_t>(nn) * s.h + ih) * s.w + iw) *
                                s.c +
                            ch]);
-          if (s.relu) z = fmaxf(__fadd_rn(__fmul_rn(z, scp), bbp), 0.f);
+          if (s.relu)
+            z = dl4j_nan::relu_nan(__fadd_rn(__fmul_rn(z, scp), bbp));
           z = round_to<T>(z);
         }
       }

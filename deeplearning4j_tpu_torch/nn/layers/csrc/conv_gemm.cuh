@@ -54,6 +54,8 @@
 
 #include <cstdint>
 
+#include "nan_max.cuh"
+
 namespace dl4j_conv {
 
 constexpr int kBM = 128;        // output rows (pixels) per block
@@ -153,7 +155,7 @@ __device__ __forceinline__ void load_tile(
       z = to_f32(x[off]);
       if (affine) {
         z = __fadd_rn(__fmul_rn(z, s), b);
-        if (g.relu) z = fmaxf(z, 0.f);
+        if (g.relu) z = dl4j_nan::relu_nan(z);
       }
       z = round_to<T>(z);
     }

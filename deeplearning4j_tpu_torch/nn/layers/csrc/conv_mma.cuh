@@ -48,6 +48,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "nan_max.cuh"
+
 namespace dl4j_mma {
 
 using bf16 = __nv_bfloat16;
@@ -267,9 +269,10 @@ __device__ __forceinline__ uint4 dy8(const uint4& gr, const uint4& yr,
 }
 
 // The activation prologue of 8 channels: z = relu(y sc + bb) (two
-// roundings); with relu = 0, y sc + bb where `affine` (the forward's
-// identity prologue), else y itself (the backward's); rounded to bf16;
-// the first `valid` elements, the rest 0.
+// roundings; the relu NaN-propagating, nan_max.cuh); with relu = 0,
+// y sc + bb where `affine` (the forward's identity prologue), else y
+// itself (the backward's); rounded to bf16; the first `valid` elements,
+// the rest 0.
 __device__ __forceinline__ uint4 z8(const uint4& yr, const float (&c)[2][8],
                                     int valid, int relu,
                                     bool affine = false) {
@@ -280,7 +283,7 @@ __device__ __forceinline__ uint4 z8(const uint4& yr, const float (&c)[2][8],
     float z = e < valid ? elem(yr, e) : 0.f;
     if ((relu || affine) && e < valid) {
       z = __fadd_rn(__fmul_rn(z, c[0][e]), c[1][e]);
-      if (relu) z = fmaxf(z, 0.f);
+      if (relu) z = dl4j_nan::relu_nan(z);
     }
     out[e] = z;
   }

@@ -350,7 +350,7 @@ __global__ void __launch_bounds__(kThreads)
           z = __fadd_rn(__fmul_rn(to_f32(y[static_cast<int64_t>(m) * f.c + r]),
                                   s),
                         o);
-          if (f.relu) z = fmaxf(z, 0.f);
+          if (f.relu) z = dl4j_nan::relu_nan(z);
           z = round_to<T>(z);
         } else if (is_one) {
           z = 1.f;

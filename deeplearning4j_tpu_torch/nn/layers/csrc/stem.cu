@@ -136,19 +136,11 @@ struct alignas(sizeof(T) * VEC) Pack {
 template <typename T, int VEC>
 constexpr bool kBf16x8 = sizeof(T) == 2 && VEC == 8;
 
-// The NaN-propagating maximum and minimum (PTX max.NaN / min.NaN): fmaxf
-// and fminf return the other operand where one is NaN, which the JAX
-// kernel's jnp.maximum and the plain version's torch.maximum do not.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
+// The NaN-propagating maximum and minimum (nan_max.cuh): fmaxf and fminf
+// return the other operand where one is NaN, which the JAX kernel's
+// jnp.maximum and the plain version's torch.maximum do not.
+using dl4j_nan::max_nan;
+using dl4j_nan::min_nan;
 
 template <typename T, int VEC>
 __device__ __forceinline__ Pack<T, VEC> vmax(Pack<T, VEC> a,

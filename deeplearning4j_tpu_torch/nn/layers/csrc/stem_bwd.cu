@@ -14,7 +14,10 @@
 //     dz = the sum of g over the 3x3/2 pad-1 windows that cover the pixel
 //     and whose maximum (over the -inf padding) equals its zc, EVERY tied
 //     maximum taking the gradient (XLA's and torch's pool pick one),
-//     summed in the TPU kernel's window order; dz0 = dz where z0 > 0,
+//     summed in the TPU kernel's window order (relu and maximum
+//     NaN-propagating, nan_max.cuh, as jnp.maximum: a NaN in a window
+//     makes its maximum NaN, which no zc equals, so that window sends no
+//     gradient); dz0 = dz where z0 > 0,
 //     else 0, stored in y's dtype; sum dz0 and sum dz0 yhat, yhat = (y -
 //     mu) inv, over the STORED dz0 (the dW and dx passes read the rounded
 //     tensor; the bottleneck backward sums before its rounding instead);
@@ -133,6 +136,7 @@
 namespace {
 
 using dl4j_conv::Geometry;
+using dl4j_nan::hmax2_nan_bits;
 using dl4j_conv::from_f32;
 using dl4j_conv::kAStride;
 using dl4j_conv::kBK;
@@ -198,13 +202,6 @@ __device__ __forceinline__ void pack_store(T* p, const float (&f)[VEC]) {
     for (int e = 0; e < VEC; ++e) v.v[e] = from_f32<T>(f[e]);
     *reinterpret_cast<Pack<T, VEC>*>(p) = v;
   }
-}
-
-__device__ __forceinline__ uint32_t hmax2_bits(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 m =
-      __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-              *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&m);
 }
 
 // One tile of pooled windows (blockIdx.x: image, tile row, tile column
@@ -292,7 +289,8 @@ __global__ void __launch_bounds__(kPoolThreads, 2)
       unpack<T, VEC>(ys + px * kPoolC + cv, z);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        z[e] = in ? fmaxf(__fadd_rn(__fmul_rn(z[e], sc[e]), bb[e]), 0.f)
+        z[e] = in ? dl4j_nan::relu_nan(
+                        __fadd_rn(__fmul_rn(z[e], sc[e]), bb[e]))
                   : -INFINITY;
       pack_store<T, VEC>(zs + px * kPoolC + cv, z);
     }
@@ -306,14 +304,15 @@ __global__ void __launch_bounds__(kPoolThreads, 2)
       if (p0 + a >= po || q0 + b >= pw) continue;
       const T* z0p = zs + (2 * a * kPoolHw + 2 * b) * kPoolC + cv;
       if constexpr (kBf16x8<T, VEC>) {
-        // bf16 pairs: the maximum is one of the values either way
+        // bf16 pairs: the maximum is one of the values (or NaN) either
+        // way
         uint4 m = *reinterpret_cast<const uint4*>(z0p);
 #pragma unroll
         for (int t = 1; t < 9; ++t) {
           const uint4 z = *reinterpret_cast<const uint4*>(
               z0p + ((t / 3) * kPoolHw + t % 3) * kPoolC);
-          m = make_uint4(hmax2_bits(m.x, z.x), hmax2_bits(m.y, z.y),
-                         hmax2_bits(m.z, z.z), hmax2_bits(m.w, z.w));
+          m = make_uint4(hmax2_nan_bits(m.x, z.x), hmax2_nan_bits(m.y, z.y),
+                         hmax2_nan_bits(m.z, z.z), hmax2_nan_bits(m.w, z.w));
         }
         *reinterpret_cast<uint4*>(ms + wx * kPoolC + cv) = m;
       } else {
@@ -323,7 +322,7 @@ __global__ void __launch_bounds__(kPoolThreads, 2)
         for (int t = 1; t < 9; ++t) {
           unpack<T, VEC>(z0p + ((t / 3) * kPoolHw + t % 3) * kPoolC, z);
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) mx[e] = fmaxf(mx[e], z[e]);
+          for (int e = 0; e < VEC; ++e) mx[e] = dl4j_nan::max_nan(mx[e], z[e]);
         }
         pack_store<T, VEC>(ms + wx * kPoolC + cv, mx);
       }

@@ -88,7 +88,8 @@ _LIBRARY = CudaLibrary(
     {**{s: _FWD_ARGS for s in _symbols("flash_fwd").values()},
      **{s: _BWD_DQ_ARGS for s in _symbols("flash_bwd_dq").values()},
      **{s: _BWD_DKV_ARGS for s in _symbols("flash_bwd_dkv").values()}},
-    headers=["nn/layers/csrc/conv_mma.cuh"])
+    headers=["nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh"])
 
 #: the three kernels; each ``.launches`` counts its launches on either
 #: route

@@ -96,6 +96,7 @@ _LIBRARY = CudaLibrary(
      "dl4j_fused_row_tile": [], "dl4j_fused_fwd_tc_smem": [_I, _I],
      "dl4j_fused_bwd_tc_smem": [_I, _I, ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh",
              "nn/layers/csrc/conv_fwd_tc.cuh",
              "nn/layers/csrc/conv_bwd_tc.cuh"])
 

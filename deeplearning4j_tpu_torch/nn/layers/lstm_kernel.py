@@ -97,7 +97,8 @@ _LIBRARY = CudaLibrary(
                                     ctypes.POINTER(ctypes.c_int)],
      "dl4j_lstm_bwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_lstm_fwd_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
-    headers=["nn/layers/csrc/conv_mma.cuh"])
+    headers=["nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh"])
 
 #: the two kernels; each ``.launches`` counts its launches (one per layer
 #: and direction per forward or backward, whatever T); their entry points

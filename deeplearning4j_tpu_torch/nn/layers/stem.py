@@ -139,6 +139,7 @@ _LIBRARY = CudaLibrary(
      "dl4j_stem_pool_plan": _POOL_PLAN_ARGS,
      "dl4j_stem_pool_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh",
              "nn/layers/csrc/stem_s2d.cuh"])
 
 _BWD_LIBRARY = CudaLibrary(
@@ -152,6 +153,7 @@ _BWD_LIBRARY = CudaLibrary(
      "dl4j_stem_bwd_dw_kernel_launches": [ctypes.POINTER(ctypes.c_int)],
      "dl4j_stem_bwd_dx_kernel_launches": [ctypes.POINTER(ctypes.c_int)]},
     headers=["nn/layers/csrc/conv_gemm.cuh", "nn/layers/csrc/conv_mma.cuh",
+             "nn/layers/csrc/nan_max.cuh",
              "nn/layers/csrc/stem_s2d.cuh"])
 
 #: the five kernels; each ``.launches`` counts its launches (an entry

@@ -28,6 +28,16 @@ layers (masked steps carry h and c through and output zeros); masks in
 ``fit`` are refused (ROADMAP.md A6), as are the fit loop's listeners,
 fused multi-step dispatch, prefetch and tail padding (A5),
 ``evaluate`` (A5) and ``pretrain`` (A2, with LeNet on this network).
+
+Regularization in training, as the JAX ``MultiLayerNetwork`` applies
+it: each step takes one generator a layer from the training generator
+(``nn/network_base.py``); a layer's ``weight_noise`` perturbs its
+(compute-dtype) parameters before its ``apply`` in the layer loop (the
+output layer's loss path, like the JAX ``_loss``, takes none), its
+``dropout`` drops its input, and after the update the layers'
+``constraints`` are projected onto the new parameters, before the
+non-finite sentinel's select. ``output()``, ``rnn_time_step`` and
+``score`` draw nothing.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.compute import (
     bf16_cast, bf16_cast_tree, f32_head)
+from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     STREAM_STATE_KEYS, GlobalPoolingLayer, SelfAttentionLayer,
@@ -84,9 +95,15 @@ class MultiLayerNetwork(NetworkBase):
             self.params[str(i)] = p
             self.state[str(i)] = s
         self.updater_state = self.conf.updater.init_state(self.params)
+        self._init_train_gen()
         self._stream_pos = 0
         self._initialized = True
         return self
+
+    def _constrain(self, params):
+        if not any(layer.constraints for layer in self.layers):
+            return params
+        return apply_constraints(self.layers, params)
 
     # ------------------------------------------------------------------
     # forward
@@ -100,13 +117,16 @@ class MultiLayerNetwork(NetworkBase):
         return params, x
 
     def _forward(self, params, state, x, *, train=False, carry_rnn=False,
-                 stream=False, mask=None, upto: Optional[int] = None):
+                 stream=False, mask=None, upto: Optional[int] = None,
+                 gens=None):
         """The layers' activations (``acts[i]`` is layer i's output) and
         the new state. Each layer sees its state stripped of the
         streaming keys unless ``carry_rnn``; ``stream`` selects the
         streaming path of the streaming layers; ``mask`` ``[N, T]``
         reaches the recurrent layers; ``upto`` stops before that layer
-        (its state and the later layers' pass through)."""
+        (its state and the later layers' pass through). ``gens`` (a
+        training step's generators by layer key) feed each layer's weight
+        noise, applied here, and its dropout."""
         acts, new_state = [], {}
         n = len(self.layers) if upto is None else upto
         h = x
@@ -119,18 +139,23 @@ class MultiLayerNetwork(NetworkBase):
             extra = _mask_kwargs(layer, mask)
             if getattr(layer, "supports_streaming", False):
                 extra["stream"] = stream
-            h, new_state[str(i)] = layer.apply(params[str(i)], h, s_i,
-                                               train=train, **extra)
+            g_i = gens.get(str(i)) if gens else None
+            p_i = params[str(i)]
+            if train and g_i is not None and layer.weight_noise is not None:
+                p_i = layer.weight_noise.apply_to_params(p_i, g_i)
+            h, new_state[str(i)] = layer.apply(p_i, h, s_i, train=train,
+                                               gen=g_i, **extra)
             acts.append(h)
         for i in range(n, len(self.layers)):
             new_state[str(i)] = state.get(str(i), {})
         return acts, new_state
 
-    def _loss(self, params, state, x, y, *, train=True, carry_rnn=False):
+    def _loss(self, params, state, x, y, *, train=True, carry_rnn=False,
+              gens=None):
         """The output layer's loss on the f32 promotion of its
         pre-activation, plus the L1/L2 terms, as a function of the f32
-        ``params`` (the compute cast happens here); returns (loss, new
-        state)."""
+        ``params`` (the compute cast happens here), with a training
+        step's generators ``gens``; returns (loss, new state)."""
         out_idx = len(self.layers) - 1
         out_layer = self.layers[out_idx]
         if not hasattr(out_layer, "compute_score"):
@@ -138,9 +163,12 @@ class MultiLayerNetwork(NetworkBase):
                              "compute a loss")
         cparams, cx = self._cast_compute(params, x)
         acts, new_state = self._forward(cparams, state, cx, train=train,
-                                        carry_rnn=carry_rnn, upto=out_idx)
+                                        carry_rnn=carry_rnn, upto=out_idx,
+                                        gens=gens)
         h = acts[-1] if acts else cx
-        preout = out_layer.preout(cparams[str(out_idx)], h)
+        preout = out_layer.preout(
+            cparams[str(out_idx)], h, train=train,
+            gen=gens.get(str(out_idx)) if gens else None)
         score = out_layer.compute_score(y, f32_head(preout))
         return score + self._reg_loss(params), new_state
 
@@ -181,8 +209,10 @@ class MultiLayerNetwork(NetworkBase):
 
     def _fit_batch(self, ds: DataSet, carry_rnn: bool = False):
         x, y = self._batch(ds)
+        gens = self._step_gens()
         self.score_value = self._step(
-            lambda p: self._loss(p, self.state, x, y, carry_rnn=carry_rnn))
+            lambda p: self._loss(p, self.state, x, y, carry_rnn=carry_rnn,
+                                 gens=gens))
         self.iteration_count += 1
 
     def _fit_tbptt(self, ds: DataSet):
@@ -216,14 +246,17 @@ class MultiLayerNetwork(NetworkBase):
     def output(self, x, train: bool = False, mask=None):
         """The output layer's activations (f32) for ``x``, from zero
         recurrent state; ``mask`` ``[N, T]`` reaches the recurrent
-        layers."""
+        layers. ``train=True`` runs the training forward, dropout and
+        weight noise drawn from a step of the training generator, as the
+        JAX package does."""
         if not self._initialized:
             self.init()
         m = None if mask is None else self._tensor(mask)
+        gens = self._step_gens() if train else None
         with torch.no_grad():
             acts, _ = self._forward(self._compute_params(), self.state,
                                     self._cast_compute({}, self._tensor(x))[1],
-                                    train=train, mask=m)
+                                    train=train, mask=m, gens=gens)
         return f32_head(acts[-1])
 
     def rnn_time_step(self, x, pad_left=None):

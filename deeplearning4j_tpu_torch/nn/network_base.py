@@ -12,8 +12,18 @@ gradients are not finite changes nothing). This base holds that, the
 compute-dtype copy of the parameters that inference reuses, the last
 loss (``score_value``, read from the device on first access, as the JAX
 package's ``LazyScore``), the parameter and state loaders from the JAX
-package's numpy trees, and the fit options the port refuses (ROADMAP.md
-A5).
+package's numpy trees, the fit options the port refuses (ROADMAP.md
+A5), and the training generator.
+
+The training generator is an explicit ``torch.Generator`` on the
+network's device, seeded ``conf.seed + 1`` (the JAX package's training
+key) and not saved in archives (the JAX package saves no key either).
+Each training step advances it once and splits it into one generator a
+layer, in layer order (:meth:`NetworkBase._step_gens`), which the
+layer's weight noise and input dropout draw from. On the card the split
+is by Philox offset (layer i of a step starts ``i * 2^32`` counters
+past the step's base), so it needs no device read; on the CPU the step
+draws one seed a layer. Inference draws nothing.
 """
 
 from __future__ import annotations
@@ -32,6 +42,13 @@ from deeplearning4j_tpu_torch.resilience.sentinel import (
 __all__ = ["BF16", "NetworkBase"]
 
 BF16 = ("bfloat16", "bf16")
+
+#: the Philox offset between two layers' generators in one step (a
+#: multiple of 4, as the CUDA generator's offsets are; a layer's draws in
+#: a step take far fewer counters: a draw of N values advances the
+#: offset by about 4 N / (the threads of its grid)), and the offsets'
+#: range (they wrap, as the generator's 64-bit counter does)
+_SPLIT, _OFFSETS = 1 << 32, 1 << 64
 
 
 class NetworkBase:
@@ -53,10 +70,51 @@ class NetworkBase:
         self.device = None
         self._initialized = False
         self._compute = None       # (params, dtype, compute-dtype params)
+        self._train_gen = None
 
     def _layer_items(self):
         """(key, layer conf) of every layer with parameters or state."""
         raise NotImplementedError
+
+    def _layers_in_order(self):
+        """(key, layer conf) of every layer in layer order (a graph's:
+        topological)."""
+        return self._layer_items()
+
+    def _init_train_gen(self):
+        """The training generator, seeded ``conf.seed + 1``."""
+        self._train_gen = torch.Generator(device=self.device)
+        self._train_gen.manual_seed(int(self.conf.seed) + 1)
+
+    def _step_gens(self) -> Dict[str, torch.Generator]:
+        """One step's generators by layer key: the training generator
+        advanced once and split per layer, in layer order; a generator
+        only for the layers that draw (dropout, weight noise)."""
+        items = list(self._layers_in_order())
+        g = self._train_gen
+        if g.device.type == "cuda":
+            base = g.get_offset()
+            g.set_offset((base + len(items) * _SPLIT) % _OFFSETS)
+
+            def make(i):
+                gi = torch.Generator(device=g.device)
+                gi.manual_seed(g.initial_seed())
+                gi.set_offset((base + i * _SPLIT) % _OFFSETS)
+                return gi
+        else:
+            seeds = torch.randint(0, 1 << 62, (len(items),),
+                                  generator=g).tolist()
+
+            def make(i):
+                return torch.Generator().manual_seed(seeds[i])
+        return {key: make(i) for i, (key, layer) in enumerate(items)
+                if layer.draws_in_training()}
+
+    def _constrain(self, params):
+        """The parameters after an update's projections: none here (the
+        JAX ``ComputationGraph`` applies no constraints); the sequential
+        network projects its layers' constraints."""
+        return params
 
     @property
     def score_value(self) -> float:
@@ -179,7 +237,9 @@ class NetworkBase:
         the device, and the flag read once, after the update is queued
         (``resilience/sentinel.py`` says why); under "skip" a bad step
         leaves the parameters, the updater state and the layer state as
-        they were. Returns the loss (on the device)."""
+        they were. The layers' constraints are projected after the
+        update, before the sentinel's select (:meth:`_constrain`).
+        Returns the loss (on the device)."""
         policy = effective_policy(self)
         old_state = self.state
         params = tree_map(lambda t: t.detach().requires_grad_(),
@@ -201,7 +261,8 @@ class NetworkBase:
                                        conf.gradient_normalization_threshold)
             steps, new_upd = conf.updater.update(
                 tree, self.updater_state, self.params)
-            new_params = tree_map(lambda p, s: p - s, self.params, steps)
+            new_params = self._constrain(
+                tree_map(lambda p, s: p - s, self.params, steps))
             new = (new_params, new_upd, new_state)
             good = ok is None or bool(ok)      # the step's one host read
             if not good:

@@ -1,23 +1,27 @@
 """Updaters, learning-rate schedules and gradient normalization.
 
-Counterpart of ``deeplearning4j_tpu/nn/updater.py`` for the rules the
-ported models use: ``Sgd``, ``Adam``, ``Nesterovs`` (ResNet50's) and
-``RmsProp`` (the text LSTM's; the other updaters are ROADMAP.md A1),
-``schedule_lr`` and
+Counterpart of ``deeplearning4j_tpu/nn/updater.py``: its nine learning
+rules (``Sgd``, ``Nesterovs``, ``Adam``, ``AdaMax``, ``Nadam``,
+``RmsProp``, ``AdaGrad``, ``AdaDelta``, ``NoOp``), ``schedule_lr`` and
 ``normalize_gradients``, and their JSON form (:func:`updater_to_dict`,
 :func:`updater_from_dict`: the JAX package's ``{"@class": name,
-field: value}``). As in the JAX package the updater state is an explicit tree threaded through a
-pure ``update(grads, state, params) -> (steps, new_state)``; the caller
+field: value}``). Each rule's state is the JAX package's tree under the
+same keys (``m``, ``v``, ``u``, ``t``, ``g2``, ``h``, ``dx2``), so the
+archives' ``updater/`` entries carry it either way, and each step is
+the JAX formula's operations in the JAX order. As in the JAX package
+the updater state is an explicit tree threaded through a pure
+``update(grads, state, params) -> (steps, new_state)``; the caller
 subtracts the steps. Trees are nested dicts of tensors
 (``{vertex: {name: tensor}}``).
 
 ``Adam`` is the JAX package's formula, not ``torch.optim.Adam``'s:
 epsilon is added to ``sqrt(v)`` and the bias correction is folded into
 one factor ``corr = sqrt(1 - beta2^t) / (1 - beta1^t)`` taken in f32, so
-the steps agree with the JAX package's. Its step count ``t`` is a 0-d
-int32 tensor on the parameters' device, as the JAX package keeps it, so
-the non-finite sentinel's select (``resilience/sentinel.py``) treats it
-as it treats every other leaf of the state.
+the steps agree with the JAX package's. Its step count ``t`` (and
+AdaMax's and Nadam's) is a 0-d int32 tensor on the parameters' device,
+as the JAX package keeps it, so the non-finite sentinel's select
+(``resilience/sentinel.py``) treats it as it treats every other leaf of
+the state.
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Adam", "Nesterovs", "RmsProp", "Sgd", "UPDATER_REGISTRY",
-           "Updater", "normalize_gradients", "schedule_lr", "tree_leaves",
-           "tree_map", "updater_from_dict", "updater_to_dict"]
+__all__ = ["AdaDelta", "AdaGrad", "AdaMax", "Adam", "Nadam", "Nesterovs",
+           "NoOp", "RmsProp", "Sgd", "UPDATER_REGISTRY", "Updater",
+           "normalize_gradients", "schedule_lr", "tree_leaves", "tree_map",
+           "updater_from_dict", "updater_to_dict"]
 
 
 def tree_map(fn, tree, *rest):
@@ -126,11 +131,8 @@ class Adam(Updater):
     epsilon: float = 1e-8
 
     def init_state(self, params):
-        leaves = tree_leaves(params)
-        device = leaves[0].device if leaves else None
         return {"m": tree_map(torch.zeros_like, params),
-                "v": tree_map(torch.zeros_like, params),
-                "t": torch.zeros((), dtype=torch.int32, device=device)}
+                "v": tree_map(torch.zeros_like, params), "t": _step0(params)}
 
     def update(self, grads, state, params, lr_scale=1.0):
         lr = self._lr(lr_scale)
@@ -147,6 +149,74 @@ class Adam(Updater):
             lambda m_, v_: lr_corr * m_ / (torch.sqrt(v_) + self.epsilon),
             m, v)
         return steps, {"m": m, "v": v, "t": t}
+
+
+def _step0(params) -> torch.Tensor:
+    """A step count of 0: a 0-d int32 tensor on the parameters'
+    device."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+@dataclass
+class AdaMax(Updater):
+    """Adam's infinity-norm variant as the JAX package computes it: ``u'
+    = max(b2 u, |g|)`` and the step ``lr / (1 - b1^t) m' / (u' +
+    eps)``. Its state is ``{"m", "u", "t"}``."""
+
+    learning_rate: float = 2e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    def init_state(self, params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "u": tree_map(torch.zeros_like, params), "t": _step0(params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        lr = self._lr(lr_scale)
+        t = state["t"] + 1
+        b1, b2 = self.beta1, self.beta2
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        u = tree_map(lambda u_, g: torch.maximum(b2 * u_, torch.abs(g)),
+                     state["u"], grads)
+        lr_t = lr / (1 - b1 ** t.to(torch.float32))
+        steps = tree_map(lambda m_, u_: lr_t * m_ / (u_ + self.epsilon), m, u)
+        return steps, {"m": m, "u": u, "t": t}
+
+
+@dataclass
+class Nadam(Updater):
+    """Adam with Nesterov momentum as the JAX package computes it: ``mhat
+    = b1 m' / (1 - b1^(t+1)) + (1 - b1) g / (1 - b1^t)``, ``vhat = v' /
+    (1 - b2^t)``, the step ``lr mhat / (sqrt(vhat) + eps)``. Its state is
+    ``{"m", "v", "t"}``."""
+
+    learning_rate: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    def init_state(self, params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params), "t": _step0(params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        lr = self._lr(lr_scale)
+        t = state["t"] + 1
+        b1, b2 = self.beta1, self.beta2
+        tf = t.to(torch.float32)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"],
+                     grads)
+        c1, c1n, c2 = 1 - b1 ** tf, 1 - b1 ** (tf + 1), 1 - b2 ** tf
+
+        def step(m_, v_, g):
+            mhat = b1 * m_ / c1n + (1 - b1) * g / c1
+            return lr * mhat / (torch.sqrt(v_ / c2) + self.epsilon)
+
+        return tree_map(step, m, v, grads), {"m": m, "v": v, "t": t}
 
 
 @dataclass
@@ -172,10 +242,65 @@ class RmsProp(Updater):
         return steps, {"g2": g2}
 
 
+@dataclass
+class AdaGrad(Updater):
+    """AdaGrad as the JAX package computes it: ``h' = h + g^2`` and the
+    step ``lr g / (sqrt(h') + eps)``. Its state is ``{"h": tree}``."""
+
+    learning_rate: float = 1e-1
+    epsilon: float = 1e-6
+
+    def init_state(self, params):
+        return {"h": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        lr = self._lr(lr_scale)
+        h = tree_map(lambda a, g: a + g * g, state["h"], grads)
+        steps = tree_map(lambda g, a: lr * g / (torch.sqrt(a) + self.epsilon),
+                         grads, h)
+        return steps, {"h": h}
+
+
+@dataclass
+class AdaDelta(Updater):
+    """AdaDelta as the JAX package computes it: ``g2' = rho g2 + (1 - rho)
+    g^2``, the step ``sqrt(dx2 + eps) / sqrt(g2' + eps) g``, then ``dx2'
+    = rho dx2 + (1 - rho) step^2``; the learning rate is unused, as
+    there. Its state is ``{"g2", "dx2"}``."""
+
+    learning_rate: float = 1.0
+    rho: float = 0.95
+    epsilon: float = 1e-6
+
+    def init_state(self, params):
+        return {"g2": tree_map(torch.zeros_like, params),
+                "dx2": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        rho, eps = self.rho, self.epsilon
+        g2 = tree_map(lambda a, g: rho * a + (1 - rho) * g * g, state["g2"],
+                      grads)
+        steps = tree_map(
+            lambda g, a, d: torch.sqrt(d + eps) / torch.sqrt(a + eps) * g,
+            grads, g2, state["dx2"])
+        dx2 = tree_map(lambda d, s: rho * d + (1 - rho) * s * s,
+                       state["dx2"], steps)
+        return steps, {"g2": g2, "dx2": dx2}
+
+
+@dataclass
+class NoOp(Updater):
+    """No update: zero steps, the state unchanged."""
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        return tree_map(torch.zeros_like, grads), state
+
+
 #: the updaters by their JSON name (the class name, and lower case as
 #: the JAX package registers them)
 UPDATER_REGISTRY: Dict[str, type] = {
-    name: cls for c in (Sgd, Nesterovs, Adam, RmsProp)
+    name: cls for c in (Sgd, Nesterovs, Adam, AdaMax, Nadam, RmsProp,
+                        AdaGrad, AdaDelta, NoOp)
     for name, cls in ((c.__name__, c), (c.__name__.lower(), c))}
 
 
@@ -187,16 +312,11 @@ def updater_to_dict(u: Updater) -> dict:
 
 def updater_from_dict(d) -> Updater:
     """The inverse of :func:`updater_to_dict` (an :class:`Updater` passes
-    through). The updaters the port does not have are refused."""
+    through)."""
     if isinstance(d, Updater):
         return d
     d = dict(d)
-    name = d.pop("@class")
-    cls = UPDATER_REGISTRY.get(name)
-    if cls is None:
-        raise NotImplementedError(
-            f"updater {name!r} is not ported yet (ROADMAP.md A1); ported: "
-            "Sgd, Nesterovs, Adam, RmsProp")
+    cls = UPDATER_REGISTRY[d.pop("@class")]
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in d.items() if k in names})
 

@@ -42,7 +42,7 @@ chaos seams and ``decode_retry``, and the metrics registry (ROADMAP.md
 A7, A5). The request ledger, traces, ``health()`` with its KV traffic
 and the fleet hooks come later too (ROADMAP.md A7, A10), and so does
 the choice of decode read path (``decode_impl``: the port has one on
-the card, the kernel; ROADMAP.md A.1). Metrics are plain attributes for
+the card, the kernel; ROADMAP.md A7). Metrics are plain attributes for
 now.
 """
 
@@ -202,7 +202,7 @@ class GenerationEngine:
                     self._L, native)
                 if kv_dtype == "auto":
                     # eligible: the port streams pure-attention nets only
-                    # (recurrent h/c state comes with ROADMAP.md A.4)
+                    # (recurrent h/c state comes with ROADMAP.md A7)
                     kv_dtype = resolve_kv_dtype(True, self._quant_key,
                                                 device=self.device)
             self._kv_dtype = kv_dtype

@@ -61,7 +61,7 @@ class PagedKVConfig:
     (``tuning/plan.resolve_kv_dtype``): uncalibrated runs stay bf16.
     The legacy gather/scatter round trip (``direct=False``, ROADMAP.md
     A7) and the choice of decode read path (``decode_impl``: the port
-    reads through its kernels only, ROADMAP.md A.1) are not ported and
+    reads through its kernels only, ROADMAP.md A7) are not ported and
     raise."""
 
     page_size: int = 8
@@ -77,7 +77,7 @@ class PagedKVConfig:
         if self.decode_impl is not None:
             raise NotImplementedError(
                 f"decode_impl={self.decode_impl!r}: the port has one decode "
-                f"read path on the card, its kernels (ROADMAP.md A.1)")
+                f"read path on the card, its kernels (ROADMAP.md A7)")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got "
                              f"{self.page_size}")

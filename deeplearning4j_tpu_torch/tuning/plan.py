@@ -28,7 +28,7 @@ The serving twin, :func:`resolve_kv_dtype`, resolves
 ``PagedKVConfig(kv_dtype="auto")`` from the store's
 ``paged_decode_quant`` entry (:func:`quant_key_for_engine`). The decode
 impl's resolver (``resolve_decode_impl``) is not ported: the port has
-one read path on the card (ROADMAP.md A.1).
+one read path on the card (ROADMAP.md A7).
 """
 
 from __future__ import annotations

@@ -17,8 +17,8 @@ builds with an empty plan. A model whose ``conf()`` is a sequential
 ``MultiLayerNetwork``: ``execution_plan=`` validates and changes
 nothing there, and ``fuse=`` is refused (the fused chains are graph
 features), as in the JAX zoo.
-Pretrained checkpoints and the model registry come with the formats
-(ROADMAP.md A1).
+Pretrained checkpoints and the model registry come with the rest of the
+zoo (ROADMAP.md A11).
 """
 
 from __future__ import annotations

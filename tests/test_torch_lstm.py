@@ -23,9 +23,10 @@ the wrappers take the kernels' plain versions.
   forward's saves.
 - A planted fault (the output gate's peephole reading the previous cell,
   not the new one) reads outside those tolerances.
-- A gate or cell activation the kernels do not compute raises
-  NotImplementedError; the wrappers launch nothing for CPU tensors; a
-  mask is refused by the backward.
+- A gate or cell activation the kernels do not compute takes the
+  step-by-step scan route (counted in ``LSTM_SCAN.runs``, no kernel
+  launch) and agrees with the JAX scan; the wrappers launch nothing for
+  CPU tensors; a mask is refused by the backward.
 - The cluster backward (``csrc/lstm.cu`` ``cl::``): its three-term bf16
   split reproduces f32 values bit for bit over a wide exponent range,
   and its product with a bf16 RW is the f32 product within 1e-6 of the
@@ -275,16 +276,25 @@ def test_planted_peephole_fault_reads_outside_the_tolerance():
 # refusals and dispatch
 # ---------------------------------------------------------------------
 def test_other_activations_raise_not_implemented():
+    """Once refused, a gate or cell activation other than sigmoid / tanh
+    now takes the scan route: counted, no kernel launched, and the JAX
+    scan's output."""
     d = _scan_inputs(2, 3, 4, 4, seed=8)
     a = _torch(d)
+    kernels = (lk.LSTM_FWD.launches, lk.LSTM_BWD.launches)
     for kw in (dict(gate_act="hardsigmoid"), dict(cell_act="relu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-            trec.lstm_scan(a["x"], a["w"], a["rw"], a["b"], **kw)
+        runs = trec.LSTM_SCAN.runs
+        got, _, _ = trec.lstm_scan(a["x"], a["w"], a["rw"], a["b"], **kw)
+        want, _, _ = jrec.lstm_scan(*(jnp.asarray(d[k])
+                                      for k in ("x", "w", "rw", "b")), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert trec.LSTM_SCAN.runs == runs + 1
     layer = tl.GravesLSTM(n_out=4, gate_activation="hardsigmoid")
     gen = torch.Generator().manual_seed(0)
     p, s = layer.init(gen, InputType.recurrent(3, 4), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        layer.apply(p, a["x"], s)
+    out, _ = layer.apply(p, a["x"], s)
+    assert out.shape == (2, 4, 4)
+    assert (lk.LSTM_FWD.launches, lk.LSTM_BWD.launches) == kernels
 
 
 def test_cpu_tensors_launch_nothing_and_the_backward_refuses_a_mask():

@@ -19,10 +19,12 @@ package's, on the CPU.
   reads; outputs within 1e-5 and one further tBPTT ``fit`` step within
   ``test_torch_text_lstm.py``'s tolerances (score 1e-5 relative, each
   leaf within 1e-3 of its change).
-- ``restore_model`` sniffs the type; a dropout (and the other JAX fields
-  the port lacks) off its default is refused naming ROADMAP.md A1, the
-  sequential fixture (ConvolutionMode "same", a preprocessor) naming A2;
-  a failed write leaves the old archive whole.
+- ``restore_model`` sniffs the type; a dropout, a per-layer learning
+  rate and a bias init (once read only at their defaults) are carried
+  as the JAX package carries them, and a field the JAX layer does not
+  have is refused; the sequential fixture (ConvolutionMode "same", a
+  preprocessor) is refused naming A2; a failed write leaves the old
+  archive whole.
 """
 
 import copy
@@ -49,7 +51,7 @@ from deeplearning4j_tpu_torch.util import model_serializer as tms
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, updater_state_to_numpy)
 
-from test_torch_text_lstm import _batch, _nets, _np_tree
+from test_torch_text_lstm import V, _batch, _nets, _np_tree
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 OUT_ATOL = 5e-3          # tests/test_regression_formats.py
@@ -210,12 +212,20 @@ def _shapes(tree):
                                        ("learning_rate", 0.1),
                                        ("bias_init", 0.5)])
 def test_a_field_the_port_lacks_is_taken_only_at_its_default(key, value):
+    """Once read only at their defaults, these fields are now carried:
+    off their defaults they round-trip key for key, as the JAX package
+    reads them; a field no JAX layer has is still refused."""
     d = json.load(open(_p("regression_cg_v1.json")))
-    bad = copy.deepcopy(d)
-    bad["vertices"]["lstm"]["layer"][key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        ComputationGraphConfiguration.from_dict(bad)
-    ComputationGraphConfiguration.from_dict(d)
+    changed = copy.deepcopy(d)
+    changed["vertices"]["lstm"]["layer"][key] = value
+    got = ComputationGraphConfiguration.from_dict(changed)
+    assert getattr(got.vertices["lstm"].layer, key) == value
+    assert got.to_dict() == JGraphConf.from_dict(
+        copy.deepcopy(changed)).to_dict()
+    unknown = copy.deepcopy(d)
+    unknown["vertices"]["lstm"]["layer"]["no_such_field"] = value
+    with pytest.raises(NotImplementedError, match="no_such_field"):
+        ComputationGraphConfiguration.from_dict(unknown)
 
 
 def test_the_sequential_fixture_is_refused_naming_a2():
@@ -248,3 +258,106 @@ def test_restore_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tms.restore_model(_p("regression_cg_v1.zip"))
+
+
+# ---------------------------------------------------------------------
+# an archive with every field of A1 off its default
+# ---------------------------------------------------------------------
+def _a1_nets():
+    """A JAX sequential net and a JAX graph with every A1 field set off
+    its default (dropout as a float and as objects, weight noise,
+    constraints, the distribution init, bias init, per-layer learning
+    rates and updaters; a hardsigmoid-gated LSTM, a bias-less 1-D
+    convolution and output layer, pnorm and collapse_dimensions, the
+    graph's tBPTT lengths), AdaMax / AdaDelta, after one fit step. The
+    Gaussian noises sit where the JAX nets stay f32 under the tests'
+    x64 mode (``jax.random.normal`` then draws f64): after the
+    recurrences, the weight noise on the output layer (which the JAX
+    loss path does not perturb)."""
+    from deeplearning4j_tpu.nn.conf import constraints as jcon
+    from deeplearning4j_tpu.nn.conf import dropout as jdrop
+    from deeplearning4j_tpu.nn.conf import layers as jl
+    from deeplearning4j_tpu.nn.conf.inputs import InputType as JIT
+    from deeplearning4j_tpu.nn.conf.network import (
+        MultiLayerConfiguration as JMLConf)
+    from deeplearning4j_tpu.nn.conf.network import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.nn.updater import AdaDelta, AdaMax
+    common = dict(learning_rate=0.3, bias_init=0.05,
+                  updater={"@class": "Sgd", "learning_rate": 0.7})
+    layers = [
+        jl.GravesLSTM(n_out=6, gate_activation="hardsigmoid",
+                      dropout=jdrop.Dropout(0.9),
+                      weight_noise=jdrop.DropConnect(0.95),
+                      constraints=[jcon.MaxNormConstraint(max_norm=1.5)],
+                      weight_init="distribution",
+                      dist={"type": "uniform", "lower": -0.3, "upper": 0.3},
+                      **common),
+        jl.GravesLSTM(n_out=5, weight_init="xavier_uniform", dropout=0.8,
+                      weight_noise=jdrop.DropConnect(0.9),
+                      constraints=[jcon.UnitNormConstraint(dimensions=(1,))],
+                      **common),
+        jl.RnnOutputLayer(n_out=V, loss="mcxent", activation="softmax",
+                          has_bias=False, bias_init=0.1,
+                          dropout=jdrop.GaussianDropout(0.2),
+                          weight_noise=jdrop.WeightNoise(0.01),
+                          constraints=[jcon.NonNegativeConstraint()])]
+    mconf = JMLConf(layers=layers, input_type=JIT.recurrent(V, 12), seed=9,
+                    updater=AdaMax(1e-2), tbptt=True, tbptt_fwd_length=6,
+                    tbptt_back_length=4)
+    mln = JMLN(mconf).init()
+    g = (NeuralNetConfiguration.Builder().seed(4).updater(AdaDelta(rho=0.8))
+         .graph_builder())
+    g.add_inputs("in").set_input_types(JIT.recurrent(V, 12))
+    g.add_layer("proj", jl.Convolution1DLayer(
+        kernel=1, n_out=8, has_bias=False, dropout=0.7,
+        weight_init="lecun_uniform", **common), "in")
+    g.add_layer("lstm", jl.LSTM(n_out=6, activation="softsign",
+                                dropout=jdrop.AlphaDropout(0.9),
+                                weight_noise=jdrop.DropConnect(0.5),
+                                constraints=[jcon.MinMaxNormConstraint(
+                                    min_norm=0.1, max_norm=0.9)],
+                                **common), "proj")
+    g.add_layer("pool", jl.GlobalPoolingLayer(pooling_type="pnorm", pnorm=3.0,
+                                              collapse_dimensions=False,
+                                              dropout=0.9), "lstm")
+    g.add_layer("out", jl.OutputLayer(n_out=3, loss="mcxent",
+                                      activation="softmax",
+                                      dropout=jdrop.GaussianNoise(0.1),
+                                      weight_init="var_scaling_normal_fan_avg",
+                                      **common), "pool")
+    g.set_outputs("out")
+    gconf = g.build()
+    gconf.tbptt_fwd_length, gconf.tbptt_back_length = 7, 3
+    graph = JGraph(gconf).init()
+    x, y = _batch(b=3, t=12, seed=21)
+    mln.fit(JDataSet(x, y), epochs=1)
+    yg = np.eye(3, dtype=np.float32)[[0, 2, 1]]
+    graph.fit(x, yg, batch_size=3)
+    return mln, graph, x
+
+
+def test_a_jax_archive_with_every_a1_field_restores_in_the_port(tmp_path):
+    mln, graph, x = _a1_nets()
+    for jnet in (mln, graph):
+        jpath = str(tmp_path / "jax.zip")
+        jms.write_model(jnet, jpath)
+        with zipfile.ZipFile(jpath) as zf:
+            jjson = json.loads(zf.read("configuration.json"))
+        back = tms.restore_model(jpath, device="cpu")
+        # the configuration reads and writes key for key
+        assert back.conf.to_dict() == jjson == jnet.conf.to_dict()
+        np.testing.assert_allclose(_first(back.output(x)).numpy(),
+                                   np.asarray(_first(jnet.output(x))),
+                                   atol=1e-5, rtol=1e-5)
+        # the updater state, key for key
+        want = _np_tree(jnet.updater_state)
+        got = updater_state_to_numpy(back.updater_state)
+        assert json.dumps(_shapes(got)) == json.dumps(_shapes(want))
+        if "t" in want:
+            assert int(got["t"]) == int(want["t"]) == 2    # two tBPTT chunks
+        tpath = str(tmp_path / "port.zip")
+        tms.write_model(back, tpath)
+        with zipfile.ZipFile(tpath) as zf:
+            assert json.loads(zf.read("configuration.json")) == jjson

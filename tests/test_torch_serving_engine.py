@@ -189,7 +189,7 @@ def test_left_out_arguments_raise(nets, monkeypatch):
     # legacy round trip it cannot ride is refused as in the JAX package
     with pytest.raises(ValueError, match="needs direct=True"):
         PagedKVConfig(kv_dtype="int8", direct=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         PagedKVConfig(decode_impl="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         PagedKVConfig(direct=False)
