@@ -364,6 +364,38 @@ Phases (any failure exits nonzero):
     (losses within 1e-4, parameters and AdaMax state by update_err, a
     run with other masks beyond the limit); a hardsigmoid-gated LSTM on
     the scan route on the card against the same net on the CPU.
+28. fit graphs (``fit_graph_transformer``, ``fit_graph_resnet``): the
+    fit loop's K-step CUDA graph (``nn/network_base.py``). Phase 7's
+    transformer (T 8192, B 4, bf16, 6 layers) and ResNet50 at B = 128
+    (bf16, Nesterovs(0.01)) on fuse=True and on the fused plan with the
+    stem: ``fit(steps_per_dispatch=4, prefetch=2)`` over 12 batches
+    against the eager ``fit`` (K = 1, no prefetch), each from the same
+    trees. Two eager fits first: where they agree bit for bit, the graph
+    fits' losses and trees (parameters, updater state, BN statistics)
+    must equal theirs bit for bit, else lie within twice their
+    difference; one capture, the first group eager, then one replay per
+    4 steps (the fit's dispatch counts); the turns graph, eager, eager,
+    graph (ms a step); a steady-state profile of each (the Chrome
+    trace's device busy share, host launch calls a step, the port's
+    kernels a step by device function, equal in the graph and eager
+    fits; the flash kernels 6 a step); one replay timed on the card;
+    peak memory. cuDNN runs deterministic algorithms in the ResNet50
+    runs;
+29. fit graph sentinel (``fit_graph_sentinel``): the transformer cut to
+    2 layers, one NaN in the third batch of a replayed group: the graph
+    fit's losses and trees as the eager fit's skip leaves them, the
+    registry's ``dl4jtpu_bad_steps_total`` and
+    ``_skipped_updates_total`` up by one each; the same run with the
+    device select removed (planted) fails;
+30. fit graph draws (``fit_graph_draws``): an MLP with Dropout(0.9) and
+    WeightNoise: ``fit(steps_per_dispatch=4)`` refuses it on the card
+    (ROADMAP.md A5) before any step, the eager fit trains it;
+31. prefetch (``prefetch_lstm``): phase 24's text LSTM over 6 batches,
+    ``fit(prefetch=2)`` against ``fit()`` in turns from the same trees:
+    losses and trees bitwise equal; ms a step, the busy share, the
+    copies' device time, and the copy's share of the critical path (the
+    pageable copy without prefetch; with it, the compute stream's timed
+    wait on each batch's copy event).
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -7197,6 +7229,685 @@ def fused_entry(name, replaces, launches, cases):
                        **{k: c[k] for k in keys}} for c in cases]}
 
 
+# ---------------------------------------------------------------------
+# the fit machinery (ROADMAP A5): K-step CUDA graphs and the prefetch
+# stage, each against the eager fit from the same initial trees
+# ---------------------------------------------------------------------
+#: fit(steps_per_dispatch=GRAPH_K, prefetch=GRAPH_PREFETCH) over
+#: GRAPH_BATCHES batches (pad_tail at its default, on for K > 1: every
+#: batch carries its example-weight mask), against the eager fit (K = 1,
+#: no prefetch) with pad_tail=True, which computes the same masked loss
+GRAPH_K, GRAPH_BATCHES, GRAPH_PREFETCH = 4, 12, 2
+#: profiled steady-state fits of each kind a graph phase takes, in turns
+#: (graph, eager, eager, graph, ...): the busy shares' spread
+PROFILE_TURNS = 3
+#: the graph phases' ResNet50 learning rate (Nesterovs): small enough
+#: that 12 steps from random weights stay finite
+GRAPH_RESNET_LR = 0.01
+#: the sentinel phase: the transformer cut to 2 layers, 2 groups, one
+#: NaN in the third batch of the second (a replayed) group
+SENTINEL_LAYERS, SENTINEL_BATCHES, SENTINEL_NAN_BATCH = 2, 8, 6
+#: the prefetch phase: bench_lstm's batch, this many batches a fit
+PREFETCH_LSTM_BATCHES = 6
+#: the port's own kernels, by the device function names of csrc/ (the
+#: profiler's kernel names hold them)
+OUR_KERNELS = ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel",
+               "fwd_tc_kernel", "conv_gemm_kernel", "dz_kernel",
+               "dz_tc_kernel", "dw_kernel", "dw_tc_kernel", "dy_kernel",
+               "dx_kernel", "dx_tc_kernel", "reduce_splits_kernel",
+               "reduce_partials_kernel", "conv_tc_kernel", "fwd_pool_kernel",
+               "bwd_pool_kernel", "fused_fwd_kernel", "fused_dz_kernel",
+               "fused_dw_kernel", "fused_finish_kernel", "lstm_fwd_kernel",
+               "lstm_bwd_kernel", "lstm_fwd_cluster_kernel",
+               "lstm_bwd_cluster_kernel")
+#: each kernel row's launches a step in a profile, by the one device
+#: function its wrapper launches once a call (bf16, the graph phases'
+#: dtype; rows 3, 4 and 6 by their dz pass, or the fused finish); the
+#: profile's kernel names, cut to 90 characters, hold these
+ROW_KERNELS = {"flash_fwd": r"flash_fwd(_mma)?_kernel",
+               "flash_bwd_dq": r"flash_bwd_dq(_mma)?_kernel",
+               "flash_bwd_dkv": r"flash_bwd_dkv(_mma)?_kernel",
+               "conv1x1": r"dl4j_fwd::fwd_tc_kernel<1, \d+, 0>",
+               "conv3x3": r"dl4j_fwd::fwd_tc_kernel<9, \d+, 0>",
+               "bwd1x1": r"dl4j_bwd::dz_tc_kernel<1, \d+, 0>",
+               "bwd3x3": r"dl4j_bwd::dz_tc_kernel<9, \d+, 0>",
+               "stem_conv": r"conv_tc::conv_tc_kernel",
+               "stem_pool": r"fwd_pool::fwd_pool_kernel",
+               "stem_bwd_pool": r"bwd_pool_kernel",
+               "stem_bwd_dw": r"dw_tc::dw_tc_kernel",
+               "fused_fwd": r"dl4j_fwd::fwd_tc_kernel<1, \d+, 1>",
+               "fused_bwd": r"fused_finish_kernel"}
+#: the host's launch calls, by the profiler's runtime-call names
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+class RawScores:
+    """A listener that keeps each step's loss as it arrives (a device
+    scalar: no host read until the run is over)."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, model, iteration, score):
+        self.scores.append(score)
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+
+def net_trees(net):
+    return (net.params, net.updater_state, net.state)
+
+
+def clone_trees(trees):
+    from deeplearning4j_tpu_torch.nn.updater import tree_map
+    return tuple(tree_map(lambda t: t.detach().clone()
+                          if torch.is_tensor(t) else t, tree)
+                 for tree in trees)
+
+
+def tensor_leaves(trees):
+    out = []
+    for tree in trees:
+        out += [t for _, t in leaf_items(tree) if torch.is_tensor(t)]
+    return out
+
+
+def run_fit(net, x, y, b, init, k=1, prefetch=0, pad_tail=None):
+    """One fit over (x, y) in batches of b from the trees ``init`` (or,
+    with ``init`` None, from the net's own: a steady-state run), with
+    ``pad_tail`` at fit's default unless given: its wall time (fit ends
+    in its one sync), the losses, the final trees (device copies, with
+    ``init``), peak memory and the dispatch counts it added."""
+    if init is not None:
+        net.params, net.updater_state, net.state = clone_trees(init)
+    lst = RawScores()
+    net.set_listeners(lst)
+    d0 = dict(net.fit_dispatch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=b, steps_per_dispatch=k, prefetch=prefetch,
+            pad_tail=pad_tail)
+    wall = time.perf_counter() - t0
+    net.set_listeners()
+    steps = len(lst.scores)
+    return {"k": k, "prefetch": prefetch, "wall_s": wall, "steps": steps,
+            "step_ms": 1e3 * wall / steps,
+            "losses": [float(s) for s in lst.scores],
+            "trees": None if init is None else clone_trees(net_trees(net)),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "dispatch": {key: v - d0.get(key, 0)
+                         for key, v in net.fit_dispatch.items()
+                         if v - d0.get(key, 0)}}
+
+
+def run_diff(a, b):
+    """(bitwise, largest absolute difference) of two runs' losses and
+    final trees (NaN where both are NaN counts as equal)."""
+    la, lb = np.asarray(a["losses"]), np.asarray(b["losses"])
+    same = la.shape == lb.shape and bool(np.array_equal(la, lb,
+                                                        equal_nan=True))
+    worst = float(np.nanmax(np.abs(la - lb))) if la.size else 0.0
+    for u, w in zip(tensor_leaves(a["trees"]), tensor_leaves(b["trees"]),
+                    strict=True):
+        if torch.equal(u, w) or (u.is_floating_point() and bool(
+                torch.equal(torch.nan_to_num(u), torch.nan_to_num(w)))):
+            continue
+        same = False
+        d = (u.double() - w.double()).abs()
+        worst = max(worst, float(torch.nan_to_num(d, nan=float("inf"))
+                                 .max()))
+    return same, worst
+
+
+def eager_gate(e1, e2, g):
+    """The graph fit against the eager fit: bitwise where two eager fits
+    are bitwise equal, else within twice their difference."""
+    ee_same, ee = run_diff(e1, e2)
+    ge_same, ge = run_diff(g, e1)
+    held = ge_same if ee_same else ge <= 2 * ee
+    return {"eager_bitwise": ee_same, "eager_diff": ee,
+            "graph_bitwise": ge_same, "graph_diff": ge,
+            "rule": "bitwise" if ee_same else "within 2x eager diff",
+            "held": bool(held)}
+
+
+def summary(run):
+    return {k: v for k, v in run.items() if k != "trees"}
+
+
+def union_us(spans):
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_run(net, x, y, b, k, prefetch, pad_tail=None):
+    """A steady-state run (from the net's own trees) under
+    torch.profiler, read from its Chrome trace: wall ms a step, the
+    device's busy share (the union of its kernel, copy and fill
+    intervals over the wall time), host launch calls a step, kernels a
+    step, the port's own kernels a step by name, the graph launches, and
+    the host-to-device copies (``h2d_exposure``)."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = f"chiprun_out/profile_{os.getpid()}.trace.json"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = run_fit(net, x, y, b, None, k, prefetch, pad_tail)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        rec = h2d_exposure(events)
+    finally:
+        os.remove(path)
+    steps = run["steps"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e.get("cat") == "kernel"]
+    names = {}
+    for e in kernels:
+        if any(n in e["name"] for n in OUR_KERNELS):
+            key = e["name"][:90]
+            names[key] = names.get(key, 0) + 1
+    host = {}
+    for e in events:
+        if e.get("name") in HOST_LAUNCHES:
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in device]
+    rec.update({
+        "step_ms": run["step_ms"],
+        "device_busy_share": union_us(spans) / (run["wall_s"] * 1e6),
+        "device_busy_ms_per_step": union_us(spans) / 1e3 / steps,
+        "host_launches_per_step": sum(host.values()) / steps,
+        "host_calls": host,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "our_kernels_per_step": {n: c / steps for n, c in names.items()},
+        "graph_launches": host.get("cudaGraphLaunch", 0),
+        "h2d_exposed_ms_per_step": rec["h2d_exposed_ms"] / steps})
+    return rec, run
+
+
+def replay_device_ms(net, reps=3):
+    """The card's time of one replay of the net's step graph (CUDA events
+    on its stream), median of ``reps``; the replays update the net's
+    trees, so this runs after the gates."""
+    sg = net._step_graph
+    times = []
+    with torch.cuda.stream(sg.stream):
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sg.graph.replay()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def spread(values):
+    """The values with their median, least and largest."""
+    return {"values": values, "median": float(np.median(values)),
+            "min": float(min(values)), "max": float(max(values))}
+
+
+def most_per_step(profiles):
+    """Each of the port's kernels' most launches a step over profiles."""
+    out = {}
+    for p in profiles:
+        for name, v in p["our_kernels_per_step"].items():
+            out[name] = max(out.get(name, 0), v)
+    return out
+
+
+def row_launches(ours):
+    """A profile's launches a step of each kernel row (ROW_KERNELS)."""
+    import re
+    return {row: sum(v for name, v in ours.items() if re.search(pat, name))
+            for row, pat in ROW_KERNELS.items()}
+
+
+def graph_phase(label, net, x, y, b, failures, want_rows):
+    """A net's graph fit against its eager fit (pad_tail=True: the same
+    masked loss): two eager fits (the gate's noise floor), the first
+    graph fit (its first group warms eagerly, its second is captured,
+    then every group replays), the turns graph, eager, eager, graph,
+    then PROFILE_TURNS profiled steady-state fits of each kind in turns
+    and one replay timed on the card. The rows ``want_rows`` must each
+    launch inside the replays as often a step as the eager fit's wrapper
+    counts say; the inference forward after a graph fit (``output()``'s
+    path; its logits, which a saturated softmax would hide) must read
+    the parameters the fit left, not a compute-dtype copy from before
+    it. A profile can lose some of a replay's kernel records, so the
+    kernel counts are each name's most over the profiled fits of a
+    kind."""
+    steps = x.shape[0] // b
+    graph_kp = (GRAPH_K, GRAPH_PREFETCH)
+    eager_kp = (1, 0, True)
+    init = clone_trees(net_trees(net))
+    cap0 = net.fit_dispatch.get("captures", 0)
+    zero_counts()
+    e1 = run_fit(net, x, y, b, init, *eager_kp)
+    eager_rows = {n: c / steps for n, c in read_counts().items() if c}
+    e2 = run_fit(net, x, y, b, init, *eager_kp)
+    zero_counts()
+    g1 = run_fit(net, x, y, b, init, *graph_kp)
+    capture_counts = {n: c for n, c in read_counts().items() if c}
+    turns = [run_fit(net, x, y, b, init, *kp)
+             for kp in (graph_kp, eager_kp, eager_kp, graph_kp)]
+    gate = eager_gate(e1, e2, g1)
+    gate_replayed = eager_gate(e1, e2, turns[0])
+    # profiled steady-state fits in turns, the graph first (the last turn
+    # left the graph's own trees in the net). Around the first, the
+    # output() check: before it (a compute-dtype copy made), after it,
+    # and from a copy of the trees it left
+    probe = x[:b]
+    before = logits(net, probe)
+    pgraphs, peffs, probe_rec = [], [], None
+    for i in range(PROFILE_TURNS):
+        for kind in (("graph", "eager") if i % 2 == 0 else
+                     ("eager", "graph")):
+            if kind == "graph":
+                # the eager fit's trees into the graph's, outside the
+                # profile (a steady-state fit's replays copy nothing in)
+                net._step_graph.bind(net)
+                pgraphs.append(profile_run(net, x, y, b, *graph_kp)[0])
+            else:
+                peffs.append(profile_run(net, x, y, b, *eager_kp)[0])
+            if probe_rec is None:
+                after = logits(net, probe)
+                held = net_trees(net)
+                net.params, net.updater_state, net.state = clone_trees(held)
+                fresh = logits(net, probe)
+                net.params, net.updater_state, net.state = held
+                probe_rec = {"equal_to_fresh_trees": bool(
+                                 torch.equal(after, fresh)),
+                             "moved_by_the_fit": not bool(
+                                 torch.equal(after, before))}
+                del before, after, fresh
+    dev_ms = replay_device_ms(net)
+    pgraph, peff = pgraphs[0], peffs[0]
+    eager_ms = [e1["step_ms"], e2["step_ms"], turns[1]["step_ms"],
+                turns[2]["step_ms"]]
+    graph_ms = [turns[0]["step_ms"], turns[3]["step_ms"]]
+    graph_step_ms = float(np.median(graph_ms))
+    rec = {"batches": steps, "batch": b, "k": GRAPH_K,
+           "prefetch": GRAPH_PREFETCH, "pad_tail": "default (on)",
+           "eager_pad_tail": True,
+           "eager_step_ms": eager_ms,
+           "eager_step_ms_median": float(np.median(eager_ms)),
+           "graph_first_fit_step_ms": g1["step_ms"],
+           "graph_step_ms": graph_ms, "graph_step_ms_median": graph_step_ms,
+           "replay_device_ms": dev_ms,
+           "replay_device_ms_per_step": dev_ms / GRAPH_K,
+           "graph_busy_share_from_replay": dev_ms / GRAPH_K / graph_step_ms,
+           "captures": net.fit_dispatch.get("captures", 0) - cap0,
+           "first_fit_dispatch": g1["dispatch"],
+           "replayed_fit_dispatch": turns[0]["dispatch"],
+           "eager_fit_dispatch": e1["dispatch"],
+           "eager_launches_per_step": eager_rows,
+           "capture_launch_counts": capture_counts,
+           # a replayed fit allocates nothing: the graph's pool was
+           # allocated at its capture (the first graph fit)
+           "peak_allocated_bytes": {"eager": e1["max_memory_allocated_bytes"],
+                                    "graph_first": g1[
+                                        "max_memory_allocated_bytes"],
+                                    "graph": turns[0][
+                                        "max_memory_allocated_bytes"]},
+           "peak_reserved_bytes": {"eager": e1["max_memory_reserved_bytes"],
+                                   "graph_first": g1[
+                                       "max_memory_reserved_bytes"],
+                                   "graph": turns[0][
+                                       "max_memory_reserved_bytes"]},
+           "losses_eager": e1["losses"], "losses_graph": g1["losses"],
+           "gate_first_graph_fit": gate,
+           "gate_replayed_graph_fit": gate_replayed,
+           "output_after_graph_fit": probe_rec,
+           "profiled_turns": {
+               kind: {key: spread([p[key] for p in ps]) for key in (
+                   "step_ms", "device_busy_share", "device_busy_ms_per_step",
+                   "host_launches_per_step", "kernel_launches_per_step")}
+               for kind, ps in (("eager", peffs), ("graph", pgraphs))},
+           "profile_eager": peff, "profile_graph": pgraph}
+    ours_e, ours_g = most_per_step(peffs), most_per_step(pgraphs)
+    got_rows = row_launches(ours_g)
+    rec["graph_row_launches_per_step"] = {r: got_rows[r] for r in want_rows}
+    rec["graph_row_launches_per_profile"] = [
+        {r: v for r, v in row_launches(p["our_kernels_per_step"]).items()
+         if r in want_rows} for p in pgraphs]
+    log(f"{label}:", json.dumps(rec))
+    if not (gate["held"] and gate_replayed["held"]):
+        failures.append(f"{label}: the graph fit parts from the eager fit "
+                        f"({gate}, {gate_replayed})")
+    if not (probe_rec["equal_to_fresh_trees"]
+            and probe_rec["moved_by_the_fit"]):
+        failures.append(f"{label}: output() after a graph fit {probe_rec}")
+    if rec["captures"] != 1:
+        failures.append(f"{label}: {rec['captures']} captures, want 1")
+    want_first = {"eager_group_steps": GRAPH_K, "replays":
+                  steps // GRAPH_K - 1, "graph_steps": steps - GRAPH_K,
+                  "captures": 1}
+    if g1["dispatch"] != want_first:
+        failures.append(f"{label}: the first graph fit ran "
+                        f"{g1['dispatch']}, want {want_first}")
+    want_replayed = {"replays": steps // GRAPH_K, "graph_steps": steps}
+    if turns[0]["dispatch"] != want_replayed:
+        failures.append(f"{label}: a replayed graph fit ran "
+                        f"{turns[0]['dispatch']}, want {want_replayed}")
+    for p in pgraphs:
+        if p["graph_launches"] != steps // GRAPH_K:
+            failures.append(f"{label}: {p['graph_launches']} graph "
+                            f"launches in a profiled fit, want "
+                            f"{steps // GRAPH_K}")
+    if not ours_g or ours_g != ours_e:
+        failures.append(f"{label}: the graph's kernels a step {ours_g} "
+                        f"are not the eager fit's {ours_e}")
+    for row in want_rows:
+        want = eager_rows.get(row, 0)
+        if not want or got_rows[row] != want:
+            failures.append(f"{label}: {row} launched {got_rows[row]} a "
+                            f"graph step, the eager fit's wrapper {want}")
+    return rec
+
+
+def graph_transformer_data(layers_seed, batches):
+    rng = np.random.default_rng(layers_seed)
+    x, y = one_hot_batch(rng, TRAIN_B * batches, TRAIN_VOCAB, TRAIN_T)
+    return x, y
+
+
+def fit_graph_transformer(device):
+    """The train phase's transformer (bench_all.py:356-387: T 8192, B 4,
+    bf16, 6 layers) through fit(steps_per_dispatch=4, prefetch=2) over 12
+    batches against the eager fit (``graph_phase``); the flash kernels
+    launch 6 times a graph step each."""
+    net = train_model(LAYERS, TRAIN_T, seed=3).init(device=device)
+    net.conf.dtype = "bfloat16"
+    x, y = graph_transformer_data(21, GRAPH_BATCHES)
+    failures = []
+    rec = graph_phase("fit_graph_transformer", net, x, y, TRAIN_B, failures,
+                      want_rows=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    del net
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"fit_graph_transformer: {failures}")
+    return rec
+
+
+def graph_resnet_images(batches, seed=0):
+    """GRAPH_BATCHES batches of bench_all.py's images: 4 distinct seeded
+    batches of RESNET_B, repeated."""
+    rng = np.random.default_rng(seed)
+    xs, ys = [], []
+    for _ in range(4):
+        xs.append(rng.standard_normal((RESNET_B, 3, RESNET_HW, RESNET_HW))
+                  .astype(np.float32))
+        y = np.zeros((RESNET_B, RESNET_CLASSES), np.float32)
+        y[np.arange(RESNET_B), rng.integers(0, RESNET_CLASSES, RESNET_B)] = 1
+        ys.append(y)
+    reps = batches // 4
+    return np.concatenate(xs * reps), np.concatenate(ys * reps)
+
+
+def fit_graph_resnet(device):
+    """ResNet50 at B=128 (bench_all.py:390-469, bf16) on two plans, each
+    through ``graph_phase`` (the BN running statistics are in the gate's
+    trees): fuse=True (rows 5, 6) and the fused plan with the stem (rows
+    1-4, 7-10). cuDNN runs its deterministic algorithms here, so two
+    eager fits can agree bit for bit."""
+    x, y = graph_resnet_images(GRAPH_BATCHES)
+    failures, rec = [], {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = fuse_true_net(device, torch.bfloat16, lr=GRAPH_RESNET_LR)
+        rec["fuse_true"] = graph_phase("fit_graph_resnet fuse_true", net, x,
+                                       y, RESNET_B, failures,
+                                       ("fused_fwd", "fused_bwd"))
+        del net
+        torch.cuda.empty_cache()
+        net = resnet_train_net(device, torch.bfloat16, lr=GRAPH_RESNET_LR)
+        net.set_fusion("bottleneck", stem=True)
+        rec["fused_stem"] = graph_phase(
+            "fit_graph_resnet fused_stem", net, x, y, RESNET_B, failures,
+            ("conv1x1", "conv3x3", "bwd1x1", "bwd3x3", "stem_conv",
+             "stem_pool", "stem_bwd_pool", "stem_bwd_dw"))
+        rec["fused_stem"]["plan"] = {"blocks": len(net._fusion()[1]),
+                                     "stem": bool(net._fusion()[2])}
+        del net
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if failures:
+        raise AssertionError(f"fit_graph_resnet: {failures}")
+    return rec
+
+
+def registry_count(name):
+    from deeplearning4j_tpu_torch.monitoring import global_registry
+    m = global_registry().get(name)
+    return 0.0 if m is None else m.total()
+
+
+def fit_graph_sentinel(device):
+    """One NaN in the third batch of a replayed K=4 group (the
+    transformer cut to 2 layers): the graph's device select must leave
+    the parameters, updater and layer state as the eager fit's host-read
+    skip leaves them (the gate's rule), the registry must count one bad
+    and one skipped step, and the same run with the select removed
+    (planted) must fail that check."""
+    from deeplearning4j_tpu_torch.nn import network_base
+    net = train_model(SENTINEL_LAYERS, TRAIN_T, seed=5).init(device=device)
+    net.conf.dtype = "bfloat16"
+    x, y = graph_transformer_data(22, SENTINEL_BATCHES)
+    rows = slice(TRAIN_B * SENTINEL_NAN_BATCH,
+                 TRAIN_B * (SENTINEL_NAN_BATCH + 1))
+    x[rows][1, 7, TRAIN_T // 2] = np.nan
+    init = clone_trees(net_trees(net))
+    e1 = run_fit(net, x, y, TRAIN_B, init, pad_tail=True)
+    e2 = run_fit(net, x, y, TRAIN_B, init, pad_tail=True)
+
+    def graph_run():
+        bad0 = registry_count("dl4jtpu_bad_steps_total")
+        skip0 = registry_count("dl4jtpu_skipped_updates_total")
+        g = run_fit(net, x, y, TRAIN_B, init, GRAPH_K, GRAPH_PREFETCH)
+        gate = eager_gate(e1, e2, g)
+        counts = {"bad_steps": registry_count("dl4jtpu_bad_steps_total")
+                  - bad0, "skipped_updates": registry_count(
+                      "dl4jtpu_skipped_updates_total") - skip0}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tensor_leaves(g["trees"])
+                     if t.is_floating_point())
+        ok = gate["held"] and finite and counts == {"bad_steps": 1,
+                                                    "skipped_updates": 1}
+        return {"gate": gate, "registry": counts, "trees_finite": finite,
+                "losses": g["losses"], "dispatch": g["dispatch"],
+                "held": bool(ok)}
+
+    real = graph_run()
+    real_guard = network_base.guard_updates
+    net._drop_step_graph()
+    network_base.guard_updates = lambda ok, policy, *pairs: tuple(
+        n for n, _ in pairs)
+    try:
+        planted = graph_run()
+    finally:
+        network_base.guard_updates = real_guard
+        net._drop_step_graph()
+    rec = {"nan_batch": SENTINEL_NAN_BATCH, "layers": SENTINEL_LAYERS,
+           "eager_losses": e1["losses"], "graph": real,
+           "planted_no_select": planted}
+    log("fit_graph_sentinel:", json.dumps(rec))
+    del net
+    torch.cuda.empty_cache()
+    if not real["held"] or planted["held"] or \
+            not np.isnan(real["losses"][SENTINEL_NAN_BATCH]) or \
+            real["dispatch"].get("graph_steps") != GRAPH_K:
+        raise AssertionError(f"fit_graph_sentinel: {rec}")
+    return rec
+
+
+def fit_graph_draws(device):
+    """A small MLP with Dropout(0.9) and WeightNoise: the step graph
+    would bake one mask into every replay, so fit(steps_per_dispatch=4)
+    on the card refuses it (ROADMAP.md A5), before any step; the eager
+    fit trains it."""
+    from deeplearning4j_tpu_torch.nn.conf import dropout as tdrop
+    from deeplearning4j_tpu_torch.nn.conf import layers as tl
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    layers = [tl.DenseLayer(n_in=64, n_out=256, activation="relu",
+                            dropout=tdrop.Dropout(0.9)),
+              tl.DenseLayer(n_out=256, activation="relu",
+                            weight_noise=tdrop.WeightNoise(stddev=0.01)),
+              tl.OutputLayer(n_out=10, loss="mcxent", activation="softmax")]
+    net = MultiLayerNetwork(MultiLayerConfiguration(
+        layers=layers, input_type=InputType.feed_forward(64),
+        seed=11)).init(device=device)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8 * 32, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8 * 32)]
+    refusal = None
+    try:
+        net.fit(x, y, batch_size=32, steps_per_dispatch=GRAPH_K)
+    except NotImplementedError as e:
+        refusal = str(e)
+    steps_before = net.iteration_count
+    net.fit(x, y, batch_size=32)
+    rec = {"refusal": refusal, "iterations_before_refusal": steps_before,
+           "eager_loss": net.score_value,
+           "eager_iterations": net.iteration_count}
+    log("fit_graph_draws:", json.dumps(rec))
+    if refusal is None or "ROADMAP.md A5" not in refusal or \
+            steps_before != 0 or not np.isfinite(rec["eager_loss"]):
+        raise AssertionError(f"fit_graph_draws: {rec}")
+    return rec
+
+
+def h2d_exposure(events):
+    """From a Chrome trace's complete events: the host-to-device copies'
+    total device ms and the ms of it not overlapped by any kernel (the
+    copy still on the step's critical path)."""
+    copies, kernels = [], []
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        span_ = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            copies.append((span_, name))
+        elif cat == "kernel":
+            kernels.append(span_)
+    kernels.sort()
+    merged = []
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = exposed = 0.0
+    kinds = {}
+    for (a, b), name in copies:
+        total += b - a
+        kinds[name] = kinds.get(name, 0) + 1
+        covered = sum(max(0.0, min(b, m1) - max(a, m0))
+                      for m0, m1 in merged if m1 > a and m0 < b)
+        exposed += (b - a) - covered
+    return {"h2d_ms": total / 1e3, "h2d_exposed_ms": exposed / 1e3,
+            "h2d_copies": kinds}
+
+
+def copy_stalls(net, x, y, b, prefetch):
+    """A steady-state prefetched fit with each batch's hand-over timed
+    on the consumer's stream: an event before and after its wait on the
+    batch's copy event. The first completes when the stream's earlier
+    work (the previous step) is done, so the gap is how long the step
+    waited for its copy: the copy's share of the critical path. Returns
+    the ms of each wait."""
+    from deeplearning4j_tpu_torch.pipeline import prefetch as pf
+    real, pairs = pf.handover, []
+
+    def timed(ds, stream=None):
+        if getattr(ds, "copy_event", None) is None:
+            return real(ds, stream)
+        s = stream or torch.cuda.current_stream()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record(s)
+        out = real(ds, s)
+        z.record(s)
+        pairs.append((a, z))
+        return out
+    pf.handover = timed
+    try:
+        run_fit(net, x, y, b, None, 1, prefetch)
+    finally:
+        pf.handover = real
+    torch.cuda.synchronize()
+    return [a.elapsed_time(z) for a, z in pairs]
+
+
+def prefetch_lstm(device):
+    """bench_lstm's text LSTM (bf16, B = T = 256, tBPTT: every batch
+    runs by itself) through fit(prefetch=2) against fit() in turns from
+    the same trees: the losses bitwise equal (prefetch changes no
+    arithmetic), ms a step, the busy share, and how much of the
+    host-to-device copy still sits on the step's critical path (the
+    profiler's copies against its kernels)."""
+    net = text_lstm_net(device, torch.bfloat16)
+    x, y = text_batch(LSTM_B * PREFETCH_LSTM_BATCHES, LSTM_T, seed=3)
+    init = clone_trees(net_trees(net))
+    run_fit(net, x[:LSTM_B], y[:LSTM_B], LSTM_B, init)
+    runs = [run_fit(net, x, y, LSTM_B, init, 1, p) for p in (0, 2, 2, 0)]
+    same = all(r["losses"] == runs[0]["losses"] for r in runs) and all(
+        run_diff(r, runs[0])[0] for r in runs)
+    prof = {p: profile_run(net, x, y, LSTM_B, 1, p)[0] for p in (0, 2)}
+    stalls = copy_stalls(net, x, y, LSTM_B, 2)
+    ms = {p: [r["step_ms"] for r in runs if r["prefetch"] == p]
+          for p in (0, 2)}
+    rec = {"batches": PREFETCH_LSTM_BATCHES, "batch": LSTM_B, "T": LSTM_T,
+           "bytes_per_batch": 2 * LSTM_B * LSTM_VOCAB * LSTM_T * 4,
+           "step_ms": ms,
+           "step_ms_median": {p: float(np.median(v)) for p, v in ms.items()},
+           "losses_bitwise": bool(same), "losses": runs[0]["losses"],
+           "peak_allocated_bytes": {p: runs[i]["max_memory_allocated_bytes"]
+                                    for i, p in ((0, 0), (1, 2))},
+           "profile": {str(p): v for p, v in prof.items()},
+           # without prefetch the pageable copy runs on the compute
+           # stream: all of it is on the critical path
+           "h2d_critical_ms_per_step": {
+               "0": prof[0]["h2d_ms"] / PREFETCH_LSTM_BATCHES,
+               "2": float(np.mean(stalls))},
+           "copy_waits_ms": stalls}
+    log("prefetch_lstm:", json.dumps(rec))
+    del net
+    torch.cuda.empty_cache()
+    if not same or not all(np.isfinite(runs[0]["losses"])):
+        raise AssertionError(f"prefetch_lstm: {rec}")
+    return rec
+
+
 def build_all():
     """Build every kernel library, one nvcc each, all started together;
     returns (seconds, {library: ptxas lines})."""
@@ -7444,6 +8155,32 @@ def main(argv=None) -> int:
             "step_ms_median": rl["turns"]["step_ms_median"],
             "peak_bytes": rl["turns"]["peak_bytes"], "card": smi}))
 
+    if want("fit_graph_transformer"):
+        out["fit_graph_transformer"] = phase(
+            "fit_graph_transformer", fit_graph_transformer, device)
+    if want("fit_graph_resnet"):
+        out["fit_graph_resnet"] = phase("fit_graph_resnet",
+                                        fit_graph_resnet, device)
+    if want("fit_graph_sentinel"):
+        out["fit_graph_sentinel"] = phase("fit_graph_sentinel",
+                                          fit_graph_sentinel, device)
+    if want("fit_graph_draws"):
+        out["fit_graph_draws"] = phase("fit_graph_draws", fit_graph_draws,
+                                       device)
+    if want("prefetch_lstm"):
+        out["prefetch_lstm"] = phase("prefetch_lstm", prefetch_lstm, device)
+    graph_recs = {k: out[k] for k in ("fit_graph_transformer",
+                                      "fit_graph_resnet") if k in out}
+    if graph_recs:
+        log("fit graphs:", json.dumps({
+            **{k: graph_line(v) for k, v in graph_recs.items()},
+            "card": smi}))
+    if "prefetch_lstm" in out:
+        log("prefetch lstm:", json.dumps({
+            k: out["prefetch_lstm"][k] for k in (
+                "step_ms_median", "losses_bitwise",
+                "h2d_critical_ms_per_step")} | {"card": smi}))
+
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} passed in "
             f"{time.perf_counter() - t_start:.1f} s (a partial run: no "
@@ -7466,6 +8203,24 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def graph_line(rec):
+    """The headline numbers of a graph phase's record (per plan for
+    ResNet50)."""
+    def one(r):
+        t = r["profiled_turns"]
+        return {"eager_step_ms": r["eager_step_ms_median"],
+                "graph_step_ms": r["graph_step_ms_median"],
+                "busy_eager": t["eager"]["device_busy_share"]["values"],
+                "busy_graph": t["graph"]["device_busy_share"]["values"],
+                "host_launches_per_step": [
+                    t["eager"]["host_launches_per_step"]["median"],
+                    t["graph"]["host_launches_per_step"]["median"]],
+                "captures": r["captures"],
+                "gate": r["gate_first_graph_fit"]["rule"]}
+    return one(rec) if "captures" in rec else {k: one(v)
+                                               for k, v in rec.items()}
 
 
 def kernels_line(out):

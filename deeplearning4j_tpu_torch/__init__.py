@@ -22,7 +22,11 @@ classifying and training on the fused execution plan, its bottleneck
 blocks and stem through the conv kernels and their backward kernels
 (``nn/layers/csrc/bottleneck.cu``, ``bottleneck_bwd.cu``, ``stem.cu``,
 ``stem_bwd.cu``), the plan resolved from a measured kernel-crossover
-store (``tuning``). ROADMAP.md lists the rest.
+store (``tuning``); and the fit loop of both networks (listeners, tail
+padding, a device prefetch stage, ``steps_per_dispatch=K`` as one CUDA
+graph of K steps), publishing into the monitoring registry
+(``monitoring``, ``pipeline``, ``optimize``). ROADMAP.md lists the
+rest.
 """
 
 __version__ = "0.1.0"

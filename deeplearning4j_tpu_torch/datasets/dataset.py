@@ -31,3 +31,9 @@ class DataSet:
     labels: Optional[np.ndarray] = None
     features_mask: Optional[np.ndarray] = None
     labels_mask: Optional[np.ndarray] = None
+
+    def num_examples(self) -> int:
+        f = self.features
+        if isinstance(f, dict):
+            f = next(iter(f.values()))
+        return int(f.shape[0])

@@ -5,8 +5,9 @@ in-memory iterator ``fit`` builds: ``ArrayDataSetIterator`` gives the
 JAX package's batches in the same order, shuffled or not (a pass ``e``
 shuffles with ``np.random.default_rng(seed + e)``); ``restore_state``
 picks the next pass's index and first batch, as the JAX iterator's
-does. Its ``state()`` half (durable checkpoints) and the asynchronous,
-prefetching and chaos iterators are ROADMAP.md A5.
+does. The device prefetch stage is ``pipeline/prefetch.py``; the
+iterator's ``state()`` half (durable checkpoints) and the asynchronous
+and chaos iterators are ROADMAP.md A5.
 """
 
 from __future__ import annotations

@@ -7,12 +7,15 @@ drive (the KV caches and positional offsets, and the LSTM layers' ``h``
 / ``c``: a streaming call feeds each layer its carried state and keeps
 the new one; other calls start from zeros), training (``fit`` over a
 DataSet, ``(features, labels)`` or an iterator, one optimizer step per
-batch, and ``score``), and the fused
-execution plans of the CNN stack. PyTorch runs eagerly, so there is no
-jit cache: each call runs the vertex loop directly, and a train step is
-one autograd pass over it, with batch statistics in every BN (``fit``
-trains ResNet50 on every execution plan). Fused multi-step dispatch,
-prefetch and listeners (ROADMAP.md A5) and masks (A6) are refused.
+batch, or ``steps_per_dispatch=K`` batches as one CUDA graph on the
+card, with listeners, tail padding and device prefetch: the fit loop of
+``nn/network_base.py``; and ``score``), and the fused execution plans of
+the CNN stack. PyTorch runs eagerly, so there is no jit cache: each call
+runs the vertex loop directly, and a train step is one autograd pass
+over it, with batch statistics in every BN (``fit`` trains ResNet50 on
+every execution plan). A labels mask reaches only the loss, as in the
+JAX ``_loss`` (the example weights of tail padding); features masks
+(ROADMAP.md A6) are refused.
 In training each layer's ``dropout`` draws from its generator of the
 step (``nn/network_base.py``); as in the JAX ``ComputationGraph``, the
 graph applies no weight noise and no constraints (those are the
@@ -719,12 +722,14 @@ class ComputationGraph(NetworkBase):
 
     # ------------------------------------------------------------------
     def _loss(self, params, inputs, labels, *, train: bool = True,
-              gens=None):
+              gens=None, lmasks=None):
         """Sum of the output layers' losses plus the L1/L2 terms, as a
         function of the f32 ``params`` (the compute cast happens here,
         so autograd carries the gradient back through it), with the
         forward in its training form unless ``train=False`` (``score``),
-        with a training step's generators ``gens``; returns (loss, new
+        with a training step's generators ``gens``; ``lmasks`` (labels
+        masks by output name) weight each output's loss and reach
+        nothing else, as in the JAX ``_loss``. Returns (loss, new
         state)."""
         outs = self.conf.network_outputs
         for name in outs:
@@ -739,31 +744,39 @@ class ComputationGraph(NetworkBase):
         total = 0.0
         for name in outs:
             total = total + self.conf.vertices[name].layer.compute_score(
-                labels[name], f32_head(acts[name]))
+                labels[name], f32_head(acts[name]),
+                (lmasks or {}).get(name))
         return total + self._reg_loss(params), new_state
 
-    def _train_step(self, inputs, labels) -> torch.Tensor:
-        """One optimizer step, autograd through the whole forward (the
-        kernels' backward included); returns the loss (on the device)."""
-        gens = self._step_gens()
-        return self._step(lambda p: self._loss(p, inputs, labels,
-                                               gens=gens))
+    def _batch_loss_fn(self, ds: DataSet, gens, carry_rnn: bool = False):
+        inputs, labels, lmasks = self._batch(ds)
+        return lambda p: self._loss(p, inputs, labels, gens=gens,
+                                    lmasks=lmasks)
 
     def _batch(self, ds: DataSet):
-        """A batch's inputs and labels as f32 tensors by name."""
-        if ds.features_mask is not None or ds.labels_mask is not None:
-            raise NotImplementedError("feature and label masks in fit are "
-                                      "not ported yet (ROADMAP.md A6)")
+        """A batch's inputs and labels as f32 tensors by name, and its
+        labels masks by output name (or None). A labels mask weights the
+        loss only (the JAX ``_loss``); a features mask would reach the
+        layers and is refused (ROADMAP.md A6)."""
+        if ds.features_mask is not None:
+            raise NotImplementedError("feature masks in fit are not ported "
+                                      "yet (ROADMAP.md A6)")
         feats = ds.features
         if not isinstance(feats, dict):
             feats = dict(zip(self.conf.network_inputs,
                              feats if isinstance(feats, (list, tuple))
                              else [feats]))
+        out0 = self.conf.network_outputs[0]
         labels = ds.labels
         if not isinstance(labels, dict):
-            labels = {self.conf.network_outputs[0]: labels}
+            labels = {out0: labels}
+        lmasks = ds.labels_mask
+        if lmasks is not None and not isinstance(lmasks, dict):
+            lmasks = {out0: lmasks}
         return ({k: self._tensor(x) for k, x in feats.items()},
-                {k: self._tensor(y) for k, y in labels.items()})
+                {k: self._tensor(y) for k, y in labels.items()},
+                None if lmasks is None else
+                {k: self._tensor(m) for k, m in lmasks.items()})
 
     def fit(self, data, labels=None, epochs: int = 1, batch_size: int = 32,
             *, steps_per_dispatch: int = 1, prefetch: int = 0,
@@ -776,33 +789,34 @@ class ComputationGraph(NetworkBase):
         the kernel-crossover store, "fused" every eligible block and the
         stem where the store says it wins); None keeps the net's plan
         (``set_fusion(True)`` included). A fused group, block or stem
-        trains through its backward kernels."""
-        it = self._fit_iterator(data, labels, batch_size,
-                                steps_per_dispatch=steps_per_dispatch,
-                                prefetch=prefetch, pad_tail=pad_tail)
-        if not self._initialized:
-            self.init()
-        if execution_plan is not None:
-            from deeplearning4j_tpu_torch.tuning.plan import (
-                apply_execution_plan)
-            apply_execution_plan(self, execution_plan)
-        for _ in range(epochs):
-            for ds in it:
-                self._fit_batch(ds)
-            self.epoch_count += 1
-        return self
+        trains through its backward kernels.
 
-    def _fit_batch(self, ds: DataSet):
-        inputs, labels = self._batch(ds)
-        self.score_value = self._train_step(inputs, labels)
-        self.iteration_count += 1
+        ``steps_per_dispatch=K`` runs each run of K same-shape batches as
+        one group (one CUDA graph replay on the card), ``prefetch=N``
+        stages batches N deep through ``pipeline.DevicePrefetchIterator``
+        and ``pad_tail`` (default: on when K > 1) pads the ragged last
+        batch with an example-weight labels mask, unless it has a
+        features mask and no labels mask (the JAX predicate); see
+        ``nn/network_base.py``."""
+        return self._fit(data, labels, epochs, batch_size,
+                         steps_per_dispatch=steps_per_dispatch,
+                         prefetch=prefetch, pad_tail=pad_tail,
+                         execution_plan=execution_plan)
+
+    def _pad_when(self, ds: DataSet) -> bool:
+        return ds.labels is not None and (
+            ds.labels_mask is not None or ds.features_mask is None)
+
+    def _plan_key(self):
+        return (self.fusion_level, self._fuse_stem, self._fusion_only)
 
     def score(self, ds: DataSet) -> float:
         """The loss of ``ds`` at the current parameters (L1/L2 terms
         included)."""
-        inputs, labels = self._batch(ds)
+        inputs, labels, lmasks = self._batch(ds)
         with torch.no_grad():
-            loss, _ = self._loss(self.params, inputs, labels, train=False)
+            loss, _ = self._loss(self.params, inputs, labels, train=False,
+                                 lmasks=lmasks)
         return float(loss)
 
     # ------------------------------------------------------------------

@@ -43,7 +43,7 @@ kernel gives ``dzx``, ``dh0`` and ``dc0``; ``dRW`` (``sum_t
 h_{t-1}^T dgates_t``) and the three peephole rows (from the saved c) are
 products and reductions outside, as JAX computes them outside any Pallas
 kernel. A mask is taken by the forward (``output(mask=)``) and refused
-by the backward (masks in ``fit``: ROADMAP.md A6).
+by the backward (features masks in ``fit``: ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -504,8 +504,8 @@ class LSTMRecurrence(torch.autograd.Function):
     def backward(ctx, dout, dh_t, dc_t):
         if ctx.masked:
             raise NotImplementedError(
-                "the LSTM recurrence's backward takes no mask: feature and "
-                "label masks in fit are not ported yet (ROADMAP.md A6)")
+                "the LSTM recurrence's backward takes no mask: feature "
+                "masks in fit are not ported yet (ROADMAP.md A6)")
         gates, c, out, rw, h0, c0, peephole = ctx.saved_tensors
         dt = out.dtype
         # autograd hands zeros for an output the loss does not read

@@ -24,8 +24,9 @@ def decayed(old, new, decay: float):
     bf16 it rounds (0.9 to 0.8984375) and the product rounds in bf16,
     where a PyTorch bf16 tensor times a Python float would multiply by
     the unrounded 0.9 in f32 and round once. The f32 batch term then
-    promotes the sum to f32."""
-    return old * torch.tensor(decay, dtype=old.dtype, device=old.device) \
+    promotes the sum to f32. The rounded decay is filled on the device
+    (no host copy, so the step can be captured in a CUDA graph)."""
+    return old * torch.full((), decay, dtype=old.dtype, device=old.device) \
         + (1.0 - decay) * new
 
 

@@ -3,8 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the
 layer-by-layer forward, ``output``, the streaming ``rnn_time_step`` /
 ``rnn_clear_previous_state`` pair, training (``fit`` over a DataSet,
-``(features, labels)`` or an iterator, one optimizer step per batch,
-truncated BPTT when the configuration asks for it) and ``score``.
+``(features, labels)`` or an iterator, one optimizer step per batch or
+``steps_per_dispatch=K`` batches as one CUDA graph on the card, truncated
+BPTT when the configuration asks for it, with listeners, tail padding
+and device prefetch: the fit loop of ``nn/network_base.py``) and
+``score``.
 PyTorch runs eagerly: each call runs the layer loop directly, and a
 train step is one autograd pass over it (``nn/network_base.py``).
 
@@ -23,10 +26,12 @@ carried ones first and starts from zeros; ``rnn_time_step`` feeds them
 back and keeps the new ones; truncated BPTT (``_fit_tbptt``) clears them
 at the start of each batch and carries them from chunk to chunk,
 detached (the JAX package gets that by running each chunk as its own
-jitted call). A ``[N, T]`` mask in ``output(mask=)`` reaches the LSTM
-layers (masked steps carry h and c through and output zeros); masks in
-``fit`` are refused (ROADMAP.md A6), as are the fit loop's listeners,
-fused multi-step dispatch, prefetch and tail padding (A5),
+jitted call). As there, a tBPTT batch (``[N, C, T]`` under
+``conf.tbptt``) always runs by itself, never in a K-step group. A
+``[N, T]`` mask in ``output(mask=)`` reaches the LSTM layers (masked
+steps carry h and c through and output zeros). In ``fit`` a labels mask
+reaches only the loss, as in the JAX ``_loss`` (the example weights of
+tail padding); features masks are refused (ROADMAP.md A6), as are
 ``evaluate`` (A5) and ``pretrain`` (A2, with LeNet on this network).
 
 Regularization in training, as the JAX ``MultiLayerNetwork`` applies
@@ -151,11 +156,13 @@ class MultiLayerNetwork(NetworkBase):
         return acts, new_state
 
     def _loss(self, params, state, x, y, *, train=True, carry_rnn=False,
-              gens=None):
+              gens=None, lmask=None):
         """The output layer's loss on the f32 promotion of its
         pre-activation, plus the L1/L2 terms, as a function of the f32
         ``params`` (the compute cast happens here), with a training
-        step's generators ``gens``; returns (loss, new state)."""
+        step's generators ``gens``; ``lmask`` weights the loss and
+        reaches nothing else, as in the JAX ``_loss``. Returns (loss,
+        new state)."""
         out_idx = len(self.layers) - 1
         out_layer = self.layers[out_idx]
         if not hasattr(out_layer, "compute_score"):
@@ -169,7 +176,7 @@ class MultiLayerNetwork(NetworkBase):
         preout = out_layer.preout(
             cparams[str(out_idx)], h, train=train,
             gen=gens.get(str(out_idx)) if gens else None)
-        score = out_layer.compute_score(y, f32_head(preout))
+        score = out_layer.compute_score(y, f32_head(preout), lmask)
         return score + self._reg_loss(params), new_state
 
     # ------------------------------------------------------------------
@@ -184,60 +191,65 @@ class MultiLayerNetwork(NetworkBase):
         or features with ``labels``, batched by ``batch_size``.
         ``execution_plan`` validates as for a graph; a sequential network
         has no fused chains, so every plan runs its layers as they
-        are."""
-        it = self._fit_iterator(data, labels, batch_size,
-                                steps_per_dispatch=steps_per_dispatch,
-                                prefetch=prefetch, pad_tail=pad_tail)
-        if not self._initialized:
-            self.init()
-        if execution_plan is not None:
-            from deeplearning4j_tpu_torch.tuning.plan import (
-                apply_execution_plan)
-            apply_execution_plan(self, execution_plan)
-        for _ in range(epochs):
-            for ds in it:
-                if self.conf.tbptt and ds.features.ndim == 3:
-                    self._fit_tbptt(ds)
-                else:
-                    self._fit_batch(ds)
-            self.epoch_count += 1
-        return self
+        are.
+
+        ``steps_per_dispatch=K`` runs each run of K same-shape batches as
+        one group (one CUDA graph replay on the card; a tBPTT batch
+        always runs by itself), ``prefetch=N`` stages batches N deep
+        through ``pipeline.DevicePrefetchIterator``, and ``pad_tail``
+        (default: on when K > 1) pads the ragged last batch with an
+        example-weight labels mask; see ``nn/network_base.py``."""
+        return self._fit(data, labels, epochs, batch_size,
+                         steps_per_dispatch=steps_per_dispatch,
+                         prefetch=prefetch, pad_tail=pad_tail,
+                         execution_plan=execution_plan)
 
     def _batch(self, ds: DataSet):
+        """A batch's features, labels and labels mask (or None) as
+        tensors; a features mask is refused (ROADMAP.md A6)."""
         _refuse_masks(ds)
-        return self._tensor(ds.features), self._tensor(ds.labels)
+        return (self._tensor(ds.features), self._tensor(ds.labels),
+                None if ds.labels_mask is None
+                else self._tensor(ds.labels_mask))
 
-    def _fit_batch(self, ds: DataSet, carry_rnn: bool = False):
-        x, y = self._batch(ds)
-        gens = self._step_gens()
-        self.score_value = self._step(
-            lambda p: self._loss(p, self.state, x, y, carry_rnn=carry_rnn,
-                                 gens=gens))
-        self.iteration_count += 1
+    def _batch_loss_fn(self, ds: DataSet, gens, carry_rnn: bool = False):
+        x, y, m = self._batch(ds)
+        return lambda p: self._loss(p, self.state, x, y, carry_rnn=carry_rnn,
+                                    gens=gens, lmask=m)
+
+    def _runs_alone(self, ds: DataSet) -> bool:
+        return bool(self.conf.tbptt) and ds.features.ndim == 3
+
+    def _fit_alone(self, ds: DataSet):
+        self._fit_tbptt(ds)
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT: the batch in chunks of ``tbptt_fwd_length``
         steps, one optimizer step each, the recurrent state cleared first
-        and carried (detached) from chunk to chunk."""
+        and carried (detached) from chunk to chunk; a labels mask ``[N,
+        T]`` is cut with the labels."""
         _refuse_masks(ds)
         t = ds.features.shape[2]
         L = self.conf.tbptt_fwd_length
         self.rnn_clear_previous_state()
         for s in range(0, t, L):
-            labels = ds.labels
+            labels, lmask = ds.labels, ds.labels_mask
             if labels is not None and labels.ndim == 3:
                 labels = labels[:, :, s:s + L]
-            self._fit_batch(DataSet(ds.features[:, :, s:s + L], labels),
-                            carry_rnn=True)
+            if lmask is not None:
+                lmask = lmask[:, s:s + L]
+            self._fit_batch(DataSet(ds.features[:, :, s:s + L], labels,
+                                    None, lmask), carry_rnn=True)
 
     def score(self, ds: DataSet = None, features=None, labels=None) -> float:
         """The loss of ``ds`` (or of ``features`` and ``labels``) at the
         current parameters, L1/L2 terms included."""
         if ds is None:
             ds = DataSet(features, labels)
-        x, y = self._batch(ds)
+        x, y, m = self._batch(ds)
         with torch.no_grad():
-            loss, _ = self._loss(self.params, self.state, x, y, train=False)
+            loss, _ = self._loss(self.params, self.state, x, y, train=False,
+                                 lmask=m)
         return float(loss)
 
     # ------------------------------------------------------------------
@@ -317,9 +329,11 @@ class MultiLayerNetwork(NetworkBase):
 
 
 def _refuse_masks(ds: DataSet) -> None:
-    if ds.features_mask is not None or ds.labels_mask is not None:
-        raise NotImplementedError("feature and label masks in fit are not "
-                                  "ported yet (ROADMAP.md A6)")
+    """A features mask would reach the layers in the JAX package: it is
+    refused; a labels mask reaches only the loss and passes."""
+    if ds.features_mask is not None:
+        raise NotImplementedError("feature masks in fit are not ported "
+                                  "yet (ROADMAP.md A6)")
 
 
 def _mask_kwargs(layer, mask):

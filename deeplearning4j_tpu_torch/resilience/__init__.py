@@ -1,2 +1,3 @@
-"""Training resilience: the non-finite sentinel (``sentinel.py``) and
-whole-file durable writes (``durable.py``)."""
+"""Training resilience: the non-finite sentinel (``sentinel.py``),
+bounded retry with backoff (``retry.py``) and whole-file durable writes
+(``durable.py``)."""

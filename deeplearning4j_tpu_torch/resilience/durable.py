@@ -3,7 +3,8 @@
 Counterpart of the atomic file primitive of
 ``deeplearning4j_tpu/resilience/durable.py`` (``atomic_replace_path``),
 kept as the port's own copy: the model serializer writes its zip
-through it. The rest of that module (checkpoint directories, commit
+through it, the flight recorder its artifacts through
+:func:`atomic_write_text`. The rest of that module (checkpoint directories, commit
 barriers, the crash-injection seam) ports with the fit loop's machinery
 (ROADMAP.md A5).
 """
@@ -14,7 +15,7 @@ import contextlib
 import os
 import threading
 
-__all__ = ["atomic_replace_path"]
+__all__ = ["atomic_replace_path", "atomic_write_text"]
 
 _TMP_PREFIX = ".tmp-"
 
@@ -60,3 +61,11 @@ def atomic_replace_path(path: str):
             pass
         raise
     _fsync_dir(d)
+
+
+def atomic_write_text(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` whole or not at all
+    (:func:`atomic_replace_path`)."""
+    with atomic_replace_path(path) as tmp:
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(text)

@@ -38,8 +38,9 @@ generation order.
 
 Not ported yet, and refused at construction with ``NotImplementedError``
 rather than ignored: speculation, the supervisor, overload control, the
-chaos seams and ``decode_retry``, and the metrics registry (ROADMAP.md
-A7, A5). The request ledger, traces, ``health()`` with its KV traffic
+chaos seams and ``decode_retry``, and the engine's ``registry=`` (the
+registry is ported, ``monitoring/``; the engine's series come with its
+health and request ledger) (ROADMAP.md A7). The request ledger, traces, ``health()`` with its KV traffic
 and the fleet hooks come later too (ROADMAP.md A7, A10), and so does
 the choice of decode read path (``decode_impl``: the port has one on
 the card, the kernel; ROADMAP.md A7). Metrics are plain attributes for
@@ -90,7 +91,7 @@ METRIC_WINDOW = 4096
 #: constructor arguments of the JAX engine this slice leaves out
 _NOT_PORTED = {"speculation": "A7", "supervisor": "A7", "overload": "A7",
                "prefill_chaos": "A7", "decode_chaos": "A7",
-               "seat_chaos": "A7", "decode_retry": "A7", "registry": "A5"}
+               "seat_chaos": "A7", "decode_retry": "A7", "registry": "A7"}
 
 
 class GenerationEngine:

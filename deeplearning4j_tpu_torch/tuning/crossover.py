@@ -23,10 +23,14 @@ caller names, ``("cuda", torch.cuda.get_device_name(device))`` or
 ``("cpu", "cpu")``, never from a process-wide probe. The store's file is
 the port's own, ``KERNEL_CROSSOVER_TORCH.json`` in the working directory
 or else at the repository root (git-ignored; the JAX package's
-``KERNEL_CROSSOVER.json`` is never read or written here). The decision
-and calibration counts are plain attributes of the store
-(``decisions``, ``calibrations``: ``{(domain, choice): count}``) until
-the port has its metrics registry (ROADMAP.md A5).
+``KERNEL_CROSSOVER.json`` is never read or written here).
+
+Telemetry, the JAX package's series: ``dl4jtpu_autotune_decisions_total
+{domain,choice}`` counts every ``choose`` (choice kernel, fallback or
+default) and ``dl4jtpu_autotune_calibrations_total{domain,choice}``
+every recorded measurement (choice the measured winner) in the global
+metrics registry; the store also keeps its own counts
+(``decisions``, ``calibrations``: ``{(domain, choice): count}``).
 """
 
 from __future__ import annotations
@@ -79,6 +83,28 @@ IMPL_REVS: Dict[str, int] = {
     "paged_decode": 1,        # serving/paged_kernel.py
     "paged_decode_quant": 2,  # the int8 KV pool (serving/quant.py)
 }
+
+
+AUTOTUNE_DECISIONS = "dl4jtpu_autotune_decisions_total"
+AUTOTUNE_CALIBRATIONS = "dl4jtpu_autotune_calibrations_total"
+
+
+def _autotune_counter(metric: str):
+    from deeplearning4j_tpu_torch.monitoring.metrics import global_registry
+    return global_registry().counter(
+        metric, "kernel-crossover autotune events", ("domain", "choice"))
+
+
+def declare_autotune_series() -> None:
+    """Declare both autotune series (``monitoring.ensure_started``)."""
+    for metric in (AUTOTUNE_DECISIONS, AUTOTUNE_CALIBRATIONS):
+        _autotune_counter(metric)
+
+
+def _count(counts: Counter, metric: str, domain: str, choice: str) -> None:
+    """Count an event on the store and in the registry."""
+    counts[(domain, choice)] += 1
+    _autotune_counter(metric).inc(domain=domain, choice=choice)
 
 
 def _repo_root() -> str:
@@ -256,10 +282,10 @@ class KernelCrossoverStore:
         domain = key.split("|", 1)[0]
         e = self.lookup(key, device)
         if e is None or not e.get("kernel_ms") or not e.get("fallback_ms"):
-            self.decisions[(domain, "default")] += 1
+            _count(self.decisions, AUTOTUNE_DECISIONS, domain, "default")
             return default
         choice = winner(e)
-        self.decisions[(domain, choice)] += 1
+        _count(self.decisions, AUTOTUNE_DECISIONS, domain, choice)
         return choice
 
     # -- record --------------------------------------------------------
@@ -299,7 +325,7 @@ class KernelCrossoverStore:
                 e["samples"] = n + 1
                 e["source"] = source
             self._entries[key] = e
-        self.calibrations[(domain, winner(e))] += 1
+        _count(self.calibrations, AUTOTUNE_CALIBRATIONS, domain, winner(e))
         return dict(e)
 
     # -- measurement harness ------------------------------------------

@@ -437,19 +437,22 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
     x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)) \
         .astype(np.float32)
     y = np.eye(CLASSES, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        net.fit(x, y, steps_per_dispatch=2)
-    assert net.iteration_count == 0
+    # K-step dispatch is ported (tests/test_torch_fit_dispatch.py): the
+    # two one-image batches run as one group of two steps
+    net.fit(x, y, batch_size=1, steps_per_dispatch=2)
+    assert net.iteration_count == 2 and \
+        net.fit_dispatch["eager_group_steps"] == 2
+    assert np.isfinite(net.score_value)
     net.set_fusion("bottleneck", stem=True)
     assert net.output(x, train=True).shape == (2, CLASSES)
     # the stem kernels' plan trains; "auto" then resolves to the xla plan
     net.fit(x, y)
-    assert net.iteration_count == 1 and np.isfinite(net.score_value)
+    assert net.iteration_count == 3 and np.isfinite(net.score_value)
     net.fit(x, y, execution_plan="auto")
-    assert net.iteration_count == 2 and net.fusion_level is False
+    assert net.iteration_count == 4 and net.fusion_level is False
     # the fused plan (the stem off on an uncalibrated store) trains
     net.fit(x, y, execution_plan="fused")
-    assert net.iteration_count == 3 and np.isfinite(net.score_value)
+    assert net.iteration_count == 5 and np.isfinite(net.score_value)
     assert net.fusion_level == "bottleneck" and not net._fusion()[2]
     with pytest.raises(ValueError, match="state tree"):
         net.load_numpy_state({"stem_bn": {"mean": np.zeros(3, np.float32)}})

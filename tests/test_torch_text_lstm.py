@@ -65,6 +65,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers.flash_attention import agreement
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updater import Nesterovs, RmsProp
+from deeplearning4j_tpu_torch.optimize import CollectScoresIterationListener
 from deeplearning4j_tpu_torch.serving import GenerationEngine
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, updater_state_to_numpy)
@@ -337,8 +338,19 @@ def test_left_out_parts_raise(nets):
     x, y = _batch()
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         tnet.fit(DataSet(x, y, features_mask=np.ones((3, 12), np.float32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        tnet.fit(x, y, steps_per_dispatch=2)
+    # K-step dispatch is ported: a tBPTT batch always runs by itself (the
+    # JAX _fit_epoch), so K = 2 trains as K = 1 does, loss for loss
+    losses = {}
+    for k in (1, 2):
+        net = MultiLayerNetwork(TextGenerationLSTM(
+            vocab_size=V, hidden=H, max_length=MAXLEN).conf()
+        ).init(device="cpu")
+        net.set_listeners(CollectScoresIterationListener())
+        net.fit(np.concatenate([x, x]), np.concatenate([y, y]),
+                batch_size=3, steps_per_dispatch=k)
+        losses[k] = net.listeners[0].scores
+        assert net.fit_dispatch["batch_steps"] == 6
+    assert losses[1] == losses[2] and len(losses[1]) == 6
     with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         tnet.evaluate(DataSet(x, y))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):

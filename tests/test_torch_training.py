@@ -32,6 +32,9 @@ from deeplearning4j_tpu.nn.conf.layers import (
 from deeplearning4j_tpu.zoo import TextGenerationTransformer as JaxTFM
 from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.nn import losses, updater
+from deeplearning4j_tpu_torch.optimize import (
+    CollectScoresIterationListener, EvaluativeListener)
+from deeplearning4j_tpu_torch.pipeline import DevicePrefetchIterator
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     PositionalEmbeddingLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.util.convert import (
@@ -437,24 +440,35 @@ def test_fit_refuses_what_is_not_ported():
                                      n_heads=HEADS, n_layers=1,
                                      max_length=T).init(device="cpu")
     x, y = _one_hot_batch(0, 2)
-    for kw, item in ((dict(steps_per_dispatch=2), "A5"),
-                     (dict(prefetch=2), "A5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            tnet.fit(x, y, **kw)
+    # K-step dispatch, prefetch and listeners are ported
+    # (tests/test_torch_fit_dispatch.py): each trains here; what stays
+    # refused names its ROADMAP.md item
+    for kw in (dict(steps_per_dispatch=2), dict(prefetch=2)):
+        before = tnet.iteration_count
+        tnet.fit(x, y, **kw)
+        assert tnet.iteration_count == before + 1
+    scores = CollectScoresIterationListener()
+    assert tnet.add_listener(scores) is tnet
+    tnet.fit(x, y)
+    assert [i for i, _ in scores.scores] == [tnet.iteration_count - 1]
     with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        tnet.add_listener(object())
+        EvaluativeListener(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+        DevicePrefetchIterator(ArrayDataSetIterator(x, y), mesh=object())
     # the sentinel is ported (tests/test_torch_sentinel.py): a policy it
     # does not know raises before any step
+    trained = tnet.iteration_count
     tnet.nonfinite_policy = "skip-all"
     with pytest.raises(ValueError, match="nonfinite_policy must be one of"):
         tnet.fit(x, y)
     tnet.nonfinite_policy = None
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         tnet.fit(DataSet(x, y, features_mask=np.ones((2, T), np.float32)))
-    assert tnet.iteration_count == 0
+    assert tnet.iteration_count == trained
     # "auto" resolves: the transformer has no fusable chain (the xla plan)
     tnet.fit(x, y, execution_plan="auto")
-    assert tnet.iteration_count == 1 and tnet.fusion_level is False
+    assert tnet.iteration_count == trained + 1 and \
+        tnet.fusion_level is False
 
 
 def test_the_engine_refuses_learned_positions():
