@@ -387,15 +387,43 @@ Phases (any failure exits nonzero):
     registry's ``dl4jtpu_bad_steps_total`` and
     ``_skipped_updates_total`` up by one each; the same run with the
     device select removed (planted) fails;
-30. fit graph draws (``fit_graph_draws``): an MLP with Dropout(0.9) and
-    WeightNoise: ``fit(steps_per_dispatch=4)`` refuses it on the card
-    (ROADMAP.md A5) before any step, the eager fit trains it;
+30. fit graph draws (``fit_graph_draws``): networks whose training
+    draws through the K-step graph. An MLP with Dropout(0.9) and
+    WeightNoise: ``fit(steps_per_dispatch=4)`` twice (warm, capture,
+    replays; then replays only) against two eager fits from the same
+    trees and training generator state, bitwise by the gate, and a run
+    with the graph's generators not re-offset before each replay
+    (planted) failing it. The regularized text LSTM of phase 27 without
+    tBPTT (bf16, B = T = 256) through ``graph_phase``: rows 17 and 17b
+    inside the replays twice a step each, as in the eager fit. A bf16
+    GravesLSTM of 512 units (the cooperative route) captured and gated
+    the same way;
 31. prefetch (``prefetch_lstm``): phase 24's text LSTM over 6 batches,
     ``fit(prefetch=2)`` against ``fit()`` in turns from the same trees:
     losses and trees bitwise equal; ms a step, the busy share, the
     copies' device time, and the copy's share of the critical path (the
     pageable copy without prefetch; with it, the compute stream's timed
-    wait on each batch's copy event).
+    wait on each batch's copy event);
+32. durable transformer (``durable_transformer``): phase 28's transformer
+    through ``fit(steps_per_dispatch=4, prefetch=2)`` over 12 batches
+    with a CheckpointListener (a save every 4 iterations, asynchronous,
+    the newest 2 kept): a straight run (each save's snapshot, queue and
+    wait ms, write s and bytes), the step with and without the listener
+    in turns; a child process (this script with ``--durable-child
+    kill``) running the same fit with a ProcessKillInjector at batch 9
+    must die by SIGKILL leaving verified checkpoints, and a second child
+    (``--durable-child resume``) restores the newest into a fresh
+    network and finishes bitwise the straight run; in this process a
+    PreemptionGuard triggered in iteration 6 saves at step 8 and raises
+    PreemptionExit, and a fresh network restored from it finishes
+    bitwise the straight run (restore s);
+33. recovery ResNet50 (``recovery_resnet``): the stem plan's ResNet50
+    (B = 128, bf16, Nesterovs(0.01)) under FaultTolerantTrainer, eager,
+    a save every 2 iterations over 8 batches: RaiseOnBatch before batch
+    5 restarts from the newest checkpoint and ends bitwise a straight
+    run; NaN batches 4 and 5 with a DivergenceWatchdog roll back to step
+    4 with the rate halved, and the next step is bitwise an eager step
+    from the restored trees at the halved rate, not at the old one.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -3532,7 +3560,10 @@ def output_s(net, x):
 
 def logits(net, x):
     """The output layer's values before the softmax (f32, on the host),
-    of the inference forward under the selected plan."""
+    of the inference forward under the selected plan; a sequential
+    network's probabilities (``output()``)."""
+    if not hasattr(net.conf, "network_outputs"):
+        return net.output(x).float().cpu()
     out = net.conf.network_outputs[0]
     with torch.no_grad():
         acts, _ = net._forward(net._compute_params(), net.state,
@@ -6727,9 +6758,11 @@ def text_lstm_reference(device):
     return rec
 
 
-def regularized_lstm_net(device, dtype, t=LSTM_T, seed=12345):
+def regularized_lstm_net(device, dtype, t=LSTM_T, seed=12345, tbptt=True):
     """bench_lstm's text LSTM (2 GravesLSTM of 256, vocab 128, tBPTT in
-    chunks of ``t``, element-wise clipping at 1) with A1's training
+    chunks of ``t`` unless ``tbptt`` is off (then a [N, V, t] batch is
+    one step of the same arithmetic, grouped by the fit loop),
+    element-wise clipping at 1) with A1's training
     hooks: Dropout(0.9) on each LSTM's input, DropConnect(0.95) on the
     second LSTM's weights, MaxNormConstraint(REG_MAX_NORM) on each
     LSTM's weights, xavier_uniform weights, the output bias at 0.1,
@@ -6756,8 +6789,8 @@ def regularized_lstm_net(device, dtype, t=LSTM_T, seed=12345):
             constraints=[MaxNormConstraint(max_norm=REG_MAX_NORM)]))
     b.layer(RnnOutputLayer(n_out=LSTM_VOCAB, loss="mcxent",
                            activation="softmax", bias_init=0.1))
-    conf = b.set_input_type(InputType.recurrent(LSTM_VOCAB, t)).tbptt(t) \
-        .build()
+    b = b.set_input_type(InputType.recurrent(LSTM_VOCAB, t))
+    conf = (b.tbptt(t) if tbptt else b).build()
     conf.dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
     return MultiLayerNetwork(conf).init(device=device)
 
@@ -7278,7 +7311,9 @@ ROW_KERNELS = {"flash_fwd": r"flash_fwd(_mma)?_kernel",
                "stem_bwd_pool": r"bwd_pool_kernel",
                "stem_bwd_dw": r"dw_tc::dw_tc_kernel",
                "fused_fwd": r"dl4j_fwd::fwd_tc_kernel<1, \d+, 1>",
-               "fused_bwd": r"fused_finish_kernel"}
+               "fused_bwd": r"fused_finish_kernel",
+               "lstm_fwd": r"lstm_fwd(_cluster)?_kernel",
+               "lstm_bwd": r"lstm_bwd(_cluster)?_kernel"}
 #: the host's launch calls, by the profiler's runtime-call names
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -7320,16 +7355,34 @@ def tensor_leaves(trees):
     return out
 
 
-def run_fit(net, x, y, b, init, k=1, prefetch=0, pad_tail=None):
-    """One fit over (x, y) in batches of b from the trees ``init`` (or,
-    with ``init`` None, from the net's own: a steady-state run), with
-    ``pad_tail`` at fit's default unless given: its wall time (fit ends
-    in its one sync), the losses, the final trees (device copies, with
-    ``init``), peak memory and the dispatch counts it added."""
+def run_trees(net):
+    """The trees a run is held by: the parameters, the updater state and
+    the layer state without its streaming carry (an LSTM's last h / c,
+    which the next forward strips, and which a K-step group keeps out
+    of its state as the JAX scan does)."""
+    from deeplearning4j_tpu_torch.nn.network_base import _strip_stream
+    return (net.params, net.updater_state, _strip_stream(net.state))
+
+
+def start_of(net):
+    """What a run starts from: copies of the net's trees and its
+    training generator's state."""
+    return clone_trees(net_trees(net)) + (net._train_gen.get_state(),)
+
+
+def run_fit(net, x, y, b, init, k=1, prefetch=0, pad_tail=None, extra=()):
+    """One fit over (x, y) in batches of b from ``init`` (``start_of``:
+    the trees and the training generator's state; or, with ``init``
+    None, from the net's own: a steady-state run), with ``pad_tail`` at
+    fit's default unless given and the listeners ``extra`` beside the
+    loss recorder: its wall time (fit ends in its one sync), the losses,
+    the final trees (device copies, with ``init``), peak memory and the
+    dispatch counts it added."""
     if init is not None:
-        net.params, net.updater_state, net.state = clone_trees(init)
+        net.params, net.updater_state, net.state = clone_trees(init[:3])
+        net._train_gen.set_state(init[3])
     lst = RawScores()
-    net.set_listeners(lst)
+    net.set_listeners(lst, *extra)
     d0 = dict(net.fit_dispatch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7342,7 +7395,7 @@ def run_fit(net, x, y, b, init, k=1, prefetch=0, pad_tail=None):
     return {"k": k, "prefetch": prefetch, "wall_s": wall, "steps": steps,
             "step_ms": 1e3 * wall / steps,
             "losses": [float(s) for s in lst.scores],
-            "trees": None if init is None else clone_trees(net_trees(net)),
+            "trees": None if init is None else clone_trees(run_trees(net)),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
             "dispatch": {key: v - d0.get(key, 0)
@@ -7505,7 +7558,7 @@ def graph_phase(label, net, x, y, b, failures, want_rows):
     steps = x.shape[0] // b
     graph_kp = (GRAPH_K, GRAPH_PREFETCH)
     eager_kp = (1, 0, True)
-    init = clone_trees(net_trees(net))
+    init = start_of(net)
     cap0 = net.fit_dispatch.get("captures", 0)
     zero_counts()
     e1 = run_fit(net, x, y, b, init, *eager_kp)
@@ -7530,7 +7583,9 @@ def graph_phase(label, net, x, y, b, failures, want_rows):
                      ("eager", "graph")):
             if kind == "graph":
                 # the eager fit's trees into the graph's, outside the
-                # profile (a steady-state fit's replays copy nothing in)
+                # profile (a steady-state fit's replays copy nothing in;
+                # a group's state holds no streaming carry)
+                net.params, net.updater_state, net.state = run_trees(net)
                 net._step_graph.bind(net)
                 pgraphs.append(profile_run(net, x, y, b, *graph_kp)[0])
             else:
@@ -7620,7 +7675,14 @@ def graph_phase(label, net, x, y, b, failures, want_rows):
             failures.append(f"{label}: {p['graph_launches']} graph "
                             f"launches in a profiled fit, want "
                             f"{steps // GRAPH_K}")
-    if not ours_g or ours_g != ours_e:
+    # each wanted row's kernels are held below against the eager fit's
+    # exact wrapper counts; the rest of the port's kernels against the
+    # eager fit's trace (a trace can lose a record: one call's eager
+    # traces lost one of 24 LSTM forwards in every profiled fit)
+    def unrowed(ours):
+        return {n: v for n, v in ours.items() if not any(
+            re.search(ROW_KERNELS[r], n) for r in want_rows)}
+    if not ours_g or unrowed(ours_g) != unrowed(ours_e):
         failures.append(f"{label}: the graph's kernels a step {ours_g} "
                         f"are not the eager fit's {ours_e}")
     for row in want_rows:
@@ -7724,7 +7786,7 @@ def fit_graph_sentinel(device):
     rows = slice(TRAIN_B * SENTINEL_NAN_BATCH,
                  TRAIN_B * (SENTINEL_NAN_BATCH + 1))
     x[rows][1, 7, TRAIN_T // 2] = np.nan
-    init = clone_trees(net_trees(net))
+    init = start_of(net)
     e1 = run_fit(net, x, y, TRAIN_B, init, pad_tail=True)
     e2 = run_fit(net, x, y, TRAIN_B, init, pad_tail=True)
 
@@ -7768,11 +7830,9 @@ def fit_graph_sentinel(device):
     return rec
 
 
-def fit_graph_draws(device):
-    """A small MLP with Dropout(0.9) and WeightNoise: the step graph
-    would bake one mask into every replay, so fit(steps_per_dispatch=4)
-    on the card refuses it (ROADMAP.md A5), before any step; the eager
-    fit trains it."""
+def draws_mlp(device):
+    """A small MLP whose training draws: Dropout(0.9) on the first
+    layer's input, WeightNoise on the second layer's weights."""
     from deeplearning4j_tpu_torch.nn.conf import dropout as tdrop
     from deeplearning4j_tpu_torch.nn.conf import layers as tl
     from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -7784,26 +7844,600 @@ def fit_graph_draws(device):
               tl.DenseLayer(n_out=256, activation="relu",
                             weight_noise=tdrop.WeightNoise(stddev=0.01)),
               tl.OutputLayer(n_out=10, loss="mcxent", activation="softmax")]
-    net = MultiLayerNetwork(MultiLayerConfiguration(
+    return MultiLayerNetwork(MultiLayerConfiguration(
         layers=layers, input_type=InputType.feed_forward(64),
         seed=11)).init(device=device)
+
+
+def stale_draw(sg, net):
+    """The planted fault: a replay's generators left where the last
+    replay moved them (the training generator advanced as it should)."""
+    for _ in sg.gens:
+        net._step_base()
+
+
+def fit_graph_draws(device, smi):
+    """ROADMAP C5's gate: networks whose training draws, through the
+    K-step graph. (a) The MLP of ``draws_mlp``, 12 batches of 32: two
+    eager fits, a graph fit (warm, capture, replay) and one that replays
+    every group, each from the same trees and training generator state;
+    the graph fits' losses, parameters and updater state against the
+    eager fit's by ``eager_gate``, and the same graph fit with the
+    generators not re-offset before each replay (planted) must fail it.
+    (b) The regularized text LSTM (Dropout(0.9), DropConnect(0.95),
+    MaxNormConstraint, AdaMax; bf16, B = T = 256) without tBPTT, through
+    ``graph_phase``: fit(steps_per_dispatch=4, prefetch=2) over 12
+    batches against the eager fit in turns, rows 17 and 17b inside the
+    replays as often a step as in the eager fit. (c) The cooperative
+    route in a graph (``cooperative_in_graph``)."""
+    from deeplearning4j_tpu_torch.nn import network_base
+    failures = []
+    net = draws_mlp(device)
     rng = np.random.default_rng(5)
-    x = rng.standard_normal((8 * 32, 64)).astype(np.float32)
-    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8 * 32)]
-    refusal = None
+    n = GRAPH_BATCHES * 32
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    init = start_of(net)
+    e1, e2 = (run_fit(net, x, y, 32, init, 1, 0, True) for _ in range(2))
+    g1, g2 = (run_fit(net, x, y, 32, init, GRAPH_K) for _ in range(2))
+    real = network_base._StepGraph.draw
+    network_base._StepGraph.draw = stale_draw
     try:
-        net.fit(x, y, batch_size=32, steps_per_dispatch=GRAPH_K)
-    except NotImplementedError as e:
-        refusal = str(e)
-    steps_before = net.iteration_count
-    net.fit(x, y, batch_size=32)
-    rec = {"refusal": refusal, "iterations_before_refusal": steps_before,
-           "eager_loss": net.score_value,
-           "eager_iterations": net.iteration_count}
-    log("fit_graph_draws:", json.dumps(rec))
-    if refusal is None or "ROADMAP.md A5" not in refusal or \
-            steps_before != 0 or not np.isfinite(rec["eager_loss"]):
-        raise AssertionError(f"fit_graph_draws: {rec}")
+        planted = run_fit(net, x, y, 32, init, GRAPH_K)
+    finally:
+        network_base._StepGraph.draw = real
+    gates = {"first_graph_fit": eager_gate(e1, e2, g1),
+             "replayed_graph_fit": eager_gate(e1, e2, g2),
+             "planted_no_reoffset": eager_gate(e1, e2, planted)}
+    mlp = {"batches": GRAPH_BATCHES, "batch": 32, "k": GRAPH_K,
+           "gates": gates, "dispatch": {"first": g1["dispatch"],
+                                        "replayed": g2["dispatch"]},
+           "step_ms": {"eager": [e1["step_ms"], e2["step_ms"]],
+                       "graph": [g1["step_ms"], g2["step_ms"]]},
+           "peak_allocated_bytes": {"eager": e1["max_memory_allocated_bytes"],
+                                    "graph": g1["max_memory_allocated_bytes"]},
+           "losses_eager": e1["losses"], "losses_graph": g1["losses"],
+           "card": smi}
+    log("fit_graph_draws mlp:", json.dumps(mlp))
+    if not (gates["first_graph_fit"]["held"]
+            and gates["replayed_graph_fit"]["held"]):
+        failures.append(f"mlp: the graph fit parts from the eager fit "
+                        f"{gates}")
+    if gates["planted_no_reoffset"]["held"]:
+        failures.append("mlp: the planted un-re-offset generators pass "
+                        "the gate")
+    want = {"eager_group_steps": GRAPH_K, "captures": 1,
+            "replays": GRAPH_BATCHES // GRAPH_K - 1,
+            "graph_steps": GRAPH_BATCHES - GRAPH_K}
+    if g1["dispatch"] != want or g2["dispatch"] != {
+            "replays": GRAPH_BATCHES // GRAPH_K,
+            "graph_steps": GRAPH_BATCHES}:
+        failures.append(f"mlp: dispatch {g1['dispatch']}, "
+                        f"{g2['dispatch']}")
+    del net
+    torch.cuda.empty_cache()
+    net = regularized_lstm_net(device, torch.bfloat16, tbptt=False)
+    x, y = text_batch(LSTM_B * GRAPH_BATCHES, LSTM_T, seed=4)
+    lstm = graph_phase("fit_graph_draws lstm", net, x, y, LSTM_B, failures,
+                       want_rows=("lstm_fwd", "lstm_bwd"))
+    lstm["card"] = smi
+    del net
+    torch.cuda.empty_cache()
+    wide = cooperative_in_graph(device, failures)
+    wide["card"] = smi
+    log("fit_graph_draws cooperative:", json.dumps(wide))
+    if failures:
+        raise AssertionError(f"fit_graph_draws: {failures}")
+    return {"mlp": mlp, "lstm": lstm, "cooperative": wide}
+
+
+#: the cooperative LSTM route in a graph: one GravesLSTM of this many
+#: units (beyond the cluster route's 256), bf16, batches of COOP_B rows
+#: and COOP_T steps
+COOP_H, COOP_B, COOP_T = 512, 64, 32
+
+
+def cooperative_in_graph(device, failures):
+    """Rows 17 / 17b's cooperative route (``cudaLaunchCooperativeKernel``
+    after ``cudaFuncSetAttribute``) inside a captured K-step graph: a
+    bf16 GravesLSTM of COOP_H units with input dropout, 12 batches, the
+    graph fit against two eager fits by the gate; one forward and one
+    backward launch a step in the eager fit, and the graph's capture
+    launching them as often a step."""
+    from deeplearning4j_tpu_torch.nn.conf.dropout import Dropout
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers.lstm_kernel import (
+        lstm_bwd_route, lstm_fwd_route)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(21).updater(Adam(1e-3))
+            .list().layer(GravesLSTM(n_out=COOP_H, activation="tanh",
+                                     dropout=Dropout(0.9)))
+            .layer(RnnOutputLayer(n_out=LSTM_VOCAB, loss="mcxent",
+                                  activation="softmax"))
+            .set_input_type(InputType.recurrent(LSTM_VOCAB, COOP_T)).build())
+    conf.dtype = "bfloat16"
+    net = MultiLayerNetwork(conf).init(device=device)
+    x, y = text_batch(COOP_B * GRAPH_BATCHES, COOP_T, seed=6)
+    init = start_of(net)
+    zero_counts()
+    e1 = run_fit(net, x, y, COOP_B, init, 1, 0, True)
+    eager = {k: v / GRAPH_BATCHES for k, v in lstm_counts().items()}
+    e2 = run_fit(net, x, y, COOP_B, init, 1, 0, True)
+    zero_counts()
+    g = run_fit(net, x, y, COOP_B, init, GRAPH_K, GRAPH_PREFETCH)
+    captured = lstm_counts()
+    gate = eager_gate(e1, e2, g)
+    rec = {"h": COOP_H, "batch": COOP_B, "t": COOP_T,
+           "routes": [lstm_fwd_route(COOP_B, COOP_H, torch.bfloat16),
+                      lstm_bwd_route(COOP_B, COOP_H, torch.bfloat16)],
+           "gate": gate, "dispatch": g["dispatch"],
+           "eager_launches_per_step": eager,
+           "launches_in_graph_fit": captured,
+           "step_ms": {"eager": [e1["step_ms"], e2["step_ms"]],
+                       "graph": g["step_ms"]}}
+    # the graph fit's wrappers count the warm group's 4 steps and the
+    # capture's 4 (the replays launch without the host)
+    want = {k: 2 * GRAPH_K * v for k, v in eager.items()}
+    if not gate["held"] or rec["routes"] != ["cooperative", "cooperative"] \
+            or captured != want or eager != {"lstm_fwd": 1.0,
+                                             "lstm_bwd": 1.0} or \
+            g["dispatch"].get("captures") != 1:
+        failures.append(f"cooperative route in a graph: {rec}")
+    del net
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------
+# durable training state (util/checkpoint.py, resilience/durable.py,
+# util/recovery.py, resilience/chaos.py)
+# ---------------------------------------------------------------------
+#: the killed child: SIGKILL before global batch DURABLE_KILL_AT,
+#: DURABLE_KILL_DELAY s after its prefetch worker reaches it (the fit
+#: goes on meanwhile, so the kill can land inside a save); the preempted
+#: run: PreemptionGuard.trigger() in iteration DURABLE_TRIGGER's
+#: listener pass (the save lands at the boundary after its group)
+DURABLE_KILL_AT, DURABLE_KILL_DELAY, DURABLE_TRIGGER = 9, 1.5, 6
+DURABLE_EVERY, DURABLE_KEEP = 4, 2
+#: the recovery phase: 8 batches, a save every 2 iterations, the
+#: transient fault before global batch 5, NaN batches 4 and 5 and a
+#: watchdog that raises at 2 bad steps in a row, the rate halved
+RECOVERY_BATCHES, RECOVERY_EVERY, RECOVERY_FAULT = 8, 2, 5
+RECOVERY_NAN, RECOVERY_BACKOFF = (4, 5), 0.5
+
+
+def durable_net(device):
+    """The durable phase's network: the fit_graph_transformer cell
+    (T 8192, B 4, bf16, 6 layers, Adam(3e-4)), random weights from seed
+    3."""
+    net = train_model(LAYERS, TRAIN_T, seed=3).init(device=device)
+    net.conf.dtype = "bfloat16"
+    return net
+
+
+def dir_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def timed_checkpoints(path):
+    """A CheckpointListener (a save every DURABLE_EVERY iterations,
+    asynchronous, the newest DURABLE_KEEP kept) that records, per save,
+    the ms the fit waited at the boundary (``wait_ms``), the part of it
+    the snapshot took (``snapshot_ms``: the device-to-host copies and
+    their one sync) and the part its hand-over to the writer blocked on
+    the writer's queue (``queue_ms``: backpressure), the s its
+    background write took and the bytes of its step directory."""
+    import os
+    from deeplearning4j_tpu_torch.util import checkpoint as ck
+
+    class Timed(ck.CheckpointListener):
+        def __init__(self):
+            super().__init__(path, save_every_n_iterations=DURABLE_EVERY,
+                             async_save=True, keep_last=DURABLE_KEEP)
+            self.saves = []
+            submit = self.writer.submit
+
+            def timed_submit(fn, label="save", is_save=True):
+                rec = self.saves[-1]
+                if is_save:
+                    def run():
+                        t0 = time.perf_counter()
+                        fn()
+                        rec["write_s"] = time.perf_counter() - t0
+                        rec["bytes"] = dir_bytes(os.path.join(path, label))
+                else:
+                    run = fn
+                t0 = time.perf_counter()
+                submit(run, label, is_save)
+                rec["queue_ms"] = rec.get("queue_ms", 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+            self.writer.submit = timed_submit
+
+        def _save(self, model, step):
+            rec = {"step": step}
+            self.saves.append(rec)
+            snapshot = ck.snapshot_tree
+
+            def timed_snapshot(tree):
+                t0 = time.perf_counter()
+                out = snapshot(tree)
+                rec["snapshot_ms"] = 1e3 * (time.perf_counter() - t0)
+                return out
+            ck.snapshot_tree = timed_snapshot
+            t0 = time.perf_counter()
+            try:
+                super()._save(model, step)
+            finally:
+                ck.snapshot_tree = snapshot
+            rec["wait_ms"] = 1e3 * (time.perf_counter() - t0)
+    return Timed()
+
+
+def tree_arrays(trees, names=("params", "updater", "state")):
+    """``{path: host array}`` of a tuple of trees."""
+    out = {}
+    for name, tree in zip(names, trees):
+        for key, t in leaf_items(tree):
+            if torch.is_tensor(t):
+                out["/".join((name,) + tuple(key))] = \
+                    t.detach().float().cpu().numpy()
+    return out
+
+
+def same_arrays(a, b):
+    """(bitwise, the keys that differ) of two ``tree_arrays``."""
+    bad = sorted(k for k in set(a) | set(b) if k not in a or k not in b
+                 or not np.array_equal(a[k], b[k], equal_nan=True))
+    return not bad, bad[:8]
+
+
+def durable_child(mode, ck, out):
+    """The durable phase's child process. ``kill``: the straight run's
+    fit with its checkpoint listener and a ProcessKillInjector, which
+    SIGKILLs the process (it never returns). ``resume``: a fresh network
+    restored from the newest intact checkpoint under ``ck`` finishes
+    the fit; its trees go to ``out`` (.npz) and its restore time and
+    counters to ``out``.json."""
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.resilience.chaos import (
+        ProcessKillInjector)
+    from deeplearning4j_tpu_torch.util.checkpoint import (
+        CheckpointListener, restore_checkpoint)
+    device = torch.device("cuda", 0)
+    net = durable_net(device)
+    x, y = graph_transformer_data(21, GRAPH_BATCHES)
+    if mode == "kill":
+        net.set_listeners(CheckpointListener(
+            ck, save_every_n_iterations=DURABLE_EVERY, async_save=True,
+            keep_last=DURABLE_KEEP))
+        net.fit(ProcessKillInjector(ArrayDataSetIterator(x, y, TRAIN_B),
+                                    n=DURABLE_KILL_AT,
+                                    delay=DURABLE_KILL_DELAY),
+                steps_per_dispatch=GRAPH_K, prefetch=GRAPH_PREFETCH)
+        return 3                        # not reached: the kill ends it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(net, ck)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    step = net.iteration_count
+    net.fit(ArrayDataSetIterator(x, y, TRAIN_B), epochs=1 - net.epoch_count,
+            steps_per_dispatch=GRAPH_K, prefetch=GRAPH_PREFETCH)
+    np.savez(out, **tree_arrays(net_trees(net)))
+    with open(out + ".json", "w") as f:
+        json.dump({"restored_step": step, "restore_s": restore_s,
+                   "iteration": net.iteration_count,
+                   "epoch": net.epoch_count,
+                   "dispatch": dict(net.fit_dispatch)}, f)
+    return 0
+
+
+def run_child(mode, ck, out):
+    """The durable child in a new process (its output captured)."""
+    import os
+    cmd = [sys.executable, os.path.abspath(__file__), "--durable-child",
+           mode, "--durable-dir", ck, "--durable-out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter() - t0
+
+
+def durable_transformer(device, smi):
+    """The transformer of fit_graph_transformer through fit(
+    steps_per_dispatch=4, prefetch=2) over 12 batches with a
+    CheckpointListener (a save every 4 iterations, asynchronous, the
+    newest 2 kept). (i) A straight run from the seeded weights: the
+    reference trees, each save's wait, write and bytes; then the step
+    with and without the listener in turns. (ii) A child process runs
+    the same fit with a ProcessKillInjector at batch 9 and must die by
+    SIGKILL; every checkpoint it left verifies; a second child restores
+    the newest into a fresh network and finishes: its trees bitwise the
+    straight run's. (iii) In this process PreemptionGuard.trigger() in
+    iteration 6: the emergency save lands at the boundary after the
+    group (step 8) and PreemptionExit is raised; a fresh network
+    restores it and finishes, bitwise the straight run's."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.resilience.durable import (
+        PreemptionExit, PreemptionGuard)
+    from deeplearning4j_tpu_torch.util.checkpoint import (
+        list_checkpoints, restore_checkpoint, verify_checkpoint)
+    root = tempfile.mkdtemp(prefix="durable_")
+    failures, rec = [], {"card": smi, "batches": GRAPH_BATCHES,
+                         "k": GRAPH_K, "prefetch": GRAPH_PREFETCH,
+                         "save_every": DURABLE_EVERY,
+                         "keep_last": DURABLE_KEEP}
+    try:
+        x, y = graph_transformer_data(21, GRAPH_BATCHES)
+        net = durable_net(device)
+        init = start_of(net)
+        lst = timed_checkpoints(os.path.join(root, "straight"))
+        straight = run_fit(net, x, y, TRAIN_B, init, GRAPH_K,
+                           GRAPH_PREFETCH, extra=(lst,))
+        lst.flush()
+        want = tree_arrays(straight["trees"])
+        rec["straight"] = {"step_ms": straight["step_ms"],
+                           "dispatch": straight["dispatch"],
+                           "losses": straight["losses"],
+                           "saves": lst.saves,
+                           "checkpoints": list_checkpoints(lst.path)}
+        turns = []
+        for i, with_lst in enumerate((False, True, True, False)):
+            extra = (timed_checkpoints(os.path.join(root, f"turn{i}")),) \
+                if with_lst else ()
+            r = run_fit(net, x, y, TRAIN_B, init, GRAPH_K, GRAPH_PREFETCH,
+                        extra=extra)
+            if extra:
+                extra[0].flush()
+            same, _ = same_arrays(tree_arrays(r["trees"]), want)
+            turns.append({"listener": with_lst, "step_ms": r["step_ms"],
+                          "bitwise": same,
+                          "saves": extra[0].saves if extra else None})
+        rec["listener_turns"] = turns
+        rec["step_ms"] = {k: [t["step_ms"] for t in turns
+                              if t["listener"] == v]
+                          for k, v in (("with", True), ("without", False))}
+        if not all(t["bitwise"] for t in turns):
+            failures.append("a turn parts from the straight run")
+        del net, init, straight
+        torch.cuda.empty_cache()
+        # (ii) a SIGKILLed child, then a resumed one
+        ck = os.path.join(root, "killed")
+        proc, wall = run_child("kill", ck, "")
+        steps = list_checkpoints(ck)
+        killed = {"returncode": proc.returncode, "wall_s": wall,
+                  "checkpoints": steps,
+                  "verified": [verify_checkpoint(ck, s) for s in steps],
+                  "tmp_left": sorted(n for n in os.listdir(ck)
+                                     if n.startswith(".tmp-"))
+                  if os.path.isdir(ck) else []}
+        if proc.returncode != -signal.SIGKILL or not steps or \
+                not all(killed["verified"]):
+            killed["output_tail"] = (proc.stdout + proc.stderr)[-3000:]
+            failures.append(f"killed child: {killed}")
+        out = os.path.join(root, "resumed.npz")
+        proc, wall = run_child("resume", ck, out)
+        resumed = {"returncode": proc.returncode, "wall_s": wall}
+        if proc.returncode == 0:
+            with open(out + ".json") as f:
+                resumed.update(json.load(f))
+            with np.load(out) as z:
+                same, bad = same_arrays(dict(z), want)
+            resumed.update(bitwise=same, differ=bad)
+            if not same or resumed["iteration"] != GRAPH_BATCHES:
+                failures.append(f"resumed child: {resumed}")
+        else:
+            resumed["output_tail"] = (proc.stdout + proc.stderr)[-3000:]
+            failures.append(f"resumed child: {resumed}")
+        rec["killed_child"], rec["resumed_child"] = killed, resumed
+        # (iii) preemption in this process
+        ck = os.path.join(root, "preempted")
+        net = durable_net(device)
+
+        class Trigger:
+            def iteration_done(self, model, iteration, score):
+                if iteration == DURABLE_TRIGGER:
+                    guard.trigger()
+
+            def on_epoch_start(self, model, epoch):
+                pass
+
+            def on_epoch_end(self, model, epoch):
+                pass
+
+        guard = PreemptionGuard(net, ck, install=False)
+        net.set_listeners(Trigger())
+        exit_step, t0 = None, time.perf_counter()
+        try:
+            net.fit(ArrayDataSetIterator(x, y, TRAIN_B),
+                    steps_per_dispatch=GRAPH_K, prefetch=GRAPH_PREFETCH)
+        except PreemptionExit as e:
+            exit_step = e.step
+        pre_s = time.perf_counter() - t0
+        guard.uninstall()
+        del net
+        torch.cuda.empty_cache()
+        net = durable_net(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(net, ck)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        step = net.iteration_count
+        net.fit(ArrayDataSetIterator(x, y, TRAIN_B), epochs=1,
+                steps_per_dispatch=GRAPH_K, prefetch=GRAPH_PREFETCH)
+        same, bad = same_arrays(tree_arrays(net_trees(net)), want)
+        rec["preempted"] = {
+            "exit_step": exit_step, "checkpoints": list_checkpoints(ck),
+            "fit_until_exit_s": pre_s, "restore_s": restore_s,
+            "restored_step": step, "iteration": net.iteration_count,
+            "bitwise": same, "differ": bad,
+            "bytes": dir_bytes(os.path.join(ck, f"step_{exit_step}"))
+            if exit_step is not None else None}
+        want_exit = (DURABLE_TRIGGER // GRAPH_K + 1) * GRAPH_K
+        if exit_step != want_exit or not same or \
+                net.iteration_count != GRAPH_BATCHES:
+            failures.append(f"preempted: {rec['preempted']}")
+        del net
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("durable_transformer:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"durable_transformer: {failures}")
+    return rec
+
+
+def cursored(cls):
+    """``cls`` (an injector) passing the data cursor through to its base
+    iterator, so a restart resumes mid-pass exactly."""
+    class Cursored(cls):
+        def state(self):
+            return self.base.state()
+
+        def restore_state(self, state):
+            self.base.restore_state(state)
+    return Cursored
+
+
+def recovery_resnet(device, smi):
+    """ResNet50 on the fused plan with the stem (rows 1-4, 7-10), B =
+    128, bf16, Nesterovs(0.01), eager, under FaultTolerantTrainer with a
+    save every 2 iterations over 8 batches (cuDNN deterministic). A
+    straight run; RaiseOnBatch before global batch 5 restarts from the
+    newest checkpoint and must end bitwise the straight run; NaN batches
+    4 and 5 with a DivergenceWatchdog (2 bad steps in a row) and
+    lr_backoff=0.5 must roll back to step 4 (the last good save: the
+    trees after iteration 3) at the halved rate, whose next step is
+    bitwise an eager step from the restored trees at that rate (and not
+    one at the old rate)."""
+    import os
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.resilience.chaos import (
+        NaNPoisonIterator, RaiseOnBatch)
+    from deeplearning4j_tpu_torch.resilience.watchdog import (
+        DivergenceWatchdog)
+    from deeplearning4j_tpu_torch.util import (
+        FaultTolerantTrainer, list_checkpoints)
+    x, y = graph_resnet_images(RECOVERY_BATCHES)
+    root = tempfile.mkdtemp(prefix="recovery_")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    failures, rec = [], {"card": smi, "batches": RECOVERY_BATCHES,
+                         "save_every": RECOVERY_EVERY}
+
+    def make():
+        net = resnet_train_net(device, torch.bfloat16, lr=GRAPH_RESNET_LR)
+        net.set_fusion("bottleneck", stem=True)
+        return net
+
+    def data():
+        return ArrayDataSetIterator(x, y, RESNET_B)
+
+    def train(net, it, name, **kw):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FaultTolerantTrainer(net, os.path.join(root, name),
+                             save_every_n_iterations=RECOVERY_EVERY,
+                             **kw).fit(it, epochs=1)
+        torch.cuda.synchronize()
+        return {"wall_s": time.perf_counter() - t0,
+                "iterations": net.iteration_count,
+                "checkpoints": list_checkpoints(os.path.join(root, name)),
+                "launches": {k: v for k, v in read_counts().items() if v}}
+
+    try:
+        net = make()
+        rec["straight"] = train(net, data(), "straight")
+        want = tree_arrays(net_trees(net))
+        del net
+        net = make()
+        it = cursored(RaiseOnBatch)(data(), n=RECOVERY_FAULT)
+        rec["transient"] = train(net, it, "transient")
+        same, bad = same_arrays(tree_arrays(net_trees(net)), want)
+        rec["transient"].update(faults_fired=it.faults_fired, bitwise=same,
+                                differ=bad)
+        if not same or it.faults_fired != 1:
+            failures.append(f"transient restart: {rec['transient']}")
+        del net
+        torch.cuda.empty_cache()
+        net = make()
+
+        class Watch:
+            """Device copies of the trees at each fit's start, and of
+            the parameters after iterations 3 and 4."""
+
+            def __init__(self):
+                self.starts, self.after = [], {3: [], 4: []}
+
+            def on_epoch_start(self, model, epoch):
+                self.starts.append(clone_trees(net_trees(model)))
+
+            def on_epoch_end(self, model, epoch):
+                pass
+
+            def iteration_done(self, model, iteration, score):
+                if iteration in self.after:
+                    self.after[iteration].append(
+                        clone_trees((model.params,))[0])
+
+        watch = Watch()
+        net.set_listeners(watch)
+        wd = DivergenceWatchdog(max_consecutive_bad=2, check_every=1)
+        it = cursored(NaNPoisonIterator)(data(), n=list(RECOVERY_NAN))
+        rec["divergence"] = train(net, it, "divergence",
+                                  save_every_epoch=False, watchdog=wd,
+                                  lr_backoff=RECOVERY_BACKOFF)
+        lr = net.conf.updater.learning_rate
+        restored = watch.starts[-1]
+        rolled_to_good = len(watch.starts) == 2 and \
+            tensor_leaves((restored[0],)) and all(
+                torch.equal(u, v) for u, v in zip(
+                    tensor_leaves((restored[0],)),
+                    tensor_leaves((watch.after[3][0],))))
+        took = watch.after[4][-1]
+        net.set_listeners()
+        steps = {}
+        for rate in (GRAPH_RESNET_LR * RECOVERY_BACKOFF, GRAPH_RESNET_LR):
+            net.params, net.updater_state, net.state = clone_trees(restored)
+            net.conf.updater.learning_rate = rate
+            b4 = slice(RECOVERY_NAN[0] * RESNET_B,
+                       (RECOVERY_NAN[0] + 1) * RESNET_B)
+            net.fit(x[b4], y[b4], batch_size=RESNET_B)
+            steps[rate] = all(torch.equal(u, v) for u, v in zip(
+                tensor_leaves((net.params,)), tensor_leaves((took,))))
+        rec["divergence"].update(
+            learning_rate_after=lr, attempts=len(watch.starts),
+            rolled_back_to_the_last_good=bool(rolled_to_good),
+            next_step_equals_eager_step_at={str(k): v
+                                            for k, v in steps.items()})
+        if lr != GRAPH_RESNET_LR * RECOVERY_BACKOFF or not rolled_to_good \
+                or not steps[GRAPH_RESNET_LR * RECOVERY_BACKOFF] or \
+                steps[GRAPH_RESNET_LR] or rec["divergence"][
+                    "checkpoints"] != [4, 6, 8]:
+            failures.append(f"divergence: {rec['divergence']}")
+        del net, watch
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(root, ignore_errors=True)
+    log("recovery_resnet:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"recovery_resnet: {failures}")
     return rec
 
 
@@ -7877,7 +8511,7 @@ def prefetch_lstm(device):
     profiler's copies against its kernels)."""
     net = text_lstm_net(device, torch.bfloat16)
     x, y = text_batch(LSTM_B * PREFETCH_LSTM_BATCHES, LSTM_T, seed=3)
-    init = clone_trees(net_trees(net))
+    init = start_of(net)
     run_fit(net, x[:LSTM_B], y[:LSTM_B], LSTM_B, init)
     runs = [run_fit(net, x, y, LSTM_B, init, 1, p) for p in (0, 2, 2, 0)]
     same = all(r["losses"] == runs[0]["losses"] for r in runs) and all(
@@ -7975,12 +8609,19 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
+    ap.add_argument("--durable-child", choices=("kill", "resume"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--durable-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--durable-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
         return 2
+    if args.durable_child:
+        return durable_child(args.durable_child, args.durable_dir,
+                             args.durable_out)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8166,7 +8807,13 @@ def main(argv=None) -> int:
                                           fit_graph_sentinel, device)
     if want("fit_graph_draws"):
         out["fit_graph_draws"] = phase("fit_graph_draws", fit_graph_draws,
-                                       device)
+                                       device, smi)
+    if want("durable_transformer"):
+        out["durable_transformer"] = phase(
+            "durable_transformer", durable_transformer, device, smi)
+    if want("recovery_resnet"):
+        out["recovery_resnet"] = phase("recovery_resnet", recovery_resnet,
+                                       device, smi)
     if want("prefetch_lstm"):
         out["prefetch_lstm"] = phase("prefetch_lstm", prefetch_lstm, device)
     graph_recs = {k: out[k] for k in ("fit_graph_transformer",

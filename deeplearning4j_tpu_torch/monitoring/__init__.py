@@ -14,10 +14,10 @@ everything the port observes:
 
 ``ensure_started()`` is the one switch: idempotent, called at the top of
 ``fit``, it declares the series of the modules the port has (spans,
-events, step captures, prefetch, sentinel, autotune), so a scrape taken
-before the first iteration already shows the full schema. The JAX
-package also declares its checkpoint and elastic-membership series
-here; those come with their modules (ROADMAP.md A5, A9).
+events, step captures, prefetch, sentinel, checkpoints, autotune), so a
+scrape taken before the first iteration already shows the full schema.
+The JAX package also declares its elastic-membership series here; those
+come with their module (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -57,6 +57,8 @@ def ensure_started() -> None:
             declare_event_series)
         from deeplearning4j_tpu_torch.pipeline.prefetch import (
             declare_prefetch_series)
+        from deeplearning4j_tpu_torch.resilience.durable import (
+            declare_checkpoint_series)
         from deeplearning4j_tpu_torch.resilience.sentinel import (
             declare_sentinel_series)
         from deeplearning4j_tpu_torch.tuning.crossover import (
@@ -66,5 +68,6 @@ def ensure_started() -> None:
         declare_event_series()
         declare_prefetch_series()
         declare_sentinel_series()
+        declare_checkpoint_series()
         declare_autotune_series()
         _started = True

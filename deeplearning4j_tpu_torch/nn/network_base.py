@@ -36,13 +36,26 @@ counts (``net.fit_dispatch``).
 
 The training generator is an explicit ``torch.Generator`` on the
 network's device, seeded ``conf.seed + 1`` (the JAX package's training
-key) and not saved in archives (the JAX package saves no key either).
-Each training step advances it once and splits it into one generator a
-layer, in layer order (:meth:`NetworkBase._step_gens`), which the
-layer's weight noise and input dropout draw from. On the card the split
-is by Philox offset (layer i of a step starts ``i * 2^32`` counters
-past the step's base), so it needs no device read; on the CPU the step
-draws one seed a layer. Inference draws nothing.
+key) and not saved in archives (the JAX package saves no key either;
+checkpoints save its state, ``util/checkpoint.py``). Each training step
+advances it once and splits it into one generator a layer, in layer
+order (:meth:`NetworkBase._step_gens`), which the layer's weight noise
+and input dropout draw from. On the card the split is by Philox offset
+(layer i of a step starts ``i * 2^32`` counters past the step's base),
+so it needs no device read; on the CPU the step draws one seed a layer.
+Inference draws nothing. A step graph holds one generator a (step,
+drawing layer), registered with the graph: before each replay each is
+set to the seed and offset its eager twin would take
+(:meth:`_StepGraph.draw`), and the replay's draws start there, so a
+replayed group draws what K eager steps draw.
+
+The fit loop keeps the JAX loop's data cursor: ``_dispatched_in_epoch``
+(the batches dispatched in the pass, the fit loop's own count, not the
+prefetch worker's), ``_canon_in_epoch`` and ``_cursor_pass``; a restored
+checkpoint's cursor is consumed when a fit starts, and after every
+dispatch (a group, each batch of the trailing flush, each tBPTT batch,
+each K = 1 batch) ``resilience.durable.dispatch_boundary`` runs the
+listeners' cadence saves and a pending preemption.
 """
 
 from __future__ import annotations
@@ -70,6 +83,8 @@ from deeplearning4j_tpu_torch.pipeline.padding import (
     group_signature, num_real_examples, pad_batch, with_example_weights)
 from deeplearning4j_tpu_torch.pipeline.prefetch import (
     DevicePrefetchIterator, batch_arrays, map_batch)
+from deeplearning4j_tpu_torch.resilience.durable import (
+    capture_cursor_pass, consume_restored_cursor, dispatch_boundary)
 from deeplearning4j_tpu_torch.resilience.sentinel import (
     effective_policy, guard_updates, record_step_flag, tree_finite)
 
@@ -119,6 +134,12 @@ class NetworkBase:
         #: "batch_steps" (per batch: K = 1, partial groups, signature
         #: changes, tBPTT chunks); "captures", "replays"
         self.fit_dispatch: Counter = Counter()
+        #: the data cursor (resilience/durable.py): batches dispatched
+        #: in the pass, the pass's index, a restored checkpoint's cursor
+        self._dispatched_in_epoch = 0
+        self._cursor_pass = None
+        self._restored_pipeline_state = None
+        self._preemption_guard = None
 
     def _layer_items(self):
         """(key, layer conf) of every layer with parameters or state."""
@@ -134,29 +155,40 @@ class NetworkBase:
         self._train_gen = torch.Generator(device=self.device)
         self._train_gen.manual_seed(int(self.conf.seed) + 1)
 
+    def _draw_index(self):
+        """(position in layer order, key) of each layer that draws in
+        training (dropout, weight noise)."""
+        return [(i, key) for i, (key, layer)
+                in enumerate(self._layers_in_order())
+                if layer.draws_in_training()]
+
+    def _step_base(self) -> int:
+        """On the card: the training generator's offset for one step,
+        the generator advanced past it (one ``_SPLIT`` a layer)."""
+        g = self._train_gen
+        base = g.get_offset()
+        n = sum(1 for _ in self._layers_in_order())
+        g.set_offset((base + n * _SPLIT) % _OFFSETS)
+        return base
+
     def _step_gens(self) -> Dict[str, torch.Generator]:
         """One step's generators by layer key: the training generator
         advanced once and split per layer, in layer order; a generator
         only for the layers that draw (dropout, weight noise)."""
-        items = list(self._layers_in_order())
         g = self._train_gen
         if g.device.type == "cuda":
-            base = g.get_offset()
-            g.set_offset((base + len(items) * _SPLIT) % _OFFSETS)
+            base = self._step_base()
 
             def make(i):
-                gi = torch.Generator(device=g.device)
-                gi.manual_seed(g.initial_seed())
-                gi.set_offset((base + i * _SPLIT) % _OFFSETS)
-                return gi
+                return _philox_at(torch.Generator(device=g.device),
+                                  g.initial_seed(), base, i)
         else:
-            seeds = torch.randint(0, 1 << 62, (len(items),),
-                                  generator=g).tolist()
+            n = sum(1 for _ in self._layers_in_order())
+            seeds = torch.randint(0, 1 << 62, (n,), generator=g).tolist()
 
             def make(i):
                 return torch.Generator().manual_seed(seeds[i])
-        return {key: make(i) for i, (key, layer) in enumerate(items)
-                if layer.draws_in_training()}
+        return {key: make(i) for i, key in self._draw_index()}
 
     def _constrain(self, params):
         """The parameters after an update's projections: none here (the
@@ -296,7 +328,8 @@ class NetworkBase:
         is queued, selects only on a bad step and counts the flag; it
         returns the loss (on the device). ``on_device=True`` (a K-step
         group, the body of its CUDA graph) reads nothing: it selects on
-        every step, as the JAX step does, and returns (loss, flag), the
+        every step, as the JAX step does, keeps no streaming carry in the
+        new state (as the JAX scan's carry), and returns (loss, flag), the
         flag a 0-d bool tensor or None under "off". ``phases`` opens the
         ``forward``, ``backward`` and ``update`` spans."""
         policy = effective_policy(self)
@@ -317,6 +350,10 @@ class NetworkBase:
             conf = self.conf
             new_state = tree_map(
                 lambda t: t.detach() if torch.is_tensor(t) else t, new_state)
+            if on_device:
+                # a group's state carries no stream (the JAX scan's
+                # carry), so every step's state has one structure
+                new_state = _strip_stream(new_state)
             # the raw gradients: normalization must not hide an Inf
             ok = None if policy == "off" else tree_finite(loss, tree)
             tree = normalize_gradients(tree, conf.gradient_normalization,
@@ -381,22 +418,31 @@ class NetworkBase:
         # listener capability scan hoisted out of the per-batch path
         self._stash_features = any(getattr(l, "needs_batch_features", False)
                                    for l in self.listeners)
+        # a restored checkpoint's cursor moves the iterator to the batch
+        # after the last dispatched one; the pass index is pinned for
+        # the pass (resilience/durable.py)
+        consume_restored_cursor(self, it)
+        capture_cursor_pass(self, it)
         try:
             for _ in range(epochs):
                 for lst in self.listeners:
                     lst.on_epoch_start(self, self.epoch_count)
                 self._fit_epoch(it, k, pad)
-                # the epoch counts as completed before on_epoch_end,
-                # which still receives its index
+                # the epoch counts as completed before on_epoch_end
+                # (whose saves must record it so), which still receives
+                # its index
                 epoch_idx = self.epoch_count
                 self.epoch_count += 1
+                self._dispatched_in_epoch = 0
                 self._canon_in_epoch = None
+                self._cursor_pass += 1
                 for lst in self.listeners:
                     lst.on_epoch_end(self, epoch_idx)
             # the one sync, after the final batch
             finalize_fit_telemetry(self)
         finally:
             self._stash_features = None
+            self._cursor_pass = None
             close_listeners(self.listeners)
         return self
 
@@ -419,25 +465,33 @@ class NetworkBase:
         canonical (first-batch) row count when ``pad``, and run each run
         of ``k`` same-signature batches as one group when k > 1; anything
         else (a signature change, the trailing partial group, a batch
-        that runs alone) runs per batch."""
+        that runs alone) runs per batch. After each dispatch the cursor
+        counts its batches and ``dispatch_boundary`` runs."""
         canon = self._canon_in_epoch
         group: List[DataSet] = []
         sig = None
 
         def flush():
             nonlocal sig
+            if not group:
+                sig = None
+                return
             if len(group) == k:
                 self._fit_group(group)
             else:
                 for b in group:
                     self._fit_batch(b)
+            self._dispatched_in_epoch += len(group)
             group.clear()
             sig = None
+            dispatch_boundary(self)
 
         for ds in it:
             if self._runs_alone(ds):
                 flush()
                 self._fit_alone(ds)
+                self._dispatched_in_epoch += 1
+                dispatch_boundary(self)
                 continue
             if canon is None:
                 canon = ds.num_examples()
@@ -451,6 +505,8 @@ class NetworkBase:
                 ds = with_example_weights(ds)
             if k == 1:
                 self._fit_batch(ds)
+                self._dispatched_in_epoch += 1
+                dispatch_boundary(self)
                 continue
             s = group_signature(ds)
             if group and s != sig:
@@ -507,16 +563,17 @@ class NetworkBase:
         t0 = time.perf_counter()
         k = len(group)
         policy = effective_policy(self)
-        with span("etl"):
-            gens = [self._step_gens() for _ in range(k)]
-        with span("step"):
-            if self.device.type == "cuda":
-                losses, flags, event = self._group_on_card(group, policy,
-                                                           gens)
-            else:
+        self.state = _strip_stream(self.state)
+        if self.device.type == "cuda":
+            with span("step"):
+                losses, flags, event = self._group_on_card(group, policy)
+        else:
+            with span("etl"):
+                gens = [self._step_gens() for _ in range(k)]
+            with span("step"):
                 losses, flags = self._group_steps(group, policy, gens)
-                event = None
-                self.fit_dispatch["eager_group_steps"] += k
+            event = None
+            self.fit_dispatch["eager_group_steps"] += k
         if flags is not None:
             record_step_flag(self, flags, policy, event=event)
         self.score_value = losses[-1]
@@ -545,28 +602,27 @@ class NetworkBase:
         return (torch.stack(losses),
                 None if policy == "off" else torch.stack(flags))
 
-    def _draws(self) -> bool:
-        return any(layer.draws_in_training()
-                   for _, layer in self._layers_in_order())
-
     def _plan_key(self):
         """The execution plan a step graph bakes in (a graph's fusion
         level; none for the sequential network)."""
         return None
 
-    def _group_on_card(self, group, policy, gens):
+    def _step_graph_key(self, group, policy):
+        """What a step graph bakes in: K, the dtype policy, the sentinel
+        policy, the execution plan, the batch signature, the trees'
+        structure and the updater with its hyperparameters (a step takes
+        the learning rate as a Python number: a new rate needs a new
+        graph)."""
+        return ("scan", len(group), self.conf.dtype, policy,
+                self._plan_key(), _batch_key(group[0]), _trees_key(self),
+                repr(self.conf.updater))
+
+    def _group_on_card(self, group, policy):
         """The group as one replay of its CUDA graph (captured at the
         second group of its key; the first runs its steps eagerly).
         Returns the [K] losses and flags (copies the next replay will not
         overwrite) and an event recorded after them."""
-        if any(gens):
-            raise NotImplementedError(
-                "steps_per_dispatch > 1 on the card for a network whose "
-                "training draws (dropout, weight noise): the step graph "
-                "would replay the same masks; not ported yet (ROADMAP.md "
-                "A5)")
-        key = ("scan", len(group), self.conf.dtype, policy,
-               self._plan_key(), _batch_key(group[0]), _trees_key(self))
+        key = self._step_graph_key(group, policy)
         sg = self._step_graph
         if sg is not None and sg.key != key:
             self._drop_step_graph()
@@ -578,12 +634,14 @@ class NetworkBase:
         with torch.cuda.stream(sg.stream):
             sg.fill(group, self._tensor)
             if not sg.warm:
+                gens = [self._step_gens() for _ in group]
                 losses, flags = self._group_steps(sg.slots, policy, gens)
                 sg.warm = True
                 self.fit_dispatch["eager_group_steps"] += len(group)
             else:
                 if sg.graph is None:
-                    self._capture(sg, policy, gens)
+                    self._capture(sg, policy)
+                sg.draw(self)
                 sg.bind(self)
                 sg.replay(self)
                 self.fit_dispatch["replays"] += 1
@@ -595,23 +653,27 @@ class NetworkBase:
         event.record(cur)
         return losses, flags, event
 
-    def _capture(self, sg, policy, gens):
+    def _capture(self, sg, policy):
         """Capture the K steps over the group's slots into ``sg.graph``:
         static copies of the parameter, updater and layer state trees
         become the network's trees, the graph's steps chain through its
         private pool, and the last step's trees are copied back into the
-        static ones, so each replay updates them in place."""
+        static ones, so each replay updates them in place. The steps
+        draw from the graph's own generators, one a (step, drawing
+        layer), registered with the graph (each replay reads their seed
+        and offset as :meth:`_StepGraph.draw` set them)."""
         t0 = time.perf_counter()
         sg.statics = tuple(
             tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, tree)
             for tree in (self.params, self.updater_state, self.state))
         sg.bind(self)
         graph = torch.cuda.CUDAGraph()
+        sg.make_gens(self, graph)
         try:
             with torch.cuda.graph(graph, stream=sg.stream,
                                   capture_error_mode="thread_local"):
                 sg.losses, sg.flags = self._group_steps(sg.slots, policy,
-                                                        gens)
+                                                        sg.gens)
                 with torch.no_grad():
                     _tree_copy(sg.statics, (self.params, self.updater_state,
                                             self.state))
@@ -619,7 +681,7 @@ class NetworkBase:
             self.params, self.updater_state, self.state = sg.statics
         sg.graph = graph
         self.fit_dispatch["captures"] += 1
-        record_capture(f"{type(self).__name__}.step_graph_k{len(gens)}",
+        record_capture(f"{type(self).__name__}.step_graph_k{len(sg.gens)}",
                        time.perf_counter() - t0)
 
     def _drop_step_graph(self):
@@ -661,6 +723,37 @@ class _StepGraph:
         self.graph = None
         self.statics = None
         self.losses = self.flags = None
+        #: [K] {layer key: generator} the graph's steps draw from, and the
+        #: drawing layers' (position in layer order, key)
+        self.gens = None
+        self.draw_index = None
+
+    def make_gens(self, net, graph):
+        """The graph's generators, one a (step, drawing layer), each
+        registered with ``graph`` before its capture (a draw from an
+        unregistered generator cannot be captured), seeded as the
+        training generator."""
+        k = len(self.slots)
+        self.draw_index = net._draw_index()
+        seed = net._train_gen.initial_seed()
+        self.gens = [{key: torch.Generator(device=net.device).manual_seed(
+            seed) for _, key in self.draw_index} for _ in range(k)]
+        for gens in self.gens:
+            for g in gens.values():
+                graph.register_generator_state(g)
+
+    def draw(self, net):
+        """Before a replay: advance the training generator by K steps, as
+        K eager steps would, and set the generator of each (step j,
+        layer at position i) to the seed and offset that step's eager
+        twin takes (:func:`_philox_at`). A replay starts each
+        generator's draws at the offset set here and moves it on by the
+        draws' counters; it is set again before the next."""
+        seed = net._train_gen.initial_seed()
+        for gens in self.gens:
+            base = net._step_base()
+            for i, key in self.draw_index:
+                _philox_at(gens[key], seed, base, i)
 
     def fill(self, group, to_tensor):
         """Copy the group's batches into the slots (made at the first
@@ -691,6 +784,14 @@ class _StepGraph:
         is dropped."""
         self.graph.replay()
         net._compute = None
+
+
+def _philox_at(gen, seed, base, i):
+    """``gen`` set to the Philox stream ``seed`` at layer position ``i``
+    of the step whose base offset is ``base``."""
+    gen.manual_seed(seed)
+    gen.set_offset((base + i * _SPLIT) % _OFFSETS)
+    return gen
 
 
 def _tensors(trees):

@@ -244,6 +244,14 @@ class SentinelAccounting:
             skip.inc(new_skipped, model=self.model_name)
         run.set(self.consecutive_bad, model=self.model_name)
 
+    def reset_window(self) -> None:
+        """Drop the queued flags and the run of bad steps (a rollback or
+        a restore just put back a good state); the lifetime totals
+        stay."""
+        with self._lock:
+            self._pending = []
+            self.consecutive_bad = 0
+
 
 def accounting_for(model) -> SentinelAccounting:
     """The model's accounting, made on first use."""

@@ -487,12 +487,137 @@ def test_prefetch_gives_every_batch_its_example_weights():
 
 
 def test_the_card_refuses_what_its_graph_cannot_hold(monkeypatch):
-    """On the card a drawing network's group is refused (the graph would
-    replay one mask), naming ROADMAP.md A5: checked through the card
-    path's guard, which runs before anything touches CUDA."""
-    net = _drop_mlp()
-    gens = [net._step_gens() for _ in range(K)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        net._group_on_card([None] * K, "skip", gens)
+    """A prefetch stage that would place batches on a device mesh is
+    refused, naming ROADMAP.md A9 (a drawing network is no longer
+    refused: its graph draws what K eager steps draw, below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
         DevicePrefetchIterator(iter([]), data_axis="data")
+
+
+class _Philox:
+    """A stand-in for a CUDA generator: a seed and a Philox offset."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, device=None):
+        self.seed = self.offset = 0
+
+    def manual_seed(self, seed):
+        self.seed, self.offset = int(seed), 0
+        return self
+
+    def initial_seed(self):
+        return self.seed
+
+    def get_offset(self):
+        return self.offset
+
+    def set_offset(self, offset):
+        self.offset = int(offset)
+
+
+class _Graph:
+    """A stand-in for a CUDA graph: the generators registered with it."""
+
+    def __init__(self):
+        self.registered = []
+
+    def register_generator_state(self, gen):
+        self.registered.append(gen)
+
+
+def _card_net(monkeypatch, seed=1234):
+    """The drawing MLP with a stand-in CUDA training generator, torch's
+    generators replaced by stand-ins for the test."""
+    net = _drop_mlp()
+    net._train_gen = _Philox().manual_seed(seed)
+    monkeypatch.setattr(torch, "Generator", _Philox)
+    return net
+
+
+def test_a_replay_draws_where_k_eager_steps_draw(monkeypatch):
+    """The card's path for a drawing network: the step graph holds one
+    generator a (step, drawing layer), registered with the graph before
+    its capture, and before each replay sets each to the seed and
+    Philox offset its eager twin (``_step_gens``) takes, advancing the
+    training generator as K eager steps do; a replay moves the
+    generators on by their draws, and the next replay sets them again.
+    Checked over two replays with stand-ins for the generators and the
+    graph (nothing here needs the card)."""
+    net = _card_net(monkeypatch)
+    want = [{key: (g.initial_seed(), g.get_offset())
+             for key, g in net._step_gens().items()} for _ in range(2 * K)]
+    end = net._train_gen.get_offset()
+    assert all(len(w) == 2 for w in want)   # dropout and weight noise
+    net._train_gen = _Philox().manual_seed(1234)
+    sg = object.__new__(network_base._StepGraph)
+    sg.slots = [None] * K
+    graph = _Graph()
+    sg.make_gens(net, graph)
+    assert len(graph.registered) == 2 * K
+    assert sorted(map(id, graph.registered)) == sorted(
+        id(g) for gens in sg.gens for g in gens.values())
+    got = []
+    for _ in range(2):
+        sg.draw(net)
+        got += [{key: (g.initial_seed(), g.get_offset())
+                 for key, g in gens.items()} for gens in sg.gens]
+        for g in graph.registered:      # the replay's own draws
+            g.set_offset(g.get_offset() + 4 * 1000)
+    assert got == want
+    assert net._train_gen.get_offset() == end
+
+
+def test_a_new_learning_rate_takes_a_new_step_graph():
+    """A step takes the learning rate as a Python number, so a graph
+    bakes it in: the graph's key holds the updater's hyperparameters,
+    and a new rate (``lr_backoff``, a restored checkpoint's rate) makes
+    the next group warm and capture anew."""
+    net = _drop_mlp()
+    x, y = _mlp_data()
+    group = [network_base.DataSet(x[:B], y[:B])] * K
+    key = net._step_graph_key(group, "skip")
+    assert net._step_graph_key(group, "skip") == key
+    net.conf.updater.learning_rate *= 0.5
+    assert net._step_graph_key(group, "skip") != key
+
+
+def test_a_drawing_lstm_group_is_its_k_eager_steps():
+    """The regularized text LSTM without tBPTT (dropout on each LSTM's
+    input, DropConnect on the second's weights, a max-norm constraint,
+    AdaMax) at a small size: a K-step group's steps draw, step and
+    project as K eager steps do, bit for bit (the losses, parameters and
+    updater state); a group keeps no streaming carry in the state, as
+    the JAX scan's carry keeps none."""
+    from deeplearning4j_tpu_torch.nn.conf.constraints import (
+        MaxNormConstraint)
+    from deeplearning4j_tpu_torch.nn.updater import AdaMax
+
+    def make():
+        b = (NeuralNetConfiguration.Builder().seed(5).updater(AdaMax(2e-3))
+             .weight_init("xavier_uniform").list())
+        for i in range(2):
+            b.layer(tl.GravesLSTM(
+                n_out=8, activation="tanh", dropout=tdrop.Dropout(0.9),
+                weight_noise=tdrop.DropConnect(0.95) if i else None,
+                constraints=[MaxNormConstraint(max_norm=0.75)]))
+        b.layer(tl.RnnOutputLayer(n_out=V, loss="mcxent",
+                                  activation="softmax"))
+        conf = b.set_input_type(InputType.recurrent(V, T)).build()
+        return MultiLayerNetwork(conf).init(device="cpu")
+
+    x, y = (a[:2 * K * B] for a in _tfm_data())     # two whole groups
+    nets, losses = [make(), make()], []
+    for net, k in zip(nets, (1, K)):
+        lst = CollectScoresIterationListener()
+        net.set_listeners(lst)
+        net.fit(x, y, batch_size=B, steps_per_dispatch=k, pad_tail=True)
+        losses.append([s for _, s in lst.scores])
+    assert losses[0] == losses[1]
+    _assert_trees_close(params_to_numpy(nets[1].params),
+                        params_to_numpy(nets[0].params), 0)
+    _assert_trees_close(
+        network_base.tree_map(np.asarray, nets[1].updater_state),
+        network_base.tree_map(np.asarray, nets[0].updater_state), 0)
+    assert not any(k in s for s in nets[1].state.values()
+                   for k in network_base.STREAM_STATE_KEYS)
