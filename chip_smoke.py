@@ -425,6 +425,40 @@ Phases (any failure exits nonzero):
     4 with the rate halved, and the next step is bitwise an eager step
     from the restored trees at the halved rate, not at the old one.
 
+34. evaluate (``evaluate``): ``evaluate`` on both networks at full
+    width, bf16. ResNet50 ``fuse=True`` (BN calibrated) over 300 seeded
+    images through a DataSet, batched by 128 as the JAX package batches
+    it (two full batches, a ragged 44): 16 fused forward launches a
+    batch; the confusion matrix and the wire form equal
+    ``Evaluation.eval`` fed the same ``output()`` heads, the counts sum
+    to 300; every argmax that differs from the xla plan's sits at a
+    top-two logit gap under EVAL_GAP of the row's spread; ms a batch and
+    the host copy's share. The text LSTM (T = 256) on ``[N, C, T]`` labels under a labels mask
+    through an iterator, 2 LSTM forward launches a batch, held the same
+    way;
+35. early stopping (``early_stop``): ``EarlyStoppingTrainer`` on
+    ResNet50 ``fuse=True`` at B = 128 (3 epochs of 2 batches,
+    ``ClassificationScoreCalculator``, ``LocalFileModelSaver``,
+    ``MaxEpochsTerminationCondition``): the restored best model's logits
+    equal those recorded at its save, bitwise; an
+    ``InMemoryModelSaver``'s best copy unchanged while the source trains
+    on, its last fit replaying a K=2 graph; an ``EvaluativeListener``
+    (frequency 2) inside ``fit(steps_per_dispatch=4, prefetch=2)``
+    evaluating at the JAX iterations, each evaluation equal to
+    ``evaluate()`` after an eager fit stopped at its group's end, the
+    fit's losses and trees bitwise those without the listener; the same
+    on the drawing MLP of phase 30 (its training generator where the fit
+    without the listener leaves it);
+36. speculation (``serve_spec``): phase 4's configuration and traffic
+    through ``SpeculationConfig(prompt_lookup_proposer(3), gamma=4)``
+    against the plain engine in turns, bf16 and int8 pools: every verify
+    dispatch launches the pool's paged kernel once a layer at query
+    width 5; acceptance, tokens a step, tokens/s, TPOT p50; each greedy
+    request's first divergence from the plain engine at a top-two gap
+    under SPEC_GAP; a profile of 20 verify steps (busy share, launches
+    a step and a token); in f32 at 2 layers the speculative streams equal
+    the plain engine's (bf16 and int8 pools) and ``sample_stream``'s.
+
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits nonzero and prints no result. ``--json`` also writes every
@@ -437,6 +471,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1760,10 +1795,11 @@ def served_net(device, layers=None, dtype="bfloat16", seed=7):
     return model, net
 
 
-def serve_turn(engine, requests):
+def serve_turn(engine, requests, keep_outs=False):
     """Serve ``requests`` through a warmed engine's background loop;
     returns the turn's numbers (tokens/s, the decode dispatches' mean
-    ms, TTFT and TPOT p50, peak device memory) and the launches."""
+    ms, TTFT and TPOT p50, peak device memory) and the launches (and,
+    with ``keep_outs``, the streams under "outs")."""
     engine.ttft_s.clear()
     engine.tpot_s.clear()
     d0, s0 = engine.dispatches, engine.dispatch_s_total
@@ -1793,7 +1829,7 @@ def serve_turn(engine, requests):
                                                   for h in handles])),
             "tpot_p50_ms": 1e3 * float(np.median(engine.tpot_s)),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "launches": counts}
+            "launches": counts, **({"outs": outs} if keep_outs else {})}
 
 
 def serve_int8(device):
@@ -8542,6 +8578,573 @@ def prefetch_lstm(device):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phases 34-36: evaluation, early stopping, in-engine speculation
+# ---------------------------------------------------------------------
+#: evaluate: examples (two full batches of EVAL_B and a ragged one of
+#: 44) and the iterator's batch, as the JAX package's evaluate wraps a
+#: DataSet
+EVAL_N, EVAL_B = 300, 128
+#: a fuse=True argmax that differs from the xla plan's must sit where
+#: the xla plan's top two logits lie within this share of the row's
+#: spread: each plan's logits lie within RESNET_LOGIT of the row's
+#: spread (phase 11's bf16 limit), so two plans may swap a pair whose
+#: gap is under twice that, and nothing wider
+EVAL_GAP = 2 * RESNET_LOGIT[torch.bfloat16]
+#: the text LSTM's evaluation: examples, the labels mask's kept share
+EVAL_LSTM_N, EVAL_LSTM_KEEP = 256, 0.75
+#: early stopping: train batches an epoch, epochs, validation examples
+ES_BATCHES, ES_EPOCHS, ES_VALID = 2, 3, 128
+#: the EvaluativeListener check: its frequency, K, batches of the fit
+EL_FREQ, EL_K, EL_BATCHES = 2, 4, 8
+#: serve_spec: the proposer's n-gram and gamma; the f32 references'
+#: depth and new tokens
+SPEC_NGRAM, SPEC_GAMMA = 3, 4
+SPEC_REF_LAYERS, SPEC_REF_TOKENS = 2, 48
+#: a greedy bf16 stream of the speculative engine may leave the plain
+#: engine's only where the plain run's top two probabilities lie within
+#: this of each other (a verify at width 5 and a decode at width 1 sum
+#: in different orders: a near-tie may flip, nothing else)
+SPEC_GAP = 2e-2
+
+
+def top_two_gap(p):
+    """The gap between the two largest entries of each row of ``p``."""
+    s = np.sort(np.asarray(p, np.float64), axis=-1)
+    return s[..., -1] - s[..., -2]
+
+
+def plan_logits(net, x, device):
+    """The logits (``logits``) of the host images ``x``, EVAL_B at a
+    time, as one host array."""
+    return torch.cat([logits(net, torch.as_tensor(x[i:i + EVAL_B],
+                                                  device=device))
+                      for i in range(0, len(x), EVAL_B)]).numpy()
+
+
+def eval_by_hand(net, it):
+    """``Evaluation.eval`` fed the same heads ``evaluate`` reads, batch
+    by batch from ``it``, with each batch's forward (to a sync) and host
+    copy timed; returns (evaluation, host heads, forward s, copy s)."""
+    from deeplearning4j_tpu_torch.eval import Evaluation
+    ev, heads, fwd, copy = Evaluation(), [], 0.0, 0.0
+    for ds in it:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net._eval_output(ds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = out.cpu().numpy()
+        fwd, copy = fwd + t1 - t0, copy + time.perf_counter() - t1
+        ev.eval(ds.labels, h, mask=ds.labels_mask)
+        heads.append(h)
+    return ev, heads, fwd, copy
+
+
+def counted_evaluate(net, data):
+    """``net.evaluate(data)`` with the launch counts zeroed before it
+    and read after it, timed to its end (its last host copy)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = net.evaluate(data)
+    return ev, time.perf_counter() - t0, read_counts()
+
+
+def evaluate_phase(device, smi):
+    """``evaluate`` on both networks at full width (bf16). ResNet50
+    ``fuse=True`` (BN calibrated) over 300 seeded 224x224 images through
+    a DataSet (batched by 128: two full batches and a ragged one of 44):
+    16 fused forward launches a batch; the confusion matrix and the wire
+    form equal ``Evaluation.eval`` fed the same ``output()`` heads; the
+    counts sum to 300; against the xla plan's evaluation, every argmax
+    that differs sits where the xla plan's top two logits lie within
+    EVAL_GAP of the row's spread; ms a batch, the host copy's share. The text LSTM (T = 256, vocab 128) on
+    ``[N, C, T]`` labels under a labels mask through an iterator: 2 LSTM
+    forward launches a batch, held the same way."""
+    from deeplearning4j_tpu_torch.datasets import (
+        ArrayDataSetIterator, DataSet)
+    rec = {"card": smi}
+    net = fuse_true_net(device, torch.bfloat16, calibrate=True)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((EVAL_N, 3, RESNET_HW, RESNET_HW)).astype(
+        np.float32)
+    y = np.eye(RESNET_CLASSES, dtype=np.float32)[
+        rng.integers(0, RESNET_CLASSES, EVAL_N)]
+    n_batches = -(-EVAL_N // EVAL_B)
+    net.evaluate(DataSet(x, y))                      # first-use costs
+    ev, eval_s, counts = counted_evaluate(net, DataSet(x, y))
+    ref, heads, fwd, copy = eval_by_hand(net, ArrayDataSetIterator(
+        x, y, EVAL_B))
+    want = {"fused_fwd": FUSE_TRUE_LAUNCHES["fused_fwd"] * n_batches}
+    same = ev.to_json() == ref.to_json()
+    total = int(ev.confusion.matrix.sum())
+    # the xla plan's evaluation of the same images
+    net.set_fusion(False)
+    ev_xla = net.evaluate(DataSet(x, y))
+    _, heads_xla, fwd_xla, _ = eval_by_hand(net, ArrayDataSetIterator(
+        x, y, EVAL_B))
+    net.set_fusion(True)
+    a, b = np.concatenate(heads), np.concatenate(heads_xla)
+    differ = np.flatnonzero(a.argmax(1) != b.argmax(1))
+    net.set_fusion(False)
+    lx = plan_logits(net, x[differ], device) if differ.size else \
+        np.zeros((0, RESNET_CLASSES))
+    net.set_fusion(True)
+    gaps = top_two_gap(lx) / np.maximum(np.ptp(lx, axis=1), 1e-30)
+    rec["resnet"] = {
+        "examples": EVAL_N, "batch": EVAL_B, "batches": n_batches,
+        "launches": counts, "launches_wanted": want,
+        "equals_eval_of_output": same, "counts_sum": total,
+        "accuracy": ev.accuracy(), "accuracy_xla": ev_xla.accuracy(),
+        "argmax_differ_xla": int(differ.size),
+        "differ_gaps": [float(g) for g in gaps], "gap_limit": EVAL_GAP,
+        "evaluate_ms_per_batch": 1e3 * eval_s / n_batches,
+        "forward_ms_per_batch": 1e3 * fwd / n_batches,
+        "xla_forward_ms_per_batch": 1e3 * fwd_xla / n_batches,
+        "host_copy_ms_per_batch": 1e3 * copy / n_batches,
+        "host_copy_share": copy / (fwd + copy)}
+    log("evaluate resnet:", json.dumps(rec["resnet"]))
+    if not same or total != EVAL_N or \
+            any(counts[k] != v for k, v in want.items()) or \
+            (gaps >= EVAL_GAP).any():
+        raise AssertionError(f"evaluate resnet: {rec['resnet']}")
+    del net
+    torch.cuda.empty_cache()
+    # the text LSTM: [N, C, T] labels under a labels mask
+    net = text_lstm_net(device, torch.bfloat16)
+    x, y = text_batch(EVAL_LSTM_N, LSTM_T, seed=9)
+    m = (np.random.default_rng(10).random((EVAL_LSTM_N, LSTM_T))
+         < EVAL_LSTM_KEEP).astype(np.float32)
+    n_batches = -(-EVAL_LSTM_N // EVAL_B)
+    net.evaluate(ArrayDataSetIterator(x, y, EVAL_B, labels_mask=m))
+    ev, eval_s, counts = counted_evaluate(net, ArrayDataSetIterator(
+        x, y, EVAL_B, labels_mask=m))
+    ref, _, fwd, copy = eval_by_hand(net, ArrayDataSetIterator(
+        x, y, EVAL_B, labels_mask=m))
+    want = {"lstm_fwd": LSTM_LAYERS * n_batches}
+    rec["text_lstm"] = {
+        "examples": EVAL_LSTM_N, "t": LSTM_T, "batches": n_batches,
+        "launches": {k: counts[k] for k in ("lstm_fwd", "lstm_bwd")},
+        "launches_wanted": want,
+        "equals_eval_of_output": ev.to_json() == ref.to_json(),
+        "counts_sum": int(ev.confusion.matrix.sum()),
+        "mask_sum": int(m.sum()),
+        "evaluate_ms_per_batch": 1e3 * eval_s / n_batches,
+        "forward_ms_per_batch": 1e3 * fwd / n_batches,
+        "host_copy_share": copy / (fwd + copy)}
+    log("evaluate text_lstm:", json.dumps(rec["text_lstm"]))
+    r = rec["text_lstm"]
+    if not r["equals_eval_of_output"] or r["counts_sum"] != r["mask_sum"] \
+            or counts["lstm_fwd"] != want["lstm_fwd"]:
+        raise AssertionError(f"evaluate text_lstm: {r}")
+    rec["launches"] = {k: rec["resnet"]["launches"][k] +
+                       rec["text_lstm"]["launches"].get(k, 0)
+                       for k in rec["resnet"]["launches"]}
+    return rec
+
+
+def es_images(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, RESNET_HW, RESNET_HW)).astype(np.float32)
+    return x, np.eye(RESNET_CLASSES, dtype=np.float32)[
+        rng.integers(0, RESNET_CLASSES, n)]
+
+
+class EvalAt:
+    """An EvaluativeListener that records the iteration of each of its
+    evaluations."""
+
+    def __init__(self, iterator, frequency):
+        from deeplearning4j_tpu_torch.optimize import EvaluativeListener
+        self.inner = EvaluativeListener(iterator, frequency=frequency)
+        self.at, self.now = [], None
+        real = self.inner._eval
+
+        def record(model):
+            self.at.append(self.now)
+            real(model)
+        self.inner._eval = record
+
+    def iteration_done(self, model, iteration, score):
+        self.now = iteration
+        self.inner.iteration_done(model, iteration, score)
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        self.inner.on_epoch_end(model, epoch)
+
+
+def jax_eval_steps(first, n, freq):
+    """The iterations at which the JAX EvaluativeListener evaluates in a
+    fit of ``n`` steps from iteration ``first``."""
+    return [i for i in range(first, first + n) if i > 0 and i % freq == 0]
+
+
+def listener_graph_check(net, x, y, valid, label):
+    """The EvaluativeListener (frequency EL_FREQ) inside
+    ``fit(steps_per_dispatch=EL_K, prefetch=2)`` from the net's trees:
+    it evaluates at the JAX iterations; each evaluation equals
+    ``evaluate()`` of an eager fit from the same trees stopped at the end
+    of that evaluation's group; the graph fit's losses and trees are
+    bitwise those of the same graph fit without the listener, and its
+    training generator ends where that fit's does."""
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    t0 = time.perf_counter()
+    init = start_of(net)
+    b = x.shape[0] // EL_BATCHES
+    first = net.iteration_count
+    lst = EvalAt(ArrayDataSetIterator(*valid, b), EL_FREQ)
+    with_l = run_fit(net, x, y, b, init, k=EL_K, prefetch=2, extra=(lst,))
+    gen_with = net._train_gen.get_state()
+    net.iteration_count = first
+    without = run_fit(net, x, y, b, init, k=EL_K, prefetch=2)
+    gen_without = net._train_gen.get_state()
+    same, worst = run_diff(with_l, without)
+    want_at = jax_eval_steps(first, EL_BATCHES, EL_FREQ)
+    # eager fits stopped at each group's end
+    group_eval = {}
+    net._drop_step_graph()
+    net.params, net.updater_state, net.state = clone_trees(init[:3])
+    net._train_gen.set_state(init[3])
+    net.iteration_count = first
+    for g in range(EL_BATCHES // EL_K):
+        sl = slice(g * EL_K * b, (g + 1) * EL_K * b)
+        net.fit(x[sl], y[sl], batch_size=b, pad_tail=True)
+        group_eval[g] = net.evaluate(ArrayDataSetIterator(*valid, b))
+    equal = [lst.inner.evaluations[i].to_json()
+             == group_eval[(it - first) // EL_K].to_json()
+             for i, it in enumerate(lst.at)]
+    rec = {"net": label, "evaluated_at": lst.at, "jax_steps": want_at,
+           "evals_equal_eager_group_end": equal,
+           "losses_bitwise_without_listener": same, "worst": worst,
+           "train_gen_same": bool(torch.equal(gen_with, gen_without)),
+           "dispatch": with_l["dispatch"],
+           "wall_s": time.perf_counter() - t0}
+    log("early_stop listener:", json.dumps(rec))
+    if lst.at != want_at or not all(equal) or not same or \
+            not rec["train_gen_same"] or not with_l["dispatch"].get(
+                "replays"):
+        raise AssertionError(f"EvaluativeListener in the graph: {rec}")
+    return rec
+
+
+def early_stop(device, smi):
+    """``EarlyStoppingTrainer`` on ResNet50 ``fuse=True`` (bf16, BN
+    calibrated, Nesterovs(0.01)) at B = 128: ES_EPOCHS epochs of
+    ES_BATCHES batches, ``ClassificationScoreCalculator`` over 128
+    validation images, ``LocalFileModelSaver`` and
+    ``MaxEpochsTerminationCondition``: the restored best model's logits
+    (the inference forward before the softmax, which a bf16 softmax over
+    1000 classes would hide) equal those recorded at its save, bitwise.
+    An ``InMemoryModelSaver`` run: its best copy's logits unchanged after
+    the source trains two more steps and two K=2 graph fits (the second
+    replays, writing the source's parameters in place). Then
+    ``listener_graph_check`` on the same net, and on the drawing MLP of
+    ``fit_graph_draws`` (an evaluation between replays moves no
+    generator offset). cuDNN runs its deterministic algorithms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return early_stop_runs(device, smi)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def early_stop_runs(device, smi):
+    """``early_stop``'s runs (cuDNN deterministic, so that an eager fit
+    and a graph fit agree bit for bit)."""
+    import tempfile
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    rec = {"card": smi}
+    net = fuse_true_net(device, torch.bfloat16, lr=GRAPH_RESNET_LR,
+                        calibrate=True)
+    x, y = es_images(ES_BATCHES * RESNET_B, seed=31)
+    valid = es_images(ES_VALID, seed=32)
+    probe = images(16, device, seed=33)
+
+    class Recording(es.LocalFileModelSaver):
+        def save_best(self, model, score):
+            super().save_best(model, score)
+            self.at_save = logits(model, probe)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dl4j_es_") as tmp:
+        saver = Recording(tmp, device=device)
+        cfg = es.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                es.MaxEpochsTerminationCondition(ES_EPOCHS)],
+            score_calculator=es.ClassificationScoreCalculator(
+                ArrayDataSetIterator(*valid, RESNET_B)),
+            model_saver=saver)
+        res = es.EarlyStoppingTrainer(cfg, net, ArrayDataSetIterator(
+            x, y, RESNET_B)).fit()
+        es_s = time.perf_counter() - t0
+        counts = read_counts()
+        best = res.best_model
+        best.set_fusion(True)
+        restored_same = torch.equal(logits(best, probe), saver.at_save)
+        archive_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                            for f in os.listdir(tmp))
+    del best
+    rec["trainer"] = {
+        "termination": [res.termination_reason, res.termination_details],
+        "total_epochs": res.total_epochs, "best_epoch": res.best_model_epoch,
+        "scores": {int(k): float(v) for k, v in res.score_vs_epoch.items()},
+        "restored_output_bitwise": restored_same,
+        "archive_bytes": archive_bytes, "wall_s": es_s,
+        "launches": counts}
+    log("early_stop trainer:", json.dumps(rec["trainer"]))
+    want = FUSE_TRUE_TRAIN_LAUNCHES["fused_bwd"] * ES_BATCHES * ES_EPOCHS
+    if not restored_same or res.total_epochs != ES_EPOCHS or \
+            counts["fused_bwd"] != want or counts["fused_fwd"] == 0:
+        raise AssertionError(f"early stopping: {rec['trainer']}")
+    # the in-memory best copy while the source trains on
+    t0 = time.perf_counter()
+    mem = es.InMemoryModelSaver()
+    cfg = es.EarlyStoppingConfiguration(
+        epoch_termination_conditions=[es.MaxEpochsTerminationCondition(1)],
+        model_saver=mem)
+    es.EarlyStoppingTrainer(cfg, net, ArrayDataSetIterator(
+        x, y, RESNET_B)).fit()
+    copy = mem.get_best()
+    at_copy = logits(copy, probe)
+    net.fit(x, y, batch_size=RESNET_B)
+    d0 = dict(net.fit_dispatch)
+    x4, y4 = np.concatenate([x, x]), np.concatenate([y, y])
+    for _ in range(2):
+        net.fit(x4, y4, batch_size=RESNET_B, steps_per_dispatch=2)
+    replays = net.fit_dispatch["replays"] - d0.get("replays", 0)
+    rec["in_memory"] = {
+        "copy_unchanged": torch.equal(logits(copy, probe), at_copy),
+        "source_moved": not torch.equal(logits(net, probe), at_copy),
+        "source_replays": replays, "wall_s": time.perf_counter() - t0}
+    log("early_stop in memory:", json.dumps(rec["in_memory"]))
+    if not rec["in_memory"]["copy_unchanged"] or \
+            not rec["in_memory"]["source_moved"] or replays == 0:
+        raise AssertionError(f"copy_model: {rec['in_memory']}")
+    del copy, mem
+    net._drop_step_graph()
+    torch.cuda.empty_cache()
+    xl, yl = es_images(EL_BATCHES * RESNET_B, seed=34)
+    rec["listener_resnet"] = listener_graph_check(
+        net, xl, yl, valid, "resnet50_fuse_true")
+    del net
+    torch.cuda.empty_cache()
+    mlp = draws_mlp(device)
+    rng = np.random.default_rng(35)
+    xm = rng.standard_normal((EL_BATCHES * 32, 64)).astype(np.float32)
+    ym = np.eye(10, dtype=np.float32)[rng.integers(0, 10, len(xm))]
+    vm = (xm[:64], ym[:64])
+    rec["listener_draws_mlp"] = listener_graph_check(mlp, xm, ym, vm,
+                                                     "draws_mlp")
+    return rec
+
+
+def spec_engine(net, device, kv, spec):
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, PagedKVConfig, SpeculationConfig)
+    from deeplearning4j_tpu_torch.util.decoding import (
+        prompt_lookup_proposer)
+    return GenerationEngine(
+        net, VOCAB, slots=SLOTS, device=device,
+        paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv),
+        speculation=SpeculationConfig(prompt_lookup_proposer(SPEC_NGRAM),
+                                      gamma=SPEC_GAMMA) if spec else None)
+
+
+def spec_reference(device):
+    """In f32 at SPEC_REF_LAYERS layers of the served width: the
+    speculative engine's greedy streams equal the plain engine's with a
+    bf16 and with an int8 pool (and, unquantized, one-shot
+    ``sample_stream``'s), the paged kernels launched by the verify."""
+    model, net = served_net(device, layers=SPEC_REF_LAYERS,
+                            dtype="float32", seed=11)
+    rng = np.random.default_rng(41)
+    motif = [int(t) for t in rng.integers(1, VOCAB, 12)]
+    prompts = [motif * 4, [int(t) for t in rng.integers(1, VOCAB, 40)],
+               motif[:5] * 3 + [7], [int(t) for t in rng.integers(1, VOCAB,
+                                                                    9)]]
+    rec = {"layers": SPEC_REF_LAYERS, "dtype": "float32"}
+    for kv in ("bf16", "int8"):
+        runs = {}
+        for spec in (False, True):
+            eng = spec_engine(net, device, kv, spec)
+            zero_counts()
+            hs = [eng.submit(p, steps=SPEC_REF_TOKENS, top_k=1)
+                  for p in prompts]
+            eng.run_until_idle()
+            c = read_counts()
+            runs[spec] = ([h.result(timeout=0) for h in hs],
+                          c["paged_attention_quant" if kv == "int8"
+                            else "paged_attention"], eng.dispatches,
+                          eng.spec_accepted)
+        rec[kv] = {"equal": runs[True][0] == runs[False][0],
+                   "verify_launches": runs[True][1],
+                   "verify_dispatches": runs[True][2],
+                   "accepted": runs[True][3]}
+        if kv == "bf16":
+            want = [model.sample_stream(net, p, steps=SPEC_REF_TOKENS,
+                                        top_k=1) for p in prompts]
+            rec[kv]["equal_sample_stream"] = runs[True][0] == want
+        r = rec[kv]
+        if not r["equal"] or not r.get("equal_sample_stream", True) or \
+                r["verify_launches"] != SPEC_REF_LAYERS * \
+                r["verify_dispatches"] or r["accepted"] == 0:
+            raise AssertionError(f"serve_spec reference: {rec}")
+    log("serve_spec reference:", json.dumps(rec))
+    return rec
+
+
+def first_divergence(net, plain, spec, prompt):
+    """The first generated position where ``spec`` leaves ``plain``, and
+    the top-two gap of the plain stream's distribution there (one-shot
+    ``output()`` over the plain prefix)."""
+    n = len(prompt)
+    d = next((i for i, (a, b) in enumerate(zip(plain[n:], spec[n:]))
+              if a != b), None)
+    if d is None:
+        return None, None
+    ids = plain[:n + d]
+    x = np.zeros((1, VOCAB, len(ids)), np.float32)
+    x[0, ids, np.arange(len(ids))] = 1.0
+    p = net.output(x)[0, :, -1].float().cpu().numpy()
+    return d, float(top_two_gap(p))
+
+
+def profile_spec(net, device, kv, steps=20):
+    """``torch.profiler`` over ``steps`` verify steps with all slots
+    decoding: the device's busy share, CUDA kernel launches a step, the
+    tokens each step commits, the paged kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = spec_engine(net, device, kv, True)
+    rng = np.random.default_rng(43)
+    for _ in range(SLOTS):
+        motif = [int(t) for t in rng.integers(1, VOCAB, 24)]
+        eng.submit(motif * 8, steps=600, top_k=1)
+    for _ in range(3):
+        eng.step()
+    t0 = eng.tokens_generated
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    tokens = eng.tokens_generated - t0
+    if sum(r is not None for r in eng._slots) != SLOTS:
+        raise AssertionError("profile_spec: the engine stopped decoding")
+    eng.shutdown()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+              for e in kernels}
+    busy = sum(dev_us.values())
+    launches = sum(e.count for e in kernels)
+    return {"kv": kv, "steps": steps, "step_ms": 1e3 * wall / steps,
+            "device_busy_share": busy / (wall * 1e6),
+            "kernel_launches_per_step": launches / steps,
+            "tokens_per_step": tokens / steps,
+            "kernel_launches_per_token": launches / max(1, tokens),
+            "paged_kernel_share_of_device_time":
+                sum(t for k, t in dev_us.items() if "paged_decode" in k)
+                / busy if busy else None}
+
+
+def serve_spec(device, smi):
+    """Phase 4's configuration and traffic (16 requests of 128 new
+    tokens, bf16, 8 slots, page 16) through the speculative engine
+    (``prompt_lookup_proposer(3)``, gamma 4) and the plain engine in
+    turns (spec, plain, plain, spec), over a bf16 and an int8 pool:
+    every verify dispatch launches the pool's paged kernel once a layer
+    (6) at query width 1 + gamma; tokens/s, TPOT p50, acceptance and
+    tokens a step; each greedy request's first divergence from the plain
+    engine at a top-two gap under SPEC_GAP. Then a profile of each and
+    the f32 reference (``spec_reference``)."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    model, net = served_net(device)
+    requests = serve_requests(np.random.default_rng(1))
+    real = pk.paged_attention
+    widths = {}
+
+    def record(*args, query_width, **kw):
+        widths[query_width] = widths.get(query_width, 0) + 1
+        return real(*args, query_width=query_width, **kw)
+
+    rec = {"card": smi, "gamma": SPEC_GAMMA, "ngram": SPEC_NGRAM}
+    for kv in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        key = "paged_attention_quant" if kv == "int8" else "paged_attention"
+        turns = {True: [], False: []}
+        outs = {}
+        for spec in (True, False, False, True):
+            eng = spec_engine(net, device, kv, spec)
+            eng.warmup(max_prompt_len=300)
+            a0, p0 = eng.spec_accepted, eng.spec_proposed
+            widths.clear()
+            r = with_swaps([(vars(pk), {"paged_attention": record})],
+                           lambda: serve_turn(eng, requests, keep_outs=True))
+            n = r["decode_dispatches"]
+            r.update(widths=dict(widths),
+                     accepted=eng.spec_accepted - a0,
+                     proposed=eng.spec_proposed - p0,
+                     tokens_per_step=N_REQUESTS * NEW_TOKENS / max(1, n))
+            want_w = {1 + SPEC_GAMMA if spec else 1: n * LAYERS}
+            if n == 0 or r["launches"][key] != n * LAYERS or \
+                    r["widths"] != want_w:
+                raise AssertionError(f"serve_spec {kv} spec={spec}: "
+                                     f"{r['launches'][key]} launches at "
+                                     f"widths {r['widths']} for {n} "
+                                     f"dispatches")
+            turns[spec].append(r)
+            outs[spec] = r.pop("outs")
+            log(f"serve_spec {kv} {'spec' if spec else 'plain'} turn:",
+                json.dumps({k: v for k, v in r.items() if k != "launches"}
+                           | {"card": smi}))
+        divergence = []
+        for i, (p, kw) in enumerate(requests):
+            if kw.get("top_k") != 1:
+                continue
+            d, gap = first_divergence(net, outs[False][i], outs[True][i], p)
+            divergence.append({"request": i, "first": d, "gap": gap})
+        bad = [v for v in divergence if v["gap"] is not None
+               and v["gap"] >= SPEC_GAP]
+        med = {s: {k: float(np.median([t[k] for t in turns[s]]))
+                   for k in ("tokens_per_s", "tpot_p50_ms", "decode_step_ms",
+                             "ttft_p50_ms", "tokens_per_step")}
+               for s in (True, False)}
+        acc = sum(t["accepted"] for t in turns[True]) / max(
+            1, sum(t["proposed"] for t in turns[True]))
+        rec[kv] = {"spec": med[True], "plain": med[False],
+                   "acceptance": acc, "divergence": divergence,
+                   "gap_limit": SPEC_GAP,
+                   "launches_per_verify_step": LAYERS,
+                   "verify_launches": turns[True][-1]["launches"][key],
+                   "turns": {"spec": turns[True], "plain": turns[False]}}
+        log(f"serve_spec {kv}:", json.dumps(
+            {k: v for k, v in rec[kv].items() if k != "turns"}
+            | {"card": smi}))
+        if bad:
+            raise AssertionError(f"serve_spec {kv}: streams left the plain "
+                                 f"engine's at wide gaps: {bad}")
+        rec[kv]["profile"] = profile_spec(net, device, kv)
+        rec[kv]["wall_s"] = time.perf_counter() - t0
+        log(f"serve_spec {kv} profile:", json.dumps(rec[kv]["profile"]
+                                                     | {"card": smi}))
+    del net
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["reference"] = spec_reference(device)
+    rec["reference"]["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
 def build_all():
     """Build every kernel library, one nvcc each, all started together;
     returns (seconds, {library: ptxas lines})."""
@@ -8816,6 +9419,12 @@ def main(argv=None) -> int:
                                        device, smi)
     if want("prefetch_lstm"):
         out["prefetch_lstm"] = phase("prefetch_lstm", prefetch_lstm, device)
+    if want("evaluate"):
+        out["evaluate"] = phase("evaluate", evaluate_phase, device, smi)
+    if want("early_stop"):
+        out["early_stop"] = phase("early_stop", early_stop, device, smi)
+    if want("serve_spec"):
+        out["serve_spec"] = phase("serve_spec", serve_spec, device, smi)
     graph_recs = {k: out[k] for k in ("fit_graph_transformer",
                                       "fit_graph_resnet") if k in out}
     if graph_recs:
@@ -8950,6 +9559,17 @@ def kernels_line(out):
             name, f"deeplearning4j_tpu/nn/layers/pallas_kernels.py:{line}",
             out["text_lstm"]["train"]["launches"][name], out["lstm_cases"],
             out["text_lstm"]))
+    # the launches of the evaluation, early-stopping and speculation
+    # paths (phases 34-36), each counted from 0 over its own run
+    paths = {"evaluate": out["evaluate"]["launches"],
+             "early_stop": out["early_stop"]["trainer"]["launches"],
+             "serve_spec_bf16": out["serve_spec"]["bf16"]["turns"]["spec"]
+             [-1]["launches"],
+             "serve_spec_int8": out["serve_spec"]["int8"]["turns"]["spec"]
+             [-1]["launches"]}
+    for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
+                                 if c.get(k["name"])}
     return kernels
 
 

@@ -68,6 +68,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
@@ -91,8 +92,8 @@ __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
            "LAYER_REGISTRY", "LSTM", "LayerConf", "LayerNormalization",
            "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
            "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
-           "ZeroPaddingLayer", "layer_from_dict", "layer_to_dict",
-           "stream_capacity"]
+           "ZeroPaddingLayer", "check_rewindable", "layer_from_dict",
+           "layer_to_dict", "rewind_stream_state", "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path and the truncated-BPTT fit (stripped on ordinary forwards,
@@ -123,6 +124,117 @@ def stream_capacity(layers):
             if cap:
                 limit = cap if limit is None else min(limit, cap)
     return limit
+
+
+def rewind_stream_state(net, n) -> None:
+    """Rewind the last ``n`` streamed positions (speculative decoding's
+    rollback; the JAX package's ``rewind_stream_state``): the position
+    counters (attention ``kv_pos``, the learned positional table's
+    ``pos_offset``) move back by ``n``, so the rejected cache slots drop
+    out of every position-validity mask and the next write overwrites
+    them: a rewound stream is the stream that never saw those tokens.
+
+    ``n`` is an int (every row together) or an int array ``[N]`` (a
+    per-row rewind: the engine's verify, where each row accepts its own
+    prefix). A per-row rewind turns a scalar ``kv_pos`` into an ``[N]``
+    vector, which the attention layer's streaming path already takes (a
+    row writes its next chunk at its own slots); a learned positional
+    table's ``pos_offset`` is shared, so a net with one refuses an array
+    rewind. Every layer's counter moves in one stacked update (three
+    launches whatever the depth; the JAX package jits one dispatch),
+    with ``n`` copied to the device once.
+
+    Recurrent ``h`` / ``c`` cannot rewind: nets with LSTM layers raise
+    (:func:`check_rewindable`). The host mirrors follow: the per-row
+    positions (``net._stream_pos_rows``, made by a per-row rewind and
+    advanced by ``rnn_time_step``) and the budget counters
+    (``_stream_pos``, ``_stream_pos_map``), by how far the furthest row
+    moved back."""
+    per_row = np.ndim(n) > 0
+    if per_row:
+        n = np.asarray(n, np.int64)
+        if not n.any():
+            return
+    else:
+        n = int(n)
+        if n == 0:
+            return
+    check_rewindable(net, int(np.max(n)) if per_row else n)
+    moved, counters = {}, []
+    for name, s in net.state.items():
+        if not isinstance(s, dict):
+            continue
+        for k in ("kv_pos", "pos_offset"):
+            if k not in s:
+                continue
+            if per_row and k == "pos_offset":
+                raise ValueError(
+                    "per-row rewind is attention-only: learned "
+                    "positional tables carry a shared pos_offset "
+                    "(use a rope or position-free model)")
+            if torch.is_tensor(s[k]):
+                counters.append(((name, k), s[k]))
+            else:                        # pos_offset: a host int
+                moved[name, k] = max(0, int(s[k]) - n)
+    if counters:
+        vals = [v for _, v in counters]
+        amount = torch.as_tensor(n, dtype=vals[0].dtype,
+                                 device=vals[0].device)
+        # a per-row amount turns a scalar kv_pos into [N]
+        shape = torch.broadcast_shapes(amount.shape,
+                                       *(v.shape for v in vals))
+        stacked = torch.stack([v.expand(shape) for v in vals])
+        moved.update(zip((ref for ref, _ in counters),
+                         torch.sub(stacked, amount).clamp_(min=0)))
+    for (name, k), v in moved.items():
+        net.state[name] = {**net.state[name], k: v}
+    rows = getattr(net, "_stream_pos_rows", None)
+    if per_row:
+        if rows is None or len(rows) != len(n):
+            base = getattr(net, "_stream_pos", None)
+            if base is None:
+                pm0 = getattr(net, "_stream_pos_map", None) or {}
+                base = max(pm0.values(), default=0)
+            rows = np.full(len(n), base, np.int64)
+        new_rows = np.maximum(rows - n, 0)
+        net._stream_pos_rows = new_rows
+        n_scalar = int(rows.max()) - int(new_rows.max())
+    else:
+        n_scalar = n
+        if rows is not None:
+            net._stream_pos_rows = np.maximum(rows - n, 0)
+    if getattr(net, "_stream_pos", None) is not None:
+        net._stream_pos = max(0, net._stream_pos - n_scalar)
+    pm = getattr(net, "_stream_pos_map", None)
+    if pm:
+        net._stream_pos_map = {k: max(0, v - n_scalar)
+                               for k, v in pm.items()}
+
+
+def check_rewindable(net, n: int) -> None:
+    """Whether ``net`` can rewind up to ``n`` streamed positions (the
+    preconditions of :func:`rewind_stream_state`; the engine checks once,
+    at construction, with ``n = gamma + 1``): recurrent ``h`` / ``c``
+    state, carried or to be carried, cannot rewind."""
+    if n < 0:
+        raise ValueError(f"rewind must be >= 0, got {n}")
+    for s in net.state.values():
+        if isinstance(s, dict) and ("h" in s or "c" in s):
+            raise ValueError(
+                "rewind_stream_state: recurrent h/c streaming state "
+                "cannot be rewound (LSTM layers do not support "
+                "speculative rollback)")
+    layers = list(getattr(net, "layers", None) or []) or [
+        getattr(v, "layer", None)
+        for v in (getattr(net.conf, "vertices", None) or {}).values()]
+    for l in layers:
+        # a freshly cleared stream carries no h / c yet, but the layer
+        # will as soon as it streams
+        if getattr(l, "carries_recurrent_state", False):
+            raise ValueError(
+                "rewind_stream_state: recurrent h/c streaming state "
+                "cannot be rewound (LSTM layers do not support "
+                "speculative rollback)")
 
 
 @dataclass

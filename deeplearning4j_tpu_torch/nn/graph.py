@@ -9,8 +9,9 @@ the new one; other calls start from zeros), training (``fit`` over a
 DataSet, ``(features, labels)`` or an iterator, one optimizer step per
 batch, or ``steps_per_dispatch=K`` batches as one CUDA graph on the
 card, with listeners, tail padding and device prefetch: the fit loop of
-``nn/network_base.py``; and ``score``), and the fused execution plans of
-the CNN stack. PyTorch runs eagerly, so there is no jit cache: each call
+``nn/network_base.py``; and ``score``), ``evaluate`` (the ``eval/``
+classes fed the f32 heads of ``output()``), and the fused execution
+plans of the CNN stack. PyTorch runs eagerly, so there is no jit cache: each call
 runs the vertex loop directly, and a train step is one autograd pass
 over it, with batch statistics in every BN (``fit`` trains ResNet50 on
 every execution plan). A labels mask reaches only the loss, as in the
@@ -819,6 +820,24 @@ class ComputationGraph(NetworkBase):
                                  lmasks=lmasks)
         return float(loss)
 
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator or a DataSet (the
+        JAX ``ComputationGraph.evaluate``): an ``eval.Evaluation`` of
+        ``output(features)`` against the labels, under the labels mask.
+        A batch with a features mask raises: the JAX graph passes it to
+        its forward, which the port's ``output`` does not take yet
+        (ROADMAP.md A6)."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate(Evaluation(), iterator)
+
+    def _eval_output(self, ds: DataSet):
+        if ds.features_mask is not None:
+            raise NotImplementedError(
+                "evaluate on a batch with a features mask needs masks in "
+                "ComputationGraph.output, which are not ported yet "
+                "(ROADMAP.md A6)")
+        return self.output(ds.features)
+
     # ------------------------------------------------------------------
     def output(self, *inputs, train: bool = False):
         """Output activations (f32 heads) of the forward under the
@@ -869,7 +888,12 @@ class ComputationGraph(NetworkBase):
                                             self.state, ins, stream=True)
             outs = [f32_head(acts[o]) for o in self.conf.network_outputs]
         self.state = new_state
+        old_max = max(self._stream_pos_map.values(), default=0)
         self._stream_pos_map = new_pos_map
+        rows = getattr(self, "_stream_pos_rows", None)
+        if rows is not None:    # per-row positions, after a per-row rewind
+            self._stream_pos_rows = rows + (
+                max(new_pos_map.values(), default=0) - old_max)
         if pad:
             outs = [torch.nn.functional.pad(o, (pad, 0)) for o in outs]
         return outs[0] if len(outs) == 1 else outs
@@ -901,3 +925,4 @@ class ComputationGraph(NetworkBase):
 
     def _clear_stream_positions(self):
         self._stream_pos_map = {}
+        self._stream_pos_rows = None

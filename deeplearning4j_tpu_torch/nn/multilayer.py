@@ -6,8 +6,8 @@ layer-by-layer forward, ``output``, the streaming ``rnn_time_step`` /
 ``(features, labels)`` or an iterator, one optimizer step per batch or
 ``steps_per_dispatch=K`` batches as one CUDA graph on the card, truncated
 BPTT when the configuration asks for it, with listeners, tail padding
-and device prefetch: the fit loop of ``nn/network_base.py``) and
-``score``.
+and device prefetch: the fit loop of ``nn/network_base.py``),
+``score``, ``evaluate`` and ``evaluate_regression``.
 PyTorch runs eagerly: each call runs the layer loop directly, and a
 train step is one autograd pass over it (``nn/network_base.py``).
 
@@ -31,8 +31,10 @@ jitted call). As there, a tBPTT batch (``[N, C, T]`` under
 ``[N, T]`` mask in ``output(mask=)`` reaches the LSTM layers (masked
 steps carry h and c through and output zeros). In ``fit`` a labels mask
 reaches only the loss, as in the JAX ``_loss`` (the example weights of
-tail padding); features masks are refused (ROADMAP.md A6), as are
-``evaluate`` (A5) and ``pretrain`` (A2, with LeNet on this network).
+tail padding); features masks are refused (ROADMAP.md A6), as is
+``pretrain`` (A2, with LeNet on this network). ``evaluate`` and
+``evaluate_regression`` feed the ``eval/`` classes the f32 heads of
+``output()`` as host arrays, as the JAX package does.
 
 Regularization in training, as the JAX ``MultiLayerNetwork`` applies
 it: each step takes one generator a layer from the training generator
@@ -305,24 +307,41 @@ class MultiLayerNetwork(NetworkBase):
                                             self.state, x, carry_rnn=True,
                                             stream=True)
         self.state = new_state
+        rows = getattr(self, "_stream_pos_rows", None)
+        if rows is not None:    # per-row positions, after a per-row rewind
+            self._stream_pos_rows = rows + (new_pos - self._stream_pos)
         self._stream_pos = new_pos
         out = f32_head(acts[-1])
         return torch.nn.functional.pad(out, (pad, 0)) if pad else out
 
     def _clear_stream_positions(self):
         self._stream_pos = 0
+        self._stream_pos_rows = None
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator or a DataSet (the
+        JAX ``MultiLayerNetwork.evaluate``): an ``eval.Evaluation`` of
+        ``output(features, mask=features_mask)`` against the labels,
+        under the labels mask."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate(Evaluation(), iterator)
+
+    def evaluate_regression(self, iterator):
+        """Regression evaluation, as :meth:`evaluate`, into an
+        ``eval.RegressionEvaluation``."""
+        from deeplearning4j_tpu_torch.eval.evaluation import (
+            RegressionEvaluation)
+        return self._evaluate(RegressionEvaluation(), iterator)
+
+    def _eval_output(self, ds: DataSet):
+        return self.output(ds.features, mask=ds.features_mask)
 
     # ------------------------------------------------------------------
     # not ported yet
     # ------------------------------------------------------------------
-    def evaluate(self, iterator):
-        raise NotImplementedError("evaluation is not ported yet "
-                                  "(ROADMAP.md A5)")
-
-    def evaluate_regression(self, iterator):
-        raise NotImplementedError("evaluation is not ported yet "
-                                  "(ROADMAP.md A5)")
-
     def pretrain(self, iterator, epochs: int = 1):
         raise NotImplementedError("layerwise pretraining is not ported yet "
                                   "(ROADMAP.md A2)")

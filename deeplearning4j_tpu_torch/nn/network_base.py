@@ -216,6 +216,25 @@ class NetworkBase:
         self.listeners.append(listener)
         return self
 
+    def _evaluate(self, ev, iterator):
+        """Accumulate ``ev`` (an ``eval/`` class) over ``iterator`` or a
+        DataSet, as the JAX networks' ``evaluate`` do: a DataSet is
+        batched by 128 with its masks dropped (the JAX package wraps its
+        features and labels alone); each batch's f32 output head
+        (:meth:`_eval_output`) reaches ``ev.eval`` as a host array, with
+        the batch's labels mask."""
+        if isinstance(iterator, DataSet):
+            iterator = ArrayDataSetIterator(iterator.features,
+                                            iterator.labels, 128)
+        for ds in iterator:
+            ev.eval(_host(ds.labels), _host(self._eval_output(ds)),
+                    mask=_host(ds.labels_mask))
+        return ev
+
+    def _eval_output(self, ds: DataSet):
+        """The inference output an evaluation of ``ds`` reads."""
+        raise NotImplementedError
+
     def num_params(self) -> int:
         return sum(t.numel() for p in self.params.values()
                    for t in p.values())
@@ -781,9 +800,23 @@ class _StepGraph:
     def replay(self, net):
         """One replay over the network's (static) trees. It writes the
         parameters in place, so the network's compute-dtype copy of them
-        is dropped."""
+        is dropped, and so are a graph's kernel-layout weights (kept per
+        weight tensor, which a replay rewrites without replacing)."""
         self.graph.replay()
         net._compute = None
+        layouts = getattr(net, "_layouts", None)
+        if layouts:
+            layouts.clear()
+
+
+def _host(x):
+    """``x`` as a host numpy array (a list of heads stacked, as
+    ``np.asarray`` stacks the JAX package's), None as None."""
+    if isinstance(x, (list, tuple)):
+        return np.asarray([_host(t) for t in x])
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return x
 
 
 def _philox_at(gen, seed, base, i):

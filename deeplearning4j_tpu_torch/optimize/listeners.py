@@ -4,9 +4,8 @@ Counterpart of ``deeplearning4j_tpu/optimize/listeners.py``: the
 TrainingListener protocol and the listener zoo (ScoreIterationListener,
 PerformanceListener, CollectScoresIterationListener,
 TimeIterationListener, ComposableIterationListener,
-ParamAndGradientIterationListener, SleepyTrainingListener).
-``EvaluativeListener`` needs the evaluation classes, which are not
-ported yet (ROADMAP.md A5): it raises.
+ParamAndGradientIterationListener, SleepyTrainingListener) and
+``EvaluativeListener`` over the networks' ``evaluate``.
 """
 
 from __future__ import annotations
@@ -150,13 +149,39 @@ class TimeIterationListener(TrainingListener):
 
 class EvaluativeListener(TrainingListener):
     """Periodically evaluate on a held-out iterator (ref:
-    EvaluativeListener.java): the evaluation classes are not ported yet,
-    so constructing one raises."""
+    EvaluativeListener.java): ``model.evaluate(iterator)`` every
+    ``frequency`` iterations (never at iteration 0), or every
+    ``frequency`` epochs with ``on_epoch``, each result appended to
+    ``evaluations``.
 
-    def __init__(self, iterator=None, frequency: int = 1,
-                 on_epoch: bool = False):
-        raise NotImplementedError("EvaluativeListener needs evaluation, "
-                                  "which is not ported yet (ROADMAP.md A5)")
+    Under ``fit(steps_per_dispatch=K)`` the fit loop fires the listeners
+    once per logical step after the group's replay, so an evaluation at
+    any step of a group sees the group's final parameters, as under the
+    JAX package's scan. The evaluation runs ``output(train=False)``: it
+    draws nothing (the training generator and a step graph's generators
+    keep their offsets), leaves the BN running statistics and the step
+    graph's static trees as they were, and reads the parameters the
+    replay wrote in place through a fresh compute-dtype copy."""
+
+    def __init__(self, iterator, frequency: int = 1, on_epoch: bool = False):
+        self.iterator = iterator
+        self.frequency = max(1, frequency)
+        self.on_epoch = on_epoch
+        self.evaluations: List = []
+
+    def _eval(self, model):
+        e = model.evaluate(self.iterator)
+        self.evaluations.append(e)
+        log.info("\n%s", e.stats())
+
+    def iteration_done(self, model, iteration, score):
+        if not self.on_epoch and iteration > 0 and \
+                iteration % self.frequency == 0:
+            self._eval(model)
+
+    def on_epoch_end(self, model, epoch):
+        if self.on_epoch and (epoch + 1) % self.frequency == 0:
+            self._eval(model)
 
 
 class ComposableIterationListener(TrainingListener):

@@ -30,6 +30,17 @@ Counterpart of ``deeplearning4j_tpu/serving/engine.py``:
   ``total_bytes=`` buys about twice the pages; ``kv_dtype="auto"``
   takes int8 only where the measured store says it wins on this card
   (``tuning/plan.resolve_kv_dtype``).
+- ``speculation=SpeculationConfig(draft, gamma)`` folds speculative
+  decoding into the decode loop: each step the host ``draft`` (e.g.
+  ``util.decoding.prompt_lookup_proposer()``) proposes up to gamma
+  tokens per active slot and ONE widened ``[S, V, 1+gamma]`` verify
+  forward scores them all, through the paged-attention kernels at
+  query width 1 + gamma on a page pool; each row's rejection walk
+  (``util.decoding.accept_proposals``) commits its accepted prefix and
+  one more token, and a per-row ``rewind_stream_state`` drops the
+  rejected positions (free rows rewind the whole width). Greedy streams
+  equal plain ``sample_stream``'s; sampled ones keep the target's
+  distribution and draw each request's rng in the JAX engine's order.
 
 Greedy (top_k=1) outputs equal one-shot ``sample_stream`` with the same
 rng (tested): the arena feeds each request exactly the token sequence a
@@ -37,10 +48,12 @@ dedicated stream would, and each request draws from its own rng in
 generation order.
 
 Not ported yet, and refused at construction with ``NotImplementedError``
-rather than ignored: speculation, the supervisor, overload control, the
-chaos seams and ``decode_retry``, and the engine's ``registry=`` (the
-registry is ported, ``monitoring/``; the engine's series come with its
-health and request ledger) (ROADMAP.md A7). The request ledger, traces, ``health()`` with its KV traffic
+rather than ignored: the supervisor, overload control (and with it the
+brownout ladder's gamma cap: without it a verify proposes up to gamma),
+the chaos seams and ``decode_retry``, and the engine's ``registry=``
+(the registry is ported, ``monitoring/``; the engine's series come with
+its health and request ledger; the verify's acceptance fractions go to
+the windowed ``spec_acceptance`` samples) (ROADMAP.md A7). The request ledger, traces, ``health()`` with its KV traffic
 and the fleet hooks come later too (ROADMAP.md A7, A10), and so does
 the choice of decode read path (``decode_impl``: the port has one on
 the card, the kernel; ROADMAP.md A7). Metrics are plain attributes for
@@ -53,14 +66,16 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BATCHED_STREAM_KEYS, PositionalEmbeddingLayer, stream_capacity)
+    BATCHED_STREAM_KEYS, PositionalEmbeddingLayer, check_rewindable,
+    rewind_stream_state, stream_capacity)
 from deeplearning4j_tpu_torch.serving.errors import (
     EngineShutdown, InferenceTimeout, RequestCancelled)
 from deeplearning4j_tpu_torch.serving.paging import (
@@ -71,10 +86,10 @@ from deeplearning4j_tpu_torch.serving.request import (
     GenerationRequest, GenerationStream)
 from deeplearning4j_tpu_torch.serving.scheduler import AdmissionQueue
 from deeplearning4j_tpu_torch.util.decoding import (
-    _check_seed, _stream_layers, draw, prime_prompt, step_tokens,
-    stop_reason)
+    _check_seed, _stream_layers, accept_proposals, draw, filter_probs,
+    prime_prompt, step_tokens, stop_reason, verify_tokens)
 
-__all__ = ["GenerationEngine"]
+__all__ = ["GenerationEngine", "SpeculationConfig"]
 
 log = logging.getLogger(__name__)
 
@@ -89,9 +104,37 @@ _VIEW_KEYS = frozenset({*_PAGED_VIEW.values(), *_SCALE_VIEW.values(),
 METRIC_WINDOW = 4096
 
 #: constructor arguments of the JAX engine this slice leaves out
-_NOT_PORTED = {"speculation": "A7", "supervisor": "A7", "overload": "A7",
+_NOT_PORTED = {"supervisor": "A7", "overload": "A7",
                "prefill_chaos": "A7", "decode_chaos": "A7",
                "seat_chaos": "A7", "decode_retry": "A7", "registry": "A7"}
+
+
+@dataclass
+class SpeculationConfig:
+    """In-engine speculative decoding (the JAX package's).
+
+    ``draft`` is a HOST proposer callable ``(ids, gamma) -> proposals``
+    (e.g. ``util.decoding.prompt_lookup_proposer()``): no extra device
+    work, applied per active slot each step. ``gamma`` caps the
+    proposals a slot makes a step; the verify forward has the fixed
+    ``[S, V, 1+gamma]`` width whatever each row proposed (short rows
+    pad with dummies that causality hides and the per-row rewind
+    drops). Drafting with a second network stays on the one-shot
+    ``speculative_sample`` path (not ported yet, ROADMAP.md A7)."""
+
+    draft: Callable
+    gamma: int = 4
+
+    def __post_init__(self):
+        if self.gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {self.gamma}")
+        if hasattr(self.draft, "rnn_time_step") or \
+                not callable(self.draft):
+            raise TypeError(
+                "in-engine speculation takes a host proposer callable "
+                "(ids, gamma) -> proposals, e.g. "
+                "util.decoding.prompt_lookup_proposer(); model-based "
+                "drafting stays on the one-shot speculative_sample path")
 
 
 class GenerationEngine:
@@ -105,6 +148,7 @@ class GenerationEngine:
     def __init__(self, net, vocab_size: int, slots: int = 8,
                  queue_limit: int = 64, queue_policy: str = "block",
                  paging: Optional[PagedKVConfig] = None, device=None,
+                 speculation: Optional[SpeculationConfig] = None,
                  **not_ported):
         for arg, value in not_ported.items():
             if arg not in _NOT_PORTED:
@@ -143,6 +187,11 @@ class GenerationEngine:
                 "continuous batching needs per-slot positions: learned "
                 "positional tables carry a shared pos_offset (use a rope "
                 "or position-free model)")
+        self._speculation = speculation
+        if speculation is not None:
+            # a verify rewinds up to its whole width (gamma + 1: a free
+            # row keeps nothing)
+            check_rewindable(net, speculation.gamma + 1)
         self.net = net
         self.V = int(vocab_size)
         self.slots = int(slots)
@@ -230,6 +279,11 @@ class GenerationEngine:
         self.ttft_s = deque(maxlen=METRIC_WINDOW)
         self.tpot_s = deque(maxlen=METRIC_WINDOW)
         self.queue_wait_s = deque(maxlen=METRIC_WINDOW)
+        #: speculation: each verified row's accepted / proposed (rows
+        #: that proposed), and the totals of proposed and accepted drafts
+        self.spec_acceptance = deque(maxlen=METRIC_WINDOW)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         #: a request popped from the queue but not yet seated: a fault in
         #: that window fails it instead of stranding its handle
         self._seating: Optional[GenerationRequest] = None
@@ -280,6 +334,14 @@ class GenerationEngine:
         want = len(prompt) + int(steps)
         if max_length is not None:
             want = min(want, int(max_length))
+        spec = self._speculation
+        if spec is not None and self._cap is not None \
+                and want > self._cap - spec.gamma + 1:
+            raise ValueError(
+                f"prompt + steps ({want} ids) needs speculative "
+                f"headroom: every verify transiently takes 1 + gamma "
+                f"positions, so in-engine speculation serves at most "
+                f"capacity - gamma + 1 = {self._cap - spec.gamma + 1} ids")
         if self._pool is not None:
             store = self._store_positions(want)
             if pages_needed(store, self._ps) > self._pool.usable:
@@ -313,7 +375,10 @@ class GenerationEngine:
                           if r is not None]
                 if not active:
                     return progress
-                self._step_plain(active)
+                if self._speculation is not None:
+                    self._step_speculative(active)
+                else:
+                    self._step_plain(active)
             except Exception as e:  # noqa: BLE001 — fail waiters, not hang
                 self.errors += 1
                 self._break(e)
@@ -341,6 +406,73 @@ class GenerationEngine:
                 self._retire(s, reason)
             else:
                 req.pending_token = tok
+
+    def _step_speculative(self, active) -> None:
+        """One widened ``[S, V, 1+gamma]`` verify forward: the host draft
+        proposes per slot, the target scores each row's pending token and
+        proposals in ONE forward, each row commits its accepted prefix
+        and one replacement or bonus token (``accept_proposals``), and a
+        per-row rewind drops the rejected positions: ``gamma - accepted``
+        of a row that verified, the whole width of a free row."""
+        k = self._speculation.gamma
+        if self._cap is not None:
+            for s in active:
+                if self._slots[s] is not None \
+                        and self._row_pos[s] >= self._cap:
+                    self._retire(s, "capacity")
+        chunk = np.zeros((self.slots, 1 + k), np.int64)
+        props: List[List[int]] = [[] for _ in range(self.slots)]
+        riders = []
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            riders.append(s)
+            g = min(k, req.want - len(req.handle._ids))
+            p = ([int(t) for t in self._speculation.draft(
+                list(req.handle._ids), g)][:g] if g > 0 else [])
+            props[s] = p
+            chunk[s, 0] = req.pending_token
+            chunk[s, 1:1 + len(p)] = p
+        if not riders:
+            return                 # everything retired at the guard
+        self._sync_accounting()
+        tp = self._dispatch(lambda: verify_tokens(self.net, chunk))
+        now = time.monotonic()
+        amounts = np.full(self.slots, 1 + k, np.int64)   # free rows: all
+        for s in riders:
+            req = self._slots[s]
+            g = len(props[s])
+            p_dists = [filter_probs(tp[s, :, j], req.temperature,
+                                    req.top_k, req.top_p)
+                       for j in range(g)]
+            p_bonus = filter_probs(tp[s, :, g], req.temperature,
+                                   req.top_k, req.top_p)
+            accepted, nxt = accept_proposals(props[s], p_dists, [None] * g,
+                                             p_bonus, req.rng)
+            if g:
+                self.spec_acceptance.append(accepted / g)
+                self.spec_proposed += g
+                self.spec_accepted += accepted
+            committed = props[s][:accepted] + [nxt]
+            self._row_pos[s] += 1 + accepted
+            amounts[s] = k - accepted
+            reason = None
+            for tok in committed:
+                if req.last_token_t is not None:
+                    self.tpot_s.append(now - req.last_token_t)
+                req.last_token_t = now
+                req.handle._push(tok)
+                self.tokens_generated += 1
+                reason = stop_reason(tok, len(req.handle._ids), req.want,
+                                     req.stop_tokens)
+                if reason:
+                    break
+            if reason:
+                self._retire(s, reason)
+            else:
+                req.pending_token = committed[-1]
+        rewind_stream_state(self.net, amounts)
+        self._sync_accounting()
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> int:
         """Drive ``step()`` until nothing is active or admissible.
@@ -383,10 +515,15 @@ class GenerationEngine:
     # ------------------------------------------------------------------
     def _store_positions(self, want: int) -> int:
         """KV positions a request of `want` total ids holds at worst
-        (the final drawn token never re-enters the cache): the one
-        formula behind the never-fits rejection, the head-of-line gate
-        and the page reservation."""
-        return want - 1 if self._cap is None else min(want - 1, self._cap)
+        (the final drawn token never re-enters the cache), plus, under
+        speculation, the gamma positions past it a verify writes before
+        its rewind, so a widened append never writes past the row's
+        pages: the one formula behind the never-fits rejection, the
+        head-of-line gate and the page reservation."""
+        store = want - 1
+        if self._speculation is not None:
+            store += self._speculation.gamma
+        return store if self._cap is None else min(store, self._cap)
 
     def _pages_admissible(self, req: GenerationRequest) -> bool:
         """Admit the head request only when its full reservation fits the
@@ -709,19 +846,25 @@ class GenerationEngine:
         if not any(r is not None for r in self._slots):
             return None     # everything retired at the capacity guard
         self._sync_accounting()
-        if self._pool is not None:
-            self._install_paged_state()
-        t0 = time.perf_counter()
-        probs = step_tokens(self.net, toks)    # host copy: synchronizes
-        self.dispatch_s_total += time.perf_counter() - t0
-        self.dispatches += 1
-        if self._pool is not None:
-            self._extract_paged_state()
+        probs = self._dispatch(lambda: step_tokens(self.net, toks))
         for s, req in enumerate(self._slots):
             if req is not None:
                 self._row_pos[s] += 1
         self._sync_accounting()
         return probs
+
+    def _dispatch(self, forward):
+        """Run one arena forward (``forward()``, whose host copy of the
+        distributions synchronizes) inside the paged view, timed."""
+        if self._pool is not None:
+            self._install_paged_state()
+        t0 = time.perf_counter()
+        out = forward()
+        self.dispatch_s_total += time.perf_counter() - t0
+        self.dispatches += 1
+        if self._pool is not None:
+            self._extract_paged_state()
+        return out
 
     def _retire(self, slot: int, reason: str,
                 exc: Optional[BaseException] = None) -> None:
@@ -799,6 +942,7 @@ class GenerationEngine:
                 if r is not None]
         pos = max(rows, default=0)
         self.net._stream_pos_map = {n: pos for n in self._graph_vertices}
+        self.net._stream_pos_rows = None
 
     # ------------------------------------------------------------------
     # warmup and lifecycle
@@ -822,6 +966,11 @@ class GenerationEngine:
             top = (self._cap - 1) if self._cap is not None else 64
         if self._cap is not None:
             top = min(int(top), self._cap - 1)
+            if self._speculation is not None:
+                # the verify's headroom: a request serves at most
+                # capacity - gamma + 1 ids
+                top = min(top, self._cap - self._speculation.gamma + 1
+                          - int(steps))
         prefix, self._prefix = self._prefix, None
         try:
             h = self.submit([1 if self.V > 1 else 0] * max(1, int(top)),

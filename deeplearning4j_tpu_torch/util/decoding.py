@@ -4,8 +4,12 @@ Counterpart of ``deeplearning4j_tpu/util/decoding.py`` for what the
 serving path needs: the host-side sampling rules (``filter_probs`` /
 ``draw``, numpy, so sampled streams compare token for token with the
 JAX package's wherever the probabilities agree), priming, the one-token
-decode step, the retirement rule and ``sample_stream``. Batched,
-speculative and beam decoding come later (ROADMAP.md A7).
+decode step, the retirement rule, ``sample_stream``, and the engine's
+speculation: the widened verify forward (``verify_tokens``), the
+rejection walk (``accept_proposals``) and the draft-free
+``prompt_lookup_proposer``. Still to come (ROADMAP.md A7):
+``speculative_sample`` and ``speculative_sample_batch`` with a model
+draft, ``sample_stream_batch``, and beam search.
 
 The network is a ``ComputationGraph`` (the transformer) or a
 ``MultiLayerNetwork`` (the text LSTM, whose carried state is each
@@ -19,13 +23,14 @@ construction, and eager PyTorch has no shapes to bound.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["draw", "filter_probs", "prime_prompt", "sample_stream",
-           "step_tokens", "stop_reason"]
+__all__ = ["accept_proposals", "draw", "filter_probs", "prime_prompt",
+           "prompt_lookup_proposer", "sample_stream", "step_tokens",
+           "stop_reason", "verify_tokens"]
 
 
 def _vocab(net) -> int:
@@ -148,6 +153,73 @@ def step_tokens(net, tokens) -> np.ndarray:
     ``[B, V]``."""
     out = net.rnn_time_step(_one_hot(net, np.asarray(tokens)[:, None]))
     return _probs(out)[:, :, -1]
+
+
+def verify_tokens(net, chunks) -> np.ndarray:
+    """One widened verify forward for a batch of token chunks: feed
+    ``chunks`` ``[B, W]`` (W = 1 + gamma for the engine's speculation) in
+    one forward and return every position's next-token distribution
+    ``[B, V, W]``: position j's is the distribution after consuming
+    ``chunk[:, :j+1]``. Causality hides trailing dummy tokens from the
+    positions before them, so one fixed width serves rows with fewer
+    real proposals. Under the engine's paged view the chunk runs the
+    paged append and the paged-attention kernel at query width W."""
+    return _probs(net.rnn_time_step(_one_hot(net, np.asarray(chunks))))
+
+
+def accept_proposals(proposals, p_dists, q_dists, p_bonus, rng
+                     ) -> Tuple[int, int]:
+    """The Leviathan et al. 2023 rejection walk (the JAX package's one
+    acceptance rule): accept proposal i with probability min(1, p_i[d] /
+    q_i[d]); at the first rejection draw the replacement from the
+    clipped residual max(p_i - q_i, 0) (p_i when q subsumes p); with
+    every proposal accepted draw the bonus token from ``p_bonus``.
+    Returns ``(accepted, next_token)``: the committed tokens are
+    ``proposals[:accepted] + [next_token]``, and the target's sampling
+    distribution is preserved exactly.
+
+    A ``q_dists`` entry of None is a deterministic proposer (a one-hot
+    draft at the proposal): q_i[d] == 1, and the residual is p_i with
+    entry d zeroed. The rng's consumption order is part of the
+    contract: one uniform per walked proposal, then exactly one choice,
+    so a request's rng draws as in the JAX package."""
+    for i, d in enumerate(proposals):
+        p_i, q_i = p_dists[i], q_dists[i]
+        qd = 1.0 if q_i is None else float(q_i[d])
+        if rng.random() < min(1.0, float(p_i[d]) / max(qd, 1e-12)):
+            continue
+        if q_i is None:
+            resid = np.array(p_i)
+            resid[d] = 0.0
+        else:
+            resid = np.maximum(p_i - q_i, 0.0)
+        total = resid.sum()
+        if total <= 0:            # p subsumed by q: fall back to p_i
+            resid, total = p_i, p_i.sum()
+        return i, int(rng.choice(len(resid), p=resid / total))
+    return len(proposals), int(rng.choice(len(p_bonus), p=p_bonus))
+
+
+def prompt_lookup_proposer(ngram: int = 3):
+    """Draft-free speculation proposer (prompt-lookup decoding): propose
+    the continuation of the most recent earlier occurrence of the
+    context's trailing n-gram. It costs no device work, so it pays on a
+    dispatch-bound serving path whenever generation revisits earlier
+    text; elsewhere it proposes little. Pass the returned callable as
+    ``SpeculationConfig(draft=...)``."""
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+
+    def propose(ids, gamma):
+        if len(ids) <= ngram:
+            return []
+        tail = list(ids[-ngram:])
+        for s in range(len(ids) - ngram - 1, -1, -1):
+            if list(ids[s:s + ngram]) == tail:
+                return list(ids[s + ngram:s + ngram + gamma])
+        return []
+
+    return propose
 
 
 def stop_reason(token: int, n_ids: int, want: int,

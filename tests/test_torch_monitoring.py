@@ -16,7 +16,8 @@ monitoring/, optimize/, resilience/retry.py), on the CPU.
   policy, rng and an injected sleep.
 - The listeners: each of the zoo's over the same score stream as JAX's
   (what they collect and log), ``close_listeners`` surviving a failing
-  close, ``EvaluativeListener`` refused (ROADMAP.md A5); the profiler
+  close, ``EvaluativeListener`` constructed (ported: its behavior is in
+  tests/test_torch_earlystopping.py); the profiler
   listener writes its trace; the flight recorder's artifact reads back;
   the crossover store counts its decisions in the registry.
 """
@@ -325,8 +326,9 @@ def test_close_listeners_and_the_refused_listener(caplog):
     with caplog.at_level(logging.WARNING):
         tlisteners.close_listeners([Bad(), Good()])
     assert closed == [True] and "close() failed" in caplog.text
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        tlisteners.EvaluativeListener(iter(()))
+    # EvaluativeListener is ported (tests/test_torch_earlystopping.py)
+    lst = tlisteners.EvaluativeListener(iter(()), frequency=3)
+    assert lst.evaluations == [] and lst.frequency == 3
 
 
 def test_the_profiler_listener_writes_its_trace(tmp_path):

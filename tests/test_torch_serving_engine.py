@@ -181,7 +181,8 @@ def test_queue_policies_and_background_loop(nets):
 
 def test_left_out_arguments_raise(nets, monkeypatch):
     _, tnet, _ = nets
-    for arg in ("speculation", "supervisor", "overload", "decode_retry",
+    # speculation is ported (tests/test_torch_speculation.py)
+    for arg in ("supervisor", "overload", "decode_retry",
                 "prefill_chaos", "decode_chaos", "seat_chaos"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
             GenerationEngine(tnet, V, device="cpu", **{arg: object()})

@@ -351,8 +351,10 @@ def test_left_out_parts_raise(nets):
         losses[k] = net.listeners[0].scores
         assert net.fit_dispatch["batch_steps"] == 6
     assert losses[1] == losses[2] and len(losses[1]) == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        tnet.evaluate(DataSet(x, y))
+    # evaluation is ported (tests/test_torch_eval.py): every position of
+    # the [N, V, T] labels counts
+    ev = tnet.evaluate(DataSet(x, y))
+    assert ev.confusion.matrix.sum() == x.shape[0] * x.shape[2]
     with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
         tnet.pretrain(DataSet(x, y))
     with pytest.raises(ValueError, match="ComputationGraph"):

@@ -451,8 +451,8 @@ def test_fit_refuses_what_is_not_ported():
     assert tnet.add_listener(scores) is tnet
     tnet.fit(x, y)
     assert [i for i, _ in scores.scores] == [tnet.iteration_count - 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        EvaluativeListener(None)
+    # EvaluativeListener is ported (tests/test_torch_earlystopping.py)
+    assert EvaluativeListener(None, frequency=0).frequency == 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
         DevicePrefetchIterator(ArrayDataSetIterator(x, y), mesh=object())
     # the sentinel is ported (tests/test_torch_sentinel.py): a policy it
