@@ -458,6 +458,35 @@ Phases (any failure exits nonzero):
     under SPEC_GAP; a profile of 20 verify steps (busy share, launches
     a step and a token); in f32 at 2 layers the speculative streams equal
     the plain engine's (bf16 and int8 pools) and ``sample_stream``'s.
+37. survivable serving (``serve_survive``): phase 4's configuration
+    and traffic driven by hand over a bf16 and an int8 pool, unperturbed
+    and then under an ``EngineSupervisor`` with three decode faults, a
+    page seizure and a seat-window fault: the rng's state at every draw
+    equal to the unperturbed run's, each flip a near-tie explained by a
+    distribution within SURVIVE_LOGP, the rebuilds by cause, each
+    rebuild's wall time, survivors and allocated bytes (back to the old
+    arena's), the paged kernel once a layer per dispatch, the modeled KV
+    bytes against the kernel's inputs' tally; a ``decode_retry`` run
+    (no rebuild, streams equal), a zero budget
+    (fail-all, a flight record), and tokens/s with the registry's
+    handles against no-op handles in turns;
+38. overload (``serve_overload``): 48 requests with deadlines and
+    priorities into 8 slots over a 93-page pool with speculation:
+    shedding lowest priority first, early rejection only once the rate
+    calibrated, every brownout rung entered and left, the finished
+    greedy streams against an unbrowned run's, ``drain()`` mid-run;
+39. the LSTM arena (``serve_lstm``): phase 24's text LSTM behind the
+    engine, 8 slots, 16 greedy requests of 256 new tokens: 2 forward
+    launches a decode step at batch 8, the streams against
+    ``sample_stream``'s (exact in f32), tokens/s and a profile against
+    ``sample_stream`` at batch 1;
+40. the capture's collector pause (``capture_gc``): an MLP's K-step
+    graph captured while a dead network's step graph waits in a
+    reference cycle, a collection made inside the capture where the
+    collector is on (it may run at any allocation): one capture, finite
+    losses, the collector on after it; the same fit with the pause
+    taken out (planted, in a child process: this script with
+    ``--capture-gc-child``) must fail with the invalidated capture.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -7892,6 +7921,101 @@ def stale_draw(sg, net):
         net._step_base()
 
 
+def capture_gc_run(device, guarded):
+    """One fit of ``draws_mlp`` through the K-step graph while a dead
+    network's step graph waits in a reference cycle. A live reference
+    holds it until the capture's first step, which drops it and then
+    collects if the collector is on: what an automatic collection at an
+    allocation there would do. ``guarded`` False takes out the fit's
+    collector pause (planted). Returns the fit's dispatch counts and
+    losses."""
+    import contextlib
+    import gc
+    from deeplearning4j_tpu_torch.nn import network_base
+    rng = np.random.default_rng(5)
+    n = GRAPH_BATCHES * 32
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    cls = network_base.NetworkBase
+    real_steps, real_pause = cls._group_steps, network_base._collector_paused
+    dead = draws_mlp(device)
+    dead.fit(x, y, batch_size=32, steps_per_dispatch=GRAPH_K)
+    if dead._step_graph is None or dead._step_graph.graph is None:
+        raise AssertionError("capture_gc: the first fit captured no graph")
+    dead.cycle = dead
+    held = [dead]
+    del dead
+
+    def collecting(self, *a):
+        if torch.cuda.is_current_stream_capturing() and held:
+            held.clear()
+            if gc.isenabled():
+                gc.collect()
+        return real_steps(self, *a)
+
+    cls._group_steps = collecting
+    if not guarded:
+        network_base._collector_paused = contextlib.nullcontext
+    try:
+        net = draws_mlp(device)
+        lst = RawScores()
+        net.set_listeners(lst)
+        net.fit(x, y, batch_size=32, steps_per_dispatch=GRAPH_K)
+        torch.cuda.synchronize()
+    finally:
+        cls._group_steps, network_base._collector_paused = real_steps, \
+            real_pause
+    if held:
+        raise AssertionError("capture_gc: the fit captured no graph")
+    return dict(net.fit_dispatch), [float(v) for v in lst.scores]
+
+
+def capture_gc_child():
+    """The planted run of ``capture_gc`` (no collector pause): prints
+    the error the fit raised and exits 4, or exits 0 if it passed."""
+    try:
+        capture_gc_run(torch.device("cuda", 0), False)
+    except Exception as e:  # noqa: BLE001 — the planted fault's report
+        print("capture_gc_child:", repr(e)[:400], flush=True)
+        return 4
+    return 0
+
+
+def capture_gc(device, smi):
+    """The fit's collector pause around a capture (``nn/network_base.py``
+    ``_collector_paused``): a collection inside a capture that frees a
+    dead network's CUDA graph invalidates the capture. With the pause
+    (this process) the fit captures once and its losses are finite;
+    without it (planted, a child process) the fit must fail so."""
+    import gc
+    import os
+    d, losses = capture_gc_run(device, True)
+    if not gc.isenabled():
+        raise AssertionError("capture_gc: the collector stayed off")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--capture-gc-child"], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    child_s = time.perf_counter() - t0
+    planted = (proc.stdout.strip().splitlines() or [""])[-1]
+    rec = {"dispatch": d, "losses": losses, "planted_rc": proc.returncode,
+           "planted": planted, "planted_s": child_s, "card": smi}
+    log("capture_gc:", json.dumps(rec))
+    failures = []
+    if d.get("captures") != 1 or d.get("replays", 0) < 1:
+        failures.append(f"dispatch {d}")
+    if len(losses) != GRAPH_BATCHES or not np.isfinite(losses).all():
+        failures.append(f"losses {losses}")
+    if proc.returncode != 4 or "during capture" not in planted:
+        failures.append(f"the planted run without the pause did not fail "
+                        f"so: rc {proc.returncode} {planted!r} "
+                        f"{proc.stderr[-400:]!r}")
+    if failures:
+        raise AssertionError(f"capture_gc: {failures}")
+    return rec
+
+
 def fit_graph_draws(device, smi):
     """ROADMAP C5's gate: networks whose training draws, through the
     K-step graph. (a) The MLP of ``draws_mlp``, 12 batches of 32: two
@@ -9145,6 +9269,881 @@ def serve_spec(device, smi):
     return rec
 
 
+# ---------------------------------------------------------------------
+# phases 37-39: the survivable engine (supervisor, chaos seams,
+# decode_retry, registry), overload control and drain, the LSTM arena
+# ---------------------------------------------------------------------
+#: serve_survive: the decode dispatches that fault, the dispatch whose
+#: chaos event seizes every free page, the admission whose pop-to-seat
+#: window faults, the dispatch the retried run's transient fault hits
+SURVIVE_FAULTS, SURVIVE_SEIZE, SURVIVE_SEAT, SURVIVE_RETRY = \
+    (40, 110, 180), 20, 5, 60
+#: a stream after a rebuild may leave the unperturbed run's only where
+#: the unperturbed distribution was within this of a flip: a greedy
+#: row's top-two gap, a sampled row's draw this close to a boundary of
+#: its filtered cdf (the re-prime computes the survivors' K/V in one
+#: prefill where the unperturbed run took them a step at a time: the
+#: serve_spec rule)
+SURVIVE_GAP = SPEC_GAP
+#: the largest |log p| difference a survivor's distribution after a
+#: rebuild may show against the unperturbed run's at a context both
+#: share (bf16: one prefill against decode steps). Set from
+#: serve_survive's readings on an H100: sound paths read at most 0.053
+#: (a rebuilt row) and 0.037 (a one-shot forward of the same context),
+#: a context with its first token dropped at least 0.69
+SURVIVE_LOGP = 0.15
+#: serve_overload: requests (two waves), new tokens, the page budget in
+#: tokens (93 pages: four requests of 23 pages and one page free, under
+#: the 3% of rung 3), the TTFT objective (a request that waits for a
+#: slot misses it: sustained breach, shedding)
+OVERLOAD_WAVES, OVERLOAD_NEW = (32, 16), 64
+OVERLOAD_TOKENS, OVERLOAD_TTFT_SLO = 93 * PAGE, 0.05
+#: the brownout ladder's free-page thresholds for this pool
+OVERLOAD_FRACS = (0.15, 0.08, 0.03)
+#: serve_lstm: requests, new tokens, and the f32 reference's
+SERVE_LSTM_N, SERVE_LSTM_NEW = 16, 256
+SERVE_LSTM_REF_N, SERVE_LSTM_REF_NEW = 4, 64
+
+
+class ChaosChain:
+    """A ``decode_chaos`` of several injectors, each consulted in turn
+    at every dispatch (``resilience.chaos.fire`` drives each)."""
+
+    def __init__(self, *parts):
+        self.parts = list(parts)
+        self.batches_seen = 0
+
+    def before_batch(self, index):
+        from deeplearning4j_tpu_torch.resilience import chaos
+        for p in self.parts:
+            chaos.fire(p, index)
+
+
+#: the engine's registry handles (serve_survive's cost turns swap them)
+HANDLE_ATTRS = ("_tokens", "_ttft_hist", "_tpot_hist", "_queue_wait_hist",
+                "_dispatch_hist", "_kv_bytes", "_prefix_hits",
+                "_prefix_misses", "_prefix_reused")
+
+
+class _NullHandle:
+    """A metric handle that records nothing (the handles-off turns of
+    serve_survive)."""
+
+    def inc(self, *args, **kwargs):
+        pass
+
+    observe = observe_many = inc
+
+
+class _TimedHandle:
+    """A metric handle that forwards to ``h`` and adds the seconds and
+    the calls spent inside it to ``acc``."""
+
+    def __init__(self, h, acc):
+        self._h, self._acc = h, acc
+
+    def __getattr__(self, name):
+        f, acc = getattr(self._h, name), self._acc
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kwargs)
+            finally:
+                acc[0] += time.perf_counter() - t0
+                acc[1] += 1
+        return timed
+
+
+def swap_handles(eng, make):
+    """Replace each of ``eng``'s registry handles ``h`` by ``make(h)``."""
+    for name in HANDLE_ATTRS:
+        if hasattr(eng, name):
+            setattr(eng, name, make(getattr(eng, name)))
+    eng._handles = {k: make(v) for k, v in eng._handles.items()}
+
+
+def survive_engine(net, device, kv, **kw):
+    from deeplearning4j_tpu_torch.monitoring.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, PagedKVConfig)
+    kw.setdefault("registry", MetricsRegistry())
+    eng = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                           name=f"engine:survive_{kv}",
+                           paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv),
+                           **kw)
+    eng.warmup(max_prompt_len=300)
+    return eng
+
+
+def drive(eng, requests, new_tokens=NEW_TOKENS, draws=None):
+    """Submit every request up front and step the engine by hand to idle
+    (deterministic dispatch indices for the chaos seams): the handles,
+    the wall seconds, the tokens generated and the decode dispatches.
+    With ``draws`` (a dict), every draw the engine makes is kept under
+    its request's index, in order: the rng's state before the draw and
+    the distribution drawn from."""
+    from deeplearning4j_tpu_torch.serving import engine as engine_mod
+    rngs = [np.random.default_rng(i) for i in range(len(requests))]
+    real = engine_mod.draw
+    if draws is not None:
+        owner = {id(g): i for i, g in enumerate(rngs)}
+
+        def kept(probs, temperature, rng, **kw):
+            draws.setdefault(owner[id(rng)], []).append(
+                (rng.bit_generator.state, np.array(probs)))
+            return real(probs, temperature, rng, **kw)
+        engine_mod.draw = kept
+    d0 = eng.dispatches
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, steps=new_tokens, rng=rngs[i], **kw)
+              for i, (p, kw) in enumerate(requests)]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        engine_mod.draw = real
+    return hs, {"wall_s": dt,
+                "tokens_per_s": sum(len(h.generated) for h in hs) / dt,
+                "dispatches": eng.dispatches - d0}
+
+
+def first_flip(net, plain, other, prompt, sampling, seed):
+    """Where ``other`` first leaves ``plain`` (a generated index, None if
+    never) and how close the unperturbed distribution was to a flip
+    there (one-shot ``output()`` over the plain prefix): a greedy row's
+    top-two gap, a sampled row's distance from its draw (the request's
+    rng replayed: one uniform a generated token) to the nearest boundary
+    of its filtered cdf."""
+    from deeplearning4j_tpu_torch.util.decoding import _vocab, filter_probs
+    n = len(prompt)
+    d = next((i for i, (a, b) in enumerate(zip(plain[n:], other[n:]))
+              if a != b), None)
+    if d is None:
+        return None, None
+    ids = plain[:n + d]
+    V = _vocab(net)
+    x = np.zeros((1, V, len(ids)), np.float32)
+    x[0, ids, np.arange(len(ids))] = 1.0
+    net.rnn_clear_previous_state()
+    p = net.output(x)[0, :, -1].float().cpu().numpy().astype(np.float64)
+    if sampling.get("top_k") == 1:
+        return d, float(top_two_gap(p))
+    q = filter_probs(p, sampling.get("temperature", 1.0),
+                     sampling.get("top_k"), sampling.get("top_p"))
+    u = np.random.default_rng(seed).random(d + 1)[d]
+    cdf = np.cumsum(q)
+    cdf /= cdf[-1]
+    return d, float(np.min(np.abs(cdf - u)))
+
+
+def flips(net, plain, other, requests):
+    """``first_flip`` of every request; the ones past SURVIVE_GAP."""
+    out = []
+    for i, (p, kw) in enumerate(requests):
+        d, margin = first_flip(net, plain[i], other[i], p, kw, i)
+        out.append({"request": i, "first": d, "margin": margin,
+                    "sampled": kw.get("top_k") != 1})
+    bad = [f for f in out if f["first"] is not None
+           and f["margin"] >= SURVIVE_GAP]
+    return out, bad
+
+
+def logp_distance(p, q):
+    """The largest |log p - log q| over the tokens both give mass."""
+    m = (p > 0) & (q > 0)
+    return float(np.max(np.abs(np.log(p[m].astype(np.float64))
+                               - np.log(q[m].astype(np.float64)))))
+
+
+def explain_flips(plain_draws, draws, plain, other, requests):
+    """Hold a rebuilt run's draws against the unperturbed run's (both
+    kept by ``drive``), request by request:
+
+    - one draw a generated token in each run, and the rng's state
+      before every draw equal to the unperturbed run's (exact: a
+      survivor re-admitted with a shifted rng fails here);
+    - at every context the two runs share (up to the first flip), the
+      two distributions within SURVIVE_LOGP of each other in
+      log-probability (a wrongly re-primed row reads another context);
+    - each flip explained by that distance alone: a greedy row's new
+      token is the unperturbed distribution's runner-up at a top-two gap
+      under SURVIVE_GAP; a sampled row's draw, replayed from the shared
+      rng state on each run's distribution, gives each run's token (its
+      uniform lies between the two runs' cdf boundaries).
+
+    Returns each request's readings, the closest two neighbouring
+    contexts of the unperturbed run came in log-probability (what a
+    context one token off would read), and the faults."""
+    from deeplearning4j_tpu_torch.util.decoding import draw, filter_probs
+    out, faults, neighbour = [], [], float("inf")
+    for i, (prompt, kw) in enumerate(requests):
+        n = len(prompt)
+        a, b = plain_draws.get(i, []), draws.get(i, [])
+        ga, gb = plain[i][n:], other[i][n:]
+        f = {"request": i, "sampled": kw.get("top_k") != 1, "first": None}
+        out.append(f)
+        if len(a) != len(ga) or len(b) != len(gb):
+            faults.append(f"request {i}: {len(a)} and {len(b)} draws for "
+                          f"{len(ga)} and {len(gb)} tokens")
+            continue
+        shift = next((k for k, (x, y) in enumerate(zip(a, b))
+                      if x[0] != y[0]), None)
+        if shift is not None:
+            faults.append(f"request {i}: the rng's state differs before "
+                          f"draw {shift}")
+        d = next((k for k, (x, y) in enumerate(zip(ga, gb)) if x != y),
+                 None)
+        last = min(len(a), len(b)) - 1 if d is None else d
+        f["first"] = d
+        f["logp"] = max((logp_distance(a[k][1], b[k][1])
+                         for k in range(last + 1)), default=0.0)
+        if last:
+            neighbour = min(neighbour, min(
+                logp_distance(a[k][1], a[k - 1][1])
+                for k in range(1, last + 1)))
+        if f["logp"] >= SURVIVE_LOGP:
+            faults.append(f"request {i}: the distributions differ by "
+                          f"{f['logp']} in log-probability")
+        if d is None:
+            continue
+        pa, pb = a[d][1], b[d][1]
+        if not f["sampled"]:
+            second = np.sort(pa)[-2]
+            f["gap"] = float(pa.max() - second)
+            if pa[gb[d]] != second or f["gap"] >= SURVIVE_GAP:
+                faults.append(f"request {i}: greedy token {gb[d]} at "
+                              f"{d} is not the runner-up at a near-tie: "
+                              f"{f}")
+            continue
+        temp, top_k, top_p = (kw.get("temperature", 1.0), kw.get("top_k"),
+                              kw.get("top_p"))
+        made = []
+        for p in (pa, pb):
+            g = np.random.default_rng()
+            g.bit_generator.state = a[d][0]
+            made.append(draw(p, temp, g, top_k=top_k, top_p=top_p))
+        g = np.random.default_rng()
+        g.bit_generator.state = a[d][0]
+        u = g.random()
+        cdf = np.cumsum(filter_probs(pa, temp, top_k, top_p)
+                        .astype(np.float64))
+        cdf /= cdf[-1]
+        lo = cdf[ga[d] - 1] if ga[d] else 0.0
+        f["margin"] = float(min(u - lo, cdf[ga[d]] - u))
+        if made != [ga[d], gb[d]]:
+            faults.append(f"request {i}: the shared draw gives {made}, the "
+                          f"runs {[ga[d], gb[d]]} at {d}")
+    return out, neighbour, faults
+
+
+def context_readings(net, plain, requests, plain_draws):
+    """Two readings that place SURVIVE_LOGP, each request at the middle
+    of its generated stream, against the unperturbed run's decode-step
+    distribution there: a one-shot ``output()`` over the same context
+    (another sound path, as a re-prime is) and over the context with
+    its first token dropped (a planted re-prime fault). Returns the
+    largest sound and the smallest planted distance."""
+    from deeplearning4j_tpu_torch.util.decoding import _vocab
+    V = _vocab(net)
+
+    def dist(ids):
+        x = np.zeros((1, V, len(ids)), np.float32)
+        x[0, ids, np.arange(len(ids))] = 1.0
+        net.rnn_clear_previous_state()
+        return net.output(x)[0, :, -1].float().cpu().numpy()
+    sound, planted = 0.0, float("inf")
+    for i, (prompt, _) in enumerate(requests):
+        k = len(plain_draws[i]) // 2
+        ids, p = plain[i][:len(prompt) + k], plain_draws[i][k][1]
+        sound = max(sound, logp_distance(p, dist(ids)))
+        planted = min(planted, logp_distance(p, dist(ids[1:])))
+    net.rnn_clear_previous_state()
+    return sound, planted
+
+
+def kv_tok_bytes(kv):
+    """The bytes of one position over every paged leaf (k and v of each
+    layer) and an int8 pool's scale row over every leaf, from the
+    served configuration."""
+    item = 1 if kv == "int8" else 2
+    d = WIDTH // HEADS
+    return (LAYERS * 2 * HEADS * d * item,
+            LAYERS * 2 * HEADS * 4 if kv == "int8" else 0)
+
+
+def kernel_kv_tally(rec):
+    """Tally the KV bytes the paged kernel's own inputs say each launch
+    moves, read back from the card (the kernel's lengths and page
+    table, not the engine's host positions its model reads): each row
+    whose table maps a page reads its pages up to its length,
+    page-rounded, at most the table's span; every row appends its query
+    width; an int8 pool reads one scale row a live page. One layer a
+    launch; a faulted dispatch launches nothing. Returns the undo."""
+    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
+    real = pk.paged_attention
+
+    def tallied(q, k_pool, v_pool, table, lengths, *, query_width,
+                k_scales=None, v_scales=None):
+        S, hkv, _, d = q.shape
+        ps = k_pool.shape[2]
+        span = table.shape[1] * ps
+        mapped = (table != 0).any(1).cpu().tolist()
+        live = sum(min(-(-n // ps) * ps, span)
+                   for n, m in zip(lengths.cpu().tolist(), mapped) if m)
+        tok = 2 * hkv * d * k_pool.element_size()
+        row = 0 if k_scales is None else 2 * hkv * k_scales.element_size()
+        rec["dispatch_bytes"] += (live + S * query_width) * tok \
+            + (live // ps) * row
+        return real(q, k_pool, v_pool, table, lengths,
+                    query_width=query_width, k_scales=k_scales,
+                    v_scales=v_scales)
+    pk.paged_attention = tallied
+    return lambda: setattr(pk, "paged_attention", real)
+
+
+def kv_admission_bytes(handles, kv):
+    """The model's bytes of the admissions (and re-admissions) in the
+    handles' traces: a bf16 prime's commit of the primed row (MAX_LEN
+    positions) and, on a prefix hit, its gather (MAX_LEN more); an int8
+    prime's read of the context and append (MAX_LEN + fed)."""
+    tb, _ = kv_tok_bytes(kv)
+    total = 0
+    for h in handles:
+        start = None
+        for r in h.trace().events():
+            if r["event"] == "prefill_start":
+                start = r
+            elif r["event"] == "seat" and start is not None:
+                if kv == "int8":
+                    total += (MAX_LEN + start["width"]) * tb
+                else:
+                    total += MAX_LEN * tb * (2 if start["prefix_hit"] else 1)
+                start = None
+    return total
+
+
+def timed_rebuilds(eng, out):
+    """Record each rebuild of ``eng``: its wall ms, its survivors, and
+    the card's allocated bytes as it starts (the old arena still held)
+    and as it ends (the new one primed)."""
+    real = eng._quarantine_rebuild
+
+    def timed(exc=None):
+        torch.cuda.synchronize()
+        m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        n = real(exc)
+        torch.cuda.synchronize()
+        out.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                    "survivors": n, "allocated_before": m0,
+                    "allocated_after": torch.cuda.memory_allocated()})
+        return n
+    eng._quarantine_rebuild = timed
+
+
+def pool_bytes(eng):
+    return sum(t.numel() * t.element_size()
+               for t in list(eng._page_store) + list(eng._scale_store or ()))
+
+
+def serve_survive(device, smi):
+    """Phase 4's configuration and traffic (16 requests, 128 new tokens,
+    bf16, 8 slots, page 16, prefix cache) driven by hand, over a bf16 and
+    an int8 pool: an unperturbed run, then a supervised run with three
+    decode faults (``FaultBurstInjector``s at SURVIVE_FAULTS), one
+    ``PageExhaustionInjector`` seizure and one seat-window fault. Every
+    request's draws hold against the unperturbed run's
+    (``explain_flips``: the rng's state exact, the distributions within
+    SURVIVE_LOGP, each flip a near-tie the distance explains), the
+    rebuilds by cause equal the faults, each rebuild's allocated bytes
+    come back to the old arena's (within half a pool), every successful
+    dispatch launches the pool's paged kernel once a layer, and the
+    modeled KV bytes of ``health()`` equal the tally of the kernel's own
+    inputs (``kernel_kv_tally``) and the traces' admissions. Then a
+    ``decode_retry`` run rides out a transient fault with no rebuild,
+    its streams equal to the unperturbed run's, a zero budget fails every waiter
+    with the original error and writes a flight record, and tokens/s
+    with the registry's handles against the same engine with them made
+    no-ops (events and traces off), in turns after a warming run
+    (registry, bare, bare, registry, registry, bare)."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.monitoring import events, flightrecorder
+    from deeplearning4j_tpu_torch.monitoring.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.resilience.retry import (
+        RestartBudget, RetryPolicy)
+    from deeplearning4j_tpu_torch.serving import EngineSupervisor
+    _, net = served_net(device)
+    requests = serve_requests(np.random.default_rng(1))
+    rec = {"card": smi, "faults": {"decode": list(SURVIVE_FAULTS),
+                                   "seize": SURVIVE_SEIZE,
+                                   "seat": SURVIVE_SEAT},
+           "gap_limit": SURVIVE_GAP}
+    plain_outs = {}
+    for kv in ("bf16", "int8"):
+        key = "paged_attention_quant" if kv == "int8" else "paged_attention"
+        eng = survive_engine(net, device, kv)
+        plain_draws, draws = {}, {}
+        zero_counts()
+        hs, run = drive(eng, requests, draws=plain_draws)
+        run["launches"] = read_counts()[key]
+        plain = plain_outs[kv] = [h.result(timeout=0) for h in hs]
+        r = {"unperturbed": run}
+        del eng
+        torch.cuda.empty_cache()
+        chain = ChaosChain(*[chaos.FaultBurstInjector(n=i, k=1, window=1)
+                             for i in SURVIVE_FAULTS])
+        reg = MetricsRegistry()
+        eng = survive_engine(net, device, kv, registry=reg,
+                             supervisor=EngineSupervisor(
+                                 budget=RestartBudget(8, 600.0)),
+                             decode_chaos=chain,
+                             seat_chaos=chaos.RaiseOnBatch(None,
+                                                           n=SURVIVE_SEAT))
+        seize = chaos.PageExhaustionInjector(eng.page_pool, n=SURVIVE_SEIZE)
+        chain.parts.insert(0, seize)
+        rebuilds, model = [], {"dispatch_bytes": 0}
+        timed_rebuilds(eng, rebuilds)
+        pool = pool_bytes(eng)
+        bytes0 = eng.health()["kv_traffic"]["bytes_moved_total"]
+        undo = kernel_kv_tally(model)
+        zero_counts()
+        try:
+            hs, run = drive(eng, requests, draws=draws)
+        finally:
+            undo()
+        counts = read_counts()
+        outs = [h.result(timeout=0) for h in hs]
+        h = eng.health()
+        snap = reg.snapshot_compact()
+        by_cause = {c: snap.get(f"dl4jtpu_serving_engine_rebuilds_total"
+                                f"{{cause={c},model={eng.label}}}")
+                    for c in ("decode_fault", "admission_fault")}
+        moved = h["kv_traffic"]["bytes_moved_total"] - bytes0
+        want_moved = model["dispatch_bytes"] + kv_admission_bytes(hs, kv)
+        div, neighbour, bad = explain_flips(plain_draws, draws, plain, outs,
+                                            requests)
+        # (bf16 only: a one-shot forward reads no int8 pool)
+        oneshot, planted = context_readings(
+            net, plain, requests, plain_draws) if kv == "bf16" \
+            else (None, None)
+        r["perturbed"] = rp = {
+            **run, "launches": counts[key], "all_launches": counts,
+            "rebuilds": rebuilds, "rebuilds_by_cause": by_cause,
+            "seizure_fired": seize.faults_fired,
+            "supervisor": h["supervisor"], "pool_bytes": pool,
+            "kv_bytes_moved": moved, "kv_bytes_model": want_moved,
+            "decode_path": h["kv_traffic"]["decode_path"],
+            "equal": outs == plain, "divergence": div,
+            "logp_max": max(f.get("logp", 0.0) for f in div),
+            "logp_limit": SURVIVE_LOGP, "neighbour_logp_min": neighbour,
+            "oneshot_logp_max": oneshot, "dropped_first_logp_min": planted}
+        log(f"serve_survive {kv}:", json.dumps(
+            {k: v for k, v in rp.items() if k not in ("divergence",
+                                                       "all_launches")}
+            | {"diverged": [f for f in div if f["first"] is not None],
+               "unperturbed": r["unperturbed"], "card": smi}))
+        failures = []
+        if bad:
+            failures.append(f"streams left the unperturbed run's "
+                            f"unexplained: {bad}")
+        if by_cause != {"decode_fault": len(SURVIVE_FAULTS),
+                        "admission_fault": 1} or \
+                h["supervisor"]["escalations"] or not eng.is_healthy():
+            failures.append(f"rebuilds {by_cause}, {h['supervisor']}")
+        if seize.faults_fired != 1:
+            failures.append("the seizure did not fire")
+        if len(rebuilds) != len(SURVIVE_FAULTS) + 1 or any(
+                b["allocated_after"] - b["allocated_before"] > pool / 2
+                for b in rebuilds):
+            failures.append(f"a rebuild kept the old arena: {rebuilds}")
+        if moved != want_moved or rp["decode_path"] != "direct-cuda":
+            failures.append(f"kv bytes {moved} != the model's {want_moved}")
+        for label, x in (("unperturbed", r["unperturbed"]), ("perturbed",
+                                                            rp)):
+            if x["dispatches"] == 0 or \
+                    x["launches"] != LAYERS * x["dispatches"]:
+                failures.append(f"{label}: {x['launches']} {key} launches "
+                                f"for {x['dispatches']} dispatches")
+        if failures:
+            raise AssertionError(f"serve_survive {kv}: {failures}")
+        rec[kv] = r
+        del eng
+        torch.cuda.empty_cache()
+    # decode_retry: the transient fault retried inside the dispatch
+    sup = EngineSupervisor()
+    inj = chaos.FaultBurstInjector(n=SURVIVE_RETRY, k=1)
+    eng = survive_engine(net, device, "bf16", supervisor=sup,
+                         decode_retry=RetryPolicy(
+                             max_attempts=3, base_delay=0.0,
+                             retry_on=(chaos.InjectedFault,)),
+                         decode_chaos=inj)
+    hs, run = drive(eng, requests)
+    outs = [h.result(timeout=0) for h in hs]
+    rec["retry"] = {**run, "rebuilds": sup.rebuilds,
+                    "equal": outs == plain_outs["bf16"],
+                    "faults_fired": inj.faults_fired}
+    log("serve_survive retry:", json.dumps(rec["retry"] | {"card": smi}))
+    if sup.rebuilds or not rec["retry"]["equal"] or inj.faults_fired != 1:
+        raise AssertionError(f"serve_survive retry: {rec['retry']}")
+    del eng
+    # a zero budget: the first fault escalates to the fail-all
+    tmp = tempfile.mkdtemp(prefix="dl4j_flight_")
+    flightrecorder.set_flight_dir(tmp)
+    flightrecorder.reset_for_tests()
+    try:
+        sup = EngineSupervisor(budget=RestartBudget(0, 60.0))
+        eng = survive_engine(net, device, "bf16", supervisor=sup,
+                             decode_chaos=chaos.FaultBurstInjector(n=10, k=1))
+        hs = [eng.submit(p, steps=NEW_TOKENS, rng=np.random.default_rng(i),
+                         **kw) for i, (p, kw) in enumerate(requests)]
+        eng.run_until_idle()
+        errors = {type(h.error).__name__ for h in hs}
+        path = flightrecorder.last_record_path()
+        header = flightrecorder.read_record(path)["header"] if path else {}
+    finally:
+        flightrecorder.set_flight_dir(None)
+        flightrecorder.reset_for_tests()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["escalation"] = {"errors": sorted(errors),
+                         "escalations": sup.escalations,
+                         "healthy": eng.is_healthy(),
+                         "flight_trigger": header.get("trigger")}
+    log("serve_survive escalation:", json.dumps(rec["escalation"]))
+    if errors != {"InjectedFault"} or sup.escalations != 1 or \
+            eng.is_healthy() or not header:
+        raise AssertionError(f"serve_survive escalation: {rec['escalation']}")
+    del eng
+    torch.cuda.empty_cache()
+    # the registry's cost, on one engine, in turns: the handles as
+    # shipped, the handles made no-ops (events and traces on), and
+    # everything off (no-op handles, events and traces off); then the
+    # seconds a dispatch spends inside the shipped handles, each call
+    # timed
+    eng = survive_engine(net, device, "bf16")
+    shipped = {k: getattr(eng, k) for k in HANDLE_ATTRS + ("_handles",)}
+    turns = {"registry": [], "handles_off": [], "bare": []}
+    null = _NullHandle()
+    drive(eng, requests)          # warm the prefix cache for every turn
+    for mode in ("registry", "handles_off", "bare", "bare", "handles_off",
+                 "registry"):
+        for k, v in shipped.items():
+            setattr(eng, k, v)
+        if mode != "registry":
+            swap_handles(eng, lambda h: null)
+        prev = events.set_events_enabled(mode != "bare")
+        try:
+            hs, run = drive(eng, requests)
+        finally:
+            events.set_events_enabled(prev)
+        run["equal"] = [h.result(timeout=0) for h in hs] == \
+            plain_outs["bf16"]
+        turns[mode].append(run)
+    for k, v in shipped.items():
+        setattr(eng, k, v)
+    acc = [0.0, 0]
+    swap_handles(eng, lambda h: _TimedHandle(h, acc))
+    _, run = drive(eng, requests)
+    rec["registry_cost"] = {
+        "turns": turns,
+        "tokens_per_s": {m: [t["tokens_per_s"] for t in ts]
+                         for m, ts in turns.items()},
+        "inside_handles": {"s_per_dispatch": acc[0] / run["dispatches"],
+                           "calls_per_dispatch": acc[1] / run["dispatches"],
+                           "wall_s_per_dispatch":
+                               run["wall_s"] / run["dispatches"]}}
+    log("serve_survive registry cost:", json.dumps(
+        rec["registry_cost"]["tokens_per_s"]
+        | rec["registry_cost"]["inside_handles"] | {"card": smi}))
+    del eng, net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rung_moves(events_):
+    """Each brownout rung entered and left, from the engine's brownout
+    events (level, prev)."""
+    entered, left = set(), set()
+    for e in events_:
+        a = e.attrs
+        lo, hi = sorted((a["prev"], a["level"]))
+        for r in range(lo + 1, hi + 1):
+            (entered if a["level"] > a["prev"] else left).add(r)
+    return sorted(entered), sorted(left)
+
+
+def serve_overload(device, smi):
+    """Phase 4's net behind ``OverloadConfig`` (TTFT objective
+    OVERLOAD_TTFT_SLO, the brownout ladder at OVERLOAD_FRACS) over a
+    pool of OVERLOAD_TOKENS tokens (no prefix cache: its pages would
+    hold the pool full; prompts of 290-300 tokens), with speculation (``prompt_lookup_proposer(3)``,
+    gamma 4) so the ladder's rungs have work to shed, 8 slots, and 48
+    requests of OVERLOAD_NEW new tokens, each with a deadline and a
+    priority of 0-2, in two waves (the second once the admission rate
+    has calibrated, some with deadlines it cannot meet). Shedding takes
+    the lowest priority queued at the time first; every early rejection
+    comes after min_samples admissions; every rung is entered and left;
+    each greedy request that finished streams as the same request
+    through the speculative engine without overload control (under
+    SURVIVE_GAP); ``drain()`` in mid-run finishes every active request
+    and fails every queued one with ``EngineShutdown``."""
+    from deeplearning4j_tpu_torch.monitoring.events import global_event_log
+    from deeplearning4j_tpu_torch.serving import (
+        EngineShutdown, GenerationEngine, OverloadConfig, PagedKVConfig,
+        ServingOverloaded, SpeculationConfig)
+    from deeplearning4j_tpu_torch.serving.errors import InferenceTimeout
+    from deeplearning4j_tpu_torch.util.decoding import (
+        prompt_lookup_proposer)
+    _, net = served_net(device)
+    rng = np.random.default_rng(2)
+    reqs = []
+    for i in range(sum(OVERLOAD_WAVES)):
+        # repeating motifs (the prompt-lookup draft finds its n-grams),
+        # 290-300 tokens: 23 pages a request with its new tokens and the
+        # verify's gamma, so 4 fill the pool to its last page (rung 3)
+        # and one retirement frees a quarter of it (rung 0)
+        motif = [int(t) for t in rng.integers(1, VOCAB, 12)]
+        prompt = (motif * 25)[:int(rng.integers(290, 301))]
+        reqs.append((prompt, dict(top_k=1), int(i % 3)))
+    cfg = OverloadConfig(ttft_slo_s=OVERLOAD_TTFT_SLO, min_samples=4,
+                         breach_window=16, brownout_enter_fracs=OVERLOAD_FRACS)
+    spec = SpeculationConfig(prompt_lookup_proposer(SPEC_NGRAM),
+                             gamma=SPEC_GAMMA)
+    eng = GenerationEngine(
+        net, VOCAB, slots=SLOTS, device=device, name="engine:overload",
+        paging=PagedKVConfig(page_size=PAGE, prefix_cache=False,
+                             total_tokens=OVERLOAD_TOKENS),
+        speculation=spec, overload=cfg, queue_limit=64)
+    eng.warmup(max_prompt_len=300)
+    n0 = global_event_log().total_emitted
+    handles, rejected = {}, []
+    t0 = time.perf_counter()
+    first = OVERLOAD_WAVES[0]
+    # the first wave before any admission: no rate yet, so even the
+    # deadlines no queue could meet (every eighth) are not refused
+    for i, (p, kw, prio) in enumerate(reqs[:first]):
+        try:
+            handles[i] = eng.submit(p, steps=OVERLOAD_NEW, priority=prio,
+                                    rng=np.random.default_rng(i),
+                                    timeout=0.05 if i % 8 == 7 else 120.0,
+                                    **kw)
+        except ServingOverloaded:
+            rejected.append({"request": i, "admissions": eng.admissions})
+    steps = 0
+    while eng.admissions < 2 * cfg.min_samples and steps < 20000 and (
+            eng.active_slots() or eng.queue_depth()):
+        eng.step()
+        steps += 1
+    for i, (p, kw, prio) in enumerate(reqs[first:], start=first):
+        # every other one with a deadline the queue cannot meet
+        timeout = 0.05 if i % 2 else 120.0
+        try:
+            handles[i] = eng.submit(p, steps=OVERLOAD_NEW, priority=prio,
+                                    rng=np.random.default_rng(i),
+                                    timeout=timeout, **kw)
+        except ServingOverloaded:
+            rejected.append({"request": i, "admissions": eng.admissions})
+    while eng.queue_depth() > 4 and steps < 40000:
+        eng.step()
+        steps += 1
+    ledger = eng.export_ledger(include_queued=True)
+    active = [e.request.handle for e in ledger if e.phase == "active"]
+    queued = [e.request.handle for e in ledger if e.phase == "queued"]
+    drained = eng.drain(timeout=300.0)
+    wall = time.perf_counter() - t0
+    evs = [e for e in global_event_log().tail()
+           if e.seq > n0 and e.attrs.get("engine") == "engine:overload"]
+    entered, left = rung_moves([e for e in evs if e.name == "brownout"])
+    # shedding: each victim's priority <= that of every request still
+    # queued when it was shed
+    shed_at = {i: next(r["t"] for r in h.trace().events()
+                       if r["event"] == "shed")
+               for i, h in handles.items()
+               if isinstance(h.error, ServingOverloaded)}
+    order_bad = []
+    for v, ts in shed_at.items():
+        for i, h in handles.items():
+            ev = {r["event"]: r["t"] for r in h.trace().events()}
+            waiting = ev["submit"] < ts and ev.get(
+                "queue_pop", float("inf")) > ts and \
+                shed_at.get(i, float("inf")) > ts and i != v and \
+                ev.get("retire", float("inf")) > ts
+            if waiting and reqs[v][2] > reqs[i][2]:
+                order_bad.append((v, i))
+    outcomes = {}
+    for i, h in handles.items():
+        k = ("length" if h.error is None else type(h.error).__name__)
+        outcomes[k] = outcomes.get(k, 0) + 1
+    rec = {"card": smi, "requests": len(reqs), "wall_s": wall,
+           "outcomes": outcomes, "early_rejected": rejected,
+           "shed": len(shed_at), "rungs_entered": entered,
+           "rungs_left": left, "drained": drained,
+           "active_at_drain": len(active), "queued_at_drain": len(queued),
+           "health": {k: eng.health().get(k) for k in ("overload",
+                                                       "draining")}}
+    failures = []
+    if not shed_at or order_bad:
+        failures.append(f"shedding: {len(shed_at)} shed, out of order "
+                        f"{order_bad}")
+    if not rejected or any(r["admissions"] < cfg.min_samples
+                           for r in rejected):
+        failures.append(f"early rejections {rejected}")
+    if entered != [1, 2, 3] or left != [1, 2, 3]:
+        failures.append(f"rungs entered {entered}, left {left}")
+    if not drained or not active or not queued or any(
+            h.error is not None for h in active) or any(
+            not isinstance(h.error, EngineShutdown) for h in queued):
+        failures.append("drain: an active failed or a queued one ran")
+    unexpected = {k for k in outcomes if k not in (
+        "length", "ServingOverloaded", "EngineShutdown",
+        InferenceTimeout.__name__)}
+    if unexpected:
+        failures.append(f"outcomes {outcomes}")
+    del eng
+    torch.cuda.empty_cache()
+    # the same requests, each alone in spirit: the speculative engine
+    # without overload control, ample pages
+    done = [i for i, h in handles.items() if h.error is None]
+    ref = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                           paging=PagedKVConfig(page_size=PAGE),
+                           speculation=spec)
+    ref.warmup(max_prompt_len=300)
+    rh = {i: ref.submit(reqs[i][0], steps=OVERLOAD_NEW,
+                        rng=np.random.default_rng(i), **reqs[i][1])
+          for i in done}
+    ref.run_until_idle()
+    div, bad = flips(net, [rh[i].result(timeout=0) for i in done],
+                     [handles[i].result(timeout=0) for i in done],
+                     [(reqs[i][0], reqs[i][1]) for i in done])
+    rec["compared"] = len(done)
+    rec["divergence"] = [f for f in div if f["first"] is not None]
+    if bad:
+        failures.append(f"greedy streams under brownout left the "
+                        f"unbrowned run's at wide gaps: {bad}")
+    log("serve_overload:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"serve_overload: {failures}")
+    del ref, net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lstm_engine(net, device, slots=SLOTS):
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(net, LSTM_VOCAB, slots=slots, device=device,
+                            name="engine:lstm")
+
+
+def profile_steps(step, steps, wall_unit):
+    """``torch.profiler`` over ``steps`` calls of ``step``: ms a call,
+    the device's busy share, CUDA kernel launches a call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in kernels)
+    return {wall_unit: 1e3 * wall / steps,
+            "device_busy_share": busy / (wall * 1e6),
+            "kernel_launches_per_call": sum(e.count for e in kernels)
+            / steps}
+
+
+def serve_lstm(device, smi):
+    """The text LSTM (phase 24's net: vocab 128, two GravesLSTM layers of
+    256, bf16) behind the engine: 8 slots, 16 greedy requests of 256 new
+    tokens after 32-token prompts. Each decode step launches row 17's
+    kernel once a layer at batch 8 (and each prime once a layer at batch
+    1); each stream equals one-shot ``sample_stream``'s with the same rng
+    under SURVIVE_GAP; tokens/s; a profile of 20 engine steps with every
+    slot busy against 20 tokens of ``sample_stream`` at batch 1. Then in
+    f32 the engine's streams equal ``sample_stream``'s exactly."""
+    from deeplearning4j_tpu_torch.util.decoding import sample_stream
+    net = text_lstm_net(device, torch.bfloat16)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, LSTM_VOCAB, LSTM_PROMPT)]
+               for _ in range(SERVE_LSTM_N)]
+    requests = [(p, dict(top_k=1)) for p in prompts]
+    eng = lstm_engine(net, device).warmup(max_prompt_len=LSTM_PROMPT)
+    d0, a0 = eng.dispatches, eng.admissions
+    zero_counts()
+    hs, run = drive(eng, requests, SERVE_LSTM_NEW)
+    counts = lstm_counts()
+    dispatches, admissions = eng.dispatches - d0, eng.admissions - a0
+    n = sum(len(h.generated) for h in hs)
+    outs = [h.result(timeout=0) for h in hs]
+    # batch 8 a decode step: the engine's rows; batch 1 a prime
+    want_launches = LSTM_LAYERS * (dispatches + admissions)
+    t0 = time.perf_counter()
+    ref = [sample_stream(net, p, SERVE_LSTM_NEW, LSTM_VOCAB, top_k=1,
+                         rng=np.random.default_rng(i), max_length=None)
+           for i, p in enumerate(prompts)]
+    ref_s = time.perf_counter() - t0
+    div, bad = flips(net, ref, outs, requests)
+    rec = {"card": smi, "requests": SERVE_LSTM_N,
+           "new_tokens": SERVE_LSTM_NEW, "tokens": n, **run,
+           "admissions": admissions, "launches": counts,
+           "launches_per_decode_step": (counts["lstm_fwd"] - LSTM_LAYERS
+                                        * admissions) / dispatches,
+           "sample_stream_tokens_per_s": n / ref_s,
+           "equal_sample_stream": outs == ref,
+           "divergence": [f for f in div if f["first"] is not None]}
+    failures = []
+    if counts != {"lstm_fwd": want_launches, "lstm_bwd": 0}:
+        failures.append(f"launched {counts}, want {want_launches} forward")
+    if bad:
+        failures.append(f"streams left sample_stream's at wide gaps: {bad}")
+    # profiles: every slot busy against sample_stream at batch 1 (a new
+    # engine: the references above streamed the net)
+    eng = lstm_engine(net, device)
+    for i in range(SLOTS):
+        eng.submit(prompts[i], steps=400, top_k=1)
+    for _ in range(3):
+        eng.step()
+    rec["profile_engine"] = profile_steps(eng.step, 20, "step_ms")
+    rec["profile_engine"]["tokens_per_step"] = SLOTS
+    eng.shutdown()
+    x1 = np.zeros((1, LSTM_VOCAB, 1), np.float32)
+    x1[0, 1, 0] = 1.0
+    net.rnn_clear_previous_state()
+    net.rnn_time_step(x1)
+    rec["profile_sample_stream"] = profile_steps(
+        lambda: net.rnn_time_step(x1).float().cpu(), 20, "token_ms")
+    net.rnn_clear_previous_state()
+    log("serve_lstm:", json.dumps(rec))
+    del eng, net
+    torch.cuda.empty_cache()
+    # f32: exactly sample_stream's
+    net = text_lstm_net(device, torch.float32)
+    eng = lstm_engine(net, device)
+    hs = [eng.submit(p, steps=SERVE_LSTM_REF_NEW, top_k=1,
+                     rng=np.random.default_rng(i))
+          for i, p in enumerate(prompts[:SERVE_LSTM_REF_N])]
+    eng.run_until_idle()
+    got = [h.result(timeout=0) for h in hs]
+    want = [sample_stream(net, p, SERVE_LSTM_REF_NEW, LSTM_VOCAB, top_k=1,
+                          rng=np.random.default_rng(i), max_length=None)
+            for i, p in enumerate(prompts[:SERVE_LSTM_REF_N])]
+    rec["reference_f32_equal"] = got == want
+    if not rec["reference_f32_equal"]:
+        failures.append("f32: the engine's streams are not sample_stream's")
+    del eng, net
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"serve_lstm: {failures}: {rec}")
+    return rec
+
+
 def build_all():
     """Build every kernel library, one nvcc each, all started together;
     returns (seconds, {library: ptxas lines})."""
@@ -9216,6 +10215,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--durable-dir", help=argparse.SUPPRESS)
     ap.add_argument("--durable-out", help=argparse.SUPPRESS)
+    ap.add_argument("--capture-gc-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.phases.split(",")) if args.phases else None
     if not torch.cuda.is_available():
@@ -9225,6 +10226,8 @@ def main(argv=None) -> int:
     if args.durable_child:
         return durable_child(args.durable_child, args.durable_dir,
                              args.durable_out)
+    if args.capture_gc_child:
+        return capture_gc_child()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -9425,6 +10428,16 @@ def main(argv=None) -> int:
         out["early_stop"] = phase("early_stop", early_stop, device, smi)
     if want("serve_spec"):
         out["serve_spec"] = phase("serve_spec", serve_spec, device, smi)
+    if want("serve_survive"):
+        out["serve_survive"] = phase("serve_survive", serve_survive, device,
+                                     smi)
+    if want("serve_overload"):
+        out["serve_overload"] = phase("serve_overload", serve_overload,
+                                      device, smi)
+    if want("serve_lstm"):
+        out["serve_lstm"] = phase("serve_lstm", serve_lstm, device, smi)
+    if want("capture_gc"):
+        out["capture_gc"] = phase("capture_gc", capture_gc, device, smi)
     graph_recs = {k: out[k] for k in ("fit_graph_transformer",
                                       "fit_graph_resnet") if k in out}
     if graph_recs:
@@ -9566,10 +10579,20 @@ def kernels_line(out):
              "serve_spec_bf16": out["serve_spec"]["bf16"]["turns"]["spec"]
              [-1]["launches"],
              "serve_spec_int8": out["serve_spec"]["int8"]["turns"]["spec"]
-             [-1]["launches"]}
+             [-1]["launches"],
+             # the survivable engine's supervised runs (rebuilds, the
+             # seizure and the seat fault in them), the LSTM arena
+             "serve_survive_bf16": out["serve_survive"]["bf16"]["perturbed"]
+             ["all_launches"],
+             "serve_survive_int8": out["serve_survive"]["int8"]["perturbed"]
+             ["all_launches"],
+             "serve_lstm": out["serve_lstm"]["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}
+        if k["name"] == "lstm_fwd":
+            k["serve_lstm_launches_per_decode_step"] = \
+                out["serve_lstm"]["launches_per_decode_step"]
     return kernels
 
 

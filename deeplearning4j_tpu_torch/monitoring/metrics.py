@@ -160,17 +160,26 @@ class Histogram(Metric):
                 "sum": 0.0, "n": 0}
 
     def observe(self, value: float, **labels) -> None:
-        value = float(value)
+        self.observe_many((value,), **labels)
+
+    def observe_many(self, values, **labels) -> None:
+        """``observe`` each of ``values`` under one lock acquisition (a
+        hot loop's batch: one enter a step, not one a token)."""
+        if not values:
+            return
         with self._lock:
             child = self._child(labels)
-            i = len(self.buckets)
-            for j, b in enumerate(self.buckets):
-                if value <= b:
-                    i = j
-                    break
-            child["counts"][i] += 1
-            child["sum"] += value
-            child["n"] += 1
+            counts, nb = child["counts"], len(self.buckets)
+            for value in values:
+                value = float(value)
+                i = nb
+                for j, b in enumerate(self.buckets):
+                    if value <= b:
+                        i = j
+                        break
+                counts[i] += 1
+                child["sum"] += value
+                child["n"] += 1
 
     def count(self, **labels) -> int:
         with self._lock:

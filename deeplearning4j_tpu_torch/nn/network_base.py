@@ -61,6 +61,7 @@ listeners' cadence saves and a pending preemption.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from collections import Counter
 from typing import Any, Dict, List, Sequence
@@ -689,8 +690,9 @@ class NetworkBase:
         graph = torch.cuda.CUDAGraph()
         sg.make_gens(self, graph)
         try:
-            with torch.cuda.graph(graph, stream=sg.stream,
-                                  capture_error_mode="thread_local"):
+            with _collector_paused(), torch.cuda.graph(
+                    graph, stream=sg.stream,
+                    capture_error_mode="thread_local"):
                 sg.losses, sg.flags = self._group_steps(sg.slots, policy,
                                                         sg.gens)
                 with torch.no_grad():
@@ -726,6 +728,24 @@ def _phase(name: str, on: bool):
             yield
     else:
         yield
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Keep Python's cyclic garbage collector off until the block ends (a
+    graph's capture). Dead networks sit in reference cycles with their
+    step graphs; a collection that ran inside a capture would tear such a
+    graph down there, a call a capturing stream does not allow: the
+    capture is invalidated and fails only at its end. The garbage waits
+    for the next collection after the block (a full collection first
+    would cost seconds in a large process)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class _StepGraph:

@@ -23,10 +23,17 @@ pull would have given.
   checkpoint already put on disk;
 - :func:`fire` drives an injector outside an iterator.
 
-The serving and fleet injectors refuse at construction, naming their
-ROADMAP.md items: ``RequestFaultInjector`` and
-``PageExhaustionInjector`` (A7), ``HostLossInjector`` (A9),
-``LeaseStallInjector`` and the ``MailboxInjector`` family (A10).
+The serving engine's seams (``prefill_chaos``, ``decode_chaos``,
+``seat_chaos``) take any of them through :func:`fire`, one event per
+admission or dispatch; two injectors are the engine's own:
+
+- ``RequestFaultInjector``: a fault aimed at requests chosen by content
+  (the admission seams pass the request as the event's context);
+- ``PageExhaustionInjector``: seizes the paged engine's free KV pages.
+
+The multi-host and fleet injectors refuse at construction, naming their
+ROADMAP.md items: ``HostLossInjector`` (A9), ``LeaseStallInjector`` and
+the ``MailboxInjector`` family (A10).
 """
 
 from __future__ import annotations
@@ -276,19 +283,56 @@ def _refuse(name: str, item: str, what: str):
 
 
 class RequestFaultInjector(ChaosIterator):
-    """A fault aimed at chosen serving requests: the engine's fault
-    seams come with the serving supervisor (ROADMAP.md A7)."""
+    """A fault aimed at REQUESTS rather than event indices: the serving
+    seams (prefill admission, the pop-to-seat window) pass the
+    ``GenerationRequest`` being processed as the event context, and
+    ``match(request)`` picks the victims (by prompt, priority, deadline,
+    identity), wherever in the admission order they land. ``once=True``
+    (the default) faults the first match only."""
 
-    def __init__(self, *args, **kwargs):
-        _refuse(type(self).__name__, "A7", "the serving engine's fault seams")
+    def __init__(self, match: Callable[[object], bool],
+                 exc: Callable[[], BaseException] = InjectedFault,
+                 base: Optional[DataSetIterator] = None,
+                 once: bool = True):
+        super().__init__(base, once=once)
+        self.match = match
+        self.exc = exc
+
+    def before_event(self, index: int, ctx) -> None:
+        if ctx is None:
+            return
+        if self.match(ctx) and self._fire():
+            raise self.exc()
 
 
 class PageExhaustionInjector(ChaosIterator):
-    """Seizes the paged engine's free KV pages: comes with the serving
-    supervisor (ROADMAP.md A7)."""
+    """Force the serving engine's free KV-page pool down to
+    ``free_target`` pages before dispatch ``n`` (pass it as the engine's
+    ``decode_chaos``: one event per decode dispatch).
 
-    def __init__(self, *args, **kwargs):
-        _refuse(type(self).__name__, "A7", "the serving engine's fault seams")
+    ``pool`` is the paged engine's ``PagePool`` (``engine.page_pool``):
+    the injector SEIZES free pages and never touches allocated ones, so
+    active requests keep their pages and complete as an unperturbed run
+    does, while new admissions head-block (or time out, or fail fast)
+    until ``release()`` returns the seized pages. Seizure is host-side
+    page-id accounting, so an int8 pool's bytes and scale rows never
+    move. A supervisor's rebuild replaces the pool, and the seizure dies
+    with the old one."""
+
+    def __init__(self, pool, n: int, free_target: int = 0,
+                 once: bool = True):
+        super().__init__(None, once=once)
+        self.pool = pool
+        self.n = int(n)
+        self.free_target = int(free_target)
+
+    def before_batch(self, index: int) -> None:
+        if index >= self.n and self._fire():
+            self.pool.seize(self.pool.free_count() - self.free_target)
+
+    def release(self) -> None:
+        """Return every seized page to the pool (the incident ends)."""
+        self.pool.restore()
 
 
 class HostLossInjector(ProcessKillInjector):

@@ -2,10 +2,11 @@
 
 Counterpart of ``deeplearning4j_tpu/serving/engine.py``:
 
-- **Slot arena**: the net's streaming state lives at a fixed batch of S
-  slots; ONE ``[S, V, 1]`` decode forward advances every active request
-  per step. Per-slot positions ride the per-row ``kv_pos`` vector; free
-  slots idle harmlessly (their outputs are discarded).
+- **Slot arena**: the net's streaming state (attention KV caches, LSTM
+  h / c) lives at a fixed batch of S slots; ONE ``[S, V, 1]`` decode
+  forward advances every active request per step. Per-slot positions
+  ride the per-row ``kv_pos`` vector; free slots idle harmlessly (their
+  outputs are discarded).
 - **Admission mid-flight**: a request primes at batch 1 into a detached
   state that is then joined to the arena at its slot, so running
   requests never wait for a newcomer's prompt.
@@ -41,30 +42,59 @@ Counterpart of ``deeplearning4j_tpu/serving/engine.py``:
   rejected positions (free rows rewind the whole width). Greedy streams
   equal plain ``sample_stream``'s; sampled ones keep the target's
   distribution and draw each request's rng in the JAX engine's order.
+- The text LSTM (``TextGenerationLSTM``'s ``MultiLayerNetwork``) serves
+  in the slot arena: each GravesLSTM's h / c rows are joined at
+  admission, and every decode step runs the LSTM forward kernel once a
+  layer at batch S. Its refusals are the JAX engine's: a page pool's
+  int8 storage or prefix cache, and speculation (h / c cannot rewind).
+
+Survivability and observability:
+
+- ``supervisor=EngineSupervisor(...)`` replaces the terminal fail-all
+  with request-preserving recovery: a step-cycle fault quarantines the
+  arena (pool tensors, scale sidecars, tables and the views in
+  ``net.state`` all released) and rebuilds it from the host-side request
+  ledger, re-priming every in-flight request; a windowed
+  ``RestartBudget`` bounds the rebuild rate and escalates to ``_break``.
+- the chaos seams: ``prefill_chaos`` fires before each admission's
+  prime (a raise fails THAT request only), ``seat_chaos`` in the
+  pop-to-seat window, and ``decode_chaos`` before each decode or verify
+  dispatch INSIDE the optional ``decode_retry`` policy (the fault fires
+  before any state mutates, so a retried dispatch is the fault-free
+  one). The admission seams pass the request as the event's context.
+- ``overload=OverloadConfig(...)``: sustained-breach shedding of
+  low-priority queued work (``ServingOverloaded``), deadline-based early
+  rejection at submit, and the page-pressure brownout ladder (reduced
+  gamma, then speculation off, then no prefix-cache inserts; the verify
+  width stays 1 + gamma at every rung).
+- ``drain(timeout)`` stops admission and finishes the actives.
+- the request ledger (``export_ledger`` / ``admit_from_ledger``): every
+  in-flight request exports as a versioned ``RequestLedgerEntry`` in the
+  JAX package's wire form and re-admits on this or another engine.
+- ``registry=`` / ``name=``: the ``dl4jtpu_serving_*`` series
+  (``serving/health.py``), handles resolved at construction and fed once
+  a step; ``health()``; request traces; a flight record at ``_break``.
 
 Greedy (top_k=1) outputs equal one-shot ``sample_stream`` with the same
 rng (tested): the arena feeds each request exactly the token sequence a
 dedicated stream would, and each request draws from its own rng in
 generation order.
 
-Not ported yet, and refused at construction with ``NotImplementedError``
-rather than ignored: the supervisor, overload control (and with it the
-brownout ladder's gamma cap: without it a verify proposes up to gamma),
-the chaos seams and ``decode_retry``, and the engine's ``registry=``
-(the registry is ported, ``monitoring/``; the engine's series come with
-its health and request ledger; the verify's acceptance fractions go to
-the windowed ``spec_acceptance`` samples) (ROADMAP.md A7). The request ledger, traces, ``health()`` with its KV traffic
-and the fleet hooks come later too (ROADMAP.md A7, A10), and so does
-the choice of decode read path (``decode_impl``: the port has one on
-the card, the kernel; ROADMAP.md A7). Metrics are plain attributes for
-now.
+Still to come (ROADMAP.md A7): the decode step as one CUDA graph,
+re-captured after a rebuild; ``sample_stream_batch``, beam search and
+speculation drafted by a second network; the choice of decode read path
+(``decode_impl``: the port has one on the card, the kernel). The fleet's
+hooks (``detach_ledger``, ``detach_queued``, ``load_stats``, the prefix
+chain export and import) come with the fleet (ROADMAP.md A10).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
+import traceback
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, List, Optional
@@ -73,21 +103,40 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.monitoring import flightrecorder
+from deeplearning4j_tpu_torch.monitoring.events import emit as emit_event
+from deeplearning4j_tpu_torch.monitoring.metrics import (
+    MetricsRegistry, global_registry)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BATCHED_STREAM_KEYS, PositionalEmbeddingLayer, check_rewindable,
     rewind_stream_state, stream_capacity)
+from deeplearning4j_tpu_torch.resilience.chaos import fire as _fire_chaos
+from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from deeplearning4j_tpu_torch.serving.errors import (
-    EngineShutdown, InferenceTimeout, RequestCancelled)
+    EngineShutdown, InferenceTimeout, RequestCancelled, ServingOverloaded,
+    ServingQueueFull)
+from deeplearning4j_tpu_torch.serving.health import (
+    SERVING_ACTIVE_SLOTS, SERVING_BROWNOUT_LEVEL,
+    SERVING_DEADLINE_EXCEEDED, SERVING_DISPATCH_LATENCY, SERVING_DRAINING,
+    SERVING_EARLY_REJECTED, SERVING_ERRORS, SERVING_KV_BYTES_MOVED,
+    SERVING_KV_PAGES_TOTAL, SERVING_KV_PAGES_USED, SERVING_PREFIX_HITS,
+    SERVING_PREFIX_MISSES, SERVING_PREFIX_REUSED_TOKENS,
+    SERVING_QUEUE_REJECTED, SERVING_QUEUE_WAIT, SERVING_REQUESTS,
+    SERVING_SHED, SERVING_SPEC_ACCEPTANCE, SERVING_TOKENS, SERVING_TPOT,
+    SERVING_TTFT, register_serving_metrics, scrape_probe)
+from deeplearning4j_tpu_torch.serving.overload import (
+    BROWNOUT_NO_PREFIX_INSERTS, BROWNOUT_NO_SPECULATION,
+    BROWNOUT_REDUCED_GAMMA, OverloadConfig, OverloadController)
 from deeplearning4j_tpu_torch.serving.paging import (
     PagedKVConfig, PagePool, gather_pages, pages_needed)
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache
 from deeplearning4j_tpu_torch.serving.quant import kv_page_bytes, pool_leaves
 from deeplearning4j_tpu_torch.serving.request import (
-    GenerationRequest, GenerationStream)
+    GenerationRequest, GenerationStream, RequestLedgerEntry)
 from deeplearning4j_tpu_torch.serving.scheduler import AdmissionQueue
 from deeplearning4j_tpu_torch.util.decoding import (
-    _check_seed, _stream_layers, accept_proposals, draw, filter_probs,
-    prime_prompt, step_tokens, stop_reason, verify_tokens)
+    _check_seed, _stream_layers, _vocab, accept_proposals, draw,
+    filter_probs, prime_prompt, step_tokens, stop_reason, verify_tokens)
 
 __all__ = ["GenerationEngine", "SpeculationConfig"]
 
@@ -100,13 +149,8 @@ _SCALE_VIEW = {"kv_k": "kv_page_scale_k", "kv_v": "kv_page_scale_v"}
 #: the keys of the paged view the engine installs around a forward
 _VIEW_KEYS = frozenset({*_PAGED_VIEW.values(), *_SCALE_VIEW.values(),
                         "kv_page_table", "kv_page_prime"})
-#: latency samples kept per metric (the monitoring port replaces these)
+#: latency samples kept per plain-attribute window (ttft_s, tpot_s)
 METRIC_WINDOW = 4096
-
-#: constructor arguments of the JAX engine this slice leaves out
-_NOT_PORTED = {"supervisor": "A7", "overload": "A7",
-               "prefill_chaos": "A7", "decode_chaos": "A7",
-               "seat_chaos": "A7", "decode_retry": "A7", "registry": "A7"}
 
 
 @dataclass
@@ -143,29 +187,26 @@ class GenerationEngine:
     Drive it manually (``submit()`` then ``step()`` /
     ``run_until_idle()``) or start the background loop (``start()`` /
     ``shutdown()``) and consume ``GenerationStream`` handles from any
-    thread. ``device`` defaults to ``"cuda"`` and must be the net's."""
+    thread. ``device`` defaults to ``"cuda"`` and must be the net's.
+
+    ``prime_padded`` is accepted for the JAX signature and changes no
+    result: the port primes each prompt unpadded in one chunk, which
+    computes what the JAX package's masked, left-padded bucket prime
+    computes (eager PyTorch has no shapes to bound)."""
 
     def __init__(self, net, vocab_size: int, slots: int = 8,
                  queue_limit: int = 64, queue_policy: str = "block",
-                 paging: Optional[PagedKVConfig] = None, device=None,
-                 speculation: Optional[SpeculationConfig] = None,
-                 **not_ported):
-        for arg, value in not_ported.items():
-            if arg not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {arg!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"GenerationEngine({arg}=...) is not ported yet "
-                    f"(ROADMAP.md {_NOT_PORTED[arg]})")
+                 prime_padded: bool = True,
+                 registry: Optional[MetricsRegistry] = None,
+                 name: Optional[str] = None,
+                 prefill_chaos=None, decode_chaos=None, seat_chaos=None,
+                 decode_retry: Optional[RetryPolicy] = None,
+                 paging: Optional[PagedKVConfig] = None,
+                 speculation: Optional["SpeculationConfig"] = None,
+                 supervisor=None, overload=None, device=None):
         if not hasattr(net, "rnn_time_step"):
             raise TypeError("GenerationEngine needs a streaming net "
                             "(rnn_time_step / rnn_clear_previous_state)")
-        if any(getattr(l, "carries_recurrent_state", False)
-               for l in _stream_layers(net)):
-            raise NotImplementedError(
-                "serving a recurrent (LSTM) net needs the engine's h / c "
-                "slot arena, which is not ported yet (ROADMAP.md A7); "
-                "generate with sample_stream")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.device = resolve_device(device)
@@ -174,10 +215,11 @@ class GenerationEngine:
         if resolve_device(net.device) != self.device:
             raise ValueError(f"net lives on {net.device}, engine device "
                              f"is {self.device}")
-        if len(net.conf.network_inputs) != 1:
+        net_inputs = getattr(net.conf, "network_inputs", None)
+        if net_inputs is not None and len(net_inputs) != 1:
             raise ValueError("GenerationEngine serves single-input "
                              "decoder graphs only")
-        n_in = net.conf.input_types[net.conf.network_inputs[0]].size
+        n_in = _vocab(net)
         if vocab_size != n_in:
             raise ValueError(f"vocab_size {vocab_size} != the net's input "
                              f"size {n_in}")
@@ -185,19 +227,23 @@ class GenerationEngine:
         if any(isinstance(l, PositionalEmbeddingLayer) for l in layers):
             raise ValueError(
                 "continuous batching needs per-slot positions: learned "
-                "positional tables carry a shared pos_offset (use a rope "
-                "or position-free model)")
+                "positional tables carry a shared pos_offset (use a rope, "
+                "position-free or recurrent model)")
+        recurrent = any(getattr(l, "carries_recurrent_state", False)
+                        for l in layers)
         self._speculation = speculation
         if speculation is not None:
             # a verify rewinds up to its whole width (gamma + 1: a free
-            # row keeps nothing)
+            # row keeps nothing); h / c cannot rewind
             check_rewindable(net, speculation.gamma + 1)
         self.net = net
         self.V = int(vocab_size)
         self.slots = int(slots)
         self._cap = stream_capacity(layers)
+        del prime_padded        # the port primes unpadded (see above)
+        self._label = name or f"engine:{type(net).__name__}"
         self._graph_vertices = tuple(
-            n for n, v in net.conf.vertices.items()
+            n for n, v in (getattr(net.conf, "vertices", None) or {}).items()
             if getattr(getattr(v, "layer", None), "supports_streaming",
                        False))
         self._pending = AdmissionQueue(queue_limit, queue_policy)
@@ -216,22 +262,31 @@ class GenerationEngine:
         #: kv_dtype="auto" consulted (None unless int8 or auto was asked)
         self._kv_dtype = "bf16"
         self._quant_key: Optional[str] = None
+        self._quant_dims = None
         self._page_tables: List[List[int]] = [[] for _ in range(slots)]
         #: the [S, n_max] int32 device table, rebuilt only after a table
-        #: mutation (admit / retire), not per step
+        #: mutation (admit / retire / rebuild), not per step
         self._table_dev = None
         #: a retirement freed a slot whose kv_pos keeps coasting (+1 per
         #: dispatch): the next install zeroes free rows' positions so an
         #: idle slot that once held a long context does not make the
         #: kernel walk its dead pages every step
         self._kv_pos_dirty = False
+        #: modeled KV bytes (serving/health.SERVING_KV_BYTES_MOVED): the
+        #: running total, the bytes of one position over every leaf, and
+        #: an int8 pool's scale row over every leaf
+        self._kv_bytes_total = 0
+        self._tok_bytes = 0
+        self._scale_row_bytes = 0
         if paging is not None:
             kv_layers = [l for l in layers
                          if getattr(l, "supports_streaming", False)
                          and getattr(l, "cache_length", 0)]
             if not kv_layers:
-                raise ValueError("block-paged KV needs attention KV "
-                                 "streaming state (cache_length > 0)")
+                raise ValueError(
+                    "block-paged KV needs attention KV streaming state "
+                    "(a layer with cache_length > 0): a pure-recurrent "
+                    "net has no per-token pages to manage")
             lens = {int(l.cache_length) for l in kv_layers}
             if len(lens) != 1:
                 raise ValueError(f"block-paged KV needs one shared "
@@ -251,10 +306,16 @@ class GenerationEngine:
                     getattr(l0, "n_kv_heads", None) or l0.n_heads,
                     self._L, native)
                 if kv_dtype == "auto":
-                    # eligible: the port streams pure-attention nets only
-                    # (recurrent h/c state comes with ROADMAP.md A7)
-                    kv_dtype = resolve_kv_dtype(True, self._quant_key,
+                    # eligible: no recurrent h / c (the JAX gate)
+                    kv_dtype = resolve_kv_dtype(not recurrent,
+                                                self._quant_key,
                                                 device=self.device)
+            if kv_dtype == "int8" and recurrent:
+                raise ValueError(
+                    "kv_dtype='int8' quantizes position-indexed KV pages "
+                    "only; recurrent h/c state is a function of the whole "
+                    "prefix and cannot re-prime through the paged path "
+                    "(use kv_dtype='bf16', or a pure-attention model)")
             self._kv_dtype = kv_dtype
             dims = self._paged_layer_dims()
             if paging.total_bytes is not None:
@@ -265,49 +326,244 @@ class GenerationEngine:
                 usable = paging.resolve_pages(slots, self._n_max)
             self._pool = PagePool(usable + 1, self._ps)   # +1: null page
             if paging.prefix_cache:
+                if recurrent:
+                    raise ValueError(
+                        "the prefix cache reuses position-indexed KV pages "
+                        "only; recurrent h/c state is a function of the "
+                        "whole prefix and lives outside the pages: "
+                        "construct with PagedKVConfig(prefix_cache=False)")
                 self._prefix = PrefixCache(self._pool)
             if kv_dtype == "int8":
                 # built eagerly: the int8 prime writes through the pool,
                 # so it exists before the first admission
-                self._init_quant_store(dims)
-        # -- plain metrics ------------------------------------------------
+                self._quant_dims = dims
+                self._init_quant_store()
+        # -- chaos seams, retry, survivability ----------------------------
+        self._prefill_chaos = prefill_chaos
+        self._decode_chaos = decode_chaos
+        self._seat_chaos = seat_chaos
+        self._decode_retry = decode_retry
+        self._supervisor = supervisor
+        if isinstance(overload, OverloadConfig):
+            overload = OverloadController(overload)
+        self._overload: Optional[OverloadController] = overload
+        if overload is not None:
+            overload._bind(self)
+        self._brownout = 0
+        self._draining = False
+        # -- plain metrics (the registry's series carry the rest) --------
         self.admissions = 0
         self.dispatches = 0
         self.dispatch_s_total = 0.0
         self.tokens_generated = 0
-        self.errors = 0
         self.ttft_s = deque(maxlen=METRIC_WINDOW)
         self.tpot_s = deque(maxlen=METRIC_WINDOW)
-        self.queue_wait_s = deque(maxlen=METRIC_WINDOW)
-        #: speculation: each verified row's accepted / proposed (rows
-        #: that proposed), and the totals of proposed and accepted drafts
-        self.spec_acceptance = deque(maxlen=METRIC_WINDOW)
+        #: speculation: the totals of proposed and accepted drafts
         self.spec_proposed = 0
         self.spec_accepted = 0
         #: a request popped from the queue but not yet seated: a fault in
-        #: that window fails it instead of stranding its handle
+        #: that window fails (or recovers) it instead of stranding it
         self._seating: Optional[GenerationRequest] = None
+        #: traces of recently retired requests: the flight recorder's
+        #: "last requests" context when the engine breaks
+        self._recent_traces = deque(maxlen=16)
+        #: this engine's recent lifecycle events (health() reads this,
+        #: not a scan of the global ring)
+        self._own_events = deque(maxlen=10)
         self._stop = threading.Event()
         self._worker: Optional[threading.Thread] = None
         self._broken: Optional[BaseException] = None
         # ONE lock serializes every arena/net touch
         self._lock = threading.RLock()
         net.rnn_clear_previous_state()     # the engine owns the stream
+        self._register_metrics(registry)
 
+    # ------------------------------------------------------------------
+    # telemetry
+    # ------------------------------------------------------------------
+    def _register_metrics(self, registry) -> None:
+        """The JAX engine's series, names, help and labels; every handle
+        resolved here, so a step feeds each series with one inc or
+        observe (``observe_many``) and never a lookup."""
+        r = registry or global_registry()
+        self._handles = register_serving_metrics(self, self._label,
+                                                 registry)
+        lab = dict(model=self._label)
+        self._tokens = r.counter(
+            SERVING_TOKENS, "Tokens generated by the serving engine",
+            ("model",)).labels(**lab)
+        self._ttft_hist = r.histogram(
+            SERVING_TTFT, "Seconds from submit to first token",
+            ("model",)).labels(**lab)
+        self._tpot_hist = r.histogram(
+            SERVING_TPOT, "Seconds between consecutive tokens of one "
+            "request", ("model",)).labels(**lab)
+        self._queue_wait_hist = r.histogram(
+            SERVING_QUEUE_WAIT, "Seconds a request waited for admission",
+            ("model",)).labels(**lab)
+        self._dispatch_hist = r.histogram(
+            SERVING_DISPATCH_LATENCY, "Wall seconds per decode/verify "
+            "dispatch cycle (paged modes include the KV path around it)",
+            ("model",)).labels(**lab)
+        if self._pool is not None:
+            self._kv_bytes = r.counter(
+                SERVING_KV_BYTES_MOVED, "Modeled bytes the KV path "
+                "moves between the page pool and the dispatch (legacy: "
+                "full gather+scatter round trip; direct: in-dispatch "
+                "read + one-token append)", ("model",)).labels(**lab)
+        r.gauge(SERVING_ACTIVE_SLOTS, "Arena slots holding an active "
+                "request", ("model",)).set_function(
+            scrape_probe(self, lambda s: s.active_slots()),
+            model=self._label)
+        if self._pool is not None:
+            r.gauge(SERVING_KV_PAGES_TOTAL, "Allocatable KV pages in "
+                    "the paged arena's pool", ("model",)).set_function(
+                scrape_probe(self, lambda s: s._pool.usable),
+                model=self._label)
+            r.gauge(SERVING_KV_PAGES_USED, "KV pages currently held by "
+                    "slots or the prefix cache", ("model",)).set_function(
+                scrape_probe(self, lambda s: s._pool.used_count()),
+                model=self._label)
+        if self._prefix is not None:
+            self._prefix_hits = r.counter(
+                SERVING_PREFIX_HITS, "Admissions that reused >= 1 "
+                "cached prefix block", ("model",)).labels(**lab)
+            self._prefix_misses = r.counter(
+                SERVING_PREFIX_MISSES, "Admissions that reused no "
+                "cached prefix block", ("model",)).labels(**lab)
+            self._prefix_reused = r.counter(
+                SERVING_PREFIX_REUSED_TOKENS, "Prompt tokens whose "
+                "prefill was skipped via cached pages",
+                ("model",)).labels(**lab)
+        if self._speculation is not None:
+            self._spec_accept_hist = r.histogram(
+                SERVING_SPEC_ACCEPTANCE, "Per-slot fraction of draft "
+                "proposals accepted by a verify dispatch",
+                ("model",)).labels(**lab)
+        r.gauge(SERVING_DRAINING, "Engine draining: admission stopped, "
+                "actives finishing (1) or serving normally (0)",
+                ("model",)).set_function(
+            scrape_probe(self, lambda s: 1.0 if s._draining else 0.0),
+            model=self._label)
+        if self._supervisor is not None:
+            self._supervisor._bind(self, registry)
+        if self._overload is not None:
+            self._shed_counter = r.counter(
+                SERVING_SHED, "Queued requests shed under a sustained "
+                "SLO breach", ("model",)).labels(**lab)
+            self._early_rejected = r.counter(
+                SERVING_EARLY_REJECTED, "Submits refused because their "
+                "deadline provably cannot be met",
+                ("model",)).labels(**lab)
+            r.gauge(SERVING_BROWNOUT_LEVEL, "Brownout ladder rung: 0 "
+                    "off, 1 reduced gamma, 2 speculation off, 3 prefix "
+                    "inserts off", ("model",)).set_function(
+                scrape_probe(self, lambda s: float(s._brownout)),
+                model=self._label)
+
+    @property
+    def label(self) -> str:
+        """The model label this engine's telemetry and events carry."""
+        return self._label
+
+    @property
+    def trace_identity(self) -> str:
+        """The identity request traces record per lifecycle event: the
+        model label (a fleet's replica suffix comes with ROADMAP.md
+        A10)."""
+        return self._label
+
+    def _emit_serving_event(self, name: str, **attrs) -> None:
+        """Publish one serving-lifecycle event under this engine's trace
+        identity and mirror it into the bounded tail ``health()``
+        serves (the supervisor emits its rebuild and escalate events
+        through this too)."""
+        ev = emit_event("serving", name, engine=self.trace_identity,
+                        **attrs)
+        if ev is not None:
+            self._own_events.append({"name": ev.name, "wall": ev.wall,
+                                     "attrs": dict(ev.attrs)})
+
+    # ------------------------------------------------------------------
+    # health / readiness
     # ------------------------------------------------------------------
     def is_healthy(self) -> bool:
         if self._broken is not None or self._stop.is_set():
             return False
         return self._worker is None or self._worker.is_alive()
 
+    def is_ready(self) -> bool:
+        return self.is_healthy() and not self._draining \
+            and not self._pending.full()
+
+    def queue_depth(self) -> int:
+        return self._pending.depth()
+
+    def active_slots(self) -> int:
+        return sum(r is not None for r in self._slots)
+
+    def _decode_path(self) -> str:
+        """The port's one paged read path: the CUDA kernel on a CUDA
+        device, its plain version on the CPU."""
+        return "direct-cuda" if self.device.type == "cuda" \
+            else "direct-plain"
+
+    def health(self) -> dict:
+        out = {"healthy": self.is_healthy(), "ready": self.is_ready(),
+               "label": self.trace_identity,
+               "pid": os.getpid(),
+               "queue_depth": self.queue_depth(),
+               "active_slots": self.active_slots(),
+               "slots": self.slots,
+               "decode_dispatch": {
+                   "count": self.dispatches,
+                   "mean_ms": round(self.dispatch_s_total * 1e3
+                                    / max(1, self.dispatches), 3)}}
+        if self._pool is not None:
+            out["kv_pages"] = {"total": self._pool.usable,
+                               "used": self._pool.used_count(),
+                               "free": self._pool.free_count(),
+                               "page_size": self._pool.page_size}
+            out["kv_traffic"] = {
+                "decode_path": self._decode_path(),
+                "kv_dtype": self._kv_dtype,
+                "bytes_moved_total": self._kv_bytes_total,
+                "dispatches": self.dispatches,
+            }
+        if self._prefix is not None:
+            out["prefix_cache"] = {"entries": len(self._prefix),
+                                   "hits": self._prefix.hits,
+                                   "misses": self._prefix.misses,
+                                   "reused_tokens":
+                                       self._prefix.reused_tokens}
+        if self._speculation is not None:
+            out["speculation"] = {"gamma": self._speculation.gamma}
+        if self._draining:
+            out["draining"] = True
+        if self._supervisor is not None:
+            out["supervisor"] = self._supervisor.health()
+        if self._overload is not None:
+            out["overload"] = {
+                "brownout_level": self._brownout,
+                "shed_total": self._overload.shed_total,
+                "early_rejected_total":
+                    self._overload.early_rejected_total,
+            }
+        out["last_events"] = list(self._own_events)
+        return out
+
     @property
     def page_pool(self) -> Optional[PagePool]:
+        """The paged arena's pool (None in slot-arena mode): the seam
+        ``resilience.chaos.PageExhaustionInjector`` drives."""
         return self._pool
 
     @property
     def prefix_cache(self) -> Optional[PrefixCache]:
         return self._prefix
 
+    # ------------------------------------------------------------------
+    # submission
     # ------------------------------------------------------------------
     def submit(self, prompt, steps: int, *, temperature: float = 1.0,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -324,6 +580,9 @@ class GenerationEngine:
                                  f"{self._broken!r}")
         if self._stop.is_set():
             raise EngineShutdown("GenerationEngine shut down")
+        if self._draining:
+            raise EngineShutdown("GenerationEngine draining: submit to "
+                                 "the replacement instance")
         prompt = [int(t) for t in prompt]
         if max_length is None:
             max_length = self._cap
@@ -350,27 +609,55 @@ class GenerationEngine:
                     f"({pages_needed(store, self._ps)} pages of "
                     f"{self._ps} tokens) but the pool has only "
                     f"{self._pool.usable} pages: it can never be admitted")
+        self._handles[SERVING_REQUESTS].inc()
         deadline = None if timeout is None else \
             time.monotonic() + float(timeout)
         req = GenerationRequest(
             prompt, steps, temperature=temperature, top_k=top_k,
             top_p=top_p, stop_tokens=stop_tokens, rng=rng,
             max_length=max_length, deadline=deadline, priority=priority)
-        self._pending.submit(req)
+        if self._overload is not None:
+            reason = self._overload.reject_at_submit(
+                self, req, time.monotonic())
+            if reason is not None:
+                self._early_rejected.inc()
+                req.trace.record("early_reject", reason=reason)
+                self._emit_serving_event("early_reject")
+                raise ServingOverloaded(reason)
+        try:
+            self._pending.submit(req)
+        except ServingQueueFull:
+            self._handles[SERVING_QUEUE_REJECTED].inc()
+            raise
+        except InferenceTimeout:
+            self._handles[SERVING_DEADLINE_EXCEEDED].inc()
+            raise
         return req.handle
 
+    # ------------------------------------------------------------------
+    # the step cycle
+    # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One engine cycle: expire/cancel, admit into free slots, one
-        decode forward over the arena, sample + stream + retire. Returns
-        whether any progress was made (False = idle). A fault past
-        reaping breaks the engine: every waiter gets the error."""
+        """One engine cycle: expire/cancel, shed under overload, admit
+        into free slots, one decode (or widened verify) forward over the
+        arena, sample + stream + retire. Returns whether any progress
+        was made (False = idle).
+
+        The whole cycle past reaping is one failure domain: a fault
+        anywhere (the pop-to-seat window included) lands where the
+        supervisor, if any, can quarantine and rebuild the arena from
+        the request ledger; without one, or with its budget spent, the
+        engine falls to the terminal ``_break``."""
         with self._lock:
             if self._stop.is_set() or self._broken is not None:
                 return False
             now = time.monotonic()
             progress = self._reap(now) > 0
             try:
-                progress = self._admit_ready(now) > 0 or progress
+                if self._overload is not None:
+                    progress = self._apply_overload(now) or progress
+                if not self._draining:
+                    progress = self._admit_ready(now) > 0 or progress
                 active = [s for s, r in enumerate(self._slots)
                           if r is not None]
                 if not active:
@@ -380,32 +667,86 @@ class GenerationEngine:
                 else:
                     self._step_plain(active)
             except Exception as e:  # noqa: BLE001 — fail waiters, not hang
-                self.errors += 1
+                self._handles[SERVING_ERRORS].inc()
+                if self._recover(e):
+                    return True
                 self._break(e)
                 return False
             return True
 
-    def _step_plain(self, active) -> None:
-        """One [S, V, 1] decode forward + one host draw per row."""
-        probs = self._dispatch_step()
-        now = time.monotonic()
-        for s in active:
-            req = self._slots[s]
-            if req is None:        # retired by the capacity guard
-                continue
-            tok = draw(probs[s], req.temperature, req.rng,
-                       top_k=req.top_k, top_p=req.top_p)
+    def _recover(self, exc: BaseException) -> bool:
+        """Hand a step-cycle fault to the supervisor (if any): True = the
+        arena was rebuilt and every in-flight request re-admitted."""
+        if self._supervisor is None:
+            return False
+        cause = ("admission_fault" if self._seating is not None
+                 else "decode_fault")
+        return self._supervisor.on_dispatch_fault(self, exc, cause)
+
+    def _apply_overload(self, now: float) -> bool:
+        """One overload-control tick before admission: shed queued work
+        under a sustained SLO breach, refresh the brownout rung from
+        page pressure."""
+        ov = self._overload
+        victims = ov.shed(self)
+        for req in victims:
+            self._shed_counter.inc()
+            req.trace.record("shed", engine=self.trace_identity)
+            req.handle._fail(ServingOverloaded(
+                "shed from the admission queue under a sustained "
+                "latency-SLO breach (lowest-priority first)"))
+        if victims:
+            self._emit_serving_event("shed", victims=len(victims))
+        prev = self._brownout
+        self._brownout = ov.brownout_level(self)
+        if self._brownout != prev:
+            self._emit_serving_event("brownout", level=self._brownout,
+                                     prev=prev)
+        return bool(victims)
+
+    def _commit(self, req: GenerationRequest, tokens, now: float,
+                tpots: list) -> Optional[str]:
+        """Stream ``tokens`` (one step's commits of one row) to ``req``:
+        its TPOT samples go to ``tpots`` (observed once a step), and the
+        first stop reason met ends the commit."""
+        reason = None
+        for tok in tokens:
             if req.last_token_t is not None:
-                self.tpot_s.append(now - req.last_token_t)
+                tpots.append(now - req.last_token_t)
             req.last_token_t = now
             req.handle._push(tok)
             self.tokens_generated += 1
             reason = stop_reason(tok, len(req.handle._ids), req.want,
                                  req.stop_tokens)
             if reason:
+                break
+        return reason
+
+    def _observe_step(self, n_tokens: int, tpots: list) -> None:
+        """A step's token and TPOT samples: one registry entry each."""
+        self.tpot_s.extend(tpots)
+        self._tpot_hist.observe_many(tpots)
+        if n_tokens:
+            self._tokens.inc(n_tokens)
+
+    def _step_plain(self, active) -> None:
+        """One [S, V, 1] decode forward + one host draw per row."""
+        probs = self._dispatch_step()
+        now = time.monotonic()
+        t0, tpots = self.tokens_generated, []
+        for s in active:
+            req = self._slots[s]
+            if req is None:        # retired by the capacity guard
+                continue
+            tok = draw(probs[s], req.temperature, req.rng,
+                       top_k=req.top_k, top_p=req.top_p)
+            reason = self._commit(req, (tok,), now, tpots)
+            req.trace.rollup(1)
+            if reason:
                 self._retire(s, reason)
             else:
                 req.pending_token = tok
+        self._observe_step(self.tokens_generated - t0, tpots)
 
     def _step_speculative(self, active) -> None:
         """One widened ``[S, V, 1+gamma]`` verify forward: the host draft
@@ -413,8 +754,15 @@ class GenerationEngine:
         proposals in ONE forward, each row commits its accepted prefix
         and one replacement or bonus token (``accept_proposals``), and a
         per-row rewind drops the rejected positions: ``gamma - accepted``
-        of a row that verified, the whole width of a free row."""
+        of a row that verified, the whole width of a free row. The
+        brownout ladder caps the proposals (``g_cap``): a reduced or zero
+        gamma pads the SAME widened forward with fewer real proposals."""
         k = self._speculation.gamma
+        g_cap = k
+        if self._brownout >= BROWNOUT_NO_SPECULATION:
+            g_cap = 0
+        elif self._brownout >= BROWNOUT_REDUCED_GAMMA:
+            g_cap = self._overload.brownout_gamma(k)
         if self._cap is not None:
             for s in active:
                 if self._slots[s] is not None \
@@ -427,7 +775,8 @@ class GenerationEngine:
             if req is None:
                 continue
             riders.append(s)
-            g = min(k, req.want - len(req.handle._ids))
+            g = min(g_cap, req.want - len(req.handle._ids))
+            # g <= 0 (rung 2+, or one token wanted): no host draft
             p = ([int(t) for t in self._speculation.draft(
                 list(req.handle._ids), g)][:g] if g > 0 else [])
             props[s] = p
@@ -436,8 +785,10 @@ class GenerationEngine:
         if not riders:
             return                 # everything retired at the guard
         self._sync_accounting()
-        tp = self._dispatch(lambda: verify_tokens(self.net, chunk))
+        tp = self._run_dispatch(lambda: verify_tokens(self.net, chunk),
+                                width=1 + k)
         now = time.monotonic()
+        t0, tpots, fracs = self.tokens_generated, [], []
         amounts = np.full(self.slots, 1 + k, np.int64)   # free rows: all
         for s in riders:
             req = self._slots[s]
@@ -450,27 +801,21 @@ class GenerationEngine:
             accepted, nxt = accept_proposals(props[s], p_dists, [None] * g,
                                              p_bonus, req.rng)
             if g:
-                self.spec_acceptance.append(accepted / g)
+                fracs.append(accepted / g)
                 self.spec_proposed += g
                 self.spec_accepted += accepted
             committed = props[s][:accepted] + [nxt]
+            req.trace.rollup(len(committed), accepted=accepted,
+                             proposed=g)
             self._row_pos[s] += 1 + accepted
             amounts[s] = k - accepted
-            reason = None
-            for tok in committed:
-                if req.last_token_t is not None:
-                    self.tpot_s.append(now - req.last_token_t)
-                req.last_token_t = now
-                req.handle._push(tok)
-                self.tokens_generated += 1
-                reason = stop_reason(tok, len(req.handle._ids), req.want,
-                                     req.stop_tokens)
-                if reason:
-                    break
+            reason = self._commit(req, committed, now, tpots)
             if reason:
                 self._retire(s, reason)
             else:
                 req.pending_token = committed[-1]
+        self._spec_accept_hist.observe_many(fracs)
+        self._observe_step(self.tokens_generated - t0, tpots)
         rewind_stream_state(self.net, amounts)
         self._sync_accounting()
 
@@ -493,6 +838,7 @@ class GenerationEngine:
                 req.handle._fail(RequestCancelled(
                     "request cancelled while queued"), reason="cancelled")
             else:
+                self._handles[SERVING_DEADLINE_EXCEEDED].inc()
                 req.handle._fail(InferenceTimeout(
                     "deadline expired in the admission queue"))
         for s, req in enumerate(self._slots):
@@ -503,6 +849,7 @@ class GenerationEngine:
                              RequestCancelled("request cancelled"))
                 n += 1
             elif req.deadline is not None and now >= req.deadline:
+                self._handles[SERVING_DEADLINE_EXCEEDED].inc()
                 self._retire(s, "error", InferenceTimeout(
                     "deadline expired mid-generation "
                     f"({len(req.handle._ids) - len(req.prompt)} tokens "
@@ -536,7 +883,10 @@ class GenerationEngine:
 
     def _admit_ready(self, now: float) -> int:
         """Fill free slots from the admission queue in priority order
-        (paged: while the head request's pages fit)."""
+        (paged: while the head request's pages fit). Every popped
+        request is pinned to ``self._seating`` until it is seated or
+        carries a terminal event, so a fault in the pop-to-seat window
+        cannot strand its handle."""
         n = 0
         gate = self._pages_admissible if self._pool is not None else None
         while None in self._slots:
@@ -545,19 +895,37 @@ class GenerationEngine:
                 break
             self._seating = req
             n += 1
-            if req.handle.cancelled:
-                req.handle._fail(RequestCancelled(
-                    "request cancelled in the admission queue"),
-                    reason="cancelled")
-            elif req.deadline is not None and now >= req.deadline:
-                req.handle._fail(InferenceTimeout(
-                    "deadline expired in the admission queue"))
-            else:
-                req.handle.queue_wait_s = now - req.submit_t
-                self.queue_wait_s.append(req.handle.queue_wait_s)
-                self._admit_one(req, self._slots.index(None))
+            if self._fail_if_dead(req, now, "in the admission queue"):
+                self._seating = None
+                continue
+            _fire_chaos(self._seat_chaos, self.admissions, ctx=req)
+            req.trace.record("queue_pop", engine=self.trace_identity)
+            req.handle.queue_wait_s = now - req.submit_t
+            self._queue_wait_hist.observe(req.handle.queue_wait_s)
+            if self._overload is not None:
+                self._overload.observe_queue_wait(req.handle.queue_wait_s)
+            # a popped request that already streamed is a ledger survivor
+            # riding the queue: it re-primes instead of admitting fresh
+            self._admit_one(req, self._slots.index(None),
+                            readmit=req.streamed)
             self._seating = None
         return n
+
+    def _fail_if_dead(self, req, now: float, where: str) -> bool:
+        """Give `req` its terminal event if it was cancelled or its
+        deadline passed (or it already carries one); True means skip it.
+        The one gate the admission pop and the rebuild share."""
+        if req.handle.done:
+            return True
+        if req.handle.cancelled:
+            req.handle._fail(RequestCancelled(
+                f"request cancelled {where}"), reason="cancelled")
+            return True
+        if req.deadline is not None and now >= req.deadline:
+            self._handles[SERVING_DEADLINE_EXCEEDED].inc()
+            req.handle._fail(InferenceTimeout(f"deadline expired {where}"))
+            return True
+        return False
 
     def _alloc_request_pages(self, req: GenerationRequest):
         """Reserve the request's worst-case pages: map the longest cached
@@ -570,7 +938,11 @@ class GenerationEngine:
                 hit_len, shared = self._prefix.lookup(req.prompt)
             else:
                 self._prefix.misses += 1   # nothing cached before the
-        store = self._store_positions(req.want)  # first arena build
+            (self._prefix_hits if shared   # first arena build
+             else self._prefix_misses).inc()
+            if hit_len:
+                self._prefix_reused.inc(hit_len)
+        store = self._store_positions(req.want)
         need_new = pages_needed(store, self._ps) - len(shared)
         # retain the shared pages BEFORE evicting: a deep shortfall must
         # not reclaim the very blocks this admission is about to map
@@ -598,6 +970,7 @@ class GenerationEngine:
         dense = gather_pages(self._page_store,
                              torch.as_tensor(row, device=self.device),
                              length=self._L)
+        self._kv_traffic(self._L * self._tok_bytes)   # one-row gather
         pos = torch.tensor(hit_len, dtype=torch.int32, device=self.device)
         for (n, k), leaf in zip(self._paged_keys, dense):
             cur = dict(net.state.get(n) or {})
@@ -606,58 +979,88 @@ class GenerationEngine:
             net.state[n] = cur
         net._stream_pos_map = {n: hit_len for n in self._graph_vertices}
 
-    def _admit_one(self, req: GenerationRequest, slot: int) -> None:
+    def _admit_one(self, req: GenerationRequest, slot: int,
+                   readmit: bool = False) -> None:
         """Prime `req` at batch 1 and join it to the arena at `slot`. A
         prime failure fails THAT request only: the arena state is
-        restored untouched and the request's pages released."""
+        restored untouched and the request's pages released.
+
+        ``readmit=True`` is the recovery path (the supervisor's rebuild,
+        a ledger admission): the request already streamed, so the prime
+        feeds ``ids[:-1]`` (what the lost arena row had consumed) and
+        nothing else happens: no draw (the rng stays at its fault-time
+        position), no token push, no TTFT or queue-wait observation, no
+        prefill chaos. The next dispatch recomputes the next-token
+        distribution the unperturbed run would have seen."""
         net = self.net
         saved_state = dict(net.state)
-        saved_pos = dict(net._stream_pos_map)
+        saved_acct = self._save_accounting()
+        prime_ids = req.handle._ids[:-1] if readmit else req.prompt
         table, hit_len = [], 0
         try:
             if self._pool is not None:
                 table, hit_len = self._alloc_request_pages(req)
+            if not readmit:
+                _fire_chaos(self._prefill_chaos, self.admissions, ctx=req)
             net.rnn_clear_previous_state()
+            fed = len(prime_ids) - hit_len
+            # no width bucket: the port primes unpadded in one chunk
+            req.trace.record("prefill_start", engine=self.trace_identity,
+                             width=fed, bucket=None, prefix_hit=hit_len,
+                             readmit=readmit)
             if self._kv_dtype == "int8":
                 # the prime runs through the pool; a prefix hit starts
                 # kv_pos past the shared pages, read in place
                 self._install_prime_paged_state(table, hit_len)
             elif hit_len:
                 self._install_prefix(table, hit_len)
-            p0 = prime_prompt(net, req.prompt[hit_len:])
+            p0 = prime_prompt(net, prime_ids[hit_len:])
+            req.trace.record("prefill_end")
             primed_pos = self._net_pos()
         except Exception as e:  # noqa: BLE001 — per-request failure domain
             net.state = saved_state
-            net._stream_pos_map = saved_pos
+            self._restore_accounting(saved_acct)
             self._release_pages(table)
-            self.admissions += 1
-            self.errors += 1
+            if not readmit:
+                self.admissions += 1
+            self._handles[SERVING_ERRORS].inc()
             req.handle._fail(e)
+            self._recent_traces.append(req.trace)
             return
         primed_state = dict(net.state)
         if self._kv_dtype == "int8":
             primed_state = self._extract_prime_paged_state(primed_state)
-        self.admissions += 1
-        tok = draw(p0, req.temperature, req.rng, top_k=req.top_k,
-                   top_p=req.top_p)
-        now = time.monotonic()
-        req.handle.ttft_s = now - req.submit_t
-        self.ttft_s.append(req.handle.ttft_s)
-        req.last_token_t = now
-        req.handle._push(tok)
-        self.tokens_generated += 1
-        reason = stop_reason(tok, len(req.handle._ids), req.want,
-                             req.stop_tokens)
-        if reason is None and self._cap is not None \
-                and primed_pos >= self._cap:
-            reason = "capacity"    # the prompt filled the stream
-        if reason:
-            # one-token request: never enters the arena at all
-            net.state = saved_state
-            net._stream_pos_map = saved_pos
-            self._release_pages(table)
-            req.handle._finish(reason)
-            return
+        if readmit:
+            tok = req.handle._ids[-1]    # pending, drawn before the fault
+            req.trace.record("readmit", engine=self.trace_identity)
+        else:
+            self.admissions += 1
+            tok = draw(p0, req.temperature, req.rng, top_k=req.top_k,
+                       top_p=req.top_p)
+            now = time.monotonic()
+            req.handle.ttft_s = now - req.submit_t
+            self.ttft_s.append(req.handle.ttft_s)
+            self._ttft_hist.observe(req.handle.ttft_s)
+            if self._overload is not None:
+                self._overload.observe_ttft(req.handle.ttft_s, now)
+            req.last_token_t = now
+            req.trace.record("first_token", engine=self.trace_identity)
+            req.handle._push(tok)
+            self.tokens_generated += 1
+            self._tokens.inc()
+            reason = stop_reason(tok, len(req.handle._ids), req.want,
+                                 req.stop_tokens)
+            if reason is None and self._cap is not None \
+                    and primed_pos >= self._cap:
+                reason = "capacity"    # the prompt filled the stream
+            if reason:
+                # one-token request: never enters the arena at all
+                net.state = saved_state
+                self._restore_accounting(saved_acct)
+                self._release_pages(table)
+                req.handle._finish(reason)
+                self._recent_traces.append(req.trace)
+                return
         if not self._arena_ready:
             if self._pool is not None and self._page_store is None:
                 self._init_page_store(primed_state)
@@ -665,20 +1068,178 @@ class GenerationEngine:
             self._arena_ready = True
         net.state = self._merge(saved_state, primed_state, slot)
         if self._pool is not None:
-            if self._kv_dtype != "int8":   # int8: the prime wrote the pool
+            if self._kv_dtype == "int8":
+                # the prime wrote the pool in place: charge the prime's
+                # pool traffic (the whole context read, `fed` appended)
+                self._kv_traffic((self._L + fed) * self._tok_bytes)
+            else:
                 self._scatter_primed_pages(primed_state, table)
             self._page_tables[slot] = table
             self._table_dev = None
-            if self._prefix is not None:
+            if self._prefix is not None \
+                    and self._brownout < BROWNOUT_NO_PREFIX_INSERTS:
                 self._prefix.insert(req.prompt, table)
         self._slots[slot] = req
         self._row_pos[slot] = primed_pos
         req.pending_token = tok
+        req.trace.record("seat", engine=self.trace_identity, slot=slot)
         self._sync_accounting()
 
     def _release_pages(self, table) -> None:
         for p in table:
             self._pool.release(p)
+
+    # ------------------------------------------------------------------
+    # supervised recovery (serving/supervisor.py drives this)
+    # ------------------------------------------------------------------
+    def _quarantine_rebuild(self, exc: Optional[BaseException] = None
+                            ) -> int:
+        """Drop the (possibly poisoned) arena WHOLESALE and rebuild it
+        from the host-side request ledger: a fresh page pool, tables and
+        prefix cache (re-seeded by the re-primes), a fresh arena on the
+        first re-admission, every survivor re-primed from prompt +
+        committed tokens with its pending token and untouched rng.
+        Returns the survivors re-admitted. Runs under the step lock.
+
+        The device memory the old arena held is released before the
+        re-primes allocate anew: the pools and scale sidecars, the
+        cached table, the views in ``net.state``, and the locals of the
+        failed cycle's frames in ``exc``'s traceback (which would
+        otherwise keep the old pools alive as long as the supervisor
+        keeps the fault). An int8 store restarts from zeroed pools and
+        scales, so no page of a re-prime reads a scale the old arena
+        left.
+
+        A fault raised inside the re-admissions strands nobody: every
+        survivor not seated by then fails with it before it escalates.
+        The survivors travel as ``RequestLedgerEntry`` records through
+        ``export_ledger`` (the seating request included)."""
+        if exc is not None and exc.__traceback__ is not None:
+            traceback.clear_frames(exc.__traceback__)
+        entries = self.export_ledger()      # actives + _seating
+        self._seating = None
+        self._slots = [None] * self.slots
+        self._row_pos = np.zeros(self.slots, np.int64)
+        self._arena_ready = False
+        self._merge_keys = None
+        self.net.rnn_clear_previous_state()
+        if self._pool is not None:
+            # fresh pool: the old refcounts may be mid-mutation from the
+            # failed cycle (and chaos seizures die with it)
+            self._pool = PagePool(self._pool.total_pages, self._ps)
+            self._prefix = (PrefixCache(self._pool)
+                            if self._prefix is not None else None)
+            self._page_store = None
+            self._scale_store = None
+            self._paged_keys = None
+            self._page_tables = [[] for _ in range(self.slots)]
+            self._table_dev = None
+            self._kv_pos_dirty = False   # the rebuilt state is fresh
+            if self._kv_dtype == "int8":
+                # zeroed pools and scales before the re-primes, which
+                # write through them (bf16 rebuilds lazily)
+                self._init_quant_store()
+        self._sync_accounting()
+        if self._overload is not None:
+            # the replacement pool starts fresh: recompute the rung so
+            # pre-fault pressure does not gate the re-primes (rung 3
+            # would skip re-seeding the prefix cache)
+            self._brownout = self._overload.brownout_level(self)
+        now = time.monotonic()
+        n = 0
+        try:
+            for entry in entries:
+                req = entry.request
+                if self._fail_if_dead(req, now, "during recovery"):
+                    continue
+                req.trace.record("rebuild", engine=self.trace_identity)
+                slot = self._slots.index(None)
+                self._admit_one(req, slot, readmit=req.streamed)
+                if self._slots[slot] is req or (
+                        req.handle.done and req.handle.error is None):
+                    n += 1                   # seated, or finished clean
+        except BaseException as e:
+            seated = {id(r) for r in self._slots if r is not None}
+            for entry in entries:
+                if id(entry.request) not in seated \
+                        and not entry.request.handle.done:
+                    entry.request.handle._fail(e)
+            raise
+        return n
+
+    # ------------------------------------------------------------------
+    # the request-ledger seam (serving/request.RequestLedgerEntry)
+    # ------------------------------------------------------------------
+    def export_ledger(self, include_queued: bool = False
+                      ) -> List[RequestLedgerEntry]:
+        """Snapshot every in-flight request as a versioned ledger entry:
+        active slots (in slot order), the pop-to-seat ``_seating``
+        request if the export lands in that window, and, with
+        ``include_queued``, the admission queue in admission order.
+        Non-mutating; safe on a stopped or broken engine."""
+        with self._lock:
+            entries = [RequestLedgerEntry.capture(r, "active")
+                       for r in self._slots if r is not None]
+            if self._seating is not None:
+                entries.append(RequestLedgerEntry.capture(
+                    self._seating, "seating"))
+            if include_queued:
+                entries.extend(
+                    RequestLedgerEntry.capture(r, "queued")
+                    for r in self._pending.peek_all())
+            return entries
+
+    def admit_from_ledger(self, entries, where: str = "during migration"
+                          ) -> int:
+        """Re-admit ledger entries on THIS engine: streamed survivors
+        re-prime from ``ids[:-1]`` with their pending token and
+        untouched rng, never-streamed entries admit fresh. Entries that
+        find no free slot ride the admission queue (requeued past the
+        limit: they were admitted once). Returns how many requests this
+        engine took over; dead entries are resolved and skipped."""
+        with self._lock:
+            if self._broken is not None:
+                raise EngineShutdown("GenerationEngine is broken: "
+                                     f"{self._broken!r}")
+            if self._stop.is_set():
+                raise EngineShutdown("GenerationEngine shut down")
+            if self._draining:
+                raise EngineShutdown("GenerationEngine draining: "
+                                     "migrate to another replica")
+            now = time.monotonic()
+            n = 0
+            for entry in entries:
+                req = entry.request
+                if self._fail_if_dead(req, now, where):
+                    continue
+                if self._pool is not None:
+                    store = self._store_positions(req.want)
+                    if pages_needed(store, self._ps) > self._pool.usable:
+                        req.handle._fail(ValueError(
+                            f"migrated request holds {store} KV "
+                            f"positions but this replica's pool has "
+                            f"only {self._pool.usable} pages"))
+                        continue
+                free = (self._slots.index(None)
+                        if None in self._slots else None)
+                if free is not None and (
+                        self._pool is None
+                        or self._pages_admissible(req)):
+                    self._admit_one(req, free, readmit=req.streamed)
+                    if self._slots[free] is req or (
+                            req.handle.done
+                            and req.handle.error is None):
+                        n += 1
+                else:
+                    req.trace.record("requeue", engine=self.trace_identity)
+                    self._pending.requeue(req)
+                    n += 1
+            return n
+
+    def queue_snapshot(self):
+        """Non-mutating admission-queue view (per-priority depths and
+        the oldest wait): ``serving.scheduler.QueueSnapshot``."""
+        return self._pending.snapshot()
 
     # ------------------------------------------------------------------
     # the page pool
@@ -709,30 +1270,40 @@ class GenerationEngine:
                                "the primed stream state")
         self._paged_keys = keys
         self._page_store = store
+        self._tok_bytes = sum(int(p.shape[1]) * int(p.shape[3])
+                              * p.element_size() for p in store)
 
     def _paged_layer_dims(self):
         """(state name, Hkv, head dim) per paged attention layer, sorted
         by name: the (name, leaf) order ``_init_page_store`` derives
         from a primed state, so the eager int8 store and the lazy bf16
         one address the same leaves."""
+        named = [(str(i), l) for i, l in
+                 enumerate(getattr(self.net, "layers", None) or [])]
+        named += [(n, v.layer) for n, v in
+                  (getattr(self.net.conf, "vertices", None) or {}).items()
+                  if getattr(v, "layer", None) is not None]
         out = []
-        for n, v in self.net.conf.vertices.items():
-            l = getattr(v, "layer", None)
+        for n, l in named:
             if getattr(l, "supports_streaming", False) \
                     and getattr(l, "cache_length", 0):
                 hkv = getattr(l, "n_kv_heads", None) or l.n_heads
                 out.append((n, int(hkv), int(l.n_out // l.n_heads)))
         return sorted(out)
 
-    def _init_quant_store(self, dims) -> None:
-        """The eager int8 store (``serving/quant.py``): zeroed ``[P, Hkv,
+    def _init_quant_store(self) -> None:
+        """The int8 store (``serving/quant.py``): zeroed ``[P, Hkv,
         page_size, D]`` int8 pools and ``[P, Hkv]`` f32 scale sidecars,
-        two leaves (k, v) per attention layer."""
-        self._paged_keys = [(n, k) for n, _, _ in dims
+        two leaves (k, v) per attention layer. Built at construction and
+        again by a rebuild."""
+        self._paged_keys = [(n, k) for n, _, _ in self._quant_dims
                             for k in ("kv_k", "kv_v")]
         self._page_store, self._scale_store = pool_leaves(
-            self._pool.total_pages, self._ps, [(h, d) for _, h, d in dims],
-            device=self.device)
+            self._pool.total_pages, self._ps,
+            [(h, d) for _, h, d in self._quant_dims], device=self.device)
+        self._tok_bytes = sum(2 * h * d for _, h, d in self._quant_dims)
+        self._scale_row_bytes = sum(2 * h * 4
+                                    for _, h, _ in self._quant_dims)
 
     def _paged_view(self, table):
         """``{layer name: {view key: tensor}}``: each paged layer's pools
@@ -792,6 +1363,7 @@ class GenerationEngine:
                     dense, (0, 0, 0, nb * ps - dense.shape[1]))
             blocks = dense[:, :nb * ps].reshape(h, nb, ps, d).transpose(0, 1)
             pool.index_copy_(0, idx, blocks.to(pool.dtype))
+        self._kv_traffic(self._L * self._tok_bytes)   # one-row commit
 
     def _tables(self) -> torch.Tensor:
         if self._table_dev is None:
@@ -825,8 +1397,33 @@ class GenerationEngine:
         """Drop the paged view from ``net.state`` after the forward."""
         st = dict(self.net.state)
         for n in dict.fromkeys(n for n, _ in self._paged_keys):
-            st[n] = {k: v for k, v in st[n].items() if k not in _VIEW_KEYS}
+            if isinstance(st.get(n), dict):
+                st[n] = {k: v for k, v in st[n].items()
+                         if k not in _VIEW_KEYS}
         self.net.state = st
+
+    # -- modeled KV traffic (serving/health.SERVING_KV_BYTES_MOVED) ----
+    def _kv_traffic(self, nbytes: int) -> None:
+        if nbytes:
+            self._kv_bytes_total += int(nbytes)
+            self._kv_bytes.inc(int(nbytes))
+
+    def _kv_dispatch_bytes(self, width: int) -> int:
+        """Bytes the KV path moves around ONE dispatch, summed over the
+        attention leaves: the paged kernel (its plain version on the
+        CPU) reads each active row's LIVE pages only (the row's
+        page-rounded context after the append, at most L), the append
+        writes ``width`` positions a row, and an int8 pool adds one
+        scale row a live page. This is the JAX engine's ``direct-pallas``
+        term, the port's one read path."""
+        if self._tok_bytes == 0:
+            return 0
+        S, L, ps = self.slots, self._L, self._ps
+        append = S * width * self._tok_bytes
+        live = sum(min(-(-int(self._row_pos[s] + width) // ps) * ps, L)
+                   for s, r in enumerate(self._slots) if r is not None)
+        return (live * self._tok_bytes + append
+                + (live // ps) * self._scale_row_bytes)
 
     # ------------------------------------------------------------------
     # decode
@@ -846,24 +1443,44 @@ class GenerationEngine:
         if not any(r is not None for r in self._slots):
             return None     # everything retired at the capacity guard
         self._sync_accounting()
-        probs = self._dispatch(lambda: step_tokens(self.net, toks))
+        probs = self._run_dispatch(lambda: step_tokens(self.net, toks))
         for s, req in enumerate(self._slots):
             if req is not None:
                 self._row_pos[s] += 1
         self._sync_accounting()
         return probs
 
-    def _dispatch(self, forward):
-        """Run one arena forward (``forward()``, whose host copy of the
-        distributions synchronizes) inside the paged view, timed."""
-        if self._pool is not None:
+    def _run_dispatch(self, fn, width: int = 1):
+        """The ONE paged / chaos / retry wrapper around a decode or verify
+        forward (`width` = appended positions a row: 1 plain, 1 + gamma
+        speculative). The chaos hook fires INSIDE the retried callable,
+        before any state mutates, so a retried dispatch is numerically
+        the fault-free one. Each cycle lands in the dispatch-latency
+        histogram and its modeled KV bytes in the KV counter. A kernel's
+        failure is a fault like any other (no fallback re-runs it on the
+        plain version)."""
+        paged = self._pool is not None
+        if paged:
             self._install_paged_state()
+
+        def once():
+            _fire_chaos(self._decode_chaos, self.dispatches)
+            return fn()
+
         t0 = time.perf_counter()
-        out = forward()
-        self.dispatch_s_total += time.perf_counter() - t0
+        try:
+            out = (retry_call(once, policy=self._decode_retry,
+                              op="serving_decode")
+                   if self._decode_retry is not None else once())
+        finally:
+            if paged:
+                self._extract_paged_state()
+        dt = time.perf_counter() - t0
+        self.dispatch_s_total += dt
+        self._dispatch_hist.observe(dt)
+        if paged:
+            self._kv_traffic(self._kv_dispatch_bytes(width))
         self.dispatches += 1
-        if self._pool is not None:
-            self._extract_paged_state()
         return out
 
     def _retire(self, slot: int, reason: str,
@@ -884,15 +1501,16 @@ class GenerationEngine:
             req.handle._fail(exc, reason)
         else:
             req.handle._finish(reason)
+        self._recent_traces.append(req.trace)
 
     # ------------------------------------------------------------------
     # arena state plumbing
     # ------------------------------------------------------------------
     def _build_arena(self, primed_state, base_state):
         """First-admission skeleton: every stream key of the primed
-        structure at S zeroed rows, the per-row kv_pos vector at 0. In
-        paged mode the dense kv_k/kv_v leaves are dropped: the pool is
-        the only KV storage."""
+        structure at S zeroed rows (an LSTM's h / c, a dense KV cache),
+        the per-row kv_pos vector at 0. In paged mode the dense kv_k /
+        kv_v leaves are dropped: the pool is the only KV storage."""
         S = self.slots
         arena = {}
         for name, s in primed_state.items():
@@ -908,7 +1526,7 @@ class GenerationEngine:
                     continue
                 if k == "kv_pos":
                     d[k] = torch.zeros(S, dtype=v.dtype, device=v.device)
-                else:                      # batch-leading cache
+                else:                      # batch-leading cache / carry
                     d[k] = v.new_zeros((S,) + tuple(v.shape[1:]))
             arena[name] = d
         return arena
@@ -932,17 +1550,40 @@ class GenerationEngine:
         return out
 
     def _net_pos(self) -> int:
-        return int(max(self.net._stream_pos_map.values(), default=0))
+        pm = getattr(self.net, "_stream_pos_map", None)
+        if pm:
+            return int(max(pm.values()))
+        return int(getattr(self.net, "_stream_pos", 0) or 0)
+
+    def _save_accounting(self):
+        net = self.net
+        pm = getattr(net, "_stream_pos_map", None)
+        return (getattr(net, "_stream_pos", None),
+                getattr(net, "_stream_pos_rows", None),
+                dict(pm) if pm is not None else None)
+
+    def _restore_accounting(self, saved) -> None:
+        pos, rows, pmap = saved
+        net = self.net
+        if pos is not None:
+            net._stream_pos = pos
+        net._stream_pos_rows = rows
+        if pmap is not None:
+            net._stream_pos_map = pmap
 
     def _sync_accounting(self) -> None:
-        """Engine-owned host position mirror: the streaming budget guard
+        """Engine-owned host position mirrors: the streaming budget guard
         sees the furthest ACTIVE row, so an idle slot whose device
         position coasts never trips it."""
         rows = [int(self._row_pos[s]) for s, r in enumerate(self._slots)
                 if r is not None]
         pos = max(rows, default=0)
-        self.net._stream_pos_map = {n: pos for n in self._graph_vertices}
-        self.net._stream_pos_rows = None
+        net = self.net
+        if hasattr(net, "_stream_pos"):
+            net._stream_pos = pos
+        if self._graph_vertices:
+            net._stream_pos_map = {n: pos for n in self._graph_vertices}
+        net._stream_pos_rows = None
 
     # ------------------------------------------------------------------
     # warmup and lifecycle
@@ -957,7 +1598,8 @@ class GenerationEngine:
         JAX engine warms one request per prime bucket, one request of
         ``max_prompt_len`` tokens (default: capacity - 1) covers every
         prompt length. The prefix cache is bypassed, so warmup prompts
-        never occupy it."""
+        never occupy it, and the overload controller forgets the warmup's
+        samples."""
         if self._worker is not None and self._worker.is_alive():
             raise RuntimeError("warm up before start(): warmup drives "
                                "step() manually")
@@ -980,6 +1622,8 @@ class GenerationEngine:
             h.result(timeout=0)
         finally:
             self._prefix = prefix
+        if self._overload is not None:
+            self._overload.reset_observations()
         return self
 
     def start(self) -> "GenerationEngine":
@@ -997,17 +1641,39 @@ class GenerationEngine:
         try:
             while not self._stop.is_set():
                 if not self.step():
-                    self._pending.wait(0.02)
+                    if self._draining:
+                        # the queue is closed while draining: wait()
+                        # would return at once and spin
+                        time.sleep(0.02)
+                    else:
+                        self._pending.wait(0.02)
         except Exception as e:  # noqa: BLE001 — strand no waiters
             log.exception("GenerationEngine loop died")
             self._break(e)
 
+    def _flight_traces(self) -> list:
+        """The flight recorder's request context: in-flight traces
+        (slots and the pop-to-seat window) first, then recently retired
+        ones."""
+        traces = [r.trace for r in self._slots if r is not None]
+        if self._seating is not None:
+            traces.append(self._seating.trace)
+        traces.extend(reversed(self._recent_traces))
+        return traces
+
     def _break(self, exc: BaseException) -> None:
         """Terminal failure: fail every in-flight and queued request with
-        the original error and refuse new work."""
+        the original error and refuse new work. With a supervisor this
+        is the escalation (budget spent or rebuild failed). A flight
+        record of the state the fault found is written first."""
         with self._lock:
             self._broken = exc
             self._stop.set()
+            self._emit_serving_event("break", error=repr(exc))
+            flightrecorder.maybe_dump(
+                "engine_break", error=exc, health=self.health(),
+                queue=self._pending.snapshot(),
+                traces=self._flight_traces())
             if self._seating is not None:
                 req, self._seating = self._seating, None
                 if not req.handle.done:
@@ -1017,6 +1683,35 @@ class GenerationEngine:
                     self._retire(s, "error", exc)
             for req in self._pending.close():
                 req.handle._fail(exc)
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Stop admission and finish the actives: the clean handoff point
+        for a planned restart. New submits are refused
+        (``EngineShutdown``), queued never-primed requests fail at once
+        with the same, and every ACTIVE request runs to its natural
+        retirement. Works under the background loop (waits for it) or in
+        manual mode (drives ``step()`` itself). Returns True when the
+        arena emptied within `timeout` (None = wait forever); False on
+        timeout or a broken or shut-down engine."""
+        self._draining = True
+        self._emit_serving_event("drain")
+        for req in self._pending.close():
+            req.handle._fail(EngineShutdown(
+                "GenerationEngine draining: resubmit to the replacement "
+                "instance"))
+        deadline = None if timeout is None else \
+            time.monotonic() + float(timeout)
+        threaded = self._worker is not None and self._worker.is_alive()
+        while self.active_slots() > 0 and self._broken is None \
+                and not self._stop.is_set():
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            if threaded:
+                time.sleep(0.005)
+            elif not self.step():
+                break
+        return self.active_slots() == 0 and self._broken is None \
+            and not self._stop.is_set()
 
     def shutdown(self) -> None:
         """Stop the loop and fail everything still in flight. Idempotent."""

@@ -1,14 +1,14 @@
 """Serving error types.
 
 Counterpart of ``deeplearning4j_tpu/serving/errors.py``: the same names
-for the same conditions. The overload and fleet errors come with those
-layers (ROADMAP.md A7, A10).
+for the same conditions. ``NoReplicaAvailable``, the fleet router's
+error, comes with the fleet (ROADMAP.md A10).
 """
 
 from __future__ import annotations
 
 __all__ = ["EngineShutdown", "InferenceTimeout", "RequestCancelled",
-           "ServingQueueFull"]
+           "ServingOverloaded", "ServingQueueFull"]
 
 
 class InferenceTimeout(TimeoutError):
@@ -25,3 +25,10 @@ class RequestCancelled(RuntimeError):
 
 class EngineShutdown(RuntimeError):
     """The serving component stopped before this request finished."""
+
+
+class ServingOverloaded(RuntimeError):
+    """Overload control refused this request: shed from the queue under
+    a sustained latency-SLO breach, or rejected at submit because its
+    deadline cannot be met given the queue estimate. Retryable against a
+    less-loaded replica, or later with backoff."""

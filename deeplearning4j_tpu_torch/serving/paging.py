@@ -132,11 +132,12 @@ def pages_needed(total_tokens: int, page_size: int) -> int:
 
 
 class PagePool:
-    """Host-side page accounting: free list and per-page refcounts.
-    Pages allocate in LIFO order, so a replayed trace maps the same
-    physical pages. ``alloc`` hands pages out at refcount 1;
-    ``retain``/``release`` adjust for more holders (the prefix cache,
-    slots sharing a page); a page returns to the free list at 0."""
+    """Host-side page accounting: free list, per-page refcounts and the
+    chaos seize / restore seam. Pages allocate in LIFO order, so a
+    replayed trace maps the same physical pages. ``alloc`` hands pages
+    out at refcount 1; ``retain``/``release`` adjust for more holders
+    (the prefix cache, slots sharing a page); a page returns to the
+    free list at 0."""
 
     def __init__(self, total_pages: int, page_size: int):
         if total_pages < 2:
@@ -149,12 +150,13 @@ class PagePool:
         self.usable = self.total_pages - 1
         self._free: List[int] = list(range(self.total_pages - 1, 0, -1))
         self._ref = [0] * self.total_pages
+        self._seized: List[int] = []
 
     def free_count(self) -> int:
         return len(self._free)
 
     def used_count(self) -> int:
-        return self.usable - len(self._free)
+        return self.usable - len(self._free) - len(self._seized)
 
     def refcount(self, page: int) -> int:
         return self._ref[page]
@@ -180,6 +182,23 @@ class PagePool:
         self._ref[page] -= 1
         if self._ref[page] == 0:
             self._free.append(page)
+
+    # -- chaos seam (resilience.chaos.PageExhaustionInjector) ----------
+    def seize(self, n: int) -> List[int]:
+        """Remove `n` free pages from circulation (fault injection: a
+        neighbouring tenant or fragmentation eating the pool). Seized
+        pages are not 'used': they are gone until ``restore()``."""
+        n = max(0, min(int(n), len(self._free)))
+        taken = [self._free.pop() for _ in range(n)]
+        self._seized.extend(taken)
+        return taken
+
+    def restore(self, pages=None) -> None:
+        """Return seized pages (default: all of them) to the free list."""
+        back = list(self._seized) if pages is None else list(pages)
+        for p in back:
+            self._seized.remove(p)
+            self._free.append(p)
 
 
 def gather_pages(pools, table: torch.Tensor, *, length: int):

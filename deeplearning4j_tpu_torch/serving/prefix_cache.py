@@ -44,6 +44,7 @@ class PrefixCache:
         self._next_id = 1
         self.hits = 0          # requests that reused >= 1 block
         self.misses = 0        # requests that reused none
+        self.reused_tokens = 0  # prompt tokens whose prime was skipped
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -69,6 +70,7 @@ class PrefixCache:
             parent = ent[1]
         if pages:
             self.hits += 1
+            self.reused_tokens += len(pages) * self._ps
         else:
             self.misses += 1
         return len(pages) * self._ps, pages

@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.tuning import crossover as tcross
 from deeplearning4j_tpu_torch.tuning.plan import (
     _block_key, _stem_key, resolve_kv_dtype)
 from deeplearning4j_tpu_torch.zoo import ResNet50
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"

@@ -60,6 +60,7 @@ from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, state_to_numpy, updater_state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import (
     TextGenerationLSTM, TextGenerationTransformer)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-5      # the training tests' f32 limits
 B = 16

@@ -476,8 +476,31 @@ def test_fire_drives_an_injector_outside_an_iterator():
     ("DuplicateDeliveryInjector", "A10"),
     ("DelayedDeliveryInjector", "A10")])
 def test_the_serving_and_fleet_injectors_refuse(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        getattr(chaos, name)(None, 0)
+    """The multi-host and fleet injectors refuse, naming their items.
+    The serving engine's two (A7) are ported with its supervisor: they
+    fire through ``chaos.fire`` at its seams (the engine runs them in
+    tests/test_torch_serving_supervisor.py)."""
+    if item != "A7":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            getattr(chaos, name)(None, 0)
+        return
+    from deeplearning4j_tpu_torch.serving.paging import PagePool
+    if name == "RequestFaultInjector":
+        inj = chaos.RequestFaultInjector(match=lambda r: r == "victim")
+        chaos.fire(inj, 0, ctx="bystander")
+        with pytest.raises(chaos.InjectedFault):
+            chaos.fire(inj, 1, ctx="victim")
+        chaos.fire(inj, 2, ctx="victim")          # once: the latch holds
+        assert inj.faults_fired == 1
+    else:
+        pool = PagePool(9, 4)
+        inj = chaos.PageExhaustionInjector(pool, n=1, free_target=2)
+        chaos.fire(inj, 0)
+        assert pool.free_count() == 8
+        chaos.fire(inj, 1)
+        assert pool.free_count() == 2 and pool.used_count() == 0
+        inj.release()
+        assert pool.free_count() == 8
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,7 @@ from deeplearning4j_tpu_torch.util.convert import (
 from deeplearning4j_tpu_torch.zoo import ResNet50
 
 from test_torch_fit_dispatch import _assert_trees_close, _bn_pair
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 #: two f32 trainings of a few Adam steps, summing in different orders
 SCORE_RTOL = 1e-5

@@ -68,6 +68,7 @@ from deeplearning4j_tpu_torch.pipeline import DevicePrefetchIterator
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, E, HEADS, T = 16, 16, 2, 8
 LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-5     # the training tests' f32 limits
@@ -621,3 +622,25 @@ def test_a_drawing_lstm_group_is_its_k_eager_steps():
         network_base.tree_map(np.asarray, nets[0].updater_state), 0)
     assert not any(k in s for s in nets[1].state.values()
                    for k in network_base.STREAM_STATE_KEYS)
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_the_capture_pauses_the_collector(enabled):
+    """The K-step graph's capture runs inside ``_collector_paused``: the
+    collector is off inside and its state is restored after, also when
+    the block raises. On the card a collection inside a capture that
+    frees a dead network's step graph invalidates the capture
+    (``chip_smoke.py``'s ``capture_gc`` holds that)."""
+    import gc
+
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with network_base._collector_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+        with pytest.raises(RuntimeError):
+            with network_base._collector_paused():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() is enabled
+    finally:
+        gc.enable()

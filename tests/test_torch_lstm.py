@@ -66,6 +66,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
 from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
 from deeplearning4j_tpu_torch.nn.layers.flash_attention import agreement
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-5)

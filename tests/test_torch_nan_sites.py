@@ -41,6 +41,7 @@ from deeplearning4j_tpu.nn.layers import stem as js
 from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
 from deeplearning4j_tpu_torch.nn.layers import fused as tf
 from deeplearning4j_tpu_torch.nn.layers import stem as ts
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -33,6 +33,7 @@ from deeplearning4j_tpu_torch.nn import updater as tupd
 from deeplearning4j_tpu_torch.nn.weights import WEIGHT_INITS, init_weights
 from deeplearning4j_tpu_torch.util.convert import (
     updater_state_from_numpy, updater_state_to_numpy)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAMES = sorted(jact.ACTIVATIONS) + ["leakyrelu(0.3)", "thresholdedrelu(0.5)"]
 

@@ -32,6 +32,7 @@ from deeplearning4j_tpu_torch.serving.paged_kernel import (
     NEG_INF, PAGED_ATTENTION, decode_split_plan, paged_attention,
     paged_attention_plain, paged_attention_smem_bytes)
 from deeplearning4j_tpu_torch.serving.quant import pow2ceil, quantize
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 PS, D, HKV, NB = 4, 8, 2, 5
 

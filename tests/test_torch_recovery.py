@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch.resilience.watchdog import (
     DivergenceError, DivergenceWatchdog)
 from deeplearning4j_tpu_torch.util import (
     FaultTolerantTrainer, list_checkpoints)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 B = 8
 

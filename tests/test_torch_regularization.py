@@ -66,6 +66,7 @@ from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updater import AdaDelta
 from deeplearning4j_tpu_torch.util import model_serializer as tms
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _seed(shape, kind):

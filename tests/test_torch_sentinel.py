@@ -40,6 +40,7 @@ from deeplearning4j_tpu_torch.resilience import sentinel
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, state_to_numpy, updater_state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-2
 

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.serving import (
     GenerationEngine, PagedKVConfig, ServingQueueFull)
 from deeplearning4j_tpu_torch.serving.paged_kernel import PAGED_ATTENTION
 from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, E, HEADS, LAYERS, MAXLEN, PS = 16, 32, 4, 2, 40, 4
 SYS = [1, 2, 3, 4, 5, 6, 7, 8]             # two full shared blocks
@@ -181,11 +182,12 @@ def test_queue_policies_and_background_loop(nets):
 
 def test_left_out_arguments_raise(nets, monkeypatch):
     _, tnet, _ = nets
-    # speculation is ported (tests/test_torch_speculation.py)
-    for arg in ("supervisor", "overload", "decode_retry",
-                "prefill_chaos", "decode_chaos", "seat_chaos"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            GenerationEngine(tnet, V, device="cpu", **{arg: object()})
+    # the engine takes every argument of the JAX engine's (speculation:
+    # tests/test_torch_speculation.py; the supervisor, the chaos seams,
+    # decode_retry, overload and registry: tests/test_torch_serving_
+    # supervisor.py); what stays unknown is refused as unexpected
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        GenerationEngine(tnet, V, device="cpu", page_publisher=object())
     # the int8 pool is ported (tests/test_torch_serving_quant.py); the
     # legacy round trip it cannot ride is refused as in the JAX package
     with pytest.raises(ValueError, match="needs direct=True"):

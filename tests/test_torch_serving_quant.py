@@ -50,6 +50,7 @@ from deeplearning4j_tpu_torch.serving.paged_kernel import (
 from deeplearning4j_tpu_torch.tuning import (
     KernelCrossoverStore, quant_fingerprint, reset_default_store)
 from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, E, HEADS, KV_HEADS, LAYERS, MAXLEN, PS = 16, 32, 4, 2, 2, 40, 4
 SYS = [1, 2, 3, 4, 5, 6, 7, 8]             # two full shared blocks

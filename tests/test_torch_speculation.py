@@ -24,9 +24,10 @@ against the JAX package on the CPU, f32, with the same seeded weights.
   the next chunk's outputs agree within ``OUT_ATOL``.
 - The page budget reserves the verify's gamma extra positions; free
   rows rewind the whole verify width.
-- Refusals that stay: an LSTM net (the engine, and ``check_rewindable``
-  as the JAX package's), learned positions under an array rewind, a
-  gamma under 1, a model draft, a request without speculative headroom.
+- Refusals that stay: an LSTM net under speculation (the engine, and
+  ``check_rewindable`` as the JAX package's), learned positions under an
+  array rewind, a gamma under 1, a model draft, a request without
+  speculative headroom.
 """
 
 import jax
@@ -53,6 +54,7 @@ from deeplearning4j_tpu_torch.util.decoding import (
     _one_hot, prompt_lookup_proposer)
 from deeplearning4j_tpu_torch.zoo import (
     TextGenerationLSTM, TextGenerationTransformer)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, E, HEADS, KV_HEADS, LAYERS, MAXLEN, PS = 16, 32, 4, 2, 2, 40, 4
 GAMMA, STEPS = 3, 10
@@ -290,7 +292,10 @@ def test_the_refusals_that_stay(nets):
         eng.submit([1, 2, 3], steps=MAXLEN - 3, top_k=1)
     lstm = TextGenerationLSTM(vocab_size=10, hidden=12, layers=1,
                               max_length=40).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    # the engine serves the LSTM (tests/test_torch_serving_ledger.py);
+    # with speculation it refuses as the JAX engine does: h / c cannot
+    # rewind
+    with pytest.raises(ValueError, match="cannot be rewound"):
         GenerationEngine(lstm, 10, slots=2, device="cpu",
                          speculation=SpeculationConfig(
                              prompt_lookup_proposer()))

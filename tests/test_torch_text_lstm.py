@@ -66,10 +66,10 @@ from deeplearning4j_tpu_torch.nn.layers.flash_attention import agreement
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updater import Nesterovs, RmsProp
 from deeplearning4j_tpu_torch.optimize import CollectScoresIterationListener
-from deeplearning4j_tpu_torch.serving import GenerationEngine
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, updater_state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, H, LAYERS, MAXLEN = 11, 16, 2, 5
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -330,9 +330,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_left_out_parts_raise(nets):
     _, tnet = nets
     model = TextGenerationLSTM(vocab_size=V, hidden=H)
+    # the engine serves the LSTM now (tests/test_torch_serving_ledger.py)
     for call in (lambda: model.sample_stream_batch(tnet, [[1]], 2),
-                 lambda: model.beam_search(tnet, [1], 2),
-                 lambda: GenerationEngine(tnet, V, device="cpu")):
+                 lambda: model.beam_search(tnet, [1], 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
             call()
     x, y = _batch()

@@ -40,6 +40,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, updater_state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 V, E, HEADS, LAYERS, T = 24, 32, 4, 2, 40

@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import Convolution1DLayer
 from deeplearning4j_tpu_torch.util.convert import (
     params_from_numpy, params_to_numpy)
 from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 V, E, HEADS, LAYERS, MAXLEN = 24, 32, 4, 2, 32
 TOL = dict(atol=2e-5, rtol=1e-4)
