@@ -48,7 +48,12 @@ Phases (any failure exits nonzero):
    TextGenerationTransformer (vocab 2048, width 512, 8 heads, 6 layers,
    max_length 1024, bf16) behind the paged GenerationEngine (8 slots,
    page size 16, prefix cache) answering 16 requests of 128 new tokens;
-   every decode dispatch must launch the paged kernel in every layer;
+   every decode dispatch is one replay of the decode-step CUDA graph
+   (captured in the warm-up), whose replay launches the paged kernel
+   in every layer (a replay calls no wrapper, so the serving phases
+   count the serving rows' kernel records and the graph launches in the
+   trace of the counted run itself, ``traced``, with the counts from 0
+   before it);
 5. profile: 20 decode steps of the same configuration with all slots
    busy, timed with the kernel, with its plain version swapped in, with
    torch's fused gelu and softmax swapped in (one rounding each, not the
@@ -60,8 +65,9 @@ Phases (any failure exits nonzero):
 6b. serve int8 (``serve_int8``): phase 4's configuration and traffic
    with ``PagedKVConfig(kv_dtype="int8")`` and with the bf16 pool in
    turns (int8, bf16, bf16, int8): tokens/s, ms per decode step, TTFT
-   and TPOT p50, peak memory; every int8 decode dispatch launches the
-   int8 kernel once per layer and row 15's kernel never; the pages the
+   and TPOT p50, peak memory; then a traced int8 turn, in whose trace
+   every decode dispatch launches the int8 kernel once per layer and
+   row 15's kernel never; the pages the
    bf16 pool's byte budget buys under int8 (>= 1.9x); ``kv_dtype=
    "auto"`` resolving as a temporary store's verdicts imply; phase 5's
    profile of the int8 engine's decode steps;
@@ -451,9 +457,10 @@ Phases (any failure exits nonzero):
     without the listener leaves it);
 36. speculation (``serve_spec``): phase 4's configuration and traffic
     through ``SpeculationConfig(prompt_lookup_proposer(3), gamma=4)``
-    against the plain engine in turns, bf16 and int8 pools: every verify
-    dispatch launches the pool's paged kernel once a layer at query
-    width 5; acceptance, tokens a step, tokens/s, TPOT p50; each greedy
+    against the plain engine in turns, bf16 and int8 pools, then a traced
+    speculative turn of each pool, in whose trace every verify dispatch
+    launches the pool's paged kernel once a layer at query width 5;
+    acceptance, tokens a step, tokens/s, TPOT p50; each greedy
     request's first divergence from the plain engine at a top-two gap
     under SPEC_GAP; a profile of 20 verify steps (busy share, launches
     a step and a token); in f32 at 2 layers the speculative streams equal
@@ -465,7 +472,8 @@ Phases (any failure exits nonzero):
     equal to the unperturbed run's, each flip a near-tie explained by a
     distribution within SURVIVE_LOGP, the rebuilds by cause, each
     rebuild's wall time, survivors and allocated bytes (back to the old
-    arena's), the paged kernel once a layer per dispatch, the modeled KV
+    arena's), the paged kernel once a layer per dispatch and each
+    capture's warm-up pass in each run's trace, the modeled KV
     bytes against the kernel's inputs' tally; a ``decode_retry`` run
     (no rebuild, streams equal), a zero budget
     (fail-all, a flight record), and tokens/s with the registry's
@@ -486,7 +494,20 @@ Phases (any failure exits nonzero):
     collector is on (it may run at any allocation): one capture, finite
     losses, the collector on after it; the same fit with the pause
     taken out (planted, in a child process: this script with
-    ``--capture-gc-child``) must fail with the invalidated capture.
+    ``--capture-gc-child``) must fail with the invalidated capture;
+41. the decode step as one CUDA graph (``serve_graph``): the graph
+    against the engine's device part run eagerly, in turns (graph,
+    eager, eager, graph), for a bf16 pool, an int8 pool, speculation at
+    gamma 4 (phase 4's traffic, greedy and sampled) and the LSTM arena:
+    streams and every dispatch's distributions bitwise equal, one
+    capture a turn, host launch calls, kernels and the serving row's
+    kernels a step from the trace (6, 6, 6, 2), busy share, tokens/s and
+    TPOT p50; a stale page table planted in the graph caught; a
+    supervised run's rebuilds, one capture after each, allocated bytes
+    outside the graph pools back to the old arena's (REBUILD_BYTES);
+42. beam search (``beam``): the text LSTM at 4 beams for 64 steps, row
+    17 twice a step at batch 4, f32 equal to the plain route, bf16
+    reported.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -797,6 +818,166 @@ def zero_counts():
 
 def read_counts():
     return {n: c.launches for n, c in kernel_counters().items()}
+
+
+#: the serving rows' device functions (rows 15, 16 and 17): a decode
+#: graph's replay calls no wrapper, so the serving phases count these
+#: kernels' records in the trace of the card's activity
+SERVE_ROWS = {"paged_attention": "paged_decode_split_kernel",
+              "paged_attention_quant": "paged_decode_quant_kernel",
+              "lstm_fwd": "lstm_fwd"}
+
+#: the share of a serving row's launches (or of the graph launches)
+#: whose records a trace may lack. On an H100, once a run has traced a
+#: heavy session, a profiling session loses the first kernel records it
+#: would hold (up to 45 late in a run, where the LSTM row's 20-step
+#: windows read 34-36 of 40): each session opens with TRACE_WARM spin
+#: kernels for those to fall on, after which the LSTM row's windows and
+#: whole runs read every record. A whole served run's trace
+#: (300,000-350,000 records) still lost 0-16 of a paged row's 1524-1548
+#: records. At 5% one launch a step where two are due, or five of six
+#: layers, fails.
+TRACE_DROP = 0.05
+TRACE_WARM = 256
+
+
+class traced:
+    """``with traced() as t:`` runs its body under ``torch.profiler``
+    (the card's activity only), the card synchronized at both ends, and
+    reads the trace's records from its Chrome export: ``t.rows`` each
+    serving row's kernel records, ``t.kernels`` every kernel record,
+    ``t.host`` the host's launch calls by name (``HOST_LAUNCHES``) and
+    ``t.graph_launches`` the ``cudaGraphLaunch`` calls among them;
+    ``t.read_s`` what stopping and reading the trace took, ``t.warm``
+    the opening spins' records that came through (TRACE_DROP). With
+    ``cpu=True`` the host's operators are traced too, and ``t.prof`` is
+    the profile (``key_averages()``)."""
+
+    #: Kineto writes each activity as ``"ph": "X", "cat": ..., "name":
+    #: ...``: the records are counted in the file's bytes (a JSON parse
+    #: of a whole served run's 330 MB took 5-7 s)
+    RECORD = re.compile(rb'"cat": "([^"]*)", "name": "((?:[^"\\]|\\.)*)"')
+
+    def __init__(self, cpu=False):
+        self.cpu = cpu
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if self.cpu else []))
+        self.prof.__enter__()
+        open_session()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.prof.__exit__(*exc)
+        if exc[0] is None:
+            self.read()
+            self.read_s = time.perf_counter() - t0
+        return False
+
+    def read(self):
+        import tempfile
+        fd, path = tempfile.mkstemp(suffix=".trace.json")
+        os.close(fd)
+        try:
+            self.prof.export_chrome_trace(path)
+            with open(path, "rb") as f:
+                raw = f.read()
+        finally:
+            os.remove(path)
+        names = {}
+        for cat, name in self.RECORD.findall(raw):
+            if cat == b"kernel" or name.decode() in HOST_LAUNCHES:
+                key = (cat, name)
+                names[key] = names.get(key, 0) + 1
+        kernels = sum(n for (cat, _), n in names.items() if cat == b"kernel")
+        if kernels != raw.count(b'"cat": "kernel"'):
+            raise AssertionError("traced: the trace's records are not in "
+                                 "the form counted")
+        #: the opening spins' records that came through
+        self.warm = sum(n for (cat, name), n in names.items()
+                        if cat == b"kernel" and b"spin_kernel" in name)
+        self.kernels = kernels - self.warm
+        self.rows = {row: sum(n for (cat, name), n in names.items()
+                              if cat == b"kernel" and fn.encode() in name
+                              and b"lstm_bwd" not in name)
+                     for row, fn in SERVE_ROWS.items()}
+        self.host = {name.decode(): n for (cat, name), n in names.items()
+                     if cat != b"kernel"}
+        self.graph_launches = self.host.get("cudaGraphLaunch", 0)
+
+
+def open_session():
+    """The opening of a profiling session: TRACE_WARM spin kernels (the
+    records a session loses at its start fall on them), the card
+    synchronized."""
+    for _ in range(TRACE_WARM):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def without_spins(events):
+    """A Chrome trace's events less the opening spins: their kernel
+    records and their launch calls, the session's first TRACE_WARM
+    ``cudaLaunchKernel`` calls (a spin's call stays where the session
+    lost its kernel record)."""
+    calls = sorted((e for e in events if e.get("name") == "cudaLaunchKernel"),
+                   key=lambda e: float(e["ts"]))
+    drop = {id(e) for e in calls[:TRACE_WARM]}
+    return [e for e in events if id(e) not in drop and not (
+        e.get("cat") == "kernel" and "spin_kernel" in e["name"])]
+
+
+def trace_holds(rows, want):
+    """Trace counts ``rows`` against ``want`` (name -> launches): each
+    at most what is due and at least all but TRACE_DROP of it."""
+    return all((1 - TRACE_DROP) * n <= rows[r] <= n for r, n in want.items())
+
+
+def replay_calls(eng):
+    """``eng`` with a count of its decode graphs' replays
+    (``eng.replay_calls``: host calls of ``_replay``; the kernels they
+    launch are the trace's)."""
+    real = eng._replay
+    eng.replay_calls = 0
+
+    def replay(chunk):
+        eng.replay_calls += 1
+        return real(chunk)
+    eng._replay = replay
+    return eng
+
+
+def counted(eng, fn):
+    """``fn()`` with the counts from 0, ``traced``: its result and the
+    run's launches. Each serving row's are its kernel records in the
+    run's trace (a decode graph's replay calls no wrapper, and a
+    capture's wrapper calls launch nothing); every other kernel's are
+    its wrapper's. Beside them the wrapper counts, the trace's graph
+    launches, the replays the engine made and the captures in the
+    run."""
+    zero_counts()
+    r0, c0 = eng.replay_calls, eng.graph_captures
+    with traced() as t:
+        out = fn()
+    wrapper = read_counts()
+    return out, {"launches": {**wrapper, **t.rows}, "wrapper": wrapper,
+                 "graph_launches": t.graph_launches,
+                 "opening_spins_recorded": t.warm,
+                 "replays": eng.replay_calls - r0,
+                 "captures": eng.graph_captures - c0,
+                 "trace_read_s": t.read_s}
+
+
+def graph_pool_bytes():
+    """The allocated bytes in CUDA graphs' private pools (segments of a
+    pool other than the default one)."""
+    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or (0, 0)) != (0, 0))
 
 
 #: the spin that holds the stream before each timed call (~0.5 ms at the
@@ -1626,28 +1807,30 @@ def serve(device, rng):
             not bool(torch.isfinite(probe).all()) or \
             float((probe.sum(dim=1) - 1).abs().max()) > 1e-2:
         raise AssertionError("output() is not a finite distribution")
-    engine = GenerationEngine(net, VOCAB, slots=SLOTS,
-                              paging=PagedKVConfig(page_size=PAGE),
-                              device=device)
+    engine = replay_calls(GenerationEngine(
+        net, VOCAB, slots=SLOTS, paging=PagedKVConfig(page_size=PAGE),
+        device=device))
     requests = serve_requests(rng)
     t0 = time.perf_counter()
-    engine.warmup(max_prompt_len=300)
+    engine.warmup(max_prompt_len=300)      # it captures the decode graph
     warm_s = time.perf_counter() - t0
     engine.ttft_s.clear()
     engine.tpot_s.clear()
-    zero_counts()
     d0, hits0 = engine.dispatches, engine.prefix_cache.hits
-    engine.start()
-    t0 = time.perf_counter()
-    handles = [engine.submit(p, steps=NEW_TOKENS,
-                             rng=np.random.default_rng(i), **kw)
-               for i, (p, kw) in enumerate(requests)]
-    outs = [h.result(timeout=600) for h in handles]
-    dt = time.perf_counter() - t0
-    engine.shutdown()
+
+    def run():
+        engine.start()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, steps=NEW_TOKENS,
+                                 rng=np.random.default_rng(i), **kw)
+                   for i, (p, kw) in enumerate(requests)]
+        outs = [h.result(timeout=600) for h in handles]
+        dt = time.perf_counter() - t0
+        engine.shutdown()
+        return handles, outs, dt
+    (handles, outs, dt), c = counted(engine, run)
     dispatches = engine.dispatches - d0
-    counts = read_counts()
-    launches = counts["paged_attention"]
+    launches = c["launches"]["paged_attention"]
     reasons = [h.finish_reason for h in handles]
     generated = sum(len(o) - len(p) for o, (p, _) in zip(outs, requests))
     if reasons != ["length"] * N_REQUESTS or \
@@ -1655,20 +1838,35 @@ def serve(device, rng):
         raise AssertionError(f"serve: reasons {reasons}, {generated} tokens")
     if not all(0 <= t < VOCAB for o in outs for t in o):
         raise AssertionError("serve: token id out of range")
-    if dispatches == 0 or launches != dispatches * LAYERS:
-        raise AssertionError(f"serve: {launches} paged kernel launches for "
-                             f"{dispatches} decode dispatches x {LAYERS} "
-                             f"layers")
+    # the trace: every dispatch one graph launch, whose replay runs the
+    # paged kernel once a layer
+    if dispatches == 0 or not trace_holds(
+            {"paged_attention": launches},
+            {"paged_attention": dispatches * LAYERS}) or \
+            not trace_holds({"graphs": c["graph_launches"]},
+                            {"graphs": dispatches}) or \
+            c["replays"] != dispatches or c["captures"] or \
+            engine.graph_captures != 1:
+        raise AssertionError(f"serve: {launches} paged kernel launches "
+                             f"in the trace for {dispatches} decode "
+                             f"dispatches x {LAYERS} layers ({c}); "
+                             f"captures {engine.graph_captures}")
     rec = {"requests": N_REQUESTS, "new_tokens": NEW_TOKENS,
            "prompt_tokens": [len(p) for p, _ in requests],
            "generated_tokens": generated, "wall_s": dt,
-           "tokens_per_s": generated / dt,
+           "tokens_per_s": generated / dt, "timed_under_trace": True,
            "ttft_p50_ms": 1e3 * float(np.median([h.ttft_s for h in handles])),
            "tpot_p50_ms": 1e3 * float(np.median(engine.tpot_s)),
            "decode_dispatches": dispatches,
            "decode_dispatch_mean_ms":
                1e3 * engine.dispatch_s_total / engine.dispatches,
-           "paged_attention_launches": launches, "launches": counts,
+           "paged_attention_launches": launches,
+           "launches_from": "the run's trace",
+           "replays": c["replays"], "graph_launches": c["graph_launches"],
+           "trace_read_s": c["trace_read_s"],
+           "opening_spins_recorded": c["opening_spins_recorded"],
+           "launches": c["launches"], "wrapper_launches": c["wrapper"],
+           "graph_captures": engine.graph_captures,
            "prefix_hits": engine.prefix_cache.hits - hits0,
            "warmup_s": warm_s, "finish_reasons": sorted(set(reasons))}
     return rec, launches
@@ -1696,9 +1894,8 @@ def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
     time, one stream), CUDA kernel launches per step and the kernels
     with the most device time, and the share of it in the paged kernels
     (the int8 one's apart). ``kv_dtype`` is the pool's ("int8" in the
-    serve int8 phase)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    serve int8 phase). Launches are the trace's records (``traced``),
+    device time ``key_averages()``'s."""
     from deeplearning4j_tpu_torch.nn import activations as act
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine, PagedKVConfig)
@@ -1715,7 +1912,7 @@ def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
                               device=device)
     for _ in range(SLOTS):
         engine.submit([int(t) for t in rng.integers(1, VOCAB, 200)],
-                      steps=5 * steps + 8, top_k=1)
+                      steps=5 * steps + 16, top_k=1)
     for _ in range(3):          # admit all, then two plain decode steps
         engine.step()
     F = torch.nn.functional
@@ -1736,34 +1933,46 @@ def profile_decode(device, rng, steps=20, kv_dtype="bf16"):
         old = {k: table[k] for k in new}
         table.update(new)
         try:
+            # the decode graph holds what was captured: capture the swap
+            # (one untimed step), time its replays
+            engine._drop_graphs()
+            engine.step()
             timed[label] = step_ms(engine, steps)
         finally:
             table.update(old)
+            engine._drop_graphs()
+    engine.step()               # the shipped graph again
     timed["shipped"].append(step_ms(engine, steps))
     if not engine.is_healthy() or \
             sum(r is not None for r in engine._slots) != SLOTS:
         raise AssertionError(f"profile: the engine stopped decoding "
                              f"({engine._broken!r})")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(cpu=True) as t:
         t0 = time.perf_counter()
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     engine.shutdown()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in t.prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and "spin_kernel" not in e.key]
     dev_us = {e.key: getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
               for e in kernels}
     busy_us = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    # the replays' paged kernels in the trace: one a layer a step
+    rows = {r: n / steps for r, n in t.rows.items()}
+    key = "paged_attention_quant" if kv_dtype == "int8" \
+        else "paged_attention"
+    if not trace_holds(t.rows, {key: LAYERS * steps}):
+        raise AssertionError(f"profile: {rows} a step in the trace")
     return {"steps": steps, "step_ms_unprofiled": timed,
+            "row_launches_per_step": rows,
             "step_ms": 1e3 * wall / steps,
             "device_busy_share": busy_us / (wall * 1e6),
-            "kernel_launches_per_step":
-                sum(e.count for e in kernels) / steps,
+            "kernel_launches_per_step": t.kernels / steps,
             "paged_kernel_share_of_device_time": (
                 sum(t for k, t in dev_us.items()
                     if "paged_decode" in k) / busy_us
@@ -1824,26 +2033,38 @@ def served_net(device, layers=None, dtype="bfloat16", seed=7):
     return model, net
 
 
-def serve_turn(engine, requests, keep_outs=False):
+def serve_turn(engine, requests, keep_outs=False, trace=False):
     """Serve ``requests`` through a warmed engine's background loop;
     returns the turn's numbers (tokens/s, the decode dispatches' mean
-    ms, TTFT and TPOT p50, peak device memory) and the launches (and,
-    with ``keep_outs``, the streams under "outs")."""
+    ms, TTFT and TPOT p50, peak device memory), its replays and graphs
+    (and, with ``keep_outs``, the streams under "outs"); with ``trace``
+    the run is ``counted`` (its launches, the serving rows' from its
+    trace, whose records its times then pay for: a timed turn is not
+    traced)."""
     engine.ttft_s.clear()
     engine.tpot_s.clear()
     d0, s0 = engine.dispatches, engine.dispatch_s_total
+    c0 = engine.graph_captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    engine.start()
-    t0 = time.perf_counter()
-    handles = [engine.submit(p, steps=NEW_TOKENS,
-                             rng=np.random.default_rng(i), **kw)
-               for i, (p, kw) in enumerate(requests)]
-    outs = [h.result(timeout=600) for h in handles]
-    dt = time.perf_counter() - t0
-    engine.shutdown()
-    counts = read_counts()
+
+    def run():
+        engine.start()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, steps=NEW_TOKENS,
+                                 rng=np.random.default_rng(i), **kw)
+                   for i, (p, kw) in enumerate(requests)]
+        outs = [h.result(timeout=600) for h in handles]
+        dt = time.perf_counter() - t0
+        widths.extend(sorted(engine._graphs))   # shutdown drops them
+        engine.shutdown()
+        return handles, outs, dt
+    widths = []
+    r0 = engine.replay_calls
+    if trace:
+        (handles, outs, dt), c = counted(engine, run)
+    else:
+        handles, outs, dt = run()
     dispatches = engine.dispatches - d0
     generated = sum(len(o) - len(p) for o, (p, _) in zip(outs, requests))
     reasons = [h.finish_reason for h in handles]
@@ -1858,14 +2079,24 @@ def serve_turn(engine, requests, keep_outs=False):
                                                   for h in handles])),
             "tpot_p50_ms": 1e3 * float(np.median(engine.tpot_s)),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "launches": counts, **({"outs": outs} if keep_outs else {})}
+            "traced": trace,
+            **({"launches": c["launches"], "wrapper_launches": c["wrapper"],
+                "graph_launches": c["graph_launches"],
+                "trace_read_s": c["trace_read_s"],
+                "opening_spins_recorded": c["opening_spins_recorded"]}
+               if trace else {}),
+            "replays": engine.replay_calls - r0,
+            "graph_widths": widths,
+            "captures": engine.graph_captures - c0,
+            **({"outs": outs} if keep_outs else {})}
 
 
 def serve_int8(device):
     """Phase 4's configuration with ``kv_dtype="int8"``: the same
     requests through the int8 engine and the bf16 engine in turns (int8,
-    bf16, bf16, int8), every int8 decode dispatch launching the int8
-    kernel once per layer and row 15's kernel never; the pages the bf16
+    bf16, bf16, int8), then a traced int8 turn, in whose trace every
+    decode dispatch launches the int8 kernel once per layer and row 15's
+    kernel never; the pages the bf16
     pool's byte budget buys under int8; ``kv_dtype="auto"`` resolving as
     a temporary store's verdict implies (the turns' measured verdict,
     another card's entry, a synthetic win)."""
@@ -1879,20 +2110,35 @@ def serve_int8(device):
     requests = serve_requests(np.random.default_rng(1))
     engines = {}
     turns = {"int8": [], "bf16": []}
-    for kv in ("int8", "bf16", "bf16", "int8"):
-        eng = engines[kv] = GenerationEngine(
+    counted_turns = {}
+    # the timed turns, then a traced int8 turn for its launches (the bf16
+    # pool's are the serve phase's traced run)
+    for i, kv in enumerate(("int8", "bf16", "bf16", "int8", "int8")):
+        trace = i >= 4
+        eng = engines[kv] = replay_calls(GenerationEngine(
             net, VOCAB, slots=SLOTS, device=device,
-            paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv))
+            paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv)))
         eng.warmup(max_prompt_len=300)
-        rec = serve_turn(eng, requests)
+        rec = serve_turn(eng, requests, trace=trace)
         n = rec["decode_dispatches"]
-        want = {"paged_attention_quant": n * LAYERS if kv == "int8" else 0,
-                "paged_attention": 0 if kv == "int8" else n * LAYERS}
-        got = {k: rec["launches"][k] for k in want}
-        if n == 0 or got != want:
-            raise AssertionError(f"serve int8: {kv} turn launched {got}, "
-                                 f"want {want}")
-        turns[kv].append(rec)
+        if n == 0 or rec["captures"] or rec["graph_widths"] != [1] or \
+                rec["replays"] != n:
+            seen = {k: rec[k] for k in ("captures", "graph_widths",
+                                        "replays", "decode_dispatches")}
+            raise AssertionError(f"serve int8: {kv} turn {seen}")
+        if trace:
+            want = {"paged_attention_quant": n * LAYERS,
+                    "paged_attention": 0}
+            got = {k: rec["launches"][k] for k in want}
+            if not trace_holds({**got, "graphs": rec["graph_launches"]},
+                               {**want, "graphs": n}):
+                raise AssertionError(
+                    f"serve int8: {kv} turn's trace holds {got} and "
+                    f"{rec['graph_launches']} graph launches, want {want} "
+                    f"and {n}")
+            counted_turns[kv] = rec
+        else:
+            turns[kv].append(rec)
         log(f"serve {kv} turn:", json.dumps(
             {k: v for k, v in rec.items() if k != "launches"}))
     med = {kv: {k: float(np.median([r[k] for r in rs]))
@@ -1942,9 +2188,9 @@ def serve_int8(device):
                                      f"store resolved {eng._kv_dtype}")
     del engines, e16, e8
     torch.cuda.empty_cache()
-    rec = {"turns": turns, "median": med, "pages": pages, "auto": auto,
-           "quant_key": key,
-           "launches": turns["int8"][-1]["launches"],
+    rec = {"turns": turns, "counted_turns": counted_turns, "median": med,
+           "pages": pages, "auto": auto, "quant_key": key,
+           "launches": counted_turns["int8"]["launches"],
            "profile": profile_decode(device, np.random.default_rng(2),
                                      kv_dtype="int8")}
     log("serve int8:", json.dumps({"median": med, "pages": pages,
@@ -9074,11 +9320,11 @@ def spec_engine(net, device, kv, spec):
         GenerationEngine, PagedKVConfig, SpeculationConfig)
     from deeplearning4j_tpu_torch.util.decoding import (
         prompt_lookup_proposer)
-    return GenerationEngine(
+    return replay_calls(GenerationEngine(
         net, VOCAB, slots=SLOTS, device=device,
         paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv),
         speculation=SpeculationConfig(prompt_lookup_proposer(SPEC_NGRAM),
-                                      gamma=SPEC_GAMMA) if spec else None)
+                                      gamma=SPEC_GAMMA) if spec else None))
 
 
 def spec_reference(device):
@@ -9098,17 +9344,20 @@ def spec_reference(device):
         runs = {}
         for spec in (False, True):
             eng = spec_engine(net, device, kv, spec)
-            zero_counts()
             hs = [eng.submit(p, steps=SPEC_REF_TOKENS, top_k=1)
                   for p in prompts]
-            eng.run_until_idle()
-            c = read_counts()
+            # in the trace: the replays and the capture's warm-up pass
+            # (the capture itself launches nothing)
+            _, c = counted(eng, eng.run_until_idle)
+            key = "paged_attention_quant" if kv == "int8" \
+                else "paged_attention"
             runs[spec] = ([h.result(timeout=0) for h in hs],
-                          c["paged_attention_quant" if kv == "int8"
-                            else "paged_attention"], eng.dispatches,
+                          c["launches"][key],
+                          eng.dispatches + eng.graph_captures,
                           eng.spec_accepted)
         rec[kv] = {"equal": runs[True][0] == runs[False][0],
                    "verify_launches": runs[True][1],
+                   # the dispatches and the captures' warm-up passes
                    "verify_dispatches": runs[True][2],
                    "accepted": runs[True][3]}
         if kv == "bf16":
@@ -9117,8 +9366,9 @@ def spec_reference(device):
             rec[kv]["equal_sample_stream"] = runs[True][0] == want
         r = rec[kv]
         if not r["equal"] or not r.get("equal_sample_stream", True) or \
-                r["verify_launches"] != SPEC_REF_LAYERS * \
-                r["verify_dispatches"] or r["accepted"] == 0:
+                not trace_holds({key: r["verify_launches"]}, {
+                    key: SPEC_REF_LAYERS * r["verify_dispatches"]}) or \
+                r["accepted"] == 0:
             raise AssertionError(f"serve_spec reference: {rec}")
     log("serve_spec reference:", json.dumps(rec))
     return rec
@@ -9143,8 +9393,8 @@ def first_divergence(net, plain, spec, prompt):
 def profile_spec(net, device, kv, steps=20):
     """``torch.profiler`` over ``steps`` verify steps with all slots
     decoding: the device's busy share, CUDA kernel launches a step, the
-    tokens each step commits, the paged kernels' share."""
-    from torch.profiler import ProfilerActivity, profile
+    tokens each step commits, the paged kernels' share (launches the
+    trace's records, device time ``key_averages()``'s)."""
     eng = spec_engine(net, device, kv, True)
     rng = np.random.default_rng(43)
     for _ in range(SLOTS):
@@ -9153,25 +9403,31 @@ def profile_spec(net, device, kv, steps=20):
     for _ in range(3):
         eng.step()
     t0 = eng.tokens_generated
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(cpu=True) as t:
         w0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
+    prof = t.prof
     tokens = eng.tokens_generated - t0
     if sum(r is not None for r in eng._slots) != SLOTS:
         raise AssertionError("profile_spec: the engine stopped decoding")
     eng.shutdown()
     kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+               if str(e.device_type).endswith("CUDA")
+               and "spin_kernel" not in e.key]
     dev_us = {e.key: getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
               for e in kernels}
     busy = sum(dev_us.values())
-    launches = sum(e.count for e in kernels)
+    launches = t.kernels
+    rows = {r: n / steps for r, n in t.rows.items()}
+    key = "paged_attention_quant" if kv == "int8" else "paged_attention"
+    if not trace_holds(t.rows, {key: LAYERS * steps}):
+        raise AssertionError(f"profile_spec: {rows} a step in the trace")
     return {"kv": kv, "steps": steps, "step_ms": 1e3 * wall / steps,
+            "row_launches_per_step": rows,
             "device_busy_share": busy / (wall * 1e6),
             "kernel_launches_per_step": launches / steps,
             "tokens_per_step": tokens / steps,
@@ -9185,49 +9441,54 @@ def serve_spec(device, smi):
     """Phase 4's configuration and traffic (16 requests of 128 new
     tokens, bf16, 8 slots, page 16) through the speculative engine
     (``prompt_lookup_proposer(3)``, gamma 4) and the plain engine in
-    turns (spec, plain, plain, spec), over a bf16 and an int8 pool:
-    every verify dispatch launches the pool's paged kernel once a layer
-    (6) at query width 1 + gamma; tokens/s, TPOT p50, acceptance and
+    turns (spec, plain, plain, spec), over a bf16 and an int8 pool, then
+    a traced speculative turn, in whose trace every verify dispatch
+    launches the pool's paged kernel once a layer (6) at query width 1 +
+    gamma; tokens/s, TPOT p50, acceptance and
     tokens a step; each greedy request's first divergence from the plain
     engine at a top-two gap under SPEC_GAP. Then a profile of each and
     the f32 reference (``spec_reference``)."""
-    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
     model, net = served_net(device)
     requests = serve_requests(np.random.default_rng(1))
-    real = pk.paged_attention
-    widths = {}
-
-    def record(*args, query_width, **kw):
-        widths[query_width] = widths.get(query_width, 0) + 1
-        return real(*args, query_width=query_width, **kw)
-
     rec = {"card": smi, "gamma": SPEC_GAMMA, "ngram": SPEC_NGRAM}
     for kv in ("bf16", "int8"):
         t0 = time.perf_counter()
         key = "paged_attention_quant" if kv == "int8" else "paged_attention"
         turns = {True: [], False: []}
         outs = {}
-        for spec in (True, False, False, True):
+        # the timed turns, then a traced speculative turn for its launches
+        for i, spec in enumerate((True, False, False, True, True)):
+            trace = i == 4
             eng = spec_engine(net, device, kv, spec)
             eng.warmup(max_prompt_len=300)
             a0, p0 = eng.spec_accepted, eng.spec_proposed
-            widths.clear()
-            r = with_swaps([(vars(pk), {"paged_attention": record})],
-                           lambda: serve_turn(eng, requests, keep_outs=True))
+            r = serve_turn(eng, requests, keep_outs=True, trace=trace)
             n = r["decode_dispatches"]
-            r.update(widths=dict(widths),
-                     accepted=eng.spec_accepted - a0,
+            r.update(accepted=eng.spec_accepted - a0,
                      proposed=eng.spec_proposed - p0,
                      tokens_per_step=N_REQUESTS * NEW_TOKENS / max(1, n))
-            want_w = {1 + SPEC_GAMMA if spec else 1: n * LAYERS}
-            if n == 0 or r["launches"][key] != n * LAYERS or \
-                    r["widths"] != want_w:
+            # every dispatch one replay of the one width's graph (its
+            # capture in the warm-up); in the trace, one graph launch a
+            # dispatch whose replay runs the paged kernel once a layer
+            want_w = [1 + SPEC_GAMMA if spec else 1]
+            if n == 0 or r["graph_widths"] != want_w or r["captures"] or \
+                    r["replays"] != n or trace and not trace_holds(
+                        {key: r["launches"][key],
+                         "graphs": r["graph_launches"]},
+                        {key: n * LAYERS, "graphs": n}):
                 raise AssertionError(f"serve_spec {kv} spec={spec}: "
-                                     f"{r['launches'][key]} launches at "
-                                     f"widths {r['widths']} for {n} "
+                                     f"{r.get('launches', {}).get(key)} "
+                                     f"launches in the trace, graphs "
+                                     f"{r['graph_widths']}, "
+                                     f"{r['captures']} captures, "
+                                     f"{r['replays']} replays for {n} "
                                      f"dispatches")
+            o = r.pop("outs")
+            if trace:
+                counted_turn = r
+                continue
             turns[spec].append(r)
-            outs[spec] = r.pop("outs")
+            outs[spec] = o
             log(f"serve_spec {kv} {'spec' if spec else 'plain'} turn:",
                 json.dumps({k: v for k, v in r.items() if k != "launches"}
                            | {"card": smi}))
@@ -9249,10 +9510,12 @@ def serve_spec(device, smi):
                    "acceptance": acc, "divergence": divergence,
                    "gap_limit": SPEC_GAP,
                    "launches_per_verify_step": LAYERS,
-                   "verify_launches": turns[True][-1]["launches"][key],
+                   "verify_launches": counted_turn["launches"][key],
+                   "counted_turn": counted_turn,
                    "turns": {"spec": turns[True], "plain": turns[False]}}
         log(f"serve_spec {kv}:", json.dumps(
-            {k: v for k, v in rec[kv].items() if k != "turns"}
+            {k: v for k, v in rec[kv].items()
+             if k not in ("turns", "counted_turn")}
             | {"card": smi}))
         if bad:
             raise AssertionError(f"serve_spec {kv}: streams left the plain "
@@ -9285,6 +9548,13 @@ SURVIVE_FAULTS, SURVIVE_SEIZE, SURVIVE_SEAT, SURVIVE_RETRY = \
 #: prefill where the unperturbed run took them a step at a time: the
 #: serve_spec rule)
 SURVIVE_GAP = SPEC_GAP
+#: a rebuild may keep at most this many allocated bytes outside the
+#: decode graphs' pools beyond the old arena's (its graph's token buffer
+#: is a 512-byte block of the default pool, freed with the graph). Less
+#: is no fault: the old arena is gone; one int8 rebuild (a seat fault at
+#: the run's first admissions) read 1,163,776 B under its old figure in
+#: one run on the card, unexplained (PERF.md §7)
+REBUILD_BYTES = 2048
 #: the largest |log p| difference a survivor's distribution after a
 #: rebuild may show against the unperturbed run's at a context both
 #: share (bf16: one prefill against decode steps). Set from
@@ -9368,10 +9638,9 @@ def survive_engine(net, device, kv, **kw):
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine, PagedKVConfig)
     kw.setdefault("registry", MetricsRegistry())
-    eng = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
-                           name=f"engine:survive_{kv}",
-                           paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv),
-                           **kw)
+    eng = replay_calls(GenerationEngine(
+        net, VOCAB, slots=SLOTS, device=device, name=f"engine:survive_{kv}",
+        paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv), **kw))
     eng.warmup(max_prompt_len=300)
     return eng
 
@@ -9574,34 +9843,37 @@ def kv_tok_bytes(kv):
             LAYERS * 2 * HEADS * 4 if kv == "int8" else 0)
 
 
-def kernel_kv_tally(rec):
-    """Tally the KV bytes the paged kernel's own inputs say each launch
-    moves, read back from the card (the kernel's lengths and page
-    table, not the engine's host positions its model reads): each row
-    whose table maps a page reads its pages up to its length,
-    page-rounded, at most the table's span; every row appends its query
-    width; an int8 pool reads one scale row a live page. One layer a
-    launch; a faulted dispatch launches nothing. Returns the undo."""
-    from deeplearning4j_tpu_torch.serving import paged_kernel as pk
-    real = pk.paged_attention
+def kernel_kv_tally(eng, rec):
+    """Tally the KV bytes the paged kernel's own inputs say each dispatch
+    moves, read back from the card before each replay of the decode
+    graph (the graph's fixed page table and each paged layer's
+    ``kv_pos``, whose sum with the query width is the kernel's lengths;
+    not the engine's host positions its model reads): each row whose
+    table maps a page reads its pages up to its length, page-rounded, at
+    most the table's span; every row appends its query width; an int8
+    pool reads one scale row a live page. Every paged leaf (k and v of
+    each layer) a replay; a faulted dispatch replays nothing. Returns
+    the undo."""
+    real = eng._replay
 
-    def tallied(q, k_pool, v_pool, table, lengths, *, query_width,
-                k_scales=None, v_scales=None):
-        S, hkv, _, d = q.shape
-        ps = k_pool.shape[2]
+    def tallied(chunk):
+        width = int(chunk.shape[1])
+        table = eng._tables()
+        ps = eng._ps
         span = table.shape[1] * ps
         mapped = (table != 0).any(1).cpu().tolist()
-        live = sum(min(-(-n // ps) * ps, span)
-                   for n, m in zip(lengths.cpu().tolist(), mapped) if m)
-        tok = 2 * hkv * d * k_pool.element_size()
-        row = 0 if k_scales is None else 2 * hkv * k_scales.element_size()
-        rec["dispatch_bytes"] += (live + S * query_width) * tok \
-            + (live // ps) * row
-        return real(q, k_pool, v_pool, table, lengths,
-                    query_width=query_width, k_scales=k_scales,
-                    v_scales=v_scales)
-    pk.paged_attention = tallied
-    return lambda: setattr(pk, "paged_attention", real)
+        for (name, _), pool in zip(eng._paged_keys, eng._page_store):
+            lengths = (eng.net.state[name]["kv_pos"] + width).cpu().tolist()
+            live = sum(min(-(-n // ps) * ps, span)
+                       for n, m in zip(lengths, mapped) if m)
+            hkv, d = pool.shape[1], pool.shape[3]
+            tok = hkv * d * pool.element_size()
+            row = 0 if eng._scale_store is None else hkv * 4
+            rec["dispatch_bytes"] += (live + len(lengths) * width) * tok \
+                + (live // ps) * row
+        return real(chunk)
+    eng._replay = tallied
+    return lambda: setattr(eng, "_replay", real)
 
 
 def kv_admission_bytes(handles, kv):
@@ -9628,19 +9900,45 @@ def kv_admission_bytes(handles, kv):
 def timed_rebuilds(eng, out):
     """Record each rebuild of ``eng``: its wall ms, its survivors, and
     the card's allocated bytes as it starts (the old arena still held)
-    and as it ends (the new one primed)."""
+    and as it ends (the new one primed), each with the part held in the
+    decode graphs' private pools (the old graphs' outputs before it;
+    none after it: the next dispatch captures anew). Earlier phases'
+    dead engines wait in reference cycles: one collection now, and the
+    cyclic collector off inside each rebuild, so a rebuild's bytes are
+    its own (a collection inside one freed 201.7 MB of them in one run
+    on the card), and the old arena must go by reference counts
+    alone."""
+    import gc
+    gc.collect()
     real = eng._quarantine_rebuild
 
     def timed(exc=None):
-        torch.cuda.synchronize()
-        m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
-        n = real(exc)
-        torch.cuda.synchronize()
-        out.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
-                    "survivors": n, "allocated_before": m0,
-                    "allocated_after": torch.cuda.memory_allocated()})
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            m0, g0, t0 = torch.cuda.memory_allocated(), \
+                graph_pool_bytes(), time.perf_counter()
+            n = real(exc)
+            torch.cuda.synchronize()
+            out.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                        "survivors": n, "allocated_before": m0,
+                        "graph_pool_before": g0,
+                        "allocated_after": torch.cuda.memory_allocated(),
+                        "graph_pool_after": graph_pool_bytes(),
+                        "graphs_after": len(eng._graphs)})
+        finally:
+            if was:
+                gc.enable()
         return n
     eng._quarantine_rebuild = timed
+
+
+def rebuild_kept(b):
+    """A rebuild's allocated bytes outside the graph pools, after less
+    before (the new arena against the old)."""
+    return (b["allocated_after"] - b["graph_pool_after"]) - \
+        (b["allocated_before"] - b["graph_pool_before"])
 
 
 def pool_bytes(eng):
@@ -9658,8 +9956,9 @@ def serve_survive(device, smi):
     (``explain_flips``: the rng's state exact, the distributions within
     SURVIVE_LOGP, each flip a near-tie the distance explains), the
     rebuilds by cause equal the faults, each rebuild's allocated bytes
-    come back to the old arena's (within half a pool), every successful
-    dispatch launches the pool's paged kernel once a layer, and the
+    come back to the old arena's (REBUILD_BYTES), in the supervised
+    run's trace every successful dispatch launches the pool's paged
+    kernel once a layer (and each capture's warm-up pass), and the
     modeled KV bytes of ``health()`` equal the tally of the kernel's own
     inputs (``kernel_kv_tally``) and the traces' admissions. Then a
     ``decode_retry`` run rides out a transient fault with no rebuild,
@@ -9687,9 +9986,12 @@ def serve_survive(device, smi):
         key = "paged_attention_quant" if kv == "int8" else "paged_attention"
         eng = survive_engine(net, device, kv)
         plain_draws, draws = {}, {}
-        zero_counts()
+        # untraced: the serve phases' traced runs count this path's
+        # launches; the supervised run below is traced
+        r0, c0 = eng.replay_calls, eng.graph_captures
         hs, run = drive(eng, requests, draws=plain_draws)
-        run["launches"] = read_counts()[key]
+        run.update(replays=eng.replay_calls - r0,
+                   captures=eng.graph_captures - c0)
         plain = plain_outs[kv] = [h.result(timeout=0) for h in hs]
         r = {"unperturbed": run}
         del eng
@@ -9709,13 +10011,16 @@ def serve_survive(device, smi):
         timed_rebuilds(eng, rebuilds)
         pool = pool_bytes(eng)
         bytes0 = eng.health()["kv_traffic"]["bytes_moved_total"]
-        undo = kernel_kv_tally(model)
-        zero_counts()
+        undo = kernel_kv_tally(eng, model)
         try:
-            hs, run = drive(eng, requests, draws=draws)
+            (hs, run), c = counted(eng, lambda: drive(eng, requests,
+                                                      draws=draws))
         finally:
             undo()
-        counts = read_counts()
+        run.update(captures=c["captures"], graph_launches=c["graph_launches"],
+                   trace_read_s=c["trace_read_s"],
+                   opening_spins_recorded=c["opening_spins_recorded"])
+        counts = c["launches"]
         outs = [h.result(timeout=0) for h in hs]
         h = eng.health()
         snap = reg.snapshot_compact()
@@ -9757,17 +10062,29 @@ def serve_survive(device, smi):
         if seize.faults_fired != 1:
             failures.append("the seizure did not fire")
         if len(rebuilds) != len(SURVIVE_FAULTS) + 1 or any(
-                b["allocated_after"] - b["allocated_before"] > pool / 2
+                rebuild_kept(b) > REBUILD_BYTES or b["graphs_after"]
                 for b in rebuilds):
             failures.append(f"a rebuild kept the old arena: {rebuilds}")
+        # one capture a rebuild (each rebuild's next dispatch), none else
+        if rp["captures"] != len(rebuilds):
+            failures.append(f"{rp['captures']} captures for "
+                            f"{len(rebuilds)} rebuilds")
         if moved != want_moved or rp["decode_path"] != "direct-cuda":
             failures.append(f"kv bytes {moved} != the model's {want_moved}")
-        for label, x in (("unperturbed", r["unperturbed"]), ("perturbed",
-                                                            rp)):
-            if x["dispatches"] == 0 or \
-                    x["launches"] != LAYERS * x["dispatches"]:
-                failures.append(f"{label}: {x['launches']} {key} launches "
-                                f"for {x['dispatches']} dispatches")
+        # the supervised run's trace: each replay's layers, and each
+        # capture's warm-up pass (a faulted dispatch replays nothing)
+        u = r["unperturbed"]
+        if u["dispatches"] == 0 or u["replays"] != u["dispatches"] or \
+                u["captures"]:
+            failures.append(f"unperturbed: {u}")
+        if rp["dispatches"] == 0 or not trace_holds(
+                {key: rp["launches"], "graphs": rp["graph_launches"]},
+                {key: LAYERS * (rp["dispatches"] + rp["captures"]),
+                 "graphs": rp["dispatches"]}):
+            failures.append(f"perturbed: {rp['launches']} {key} launches "
+                            f"and {rp['graph_launches']} graph launches in "
+                            f"the trace for {rp['dispatches']} dispatches "
+                            f"and {rp['captures']} captures")
         if failures:
             raise AssertionError(f"serve_survive {kv}: {failures}")
         rec[kv] = r
@@ -10033,30 +10350,31 @@ def serve_overload(device, smi):
 
 def lstm_engine(net, device, slots=SLOTS):
     from deeplearning4j_tpu_torch.serving import GenerationEngine
-    return GenerationEngine(net, LSTM_VOCAB, slots=slots, device=device,
-                            name="engine:lstm")
+    return replay_calls(GenerationEngine(net, LSTM_VOCAB, slots=slots,
+                                       device=device, name="engine:lstm"))
 
 
 def profile_steps(step, steps, wall_unit):
     """``torch.profiler`` over ``steps`` calls of ``step``: ms a call,
     the device's busy share, CUDA kernel launches a call."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(cpu=True) as t:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in t.prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and "spin_kernel" not in e.key]
     busy = sum(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
                for e in kernels)
     return {wall_unit: 1e3 * wall / steps,
             "device_busy_share": busy / (wall * 1e6),
-            "kernel_launches_per_call": sum(e.count for e in kernels)
-            / steps}
+            "kernel_launches_per_call": t.kernels / steps,
+            "row_launches": t.rows, "opening_spins_recorded": t.warm,
+            "row_launches_per_step": {r: n / steps
+                                      for r, n in t.rows.items()}}
 
 
 def serve_lstm(device, smi):
@@ -10075,11 +10393,14 @@ def serve_lstm(device, smi):
                for _ in range(SERVE_LSTM_N)]
     requests = [(p, dict(top_k=1)) for p in prompts]
     eng = lstm_engine(net, device).warmup(max_prompt_len=LSTM_PROMPT)
-    d0, a0 = eng.dispatches, eng.admissions
-    zero_counts()
-    hs, run = drive(eng, requests, SERVE_LSTM_NEW)
-    counts = lstm_counts()
+    d0, a0, c0 = eng.dispatches, eng.admissions, eng.graph_captures
+    (hs, run), c = counted(eng, lambda: drive(eng, requests,
+                                              SERVE_LSTM_NEW))
+    # the decode steps' replays and the eager primes
+    wrapper = {k: c["wrapper"][k] for k in ("lstm_fwd", "lstm_bwd")}
+    counts = {k: c["launches"][k] for k in ("lstm_fwd", "lstm_bwd")}
     dispatches, admissions = eng.dispatches - d0, eng.admissions - a0
+    captures = eng.graph_captures - c0
     n = sum(len(h.generated) for h in hs)
     outs = [h.result(timeout=0) for h in hs]
     # batch 8 a decode step: the engine's rows; batch 1 a prime
@@ -10093,14 +10414,27 @@ def serve_lstm(device, smi):
     rec = {"card": smi, "requests": SERVE_LSTM_N,
            "new_tokens": SERVE_LSTM_NEW, "tokens": n, **run,
            "admissions": admissions, "launches": counts,
+           "launches_from": "the run's trace: the replays and the eager "
+                            "primes",
+           "wrapper_launches": wrapper, "captures": captures,
+           "graph_launches": c["graph_launches"],
+           "trace_read_s": c["trace_read_s"],
+           "opening_spins_recorded": c["opening_spins_recorded"],
            "launches_per_decode_step": (counts["lstm_fwd"] - LSTM_LAYERS
                                         * admissions) / dispatches,
            "sample_stream_tokens_per_s": n / ref_s,
            "equal_sample_stream": outs == ref,
            "divergence": [f for f in div if f["first"] is not None]}
     failures = []
-    if counts != {"lstm_fwd": want_launches, "lstm_bwd": 0}:
-        failures.append(f"launched {counts}, want {want_launches} forward")
+    if not trace_holds({**counts, "graphs": c["graph_launches"]},
+                       {"lstm_fwd": want_launches, "graphs": dispatches}) or \
+            counts["lstm_bwd"] or captures or \
+            wrapper["lstm_fwd"] != LSTM_LAYERS * admissions:
+        failures.append(f"launched {counts} in the trace (wrapper "
+                        f"{wrapper}, {captures} captures, "
+                        f"{c['graph_launches']} graph launches for "
+                        f"{dispatches} dispatches), want {want_launches} "
+                        f"forward")
     if bad:
         failures.append(f"streams left sample_stream's at wide gaps: {bad}")
     # profiles: every slot busy against sample_stream at batch 1 (a new
@@ -10112,6 +10446,9 @@ def serve_lstm(device, smi):
         eng.step()
     rec["profile_engine"] = profile_steps(eng.step, 20, "step_ms")
     rec["profile_engine"]["tokens_per_step"] = SLOTS
+    if not trace_holds(rec["profile_engine"]["row_launches"],
+                       {"lstm_fwd": LSTM_LAYERS * 20}):
+        failures.append(f"the replays' window: {rec['profile_engine']}")
     eng.shutdown()
     x1 = np.zeros((1, LSTM_VOCAB, 1), np.float32)
     x1[0, 1, 0] = 1.0
@@ -10141,6 +10478,386 @@ def serve_lstm(device, smi):
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"serve_lstm: {failures}: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------
+# phases 41-42: the engine's decode step as one CUDA graph, beam search
+# ---------------------------------------------------------------------
+#: serve_graph: the supervised run's decode faults (dispatch indices),
+#: the profiled window (engine steps with every slot busy), the largest
+#: host launch calls a graph step may make
+GRAPH_FAULTS = (30, 90)
+GRAPH_PROFILE_STEPS = 20
+GRAPH_HOST_LAUNCHES = 10
+#: beam: the text LSTM's beams, steps, the output layer's weight scale
+#: (peaked distributions: no near ties between the kernel's and the
+#: plain version's f32 sums), the f32 score's limit against the plain
+#: route (a sum of up to BEAM_STEPS log-probabilities)
+BEAM_W, BEAM_STEPS, BEAM_PEAK, BEAM_SCORE_ATOL = 4, 64, 4.0, 1e-3
+
+
+def dispatch_digests(eng, out):
+    """Keep a digest of each dispatch's distributions at its active rows
+    (a free row reads the null page, whose colliding appends land in no
+    defined order)."""
+    import hashlib
+    real = eng._dispatch
+
+    def kept(chunk):
+        active = [s for s, r in enumerate(eng._slots) if r is not None]
+        p = real(chunk)
+        out.append(hashlib.sha1(np.ascontiguousarray(
+            p[active]).tobytes()).hexdigest())
+        return p
+    eng._dispatch = kept
+
+
+def stale_table(eng, held):
+    """Plant a stale page table in the decode graph: the capture reads a
+    copy of the table made at capture time (kept alive in ``held``),
+    while the graph's record of what it read names the live one, so no
+    recapture hides the fault."""
+    real = eng._capture
+
+    def capture(width):
+        held.append(eng._tables().clone())
+        eng._tables = lambda: held[-1]
+        try:
+            return real(width)
+        finally:
+            del eng._tables
+    eng._capture = capture
+
+
+def engine_trace(eng, steps):
+    """``steps`` engine steps under ``torch.profiler``, read from its
+    Chrome trace: ms a step, the device's busy share (the union of its
+    kernel, copy and fill intervals over the wall time), host launch
+    calls a step, device kernels a step, graph launches a step, the
+    serving rows' kernels a step and the tokens a step commits."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fd, path = tempfile.mkstemp(suffix=".trace.json")
+    os.close(fd)
+    t0 = eng.tokens_generated
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_session()
+        w0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = without_spins([e for e in json.load(f)["traceEvents"]
+                                    if e.get("ph") == "X"])
+    finally:
+        os.remove(path)
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e.get("cat") == "kernel"]
+    host = {}
+    for e in events:
+        if e.get("name") in HOST_LAUNCHES:
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in device]
+    rows = {row: sum(name in e["name"] and "lstm_bwd" not in e["name"]
+                     for e in kernels) for row, name in SERVE_ROWS.items()}
+    graphs = host.get("cudaGraphLaunch", 0)
+    return {"step_ms": 1e3 * wall / steps,
+            "device_busy_share": union_us(spans) / (wall * 1e6),
+            "device_busy_ms_per_step": union_us(spans) / 1e3 / steps,
+            "host_launches_per_step": sum(host.values()) / steps,
+            "host_calls": host,
+            "kernel_launches_per_step": len(kernels) / steps,
+            "graph_launches_per_step": graphs / steps,
+            "row_launches": rows,
+            "row_launches_per_step": {r: n / steps for r, n in rows.items()},
+            # every replay of a graph runs the kernels it captured
+            "row_launches_per_graph_launch": {
+                r: n / graphs for r, n in rows.items()} if graphs else None,
+            "tokens_per_step": (eng.tokens_generated - t0) / steps}
+
+
+def graph_configs(device):
+    """serve_graph's four engines: phase 4's served net behind a bf16
+    pool, an int8 pool and the speculative engine (gamma 4), and the
+    text LSTM (phase 24's net, bf16) in the slot arena; each with its
+    traffic, warm-up prompt length, paged row and layers."""
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine, PagedKVConfig)
+    _, net = served_net(device)
+    lnet = text_lstm_net(device, torch.bfloat16)
+    rng = np.random.default_rng(3)
+    lreq = [([int(t) for t in rng.integers(0, LSTM_VOCAB, LSTM_PROMPT)],
+             dict(top_k=1) if i % 2 == 0 else dict(top_k=40, temperature=0.9))
+            for i in range(SERVE_LSTM_N)]
+    treq = serve_requests(np.random.default_rng(1))
+
+    def paged(kv):
+        return lambda **kw: replay_calls(GenerationEngine(
+            net, VOCAB, slots=SLOTS, device=device,
+            paging=PagedKVConfig(page_size=PAGE, kv_dtype=kv), **kw))
+    return {"bf16": (paged("bf16"), treq, 300, "paged_attention", LAYERS),
+            "int8": (paged("int8"), treq, 300, "paged_attention_quant",
+                     LAYERS),
+            "spec": (lambda: spec_engine(net, device, "bf16", True), treq,
+                     300, "paged_attention", LAYERS),
+            "lstm": (lambda: lstm_engine(lnet, device), lreq, LSTM_PROMPT,
+                     "lstm_fwd", LSTM_LAYERS)}
+
+
+def graph_turn(make, requests, warm, eager, plant=None):
+    """One turn of serve_graph: a fresh engine (the prefix cache empty, as
+    in every turn), warmed up, then the traffic driven by hand; graph or
+    eager (the engine's measuring seam). Returns the streams, each
+    dispatch's digest and the turn's numbers."""
+    eng = make()
+    if eager:
+        eng._measure_eager = True
+    held = []
+    if plant:
+        stale_table(eng, held)
+    eng.warmup(max_prompt_len=warm)
+    digests = []
+    dispatch_digests(eng, digests)
+    eng.tpot_s.clear()
+    c0 = eng.graph_captures
+    hs, run = drive(eng, requests)
+    run.update(tpot_p50_ms=1e3 * float(np.median(eng.tpot_s)),
+               captures_in_turn=eng.graph_captures - c0,
+               captures=eng.graph_captures, widths=sorted(eng._graphs))
+    outs = [h.result(timeout=0) for h in hs]
+    eng.shutdown()
+    return outs, digests, run
+
+
+def graph_profile(make, requests, warm, eager):
+    """``engine_trace`` of GRAPH_PROFILE_STEPS steps with every slot
+    busy (long requests from the traffic's prompts), graph or eager."""
+    eng = make()
+    if eager:
+        eng._measure_eager = True
+    eng.warmup(max_prompt_len=warm)
+    for p, kw in requests[:SLOTS]:
+        eng.submit(p[:warm], steps=GRAPH_PROFILE_STEPS * 10, **kw)
+    for _ in range(3):
+        eng.step()
+    rec = engine_trace(eng, GRAPH_PROFILE_STEPS)
+    if eng.active_slots() != SLOTS:
+        raise AssertionError("serve_graph: the profiled engine stopped "
+                             "decoding")
+    eng.shutdown()
+    return rec
+
+
+def graph_rebuilds(device, make, requests, warm, failures):
+    """A supervised bf16 run with decode faults at GRAPH_FAULTS: one
+    capture before them and exactly one more after each rebuild, the
+    capture counter (``dl4jtpu_jit_compiles_total``) moved by as many,
+    each rebuild's allocated bytes outside the graph pools back to the
+    old arena's (at most REBUILD_BYTES over), the graph pools' bytes
+    apart."""
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.resilience.retry import RestartBudget
+    from deeplearning4j_tpu_torch.serving import EngineSupervisor
+    eng = make(supervisor=EngineSupervisor(budget=RestartBudget(8, 600.0)),
+               decode_chaos=ChaosChain(*[chaos.FaultBurstInjector(
+                   n=i, k=1, window=1) for i in GRAPH_FAULTS]))
+    eng.warmup(max_prompt_len=warm)
+    c0, n0 = eng.graph_captures, registry_count("dl4jtpu_jit_compiles_total")
+    rebuilds = []
+    timed_rebuilds(eng, rebuilds)
+    hs, run = drive(eng, requests)
+    ok = all(h.done and h.error is None for h in hs)
+    rec = {**run, "rebuilds": rebuilds, "finished": ok,
+           "captures_before": c0,
+           "captures_after_rebuilds": eng.graph_captures - c0,
+           "capture_counter_moved": registry_count(
+               "dl4jtpu_jit_compiles_total") - n0,
+           "kept_bytes": [rebuild_kept(b) for b in rebuilds],
+           "graph_pool_bytes": [(b["graph_pool_before"],
+                                 b["graph_pool_after"]) for b in rebuilds]}
+    eng.shutdown()
+    if not ok or len(rebuilds) != len(GRAPH_FAULTS) or c0 != 1 or \
+            rec["captures_after_rebuilds"] != len(rebuilds) or \
+            rec["capture_counter_moved"] != len(rebuilds) or any(
+                k > REBUILD_BYTES for k in rec["kept_bytes"]) or any(
+                b["graphs_after"] for b in rebuilds):
+        failures.append(f"rebuilds: {rec}")
+    return rec
+
+
+def serve_graph(device, smi):
+    """The decode step as one CUDA graph, against the same engine's
+    device part run eagerly (its measuring seam), in turns (graph,
+    eager, eager, graph), each turn a fresh engine driving the serving
+    cell's traffic by hand: bf16 and int8 pools and speculation at gamma
+    4 (16 requests of 128 new tokens, greedy and sampled) and the LSTM
+    arena (16 of 256, greedy and sampled). Every turn's streams and
+    every dispatch's distributions at its active rows are bitwise equal;
+    a graph turn captures once (its one width, in the warm-up) and
+    replays every dispatch; the eager turns capture nothing. A profile
+    of GRAPH_PROFILE_STEPS steps a mode (host launch calls, device
+    kernels and the serving row's kernels a step from the trace, busy
+    share); the rows launch in the replays as often a step as eagerly
+    (6, 6, 6 and 2), the graph's host launch calls at most
+    GRAPH_HOST_LAUNCHES a step. A stale table captured (planted) fails
+    the equality check. A supervised run's rebuilds (``graph_
+    rebuilds``)."""
+    configs = graph_configs(device)
+    rec = {"card": smi, "faults": list(GRAPH_FAULTS)}
+    failures = []
+    launches = {}
+    for name, (make, requests, warm, row, layers) in configs.items():
+        t0 = time.perf_counter()
+        turns = {"graph": [], "eager": []}
+        outs, digests = {}, {}
+        for mode in ("graph", "eager", "eager", "graph"):
+            o, d, run = graph_turn(make, requests, warm, mode == "eager")
+            turns[mode].append(run)
+            if mode in outs and (o != outs[mode] or d != digests[mode]):
+                failures.append(f"{name}: two {mode} turns differ")
+            outs[mode], digests[mode] = o, d
+        equal = outs["graph"] == outs["eager"]
+        same = digests["graph"] == digests["eager"]
+        first = next((i for i, (a, b) in enumerate(zip(
+            digests["graph"], digests["eager"])) if a != b), None)
+        prof = {mode: graph_profile(make, requests, warm, mode == "eager")
+                for mode in ("graph", "eager")}
+        med = {mode: {k: float(np.median([t[k] for t in ts]))
+                      for k in ("tokens_per_s", "tpot_p50_ms")}
+               for mode, ts in turns.items()}
+        r = rec[name] = {
+            "streams_equal": equal, "distributions_bitwise": same,
+            "dispatches": len(digests["graph"]),
+            "first_differing_dispatch": first, "median": med,
+            "turns": turns, "profile": prof,
+            "host_launches_per_step": {
+                m: prof[m]["host_launches_per_step"] for m in prof},
+            "kernels_per_step": {m: prof[m]["kernel_launches_per_step"]
+                                 for m in prof},
+            "busy_share": {m: prof[m]["device_busy_share"] for m in prof},
+            "row": row, "row_launches_per_step": {
+                m: prof[m]["row_launches_per_step"][row] for m in prof}}
+        launches[row] = launches.get(row, 0) + \
+            prof["graph"]["row_launches"][row]
+        r["wall_s"] = time.perf_counter() - t0
+        log(f"serve_graph {name}:", json.dumps(
+            {k: v for k, v in r.items() if k not in ("turns", "profile")}
+            | {"card": smi}))
+        if not (equal and same and len(digests["graph"]) > 0):
+            failures.append(f"{name}: graph and eager differ (streams "
+                            f"equal {equal}, first differing dispatch "
+                            f"{first})")
+        if any(t["captures"] != 1 or t["captures_in_turn"]
+               for t in turns["graph"]) or any(
+                t["captures"] for t in turns["eager"]):
+            failures.append(f"{name}: captures {turns}")
+        # the trace: the row once a layer a step in both modes (in the
+        # graph's, inside its one graph launch a step)
+        rows = r["row_launches_per_step"]
+        if any(not trace_holds({row: prof[m]["row_launches"][row]},
+                               {row: layers * GRAPH_PROFILE_STEPS})
+               for m in prof):
+            failures.append(f"{name}: {row} a step {rows} in the traces, "
+                            f"want {layers}")
+        if prof["graph"]["graph_launches_per_step"] != 1 or \
+                prof["graph"]["host_launches_per_step"] > \
+                GRAPH_HOST_LAUNCHES:
+            failures.append(f"{name}: the graph step's host calls "
+                            f"{prof['graph']['host_calls']}")
+    # the planted fault: a stale table captured (bf16)
+    make, requests, warm, _, _ = configs["bf16"]
+    eager_o, eager_d, _ = graph_turn(make, requests[:4], warm, True)
+    planted_o, planted_d, _ = graph_turn(make, requests[:4], warm, False,
+                                         plant=True)
+    caught = planted_o != eager_o or planted_d != eager_d
+    rec["planted_stale_table"] = {"caught": caught,
+                                  "streams_equal": planted_o == eager_o}
+    if not caught:
+        failures.append("the stale table planted in the graph passed the "
+                        "equality check")
+    rec["rebuilds"] = graph_rebuilds(device, make, requests, warm, failures)
+    rec["launches"] = launches
+    log("serve_graph:", json.dumps({k: rec[k] for k in (
+        "planted_stale_table", "rebuilds", "launches")} | {"card": smi}))
+    del configs
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"serve_graph: {failures}")
+    return rec
+
+
+def beam_phase(device, smi):
+    """Beam search on the text LSTM (phase 24's net; the output layer's
+    weights scaled by BEAM_PEAK) at W = BEAM_W beams, BEAM_STEPS steps
+    from a 32-token prompt: each step's W-row forward launches row 17
+    once a layer (2), and the prime once a layer at batch 1; in f32 the
+    best sequence equals the plain route's (the recurrence kernels'
+    plain versions swapped in) and its score within BEAM_SCORE_ATOL;
+    bf16 reported beside it."""
+    from deeplearning4j_tpu_torch.util import decoding
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    model = TextGenerationLSTM(vocab_size=LSTM_VOCAB)
+    rng = np.random.default_rng(9)
+    prompt = [int(t) for t in rng.integers(0, LSTM_VOCAB, LSTM_PROMPT)]
+    rec = {"card": smi, "beam_width": BEAM_W, "steps": BEAM_STEPS,
+           "peak": BEAM_PEAK}
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        net = text_lstm_net(device, dtype)
+        out_key = str(LSTM_LAYERS)
+        with torch.no_grad():
+            net.params[out_key]["W"].mul_(BEAM_PEAK)
+        net._compute = None
+        forwards = [0]
+        real = decoding.step_tokens
+
+        def counted(n, tokens):
+            forwards[0] += 1
+            return real(n, tokens)
+        zero_counts()
+        decoding.step_tokens = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq, score = model.beam_search(net, prompt, BEAM_STEPS,
+                                           beam_width=BEAM_W)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            decoding.step_tokens = real
+        c = lstm_counts()
+        per_step = (c["lstm_fwd"] - LSTM_LAYERS) / max(1, forwards[0])
+        r = {"sequence": seq[LSTM_PROMPT:], "score": score, "wall_s": dt,
+             "forwards": forwards[0], "launches": c,
+             "launches_per_step": per_step,
+             "steps_per_s": forwards[0] / dt}
+        if per_step != LSTM_LAYERS or c["lstm_bwd"] or forwards[0] == 0:
+            failures.append(f"{dtype}: {c} for {forwards[0]} steps")
+        if dtype == torch.float32:
+            pseq, pscore = with_swaps(lstm_swapped(), lambda: (
+                model.beam_search(net, prompt, BEAM_STEPS,
+                                  beam_width=BEAM_W)))
+            r["plain_sequence_equal"] = pseq == seq
+            r["plain_score_diff"] = abs(pscore - score)
+            if pseq != seq or abs(pscore - score) > BEAM_SCORE_ATOL:
+                failures.append(f"f32: kernel {seq[LSTM_PROMPT:]} {score} "
+                                f"against plain {pseq[LSTM_PROMPT:]} "
+                                f"{pscore}")
+        rec["bf16" if dtype == torch.bfloat16 else "f32"] = r
+        del net
+        torch.cuda.empty_cache()
+    rec["bf16_equals_f32"] = rec["bf16"]["sequence"] == rec["f32"]["sequence"]
+    rec["launches"] = rec["bf16"]["launches"]
+    log("beam:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"beam: {failures}")
     return rec
 
 
@@ -10438,6 +11155,10 @@ def main(argv=None) -> int:
         out["serve_lstm"] = phase("serve_lstm", serve_lstm, device, smi)
     if want("capture_gc"):
         out["capture_gc"] = phase("capture_gc", capture_gc, device, smi)
+    if want("serve_graph"):
+        out["serve_graph"] = phase("serve_graph", serve_graph, device, smi)
+    if want("beam"):
+        out["beam"] = phase("beam", beam_phase, device, smi)
     graph_recs = {k: out[k] for k in ("fit_graph_transformer",
                                       "fit_graph_resnet") if k in out}
     if graph_recs:
@@ -10576,17 +11297,21 @@ def kernels_line(out):
     # paths (phases 34-36), each counted from 0 over its own run
     paths = {"evaluate": out["evaluate"]["launches"],
              "early_stop": out["early_stop"]["trainer"]["launches"],
-             "serve_spec_bf16": out["serve_spec"]["bf16"]["turns"]["spec"]
-             [-1]["launches"],
-             "serve_spec_int8": out["serve_spec"]["int8"]["turns"]["spec"]
-             [-1]["launches"],
+             "serve_spec_bf16": out["serve_spec"]["bf16"]["counted_turn"]
+             ["launches"],
+             "serve_spec_int8": out["serve_spec"]["int8"]["counted_turn"]
+             ["launches"],
              # the survivable engine's supervised runs (rebuilds, the
              # seizure and the seat fault in them), the LSTM arena
              "serve_survive_bf16": out["serve_survive"]["bf16"]["perturbed"]
              ["all_launches"],
              "serve_survive_int8": out["serve_survive"]["int8"]["perturbed"]
              ["all_launches"],
-             "serve_lstm": out["serve_lstm"]["launches"]}
+             "serve_lstm": out["serve_lstm"]["launches"],
+             # the decode graphs' traced windows (every config), and
+             # the text LSTM's beams (bf16)
+             "serve_graph": out["serve_graph"]["launches"],
+             "beam": out["beam"]["launches"]}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

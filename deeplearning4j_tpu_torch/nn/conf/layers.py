@@ -93,7 +93,8 @@ __all__ = ["ActivationLayer", "BATCHED_STREAM_KEYS", "BatchNormalization",
            "OutputLayer", "PositionalEmbeddingLayer", "RnnOutputLayer",
            "STREAM_STATE_KEYS", "SelfAttentionLayer", "SubsamplingLayer",
            "ZeroPaddingLayer", "check_rewindable", "layer_from_dict",
-           "layer_to_dict", "rewind_stream_state", "stream_capacity"]
+           "layer_to_dict", "reorder_stream_state", "rewind_stream_state",
+           "stream_capacity"]
 
 #: per-layer state keys carried only by the streaming rnn_time_step
 #: path and the truncated-BPTT fit (stripped on ordinary forwards,
@@ -108,7 +109,9 @@ STREAM_STATE_KEYS = frozenset(
      "kv_page_table", "kv_page_scale_k", "kv_page_scale_v",
      "kv_page_prime", "pos_offset"})
 
-#: streaming-state keys whose LEADING axis is the batch dimension
+#: streaming-state keys whose LEADING axis is the batch dimension (beam
+#: search gathers these when pruning beams; kv_pos is a batch-independent
+#: scalar unless a per-row rewind made it ``[N]``)
 BATCHED_STREAM_KEYS = frozenset({"h", "c", "kv_k", "kv_v"})
 
 
@@ -124,6 +127,32 @@ def stream_capacity(layers):
             if cap:
                 limit = cap if limit is None else min(limit, cap)
     return limit
+
+
+def reorder_stream_state(net, indices) -> None:
+    """Gather the batch dimension of every carried streaming-state tensor
+    (beam search's pruning: surviving beam b continues from parent
+    ``indices[b]``'s caches and h / c; the JAX package's
+    ``reorder_stream_state``). ``indices``: an int array ``[new_batch]``.
+    ``kv_pos`` is a batch-independent scalar unless a per-row rewind
+    made it ``[N]``, and is then gathered like the caches, so each row
+    keeps its own position; the host row-position mirror follows."""
+    idx = np.array(indices, np.int64)
+    dev = {}
+    for name, s in net.state.items():
+        if not isinstance(s, dict):
+            continue
+        out = dict(s)
+        for k, v in s.items():
+            if torch.is_tensor(v) and (k in BATCHED_STREAM_KEYS or (
+                    k == "kv_pos" and v.dim() >= 1)):
+                if v.device not in dev:
+                    dev[v.device] = torch.as_tensor(idx, device=v.device)
+                out[k] = v[dev[v.device]]
+        net.state[name] = out
+    rows = getattr(net, "_stream_pos_rows", None)
+    if rows is not None:         # the host row-position mirror follows
+        net._stream_pos_rows = np.asarray(rows)[idx]
 
 
 def rewind_stream_state(net, n) -> None:

@@ -882,21 +882,47 @@ class ComputationGraph(NetworkBase):
                                  f"of {t} positions")
             ins = {k: x[..., pad:] for k, x in ins.items()}
         t = next(iter(ins.values())).shape[-1]
-        new_pos_map = self._check_graph_stream_budget(t)
+        new_pos_map = self._stream_begin(t)
+        outs = self._stream_apply(ins)
+        self._stream_end(new_pos_map)
+        if pad:
+            outs = [torch.nn.functional.pad(o, (pad, 0)) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    # -- rnn_time_step in its host and device parts (the serving engine
+    # -- captures the device part in its decode-step CUDA graph) -------
+    def _stream_input(self, x: torch.Tensor):
+        """A one-hot ``[N, V, T]`` device tensor as the device part's
+        input (single-input graphs; the compute cast on the device)."""
+        return self._as_input_dict((x,))
+
+    def _stream_begin(self, t: int):
+        """Host part, before the forward: the streaming budget of a
+        chunk of ``t`` positions (raises past a capacity); returns what
+        :meth:`_stream_end` commits."""
+        return self._check_graph_stream_budget(t)
+
+    def _stream_apply(self, ins):
+        """Device part: one streaming forward of the cast inputs through
+        the carried state, which it replaces (``self.state``); returns
+        the outputs, promoted to f32, as a list. Reads nothing on the
+        host and copies nothing in from it."""
         with torch.no_grad():
             acts, new_state = self._forward(self._compute_params(),
                                             self.state, ins, stream=True)
             outs = [f32_head(acts[o]) for o in self.conf.network_outputs]
         self.state = new_state
+        return outs
+
+    def _stream_end(self, new_pos_map) -> None:
+        """Host part, after the forward: the streamed-position mirrors
+        (per-row ones too, after a per-row rewind)."""
         old_max = max(self._stream_pos_map.values(), default=0)
         self._stream_pos_map = new_pos_map
         rows = getattr(self, "_stream_pos_rows", None)
         if rows is not None:    # per-row positions, after a per-row rewind
             self._stream_pos_rows = rows + (
                 max(new_pos_map.values(), default=0) - old_max)
-        if pad:
-            outs = [torch.nn.functional.pad(o, (pad, 0)) for o in outs]
-        return outs[0] if len(outs) == 1 else outs
 
     def _streaming_vertices(self):
         for name, v in self.conf.vertices.items():

@@ -294,7 +294,23 @@ class MultiLayerNetwork(NetworkBase):
                 raise ValueError(f"pad_left {pad} out of range for a chunk "
                                  f"of {x.shape[-1]} positions")
             x = x[..., pad:]
-        new_pos = self._stream_pos + int(x.shape[-1])
+        new_pos = self._stream_begin(int(x.shape[-1]))
+        out = self._stream_apply(x)
+        self._stream_end(new_pos)
+        return torch.nn.functional.pad(out, (pad, 0)) if pad else out
+
+    # -- rnn_time_step in its host and device parts (the serving engine
+    # -- captures the device part in its decode-step CUDA graph) -------
+    def _stream_input(self, x: torch.Tensor) -> torch.Tensor:
+        """A one-hot ``[N, V, T]`` device tensor as the device part's
+        input (the compute cast on the device)."""
+        return self._cast_compute({}, self._tensor(x))[1]
+
+    def _stream_begin(self, t: int) -> int:
+        """Host part, before the forward: the streaming budget of a
+        chunk of ``t`` positions (raises past the smallest capacity);
+        returns the position :meth:`_stream_end` commits."""
+        new_pos = self._stream_pos + int(t)
         cap = stream_capacity(self.layers)
         if cap is not None and new_pos > cap:
             raise ValueError(
@@ -302,17 +318,27 @@ class MultiLayerNetwork(NetworkBase):
                 f"streaming capacity ({cap}); call "
                 "rnn_clear_previous_state() or raise cache_length/"
                 "max_length")
+        return new_pos
+
+    def _stream_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Device part: one streaming forward of the cast input through
+        the carried state, which it replaces (``self.state``); returns
+        the output promoted to f32. Reads nothing on the host and copies
+        nothing in from it."""
         with torch.no_grad():
             acts, new_state = self._forward(self._compute_params(),
                                             self.state, x, carry_rnn=True,
                                             stream=True)
         self.state = new_state
+        return f32_head(acts[-1])
+
+    def _stream_end(self, new_pos: int) -> None:
+        """Host part, after the forward: the streamed-position mirrors
+        (per-row ones too, after a per-row rewind)."""
         rows = getattr(self, "_stream_pos_rows", None)
         if rows is not None:    # per-row positions, after a per-row rewind
             self._stream_pos_rows = rows + (new_pos - self._stream_pos)
         self._stream_pos = new_pos
-        out = f32_head(acts[-1])
-        return torch.nn.functional.pad(out, (pad, 0)) if pad else out
 
     def _clear_stream_positions(self):
         self._stream_pos = 0

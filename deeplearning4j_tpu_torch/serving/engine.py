@@ -38,10 +38,11 @@ Counterpart of ``deeplearning4j_tpu/serving/engine.py``:
   forward scores them all, through the paged-attention kernels at
   query width 1 + gamma on a page pool; each row's rejection walk
   (``util.decoding.accept_proposals``) commits its accepted prefix and
-  one more token, and a per-row ``rewind_stream_state`` drops the
-  rejected positions (free rows rewind the whole width). Greedy streams
-  equal plain ``sample_stream``'s; sampled ones keep the target's
-  distribution and draw each request's rng in the JAX engine's order.
+  one more token, and a per-row rewind (``rewind_stream_state``'s, in
+  place on the shared ``kv_pos``) drops the rejected positions (free
+  rows rewind the whole width). Greedy streams equal plain
+  ``sample_stream``'s; sampled ones keep the target's distribution and
+  draw each request's rng in the JAX engine's order.
 - The text LSTM (``TextGenerationLSTM``'s ``MultiLayerNetwork``) serves
   in the slot arena: each GravesLSTM's h / c rows are joined at
   admission, and every decode step runs the LSTM forward kernel once a
@@ -80,12 +81,32 @@ rng (tested): the arena feeds each request exactly the token sequence a
 dedicated stream would, and each request draws from its own rng in
 generation order.
 
-Still to come (ROADMAP.md A7): the decode step as one CUDA graph,
-re-captured after a rebuild; ``sample_stream_batch``, beam search and
-speculation drafted by a second network; the choice of decode read path
-(``decode_impl``: the port has one on the card, the kernel). The fleet's
-hooks (``detach_ledger``, ``detach_queued``, ``load_stats``, the prefix
-chain export and import) come with the fleet (ROADMAP.md A10).
+The decode step as one CUDA graph (the JAX engine's one jitted dispatch
+a step): on a CUDA device every decode and verify dispatch is one replay
+of a graph captured per query width (1, or 1 + gamma) over the arena's
+fixed tensors: the page pools and int8 scale sidecars, the ``[S,
+n_max]`` page table (its rows written in place at admission and
+retirement), each layer's ``kv_pos`` (reset, advanced and rewound in
+place) and the LSTM ``h`` / ``c`` rows. The graph holds the one-hot of
+a static token buffer (one host-to-device copy before each replay), the
+forward through the paged view with its in-place KV append, the state's
+new leaves copied back into the fixed ones, and the f32 head; one
+device-to-host copy of the distributions follows, and the draws stay on
+the host. The host half of ``rnn_time_step`` (the streaming budget, the
+position mirrors) runs around each replay. A rebuild, or the arena's
+first build, drops the graphs (their private pools with them) and the
+next step captures anew (``dl4jtpu_jit_compiles_total``); so does a new
+compute copy of the parameters. A failed capture or replay is a
+dispatch fault like any other: the step never re-runs eagerly. On the
+CPU the same device part runs eagerly.
+
+Still to come (ROADMAP.md A7): speculation drafted by a second network,
+``speculative_beam_search``, the persisted int8 verdict; the choice of
+decode read path (``decode_impl``: the port has one on the card, the
+kernel). ``sample_stream_batch`` waits for masked streaming (ROADMAP.md
+A6). The fleet's hooks (``detach_ledger``, ``detach_queued``,
+``load_stats``, the prefix chain export and import) come with the fleet
+(ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -107,9 +128,12 @@ from deeplearning4j_tpu_torch.monitoring import flightrecorder
 from deeplearning4j_tpu_torch.monitoring.events import emit as emit_event
 from deeplearning4j_tpu_torch.monitoring.metrics import (
     MetricsRegistry, global_registry)
+from deeplearning4j_tpu_torch.monitoring.runtime import record_capture
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BATCHED_STREAM_KEYS, PositionalEmbeddingLayer, check_rewindable,
-    rewind_stream_state, stream_capacity)
+    stream_capacity)
+from deeplearning4j_tpu_torch.nn.network_base import _collector_paused
+from deeplearning4j_tpu_torch.nn.updater import tree_leaves
 from deeplearning4j_tpu_torch.resilience.chaos import fire as _fire_chaos
 from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from deeplearning4j_tpu_torch.serving.errors import (
@@ -136,7 +160,7 @@ from deeplearning4j_tpu_torch.serving.request import (
 from deeplearning4j_tpu_torch.serving.scheduler import AdmissionQueue
 from deeplearning4j_tpu_torch.util.decoding import (
     _check_seed, _stream_layers, _vocab, accept_proposals, draw,
-    filter_probs, prime_prompt, step_tokens, stop_reason, verify_tokens)
+    filter_probs, prime_prompt, stop_reason)
 
 __all__ = ["GenerationEngine", "SpeculationConfig"]
 
@@ -264,14 +288,22 @@ class GenerationEngine:
         self._quant_key: Optional[str] = None
         self._quant_dims = None
         self._page_tables: List[List[int]] = [[] for _ in range(slots)]
-        #: the [S, n_max] int32 device table, rebuilt only after a table
-        #: mutation (admit / retire / rebuild), not per step
+        #: the [S, n_max] int32 device table, made with the pool's store
+        #: and kept: admission and retirement write its rows in place (a
+        #: decode graph reads it at a fixed address); a rebuild makes a
+        #: new one
         self._table_dev = None
         #: a retirement freed a slot whose kv_pos keeps coasting (+1 per
-        #: dispatch): the next install zeroes free rows' positions so an
-        #: idle slot that once held a long context does not make the
-        #: kernel walk its dead pages every step
+        #: dispatch): the next dispatch zeroes free rows' positions in
+        #: place so an idle slot that once held a long context does not
+        #: make the kernel walk its dead pages every step
         self._kv_pos_dirty = False
+        #: the decode-step CUDA graphs by query width (the card only),
+        #: the stream they are captured and replayed on, and the captures
+        #: taken (each also counted in dl4jtpu_jit_compiles_total)
+        self._graphs = {}
+        self._graph_stream = None
+        self.graph_captures = 0
         #: modeled KV bytes (serving/health.SERVING_KV_BYTES_MOVED): the
         #: running total, the bytes of one position over every leaf, and
         #: an int8 pool's scale row over every leaf
@@ -785,8 +817,7 @@ class GenerationEngine:
         if not riders:
             return                 # everything retired at the guard
         self._sync_accounting()
-        tp = self._run_dispatch(lambda: verify_tokens(self.net, chunk),
-                                width=1 + k)
+        tp = self._run_dispatch(chunk)
         now = time.monotonic()
         t0, tpots, fracs = self.tokens_generated, [], []
         amounts = np.full(self.slots, 1 + k, np.int64)   # free rows: all
@@ -816,7 +847,7 @@ class GenerationEngine:
                 req.pending_token = committed[-1]
         self._spec_accept_hist.observe_many(fracs)
         self._observe_step(self.tokens_generated - t0, tpots)
-        rewind_stream_state(self.net, amounts)
+        self._rewind_rows(amounts)
         self._sync_accounting()
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> int:
@@ -1066,6 +1097,7 @@ class GenerationEngine:
                 self._init_page_store(primed_state)
             saved_state = self._build_arena(primed_state, saved_state)
             self._arena_ready = True
+            self._drop_graphs()             # a new arena: new addresses
         net.state = self._merge(saved_state, primed_state, slot)
         if self._pool is not None:
             if self._kv_dtype == "int8":
@@ -1075,7 +1107,7 @@ class GenerationEngine:
             else:
                 self._scatter_primed_pages(primed_state, table)
             self._page_tables[slot] = table
-            self._table_dev = None
+            self._write_table_row(slot, table)
             if self._prefix is not None \
                     and self._brownout < BROWNOUT_NO_PREFIX_INSERTS:
                 self._prefix.insert(req.prompt, table)
@@ -1117,6 +1149,7 @@ class GenerationEngine:
         if exc is not None and exc.__traceback__ is not None:
             traceback.clear_frames(exc.__traceback__)
         entries = self.export_ledger()      # actives + _seating
+        self._drop_graphs()                 # they read the old arena
         self._seating = None
         self._slots = [None] * self.slots
         self._row_pos = np.zeros(self.slots, np.int64)
@@ -1270,6 +1303,7 @@ class GenerationEngine:
                                "the primed stream state")
         self._paged_keys = keys
         self._page_store = store
+        self._table_dev = self._new_table()
         self._tok_bytes = sum(int(p.shape[1]) * int(p.shape[3])
                               * p.element_size() for p in store)
 
@@ -1301,6 +1335,7 @@ class GenerationEngine:
         self._page_store, self._scale_store = pool_leaves(
             self._pool.total_pages, self._ps,
             [(h, d) for _, h, d in self._quant_dims], device=self.device)
+        self._table_dev = self._new_table()
         self._tok_bytes = sum(2 * h * d for _, h, d in self._quant_dims)
         self._scale_row_bytes = sum(2 * h * 4
                                     for _, h, _ in self._quant_dims)
@@ -1365,13 +1400,52 @@ class GenerationEngine:
             pool.index_copy_(0, idx, blocks.to(pool.dtype))
         self._kv_traffic(self._L * self._tok_bytes)   # one-row commit
 
+    def _new_table(self) -> torch.Tensor:
+        return torch.zeros((self.slots, self._n_max), dtype=torch.int32,
+                           device=self.device)
+
     def _tables(self) -> torch.Tensor:
-        if self._table_dev is None:
-            t = np.zeros((self.slots, self._n_max), np.int32)
-            for s, pages in enumerate(self._page_tables):
-                t[s, :len(pages)] = pages
-            self._table_dev = torch.as_tensor(t, device=self.device)
+        """The ``[S, n_max]`` int32 device page table (0 = the null
+        page), one tensor from the store's build to the next rebuild."""
         return self._table_dev
+
+    def _write_table_row(self, slot: int, pages) -> None:
+        """Write ``slot``'s row of the device table in place (one small
+        host-to-device copy): its pages, zeros past them."""
+        row = np.zeros(self._n_max, np.int32)
+        row[:len(pages)] = pages
+        self._table_dev[slot].copy_(torch.from_numpy(row))
+
+    def _reset_free_rows(self) -> None:
+        """Zero the free rows' ``kv_pos`` in place after a retirement (the
+        one tensor the layers share keeps its address)."""
+        if not self._kv_pos_dirty:
+            return
+        free = torch.as_tensor([r is None for r in self._slots],
+                               device=self.device)
+        for t in self._kv_pos():
+            t.masked_fill_(free, 0)
+        self._kv_pos_dirty = False
+
+    def _rewind_rows(self, amounts) -> None:
+        """Move each row's ``kv_pos`` back by its entry of ``amounts``
+        in place after a verify (``rewind_stream_state``'s per-row
+        rewind, clamped at 0, on the one ``[S]`` tensor the layers share
+        and the decode graph reads): the rejected slots drop out of the
+        masks and the next append overwrites them. The host mirrors are
+        ``_sync_accounting``'s; ``check_rewindable`` ran at
+        construction."""
+        for t in self._kv_pos():
+            t.sub_(torch.as_tensor(amounts, dtype=t.dtype,
+                                   device=t.device)).clamp_min_(0)
+
+    def _kv_pos(self) -> list:
+        """The distinct ``kv_pos`` tensors of the attention layers (one,
+        shared, once the arena is built)."""
+        return list({id(s["kv_pos"]): s["kv_pos"]
+                     for s in self.net.state.values()
+                     if isinstance(s, dict)
+                     and torch.is_tensor(s.get("kv_pos"))}.values())
 
     def _install_paged_state(self) -> None:
         """Install the paged decode view for the coming forward: each
@@ -1383,14 +1457,6 @@ class GenerationEngine:
         st = dict(self.net.state)
         for n, view in self._paged_view(self._tables()).items():
             st[n] = {**st[n], **view}
-        if self._kv_pos_dirty:
-            free = torch.as_tensor([r is None for r in self._slots],
-                                   device=self.device)
-            for n in dict.fromkeys(n for n, _ in self._paged_keys):
-                st[n]["kv_pos"] = torch.where(
-                    free, torch.zeros_like(st[n]["kv_pos"]),
-                    st[n]["kv_pos"])
-            self._kv_pos_dirty = False
         self.net.state = st
 
     def _extract_paged_state(self) -> None:
@@ -1443,44 +1509,219 @@ class GenerationEngine:
         if not any(r is not None for r in self._slots):
             return None     # everything retired at the capacity guard
         self._sync_accounting()
-        probs = self._run_dispatch(lambda: step_tokens(self.net, toks))
+        probs = self._run_dispatch(toks[:, None])[:, :, 0]
         for s, req in enumerate(self._slots):
             if req is not None:
                 self._row_pos[s] += 1
         self._sync_accounting()
         return probs
 
-    def _run_dispatch(self, fn, width: int = 1):
+    def _run_dispatch(self, chunk):
         """The ONE paged / chaos / retry wrapper around a decode or verify
-        forward (`width` = appended positions a row: 1 plain, 1 + gamma
-        speculative). The chaos hook fires INSIDE the retried callable,
-        before any state mutates, so a retried dispatch is numerically
-        the fault-free one. Each cycle lands in the dispatch-latency
-        histogram and its modeled KV bytes in the KV counter. A kernel's
+        dispatch of ``chunk`` ``[S, W]`` token ids (W = 1 plain, 1 +
+        gamma speculative); returns the ``[S, V, W]`` distributions. The
+        chaos hook fires INSIDE the retried callable, before any state
+        mutates, so a retried dispatch is numerically the fault-free
+        one. Each cycle lands in the dispatch-latency histogram and its
+        modeled KV bytes in the KV counter. A kernel's (or a graph's)
         failure is a fault like any other (no fallback re-runs it on the
-        plain version)."""
+        plain version or eagerly)."""
         paged = self._pool is not None
+        width = int(chunk.shape[1])
         if paged:
-            self._install_paged_state()
+            self._reset_free_rows()
 
         def once():
             _fire_chaos(self._decode_chaos, self.dispatches)
-            return fn()
+            return self._dispatch(chunk)
 
         t0 = time.perf_counter()
-        try:
-            out = (retry_call(once, policy=self._decode_retry,
-                              op="serving_decode")
-                   if self._decode_retry is not None else once())
-        finally:
-            if paged:
-                self._extract_paged_state()
+        out = (retry_call(once, policy=self._decode_retry,
+                          op="serving_decode")
+               if self._decode_retry is not None else once())
         dt = time.perf_counter() - t0
         self.dispatch_s_total += dt
         self._dispatch_hist.observe(dt)
         if paged:
             self._kv_traffic(self._kv_dispatch_bytes(width))
         self.dispatches += 1
+        return out
+
+    # -- the dispatch: rnn_time_step's host part around its device part,
+    # -- which on the card is one replay of the width's CUDA graph ------
+    #: a measuring seam (set on an instance, never by the package): True
+    #: runs the device part eagerly on the card too, to hold the graph's
+    #: distributions and streams against
+    _measure_eager = False
+
+    def _dispatch(self, chunk):
+        net = self.net
+        ticket = net._stream_begin(int(chunk.shape[1]))
+        if self.device.type == "cuda" and not self._measure_eager:
+            out = self._replay(chunk)
+        else:
+            out = self._eager(chunk)
+        net._stream_end(ticket)
+        return out
+
+    def _eager(self, chunk) -> np.ndarray:
+        """The device part run eagerly (the CPU; the measuring seam)."""
+        ids = torch.as_tensor(chunk, device=self.device)
+        paged = self._pool is not None
+        if paged:
+            self._install_paged_state()
+        try:
+            out = self._decode_body(ids)
+        finally:
+            if paged:
+                self._extract_paged_state()
+        return out.cpu().numpy()
+
+    def _decode_body(self, ids: torch.Tensor) -> torch.Tensor:
+        """The device part of one dispatch, what a decode graph holds: the
+        one-hot ``[S, V, W]`` of the device ids ``[S, W]``, the streaming
+        forward (the paged view's append in place), each new state leaf
+        copied into the fixed one it replaces (``kv_pos``, ``h`` / ``c``;
+        the pools and a dense cache are written in place already), and
+        the f32 head, returned. Reads nothing on the host."""
+        net = self.net
+        fixed = net.state
+        x = torch.zeros((ids.shape[0], self.V, ids.shape[1]),
+                        device=ids.device)
+        x.scatter_(1, ids[:, None, :], 1.0)
+        out = net._stream_apply(net._stream_input(x))
+        new = net.state
+        done = set()                 # the layers share one kv_pos
+        for n, s in fixed.items():
+            if not isinstance(s, dict):
+                continue
+            for k in _SCATTER_KEYS.intersection(s):
+                if new[n][k] is not s[k] and id(s[k]) not in done:
+                    s[k].copy_(new[n][k])
+                    done.add(id(s[k]))
+        net.state = fixed
+        return out[0] if isinstance(out, list) else out
+
+    def _step_leaves(self):
+        """Every tensor a dispatch reads or writes in place, by name: the
+        pools and scale sidecars, the page table, and each layer's
+        ``kv_pos`` (one tensor the layers share), ``h`` / ``c`` and dense
+        ``kv_k`` / ``kv_v``. A decode graph holds their addresses."""
+        out = {}
+        for i, t in enumerate(self._page_store or ()):
+            out[f"pool{i}"] = t
+        for i, t in enumerate(self._scale_store or ()):
+            out[f"scales{i}"] = t
+        if self._table_dev is not None:
+            out["table"] = self._table_dev
+        for n, s in self.net.state.items():
+            if isinstance(s, dict):
+                for k in sorted(_SCATTER_KEYS.intersection(s)):
+                    out[f"{n}.{k}"] = s[k]
+        return out
+
+    def _graph_reads(self):
+        """What a decode graph baked in: the step's leaves and the compute
+        parameters' leaves (a new compute copy, or any new leaf, needs a
+        new capture)."""
+        return (tuple(self._step_leaves().values())
+                + tuple(tree_leaves(self.net._compute_params())))
+
+    def _drop_graphs(self) -> None:
+        """Drop the decode graphs (their private pools freed with them):
+        the next dispatch captures anew."""
+        self._graphs = {}
+
+    def _replay(self, chunk) -> np.ndarray:
+        """One replay of the width's decode graph (captured first if the
+        width has none, or if what it baked in moved): the ids in by one
+        host-to-device copy, the distributions out by one device-to-host
+        copy, on the graph's stream."""
+        width = int(chunk.shape[1])
+        g = self._graphs.get(width)
+        if g is not None and not _same_tensors(g.reads, self._graph_reads()):
+            self._drop_graphs()
+            g = None
+        if g is None:
+            g = self._capture(width)
+        stream = self._graph_stream
+        cur = torch.cuda.current_stream(self.device)
+        stream.wait_stream(cur)
+        g.ids_host.numpy()[:] = chunk
+        with torch.cuda.stream(stream):
+            g.ids.copy_(g.ids_host, non_blocking=True)
+            g.graph.replay()
+            g.out_host.copy_(g.out, non_blocking=True)
+            g.done.record(stream)
+        cur.wait_stream(stream)
+        g.done.synchronize()
+        return g.out_host.numpy().copy()
+
+    def _capture(self, width: int) -> "_DecodeGraph":
+        """Capture the width's decode graph on the engine's graph stream
+        (one stream an engine, so its replays share the paged kernel's
+        counters in stream order):
+        first one eager pass of the device part over scratch state (the
+        cuBLAS workspace and the paged kernel's counters of this stream
+        exist before the capture; the pass writes only the null page and
+        scratch rows, see :meth:`_scratch_state`), then the capture under
+        the paused cyclic collector, which runs nothing: the step's work
+        runs at the first replay."""
+        t0 = time.perf_counter()
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        stream = self._graph_stream
+        g = _DecodeGraph(self.slots, self.V, width, self.device)
+        paged = self._pool is not None
+        net = self.net
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            if paged:
+                self._install_paged_state()
+            real = net.state
+            try:
+                net.state = self._scratch_state(real)
+                self._decode_body(g.ids)
+                net.state = real
+                with _collector_paused(), torch.cuda.graph(
+                        g.graph, stream=stream,
+                        capture_error_mode="thread_local"):
+                    g.out = self._decode_body(g.ids)
+            finally:
+                net.state = real
+                if paged:
+                    self._extract_paged_state()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        g.reads = self._graph_reads()
+        self._graphs[width] = g
+        self.graph_captures += 1
+        record_capture(f"{self._label}.decode_graph_w{width}",
+                       time.perf_counter() - t0)
+        return g
+
+    def _scratch_state(self, state):
+        """``state`` with every leaf a dispatch writes swapped for a
+        harmless stand-in, for the warm-up pass before a capture: a zero
+        page table and ``kv_pos`` 0 (a paged layer appends to the null
+        page only, which no valid position reads), ``kv_pos`` at the
+        cache length (a dense cache rewrites nothing), copies of ``h`` /
+        ``c``."""
+        out = {}
+        for n, s in state.items():
+            if not isinstance(s, dict):
+                out[n] = s
+                continue
+            d = dict(s)
+            paged = "kv_page_table" in s
+            if paged:
+                d["kv_page_table"] = torch.zeros_like(s["kv_page_table"])
+            if "kv_pos" in s:
+                d["kv_pos"] = torch.full_like(
+                    s["kv_pos"], 0 if paged else s["kv_k"].shape[2])
+            for k in ("h", "c"):
+                if k in s:
+                    d[k] = s[k].clone()
+            out[n] = d
         return out
 
     def _retire(self, slot: int, reason: str,
@@ -1495,7 +1736,7 @@ class GenerationEngine:
             # the cache's own refcount, warm for the next sharer
             self._release_pages(self._page_tables[slot])
             self._page_tables[slot] = []
-            self._table_dev = None
+            self._write_table_row(slot, ())
             self._kv_pos_dirty = True
         if exc is not None:
             req.handle._fail(exc, reason)
@@ -1509,10 +1750,14 @@ class GenerationEngine:
     def _build_arena(self, primed_state, base_state):
         """First-admission skeleton: every stream key of the primed
         structure at S zeroed rows (an LSTM's h / c, a dense KV cache),
-        the per-row kv_pos vector at 0. In paged mode the dense kv_k /
-        kv_v leaves are dropped: the pool is the only KV storage."""
+        the per-row kv_pos vector at 0: ONE tensor that every attention
+        layer's state holds (every layer's positions move together, so a
+        reset or a rewind is one update, not one a layer). In paged mode
+        the dense kv_k / kv_v leaves are dropped: the pool is the only
+        KV storage."""
         S = self.slots
         arena = {}
+        pos = None
         for name, s in primed_state.items():
             if not isinstance(s, dict):
                 arena[name] = s
@@ -1525,7 +1770,9 @@ class GenerationEngine:
                 if self._pool is not None and k in _PAGED_VIEW:
                     continue
                 if k == "kv_pos":
-                    d[k] = torch.zeros(S, dtype=v.dtype, device=v.device)
+                    if pos is None:
+                        pos = torch.zeros(S, dtype=v.dtype, device=v.device)
+                    d[k] = pos
                 else:                      # batch-leading cache / carry
                     d[k] = v.new_zeros((S,) + tuple(v.shape[1:]))
             arena[name] = d
@@ -1594,12 +1841,12 @@ class GenerationEngine:
         and decode before traffic, so the first real request does not
         pay the one-time setup: the arena and page pool allocations,
         the CUDA kernel library's build and load, the matmul library's
-        handles. Eager PyTorch compiles nothing per shape, so where the
-        JAX engine warms one request per prime bucket, one request of
-        ``max_prompt_len`` tokens (default: capacity - 1) covers every
-        prompt length. The prefix cache is bypassed, so warmup prompts
-        never occupy it, and the overload controller forgets the warmup's
-        samples."""
+        handles, the decode graph's capture (on the card). Eager PyTorch
+        compiles nothing per shape, so where the JAX engine warms one
+        request per prime bucket, one request of ``max_prompt_len``
+        tokens (default: capacity - 1) covers every prompt length. The
+        prefix cache is bypassed, so warmup prompts never occupy it, and
+        the overload controller forgets the warmup's samples."""
         if self._worker is not None and self._worker.is_alive():
             raise RuntimeError("warm up before start(): warmup drives "
                                "step() manually")
@@ -1683,6 +1930,7 @@ class GenerationEngine:
                     self._retire(s, "error", exc)
             for req in self._pending.close():
                 req.handle._fail(exc)
+            self._drop_graphs()
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admission and finish the actives: the clean handoff point
@@ -1730,3 +1978,28 @@ class GenerationEngine:
                 if req is not None:
                     self._retire(s, "error", EngineShutdown(
                         "GenerationEngine shut down"))
+            self._drop_graphs()
+
+
+class _DecodeGraph:
+    """One query width's decode-step CUDA graph: the static ids ``[S,
+    W]`` (device, and their pinned host stage), the distributions ``[S,
+    V, W]`` the graph writes (from its private pool) and their pinned
+    host copy, the event that marks the copy done, and what the capture
+    baked in (``reads``)."""
+
+    def __init__(self, slots: int, vocab: int, width: int, device):
+        self.graph = torch.cuda.CUDAGraph()
+        self.ids = torch.zeros((slots, width), dtype=torch.int64,
+                               device=device)
+        self.ids_host = torch.zeros((slots, width), dtype=torch.int64,
+                                    pin_memory=True)
+        self.out = None
+        self.out_host = torch.empty((slots, vocab, width),
+                                    dtype=torch.float32, pin_memory=True)
+        self.done = torch.cuda.Event()
+        self.reads = ()
+
+
+def _same_tensors(a, b) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))

@@ -278,14 +278,30 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
 
 #: (device, stream) -> the split decode's int32 done-counters: zero, and
 #: zero again after every launch (its last block of each pair resets its
-#: own), so one buffer serves every launch on that stream
+#: own), so one buffer serves every launch on that stream, replays of
+#: the CUDA graphs captured on it included
 _COUNTERS = {}
+#: counters a larger buffer replaced: a graph captured over one still
+#: writes it at every replay, so none is ever freed
+_RETIRED_COUNTERS = []
 
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The stream's counters, made (or grown) outside any capture: a
+    buffer made inside one would come from that graph's private pool
+    and, once the graph is dropped, be memory a later graph reuses. A
+    capture must follow an eager launch of the same shape on its stream
+    (the engine's warm-up pass)."""
     key = (device.index, stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_attention: the split decode's counters for this "
+                "stream must exist before a CUDA graph capture (launch "
+                "once eagerly on the capture stream first)")
+        if c is not None:
+            _RETIRED_COUNTERS.append(c)
         c = _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
                                          device=device)
     return c

@@ -7,9 +7,14 @@ JAX package's wherever the probabilities agree), priming, the one-token
 decode step, the retirement rule, ``sample_stream``, and the engine's
 speculation: the widened verify forward (``verify_tokens``), the
 rejection walk (``accept_proposals``) and the draft-free
-``prompt_lookup_proposer``. Still to come (ROADMAP.md A7):
-``speculative_sample`` and ``speculative_sample_batch`` with a model
-draft, ``sample_stream_batch``, and beam search.
+``prompt_lookup_proposer``; and single-prompt ``beam_search`` (the
+beams ride the batch dimension, pruning gathers the carried state with
+``reorder_stream_state``). Still to come (ROADMAP.md A7):
+``speculative_sample`` with a model draft and
+``speculative_beam_search``; ``sample_stream_batch``,
+``beam_search_batch`` and ``speculative_sample_batch`` prime a batch of
+prompts left-padded under a carried key mask, which waits for masked
+streaming (ROADMAP.md A6).
 
 The network is a ``ComputationGraph`` (the transformer) or a
 ``MultiLayerNetwork`` (the text LSTM, whose carried state is each
@@ -28,9 +33,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["accept_proposals", "draw", "filter_probs", "prime_prompt",
-           "prompt_lookup_proposer", "sample_stream", "step_tokens",
-           "stop_reason", "verify_tokens"]
+__all__ = ["accept_proposals", "beam_search", "draw", "filter_probs",
+           "prime_prompt", "prompt_lookup_proposer", "sample_stream",
+           "step_tokens", "stop_reason", "verify_tokens"]
 
 
 def _vocab(net) -> int:
@@ -163,7 +168,9 @@ def verify_tokens(net, chunks) -> np.ndarray:
     ``chunk[:, :j+1]``. Causality hides trailing dummy tokens from the
     positions before them, so one fixed width serves rows with fewer
     real proposals. Under the engine's paged view the chunk runs the
-    paged append and the paged-attention kernel at query width W."""
+    paged append and the paged-attention kernel at query width W (the
+    engine's own dispatch runs the same forward through
+    ``rnn_time_step``'s device part, its decode graph's body)."""
     return _probs(net.rnn_time_step(_one_hot(net, np.asarray(chunks))))
 
 
@@ -267,3 +274,116 @@ def sample_stream(net, seed_ids, steps: int, vocab_size: int,
         if i + 1 < steps:
             p = step_tokens(net, [nxt])[0]
     return ids
+
+
+def beam_search(net, seed_ids, steps: int, vocab_size: int,
+                beam_width: int = 4,
+                max_length: Optional[int] = None,
+                prime_chunk_max: Optional[int] = None,
+                prime_padded: bool = False,
+                stop_tokens=()) -> Tuple[List[int], float]:
+    """Highest-log-prob continuation of ``seed_ids`` by beam search (the
+    JAX package's ``beam_search``): prime once at batch 1, broadcast the
+    carried state to the W = min(beam_width, V) beams, then one W-row
+    forward a step; pruning gathers the state by parent
+    (``reorder_stream_state``), skipped when every beam keeps its own.
+    The port primes in one unpadded chunk and has no width buckets, so
+    the beam batch is W rows (the JAX package pads it to a power of
+    two); ``prime_chunk_max`` and ``prime_padded`` are accepted and
+    change nothing.
+
+    ``stop_tokens``: a hypothesis that extends with a stop token
+    FINISHES (keeps it as its final id and leaves its slot to live
+    candidates); the search ends when every slot is finished, when no
+    live hypothesis can still beat the best finished one (log-prob
+    totals only fall as hypotheses extend), or when the step budget
+    runs out. The best finished hypothesis wins (the best live one if
+    nothing finished). Returns ``(sequence, log-probability)``."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import reorder_stream_state
+    del prime_chunk_max, prime_padded   # one unpadded prime chunk
+    _check_seed(seed_ids, steps, max_length)
+    vocab = _vocab(net)
+    if vocab != vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} != the net's input "
+                         f"size {vocab}")
+    V = vocab_size
+    stop_tokens = set(stop_tokens)
+    W = min(beam_width, V)     # top-k can't exceed the vocab
+    net.rnn_clear_previous_state()
+    p0 = prime_prompt(net, seed_ids)
+    reorder_stream_state(net, np.zeros(W, np.int64))
+    out = np.repeat(p0[None], W, axis=0)                      # [W, V]
+    beams = [list(seed_ids) for _ in range(W)]
+    scores = np.zeros(W)
+    alive = np.ones(W, bool)   # slots still extending (EOS finishes one)
+    finished = []              # (sequence, score) hypotheses that hit EOS
+    first = True
+    for i in range(steps):
+        if max_length is not None and len(beams[0]) >= max_length:
+            break
+        logp = np.log(np.clip(out, 1e-12, None))               # [W, V]
+        if first:
+            # identical primed beams must diverge: top-W FIRST tokens of
+            # beam 0, not W copies of the argmax
+            top = np.argsort(logp[0])[::-1][:W]
+            parents, tokens, scores = np.zeros(W, np.int64), top, \
+                logp[0][top]
+            first = False
+            beams = [beams[p] + [int(t)] for p, t in zip(parents, tokens)]
+            alive, stop_now = _beam_finish(tokens, scores, alive, beams,
+                                           stop_tokens, finished, W)
+        else:
+            parents, tokens, scores, alive, beams, stop_now = \
+                _beam_update(logp, scores, alive, beams, stop_tokens,
+                             finished, W, V)
+        if stop_now:
+            break
+        more = i + 1 < steps and (max_length is None
+                                  or len(beams[0]) < max_length)
+        if more:
+            if not np.array_equal(parents, np.arange(W)):
+                reorder_stream_state(net, parents)   # inherit caches
+            out = step_tokens(net, np.array(tokens, np.int64))
+    live = [(beams[w], float(scores[w])) for w in range(W)
+            if alive[w] and np.isfinite(scores[w])]
+    pool = finished if finished else live
+    if not pool:
+        pool = [(beams[w], float(scores[w])) for w in range(W)]
+    best_seq, best_score = max(pool, key=lambda bs: bs[1])
+    return best_seq, best_score
+
+
+def _beam_finish(tokens, scores, alive, beams, stop_set, finished, W):
+    """The finishing / early-stop tail of one beam step: EOS hypotheses
+    move to ``finished`` and their slots die; the search is decided when
+    nothing live can beat the best finished. Returns (alive, stop)."""
+    stop = False
+    if stop_set:
+        alive = np.ones(W, bool)
+        for w, t in enumerate(tokens):
+            if int(t) in stop_set and np.isfinite(scores[w]):
+                finished.append((beams[w], float(scores[w])))
+                alive[w] = False
+        if not alive.any():
+            stop = True
+        elif finished:
+            best_fin = max(sc for _, sc in finished)
+            if scores[alive].max() <= best_fin:
+                stop = True
+    return alive, stop
+
+
+def _beam_update(logp, scores, alive, beams, stop_set, finished, W, V):
+    """One beam-search scoring update: the totals (finished slots at
+    -inf), the flat top W, then :func:`_beam_finish`. Returns (parents,
+    tokens, scores, alive, beams, stop). ``scores`` keeps the log-probs'
+    dtype (f32 from the net), as in the JAX package."""
+    total = scores[:, None] + logp
+    total[~alive] = -np.inf             # finished slots never extend
+    flat = np.argsort(total.ravel())[::-1][:W]
+    parents, tokens = np.divmod(flat, V)
+    scores = total.ravel()[flat]
+    beams = [beams[p] + [int(t)] for p, t in zip(parents, tokens)]
+    alive, stop = _beam_finish(tokens, scores, alive, beams, stop_set,
+                               finished, W)
+    return parents, tokens, scores, alive, beams, stop

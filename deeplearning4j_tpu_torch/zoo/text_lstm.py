@@ -7,9 +7,9 @@ softmax over the vocabulary, xavier weights, element-wise gradient
 clipping at 1, truncated BPTT in chunks of ``max_length`` steps, and
 ``RmsProp(1e-2)`` unless ``updater`` says otherwise. Every LSTM layer
 runs the recurrence kernels (``nn/layers/lstm_kernel.py``).
-``sample_stream`` generates through the stored-state ``rnn_time_step``
-path (``util/decoding.py``); batched and beam decoding are not ported
-yet (ROADMAP.md A7).
+``sample_stream`` and ``beam_search`` generate through the stored-state
+``rnn_time_step`` path (``util/decoding.py``); batched decoding waits
+for masked streaming (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -70,9 +70,20 @@ class TextGenerationLSTM(ZooModel):
                              stop_tokens=stop_tokens)
 
     def sample_stream_batch(self, *args, **kwargs):
-        raise NotImplementedError("batched decoding is not ported yet "
-                                  "(ROADMAP.md A7)")
+        raise NotImplementedError(
+            "batched decoding primes the prompts left-padded under a "
+            "carried mask: it waits for masked streaming (ROADMAP.md A6)")
 
-    def beam_search(self, *args, **kwargs):
-        raise NotImplementedError("beam search is not ported yet "
-                                  "(ROADMAP.md A7)")
+    def beam_search(self, net, seed_ids, steps: int, beam_width: int = 4,
+                    vocab_size: int = None, prime_padded: bool = False,
+                    stop_tokens=()):
+        """Beam search over the stored-state ``rnn_time_step`` path
+        (``util/decoding.beam_search``; the beams' h / c ride the batch
+        dimension; unbounded length). Returns (best token sequence, its
+        log-probability)."""
+        from deeplearning4j_tpu_torch.util.decoding import beam_search
+        return beam_search(net, seed_ids, steps,
+                           vocab_size or self.vocab_size,
+                           beam_width=beam_width, max_length=None,
+                           prime_padded=prime_padded,
+                           stop_tokens=stop_tokens)

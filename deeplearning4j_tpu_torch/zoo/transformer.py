@@ -113,3 +113,18 @@ class TextGenerationTransformer(ZooModel):
                              temperature=temperature, rng=rng,
                              max_length=self.max_length, top_k=top_k,
                              top_p=top_p, stop_tokens=stop_tokens)
+
+    def beam_search(self, net, seed_ids, steps: int, beam_width: int = 4,
+                    vocab_size: int = None, prime_padded: bool = False,
+                    stop_tokens=()):
+        """Beam search on the streaming KV cache
+        (``util/decoding.beam_search``: the beams ride the batch
+        dimension, pruning gathers the dense caches). Returns (best
+        token sequence, its log-probability)."""
+        from deeplearning4j_tpu_torch.util.decoding import beam_search
+        return beam_search(net, seed_ids, steps,
+                           vocab_size or self.vocab_size,
+                           beam_width=beam_width,
+                           max_length=self.max_length,
+                           prime_padded=prime_padded,
+                           stop_tokens=stop_tokens)

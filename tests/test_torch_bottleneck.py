@@ -30,6 +30,7 @@ import torch
 
 from deeplearning4j_tpu.nn.layers import bottleneck as jb
 from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -44,6 +44,7 @@ import torch
 from deeplearning4j_tpu.nn.layers import bottleneck as jb
 from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
 from test_torch_bottleneck import _block, _both, assert_bf16_flips
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_REL = 1e-5
 

@@ -27,6 +27,7 @@ from deeplearning4j_tpu.nn.layers.pallas_attention import (
     flash_attention as jax_flash, flash_attention_lse as jax_flash_lse)
 from deeplearning4j_tpu.parallel.sequence import reference_attention
 from deeplearning4j_tpu_torch.nn.layers import flash_attention as fa
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 F32_GRAD = dict(atol=5e-5, rtol=5e-5)

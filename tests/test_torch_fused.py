@@ -69,6 +69,7 @@ from deeplearning4j_tpu_torch.nn.updater import Sgd
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, state_to_numpy)
 from test_torch_bottleneck import assert_bf16_flips
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -49,6 +49,7 @@ from deeplearning4j_tpu_torch.tuning import apply_execution_plan
 from deeplearning4j_tpu_torch.util.convert import (
     params_to_numpy, state_to_numpy)
 from deeplearning4j_tpu_torch.zoo import ResNet50
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H = W = 64
 CLASSES = 10
@@ -460,6 +461,43 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
     assert len(ResNet50(num_classes=CLASSES, height=32, width=32,
                         data_format="NHWC", fuse="bottleneck")
                .init(device="cpu")._fusion()[1]) == 16
+
+
+@pytest.mark.parametrize("site", ["batch_norm", "bottleneck_stats"])
+def test_batch_stats_overflow_as_the_jax_package(site):
+    """Training's batch statistics take ``E[x^2] - mean^2`` in f32, as the
+    JAX package's do (``batch_norm``; the fused bottleneck's
+    ``_finalize_stats`` over the kernels' sums): once |x| passes about
+    1.8e19 the square overflows and that channel's variance is NaN in
+    both packages, the same channels. The previous test's fits diverge,
+    and which step reaches that range depends on the f32 summation
+    order: on two torch threads its fifth step's stage-4 conv output
+    passes it and the loss is NaN, in the port and in the JAX package
+    from the same trees (ROADMAP §C)."""
+    x = np.array([[0.5, 4.88e19, 1e18, -2.0],
+                  [1.5, 4.0e19, 3e18, 2.0]], np.float32)
+    if site == "batch_norm":
+        c = x.shape[1]
+        ones, zeros = np.ones(c, np.float32), np.zeros(c, np.float32)
+        _, _, got = tn.batch_norm(*(torch.from_numpy(a) for a in
+                                    (x, ones, zeros, zeros, ones)),
+                                  train=True)
+        _, _, want = jn.batch_norm(*(jnp.asarray(a) for a in
+                                     (x, ones, zeros, zeros, ones)),
+                                   train=True)
+    else:
+        from deeplearning4j_tpu.nn.layers import bottleneck as jb
+        from deeplearning4j_tpu_torch.nn.layers import bottleneck as tb
+        s1, s2 = tb._stats(torch.from_numpy(x))
+        _, got = tb._finalize_stats(s1, s2, x.shape[0])
+        xj = jnp.asarray(x)
+        _, want = jb._finalize_stats(xj.sum(0), (xj * xj).sum(0),
+                                     x.shape[0])
+    got, want = got.numpy(), np.asarray(want)
+    assert np.isnan(got).tolist() == np.isnan(want).tolist() == \
+        [False, True, False, False]
+    np.testing.assert_allclose(got[~np.isnan(got)], want[~np.isnan(want)],
+                               rtol=1e-6)
 
 
 def test_the_default_device_is_the_card(monkeypatch):

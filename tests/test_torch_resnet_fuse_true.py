@@ -39,6 +39,7 @@ from test_torch_resnet import _draw, calibrate_bn
 from test_torch_resnet_train import (
     JAX_LIMIT, PLANS_LIMIT, _fit, _port_net, check, train_both,
     update_err)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H = W = 64
 CLASSES = 10

@@ -54,6 +54,7 @@ from deeplearning4j_tpu_torch.util.convert import params_to_numpy
 from deeplearning4j_tpu_torch.zoo import ResNet50
 from test_torch_bottleneck import assert_bf16_flips
 from test_torch_resnet import _draw
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H = W = 64
 CLASSES, B, LR, STEPS = 10, 4, 1e-7, 2

@@ -13,6 +13,7 @@ step takes about half a minute to compile.
 import pytest
 
 from test_torch_resnet_train import JAX_LIMIT, check, train_both
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from test_torch_resnet import _draw
 from test_torch_resnet_train import (
     B, CLASSES, H, LR, STATE_LIMIT, W, _fit, _numpy, _port_net, check,
     update_err)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEM_LIMIT = 0.5
 

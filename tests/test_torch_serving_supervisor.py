@@ -558,18 +558,21 @@ def test_greedy_streams_are_unchanged_under_brownout(net, rung):
     fracs = (0.99, 0.98, 0.97) if rung == 3 else (0.99, 0.0, 0.0)
     eng = _spec_engine(net, fracs=fracs)
     widths = []
-    real = eng.net.rnn_time_step
+    # every forward's width, primes and dispatches alike: the host part
+    # of rnn_time_step that both run (the dispatch runs its device part
+    # as the decode graph's body)
+    real = eng.net._stream_begin
 
-    def record(x, *a, **kw):
-        widths.append(x.shape[-1])
-        return real(x, *a, **kw)
-    eng.net.rnn_time_step = record
+    def record(t):
+        widths.append(t)
+        return real(t)
+    eng.net._stream_begin = record
     try:
         hs = [eng.submit(p, steps=5, top_k=1, rng=np.random.default_rng(i))
               for i, p in enumerate(PROMPTS[:3])]
         eng.run_until_idle()
     finally:
-        del eng.net.rnn_time_step
+        del eng.net._stream_begin
     assert eng._brownout == rung
     assert _outs(hs) == want
     assert widths.count(3) == eng.dispatches   # every decode at 1 + gamma

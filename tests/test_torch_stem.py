@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.nn.layers import stem as ts
 
 from test_torch_bottleneck import (
     _bn, _both, _np, assert_bf16_flips, assert_sums_close)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SIZES = [(16, 16), (15, 17), (20, 9), (7, 7)]
 

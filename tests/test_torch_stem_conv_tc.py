@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.nn.layers import stem as ts
 from deeplearning4j_tpu_torch.nn.layers.flash_attention import agreement
 
 from test_torch_bottleneck import _both, assert_sums_close
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 #: the card's limits on a conv's output and its sums (chip_smoke.py
 #: CONV_ROW, CONV_TILE in bf16, CONV_SUMS)

@@ -28,6 +28,7 @@ from deeplearning4j_tpu.nn.layers import stem as js
 from deeplearning4j_tpu_torch.nn.layers import stem as ts
 
 from test_torch_bottleneck import DTYPES, _np, assert_bf16_flips
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 #: (n, ho, wo, k): the pool's input y
 SHAPES = [(2, 9, 13, 36), (2, 15, 17, 36), (1, 112, 112, 64)]

@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.nn.layers import stem as ts
 from deeplearning4j_tpu_torch.nn.layers.bottleneck import BnParams
 
 from test_torch_bottleneck import _both, _np, assert_bf16_flips
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SIZES = [(16, 16), (15, 17)]
 N, C, K = 2, 3, 8

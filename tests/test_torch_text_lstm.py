@@ -39,7 +39,8 @@ run.
   carrying each LSTM vertex's h / c, chunk by chunk, equal to the JAX
   graph's stream and to one-shot ``output``.
 - Entry points default to the card and raise without one; the left-out
-  parts raise NotImplementedError naming their ROADMAP.md items.
+  parts raise NotImplementedError naming their ROADMAP.md items; beam
+  search returns the JAX package's result.
 """
 
 import os
@@ -328,13 +329,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_left_out_parts_raise(nets):
-    _, tnet = nets
+    jnet, tnet = nets
     model = TextGenerationLSTM(vocab_size=V, hidden=H)
-    # the engine serves the LSTM now (tests/test_torch_serving_ledger.py)
-    for call in (lambda: model.sample_stream_batch(tnet, [[1]], 2),
-                 lambda: model.beam_search(tnet, [1], 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            call()
+    # the engine serves the LSTM now (tests/test_torch_serving_ledger.py);
+    # batched decoding primes under a carried mask (masked streaming)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        model.sample_stream_batch(tnet, [[1]], 2)
+    # beam search is ported: the JAX package's result
+    # (tests/test_torch_beam_search.py holds it at more cases)
+    seq, score = model.beam_search(tnet, [1], 2)
+    jseq, jscore = JaxLSTM(vocab_size=V, hidden=H).beam_search(jnet, [1], 2)
+    assert seq == jseq and abs(score - jscore) <= 1e-4
     x, y = _batch()
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         tnet.fit(DataSet(x, y, features_mask=np.ones((3, 12), np.float32)))
