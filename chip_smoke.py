@@ -70,7 +70,10 @@ Phases (any failure exits nonzero):
    row 15's kernel never; the pages the
    bf16 pool's byte budget buys under int8 (>= 1.9x); ``kv_dtype=
    "auto"`` resolving as a temporary store's verdicts imply; phase 5's
-   profile of the int8 engine's decode steps;
+   profile of the int8 engine's decode steps; with ``--calibrate`` (off
+   by default) the turns' verdict recorded
+   into ``KERNEL_CROSSOVER_TORCH.json`` and read back by a fresh
+   ``kv_dtype="auto"``;
 6c. int8 reference (``quant_reference``): in f32 with 2 layers, the
    int8 engine's greedy streams with the kernel equal those with its
    plain version swapped in, and a prefix hit equals a miss;
@@ -472,7 +475,9 @@ Phases (any failure exits nonzero):
     equal to the unperturbed run's, each flip a near-tie explained by a
     distribution within SURVIVE_LOGP, the rebuilds by cause, each
     rebuild's wall time, survivors and allocated bytes (back to the old
-    arena's), the paged kernel once a layer per dispatch and each
+    arena's, the int8 run's first rebuild with a free cached block a
+    pool's size plus 504 KiB planted before it: ROADMAP.md C9), the
+    paged kernel once a layer per dispatch and each
     capture's warm-up pass in each run's trace, the modeled KV
     bytes against the kernel's inputs' tally; a ``decode_retry`` run
     (no rebuild, streams equal), a zero budget
@@ -507,7 +512,24 @@ Phases (any failure exits nonzero):
     outside the graph pools back to the old arena's (REBUILD_BYTES);
 42. beam search (``beam``): the text LSTM at 4 beams for 64 steps, row
     17 twice a step at batch 4, f32 equal to the plain route, bf16
-    reported.
+    reported;
+43. model-draft speculation (``spec_model``): phase 4's served
+    transformer drafted by a one-layer one on the one-shot path,
+    ``speculative_sample`` at gamma 4, greedy and sampled: f32 greedy
+    tokens equal to ``sample_stream``'s or parting at a top-two gap
+    under SPEC_GAP, every verify distribution within SPEC_MODEL_LOGP of
+    one-shot ``output()``, sampled repeats equal with the rng state
+    before every draw; acceptance, target forwards a token and tokens/s
+    against ``sample_stream`` in bf16 turns; ``speculative_beam_search``
+    at 4 beams, prompt-lookup and model drafts, f32 equal to
+    ``beam_search``'s, bf16 reported. No kernel on this path (the
+    one-shot stream attends the dense cache in PyTorch);
+44. LeNet (``lenet``): the sequential CNN at full width on synthetic
+    MNIST behind a min-max normalizer, the K=4 graph fit bitwise the
+    eager fit, images/s graph against eager, ``evaluate`` above chance,
+    ``feed_forward``, the archive with its normalizer restored bitwise.
+    No kernel on this path (PyTorch's convolutions and pools, as the
+    JAX package's are XLA's).
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -2091,7 +2113,7 @@ def serve_turn(engine, requests, keep_outs=False, trace=False):
             **({"outs": outs} if keep_outs else {})}
 
 
-def serve_int8(device):
+def serve_int8(device, calibrate=False):
     """Phase 4's configuration with ``kv_dtype="int8"``: the same
     requests through the int8 engine and the bf16 engine in turns (int8,
     bf16, bf16, int8), then a traced int8 turn, in whose trace every
@@ -2099,7 +2121,12 @@ def serve_int8(device):
     kernel never; the pages the bf16
     pool's byte budget buys under int8; ``kv_dtype="auto"`` resolving as
     a temporary store's verdict implies (the turns' measured verdict,
-    another card's entry, a synthetic win)."""
+    another card's entry, a synthetic win). With ``calibrate``
+    (``--calibrate``; off by default, so the default run writes
+    nothing) the turns' verdict (ms a token, int8
+    against bf16) is also recorded into the store at
+    ``tuning/crossover.default_path()``, and a fresh load of that file
+    must make ``kv_dtype="auto"`` resolve as the verdict says."""
     import tempfile
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine, PagedKVConfig)
@@ -2186,10 +2213,34 @@ def serve_int8(device):
             if eng._kv_dtype != want:
                 raise AssertionError(f"kv_dtype='auto' with the {label} "
                                      f"store resolved {eng._kv_dtype}")
+    persisted = None
+    if calibrate:
+        from deeplearning4j_tpu_torch.tuning import record_quant_verdict
+        from deeplearning4j_tpu_torch.tuning.crossover import default_path
+        entry = record_quant_verdict(key, med["int8"]["tokens_per_s"],
+                                     med["bf16"]["tokens_per_s"],
+                                     device=device)
+        path = default_path()
+        reset_default_store(KernelCrossoverStore.load(path))
+        try:
+            eng = GenerationEngine(net, VOCAB, slots=SLOTS, device=device,
+                                   paging=PagedKVConfig(page_size=PAGE,
+                                                        kv_dtype="auto"))
+        finally:
+            reset_default_store(None)
+        want = "int8" if winner(entry) == "kernel" else "bf16"
+        persisted = {"path": path, "entry": entry, "kv_dtype": eng._kv_dtype,
+                     "want": want}
+        log("serve int8 persisted verdict:", json.dumps(persisted))
+        if eng._kv_dtype != want:
+            raise AssertionError(f"the persisted verdict resolved "
+                                 f"{eng._kv_dtype}, want {want}")
+        del eng
     del engines, e16, e8
     torch.cuda.empty_cache()
     rec = {"turns": turns, "counted_turns": counted_turns, "median": med,
            "pages": pages, "auto": auto, "quant_key": key,
+           "persisted": persisted,
            "launches": counted_turns["int8"]["launches"],
            "profile": profile_decode(device, np.random.default_rng(2),
                                      kv_dtype="int8")}
@@ -9551,10 +9602,15 @@ SURVIVE_GAP = SPEC_GAP
 #: a rebuild may keep at most this many allocated bytes outside the
 #: decode graphs' pools beyond the old arena's (its graph's token buffer
 #: is a 512-byte block of the default pool, freed with the graph). Less
-#: is no fault: the old arena is gone; one int8 rebuild (a seat fault at
-#: the run's first admissions) read 1,163,776 B under its old figure in
-#: one run on the card, unexplained (PERF.md §7)
+#: is no fault: the old arena is gone
 REBUILD_BYTES = 2048
+#: the C9 bait: a free cached block this much larger than one of the
+#: int8 pools, planted just before the supervised int8 run's first
+#: rebuild. The caching allocator hands a large request the smallest
+#: free block that fits, whole when less than 1 MiB would be left, and
+#: counts it whole: a rebuild that allocated the store anew read +515,584
+#: B with it (ROADMAP.md C9); the engine zeroes the store in place
+C9_BAIT_EXTRA = 516096
 #: the largest |log p| difference a survivor's distribution after a
 #: rebuild may show against the unperturbed run's at a context both
 #: share (bf16: one prefill against decode steps). Set from
@@ -9897,7 +9953,38 @@ def kv_admission_bytes(handles, kv):
     return total
 
 
-def timed_rebuilds(eng, out):
+def free_large_blocks():
+    """The sizes of the default pool's free large blocks."""
+    return sorted(b["size"] for seg in torch.cuda.memory_snapshot()
+                  if tuple(seg.get("segment_pool_id") or (0, 0)) == (0, 0)
+                  and seg["segment_type"] == "large"
+                  for b in seg["blocks"] if b["state"] == "inactive")
+
+
+def plant_bait(size):
+    """Leave a free block of exactly ``size`` bytes in the caching
+    allocator (the bait taken, the free rest of its segment taken by a
+    filler, the bait freed); returns (planted, the fillers to free after
+    the measurement)."""
+    fillers = []
+    for _ in range(4):
+        bait = torch.empty(size, dtype=torch.uint8, device="cuda")
+        seg = next(s for s in torch.cuda.memory_snapshot()
+                   if s["address"] <= bait.data_ptr()
+                   < s["address"] + s["total_size"])
+        off = seg["address"]
+        for b in seg["blocks"]:
+            if off == bait.data_ptr() + size and b["state"] == "inactive":
+                fillers.append(torch.empty(b["size"], dtype=torch.uint8,
+                                           device="cuda"))
+            off += b["size"]
+        del bait
+        if size in free_large_blocks():
+            return True, fillers
+    return False, fillers
+
+
+def timed_rebuilds(eng, out, bait=False):
     """Record each rebuild of ``eng``: its wall ms, its survivors, and
     the card's allocated bytes as it starts (the old arena still held)
     and as it ends (the new one primed), each with the part held in the
@@ -9907,7 +9994,10 @@ def timed_rebuilds(eng, out):
     cyclic collector off inside each rebuild, so a rebuild's bytes are
     its own (a collection inside one freed 201.7 MB of them in one run
     on the card), and the old arena must go by reference counts
-    alone."""
+    alone. With ``bait``, the first rebuild's record notes the C9 bait
+    planted just before it (``plant_bait``: a pool's bytes plus
+    C9_BAIT_EXTRA; its filler, held across the measurement, is freed
+    after it)."""
     import gc
     gc.collect()
     real = eng._quarantine_rebuild
@@ -9915,8 +10005,15 @@ def timed_rebuilds(eng, out):
     def timed(exc=None):
         was = gc.isenabled()
         gc.disable()
+        fillers = []
         try:
             torch.cuda.synchronize()
+            planted = None
+            if bait and not out:
+                size = eng._page_store[0].untyped_storage().nbytes() + \
+                    C9_BAIT_EXTRA
+                ok, fillers = plant_bait(size)
+                planted = {"bytes": size, "planted": ok}
             m0, g0, t0 = torch.cuda.memory_allocated(), \
                 graph_pool_bytes(), time.perf_counter()
             n = real(exc)
@@ -9926,8 +10023,10 @@ def timed_rebuilds(eng, out):
                         "graph_pool_before": g0,
                         "allocated_after": torch.cuda.memory_allocated(),
                         "graph_pool_after": graph_pool_bytes(),
-                        "graphs_after": len(eng._graphs)})
+                        "graphs_after": len(eng._graphs),
+                        **({"c9_bait": planted} if planted else {})})
         finally:
+            del fillers
             if was:
                 gc.enable()
         return n
@@ -9956,7 +10055,8 @@ def serve_survive(device, smi):
     (``explain_flips``: the rng's state exact, the distributions within
     SURVIVE_LOGP, each flip a near-tie the distance explains), the
     rebuilds by cause equal the faults, each rebuild's allocated bytes
-    come back to the old arena's (REBUILD_BYTES), in the supervised
+    come back to the old arena's (REBUILD_BYTES; the int8 run's first
+    rebuild with the C9 bait planted before it), in the supervised
     run's trace every successful dispatch launches the pool's paged
     kernel once a layer (and each capture's warm-up pass), and the
     modeled KV bytes of ``health()`` equal the tally of the kernel's own
@@ -10008,7 +10108,7 @@ def serve_survive(device, smi):
         seize = chaos.PageExhaustionInjector(eng.page_pool, n=SURVIVE_SEIZE)
         chain.parts.insert(0, seize)
         rebuilds, model = [], {"dispatch_bytes": 0}
-        timed_rebuilds(eng, rebuilds)
+        timed_rebuilds(eng, rebuilds, bait=kv == "int8")
         pool = pool_bytes(eng)
         bytes0 = eng.health()["kv_traffic"]["bytes_moved_total"]
         undo = kernel_kv_tally(eng, model)
@@ -10861,6 +10961,343 @@ def beam_phase(device, smi):
     return rec
 
 
+#: spec_model: the draft's depth and seed, gamma, the prompt's and the
+#: generation's lengths, the sampled runs' temperature; the largest |log
+#: p| gap an f32 verify distribution may show against one-shot
+#: ``output()`` over the committed ids (sound: ~1e-5; a stale or
+#: unrewound cache reads O(1e-1), see SURVIVE_LOGP); the beam part's
+#: width, steps, output-layer peak (no near ties in f32) and score limit
+SPEC_MODEL_DRAFT, SPEC_MODEL_DRAFT_SEED, SPEC_MODEL_GAMMA = 1, 17, 4
+SPEC_MODEL_PROMPT, SPEC_MODEL_TOKENS, SPEC_MODEL_TEMP = 64, 96, 1.0
+SPEC_MODEL_LOGP = 1e-3
+SPEC_BEAM_W, SPEC_BEAM_STEPS, SPEC_BEAM_PEAK = 4, 24, 4.0
+SPEC_BEAM_ATOL = 1e-4
+
+
+class RecordingRng:
+    """A numpy Generator's stand-in for the decoders: forwards
+    ``choice`` and ``random`` and keeps the bit generator's state before
+    each draw."""
+
+    def __init__(self, seed):
+        self.gen = np.random.default_rng(seed)
+        self.states = []
+
+    def _keep(self, kind):
+        self.states.append(
+            f"{kind}:{self.gen.bit_generator.state['state']['state']}")
+
+    def choice(self, *a, **kw):
+        self._keep("choice")
+        return self.gen.choice(*a, **kw)
+
+    def random(self, *a, **kw):
+        self._keep("random")
+        return self.gen.random(*a, **kw)
+
+
+def spec_probe(net):
+    """Patch the decoders' ``verify_tokens`` and ``accept_proposals`` to
+    keep, for ``net``'s verify forwards, each chunk's first stream
+    position, tokens and distributions, and every acceptance walk's
+    (proposed, accepted); returns (record, undo)."""
+    from deeplearning4j_tpu_torch.util import decoding
+    real_v, real_a = decoding.verify_tokens, decoding.accept_proposals
+    rec = {"verifies": [], "walks": []}
+
+    def verify(n, chunks):
+        pos = max(n._stream_pos_map.values(), default=0) \
+            if hasattr(n, "_stream_pos_map") else n._stream_pos
+        out = real_v(n, chunks)
+        if n is net:
+            rec["verifies"].append((pos, np.asarray(chunks)[0].tolist(),
+                                    out[0]))
+        return out
+
+    def accept(proposals, *a):
+        got = real_a(proposals, *a)
+        rec["walks"].append((len(proposals), got[0]))
+        return got
+    decoding.verify_tokens, decoding.accept_proposals = verify, accept
+
+    def undo():
+        decoding.verify_tokens, decoding.accept_proposals = real_v, real_a
+    return rec, undo
+
+
+def verify_logp_gap(net, ids, verifies):
+    """The largest |log p| difference between each verify forward's
+    distribution at a committed context (the chunk's prefix is the
+    committed ids there) and one-shot ``output()`` over the ids."""
+    from deeplearning4j_tpu_torch.util.decoding import _one_hot
+    net.rnn_clear_previous_state()
+    ref = net.output(_one_hot(net, [ids[:-1]]))[0].float().cpu().numpy()
+    worst, n = 0.0, 0
+    for pos, chunk, tp in verifies:
+        for j in range(len(chunk)):
+            if pos + j + 1 >= len(ids) or chunk[:j + 1] != \
+                    ids[pos:pos + j + 1]:
+                break
+            worst = max(worst, float(np.max(np.abs(
+                np.log(np.clip(tp[:, j], 1e-30, None))
+                - np.log(np.clip(ref[:, pos + j], 1e-30, None))))))
+            n += 1
+    return worst, n
+
+
+def spec_model_phase(device, smi):
+    """Model-draft speculation on the one-shot path: phase 4's served
+    rope transformer at full width as the target, the same constructor
+    with SPEC_MODEL_DRAFT layers and another seed as the draft.
+    ``speculative_sample`` at gamma SPEC_MODEL_GAMMA, greedy and sampled:
+    in f32 the greedy tokens equal ``sample_stream``'s or first part at a
+    top-two gap under SPEC_GAP; every verify distribution at a committed
+    context within SPEC_MODEL_LOGP of one-shot ``output()``; two sampled
+    runs give the same tokens and the same rng state before every draw.
+    Target forwards a committed token, acceptance, and tokens/s against
+    ``sample_stream`` in bf16 turns (spec, plain, plain, spec). Then
+    ``speculative_beam_search`` at SPEC_BEAM_W beams with the
+    prompt-lookup proposer and with the model draft: in f32 (output
+    weights peaked by SPEC_BEAM_PEAK) the sequence equal to
+    ``beam_search``'s and the score within SPEC_BEAM_ATOL; bf16
+    reported."""
+    from deeplearning4j_tpu_torch.util import decoding
+    rng = np.random.default_rng(13)
+    pattern = [int(t) for t in rng.integers(1, VOCAB, 16)]
+    prompt = (pattern * (SPEC_MODEL_PROMPT // 16 + 1))[:SPEC_MODEL_PROMPT]
+    rec = {"card": smi, "gamma": SPEC_MODEL_GAMMA,
+           "draft_layers": SPEC_MODEL_DRAFT, "tokens": SPEC_MODEL_TOKENS,
+           "logp_limit": SPEC_MODEL_LOGP}
+    failures = []
+    modes = {"greedy": {"top_k": 1},
+             "sampled": {"temperature": SPEC_MODEL_TEMP}}
+
+    def spec(net, draft, kw, seed=0):
+        probe, undo = spec_probe(net)
+        r = RecordingRng(seed)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = decoding.speculative_sample(
+                net, draft, prompt, SPEC_MODEL_TOKENS, VOCAB,
+                gamma=SPEC_MODEL_GAMMA, rng=r, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            undo()
+        new = len(ids) - len(prompt)
+        proposed = sum(p for p, _ in probe["walks"])
+        accepted = sum(a for _, a in probe["walks"])
+        return ids, {"wall_s": dt, "tokens_per_s": new / dt,
+                     "target_forwards": 1 + len(probe["verifies"]),
+                     "target_forwards_per_token":
+                         (1 + len(probe["verifies"])) / new,
+                     "acceptance": accepted / max(1, proposed),
+                     "rng_draws": len(r.states)}, probe, r.states
+
+    def plain(net, kw, seed=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = decoding.sample_stream(net, prompt, SPEC_MODEL_TOKENS, VOCAB,
+                                     rng=np.random.default_rng(seed), **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return ids, {"wall_s": dt,
+                     "tokens_per_s": (len(ids) - len(prompt)) / dt}
+
+    # f32: the correctness gates
+    _, net = served_net(device, dtype="float32")
+    _, draft = served_net(device, layers=SPEC_MODEL_DRAFT, dtype="float32",
+                          seed=SPEC_MODEL_DRAFT_SEED)
+    f32 = rec["f32"] = {}
+    for mode, kw in modes.items():
+        ids, r, probe, states = spec(net, draft, kw)
+        gap, n = verify_logp_gap(net, ids, probe["verifies"])
+        r.update(verify_logp_max=gap, verify_positions=n)
+        if n == 0 or gap > SPEC_MODEL_LOGP:
+            failures.append(f"f32 {mode}: verify |log p| {gap} over {n} "
+                            "positions")
+        if mode == "greedy":
+            pids, _ = plain(net, kw)
+            d, margin = first_flip(net, pids, ids, prompt, kw, 0)
+            r.update(equal_to_sample_stream=ids == pids, first=d,
+                     margin=margin)
+            if d is not None and margin >= SPEC_GAP:
+                failures.append(f"f32 greedy: parts from sample_stream at "
+                                f"{d}, top-two gap {margin}")
+        else:
+            ids2, _, _, states2 = spec(net, draft, kw)
+            r.update(repeat_equal=ids2 == ids,
+                     rng_states_equal=states2 == states)
+            if ids2 != ids or states2 != states:
+                failures.append("f32 sampled: a repeat parts (tokens or "
+                                "the rng states before the draws)")
+        f32[mode] = r
+    # the beam search, f32 with peaked output weights
+    with torch.no_grad():
+        net.params["out"]["W"].mul_(SPEC_BEAM_PEAK)
+    net._compute = None
+    beam = rec["beam_f32"] = {}
+    want = decoding.beam_search(net, prompt, SPEC_BEAM_STEPS, VOCAB,
+                                beam_width=SPEC_BEAM_W)
+    for name, d in (("lookup", decoding.prompt_lookup_proposer(SPEC_NGRAM)),
+                    ("model", draft)):
+        probe, undo = spec_probe(net)
+        try:
+            got = decoding.speculative_beam_search(
+                net, d, prompt, SPEC_BEAM_STEPS, VOCAB,
+                beam_width=SPEC_BEAM_W, gamma=SPEC_MODEL_GAMMA)
+        finally:
+            undo()
+        beam[name] = {"sequence_equal": got[0] == want[0],
+                      "score": got[1], "beam_search_score": want[1],
+                      "target_forwards": 1 + len(probe["verifies"])}
+        if got[0] != want[0] or abs(got[1] - want[1]) > SPEC_BEAM_ATOL:
+            failures.append(f"f32 beam {name}: {got[0][len(prompt):]} "
+                            f"{got[1]} against {want[0][len(prompt):]} "
+                            f"{want[1]}")
+    del net, draft
+    torch.cuda.empty_cache()
+    # bf16: tokens/s in turns, then the beam search reported
+    _, net = served_net(device)
+    _, draft = served_net(device, layers=SPEC_MODEL_DRAFT,
+                          seed=SPEC_MODEL_DRAFT_SEED)
+    spec(net, draft, modes["greedy"])                       # warm
+    bf16 = rec["bf16"] = {}
+    for mode, kw in modes.items():
+        turns = {"spec": [], "plain": []}
+        for kind in ("spec", "plain", "plain", "spec"):
+            turns[kind].append(spec(net, draft, kw)[1] if kind == "spec"
+                               else plain(net, kw)[1])
+        bf16[mode] = {
+            "spec_tokens_per_s": [t["tokens_per_s"] for t in turns["spec"]],
+            "plain_tokens_per_s": [t["tokens_per_s"]
+                                   for t in turns["plain"]],
+            "target_forwards_per_token":
+                turns["spec"][0]["target_forwards_per_token"],
+            "acceptance": turns["spec"][0]["acceptance"]}
+    with torch.no_grad():
+        net.params["out"]["W"].mul_(SPEC_BEAM_PEAK)
+    net._compute = None
+    want = decoding.beam_search(net, prompt, SPEC_BEAM_STEPS, VOCAB,
+                                beam_width=SPEC_BEAM_W)
+    rec["beam_bf16"] = {}
+    for name, d in (("lookup", decoding.prompt_lookup_proposer(SPEC_NGRAM)),
+                    ("model", draft)):
+        got = decoding.speculative_beam_search(
+            net, d, prompt, SPEC_BEAM_STEPS, VOCAB, beam_width=SPEC_BEAM_W,
+            gamma=SPEC_MODEL_GAMMA)
+        rec["beam_bf16"][name] = {"sequence_equal": got[0] == want[0],
+                                  "score": got[1],
+                                  "beam_search_score": want[1]}
+    del net, draft
+    torch.cuda.empty_cache()
+    log("spec_model:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"spec_model: {failures}")
+    return rec
+
+
+#: lenet: the batch, the batches a fit, K; the evaluation's examples
+LENET_B, LENET_BATCHES, LENET_K, LENET_EVAL = 64, 32, 4, 1024
+
+
+def lenet_phase(device, smi):
+    """LeNet (``zoo/lenet.py``) at full width (28x28x1, 20 and 50
+    channels, dense 500, 10 classes) on the synthetic MNIST iterator
+    (LENET_BATCHES batches of LENET_B), features through a
+    ``NormalizerMinMaxScaler`` fitted on it: two eager fits and a
+    ``steps_per_dispatch=LENET_K`` graph fit from the same start, bitwise
+    equal (cuDNN deterministic); images/s and ms a step, graph against
+    eager in turns (graph, eager, eager, graph); ``evaluate`` on a held-out
+    synthetic set above chance; ``feed_forward`` (six activations, the
+    last ``output()``'s bitwise); the archive with the normalizer
+    embedded restored on the card: parameters, output and the
+    normalizer's transform bitwise."""
+    import tempfile
+    from deeplearning4j_tpu_torch.datasets import (
+        ArrayDataSetIterator, MnistDataSetIterator, NormalizerMinMaxScaler)
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    it = MnistDataSetIterator(LENET_B, synthetic=True, flatten=False,
+                              num_examples=LENET_B * LENET_BATCHES,
+                              shuffle=False)
+    norm = NormalizerMinMaxScaler().fit(it)
+    x, y = norm.transform(it.features), it.labels
+    held = MnistDataSetIterator(LENET_B, train=False, synthetic=True,
+                                flatten=False, num_examples=LENET_EVAL,
+                                seed=7)
+    xt, yt = norm.transform(held.features), held.labels
+    rec = {"card": smi, "batch": LENET_B, "batches": LENET_BATCHES,
+           "k": LENET_K}
+    failures = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = LeNet().init(device=device)
+        init = start_of(net)
+        e1 = run_fit(net, x, y, LENET_B, init, 1, 0, True)
+        e2 = run_fit(net, x, y, LENET_B, init, 1, 0, True)
+        g1 = run_fit(net, x, y, LENET_B, init, LENET_K)
+        gate = eager_gate(e1, e2, g1)
+        turns = {"graph": [], "eager": []}
+        for kind in ("graph", "eager", "eager", "graph"):
+            kp = (LENET_K,) if kind == "graph" else (1, 0, True)
+            turns[kind].append(run_fit(net, x, y, LENET_B, init, *kp))
+        gate_replayed = eager_gate(e1, e2, turns["graph"][0])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    ms_step = {k: [r["step_ms"] for r in v] for k, v in turns.items()}
+    rec.update(gate_first_graph_fit=gate, gate_replayed_graph_fit=gate_replayed,
+               step_ms=ms_step,
+               images_per_s={k: [1e3 * LENET_B / m for m in v]
+                             for k, v in ms_step.items()},
+               graph_dispatch=turns["graph"][0]["dispatch"],
+               losses=e1["losses"])
+    if not (gate["held"] and gate["graph_bitwise"]
+            and gate_replayed["held"]):
+        failures.append(f"graph fit against eager {gate} {gate_replayed}")
+    ev = net.evaluate(ArrayDataSetIterator(xt, yt, 256))
+    rec["accuracy"] = ev.accuracy()
+    if not rec["accuracy"] > 0.2:
+        failures.append(f"accuracy {rec['accuracy']} after one epoch")
+    acts = net.feed_forward(xt[:LENET_B])
+    out = net.output(xt[:LENET_B])
+    rec["feed_forward_shapes"] = [list(a.shape) for a in acts]
+    if len(acts) != 6 or not torch.equal(acts[-1], out) or not all(
+            bool(torch.isfinite(a).all()) for a in acts):
+        failures.append(f"feed_forward {rec['feed_forward_shapes']}")
+    with tempfile.TemporaryDirectory(prefix="dl4j_lenet_") as tmp:
+        path = os.path.join(tmp, "lenet.zip")
+        t0 = time.perf_counter()
+        ms.write_model(net, path)
+        ms.add_normalizer_to_model(path, norm)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ms.restore_model(path, device=device)
+        norm2 = ms.restore_normalizer_from_file(path)
+        restore_s = time.perf_counter() - t0
+        raw = it.features[:LENET_B]
+        same = {
+            "params": all(torch.equal(a, b) for a, b in zip(
+                tensor_leaves((net.params,)), tensor_leaves((back.params,)),
+                strict=True)),
+            "output": bool(torch.equal(back.output(xt[:LENET_B]), out)),
+            "normalizer": type(norm2).__name__ == type(norm).__name__
+            and bool(np.array_equal(norm2.transform(raw),
+                                    norm.transform(raw)))}
+        rec["archive"] = {"write_s": write_s, "restore_s": restore_s,
+                          "bytes": os.path.getsize(path), "bitwise": same}
+        if not all(same.values()):
+            failures.append(f"archive {same}")
+    del net, back
+    torch.cuda.empty_cache()
+    log("lenet:", json.dumps(rec))
+    if failures:
+        raise AssertionError(f"lenet: {failures}")
+    return rec
+
+
 def build_all():
     """Build every kernel library, one nvcc each, all started together;
     returns (seconds, {library: ptxas lines})."""
@@ -10928,6 +11365,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", help="a comma-separated subset of the "
                     "phases to run (by their phase_s names; debugging): "
                     "no kernels line and no result line")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="record serve_int8's measured int8 verdict into "
+                    "the kernel-crossover store (KERNEL_CROSSOVER_TORCH."
+                    "json) for kv_dtype='auto' (the reference's "
+                    "BENCH_CALIBRATE=1 run); off by default")
     ap.add_argument("--durable-child", choices=("kill", "resume"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--durable-dir", help=argparse.SUPPRESS)
@@ -10999,7 +11441,8 @@ def main(argv=None) -> int:
         log("profile:", json.dumps({**out["profile"], "card": smi}))
         out["reference"] = phase("reference", reference, device, rng)
     if want("serve_int8"):
-        out["serve_int8"] = phase("serve_int8", serve_int8, device)
+        out["serve_int8"] = phase("serve_int8", serve_int8, device,
+                                  args.calibrate)
         log("serve int8 medians:", json.dumps({**out["serve_int8"]["median"],
                                                "card": smi}))
         out["quant_reference"] = phase("quant_reference", quant_reference,
@@ -11159,6 +11602,11 @@ def main(argv=None) -> int:
         out["serve_graph"] = phase("serve_graph", serve_graph, device, smi)
     if want("beam"):
         out["beam"] = phase("beam", beam_phase, device, smi)
+    if want("spec_model"):
+        out["spec_model"] = phase("spec_model", spec_model_phase, device,
+                                  smi)
+    if want("lenet"):
+        out["lenet"] = phase("lenet", lenet_phase, device, smi)
     graph_recs = {k: out[k] for k in ("fit_graph_transformer",
                                       "fit_graph_resnet") if k in out}
     if graph_recs:
@@ -11176,6 +11624,7 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s (a partial run: no "
             f"kernels line, no result line)")
         if args.json:
+            out.update(phase_s=phase_s)
             with open(args.json, "w") as f:
                 json.dump(out, f, indent=1)
         return 0

@@ -525,13 +525,14 @@ class SubsamplingLayer(LayerConf):
     def apply(self, params, x, state, *, train=False, gen=None):
         k, s, p = _pair(self.kernel), _pair(self.stride), _pair(self.padding)
         pt = self.pooling_type.lower()
-        args = (x, k, s, p, self.convolution_mode, self.data_format)
+        args = (x, k, s, p, self.convolution_mode)
+        df = {"data_format": self.data_format}
         if pt == "max":
-            return _conv.max_pool2d(*args), state
+            return _conv.max_pool2d(*args, **df), state
         if pt == "avg":
-            return _conv.avg_pool2d(*args), state
+            return _conv.avg_pool2d(*args, **df), state
         if pt == "sum":
-            return _conv.avg_pool2d(*args) * (k[0] * k[1]), state
+            return _conv.avg_pool2d(*args, **df) * (k[0] * k[1]), state
         if pt == "pnorm":
             raise NotImplementedError("pnorm pooling is not ported yet "
                                       "(ROADMAP.md A11)")

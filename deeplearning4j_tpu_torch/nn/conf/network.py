@@ -8,21 +8,20 @@ go to the network; ``graph_builder()`` yields a
 switches the CNN stack's internal layout, and ``list()`` a
 ``ListBuilder`` for a sequential ``MultiLayerConfiguration`` (with
 truncated BPTT, ``tbptt``). Building a list with an input type walks
-the layers once (:func:`_infer_shapes_and_preprocessors`): each layer's
-``n_in`` is filled from the type reaching it, and a layer whose input
-kind differs from the one it expects would get a shape adapter
-(:func:`infer_preprocessor`); the recurrent stack needs none (recurrent
-in, recurrent out), and the adapters between kinds are refused with
-the sequential network's other preprocessors (ROADMAP.md A2, with LeNet
-on this network). The builder's global defaults are the JAX package's:
+the layers once (:func:`_infer_shapes_and_preprocessors`): a layer
+whose input kind differs from the one it expects gets a shape adapter
+(:func:`infer_preprocessor`, the JAX package's rule: CNN to feed-forward
+and RNN to feed-forward are inserted, feed-forward to CNN must be given
+with ``input_preprocessor``), and each layer's ``n_in`` is filled from
+the type reaching it. The builder's global defaults are the JAX package's:
 weight init, its ``dist``, activation (parameterized layers only), L1 /
 L2, bias init and dropout; ``learning_rate`` sets the updater's.
 
 Both configurations read and write the JAX package's JSON (``to_dict``
-/ ``to_json``, ``from_dict`` / ``from_json``), key for key. The JAX
-fields the port does not carry (a sequential network's preprocessors,
-``backprop`` and ``pretrain``) are written at their JAX defaults and
-read only at them. A graph carries its truncated-BPTT lengths as the
+/ ``to_json``, ``from_dict`` / ``from_json``), key for key, a sequential
+network's preprocessors included. The JAX fields the port does not carry
+(``backprop`` and ``pretrain``: layer-wise pretraining, ROADMAP.md A11)
+are written at their JAX defaults and read only at them. A graph carries its truncated-BPTT lengths as the
 JAX graph does: as fields, with no truncated-BPTT ``fit``.
 """
 
@@ -38,7 +37,9 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     BaseLayerConf, FeedForwardLayerConf, LayerConf, layer_from_dict,
     layer_to_dict)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
-    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
+    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor, Preprocessor,
+    RnnToFeedForwardPreProcessor, preprocessor_from_dict,
+    preprocessor_to_dict)
 from deeplearning4j_tpu_torch.nn.updater import (
     Sgd, Updater, updater_from_dict, updater_to_dict)
 
@@ -46,12 +47,18 @@ __all__ = ["ComputationGraphConfiguration", "ListBuilder",
            "MultiLayerConfiguration", "NeuralNetConfiguration",
            "apply_global_defaults", "infer_preprocessor"]
 
-#: the input kind each ported layer family expects; other layers take any
+#: the input kind each layer family expects (the JAX package's table);
+#: other layers take any
 _EXPECTS = {
-    "ff": {"DenseLayer", "OutputLayer", "BatchNormalization"},
-    "cnn": {"ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer"},
-    "rnn": {"LSTM", "GravesLSTM", "GravesBidirectionalLSTM",
-            "RnnOutputLayer", "Convolution1DLayer"},
+    "ff": {"DenseLayer", "OutputLayer", "EmbeddingLayer", "AutoEncoder",
+           "CenterLossOutputLayer", "BatchNormalization",
+           "VariationalAutoencoder"},
+    "cnn": {"ConvolutionLayer", "SubsamplingLayer", "Upsampling2DLayer",
+            "ZeroPaddingLayer", "LocalResponseNormalization",
+            "Deconvolution2DLayer", "Yolo2OutputLayer", "SpaceToDepthLayer"},
+    "rnn": {"LSTM", "GravesLSTM", "GravesBidirectionalLSTM", "SimpleRnn",
+            "RnnOutputLayer", "Convolution1DLayer", "Subsampling1DLayer",
+            "LastTimeStepLayer", "ZeroPadding1DLayer", "Upsampling1DLayer"},
 }
 
 
@@ -71,30 +78,48 @@ def apply_global_defaults(layer: LayerConf, defaults: Dict[str, Any]) -> None:
             setattr(layer, k, v)
 
 
-def infer_preprocessor(it: InputType, layer: LayerConf):
+def infer_preprocessor(it: InputType, layer: LayerConf
+                       ) -> Optional[Preprocessor]:
     """The shape adapter a layer needs between the input type reaching it
-    and the kind it expects: None where they agree (BatchNormalization
-    takes feed-forward and CNN input as it is); the adapters between
-    kinds (CNN to feed-forward, feed-forward to CNN, RNN to
-    feed-forward) are not ported yet, so every other case raises."""
+    and the kind it expects (the JAX package's rule): None where they
+    agree (BatchNormalization takes feed-forward and CNN input as it
+    is), CNN to feed-forward, a flattened CNN to CNN and RNN to
+    feed-forward inserted; feed-forward to CNN has no shape to infer and
+    raises, as does every other pair."""
     name = type(layer).__name__
     want = next((k for k, names in _EXPECTS.items() if name in names), None)
-    if want is None or want == it.kind:
+    if want is None:
         return None
-    if name == "BatchNormalization" and it.kind in ("ff", "cnn"):
+    have = "ff" if it.kind == "cnn_flat" else it.kind
+    if name == "BatchNormalization" and have in ("ff", "cnn"):
         return None
-    raise NotImplementedError(
-        f"a {it.kind} input to {name} needs a shape adapter; the sequential "
-        "network's preprocessors other than the recurrent stack's are not "
-        "ported yet (ROADMAP.md A2)")
+    if have == want:
+        return None
+    if it.kind == "cnn_flat" and want == "cnn":
+        return FeedForwardToCnnPreProcessor(it.height, it.width, it.channels)
+    if have == "cnn" and want == "ff":
+        return CnnToFeedForwardPreProcessor(it.height, it.width, it.channels)
+    if have == "ff" and want == "cnn":
+        raise ValueError(
+            "Cannot infer FeedForwardToCnn preprocessor shape automatically; "
+            "add it explicitly")
+    if have == "rnn" and want == "ff":
+        return RnnToFeedForwardPreProcessor()
+    raise ValueError(f"No automatic preprocessor from {it} to {name}")
 
 
 def _infer_shapes_and_preprocessors(conf: "MultiLayerConfiguration") -> None:
-    """Walk the net once: check that no layer needs a preprocessor and
-    fill the ``n_in`` fields from the input type reaching each layer."""
+    """Walk the net once: insert the preprocessors a layer needs (one
+    given for that index stays) and fill the ``n_in`` fields from the
+    input type reaching each layer."""
     it = conf.input_type
-    for layer in conf.layers:
-        infer_preprocessor(it, layer)
+    for i, layer in enumerate(conf.layers):
+        if i not in conf.preprocessors:
+            pre = infer_preprocessor(it, layer)
+            if pre is not None:
+                conf.preprocessors[i] = pre
+        if i in conf.preprocessors:
+            it = conf.preprocessors[i].output_type(it)
         if isinstance(layer, FeedForwardLayerConf) and layer.n_in is None:
             layer.n_in = it.channels if it.kind == "cnn" else it.flat_size()
         it = layer.output_type(it)
@@ -113,8 +138,9 @@ def _check_absent(what: str, d: dict, absent: dict, roadmap: str) -> None:
 @dataclass
 class MultiLayerConfiguration:
     """Sequential net config, built through
-    ``NeuralNetConfiguration.Builder().list()``: the layers, the input
-    type, and the training settings (``tbptt`` with
+    ``NeuralNetConfiguration.Builder().list()``: the layers, the
+    preprocessors by layer index (each applied to that layer's input),
+    the input type, and the training settings (``tbptt`` with
     ``tbptt_fwd_length``: ``fit`` splits each ``[N, C, T]`` batch into
     chunks of that many steps and carries the recurrent state across
     them; ``tbptt_back_length`` is carried as the JAX package carries
@@ -122,6 +148,7 @@ class MultiLayerConfiguration:
     as for a graph."""
 
     layers: List[LayerConf] = field(default_factory=list)
+    preprocessors: Dict[int, Preprocessor] = field(default_factory=dict)
     input_type: Optional[InputType] = None
     seed: int = 12345
     updater: Updater = field(default_factory=lambda: Sgd(0.1))
@@ -133,12 +160,15 @@ class MultiLayerConfiguration:
     dtype: str = "float32"
 
     def layer_input_types(self) -> List[InputType]:
-        """The input type each layer sees."""
+        """The input type each layer sees (after its preprocessor)."""
         if self.input_type is None:
             raise ValueError("input_type not set; call set_input_type or "
                              "provide n_in")
         it, out = self.input_type, []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            pre = self.preprocessors.get(i)
+            if pre is not None:
+                it = pre.output_type(it)
             out.append(it)
             it = layer.output_type(it)
         return out
@@ -148,13 +178,14 @@ class MultiLayerConfiguration:
         return self.layers[-1].output_type(its[-1])
 
     #: the JAX fields this conf lacks, at the defaults they are read at
-    _ABSENT = {"preprocessors": {}, "backprop": True, "pretrain": False}
+    _ABSENT = {"backprop": True, "pretrain": False}
 
     def to_dict(self) -> dict:
         """The JAX package's JSON form, key for key."""
         return {
             "layers": [layer_to_dict(layer) for layer in self.layers],
-            "preprocessors": {},
+            "preprocessors": {str(k): preprocessor_to_dict(v)
+                              for k, v in self.preprocessors.items()},
             "input_type": self.input_type.to_dict() if self.input_type
             else None,
             "seed": self.seed,
@@ -176,12 +207,14 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_dict(d: dict) -> "MultiLayerConfiguration":
         """The inverse of :meth:`to_dict`, with the JAX package's
-        defaults for missing keys. Preprocessors and layer-wise
-        pretraining (``backprop`` off) are refused (ROADMAP.md A2)."""
+        defaults for missing keys. Layer-wise pretraining (``backprop``
+        off, ``pretrain`` on) is refused (ROADMAP.md A11)."""
         _check_absent("MultiLayerConfiguration", d,
-                      MultiLayerConfiguration._ABSENT, "A2")
+                      MultiLayerConfiguration._ABSENT, "A11")
         return MultiLayerConfiguration(
             layers=[layer_from_dict(x) for x in d["layers"]],
+            preprocessors={int(k): preprocessor_from_dict(v)
+                           for k, v in d.get("preprocessors", {}).items()},
             input_type=InputType.from_dict(d["input_type"])
             if d.get("input_type") else None,
             seed=d.get("seed", 12345),
@@ -201,12 +234,13 @@ class MultiLayerConfiguration:
 
 
 class ListBuilder:
-    """Sequential-net builder: ``layer``, ``set_input_type``, ``tbptt``
-    and ``build``."""
+    """Sequential-net builder: ``layer``, ``input_preprocessor``,
+    ``set_input_type``, ``tbptt`` and ``build``."""
 
     def __init__(self, parent: "NeuralNetConfiguration.Builder"):
         self._parent = parent
         self._layers: List[LayerConf] = []
+        self._preprocessors: Dict[int, Preprocessor] = {}
         self._input_type: Optional[InputType] = None
         self._tbptt = False
         self._tbptt_fwd = 20
@@ -215,6 +249,12 @@ class ListBuilder:
     def layer(self, *args):
         """``layer(conf)`` or ``layer(index, conf)``."""
         self._layers.append(args[-1])
+        return self
+
+    def input_preprocessor(self, index: int, pre: Preprocessor):
+        """Apply ``pre`` to layer ``index``'s input (inference leaves an
+        index given here alone)."""
+        self._preprocessors[int(index)] = pre
         return self
 
     def set_input_type(self, it: InputType):
@@ -234,7 +274,8 @@ class ListBuilder:
         for layer in self._layers:
             apply_global_defaults(layer, g._defaults)
         conf = MultiLayerConfiguration(
-            layers=self._layers, input_type=self._input_type, seed=g._seed,
+            layers=self._layers, preprocessors=dict(self._preprocessors),
+            input_type=self._input_type, seed=g._seed,
             updater=g._updater, tbptt=self._tbptt,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back,

@@ -1,13 +1,15 @@
 """Input preprocessors: the shape adapters between layer families.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``, with the
-two CNN adapters: ``FeedForwardToCnnPreProcessor`` (the entry transpose
-``use_cnn_data_format("NHWC")`` installs: public NCHW in, internal NHWC
-out) and ``CnnToFeedForwardPreProcessor`` (flatten in DL4J's NCHW
-order), and their JSON form (:func:`preprocessor_to_dict`,
+Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``, all six:
+CNN to feed-forward and back (``FeedForwardToCnnPreProcessor`` is also
+the entry transpose ``use_cnn_data_format("NHWC")`` installs: public
+NCHW in, internal NHWC out), RNN to feed-forward and back, CNN to RNN
+and back, and their JSON form (:func:`preprocessor_to_dict`,
 :func:`preprocessor_from_dict`: the JAX package's ``{"@class": name,
-field: value}``). The RNN adapters port with the sequential network's
-breadth (ROADMAP.md A2).
+field: value}``). Each is a reshape / permute; autograd gives the
+backward. Layouts: feed-forward ``[N, F]``, CNN ``[N, C, H, W]``, RNN
+``[N, F, T]``. A mask through a preprocessor is refused with the other
+masks (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ from dataclasses import dataclass
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
-__all__ = ["CnnToFeedForwardPreProcessor", "FeedForwardToCnnPreProcessor",
-           "PREPROCESSOR_REGISTRY", "Preprocessor", "preprocessor_from_dict",
+__all__ = ["CnnToFeedForwardPreProcessor", "CnnToRnnPreProcessor",
+           "FeedForwardToCnnPreProcessor", "FeedForwardToRnnPreProcessor",
+           "PREPROCESSOR_REGISTRY", "Preprocessor", "RnnToCnnPreProcessor",
+           "RnnToFeedForwardPreProcessor", "preprocessor_from_dict",
            "preprocessor_to_dict"]
 
 
@@ -73,8 +77,85 @@ class FeedForwardToCnnPreProcessor(Preprocessor):
                                        self.channels)
 
 
+@dataclass
+class RnnToFeedForwardPreProcessor(Preprocessor):
+    """``[N, F, T]`` to ``[N T, F]`` (time folded into the batch, row n T
+    + t)."""
+
+    def apply(self, x, mask=None):
+        n, f, t = x.shape
+        return x.permute(0, 2, 1).reshape(n * t, f)
+
+    def output_type(self, it):
+        return InputType.feed_forward(it.size)
+
+
+@dataclass
+class FeedForwardToRnnPreProcessor(Preprocessor):
+    """``[N T, F]`` to ``[N, F, T]``."""
+
+    timesteps: int = 1
+
+    def apply(self, x, mask=None):
+        nt, f = x.shape
+        n = nt // self.timesteps
+        return x.reshape(n, self.timesteps, f).permute(0, 2, 1)
+
+    def output_type(self, it):
+        return InputType.recurrent(it.size, self.timesteps)
+
+
+@dataclass
+class CnnToRnnPreProcessor(Preprocessor):
+    """``[N T, C, H, W]`` to ``[N, C H W, T]`` (each example's flattened
+    features one step of its sequence; NHWC input goes back to NCHW
+    first)."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+    timesteps: int = 1
+    data_format: str = "NCHW"
+
+    def apply(self, x, mask=None):
+        if self.data_format == "NHWC" and x.dim() == 4:
+            x = x.permute(0, 3, 1, 2)
+        nt = x.shape[0]
+        n = nt // self.timesteps
+        return x.reshape(nt, -1).reshape(n, self.timesteps, -1) \
+            .permute(0, 2, 1)
+
+    def output_type(self, it):
+        return InputType.recurrent(it.flat_size(), self.timesteps)
+
+
+@dataclass
+class RnnToCnnPreProcessor(Preprocessor):
+    """``[N, F, T]`` to ``[N T, C, H, W]`` (``[N T, H, W, C]`` under
+    internal NHWC)."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+    data_format: str = "NCHW"
+
+    def apply(self, x, mask=None):
+        n, f, t = x.shape
+        y = x.permute(0, 2, 1).reshape(n * t, self.channels, self.height,
+                                       self.width)
+        if self.data_format == "NHWC":
+            y = y.permute(0, 2, 3, 1)
+        return y
+
+    def output_type(self, it):
+        return InputType.convolutional(self.height, self.width,
+                                       self.channels)
+
+
 PREPROCESSOR_REGISTRY = {c.__name__: c for c in (
-    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)}
+    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
+    RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor,
+    CnnToRnnPreProcessor, RnnToCnnPreProcessor)}
 
 
 def preprocessor_to_dict(p: Preprocessor) -> dict:
@@ -88,13 +169,8 @@ def preprocessor_to_dict(p: Preprocessor) -> dict:
 
 
 def preprocessor_from_dict(d: dict) -> Preprocessor:
-    """The inverse of :func:`preprocessor_to_dict`; the preprocessors
-    the port does not have are refused."""
+    """The inverse of :func:`preprocessor_to_dict`."""
     d = dict(d)
-    name = d.pop("@class")
-    cls = PREPROCESSOR_REGISTRY.get(name)
-    if cls is None:
-        raise NotImplementedError(
-            f"preprocessor {name!r} is not ported yet (ROADMAP.md A2)")
+    cls = PREPROCESSOR_REGISTRY[d.pop("@class")]
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in d.items() if k in names})

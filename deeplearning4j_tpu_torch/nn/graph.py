@@ -10,8 +10,9 @@ DataSet, ``(features, labels)`` or an iterator, one optimizer step per
 batch, or ``steps_per_dispatch=K`` batches as one CUDA graph on the
 card, with listeners, tail padding and device prefetch: the fit loop of
 ``nn/network_base.py``; and ``score``), ``evaluate`` (the ``eval/``
-classes fed the f32 heads of ``output()``), and the fused execution
-plans of the CNN stack. PyTorch runs eagerly, so there is no jit cache: each call
+classes fed the f32 heads of ``output()``), ``summary`` (the JAX
+package's vertex table), and the fused execution plans of the CNN
+stack. PyTorch runs eagerly, so there is no jit cache: each call
 runs the vertex loop directly, and a train step is one autograd pass
 over it, with batch statistics in every BN (``fit`` trains ResNet50 on
 every execution plan). A labels mask reaches only the loss, as in the
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -72,6 +74,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.nn.conf.network import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.network_base import BF16, NetworkBase
+from deeplearning4j_tpu_torch.nn.updater import tree_leaves
 
 __all__ = ["ComputationGraph"]
 
@@ -130,6 +133,29 @@ class ComputationGraph(NetworkBase):
         self._stream_pos_map = {}
         self._initialized = True
         return self
+
+    def summary(self) -> str:
+        """The vertex table (the JAX package's text): name, layer or
+        vertex type, inputs and parameter count a vertex in topological
+        order, then the total."""
+        self._infer_types()
+        lines = ["=" * 80,
+                 f"{'vertex':<24}{'type':<26}{'inputs':<20}{'params':<10}",
+                 "-" * 80]
+        total = 0
+        for name in self._topo:
+            v = self.conf.vertices[name]
+            nparams = sum(int(np.prod(p.shape)) for p in
+                          tree_leaves(self.params.get(name, {})))
+            total += nparams
+            tname = type(v.layer).__name__ if isinstance(v, LayerVertex) \
+                else type(v).__name__
+            ins = ",".join(self.conf.vertex_inputs.get(name, []))
+            lines.append(f"{name:<24}{tname:<26}{ins:<20}{nparams:<10}")
+        lines.append("-" * 80)
+        lines.append(f"Total params: {total}")
+        lines.append("=" * 80)
+        return "\n".join(lines)
 
     def _layer_items(self):
         for name, v in self.conf.vertices.items():

@@ -7,7 +7,9 @@ layer-by-layer forward, ``output``, the streaming ``rnn_time_step`` /
 ``steps_per_dispatch=K`` batches as one CUDA graph on the card, truncated
 BPTT when the configuration asks for it, with listeners, tail padding
 and device prefetch: the fit loop of ``nn/network_base.py``),
-``score``, ``evaluate`` and ``evaluate_regression``.
+``score``, ``evaluate`` and ``evaluate_regression``, ``feed_forward``
+(every layer's activation), ``summary`` (the JAX package's layer table,
+character for character) and ``clone``.
 PyTorch runs eagerly: each call runs the layer loop directly, and a
 train step is one autograd pass over it (``nn/network_base.py``).
 
@@ -31,8 +33,12 @@ jitted call). As there, a tBPTT batch (``[N, C, T]`` under
 ``[N, T]`` mask in ``output(mask=)`` reaches the LSTM layers (masked
 steps carry h and c through and output zeros). In ``fit`` a labels mask
 reaches only the loss, as in the JAX ``_loss`` (the example weights of
-tail padding); features masks are refused (ROADMAP.md A6), as is
-``pretrain`` (A2, with LeNet on this network). ``evaluate`` and
+tail padding); features masks are refused (ROADMAP.md A6), as is a mask
+through a preprocessor, and ``pretrain`` (it pretrains AutoEncoder and
+VAE layers, ROADMAP.md A11). A layer's preprocessor
+(``conf.preprocessors``: CNN / feed-forward / RNN adapters) reshapes its
+input before it runs, in the forward and in the loss, as in the JAX
+``_forward`` and ``_loss``. ``evaluate`` and
 ``evaluate_regression`` feed the ``eval/`` classes the f32 heads of
 ``output()`` as host arrays, as the JAX package does.
 
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -65,6 +72,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.nn.conf.network import (
     MultiLayerConfiguration, _infer_shapes_and_preprocessors)
 from deeplearning4j_tpu_torch.nn.network_base import BF16, NetworkBase
+from deeplearning4j_tpu_torch.nn.updater import tree_leaves, tree_map
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -139,6 +147,7 @@ class MultiLayerNetwork(NetworkBase):
         h = x
         for i in range(n):
             layer = self.layers[i]
+            h = self._preprocess(i, h, mask)
             s_i = state.get(str(i), {})
             if not carry_rnn:
                 s_i = {k: v for k, v in s_i.items()
@@ -157,6 +166,18 @@ class MultiLayerNetwork(NetworkBase):
             new_state[str(i)] = state.get(str(i), {})
         return acts, new_state
 
+    def _preprocess(self, i, h, mask):
+        """Layer ``i``'s preprocessor applied to its input ``h`` (a mask
+        through one is refused, ROADMAP.md A6)."""
+        pre = self.conf.preprocessors.get(i)
+        if pre is None:
+            return h
+        if mask is not None:
+            raise NotImplementedError(
+                f"a mask through {type(pre).__name__} is not ported yet "
+                "(ROADMAP.md A6)")
+        return pre.apply(h)
+
     def _loss(self, params, state, x, y, *, train=True, carry_rnn=False,
               gens=None, lmask=None):
         """The output layer's loss on the f32 promotion of its
@@ -174,7 +195,7 @@ class MultiLayerNetwork(NetworkBase):
         acts, new_state = self._forward(cparams, state, cx, train=train,
                                         carry_rnn=carry_rnn, upto=out_idx,
                                         gens=gens)
-        h = acts[-1] if acts else cx
+        h = self._preprocess(out_idx, acts[-1] if acts else cx, None)
         preout = out_layer.preout(
             cparams[str(out_idx)], h, train=train,
             gen=gens.get(str(out_idx)) if gens else None)
@@ -273,6 +294,20 @@ class MultiLayerNetwork(NetworkBase):
                                     train=train, mask=m, gens=gens)
         return f32_head(acts[-1])
 
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation (``[i]`` is layer i's output, after
+        its preprocessor and the layer), each promoted to f32 as
+        ``output()``'s; ``train=True`` runs the training forward, drawing
+        from a step of the training generator."""
+        if not self._initialized:
+            self.init()
+        gens = self._step_gens() if train else None
+        with torch.no_grad():
+            acts, _ = self._forward(self._compute_params(), self.state,
+                                    self._cast_compute({}, self._tensor(x))[1],
+                                    train=train, gens=gens)
+        return [f32_head(a) for a in acts]
+
     def rnn_time_step(self, x, pad_left=None):
         """Stateful streaming inference: run one chunk ``[N, F, T]``
         through the carried state (each LSTM layer's h / c, attention
@@ -366,11 +401,51 @@ class MultiLayerNetwork(NetworkBase):
         return self.output(ds.features, mask=ds.features_mask)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # info
+    # ------------------------------------------------------------------
+    def summary(self) -> str:
+        """The layer table (the JAX package's text): index, layer type,
+        output type and parameter count a layer, then the total."""
+        its = self.conf.layer_input_types()
+        lines = ["=" * 72,
+                 f"{'idx':<4}{'layer':<28}{'out type':<24}{'params':<12}",
+                 "-" * 72]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            nparams = sum(int(np.prod(p.shape)) for p in
+                          tree_leaves(self.params.get(str(i), {})))
+            total += nparams
+            ot = layer.output_type(its[i])
+            lines.append(f"{i:<4}{type(layer).__name__:<28}"
+                         f"{str(ot.to_dict()):<24}{nparams:<12}")
+        lines.append("-" * 72)
+        lines.append(f"Total params: {total}")
+        lines.append("=" * 72)
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same configuration (through its JSON) with
+        copies of the parameters and state on the same device; nothing
+        is shared with this one."""
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_dict(self.conf.to_dict()))
+        if self._initialized:
+            net.init(device=self.device)
+            net.params = tree_map(_copy, self.params)
+            net.state = tree_map(_copy, self.state)
+        return net
+
+    # ------------------------------------------------------------------
+    # not ported
     # ------------------------------------------------------------------
     def pretrain(self, iterator, epochs: int = 1):
-        raise NotImplementedError("layerwise pretraining is not ported yet "
-                                  "(ROADMAP.md A2)")
+        raise NotImplementedError(
+            "layer-wise pretraining (AutoEncoder and VAE layers) is not "
+            "ported yet (ROADMAP.md A11)")
+
+
+def _copy(a):
+    return a.detach().clone() if torch.is_tensor(a) else a
 
 
 def _refuse_masks(ds: DataSet) -> None:

@@ -100,9 +100,10 @@ compute copy of the parameters. A failed capture or replay is a
 dispatch fault like any other: the step never re-runs eagerly. On the
 CPU the same device part runs eagerly.
 
-Still to come (ROADMAP.md A7): speculation drafted by a second network,
-``speculative_beam_search``, the persisted int8 verdict; the choice of
-decode read path (``decode_impl``: the port has one on the card, the
+Speculation drafted by a second network is the one-shot
+``util.decoding.speculative_sample`` (the JAX engine refuses a network
+draft too), beside ``speculative_beam_search``. Not ported: the choice
+of decode read path (``decode_impl``: the port has one on the card, the
 kernel). ``sample_stream_batch`` waits for masked streaming (ROADMAP.md
 A6). The fleet's hooks (``detach_ledger``, ``detach_queued``,
 ``load_stats``, the prefix chain export and import) come with the fleet
@@ -187,8 +188,9 @@ class SpeculationConfig:
     proposals a slot makes a step; the verify forward has the fixed
     ``[S, V, 1+gamma]`` width whatever each row proposed (short rows
     pad with dummies that causality hides and the per-row rewind
-    drops). Drafting with a second network stays on the one-shot
-    ``speculative_sample`` path (not ported yet, ROADMAP.md A7)."""
+    drops). Drafting with a second network is the one-shot
+    ``util.decoding.speculative_sample`` (as in the JAX package, the
+    engine refuses a network draft)."""
 
     draft: Callable
     gamma: int = 4
@@ -201,8 +203,9 @@ class SpeculationConfig:
             raise TypeError(
                 "in-engine speculation takes a host proposer callable "
                 "(ids, gamma) -> proposals, e.g. "
-                "util.decoding.prompt_lookup_proposer(); model-based "
-                "drafting stays on the one-shot speculative_sample path")
+                "util.decoding.prompt_lookup_proposer(); to draft with "
+                "a network use the one-shot "
+                "util.decoding.speculative_sample(net, draft, ...)")
 
 
 class GenerationEngine:
@@ -1127,20 +1130,27 @@ class GenerationEngine:
     def _quarantine_rebuild(self, exc: Optional[BaseException] = None
                             ) -> int:
         """Drop the (possibly poisoned) arena WHOLESALE and rebuild it
-        from the host-side request ledger: a fresh page pool, tables and
-        prefix cache (re-seeded by the re-primes), a fresh arena on the
-        first re-admission, every survivor re-primed from prompt +
-        committed tokens with its pending token and untouched rng.
-        Returns the survivors re-admitted. Runs under the step lock.
+        from the host-side request ledger: a fresh page pool (the page
+        allocator), tables and prefix cache (re-seeded by the re-primes),
+        the page store zeroed, a fresh arena on the first re-admission,
+        every survivor re-primed from prompt + committed tokens with its
+        pending token and untouched rng. Returns the survivors
+        re-admitted. Runs under the step lock.
 
-        The device memory the old arena held is released before the
-        re-primes allocate anew: the pools and scale sidecars, the
-        cached table, the views in ``net.state``, and the locals of the
-        failed cycle's frames in ``exc``'s traceback (which would
-        otherwise keep the old pools alive as long as the supervisor
-        keeps the fault). An int8 store restarts from zeroed pools and
-        scales, so no page of a re-prime reads a scale the old arena
-        left.
+        The page store (the pools and, int8, the scale sidecars) is the
+        one device allocation of the arena too large for the caching
+        allocator's exact small blocks, so it is made once, at its first
+        build, and a rebuild zeroes it in place (``_zero_page_store``)
+        rather than allocating it anew: a fresh
+        large block may be handed a cached block up to 1 MiB bigger
+        than asked, whole, so its counted bytes depend on what the
+        process freed before (ROADMAP.md C9). Zeroed pools and scales
+        also mean no page of a re-prime reads a scale the old arena
+        left. The rest of the old arena's device memory is released
+        before the re-primes allocate anew: the cached table, the views
+        in ``net.state``, and the locals of the failed cycle's frames in
+        ``exc``'s traceback (which would otherwise keep them alive as
+        long as the supervisor keeps the fault).
 
         A fault raised inside the re-admissions strands nobody: every
         survivor not seated by then fails with it before it escalates.
@@ -1162,16 +1172,11 @@ class GenerationEngine:
             self._pool = PagePool(self._pool.total_pages, self._ps)
             self._prefix = (PrefixCache(self._pool)
                             if self._prefix is not None else None)
-            self._page_store = None
-            self._scale_store = None
-            self._paged_keys = None
             self._page_tables = [[] for _ in range(self.slots)]
-            self._table_dev = None
             self._kv_pos_dirty = False   # the rebuilt state is fresh
-            if self._kv_dtype == "int8":
-                # zeroed pools and scales before the re-primes, which
-                # write through them (bf16 rebuilds lazily)
-                self._init_quant_store()
+            # zeroed pools and scales before the re-primes, which write
+            # through them (int8) or into them
+            self._zero_page_store()
         self._sync_accounting()
         if self._overload is not None:
             # the replacement pool starts fresh: recompute the rung so
@@ -1328,8 +1333,8 @@ class GenerationEngine:
     def _init_quant_store(self) -> None:
         """The int8 store (``serving/quant.py``): zeroed ``[P, Hkv,
         page_size, D]`` int8 pools and ``[P, Hkv]`` f32 scale sidecars,
-        two leaves (k, v) per attention layer. Built at construction and
-        again by a rebuild."""
+        two leaves (k, v) per attention layer. Built at construction; a
+        rebuild zeroes it in place (:meth:`_zero_page_store`)."""
         self._paged_keys = [(n, k) for n, _, _ in self._quant_dims
                             for k in ("kv_k", "kv_v")]
         self._page_store, self._scale_store = pool_leaves(
@@ -1339,6 +1344,18 @@ class GenerationEngine:
         self._tok_bytes = sum(2 * h * d for _, h, d in self._quant_dims)
         self._scale_row_bytes = sum(2 * h * 4
                                     for _, h, _ in self._quant_dims)
+
+    def _zero_page_store(self) -> None:
+        """A rebuild's store: the pools (and int8 scale sidecars) built
+        first, zeroed in place, and a new page table; with no store yet
+        (a bf16 store before its first arena) the first re-admission
+        builds one."""
+        if self._page_store is None:
+            self._table_dev = None
+            return
+        for t in list(self._page_store) + list(self._scale_store or ()):
+            t.zero_()
+        self._table_dev = self._new_table()
 
     def _paged_view(self, table):
         """``{layer name: {view key: tensor}}``: each paged layer's pools

@@ -25,6 +25,12 @@ the port's own, ``KERNEL_CROSSOVER_TORCH.json`` in the working directory
 or else at the repository root (git-ignored; the JAX package's
 ``KERNEL_CROSSOVER.json`` is never read or written here).
 
+The serving int8 verdict is persisted on request only
+(``chip_smoke.py --calibrate``, as the JAX package's ``BENCH_CALIBRATE``
+run): :func:`record_quant_verdict` records an engine's measured int8
+and bf16 ms a token under its ``_quant_key`` into the default store and
+saves it, so a fresh process's ``kv_dtype="auto"`` reads it.
+
 Telemetry, the JAX package's series: ``dl4jtpu_autotune_decisions_total
 {domain,choice}`` counts every ``choose`` (choice kernel, fallback or
 default) and ``dl4jtpu_autotune_calibrations_total{domain,choice}``
@@ -48,9 +54,9 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve_device
 
 __all__ = ["CROSSOVER_NAME", "IMPL_REVS", "KernelCrossoverStore",
-           "bottleneck_fingerprint", "decode_fingerprint", "default_path",
-           "default_store", "device_platform", "fingerprint",
-           "quant_fingerprint", "reset_default_store", "stem_fingerprint",
+           "bottleneck_fingerprint", "decode_fingerprint", "default_path", "default_store",
+           "device_platform", "fingerprint", "quant_fingerprint",
+           "record_quant_verdict", "reset_default_store", "stem_fingerprint",
            "winner"]
 
 log = logging.getLogger(__name__)
@@ -386,3 +392,19 @@ def reset_default_store(store: Optional[KernelCrossoverStore] = None
     global _default_store
     with _default_lock:
         _default_store = store
+
+
+def record_quant_verdict(quant_key: str, int8_tokens_per_s: float,
+                         bf16_tokens_per_s: float, *, device,
+                         store: Optional[KernelCrossoverStore] = None
+                         ) -> dict:
+    """Record a serving run's int8 verdict, ``kernel_ms`` the int8 pool's
+    ms a token and ``fallback_ms`` the bf16 pool's, stamped with
+    ``device``, into ``store`` (default: :func:`default_store`, at
+    :func:`default_path`) and save it. Returns the merged entry."""
+    store = store if store is not None else default_store()
+    entry = store.record(quant_key, 1e3 / float(int8_tokens_per_s),
+                         1e3 / float(bf16_tokens_per_s), device=device,
+                         source="calibrate")
+    store.save()
+    return entry

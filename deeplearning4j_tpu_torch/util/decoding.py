@@ -9,9 +9,9 @@ speculation: the widened verify forward (``verify_tokens``), the
 rejection walk (``accept_proposals``) and the draft-free
 ``prompt_lookup_proposer``; and single-prompt ``beam_search`` (the
 beams ride the batch dimension, pruning gathers the carried state with
-``reorder_stream_state``). Still to come (ROADMAP.md A7):
-``speculative_sample`` with a model draft and
-``speculative_beam_search``; ``sample_stream_batch``,
+``reorder_stream_state``); the one-shot ``speculative_sample``, drafted
+by a second streaming network or a host proposer, and
+``speculative_beam_search``. Still to come: ``sample_stream_batch``,
 ``beam_search_batch`` and ``speculative_sample_batch`` prime a batch of
 prompts left-padded under a carried key mask, which waits for masked
 streaming (ROADMAP.md A6).
@@ -35,7 +35,8 @@ import torch
 
 __all__ = ["accept_proposals", "beam_search", "draw", "filter_probs",
            "prime_prompt", "prompt_lookup_proposer", "sample_stream",
-           "step_tokens", "stop_reason", "verify_tokens"]
+           "speculative_beam_search", "speculative_sample", "step_tokens",
+           "stop_reason", "verify_tokens"]
 
 
 def _vocab(net) -> int:
@@ -387,3 +388,302 @@ def _beam_update(logp, scores, alive, beams, stop_set, finished, W, V):
     alive, stop = _beam_finish(tokens, scores, alive, beams, stop_set,
                                finished, W)
     return parents, tokens, scores, alive, beams, stop
+
+
+def _check_draft(draft, vocab: int) -> bool:
+    """Whether ``draft`` is a host proposer callable (True) or a
+    streaming network of the target's vocabulary (False)."""
+    if not hasattr(draft, "rnn_time_step"):
+        if not callable(draft):
+            raise TypeError("draft must be a streaming net or a callable "
+                            "(ids, gamma) -> proposals")
+        return True
+    if _vocab(draft) != vocab:
+        raise ValueError(f"the draft's vocabulary {_vocab(draft)} != the "
+                         f"target's {vocab}")
+    return False
+
+
+def speculative_sample(net, draft, seed_ids, steps: int, vocab_size: int,
+                       gamma: int = 4, temperature: float = 1.0,
+                       rng: Optional[np.random.Generator] = None,
+                       max_length: Optional[int] = None,
+                       top_k: Optional[int] = None,
+                       top_p: Optional[float] = None,
+                       prime_padded: bool = False,
+                       prime_chunk_max: Optional[int] = None,
+                       stop_tokens=()) -> List[int]:
+    """One-shot speculative decoding (the JAX package's
+    ``speculative_sample``, the Leviathan et al. 2023 rejection scheme):
+    ``draft`` proposes up to ``gamma`` tokens, the target ``net`` scores
+    the pending token and every proposal in ONE forward, and
+    :func:`accept_proposals` keeps the longest accepted prefix. The
+    target's sampling distribution is preserved exactly; with top_k=1
+    the tokens are greedy :func:`sample_stream`'s.
+
+    ``draft`` is a same-vocabulary streaming network (each proposal a
+    draw from its filtered distribution, one draft forward a proposal)
+    or a host callable ``(ids, gamma) -> proposals`` such as
+    :func:`prompt_lookup_proposer` (a one-hot draft). Both networks must
+    rewind (:func:`check_rewindable`: the text LSTM refuses); after each
+    round the rejected positions rewind on both. The committed token a
+    round ends with rides the front of the next round's verify chunk
+    instead of a dispatch of its own. ``temperature``, ``top_k`` and
+    ``top_p`` filter the target's and the draft's distributions alike;
+    generation ends at the first ``stop_tokens`` member committed (kept
+    as the final id) or at ``max_length`` ids. The rng is consumed in
+    the JAX package's order, so a sampled stream matches it token for
+    token wherever the distributions agree.
+
+    The port primes each network in one unpadded chunk:
+    ``prime_padded`` and ``prime_chunk_max`` are accepted and change
+    nothing."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        check_rewindable, rewind_stream_state)
+    del prime_padded, prime_chunk_max   # one unpadded prime chunk
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    _check_seed(seed_ids, steps, max_length)
+    V = _vocab(net)
+    if V != vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} != the net's input "
+                         f"size {V}")
+    rng = rng or np.random.default_rng(0)
+    ids = list(seed_ids)
+    draft_is_fn = _check_draft(draft, V)
+    # fail fast: a net that cannot rewind would fail only at the first
+    # rejection, mid-generation
+    check_rewindable(net, gamma)
+    if not draft_is_fn:
+        check_rewindable(draft, gamma)
+
+    def filt(p):
+        return filter_probs(p, temperature, top_k, top_p)
+
+    net.rnn_clear_previous_state()
+    # the target's filtered distribution of the NEXT token, given what
+    # its cache has consumed
+    p_next = filt(prime_prompt(net, ids))
+    if not draft_is_fn:
+        draft.rnn_clear_previous_state()
+        q_next = filt(prime_prompt(draft, ids))
+    want = len(seed_ids) + steps
+    if max_length is not None:
+        want = min(want, max_length)
+    stop_set = set(stop_tokens)
+
+    def stop_cut(start):
+        """Index just past the first stop token at or after ``start``,
+        or -1."""
+        for j in range(start, len(ids)):
+            if ids[j] in stop_set:
+                return j + 1
+        return -1
+
+    # the committed, not yet consumed, last id rides the front of the
+    # next verify chunk: every round is ONE target forward
+    pending = None
+    while len(ids) < want:
+        g = min(gamma, want - len(ids))
+        if draft_is_fn:
+            proposals = [int(t) for t in draft(ids, g)][:g]
+            g = len(proposals)
+            q_dists = [None] * g       # a deterministic proposer
+        else:
+            proposals, q_dists = [], []
+            if pending is not None:
+                q_next = filt(step_tokens(draft, [pending])[0])
+            q = q_next
+            for _ in range(g):
+                d = int(rng.choice(V, p=q))
+                proposals.append(d)
+                q_dists.append(q)
+                q = filt(step_tokens(draft, [d])[0])
+        chunk = ([] if pending is None else [pending]) + proposals
+        if not chunk:                  # nothing proposed, nothing pending
+            nxt = int(rng.choice(V, p=p_next))
+            ids.append(nxt)
+            if nxt in stop_set:
+                return ids
+            pending, p_next = nxt, None
+            continue
+        tp = verify_tokens(net, [chunk])[0]            # [V, len(chunk)]
+        off = len(chunk) - g                           # 1 when pending rode
+        if pending is not None:
+            pending = None
+            p_next = filt(tp[:, off - 1])
+        if g == 0:                     # a plain step
+            nxt = int(rng.choice(V, p=p_next))
+            ids.append(nxt)
+            if nxt in stop_set:
+                return ids
+            pending, p_next = nxt, None
+            continue
+        p_dists = [p_next] + [filt(tp[:, off + i]) for i in range(g - 1)]
+        p_bonus = filt(tp[:, off + g - 1])
+        accepted, nxt = accept_proposals(proposals, p_dists, q_dists,
+                                         p_bonus, rng)
+        base = len(ids)
+        ids.extend(proposals[:accepted])
+        ids.append(nxt)
+        if stop_set:
+            cut = stop_cut(base)
+            if cut >= 0:
+                # plain decoding stops at ``want`` before a later stop
+                return ids[:min(cut, want)]
+        pending, p_next = nxt, None
+        rewind_stream_state(net, g - accepted)
+        if not draft_is_fn:
+            rewind_stream_state(draft, g - accepted)
+    return ids[:want]
+
+
+def speculative_beam_search(net, draft, seed_ids, steps: int,
+                            vocab_size: int, beam_width: int = 4,
+                            gamma: int = 4,
+                            max_length: Optional[int] = None,
+                            prime_chunk_max: Optional[int] = None,
+                            stop_tokens=()) -> Tuple[List[int], float]:
+    """Beam search accelerated by speculation (the JAX package's
+    ``speculative_beam_search``): its (sequence, score) equal
+    :func:`beam_search`'s, and the target runs once a round instead of
+    once a step.
+
+    ``draft`` proposes a continuation for every beam: a host proposer
+    ``(ids, gamma) -> proposals`` (the round's depth is the shortest
+    list), or a same-vocabulary streaming network, the beam-synchronized
+    greedy model draft, which streams the same W-row batch and mirrors
+    every feed, rewind and reorder (:func:`reorder_stream_state`), so
+    its caches hold the committed beam prefixes. One batched target
+    forward scores each beam's pending token and its proposals; the
+    walk replays :func:`_beam_update` step by step from those
+    distributions. A drafted step is accepted while the true update
+    extends each beam with its own proposal (identity parents, the
+    drafted tokens, nothing finishing); the first divergence applies the
+    true update from the same forward, the uniform over-consumed tail
+    rewinds, and the corrected tokens ride the next round as the
+    pending front. A round with a finished slot drafts nothing (one
+    corrected step).
+
+    The beam batch is W = min(beam_width, V) rows, as in
+    :func:`beam_search` (the JAX package pads it to a power of two;
+    the result does not depend on it); ``prime_chunk_max`` is accepted
+    and changes nothing."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        check_rewindable, reorder_stream_state, rewind_stream_state)
+    del prime_chunk_max                 # one unpadded prime chunk
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    V = _vocab(net)
+    if V != vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} != the net's input "
+                         f"size {V}")
+    draft_is_fn = _check_draft(draft, V)
+    _check_seed(seed_ids, steps, max_length)
+    check_rewindable(net, gamma)
+    if not draft_is_fn:
+        check_rewindable(draft, gamma)
+    stop_set = set(stop_tokens)
+    W = min(beam_width, V)
+    net.rnn_clear_previous_state()
+    logp0 = np.log(np.clip(prime_prompt(net, seed_ids), 1e-12, None))
+    reorder_stream_state(net, np.zeros(W, np.int64))
+    if not draft_is_fn:
+        draft.rnn_clear_previous_state()
+        prime_prompt(draft, seed_ids)
+        reorder_stream_state(draft, np.zeros(W, np.int64))
+
+    # the first expansion: beam_search's, the top-W first tokens of beam
+    # 0 (f32 scores); they are round 1's pending front
+    top = np.argsort(logp0)[::-1][:W]
+    beams = [list(seed_ids) + [int(t)] for t in top]
+    scores = logp0[top]
+    alive = np.ones(W, bool)
+    finished = []
+    pending = top.astype(np.int64)      # [W] committed, not yet consumed
+    committed = 1
+    want = steps
+    if max_length is not None:
+        want = min(want, max_length - len(seed_ids))
+    alive, stop_now = _beam_finish(top, scores, alive, beams, stop_set,
+                                   finished, W)
+    decided = committed >= want or stop_now
+
+    while not decided:
+        # a common depth for the collective acceptance: 0 is a
+        # correction-only round, one dispatch a step (plain beam's rate)
+        g = min(gamma, want - committed - 1)
+        proposals = None
+        if g > 0 and alive.all():
+            if draft_is_fn:
+                plists = [[int(t) for t in draft(beams[w], g)][:g]
+                          for w in range(W)]
+                g = min(len(p) for p in plists)
+                if g > 0:
+                    proposals = np.asarray([p[:g] for p in plists],
+                                           np.int64)      # [W, g]
+            else:
+                # greedy: the pending front, then each argmax; the draft
+                # consumes 1 + g tokens as the target does
+                out_d = step_tokens(draft, pending)
+                props = []
+                for _ in range(g):
+                    nxt = out_d.argmax(axis=1).astype(np.int64)
+                    props.append(nxt)
+                    out_d = step_tokens(draft, nxt)
+                proposals = np.stack(props, axis=1)       # [W, g]
+        if proposals is None:
+            g = 0
+            if not draft_is_fn:
+                # the draft consumes the pending front all the same, to
+                # stay at the target's positions
+                step_tokens(draft, pending)
+        chunk = np.zeros((W, 1 + g), np.int64)
+        chunk[:, 0] = pending
+        if g:
+            chunk[:, 1:] = proposals
+        tp = verify_tokens(net, chunk)                     # [W, V, 1+g]
+
+        accepted = 0
+        stop_now = False
+        parents = tokens = None
+        # committed + g + 1 <= want: every walk step is in the budget
+        for j in range(g + 1):
+            logp = np.log(np.clip(tp[:, :, j], 1e-12, None))
+            parents, tokens, scores, alive, beams, stop_now = \
+                _beam_update(logp, scores, alive, beams, stop_set,
+                             finished, W, V)
+            committed += 1
+            if stop_now:
+                break
+            if j < g and np.array_equal(parents, np.arange(W)) \
+                    and np.array_equal(tokens, proposals[:, j]) \
+                    and alive.all():
+                accepted += 1
+                parents = tokens = None   # advanced as drafted
+                continue
+            break                         # a divergence, or the bonus
+
+        # the over-consumed drafted tail, the same on every row
+        over = g - accepted
+        if over:
+            rewind_stream_state(net, over)
+            if not draft_is_fn:
+                rewind_stream_state(draft, over)
+        if committed >= want or stop_now:
+            break
+        # the walk ends on a true update: the caches follow the new
+        # beam assignment and its tokens are the next pending front
+        if not np.array_equal(parents, np.arange(W)):
+            reorder_stream_state(net, parents)
+            if not draft_is_fn:
+                reorder_stream_state(draft, parents)
+        pending = np.asarray(tokens, np.int64)
+
+    live = [(beams[w], float(scores[w])) for w in range(W)
+            if alive[w] and np.isfinite(scores[w])]
+    pool = finished if finished else live
+    if not pool:
+        pool = [(beams[w], float(scores[w])) for w in range(W)]
+    best_seq, best_score = max(pool, key=lambda bs: bs[1])
+    return best_seq, best_score

@@ -18,8 +18,9 @@ The zip is written through ``resilience/durable.py``'s
 ``restore_*`` build the network from the configuration on ``device``
 (default ``"cuda"``, as every entry point; ``device="cpu"`` on the
 host), then load each tree over the initialized one, names and shapes
-checked. Normalizers in the archive come with the datasets' normalizers
-(ROADMAP.md A2).
+checked. A fitted normalizer rides in the archive as ``normalizer.json``
+(``add_normalizer_to_model`` / ``restore_normalizer_from_file``, the JAX
+package's JSON form: each package restores the other's).
 """
 
 from __future__ import annotations
@@ -178,13 +179,30 @@ def restore_model(path: str, load_updater: bool = True, device=None):
     return restore_computation_graph(path, load_updater, device)
 
 
+NORMALIZER_JSON = "normalizer.json"
+
+
 def add_normalizer_to_model(path: str, normalizer) -> None:
-    """Refused: normalizers port with the datasets (ROADMAP.md A2)."""
-    raise NotImplementedError("normalizers in model archives are not "
-                              "ported yet (ROADMAP.md A2)")
+    """Embed a fitted normalizer (``datasets/normalizers.py``) in an
+    existing archive as ``normalizer.json``, its ``to_json()``; an
+    archive holds one. The archive is rewritten whole and replaced
+    atomically, as ``write_model`` writes it."""
+    with zipfile.ZipFile(path) as src:
+        if NORMALIZER_JSON in src.namelist():
+            raise ValueError(f"{path} already contains a normalizer")
+        entries = [(i, src.read(i)) for i in src.infolist()]
+    with atomic_replace_path(path) as tmp:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
+            for info, data in entries:
+                zf.writestr(info, data)
+            zf.writestr(NORMALIZER_JSON, normalizer.to_json())
 
 
 def restore_normalizer_from_file(path: str):
-    """Refused: normalizers port with the datasets (ROADMAP.md A2)."""
-    raise NotImplementedError("normalizers in model archives are not "
-                              "ported yet (ROADMAP.md A2)")
+    """The archive's normalizer, or None when it holds none."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        normalizer_from_dict)
+    with zipfile.ZipFile(path) as zf:
+        if NORMALIZER_JSON not in zf.namelist():
+            return None
+        return normalizer_from_dict(json.loads(zf.read(NORMALIZER_JSON)))

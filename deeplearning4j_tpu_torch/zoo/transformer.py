@@ -114,6 +114,27 @@ class TextGenerationTransformer(ZooModel):
                              max_length=self.max_length, top_k=top_k,
                              top_p=top_p, stop_tokens=stop_tokens)
 
+    def speculative_sample(self, net, draft, seed_ids, steps: int,
+                           gamma: int = 4, vocab_size: int = None,
+                           rng=None, temperature: float = 1.0,
+                           top_k: int = None, top_p: float = None,
+                           prime_padded: bool = False, stop_tokens=()):
+        """Speculative decoding (``util/decoding.speculative_sample``):
+        ``draft`` proposes ``gamma`` tokens and this model verifies them
+        in ONE forward; the target distribution is preserved exactly
+        (top_k=1 is greedy ``sample_stream``'s tokens). ``draft`` is a
+        same-vocabulary streaming net (typically a smaller
+        TextGenerationTransformer) or a host proposer callable such as
+        ``decoding.prompt_lookup_proposer()``."""
+        from deeplearning4j_tpu_torch.util.decoding import speculative_sample
+        return speculative_sample(net, draft, seed_ids, steps,
+                                  vocab_size or self.vocab_size,
+                                  gamma=gamma, temperature=temperature,
+                                  rng=rng, max_length=self.max_length,
+                                  top_k=top_k, top_p=top_p,
+                                  prime_padded=prime_padded,
+                                  stop_tokens=stop_tokens)
+
     def beam_search(self, net, seed_ids, steps: int, beam_width: int = 4,
                     vocab_size: int = None, prime_padded: bool = False,
                     stop_tokens=()):

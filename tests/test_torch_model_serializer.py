@@ -22,9 +22,14 @@ package's, on the CPU.
 - ``restore_model`` sniffs the type; a dropout, a per-layer learning
   rate and a bias init (once read only at their defaults) are carried
   as the JAX package carries them, and a field the JAX layer does not
-  have is refused; the sequential fixture (ConvolutionMode "same", a
-  preprocessor) is refused naming A2; a failed write leaves the old
-  archive whole.
+  have is refused; a failed write leaves the old archive whole.
+- The sequential fixture ``regression_mln_v1.zip`` (ConvolutionMode
+  "same", BN, a pool, a CnnToFeedForwardPreProcessor; refused naming A2
+  until the sequential network's breadth was ported) restores in the
+  port: parameters on the fixture's checksum, output within ``OUT_ATOL``
+  of the stored one and 1e-5 of the JAX package's, its JSON key for
+  key. A normalizer archive either package writes restores in the
+  other.
 """
 
 import copy
@@ -41,6 +46,8 @@ import torch
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.nn.conf.network import (
     ComputationGraphConfiguration as JGraphConf)
+from deeplearning4j_tpu.nn.conf.network import (
+    MultiLayerConfiguration as JMLNConf)
 from deeplearning4j_tpu.util import model_serializer as jms
 from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.nn.conf.network import (
@@ -229,13 +236,71 @@ def test_a_field_the_port_lacks_is_taken_only_at_its_default(key, value):
 
 
 def test_the_sequential_fixture_is_refused_naming_a2():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        tms.restore_model(_p("regression_mln_v1.zip"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        MultiLayerConfiguration.from_json(
-            open(_p("regression_mln_v1.json")).read())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        tms.restore_normalizer_from_file(_p("regression_cg_v1.zip"))
+    """Once refused naming A2 (a ConvolutionMode "same" convolution and a
+    CnnToFeedForwardPreProcessor, ported now): ``regression_mln_v1.zip``
+    restores in the port with its parameters hashing to the fixture's
+    checksum, its output within OUT_ATOL of the stored one and within
+    1e-5 of the JAX package's restored net; its JSON round-trips key for
+    key; it carries no normalizer."""
+    net = tms.restore_model(_p("regression_mln_v1.zip"), device="cpu")
+    assert isinstance(net, MultiLayerNetwork)
+    assert _params_sha256(params_to_numpy(net.params)) == json.load(
+        open(_p("regression_checksums.json")))["mln_v1_params"]
+    x = np.load(_p("regression_mln_v1_input.npy"))
+    got = net.output(x).numpy()
+    np.testing.assert_allclose(got, np.load(_p("regression_mln_v1_output.npy")),
+                               atol=OUT_ATOL)
+    jnet = jms.restore_multi_layer_network(_p("regression_mln_v1.zip"))
+    np.testing.assert_allclose(got, np.asarray(jnet.output(x)), atol=1e-5)
+    text = open(_p("regression_mln_v1.json")).read()
+    conf = MultiLayerConfiguration.from_json(text)
+    assert conf.to_dict() == json.loads(text) == JMLNConf.from_json(
+        text).to_dict()
+    assert MultiLayerConfiguration.from_json(conf.to_json()).to_dict() == \
+        conf.to_dict()
+    assert tms.restore_normalizer_from_file(_p("regression_cg_v1.zip")) \
+        is None
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_normalizer_archive_restores_in_the_other_package(tmp_path,
+                                                            writer):
+    """``add_normalizer_to_model`` / ``restore_normalizer_from_file`` in
+    the JAX wire form (``normalizer.json``): an archive either package
+    wrote, with the normalizer either package added, restores in the
+    other, the network's output and the normalizer's transform equal."""
+    from deeplearning4j_tpu.datasets.normalizers import (
+        NormalizerStandardize as JStandardize)
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        NormalizerStandardize)
+    x = np.load(_p("regression_mln_v1_input.npy"))
+    path = str(tmp_path / "mln.zip")
+    if writer == "jax":
+        src = jms.restore_multi_layer_network(_p("regression_mln_v1.zip"))
+        jms.write_model(src, path)
+        jms.add_normalizer_to_model(path, JStandardize().fit(x))
+        net = tms.restore_model(path, device="cpu")
+        norm = tms.restore_normalizer_from_file(path)
+        want_out = np.asarray(src.output(x))
+        want_tx = JStandardize().fit(x).transform(x)
+        with pytest.raises(ValueError, match="already contains"):
+            tms.add_normalizer_to_model(path, norm)
+        np.testing.assert_allclose(net.output(x).numpy(), want_out,
+                                   atol=1e-5)
+    else:
+        src = tms.restore_model(_p("regression_mln_v1.zip"), device="cpu")
+        tms.write_model(src, path)
+        tms.add_normalizer_to_model(path, NormalizerStandardize().fit(x))
+        net = jms.restore_multi_layer_network(path)
+        norm = jms.restore_normalizer_from_file(path)
+        want_out = src.output(x).numpy()
+        want_tx = NormalizerStandardize().fit(x).transform(x)
+        with pytest.raises(ValueError, match="already contains"):
+            jms.add_normalizer_to_model(path, norm)
+        np.testing.assert_allclose(np.asarray(net.output(x)), want_out,
+                                   atol=1e-5)
+    assert type(norm).__name__ == "NormalizerStandardize"
+    np.testing.assert_array_equal(norm.transform(x), want_tx)
 
 
 def test_a_failed_write_leaves_the_old_archive_whole(tmp_path, monkeypatch):

@@ -7,7 +7,9 @@ the same device part of a dispatch runs eagerly.
   the layers share, the LSTM ``h`` / ``c``) keeps its address across decode
   and verify steps, admissions (an int8 prime writes through the pool),
   retirements and the verify's per-row rewinds, until a supervisor's
-  rebuild, after which every one of them has moved. The leaves are
+  rebuild, after which every one of them has moved but the page store
+  (the pools and scale sidecars, zeroed in place: ROADMAP.md C9). The
+  leaves are
   enumerated here from the engine's stores and ``net.state``, not from
   the engine's own list. With the device table rebuilt at every
   admission and retirement, as the engine did before the graph, the
@@ -145,7 +147,8 @@ def test_every_step_leaf_keeps_its_address_until_a_rebuild(nets, lstm,
         want.add("scales0")
     assert want <= {k.split(".")[-1] for k in names}
     assert moved == set()
-    assert kept == set()
+    # a rebuild moves every leaf but the page store, zeroed in place
+    assert kept == {k for k in names if k.startswith(("pool", "scales"))}
     if kind.endswith("spec"):
         assert eng.spec_proposed > 0         # verify rewinds were walked
 

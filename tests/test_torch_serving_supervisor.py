@@ -8,7 +8,8 @@ supervisor.py), re-pinned on the port.
   equal to an unperturbed run's, greedy and sampled, over the slot arena,
   the net's own page pool ("bf16" by name; f32 here), the int8 pool and
   speculation; a burst within the budget; the old arena's tensors are
-  released (weak references die); an int8 arena left with huge scales by
+  released (weak references die) but the page store, which is zeroed in
+  place before the re-primes; an int8 arena left with huge scales by
   the fault recovers only because the rebuild starts from zeroed pools
   (with the zeroing taken out the re-prime reads them and the streams
   change); a fault mid-rebuild strands nobody; an expired survivor fails
@@ -159,28 +160,45 @@ def test_a_burst_within_the_budget_costs_one_rebuild_a_fault(net):
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_the_rebuild_releases_the_old_arena(net, kv):
-    """Every tensor of the old arena dies with the rebuild (pools, scale
-    sidecars, the cached table, the views and rows in ``net.state``),
+    """Every tensor of the old arena but the page store dies with the
+    rebuild (the cached table, the views and rows in ``net.state``),
     even while the supervisor keeps the fault whose traceback saw them:
-    on the card the rebuild must not double the KV memory."""
+    on the card the rebuild must not double the KV memory. The page
+    store (the pools and, int8, the scale sidecars) is the one built
+    first, zeroed in place before the re-primes: a rebuild allocates no
+    large block, whose counted bytes would depend on the allocator's
+    cache (ROADMAP.md C9)."""
     eng = GenerationEngine(net, V, slots=2, device="cpu",
                            supervisor=EngineSupervisor(),
                            paging=PagedKVConfig(page_size=PS, kv_dtype=kv))
     hs = [eng.submit(p, steps=6, top_k=1) for p in PROMPTS[:2]]
     eng.step()
     eng.step()
-    old = [weakref.ref(t) for t in eng._page_store]
-    old += [weakref.ref(t) for t in eng._scale_store or ()]
-    old += [weakref.ref(eng._tables())]
+    store = list(eng._page_store) + list(eng._scale_store or ())
+    assert any(bool(t.any()) for t in store)
+    old = [weakref.ref(eng._tables())]
     old += [weakref.ref(v) for s in net.state.values()
             if isinstance(s, dict) for v in s.values()
-            if isinstance(v, torch.Tensor)]
+            if isinstance(v, torch.Tensor) and
+            not any(v is t for t in store)]
+    at_readmit = []
+    real_admit = eng._admit_one
+
+    def admit(req, slot, readmit=False):
+        if readmit and not at_readmit:     # the first re-prime's store
+            at_readmit.append([bool(t.any()) for t in store])
+        return real_admit(req, slot, readmit=readmit)
+    eng._admit_one = admit
     eng._decode_chaos = chaos.FaultBurstInjector(k=1)
     eng.step()                              # fault, rebuild
     gc.collect()
     assert eng._supervisor.rebuilds == 1
     assert eng._supervisor.last_fault is not None
     assert [r for r in old if r() is not None] == []
+    kept = list(eng._page_store) + list(eng._scale_store or ())
+    assert len(kept) == len(store) and all(
+        a is b for a, b in zip(kept, store))
+    assert at_readmit == [[False] * len(store)]
     eng.run_until_idle()
     assert all(h.result(timeout=0) for h in hs)
 
@@ -212,18 +230,9 @@ def test_an_int8_rebuild_starts_from_zeroed_pools(net, monkeypatch,
                            supervisor=EngineSupervisor(), **cfg)
     eng._decode_chaos = _poison_then_fault(eng)
     if not zeroed:
-        keep = {}
-        real = eng._init_quant_store
-
-        def no_zeroing():
-            if "store" in keep:               # the rebuild: keep the old
-                eng._paged_keys, eng._page_store, eng._scale_store = \
-                    keep["store"]
-                return
-            real()
-        monkeypatch.setattr(eng, "_init_quant_store", no_zeroing)
-        keep["store"] = (eng._paged_keys, eng._page_store,
-                         eng._scale_store)
+        def no_zeroing():                     # the old values kept
+            eng._table_dev = eng._new_table()
+        monkeypatch.setattr(eng, "_zero_page_store", no_zeroing)
     hs = [eng.submit(p, steps=5, top_k=1, rng=np.random.default_rng(i))
           for i, p in enumerate(PROMPTS[:3])]
     eng.run_until_idle()

@@ -360,7 +360,8 @@ def test_left_out_parts_raise(nets):
     # the [N, V, T] labels counts
     ev = tnet.evaluate(DataSet(x, y))
     assert ev.confusion.matrix.sum() == x.shape[0] * x.shape[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+    # layer-wise pretraining trains AutoEncoder / VAE layers (A11)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         tnet.pretrain(DataSet(x, y))
     with pytest.raises(ValueError, match="ComputationGraph"):
         TextGenerationLSTM(vocab_size=V, fuse=True).init(device="cpu")
